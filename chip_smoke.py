@@ -1,0 +1,704 @@
+#!/usr/bin/env python3
+"""Drive redisson_tpu_torch on one CUDA card and hold its kernels to their
+plain PyTorch versions.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases (any failure raises and the script exits non-zero):
+  1. the card's name and power limit; build the four kernels from csrc/
+     (one nvcc per source, all at once) and print the build seconds;
+  2. known answers: the CUDA hash chain, read back through hll_add and
+     bloom_set, gives the hashes the JAX package gives (constants below);
+  3. each kernel against its plain version on the card at the main path's
+     shapes (BASELINE configs 1-3), bit for bit; its time (CUDA events), the
+     plain version's time and the least time the card could take;
+  4. the main path through redisson_tpu_torch.create() on its default
+     device: config 2 (1,000-tenant bank, 10M keys, 100k-op contains
+     flushes), config 1 (one 1e7/0.01 filter), config 3 (10k HLL counters),
+     with every kernel's launch count read after the run;
+  5. a small op stream through create() on the card and on the CPU: equal
+     replies and equal final states.
+The second-to-last line is the kernels JSON; the last line is the ok JSON.
+Without a CUDA card, or without the package beside it, it exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes
+# per second, and the scalar 32-bit rate outside the tensor cores, used for
+# the kernels' integer operations (a lower bound: integer multiply and modulo
+# take more issue slots than a float32 add).
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# 32-bit integer operations in the source of csrc/hash.cuh and the kernels:
+# the two murmur chains of a u64 key (2 x (2 rounds of 10 + xor + fmix of 8)
+# + or), one bloom probe (mod, flat index, bounds, load, compare, step), one
+# HLL add (mask, clz, flat index, bounds, load, compare, CAS) and one
+# register of hll_rows (max, histogram increment).
+OPS_HASH_U64 = 59
+OPS_PROBE = 8
+OPS_HLL_ADD = 10
+OPS_ROW_REGISTER = 2
+
+# Known answers from redisson_tpu.utils.hashing (HASH_VERSION 1).
+KNOWN_U64 = {
+    "keys": [0, 1, -1, 2**63 - 1, -(2**63 - 1), 2654435761],
+    "h1": [773692376, 619189011, 1971636267, 3188012228, 3496309714, 2790771507],
+    "h2": [2051978889, 2153448555, 747893459, 3131649621, 951840697, 3584982511],
+}
+KNOWN_BYTES = {
+    "keys": [b"", b"a", b"abcd", b"abcde", b"hello world, seve"],
+    "h1": [3954623016, 298494453, 4031219239, 3068932636, 1541924002],
+    "h2": [1020716019, 2884439245, 2930714617, 2315107, 2468997313],
+}
+
+# BASELINE configurations (bench.py:36-340).
+C2_TENANTS, C2_PER_TENANT, C2_FLUSH, C2_INGEST = 1000, 10_000, 100_000, 1_000_000
+C1_N, C1_BATCH = 10_000_000, 1 << 20
+C3_TENANTS, C3_BATCH, C3_BATCHES = 10_000, 1_000_000, 10
+FPP = 0.01
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+def time_kernel(fn, reps: int = 20, warm=None) -> float:
+    """Median device ms per launch of fn(i), i < reps, after warm() (by
+    default fn(0)).  A sleep kernel holds the stream while the host enqueues
+    every launch, so the events bracket device work only, not host launch
+    overhead."""
+    (warm or (lambda: fn(0)))()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at H100 clocks
+    events[0].record()
+    for i in range(reps):
+        fn(i)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(reps))
+
+
+def time_plain(fn, reps: int = 5) -> float:
+    """Median ms of fn(i) between CUDA events (plain versions sync inside)."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sectors(flat_positions: torch.Tensor) -> int:
+    """Distinct 32-byte sectors a set of byte positions touches."""
+    return int(torch.unique(flat_positions.reshape(-1) // 32).numel())
+
+
+def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless the kernel's result equals the plain version's; return
+    their largest absolute difference (0 when they agree)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = (got.reshape(-1) != want.reshape(-1)).sum().item() if got.shape == want.shape else "shape"
+        raise AssertionError(f"{name}: kernel differs from its plain version ({diff})")
+    if got.numel() == 0:
+        return 0.0
+    return (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+
+
+def time_stream(name, kernel, plain, work, ref, batches, bytes_of):
+    """Time a stream of in-place launches as the main path makes them: each
+    batch is new and lands on the state the batches before it left, the
+    kernel's into `work`, the plain version's into `ref` (equal at the
+    start).  Returns the kernel's and the plain version's median ms, the
+    median over the stream of bytes_of(batch, changed) (changed: the flat
+    positions the plain version altered), and the states' max abs error."""
+    ms = time_kernel(lambda i: kernel(work, batches[i]), reps=len(batches), warm=lambda: None)
+    times, nbytes = [], []
+    for b in batches:
+        before = ref.clone()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plain(ref, b)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        nbytes.append(bytes_of(b, (ref != before).reshape(-1).nonzero().reshape(-1)))
+        del before
+    err = assert_equal(f"{name} after a stream of {len(batches)} batches", work, ref)
+    return ms, statistics.median(times), statistics.median(nbytes), err
+
+
+# --------------------------------------------------------------------------
+# phase 2: known answers
+# --------------------------------------------------------------------------
+
+def check_known_answers(dev) -> None:
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    keys = np.array(KNOWN_U64["keys"], np.int64)
+    lo, hi = H.int_keys_to_u32_pair(keys)
+    words, nbytes = H.pack_keys(KNOWN_BYTES["keys"])
+    cases = [("u64", K.Keys(n=1, lo=K.stage(lo[i:i + 1], dev), hi=K.stage(hi[i:i + 1], dev)),
+              KNOWN_U64["h1"][i], KNOWN_U64["h2"][i]) for i in range(len(keys))]
+    cases += [("bytes", K.Keys(n=1, words=K.stage(np.ascontiguousarray(words[:, i:i + 1]), dev),
+                               nbytes=K.stage(nbytes[i:i + 1], dev)),
+               KNOWN_BYTES["h1"][i], KNOWN_BYTES["h2"][i]) for i in range(len(KNOWN_BYTES["keys"]))]
+    p, k, m = 14, 5, 1_000_003
+    for kind, kb, h1, h2 in cases:
+        regs = torch.zeros(1 << p, dtype=torch.uint8, device=dev)
+        K.hll_add(regs, regs.numel(), kb, 1, p)
+        rho = 33 if h2 == 0 else 32 - h2.bit_length() + 1
+        want = torch.zeros_like(regs)
+        want[h1 & ((1 << p) - 1)] = rho
+        assert_equal(f"known answer hll_add {kind}", regs, want)
+        plane = torch.zeros(1_001_472, dtype=torch.uint8, device=dev)
+        K.bloom_set(plane, plane.numel(), kb, 1, k, m)
+        want = torch.zeros_like(plane)
+        want[[((h1 + i * h2) & 0xFFFFFFFF) % m for i in range(k)]] = 1
+        assert_equal(f"known answer bloom_set {kind}", plane, want)
+    log(f"known answers: {len(cases)} keys hash on the card as in the JAX package")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def u64_batch(rng, n: int, b: int, dev, tenants: int = 0, dup: float = 0.1):
+    """A padded key batch of n ops in b lanes, with duplicate keys and, for
+    a bank, a few tenant ids outside [0, tenants)."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    keys = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    d = int(n * dup)
+    keys[n - d:] = keys[:d]
+    lo, hi = np.zeros(b, np.uint32), np.zeros(b, np.uint32)
+    lo[:n], hi[:n] = H.int_keys_to_u32_pair(keys)
+
+    if not tenants:
+        return K.Keys(n=b, lo=K.stage(lo, dev), hi=K.stage(hi, dev))
+    t = np.zeros(b, np.int32)
+    t[:n] = rng.integers(0, tenants, n)
+    t[:4] = [-1, tenants, 2**31 - 1, -(2**31)]
+    return K.Keys(n=b, tenant=K.stage(t, dev), lo=K.stage(lo, dev), hi=K.stage(hi, dev))
+
+
+def byte_batch(rng, n: int, dev):
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    keys = [rng.bytes(int(rng.integers(0, 65))) for _ in range(n)]
+    words, nbytes = H.pack_keys(keys)
+    return K.Keys(n=n, words=K.stage(K.pad_to(words, 16, axis=0), dev), nbytes=K.stage(nbytes, dev))
+
+
+def probe_positions(keys, width, size, k, m, n_valid):
+    """Flat positions (in range) that n_valid ops probe, from the plain path."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    h1, h2 = K._hash(keys)
+    g = K._flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, size)[:n_valid]
+    return g[g < size]
+
+
+def check_kernels(dev, rng) -> dict:
+    from redisson_tpu_torch.core import kernels as K
+
+    from redisson_tpu_torch.client.objects.bloom import optimal_num_of_bits
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    results = {}
+    k = 7
+    # -- bloom_probe / bloom_set on the config-2 bank and the config-1 plane --
+    m2 = bt.padded_size(optimal_num_of_bits(C2_PER_TENANT, FPP))
+    bank = (torch.rand((C2_TENANTS, m2), device=dev) < 0.5).to(torch.uint8)
+    b2 = K.bucket_size(C2_FLUSH)
+    flushes = [u64_batch(rng, C2_FLUSH, b2, dev, tenants=C2_TENANTS) for _ in range(8)]
+    m1 = optimal_num_of_bits(C1_N, FPP)
+    size1 = bt.padded_size(m1)
+    plane1 = (torch.rand(size1, device=dev) < 0.5).to(torch.uint8)
+    n1 = C1_BATCH - 1000
+    single = u64_batch(rng, n1, C1_BATCH, dev)
+    n_bytes = min(65536, C1_BATCH)
+    bytes_kb = byte_batch(rng, n_bytes, dev)
+    probe_cases = [
+        (f"config-2 bank {C2_TENANTS}x{m2}, {C2_FLUSH} ops in {b2}", bank, m2, flushes[0], C2_FLUSH, m2),
+        (f"config-1 plane {size1}, {n1} ops in {C1_BATCH}", plane1, size1, single, n1, m1),
+        (f"config-1 plane, {n_bytes} byte keys of 0-64 bytes", plane1, size1, bytes_kb, n_bytes, m1)]
+    checked, err = [], 0.0
+    for label, plane, width, kb, nv, m in probe_cases:
+        for newly in (False, True):
+            for out in (K.FLAGS, K.BITS, K.COUNT):
+                got = K.bloom_probe(plane, width, kb, nv, k, m, newly, out)
+                want = K.bloom_probe_plain(plane, width, kb, nv, k, m, newly, out)
+                err = max(err, assert_equal(f"bloom_probe {label} newly={newly} out={out}", got, want))
+        checked.append(label)
+    # a probe only reads, so the 8 flushes can be replayed on one bank
+    ms = time_kernel(lambda i: K.bloom_probe(bank, m2, flushes[i % 8], C2_FLUSH, k, m2, False, K.BITS))
+    plain = time_plain(lambda i: K.bloom_probe_plain(bank, m2, flushes[i % 8], C2_FLUSH, k, m2, False, K.BITS))
+    touched = statistics.median(sectors(probe_positions(f, m2, bank.numel(), k, m2, C2_FLUSH)) for f in flushes)
+    bms, by = bound_ms(touched * 32 + 12 * C2_FLUSH + b2 // 8, C2_FLUSH * (OPS_HASH_U64 + k * OPS_PROBE))
+    results["bloom_probe"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                                  shape=f"config-2 contains flush: {probe_cases[0][0]}, k={k}, bitmap out",
+                                  checked=checked)
+    log(f"kernel bloom_probe: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), equal to plain at {checked}")
+
+    checked, err = [], 0.0
+    for label, plane, width, kb, nv, m in probe_cases:
+        a, b = plane.clone(), plane.clone()
+        K.bloom_set(a, width, kb, nv, k, m)
+        K.bloom_set_plain(b, width, kb, nv, k, m)
+        err = max(err, assert_equal(f"bloom_set {label}", a, b))
+        checked.append(label)
+    del bank, plane1, single, probe_cases, a, b
+    # config 1's add stream: ten new batches of distinct keys into a zeroed
+    # plane.  A blind store need not read the plane, so the bound writes
+    # every touched sector once.
+    stream = [u64_batch(rng, n1, C1_BATCH, dev, dup=0.0) for _ in range(C1_N // n1)]
+    work = torch.zeros(size1, dtype=torch.uint8, device=dev)
+    ms, plain, nbytes, stream_err = time_stream(
+        "bloom_set", lambda pl, kb: K.bloom_set(pl, size1, kb, n1, k, m1),
+        lambda pl, kb: K.bloom_set_plain(pl, size1, kb, n1, k, m1), work, torch.zeros_like(work), stream,
+        lambda kb, changed: 32 * sectors(probe_positions(kb, size1, size1, k, m1, n1)) + 8 * n1)
+    bms, by = bound_ms(nbytes, n1 * (OPS_HASH_U64 + k * OPS_PROBE))
+    results["bloom_set"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(err, stream_err),
+                                shape=f"config-1 add stream: {len(stream)} batches of {n1} new keys "
+                                      f"into a zeroed {size1}-lane plane, k={k}",
+                                checked=checked + [f"a stream of {len(stream)} add batches"])
+    log(f"kernel bloom_set: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), "
+        f"equal to plain at {results['bloom_set']['checked']}")
+    del work, stream
+
+    # -- hll_add on the config-3 bank and one counter --
+    p = 14
+    m = 1 << p
+    regs = torch.randint(0, 12, (C3_TENANTS, m), dtype=torch.uint8, device=dev)
+    b3 = K.bucket_size(C3_BATCH)
+    batch = u64_batch(rng, C3_BATCH, b3, dev, tenants=C3_TENANTS)
+    one = torch.randint(0, 12, (m,), dtype=torch.uint8, device=dev)
+    hll_cases = [
+        (f"config-3 bank {C3_TENANTS}x{m}, {C3_BATCH} ops in {b3}", regs, m, batch, C3_BATCH),
+        (f"one counter {m}, {n1} u64 ops", one, m, u64_batch(rng, n1, C1_BATCH, dev), n1),
+        (f"one counter, {n_bytes} byte keys of 0-64 bytes", one, m, bytes_kb, n_bytes)]
+    checked, err = [], 0.0
+    for label, r, width, kb, nv in hll_cases:
+        a, b = r.clone(), r.clone()
+        K.hll_add(a, width, kb, nv, p)
+        K.hll_add_plain(b, width, kb, nv, p)
+        err = max(err, assert_equal(f"hll_add {label}", a, b))
+        checked.append(label)
+    del regs, batch, one, hll_cases, a, b
+    # config 3's add stream: ten new batches into a zeroed bank, where nearly
+    # every op raises its register.  A scatter-max must read every touched
+    # sector and write back those whose registers it raised.
+    stream = [u64_batch(rng, C3_BATCH, b3, dev, tenants=C3_TENANTS, dup=0.0) for _ in range(C3_BATCHES)]
+    work = torch.zeros((C3_TENANTS, m), dtype=torch.uint8, device=dev)
+    traffic = []
+
+    def hll_bytes(kb, changed):
+        h1, _ = K._hash(kb)
+        g = K._flat_index(kb.tenant, h1 & (m - 1), m, work.numel())[:C3_BATCH]
+        read, written = sectors(g[g < work.numel()]), sectors(changed)
+        traffic.append((read, written))
+        return 32 * (read + written) + 12 * C3_BATCH
+
+    ms, plain, nbytes, stream_err = time_stream(
+        "hll_add", lambda r, kb: K.hll_add(r, m, kb, C3_BATCH, p),
+        lambda r, kb: K.hll_add_plain(r, m, kb, C3_BATCH, p), work, torch.zeros_like(work), stream, hll_bytes)
+    bms, by = bound_ms(nbytes, C3_BATCH * (OPS_HASH_U64 + OPS_HLL_ADD))
+    read, written = (statistics.median(x) for x in zip(*traffic))
+    results["hll_add"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(err, stream_err),
+                              shape=f"config-3 add stream: {len(stream)} batches of {C3_BATCH} ops in {b3} "
+                                    f"into a zeroed {C3_TENANTS}x{m} bank",
+                              sectors_read=read, sectors_written=written,
+                              checked=checked + [f"a stream of {len(stream)} add batches"])
+    log(f"kernel hll_add: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}; median sectors read "
+        f"{read}, written {written}), equal to plain at {results['hll_add']['checked']}")
+    del work, stream
+
+    # -- hll_rows: estimate, merge rounds with duplicate dsts, union pairs --
+    # registers with the rank distribution of real counters (P(r) ~ 2**-r)
+    u = torch.rand((C3_TENANTS, m), device=dev)
+    regs = torch.clamp(torch.floor(-torch.log2(u)) * (u < 0.9), 0, 33).to(torch.uint8)
+    del u
+    checked, worst = [], 0.0
+    est_k = K.hll_rows(regs, estimate=True)
+    est_p = K.hll_rows_plain(regs, estimate=True)
+    worst = max(worst, assert_equal("hll_rows estimate config-3 bank", est_k, est_p))
+    checked.append(f"estimate {C3_TENANTS}x{m}")
+    pairs = C3_TENANTS // 2
+    dst = torch.from_numpy(rng.integers(0, C3_TENANTS, pairs).astype(np.int32)).to(dev)
+    src = torch.from_numpy(rng.integers(0, C3_TENANTS, pairs).astype(np.int32)).to(dev)
+    src_map = torch.arange(C3_TENANTS, dtype=torch.int32, device=dev)
+    src_map[dst.long()] = src
+    a_out, b_out = torch.empty_like(regs), torch.empty_like(regs)
+    K.hll_rows(regs, regs, None, src_map, out=a_out)
+    K.hll_rows_plain(regs, regs, None, src_map, out=b_out)
+    worst = max(worst, assert_equal("hll_rows merge map", a_out, b_out))
+    # a second round reads its sources from the pre-merge bank `regs`
+    round2 = src_map.flip(0).contiguous()
+    k_out, p_out = torch.empty_like(regs), torch.empty_like(regs)
+    K.hll_rows(a_out, regs, None, round2, out=k_out)
+    K.hll_rows_plain(b_out, regs, None, round2, out=p_out)
+    worst = max(worst, assert_equal("hll_rows merge map from", k_out, p_out))
+    regs = k_out
+    del p_out
+    checked.append(f"merge map {C3_TENANTS} rows, {pairs} pairs with duplicate dsts, "
+                   "then a second round from the pre-merge bank")
+    pa = torch.from_numpy(rng.integers(-3, C3_TENANTS + 3, pairs).astype(np.int32)).to(dev)
+    pb = torch.from_numpy(rng.integers(-3, C3_TENANTS + 3, pairs).astype(np.int32)).to(dev)
+    est_k = K.hll_rows(regs, regs, pa, pb, estimate=True)
+    est_p = K.hll_rows_plain(regs, regs, pa, pb, estimate=True)
+    worst = max(worst, assert_equal("hll_rows union pairs", est_k, est_p))
+    checked.append(f"union estimate of {pairs} pairs, ids beyond both ends")
+    ms = time_kernel(lambda i: K.hll_rows(regs, estimate=True))
+    plain = time_plain(lambda i: K.hll_rows_plain(regs, estimate=True))
+    merge_ms = time_kernel(lambda i: K.hll_rows(regs, regs, None, src_map, out=a_out))
+    bms, by = bound_ms(regs.numel() + 4 * C3_TENANTS, regs.numel() * OPS_ROW_REGISTER)
+    results["hll_rows"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=worst,
+                               merge_map_ms=merge_ms,
+                               shape=f"config-3 estimate_all: bank {C3_TENANTS}x{m} u8 -> {C3_TENANTS} f32",
+                               checked=checked)
+    log(f"kernel hll_rows: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), "
+        f"merge map {merge_ms:.4f} ms, equal to plain at {checked}")
+    del regs, a_out, b_out
+    torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path through the facade
+# --------------------------------------------------------------------------
+
+def pctl(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def fp_band(fp: float, what: str) -> None:
+    # at design load the filters' expected false-positive rate is 0.01; the
+    # band allows the sampling spread of >= 500k absent probes with margin
+    if not 0.005 <= fp <= 0.02:
+        raise AssertionError(f"{what}: false-positive rate {fp:.4f} outside [0.005, 0.02]")
+
+
+def run_config2(client, rng) -> dict:
+    from redisson_tpu_torch.core import kernels as K
+
+    arr = client.get_bloom_filter_array("c2:tenants")
+    if not arr.try_init(C2_TENANTS, C2_PER_TENANT, FPP):
+        raise AssertionError("config2: bank exists")
+
+    def tenant_of(keys):
+        return ((keys * 40503) % C2_TENANTS).astype(np.int32)
+
+    t0 = time.perf_counter()
+    ingest = []
+    for start in range(0, C2_TENANTS * C2_PER_TENANT, C2_INGEST):
+        keys = np.arange(start, start + C2_INGEST, dtype=np.int64) * 2654435761
+        ingest.append((tenant_of(keys), keys))
+    newly, bb, lengths = arr.add_flushes_async(ingest)
+    torch.cuda.synchronize()
+    populate_s = time.perf_counter() - t0
+    full = K.unpack_found(newly, len(lengths) * bb)
+    n_new = sum(int(full[i * bb : i * bb + n].sum()) for i, n in enumerate(lengths))
+
+    def make_flush():
+        present = rng.integers(0, C2_TENANTS * C2_PER_TENANT, C2_FLUSH).astype(np.int64) * 2654435761
+        absent = rng.integers(1 << 50, 1 << 60, C2_FLUSH).astype(np.int64)
+        ks = np.where(np.arange(C2_FLUSH) % 2 == 0, present, absent)
+        return tenant_of(ks), ks
+
+    flushes = [make_flush() for _ in range(30)]
+    arr.contains(*flushes[0])  # first call outside the timing
+    lat, fps = [], []
+    for t, ks in flushes:
+        s = time.perf_counter()
+        found = arr.contains(t, ks)
+        lat.append(time.perf_counter() - s)
+        if not found[0::2].all():
+            raise AssertionError("config2: false negatives")
+        fps.append(found[1::2].mean())
+    fp = float(np.mean(fps))
+    fp_band(fp, "config2")
+    # the query cache on these flushes: what each one pays for its digest,
+    # the pack and host-to-device copy that a hit skips, and a flush that hits
+    digest_s, pack_s, hit_lat = [], [], []
+    for t, ks in flushes:
+        s = time.perf_counter()
+        K.QueryCache.digest(t, ks, extra=b"bfa")
+        digest_s.append(time.perf_counter() - s)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        arr._pack(t, ks)
+        torch.cuda.synchronize()
+        pack_s.append(time.perf_counter() - s)
+    for _ in flushes:
+        s = time.perf_counter()
+        arr.contains(*flushes[0])
+        hit_lat.append(time.perf_counter() - s)
+    window = [flushes[i % 4] for i in range(50)]
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    res = arr.contains_flushes(window)
+    window_s = time.perf_counter() - s
+    for (t, ks), found in zip(window, res):
+        if not found[0::2].all():
+            raise AssertionError("config2: false negatives in the window")
+    # the bank against the same populate run through the plain versions
+    tlh, _, _ = arr._pack_flush_window(ingest)
+    plain = torch.zeros_like(client.engine.store.get("c2:tenants").arrays["bits"])
+    K.bloom_set_plain(plain, plain.shape[1], K._tlh_keys(tlh), tlh.shape[1], arr.get_hash_iterations(), arr.get_size())
+    assert_equal("config2 bank after populate", client.engine.store.get("c2:tenants").arrays["bits"], plain)
+    del plain, tlh
+    out = {"populate_keys": C2_TENANTS * C2_PER_TENANT, "populate_s": populate_s,
+           "populate_newly": n_new, "flushes": len(flushes), "flush_ops": C2_FLUSH,
+           "flush_p50_ms": pctl(lat, 50) * 1e3, "flush_p99_ms": pctl(lat, 99) * 1e3,
+           "false_positive_rate": fp, "cache_digest_p50_ms": pctl(digest_s, 50) * 1e3,
+           "pack_copy_p50_ms": pctl(pack_s, 50) * 1e3, "flush_hit_p50_ms": pctl(hit_lat, 50) * 1e3,
+           "window_flushes": 50,
+           "window_ops_per_s": 50 * C2_FLUSH / window_s}
+    log(f"config2: populate {C2_TENANTS * C2_PER_TENANT} keys {populate_s:.3f}s ({n_new} newly), sync 100k flush "
+        f"p50 {out['flush_p50_ms']:.3f} ms p99 {out['flush_p99_ms']:.3f} ms (repeated flush, a cache hit: "
+        f"p50 {out['flush_hit_p50_ms']:.3f} ms; digest {out['cache_digest_p50_ms']:.3f} ms, pack and copy "
+        f"{out['pack_copy_p50_ms']:.3f} ms), fp {fp:.5f}, "
+        f"window of 50 flushes {out['window_ops_per_s'] / 1e6:.1f}M contains/s; bank equals plain")
+    client.get_bloom_filter_array("c2:tenants").delete()
+    return out
+
+
+def run_config1(client) -> dict:
+    bf = client.get_bloom_filter("c1:single")
+    if not bf.try_init(C1_N, FPP):
+        raise AssertionError("config1: filter exists")
+    keys = np.arange(C1_N, dtype=np.int64)
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    pending = [bf.add_all_async(keys[i:i + C1_BATCH]) for i in range(0, C1_N, C1_BATCH)]
+    added = sum(int(c) for c in pending)
+    add_s = time.perf_counter() - s
+    q = np.concatenate([keys[: C1_BATCH // 2],
+                        np.arange(1 << 40, (1 << 40) + C1_BATCH // 2, dtype=np.int64)])
+    bf.contains_each(q)  # first call outside the timing
+    s = time.perf_counter()
+    found = bf.contains_each(q)
+    contains_s = time.perf_counter() - s
+    if not found[: C1_BATCH // 2].all():
+        raise AssertionError("config1: false negatives")
+    fp = float(found[C1_BATCH // 2:].mean())
+    fp_band(fp, "config1")
+    count = bf.count()
+    if abs(count - C1_N) > 0.02 * C1_N:
+        raise AssertionError(f"config1: count {count} far from {C1_N}")
+    out = {"adds": C1_N, "add_s": add_s, "newly": added, "contains_keys": len(q),
+           "contains_s": contains_s, "false_positive_rate": fp, "count": count}
+    log(f"config1: add {C1_N} keys in batches of {C1_BATCH} {add_s:.3f}s ({added} newly), contains_each "
+        f"of {len(q)} keys {contains_s * 1e3:.3f} ms, fp {fp:.5f}, count {count}")
+    bf.delete()
+    return out
+
+
+def run_config3(client, rng) -> dict:
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    bank = client.get_hyper_log_log_array("c3:hll")
+    if not bank.try_init(C3_TENANTS):
+        raise AssertionError("config3: bank exists")
+    batches = [(rng.integers(0, C3_TENANTS, C3_BATCH).astype(np.int32),
+                rng.integers(0, 1 << 60, C3_BATCH).astype(np.int64)) for _ in range(C3_BATCHES)]
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for t, ks in batches:
+        bank.add(t, ks)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - s
+    dst = np.arange(0, C3_TENANTS, 2, dtype=np.int32)
+    s = time.perf_counter()
+    bank.merge_rows(dst, dst + 1)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - s
+    s = time.perf_counter()
+    ests = bank.estimate_all()
+    est_s = time.perf_counter() - s
+    # the same stream through the plain versions on the card
+    regs = client.engine.store.get("c3:hll").arrays["regs"]
+    plain = torch.zeros_like(regs)
+    for t, ks in batches:
+        lo, hi = H.int_keys_to_u32_pair(ks)
+        tlh = K.pack_rows(t, lo, hi, size=K.bucket_size(C3_BATCH), device=plain.device)
+        K.hll_add_plain(plain, plain.shape[1], K._tlh_keys(tlh), C3_BATCH, 14)
+    src_map = torch.arange(C3_TENANTS, dtype=torch.int32, device=plain.device)
+    src_map[torch.from_numpy(dst).long().to(plain.device)] = torch.from_numpy(dst + 1).to(plain.device)
+    merged = torch.empty_like(plain)
+    K.hll_rows_plain(plain, plain, None, src_map, out=merged)
+    assert_equal("config3 registers", regs, merged)
+    plain_est = K.hll_rows_plain(merged, estimate=True).cpu().numpy()
+    if not np.array_equal(ests, plain_est):
+        raise AssertionError("config3: estimates differ from the plain versions")
+    expected = C3_BATCH * C3_BATCHES / C3_TENANTS
+    out = {"adds": C3_BATCH * C3_BATCHES, "add_s": add_s, "merge_pairs": len(dst),
+           "merge_s": merge_s, "estimate_all_s": est_s, "mean_estimate_even": float(ests[0::2].mean()),
+           "mean_estimate_odd": float(ests[1::2].mean())}
+    if not (0.95 * 2 * expected < out["mean_estimate_even"] < 1.05 * 2 * expected
+            and 0.95 * expected < out["mean_estimate_odd"] < 1.05 * expected):
+        raise AssertionError(f"config3: estimates off: {out}")
+    log(f"config3: {C3_BATCHES} x {C3_BATCH} adds {add_s:.3f}s, merge_rows of {len(dst)} pairs "
+        f"{merge_s * 1e3:.3f} ms, "
+        f"estimate_all {est_s * 1e3:.3f} ms, mean estimate {out['mean_estimate_odd']:.1f} "
+        f"(merged rows {out['mean_estimate_even']:.1f}); registers and estimates equal plain")
+    bank.delete()
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the card against the CPU on one op stream
+# --------------------------------------------------------------------------
+
+def small_stream(client, rng) -> list:
+    out = []
+    a = client.get_bloom_filter_array("s:bank")
+    a.try_init(16, 10_000, 0.01)
+    t = rng.integers(0, 16, 20_000).astype(np.int32)
+    ks = rng.integers(-(2**62), 2**62, 20_000)
+    out.append(a.add_each(t, ks))
+    out.append(a.add(t[:5000], ks[:5000]))
+    out.append(a.contains(np.concatenate([t[:3000], t[:3000]]), np.concatenate([ks[:3000], ks[:3000] + 1])))
+    out.append(a.add_flushes([(t[:700], ks[:700]), (t[700:3000], ks[700:3000])]))
+    bf = client.get_bloom_filter("s:bf")
+    bf.try_init(5000, 0.01)
+    out.append(bf.add_all(["a", "b", 7, 2.5, "a"]))
+    out.append(bf.add_each(np.arange(300)))
+    out.append(bf.contains_each(["a", "zz", 7]))
+    out.append(bf.count())
+    h = client.get_hyper_log_log_array("s:hll")
+    h.try_init(64)
+    h.add(rng.integers(0, 64, 20_000).astype(np.int32), rng.integers(0, 2**60, 20_000))
+    h.merge_rows([0, 0, 1, 5], [1, 2, 0, 0])
+    out.append(h.estimate_all())
+    out.append(h.estimate_union_pairs([0, 3, -1], [1, 63, 70]))
+    x, y = client.get_hyper_log_log("s:x"), client.get_hyper_log_log("s:y")
+    x.add_all([f"k{i}" for i in range(800)])
+    y.add_all(np.arange(500, 2000))
+    out.append((x.count(), x.count_with("s:y")))
+    x.merge_with("s:y")
+    out.append(x.count())
+    from redisson_tpu_torch import state
+
+    for name in ("s:bank", "s:bf", "s:hll", "s:x"):
+        out.append(state.to_reference(client.engine.store.get(name))[2])
+    return out
+
+
+def same(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def check_card_against_cpu(create) -> None:
+    on_card = small_stream(create(), np.random.default_rng(5))
+    on_cpu = small_stream(create(device="cpu"), np.random.default_rng(5))
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        if not same(a, b):
+            raise AssertionError(f"small stream reply {i}: card {a!r} != cpu {b!r}")
+    log(f"small stream: {len(on_card)} replies and final states equal on the card and the CPU")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import _build
+    from redisson_tpu_torch.core import kernels as K
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    log(card_line())
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    build_s = _build.build_all()
+    log(f"build: {len(_build.SIGNATURES)} libraries from csrc/ in {build_s:.1f}s")
+    rng = np.random.default_rng(1234)
+    check_known_answers(dev)
+    kernels = check_kernels(dev, rng)
+
+    client = redisson_tpu_torch.create()
+    if client.engine.device.type != "cuda":
+        raise AssertionError("create() did not land on the card")
+    K.reset_launches()
+    paths, before = {}, dict(K.launches)
+    for name, run in (("config2", lambda: run_config2(client, np.random.default_rng(42))),
+                      ("config1", lambda: run_config1(client)),
+                      ("config3", lambda: run_config3(client, np.random.default_rng(7)))):
+        paths[name] = run()
+        paths[name]["launches"] = {k: K.launches[k] - before[k] for k in K.launches}
+        before = dict(K.launches)
+    main_launches = dict(K.launches)
+    client.shutdown()
+    missing = [k for k, v in main_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    log("main-path launches: " + json.dumps({k: v["launches"] for k, v in paths.items()}))
+    log("paths: " + json.dumps(paths))
+    check_card_against_cpu(redisson_tpu_torch.create)
+
+    sources = {"bloom_probe": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:184"),
+               "bloom_set": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
+               "hll_add": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:446"),
+               "hll_rows": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:504")}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+         "launches": main_launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for name, r in kernels.items()]}
+    for name, r in kernels.items():
+        log(json.dumps({"kernel": name, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "launches": main_launches[name]}))
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

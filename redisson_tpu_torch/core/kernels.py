@@ -1,0 +1,558 @@
+"""Sketch kernel dispatch: host packing helpers, the plain PyTorch version of
+each device program, and the wrappers that launch the hand-written CUDA
+kernels of ``csrc/``.
+
+Every public function keeps the name of its jitted counterpart in
+``redisson_tpu/core/kernels.py``.  A wrapper picks its route from the device
+of the state it is given: state on the CPU runs the plain version, state on a
+CUDA card launches the kernel, and nothing falls back from one to the other
+(a CUDA launch either runs or raises).
+
+Four kernels carry every program here:
+
+  bloom_probe  hash, k probes, AND; out as flags, a uint32 bitmap or a count
+  bloom_set    hash, store 1 at the k probes (after bloom_probe: the add
+               contract reads every bit as it was before the batch)
+  hll_add      hash, scatter-max of the rank into a uint8 register
+  hll_rows     row gather-max of two banks, optional out-of-place write,
+               optional float32 estimate per row
+
+Differences from the JAX programs:
+  * State is updated in place.  JAX donates the plane and returns a new
+    array; the wrappers here write into the tensor they are given and return
+    it, so callers keep the ``state = fn(state, ...)`` shape.  The HLL merge
+    programs are the exception: they read rows while other rows are written,
+    so they write a new bank.
+  * ``n_valid`` is a launch argument.  The JAX package cached device scalars
+    (``valid_n``) only to save a host-to-device upload per dispatch; a CUDA
+    launch argument costs nothing, so ``valid_n`` has no port.
+  * 32-bit key words travel as int32 tensors holding the uint32 bits (torch's
+    uint32 has no shifts or adds on the CPU); bitmaps come back the same way.
+"""
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from redisson_tpu_torch.core import _build
+from redisson_tpu_torch.ops import bittensor as bt
+from redisson_tpu_torch.ops import hll as hll_ops
+from redisson_tpu_torch.utils import hashing as H
+
+MIN_BUCKET = 256
+BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
+
+# Launches of each hand kernel since the last reset_launches(); a run reads
+# them to show that its path went through the kernels.
+launches = {"bloom_probe": 0, "bloom_set": 0, "hll_add": 0, "hll_rows": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# --------------------------------------------------------------------------
+# Host-side batch shaping (same policy as the JAX package: bounded padding,
+# the padded tail masked by n_valid inside the kernels).
+# --------------------------------------------------------------------------
+
+def pow2_bucket(n: int, minimum: int = MIN_BUCKET) -> int:
+    b = minimum
+    while b < n:
+        b <<= 1
+    return b
+
+
+def bucket_size(n: int, minimum: int = MIN_BUCKET) -> int:
+    """Padded batch size: the next multiple of next_pow2(n)/8, so padding is
+    at most 12.5% and every size is a multiple of 32 (the bitmap word)."""
+    if n <= minimum:
+        return minimum
+    step = max(minimum, (1 << (int(n - 1).bit_length())) >> 3)
+    return ((n + step - 1) // step) * step
+
+
+def pad_to(arr: np.ndarray, size: int, axis: int = 0) -> np.ndarray:
+    """Zero-pad `arr` along `axis` up to `size`."""
+    if arr.shape[axis] == size:
+        return arr
+    pad = [(0, 0)] * arr.ndim
+    pad[axis] = (0, size - arr.shape[axis])
+    return np.pad(arr, pad)
+
+
+def stage(arr: np.ndarray, device) -> torch.Tensor:
+    """numpy operand -> tensor on `device`; 32-bit words become int32 bits."""
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def pack_rows(*arrays, size: int, device) -> torch.Tensor:
+    """Stack 1-D 32-bit arrays into ONE (R, size) buffer (zero padded) and
+    copy it to `device` in one transfer."""
+    out = np.zeros((len(arrays), size), np.uint32)
+    for i, a in enumerate(arrays):
+        out[i, : a.shape[0]] = a.view(np.uint32) if a.dtype == np.int32 else a
+    return stage(out, device)
+
+
+def unpack_found(packed, n: int) -> np.ndarray:
+    """uint32 bitmap (bit i of word j = op 32j+i) -> bool[n] on the host."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    b = np.unpackbits(np.ascontiguousarray(packed).view(np.uint8), bitorder="little")
+    return b[:n].astype(bool)
+
+
+def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor with the same 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _pack_bool_u32(flags: torch.Tensor) -> torch.Tensor:
+    """bool[B] (B % 32 == 0) -> B/32 words, bit i of word j = flags[32j+i]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
+    words = (flags.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
+    return _to_int32_bits(words)
+
+
+# --------------------------------------------------------------------------
+# Hot-query staged-buffer cache (read paths only).  Content addressing makes
+# reuse exact: any change to the caller's arrays changes the digest.  Kernels
+# never write their query operand, so a cached buffer survives any number of
+# dispatches.  One cache per engine, so tensors never cross devices.
+# --------------------------------------------------------------------------
+
+class QueryCache:
+    SLOTS = 8
+    MAX_BYTES = 8 << 20  # don't pin giant one-off uploads in device memory
+
+    def __init__(self):
+        self._entries: "OrderedDict[bytes, torch.Tensor]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def digest(*arrays, extra: bytes = b"") -> bytes:
+        h = hashlib.blake2b(digest_size=16)
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(memoryview(a).cast("B"))
+        h.update(extra)
+        return h.digest()
+
+    def get(self, digest: bytes):
+        with self._lock:
+            buf = self._entries.pop(digest, None)
+            if buf is not None:
+                self._entries[digest] = buf  # LRU refresh
+            return buf
+
+    def put(self, digest: bytes, buf: torch.Tensor) -> None:
+        if buf.nbytes > self.MAX_BYTES:
+            return
+        with self._lock:
+            self._entries[digest] = buf
+            while len(self._entries) > self.SLOTS:
+                self._entries.popitem(last=False)
+
+    def cached_staged(self, build, *digest_arrays, extra: bytes = b""):
+        """Reuse the staged buffer of identical operands, else build, stage
+        and cache it.  `build()` runs only on a miss."""
+        digest = self.digest(*digest_arrays, extra=extra)
+        buf = self.get(digest)
+        if buf is None:
+            buf = build()
+            self.put(digest, buf)
+        return buf
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+# --------------------------------------------------------------------------
+# Key operands
+# --------------------------------------------------------------------------
+
+class Keys(NamedTuple):
+    """One batch of keys as int32 tensors of length n (the padded batch).
+
+    u64 keys fill lo/hi; byte keys fill words (W, n) and nbytes (n,).
+    tenant, when set, is each op's row in a (T, W) plane."""
+    n: int
+    tenant: Optional[torch.Tensor] = None
+    lo: Optional[torch.Tensor] = None
+    hi: Optional[torch.Tensor] = None
+    words: Optional[torch.Tensor] = None
+    nbytes: Optional[torch.Tensor] = None
+
+
+def _u64_keys(lo, hi, tenant=None) -> Keys:
+    return Keys(n=lo.shape[0], tenant=tenant, lo=lo, hi=hi)
+
+
+def _byte_keys(words, nbytes) -> Keys:
+    return Keys(n=nbytes.shape[0], words=words, nbytes=nbytes)
+
+
+def _hash(keys: Keys):
+    if keys.words is None:
+        return H.hash_u64_pair(keys.lo, keys.hi)
+    return H.hash_packed_bytes(keys.words, keys.nbytes)
+
+
+def _flat_index(tenant, idx: torch.Tensor, width: int, size: int) -> torch.Tensor:
+    """Flat plane position of each probe, or `size` where it is outside.
+
+    Kept bit for bit from the JAX programs: tenant*width + idx is int32
+    arithmetic (it wraps), a negative position counts from the end once,
+    and whatever is still outside [0, size) reads as 1 / is dropped."""
+    if tenant is None:
+        g = idx
+    else:
+        t = tenant.to(torch.int64).reshape((-1,) + (1,) * (idx.dim() - 1))
+        g = ((t * width + idx + 2**31) & H.M32) - 2**31
+        g = torch.where(g < 0, g + size, g)
+    return torch.where((g >= 0) & (g < size), g, size)
+
+
+def _valid(n: int, n_valid: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device) < n_valid
+
+
+# --------------------------------------------------------------------------
+# The four kernels: plain versions and CUDA launches
+# --------------------------------------------------------------------------
+
+FLAGS, BITS, COUNT = 0, 1, 2
+
+
+def _require_cuda_operands(state: torch.Tensor, *operands) -> None:
+    """The kernel route takes only contiguous operands on the state's card."""
+    if not state.is_contiguous():
+        raise ValueError("kernel state must be contiguous")
+    for t in operands:
+        if t is None:
+            continue
+        if t.device != state.device:
+            raise ValueError(f"operand on {t.device}, state on {state.device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+        if t.dtype != torch.int32:
+            raise ValueError(f"kernel operands are int32 words, got {t.dtype}")
+
+
+def _route(state: torch.Tensor) -> str:
+    if state.device.type == "cpu":
+        return "plain"
+    if state.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no kernel for tensors on {state.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _key_args(keys: Keys):
+    n_words = 0 if keys.words is None else keys.words.shape[0]
+    return (_ptr(keys.tenant), _ptr(keys.lo), _ptr(keys.hi), _ptr(keys.words),
+            _ptr(keys.nbytes), n_words, keys.n)
+
+
+def _launch(name: str, fn, state: torch.Tensor, *args) -> None:
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        _build.check(name, fn(*args, stream))
+    launches[name] += 1
+
+
+def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
+    """Plain version of bloom_probe: per op, are all k bits set (or, with
+    `newly`, was any of them 0); ops >= n_valid give False."""
+    h1, h2 = _hash(keys)
+    g = _flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, plane.numel())
+    found = bt.contains(plane.reshape(-1), g)
+    flags = (~found if newly else found) & _valid(keys.n, n_valid, plane.device)
+    if out == BITS:
+        return _pack_bool_u32(flags)
+    if out == COUNT:
+        return flags.sum(dtype=torch.int32)
+    return flags
+
+
+def bloom_probe(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
+    if _route(plane) == "plain":
+        return bloom_probe_plain(plane, width, keys, n_valid, k, m, newly, out)
+    _require_cuda_operands(plane, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
+    if plane.dtype != torch.uint8:
+        raise ValueError("bloom planes are uint8")
+    if out == BITS and keys.n % 32:
+        raise ValueError("bitmap results need a batch that is a multiple of 32")
+    if out == FLAGS:
+        result = torch.empty(keys.n, dtype=torch.bool, device=plane.device)
+    elif out == BITS:
+        result = torch.empty(keys.n // 32, dtype=torch.int32, device=plane.device)
+    else:
+        result = torch.zeros((), dtype=torch.int32, device=plane.device)
+    _launch("bloom_probe", _build.library("bloom").rtpu_bloom_probe, plane,
+            plane.data_ptr(), plane.numel(), width, *_key_args(keys),
+            max(0, min(n_valid, keys.n)), k, m, int(newly), out, result.data_ptr())
+    return result
+
+
+def bloom_set_plain(plane, width, keys: Keys, n_valid, k, m):
+    h1, h2 = _hash(keys)
+    g = _flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, plane.numel())
+    bt.set_bits(plane.view(-1), g[_valid(keys.n, n_valid, plane.device)])
+
+
+def bloom_set(plane, width, keys: Keys, n_valid, k, m) -> None:
+    """Set the k bits of every op < n_valid, in place."""
+    if _route(plane) == "plain":
+        return bloom_set_plain(plane, width, keys, n_valid, k, m)
+    _require_cuda_operands(plane, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
+    if plane.dtype != torch.uint8:
+        raise ValueError("bloom planes are uint8")
+    _launch("bloom_set", _build.library("bloom").rtpu_bloom_set, plane,
+            plane.data_ptr(), plane.numel(), width, *_key_args(keys),
+            max(0, min(n_valid, keys.n)), k, m)
+
+
+def hll_add_plain(regs, width, keys: Keys, n_valid, p):
+    h1, h2 = _hash(keys)
+    idx, rho = hll_ops.idx_rho(h1, h2, p)
+    flat = regs.view(-1)
+    g = _flat_index(keys.tenant, idx, width, flat.numel())
+    g = torch.where(_valid(keys.n, n_valid, regs.device), g, flat.numel())
+    hll_ops.add(flat, g, rho)
+
+
+def hll_add(regs, width, keys: Keys, n_valid, p) -> None:
+    """Scatter-max the rank of every op < n_valid into its register, in place."""
+    if _route(regs) == "plain":
+        return hll_add_plain(regs, width, keys, n_valid, p)
+    _require_cuda_operands(regs, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
+    if regs.dtype != torch.uint8 or regs.data_ptr() % 4 or regs.numel() % 4:
+        raise ValueError("register banks are uint8, 4-byte aligned, a multiple of 4 long")
+    _launch("hll_add", _build.library("hll").rtpu_hll_add, regs,
+            regs.data_ptr(), regs.numel(), width, p, *_key_args(keys),
+            max(0, min(n_valid, keys.n)))
+
+
+def _row_index(rows: torch.Tensor, count: int) -> torch.Tensor:
+    """JAX's gather rule for x[rows]: negative rows count from the end once,
+    then rows are clamped into [0, count)."""
+    r = rows.to(torch.int64)
+    return torch.where(r < 0, r + count, r).clamp(0, count - 1)
+
+
+def hll_rows_plain(x, y=None, a=None, b=None, out=None, estimate=False):
+    rows = x if a is None else x[_row_index(a, x.shape[0])]
+    if y is not None:
+        rows = torch.maximum(rows, y if b is None else y[_row_index(b, y.shape[0])])
+    if out is not None:
+        out.copy_(rows)
+    return hll_ops.estimate(rows) if estimate else None
+
+
+def hll_rows(x, y=None, a=None, b=None, out=None, estimate=False):
+    """Row i = max(x[a_i], y[b_i]) over (., m) uint8 banks; a or b None means
+    row i itself, y None means x alone.  Writes the rows to `out` (never one
+    of the inputs) and/or returns their float32 estimates."""
+    if out is not None and (out.data_ptr() == x.data_ptr()
+                            or (y is not None and out.data_ptr() == y.data_ptr())):
+        raise ValueError("hll_rows writes out of place")
+    p_rows = x.shape[0] if a is None else a.shape[0]
+    if y is not None and (y.shape[0] if b is None else b.shape[0]) != p_rows:
+        raise ValueError("row maps and banks must give the same number of rows")
+    if _route(x) == "plain":
+        return hll_rows_plain(x, y, a, b, out, estimate)
+    _require_cuda_operands(x, a, b)
+    m = x.shape[1]
+    for t in (x, y, out):
+        if t is not None and (t.device != x.device or t.dtype != torch.uint8
+                              or not t.is_contiguous() or t.shape[-1] != m
+                              or t.data_ptr() % 4 or m % 4):
+            raise ValueError("hll_rows takes contiguous 4-byte aligned uint8 banks of one width")
+    if out is not None and out.shape[0] != p_rows:
+        raise ValueError(f"out has {out.shape[0]} rows, want {p_rows}")
+    est = torch.empty(p_rows, dtype=torch.float32, device=x.device) if estimate else None
+    if p_rows == 0:
+        return est
+    _launch("hll_rows", _build.library("hll").rtpu_hll_rows, x,
+            x.data_ptr(), x.shape[0], _ptr(y), 0 if y is None else y.shape[0],
+            _ptr(a), _ptr(b), p_rows, m, _ptr(out), _ptr(est),
+            hll_ops.alpha(m) * m * m)
+    return est
+
+
+# --------------------------------------------------------------------------
+# Bloom programs (the JAX package's jitted names)
+# --------------------------------------------------------------------------
+
+def _bloom_add(plane, width, keys, n_valid, k, m, out=FLAGS):
+    newly = bloom_probe(plane, width, keys, n_valid, k, m, newly=True, out=out)
+    bloom_set(plane, width, keys, n_valid, k, m)
+    return plane, newly
+
+
+def bloom_add_u64_masked(bits, lo, hi, n_valid, k, m):
+    return _bloom_add(bits, bits.shape[0], _u64_keys(lo, hi), n_valid, k, m)
+
+
+def bloom_contains_u64_masked(bits, lo, hi, n_valid, k, m):
+    return bloom_probe(bits, bits.shape[0], _u64_keys(lo, hi), n_valid, k, m)
+
+
+def bloom_add_bytes_masked(bits, words, nbytes, n_valid, k, m):
+    return _bloom_add(bits, bits.shape[0], _byte_keys(words, nbytes), n_valid, k, m)
+
+
+def bloom_contains_bytes_masked(bits, words, nbytes, n_valid, k, m):
+    return bloom_probe(bits, bits.shape[0], _byte_keys(words, nbytes), n_valid, k, m)
+
+
+def bloom_add_packed(bits, lh, n_valid, k, m):
+    return bloom_add_u64_masked(bits, lh[0], lh[1], n_valid, k, m)
+
+
+def bloom_add_packed_count(bits, lh, n_valid, k, m):
+    return _bloom_add(bits, bits.shape[0], _u64_keys(lh[0], lh[1]), n_valid, k, m, out=COUNT)
+
+
+def bloom_contains_packed(bits, lh, n_valid, k, m):
+    return bloom_contains_u64_masked(bits, lh[0], lh[1], n_valid, k, m)
+
+
+def bloom_contains_packed_bits(bits, lh, n_valid, k, m):
+    return bloom_probe(bits, bits.shape[0], _u64_keys(lh[0], lh[1]), n_valid, k, m, out=BITS)
+
+
+# multi-tenant bank: a (T, W) plane, ops carry a tenant row; the row stride
+# is the PHYSICAL width W, so the same kernels serve stacked planes whose
+# width exceeds the hash domain m
+
+def bloom_bank_add_u64(bits2d, tenant, lo, hi, n_valid, k, m):
+    return _bloom_add(bits2d, bits2d.shape[1], _u64_keys(lo, hi, tenant), n_valid, k, m)
+
+
+def bloom_bank_contains_u64(bits2d, tenant, lo, hi, n_valid, k, m):
+    return bloom_probe(bits2d, bits2d.shape[1], _u64_keys(lo, hi, tenant), n_valid, k, m)
+
+
+def _tlh_keys(tlh) -> Keys:
+    return _u64_keys(tlh[1], tlh[2], tlh[0])
+
+
+def bloom_bank_add_packed(bits2d, tlh, n_valid, k, m):
+    return _bloom_add(bits2d, bits2d.shape[1], _tlh_keys(tlh), n_valid, k, m)
+
+
+def bloom_bank_add_packed_count(bits2d, tlh, n_valid, k, m):
+    return _bloom_add(bits2d, bits2d.shape[1], _tlh_keys(tlh), n_valid, k, m, out=COUNT)
+
+
+def bloom_bank_add_packed_bits(bits2d, tlh, n_valid, k, m):
+    return _bloom_add(bits2d, bits2d.shape[1], _tlh_keys(tlh), n_valid, k, m, out=BITS)
+
+
+def bloom_bank_contains_packed(bits2d, tlh, n_valid, k, m):
+    return bloom_probe(bits2d, bits2d.shape[1], _tlh_keys(tlh), n_valid, k, m)
+
+
+def bloom_bank_contains_packed_bits(bits2d, tlh, n_valid, k, m):
+    return bloom_probe(bits2d, bits2d.shape[1], _tlh_keys(tlh), n_valid, k, m, out=BITS)
+
+
+def window_from_unique(uniq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(U, 3, Bb) unique flushes + (R,) window slots -> (3, R*Bb), flush i at
+    [i*Bb, (i+1)*Bb).  Only copies rows, so it stays torch ops."""
+    return uniq.index_select(0, idx).transpose(0, 1).reshape(uniq.shape[1], -1)
+
+
+def bloom_fused_add_contains(bits, add_lh, n_add, probe_lh, n_probe, k, m):
+    """Add one batch, then probe another on the same plane: the probes see
+    the adds (stream order)."""
+    bits, newly = bloom_add_packed(bits, add_lh, n_add, k, m)
+    return bits, newly, bloom_contains_packed(bits, probe_lh, n_probe, k, m)
+
+
+def bloom_fused_add_contains_bits(bits, add_lh, n_add, probe_lh, n_probe, k, m):
+    width = bits.shape[0]
+    bits, newly = _bloom_add(bits, width, _u64_keys(add_lh[0], add_lh[1]), n_add, k, m, out=BITS)
+    return bits, newly, bloom_contains_packed_bits(bits, probe_lh, n_probe, k, m)
+
+
+# --------------------------------------------------------------------------
+# HLL programs
+# --------------------------------------------------------------------------
+
+def hll_add_u64(regs, lo, hi, n_valid, p):
+    hll_add(regs, regs.shape[-1], _u64_keys(lo, hi), n_valid, p)
+    return regs
+
+
+def hll_bank_add_u64(regs2d, tenant, lo, hi, n_valid, p):
+    hll_add(regs2d, regs2d.shape[1], _u64_keys(lo, hi, tenant), n_valid, p)
+    return regs2d
+
+
+def hll_bank_add_packed(regs2d, tlh, n_valid, p):
+    hll_add(regs2d, regs2d.shape[1], _tlh_keys(tlh), n_valid, p)
+    return regs2d
+
+
+def hll_add_packed(regs, lh, n_valid, p):
+    return hll_add_u64(regs, lh[0], lh[1], n_valid, p)
+
+
+def hll_add_bytes(regs, words, nbytes, n_valid, p):
+    hll_add(regs, regs.shape[-1], _byte_keys(words, nbytes), n_valid, p)
+    return regs
+
+
+def hll_bank_merge_map(regs2d, src_map):
+    """new[r] = max(old[r], old[src_map[r]]), as a new bank."""
+    out = torch.empty_like(regs2d)
+    hll_rows(regs2d, regs2d, None, src_map, out)
+    return out
+
+
+def hll_bank_merge_map_from(regs2d, src_bank, src_map):
+    """new[r] = max(regs2d[r], src_bank[src_map[r]]), as a new bank: rounds
+    >= 2 of a duplicate-dst merge read the pre-call snapshot `src_bank`."""
+    out = torch.empty_like(regs2d)
+    hll_rows(regs2d, src_bank, None, src_map, out)
+    return out
+
+
+def hll_merge(a, b):
+    """PFMERGE of two counters into a new one."""
+    out = torch.empty_like(a)
+    hll_rows(a.view(1, -1), b.view(1, -1), out=out.view(1, -1))
+    return out
+
+
+def hll_estimate(regs):
+    """float32 estimate of one (m,) counter (0-d) or of each row of a bank."""
+    if regs.dim() == 1:
+        return hll_rows(regs.view(1, -1), estimate=True)[0]
+    return hll_rows(regs, estimate=True)
+
+
+def hll_estimate_union(a, b):
+    return hll_rows(a.view(1, -1), b.view(1, -1), estimate=True)[0]
+
+
+def hll_bank_estimate_union_pairs(regs2d, a, b):
+    return hll_rows(regs2d, regs2d, a, b, estimate=True)

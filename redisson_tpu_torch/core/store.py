@@ -1,0 +1,106 @@
+"""DeviceStore: the registry of named device-resident states.
+
+Every object handle is stateless; its state lives here as a StateRecord
+holding tensors plus metadata (kind, logical sizes, hash version), keyed by
+name.  Compound mutations run under the engine's per-record locks
+(core/engine.py ``locked``/``locked_many``), so each object has one writer
+at a time.  Kernels update the record's tensors in place, or install a new
+tensor where they write out of place (the HLL merges).
+
+A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
+window, device placement and the residency tiers, which later slices port.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional
+
+
+@dataclass
+class StateRecord:
+    kind: str                       # "bloom" | "bloom_array" | "hll" | "hll_array"
+    meta: Dict[str, Any] = field(default_factory=dict)
+    arrays: Dict[str, Any] = field(default_factory=dict)  # name -> torch.Tensor
+    version: int = 0                # bumped on every mutation
+    expire_at: Optional[float] = None  # epoch seconds, None = persistent
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        return self.expire_at is not None and (now or time.time()) >= self.expire_at
+
+
+class DeviceStore:
+    """Thread-safe name -> StateRecord registry with TTL semantics: expired
+    entries read as absent and are dropped when touched."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._states: Dict[str, StateRecord] = {}
+
+    def _get_locked(self, name: str) -> Optional[StateRecord]:
+        rec = self._states.get(name)
+        if rec is not None and rec.expired():
+            del self._states[name]
+            rec = None
+        return rec
+
+    def get(self, name: str) -> Optional[StateRecord]:
+        with self._lock:
+            return self._get_locked(name)
+
+    def get_or_create(self, name: str, kind: str,
+                      factory: Callable[[], StateRecord]) -> StateRecord:
+        with self._lock:
+            rec = self._get_locked(name)
+            if rec is None:
+                rec = factory()
+                if rec.kind != kind:
+                    raise TypeError(f"factory made a {rec.kind}, expected {kind}")
+                self._states[name] = rec
+            elif rec.kind != kind:
+                raise TypeError(
+                    f"object '{name}' holds a {rec.kind}, requested {kind} "
+                    "(WRONGTYPE in the reference)"
+                )
+            return rec
+
+    def put(self, name: str, rec: StateRecord) -> None:
+        with self._lock:
+            self._states[name] = rec
+
+    def delete(self, name: str) -> bool:
+        with self._lock:
+            return self._states.pop(name, None) is not None
+
+    def exists(self, name: str) -> bool:
+        return self.get(name) is not None
+
+    def rename(self, old: str, new: str) -> bool:
+        with self._lock:
+            rec = self._get_locked(old)
+            if rec is None:
+                return False
+            if new != old:
+                self._states[new] = rec
+                del self._states[old]
+            return True
+
+    def expire(self, name: str, at: Optional[float]) -> bool:
+        with self._lock:
+            rec = self._get_locked(name)
+            if rec is None:
+                return False
+            rec.expire_at = at
+            return True
+
+    def ttl(self, name: str) -> Optional[float]:
+        """Remaining TTL seconds; None if absent or persistent."""
+        rec = self.get(name)
+        if rec is None or rec.expire_at is None:
+            return None
+        return max(0.0, rec.expire_at - time.time())
+
+    def flushall(self) -> None:
+        with self._lock:
+            self._states.clear()

@@ -1,0 +1,36 @@
+"""State carried across between the JAX package and the port.
+
+A record of either package is a kind, a meta dict and named arrays; the
+arrays (bloom planes, HLL register banks) are persisted formats that both
+packages share bit for bit.  ``from_reference`` turns a ``redisson_tpu``
+StateRecord's meta and arrays, as numpy, into a record of this package on a
+device; ``to_reference`` goes back.  Tests use them to start both packages
+from the same state and to compare final states.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from redisson_tpu_torch.core.store import StateRecord
+
+KINDS = ("bloom", "bloom_array", "hll", "hll_array")
+
+
+def from_reference(kind: str, meta: Dict[str, Any], arrays_np: Dict[str, np.ndarray],
+                   device) -> StateRecord:
+    if kind not in KINDS:
+        raise ValueError(f"no port of state kind {kind!r}")
+    arrays = {}
+    for name, arr in arrays_np.items():
+        arr = np.asarray(arr)
+        if arr.dtype != np.uint8:
+            raise ValueError(f"{kind}.{name}: sketch state is uint8, got {arr.dtype}")
+        arrays[name] = torch.from_numpy(arr.copy()).to(device)
+    return StateRecord(kind=kind, meta=dict(meta), arrays=arrays)
+
+
+def to_reference(rec: StateRecord) -> Tuple[str, Dict[str, Any], Dict[str, np.ndarray]]:
+    return rec.kind, dict(rec.meta), {n: t.cpu().numpy() for n, t in rec.arrays.items()}

@@ -1,0 +1,99 @@
+"""redisson_tpu_torch stands alone: it imports neither JAX nor anything of
+redisson_tpu, lands on the CPU only when asked, and a CPU run launches no
+kernel."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import redisson_tpu_torch
+from redisson_tpu_torch.core import kernels as K
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "redisson_tpu_torch"
+
+
+def _modules():
+    names = ["redisson_tpu_torch"]
+    for info in pkgutil.walk_packages([str(PKG)], prefix="redisson_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_with_jax_and_the_reference_blocked():
+    script = f"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")) or name == "redisson_tpu" \\
+                or name.startswith("redisson_tpu."):
+            raise ImportError("blocked: " + name)
+        return None
+
+for mod in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "redisson_tpu."))
+            or m == "redisson_tpu"]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+import importlib
+for name in {_modules()!r} + ["chip_smoke"]:
+    importlib.import_module(name)
+leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "redisson_tpu"
+          or m.startswith("redisson_tpu.")]
+assert not leaked, leaked
+print("ok", len({_modules()!r}))
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_in_source(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "redisson_tpu"), f"{path}: imports {name}"
+
+
+def test_create_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        redisson_tpu_torch.create()
+    with pytest.raises(RuntimeError):
+        redisson_tpu_torch.create(device="cuda:0")
+    assert redisson_tpu_torch.create(device="cpu").engine.device.type == "cpu"
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.zeros(1024, dtype=torch.uint8, device="meta")
+    lh = torch.zeros((2, 256), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        K.bloom_contains_packed_bits(meta, lh, 10, 3, 1000)
+
+
+def test_cpu_run_leaves_launch_counters_at_zero():
+    K.reset_launches()
+    c = redisson_tpu_torch.create(device="cpu")
+    arr = c.get_bloom_filter_array("a")
+    arr.try_init(4, 1000, 0.01)
+    arr.add_flushes([(np.zeros(40, np.int32), np.arange(40))])
+    arr.contains(np.zeros(40, np.int32), np.arange(40))
+    h = c.get_hyper_log_log("h")
+    h.add_all(["x", "y"])
+    assert h.count() == 2
+    assert K.launches == {"bloom_probe": 0, "bloom_set": 0, "hll_add": 0, "hll_rows": 0}

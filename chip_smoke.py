@@ -5,17 +5,23 @@ plain PyTorch versions.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (any failure raises and the script exits non-zero):
-  1. the card's name and power limit; build the four kernels from csrc/
+  1. the card's name and power limit; build the five kernels from csrc/
      (one nvcc per source, all at once) and print the build seconds;
-  2. known answers: the CUDA hash chain, read back through hll_add and
-     bloom_set, gives the hashes the JAX package gives (constants below);
+  2. known answers: the CUDA hash chain, read back through hll_add,
+     bloom_set and the fused add, gives the hashes the JAX package gives
+     (constants below);
   3. each kernel against its plain version on the card at the main path's
      shapes (BASELINE configs 1-3), bit for bit; its time (CUDA events), the
-     plain version's time and the least time the card could take;
+     plain version's time and the least time the card could take.  The
+     fused add (bloom_add) is also timed against the probe-then-set pair on
+     the same add stream and on config 2's 10M-op populate, and checked on
+     both sides of kernels.use_fused_add's size threshold;
   4. the main path through redisson_tpu_torch.create() on its default
-     device: config 2 (1,000-tenant bank, 10M keys, 100k-op contains
-     flushes), config 1 (one 1e7/0.01 filter), config 3 (10k HLL counters),
-     with every kernel's launch count read after the run;
+     device: config 2 (1,000-tenant bank, 10M keys populated in one window,
+     100k-op contains flushes), config 1 (one 1e7/0.01 filter), config 3
+     (10k HLL counters), then single-key adds (Redisson's
+     RBloomFilter.add(key), the facade's add) into a filter of config 1's
+     size, each path with its kernels' launch counts read after it;
   5. a small op stream through create() on the card and on the CPU: equal
      replies and equal final states.
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
@@ -64,6 +70,11 @@ KNOWN_BYTES = {
 C2_TENANTS, C2_PER_TENANT, C2_FLUSH, C2_INGEST = 1000, 10_000, 100_000, 1_000_000
 C1_N, C1_BATCH = 10_000_000, 1 << 20
 C3_TENANTS, C3_BATCH, C3_BATCHES = 10_000, 1_000_000, 10
+# single-key adds, RBloomFilter.add(key): enough calls for a latency p99
+SINGLE_ADDS = 200
+# the kernels each path of the main path must launch
+PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config1": ("bloom_add", "bloom_probe"),
+                "config3": ("hll_add", "hll_rows"), "single_adds": ("bloom_probe", "bloom_set")}
 FPP = 0.01
 
 
@@ -184,11 +195,13 @@ def check_known_answers(dev) -> None:
         want = torch.zeros_like(regs)
         want[h1 & ((1 << p) - 1)] = rho
         assert_equal(f"known answer hll_add {kind}", regs, want)
-        plane = torch.zeros(1_001_472, dtype=torch.uint8, device=dev)
-        K.bloom_set(plane, plane.numel(), kb, 1, k, m)
-        want = torch.zeros_like(plane)
+        want = torch.zeros(1_001_472, dtype=torch.uint8, device=dev)
         want[[((h1 + i * h2) & 0xFFFFFFFF) % m for i in range(k)]] = 1
-        assert_equal(f"known answer bloom_set {kind}", plane, want)
+        for name, add in (("bloom_set", lambda pl: K.bloom_set(pl, pl.numel(), kb, 1, k, m)),
+                          ("bloom_add", lambda pl: K.bloom_add_fused(pl, pl.numel(), kb, 1, k, m))):
+            plane = torch.zeros_like(want)
+            add(plane)
+            assert_equal(f"known answer {name} {kind}", plane, want)
     log(f"known answers: {len(cases)} keys hash on the card as in the JAX package")
 
 
@@ -212,7 +225,10 @@ def u64_batch(rng, n: int, b: int, dev, tenants: int = 0, dup: float = 0.1):
         return K.Keys(n=b, lo=K.stage(lo, dev), hi=K.stage(hi, dev))
     t = np.zeros(b, np.int32)
     t[:n] = rng.integers(0, tenants, n)
-    t[:4] = [-1, tenants, 2**31 - 1, -(2**31)]
+    # ids outside the bank, ids whose int32 product with the row width wraps,
+    # and the last row
+    bad = [-1, tenants, 2**31 - 1, -(2**31), 2**22, 2**22 + 1, -(2**22) + 2, tenants - 1]
+    t[:len(bad)] = bad
     return K.Keys(n=b, tenant=K.stage(t, dev), lo=K.stage(lo, dev), hi=K.stage(hi, dev))
 
 
@@ -233,6 +249,22 @@ def probe_positions(keys, width, size, k, m, n_valid):
     h1, h2 = K._hash(keys)
     g = K._flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, size)[:n_valid]
     return g[g < size]
+
+
+def needed_probe_positions(plane, keys, width, k, m, n_valid):
+    """Flat positions (in range) that n_valid ops must read to answer a
+    probe: each op's probes up to and including its first 0, all k when
+    every one is set."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    h1, h2 = K._hash(keys)
+    size = plane.numel()
+    g = K._flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, size)[:n_valid]
+    inside = g < size
+    zero = (inside & (plane.reshape(-1)[torch.where(inside, g, 0)] == 0)).to(torch.int32)
+    after_a_zero = (torch.cumsum(zero, dim=1) - zero) > 0
+    return g[inside & ~after_a_zero]
 
 
 def check_kernels(dev, rng) -> dict:
@@ -270,12 +302,19 @@ def check_kernels(dev, rng) -> dict:
     # a probe only reads, so the 8 flushes can be replayed on one bank
     ms = time_kernel(lambda i: K.bloom_probe(bank, m2, flushes[i % 8], C2_FLUSH, k, m2, False, K.BITS))
     plain = time_plain(lambda i: K.bloom_probe_plain(bank, m2, flushes[i % 8], C2_FLUSH, k, m2, False, K.BITS))
-    touched = statistics.median(sectors(probe_positions(f, m2, bank.numel(), k, m2, C2_FLUSH)) for f in flushes)
+    # an op's answer needs its probes up to its first 0 (all k when found);
+    # the bound over all k probes is kept for comparison
+    touched = statistics.median(sectors(needed_probe_positions(bank, f, m2, k, m2, C2_FLUSH)) for f in flushes)
+    every = statistics.median(sectors(probe_positions(f, m2, bank.numel(), k, m2, C2_FLUSH)) for f in flushes)
     bms, by = bound_ms(touched * 32 + 12 * C2_FLUSH + b2 // 8, C2_FLUSH * (OPS_HASH_U64 + k * OPS_PROBE))
+    all_k_bms, _ = bound_ms(every * 32 + 12 * C2_FLUSH + b2 // 8, C2_FLUSH * (OPS_HASH_U64 + k * OPS_PROBE))
     results["bloom_probe"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                                  bound_all_probes_ms=all_k_bms, sectors_needed=touched, sectors_all_probes=every,
                                   shape=f"config-2 contains flush: {probe_cases[0][0]}, k={k}, bitmap out",
                                   checked=checked)
-    log(f"kernel bloom_probe: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), equal to plain at {checked}")
+    log(f"kernel bloom_probe: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by} for the {touched} "
+        f"sectors the answers need; {all_k_bms:.4f} ms for all {every} sectors of k probes), "
+        f"equal to plain at {checked}")
 
     checked, err = [], 0.0
     for label, plane, width, kb, nv, m in probe_cases:
@@ -284,24 +323,37 @@ def check_kernels(dev, rng) -> dict:
         K.bloom_set_plain(b, width, kb, nv, k, m)
         err = max(err, assert_equal(f"bloom_set {label}", a, b))
         checked.append(label)
-    del bank, plane1, single, probe_cases, a, b
-    # config 1's add stream: ten new batches of distinct keys into a zeroed
-    # plane.  A blind store need not read the plane, so the bound writes
-    # every touched sector once.
+    # the main path's shape: a single-key add (the pair route, one byte key)
+    # into the config-1 plane.  A blind store need not read the plane, so
+    # the bound writes every touched sector once.
+    n_small = 1
+    small = [byte_batch(rng, n_small, dev) for _ in range(20)]
+    ms = time_kernel(lambda i: K.bloom_set(plane1, size1, small[i], n_small, k, m1))
+    plain = time_plain(lambda i: K.bloom_set_plain(plane1, size1, small[i], n_small, k, m1))
+    touched = statistics.median(sectors(probe_positions(b, size1, size1, k, m1, n_small)) for b in small)
+    # (the operations of a u64 key's hash, fewer than a byte key's)
+    key_bytes = statistics.median(4 * b.words.shape[0] + 4 for b in small)
+    bms, by = bound_ms(32 * touched + key_bytes, n_small * (OPS_HASH_U64 + k * OPS_PROBE))
+    del bank, plane1, single, probe_cases, a, b, small
+    # config 1's add stream, for comparison with the fused add, which takes
+    # it on the main path: ten new batches of distinct keys into a zeroed
+    # plane
     stream = [u64_batch(rng, n1, C1_BATCH, dev, dup=0.0) for _ in range(C1_N // n1)]
     work = torch.zeros(size1, dtype=torch.uint8, device=dev)
-    ms, plain, nbytes, stream_err = time_stream(
+    stream_ms, _, nbytes, stream_err = time_stream(
         "bloom_set", lambda pl, kb: K.bloom_set(pl, size1, kb, n1, k, m1),
         lambda pl, kb: K.bloom_set_plain(pl, size1, kb, n1, k, m1), work, torch.zeros_like(work), stream,
         lambda kb, changed: 32 * sectors(probe_positions(kb, size1, size1, k, m1, n1)) + 8 * n1)
-    bms, by = bound_ms(nbytes, n1 * (OPS_HASH_U64 + k * OPS_PROBE))
+    stream_bms, _ = bound_ms(nbytes, n1 * (OPS_HASH_U64 + k * OPS_PROBE))
     results["bloom_set"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(err, stream_err),
-                                shape=f"config-1 add stream: {len(stream)} batches of {n1} new keys "
-                                      f"into a zeroed {size1}-lane plane, k={k}",
-                                checked=checked + [f"a stream of {len(stream)} add batches"])
-    log(f"kernel bloom_set: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), "
+                                config1_stream_ms=stream_ms, config1_stream_bound_ms=stream_bms,
+                                shape=f"single-key add into the config-1 plane {size1}, k={k}",
+                                checked=checked + [f"a stream of {len(stream)} config-1 add batches"])
+    log(f"kernel bloom_set: {ms:.4f} ms per single-key add (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}); "
+        f"{stream_ms:.4f} ms per config-1 batch (bound {stream_bms:.4f} ms); "
         f"equal to plain at {results['bloom_set']['checked']}")
     del work, stream
+    results["bloom_add"] = check_bloom_add(dev, rng)
 
     # -- hll_add on the config-3 bank and one counter --
     p = 14
@@ -400,6 +452,170 @@ def check_kernels(dev, rng) -> dict:
     return results
 
 
+def boundary_batch(dev, size, k, m, chunk):
+    """u64 keys (single plane) one of whose probes lands on a byte either
+    side of a chunk boundary, and those bytes."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    cand = np.arange(1, 1 << 21, dtype=np.int64) * 2654435761
+    lo, hi = H.int_keys_to_u32_pair(cand)
+    pos = H.bloom_indexes(*H.hash_u64_pair(K.stage(lo, dev), K.stage(hi, dev)), k, m)
+    edge = (pos % chunk == 0) | (pos % chunk == chunk - 1)
+    rows = edge.any(dim=1).nonzero().reshape(-1)[:8192].cpu().numpy()
+    n = len(rows)
+    b = -(-n // 32) * 32
+    l2, h2 = np.zeros(b, np.uint32), np.zeros(b, np.uint32)
+    l2[:n], h2[:n] = lo[rows], hi[rows]
+    return K.Keys(n=b, lo=K.stage(l2, dev), hi=K.stage(h2, dev)), n, pos[edge]
+
+
+def config2_ingest():
+    """Config 2's populate: 10M keys in ten 1M flushes, tenant = a hash of
+    the key."""
+    ingest = []
+    for start in range(0, C2_TENANTS * C2_PER_TENANT, C2_INGEST):
+        keys = np.arange(start, start + C2_INGEST, dtype=np.int64) * 2654435761
+        ingest.append((((keys * 40503) % C2_TENANTS).astype(np.int32), keys))
+    return ingest
+
+
+def check_bloom_add(dev, rng) -> dict:
+    """The fused add against its plain version (the newly result in every
+    form and the plane after it) at the main path's shapes and adversarial
+    ones, both sides of the size dispatch, and its time against the
+    probe-then-set pair on config 1's add stream and config 2's populate."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.client.objects.bloom import optimal_num_of_bits
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    k = 7
+    m2 = bt.padded_size(optimal_num_of_bits(C2_PER_TENANT, FPP))
+    bank = (torch.rand((C2_TENANTS, m2), device=dev) < 0.5).to(torch.uint8)
+    m1 = optimal_num_of_bits(C1_N, FPP)
+    size1 = bt.padded_size(m1)
+    plane1 = (torch.rand(size1, device=dev) < 0.5).to(torch.uint8)
+    n1 = C1_BATCH - 1000
+    b2 = K.bucket_size(C2_FLUSH)
+    chunk = 1 << K.ADD_CHUNK_LOG2
+    flush = u64_batch(rng, C2_FLUSH, b2, dev, tenants=C2_TENANTS)
+    last_row = u64_batch(rng, C2_FLUSH, b2, dev)._replace(
+        tenant=torch.full((b2,), C2_TENANTS - 1, dtype=torch.int32, device=dev))
+    edges, n_edge, edge_pos = boundary_batch(dev, size1, k, m1, chunk)
+    plane_edges = plane1.clone()
+    plane_edges[edge_pos] = 0  # so the boundary bytes decide "newly"
+    cases = [
+        (f"config-1 plane {size1}, {n1} ops in {C1_BATCH}, 10% duplicates", plane1, size1,
+         u64_batch(rng, n1, C1_BATCH, dev), n1, m1),
+        (f"config-2 bank {C2_TENANTS}x{m2}, {C2_FLUSH} ops in {b2}, ids outside and wrapping", bank, m2,
+         flush, C2_FLUSH, m2),
+        (f"config-2 bank, hash domain {m2 - 1000} narrower than the row", bank, m2, flush, C2_FLUSH, m2 - 1000),
+        ("config-2 bank, every op in the last row", bank, m2, last_row, C2_FLUSH, m2),
+        ("config-2 bank, n_valid = 0", bank, m2, flush, 0, m2),
+        (f"config-1 plane, {n_edge} keys probing both sides of {chunk}-byte chunk boundaries", plane_edges,
+         size1, edges, n_edge, m1),
+        ("config-1 plane, 65536 byte keys of 0-64 bytes", plane1, size1, byte_batch(rng, 65536, dev), 65536, m1)]
+    checked, err = [], 0.0
+    for label, plane, width, kb, nv, m in cases:
+        for out in (K.FLAGS, K.BITS, K.COUNT):
+            a, b = plane.clone(), plane.clone()
+            got = K.bloom_add_fused(a, width, kb, nv, k, m, out)
+            want = K.bloom_add_plain(b, width, kb, nv, k, m, out)
+            err = max(err, assert_equal(f"bloom_add {label} out={out}", got, want))
+            err = max(err, assert_equal(f"bloom_add {label} out={out}: plane", a, b))
+        checked.append(label)
+    # both sides of the size dispatch, through bloom_add on the config-2 bank
+    n_fused = int(np.ceil(K.FUSED_ADD_PROBES_PER_SECTOR * bank.numel() / 32 / k))
+    for nv, route in ((n_fused - 1, "pair"), (n_fused, "fused")):
+        kb = u64_batch(rng, nv, K.bucket_size(nv), dev, tenants=C2_TENANTS)
+        a, b = bank.clone(), bank.clone()
+        before = dict(K.launches)
+        got = K.bloom_add(a, m2, kb, nv, k, m2, K.BITS)
+        took = "fused" if K.launches["bloom_add"] > before["bloom_add"] else "pair"
+        if took != route or K.use_fused_add(bank.numel(), nv, k) != (route == "fused"):
+            raise AssertionError(f"bloom_add of {nv} ops took the {took} route, want {route}")
+        err = max(err, assert_equal(f"bloom_add {route} route, {nv} ops", got,
+                                    K.bloom_add_plain(b, m2, kb, nv, k, m2, K.BITS)))
+        err = max(err, assert_equal(f"bloom_add {route} route, {nv} ops: plane", a, b))
+        checked.append(f"bloom_add on the config-2 bank, {nv} ops: the {route} route")
+    del bank, plane1, plane_edges, cases, a, b
+
+    # config 1's add stream (as bloom_set's, newly counted as config 1 does):
+    # the fused add and the probe-then-set pair, in turns on fresh planes.
+    # A fused add must read every touched sector and write back the changed
+    # ones, so its bound is both, plus the keys and the count.
+    stream = [u64_batch(rng, n1, C1_BATCH, dev, dup=0.0) for _ in range(C1_N // n1)]
+    routes = {
+        "fused": lambda pl, kb: K.bloom_add_fused(pl, size1, kb, n1, k, m1, K.COUNT),
+        "pair": lambda pl, kb: (K.bloom_probe(pl, size1, kb, n1, k, m1, True, K.COUNT),
+                                K.bloom_set(pl, size1, kb, n1, k, m1))}
+    plain = lambda pl, kb: K.bloom_add_plain(pl, size1, kb, n1, k, m1, K.COUNT)
+
+    def add_bytes(kb, changed):
+        return 32 * (sectors(probe_positions(kb, size1, size1, k, m1, n1)) + sectors(changed)) + 8 * n1 + 4
+
+    times, first = {"fused": [], "pair": []}, {}
+    for route in ("fused", "pair", "pair", "fused"):
+        work = torch.zeros(size1, dtype=torch.uint8, device=dev)
+        if route not in first:  # a route's first pass is checked against the plain version
+            t, plain_t, nbytes_t, stream_err = time_stream(f"{route} add", routes[route], plain, work,
+                                                           torch.zeros_like(work), stream, add_bytes)
+            first[route] = (plain_t, nbytes_t)
+            err = max(err, stream_err)
+        else:
+            t = time_kernel(lambda i: routes[route](work, stream[i]), reps=len(stream), warm=lambda: None)
+        times[route].append(t)
+        del work
+    ms, pair_ms = statistics.median(times["fused"]), statistics.median(times["pair"])
+    plain_ms, nbytes = first["fused"]
+    bms, by = bound_ms(nbytes, n1 * (OPS_HASH_U64 + k * OPS_PROBE))
+    checked.append(f"a stream of {len(stream)} add batches")
+    del stream
+
+    # config 2's populate: one window of ten 1M flushes into a zeroed bank,
+    # packed as the facade packs it, one launch of each route
+    client = redisson_tpu_torch.create()
+    arr = client.get_bloom_filter_array("smoke:populate")
+    arr.try_init(C2_TENANTS, C2_PER_TENANT, FPP)
+    tlh, _, _ = arr._pack_flush_window(config2_ingest())
+    arr.delete()
+    client.shutdown()
+    kb, nv = K._tlh_keys(tlh), tlh.shape[1]
+    ref = torch.zeros((C2_TENANTS, m2), dtype=torch.uint8, device=dev)
+    want = K.bloom_add_plain(ref, m2, kb, nv, k, m2, K.BITS)
+    pop = {}
+    for route in ("fused", "pair"):
+        banks = [torch.zeros_like(ref) for _ in range(4)]
+
+        def add(i, route=route, banks=banks):
+            if route == "fused":
+                return K.bloom_add_fused(banks[i], m2, kb, nv, k, m2, K.BITS)
+            got = K.bloom_probe(banks[i], m2, kb, nv, k, m2, True, K.BITS)
+            K.bloom_set(banks[i], m2, kb, nv, k, m2)
+            return got
+
+        pop[route] = time_kernel(lambda i: add(i + 1), reps=3, warm=lambda: add(0))
+        err = max(err, assert_equal(f"config-2 populate, {route}", add(0, banks=[torch.zeros_like(ref)]), want))
+        err = max(err, assert_equal(f"config-2 populate, {route}: bank", banks[1], ref))
+        del banks
+    touched = sectors(probe_positions(kb, m2, ref.numel(), k, m2, nv))
+    written = int(torch.unique(ref.reshape(-1).nonzero().reshape(-1) // 32).numel())
+    pop_bms, _ = bound_ms(32 * (touched + written) + 12 * nv + nv // 8, nv * (OPS_HASH_U64 + k * OPS_PROBE))
+    checked.append(f"config-2 populate, {nv} ops in one window")
+    del ref, want, tlh, kb
+    torch.cuda.empty_cache()
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err, pair_ms=pair_ms,
+               populate_ms=pop["fused"], populate_pair_ms=pop["pair"], populate_bound_ms=pop_bms,
+               dispatch_probes_per_sector=K.FUSED_ADD_PROBES_PER_SECTOR, chunk_bytes=chunk,
+               shape=f"config-1 add stream: {C1_N // n1} batches of {n1} new keys into a zeroed "
+                     f"{size1}-lane plane, k={k}, count out", checked=checked)
+    log(f"kernel bloom_add: {ms:.4f} ms per config-1 batch (probe-then-set pair {pair_ms:.4f} ms on the same "
+        f"stream; plain {plain_ms:.3f} ms; bound {bms:.4f} ms by {by}); config-2 populate of {nv} ops: fused "
+        f"{pop['fused']:.4f} ms, pair {pop['pair']:.4f} ms, bound {pop_bms:.4f} ms; equal to plain at {checked}")
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path through the facade
 # --------------------------------------------------------------------------
@@ -426,10 +642,7 @@ def run_config2(client, rng) -> dict:
         return ((keys * 40503) % C2_TENANTS).astype(np.int32)
 
     t0 = time.perf_counter()
-    ingest = []
-    for start in range(0, C2_TENANTS * C2_PER_TENANT, C2_INGEST):
-        keys = np.arange(start, start + C2_INGEST, dtype=np.int64) * 2654435761
-        ingest.append((tenant_of(keys), keys))
+    ingest = config2_ingest()
     newly, bb, lengths = arr.add_flushes_async(ingest)
     torch.cuda.synchronize()
     populate_s = time.perf_counter() - t0
@@ -497,6 +710,30 @@ def run_config2(client, rng) -> dict:
         f"{out['pack_copy_p50_ms']:.3f} ms), fp {fp:.5f}, "
         f"window of 50 flushes {out['window_ops_per_s'] / 1e6:.1f}M contains/s; bank equals plain")
     client.get_bloom_filter_array("c2:tenants").delete()
+    return out
+
+
+def run_single_adds(client, rng) -> dict:
+    """Single-key adds, as Redisson's RBloomFilter.add(key) makes them, into a
+    filter of config 1's size: each takes the probe-then-set pair
+    (kernels.use_fused_add), and every added key is then found."""
+    bf = client.get_bloom_filter("single:adds")
+    if not bf.try_init(C1_N, FPP):
+        raise AssertionError("single adds: filter exists")
+    # Python ints go through the codec, as Redisson's keys do: byte keys
+    keys = [int(x) for x in rng.integers(1 << 61, 1 << 62, SINGLE_ADDS)]
+    bf.add(keys[0])  # first call outside the timing
+    lat, added = [], 0
+    for key in keys[1:]:
+        s = time.perf_counter()
+        added += bf.add(key)
+        lat.append(time.perf_counter() - s)
+    if not bf.contains_each(keys).all():
+        raise AssertionError("single adds: an added key is not found")
+    out = {"adds": len(lat), "newly": added, "add_p50_ms": pctl(lat, 50) * 1e3, "add_p99_ms": pctl(lat, 99) * 1e3}
+    log(f"single adds: {len(lat)} RBloomFilter.add(key) into a {C1_N}/{FPP} filter, p50 {out['add_p50_ms']:.3f} ms "
+        f"p99 {out['add_p99_ms']:.3f} ms ({added} newly); every key found")
+    bf.delete()
     return out
 
 
@@ -667,13 +904,15 @@ def main() -> int:
     paths, before = {}, dict(K.launches)
     for name, run in (("config2", lambda: run_config2(client, np.random.default_rng(42))),
                       ("config1", lambda: run_config1(client)),
-                      ("config3", lambda: run_config3(client, np.random.default_rng(7)))):
+                      ("config3", lambda: run_config3(client, np.random.default_rng(7))),
+                      ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11)))):
         paths[name] = run()
         paths[name]["launches"] = {k: K.launches[k] - before[k] for k in K.launches}
         before = dict(K.launches)
     main_launches = dict(K.launches)
     client.shutdown()
-    missing = [k for k, v in main_launches.items() if v == 0]
+    missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
+    missing += [k for k, v in main_launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     log("main-path launches: " + json.dumps({k: v["launches"] for k, v in paths.items()}))
@@ -682,17 +921,20 @@ def main() -> int:
 
     sources = {"bloom_probe": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:184"),
                "bloom_set": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
+               "bloom_add": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
                "hll_add": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:446"),
                "hll_rows": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:504")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-         "launches": main_launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": main_launches[name],
+         "launches_by_path": {path: v["launches"][name] for path, v in paths.items()},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": None}
         for name, r in kernels.items()]}
     for name, r in kernels.items():
-        log(json.dumps({"kernel": name, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "launches": main_launches[name]}))
+        log(json.dumps({"kernel": name, "launches": main_launches[name],
+                        **{key: v for key, v in r.items() if isinstance(v, (int, float))}}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,14 +25,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_P, _I, _L, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, ctypes.c_float
 _KEYS = [_P, _P, _P, _P, _P, _I, _I]  # tenant, lo, hi, words, nbytes, n_words, n
+_PROBES = [_I, _I, _L, _U]  # n_valid, k, m, fastmod_magic(m)
 
 # library -> {entry point: argtypes}; every entry point returns int.
 SIGNATURES = {
     "bloom": {
-        "rtpu_bloom_probe": [_P, _L, _L, *_KEYS, _I, _I, _L, _I, _I, _P, _P],
-        "rtpu_bloom_set": [_P, _L, _L, *_KEYS, _I, _I, _L, _P],
+        "rtpu_bloom_probe": [_P, _L, _L, *_KEYS, *_PROBES, _I, _I, _P, _P],
+        "rtpu_bloom_set": [_P, _L, _L, *_KEYS, *_PROBES, _P],
+        "rtpu_bloom_add": [_P, _L, _L, *_KEYS, *_PROBES, _I, _I, _P, _P, _P, _P, _P],
     },
     "hll": {
         "rtpu_hll_add": [_P, _L, _L, _I, *_KEYS, _I, _P],

@@ -8,11 +8,15 @@ of the state it is given: state on the CPU runs the plain version, state on a
 CUDA card launches the kernel, and nothing falls back from one to the other
 (a CUDA launch either runs or raises).
 
-Four kernels carry every program here:
+Five kernels carry every program here:
 
   bloom_probe  hash, k probes, AND; out as flags, a uint32 bitmap or a count
   bloom_set    hash, store 1 at the k probes (after bloom_probe: the add
                contract reads every bit as it was before the batch)
+  bloom_add    the fused add of a large batch: probes binned by chunk of the
+               plane, each touched chunk read and written once; the newly
+               result in any of the three forms.  ``bloom_add`` picks it or
+               the probe-then-set pair by batch size (``use_fused_add``)
   hll_add      hash, scatter-max of the rank into a uint8 register
   hll_rows     row gather-max of two banks, optional out-of-place write,
                optional float32 estimate per row
@@ -49,7 +53,7 @@ BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 
 # Launches of each hand kernel since the last reset_launches(); a run reads
 # them to show that its path went through the kernels.
-launches = {"bloom_probe": 0, "bloom_set": 0, "hll_add": 0, "hll_rows": 0}
+launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0}
 
 
 def reset_launches() -> None:
@@ -276,6 +280,87 @@ def _launch(name: str, fn, state: torch.Tensor, *args) -> None:
     launches[name] += 1
 
 
+# The bloom kernels reduce (h1 + i*h2) mod 2**32 by m with a multiply-high
+# (csrc/hash.cuh FastMod) by this constant instead of a division.
+
+def fastmod_magic(m: int) -> int:
+    """ceil(2**64 / m) mod 2**64, the FastMod constant of m."""
+    if not 1 <= m < 2**32:
+        raise ValueError(f"bloom hash domain m={m} must be in [1, 2**32)")
+    return (((1 << 64) - 1) // m + 1) & ((1 << 64) - 1)
+
+
+def fastmod(x: int, magic: int, m: int) -> int:
+    """x % m for a uint32 x, computed as FastMod computes it on the card."""
+    return (((magic * x) & ((1 << 64) - 1)) * m) >> 64
+
+
+# The fused add bins a batch's probes by 64 KB chunk of the plane (a
+# shared-memory tile) and reads and writes each touched chunk once: it moves
+# 16 bytes of entry per probe and whole tiles, so it pays off only when the
+# batch touches a good share of a plane that does not fit in L2.
+# use_fused_add takes it when the plane is larger than FUSED_ADD_MIN_PLANE
+# (the H100's 50 MiB L2: in a plane that fits there the pair's scattered
+# stores are L2 hits) and k * n_valid >= FUSED_ADD_PROBES_PER_SECTOR probes
+# per 32-byte sector of the plane, the crossover measured on an H100
+# (PERF.md section 6); the probe-then-set pair otherwise.  A block of the
+# binning passes keeps a histogram of every chunk in shared memory beside
+# its staged entries, so a plane of more than ADD_MAX_BINS chunks (512 MiB),
+# or a batch of more probes than the uint32-indexed entries hold, takes the
+# pair.
+ADD_CHUNK_LOG2 = 16
+ADD_MAX_BINS = 1 << 13
+FUSED_ADD_MIN_PLANE = 50 << 20
+FUSED_ADD_PROBES_PER_SECTOR = 0.3
+FUSED_ADD_MAX_PROBES = 2**31 - 1
+
+
+def add_chunks(size: int) -> int:
+    """Chunks of the fused add over a plane of `size` bytes."""
+    return (size + (1 << ADD_CHUNK_LOG2) - 1) >> ADD_CHUNK_LOG2
+
+
+# csrc/bloom.cu's kBlock and kStageBytes: a block of the binning passes
+# stages up to 2 * kBlock ops' entries (10 bytes per probe) in kStageBytes
+# of shared memory beside two words per chunk.
+_ADD_BLOCK = 1024
+_ADD_STAGE_BYTES = 160 * 1024
+
+
+def add_ops_per_block(chunks: int, k: int) -> int:
+    """Ops per block of the fused add's binning passes (csrc/bloom.cu
+    ops_per_block); 0 when the staging memory holds not even one op."""
+    fit = (_ADD_STAGE_BYTES - 8 * ((chunks + 3) & ~3)) // (10 * k)
+    return max(0, min(fit, 2 * _ADD_BLOCK))
+
+
+def use_fused_add(size: int, n_valid: int, k: int) -> bool:
+    """The size dispatch of bloom_add on the card: fused add or the pair."""
+    probes = k * n_valid
+    return (FUSED_ADD_MIN_PLANE < size and add_chunks(size) <= ADD_MAX_BINS
+            and add_ops_per_block(add_chunks(size), k) > 0
+            and FUSED_ADD_PROBES_PER_SECTOR * size / 32 <= probes <= FUSED_ADD_MAX_PROBES)
+
+
+def _bloom_operands(plane, keys: Keys, n_valid, m, out) -> int:
+    """Check a bloom launch's operands; returns n_valid clamped to [0, n]."""
+    _require_cuda_operands(plane, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
+    if plane.dtype != torch.uint8:
+        raise ValueError("bloom planes are uint8")
+    if out == BITS and keys.n % 32:
+        raise ValueError("bitmap results need a batch that is a multiple of 32")
+    fastmod_magic(m)  # raises outside [1, 2**32)
+    return max(0, min(n_valid, keys.n))
+
+
+def _bloom_result(plane, n: int, out):
+    if out == FLAGS:
+        return torch.empty(n, dtype=torch.bool, device=plane.device)
+    if out == BITS:
+        return torch.empty(n // 32, dtype=torch.int32, device=plane.device)
+    return torch.zeros((), dtype=torch.int32, device=plane.device)
+
+
 def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
     """Plain version of bloom_probe: per op, are all k bits set (or, with
     `newly`, was any of them 0); ops >= n_valid give False."""
@@ -293,20 +378,11 @@ def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=
 def bloom_probe(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
     if _route(plane) == "plain":
         return bloom_probe_plain(plane, width, keys, n_valid, k, m, newly, out)
-    _require_cuda_operands(plane, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
-    if plane.dtype != torch.uint8:
-        raise ValueError("bloom planes are uint8")
-    if out == BITS and keys.n % 32:
-        raise ValueError("bitmap results need a batch that is a multiple of 32")
-    if out == FLAGS:
-        result = torch.empty(keys.n, dtype=torch.bool, device=plane.device)
-    elif out == BITS:
-        result = torch.empty(keys.n // 32, dtype=torch.int32, device=plane.device)
-    else:
-        result = torch.zeros((), dtype=torch.int32, device=plane.device)
+    n_valid = _bloom_operands(plane, keys, n_valid, m, out)
+    result = _bloom_result(plane, keys.n, out)
     _launch("bloom_probe", _build.library("bloom").rtpu_bloom_probe, plane,
             plane.data_ptr(), plane.numel(), width, *_key_args(keys),
-            max(0, min(n_valid, keys.n)), k, m, int(newly), out, result.data_ptr())
+            n_valid, k, m, fastmod_magic(m), int(newly), out, result.data_ptr())
     return result
 
 
@@ -320,12 +396,62 @@ def bloom_set(plane, width, keys: Keys, n_valid, k, m) -> None:
     """Set the k bits of every op < n_valid, in place."""
     if _route(plane) == "plain":
         return bloom_set_plain(plane, width, keys, n_valid, k, m)
-    _require_cuda_operands(plane, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
-    if plane.dtype != torch.uint8:
-        raise ValueError("bloom planes are uint8")
+    n_valid = _bloom_operands(plane, keys, n_valid, m, FLAGS)
     _launch("bloom_set", _build.library("bloom").rtpu_bloom_set, plane,
             plane.data_ptr(), plane.numel(), width, *_key_args(keys),
-            max(0, min(n_valid, keys.n)), k, m)
+            n_valid, k, m, fastmod_magic(m))
+
+
+def bloom_add_plain(plane, width, keys: Keys, n_valid, k, m, out=FLAGS):
+    """Plain version of an add: the newly result read from the plane as it
+    stood before the batch (two equal keys both report it), then every op
+    < n_valid sets its k bits, in place."""
+    newly = bloom_probe_plain(plane, width, keys, n_valid, k, m, newly=True, out=out)
+    bloom_set_plain(plane, width, keys, n_valid, k, m)
+    return newly
+
+
+def bloom_add_fused(plane, width, keys: Keys, n_valid, k, m, out=FLAGS):
+    """The fused add kernel, whatever the batch size (bloom_add picks it by
+    size).  The plane must be 16-byte aligned and at most ADD_MAX_BINS
+    chunks long; scratch is 8 bytes per probe."""
+    if _route(plane) == "plain":
+        return bloom_add_plain(plane, width, keys, n_valid, k, m, out)
+    n_valid = _bloom_operands(plane, keys, n_valid, m, out)
+    if plane.data_ptr() % 16:
+        raise ValueError("the fused add takes a 16-byte aligned plane")
+    if k * n_valid > FUSED_ADD_MAX_PROBES:
+        raise ValueError(f"{k * n_valid} probes: the fused add takes at most {FUSED_ADD_MAX_PROBES}")
+    chunks = add_chunks(plane.numel())
+    if chunks > ADD_MAX_BINS:
+        raise ValueError(f"{chunks} chunks: the fused add takes at most {ADD_MAX_BINS} "
+                         "(a histogram of them in shared memory)")
+    if add_ops_per_block(chunks, k) == 0:
+        raise ValueError(f"k = {k}: the fused add stages no op's probes in shared memory")
+    dev = plane.device
+    newly = torch.empty(keys.n, dtype=torch.bool, device=dev)
+    result = newly if out == FLAGS else _bloom_result(plane, keys.n, out)
+    scratch = torch.empty(2 * chunks + 1, dtype=torch.int32, device=dev)
+    entries = torch.empty(max(1, k * n_valid), dtype=torch.int64, device=dev)
+    _launch("bloom_add", _build.library("bloom").rtpu_bloom_add, plane,
+            plane.data_ptr(), plane.numel(), width, *_key_args(keys),
+            n_valid, k, m, fastmod_magic(m), ADD_CHUNK_LOG2, out, result.data_ptr(),
+            newly.data_ptr(), scratch.data_ptr(), entries.data_ptr())
+    return result
+
+
+def bloom_add(plane, width, keys: Keys, n_valid, k, m, out=FLAGS):
+    """Add every op < n_valid, in place; returns the newly result (flags,
+    bitmap or count) read from the plane as it stood before the batch.  On
+    the card a batch of at least use_fused_add's size takes the fused add,
+    a smaller one bloom_probe(newly) then bloom_set on the same stream."""
+    if _route(plane) == "plain":
+        return bloom_add_plain(plane, width, keys, n_valid, k, m, out)
+    if use_fused_add(plane.numel(), max(0, min(n_valid, keys.n)), k):
+        return bloom_add_fused(plane, width, keys, n_valid, k, m, out)
+    newly = bloom_probe(plane, width, keys, n_valid, k, m, newly=True, out=out)
+    bloom_set(plane, width, keys, n_valid, k, m)
+    return newly
 
 
 def hll_add_plain(regs, width, keys: Keys, n_valid, p):
@@ -401,9 +527,7 @@ def hll_rows(x, y=None, a=None, b=None, out=None, estimate=False):
 # --------------------------------------------------------------------------
 
 def _bloom_add(plane, width, keys, n_valid, k, m, out=FLAGS):
-    newly = bloom_probe(plane, width, keys, n_valid, k, m, newly=True, out=out)
-    bloom_set(plane, width, keys, n_valid, k, m)
-    return plane, newly
+    return plane, bloom_add(plane, width, keys, n_valid, k, m, out)
 
 
 def bloom_add_u64_masked(bits, lo, hi, n_valid, k, m):

@@ -82,19 +82,45 @@ __device__ __forceinline__ void hash_key(const KeyBatch& kb, int i, uint32_t& h1
   h2 = fmix32(b ^ nb) | 1u;
 }
 
-// Flat plane position of op i's probe at column idx, or -1 when outside.
-// Kept bit for bit from the JAX programs: tenant*width + idx is int32
+// Flat plane position of a probe at column idx of a row that starts at
+// `row` (tenant*width, mod 2**32), or -1 when outside.  Kept bit for bit
+// from the JAX programs: with a tenant, tenant*width + idx is int32
 // arithmetic (it wraps), a negative position counts from the end once
 // (+size), and whatever is still outside [0, size) reads as 1 / is dropped.
-__device__ __forceinline__ int64_t flat_index(const uint32_t* tenant, int i,
-                                              uint32_t width, uint32_t idx,
-                                              int64_t size) {
+// Without a tenant the position is idx itself.
+__device__ __forceinline__ int64_t flat_at(bool has_tenant, uint32_t row, uint32_t idx,
+                                           int64_t size) {
   int64_t g = idx;
-  if (tenant != nullptr) {
-    const int32_t w = (int32_t)(tenant[i] * width + idx);
+  if (has_tenant) {
+    const int32_t w = (int32_t)(row + idx);
     g = w < 0 ? (int64_t)w + size : (int64_t)w;
   }
   return (g >= 0 && g < size) ? g : -1;
 }
+
+// tenant[i]*width mod 2**32: op i's row start, read once per op.
+__device__ __forceinline__ uint32_t row_base(const KeyBatch& kb, int i, uint32_t width) {
+  return kb.tenant != nullptr ? kb.tenant[i] * width : 0u;
+}
+
+// Op i's flat position at column idx (one probe per op, as in hll_add).
+__device__ __forceinline__ int64_t flat_index(const uint32_t* tenant, int i,
+                                              uint32_t width, uint32_t idx,
+                                              int64_t size) {
+  return flat_at(tenant != nullptr, tenant != nullptr ? tenant[i] * width : 0u, idx, size);
+}
+
+// x % d for every uint32 x and 1 <= d < 2**32 without a division (Lemire,
+// Kaser and Kurz, "Faster remainder by direct computation", 2019):
+// magic = ceil(2**64 / d) mod 2**64, computed on the host
+// (core/kernels.py fastmod_magic), and x % d = hi64((magic * x mod 2**64) * d).
+// d = 1 gives magic = 0 and so 0, as it should.
+struct FastMod {
+  uint64_t magic;
+  uint32_t d;
+  __device__ __forceinline__ uint32_t operator()(uint32_t x) const {
+    return (uint32_t)__umul64hi(magic * (uint64_t)x, (uint64_t)d);
+  }
+};
 
 }  // namespace rtpu

@@ -90,6 +90,76 @@ def test_bloom_set_matches_plain(dev, n_valid):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("n_valid", [0, 1, 700, 10**6])
+def test_bloom_add_fused_matches_plain(dev, n_valid):
+    for name, plane, width, kb, m in _cases(dev):
+        for out in (K.FLAGS, K.BITS, K.COUNT):
+            if out == K.BITS and kb.n % 32:
+                continue
+            a, b = plane.clone(), plane.clone()
+            got = K.bloom_add_fused(a, width, kb, n_valid, 7, m, out)
+            want = K.bloom_add_plain(b, width, kb, n_valid, 7, m, out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, out)
+            assert torch.equal(a, b), (name, out)
+
+
+def _keys_probing(positions, m, k, dev, want=64):
+    """u64 keys (single plane, domain m) one of whose k probes lands on one
+    of `positions`, found among candidates hashed on the card."""
+    cand = np.arange(1, 1 << 20, dtype=np.int64) * 2654435761
+    lo, hi = H.int_keys_to_u32_pair(cand)
+    h1, h2 = H.hash_u64_pair(K.stage(lo, dev), K.stage(hi, dev))
+    idx = H.bloom_indexes(h1, h2, k, m)
+    hit = torch.isin(idx, torch.tensor(positions, device=dev)).any(dim=1).cpu().numpy()
+    assert hit.sum() >= want
+    return cand[hit][:want]
+
+
+def test_bloom_add_fused_at_chunk_boundaries(dev):
+    """Probes on both sides of every chunk boundary of a 4-chunk plane,
+    with duplicate keys, and a plane whose size is not a multiple of 16."""
+    log2, k = K.ADD_CHUNK_LOG2, 7
+    for size in (4 << log2, (4 << log2) - 8):
+        m = size
+        edges = [c * (1 << log2) + d for c in range(1, 4) for d in (-1, 0)] + [size - 1]
+        keys = _keys_probing(edges, m, k, dev)
+        keys = np.concatenate([keys, keys[:16]])
+        lo, hi = np.zeros(128, np.uint32), np.zeros(128, np.uint32)
+        lo[: len(keys)], hi[: len(keys)] = H.int_keys_to_u32_pair(keys)
+        kb = K.Keys(n=128, lo=K.stage(lo, dev), hi=K.stage(hi, dev))
+        plane = torch.zeros(size, dtype=torch.uint8, device=dev)
+        plane[::3] = 1
+        plane[edges] = 0
+        a, b = plane.clone(), plane.clone()
+        got = K.bloom_add_fused(a, size, kb, len(keys), k, m, K.BITS)
+        want = K.bloom_add_plain(b, size, kb, len(keys), k, m, K.BITS)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(a, b)
+        assert bool((a[edges] == 1).all())
+
+
+@pytest.mark.parametrize("m", [1, 3, 4093, 2**31 + 1, 2**32 - 1])
+def test_fast_modulo_at_edge_domains(dev, m):
+    """The multiply-high modulo on the card for domains from 1 to 2**32 - 1,
+    through the unrolled (k = 7) and the generic (k = 5) kernels; probes
+    past the plane read as 1 and are dropped."""
+    rng = np.random.default_rng(m)
+    plane = (torch.rand(4096, device=dev) < 0.5).to(torch.uint8)
+    kb = _u64(rng, 1000, 1024, dev)
+    a, b = plane.clone(), plane.clone()
+    for k in (5, 7):
+        assert torch.equal(K.bloom_probe(plane, 4096, kb, 1000, k, m, out=K.BITS),
+                           K.bloom_probe_plain(plane, 4096, kb, 1000, k, m, out=K.BITS))
+        assert torch.equal(K.bloom_add_fused(a, 4096, kb, 1000, k, m, K.COUNT),
+                           K.bloom_add_plain(b, 4096, kb, 1000, k, m, K.COUNT))
+        assert torch.equal(a, b)
+        K.bloom_set(a, 4096, kb, 1000, k + 1, m)
+        K.bloom_set_plain(b, 4096, kb, 1000, k + 1, m)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 def test_bank_add_reads_the_plane_before_the_batch(dev):
     """Equal keys in one batch both report newly (two-phase add)."""
     bits = torch.zeros((3, 1024), dtype=torch.uint8, device=dev)
@@ -158,11 +228,16 @@ def test_wrappers_raise_on_mixed_devices_and_count_launches(dev):
         K.bloom_contains_packed_bits(bits, lh_cpu, 10, 3, 1000)
     K.reset_launches()
     lh = lh_cpu.to(dev)
-    K.bloom_add_packed(bits, lh, 10, 3, 1000)
+    plane = torch.zeros(1 << 26, dtype=torch.uint8, device=dev)
+    big = K.stage(np.random.default_rng(4).integers(0, 2**32, (2, 1 << 18), dtype=np.uint64)
+                  .astype(np.uint32), dev)
+    assert not K.use_fused_add(plane.numel(), 10, 3) and K.use_fused_add(plane.numel(), 1 << 18, 3)
+    K.bloom_add_packed(plane, lh, 10, 3, 1000)             # small: probe + set
+    K.bloom_add_packed(plane, big, 1 << 18, 3, 1 << 26)    # large: the fused add
     K.bloom_contains_packed_bits(bits, lh, 10, 3, 1000)
     K.hll_estimate(torch.zeros(1 << 10, dtype=torch.uint8, device=dev))
     K.hll_add_packed(torch.zeros(1 << 10, dtype=torch.uint8, device=dev), lh, 10, 10)
-    assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "hll_add": 1, "hll_rows": 1}
+    assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "bloom_add": 1, "hll_add": 1, "hll_rows": 1}
 
 
 def test_facade_on_the_card_matches_the_cpu(dev):

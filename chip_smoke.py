@@ -15,7 +15,11 @@ Phases (any failure raises and the script exits non-zero):
      plain version's time and the least time the card could take.  The
      fused add (bloom_add) is also timed against the probe-then-set pair on
      the same add stream and on config 2's 10M-op populate, and checked on
-     both sides of kernels.use_fused_add's size threshold;
+     both sides of kernels.use_fused_add's size threshold; bloom_probe also
+     at a single-key add's shape; hll_add also on one counter fed 1M-op
+     batches; hll_rows' estimate on the bank config 3's adds leave and on a
+     synthetic one, with registers up to 255, and its merge map beside
+     torch.maximum (the merge's library call);
   4. the main path through redisson_tpu_torch.create() on its default
      device: config 2 (1,000-tenant bank, 10M keys populated in one window,
      100k-op contains flushes), config 1 (one 1e7/0.01 filter), config 3
@@ -136,10 +140,13 @@ def sectors(flat_positions: torch.Tensor) -> int:
     return int(torch.unique(flat_positions.reshape(-1) // 32).numel())
 
 
-def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Raise unless the kernel's result equals the plain version's; return
-    their largest absolute difference (0 when they agree)."""
+def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor, equal_nan: bool = False) -> float:
+    """Raise unless the kernel's result equals the plain version's (with
+    equal_nan, NaN where the plain version has NaN); return their largest
+    absolute difference over the other entries (0 when they agree)."""
     torch.cuda.synchronize()
+    if equal_nan and got.shape == want.shape and torch.equal(got.isnan(), want.isnan()):
+        got, want = got[~got.isnan()], want[~want.isnan()]
     if got.shape != want.shape or not torch.equal(got, want):
         diff = (got.reshape(-1) != want.reshape(-1)).sum().item() if got.shape == want.shape else "shape"
         raise AssertionError(f"{name}: kernel differs from its plain version ({diff})")
@@ -308,13 +315,25 @@ def check_kernels(dev, rng) -> dict:
     every = statistics.median(sectors(probe_positions(f, m2, bank.numel(), k, m2, C2_FLUSH)) for f in flushes)
     bms, by = bound_ms(touched * 32 + 12 * C2_FLUSH + b2 // 8, C2_FLUSH * (OPS_HASH_U64 + k * OPS_PROBE))
     all_k_bms, _ = bound_ms(every * 32 + 12 * C2_FLUSH + b2 // 8, C2_FLUSH * (OPS_HASH_U64 + k * OPS_PROBE))
+    # the single-key add's probe (the pair route's newly read of one byte
+    # key in the config-1 plane): its launches outnumber the configs'
+    singles = [byte_batch(rng, 1, dev) for _ in range(20)]
+    for b in singles:
+        err = max(err, assert_equal("bloom_probe single key", K.bloom_probe(plane1, size1, b, 1, k, m1, True),
+                                    K.bloom_probe_plain(plane1, size1, b, 1, k, m1, True)))
+    one_ms = time_kernel(lambda i: K.bloom_probe(plane1, size1, singles[i], 1, k, m1, True))
+    one_sectors = statistics.median(sectors(needed_probe_positions(plane1, b, size1, k, m1, 1)) for b in singles)
+    one_key_bytes = statistics.median(4 * b.words.shape[0] + 4 for b in singles)
+    one_bms, _ = bound_ms(32 * one_sectors + one_key_bytes + 1, OPS_HASH_U64 + k * OPS_PROBE)
+    checked.append("single-key newly probes, one byte key each, in the config-1 plane")
     results["bloom_probe"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
                                   bound_all_probes_ms=all_k_bms, sectors_needed=touched, sectors_all_probes=every,
+                                  single_key_ms=one_ms, single_key_bound_ms=one_bms,
                                   shape=f"config-2 contains flush: {probe_cases[0][0]}, k={k}, bitmap out",
                                   checked=checked)
     log(f"kernel bloom_probe: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by} for the {touched} "
-        f"sectors the answers need; {all_k_bms:.4f} ms for all {every} sectors of k probes), "
-        f"equal to plain at {checked}")
+        f"sectors the answers need; {all_k_bms:.4f} ms for all {every} sectors of k probes); a single-key "
+        f"newly probe {one_ms:.4f} ms (bound {one_bms:.7f} ms); equal to plain at {checked}")
 
     checked, err = [], 0.0
     for label, plane, width, kb, nv, m in probe_cases:
@@ -334,7 +353,7 @@ def check_kernels(dev, rng) -> dict:
     # (the operations of a u64 key's hash, fewer than a byte key's)
     key_bytes = statistics.median(4 * b.words.shape[0] + 4 for b in small)
     bms, by = bound_ms(32 * touched + key_bytes, n_small * (OPS_HASH_U64 + k * OPS_PROBE))
-    del bank, plane1, single, probe_cases, a, b, small
+    del bank, plane1, single, probe_cases, a, b, small, singles
     # config 1's add stream, for comparison with the fused add, which takes
     # it on the main path: ten new batches of distinct keys into a zeroed
     # plane
@@ -393,14 +412,33 @@ def check_kernels(dev, rng) -> dict:
         lambda r, kb: K.hll_add_plain(r, m, kb, C3_BATCH, p), work, torch.zeros_like(work), stream, hll_bytes)
     bms, by = bound_ms(nbytes, C3_BATCH * (OPS_HASH_U64 + OPS_HLL_ADD))
     read, written = (statistics.median(x) for x in zip(*traffic))
-    results["hll_add"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(err, stream_err),
-                              shape=f"config-3 add stream: {len(stream)} batches of {C3_BATCH} ops in {b3} "
+    # the estimate of the bank that config 3's adds leave (~94% zeros),
+    # beside the synthetic bank's below
+    real_est = K.hll_rows(work, estimate=True)
+    real_err = assert_equal("hll_rows estimate of the config-3 add stream's bank", real_est,
+                            K.hll_rows_plain(work, estimate=True))
+    real_ms = time_kernel(lambda i: K.hll_rows(work, estimate=True))
+    del work, stream
+    # one counter fed ten 1M-op batches, as a large add_all on one
+    # RHyperLogLog makes them: every register takes ~64 ops a batch
+    ones = [u64_batch(rng, n1, C1_BATCH, dev) for _ in range(C3_BATCHES)]
+    counter = torch.zeros(m, dtype=torch.uint8, device=dev)
+    one_ms, one_plain, one_bytes, one_err = time_stream(
+        "hll_add one counter", lambda r, kb: K.hll_add(r, m, kb, n1, p), lambda r, kb: K.hll_add_plain(r, m, kb, n1, p),
+        counter, torch.zeros_like(counter), ones, lambda kb, changed: m + 32 * sectors(changed) + 8 * n1)
+    one_bms, _ = bound_ms(one_bytes, n1 * (OPS_HASH_U64 + OPS_HLL_ADD))
+    del ones, counter
+    results["hll_add"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                              max_abs_err=max(err, stream_err, one_err),
+                              one_counter_ms=one_ms, one_counter_plain_ms=one_plain, one_counter_bound_ms=one_bms,
+                              shape=f"config-3 add stream: {C3_BATCHES} batches of {C3_BATCH} ops in {b3} "
                                     f"into a zeroed {C3_TENANTS}x{m} bank",
                               sectors_read=read, sectors_written=written,
-                              checked=checked + [f"a stream of {len(stream)} add batches"])
+                              checked=checked + [f"a stream of {C3_BATCHES} add batches",
+                                                 f"one counter fed {C3_BATCHES} batches of {n1} ops"])
     log(f"kernel hll_add: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}; median sectors read "
-        f"{read}, written {written}), equal to plain at {results['hll_add']['checked']}")
-    del work, stream
+        f"{read}, written {written}); one counter fed {n1} ops {one_ms:.4f} ms (bound {one_bms:.4f} ms); "
+        f"equal to plain at {results['hll_add']['checked']}")
 
     # -- hll_rows: estimate, merge rounds with duplicate dsts, union pairs --
     # registers with the rank distribution of real counters (P(r) ~ 2**-r)
@@ -437,16 +475,34 @@ def check_kernels(dev, rng) -> dict:
     est_p = K.hll_rows_plain(regs, regs, pa, pb, estimate=True)
     worst = max(worst, assert_equal("hll_rows union pairs", est_k, est_p))
     checked.append(f"union estimate of {pairs} pairs, ids beyond both ends")
+    # registers no hash produces (up to 255) and a saturated row (NaN)
+    odd = torch.randint(0, 256, (64, m), dtype=torch.uint8, device=dev)
+    odd[1] = 33
+    odd[2, ::5] = 0
+    for args in [(odd, None, None, None), (odd, odd.flip(0).contiguous(), None, None)]:
+        out_k, out_p = torch.empty_like(odd), torch.empty_like(odd)
+        worst = max(worst, assert_equal("hll_rows unusual registers", K.hll_rows(*args, out=out_k, estimate=True),
+                                        K.hll_rows_plain(*args, out=out_p, estimate=True), equal_nan=True))
+        worst = max(worst, assert_equal("hll_rows unusual registers: rows", out_k, out_p))
+    checked.append(f"{odd.shape[0]} rows of registers up to 255 with a saturated one, alone and merged")
+    del odd, out_k, out_p
     ms = time_kernel(lambda i: K.hll_rows(regs, estimate=True))
     plain = time_plain(lambda i: K.hll_rows_plain(regs, estimate=True))
-    merge_ms = time_kernel(lambda i: K.hll_rows(regs, regs, None, src_map, out=a_out))
     bms, by = bound_ms(regs.numel() + 4 * C3_TENANTS, regs.numel() * OPS_ROW_REGISTER)
-    results["hll_rows"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=worst,
-                               merge_map_ms=merge_ms,
-                               shape=f"config-3 estimate_all: bank {C3_TENANTS}x{m} u8 -> {C3_TENANTS} f32",
-                               checked=checked)
-    log(f"kernel hll_rows: {ms:.4f} ms (plain {plain:.3f} ms, bound {bms:.4f} ms by {by}), "
-        f"merge map {merge_ms:.4f} ms, equal to plain at {checked}")
+    # the merge map reads two banks and writes one; torch.maximum computes
+    # the same with an identity map (the merge's library time)
+    merge_ms = time_kernel(lambda i: K.hll_rows(regs, b_out, None, src_map, out=a_out))
+    merge_lib_ms = time_kernel(lambda i: torch.maximum(regs, b_out, out=a_out))
+    merge_bms, _ = bound_ms(3 * regs.numel() + 4 * C3_TENANTS, regs.numel() * OPS_ROW_REGISTER)
+    results["hll_rows"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(worst, real_err),
+                               estimate_config3_ms=real_ms, merge_map_ms=merge_ms, merge_map_bound_ms=merge_bms,
+                               merge_map_library_ms=merge_lib_ms,
+                               shape=f"config-3 estimate_all: bank {C3_TENANTS}x{m} u8 -> {C3_TENANTS} f32, "
+                                     "synthetic registers (P(r) ~ 2**-r)",
+                               checked=checked + ["estimate of the config-3 add stream's bank"])
+    log(f"kernel hll_rows: {ms:.4f} ms on the synthetic bank, {real_ms:.4f} ms on config 3's (plain {plain:.3f} ms, "
+        f"bound {bms:.4f} ms by {by}); merge map {merge_ms:.4f} ms (bound {merge_bms:.4f} ms, torch.maximum "
+        f"{merge_lib_ms:.4f} ms); equal to plain at {results['hll_rows']['checked']}")
     del regs, a_out, b_out
     torch.cuda.empty_cache()
     return results
@@ -930,7 +986,8 @@ def main() -> int:
          "launches_by_path": {path: v["launches"][name] for path, v in paths.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
+         "library_ms": None,
+         "more": {key: v for key, v in r.items() if key.endswith("_ms") and key not in ("ms", "plain_ms", "bound_ms")}}
         for name, r in kernels.items()]}
     for name, r in kernels.items():
         log(json.dumps({"kernel": name, "launches": main_launches[name],

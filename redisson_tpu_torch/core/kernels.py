@@ -19,7 +19,8 @@ Five kernels carry every program here:
                the probe-then-set pair by batch size (``use_fused_add``)
   hll_add      hash, scatter-max of the rank into a uint8 register
   hll_rows     row gather-max of two banks, optional out-of-place write,
-               optional float32 estimate per row
+               optional float32 estimate per row; 16-byte loads where the
+               banks allow them, else 4-byte ones
 
 Differences from the JAX programs:
   * State is updated in place.  JAX donates the plane and returns a new
@@ -494,7 +495,9 @@ def hll_rows_plain(x, y=None, a=None, b=None, out=None, estimate=False):
 def hll_rows(x, y=None, a=None, b=None, out=None, estimate=False):
     """Row i = max(x[a_i], y[b_i]) over (., m) uint8 banks; a or b None means
     row i itself, y None means x alone.  Writes the rows to `out` (never one
-    of the inputs) and/or returns their float32 estimates."""
+    of the inputs) and/or returns their float32 estimates.  On the card the
+    banks must be 4-byte aligned with m % 4 == 0; 16-byte aligned banks with
+    m % 16 == 0 take the kernel's 16-byte loads and stores."""
     if out is not None and (out.data_ptr() == x.data_ptr()
                             or (y is not None and out.data_ptr() == y.data_ptr())):
         raise ValueError("hll_rows writes out of place")

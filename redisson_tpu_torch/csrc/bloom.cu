@@ -384,15 +384,6 @@ bloom_finish_kernel(const uint8_t* __restrict__ newly, int n, int out_mode,
   write_result(i < n && newly[i] != 0, i, n, out_mode, out);
 }
 
-rtpu::KeyBatch key_batch(const void* tenant, const void* lo, const void* hi,
-                         const void* words, const void* nbytes, int n_words, int n) {
-  return rtpu::KeyBatch{static_cast<const uint32_t*>(tenant),
-                        static_cast<const uint32_t*>(lo),
-                        static_cast<const uint32_t*>(hi),
-                        static_cast<const uint32_t*>(words),
-                        static_cast<const uint32_t*>(nbytes), n_words, n};
-}
-
 int blocks_for(int n) { return n > 0 ? (n + kThreads - 1) / kThreads : 1; }
 
 // The main path's k gets the unrolled kernel; any other k the generic loop.
@@ -437,7 +428,7 @@ extern "C" int rtpu_bloom_probe(const void* plane, int64_t size, int64_t width,
                                 int n, int n_valid, int k, int64_t m, uint64_t magic,
                                 int newly, int out_mode, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto kb = key_batch(tenant, lo, hi, words, nbytes, n_words, n);
+  const auto kb = rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n);
   const rtpu::FastMod mod{magic, (uint32_t)m};
   const auto p = static_cast<const uint8_t*>(plane);
   if (k == kPathK) {
@@ -455,7 +446,7 @@ extern "C" int rtpu_bloom_set(void* plane, int64_t size, int64_t width, const vo
                               const void* nbytes, int n_words, int n, int n_valid, int k,
                               int64_t m, uint64_t magic, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto kb = key_batch(tenant, lo, hi, words, nbytes, n_words, n);
+  const auto kb = rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n);
   const rtpu::FastMod mod{magic, (uint32_t)m};
   const auto p = static_cast<uint8_t*>(plane);
   if (k == kPathK) {
@@ -480,7 +471,7 @@ extern "C" int rtpu_bloom_add(void* plane, int64_t size, int64_t width, const vo
                               void* out, void* newly, void* scratch, void* entries,
                               void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto kb = key_batch(tenant, lo, hi, words, nbytes, n_words, n);
+  const auto kb = rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n);
   const rtpu::FastMod mod{magic, (uint32_t)m};
   const int nc = (int)((size + (1LL << chunk_log2) - 1) >> chunk_log2);
   auto* counts = static_cast<uint32_t*>(scratch);

@@ -56,6 +56,14 @@ struct KeyBatch {
   int n;
 };
 
+// The KeyBatch of an entry point's untyped key pointers.
+inline KeyBatch key_batch(const void* tenant, const void* lo, const void* hi, const void* words,
+                          const void* nbytes, int n_words, int n) {
+  return KeyBatch{static_cast<const uint32_t*>(tenant), static_cast<const uint32_t*>(lo),
+                  static_cast<const uint32_t*>(hi),     static_cast<const uint32_t*>(words),
+                  static_cast<const uint32_t*>(nbytes), n_words, n};
+}
+
 __device__ __forceinline__ void hash_key(const KeyBatch& kb, int i, uint32_t& h1,
                                          uint32_t& h2) {
   if (kb.nbytes == nullptr) {

@@ -11,6 +11,15 @@ once to float32), and every log is taken in float64 and rounded once to
 float32.  The JAX package sums float32 ``exp2(-r)`` terms in its backend's
 order with its backend's log; its estimate agrees with this one within the
 rounding of those float32 functions.
+
+The contract with the JAX package, held by tests/test_torch_kernels.py:
+the float32 estimate agrees to 1e-6 of itself (raw estimate and large-range
+correction) and to m * 2**-20 in linear counting, and the PFCOUNT reply is
+the estimate rounded, so it differs from the reference's rounded estimate
+by at most one more than that tolerance (at p = 14, in no drawn state below
+1e5 keys).  Matching the reference bit for bit is not possible: XLA:CPU's
+float32 ``exp2`` and ``log`` are not correctly rounded and its summation
+order follows no simple rule, and a TPU rounds differently again.
 """
 from __future__ import annotations
 

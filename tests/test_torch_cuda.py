@@ -215,6 +215,181 @@ def test_hll_rows_matches_plain(dev):
                 assert torch.equal(out_k, out_p)
 
 
+def _rows_cases(rng, dev, p):
+    """(name, bank) pairs of an odd number of rows at width 2**p."""
+    m = 1 << p
+    T = 7
+    unusual = torch.from_numpy(rng.integers(0, 256, (T, m)).astype(np.uint8)).to(dev)
+    unusual[3] = 33                        # saturated: NaN in both versions
+    unusual[4, ::3] = 0
+    mixed = torch.from_numpy(rng.integers(0, 6, (T, m)).astype(np.uint8)).to(dev)
+    mixed[1] = torch.from_numpy(rng.integers(0, 34, m).astype(np.uint8)).to(dev)
+    return [("zeros", torch.zeros((T, m), dtype=torch.uint8, device=dev)),
+            ("ones", torch.ones((T, m), dtype=torch.uint8, device=dev)),  # every lane on one bin
+            ("fours", torch.full((T, m), 4, dtype=torch.uint8, device=dev)),  # one shared bin
+            ("unusual up to 255", unusual),
+            ("ranks 0-5", mixed)]
+
+
+def _rows_equal(args, m, dev, with_out):
+    p_rows = args[0].shape[0] if args[2] is None else args[2].shape[0]
+    out_k = torch.empty((p_rows, m), dtype=torch.uint8, device=dev) if with_out else None
+    out_p = torch.empty_like(out_k) if with_out else None
+    est_k = K.hll_rows(*args, out=out_k, estimate=True)
+    est_p = K.hll_rows_plain(*args, out=out_p, estimate=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(est_k, est_p, rtol=0, atol=0, equal_nan=True)
+    if with_out:
+        assert torch.equal(out_k, out_p)
+
+
+@pytest.mark.parametrize("p", [4, 10, 14, 18])
+def test_hll_rows_register_distributions(dev, p):
+    """Estimates and merges of banks whose registers all sit on one value
+    (the worst contention for a shared histogram), of registers no hash
+    produces and of a saturated row, at widths 16 to 2**18, bit for bit."""
+    rng = np.random.default_rng(p)
+    m = 1 << p
+    for name, x in _rows_cases(rng, dev, p):
+        y = x.flip(0).contiguous()
+        a = torch.from_numpy(rng.integers(-9, 9, 5).astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(-9, 9, 5).astype(np.int32)).to(dev)
+        for args in [(x, None, None, None), (x, y, None, None), (x, y, a, b), (x[2:3], y[:1], None, None)]:
+            for with_out in (False, True):
+                _rows_equal(args, m, dev, with_out)
+
+
+def test_hll_rows_four_byte_aligned_banks(dev):
+    """Banks that are only 4-byte aligned, or whose width is not a multiple
+    of 16, take the kernel's 4-byte loads and stores."""
+    rng = np.random.default_rng(7)
+    m = 1 << 12
+    buf = torch.empty(5 * m + 16, dtype=torch.uint8, device=dev)
+    x = buf[4: 4 + 5 * m].view(5, m)
+    x.copy_(torch.from_numpy(rng.integers(0, 12, (5, m)).astype(np.uint8)))
+    y = torch.from_numpy(rng.integers(0, 12, (5, m)).astype(np.uint8)).to(dev)
+    out_buf = torch.empty(5 * m + 16, dtype=torch.uint8, device=dev)
+    out = out_buf[12: 12 + 5 * m].view(5, m)
+    assert x.data_ptr() % 16 == 4 and out.data_ptr() % 16 == 12
+    _rows_equal((x, y, None, None), m, dev, False)
+    want = torch.empty_like(y)
+    K.hll_rows(x, y, out=out)
+    K.hll_rows_plain(x, y, out=want)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    narrow = torch.from_numpy(rng.integers(0, 40, (3, 20)).astype(np.uint8)).to(dev)  # m % 16 == 4
+    _rows_equal((narrow, narrow.flip(0).contiguous(), None, None), 20, dev, True)
+
+
+def test_hll_rows_merge_forms_at_config3_shape(dev):
+    """merge map, merge from a snapshot and union pairs over a 10,000 x
+    16,384 bank (config 3), and PFMERGE of one row."""
+    rng = np.random.default_rng(8)
+    T, m = 10_000, 1 << 14
+    u = torch.rand((T, m), device=dev)
+    regs = torch.clamp(torch.floor(-torch.log2(u)) * (u < 0.9), 0, 33).to(torch.uint8)
+    del u
+    snap = regs.roll(1, 0)
+    src_map = torch.from_numpy(rng.integers(0, T, T).astype(np.int32)).to(dev)
+    pa = torch.from_numpy(rng.integers(-3, T + 3, 5000).astype(np.int32)).to(dev)
+    pb = torch.from_numpy(rng.integers(-3, T + 3, 5000).astype(np.int32)).to(dev)
+    for args in [(regs, regs, None, src_map), (regs, snap, None, src_map)]:
+        out_k, out_p = torch.empty_like(regs), torch.empty_like(regs)
+        K.hll_rows(*args, out=out_k)
+        K.hll_rows_plain(*args, out=out_p)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p)
+    torch.testing.assert_close(K.hll_bank_estimate_union_pairs(regs, pa, pb),
+                               K.hll_rows_plain(regs, regs, pa, pb, estimate=True), rtol=0, atol=0)
+    torch.testing.assert_close(K.hll_estimate(regs), K.hll_rows_plain(regs, estimate=True), rtol=0, atol=0)
+    assert torch.equal(K.hll_merge(regs[3], regs[9]), torch.maximum(regs[3], regs[9]))
+
+
+def _keys_on_registers(registers, p, dev, want):
+    """u64 keys (one counter of 2**p registers) whose register is in
+    `registers`, found among candidates hashed on the card."""
+    cand = np.arange(1, 1 << 20, dtype=np.int64) * 2654435761
+    lo, hi = H.int_keys_to_u32_pair(cand)
+    h1, _ = H.hash_u64_pair(K.stage(lo, dev), K.stage(hi, dev))
+    hit = torch.isin(h1 & ((1 << p) - 1), torch.tensor(registers, device=dev)).cpu().numpy()
+    assert hit.sum() >= want
+    return cand[hit][:want]
+
+
+def _add_equal(regs, width, keys, n_valid, p, tenant=None):
+    b = -(-max(len(keys), 1) // 32) * 32
+    lo, hi = np.zeros(b, np.uint32), np.zeros(b, np.uint32)
+    lo[: len(keys)], hi[: len(keys)] = H.int_keys_to_u32_pair(np.asarray(keys, np.int64))
+    t = None
+    if tenant is not None:
+        tt = np.zeros(b, np.int32)
+        tt[: len(keys)] = tenant
+        t = K.stage(tt, regs.device)
+    kb = K.Keys(n=b, tenant=t, lo=K.stage(lo, regs.device), hi=K.stage(hi, regs.device))
+    a, c = regs.clone(), regs.clone()
+    K.hll_add(a, width, kb, n_valid, p)
+    K.hll_add_plain(c, width, kb, n_valid, p)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+    return a
+
+
+def test_hll_add_contended_words_and_registers(dev):
+    """Many ops on the four registers of one 32-bit word and on one register
+    (different keys, so different ranks, and exact duplicates), into a zeroed
+    counter and one whose word is already partly filled."""
+    p = 10
+    word = _keys_on_registers([4, 5, 6, 7], p, dev, 200)
+    one = _keys_on_registers([9], p, dev, 100)
+    keys = np.concatenate([word, one, word[:50], one[:50]])
+    for start in (0, 3):
+        regs = torch.zeros(1 << p, dtype=torch.uint8, device=dev)
+        regs[4:10] = torch.tensor([start, 0, start, 0, 0, start], dtype=torch.uint8)
+        for n_valid in (0, 1, len(keys)):
+            got = _add_equal(regs, 1 << p, keys, n_valid, p)
+            assert n_valid < len(keys) or bool((got[4:8] > 0).all())
+
+
+def test_hll_add_last_row_and_outside_tenants(dev):
+    """Every op in the bank's last row, and tenant ids outside it."""
+    p, T = 10, 6
+    rng = np.random.default_rng(9)
+    bank = torch.randint(0, 3, (T, 1 << p), dtype=torch.uint8, device=dev)
+    keys = rng.integers(-(2**63), 2**63 - 1, 4000, dtype=np.int64)
+    _add_equal(bank, 1 << p, keys, len(keys), p, tenant=np.full(len(keys), T - 1, np.int32))
+    outside = np.array([-1, T, -T, -T - 1, 2**31 - 1, -(2**31), 2**22, 2**22 + 1] * 500, np.int32)
+    _add_equal(bank, 1 << p, keys, len(keys), p, tenant=outside)
+    _add_equal(bank, 1 << p, keys, 0, p, tenant=outside)
+
+
+@pytest.mark.parametrize("keys_per_register", [0.0, 6.0])
+def test_hll_add_bank_larger_than_l2(dev, keys_per_register):
+    """A 64 MB bank, zeroed or filled as counters of ~6 keys a register
+    leave it (most ops then meet a register that already holds their rank),
+    fed twice, with tenant ids inside and outside it."""
+    m, T = 1 << 14, 4096
+    rng = np.random.default_rng(11)
+    u = torch.rand((T, m), device=dev, dtype=torch.float64)
+    bank = torch.zeros((T, m), dtype=torch.uint8, device=dev)
+    if keys_per_register:
+        bank = torch.clamp(torch.ceil(torch.log2(keys_per_register / -torch.log(u))), 0, 33).to(torch.uint8)
+    keys = rng.integers(-(2**63), 2**63 - 1, 200_000, dtype=np.int64)
+    tenant = rng.integers(-2, T + 2, len(keys)).astype(np.int32)
+    for _ in range(2):
+        bank = _add_equal(bank, m, keys, len(keys), 14, tenant=tenant)
+        keys = keys[::-1].copy() + 1
+
+
+def test_hll_add_one_dense_counter(dev):
+    """1M ops into one 16 KB counter (a large add_all on one RHyperLogLog):
+    every register takes ~61 ops."""
+    rng = np.random.default_rng(10)
+    regs = torch.zeros(1 << 14, dtype=torch.uint8, device=dev)
+    keys = rng.integers(-(2**63), 2**63 - 1, 1 << 20, dtype=np.int64)
+    got = _add_equal(regs, 1 << 14, keys, len(keys), 14)
+    assert bool((got > 0).all())
+
+
 def test_hll_rows_refuses_in_place(dev):
     x = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):

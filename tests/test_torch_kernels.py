@@ -362,6 +362,32 @@ def test_hll_estimate_agrees_over_cardinalities_1_to_1e9():
     assert want.min() < 10 and want.max() > 5e8
 
 
+@pytest.mark.parametrize("p", [10, 12, 14])
+def test_pfcount_integer_contract(p):
+    """The PFCOUNT reply is the float32 estimate rounded, and it differs from
+    the JAX package's rounded estimate by at most one more than the float
+    tolerance of test_hll_estimate_agrees_over_cardinalities_1_to_1e9
+    (1e-6 of the estimate, m * 2**-20 in linear counting), over 300
+    register states drawn log-uniformly over 1 to 1e9 keys.  At p = 14 the
+    integers are identical below 1e5."""
+    m = 1 << p
+    rng = np.random.default_rng(400 + p)
+    regs = _drawn_registers(10 ** rng.uniform(0, 9, 300), p, rng)
+    got = TK.hll_estimate(_t(regs)).numpy()
+    want = np.asarray(JK.hll_estimate(jnp.asarray(regs)))
+    linear = (want <= 2.5 * m) & (regs == 0).any(axis=1)
+    tol = np.where(linear, m * 2.0**-20, EST_RTOL * np.abs(want.astype(np.float64)))
+    ours = np.array([int(round(float(x))) for x in got], np.float64)
+    theirs = np.array([int(round(float(x))) for x in want], np.float64)
+    finite = np.isfinite(want)
+    assert finite.all() and np.isfinite(got).all()
+    assert (np.abs(ours - theirs) <= 1 + tol).all()
+    if p == 14:
+        small = want < 1e5
+        assert small.sum() > 50
+        np.testing.assert_array_equal(ours[small], theirs[small])
+
+
 def test_hll_estimate_of_unusual_registers():
     """Registers no hash produces (up to 255), the large-range correction,
     empty counters, and a saturated counter (NaN in both packages)."""

@@ -5,7 +5,7 @@ plain PyTorch versions.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (any failure raises and the script exits non-zero):
-  1. the card's name and power limit; build the five kernels from csrc/
+  1. the card's name and power limit; build the seven kernels from csrc/
      (one nvcc per source, all at once) and print the build seconds;
   2. known answers: the CUDA hash chain, read back through hll_add,
      bloom_set and the fused add, gives the hashes the JAX package gives
@@ -19,20 +19,36 @@ Phases (any failure raises and the script exits non-zero):
      at a single-key add's shape; hll_add also on one counter fed 1M-op
      batches; hll_rows' estimate on the bank config 3's adds leave and on a
      synthetic one, with registers up to 255, and its merge map beside
-     torch.maximum (the merge's library call);
+     torch.maximum (the merge's library call); bitset_get and bitset_set at
+     config 5's shape (500 indexes into a 100,000-bit set on its 1 MiB
+     plane), on 1M indexes into a 2**28-bit plane, and at the edges
+     (negative, out-of-range and repeated indexes, a masked tail, n_valid
+     0), beside index_select and index_put_;
   4. the main path through redisson_tpu_torch.create() on its default
      device: config 2 (1,000-tenant bank, 10M keys populated in one window,
-     100k-op contains flushes), config 1 (one 1e7/0.01 filter), config 3
-     (10k HLL counters), then single-key adds (Redisson's
+     100k-op contains flushes), config2_batch (the same bank: each flush an
+     RBatch of 1,000 contains_async ops of 100 keys, beside the direct call,
+     and one flush of 100,000 one-key ops), config 1 (one 1e7/0.01 filter),
+     config 3 (10k HLL counters), single-key adds (Redisson's
      RBloomFilter.add(key), the facade's add) into a filter of config 1's
-     size, each path with its kernels' launch counts read after it;
-  5. a small op stream through create() on the card and on the CPU: equal
-     replies and equal final states.
+     size, then fanout (config 5's per-tenant objects as one RBatch: 64
+     filters in two fused runs, 64 fused add-then-contains pairs, 128 bit
+     sets, a counter and a bucket per tenant; then BITOP OR and XOR of each
+     tenant's two bit sets), each path with its kernels' launch counts set
+     to 0 just before it and read just after its own work (config2_batch
+     counts its RBatch flushes only, not the direct calls, parts and
+     timings beside them); config2_batch and fanout are then timed with the
+     engine's pinned staging pool on and off, in turns;
+  5. a small op stream and an RBatch stream through every batch verb
+     (overlapped and serial, skip_result, atomic) through create() on the
+     card and on the CPU: equal replies and equal final states.
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
 Without a CUDA card, or without the package beside it, it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -74,11 +90,24 @@ KNOWN_BYTES = {
 C2_TENANTS, C2_PER_TENANT, C2_FLUSH, C2_INGEST = 1000, 10_000, 100_000, 1_000_000
 C1_N, C1_BATCH = 10_000_000, 1 << 20
 C3_TENANTS, C3_BATCH, C3_BATCHES = 10_000, 1_000_000, 10
+# config 2's contains flush as an RBatch of this many ops (BASELINE config 2:
+# "RBatch of 100k contains() per flush")
+C2_BATCH_OPS = 1000
+# RBatch flushes and fanout reps timed with the engine's staging pool on and
+# off, in turns (after each path's counted launches)
+C2_POOL_AB, C5_POOL_AB = 20, 4
+# config 5 (bench.py:399-428): 64 tenants, a 10,000-key filter each, and
+# SETBITSB of 500 indexes below 100,000 into two bit sets each
+C5_TENANTS, C5_PER, C5_BITS, C5_BIT_OPS, C5_REPS = 64, 10_000, 100_000, 500, 4
+# a user-activity bitmap keyed by user id: 1M indexes into 2**28 bits
+BITMAP_LOG2, BITMAP_OPS = 28, 1 << 20
 # single-key adds, RBloomFilter.add(key): enough calls for a latency p99
 SINGLE_ADDS = 200
 # the kernels each path of the main path must launch
-PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config1": ("bloom_add", "bloom_probe"),
-                "config3": ("hll_add", "hll_rows"), "single_adds": ("bloom_probe", "bloom_set")}
+PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloom_probe",),
+                "config1": ("bloom_add", "bloom_probe"), "config3": ("hll_add", "hll_rows"),
+                "single_adds": ("bloom_probe", "bloom_set"),
+                "fanout": ("bloom_probe", "bloom_set", "bitset_set", "bitset_get")}
 FPP = 0.01
 
 
@@ -672,9 +701,106 @@ def check_bloom_add(dev, rng) -> dict:
     return out
 
 
+def index_batch(rng, n: int, hi: int, dev, dup: float = 0.1) -> torch.Tensor:
+    """n int32 indexes below `hi`, the last `dup` share repeating the first."""
+    idx = rng.integers(0, hi, n).astype(np.int32)
+    d = int(n * dup)
+    idx[n - d:] = idx[:d]
+    return torch.from_numpy(idx).to(dev)
+
+
+def check_bitset(dev, rng) -> dict:
+    """bitset_get and bitset_set against their plain versions, bit for bit
+    (replies and planes), at config 5's shape, on a 2**28-bit plane larger
+    than L2, and at the edges; their times beside the bound (32-byte sectors
+    touched, 5 bytes an op of index and reply), the plain versions' and
+    index_select's (get) and index_put_'s (the write alone)."""
+    from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    checked, err = {"bitset_get": [], "bitset_set": []}, 0.0
+    # edges: negative, out-of-range and repeated indexes, masked tails
+    size = 4096
+    plane = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+    idx = index_batch(rng, 1000, size, dev)
+    idx[:10] = torch.tensor([-1, -size, -size - 1, size, size - 1, 0, 2**31 - 1, -(2**31), 5, 5],
+                            dtype=torch.int32, device=dev)
+    err = max(err, assert_equal("bitset_get edges", K.bitset_get(plane, idx), K.bitset_get_plain(plane, idx)))
+    for n_valid in (0, 1, 963, 1000):
+        for value in (0, 1):
+            a, b = plane.clone(), plane.clone()
+            got, want = K.bitset_set(a, idx, n_valid, value)[1], K.bitset_set_plain(b, idx, n_valid, value)[1]
+            err = max(err, assert_equal(f"bitset_set edges n_valid={n_valid} value={value}", got, want))
+            err = max(err, assert_equal(f"bitset_set edges n_valid={n_valid} value={value}: plane", a, b))
+    for name in checked:
+        checked[name].append("4096-lane plane, 1000 ops: negative, out-of-range and repeated indexes"
+                             + (", n_valid 0 / 1 / 963 / 1000, value 0 and 1" if name == "bitset_set" else ""))
+    shapes = {"": (bt.padded_size(_DEFAULT_BITS), C5_BITS, C5_BIT_OPS),
+              "bitmap_2_28_": (1 << BITMAP_LOG2, 1 << BITMAP_LOG2, BITMAP_OPS)}
+    get, put = {}, {}
+    for key, (size, hi, n) in shapes.items():
+        label = f"{size}-lane plane, {n} indexes below {hi}, 10% repeated"
+        plane = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+        batches = [index_batch(rng, n, hi, dev) for _ in range(20)]
+        for b in batches[:3]:
+            err = max(err, assert_equal(f"bitset_get {label}", K.bitset_get(plane, b), K.bitset_get_plain(plane, b)))
+            x, y = plane.clone(), plane.clone()
+            err = max(err, assert_equal(f"bitset_set {label}", K.bitset_set(x, b, n, 1)[1],
+                                        K.bitset_set_plain(y, b, n, 1)[1]))
+            err = max(err, assert_equal(f"bitset_set {label}: plane", x, y))
+        del x, y
+        touched = statistics.median(sectors(b.long()) for b in batches)
+        get[key + "ms"] = time_kernel(lambda i: K.bitset_get(plane, batches[i]))
+        get[key + "plain_ms"] = time_plain(lambda i: K.bitset_get_plain(plane, batches[i]))
+        get[key + "library_ms"] = time_kernel(lambda i: torch.index_select(plane, 0, batches[i]))
+        get[key + "bound_ms"], get[key + "bound_by"] = bound_ms(32 * touched + 5 * n, 0)
+        # a stream of 20 new batches setting bits, each on the plane the
+        # batches before it left; the write is bound by the sectors read and
+        # the sectors changed
+        ms, plain_ms, nbytes, stream_err = time_stream(
+            "bitset_set", lambda pl, b: K.bitset_set(pl, b, n, 1), lambda pl, b: K.bitset_set_plain(pl, b, n, 1),
+            plane.clone(), plane.clone(), batches,
+            lambda b, changed: 32 * (sectors(b.long()) + sectors(changed)) + 5 * n)
+        ones = torch.ones(n, dtype=torch.uint8, device=dev)
+        lib = plane.clone()
+        put.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                    key + "library_ms": time_kernel(lambda i: lib.index_put_((batches[i],), ones))})
+        put[key + "bound_ms"], put[key + "bound_by"] = bound_ms(nbytes, 0)
+        err = max(err, stream_err)
+        for name in checked:
+            checked[name].append(label + (", a stream of 20 batches" if name == "bitset_set" else ""))
+        del plane, batches, lib
+        torch.cuda.empty_cache()
+    results = {}
+    for name, r in (("bitset_get", get), ("bitset_set", put)):
+        results[name] = dict(r, max_abs_err=err, checked=checked[name],
+                             shape=f"config 5's SETBITSB: {C5_BIT_OPS} indexes below {C5_BITS} "
+                                   f"in a {bt.padded_size(_DEFAULT_BITS)}-lane plane")
+        log(f"kernel {name}: {r['ms']:.4f} ms at config 5's shape (plain {r['plain_ms']:.3f} ms, "
+            f"{'index_select' if name == 'bitset_get' else 'index_put_'} {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms); {BITMAP_OPS} ops on 2**{BITMAP_LOG2} lanes {r['bitmap_2_28_ms']:.4f} ms "
+            f"(plain {r['bitmap_2_28_plain_ms']:.3f}, library {r['bitmap_2_28_library_ms']:.4f}, bound "
+            f"{r['bitmap_2_28_bound_ms']:.4f}); equal to plain at {checked[name]}")
+    return results
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path through the facade
 # --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def staging(engine, on: bool):
+    """The engine's pinned staging pool as it is (on), or none (off): every
+    flush then packs into a fresh pageable buffer and copies synchronously."""
+    pool = engine.staging
+    if not on:
+        engine.staging = None
+    try:
+        yield
+    finally:
+        engine.staging = pool
+
 
 def pctl(xs, q):
     return float(np.percentile(np.asarray(xs), q))
@@ -687,15 +813,22 @@ def fp_band(fp: float, what: str) -> None:
         raise AssertionError(f"{what}: false-positive rate {fp:.4f} outside [0.005, 0.02]")
 
 
+def config2_flush(rng):
+    """A 100k-op contains flush: even ops present keys, odd ops absent ones."""
+    present = rng.integers(0, C2_TENANTS * C2_PER_TENANT, C2_FLUSH).astype(np.int64) * 2654435761
+    absent = rng.integers(1 << 50, 1 << 60, C2_FLUSH).astype(np.int64)
+    ks = np.where(np.arange(C2_FLUSH) % 2 == 0, present, absent)
+    return ((ks * 40503) % C2_TENANTS).astype(np.int32), ks
+
+
 def run_config2(client, rng) -> dict:
+    """Config 2's populate and flushes; the bank stays for config2_batch."""
+    from redisson_tpu_torch.core import ioplane
     from redisson_tpu_torch.core import kernels as K
 
     arr = client.get_bloom_filter_array("c2:tenants")
     if not arr.try_init(C2_TENANTS, C2_PER_TENANT, FPP):
         raise AssertionError("config2: bank exists")
-
-    def tenant_of(keys):
-        return ((keys * 40503) % C2_TENANTS).astype(np.int32)
 
     t0 = time.perf_counter()
     ingest = config2_ingest()
@@ -705,13 +838,7 @@ def run_config2(client, rng) -> dict:
     full = K.unpack_found(newly, len(lengths) * bb)
     n_new = sum(int(full[i * bb : i * bb + n].sum()) for i, n in enumerate(lengths))
 
-    def make_flush():
-        present = rng.integers(0, C2_TENANTS * C2_PER_TENANT, C2_FLUSH).astype(np.int64) * 2654435761
-        absent = rng.integers(1 << 50, 1 << 60, C2_FLUSH).astype(np.int64)
-        ks = np.where(np.arange(C2_FLUSH) % 2 == 0, present, absent)
-        return tenant_of(ks), ks
-
-    flushes = [make_flush() for _ in range(30)]
+    flushes = [config2_flush(rng) for _ in range(30)]
     arr.contains(*flushes[0])  # first call outside the timing
     lat, fps = [], []
     for t, ks in flushes:
@@ -725,16 +852,21 @@ def run_config2(client, rng) -> dict:
     fp_band(fp, "config2")
     # the query cache on these flushes: what each one pays for its digest,
     # the pack and host-to-device copy that a hit skips, and a flush that hits
-    digest_s, pack_s, hit_lat = [], [], []
-    for t, ks in flushes:
+    # (pack and copy through the engine's pinned staging pool, as the path
+    # packs, and with the pool off, as the engine packs without it: in turns)
+    digest_s, pack_s, unpooled_s, hit_lat = [], [], [], []
+    for i, (t, ks) in enumerate(flushes):
         s = time.perf_counter()
         K.QueryCache.digest(t, ks, extra=b"bfa")
         digest_s.append(time.perf_counter() - s)
-        torch.cuda.synchronize()
-        s = time.perf_counter()
-        arr._pack(t, ks)
-        torch.cuda.synchronize()
-        pack_s.append(time.perf_counter() - s)
+        for pooled in ((True, False) if i % 2 == 0 else (False, True)):
+            prev = ioplane.set_overlap(pooled)  # the engine stages through its pool only with overlap on
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            arr._pack(t, ks)
+            torch.cuda.synchronize()
+            (pack_s if pooled else unpooled_s).append(time.perf_counter() - s)
+            ioplane.set_overlap(prev)
     for _ in flushes:
         s = time.perf_counter()
         arr.contains(*flushes[0])
@@ -757,15 +889,158 @@ def run_config2(client, rng) -> dict:
            "populate_newly": n_new, "flushes": len(flushes), "flush_ops": C2_FLUSH,
            "flush_p50_ms": pctl(lat, 50) * 1e3, "flush_p99_ms": pctl(lat, 99) * 1e3,
            "false_positive_rate": fp, "cache_digest_p50_ms": pctl(digest_s, 50) * 1e3,
-           "pack_copy_p50_ms": pctl(pack_s, 50) * 1e3, "flush_hit_p50_ms": pctl(hit_lat, 50) * 1e3,
+           "pack_copy_p50_ms": pctl(pack_s, 50) * 1e3, "pack_copy_unpooled_p50_ms": pctl(unpooled_s, 50) * 1e3,
+           "flush_hit_p50_ms": pctl(hit_lat, 50) * 1e3,
            "window_flushes": 50,
            "window_ops_per_s": 50 * C2_FLUSH / window_s}
     log(f"config2: populate {C2_TENANTS * C2_PER_TENANT} keys {populate_s:.3f}s ({n_new} newly), sync 100k flush "
         f"p50 {out['flush_p50_ms']:.3f} ms p99 {out['flush_p99_ms']:.3f} ms (repeated flush, a cache hit: "
         f"p50 {out['flush_hit_p50_ms']:.3f} ms; digest {out['cache_digest_p50_ms']:.3f} ms, pack and copy "
-        f"{out['pack_copy_p50_ms']:.3f} ms), fp {fp:.5f}, "
+        f"{out['pack_copy_p50_ms']:.3f} ms through the pinned staging pool, {out['pack_copy_unpooled_p50_ms']:.3f} ms "
+        f"without it), fp {fp:.5f}, "
         f"window of 50 flushes {out['window_ops_per_s'] / 1e6:.1f}M contains/s; bank equals plain")
-    client.get_bloom_filter_array("c2:tenants").delete()
+    return out
+
+
+def run_config2_batch(client, rng) -> dict:
+    """Config 2's flush as BASELINE states it, an RBatch of 100k contains:
+    1,000 BloomFilterArray.contains_async ops of 100 keys each, one
+    execute() and every future's get(), on the bank run_config2 populated.
+    Beside it the direct arr.contains on the same flushes, the flush's
+    parts (the query cache's digest, pack and copy, the kernel, the
+    readback) and one flush of 100,000 one-key ops.  Deletes the bank."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+
+    name = "c2:tenants"
+    arr = client.get_bloom_filter_array(name)
+    per_op = C2_FLUSH // C2_BATCH_OPS
+
+    def batched(t, ks, per=per_op):
+        b = client.create_batch()
+        bank = b.get_bloom_filter_array(name)
+        futs = [bank.contains_async(t[i:i + per], ks[i:i + per]) for i in range(0, len(ks), per)]
+        b.execute()
+        return [f.get() for f in futs]
+
+    flushes = [config2_flush(rng) for _ in range(30)]
+    # the direct call first, its replies kept for the comparison (30 arrays:
+    # keeping the batch's 30,000 reply slices instead would grow the heap
+    # that each garbage collection walks); then the query cache is emptied,
+    # so the batch flushes miss it as the direct ones did
+    direct, direct_lat, fps = [], [], []
+    for t, ks in flushes:
+        s = time.perf_counter()
+        found = arr.contains(t, ks)
+        direct_lat.append(time.perf_counter() - s)
+        if not found[0::2].all():
+            raise AssertionError("config2_batch: false negatives")
+        fps.append(found[1::2].mean())
+        direct.append(found)
+    fp = float(np.mean(fps))
+    fp_band(fp, "config2_batch")
+    client.engine.query_cache.clear()
+    # the path's launch counts: from 0 just before its first RBatch flush to
+    # just after its last; the direct calls above and the parts, the kernel's
+    # timing and the staging A/B below launch outside this window
+    K.reset_launches()
+    batched(*config2_flush(rng))  # first call outside the timing
+    # full (generation 2) garbage collections inside each timed flush: a
+    # flush allocates ~4,000 tracked objects, and a full collection walks
+    # every tracked object of the process
+    full = [0]
+
+    def on_gc(phase, info):
+        if phase == "start" and info["generation"] == 2:
+            full[0] += 1
+
+    lat, probes, collections = [], [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for (t, ks), found in zip(flushes, direct):
+            before, full[0] = K.launches["bloom_probe"], 0
+            s = time.perf_counter()
+            got = batched(t, ks)
+            lat.append(time.perf_counter() - s)
+            probes.append(K.launches["bloom_probe"] - before)
+            collections.append(full[0])
+            if len(got) != C2_BATCH_OPS or not all(
+                    np.array_equal(g, found[i * per_op:(i + 1) * per_op]) for i, g in enumerate(got)):
+                raise AssertionError("config2_batch: an op's reply differs from the direct reply's slice")
+    finally:
+        gc.callbacks.remove(on_gc)
+    if probes != [1] * len(flushes):
+        raise AssertionError(f"config2_batch: bloom_probe launches per flush {probes}, want one each")
+    # BASELINE's literal shape: 100,000 one-key ops in one batch, timed once
+    s = time.perf_counter()
+    one_key = batched(*flushes[0], per=1)
+    one_key_s = time.perf_counter() - s
+    launches = dict(K.launches)
+    if not np.array_equal(np.concatenate(one_key), direct[0]):
+        raise AssertionError("config2_batch: one-key ops differ from the direct reply")
+    # one bloom_probe for each RBatch flush (the warm-up, the 30 timed, the
+    # one-key flush) and nothing else
+    want = {k: len(flushes) + 2 if k == "bloom_probe" else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"config2_batch: launches {launches}, want {want}")
+    # the flush's parts, on the same flushes
+    rec = client.engine.store.get(name)
+    bits, k, m = rec.arrays["bits"], rec.meta["k"], rec.meta["m"]
+    b = K.bucket_size(C2_FLUSH)
+    digest_s, pack_s, read_s = [], [], []
+    for t, ks in flushes:
+        s = time.perf_counter()
+        K.QueryCache.digest(t, ks, extra=b"bfa%d" % b)
+        digest_s.append(time.perf_counter() - s)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        tlh, n = arr._pack(t, ks)
+        torch.cuda.synchronize()
+        pack_s.append(time.perf_counter() - s)
+        packed = K.bloom_bank_contains_packed_bits(bits, tlh, n, k, m)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        ioplane.force_all([ioplane.ReadbackFuture((packed,))])
+        read_s.append(time.perf_counter() - s)
+    kernel_ms = time_kernel(lambda i: K.bloom_bank_contains_packed_bits(bits, tlh, n, k, m))
+    # the RBatch flush with the engine's pinned staging pool and without it,
+    # in turns on fresh flushes, each a query-cache miss
+    pooled = {True: [], False: []}
+    for i in range(C2_POOL_AB):
+        t, ks = config2_flush(rng)
+        replies = []
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            client.engine.query_cache.clear()
+            with staging(client.engine, on):
+                s = time.perf_counter()
+                replies.append(batched(t, ks))
+                pooled[on].append(time.perf_counter() - s)
+        if not all(np.array_equal(x, y) for x, y in zip(*replies)):
+            raise AssertionError("config2_batch: replies differ with and without the staging pool")
+    out = {"flushes": len(flushes), "ops_per_flush": C2_BATCH_OPS, "keys_per_op": per_op,
+           "batch_flush_p50_ms": pctl(lat, 50) * 1e3, "batch_flush_p99_ms": pctl(lat, 99) * 1e3,
+           "batch_flush_ms": [x * 1e3 for x in lat], "batch_flush_full_collections": collections,
+           "direct_flush_p50_ms": pctl(direct_lat, 50) * 1e3, "direct_flush_p99_ms": pctl(direct_lat, 99) * 1e3,
+           "false_positive_rate": fp, "digest_p50_ms": pctl(digest_s, 50) * 1e3,
+           "pack_copy_p50_ms": pctl(pack_s, 50) * 1e3, "kernel_ms": kernel_ms,
+           "readback_p50_ms": pctl(read_s, 50) * 1e3, "one_key_ops": C2_FLUSH, "one_key_flush_s": one_key_s,
+           "one_key_us_per_op": one_key_s / C2_FLUSH * 1e6,
+           "pool_ab_flushes": C2_POOL_AB, "pool_on_p50_ms": pctl(pooled[True], 50) * 1e3,
+           "pool_off_p50_ms": pctl(pooled[False], 50) * 1e3,
+           "pool_on_ms": [x * 1e3 for x in pooled[True]], "pool_off_ms": [x * 1e3 for x in pooled[False]],
+           "launches": launches}
+    out["digest_share_of_batch_flush"] = out["digest_p50_ms"] / out["batch_flush_p50_ms"]
+    log(f"config2_batch: RBatch of {C2_BATCH_OPS} x {per_op}-key contains_async, p50 "
+        f"{out['batch_flush_p50_ms']:.3f} ms p99 {out['batch_flush_p99_ms']:.3f} ms (direct arr.contains p50 "
+        f"{out['direct_flush_p50_ms']:.3f} ms p99 {out['direct_flush_p99_ms']:.3f} ms; the slowest RBatch flush "
+        f"{max(lat) * 1e3:.3f} ms, full garbage collections inside the flushes {collections}); parts: digest "
+        f"{out['digest_p50_ms']:.3f} ms ({out['digest_share_of_batch_flush']:.0%} of the batch flush), pack and copy "
+        f"{out['pack_copy_p50_ms']:.3f} ms, kernel {kernel_ms:.4f} ms, readback {out['readback_p50_ms']:.3f} ms; "
+        f"one bloom_probe per flush, {launches['bloom_probe']} in the path; fp {fp:.5f}; {C2_FLUSH} one-key ops in "
+        f"one batch {one_key_s:.3f} s ({out['one_key_us_per_op']:.2f} us an op); every reply equals the direct "
+        f"reply's slice; staging pool on/off over {C2_POOL_AB} fresh flushes in turns: p50 "
+        f"{out['pool_on_p50_ms']:.3f} / {out['pool_off_p50_ms']:.3f} ms")
+    arr.delete()
     return out
 
 
@@ -877,6 +1152,125 @@ def run_config3(client, rng) -> dict:
     return out
 
 
+def fanout_rep(client, rng, tag: str, keysets, check: bool) -> tuple:
+    """One rep of config 5's per-tenant objects (bench.py:399-428) as one
+    embedded RBatch, on fresh names: 64 filters (10,000 expected, 0.01)
+    each adding its 10,000 keys and then probing them (two fused runs over a
+    stacked bank), the same traffic interleaved on 64 more filters (64 fused
+    add-then-contains pairs), two bit sets a tenant each setting 500 random
+    indexes below 100,000 and then reading 500 others, and a counter and a
+    bucket per tenant; then BITOP OR and XOR of each tenant's two bit sets,
+    as bench.py:425-426.  Returns (wall seconds, launches by kernel).  With
+    `check`, every plane and reply is held against the plain versions, the
+    BITOPs against numpy on the CPU."""
+    from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    dev = client.engine.device
+    run = [f"{tag}:run:{t}" for t in range(C5_TENANTS)]
+    pair = [f"{tag}:pair:{t}" for t in range(C5_TENANTS)]
+    for name in run + pair:
+        if not client.get_bloom_filter(name).try_init(C5_PER, FPP):
+            raise AssertionError(f"fanout: {name} exists")
+    bits = [f"{tag}:bits:{i}" for i in range(2 * C5_TENANTS)]
+    set_idx = [rng.integers(0, C5_BITS, C5_BIT_OPS) for _ in bits]
+    get_idx = [rng.integers(0, C5_BITS, C5_BIT_OPS) for _ in bits]
+    torch.cuda.synchronize()
+    before = dict(K.launches)
+    s = time.perf_counter()
+    b = client.create_batch()
+    adds = [b.get_bloom_filter(name).add_async(keysets[t]) for t, name in enumerate(run)]
+    probes = [b.get_bloom_filter(name).contains_async(keysets[t]) for t, name in enumerate(run)]
+    for t, name in enumerate(pair):
+        f = b.get_bloom_filter(name)
+        adds.append(f.add_async(keysets[t]))
+        probes.append(f.contains_async(keysets[t]))
+    sets, gets = [], []
+    for name, si, gi in zip(bits, set_idx, get_idx):
+        sets.append(b.get_bit_set(name).set_async(si))
+        gets.append(b.get_bit_set(name).get_async(gi))
+    counters = [b.get_atomic_long(f"{tag}:n:{t}").add_and_get_async(t + 1) for t in range(C5_TENANTS)]
+    for t in range(C5_TENANTS):
+        b.get_bucket(f"{tag}:v:{t}").set_async(t)
+    b.execute()
+    added = [f.get() for f in adds]
+    found = [f.get() for f in probes]
+    old = [f.get() for f in sets]
+    got = [f.get() for f in gets]
+    counts = [f.get() for f in counters]
+    for t in range(C5_TENANTS):
+        first = client.get_bit_set(bits[t])
+        first.or_(bits[C5_TENANTS + t])
+        first.xor(bits[C5_TENANTS + t])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s
+    launches = {k: K.launches[k] - before[k] for k in K.launches}
+    if not all(f.all() for f in found):
+        raise AssertionError("fanout: false negatives")
+    if counts != list(range(1, C5_TENANTS + 1)) or \
+            [client.get_bucket(f"{tag}:v:{t}").get() for t in range(C5_TENANTS)] != list(range(C5_TENANTS)):
+        raise AssertionError("fanout: counters or buckets wrong")
+    if check:
+        # every plane and newly count against the per-filter plain route
+        for t, name in enumerate(run + pair):
+            rec = client.engine.store.get(name)
+            plane = torch.zeros_like(rec.arrays["bits"])
+            _, lh, n = client.engine.pack_keys(keysets[t % C5_TENANTS], None)
+            newly = K.bloom_add_plain(plane, plane.numel(), K._u64_keys(lh[0], lh[1]), n,
+                                      rec.meta["k"], rec.meta["m"], K.COUNT)
+            assert_equal(f"fanout {name}: plane", rec.arrays["bits"], plane)
+            if int(newly) != added[t]:
+                raise AssertionError(f"fanout {name}: newly {added[t]} != plain {int(newly)}")
+        planes = []
+        for name, si, gi, o, g in zip(bits, set_idx, get_idx, old, got):
+            plane = bt.make(_DEFAULT_BITS, dev)
+            _, want_old = K.bitset_set_plain(plane, torch.from_numpy(si.astype(np.int32)).to(dev), C5_BIT_OPS, 1)
+            want_got = K.bitset_get_plain(plane, torch.from_numpy(gi.astype(np.int32)).to(dev))
+            if not (np.array_equal(o, want_old.cpu().numpy()) and np.array_equal(g, want_got.cpu().numpy())):
+                raise AssertionError(f"fanout {name}: replies differ from the plain versions")
+            planes.append(plane.cpu().numpy())
+        for i, name in enumerate(bits):
+            want = planes[i]
+            if i < C5_TENANTS:  # BITOP OR, then XOR, with the tenant's second set
+                want = (want | planes[C5_TENANTS + i]) ^ planes[C5_TENANTS + i]
+            assert_equal(f"fanout {name}: plane", client.engine.store.get(name).arrays["bits"],
+                         torch.from_numpy(want).to(dev))
+    for name in run + pair + bits:
+        client.engine.store.delete(name)
+    return wall, launches
+
+
+def run_fanout(client, rng) -> dict:
+    """Config 5's per-tenant objects as one embedded RBatch a rep (fanout_rep),
+    C5_REPS reps, each held against the plain versions; the path's launches
+    are read after them.  Then reps with the engine's staging pool on and
+    off, in turns."""
+    from redisson_tpu_torch.core import kernels as K
+
+    keysets = [np.arange(t * C5_PER, (t + 1) * C5_PER, dtype=np.int64) * 2654435761 for t in range(C5_TENANTS)]
+    ops = 4 * C5_TENANTS * C5_PER + 2 * (2 * C5_TENANTS) * C5_BIT_OPS + 4 * C5_TENANTS
+    reps = []
+    for rep in range(C5_REPS):
+        wall, launches = fanout_rep(client, rng, f"fan{rep}", keysets, check=True)
+        reps.append({"wall_s": wall, "ops_per_s": ops / wall, "launches": launches})
+    path_launches = dict(K.launches)
+    pooled = {True: [], False: []}
+    for i in range(C5_POOL_AB):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            with staging(client.engine, on):
+                wall, _ = fanout_rep(client, rng, f"fanab{i}{on:d}", keysets, check=False)
+            pooled[on].append(ops / wall)
+    out = {"reps": reps, "ops_per_rep": ops, "ops_per_s": [r["ops_per_s"] for r in reps],
+           "pool_on_ops_per_s": pooled[True], "pool_off_ops_per_s": pooled[False], "launches": path_launches}
+    log(f"fanout: {C5_REPS} reps of one RBatch with {ops} ops ({4 * C5_TENANTS} filter ops of {C5_PER} keys, two "
+        f"fused runs and {C5_TENANTS} fused pairs; {2 * C5_TENANTS} bit sets x {C5_BIT_OPS} set + get; counters and "
+        f"buckets; BITOP OR and XOR a tenant): {', '.join(f'{r:.3e}' for r in out['ops_per_s'])} ops/s; launches a "
+        f"rep {reps[-1]['launches']}; planes, bits and replies equal the plain versions; staging pool on / off in "
+        f"turns: {', '.join(f'{r:.3e}' for r in pooled[True])} / {', '.join(f'{r:.3e}' for r in pooled[False])} ops/s")
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 5: the card against the CPU on one op stream
 # --------------------------------------------------------------------------
@@ -926,6 +1320,73 @@ def same(a, b) -> bool:
     return a == b
 
 
+def rbatch_stream(client, rng, overlap: bool) -> list:
+    """Every verb of the Batch, in three batches (plain, skip_result,
+    atomic): fused add and contains runs, a run that mixed geometry refuses,
+    an add-then-contains pair, codec keys, an op on a missing filter (its
+    error lands on its future), a bank, bit sets, HLL, a bucket and a
+    counter; then BITOP AND, OR, XOR and NOT, cardinality, length and
+    bitpos on the bit sets.  Returns the replies and the final states."""
+    from redisson_tpu_torch import state
+    from redisson_tpu_torch.core import ioplane
+
+    prev = ioplane.set_overlap(overlap)
+    try:
+        out = []
+        for i in range(3):
+            client.get_bloom_filter(f"rb:{i}").try_init(10_000, 0.01)
+        client.get_bloom_filter("rb:x").try_init(90_000, 0.001)
+        client.get_bloom_filter("rb:s").try_init(2_000, 0.01)
+        client.get_bloom_filter_array("rb:bank").try_init(8, 1000, 0.01)
+        keys = [rng.integers(0, 1 << 60, 3000 + i).astype(np.int64) for i in range(4)]
+        for skip, atomic in ((False, False), (True, False), (False, True)):
+            b = client.create_batch(skip_result=skip, atomic=atomic)
+            futs = [b.get_bloom_filter(f"rb:{i}").add_async(keys[i]) for i in range(3)]
+            futs.append(b.get_bloom_filter("rb:x").add_async(keys[3]))
+            futs += [b.get_bloom_filter(f"rb:{i}").contains_async(keys[i + 1]) for i in range(3)]
+            futs.append(b.get_bloom_filter("rb:0").add_async(keys[2][:500]))
+            futs.append(b.get_bloom_filter("rb:0").contains_async(keys[2]))
+            futs.append(b.get_bloom_filter("rb:s").add_async(["a", 1, 2.5]))
+            futs.append(b.get_bloom_filter("rb:s").contains_async(["a", "b"]))
+            futs.append(b.get_bloom_filter("rb:missing").contains_async(keys[0][:5]))
+            t = (keys[0] % 8).astype(np.int32)
+            futs.append(b.get_bloom_filter_array("rb:bank").add_async(t, keys[0]))
+            futs.append(b.get_bloom_filter_array("rb:bank").contains_async(t, keys[0] + 1))
+            futs.append(b.get_bit_set("rb:bits").set_async(keys[1] % 50_000))
+            futs.append(b.get_bit_set("rb:bits").get_async(keys[2] % 50_000))
+            futs.append(b.get_bit_set("rb:bits").set_async(keys[3][:90] % 50_000, False))
+            futs.append(b.get_hyper_log_log("rb:h").add_all_async(keys[0]))
+            futs.append(b.get_bucket("rb:v").set_async([1, "x"]))
+            futs.append(b.get_bucket("rb:v").get_async())
+            futs.append(b.get_atomic_long("rb:n").add_and_get_async(3))
+            try:
+                b.execute()
+            except RuntimeError:  # the missing filter's error, raised by the replies
+                pass
+            for f in futs:
+                try:
+                    out.append(f.get())
+                except RuntimeError as e:
+                    out.append(("error", str(e)))
+        # BITOP and the other bit-set ops (torch ops) on the batch's bit set
+        bits, other, third = (client.get_bit_set(n) for n in ("rb:bits", "rb:bits2", "rb:bits3"))
+        out.append(other.set_each(keys[0][:700] % 70_000))
+        out.append(third.set_each(keys[1][:900] % 90_000))
+        bits.or_("rb:bits2")
+        out.append((bits.cardinality(), bits.length(), bits.bitpos(True), bits.bitpos(False)))
+        bits.xor("rb:bits2")
+        out.append(bits.cardinality())
+        third.and_("rb:bits", "rb:bits2")
+        third.not_()
+        out.append((third.cardinality(), third.length(), third.bitpos(False)))
+        for name in ("rb:0", "rb:1", "rb:2", "rb:x", "rb:s", "rb:bank", "rb:bits", "rb:bits2", "rb:bits3",
+                     "rb:h", "rb:v", "rb:n"):
+            out.append(state.to_reference(client.engine.store.get(name)))
+        return out
+    finally:
+        ioplane.set_overlap(prev)
+
+
 def check_card_against_cpu(create) -> None:
     on_card = small_stream(create(), np.random.default_rng(5))
     on_cpu = small_stream(create(device="cpu"), np.random.default_rng(5))
@@ -933,6 +1394,14 @@ def check_card_against_cpu(create) -> None:
         if not same(a, b):
             raise AssertionError(f"small stream reply {i}: card {a!r} != cpu {b!r}")
     log(f"small stream: {len(on_card)} replies and final states equal on the card and the CPU")
+    for overlap in (True, False):
+        on_card = rbatch_stream(create(), np.random.default_rng(8), overlap)
+        on_cpu = rbatch_stream(create(device="cpu"), np.random.default_rng(8), overlap)
+        for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+            if not same(a, b):
+                raise AssertionError(f"RBatch stream (overlap={overlap}) reply {i}: card {a!r} != cpu {b!r}")
+        log(f"RBatch stream, overlap {'on' if overlap else 'off'}: {len(on_card)} replies (plain, skip_result and "
+            "atomic batches, every verb) and final states equal on the card and the CPU")
 
 
 def main() -> int:
@@ -952,20 +1421,24 @@ def main() -> int:
     rng = np.random.default_rng(1234)
     check_known_answers(dev)
     kernels = check_kernels(dev, rng)
+    kernels.update(check_bitset(dev, rng))
 
     client = redisson_tpu_torch.create()
     if client.engine.device.type != "cuda":
         raise AssertionError("create() did not land on the card")
-    K.reset_launches()
-    paths, before = {}, dict(K.launches)
+    paths, main_launches = {}, dict.fromkeys(K.launches, 0)
     for name, run in (("config2", lambda: run_config2(client, np.random.default_rng(42))),
+                      ("config2_batch", lambda: run_config2_batch(client, np.random.default_rng(43))),
                       ("config1", lambda: run_config1(client)),
                       ("config3", lambda: run_config3(client, np.random.default_rng(7))),
-                      ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11)))):
+                      ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11))),
+                      ("fanout", lambda: run_fanout(client, np.random.default_rng(13)))):
+        K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
-        paths[name]["launches"] = {k: K.launches[k] - before[k] for k in K.launches}
-        before = dict(K.launches)
-    main_launches = dict(K.launches)
+        # a path that measures beside its own work reads its counts itself
+        paths[name].setdefault("launches", dict(K.launches))
+        for k, v in paths[name]["launches"].items():
+            main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
     missing += [k for k, v in main_launches.items() if v == 0]
@@ -979,15 +1452,18 @@ def main() -> int:
                "bloom_set": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
                "bloom_add": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
                "hll_add": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:446"),
-               "hll_rows": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:504")}
+               "hll_rows": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:504"),
+               "bitset_get": ("redisson_tpu_torch/csrc/bitset.cu", "redisson_tpu/core/kernels.py:526"),
+               "bitset_set": ("redisson_tpu_torch/csrc/bitset.cu", "redisson_tpu/core/kernels.py:518")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": main_launches[name],
          "launches_by_path": {path: v["launches"][name] for path, v in paths.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None,
-         "more": {key: v for key, v in r.items() if key.endswith("_ms") and key not in ("ms", "plain_ms", "bound_ms")}}
+         "library_ms": r.get("library_ms"),
+         "more": {key: v for key, v in r.items()
+                  if key.endswith("_ms") and key not in ("ms", "plain_ms", "bound_ms", "library_ms")}}
         for name, r in kernels.items()]}
     for name, r in kernels.items():
         log(json.dumps({"kernel": name, "launches": main_launches[name],

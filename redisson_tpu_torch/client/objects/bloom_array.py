@@ -88,7 +88,8 @@ class BloomFilterArray(RExpirable):
 
         def build():
             lo, hi = H.int_keys_to_u32_pair(arr)
-            return K.pack_rows(t, lo, hi, size=b, device=self._engine.device)
+            return K.pack_rows(t, lo, hi, size=b, device=self._engine.device,
+                               pool=self._engine.staging_pool())
 
         if cache_hot and n >= 4096:
             return self._engine.query_cache.cached_staged(build, t, arr, extra=b"bfa%d" % b), n

@@ -1,14 +1,16 @@
 """RedissonTpu: the entry facade of the port (Redisson.create analog).
 
-One client over one embedded Engine, with the sketch factories of
-``redisson_tpu/client/redisson.py``.  Object handles are cheap and
-stateless; create them freely.  The other factories belong to later slices.
+One client over one embedded Engine, with the sketch, bit set, bucket and
+batch factories of ``redisson_tpu/client/redisson.py``.  Object handles are
+cheap and stateless; create them freely.  The other factories belong to
+later slices.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from redisson_tpu_torch.client.codec import Codec
+from redisson_tpu_torch.core.batch import Batch
 from redisson_tpu_torch.core.engine import Engine
 
 
@@ -45,6 +47,45 @@ class RedissonTpu:
         from redisson_tpu_torch.client.objects.hll_array import HyperLogLogArray
 
         return HyperLogLogArray(self._engine, name)
+
+    def get_bit_set(self, name: str):
+        from redisson_tpu_torch.client.objects.bitset import BitSet
+
+        return BitSet(self._engine, name)
+
+    # -- value / counter objects -------------------------------------------
+
+    def get_bucket(self, name: str, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.bucket import Bucket
+
+        return Bucket(self._engine, name, codec)
+
+    def get_buckets(self, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.bucket import Buckets
+
+        return Buckets(self._engine, codec)
+
+    def get_atomic_long(self, name: str):
+        from redisson_tpu_torch.client.objects.bucket import AtomicLong
+
+        return AtomicLong(self._engine, name)
+
+    def get_atomic_double(self, name: str):
+        from redisson_tpu_torch.client.objects.bucket import AtomicDouble
+
+        return AtomicDouble(self._engine, name)
+
+    def get_id_generator(self, name: str):
+        from redisson_tpu_torch.client.objects.bucket import IdGenerator
+
+        return IdGenerator(self._engine, name)
+
+    # -- batching (RBatch) --------------------------------------------------
+
+    def create_batch(self, skip_result: bool = False, atomic: bool = False) -> Batch:
+        """An RBatch over this client's engine: ops queued on its proxies run
+        at execute(), grouped per object and verb (core/batch.py)."""
+        return Batch(self._engine, skip_result=skip_result, atomic=atomic)
 
     def shutdown(self) -> None:
         self._engine.shutdown()

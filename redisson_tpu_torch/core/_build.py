@@ -40,6 +40,10 @@ SIGNATURES = {
         "rtpu_hll_add": [_P, _L, _L, _I, *_KEYS, _I, _P],
         "rtpu_hll_rows": [_P, _L, _P, _L, _P, _P, _L, _L, _P, _P, _F, _P],
     },
+    "bitset": {
+        "rtpu_bitset_get": [_P, _L, _P, _I, _P, _P],
+        "rtpu_bitset_set": [_P, _L, _P, _I, _I, _I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -5,6 +5,8 @@ The engine owns:
   * the DeviceStore (the "server state"),
   * key packing (codec bytes / int64 -> padded int32 word tensors),
   * the query cache for read paths (core/kernels.py QueryCache),
+  * the pinned double-buffered staging pool of flush packing
+    (core/ioplane.py StagingPool),
   * per-record mutual exclusion: every compound mutation of one object runs
     under its record lock, one writer per object.
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch.client.codec import DEFAULT_CODEC, Codec
+from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core.store import DeviceStore
 from redisson_tpu_torch.utils import hashing as H
@@ -47,6 +50,8 @@ class Engine:
         self.store = DeviceStore()
         self.default_codec: Codec = DEFAULT_CODEC
         self.query_cache = K.QueryCache()
+        # staging shared by every flush packer of this engine
+        self.staging = ioplane.StagingPool(pin=self.device.type == "cuda")
         # name -> [RLock, refcount]: entries exist only while someone holds or
         # waits on them, so object churn can't grow the registry unboundedly
         self._record_locks: dict[str, list] = {}
@@ -94,6 +99,23 @@ class Engine:
             for n, entry in entries:
                 self._release_entry(n, entry)
 
+    # -- device placement and staging ----------------------------------------
+
+    def device_for_name(self, name: str):
+        """Owner device of `name`'s slot; None, as the port has no placement
+        yet (every record lives on self.device)."""
+        return None
+
+    def staging_pool(self, device=None):
+        """The engine's pinned double-buffered staging pool, or None when the
+        overlap plane is off (the serial A/B reference) or the device is
+        the CPU, where slot reuse would rewrite a staged tensor
+        (ioplane.staging_reuse_safe).  `device` names a placement lane's
+        pool in the reference; the port has one pool."""
+        if not (ioplane.overlap_enabled() and ioplane.staging_reuse_safe(self.device)):
+            return None
+        return self.staging
+
     # -- key packing --------------------------------------------------------
 
     @staticmethod
@@ -118,7 +140,7 @@ class Engine:
 
             def build():
                 lo, hi = H.int_keys_to_u32_pair(arr)
-                return K.pack_rows(lo, hi, size=b, device=self.device)
+                return K.pack_rows(lo, hi, size=b, device=self.device, pool=self.staging_pool())
 
             if cache_hot and n >= 4096:
                 # hot-set reuse, READ paths only: a serving loop re-probing
@@ -140,4 +162,5 @@ class Engine:
 
     def shutdown(self):
         self.query_cache.clear()
+        self.staging.clear()
         self.store.flushall()

@@ -8,7 +8,7 @@ of the state it is given: state on the CPU runs the plain version, state on a
 CUDA card launches the kernel, and nothing falls back from one to the other
 (a CUDA launch either runs or raises).
 
-Five kernels carry every program here:
+Seven kernels carry every program here:
 
   bloom_probe  hash, k probes, AND; out as flags, a uint32 bitmap or a count
   bloom_set    hash, store 1 at the k probes (after bloom_probe: the add
@@ -21,6 +21,12 @@ Five kernels carry every program here:
   hll_rows     row gather-max of two banks, optional out-of-place write,
                optional float32 estimate per row; 16-byte loads where the
                banks allow them, else 4-byte ones
+  bitset_get   GETBIT batch: gather one uint8 lane per op
+  bitset_set   SETBIT batch: gather every old bit, then store the value
+               (two launches in stream order)
+
+The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
+reduce or map a plane elementwise and stay torch ops.
 
 Differences from the JAX programs:
   * State is updated in place.  JAX donates the plane and returns a new
@@ -44,7 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from redisson_tpu_torch.core import _build
+from redisson_tpu_torch.core import _build, ioplane
 from redisson_tpu_torch.ops import bittensor as bt
 from redisson_tpu_torch.ops import hll as hll_ops
 from redisson_tpu_torch.utils import hashing as H
@@ -54,7 +60,8 @@ BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 
 # Launches of each hand kernel since the last reset_launches(); a run reads
 # them to show that its path went through the kernels.
-launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0}
+launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
+            "bitset_get": 0, "bitset_set": 0}
 
 
 def reset_launches() -> None:
@@ -92,20 +99,40 @@ def pad_to(arr: np.ndarray, size: int, axis: int = 0) -> np.ndarray:
     return np.pad(arr, pad)
 
 
-def stage(arr: np.ndarray, device) -> torch.Tensor:
-    """numpy operand -> tensor on `device`; 32-bit words become int32 bits."""
+def stage(arr: np.ndarray, device, non_blocking: bool = False) -> torch.Tensor:
+    """numpy operand -> tensor on `device`; 32-bit words become int32 bits.
+    `non_blocking` only for pinned host memory (a staging pool's slot)."""
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, non_blocking=non_blocking)
 
 
-def pack_rows(*arrays, size: int, device) -> torch.Tensor:
+def pack_rows(*arrays, size: int, device, pool=None) -> torch.Tensor:
     """Stack 1-D 32-bit arrays into ONE (R, size) buffer (zero padded) and
-    copy it to `device` in one transfer."""
-    out = np.zeros((len(arrays), size), np.uint32)
-    for i, a in enumerate(arrays):
-        out[i, : a.shape[0]] = a.view(np.uint32) if a.dtype == np.int32 else a
-    return stage(out, device)
+    copy it to `device` in one transfer.
+
+    `pool` (core/ioplane.StagingPool, pinned host slots) fills a reusable
+    slot instead of a fresh allocation and copies without blocking; the
+    slot is handed out again only after the event recorded behind the copy
+    has passed.  Callers pass a pool only where reuse is safe
+    (Engine.staging_pool: never on the CPU, where the tensor would alias
+    the slot)."""
+    shape = (len(arrays), size)
+    if pool is None:
+        out, slot = np.zeros(shape, np.uint32), None
+    else:
+        out, slot = pool.acquire(shape, np.uint32)
+    try:
+        for i, a in enumerate(arrays):
+            out[i, : a.shape[0]] = a.view(np.uint32) if a.dtype == np.int32 else a
+        staged = stage(out, device, non_blocking=pool is not None)
+    except BaseException:
+        if pool is not None:
+            pool.release(slot)  # a slot left busy would shrink the pool for good
+        raise
+    if pool is not None:
+        pool.commit(slot, ioplane.record_event(staged.device))
+    return staged
 
 
 def unpack_found(packed, n: int) -> np.ndarray:
@@ -235,7 +262,7 @@ def _valid(n: int, n_valid: int, device) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# The four kernels: plain versions and CUDA launches
+# The kernels: plain versions and CUDA launches
 # --------------------------------------------------------------------------
 
 FLAGS, BITS, COUNT = 0, 1, 2
@@ -683,3 +710,65 @@ def hll_estimate_union(a, b):
 
 def hll_bank_estimate_union_pairs(regs2d, a, b):
     return hll_rows(regs2d, regs2d, a, b, estimate=True)
+
+
+# --------------------------------------------------------------------------
+# BitSet programs (RedissonBitSet surface)
+# --------------------------------------------------------------------------
+
+def _bitset_operands(bits, idx) -> None:
+    _require_cuda_operands(bits, idx)
+    if bits.dtype != torch.uint8 or bits.dim() != 1:
+        raise ValueError("bit planes are 1-D uint8")
+
+
+def bitset_get_plain(bits, idx):
+    return bt.get_bits(bits, idx)
+
+
+def bitset_get(bits, idx):
+    """GETBIT batch: uint8 lane of every index of the int32 `idx`; an index
+    in [-size, -1] counts from the end, any other outside the plane reads 0."""
+    if _route(bits) == "plain":
+        return bitset_get_plain(bits, idx)
+    _bitset_operands(bits, idx)
+    out = torch.empty(idx.shape, dtype=torch.uint8, device=bits.device)
+    if idx.numel():
+        _launch("bitset_get", _build.library("bitset").rtpu_bitset_get, bits,
+                bits.data_ptr(), bits.numel(), idx.data_ptr(), idx.numel(), out.data_ptr())
+    return out
+
+
+def bitset_set_plain(bits, idx, n_valid, value):
+    valid = _valid(idx.shape[0], n_valid, bits.device)
+    # masked ops index past every plane (int64, so no wrap brings them back)
+    safe = torch.where(valid, idx.to(torch.int64), bits.shape[0])
+    old = bt.get_bits(bits, safe)
+    bt.set_bits(bits, safe, int(value))
+    return bits, old
+
+
+def bitset_set(bits, idx, n_valid, value):
+    """SETBIT batch, in place: every op < n_valid reports the bit its index
+    held before the batch and stores `value` (0 or 1); returns (bits, old
+    uint8 per op, 0 for masked and out-of-range ops)."""
+    if _route(bits) == "plain":
+        return bitset_set_plain(bits, idx, n_valid, value)
+    _bitset_operands(bits, idx)
+    if idx.dim() != 1:
+        raise ValueError("bitset_set takes a 1-D index batch")
+    old = torch.empty(idx.shape, dtype=torch.uint8, device=bits.device)
+    if idx.numel():
+        _launch("bitset_set", _build.library("bitset").rtpu_bitset_set, bits,
+                bits.data_ptr(), bits.numel(), idx.data_ptr(), idx.numel(),
+                max(0, min(int(n_valid), idx.numel())), int(bool(value)), old.data_ptr())
+    return bits, old
+
+
+bitset_popcount = bt.popcount
+bitset_and = bt.bit_and
+bitset_or = bt.bit_or
+bitset_xor = bt.bit_xor
+bitset_not = bt.bit_not
+bitset_bitpos = bt.bitpos
+bitset_length = bt.length_hint

@@ -1,10 +1,10 @@
 """DeviceStore: the registry of named device-resident states.
 
 Every object handle is stateless; its state lives here as a StateRecord
-holding tensors plus metadata (kind, logical sizes, hash version), keyed by
-name.  Compound mutations run under the engine's per-record locks
-(core/engine.py ``locked``/``locked_many``), so each object has one writer
-at a time.  Kernels update the record's tensors in place, or install a new
+holding tensors (or, for the bucket family, host values) plus metadata
+(kind, logical sizes, hash version), keyed by name.  Compound mutations run
+under the engine's per-record locks (core/engine.py ``locked`` /
+``locked_many``), so each object has one writer at a time.  Kernels update the record's tensors in place, or install a new
 tensor where they write out of place (the HLL merges).
 
 A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
@@ -20,9 +20,10 @@ from typing import Any, Callable, Dict, Optional
 
 @dataclass
 class StateRecord:
-    kind: str                       # "bloom" | "bloom_array" | "hll" | "hll_array"
+    kind: str                       # "bloom" | "hll" | "bitset" | "bucket" | ...
     meta: Dict[str, Any] = field(default_factory=dict)
     arrays: Dict[str, Any] = field(default_factory=dict)  # name -> torch.Tensor
+    host: Any = None                # host-side python state (dict/list/...)
     version: int = 0                # bumped on every mutation
     expire_at: Optional[float] = None  # epoch seconds, None = persistent
 

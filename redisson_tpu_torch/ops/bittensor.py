@@ -1,4 +1,5 @@
-"""Bit planes for bloom filters: one uint8 lane per bit ("expanded" form).
+"""Bit planes for bloom filters and bit sets: one uint8 lane per bit
+("expanded" form).
 
 The expanded layout and its padding are a persisted format shared with
 ``redisson_tpu/ops/bittensor.py``: a plane of logical size n bits is
@@ -8,6 +9,10 @@ The expanded layout and its padding are a persisted format shared with
 Unlike the JAX functions, which return new arrays, ``set_bits`` writes into
 the plane it is given.  The bloom add contract (every bit read as it was
 before the batch, then all set) is ``contains`` followed by ``set_bits``.
+``get_bits`` / ``set_bits`` index as JAX's ``.at[]`` does: an index in
+[-size, -1] counts from the end once, any other index outside [0, size)
+reads 0 / is dropped.  The BITOP functions return new planes, as the JAX
+ones do.
 """
 from __future__ import annotations
 
@@ -40,15 +45,60 @@ def contains(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return (_read(bits, idx) != 0).all(dim=-1)
 
 
-def set_bits(bits: torch.Tensor, idx: torch.Tensor) -> None:
-    """SETBIT batch to 1, in place; positions outside [0, size) are dropped."""
-    flat = idx.reshape(-1)
-    bits[flat[(flat >= 0) & (flat < bits.shape[0])]] = 1
+def _lanes(bits: torch.Tensor, idx: torch.Tensor):
+    """(plane position, in range) of each index, negatives wrapped once."""
+    size = bits.shape[0]
+    i = idx.to(torch.int64)
+    i = torch.where(i < 0, i + size, i)
+    inb = (i >= 0) & (i < size)
+    return torch.where(inb, i, 0), inb
+
+
+def get_bits(bits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """GETBIT batch -> uint8 of idx's shape; out-of-range reads 0."""
+    i, inb = _lanes(bits, idx)
+    return torch.where(inb, bits[i], torch.zeros((), dtype=bits.dtype, device=bits.device))
+
+
+def set_bits(bits: torch.Tensor, idx: torch.Tensor, value: int = 1) -> None:
+    """SETBIT batch to `value`, in place; out-of-range indexes are dropped."""
+    i, inb = _lanes(bits, idx.reshape(-1))
+    bits[i[inb]] = value
 
 
 def popcount(bits: torch.Tensor, nbits: int) -> int:
-    """Number of set bits in [0, nbits)."""
+    """BITCOUNT: number of set bits in [0, nbits)."""
     return int(bits[: min(nbits, bits.shape[0])].sum())
+
+
+def bit_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(a, b)
+
+
+def bit_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(a, b)
+
+
+def bit_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a ^ b
+
+
+def bit_not(a: torch.Tensor, nbits: int) -> torch.Tensor:
+    """BITOP NOT limited to the logical length (padding lanes stay 0)."""
+    lane = torch.arange(a.shape[0], device=a.device)
+    return torch.where(lane < nbits, 1 - a, torch.zeros_like(a))
+
+
+def bitpos(bits: torch.Tensor, value: int, nbits: int) -> int:
+    """BITPOS: first index in [0, nbits) holding `value`, -1 if none."""
+    hit = (bits[: min(nbits, bits.shape[0])] == value).nonzero()
+    return int(hit[0, 0]) if hit.numel() else -1
+
+
+def length_hint(bits: torch.Tensor) -> int:
+    """Index of the highest set bit + 1 (RBitSet.length()), 0 if none."""
+    hit = bits.nonzero()
+    return int(hit[-1, 0]) + 1 if hit.numel() else 0
 
 
 # --- serialization boundary (host-side, packed little-endian like Redis) -----

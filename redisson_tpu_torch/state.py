@@ -1,14 +1,18 @@
 """State carried across between the JAX package and the port.
 
-A record of either package is a kind, a meta dict and named arrays; the
-arrays (bloom planes, HLL register banks) are persisted formats that both
-packages share bit for bit.  ``from_reference`` turns a ``redisson_tpu``
-StateRecord's meta and arrays, as numpy, into a record of this package on a
-device; ``to_reference`` goes back.  Tests use them to start both packages
-from the same state and to compare final states.
+A record of either package is a kind, a meta dict, named arrays and a host
+value.  The arrays (bloom planes, HLL register banks, bit-set planes) are
+persisted formats that both packages share bit for bit; the bucket family
+(buckets, atomic counters, id generators) keeps its state in ``host``: a
+dict of encoded bytes and numbers, the same in both packages.
+``from_reference`` turns a ``redisson_tpu`` StateRecord's meta, arrays (as
+numpy) and host value into a record of this package on a device;
+``to_reference`` goes back.  Tests use them to start both packages from the
+same state and to compare final states.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -16,11 +20,12 @@ import torch
 
 from redisson_tpu_torch.core.store import StateRecord
 
-KINDS = ("bloom", "bloom_array", "hll", "hll_array")
+KINDS = ("bloom", "bloom_array", "hll", "hll_array", "bitset",
+         "bucket", "atomic_long", "atomic_double", "id_generator")
 
 
 def from_reference(kind: str, meta: Dict[str, Any], arrays_np: Dict[str, np.ndarray],
-                   device) -> StateRecord:
+                   device, host: Any = None) -> StateRecord:
     if kind not in KINDS:
         raise ValueError(f"no port of state kind {kind!r}")
     arrays = {}
@@ -29,8 +34,9 @@ def from_reference(kind: str, meta: Dict[str, Any], arrays_np: Dict[str, np.ndar
         if arr.dtype != np.uint8:
             raise ValueError(f"{kind}.{name}: sketch state is uint8, got {arr.dtype}")
         arrays[name] = torch.from_numpy(arr.copy()).to(device)
-    return StateRecord(kind=kind, meta=dict(meta), arrays=arrays)
+    return StateRecord(kind=kind, meta=dict(meta), arrays=arrays, host=copy.deepcopy(host))
 
 
-def to_reference(rec: StateRecord) -> Tuple[str, Dict[str, Any], Dict[str, np.ndarray]]:
-    return rec.kind, dict(rec.meta), {n: t.cpu().numpy() for n, t in rec.arrays.items()}
+def to_reference(rec: StateRecord) -> Tuple[str, Dict[str, Any], Dict[str, np.ndarray], Any]:
+    return (rec.kind, dict(rec.meta), {n: t.cpu().numpy() for n, t in rec.arrays.items()},
+            copy.deepcopy(rec.host))

@@ -412,7 +412,12 @@ def test_wrappers_raise_on_mixed_devices_and_count_launches(dev):
     K.bloom_contains_packed_bits(bits, lh, 10, 3, 1000)
     K.hll_estimate(torch.zeros(1 << 10, dtype=torch.uint8, device=dev))
     K.hll_add_packed(torch.zeros(1 << 10, dtype=torch.uint8, device=dev), lh, 10, 10)
-    assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "bloom_add": 1, "hll_add": 1, "hll_rows": 1}
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    K.bitset_set(bits, idx, 8, 1)
+    K.bitset_get(bits, idx)
+    K.bitset_get(bits, idx[:0])  # an empty batch launches nothing
+    assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "bloom_add": 1, "hll_add": 1, "hll_rows": 1,
+                          "bitset_get": 1, "bitset_set": 1}
 
 
 def test_facade_on_the_card_matches_the_cpu(dev):
@@ -447,3 +452,121 @@ def test_facade_on_the_card_matches_the_cpu(dev):
         return out
 
     assert stream(redisson_tpu_torch.create()) == stream(redisson_tpu_torch.create(device="cpu"))
+
+
+def _bitset_idx(rng, n, size, dup=0.1, edges=True):
+    idx = rng.integers(0, size, n).astype(np.int32)
+    d = int(n * dup)
+    idx[n - d:] = idx[:d]
+    if edges:
+        edge = [-1, -size, -size - 1, size, size - 1, 0, 2**31 - 1, -(2**31), 5, 5]
+        idx[: min(n, len(edge))] = edge[: min(n, len(edge))]
+    return idx
+
+
+@pytest.mark.parametrize("shape", ["config5", "bitmap_2_28", "edges"])
+def test_bitset_kernels_match_plain(dev, shape):
+    """bitset_get / bitset_set against their plain versions: config 5's 500
+    indexes into a 1 MiB plane, 1M indexes (10% repeated) into a 2**28-lane
+    plane, and a small plane with negative, out-of-range and repeated
+    indexes, a masked tail and n_valid = 0."""
+    rng = np.random.default_rng(31)
+    size, n = {"config5": (1 << 20, 500), "bitmap_2_28": (1 << 28, 1 << 20), "edges": (4096, 1000)}[shape]
+    plane = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+    idx = torch.from_numpy(_bitset_idx(rng, n, size if shape != "config5" else 100_000)).to(dev)
+    got = K.bitset_get(plane, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bitset_get_plain(plane, idx))
+    for n_valid in (0, 1, n - 37, n, n + 5):
+        for value in (0, 1):
+            a, b = plane.clone(), plane.clone()
+            _, old_k = K.bitset_set(a, idx, n_valid, value)
+            _, old_p = K.bitset_set_plain(b, idx, n_valid, value)
+            torch.cuda.synchronize()
+            assert torch.equal(old_k, old_p), (n_valid, value)
+            assert torch.equal(a, b), (n_valid, value)
+
+
+def test_bitset_set_reports_pre_batch_bits(dev):
+    plane = torch.zeros(4096, dtype=torch.uint8, device=dev)
+    plane[5] = 1
+    idx = torch.tensor([5, 5, 9, 9, -1, 9, 4096], dtype=torch.int32, device=dev)
+    _, old = K.bitset_set(plane, idx, 7, 1)
+    assert old.tolist() == [1, 1, 0, 0, 0, 0, 0]
+    assert plane.nonzero().reshape(-1).tolist() == [5, 9, 4095]
+    _, old = K.bitset_set(plane, idx, 3, 0)
+    assert old.tolist() == [1, 1, 1, 0, 0, 0, 0]
+    assert plane.nonzero().reshape(-1).tolist() == [4095]
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_rbatch_on_the_card_matches_the_cpu(dev, overlap):
+    """chip_smoke's RBatch stream (every verb; plain, skip_result and
+    atomic batches; an op whose error lands on its future): equal replies
+    and final states on the card and the CPU."""
+    import redisson_tpu_torch
+    from chip_smoke import rbatch_stream, same
+
+    assert same(rbatch_stream(redisson_tpu_torch.create(), np.random.default_rng(8), overlap),
+                rbatch_stream(redisson_tpu_torch.create(device="cpu"), np.random.default_rng(8), overlap))
+
+
+def test_fused_add_on_the_card_leaves_every_record_its_own_storage(dev):
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import coalesce
+
+    c = redisson_tpu_torch.create()
+    names = [f"own:{i}" for i in range(6)]
+    for n in names:
+        c.get_bloom_filter(n).try_init(10_000, 0.01)
+    planes = [c.engine.store.get(n).arrays["bits"] for n in names]
+    newly, _ = coalesce.fused_bloom_add_async(c.engine, names, [np.arange(100, dtype=np.int64) + i for i in range(6)])
+    assert bool(newly[:600].all())
+    after = [c.engine.store.get(n).arrays["bits"] for n in names]
+    assert all(a is b and a.device.type == "cuda" for a, b in zip(planes, after))
+    assert len({p.untyped_storage().data_ptr() for p in after}) == len(names)
+    for i, n in enumerate(names):
+        assert c.get_bloom_filter(n).contains_each(np.arange(100, dtype=np.int64) + i).all()
+
+
+def test_staging_pool_on_the_card_reuses_pinned_slots(dev):
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import ioplane
+
+    c = redisson_tpu_torch.create()
+    pool = c.engine.staging_pool()
+    assert pool is not None
+    arr = np.arange(5000, dtype=np.int32)
+    staged = [K.pack_rows(arr + i, arr, size=8192, device=dev, pool=pool) for i in range(6)]
+    torch.cuda.synchronize()
+    for i, s in enumerate(staged):
+        assert s[0, :5000].tolist() == (arr + i).tolist() and not s[:, 5000:].any()
+    assert 1 <= pool.slot_count() <= 2 and all(s.pinned.is_pinned() for s in pool._slots)
+    f = ioplane.ReadbackFuture((staged[0][0, :4], staged[1][1, :2].to(torch.bool)))
+    ioplane.force_all([f])
+    a, b = f.result()
+    assert a.tolist() == [0, 1, 2, 3] and b.tolist() == [False, True]
+
+
+def test_staging_pool_on_the_card_fills_a_second_slot_while_a_copy_is_in_flight(dev):
+    """With the first slot's copy held in flight behind a spin on the
+    stream, the next pack fills a second slot instead of waiting; the third
+    finds both copies in flight and waits on one, counted as a staging
+    wait; every staged tensor still carries its own bytes."""
+    from redisson_tpu_torch.core import ioplane
+
+    pool = ioplane.StagingPool(depth=2, pin=True)
+    arr = np.arange(5000, dtype=np.int32)
+    torch.cuda.synchronize()
+    waits = ioplane.STATS.snapshot()["staging_waits"]
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream, ahead of every copy
+    first = K.pack_rows(arr, arr, size=8192, device=dev, pool=pool)
+    second = K.pack_rows(arr + 1, arr, size=8192, device=dev, pool=pool)
+    assert pool.slot_count() == 2 and not pool._slots[0].staged.query()
+    assert ioplane.STATS.snapshot()["staging_waits"] == waits
+    third = K.pack_rows(arr + 2, arr, size=8192, device=dev, pool=pool)
+    assert pool.slot_count() == 2 and pool.oneoffs == 0
+    assert ioplane.STATS.snapshot()["staging_waits"] == waits + 1
+    torch.cuda.synchronize()
+    for i, s in enumerate((first, second, third)):
+        assert s[0, :5000].tolist() == (arr + i).tolist() and not s[:, 5000:].any()

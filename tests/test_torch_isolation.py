@@ -96,4 +96,8 @@ def test_cpu_run_leaves_launch_counters_at_zero():
     h = c.get_hyper_log_log("h")
     h.add_all(["x", "y"])
     assert h.count() == 2
-    assert K.launches == {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0}
+    bs = c.get_bit_set("bits")
+    bs.set_each(np.arange(5))
+    assert bs.get_each(np.arange(6)).tolist() == [1, 1, 1, 1, 1, 0]
+    assert K.launches == {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
+                          "bitset_get": 0, "bitset_set": 0}

@@ -26,17 +26,17 @@ def clients():
 
 
 def _state(client, name):
-    """(kind, meta, numpy arrays) of a record of either package."""
+    """(kind, meta, numpy arrays, host value) of a record of either package."""
     rec = client.engine.store.get(name)
     if isinstance(client, redisson_tpu.client.redisson.RedissonTpu):
-        return rec.kind, dict(rec.meta), {k: np.asarray(v) for k, v in rec.arrays.items()}
+        return rec.kind, dict(rec.meta), {k: np.asarray(v) for k, v in rec.arrays.items()}, rec.host
     return state.to_reference(rec)
 
 
 def _same_state(j, t, name):
-    jk, jm, ja = _state(j, name)
-    tk, tm, ta = _state(t, name)
-    assert (jk, jm) == (tk, tm)
+    jk, jm, ja, jh = _state(j, name)
+    tk, tm, ta, th = _state(t, name)
+    assert (jk, jm, jh) == (tk, tm, th)
     assert ja.keys() == ta.keys()
     for k in ja:
         np.testing.assert_array_equal(ta[k], ja[k])
@@ -208,8 +208,8 @@ def test_state_carried_from_the_reference(clients):
     j.get_hyper_log_log_array("h").try_init(8)
     j.get_hyper_log_log_array("h").add(np.arange(5000, dtype=np.int32) % 8, np.arange(5000, dtype=np.int64))
     for name in ("bank", "h"):
-        kind, meta, arrays = _state(j, name)
-        t.engine.store.put(name, state.from_reference(kind, meta, arrays, "cpu"))
+        kind, meta, arrays, host = _state(j, name)
+        t.engine.store.put(name, state.from_reference(kind, meta, arrays, "cpu", host))
         _same_state(j, t, name)
     _bank_stream(j, t, "bank", np.random.default_rng(1))
     for c in clients:

@@ -5,8 +5,8 @@ plain PyTorch versions.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases (any failure raises and the script exits non-zero):
-  1. the card's name and power limit; build the seven kernels from csrc/
-     (one nvcc per source, all at once) and print the build seconds;
+  1. the card's name and power limit; build the ten kernels' libraries from
+     csrc/ (one nvcc per source, all at once) and print the build seconds;
   2. known answers: the CUDA hash chain, read back through hll_add,
      bloom_set and the fused add, gives the hashes the JAX package gives
      (constants below);
@@ -23,7 +23,15 @@ Phases (any failure raises and the script exits non-zero):
      config 5's shape (500 indexes into a 100,000-bit set on its 1 MiB
      plane), on 1M indexes into a 2**28-bit plane, and at the edges
      (negative, out-of-range and repeated indexes, a masked tail, n_valid
-     0), beside index_select and index_put_;
+     0), beside index_select and index_put_; wc_words (both entry points)
+     on config 4's two chunks and at the edges (words over 63 bytes,
+     control whitespace, a last byte that is not whitespace, eb below the
+     end count, n_words 0), wc_sort_runs on config 4's 8,388,608-row
+     stream, a stream shorter than d_max and an all-distinct one that
+     overflows it, beside torch.sort, and segment_reduce (sum, max, min;
+     int32, whole float32 values, whose sum is exact, and N(0, 1000)
+     float32) on 8,388,608 values into 1,024 keys with negative and
+     out-of-range keys, beside scatter_reduce_;
   4. the main path through redisson_tpu_torch.create() on its default
      device: config 2 (1,000-tenant bank, 10M keys populated in one window,
      100k-op contains flushes), config2_batch (the same bank: each flush an
@@ -38,10 +46,16 @@ Phases (any failure raises and the script exits non-zero):
      to 0 just before it and read just after its own work (config2_batch
      counts its RBatch flushes only, not the direct calls, parts and
      timings beside them); config2_batch and fanout are then timed with the
-     engine's pinned staging pool on and off, in turns;
+     engine's pinned staging pool on and off, in turns; last config 4
+     (bench.py:343-396): put_all of 1M entries into an RMap, word_count
+     twice (the cold scan, then the staged view), a KernelMapReduce sum of
+     8,388,608 int32 values into 1,024 keys; each word_count times its
+     own parts;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
-     card and on the CPU: equal replies and equal final states.
+     card and on the CPU: equal replies and equal final states; and
+     word_count, device_word_count and KernelMapReduce on both: equal
+     replies (the float32 sum of N(0, 100) within its limit).
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
 Without a CUDA card, or without the package beside it, it exits non-zero.
 """
@@ -73,6 +87,11 @@ OPS_HASH_U64 = 59
 OPS_PROBE = 8
 OPS_HLL_ADD = 10
 OPS_ROW_REGISTER = 2
+# wc_words: a byte's end test (2 compares, an and), its walk back (compare,
+# step) and its two weighted adds (2 multiply-adds, 2 weight multiplies, the
+# cap test); segment_reduce: a value's key wrap and bounds (3) and its atomic
+OPS_WC_BYTE = 12
+OPS_SEGMENT = 4
 
 # Known answers from redisson_tpu.utils.hashing (HASH_VERSION 1).
 KNOWN_U64 = {
@@ -103,11 +122,19 @@ C5_TENANTS, C5_PER, C5_BITS, C5_BIT_OPS, C5_REPS = 64, 10_000, 100_000, 500, 4
 BITMAP_LOG2, BITMAP_OPS = 28, 1 << 20
 # single-key adds, RBloomFilter.add(key): enough calls for a latency p99
 SINGLE_ADDS = 200
+# config 4 (bench.py:343-396): word count over a 1M-entry map, each value 8
+# words drawn (seed 3) from w0..w999; word_count scans it in two chunks and
+# counts up to 2**17 distinct words on the card
+C4_ENTRIES, C4_VOCAB, C4_WORDS, C4_SEED = 1_000_000, 1000, 8, 3
+WC_D_MAX = 1 << 17
+# KernelMapReduce: config 4's word stream length of int32 values into 1,024 keys
+KMR_N, KMR_KEYS = 8_388_608, 1024
 # the kernels each path of the main path must launch
 PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloom_probe",),
                 "config1": ("bloom_add", "bloom_probe"), "config3": ("hll_add", "hll_rows"),
                 "single_adds": ("bloom_probe", "bloom_set"),
-                "fanout": ("bloom_probe", "bloom_set", "bitset_set", "bitset_get")}
+                "fanout": ("bloom_probe", "bloom_set", "bitset_set", "bitset_get"),
+                "config4": ("wc_words", "wc_sort_runs", "segment_reduce")}
 FPP = 0.01
 
 
@@ -785,6 +812,199 @@ def check_bitset(dev, rng) -> dict:
     return results
 
 
+def config4_values() -> list:
+    """The values of config 4's map (bench.py:352-361): one draw of
+    (1M, 8) word ids, seed 3, equal to the bench's per-entry draws."""
+    ids = np.random.default_rng(C4_SEED).integers(0, C4_VOCAB, (C4_ENTRIES, C4_WORDS))
+    vocab = [f"w{i}" for i in range(C4_VOCAB)]
+    return [" ".join([vocab[j] for j in row]) for row in ids.tolist()]
+
+
+def wc_chunks(values: list, dev) -> list:
+    """word_count's two chunks of `values`: (buffer on `dev`, words, eb, base)."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    half = (len(values) + 1) // 2
+    out, base = [], 0
+    for part in (values[:half], values[half:]):
+        _, buf, n_ends = MR._wc_chunk_bytes(part)
+        out.append((torch.from_numpy(buf).to(dev), n_ends, K.bucket_size(max(1, n_ends)), base))
+        base += buf.size
+    return out
+
+
+def key_sums(keys, vals, n_keys):
+    """Per key, in float64: the count, sum |v| and sum v**2 of the values
+    whose key segment_reduce keeps (a key in [-n_keys, 0) wraps once)."""
+    k = keys.to(torch.int64)
+    k = torch.where(k < 0, k + n_keys, k)
+    keep = (k >= 0) & (k < n_keys)
+    k, v = k[keep], vals[keep].to(torch.float64)
+    zeros = torch.zeros(n_keys, dtype=torch.float64, device=vals.device)
+    return (zeros.clone().index_add_(0, k, torch.ones_like(v)), zeros.clone().index_add_(0, k, v.abs()),
+            zeros.clone().index_add_(0, k, v * v))
+
+
+def float_sum_limit(keys, vals, n_keys):
+    """The limit on two float32 sums of one key's zero-mean values added in
+    different orders: 8 * 2**-24 * sqrt(count * sum v**2) a key.  One order's
+    rounding error grows about as 2**-24 * count * rms(v) / sqrt(6), since
+    the partial sums walk as sqrt(i) * rms(v); the limit is about four times
+    the largest difference read on an H100 80GB HBM3 at 700 W (1.02 against
+    3.9 at segment_reduce's 8,388,608 values of N(0, 1000) into 1,024 keys),
+    and it bounds any order for counts up to 5."""
+    cnt, _, sq = key_sums(keys, vals, n_keys)
+    return 8 * 2.0**-24 * torch.sqrt(cnt * sq)
+
+
+def check_wordcount(dev, rng, values: list) -> dict:
+    """wc_words (both entry points), wc_sort_runs and segment_reduce against
+    their plain versions on the card: the word-count kernels bit for bit at
+    config 4's shapes (its two chunks, the 8,388,608-row stream) and at the
+    edges, segment_reduce on 8,388,608 values into 1,024 keys with negative
+    and out-of-range keys (int32, whole float32 values and float32 max and
+    min exact, the float32 sum of N(0, 1000) within float_sum_limit); times
+    beside the bound, the plain
+    versions' and the library call's (torch.sort, scatter_reduce_)."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.services import mapreduce as MR
+    from redisson_tpu_torch.utils import hashing as H
+
+    def same3(label, got, want):
+        return max(assert_equal(f"{label} {name}", g, w) for name, g, w in zip(("ha", "hb", "start"), got, want))
+
+    chunks = wc_chunks(values, dev)
+    err, checked = 0.0, []
+    for i, (buf, n, eb, base) in enumerate(chunks):
+        err = max(err, same3(f"wc_words auto chunk {i}", K.wc_extract_words_auto(buf, n, eb, base),
+                             K.wc_extract_words_auto_plain(buf, n, eb, base)))
+    checked.append(f"config 4's chunks ({chunks[0][0].numel()} and {chunks[1][0].numel()} bytes, "
+                   f"eb {chunks[0][2]} and {chunks[1][2]}), auto form")
+    buf0 = chunks[0][0].cpu().numpy()
+    ws = buf0 == 32
+    ends = np.nonzero(~ws & np.concatenate([ws[1:], [True]]))[0]
+    deltas = torch.from_numpy(np.diff(np.concatenate([[-1], ends])).astype(np.int32)).to(dev)
+    err = max(err, same3("wc_words deltas chunk 0", K.wc_extract_words(chunks[0][0], deltas, len(ends), 0),
+                         K.wc_extract_words_plain(chunks[0][0], deltas, len(ends), 0)))
+    checked.append("config 4's first chunk, delta form")
+    long_vals = ["x" * 200 + " short " + "y" * 64, "z" * 63 + " " + "z" * 64, "a\tb\nc\x0bd\x0ce\rf",
+                 "g\x1ch\x1di\x1ej\x1fk", "  lead and  double  "] * 50
+    _, lbuf, ln = MR._wc_chunk_bytes(long_vals)
+    raw = np.frombuffer(b"last byte not space" * 40, np.uint8).copy()
+    edges = [("words over 63 bytes and control whitespace", lbuf, ln, K.bucket_size(ln)),
+             ("a last byte that is not whitespace", raw, 80, 80),
+             ("eb below the end count", lbuf, ln, ln // 3),
+             ("n_words 0", lbuf, 0, 256)]
+    for label, b, n, eb in edges:
+        t = torch.from_numpy(b).to(dev)
+        err = max(err, same3(f"wc_words {label}", K.wc_extract_words_auto(t, n, eb, 77),
+                             K.wc_extract_words_auto_plain(t, n, eb, 77)))
+        d = torch.from_numpy(rng.integers(0, 90, eb).astype(np.int32)).to(dev)
+        err = max(err, same3(f"wc_words deltas {label}", K.wc_extract_words(t, d, n, 2**32 - 9),
+                             K.wc_extract_words_plain(t, d, n, 2**32 - 9)))
+        checked.append(label + ", both forms")
+    buf, n, eb, base = chunks[0]
+    words = {"ms": time_kernel(lambda i: K.wc_extract_words_auto(buf, n, eb, base)),
+             "deltas_ms": time_kernel(lambda i: K.wc_extract_words(buf, deltas, len(ends), base)),
+             "plain_ms": time_plain(lambda i: K.wc_extract_words_auto_plain(buf, n, eb, base)),
+             "deltas_plain_ms": time_plain(lambda i: K.wc_extract_words_plain(buf, deltas, len(ends), base)),
+             "library_ms": None}
+    # the buffer read once, three uint32 written a row (the delta form also
+    # reads a delta a row)
+    words["bound_ms"], words["bound_by"] = bound_ms(buf.numel() + 12 * eb, OPS_WC_BYTE * buf.numel())
+    words["deltas_bound_ms"], _ = bound_ms(buf.numel() + 16 * len(ends), OPS_WC_BYTE * buf.numel())
+    words.update(max_abs_err=err, checked=checked,
+                 shape=f"config 4's first chunk: {buf.numel()} bytes, {n} words, eb {eb}")
+
+    # -- wc_sort_runs ------------------------------------------------------
+    parts = [K.wc_extract_words_auto(b, n, eb, base) for b, n, eb, base in chunks]
+    ha, hb, st = (torch.cat([p[i] for p in parts]) for i in range(3))
+    err, checked = assert_equal("wc_sort_runs config 4", K.wc_sort_runs(ha, hb, st, WC_D_MAX),
+                                K.wc_sort_runs_plain(ha, hb, st, WC_D_MAX)), [f"config 4's {ha.numel()}-row stream, d_max 2**17"]
+    small = K.wc_extract_words_auto(torch.from_numpy(lbuf).to(dev), ln, 512, 0)
+    err = max(err, assert_equal("wc_sort_runs N < d_max", K.wc_sort_runs(*small, WC_D_MAX),
+                                K.wc_sort_runs_plain(*small, WC_D_MAX)))
+    checked.append("a 512-row stream, N < d_max")
+    distinct = [torch.from_numpy(rng.integers(0, 2**32, 300_000, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+                for _ in range(3)]
+    got = K.wc_sort_runs(*distinct, WC_D_MAX)
+    err = max(err, assert_equal("wc_sort_runs all distinct", got, K.wc_sort_runs_plain(*distinct, WC_D_MAX)))
+    if int(got[0, -1]) >= 300_000:
+        raise AssertionError("wc_sort_runs: an all-distinct stream must fill d_max with run starts")
+    checked.append("300,000 distinct rows, overflowing d_max")
+    n_rows, d = ha.numel(), min(ha.numel(), WC_D_MAX)
+    key = ((H.lanes(ha) << 32) | H.lanes(hb)) ^ (-(2**63))
+    sort = {"ms": time_kernel(lambda i: K.wc_sort_runs(ha, hb, st, WC_D_MAX)),
+            "plain_ms": time_plain(lambda i: K.wc_sort_runs_plain(ha, hb, st, WC_D_MAX)),
+            "library_ms": time_kernel(lambda i: torch.sort(key, stable=True))}
+    sort["bound_ms"], sort["bound_by"] = bound_ms(12 * n_rows + 8 * d, 0)
+    # the design's own bytes: the pack (24 a row), 8 passes of a digit count
+    # (8) and a scatter (24), the run count (8) and the partition (12 + 8)
+    sort["passes_bound_ms"], _ = bound_ms((24 + 8 * 32 + 28) * n_rows + 8 * d, 0)
+    sort.update(max_abs_err=err, checked=checked, shape=f"config 4's stream: {n_rows} rows, d_max 2**17")
+    del ha, hb, st, parts, key
+
+    # -- segment_reduce ----------------------------------------------------
+    ivals = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, KMR_N).astype(np.int32)).to(dev)
+    fvals = torch.from_numpy(rng.normal(0, 1000, KMR_N).astype(np.float32)).to(dev)
+    # whole floats: while every key's sum |v| stays below 2**24, each partial
+    # sum is exact, so any order of the float32 sum is held bit for bit
+    whole = torch.from_numpy(rng.integers(-1000, 1001, KMR_N).astype(np.float32)).to(dev)
+    keys = torch.remainder(ivals, KMR_KEYS)
+    bad = keys.clone()
+    pick = torch.from_numpy(rng.integers(0, KMR_N, KMR_N // 50)).to(dev)
+    bad[pick] = torch.from_numpy(rng.integers(-3 * KMR_KEYS, 3 * KMR_KEYS, pick.numel()).astype(np.int32)).to(dev)
+    err, sum_err, checked = 0.0, 0.0, []
+    for label, k in (("keys in range", keys), ("2% of keys negative or out of range", bad)):
+        if not float(key_sums(k, whole, KMR_KEYS)[1].max()) < 2**24:
+            raise AssertionError(f"segment_reduce {label}: a key's whole float32 values reach 2**24")
+        for v, kind in ((ivals, "int32"), (whole, "whole float32"), (fvals, "float32")):
+            for reduce in K.SEGMENT_OPS:
+                got = K.segment_reduce(k, v, KMR_KEYS, reduce)
+                want = K.segment_reduce_plain(k, v, KMR_KEYS, reduce)
+                name = f"segment_reduce {reduce} {kind} {label}"
+                if v is fvals and reduce == "sum":
+                    torch.cuda.synchronize()
+                    diff = (got.double() - want.double()).abs()
+                    if not bool((diff <= float_sum_limit(k, v, KMR_KEYS)).all()):
+                        raise AssertionError(f"{name}: beyond the float32 sum's limit")
+                    sum_err = max(sum_err, diff.max().item())
+                else:
+                    err = max(err, assert_equal(name, got, want))
+        checked.append(f"{KMR_N} values into {KMR_KEYS} keys, {label}: sum, max, min of int32, of whole float32 "
+                       "values (sum exact) and of N(0, 1000) float32 (the sum within 8 * 2**-24 * "
+                       "sqrt(count * sum v**2) a key)")
+    keys64 = keys.long()
+    zeros = torch.zeros(KMR_KEYS, dtype=torch.int32, device=dev)
+    seg = {"ms": time_kernel(lambda i: K.segment_reduce(keys, ivals, KMR_KEYS, "sum")),
+           "plain_ms": time_plain(lambda i: K.segment_reduce_plain(keys, ivals, KMR_KEYS, "sum")),
+           "library_ms": time_kernel(lambda i: zeros.clone().scatter_reduce_(0, keys64, ivals, "sum")),
+           "max_ms": time_kernel(lambda i: K.segment_reduce(keys, fvals, KMR_KEYS, "max"))}
+    seg["bound_ms"], seg["bound_by"] = bound_ms(8 * KMR_N + 4 * KMR_KEYS, OPS_SEGMENT * KMR_N)
+    seg.update(max_abs_err=max(err, sum_err), float_sum_max_abs_err=sum_err, checked=checked,
+               shape=f"KernelMapReduce sum: {KMR_N} int32 values into {KMR_KEYS} keys (v % {KMR_KEYS})")
+    del ivals, fvals, keys, bad, keys64
+    torch.cuda.empty_cache()
+    # the launches one wrapper call makes (csrc/wordcount.cu, csrc/segment.cu)
+    per_call = {"wc_words": "4 launches a call: end count, scan, end write, words (the delta form: a "
+                            "3-launch scan, words)",
+                "wc_sort_runs": "44 launches a call: pack, 8 x (digit count, 3-launch scan, scatter), "
+                                "run count, scan, partition",
+                "segment_reduce": "2 launches a call: fill, reduce"}
+    for name, r in (("wc_words", words), ("wc_sort_runs", sort), ("segment_reduce", seg)):
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        r["launches_per_call"] = per_call[name]
+        log(f"kernel {name} ({per_call[name]}): {r['ms']:.4f} ms at {r['shape']} (plain {r['plain_ms']:.3f} ms, "
+            f"library {lib}, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+            + (f", the radix design's bytes {r['passes_bound_ms']:.4f} ms" if "passes_bound_ms" in r else "")
+            + (f", delta form {r['deltas_ms']:.4f} ms (plain {r['deltas_plain_ms']:.3f}, bound "
+               f"{r['deltas_bound_ms']:.4f})" if "deltas_ms" in r else "")
+            + f"); equal to plain at {r['checked']}")
+    return {"wc_words": words, "wc_sort_runs": sort, "segment_reduce": seg}
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path through the facade
 # --------------------------------------------------------------------------
@@ -1275,6 +1495,128 @@ def run_fanout(client, rng) -> dict:
 # phase 5: the card against the CPU on one op stream
 # --------------------------------------------------------------------------
 
+def run_config4(client, values: list) -> dict:
+    """Config 4 (bench.py:343-396) through create(): put_all of the 1M
+    entries into an RMap with StringCodec, word_count(m, workers=64) twice
+    (the cold scan, then the view of the unchanged map), then a
+    KernelMapReduce sum of 8,388,608 int32 values into 1,024 keys.  The
+    launch counts are read just after that work.  Each word_count reports
+    its own parts (word_count(parts=...)), which synchronizes the card
+    between them."""
+    from redisson_tpu_torch.client.codec import StringCodec
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    dev = client.engine.device
+    m = client.get_map("bench:wc", codec=StringCodec())
+    s = time.perf_counter()
+    m.put_all({f"doc-{i}": v for i, v in enumerate(values)})
+    put_s = time.perf_counter() - s
+    K.reset_launches()
+    MR.reset_stats()
+    walls, counts, parts = [], [], [{}, {}]
+    for p in parts:
+        s = time.perf_counter()
+        counts.append(MR.word_count(m, workers=64, parts=p))
+        walls.append(time.perf_counter() - s)
+    wc_launches = dict(K.launches)
+    kmr = MR.KernelMapReduce(lambda v: (v % KMR_KEYS, v), "sum", KMR_KEYS, device=dev)
+    x = np.random.default_rng(17).integers(-(2**31), 2**31 - 1, KMR_N).astype(np.int32)
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    got = kmr.execute(x)
+    kmr_s = time.perf_counter() - s
+    launches = dict(K.launches)
+    stats = dict(MR.STATS)
+    # numpy: float64 sums are exact here (|sum| < 2**53), then wrapped to int32
+    want = np.bincount(np.mod(x, KMR_KEYS), weights=x.astype(np.float64), minlength=KMR_KEYS).astype(np.int64)
+    want = (((want + 2**31) % 2**32) - 2**31).astype(np.int32)
+    if not np.array_equal(got, want):
+        raise AssertionError("config4: KernelMapReduce sum differs from numpy")
+    s = time.perf_counter()
+    host = MR._host_word_count(values)
+    host_s = time.perf_counter() - s
+    for i, c in enumerate(counts):
+        if c != host:
+            raise AssertionError(f"config4: word_count run {i} differs from the host count")
+    if sum(host.values()) != C4_ENTRIES * C4_WORDS or len(host) != C4_VOCAB:
+        raise AssertionError(f"config4: {sum(host.values())} words over {len(host)}")
+    if stats != {"device_scans": 1, "view_hits": 1, "host_fallbacks": 0}:
+        raise AssertionError(f"config4: scans {stats}, want one device scan and one view hit")
+    if wc_launches["wc_words"] != 2 or wc_launches["wc_sort_runs"] != 2:
+        raise AssertionError(f"config4: word_count launched {wc_launches}")
+
+    res = {"entries": C4_ENTRIES, "words": C4_ENTRIES * C4_WORDS, "put_all_s": put_s,
+           "cold_s": walls[0], "warm_s": walls[1], "cold_entries_per_s": C4_ENTRIES / walls[0],
+           "warm_entries_per_s": C4_ENTRIES / walls[1], "host_count_s": host_s,
+           "kmr_values": KMR_N, "kmr_keys": KMR_KEYS, "kmr_s": kmr_s, "stats": stats,
+           "cold_parts": parts[0], "warm_parts": parts[1], "launches": launches}
+    log(f"config4: put_all {C4_ENTRIES} entries {put_s:.3f}s; word_count cold {walls[0]:.3f}s "
+        f"({res['cold_entries_per_s']:.4g} entries/s), warm (staged view) {walls[1]:.4f}s "
+        f"({res['warm_entries_per_s']:.4g} entries/s); host Counter {host_s:.3f}s; {len(host)} words, "
+        f"{sum(host.values())} in all, equal to the host count; scans {stats}; KernelMapReduce sum of "
+        f"{KMR_N} int32 into {KMR_KEYS} keys {kmr_s * 1e3:.1f} ms, equal to numpy; "
+        + "; ".join(f"{which} scan's parts " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in p.items())
+                    for which, p in (("cold", parts[0]), ("warm", parts[1]))))
+    m.delete()
+    return res
+
+
+def mapreduce_stream(client, rng) -> list:
+    """word_count (cold, then the staged view, then after a put),
+    device_word_count (also past its d_max) and KernelMapReduce sum, max
+    and min over int32, float32 and whole float32 values, through one
+    client: (label, reply, tolerance) in
+    order, the tolerance None where the reply must be equal."""
+    from redisson_tpu_torch.client.codec import StringCodec
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    dev = client.engine.device
+    vals = [" ".join(f"w{j}" for j in rng.integers(0, 3000, 8)) for _ in range(20_000)]
+    vals += ["tab\tsep\x1cctl", "x" * 100 + " y", ""]
+    m = client.get_map("mr:wc", codec=StringCodec())
+    m.put_all({f"d{i}": v for i, v in enumerate(vals)})
+    out = [("word_count cold", MR.word_count(m), None), ("word_count view", MR.word_count(m), None),
+           ("device_word_count", MR.device_word_count(vals, device=dev), None)]
+    # 3,000 distinct words past a d_max of 2**10: the sort runs again on the device
+    fallbacks = MR.STATS["host_fallbacks"]
+    out.append(("device_word_count past d_max", MR.device_word_count(vals, d_max_bits=10, device=dev), None))
+    if MR.STATS["host_fallbacks"] != fallbacks:
+        raise AssertionError("device_word_count past d_max took the host path")
+    m.put("extra", "fresh words")
+    out.append(("word_count after a put", MR.word_count(m), None))
+    x = rng.integers(-(2**31), 2**31 - 1, 100_000).astype(np.int32)
+    f = rng.normal(0, 100, 100_000).astype(np.float32)
+    fkeys = np.mod((f * np.float32(10)).astype(np.int32), 64)
+    tol = float_sum_limit(torch.from_numpy(fkeys), torch.from_numpy(f), 64).numpy()
+    whole = np.rint(f)  # |sum| of a key's whole values < 100,000 * 500 < 2**24: exact in any order
+    for reduce in ("sum", "max", "min"):
+        kmr = MR.KernelMapReduce(lambda v: (v % 97 - 5, v), reduce, 90, device=dev)
+        out.append((f"KernelMapReduce {reduce} int32", kmr.execute(x), None))
+        kmr = MR.KernelMapReduce(lambda v: ((v * 10).to(torch.int32) % 64, v), reduce, 64, device=dev)
+        out.append((f"KernelMapReduce {reduce} float32", kmr.execute(f), tol if reduce == "sum" else None))
+        out.append((f"KernelMapReduce {reduce} whole float32", kmr.execute(whole), None))
+    client.shutdown()
+    return out
+
+
+def check_mapreduce_card_against_cpu(create) -> None:
+    on_card = mapreduce_stream(create(), np.random.default_rng(21))
+    on_cpu = mapreduce_stream(create(device="cpu"), np.random.default_rng(21))
+    for (label, a, tol), (_, b, _) in zip(on_card, on_cpu):
+        if isinstance(a, dict):
+            ok = a == b
+        elif tol is not None:
+            ok = bool(np.all(np.abs(a.astype(np.float64) - b) <= tol))
+        else:
+            ok = np.array_equal(a, b)
+        if not ok:
+            raise AssertionError(f"MapReduce stream, {label}: card and cpu differ")
+    log(f"MapReduce stream: {len(on_card)} replies (word_count cold, from its view and after a put, "
+        "device_word_count, also past d_max, KernelMapReduce sum, max and min on int32, float32 and "
+        "whole float32) equal on the card and the CPU (the float32 sum of N(0, 100) within float_sum_limit)")
+
+
 def small_stream(client, rng) -> list:
     out = []
     a = client.get_bloom_filter_array("s:bank")
@@ -1422,6 +1764,10 @@ def main() -> int:
     check_known_answers(dev)
     kernels = check_kernels(dev, rng)
     kernels.update(check_bitset(dev, rng))
+    s = time.perf_counter()
+    values = config4_values()
+    log(f"config4: {len(values)} values built in {time.perf_counter() - s:.1f}s")
+    kernels.update(check_wordcount(dev, rng, values))
 
     client = redisson_tpu_torch.create()
     if client.engine.device.type != "cuda":
@@ -1432,7 +1778,8 @@ def main() -> int:
                       ("config1", lambda: run_config1(client)),
                       ("config3", lambda: run_config3(client, np.random.default_rng(7))),
                       ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11))),
-                      ("fanout", lambda: run_fanout(client, np.random.default_rng(13)))):
+                      ("fanout", lambda: run_fanout(client, np.random.default_rng(13))),
+                      ("config4", lambda: run_config4(client, values))):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -1447,6 +1794,7 @@ def main() -> int:
     log("main-path launches: " + json.dumps({k: v["launches"] for k, v in paths.items()}))
     log("paths: " + json.dumps(paths))
     check_card_against_cpu(redisson_tpu_torch.create)
+    check_mapreduce_card_against_cpu(redisson_tpu_torch.create)
 
     sources = {"bloom_probe": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:184"),
                "bloom_set": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),
@@ -1454,7 +1802,11 @@ def main() -> int:
                "hll_add": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:446"),
                "hll_rows": ("redisson_tpu_torch/csrc/hll.cu", "redisson_tpu/core/kernels.py:504"),
                "bitset_get": ("redisson_tpu_torch/csrc/bitset.cu", "redisson_tpu/core/kernels.py:526"),
-               "bitset_set": ("redisson_tpu_torch/csrc/bitset.cu", "redisson_tpu/core/kernels.py:518")}
+               "bitset_set": ("redisson_tpu_torch/csrc/bitset.cu", "redisson_tpu/core/kernels.py:518"),
+               "wc_words": ("redisson_tpu_torch/csrc/wordcount.cu", "redisson_tpu/core/kernels.py:995"),
+               "wc_sort_runs": ("redisson_tpu_torch/csrc/wordcount.cu", "redisson_tpu/core/kernels.py:1014"),
+               "segment_reduce": ("redisson_tpu_torch/csrc/segment.cu",
+                                  "redisson_tpu/services/mapreduce.py:386")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": main_launches[name],

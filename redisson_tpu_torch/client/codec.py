@@ -4,7 +4,9 @@ Sketch objects feed the encoded bytes of non-integer keys to the hash, so a
 codec's output is part of what a bloom plane or HLL bank means: these are
 byte-for-byte copies of the codecs in ``redisson_tpu/client/codec.py``.
 The default is JSON with a pickle fallback for values JSON cannot express.
-Compression, composite and reference codecs belong to later slices.
+Maps encode keys and values through the map split points, as the
+reference's do.  Compression, composite and reference codecs belong to
+later slices.
 """
 from __future__ import annotations
 
@@ -24,6 +26,19 @@ class Codec:
 
     def decode(self, data: bytes) -> Any:
         raise NotImplementedError
+
+    # map key/value split points (a composite codec overrides them)
+    def encode_map_key(self, value: Any) -> bytes:
+        return self.encode(value)
+
+    def decode_map_key(self, data: bytes) -> Any:
+        return self.decode(data)
+
+    def encode_map_value(self, value: Any) -> bytes:
+        return self.encode(value)
+
+    def decode_map_value(self, data: bytes) -> Any:
+        return self.decode(data)
 
 
 class JsonCodec(Codec):
@@ -45,6 +60,18 @@ class JsonCodec(Codec):
         if tag == b"P":
             return pickle.loads(body)
         raise ValueError(f"unknown JsonCodec tag {tag!r}")
+
+
+class PickleCodec(Codec):
+    """Binary Python-native codec."""
+
+    name = "pickle"
+
+    def encode(self, value: Any) -> bytes:
+        return pickle.dumps(value, protocol=pickle.HIGHEST_PROTOCOL)
+
+    def decode(self, data: bytes) -> Any:
+        return pickle.loads(data)
 
 
 class StringCodec(Codec):

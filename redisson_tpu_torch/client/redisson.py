@@ -1,9 +1,9 @@
 """RedissonTpu: the entry facade of the port (Redisson.create analog).
 
-One client over one embedded Engine, with the sketch, bit set, bucket and
-batch factories of ``redisson_tpu/client/redisson.py``.  Object handles are
-cheap and stateless; create them freely.  The other factories belong to
-later slices.
+One client over one embedded Engine, with the sketch, bit set, bucket, map,
+MapReduce and batch factories of ``redisson_tpu/client/redisson.py``.
+Object handles are cheap and stateless; create them freely.  The other
+factories belong to later slices.
 """
 from __future__ import annotations
 
@@ -79,6 +79,18 @@ class RedissonTpu:
         from redisson_tpu_torch.client.objects.bucket import IdGenerator
 
         return IdGenerator(self._engine, name)
+
+    # -- maps and MapReduce ----------------------------------------------------
+
+    def get_map(self, name: str, codec: Optional[Codec] = None, options=None):
+        from redisson_tpu_torch.client.objects.map import Map
+
+        return Map(self._engine, name, codec, options)
+
+    def get_map_reduce(self, mapper, reducer, collator=None, workers: int = 4, executor=None):
+        from redisson_tpu_torch.services.mapreduce import MapReduce
+
+        return MapReduce(self._engine, mapper, reducer, collator, workers, executor)
 
     # -- batching (RBatch) --------------------------------------------------
 

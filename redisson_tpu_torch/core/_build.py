@@ -44,6 +44,13 @@ SIGNATURES = {
         "rtpu_bitset_get": [_P, _L, _P, _I, _P, _P],
         "rtpu_bitset_set": [_P, _L, _P, _I, _I, _I, _P, _P],
     },
+    "wordcount": {
+        "rtpu_wc_words": [_P, _L, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
+        "rtpu_wc_sort_runs": [_P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "segment": {
+        "rtpu_segment_reduce": [_P, _I, _P, _I, _I, _L, _L, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,9 @@ The engine owns:
   * the pinned double-buffered staging pool of flush packing
     (core/ioplane.py StagingPool),
   * per-record mutual exclusion: every compound mutation of one object runs
-    under its record lock, one writer per object.
+    under its record lock, one writer per object,
+  * engine-scoped services (``service``: the word count's scan views) and
+    the timers of write-behind maps (``schedule_timeout``).
 
 A trimmed copy of ``redisson_tpu/core/engine.py``: device placement,
 residency, serving lanes, lock renewal, the warm pool and the background
@@ -56,6 +58,7 @@ class Engine:
         # waits on them, so object churn can't grow the registry unboundedly
         self._record_locks: dict[str, list] = {}
         self._locks_guard = threading.Lock()
+        self._services: dict = {}
 
     # -- locking ------------------------------------------------------------
 
@@ -98,6 +101,26 @@ class Engine:
                 entry[0].release()
             for n, entry in entries:
                 self._release_entry(n, entry)
+
+    # -- services and timers -------------------------------------------------
+
+    def service(self, key: str, factory):
+        """Engine-scoped lazy singleton: one instance per engine, whichever
+        handle asks first."""
+        with self._locks_guard:
+            svc = self._services.get(key)
+            if svc is None:
+                svc = self._services[key] = factory()
+            return svc
+
+    @staticmethod
+    def schedule_timeout(fn, delay: float) -> threading.Timer:
+        """Run `fn` on its own daemon thread ~`delay` seconds from now;
+        the returned timer can be cancelled until it fires."""
+        timer = threading.Timer(delay, fn)
+        timer.daemon = True
+        timer.start()
+        return timer
 
     # -- device placement and staging ----------------------------------------
 
@@ -161,6 +184,8 @@ class Engine:
     # -- lifecycle ----------------------------------------------------------
 
     def shutdown(self):
+        with self._locks_guard:
+            self._services.clear()
         self.query_cache.clear()
         self.staging.clear()
         self.store.flushall()

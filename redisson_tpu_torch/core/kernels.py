@@ -8,7 +8,7 @@ of the state it is given: state on the CPU runs the plain version, state on a
 CUDA card launches the kernel, and nothing falls back from one to the other
 (a CUDA launch either runs or raises).
 
-Seven kernels carry every program here:
+Ten kernels carry every program here:
 
   bloom_probe  hash, k probes, AND; out as flags, a uint32 bitmap or a count
   bloom_set    hash, store 1 at the k probes (after bloom_probe: the add
@@ -24,6 +24,13 @@ Seven kernels carry every program here:
   bitset_get   GETBIT batch: gather one uint8 lane per op
   bitset_set   SETBIT batch: gather every old bit, then store the value
                (two launches in stream order)
+  wc_words     word count: each word's two 32-bit polynomial hashes and
+               start from its end position, the ends found on the card
+               (wc_extract_words_auto) or given as deltas (wc_extract_words)
+  wc_sort_runs word count: a stable radix sort of the 64-bit word hashes,
+               then each run's first row compacted to the front
+  segment_reduce  KernelMapReduce's shuffle and reduce: sum, max or min of
+               int32 or float32 values into n_keys slots
 
 The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
 reduce or map a plane elementwise and stay torch ops.
@@ -61,7 +68,8 @@ BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 # Launches of each hand kernel since the last reset_launches(); a run reads
 # them to show that its path went through the kernels.
 launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
-            "bitset_get": 0, "bitset_set": 0}
+            "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
+            "segment_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -772,3 +780,262 @@ bitset_xor = bt.bit_xor
 bitset_not = bt.bit_not
 bitset_bitpos = bt.bitpos
 bitset_length = bt.length_hint
+
+
+# --------------------------------------------------------------------------
+# Word count (MapReduce device path, BASELINE config 4)
+#
+# A word is keyed by two 32-bit polynomial hashes of its bytes b+1 weighted
+# A**min(j,63) and B**min(j,63) (j: the byte's place in the word), mixed with
+# its length; words longer than 63 bytes that share a 63-byte prefix, a
+# length and the sum of their other bytes collide (the JAX package's
+# documented bound).  Buffers hold text with whitespace normalised to 0x20.
+# --------------------------------------------------------------------------
+
+WC_POW = 64
+WC_POW_A, WC_POW_B = 0x01000193, 40503  # FNV-32 prime, and the second base
+WC_LEN_A, WC_LEN_B = 2654435761, 0x9E3779B9
+WC_SENTINEL = 0xFFFFFFFF
+WC_BIG = 0x7FFFFFFF
+# csrc/wordcount.cu kTile: rows (or bytes) a block of its scans takes
+WC_TILE = 4096
+_WC_BINS = 256
+
+
+def _wc_pow_table(p: int) -> torch.Tensor:
+    out, v = [], 1
+    for _ in range(WC_POW):
+        out.append(v)
+        v = (v * p) & H.M32
+    return torch.tensor(out, dtype=torch.int64)
+
+
+_WC_TABLE_A, _WC_TABLE_B = _wc_pow_table(WC_POW_A), _wc_pow_table(WC_POW_B)
+
+
+def _wc_tiles(n: int) -> int:
+    return (n + WC_TILE - 1) // WC_TILE
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 its low 32 bits hold, as int64."""
+    return ((x + 2**31) & H.M32) - 2**31
+
+
+def _wc_prelude_plain(buf):
+    """Per byte: the last whitespace at or before it, and the two prefix
+    sums mod 2**32 of the weighted bytes (the JAX program's scan)."""
+    n = buf.numel()
+    idx = torch.arange(n, dtype=torch.int64, device=buf.device)
+    ws = buf == 32
+    last_ws = torch.cummax(torch.where(ws, idx, -1), 0).values
+    cap = (idx - last_ws - 1).clamp(max=WC_POW - 1)
+    b1 = buf.to(torch.int64) + 1
+    zero = torch.zeros((), dtype=torch.int64, device=buf.device)
+    ca = torch.where(ws, zero, (b1 * _WC_TABLE_A.to(buf.device)[cap]) & H.M32)
+    cb = torch.where(ws, zero, (b1 * _WC_TABLE_B.to(buf.device)[cap]) & H.M32)
+    return last_ws, torch.cumsum(ca, 0) & H.M32, torch.cumsum(cb, 0) & H.M32
+
+
+def _wc_gather_plain(buf, e, valid, base: int):
+    """Each row's (ha, hb, start) from its end e, as int32 bits; rows not
+    valid hold the sentinel.  e is read as JAX's gather reads it."""
+    n = buf.numel()
+    last_ws, cum_a, cum_b = _wc_prelude_plain(buf)
+    g = torch.where(e < 0, e + n, e).clamp(0, n - 1)
+    lw = last_ws[g]
+    prev = lw.clamp(min=0)
+    ha = (cum_a[g] - torch.where(lw >= 0, cum_a[prev], 0)) & H.M32
+    hb = (cum_b[g] - torch.where(lw >= 0, cum_b[prev], 0)) & H.M32
+    ln = (e - lw) & H.M32
+    ha = ha ^ ((ln * WC_LEN_A) & H.M32)
+    hb = (hb + ln * WC_LEN_B) & H.M32
+    start = (lw + 1 + (base & H.M32)) & H.M32
+    return tuple(_to_int32_bits(torch.where(valid, x, WC_SENTINEL)) for x in (ha, hb, start))
+
+
+def _wc_check_buf(buf) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError("word-count buffers are 1-D uint8")
+    if not 1 <= buf.numel() < 2**31:
+        raise ValueError(f"a word-count buffer holds 1 to 2**31 - 1 bytes, got {buf.numel()}")
+
+
+def wc_extract_words_plain(buf, end_deltas, n_words: int, base: int):
+    n = buf.numel()
+    ends = _wrap_i32(_wrap_i32(torch.cumsum(end_deltas.to(torch.int64), 0)) - 1)
+    valid = torch.arange(end_deltas.numel(), device=buf.device) < n_words
+    e = torch.where(valid, ends.clamp(max=n - 1), 0)
+    return _wc_gather_plain(buf, e, valid, base)
+
+
+def wc_extract_words_auto_plain(buf, n_words: int, eb: int, base: int):
+    n = buf.numel()
+    ws = buf == 32
+    following = torch.cat([ws[1:], torch.ones(1, dtype=torch.bool, device=buf.device)])
+    found = torch.nonzero(~ws & following).reshape(-1)[:eb]
+    ends = torch.full((eb,), n - 1, dtype=torch.int64, device=buf.device)
+    ends[: found.numel()] = found
+    valid = torch.arange(eb, device=buf.device) < n_words
+    return _wc_gather_plain(buf, torch.where(valid, ends, 0), valid, base)
+
+
+def _wc_launch(buf, deltas, rows: int, n_words: int, base: int):
+    _wc_check_buf(buf)
+    if not buf.is_contiguous():
+        raise ValueError("word-count buffers must be contiguous")
+    dev = buf.device
+    out = [torch.empty(rows, dtype=torch.int32, device=dev) for _ in range(3)]
+    if deltas is None:
+        scratch = torch.empty(_wc_tiles(buf.numel()) + 1, dtype=torch.int32, device=dev)
+        ends = torch.empty(max(1, rows), dtype=torch.int32, device=dev)
+    else:
+        if deltas.device != dev or deltas.dim() != 1:
+            raise ValueError(f"deltas: 1-D on the buffer's {dev}, got {tuple(deltas.shape)} on {deltas.device}")
+        deltas = deltas.to(torch.int32).contiguous()
+        scratch = torch.empty(_wc_tiles(rows) + 1, dtype=torch.int32, device=dev)
+        ends = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+    n_words = max(-1, min(int(n_words), rows))
+    _launch("wc_words", _build.library("wordcount").rtpu_wc_words, buf,
+            buf.data_ptr(), buf.numel(), _ptr(deltas), rows, n_words, int(base) & H.M32,
+            scratch.data_ptr(), ends.data_ptr(), *(t.data_ptr() for t in out))
+    return tuple(out)
+
+
+def wc_extract_words(buf, end_deltas, n_words: int, base: int):
+    """buf: (N,) uint8 text, whitespace normalised to 0x20; end_deltas: (E,)
+    integer deltas of the word ends (ends = cumsum(deltas) - 1, int32);
+    n_words: the real words; base: the chunk's offset in the whole text.
+    Returns (ha, hb, start), each (E,) int32 holding uint32 bits; rows at or
+    past n_words hold 0xFFFFFFFF, so they sort after every real word."""
+    if _route(buf) == "plain":
+        _wc_check_buf(buf)
+        return wc_extract_words_plain(buf, end_deltas, n_words, base)
+    return _wc_launch(buf, end_deltas, end_deltas.numel(), n_words, base)
+
+
+def wc_extract_words_auto(buf, n_words: int, eb: int, base: int):
+    """wc_extract_words with the ends found on the card: every non-space
+    byte followed by a space (the last byte counts as followed by one), in
+    ascending order, the first eb of them; eb <= N."""
+    _wc_check_buf(buf)
+    if not 0 <= eb <= buf.numel():
+        raise ValueError(f"eb = {eb}: the auto form returns at most N = {buf.numel()} rows")
+    if _route(buf) == "plain":
+        return wc_extract_words_auto_plain(buf, n_words, eb, base)
+    return _wc_launch(buf, None, eb, n_words, base)
+
+
+def _wc_sort_operands(ha, hb, start) -> int:
+    n = ha.numel()
+    if not (ha.shape == hb.shape == start.shape == (n,)):
+        raise ValueError("wc_sort_runs takes three 1-D tensors of one length")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"wc_sort_runs takes 1 to 2**31 - 1 rows, got {n}")
+    return n
+
+
+def wc_sort_runs_plain(ha, hb, start, d_max: int):
+    n = _wc_sort_operands(ha, hb, start)
+    # the unsigned key (ha:hb) in signed order: flip its top bit
+    key = ((H.lanes(ha) << 32) | H.lanes(hb)) ^ (-(2**63))
+    key, perm = torch.sort(key, stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=ha.device)
+    first[1:] = key[1:] != key[:-1]
+    idx = torch.arange(n, dtype=torch.int32, device=ha.device)
+    fp, perm2 = torch.sort(torch.where(first, idx, WC_BIG), stable=True)
+    d = min(n, d_max)
+    return torch.stack([fp[:d], start.to(torch.int32)[perm][perm2][:d]])
+
+
+def wc_sort_runs(ha, hb, start, d_max: int):
+    """Count words by sorting: a stable sort of the rows by the unsigned
+    64-bit key (ha:hb), then every run's first row (its index, its start) in
+    index order, then the other rows as (0x7FFFFFFF, start) in sorted order.
+    Returns the first min(N, d_max) rows as (2, min(N, d_max)) int32, the
+    starts as uint32 bits."""
+    if _route(ha) == "plain":
+        return wc_sort_runs_plain(ha, hb, start, d_max)
+    n = _wc_sort_operands(ha, hb, start)
+    _require_cuda_operands(ha, hb, start)
+    d = min(n, int(d_max))
+    if d < 0:
+        raise ValueError(f"d_max = {d_max}")
+    dev = ha.device
+    tiles = _wc_tiles(n)
+    keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
+    vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    hist = torch.empty(_WC_BINS * tiles + 1, dtype=torch.int32, device=dev)
+    scan = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
+    out = torch.empty((2, d), dtype=torch.int32, device=dev)
+    _launch("wc_sort_runs", _build.library("wordcount").rtpu_wc_sort_runs, ha,
+            ha.data_ptr(), hb.data_ptr(), start.data_ptr(), n, d, keys[0].data_ptr(),
+            vals[0].data_ptr(), keys[1].data_ptr(), vals[1].data_ptr(), hist.data_ptr(),
+            scan.data_ptr(), out.data_ptr())
+    return out
+
+
+# --------------------------------------------------------------------------
+# KernelMapReduce's segment reduction
+# --------------------------------------------------------------------------
+
+SEGMENT_OPS = ("sum", "max", "min")
+
+
+def _segment_identity(dtype, reduce: str):
+    if reduce == "sum":
+        return 0
+    if dtype.is_floating_point:
+        return -float("inf") if reduce == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if reduce == "max" else info.max
+
+
+def segment_reduce_plain(keys, vals, n_keys: int, reduce: str):
+    k = keys.to(torch.int64)
+    k = torch.where(k < 0, k + n_keys, k)
+    keep = (k >= 0) & (k < n_keys)
+    k, v = k[keep], vals[keep]
+    if reduce == "sum" and not vals.dtype.is_floating_point:
+        acc = torch.zeros(n_keys, dtype=torch.int64, device=vals.device).index_add_(0, k, v.to(torch.int64))
+        bits = torch.iinfo(vals.dtype).bits
+        if bits < 64:  # the sum wraps in the values' width, as JAX's does
+            acc = ((acc + 2 ** (bits - 1)) & (2**bits - 1)) - 2 ** (bits - 1)
+        return acc.to(vals.dtype)
+    out = torch.full((n_keys,), _segment_identity(vals.dtype, reduce), dtype=vals.dtype, device=vals.device)
+    if reduce == "sum":
+        return out.index_add_(0, k, v)
+    return out.index_reduce_(0, k, v, "amax" if reduce == "max" else "amin", include_self=True)
+
+
+def segment_reduce(keys, vals, n_keys: int, reduce: str = "sum"):
+    """(n_keys,) reduction of vals by key, as JAX's
+    ``init.at[keys].add/max/min(vals)``: sum starts from 0, max from the
+    type's least value (or -inf), min from its greatest (or +inf); a key in
+    [-n_keys, 0) counts from the end once, any other key outside [0, n_keys)
+    is dropped.  The card takes int32 or float32 values and int32 or int64
+    keys (other integer keys are widened to int64); a float32 sum there adds
+    in atomic order, so it matches a sequential sum only to rounding."""
+    if reduce not in SEGMENT_OPS:
+        raise ValueError(f"unsupported reduce {reduce!r}")
+    if n_keys < 1:
+        raise ValueError(f"n_keys = {n_keys}")
+    if keys.shape != vals.shape or keys.dim() != 1:
+        raise ValueError("segment_reduce takes 1-D keys and values of one length")
+    if keys.dtype.is_floating_point or keys.dtype.is_complex or keys.dtype == torch.bool:
+        raise ValueError(f"keys must be integers, got {keys.dtype}")
+    if _route(vals) == "plain":
+        return segment_reduce_plain(keys, vals, n_keys, reduce)
+    if vals.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"the segment_reduce kernel takes int32 or float32 values, got {vals.dtype}")
+    if keys.dtype not in (torch.int32, torch.int64):
+        keys = keys.to(torch.int64)
+    if keys.device != vals.device:
+        raise ValueError(f"keys on {keys.device}, values on {vals.device}")
+    keys, vals = keys.contiguous(), vals.contiguous()
+    out = torch.empty(n_keys, dtype=vals.dtype, device=vals.device)
+    _launch("segment_reduce", _build.library("segment").rtpu_segment_reduce, vals,
+            keys.data_ptr(), keys.element_size(), vals.data_ptr(),
+            int(vals.dtype == torch.float32), SEGMENT_OPS.index(reduce), vals.numel(), n_keys,
+            out.data_ptr())
+    return out

@@ -12,6 +12,7 @@ window, device placement and the residency tiers, which later slices port.
 """
 from __future__ import annotations
 
+import secrets
 import threading
 import time
 from dataclasses import dataclass, field
@@ -26,6 +27,10 @@ class StateRecord:
     host: Any = None                # host-side python state (dict/list/...)
     version: int = 0                # bumped on every mutation
     expire_at: Optional[float] = None  # epoch seconds, None = persistent
+    # creation identity: versions restart at 0 when a name is deleted and
+    # recreated, so a cache keyed on the record (the word count's scan views)
+    # compares (nonce, version), not the version alone
+    nonce: int = field(default_factory=lambda: secrets.randbits(63))
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.expire_at is not None and (now or time.time()) >= self.expire_at

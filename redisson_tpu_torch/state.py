@@ -3,8 +3,8 @@
 A record of either package is a kind, a meta dict, named arrays and a host
 value.  The arrays (bloom planes, HLL register banks, bit-set planes) are
 persisted formats that both packages share bit for bit; the bucket family
-(buckets, atomic counters, id generators) keeps its state in ``host``: a
-dict of encoded bytes and numbers, the same in both packages.
+(buckets, atomic counters, id generators) and the map keep their state in
+``host``: a dict of encoded bytes and numbers, the same in both packages.
 ``from_reference`` turns a ``redisson_tpu`` StateRecord's meta, arrays (as
 numpy) and host value into a record of this package on a device;
 ``to_reference`` goes back.  Tests use them to start both packages from the
@@ -21,7 +21,7 @@ import torch
 from redisson_tpu_torch.core.store import StateRecord
 
 KINDS = ("bloom", "bloom_array", "hll", "hll_array", "bitset",
-         "bucket", "atomic_long", "atomic_double", "id_generator")
+         "bucket", "atomic_long", "atomic_double", "id_generator", "map")
 
 
 def from_reference(kind: str, meta: Dict[str, Any], arrays_np: Dict[str, np.ndarray],

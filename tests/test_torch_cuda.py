@@ -416,8 +416,19 @@ def test_wrappers_raise_on_mixed_devices_and_count_launches(dev):
     K.bitset_set(bits, idx, 8, 1)
     K.bitset_get(bits, idx)
     K.bitset_get(bits, idx[:0])  # an empty batch launches nothing
+    text = torch.full((512,), 32, dtype=torch.uint8, device=dev)
+    text[:3] = 97
+    ha, hb, st = K.wc_extract_words_auto(text, 1, 256, 0)
+    K.wc_extract_words(text, torch.ones(4, dtype=torch.int32, device=dev), 1, 0)
+    K.wc_sort_runs(ha, hb, st, 16)
+    K.segment_reduce(idx, idx, 4)
+    with pytest.raises(ValueError):
+        K.wc_sort_runs(ha, hb.cpu(), st, 16)
+    with pytest.raises(ValueError):
+        K.segment_reduce(idx.cpu(), idx, 4)
     assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "bloom_add": 1, "hll_add": 1, "hll_rows": 1,
-                          "bitset_get": 1, "bitset_set": 1}
+                          "bitset_get": 1, "bitset_set": 1, "wc_words": 2, "wc_sort_runs": 1,
+                          "segment_reduce": 1}
 
 
 def test_facade_on_the_card_matches_the_cpu(dev):
@@ -570,3 +581,181 @@ def test_staging_pool_on_the_card_fills_a_second_slot_while_a_copy_is_in_flight(
     torch.cuda.synchronize()
     for i, s in enumerate((first, second, third)):
         assert s[0, :5000].tolist() == (arr + i).tolist() and not s[:, 5000:].any()
+
+
+# --------------------------------------------------------------------------
+# word count and KernelMapReduce kernels
+# --------------------------------------------------------------------------
+
+def _text(rng, n_words, long_every=0, pad=True):
+    """Normalised text: words of 1-12 letters (one of `long_every` 64-300
+    bytes long), separated by 1-3 spaces, padded with spaces to a bucket
+    size unless `pad` is False (then the last byte is a letter)."""
+    parts = []
+    for i in range(n_words):
+        ln = int(rng.integers(64, 300)) if long_every and i % long_every == 0 else int(rng.integers(1, 13))
+        parts.append(bytes(rng.integers(33, 127, ln).astype(np.uint8)) + b" " * int(rng.integers(1, 4)))
+    text = b"".join(parts)
+    if not pad:
+        text = text.rstrip(b" ")
+        return np.frombuffer(text, np.uint8).copy()
+    buf = np.full(K.bucket_size(len(text)), 32, np.uint8)
+    buf[: len(text)] = np.frombuffer(text, np.uint8)
+    return buf
+
+
+def _ends(buf):
+    ws = buf == 32
+    return int(np.count_nonzero(~ws & np.concatenate([ws[1:], [True]])))
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["short", "long-words", "unpadded", "leading-space", "one-word"])
+def test_wc_extract_words_auto_matches_plain(dev, case):
+    rng = np.random.default_rng(len(case))
+    buf = {"short": lambda: _text(rng, 3000),
+           "long-words": lambda: _text(rng, 2000, long_every=7),
+           "unpadded": lambda: _text(rng, 5000, pad=False),
+           "leading-space": lambda: np.concatenate([np.full(9000, 32, np.uint8), _text(rng, 10)]),
+           "one-word": lambda: np.full(10000, 65, np.uint8)}[case]()
+    t = torch.from_numpy(buf).to(dev)
+    found = _ends(buf)
+    for n_words, eb in ((found, K.bucket_size(max(1, found))), (found, max(1, found // 2)),
+                        (0, 256), (found + 5, min(buf.size, found + 300)), (3, 1)):
+        for base in (0, 2**32 - 3):
+            _same(K.wc_extract_words_auto(t, n_words, eb, base),
+                  K.wc_extract_words_auto_plain(t, n_words, eb, base))
+
+
+def test_wc_extract_words_deltas_match_plain(dev):
+    rng = np.random.default_rng(2)
+    buf = _text(rng, 4000, long_every=11)
+    t = torch.from_numpy(buf).to(dev)
+    ws = buf == 32
+    ends = np.nonzero(~ws & np.concatenate([ws[1:], [True]]))[0]
+    true_deltas = np.diff(np.concatenate([[-1], ends]))
+    for deltas in (true_deltas, rng.integers(0, 65536, 9000), np.zeros(300, np.int64),
+                   rng.integers(0, 3, 5000)):
+        d = torch.from_numpy(deltas.astype(np.int32)).to(dev)
+        for n_words in (len(deltas), len(deltas) // 3, 0):
+            _same(K.wc_extract_words(t, d, n_words, 12345),
+                  K.wc_extract_words_plain(t, d, n_words, 12345))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 70001])
+def test_wc_sort_runs_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    for distinct in (1, 50, n):
+        ids = rng.integers(0, distinct, n)
+        words = rng.integers(0, 2**32, (distinct, 2), dtype=np.uint64).astype(np.uint32)
+        words[0] = [0xFFFFFFFF, 0xFFFFFFFF]  # the sentinel key sorts last
+        if distinct > 2:
+            words[1] = [0x80000000, 0]  # the top bit of ha is no sign
+            words[2] = [0, 0x80000000]
+        ha, hb = (torch.from_numpy(words[ids, j].view(np.int32)).to(dev) for j in (0, 1))
+        st = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+        for d_max in (1, 7, n, n + 10, 1 << 17):
+            got = K.wc_sort_runs(ha, hb, st, d_max)
+            want = K.wc_sort_runs_plain(ha, hb, st, d_max)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (2, min(n, d_max))
+            assert torch.equal(got, want), (distinct, d_max)
+
+
+def _float_sum_limit(keys, vals, n_keys):
+    """The limit on two float32 sums of one key's zero-mean values added in
+    different orders: 8 * 2**-24 * sqrt(count * sum v**2) a key.  One order's
+    rounding error grows about as 2**-24 * count * rms(v) / sqrt(6), since
+    the partial sums walk as sqrt(i) * rms(v); the limit is about four times
+    the largest difference read on an H100 80GB HBM3 at 700 W (1.02 against
+    3.9, 8,388,608 values of N(0, 1000) into 1,024 keys), and it bounds any
+    order for counts up to 5."""
+    k = keys.to(torch.int64)
+    k = torch.where(k < 0, k + n_keys, k)
+    keep = (k >= 0) & (k < n_keys)
+    v = vals[keep].to(torch.float64)
+    sq = torch.zeros(n_keys, dtype=torch.float64, device=vals.device).index_add_(0, k[keep], v * v)
+    cnt = torch.zeros(n_keys, dtype=torch.float64, device=vals.device).index_add_(0, k[keep], torch.ones_like(v))
+    return 8 * 2.0**-24 * torch.sqrt(cnt * sq)
+
+
+@pytest.mark.parametrize("n_keys", [1, 7, 1024, 20000])
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64, torch.int16])
+def test_segment_reduce_matches_plain(dev, n_keys, key_dtype):
+    rng = np.random.default_rng(n_keys)
+    n = 100_000
+    hi = min(3 * n_keys, 30000)
+    keys = torch.from_numpy(rng.integers(-hi, hi, n)).to(key_dtype).to(dev)
+    ivals = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)).to(dev)
+    fvals = torch.from_numpy(rng.normal(0, 1000, n).astype(np.float32)).to(dev)
+    # whole floats whose partial sums all stay below 2**24 (100,000 * 100):
+    # every order of the sum is exact, so it is held bit for bit
+    whole = torch.from_numpy(rng.integers(-100, 101, n).astype(np.float32)).to(dev)
+    for reduce in ("sum", "max", "min"):
+        got = K.segment_reduce(keys, ivals, n_keys, reduce)
+        want = K.segment_reduce_plain(keys, ivals, n_keys, reduce)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), reduce
+        got = K.segment_reduce(keys, whole, n_keys, reduce)
+        want = K.segment_reduce_plain(keys, whole, n_keys, reduce)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, want), reduce
+        got = K.segment_reduce(keys, fvals, n_keys, reduce)
+        want = K.segment_reduce_plain(keys, fvals, n_keys, reduce)
+        torch.cuda.synchronize()
+        if reduce == "sum":
+            err = (got.double() - want.double()).abs()
+            assert bool((err <= _float_sum_limit(keys, fvals, n_keys)).all())
+        else:
+            assert torch.equal(got, want), reduce
+
+
+def test_segment_reduce_empty_and_dropped(dev):
+    keys = torch.tensor([5, -6, 6, -7, 2**40], dtype=torch.int64, device=dev)
+    vals = torch.tensor([1, 2, 3, 4, 5], dtype=torch.int32, device=dev)
+    for reduce in ("sum", "max", "min"):
+        got = K.segment_reduce(keys, vals, 6, reduce)
+        assert torch.equal(got, K.segment_reduce_plain(keys, vals, 6, reduce))
+        empty = K.segment_reduce(keys[:0], vals[:0], 3, reduce)
+        assert torch.equal(empty, K.segment_reduce_plain(keys[:0], vals[:0], 3, reduce))
+    with pytest.raises(ValueError):
+        K.segment_reduce(keys, vals.to(torch.int64), 6, "sum")
+
+
+def test_word_count_on_the_card_counts_launches(dev):
+    import redisson_tpu_torch
+    from redisson_tpu_torch.client.codec import StringCodec
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    rng = np.random.default_rng(4)
+    vals = [" ".join(f"w{j}" for j in rng.integers(0, 300, 8)) for _ in range(5000)]
+    client = redisson_tpu_torch.create()
+    m = client.get_map("wc", codec=StringCodec())
+    m.put_all({f"d{i}": v for i, v in enumerate(vals)})
+    K.reset_launches()
+    assert MR.word_count(m) == MR._host_word_count(vals)
+    assert K.launches["wc_words"] == 2 and K.launches["wc_sort_runs"] == 1
+    assert MR.word_count(m) == MR._host_word_count(vals)  # the staged view
+    assert K.launches["wc_words"] == 2 and K.launches["wc_sort_runs"] == 2
+    kmr = MR.KernelMapReduce(lambda v: (v % 64, v), "max", 64)
+    x = rng.integers(-1000, 1000, 10000).astype(np.int32)
+    want = np.full(64, np.iinfo(np.int32).min, np.int32)
+    np.maximum.at(want, x % 64, x)
+    assert np.array_equal(kmr.execute(x), want) and K.launches["segment_reduce"] == 1
+    client.shutdown()
+
+
+def test_device_word_count_past_d_max_sorts_again_on_the_card(dev):
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    vals = [" ".join(f"w{i}" for i in range(j, j + 50)) for j in range(0, 3000, 50)]
+    MR.reset_stats()
+    K.reset_launches()
+    assert MR.device_word_count(vals, d_max_bits=8) == MR._host_word_count(vals)
+    assert K.launches["wc_sort_runs"] == 2
+    assert MR.STATS == {"device_scans": 1, "view_hits": 0, "host_fallbacks": 0}

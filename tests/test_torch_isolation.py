@@ -99,5 +99,13 @@ def test_cpu_run_leaves_launch_counters_at_zero():
     bs = c.get_bit_set("bits")
     bs.set_each(np.arange(5))
     assert bs.get_each(np.arange(6)).tolist() == [1, 1, 1, 1, 1, 0]
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    m = c.get_map("wc")
+    m.put_all({"a": "x y x", "b": "y"})
+    assert MR.word_count(m) == MR.word_count(m) == {"x": 2, "y": 2}
+    kmr = MR.KernelMapReduce(lambda v: (v % 3, v), "sum", 3, device="cpu")
+    assert kmr.execute(np.arange(6, dtype=np.int32)).tolist() == [3, 5, 7]
     assert K.launches == {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
-                          "bitset_get": 0, "bitset_set": 0}
+                          "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
+                          "segment_reduce": 0}

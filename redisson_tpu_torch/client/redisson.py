@@ -1,7 +1,7 @@
 """RedissonTpu: the entry facade of the port (Redisson.create analog).
 
 One client over one embedded Engine, with the sketch, bit set, bucket, map,
-MapReduce and batch factories of ``redisson_tpu/client/redisson.py``.
+MapReduce, search and batch factories of ``redisson_tpu/client/redisson.py``.
 Object handles are cheap and stateless; create them freely.  The other
 factories belong to later slices.
 """
@@ -91,6 +91,14 @@ class RedissonTpu:
         from redisson_tpu_torch.services.mapreduce import MapReduce
 
         return MapReduce(self._engine, mapper, reducer, collator, workers, executor)
+
+    # -- search ---------------------------------------------------------------
+
+    def get_search(self):
+        """The engine's search service (FT indexes, KNN over VECTOR fields)."""
+        from redisson_tpu_torch.services.search import SearchService
+
+        return self._engine.service("search", lambda: SearchService(self._engine))
 
     # -- batching (RBatch) --------------------------------------------------
 

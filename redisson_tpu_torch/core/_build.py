@@ -51,6 +51,15 @@ SIGNATURES = {
     "segment": {
         "rtpu_segment_reduce": [_P, _I, _P, _I, _I, _L, _L, _P, _P],
     },
+    "knn": {
+        "rtpu_knn_score": [_P, _I, _P, _P, _P, _P, _L, _I, _L, _L, _I, _P, _P],
+        "rtpu_knn_select": [_P, _L, _L, _I, _P, _P, _P, _P, _P],
+        "rtpu_ivf_score": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _L, _I, _P, _P, _P],
+    },
+    "kmeans": {
+        "rtpu_kmeans_assign": [_P, _P, _P, _L, _I, _I, _P, _P],
+        "rtpu_kmeans_update": [_P, _P, _P, _P, _L, _I, _I, _P, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

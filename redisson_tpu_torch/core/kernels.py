@@ -8,7 +8,7 @@ of the state it is given: state on the CPU runs the plain version, state on a
 CUDA card launches the kernel, and nothing falls back from one to the other
 (a CUDA launch either runs or raises).
 
-Ten kernels carry every program here:
+Fourteen kernels carry every program here:
 
   bloom_probe  hash, k probes, AND; out as flags, a uint32 bitmap or a count
   bloom_set    hash, store 1 at the k probes (after bloom_probe: the add
@@ -31,9 +31,20 @@ Ten kernels carry every program here:
                then each run's first row compacted to the front
   segment_reduce  KernelMapReduce's shuffle and reduce: sum, max or min of
                int32 or float32 values into n_keys slots
+  knn_score    KNN: the (Q, C) float32 distances of queries to a bank
+               (float32, float16 or int8 rows widened in the kernel), the
+               metric, bias, the n_rows mask and a per-query bias in one pass
+  knn_select   KNN: each row's k smallest (distance, column), ties to the
+               lower column (FLAT, the IVF route and the IVF candidates)
+  ivf_score    IVF: the rows listed in each query's probed cells, scored
+               against that query (+inf for the sentinel padding)
+  kmeans       IVF training: one Lloyd iteration as two wrappers,
+               kmeans_assign and kmeans_update (the weighted means of
+               rows bucketed in row order, no float atomics)
 
 The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
-reduce or map a plane elementwise and stay torch ops.
+reduce or map a plane elementwise and stay torch ops, as do the row-bank
+writes and growth of the vector banks (they bitcast and scatter rows).
 
 Differences from the JAX programs:
   * State is updated in place.  JAX donates the plane and returns a new
@@ -69,7 +80,7 @@ BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 # them to show that its path went through the kernels.
 launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
             "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
-            "segment_reduce": 0}
+            "segment_reduce": 0, "knn_score": 0, "knn_select": 0, "ivf_score": 0, "kmeans": 0}
 
 
 def reset_launches() -> None:
@@ -1039,3 +1050,372 @@ def segment_reduce(keys, vals, n_keys: int, reduce: str = "sum"):
             int(vals.dtype == torch.float32), SEGMENT_OPS.index(reduce), vals.numel(), n_keys,
             out.data_ptr())
     return out
+
+
+# --------------------------------------------------------------------------
+# Vector search (FT VECTOR FLAT and IVF): KNN scoring, top-k selection, the
+# IVF candidate scoring and k-means.  Distances are lower-is-better: L2 the
+# squared euclidean (|q|^2 - 2 q.b) + |b|^2, COSINE 1 - cos (1 where a norm
+# is 0), IP 1 - q.b.  Rows at or past n_rows and rows whose bias is +inf
+# never reach a top-k; the k kept are the smallest by (distance, position),
+# so ties go to the lower position, as lax.top_k's stable order gives them.
+# The products are exact float32 (no TF32) on both routes.
+# --------------------------------------------------------------------------
+
+KNN_METRICS = ("L2", "COSINE", "IP")
+_BANK_TYPES = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
+# csrc/knn.cu: columns a stage-1 block of knn_select scans, and the keys one
+# of its rounds selects at most
+SELECT_SEG, SELECT_ROUND = 4096, 256
+
+
+def _bank_f32(bank, scale):
+    """FLOAT16 rows, and INT8 rows times their per-row scale, as float32."""
+    if bank.dtype == torch.float32:
+        return bank
+    rows = bank.to(torch.float32)
+    if scale is not None:
+        rows = rows * scale[..., None]
+    return rows
+
+
+def _metric_plain(dots, q_sq, b_sq, metric: str):
+    if metric == "L2":
+        return q_sq - 2.0 * dots + b_sq
+    if metric == "COSINE":
+        denom = torch.sqrt(q_sq) * torch.sqrt(b_sq)
+        return 1.0 - torch.where(denom > 0.0, dots / denom, 0.0)
+    return 1.0 - dots
+
+
+def knn_score_plain(bank, scale, bias, qbias, q, n_rows: int, metric: str):
+    rows = _bank_f32(bank, scale)
+    dots = q @ rows.T
+    dist = _metric_plain(dots, (q * q).sum(1)[:, None], (rows * rows).sum(1)[None, :], metric)
+    if bias is not None:
+        dist = dist + bias[None, :]
+    live = torch.arange(bank.shape[0], device=bank.device) < n_rows
+    dist = torch.where(live[None, :], dist, torch.inf)
+    return dist if qbias is None else dist + qbias
+
+
+def _check_f32(name: str, t, shape, device) -> None:
+    if t is None:
+        return
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: float32 {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _bank_operands(bank, scale, bias, q, metric: str) -> None:
+    if bank.dim() != 2 or bank.dtype not in _BANK_TYPES:
+        raise ValueError(f"a bank is (C, W) float32, float16 or int8, got {bank.dtype} {tuple(bank.shape)}")
+    if metric not in KNN_METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if q.dim() != 2 or q.shape[1] != bank.shape[1]:
+        raise ValueError(f"queries (Q, {bank.shape[1]}), got {tuple(q.shape)}")
+    _check_f32("q", q, q.shape, bank.device)
+    _check_f32("scale", scale, (bank.shape[0],), bank.device)
+    _check_f32("bias", bias, (bank.shape[0],), bank.device)
+
+
+def _contig(t):
+    return None if t is None else t.contiguous()
+
+
+def knn_score(bank, scale, bias, qbias, q, n_rows: int, metric: str):
+    """(Q, C) float32 distances of the queries q (Q, W) float32 to the rows
+    of bank (C, W) float32, float16 or int8 (times scale (C,) when given),
+    plus bias (C,) when given, +inf from row n_rows on, plus qbias (Q, C)
+    when given (0 keeps a row, +inf drops it)."""
+    _bank_operands(bank, scale, bias, q, metric)
+    _check_f32("qbias", qbias, (q.shape[0], bank.shape[0]), bank.device)
+    if _route(bank) == "plain":
+        return knn_score_plain(bank, scale, bias, qbias, q, n_rows, metric)
+    c, w = bank.shape
+    out = torch.empty((q.shape[0], c), dtype=torch.float32, device=bank.device)
+    bank, scale, bias, qbias, q = (_contig(t) for t in (bank, scale, bias, qbias, q))
+    _launch("knn_score", _build.library("knn").rtpu_knn_score, bank,
+            bank.data_ptr(), _BANK_TYPES[bank.dtype], _ptr(scale), _ptr(bias), _ptr(qbias),
+            q.data_ptr(), c, w, q.shape[0], max(0, min(int(n_rows), c)), KNN_METRICS.index(metric),
+            out.data_ptr())
+    return out
+
+
+def _order_keys(dist):
+    """int64 keys ordering (dist, column) as the kernel's unsigned 64-bit
+    key does: the float's bits mapped to an unsigned order (negative floats
+    flipped, positive ones with the top bit set), less 2**31 so it stays
+    signed, over the column."""
+    bits = dist.contiguous().view(torch.int32).to(torch.int64)
+    u = bits & H.M32
+    order = torch.where(u >= 2**31, ~u & H.M32, u | 2**31)
+    col = torch.arange(dist.shape[1], dtype=torch.int64, device=dist.device)
+    return ((order - 2**31) << 32) | col
+
+
+def knn_select_plain(dist, k: int, ids=None):
+    key, _ = torch.topk(_order_keys(dist), k, dim=1, largest=False, sorted=True)
+    pos = key & H.M32
+    vals = dist.gather(1, pos)
+    idx = pos.to(torch.int32) if ids is None else ids.gather(1, pos)
+    return vals, idx
+
+
+def knn_select(dist, k: int, ids=None):
+    """Per row of dist (R, n) float32, its k smallest entries by (value,
+    column): (vals (R, k) float32, idx (R, k) int32), idx the column or,
+    with ids (R, n) int32, ids[row][column].  1 <= k <= n."""
+    if dist.dim() != 2 or dist.dtype != torch.float32:
+        raise ValueError(f"knn_select takes a (R, n) float32 matrix, got {dist.dtype} {tuple(dist.shape)}")
+    r, n = dist.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"k = {k} for rows of {n}")
+    if ids is not None and (ids.shape != dist.shape or ids.dtype != torch.int32 or ids.device != dist.device):
+        raise ValueError("ids: int32 of the matrix's shape, on its device")
+    if _route(dist) == "plain":
+        return knn_select_plain(dist, k, ids)
+    if n >= 2**31 or r > 65535:
+        raise ValueError(f"the knn_select kernel takes n < 2**31 and at most 65535 rows, got {(r, n)}")
+    dist, ids = dist.contiguous(), _contig(ids)
+    segs = -(-n // SELECT_SEG)
+    scratch = torch.empty(r * segs * min(k, SELECT_ROUND) + r, dtype=torch.int64, device=dist.device)
+    vals = torch.empty((r, k), dtype=torch.float32, device=dist.device)
+    idx = torch.empty((r, k), dtype=torch.int32, device=dist.device)
+    _launch("knn_select", _build.library("knn").rtpu_knn_select, dist,
+            dist.data_ptr(), n, r, k, _ptr(ids), vals.data_ptr(), idx.data_ptr(), scratch.data_ptr())
+    return vals, idx
+
+
+def ivf_score_plain(bank, scale, bias, qmask, cells, probe, q, n_rows: int, metric: str):
+    cand = cells[probe.long()].reshape(q.shape[0], -1)
+    valid = (cand >= 0) & (cand < min(int(n_rows), bank.shape[0]))
+    safe = torch.where(valid, cand, 0).long()
+    rows = _bank_f32(bank[safe], None if scale is None else scale[safe])
+    dots = torch.einsum("qmw,qw->qm", rows, q)
+    dist = _metric_plain(dots, (q * q).sum(1)[:, None], (rows * rows).sum(2), metric)
+    if bias is not None:
+        dist = dist + bias[safe]
+    if qmask is not None:
+        dist = dist + qmask[safe]
+    return torch.where(valid, dist, torch.inf), cand.to(torch.int32)
+
+
+def ivf_score(bank, scale, bias, qmask, cells, probe, q, n_rows: int, metric: str):
+    """The IVF candidates of each query: slot j of cell probe[r][p] (cells
+    (nlist, cap) int32 row lists, probe (Q, nprobe) int32) scored against
+    q row r as knn_score scores, plus bias and qmask (C,) when given; a
+    negative row id or one >= n_rows (the sentinel padding) scores +inf.
+    Returns (dist, ids), each (Q, nprobe * cap), in probe order then cell
+    order; ids holds the slot's row id."""
+    _bank_operands(bank, scale, bias, q, metric)
+    _check_f32("qmask", qmask, (bank.shape[0],), bank.device)
+    if cells.dim() != 2 or cells.dtype != torch.int32 or probe.dim() != 2 or probe.dtype != torch.int32:
+        raise ValueError("cells (nlist, cap) and probe (Q, nprobe) are int32")
+    if probe.shape[0] != q.shape[0]:
+        raise ValueError(f"probe has {probe.shape[0]} rows for {q.shape[0]} queries")
+    if _route(bank) == "plain":
+        return ivf_score_plain(bank, scale, bias, qmask, cells, probe, q, n_rows, metric)
+    _require_cuda_operands(bank, cells, probe)
+    (nlist, cap), nprobe = cells.shape, probe.shape[1]
+    r, (c, w) = q.shape[0], bank.shape
+    out = torch.empty((r, nprobe * cap), dtype=torch.float32, device=bank.device)
+    ids = torch.empty((r, nprobe * cap), dtype=torch.int32, device=bank.device)
+    bank, scale, bias, qmask, q = (_contig(t) for t in (bank, scale, bias, qmask, q))
+    _launch("ivf_score", _build.library("knn").rtpu_ivf_score, bank,
+            bank.data_ptr(), _BANK_TYPES[bank.dtype], _ptr(scale), _ptr(bias), _ptr(qmask), q.data_ptr(),
+            cells.data_ptr(), probe.data_ptr(), c, w, r, nlist, nprobe, cap, max(0, min(int(n_rows), c)),
+            KNN_METRICS.index(metric), out.data_ptr(), ids.data_ptr())
+    return out, ids
+
+
+def knn_flat(bank, scale, bias, qbias, q, n_rows: int, k: int, metric: str):
+    """FLAT KNN in every form: knn_score (scale for an INT8 bank, qbias for
+    the hybrid prefilter, each None when absent), then knn_select."""
+    return knn_select(knn_score(bank, scale, bias, qbias, q, n_rows, metric), k)
+
+
+def knn_topk(bank, bias, q, n_rows: int, k: int, metric: str):
+    """FLAT KNN: (dist (Q, k) float32, idx (Q, k) int32) of the k smallest
+    distances of each query to the live rows; entries past the live rows
+    carry +inf and ids that mean nothing."""
+    return knn_flat(bank, None, bias, None, q, n_rows, k, metric)
+
+
+def knn_topk_q(bank, scale, bias, q, n_rows: int, k: int, metric: str):
+    """knn_topk over an INT8 bank: each row times its scale (C,)."""
+    return knn_flat(bank, scale, bias, None, q, n_rows, k, metric)
+
+
+def knn_topk_masked(bank, bias, qbias, q, n_rows: int, k: int, metric: str):
+    """knn_topk with a per-query additive bias (Q, C): 0 keeps a row, +inf
+    drops it (the hybrid prefilter)."""
+    return knn_flat(bank, None, bias, qbias, q, n_rows, k, metric)
+
+
+def knn_topk_masked_q(bank, scale, bias, qbias, q, n_rows: int, k: int, metric: str):
+    return knn_flat(bank, scale, bias, qbias, q, n_rows, k, metric)
+
+
+def knn_ivf(bank, scale, bias, qmask, centroids, cells, q, n_rows: int, k: int, nprobe: int, metric: str):
+    """IVF KNN in every form: the route (knn_score over the centroids, then
+    knn_select of nprobe), ivf_score of the probed cells (scale and qmask
+    None when absent), then knn_select over the candidates."""
+    route = knn_score(centroids, None, None, None, q, centroids.shape[0], metric)
+    _, probe = knn_select(route, nprobe)
+    dist, ids = ivf_score(bank, scale, bias, qmask, cells, probe, q, n_rows, metric)
+    return knn_select(dist, k, ids)
+
+
+def knn_ivf_topk(bank, bias, centroids, cells, q, n_rows: int, k: int, nprobe: int, metric: str):
+    """IVF KNN: route each query to its nprobe nearest centroids (nlist, W),
+    score the rows listed in those cells (cells (nlist, cap) int32, padded
+    with a sentinel >= n_rows), keep the k smallest by (distance, candidate
+    position: probe order, then place in the cell) and return (dist (Q, k),
+    row ids (Q, k) int32); +inf entries carry ids that mean nothing."""
+    return knn_ivf(bank, None, bias, None, centroids, cells, q, n_rows, k, nprobe, metric)
+
+
+def knn_ivf_topk_q(bank, scale, bias, centroids, cells, q, n_rows: int, k: int, nprobe: int, metric: str):
+    return knn_ivf(bank, scale, bias, None, centroids, cells, q, n_rows, k, nprobe, metric)
+
+
+def knn_ivf_topk_masked(bank, bias, qmask, centroids, cells, q, n_rows: int, k: int, nprobe: int,
+                        metric: str):
+    """knn_ivf_topk with an additive (C,) mask: 0 keeps a row, +inf drops it."""
+    return knn_ivf(bank, None, bias, qmask, centroids, cells, q, n_rows, k, nprobe, metric)
+
+
+def knn_ivf_topk_masked_q(bank, scale, bias, qmask, centroids, cells, q, n_rows: int, k: int, nprobe: int,
+                          metric: str):
+    return knn_ivf(bank, scale, bias, qmask, centroids, cells, q, n_rows, k, nprobe, metric)
+
+
+def kmeans_assign_plain(points, weights, centroids):
+    d = ((points * points).sum(1)[:, None] - 2.0 * (points @ centroids.T)
+         + (centroids * centroids).sum(1)[None, :])
+    return torch.where(weights > 0.0, torch.argmin(d, dim=1), -1).to(torch.int32)
+
+
+def kmeans_update_plain(points, weights, centroids, assign):
+    live = assign >= 0
+    cell = assign[live].long()
+    sums = torch.zeros_like(centroids).index_add_(0, cell, (points * weights[:, None])[live])
+    counts = torch.zeros(centroids.shape[0], dtype=torch.float32, device=points.device)
+    counts.index_add_(0, cell, weights[live])
+    return torch.where(counts[:, None] > 0.0, sums / torch.clamp(counts, min=1.0)[:, None], centroids)
+
+
+def kmeans_step_plain(points, weights, centroids):
+    assign = kmeans_assign_plain(points, weights, centroids)
+    return kmeans_update_plain(points, weights, centroids, assign), assign
+
+
+def _kmeans_operands(points, weights, centroids) -> None:
+    if points.dim() != 2 or centroids.dim() != 2 or points.shape[1] != centroids.shape[1]:
+        raise ValueError("points (N, W) and centroids (L, W)")
+    _check_f32("points", points, points.shape, points.device)
+    _check_f32("weights", weights, (points.shape[0],), points.device)
+    _check_f32("centroids", centroids, centroids.shape, points.device)
+
+
+def kmeans_assign(points, weights, centroids):
+    """Each point's (N, W) float32 nearest centroid (L, W) by L2, the first
+    minimum winning: (N,) int32, -1 where weights (N,) is not > 0."""
+    _kmeans_operands(points, weights, centroids)
+    if _route(points) == "plain":
+        return kmeans_assign_plain(points, weights, centroids)
+    (n, w), l = points.shape, centroids.shape[0]
+    points, weights, centroids = points.contiguous(), weights.contiguous(), centroids.contiguous()
+    assign = torch.empty(n, dtype=torch.int32, device=points.device)
+    _launch("kmeans", _build.library("kmeans").rtpu_kmeans_assign, points,
+            points.data_ptr(), weights.data_ptr(), centroids.data_ptr(), n, w, l, assign.data_ptr())
+    return assign
+
+
+def kmeans_update(points, weights, centroids, assign):
+    """Each centroid (L, W) the weighted mean of the points (N, W) that
+    assign (N,) int32 gives it (-1: none), an empty cell keeping its
+    centroid.  On the card the rows are bucketed by a stable counting sort
+    and each bucket summed in row order with no float atomics, so two runs
+    give the same bits."""
+    _kmeans_operands(points, weights, centroids)
+    if assign.shape != (points.shape[0],) or assign.dtype != torch.int32 or assign.device != points.device:
+        raise ValueError("assign: (N,) int32 on the points' device")
+    if _route(points) == "plain":
+        return kmeans_update_plain(points, weights, centroids, assign)
+    (n, w), l = points.shape, centroids.shape[0]
+    if w > 1024 or n >= 2**31 - 1:
+        raise ValueError(f"the kmeans kernel takes W <= 1024 and N < 2**31 - 1, got {(n, w)}")
+    points, weights, centroids = points.contiguous(), weights.contiguous(), centroids.contiguous()
+    m = l * -(-n // 256)  # csrc/kmeans.cu: counts of each (centroid, chunk of 256 rows)
+    scratch = torch.empty(m + 1 + n + -(-m // 2048) + 1, dtype=torch.int32, device=points.device)
+    new_c = torch.empty_like(centroids)
+    _launch("kmeans", _build.library("kmeans").rtpu_kmeans_update, points,
+            points.data_ptr(), weights.data_ptr(), centroids.data_ptr(), assign.contiguous().data_ptr(), n, w, l,
+            scratch.data_ptr(), new_c.data_ptr())
+    return new_c
+
+
+def kmeans_step(points, weights, centroids):
+    """One Lloyd iteration of the IVF coarse quantizer over points (N, W)
+    float32 with weights (N,) (0 for a dead row): kmeans_assign, then
+    kmeans_update.  Returns (new centroids (L, W) float32, assignment (N,)
+    int32, -1 for a dead row)."""
+    assign = kmeans_assign(points, weights, centroids)
+    return kmeans_update(points, weights, centroids, assign), assign
+
+
+# Row-bank writes and growth (the embedding banks' and the numeric plane's
+# ingest): torch ops, as they only bitcast, reshape and scatter rows.  A
+# packed upload (P, cols) holds 32-bit words as int32: col 0 the row index,
+# col 1 the row's new bias bits (0.0 live, +inf dead), then the row lanes
+# (FLOAT16: two a word, INT8: four a word after a scale column, least
+# significant first, numpy's .view(np.uint32) packing on little-endian).
+# Rows past n_valid and indexes outside the bank are dropped.  The writes
+# are in place and return the planes they were given.
+
+def _packed_rows(packed, n_valid: int, cap: int):
+    rows = packed[: max(0, min(int(n_valid), packed.shape[0]))]
+    idx = rows[:, 0].to(torch.int64)
+    keep = (idx >= 0) & (idx < cap)
+    return rows[keep], idx[keep]
+
+
+def _words_as(words, dtype):
+    return words.contiguous().view(dtype)
+
+
+def rowbank_write_packed(bank, bias, packed, n_valid: int):
+    rows, idx = _packed_rows(packed, n_valid, bank.shape[0])
+    bank[idx] = _words_as(rows[:, 2:], torch.float32)
+    bias[idx] = _words_as(rows[:, 1:2], torch.float32).reshape(-1)
+    return bank, bias
+
+
+def rowbank_write_packed_f16(bank, bias, packed, n_valid: int):
+    rows, idx = _packed_rows(packed, n_valid, bank.shape[0])
+    bank[idx] = _words_as(rows[:, 2:], torch.float16)
+    bias[idx] = _words_as(rows[:, 1:2], torch.float32).reshape(-1)
+    return bank, bias
+
+
+def rowbank_write_packed_i8(bank, scale, bias, packed, n_valid: int):
+    rows, idx = _packed_rows(packed, n_valid, bank.shape[0])
+    bank[idx] = _words_as(rows[:, 3:], torch.int8)
+    scale[idx] = _words_as(rows[:, 2:3], torch.float32).reshape(-1)
+    bias[idx] = _words_as(rows[:, 1:2], torch.float32).reshape(-1)
+    return bank, scale, bias
+
+
+def rowbank_grow(bank, bias, grown_bank, grown_bias):
+    """Copy a bank and its bias into the first rows of larger zeroed planes."""
+    c = bank.shape[0]
+    grown_bank[:c] = bank
+    grown_bias[:c] = bias
+    return grown_bank, grown_bias
+
+
+def rowbank_grow_plane(plane, grown):
+    grown[: plane.shape[0]] = plane
+    return grown

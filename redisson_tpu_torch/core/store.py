@@ -9,14 +9,18 @@ tensor where they write out of place (the HLL merges).
 
 A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
 window, device placement and the residency tiers, which later slices port.
+With no absent guard, the ``*_unguarded`` accessors (which the reference
+keeps for transfer frames and the vector banks' own records) behave as
+``get``/``put``/``delete`` do.
 """
 from __future__ import annotations
 
+import fnmatch
 import secrets
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclass
@@ -75,9 +79,27 @@ class DeviceStore:
         with self._lock:
             self._states[name] = rec
 
+    put_unguarded = put
+
     def delete(self, name: str) -> bool:
         with self._lock:
             return self._states.pop(name, None) is not None
+
+    delete_unguarded = delete
+
+    def get_unguarded(self, name: str) -> Optional[StateRecord]:
+        """get() without the reference's absent guard; an expired record is
+        dropped and reads as absent."""
+        return self.get(name)
+
+    def keys(self, pattern: Optional[str] = None) -> List[str]:
+        """SCAN/KEYS analog: the names of the records that have not expired,
+        matching the glob `pattern` when one is given."""
+        with self._lock:
+            names = [n for n, r in list(self._states.items()) if not r.expired()]
+        if pattern is None or pattern == "*":
+            return names
+        return [n for n in names if fnmatch.fnmatchcase(n, pattern)]
 
     def exists(self, name: str) -> bool:
         return self.get(name) is not None

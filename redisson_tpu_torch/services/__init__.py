@@ -1,1 +1,2 @@
-"""Services over the object layer: MapReduce (``services/mapreduce.py``)."""
+"""Services over the object layer: MapReduce (``services/mapreduce.py``) and
+search with vector KNN (``services/search.py``, ``services/vector.py``)."""

@@ -426,9 +426,21 @@ def test_wrappers_raise_on_mixed_devices_and_count_launches(dev):
         K.wc_sort_runs(ha, hb.cpu(), st, 16)
     with pytest.raises(ValueError):
         K.segment_reduce(idx.cpu(), idx, 4)
+    bank = torch.randn((64, 8), device=dev)
+    bias = torch.zeros(64, device=dev)
+    q = torch.randn((4, 8), device=dev)
+    K.knn_topk(bank, bias, q, 64, 3, "L2")                  # score + select
+    cells = torch.arange(64, dtype=torch.int32, device=dev).reshape(4, 16)
+    K.knn_ivf_topk(bank, bias, bank[:4].clone(), cells, q, 64, 3, 2, "IP")  # 2 x (score|ivf + select)
+    K.kmeans_step(bank, torch.ones(64, device=dev), bank[:4].clone())
+    with pytest.raises(ValueError):
+        K.knn_topk(bank, bias.cpu(), q, 64, 3, "L2")
+    with pytest.raises(ValueError):
+        K.knn_select(q, 9)
     assert K.launches == {"bloom_probe": 2, "bloom_set": 1, "bloom_add": 1, "hll_add": 1, "hll_rows": 1,
                           "bitset_get": 1, "bitset_set": 1, "wc_words": 2, "wc_sort_runs": 1,
-                          "segment_reduce": 1}
+                          "segment_reduce": 1, "knn_score": 2, "knn_select": 3, "ivf_score": 1,
+                          "kmeans": 2}
 
 
 def test_facade_on_the_card_matches_the_cpu(dev):
@@ -759,3 +771,285 @@ def test_device_word_count_past_d_max_sorts_again_on_the_card(dev):
     assert MR.device_word_count(vals, d_max_bits=8) == MR._host_word_count(vals)
     assert K.launches["wc_sort_runs"] == 2
     assert MR.STATS == {"device_scans": 1, "view_hits": 0, "host_fallbacks": 0}
+
+
+# -- vector search: knn_score, knn_select, ivf_score, kmeans ------------------
+
+
+def _vec_bank(rng, cap, w, dtype, dev):
+    rows = rng.standard_normal((cap, w)).astype(np.float32)
+    rows[5:8] = rows[1:4]  # exact duplicates: ties
+    rows[9] = 0.0
+    scale = None
+    if dtype == "FLOAT16":
+        bank = torch.from_numpy(rows.astype(np.float16))
+    elif dtype == "INT8":
+        sc = np.abs(rows).max(1) / 127.0
+        sc[sc == 0] = 1.0
+        bank = torch.from_numpy(np.clip(np.rint(rows / sc[:, None]), -127, 127).astype(np.int8))
+        scale = torch.from_numpy(sc.astype(np.float32)).to(dev)
+    else:
+        bank = torch.from_numpy(rows)
+    return bank.to(dev), scale
+
+
+def _dist_scale(rows, q, metric):
+    """The size of the terms a distance is made of: |q|^2 + |b|^2 for L2,
+    |q| |b| for IP, 1 for COSINE."""
+    if metric == "L2":
+        return float((q * q).sum(1).max() + (rows * rows).sum(1).max())
+    if metric == "IP":
+        return max(1.0, float(q.norm(dim=1).max() * rows.norm(dim=1).max()))
+    return 1.0
+
+
+def _near(got, want, scale):
+    """Within 1e-5 of the distance's scale: the kernel and torch add a dot
+    product's terms in different orders."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    err = ((got - want).abs() / scale)[fin]
+    assert err.numel() == 0 or float(err.max()) <= 1e-5, float(err.max())
+
+
+def _ids_outside_near_ties(got_i, want_i, want_d, tol=1e-5):
+    """Ids equal wherever the plain version's distances leave a gap above
+    tol (relative) on both sides of the place; +inf places not compared."""
+    d = want_d.double()
+    gap = (d[:, 1:] - d[:, :-1]).abs() > tol * d[:, 1:].abs().clamp(min=1.0)
+    ok = torch.ones_like(d, dtype=torch.bool)
+    ok[:, 1:] &= gap
+    ok[:, :-1] &= gap
+    ok &= torch.isfinite(d)
+    assert torch.equal(got_i[ok], want_i[ok])
+
+
+@pytest.mark.parametrize("qn", [1, 8, 64, 65])
+@pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
+@pytest.mark.parametrize("metric", ["L2", "COSINE", "IP"])
+def test_knn_score_matches_plain(dev, metric, dtype, qn):
+    rng = np.random.default_rng(qn)
+    cap, w = 1000, 70  # W not a multiple of the 32-lane depth step
+    bank, scale = _vec_bank(rng, cap, w, dtype, dev)
+    bias = torch.zeros(cap, device=dev)
+    bias[[3, 500]] = float("inf")
+    q = torch.from_numpy(rng.standard_normal((qn, w)).astype(np.float32)).to(dev)
+    q[0] = 0.0
+    qbias = torch.where(torch.rand((qn, cap), device=dev) < 0.2, float("inf"), 0.0)
+    for qb in (None, qbias):
+        got = K.knn_score(bank, scale, bias, qb, q, 900, metric)
+        want = K.knn_score_plain(bank, scale, bias, qb, q, 900, metric)
+        torch.cuda.synchronize()
+        s = _dist_scale(K._bank_f32(bank, scale), q, metric)
+        _near(got, want, s)
+        assert torch.isinf(got[:, 900:]).all() and torch.isinf(got[:, 3]).all()
+
+
+@pytest.mark.parametrize("n", [1, 31, 4096, 4097, 70001])
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 256, 257, 700])
+def test_knn_select_matches_plain(dev, n, k):
+    if k > n:
+        k = n
+    rng = np.random.default_rng(n * 1000 + k)
+    d = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(dev)
+    d[0] = 1.0                       # one value: every tie to the lower column
+    d[1, ::3] = float("inf")
+    d[2] = float("inf")
+    d[3, ::2] = float(d[3, 0])
+    d[4, : n // 2] = -0.0
+    ids = torch.from_numpy(rng.integers(0, 2**31 - 1, (5, n)).astype(np.int32)).to(dev)
+    for with_ids in (None, ids):
+        gv, gi = K.knn_select(d, k, with_ids)
+        wv, wi = K.knn_select_plain(d, k, with_ids)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
+@pytest.mark.parametrize("metric", ["L2", "COSINE", "IP"])
+def test_ivf_route_score_and_select_match_plain(dev, metric, dtype):
+    rng = np.random.default_rng(7)
+    cap, w, nlist, ccap, qn, n_rows = 2000, 36, 24, 112, 64, 1900
+    bank, scale = _vec_bank(rng, cap, w, dtype, dev)
+    bias = torch.zeros(cap, device=dev)
+    bias[::97] = float("inf")
+    cells = np.full((nlist, ccap), 0x3FFFFFFF, np.int32)
+    assign = rng.integers(0, nlist, cap)
+    for c in range(nlist):
+        m = np.nonzero(assign == c)[0][:ccap]
+        cells[c, : m.size] = m
+    cells = torch.from_numpy(cells).to(dev)
+    cent = torch.from_numpy(rng.standard_normal((nlist, w)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((qn, w)).astype(np.float32)).to(dev)
+    qmask = torch.where(torch.rand(cap, device=dev) < 0.3, float("inf"), 0.0)
+    route = K.knn_score(cent, None, None, None, q, nlist, metric)
+    _, probe = K.knn_select(route, 4)
+    for qm in (None, qmask):
+        gd, gids = K.ivf_score(bank, scale, bias, qm, cells, probe, q, n_rows, metric)
+        wd, wids = K.ivf_score_plain(bank, scale, bias, qm, cells, probe, q, n_rows, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(gids, wids)
+        s = _dist_scale(K._bank_f32(bank, scale), q, metric)
+        _near(gd, wd, s)
+        for k in (1, 10, 4 * ccap):
+            gv, gi = K.knn_ivf_topk_masked_q(bank, scale, bias, qm if qm is not None else torch.zeros_like(bias),
+                                             cent, cells, q, n_rows, k, 4, metric) if scale is not None else \
+                K.knn_ivf_topk_masked(bank, bias, qm if qm is not None else torch.zeros_like(bias), cent, cells, q,
+                                      n_rows, k, 4, metric)
+            pv, pi = K.knn_select_plain(wd, k, wids)
+            _near(gv, pv, s)
+            _ids_outside_near_ties(gi, pi, pv)
+
+
+def test_knn_topk_edges_on_the_card(dev):
+    """k above the live rows, every row dead, exact duplicates, n_rows
+    below capacity, k = 1 and k = cap, against the plain version."""
+    rng = np.random.default_rng(3)
+    bank, _ = _vec_bank(rng, 512, 16, "FLOAT32", dev)
+    q = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).to(dev)
+    q[1] = bank[5]
+    live = torch.zeros(512, device=dev)
+    dead = torch.full((512,), float("inf"), device=dev)
+    for bias, n_rows, k in ((live, 300, 400), (dead, 512, 5), (live, 512, 1), (live, 512, 512), (live, 17, 10)):
+        gv, gi = K.knn_topk(bank, bias, q, n_rows, k, "L2")
+        pv, pi = K.knn_select_plain(K.knn_score_plain(bank, None, bias, None, q, n_rows, "L2"), k)
+        torch.cuda.synchronize()
+        s = _dist_scale(bank, q, "L2")
+        _near(gv, pv, s)
+        _ids_outside_near_ties(gi, pi, pv)
+        assert int(torch.isfinite(gv).sum(1).max()) == min(k, n_rows if bias is live else 0)
+    gv, gi = K.knn_topk(bank, live, q, 512, 2, "L2")
+    assert gi[1].tolist() == [1, 5]  # the duplicate pair, lower index first
+
+
+@pytest.mark.parametrize("shape", [(5000, 64, 100), (3000, 130, 7), (700, 1024, 3)])
+def test_kmeans_step_matches_plain_and_repeats_its_bits(dev, shape):
+    n, w, nlist = shape
+    rng = np.random.default_rng(n)
+    centers = rng.standard_normal((nlist, w)).astype(np.float32) * 3
+    pts = (centers[rng.integers(nlist, size=n)] + 0.5 * rng.standard_normal((n, w))).astype(np.float32)
+    weights = np.ones(n, np.float32)
+    weights[rng.choice(n, n // 10, replace=False)] = 0.0
+    pts[weights == 0] = 0.0
+    cent = pts[np.sort(rng.choice(np.nonzero(weights)[0], nlist, replace=False))].copy()
+    p, wt, c = (torch.from_numpy(a).to(dev) for a in (pts, weights, cent))
+    gc, ga = K.kmeans_step(p, wt, c)
+    gc2, ga2 = K.kmeans_step(p, wt, c)
+    wc, wa = K.kmeans_step_plain(p, wt, c)
+    torch.cuda.synchronize()
+    assert torch.equal(gc.view(torch.int32), gc2.view(torch.int32)) and torch.equal(ga, ga2)
+    d = ((p * p).sum(1)[:, None] - 2 * (p @ c.T) + (c * c).sum(1)[None, :]).double()
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    clear = (two[:, 1] - two[:, 0]) > 1e-4 * two[:, 0].abs().clamp(min=1.0)
+    assert torch.equal(ga[clear], wa[clear]) and torch.equal(ga == -1, wt == 0)
+    # the cells a differing point leaves or joins may differ; every other
+    # centroid is held to the plain version's
+    moved = torch.zeros(nlist, dtype=torch.bool, device=dev)
+    diff = (ga != wa).nonzero().reshape(-1)
+    moved[ga[diff].long().clamp(min=0)] = True
+    moved[wa[diff].long().clamp(min=0)] = True
+    assert int((~moved).sum()) > 0
+    err = float((gc[~moved] - wc[~moved]).abs().max()) / float(wc.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 20000])
+def test_kmeans_update_buckets_in_row_order(dev, n):
+    """The update on given assignments (dead rows, empty cells, one cell
+    holding most rows, N off the 256-row chunks): the plain version's means,
+    the same bits on a second run."""
+    rng = np.random.default_rng(n)
+    nlist, w = 9, 40
+    pts = torch.from_numpy(rng.standard_normal((n, w)).astype(np.float32)).to(dev)
+    weights = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32)).to(dev)
+    cent = torch.from_numpy(rng.standard_normal((nlist, w)).astype(np.float32)).to(dev)
+    cells = np.where(rng.random(n) < 0.7, 4, rng.integers(0, 3, size=n)).astype(np.int32)  # 3, 5-8 stay empty
+    assign = torch.from_numpy(cells).to(dev)
+    assign[weights == 0] = -1
+    got = K.kmeans_update(pts, weights, cent, assign)
+    again = K.kmeans_update(pts, weights, cent, assign)
+    want = K.kmeans_update_plain(pts, weights, cent, assign)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got[5:], cent[5:]) and torch.equal(got[3], cent[3])
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _replies_agree(a, b, tol=1e-4):
+    """Equal replies, but for docs that a near-tie swapped: at a place where
+    the doc ids differ, the two (canonical, host-computed) scores must be
+    within tol relative of each other."""
+    assert len(a) == len(b)
+    for call_a, call_b in zip(a, b):  # one knn call: a list per query
+        assert len(call_a) == len(call_b)
+        for ra, rb in zip(call_a, call_b):
+            assert len(ra) == len(rb), (ra, rb)
+            for (da, sa), (db, sb) in zip(ra, rb):
+                if da == db:
+                    assert sa == sb, (da, sa, sb)
+                else:
+                    assert abs(sa - sb) <= tol * max(1.0, abs(sa)), ((da, sa), (db, sb))
+
+
+def test_search_on_the_card_matches_the_cpu_and_counts_launches(dev):
+    """FLAT and IVF in every dtype, plain and hybrid, on the card and on the
+    CPU: equal replies outside near-ties.  The CPU run installs the card's
+    trained IVF index (its own k-means may differ in the last bits), and the
+    IVF queries are those whose nprobe-th and next centroid differ by more
+    than 1e-4 (relative, in float64), so both probe the same cells."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.services.search import Range
+
+    def route_clear(cent, q, nprobe):
+        c64, q64 = cent.astype(np.float64), q.astype(np.float64)
+        cos = (q64 @ c64.T) / (np.linalg.norm(q64, axis=1)[:, None] * np.linalg.norm(c64, axis=1)[None, :])
+        d = np.sort(1.0 - cos, axis=1)
+        return (d[:, nprobe] - d[:, nprobe - 1]) > 1e-4 * np.maximum(1.0, np.abs(d[:, nprobe]))
+
+    def stream(client, counts, snaps):
+        rng = np.random.default_rng(9)
+        svc = client.get_search()
+        centers = rng.standard_normal((16, 24)).astype(np.float32)
+        out = []
+        for algo in ("FLAT", "IVF"):
+            for dtype in ("FLOAT32", "FLOAT16", "INT8"):
+                name = f"{algo}{dtype}"
+                spec = {"dim": 24, "metric": "COSINE", "dtype": dtype, "algo": algo}
+                if algo == "IVF":
+                    spec.update(nlist=16, nprobe=4, train_min=256)
+                svc.create_index(name, {"price": "NUMERIC", "emb": "VECTOR"}, vector={"emb": spec})
+                vecs = (centers[rng.integers(16, size=1200)] + 0.3 * rng.standard_normal((1200, 24))).astype(np.float32)
+                for i in range(1200):
+                    svc.add_document(name, f"d{i}", {"price": i, "emb": vecs[i]})
+                if counts is not None:
+                    K.reset_launches()
+                bank = svc._idx(name).vectors.banks["emb"]
+                q = vecs[:20] + 0.01
+                if algo == "IVF":
+                    ivf = bank._ivf
+                    if counts is not None:
+                        bank.retrain()
+                        snaps[name] = (ivf.centroids.copy(), ivf.assign.copy(), ivf.trained_rows)
+                    else:
+                        cent, assign, ivf.trained_rows = snaps[name]
+                        ivf.centroids, ivf.assign = cent.copy(), assign.copy()
+                        ivf.dirty_rows.clear()
+                        ivf.cells_stale = True
+                    q = q[route_clear(ivf.centroids, q, 4)]
+                    assert q.shape[0] >= 10
+                dev_, fin = svc.knn(name, "emb", q, 10)
+                out.append(fin(dev_))
+                dev_, fin = svc.knn(name, "emb", q, 10, condition=Range("price", hi=600))
+                out.append(fin(dev_))
+                if counts is not None:
+                    counts[name] = dict(K.launches)
+        return out
+
+    counts, snaps = {}, {}
+    on_card = stream(redisson_tpu_torch.create(), counts, snaps)
+    on_cpu = stream(redisson_tpu_torch.create(device="cpu"), None, snaps)
+    _replies_agree(on_card, on_cpu)
+    for name, c in counts.items():
+        assert c["knn_score"] >= 2 and c["knn_select"] >= 2, (name, c)
+        if name.startswith("IVF"):
+            assert c["ivf_score"] == 2 and c["kmeans"] == 2 * 6, (name, c)  # assign + update, 6 steps

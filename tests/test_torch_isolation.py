@@ -25,6 +25,11 @@ def _modules():
     return names
 
 
+def test_the_walk_covers_the_search_modules():
+    assert {"redisson_tpu_torch.services.vector", "redisson_tpu_torch.services.search",
+            "redisson_tpu_torch.net.resp"} <= set(_modules())
+
+
 def test_every_module_imports_with_jax_and_the_reference_blocked():
     script = f"""
 import sys
@@ -106,6 +111,13 @@ def test_cpu_run_leaves_launch_counters_at_zero():
     assert MR.word_count(m) == MR.word_count(m) == {"x": 2, "y": 2}
     kmr = MR.KernelMapReduce(lambda v: (v % 3, v), "sum", 3, device="cpu")
     assert kmr.execute(np.arange(6, dtype=np.int32)).tolist() == [3, 5, 7]
+    svc = c.get_search()
+    svc.create_index("v", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "algo": "IVF", "nlist": 2, "train_min": 8}})
+    for i in range(12):
+        svc.add_document("v", f"d{i}", {"emb": np.arange(4, dtype=np.float32) + i})
+    dev, fin = svc.knn("v", "emb", np.ones(4, np.float32), 3)
+    assert [d for d, _s in fin(dev)[0]] and svc._idx("v").vectors.banks["emb"].ivf_ready()
     assert K.launches == {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
                           "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
-                          "segment_reduce": 0}
+                          "segment_reduce": 0, "knn_score": 0, "knn_select": 0, "ivf_score": 0,
+                          "kmeans": 0}

@@ -35,9 +35,13 @@ Phases (any failure raises and the script exits non-zero):
      out-of-range keys, beside scatter_reduce_; the vector kernels
      (check_vector): knn_score and knn_select in every metric, dtype and
      mask at config 7's 50,000 x 128 point, timed at config 7's points and
-     at 1,000,000 x 128 L2 beside torch.matmul (TF32 off) and torch.topk,
-     and at the edges (k above the live rows, every row dead, duplicates,
-     n_rows below capacity, k = 1, k = cap, k past a round of 256);
+     at 1,000,000 x 128 L2 beside torch.matmul (TF32 off) and torch.topk
+     (knn_score also by its tile route there, and by both of its routes,
+     each checked, at 8 queries against the 1M bank, 1 against 65,536
+     rows, the IVF route's 64 queries against 1,536 centroids, the narrow
+     bank's edge, INT8 and FLOAT16 banks and W 70), and at the edges (k
+     above the live rows, every row dead, duplicates, n_rows below
+     capacity, k = 1, k = cap, k past a round of 256);
      ivf_score at config 7's IVF leg (nlist 1,536, nprobe 2, 4, 8); kmeans
      at 50,000 x 128 x 1,536, two runs equal bit for bit, assign and
      update timed apart;
@@ -981,9 +985,10 @@ def check_wordcount(dev, rng, values: list) -> dict:
             "plain_ms": time_plain(lambda i: K.wc_sort_runs_plain(ha, hb, st, WC_D_MAX)),
             "library_ms": time_kernel(lambda i: torch.sort(key, stable=True))}
     sort["bound_ms"], sort["bound_by"] = bound_ms(12 * n_rows + 8 * d, 0)
-    # the design's own bytes: the pack (24 a row), 8 passes of a digit count
-    # (8) and a scatter (24), the run count (8) and the partition (12 + 8)
-    sort["passes_bound_ms"], _ = bound_ms((24 + 8 * 32 + 28) * n_rows + 8 * d, 0)
+    # the one-sweep design's own bytes: the histogram of every pass's digits
+    # (8 a row), 8 passes that each read a key and a start and write them
+    # (24), the run count (8) and the partition (12, and 8 an output row)
+    sort["design_bound_ms"], _ = bound_ms((8 + 8 * 24 + 8 + 12) * n_rows + 8 * d, 0)
     sort.update(max_abs_err=err, checked=checked, shape=f"config 4's stream: {n_rows} rows, d_max 2**17")
     del ha, hb, st, parts, key
 
@@ -1031,8 +1036,9 @@ def check_wordcount(dev, rng, values: list) -> dict:
     # the launches one wrapper call makes (csrc/wordcount.cu, csrc/segment.cu)
     per_call = {"wc_words": "4 launches a call: end count, scan, end write, words (the delta form: a "
                             "3-launch scan, words)",
-                "wc_sort_runs": "44 launches a call: pack, 8 x (digit count, 3-launch scan, scatter), "
-                                "run count, scan, partition",
+                "wc_sort_runs": "12 launches a call (and a memset of the look-back status): a histogram "
+                                "of every pass's digits, 8 one-sweep passes (tile ticket, rank, decoupled "
+                                "look-back, write in digit order), run count, scan, partition",
                 "segment_reduce": "2 launches a call: fill, reduce"}
     for name, r in (("wc_words", words), ("wc_sort_runs", sort), ("segment_reduce", seg)):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -1040,7 +1046,7 @@ def check_wordcount(dev, rng, values: list) -> dict:
         log(f"kernel {name} ({per_call[name]}): {r['ms']:.4f} ms at {r['shape']} (plain {r['plain_ms']:.3f} ms, "
             f"library {lib}, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
-            + (f", the radix design's bytes {r['passes_bound_ms']:.4f} ms" if "passes_bound_ms" in r else "")
+            + (f", the one-sweep design's bytes {r['design_bound_ms']:.4f} ms" if "design_bound_ms" in r else "")
             + (f", delta form {r['deltas_ms']:.4f} ms (plain {r['deltas_plain_ms']:.3f}, bound "
                f"{r['deltas_bound_ms']:.4f})" if "deltas_ms" in r else "")
             + f"); equal to plain at {r['checked']}")
@@ -1138,7 +1144,10 @@ def check_vector(dev, rng) -> dict:
     cells from a k-means of the clustered corpus); kmeans at 50,000 x 128 x
     1,536, twice with equal bits.  Times beside the bound, the plain
     versions' and the library calls' (torch.matmul with TF32 off,
-    torch.topk)."""
+    torch.topk); knn_score's chosen route beside its tile route at the
+    timed shapes, and both routes, each checked, at more shapes (8 queries
+    against the 1M bank, 1 against 65,536 rows, the IVF route, the narrow
+    bank's edge, INT8, FLOAT16, W 70)."""
     from redisson_tpu_torch.core import kernels as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1216,10 +1225,16 @@ def check_vector(dev, rng) -> dict:
         assert_equal(f"knn_select ids {n} x {w}", gi, pi)
         wv, wi = K.knn_select_plain(want, k)
         assert_ids_outside_near_ties(f"knn_topk {n} x {w}", gi, wi, wv)
-        del want
+        tile = K.knn_score(bank, None, bias, None, q, n, metric, route=K.KNN_TILE)
+        score_err = max(score_err, assert_near(f"knn_score {n} x {w} by the tile route", tile, want,
+                                               dist_scale(bank, q, metric)))
+        del want, tile
         qbias = torch.zeros((C7_QB, c), device=dev)
         t = {"shape": f"{n} of {c} rows x {w} float32, {metric}, Qb {C7_QB}, k {k}",
+             "score_route": K.knn_score_route(bank, q),
              "score_ms": time_kernel(lambda i: K.knn_score(bank, None, bias, None, q, n, metric)),
+             "score_tile_ms": time_kernel(lambda i: K.knn_score(bank, None, bias, None, q, n, metric,
+                                                                route=K.KNN_TILE)),
              "score_masked_ms": time_kernel(lambda i: K.knn_score(bank, None, bias, qbias, q, n, metric)),
              "score_plain_ms": time_plain(lambda i: K.knn_score_plain(bank, None, bias, None, q, n, metric)),
              "matmul_ms": time_kernel(lambda i: torch.matmul(q, bank.T)),
@@ -1230,7 +1245,8 @@ def check_vector(dev, rng) -> dict:
                                                             2 * C7_QB * c * w + 2 * (C7_QB + c) * w)
         t["select_bound_ms"], t["select_bound_by"] = bound_ms(4 * C7_QB * c + 8 * C7_QB * k, C7_QB * c)
         timed.append(t)
-        log(f"knn at {t['shape']}: knn_score {t['score_ms']:.4f} ms (with a per-query bias "
+        log(f"knn at {t['shape']}: knn_score {t['score_ms']:.4f} ms by route {t['score_route']} (the tile route "
+            f"{t['score_tile_ms']:.4f}; with a per-query bias "
             f"{t['score_masked_ms']:.4f}; plain {t['score_plain_ms']:.3f}; torch.matmul {t['matmul_ms']:.4f}; "
             f"bound {t['score_bound_ms']:.4f} by {t['score_bound_by']}), knn_select {t['select_ms']:.4f} ms "
             f"(plain {t['select_plain_ms']:.3f}; torch.topk {t['topk_ms']:.4f}; bound {t['select_bound_ms']:.4f})")
@@ -1238,6 +1254,47 @@ def check_vector(dev, rng) -> dict:
         torch.cuda.empty_cache()
     checked_s.append("config 7's points (COSINE) and 1,000,000 x 128 L2, Qb 64")
     checked_k.append("the same three matrices, k 10")
+    # -- knn_score's routes at more shapes: R <= 8 (8 queries against the 1M
+    # bank, 1 against 65,536 rows), the IVF route (64 queries against config
+    # 7's 1,536 centroids), the narrow bank's edge, INT8 and FLOAT16 banks and
+    # a width whose rows take element loads; both designs checked, then timed
+    routes = {}
+    n50, w128 = C7_POINTS[1][:2]
+    for label, r, n, c, w, dtype, metric in (
+            ("r8", 8, C7_SIFT[0], c7_cap(C7_SIFT[0]), w128, "FLOAT32", "L2"),
+            ("r1", 1, c7_cap(n50), c7_cap(n50), w128, "FLOAT32", "L2"),
+            ("ivf_route", C7_QB, C7_NLIST, C7_NLIST, w128, "FLOAT32", "COSINE"),
+            ("narrow_edge", C7_QB, K.KNN_NARROW_ROWS, K.KNN_NARROW_ROWS, w128, "FLOAT32", "COSINE"),
+            ("int8", C7_QB, n50, c7_cap(n50), w128, "INT8", "COSINE"),
+            ("float16", C7_QB, n50, c7_cap(n50), w128, "FLOAT16", "COSINE"),
+            ("w70", C7_QB, n50, c7_cap(n50), 70, "FLOAT32", "L2")):
+        bank, scale = vec_bank(rng, c, w, dtype, dev)
+        q = torch.from_numpy(rng.standard_normal((r, w), dtype=np.float32)).to(dev)
+        want = K.knn_score_plain(bank, scale, None, None, q, n, metric)
+        s = dist_scale(K._bank_f32(bank, scale), q, metric)
+        stream = K.knn_score_route(bank, q[:1])  # one query streams: 16-byte copies where the rows allow
+        t = {"shape": f"{r} queries x {n} of {c} rows x {w} {dtype}, {metric}", "route": K.knn_score_route(bank, q),
+             "stream_route": stream}
+        for name, route in (("tile", K.KNN_TILE), ("stream", stream)):
+            got = K.knn_score(bank, scale, None, None, q, n, metric, route=route)
+            t[f"{name}_err"] = assert_near(f"knn_score {label} by route {route}", got, want, s)
+            score_err = max(score_err, t[f"{name}_err"])
+        t["ms"] = time_kernel(lambda i: K.knn_score(bank, scale, None, None, q, n, metric))
+        t["tile_ms"] = time_kernel(lambda i: K.knn_score(bank, scale, None, None, q, n, metric, route=K.KNN_TILE))
+        t["stream_ms"] = time_kernel(lambda i: K.knn_score(bank, scale, None, None, q, n, metric, route=stream))
+        t["plain_ms"] = time_plain(lambda i: K.knn_score_plain(bank, scale, None, None, q, n, metric))
+        rows = K._bank_f32(bank, scale)
+        t["matmul_ms"] = time_kernel(lambda i: torch.matmul(q, rows.T))
+        t["bound_ms"], _ = bound_ms(knn_bytes(bank, scale, None, None, r, c, w), 2 * r * c * w + 2 * (r + c) * w)
+        routes[label] = t
+        log(f"knn_score at {t['shape']}: {t['ms']:.4f} ms by route {t['route']} (the tile route "
+            f"{t['tile_ms']:.4f}, the streamed route {stream} {t['stream_ms']:.4f}; plain {t['plain_ms']:.3f}; "
+            f"torch.matmul of the float32 rows {t['matmul_ms']:.4f}; bound {t['bound_ms']:.4f}); both routes "
+            f"within {DIST_TOL} of scale (errors {t['tile_err']:.3g}, {t['stream_err']:.3g})")
+        del bank, scale, q, got, want, rows
+        torch.cuda.empty_cache()
+    checked_s.append("both routes at 8 queries x the 1M bank and 1 x 65,536 rows (L2), 64 x 1,536 centroids and "
+                     "64 x 16,384 rows (COSINE), INT8 and FLOAT16 banks at 50,000 x 128, W 70 at 50,000 rows")
 
     # -- ivf_score at config 7's IVF leg; kmeans at 50,000 x 128 x 1,536 ------------
     n, w, nlist = C7_POINTS[1][0], C7_POINTS[1][1], C7_NLIST
@@ -1328,7 +1385,11 @@ def check_vector(dev, rng) -> dict:
              "bound_ms": big["score_bound_ms"], "bound_by": big["score_bound_by"], "max_abs_err": score_err,
              "c7_ms": c7["score_ms"], "c7_bound_ms": c7["score_bound_ms"], "c7_plain_ms": c7["score_plain_ms"],
              "c7_library_ms": c7["matmul_ms"], "c7_20k_ms": timed[0]["score_ms"],
-             "masked_ms": big["score_masked_ms"], "checked": checked_s, "shape": big["shape"],
+             "c7_20k_library_ms": timed[0]["matmul_ms"], "masked_ms": big["score_masked_ms"],
+             "tile_ms": big["score_tile_ms"], "c7_tile_ms": c7["score_tile_ms"],
+             "c7_20k_tile_ms": timed[0]["score_tile_ms"],
+             **{f"{label}_{key}": v for label, r in routes.items() for key, v in r.items() if key.endswith("ms")},
+             "checked": checked_s, "shape": big["shape"],
              "launches_per_call": "1 launch a call"}
     select = {"ms": big["select_ms"], "plain_ms": big["select_plain_ms"], "library_ms": big["topk_ms"],
               "bound_ms": big["select_bound_ms"], "bound_by": big["select_bound_by"], "max_abs_err": select_err,

@@ -52,7 +52,7 @@ SIGNATURES = {
         "rtpu_segment_reduce": [_P, _I, _P, _I, _I, _L, _L, _P, _P],
     },
     "knn": {
-        "rtpu_knn_score": [_P, _I, _P, _P, _P, _P, _L, _I, _L, _L, _I, _P, _P],
+        "rtpu_knn_score": [_P, _I, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P],
         "rtpu_knn_select": [_P, _L, _L, _I, _P, _P, _P, _P, _P],
         "rtpu_ivf_score": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _L, _I, _P, _P, _P],
     },
@@ -131,6 +131,9 @@ def library(name: str) -> ctypes.CDLL:
             if name == "bloom":
                 lib.rtpu_error_string.argtypes = [ctypes.c_int]
                 lib.rtpu_error_string.restype = ctypes.c_char_p
+            if name == "wordcount":
+                lib.rtpu_wc_sort_region_bytes.argtypes = [_L]
+                lib.rtpu_wc_sort_region_bytes.restype = ctypes.c_int64
             _libs[name] = lib
         return _libs[name]
 

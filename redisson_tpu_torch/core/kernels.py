@@ -27,13 +27,15 @@ Fourteen kernels carry every program here:
   wc_words     word count: each word's two 32-bit polynomial hashes and
                start from its end position, the ends found on the card
                (wc_extract_words_auto) or given as deltas (wc_extract_words)
-  wc_sort_runs word count: a stable radix sort of the 64-bit word hashes,
-               then each run's first row compacted to the front
+  wc_sort_runs word count: a stable one-sweep radix sort of the 64-bit
+               word hashes, then each run's first row compacted to the front
   segment_reduce  KernelMapReduce's shuffle and reduce: sum, max or min of
                int32 or float32 values into n_keys slots
   knn_score    KNN: the (Q, C) float32 distances of queries to a bank
                (float32, float16 or int8 rows widened in the kernel), the
-               metric, bias, the n_rows mask and a per-query bias in one pass
+               metric, bias, the n_rows mask and a per-query bias in one
+               pass; the bank streamed past a resident query block, or
+               tiled (knn_score_route)
   knn_select   KNN: each row's k smallest (distance, column), ties to the
                lower column (FLAT, the IVF route and the IVF candidates)
   ivf_score    IVF: the rows listed in each query's probed cells, scored
@@ -810,7 +812,6 @@ WC_SENTINEL = 0xFFFFFFFF
 WC_BIG = 0x7FFFFFFF
 # csrc/wordcount.cu kTile: rows (or bytes) a block of its scans takes
 WC_TILE = 4096
-_WC_BINS = 256
 
 
 def _wc_pow_table(p: int) -> torch.Tensor:
@@ -972,16 +973,17 @@ def wc_sort_runs(ha, hb, start, d_max: int):
     d = min(n, int(d_max))
     if d < 0:
         raise ValueError(f"d_max = {d_max}")
+    lib = _build.library("wordcount")
+    region_bytes = lib.rtpu_wc_sort_region_bytes(n)  # the look-back's zeroed scratch
     dev = ha.device
-    tiles = _wc_tiles(n)
     keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
     vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    hist = torch.empty(_WC_BINS * tiles + 1, dtype=torch.int32, device=dev)
-    scan = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
+    region = torch.empty(region_bytes, dtype=torch.uint8, device=dev)
+    scan = torch.empty(_wc_tiles(n) + 1, dtype=torch.int32, device=dev)
     out = torch.empty((2, d), dtype=torch.int32, device=dev)
-    _launch("wc_sort_runs", _build.library("wordcount").rtpu_wc_sort_runs, ha,
+    _launch("wc_sort_runs", lib.rtpu_wc_sort_runs, ha,
             ha.data_ptr(), hb.data_ptr(), start.data_ptr(), n, d, keys[0].data_ptr(),
-            vals[0].data_ptr(), keys[1].data_ptr(), vals[1].data_ptr(), hist.data_ptr(),
+            vals[0].data_ptr(), keys[1].data_ptr(), vals[1].data_ptr(), region.data_ptr(),
             scan.data_ptr(), out.data_ptr())
     return out
 
@@ -1123,11 +1125,34 @@ def _contig(t):
     return None if t is None else t.contiguous()
 
 
-def knn_score(bank, scale, bias, qbias, q, n_rows: int, metric: str):
+# csrc/knn.cu's two designs of knn_score: the tile route (tile_dots), and
+# the streamed route with element loads or with 16-byte copies (rows of a
+# multiple of 16 bytes on a 16-byte aligned bank), which takes W <= 256
+KNN_TILE, KNN_STREAM_ELEMS, KNN_STREAM_VEC = 0, 1, 2
+KNN_STREAM_MAX_W = 256
+KNN_NARROW_ROWS = 16384  # csrc/knn.cu kNarrowRows
+
+
+def knn_score_route(bank, q) -> int:
+    """The knn_score design for a bank (C, W) and queries (Q, W): the tile
+    route for rows wider than 256 and for more than 8 queries against a
+    narrow bank of at most 16,384 rows (the IVF route's centroids: a few
+    streamed tiles leave most SMs idle); the streamed route otherwise, with
+    16-byte copies where the rows and the bank's base allow them."""
+    c, w = bank.shape
+    if w > KNN_STREAM_MAX_W or (c <= KNN_NARROW_ROWS and q.shape[0] > 8):
+        return KNN_TILE
+    aligned = (w * bank.element_size()) % 16 == 0 and bank.data_ptr() % 16 == 0
+    return KNN_STREAM_VEC if aligned else KNN_STREAM_ELEMS
+
+
+def knn_score(bank, scale, bias, qbias, q, n_rows: int, metric: str, route: Optional[int] = None):
     """(Q, C) float32 distances of the queries q (Q, W) float32 to the rows
     of bank (C, W) float32, float16 or int8 (times scale (C,) when given),
     plus bias (C,) when given, +inf from row n_rows on, plus qbias (Q, C)
-    when given (0 keeps a row, +inf drops it)."""
+    when given (0 keeps a row, +inf drops it).  route: the card's design
+    (KNN_TILE, KNN_STREAM_ELEMS or KNN_STREAM_VEC), knn_score_route's by
+    default."""
     _bank_operands(bank, scale, bias, q, metric)
     _check_f32("qbias", qbias, (q.shape[0], bank.shape[0]), bank.device)
     if _route(bank) == "plain":
@@ -1138,7 +1163,7 @@ def knn_score(bank, scale, bias, qbias, q, n_rows: int, metric: str):
     _launch("knn_score", _build.library("knn").rtpu_knn_score, bank,
             bank.data_ptr(), _BANK_TYPES[bank.dtype], _ptr(scale), _ptr(bias), _ptr(qbias),
             q.data_ptr(), c, w, q.shape[0], max(0, min(int(n_rows), c)), KNN_METRICS.index(metric),
-            out.data_ptr())
+            knn_score_route(bank, q) if route is None else route, out.data_ptr())
     return out
 
 

@@ -1,7 +1,14 @@
-// The tiled float32 product shared by knn_score (csrc/knn.cu) and
-// kmeans_assign (csrc/kmeans.cu): the dot products of a tile of BQ query (or
-// point) rows against a tile of BC bank (or centroid) rows, with each row's
-// sum of squares taken in the same pass.
+// The tiled float32 product of knn_score's tile route (csrc/knn.cu: more
+// than 8 queries against a bank of at most 16,384 rows, the IVF route's
+// centroids, and rows wider than 256) and of kmeans_assign (csrc/kmeans.cu):
+// the dot products of a tile of BQ query (or point) rows against a tile of
+// BC bank (or centroid) rows, with each row's sum of squares taken in the
+// same pass.  It replaces the scoring of redisson_tpu/core/kernels.py
+// (_knn_distances :646, _bank_f32 :666) on those routes.  Bound on an H100:
+// the float32 FMAs; this simple design reaches ~30% of their peak, because
+// a block loads both operands a depth step at a time with 4-byte loads and
+// no overlap of loads and FMAs (about 3 FMAs a shared load).  knn_score's
+// wide banks take the streamed route of csrc/knn.cu instead.
 //
 // Every product is a float32 FMA on the CUDA cores, never TF32 or bf16 on
 // the tensor cores: those keep about three decimal digits and change which

@@ -26,21 +26,33 @@
 // starts' (index, start) in index order, then the other rows as
 // (0x7FFFFFFF, start) in sorted order.  That is what JAX's second stable
 // sort by the flag yields.  The first min(n, d_out) rows of both are the
-// (2, d_out) int32 result.  The sort is an LSD radix sort, 8 passes of 8
-// bits; a pass counts each tile's digits, scans the counts digit-major, and
-// scatters each tile stably: a warp ranks its own contiguous run of keys in
-// order with __match_any_sync.
+// (2, d_out) int32 result.  The sort is a one-sweep LSD radix sort (after
+// Adinets and Merrill's Onesweep): one kernel counts every pass's digits
+// from one read of the keys; each of 8 passes of 8-bit digits takes its
+// tile of 4,096 rows by an atomic ticket (so tiles are taken in order),
+// ranks it stably (each warp its 512 keys with __match_any_sync, then a scan
+// over the warps and the digits), publishes its digit counts, finds each
+// digit's global start by decoupled look-back over the tiles before it (16
+// status words a round trip), and writes the tile from shared memory in
+// digit order, consecutive threads to consecutive places of one digit's
+// run.  The first pass reads ha, hb and st directly.  11-bit digits (6
+// passes, 2,048 bins) were slower on the H100 and are not kept: a tile
+// spreads over 2,048 runs of about 2 keys, and the look-back walks 8
+// digits a thread (PERF.md).
 //
 // Bound on an H100: bytes.  The auto form reads the chunk three times with
 // byte loads (the end count, the end write, the words' walk back and
 // forward sum, the last two within a word served from L1/L2) and writes 12
-// bytes a row.  The sort moves ~32 bytes a row a pass (the digit count
-// reads the key; the scatter reads key and start and writes them) over 8
-// passes, plus the pack (24 a row) and the runs (28 a row, 8 an output
-// row).  A word longer than a few hundred bytes is walked by one thread:
-// correct, and slow only for such words.
+// bytes a row.  The sort's design moves 220 bytes a row: the histogram (8),
+// 8 passes that read a key and a start and write them (24 each), the run
+// count (8) and the partition (12, and 8 an output row).  Its passes run
+// at about 2 TB/s; what holds them below the HBM rate is each tile's
+// latency (ticket, loads, ranking, look-back, write) with two tiles a SM
+// in flight.  A word longer than a few hundred bytes is walked by one
+// thread: correct, and slow only for such words.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -49,16 +61,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;  // kernels.WC_TILE
-constexpr int kBins = 256;                // radix digits of 8 bits
-constexpr int kPasses = 8;
 constexpr int kPowCap = 63;
 constexpr uint32_t kPowA = 0x01000193u;  // FNV-32 prime
 constexpr uint32_t kPowB = 40503u;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr int32_t kBig = 0x7FFFFFFF;
 constexpr uint8_t kSpace = 32;
-
-static_assert(kThreads == kBins, "a pass's per-digit steps take one thread a digit");
 
 int64_t tiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
 
@@ -265,99 +273,219 @@ int row_blocks(int rows) {
 // wc_sort_runs
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(const uint32_t* __restrict__ ha, const uint32_t* __restrict__ hb,
-            const uint32_t* __restrict__ st, int64_t n, uint64_t* __restrict__ keys,
-            uint32_t* __restrict__ vals) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    keys[i] = ((uint64_t)ha[i] << 32) | hb[i];
-    vals[i] = st[i];
-  }
+// One-sweep LSD radix sort (Adinets and Merrill, "Onesweep", 2022) of the
+// key ha:hb, carrying start, in 8 passes of 8-bit digits: in a pass, each
+// thread of a block owns one digit.
+
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kPasses = 64 / kDigitBits;  // even: the sorted rows end in keys1/vals1
+static_assert(kBins == kThreads, "a thread owns one digit");
+// shared memory of a pass: the tile's keys and values in digit order, the
+// warps' digit counts, the tile's local starts and global shifts
+constexpr size_t kPassSmem = (size_t)kTile * 12 + sizeof(uint32_t) * (kWarps + 2) * kBins;
+constexpr int kLook = 16;  // status words a look-back step reads at once
+
+__device__ __forceinline__ uint32_t digit_of(uint64_t key, int shift) {
+  return (uint32_t)(key >> shift) & (uint32_t)(kBins - 1);
 }
 
-// Each tile's digit counts, digit-major: hist[d * tiles + t].
+// Every pass's digit counts from one read of the keys: block-private shared
+// counts over kHistTiles tiles (each thread's kItems loads in flight at
+// once), then one global atomic a nonzero bin.
+constexpr int kHistTiles = 4;
+
 __global__ void __launch_bounds__(kThreads)
-radix_hist_kernel(const uint64_t* __restrict__ keys, int64_t n, int shift, int64_t tiles,
-                  uint32_t* __restrict__ hist) {
-  __shared__ uint32_t h[kBins];
-  h[threadIdx.x] = 0;
+sort_hist_kernel(const uint32_t* __restrict__ ha, const uint32_t* __restrict__ hb, int64_t n,
+                 uint32_t* __restrict__ hist) {
+  __shared__ uint32_t h[kPasses * kBins];
+  for (int i = threadIdx.x; i < kPasses * kBins; i += kThreads) h[i] = 0;
   __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kTile;
+  for (int t = 0; t < kHistTiles; ++t) {
+    const int64_t base = ((int64_t)blockIdx.x * kHistTiles + t) * kTile + threadIdx.x;
+    uint64_t key[kItems];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + (int64_t)k * kThreads + threadIdx.x;
-    if (i < n) atomicAdd(&h[(keys[i] >> shift) & (kBins - 1)], 1u);
+    for (int k = 0; k < kItems; ++k) {
+      const int64_t i = base + k * kThreads;
+      key[k] = i < n ? ((uint64_t)ha[i] << 32) | hb[i] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k * kThreads >= n) break;
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) atomicAdd(&h[p * kBins + digit_of(key[k], p * kDigitBits)], 1u);
+    }
   }
   __syncthreads();
-  hist[(int64_t)threadIdx.x * tiles + blockIdx.x] = h[threadIdx.x];
+  for (int i = threadIdx.x; i < kPasses * kBins; i += kThreads)
+    if (h[i] != 0) atomicAdd(&hist[i], h[i]);
 }
 
-// Stable scatter of one tile by digit.  Warp w ranks keys [w*32*kItems,
-// (w+1)*32*kItems) of the tile in order, 32 at a time; a key's place is its
-// digit's offset for the tile (the scanned histogram), plus the keys of that
-// digit in earlier warps of the tile, plus its rank in its warp.
-__global__ void __launch_bounds__(kThreads)
-radix_scatter_kernel(const uint64_t* __restrict__ keys, const uint32_t* __restrict__ vals,
-                     int64_t n, int shift, int64_t tiles, const uint32_t* __restrict__ offsets,
-                     uint64_t* __restrict__ keys_out, uint32_t* __restrict__ vals_out) {
-  __shared__ uint32_t counts[kWarps][kBins];
+// A look-back status word: the count in the low 32 bits, above it the pass's
+// tag, 2 (pass + 1) for the tile's own count (an aggregate) and one more for
+// its inclusive prefix; any other tag (0 after the memset, or an earlier
+// pass's) is not yet written.
+__device__ __forceinline__ void status_store(uint64_t* at, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(at), "l"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t status_load(const uint64_t* at) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(at) : "memory");
+  return v;
+}
+
+// One pass: the tile of the next ticket, ranked by digit stably (each warp
+// ranks its 512 keys in order, then a scan over the warps and the digits),
+// its digit counts published, each digit's global start found by decoupled
+// look-back over the tiles before it, then the tile written from shared
+// memory in digit order, so consecutive threads write consecutive places of
+// one digit's run.  Pass 0 reads ha, hb and st (keys_in null).
+__global__ void __launch_bounds__(kThreads, 2)
+sort_pass_kernel(const uint32_t* __restrict__ ha, const uint32_t* __restrict__ hb,
+                 const uint32_t* __restrict__ st, const uint64_t* __restrict__ keys_in,
+                 const uint32_t* __restrict__ vals_in, int64_t n, int pass,
+                 const uint32_t* __restrict__ hist, uint64_t* __restrict__ status,
+                 uint32_t* __restrict__ ticket, uint64_t* __restrict__ keys_out,
+                 uint32_t* __restrict__ vals_out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* skeys = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* svals = reinterpret_cast<uint32_t*>(skeys + kTile);
+  uint32_t* wcount = svals + kTile;  // [kWarps][kBins]: counts, then each warp's exclusive start
+  uint32_t* lstart = wcount + kWarps * kBins;
+  uint32_t* shift_s = lstart + kBins;  // global start minus local start, mod 2**32
+  __shared__ uint32_t tile_s;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int w = 0; w < kWarps; ++w) counts[w][threadIdx.x] = 0;
+  if (threadIdx.x == 0) tile_s = atomicAdd(ticket, 1u);
+  for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) wcount[i] = 0;
   __syncthreads();
-  const int64_t wbase = (int64_t)blockIdx.x * kTile + (int64_t)warp * 32 * kItems;
+  const int64_t tile = tile_s;
+  const int shift = pass * kDigitBits;
+  const uint64_t tag = (uint64_t)(2 * pass + 2) << 32;
+
+  const int64_t wbase = tile * kTile + (int64_t)warp * 32 * kItems;
   const uint32_t lower = (1u << lane) - 1u;
-  uint32_t rank[kItems];
+  uint64_t key[kItems];
+  uint32_t val[kItems], rank[kItems];
+  // every load in flight before the first is used
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int64_t i = wbase + k * 32 + lane;
-    const bool live = i < n;
-    const uint32_t d = live ? (uint32_t)((keys[i] >> shift) & (kBins - 1)) : (uint32_t)kBins;
+    key[k] = 0;
+    val[k] = 0;
+    if (i < n) {
+      if (keys_in != nullptr) {
+        key[k] = keys_in[i];
+        val[k] = vals_in[i];
+      } else {
+        key[k] = ((uint64_t)ha[i] << 32) | hb[i];
+        val[k] = st[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const bool live = wbase + k * 32 + lane < n;
+    const uint32_t d = live ? digit_of(key[k], shift) : (uint32_t)kBins;
     const uint32_t peers = __match_any_sync(0xffffffffu, d);
-    const uint32_t before = live ? counts[warp][d] : 0u;
+    const uint32_t before = live ? wcount[warp * kBins + d] : 0u;
     rank[k] = before + __popc(peers & lower);
     __syncwarp();
-    if (live && lane == __ffs(peers) - 1) counts[warp][d] = before + __popc(peers);
+    if (live && lane == __ffs(peers) - 1) wcount[warp * kBins + d] = before + __popc(peers);
     __syncwarp();
   }
   __syncthreads();
-  {
-    const int d = threadIdx.x;
-    uint32_t s = offsets[(int64_t)d * tiles + blockIdx.x];
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t c = counts[w][d];
-      counts[w][d] = s;
-      s += c;
-    }
+  const int d = threadIdx.x;  // this thread's digit, up to the write
+  uint32_t count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const uint32_t c = wcount[w * kBins + d];
+    wcount[w * kBins + d] = count;
+    count += c;
   }
+  if (tile > 0) status_store(&status[tile * kBins + d], tag | count);
+  uint32_t total;
+  const uint32_t local = block_exclusive(count, total);
+  lstart[d] = local;
+  // tile 0 takes the digits' global starts from the histogram
+  uint32_t excl = tile == 0 ? block_exclusive(hist[pass * kBins + d], total) : 0u;
   __syncthreads();
+  // the tile into shared memory in digit order before the look-back, so its
+  // registers are free for the status words in flight
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int64_t i = wbase + k * 32 + lane;
-    if (i < n) {
-      const uint64_t key = keys[i];
-      const uint32_t dst = counts[warp][(key >> shift) & (kBins - 1)] + rank[k];
-      keys_out[dst] = key;
-      vals_out[dst] = vals[i];
+    if (wbase + k * 32 + lane < n) {
+      const uint32_t kd = digit_of(key[k], shift);
+      const uint32_t at = lstart[kd] + wcount[warp * kBins + kd] + rank[k];
+      skeys[at] = key[k];
+      svals[at] = val[k];
     }
+  }
+  if (tile > 0) {
+    // kLook predecessors a round trip, nearest first: aggregates add up
+    // until an inclusive prefix ends the walk; one not written yet is read
+    // again
+    for (int64_t p = tile - 1;;) {
+      uint64_t v[kLook];
+#pragma unroll
+      for (int j = 0; j < kLook; ++j) v[j] = p >= j ? status_load(&status[(p - j) * kBins + d]) : 0;
+      int j = 0;
+      bool done = false;
+      for (; j < kLook && p >= j; ++j) {
+        const uint64_t t = v[j] >> 32;
+        if ((t >> 1) != (uint64_t)pass + 1) break;
+        excl += (uint32_t)v[j];
+        if (t & 1) {
+          done = true;
+          break;
+        }
+      }
+      if (done) break;
+      p -= j;
+    }
+  }
+  status_store(&status[tile * kBins + d], tag | (1ull << 32) | (uint32_t)(excl + count));
+  shift_s[d] = excl - local;
+  __syncthreads();
+  const int64_t rows = n - tile * kTile < kTile ? n - tile * kTile : kTile;
+  for (int j = threadIdx.x; j < rows; j += kThreads) {
+    const uint64_t k = skeys[j];
+    const uint32_t at = shift_s[digit_of(k, shift)] + (uint32_t)j;
+    keys_out[at] = k;
+    vals_out[at] = svals[j];
   }
 }
 
-__device__ __forceinline__ uint32_t run_mask(const uint64_t* __restrict__ keys, int64_t n, int64_t base) {
-  uint32_t mask = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
-    if (i < n && (i == 0 || keys[i] != keys[i - 1])) mask |= 1u << k;
-  }
-  return mask;
+// The status words, digit counts and tickets of a sort of n rows: one
+// zeroed region, status first.
+size_t sort_region_bytes(int64_t n) {
+  return (size_t)tiles_of(n) * kBins * 8 + (size_t)kPasses * (kBins + 1) * 4;
+}
+
+// Raise the pass kernel's dynamic shared-memory limit once per device.
+cudaError_t allow_pass_smem() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev].load(std::memory_order_relaxed))) return err;
+  err = cudaFuncSetAttribute(sort_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPassSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+// Run starts of one tile, read coalesced: element base + k * kThreads + t
+// of thread t, so a tile's rows go in the order (k, warp, lane).
+__device__ __forceinline__ bool run_start(const uint64_t* __restrict__ keys, int64_t n, int64_t i) {
+  return i < n && (i == 0 || keys[i] != keys[i - 1]);
 }
 
 __global__ void __launch_bounds__(kThreads)
 runs_count_kernel(const uint64_t* __restrict__ keys, int64_t n, uint32_t* __restrict__ tile_counts) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) c += run_start(keys, n, base + k * kThreads);
   uint32_t total;
-  block_exclusive(__popc(run_mask(keys, n, base)), total);
+  block_exclusive(c, total);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
@@ -368,22 +496,42 @@ __global__ void __launch_bounds__(kThreads)
 runs_write_kernel(const uint64_t* __restrict__ keys, const uint32_t* __restrict__ vals, int64_t n,
                   const uint32_t* __restrict__ tile_off, int64_t tiles, int64_t d_out,
                   int32_t* __restrict__ fp, int32_t* __restrict__ off) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  const uint32_t mask = run_mask(keys, n, base);
-  uint32_t total;
-  int64_t r = block_exclusive(__popc(mask), total) + tile_off[blockIdx.x];
-  const int64_t runs = tile_off[tiles];
+  static_assert(kItems * kWarps == 4 * 32, "one warp scans the counts, 4 a lane");
+  __shared__ uint32_t before[kItems * kWarps];  // run starts before each (round, warp), in the tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
+  uint32_t mask[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k;
+    mask[k] = __ballot_sync(0xffffffffu, run_start(keys, n, base + k * kThreads));
+    if (lane == 0) before[k * kWarps + warp] = __popc(mask[k]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the kItems * kWarps counts, 4 a lane
+    uint32_t v[4], s = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s += v[j] = before[lane * 4 + j];
+    uint32_t pre = warp_inclusive(s) - s;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      before[lane * 4 + j] = pre;
+      pre += v[j];
+    }
+  }
+  __syncthreads();
+  const int64_t runs = tile_off[tiles];
+  const uint32_t lower = (1u << lane) - 1u, t0 = tile_off[blockIdx.x];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = base + k * kThreads;
     if (i >= n) break;
-    const bool first = (mask >> k) & 1u;
+    const bool first = (mask[k] >> lane) & 1u;
+    const int64_t r = t0 + before[k * kWarps + warp] + __popc(mask[k] & lower);
     const int64_t row = first ? r : runs + i - r;
     if (row < d_out) {
       fp[row] = first ? (int32_t)i : kBig;
       off[row] = (int32_t)vals[i];
     }
-    r += first;
   }
 }
 
@@ -423,35 +571,42 @@ extern "C" int rtpu_wc_words(const void* buf, int64_t n, const void* deltas, int
   return (int)cudaGetLastError();
 }
 
-// wc_sort_runs over n >= 1 rows into out = (2, d_out) int32, d_out <= n.
-// Scratch: keys0/keys1 n uint64, vals0/vals1 n uint32, hist kBins*tiles + 1
-// words, scan tiles + 1 words, tiles = tiles_of(n).
-extern "C" int rtpu_wc_sort_runs(const void* ha, const void* hb, const void* st, int64_t n,
-                                 int64_t d_out, void* keys0, void* vals0, void* keys1, void* vals1,
-                                 void* hist, void* scan, void* out, void* stream) {
+// Bytes of rtpu_wc_sort_runs' zeroed region for n rows.
+extern "C" int64_t rtpu_wc_sort_region_bytes(int64_t n) { return (int64_t)sort_region_bytes(n); }
+
+// wc_sort_runs over 1 <= n < 2**31 rows into out = (2, d_out) int32, d_out
+// <= n.  Scratch: keys0 and keys1 n uint64, vals0 and vals1 n uint32,
+// region rtpu_wc_sort_region_bytes(n) bytes (8-byte aligned), scan
+// tiles_of(n) + 1 words.  A memset of the region, the histogram, kPasses
+// passes, then the run count, scan and partition.
+extern "C" int rtpu_wc_sort_runs(const void* ha, const void* hb, const void* st, int64_t n, int64_t d_out,
+                                 void* keys0, void* vals0, void* keys1, void* vals1, void* region,
+                                 void* scan, void* out, void* stream) {
+  if (n < 1 || n >= (int64_t{1} << 31) || d_out < 0 || d_out > n) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = tiles_of(n);
   uint64_t* k[2] = {static_cast<uint64_t*>(keys0), static_cast<uint64_t*>(keys1)};
   uint32_t* v[2] = {static_cast<uint32_t*>(vals0), static_cast<uint32_t*>(vals1)};
-  const auto h = static_cast<uint32_t*>(hist);
-  const auto sc = static_cast<uint32_t*>(scan);
-  const int64_t pb = (n + kThreads - 1) / kThreads;
-  pack_kernel<<<(unsigned)(pb < 65535 * 8 ? pb : 65535 * 8), kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(ha), static_cast<const uint32_t*>(hb),
-      static_cast<const uint32_t*>(st), n, k[0], v[0]);
+  auto status = static_cast<uint64_t*>(region);
+  auto hist = reinterpret_cast<uint32_t*>(status + tiles * kBins);
+  uint32_t* tickets = hist + kPasses * kBins;
+  cudaError_t err = cudaMemsetAsync(region, 0, sort_region_bytes(n), s);
+  if (err == cudaSuccess) err = allow_pass_smem();
+  if (err != cudaSuccess) return (int)err;
+  const auto a = static_cast<const uint32_t*>(ha);
+  const auto b = static_cast<const uint32_t*>(hb);
+  const auto t = static_cast<const uint32_t*>(st);
+  sort_hist_kernel<<<(unsigned)((tiles + kHistTiles - 1) / kHistTiles), kThreads, 0, s>>>(a, b, n, hist);
   for (int p = 0; p < kPasses; ++p) {
-    const int shift = 8 * p, src = p & 1, dst = src ^ 1;
-    radix_hist_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[src], n, shift, tiles, h);
-    const cudaError_t err = scan_exclusive(h, h, kBins * tiles, sc, s);
-    if (err != cudaSuccess) return (int)err;
-    radix_scatter_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[src], v[src], n, shift, tiles, h,
-                                                               k[dst], v[dst]);
+    const uint64_t* kin = p == 0 ? nullptr : k[(p - 1) & 1];
+    const uint32_t* vin = p == 0 ? nullptr : v[(p - 1) & 1];
+    sort_pass_kernel<<<(unsigned)tiles, kThreads, kPassSmem, s>>>(a, b, t, kin, vin, n, p, hist, status,
+                                                                  tickets + p, k[p & 1], v[p & 1]);
   }
-  static_assert(kPasses % 2 == 0, "the sorted rows end in keys0/vals0");
-  runs_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[0], n, sc);
+  const auto sc = static_cast<uint32_t*>(scan);
+  runs_count_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[1], n, sc);
   scan_single_kernel<<<1, kThreads, 0, s>>>(sc, tiles, nullptr);
   auto o = static_cast<int32_t*>(out);
-  runs_write_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[0], v[0], n, sc, tiles, d_out, o,
-                                                         o + d_out);
+  runs_write_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(k[1], v[1], n, sc, tiles, d_out, o, o + d_out);
   return (int)cudaGetLastError();
 }

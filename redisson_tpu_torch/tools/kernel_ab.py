@@ -1,0 +1,91 @@
+"""Time two trees' kernels in turns on one CUDA card, e.g. a parent commit
+against its change.
+
+    python3 -m redisson_tpu_torch.tools.kernel_ab [--paths] [--out FILE] TREE [TREE ...]
+
+Each TREE is a checkout of this repository (say the parent unpacked with
+`git archive` into a git-ignored directory, and `.` for the change); give
+them in the order to run, e.g. `parent . . parent`.  For each, a fresh
+process, started in that tree with only that tree on its path, builds the
+tree's kernels and runs its own chip_smoke.py phases check_wordcount
+(config 4's stream: wc_words, wc_sort_runs, segment_reduce) and
+check_vector (knn_score, knn_select, ivf_score, kmeans at config 7's
+shapes and 1M x 128), each kernel checked against its plain version as
+chip_smoke.py checks it; with --paths also run_config4 and run_config7
+through that tree's create().  It prints every kernel's times by run, then
+the paths' word-count walls and config 7's per-leg qps, and writes the
+JSON of the run to --out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, sys
+import numpy as np, torch
+import chip_smoke as CS
+from redisson_tpu_torch.core import _build
+build_s = _build.build_all()
+dev = torch.device("cuda")
+values = CS.config4_values()
+kernels = CS.check_wordcount(dev, np.random.default_rng(1234), values)
+kernels.update(CS.check_vector(dev, np.random.default_rng(4321)))
+out = {"build_s": build_s,
+       "kernels": {k: {key: v for key, v in r.items() if isinstance(v, (int, float))} for k, r in kernels.items()}}
+if PATHS:
+    import redisson_tpu_torch
+    client = redisson_tpu_torch.create()
+    out["config4"] = {k: v for k, v in CS.run_config4(client, values).items() if isinstance(v, (int, float, dict))}
+    out["config7"] = CS.run_config7(client)
+    client.shutdown()
+print("AB " + json.dumps(out, default=str))
+"""
+
+
+def run_tree(tree: str, paths: bool) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    proc = subprocess.run([sys.executable, "-c", CHILD.replace("PATHS", str(paths))], cwd=tree, env=env,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    line = next(x for x in reversed(proc.stdout.splitlines()) if x.startswith("AB "))
+    return json.loads(line[3:])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for tree in args.trees:
+        runs.append({"tree": tree, **run_tree(tree, args.paths)})
+        print(f"ran {tree}", flush=True)
+    names = list(runs[0]["kernels"])
+    for name in names:
+        keys = sorted({k for r in runs for k in r["kernels"].get(name, {}) if k.endswith("_ms") or k == "ms"})
+        for key in keys:
+            vals = [r["kernels"].get(name, {}).get(key) for r in runs]
+            print(f"{name} {key}: " + "  ".join("-" if v is None else f"{v:.4f}" for v in vals))
+    if args.paths:
+        for r in runs:
+            c4, c7 = r["config4"], r["config7"]
+            qps = ", ".join(f"{leg} {v['qps']:.1f}" for leg, v in c7["legs"].items())
+            print(f"{r['tree']}: config4 word_count cold {c4['cold_s']:.4f} s, warm {c4['warm_s'] * 1e3:.3f} ms; "
+                  f"config7 qps {qps}; v7_sift parts " + json.dumps(c7["parts"].get("v7_sift")))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "runs": runs}, f, indent=1, default=str)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -679,6 +679,48 @@ def test_wc_sort_runs_matches_plain(dev, n):
             assert torch.equal(got, want), (distinct, d_max)
 
 
+def _sort_words(keys):
+    """(ha, hb) int32 tensors holding the uint32 halves of uint64 keys."""
+    return ((keys >> np.uint64(32)).astype(np.uint32).view(np.int32),
+            (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n", [2**20 + 3, 2**22 + 5])
+def test_wc_sort_runs_onesweep_edges(dev, n):
+    """The one-sweep sort against the plain version bit for bit: keys that
+    differ in one byte position only (each of the 8), and all keys equal
+    (the starts show the order kept); d_max below n.  2**22 + 5 rows are
+    1,025 tiles, more than the card keeps resident, so the look-back waits
+    on tiles still running."""
+    rng = np.random.default_rng(n)
+    base = rng.integers(0, 2**64, dtype=np.uint64)
+    st = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    cases = [np.full(n, base, np.uint64) ^ (rng.integers(0, 256, n).astype(np.uint64) << np.uint64(8 * b))
+             for b in range(8)]
+    cases.append(np.full(n, base, np.uint64))
+    for keys in cases:
+        ha, hb = (torch.from_numpy(x).to(dev) for x in _sort_words(keys))
+        for d_max in (n // 3, 1 << 17):
+            got = K.wc_sort_runs(ha, hb, st, d_max)
+            want = K.wc_sort_runs_plain(ha, hb, st, d_max)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), d_max
+    same = K.wc_sort_runs(ha, hb, st, n)  # all keys equal: one run, the starts in order
+    torch.cuda.synchronize()
+    assert int(same[0, 0]) == 0 and bool((same[0, 1:] == K.WC_BIG).all()) and torch.equal(same[1], st)
+
+
+def test_wc_sort_region_bytes(dev):
+    """The sort's zeroed scratch: a 64-bit look-back status word a tile of
+    4,096 rows and digit, then each pass's digit counts and tile ticket."""
+    from redisson_tpu_torch.core import _build
+
+    lib = _build.library("wordcount")
+    for n in (1, 4096, 4097, 2**20 + 3, 2**31 - 1):
+        tiles = -(-n // 4096)
+        assert lib.rtpu_wc_sort_region_bytes(n) == 8 * tiles * 256 + 4 * 8 * 257
+
+
 def _float_sum_limit(keys, vals, n_keys):
     """The limit on two float32 sums of one key's zero-mean values added in
     different orders: 8 * 2**-24 * sqrt(count * sum v**2) a key.  One order's
@@ -838,11 +880,80 @@ def test_knn_score_matches_plain(dev, metric, dtype, qn):
     qbias = torch.where(torch.rand((qn, cap), device=dev) < 0.2, float("inf"), 0.0)
     for qb in (None, qbias):
         got = K.knn_score(bank, scale, bias, qb, q, 900, metric)
+        stream = K.knn_score(bank, scale, bias, qb, q, 900, metric, route=K.KNN_STREAM_ELEMS)
         want = K.knn_score_plain(bank, scale, bias, qb, q, 900, metric)
         torch.cuda.synchronize()
         s = _dist_scale(K._bank_f32(bank, scale), q, metric)
         _near(got, want, s)
+        _near(stream, want, s)  # the streamed route on a narrow bank, whatever the query count
         assert torch.isinf(got[:, 900:]).all() and torch.isinf(got[:, 3]).all()
+        assert torch.isinf(stream[:, 900:]).all() and torch.isinf(stream[:, 3]).all()
+
+
+def _unaligned(bank):
+    """The same rows in a storage whose base lies one element past a 16-byte
+    boundary (a contiguous view)."""
+    flat = torch.empty(bank.numel() + 1, dtype=bank.dtype, device=bank.device)
+    view = flat[1:].view(bank.shape)
+    view.copy_(bank)
+    return view
+
+
+@pytest.mark.parametrize("w", [1, 3, 64, 70, 128, 129])
+@pytest.mark.parametrize("cap", [20001, 70001])
+@pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
+def test_knn_score_wide_banks_match_plain(dev, dtype, cap, w):
+    """Banks past the narrow bank of 16,384 rows: the chosen route and the
+    tile route against the plain version, every metric, 9, 64 and 65
+    queries, with and without a per-query bias; a second run gives the same
+    bits."""
+    rng = np.random.default_rng(cap + w)
+    bank, scale = _vec_bank(rng, cap, w, dtype, dev)
+    n_rows = cap - 1001
+    bias = torch.zeros(cap, device=dev)
+    bias[[3, cap // 2]] = float("inf")
+    rows = K._bank_f32(bank, scale)
+    for qn in (9, 64, 65):
+        q = torch.from_numpy(rng.standard_normal((qn, w)).astype(np.float32)).to(dev)
+        q[0] = 0.0
+        qbias = torch.where(torch.rand((qn, cap), device=dev) < 0.2, float("inf"), 0.0)
+        for metric in ("L2", "COSINE", "IP"):
+            s = _dist_scale(rows, q, metric)
+            for qb in (None, qbias):
+                want = K.knn_score_plain(bank, scale, bias, qb, q, n_rows, metric)
+                got = K.knn_score(bank, scale, bias, qb, q, n_rows, metric)
+                tile = K.knn_score(bank, scale, bias, qb, q, n_rows, metric, route=K.KNN_TILE)
+                torch.cuda.synchronize()
+                _near(got, want, s)
+                _near(tile, want, s)
+                assert torch.isinf(got[:, n_rows:]).all() and torch.isinf(got[:, 3]).all()
+        again = K.knn_score(bank, scale, bias, None, q, n_rows, "L2")
+        first = K.knn_score(bank, scale, bias, None, q, n_rows, "L2")
+        torch.cuda.synchronize()
+        assert torch.equal(again.view(torch.int32), first.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
+def test_knn_score_unaligned_bank_takes_element_loads(dev, dtype):
+    """A bank whose rows start off a 16-byte boundary takes the streamed
+    route's element loads, with the same bits as the 16-byte copies of the
+    same rows; the copies refuse it."""
+    rng = np.random.default_rng(11)
+    cap, w = 20001, 128
+    bank, scale = _vec_bank(rng, cap, w, dtype, dev)
+    moved = _unaligned(bank)
+    q = torch.from_numpy(rng.standard_normal((64, w)).astype(np.float32)).to(dev)
+    assert K.knn_score_route(bank, q) == K.KNN_STREAM_VEC
+    assert K.knn_score_route(moved, q) == K.KNN_STREAM_ELEMS
+    for metric in ("L2", "COSINE", "IP"):
+        got = K.knn_score(moved, scale, None, None, q, cap, metric)
+        vec = K.knn_score(bank, scale, None, None, q, cap, metric)
+        want = K.knn_score_plain(bank, scale, None, None, q, cap, metric)
+        torch.cuda.synchronize()
+        _near(got, want, _dist_scale(K._bank_f32(bank, scale), q, metric))
+        assert torch.equal(got.view(torch.int32), vec.view(torch.int32))
+    with pytest.raises(RuntimeError):
+        K.knn_score(moved, scale, None, None, q, cap, "L2", route=K.KNN_STREAM_VEC)
 
 
 @pytest.mark.parametrize("n", [1, 31, 4096, 4097, 70001])

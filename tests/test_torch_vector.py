@@ -238,6 +238,43 @@ def test_knn_select_maps_columns_through_ids():
         K.knn_select(_t(d), 51)
 
 
+@pytest.mark.parametrize("route", [None, K.KNN_TILE, K.KNN_STREAM_ELEMS, K.KNN_STREAM_VEC])
+def test_knn_score_on_cpu_tensors_is_the_plain_version_by_any_route(route):
+    """A card route named for CPU tensors changes nothing: the wrapper
+    computes its plain version, bit for bit."""
+    rng = np.random.default_rng(3)
+    bank = _t(rng.integers(-127, 128, (300, 12)).astype(np.int8))
+    scale = _t(rng.random(300).astype(np.float32))
+    q = _t(rng.standard_normal((9, 12)).astype(np.float32))
+    for metric in K.KNN_METRICS:
+        want = K.knn_score_plain(bank, scale, None, None, q, 250, metric)
+        got = K.knn_score(bank, scale, None, None, q, 250, metric, route=route)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), metric
+
+
+def test_knn_score_route_by_width_and_alignment():
+    """The streamed route up to W = 256, with 16-byte copies where a row is
+    a multiple of 16 bytes on a 16-byte aligned bank, element loads
+    otherwise; the tile route past W = 256, and for more than 8 queries
+    against a bank of at most 16,384 rows."""
+    q = torch.zeros((64, 1))
+    for c, qn, route in ((16384, 64, K.KNN_TILE), (16385, 64, K.KNN_STREAM_VEC), (16384, 9, K.KNN_TILE),
+                         (16384, 8, K.KNN_STREAM_VEC), (1536, 1, K.KNN_STREAM_VEC), (1536, 65, K.KNN_TILE)):
+        assert K.knn_score_route(torch.zeros((c, 128)), torch.zeros((qn, 128))) == route, (c, qn)
+    cases = [(torch.float32, 4, K.KNN_STREAM_VEC), (torch.float32, 128, K.KNN_STREAM_VEC),
+             (torch.float32, 256, K.KNN_STREAM_VEC), (torch.float32, 70, K.KNN_STREAM_ELEMS),
+             (torch.float32, 1, K.KNN_STREAM_ELEMS), (torch.float32, 257, K.KNN_TILE),
+             (torch.float16, 8, K.KNN_STREAM_VEC), (torch.float16, 6, K.KNN_STREAM_ELEMS),
+             (torch.float16, 1024, K.KNN_TILE), (torch.int8, 16, K.KNN_STREAM_VEC),
+             (torch.int8, 12, K.KNN_STREAM_ELEMS), (torch.int8, 272, K.KNN_TILE)]
+    for dtype, w, route in cases:
+        bank = torch.zeros((20000, w), dtype=dtype)
+        assert K.knn_score_route(bank, q) == route, (dtype, w)
+    flat = torch.zeros(20000 * 128 + 16, dtype=torch.float32)
+    off = next(i for i in range(16) if flat[i:].data_ptr() % 16 == 4)
+    assert K.knn_score_route(flat[off:off + 20000 * 128].view(20000, 128), q) == K.KNN_STREAM_ELEMS
+
+
 def _cells(rng, n_rows, nlist, cap):
     """Sentinel-padded cell lists of ascending row ids, some rows past
     n_rows (they must score +inf) and one empty cell."""

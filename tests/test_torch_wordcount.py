@@ -169,6 +169,17 @@ def test_sort_runs_random_keys_match_jax(n):
             _sort_both(words[ids, 0], words[ids, 1], st, d_max)
 
 
+def test_sort_runs_refuses_what_the_status_words_cannot_count():
+    """Counts travel in the low 32 bits of a status word: the sort takes 1 to
+    2**31 - 1 rows (a zero-stride view stands in for 2**31 rows)."""
+    big = torch.zeros(1, dtype=torch.int32).expand(2**31)
+    with pytest.raises(ValueError):
+        K.wc_sort_runs(big, big, big, 10)
+    empty = torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.wc_sort_runs(empty, empty, empty, 10)
+
+
 @pytest.mark.parametrize("vals", CORPORA + [_random_corpus(s, n_values=500) for s in (11, 12)],
                          ids=[f"corpus{i}" for i in range(len(CORPORA))] + ["random11", "random12"])
 def test_device_word_count_equals_reference_and_counter(vals):

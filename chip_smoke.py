@@ -1133,6 +1133,58 @@ def knn_bytes(bank, scale, bias, qbias, r: int, c: int, w: int) -> int:
             + 4 * r * w + (0 if qbias is None else 4 * r * c) + 4 * r * c)
 
 
+def kernels_per_call(fn):
+    """CUDA kernels one call of fn launches, read from a torch.profiler trace
+    of that call (memsets and copies not counted); None where the profiler
+    records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:  # a trace that cannot start measures nothing; the kernel ran above
+        log(f"torch.profiler: {exc}")
+        return None
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(1 for n in names if not n.startswith(("Memset", "Memcpy"))) or None
+
+
+def select_times(d, k: int, ids=None) -> dict:
+    """knn_select on d (R, n) with k (and ids): its time, the plain
+    version's, torch.topk's (no ids), its bound (the matrix read once, the
+    k ids it maps, the outputs written; one compare an entry) and the
+    kernels a call launches."""
+    from redisson_tpu_torch.core import kernels as K
+
+    r, n = d.shape
+    t = {"ms": time_kernel(lambda i: K.knn_select(d, k, ids)),
+         "plain_ms": time_plain(lambda i: K.knn_select_plain(d, k, ids)),
+         "topk_ms": time_kernel(lambda i: torch.topk(d, k, dim=1, largest=False)),
+         "kernels_a_call": kernels_per_call(lambda: K.knn_select(d, k, ids))}
+    t["bound_ms"], t["bound_by"] = bound_ms(4 * r * n + (4 * r * k if ids is not None else 0) + 8 * r * k, r * n)
+    return t
+
+
+def select_edge_rows(rng, r: int, n: int, dev):
+    """r rows of n for knn_select's edges: one value (every tie to the lower
+    column), a third +inf, all +inf, -0.0 then +0.0, three values (equal keys
+    across every segment boundary), descending (each column a new best),
+    -inf, then random rows."""
+    d = rng.standard_normal((r, n)).astype(np.float32)
+    d[0] = 1.0
+    d[1, ::3] = np.inf
+    d[2] = np.inf
+    d[3, : n // 2] = -0.0
+    d[3, n // 2:] = 0.0
+    d[4] = rng.integers(0, 3, n)
+    d[5] = np.arange(n, 0, -1)
+    d[7] = -np.inf
+    return torch.from_numpy(d).to(dev)
+
+
 def check_vector(dev, rng) -> dict:
     """knn_score, knn_select, ivf_score and kmeans against their plain
     versions on the card: every metric, dtype and mask at config 7's 50,000 x
@@ -1207,6 +1259,25 @@ def check_vector(dev, rng) -> dict:
     checked_s.append("4096 x 64 L2 edges")
     checked_k.append("edges: " + ", ".join(e[0] for e in edges) + ", exact duplicates (the lower index first)")
     del bank
+    # -- knn_select's own edges: rows just under and over the one-warp limit,
+    # one and several segments, unaligned ends (a row length of no multiple
+    # of 4, a base past a 16-byte boundary), k = n, k past 256, 19 rows, each
+    # matrix twice (every call leaves the rows' tickets and bounds reset)
+    sel_edges = ((K.SELECT_SMALL, 10), (K.SELECT_SMALL + 1, 10), (4099, 4099), (40001, 257), (70001, 10))
+    for n_e, k_e in sel_edges:
+        d = select_edge_rows(rng, 19, n_e, dev)
+        flat = torch.empty(d.numel() + 1, device=dev)
+        moved = flat[1:].view(d.shape)
+        moved.copy_(d)
+        for label, mat in (("aligned", d), ("unaligned", moved), ("aligned", d)):
+            gv, gi = K.knn_select(mat, k_e)
+            pv, pi = K.knn_select_plain(mat, k_e)
+            assert_equal(f"knn_select {label} 19 x {n_e}, k {k_e}", gv.view(torch.int32), pv.view(torch.int32))
+            assert_equal(f"knn_select ids {label} 19 x {n_e}, k {k_e}", gi, pi)
+        del d, flat, moved
+    checked_k.append("its own edges, 19 rows each (one value, +inf, -0.0 and +0.0, ties across segments, "
+                     "descending, -inf), aligned and one element off, twice: "
+                     + ", ".join(f"n {n_e} k {k_e}" for n_e, k_e in sel_edges))
     torch.cuda.empty_cache()
 
     # -- timed: config 7's points (COSINE) and the 1M x 128 L2 point --------------
@@ -1240,7 +1311,8 @@ def check_vector(dev, rng) -> dict:
              "matmul_ms": time_kernel(lambda i: torch.matmul(q, bank.T)),
              "select_ms": time_kernel(lambda i: K.knn_select(got, k)),
              "select_plain_ms": time_plain(lambda i: K.knn_select_plain(got, k)),
-             "topk_ms": time_kernel(lambda i: torch.topk(got, k, dim=1, largest=False))}
+             "topk_ms": time_kernel(lambda i: torch.topk(got, k, dim=1, largest=False)),
+             "select_kernels": kernels_per_call(lambda: K.knn_select(got, k))}
         t["score_bound_ms"], t["score_bound_by"] = bound_ms(knn_bytes(bank, None, bias, None, C7_QB, c, w),
                                                             2 * C7_QB * c * w + 2 * (C7_QB + c) * w)
         t["select_bound_ms"], t["select_bound_by"] = bound_ms(4 * C7_QB * c + 8 * C7_QB * k, C7_QB * c)
@@ -1333,17 +1405,33 @@ def check_vector(dev, rng) -> dict:
     bias[weights == 0] = float("inf")
     qmask = torch.where(torch.rand(n, device=dev) < 0.3, float("inf"), 0.0)
     ivf_err, ivf_times = 0.0, []
+    # the least time this timing gives one launch: a one-element fill
+    ivf_sel = {"launch_floor_ms": time_kernel(lambda i: torch.zeros(1, device=dev))}
+    log(f"launch floor (torch.zeros(1) timed as the kernels are): {ivf_sel['launch_floor_ms']:.4f} ms")
     for nprobe in C7_NPROBES:
         route = K.knn_score(c1, None, None, None, q, nlist, "COSINE")
-        _, probe = K.knn_select(route, nprobe)
-        for qm in (None, qmask):
+        rv, probe = K.knn_select(route, nprobe)
+        pv, pp = K.knn_select_plain(route, nprobe)
+        assert_equal(f"knn_select of the IVF route nprobe {nprobe}", rv.view(torch.int32), pv.view(torch.int32))
+        assert_equal(f"knn_select ids of the IVF route nprobe {nprobe}", probe, pp)
+        for qm in (qmask, None):
             gd, gids = K.ivf_score(pts, None, bias, qm, cells_t, probe, q, n, "COSINE")
             wd, wids = K.ivf_score_plain(pts, None, bias, qm, cells_t, probe, q, n, "COSINE")
             assert_equal(f"ivf_score ids nprobe {nprobe}", gids, wids)
             ivf_err = max(ivf_err, assert_near(f"ivf_score nprobe {nprobe}", gd, wd, 1.0))
             gv, gi = K.knn_select(gd, C7_K, gids)
             pv, pi = K.knn_select_plain(gd, C7_K, gids)
-            assert_equal(f"knn_select over the candidates nprobe {nprobe}", gi, pi)
+            assert_equal(f"knn_select over the candidates nprobe {nprobe}", gv.view(torch.int32),
+                         pv.view(torch.int32))
+            assert_equal(f"knn_select ids over the candidates nprobe {nprobe}", gi, pi)
+        # the main path's selects of this batch: the route's (k = nprobe) and
+        # the unmasked candidates' (k 10, through their row ids)
+        for part, (mat, k_s, ids_s) in (("route", (route, nprobe, None)), ("cand", (gd, C7_K, gids))):
+            t = select_times(mat, k_s, ids_s)
+            ivf_sel.update({f"ivf_{part}_np{nprobe}_{key}": v for key, v in t.items()})
+            log(f"knn_select at the IVF {part} shape, nprobe {nprobe}: {tuple(mat.shape)}, k {k_s}: {t['ms']:.4f} ms "
+                f"({t['kernels_a_call']} kernels a call by torch.profiler; plain {t['plain_ms']:.3f}; torch.topk "
+                f"{t['topk_ms']:.4f}; bound {t['bound_ms']:.4f} by {t['bound_by']})")
         valid = int(((gids >= 0) & (gids < n)).sum())
         t = {"nprobe": nprobe, "ms": time_kernel(lambda i: K.ivf_score(pts, None, bias, None, cells_t, probe, q, n,
                                                                        "COSINE")),
@@ -1375,7 +1463,10 @@ def check_vector(dev, rng) -> dict:
                        f"Qb {C7_QB}, nprobe {', '.join(map(str, C7_NPROBES))}, with and without a (C,) mask: ids "
                        f"bit for bit, distances within {DIST_TOL}; knn_select over them bit for bit"],
            "shape": f"config 7's IVF leg, nprobe 4: {t4['valid_slots']} valid of {t4['slots']} slots",
-           "launches_per_call": "1 launch a call"}
+           **{f"np{t['nprobe']}_{key}": v for t in ivf_times for key in ("ms", "plain_ms", "bound_ms")
+              for v in [t[key]]}, "launch_floor_ms": ivf_sel["launch_floor_ms"],
+           "launches_per_call": "1 launch a call: one block a (query, probe) pair compacts the cell's valid "
+                                "slots by ballot and gathers only those, 16 bytes a load where the rows allow"}
     del pts, weights, cent, c1, c2, pc, d, cells_t, q, a0
     torch.cuda.empty_cache()
 
@@ -1394,8 +1485,14 @@ def check_vector(dev, rng) -> dict:
     select = {"ms": big["select_ms"], "plain_ms": big["select_plain_ms"], "library_ms": big["topk_ms"],
               "bound_ms": big["select_bound_ms"], "bound_by": big["select_bound_by"], "max_abs_err": select_err,
               "c7_ms": c7["select_ms"], "c7_bound_ms": c7["select_bound_ms"], "c7_plain_ms": c7["select_plain_ms"],
-              "c7_library_ms": c7["topk_ms"], "checked": checked_k, "shape": big["shape"],
-              "launches_per_call": "2 launches a call (1 when a row fits one segment of 4096), per round of 256"}
+              "c7_library_ms": c7["topk_ms"], "c7_20k_ms": timed[0]["select_ms"],
+              "kernels_a_call": big["select_kernels"], **ivf_sel,
+              "checked": checked_k + [f"the IVF route (k = nprobe) and candidates (k {C7_K}, with ids) at nprobe "
+                                      f"{', '.join(map(str, C7_NPROBES))}"],
+              "shape": big["shape"],
+              "launches_per_call": "1 launch a call for k <= 256 (one a round of 256 past that): one warp a row "
+                                   f"for rows of at most {K.SELECT_SMALL} columns, else a few segments a row whose "
+                                   "lists the row's last block merges"}
     for name, r in (("knn_score", score), ("knn_select", select), ("ivf_score", ivf), ("kmeans", km)):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"kernel {name} ({r['launches_per_call']}): {r['ms']:.4f} ms at {r['shape']} (plain {r['plain_ms']:.3f} "

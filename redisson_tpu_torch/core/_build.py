@@ -53,7 +53,7 @@ SIGNATURES = {
     },
     "knn": {
         "rtpu_knn_score": [_P, _I, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P],
-        "rtpu_knn_select": [_P, _L, _L, _I, _P, _P, _P, _P, _P],
+        "rtpu_knn_select": [_P, _L, _L, _I, _P, _P, _P, _I, _L, _P, _P, _P],
         "rtpu_ivf_score": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _L, _I, _P, _P, _P],
     },
     "kmeans": {

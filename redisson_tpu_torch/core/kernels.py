@@ -1066,9 +1066,12 @@ def segment_reduce(keys, vals, n_keys: int, reduce: str = "sum"):
 
 KNN_METRICS = ("L2", "COSINE", "IP")
 _BANK_TYPES = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
-# csrc/knn.cu: columns a stage-1 block of knn_select scans, and the keys one
-# of its rounds selects at most
-SELECT_SEG, SELECT_ROUND = 4096, 256
+# csrc/knn.cu's knn_select: keys a round selects at most (kRound); the
+# longest row that takes one warp (kSmallCols); the fewest columns of a
+# block's segment; the keys a row's last block merges at most (kPool:
+# segments x min(k, 256)); the blocks a call aims at for each SM (about one
+# wave of resident blocks: more, shorter segments were slower on the H100)
+SELECT_ROUND, SELECT_SMALL, SELECT_SEG_MIN, SELECT_POOL, SELECT_BLOCKS_PER_SM = 256, 2048, 16384, 4096, 3
 
 
 def _bank_f32(bank, scale):
@@ -1187,6 +1190,60 @@ def knn_select_plain(dist, k: int, ids=None):
     return vals, idx
 
 
+class SelectPlan(NamedTuple):
+    """How csrc/knn.cu's knn_select splits a call: segs 0 takes one warp a
+    row; segs > 0 gives each row segs blocks of seg_len columns (segment s
+    covers [s seg_len, min(n, (s + 1) seg_len)), none empty).  scratch_words:
+    the int64 words of the per-call scratch (the segments' lists, then each
+    row's last key of a round); state_words: those of the state the calls
+    share (each row's bound and ticket, left reset by every call)."""
+    segs: int
+    seg_len: int
+    scratch_words: int
+    state_words: int
+
+
+def knn_select_plan(r: int, n: int, k: int, sms: int = 132) -> SelectPlan:
+    """The plan of a knn_select call on R x n with k: rows of at most
+    SELECT_SMALL columns take one warp; longer ones as many segments as keep
+    about SELECT_BLOCKS_PER_SM blocks a call on each of `sms` SMs, each at
+    least SELECT_SEG_MIN columns, with segments x min(k, 256) <= SELECT_POOL."""
+    kr = min(k, SELECT_ROUND)
+    state = 2 * r  # a row's bound, then its ticket
+    if n <= SELECT_SMALL:
+        return SelectPlan(0, n, r, state)
+    want = -(-SELECT_BLOCKS_PER_SM * sms // r)
+    segs = max(1, min(want, n // SELECT_SEG_MIN, SELECT_POOL // kr))
+    seg_len = -(-n // segs)
+    seg_len += -seg_len % 4
+    segs = -(-n // seg_len)
+    return SelectPlan(segs, seg_len, r * segs * kr + r, state)
+
+
+_select_states: dict = {}
+_sm_counts: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device]
+
+
+def _select_state(device, words: int):
+    """The rows' bounds (all ones) and tickets (zero), a pair of words a
+    row, that knn_select's calls on this device and stream share; every
+    call leaves them so.  Made anew when a call has more rows than any
+    before it."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    state = _select_states.get(key)
+    if state is None or state.numel() < words:
+        state = torch.zeros(words, dtype=torch.int64, device=device)
+        state[0::2] = -1
+        _select_states[key] = state
+    return state
+
+
 def knn_select(dist, k: int, ids=None):
     """Per row of dist (R, n) float32, its k smallest entries by (value,
     column): (vals (R, k) float32, idx (R, k) int32), idx the column or,
@@ -1200,15 +1257,17 @@ def knn_select(dist, k: int, ids=None):
         raise ValueError("ids: int32 of the matrix's shape, on its device")
     if _route(dist) == "plain":
         return knn_select_plain(dist, k, ids)
-    if n >= 2**31 or r > 65535:
-        raise ValueError(f"the knn_select kernel takes n < 2**31 and at most 65535 rows, got {(r, n)}")
+    if n >= 2**31:
+        raise ValueError(f"the knn_select kernel takes n < 2**31, got {n}")
     dist, ids = dist.contiguous(), _contig(ids)
-    segs = -(-n // SELECT_SEG)
-    scratch = torch.empty(r * segs * min(k, SELECT_ROUND) + r, dtype=torch.int64, device=dist.device)
+    plan = knn_select_plan(r, n, k, _sm_count(dist.device))
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dist.device)
+    state = _select_state(dist.device, plan.state_words)
     vals = torch.empty((r, k), dtype=torch.float32, device=dist.device)
     idx = torch.empty((r, k), dtype=torch.int32, device=dist.device)
     _launch("knn_select", _build.library("knn").rtpu_knn_select, dist,
-            dist.data_ptr(), n, r, k, _ptr(ids), vals.data_ptr(), idx.data_ptr(), scratch.data_ptr())
+            dist.data_ptr(), n, r, k, _ptr(ids), vals.data_ptr(), idx.data_ptr(), plan.segs, plan.seg_len,
+            scratch.data_ptr(), state.data_ptr())
     return vals, idx
 
 

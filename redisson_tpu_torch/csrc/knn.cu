@@ -38,15 +38,22 @@
 // the lower column and +inf sorts after every finite value, as lax.top_k's
 // stable order gives them; torch.topk promises no such order.  With `ids`
 // the column is mapped through ids[r][column] (the IVF candidates' rows).
-// Bound on an H100: the bytes of the matrix, read once.  Each warp keeps a
-// sorted list of its best keys spread over its lanes (KPL slots a lane) and
-// offers it 32 keys at a time: a key enters only below the list's k-th, so
-// after the first k a warp mostly reads and compares.  Stage 1 splits each
-// row into segments of kSeg columns, one block a segment, and merges its 8
-// warps' lists into the segment's best; stage 2 takes each row's segment
-// lists the same way (one block a row).  A list holds at most kRound = 256
-// keys; a larger k runs in rounds of 256, each skipping the keys the rounds
-// before it took, so it costs a pass over the row per 256 keys.
+// Bound on an H100: the bytes of the matrix, read once.  One launch a round
+// of up to kRound = 256 keys (a larger k takes a round per 256, each
+// skipping the keys the rounds before it took).  Each warp keeps a sorted
+// list of its best keys across its lanes (WarpSel) and reads its columns
+// with 16-byte loads, 4 a lane a step and the next step's in flight; a key is
+// kept only at or below a bound that the warp's list, its block (shared
+// memory) and its row (a 64-bit atomicMin in global memory) share, so after
+// the first step most keys cost one 32-bit compare of their order bits (a
+// float compare was slower on the H100).  Kept keys wait in a
+// buffer and join the list a whole list at a time through one bitonic
+// network.  Rows of at most kernels.SELECT_SMALL columns (the IVF route and
+// candidates) take one warp a row; longer rows split into a few segments
+// (about kernels.SELECT_BLOCKS_PER_SM blocks a call on each SM, each of at
+// least SELECT_SEG_MIN columns: more, shorter segments were slower), one
+// block each, whose lists the row's last block (an atomic ticket) merges by
+// rank in the same launch.
 //
 // ivf_score replaces the candidate scoring of _knn_ivf_body (:782,
 // _ivf_candidate_dists :739): for query r and probe p (cell probe[r][p]),
@@ -56,9 +63,9 @@
 // ragged cells) scores +inf.  out (R, nprobe * cap) float32 and ids (R,
 // nprobe * cap) int32 (the slot's row id), in probe order, then cell order,
 // which is the reference's candidate order.  Bound on an H100: the gathered
-// rows' bytes.  Eight lanes a candidate, so a block has 32 rows in flight:
-// each lane reads every eighth lane of its row and a shuffle tree adds the
-// products.
+// rows' bytes.  One block a (query, probe) pair compacts the cell's valid
+// slots by ballot and gathers only those, 16 bytes a load where the rows
+// allow, 32 or 64 rows a block in flight (ivf_score_kernel below).
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -536,224 +543,688 @@ cudaError_t stream_dispatch(int bt, bool vec, const void* bank, const float* sca
 
 // --------------------------------------------------------------- knn_select
 
-constexpr int kWarps = kThreads / 32;
-constexpr int64_t kSeg = 4096;
-constexpr int kRound = 256;
-constexpr uint64_t kNone = ~0ull;  // above every real key (a column < 2**31)
+using u64 = unsigned long long;
 
-__device__ __forceinline__ uint64_t key_of(float d, int64_t col) {
+constexpr int kWarps = kThreads / 32;
+constexpr int kRound = 256;        // keys a round selects at most
+constexpr int kPool = 4096;        // keys a block merges at most: max(kWarps, segs) x kr
+constexpr int kSmallCols = 2048;   // the longest row one warp takes (kernels.SELECT_SMALL)
+constexpr u64 kNone = ~0ull;       // above every real key (a column < 2**31)
+
+// What the calls share of a row: its bound (kNone between calls) and the
+// ticket its blocks take when done (0 between calls).
+struct RowState {
+  u64 bound;
+  unsigned ticket, pad;
+};
+
+// The float's bits mapped to an unsigned order: negative floats flipped,
+// the others with the top bit set.
+__device__ __forceinline__ uint32_t order_of(float d) {
   const uint32_t b = __float_as_uint(d);
-  const uint32_t o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return (static_cast<uint64_t>(o) << 32) | static_cast<uint32_t>(col);
+  return b ^ (static_cast<uint32_t>(static_cast<int32_t>(b) >> 31) | 0x80000000u);
 }
 
-__device__ __forceinline__ float dist_of(uint64_t key) {
+__device__ __forceinline__ u64 key_of(float d, int64_t col) {
+  return (static_cast<u64>(order_of(d)) << 32) | static_cast<uint32_t>(col);
+}
+
+__device__ __forceinline__ float dist_of(u64 key) {
   const uint32_t o = static_cast<uint32_t>(key >> 32);
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
-// A warp's k smallest keys, ascending: lane l holds places l*KPL .. l*KPL+KPL-1.
-template <int KPL>
-struct WarpList {
-  uint64_t v[KPL];
-  uint64_t kth;  // the key at place k - 1 (kNone while the list is short)
-  int k_lane, k_slot;
+__device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a < b ? b : a; }
 
-  __device__ __forceinline__ void init(int k) {
+__host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
+
+// One compare-exchange step of a bitonic network over the 32 KPL keys of a
+// warp held lane-major (place p = lane * KPL + j): places p and p ^ stride
+// meet, the smaller to the lower place where bit `size` of p is 0 (an
+// ascending run), to the higher where it is 1.
+template <int KPL>
+__device__ __forceinline__ void bitonic_step(u64 (&v)[KPL], int lane, int size, int stride) {
+  if (stride >= KPL) {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int p = lane * KPL + j;
+      const u64 o = __shfl_xor_sync(kFull, v[j], stride / KPL);
+      v[j] = (((p & stride) == 0) == ((p & size) == 0)) ? umin(v[j], o) : umax(v[j], o);
+    }
+  } else {
+    u64 w[KPL];
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int p = lane * KPL + j;
+      u64 o = v[0];
+#pragma unroll
+      for (int i = 1; i < KPL; ++i)
+        if (i == (j ^ stride)) o = v[i];  // folds to one register once the network is unrolled
+      w[j] = (((p & stride) == 0) == ((p & size) == 0)) ? umin(v[j], o) : umax(v[j], o);
+    }
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) v[j] = w[j];
+  }
+}
+
+template <int KPL>
+__device__ __forceinline__ void bitonic_sort(u64 (&v)[KPL], int lane) {
+  constexpr int kLog = log2_of(32 * KPL);
+#pragma unroll
+  for (int ls = 1; ls <= kLog; ++ls)
+#pragma unroll
+    for (int lt = ls - 1; lt >= 0; --lt) bitonic_step<KPL>(v, lane, 1 << ls, 1 << lt);
+}
+
+// A warp's selection: its k smallest keys so far in a sorted list of 32 KPL
+// places (lane l holds places l KPL .. l KPL + KPL - 1; only the first k
+// count), and a buffer of keys waiting to be merged in.  A key is buffered
+// only if it is at or below the warp's bound: the least of the list's k-th
+// key, its block's and its row's bound.  Any k keys of a row bound its k-th
+// key from above, so a key above a bound is not among the row's k smallest,
+// and the bound only decides what is read past, never which k are returned.
+// A full buffer is sorted across the lanes and merged into the list by one
+// bitonic network (reverse, min, clean) instead of a key at a time.
+template <int KPL>
+struct WarpSel {
+  static constexpr int N = 32 * KPL;     // places of the list
+  static constexpr int kBuf = N + 128;   // a list's worth, and one push of 4 keys a lane
+  u64 v[KPL];
+  u64 kth;            // place k - 1 (kNone while the list holds fewer keys)
+  int k_lane, k_slot;
+  u64* buf;           // the warp's kBuf keys of shared memory
+  int cnt;            // keys in buf (the same in every lane)
+  int lane;
+  bool has_lo;        // a round after the first: only keys above lo count
+  u64 lo;
+  u64 ext;            // the block's and the row's bound, as last read (kNone without)
+  u64* sbound;        // where the k-th key is published (null: nowhere)
+  u64* gbound;
+  u64 pub;            // the last key published
+
+  __device__ __forceinline__ void init(int kr, int lane_, u64* buf_, const u64* lower, int64_t row, u64* sb,
+                                       u64* gb) {
 #pragma unroll
     for (int j = 0; j < KPL; ++j) v[j] = kNone;
     kth = kNone;
-    k_lane = (k - 1) / KPL;
-    k_slot = (k - 1) % KPL;
+    k_lane = (kr - 1) / KPL;
+    k_slot = (kr - 1) % KPL;
+    buf = buf_;
+    cnt = 0;
+    lane = lane_;
+    has_lo = lower != nullptr;
+    lo = has_lo ? lower[row] : 0;
+    ext = kNone;
+    sbound = sb;
+    gbound = gb;
+    pub = kNone;
   }
 
-  // every lane calls with the same y, a key not in the list
-  __device__ __forceinline__ void insert(uint64_t y, int lane) {
-    int p = 0;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) p += __popc(__ballot_sync(kFull, v[j] < y));
-    const uint64_t up = __shfl_up_sync(kFull, v[KPL - 1], 1);
-#pragma unroll
-    for (int j = KPL - 1; j >= 0; --j) {
-      const int g = lane * KPL + j;
-      const uint64_t below = j == 0 ? up : v[j > 0 ? j - 1 : 0];
-      if (g > p) v[j] = below;
-      else if (g == p) v[j] = y;
+  __device__ __forceinline__ u64 thr() const { return umin(kth, ext); }
+  __device__ __forceinline__ bool above_lo(u64 x) const { return !has_lo || x > lo; }
+
+  // b (any order, kNone where empty; only its first `filled` places hold
+  // keys) into the list: the list becomes the N smallest of both, ascending.
+  // A short batch sorts only the first power of two of places it fills: the
+  // places after them hold kNone, in order already.
+  __device__ __forceinline__ void merge(u64 (&b)[KPL], int filled = N) {
+    if (filled >= N) {
+      bitonic_sort<KPL>(b, lane);
+    } else {
+      const int top = filled > 1 ? 32 - __clz(filled - 1) : 1;  // 2**top >= filled
+      for (int ls = 1; ls <= top; ++ls)
+        for (int lt = ls - 1; lt >= 0; --lt) bitonic_step<KPL>(b, lane, 1 << ls, 1 << lt);
     }
-    uint64_t mine = v[0];
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) v[j] = umin(v[j], __shfl_xor_sync(kFull, b[KPL - 1 - j], 31));
+    constexpr int kLog = log2_of(N);
+#pragma unroll
+    for (int lt = kLog - 1; lt >= 0; --lt) bitonic_step<KPL>(v, lane, N, 1 << lt);
+    set_kth();
+  }
+
+  // kth from place k - 1, published to the block and the row when it fell
+  __device__ __forceinline__ void set_kth() {
+    u64 mine = v[0];
 #pragma unroll
     for (int j = 1; j < KPL; ++j)
       if (j == k_slot) mine = v[j];
     kth = __shfl_sync(kFull, mine, k_lane);
+    if (kth < pub) {
+      pub = kth;
+      if (lane == 0 && sbound != nullptr) {
+        atomicMin(sbound, kth);
+        atomicMin(gbound, kth);
+      }
+    }
   }
 
-  // one key a lane; those below the k-th enter, lowest lane first
-  __device__ __forceinline__ void offer(uint64_t x, bool ok, int lane) {
-    unsigned m = __ballot_sync(kFull, ok && x < kth);
-    while (m) {
-      const uint64_t y = __shfl_sync(kFull, x, __ffs(m) - 1);
-      insert(y, lane);
-      m &= m - 1;
-      m &= __ballot_sync(kFull, ok && x < kth);
+  // each lane's key x (when ok) appended to the buffer
+  __device__ __forceinline__ void push(u64 x, bool ok) {
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (ok) buf[cnt + __popc(m & ((1u << lane) - 1))] = x;
+    cnt += __popc(m);
+  }
+
+  // Merge the buffer a list's worth at a time while it holds one (with all,
+  // to the last key); after each merge the keys left that are still at or
+  // below the bound move to the front.
+  __device__ __forceinline__ void drain(bool all) {
+    while (cnt >= N || (all && cnt > 0)) {
+      const int take = cnt < N ? cnt : N;
+      u64 b[KPL];
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int p = lane * KPL + j;
+        b[j] = p < take ? buf[p] : kNone;
+      }
+      merge(b, take);
+      const u64 t = thr();
+      const int rest = cnt - take;
+      cnt = 0;
+      for (int i0 = 0; i0 < rest; i0 += 32) {
+        const bool in = i0 + lane < rest;
+        const u64 x = in ? buf[take + i0 + lane] : kNone;
+        push(x, in && x <= t);  // below take + i0 (take = N when rest > 0): nothing unread is overwritten
+      }
+      __syncwarp();
+    }
+  }
+
+  // One step's keys: the first nv of NG groups hold values (4 each, the last
+  // last_m), group u at columns col + u * stride ..  The order bits alone
+  // reject most keys; a group no lane keeps a key of costs one vote.
+  template <int NG>
+  __device__ __forceinline__ void step(const float4 (&v4)[NG], int64_t col, int64_t stride, int nv, int last_m) {
+    const uint32_t thi = static_cast<uint32_t>(thr() >> 32);
+    const uint32_t lhi = has_lo ? static_cast<uint32_t>(lo >> 32) : 0u;
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      const float e4[4] = {v4[u].x, v4[u].y, v4[u].z, v4[u].w};
+      const int m = u < nv ? (u == nv - 1 ? last_m : 4) : 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t o = order_of(e4[e]);
+        any |= e < m && o <= thi && o >= lhi;
+      }
+    }
+    if (!__any_sync(kFull, any)) return;
+    int seeded = -1;  // the key of this step the seed took
+    if (kth == kNone) {
+      // seed: each lane's smallest key joins the list at once, so one merge
+      // gives a bound from 32 keys spread over the warp
+      u64 mn = kNone;
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        const float e4[4] = {v4[u].x, v4[u].y, v4[u].z, v4[u].w};
+        const int m = u < nv ? (u == nv - 1 ? last_m : 4) : 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const u64 x = key_of(e4[e], col + u * stride + e);
+          if (e < m && above_lo(x) && x < mn) {
+            mn = x;
+            seeded = 4 * u + e;
+          }
+        }
+      }
+      u64 b[KPL];
+      b[0] = mn;
+#pragma unroll
+      for (int j = 1; j < KPL; ++j) b[j] = kNone;
+      if (__shfl_sync(kFull, v[0], 0) == kNone) {
+        // an empty list: the sorted batch is the list
+        bitonic_sort<KPL>(b, lane);
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) v[j] = b[j];
+        set_kth();
+      } else {
+        merge(b);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      const u64 t = thr();
+      const float e4[4] = {v4[u].x, v4[u].y, v4[u].z, v4[u].w};
+      const int m = u < nv ? (u == nv - 1 ? last_m : 4) : 0;
+      u64 x[4];
+      bool ok[4], some = false;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = key_of(e4[e], col + u * stride + e);
+        ok[e] = e < m && 4 * u + e != seeded && above_lo(x[e]) && x[e] <= t;
+        some |= ok[e];
+      }
+      if (!__any_sync(kFull, some)) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) push(x[e], ok[e]);
+      __syncwarp();
+      if (cnt >= N) drain(false);
     }
   }
 };
 
-// One block takes columns [seg * seg_len, +seg_len) of row blockIdx.y (of a
-// float matrix, or of keys with KEYS) and writes its kr smallest keys: to
-// keys_out[(row * gridDim.x + seg) * kr + place], or, when final, as
-// (dist, column or ids[row][column]) at places base.. of the row's k outputs,
-// the last key also to last[row].  lower (when not null): only keys above
-// lower[row] count.
-template <int KPL, bool KEYS>
-__global__ void __launch_bounds__(kThreads)
-select_kernel(const float* __restrict__ dist, const uint64_t* __restrict__ keys_in, int64_t n,
-              int64_t seg_len, const uint64_t* __restrict__ lower, int kr, bool final_,
-              uint64_t* __restrict__ keys_out, float* __restrict__ vals, int32_t* __restrict__ idx,
-              int k, int base, const int32_t* __restrict__ ids, int64_t ids_n,
-              uint64_t* __restrict__ last) {
-  __shared__ uint64_t pool[kWarps * kRound];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t row = blockIdx.y;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * seg_len;
-  const int64_t end = start + seg_len < n ? start + seg_len : n;
-  const bool has_lower = lower != nullptr;
-  const uint64_t lo = has_lower ? lower[row] : 0;
-  WarpList<KPL> wl;
-  wl.init(kr);
-  for (int64_t i0 = start + warp * 32; i0 < end; i0 += kThreads) {
-    const int64_t i = i0 + lane;
-    uint64_t x = kNone;
-    if (i < end) x = KEYS ? keys_in[row * n + i] : key_of(dist[row * n + i], i);
-    wl.offer(x, i < end && (!has_lower || x > lo), lane);
+// Columns [a, b) of the row at rp through s: the 16-byte aligned interior
+// in steps of 4 float4s a thread (thread t of NT takes float4 t + NT u of
+// each step's 4 NT), the next step's loads issued before this step's keys
+// are filtered; then the unaligned ends (at most 3 + 3 columns), by one warp
+// (`ends`).  With gb, the row's bound is read each step (from L2).
+template <int KPL, int NT>
+__device__ __forceinline__ void scan_columns(WarpSel<KPL>& s, const float* rp, int64_t a, int64_t b, int t,
+                                             bool ends, const u64* gb) {
+  constexpr int kPer = 4 * NT;  // float4s a step
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(rp + a);
+  int64_t a4 = a + static_cast<int64_t>(((16 - (addr & 15)) & 15) >> 2);
+  if (a4 > b) a4 = b;
+  const int nf = static_cast<int>((b - a4) >> 2);  // n < 2**31: a row holds fewer than 2**29 float4s
+  const int64_t b4 = a4 + 4 * static_cast<int64_t>(nf);
+  const float4* p4 = reinterpret_cast<const float4*>(rp + a4);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 cur[4], nxt[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int f = u * NT + t;
+    cur[u] = f < nf ? __ldg(p4 + f) : zero;
+    nxt[u] = zero;
   }
+  u64 g = gb != nullptr ? __ldcg(gb) : kNone;
+  for (int f0 = t; f0 - t < nf; f0 += kPer) {
+    if (f0 - t + kPer < nf) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int f = f0 + kPer + u * NT;
+        nxt[u] = f < nf ? __ldg(p4 + f) : zero;
+      }
+    }
+    const u64 gn = gb != nullptr ? __ldcg(gb) : kNone;
+    if (s.sbound != nullptr) s.ext = umin(s.ext, umin(*reinterpret_cast<volatile u64*>(s.sbound), g));
+    const int left = nf > f0 ? (nf - f0 + NT - 1) / NT : 0;  // groups holding values
+    s.template step<4>(cur, a4 + 4 * static_cast<int64_t>(f0), 4 * NT, left < 4 ? left : 4, 4);
+    g = gn;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cur[u] = nxt[u];
+  }
+  if (ends) {
+    // the head a .. a4 on lanes 0-2, the tail b4 .. b on lanes 3-5
+    int64_t col = -1;
+    if (s.lane < 3 && a + s.lane < a4) col = a + s.lane;
+    if (s.lane >= 3 && s.lane < 6 && b4 + s.lane - 3 < b) col = b4 + s.lane - 3;
+    float4 v4[1] = {zero};
+    if (col >= 0) v4[0].x = rp[col];
+    s.template step<1>(v4, col, 0, col >= 0 ? 1 : 0, 1);
+  }
+}
+
+// The kr smallest keys of `runs` sorted runs of kr keys each (pool, kNone
+// where a run is short), ascending, into out (kNone beforehand), skipping
+// keys above `bound`.  Keys are unique, so a key's rank is its place in its
+// own run plus the keys below it in the others (a binary search each).
+__device__ __forceinline__ void rank_merge(const u64* pool, int runs, int kr, u64 bound, u64* out) {
+  for (int i = threadIdx.x; i < runs * kr; i += kThreads) {
+    const u64 x = pool[i];
+    if (x == kNone || x > bound) continue;
+    const int own = i / kr;
+    int rank = i - own * kr;
+    for (int r = 0; r < runs && rank < kr; ++r) {
+      if (r == own) continue;
+      const u64* run = pool + r * kr;
+      int lo = 0, len = kr;
+      while (len > 0) {
+        const int half = len >> 1;
+        if (run[lo + half] < x) {
+          lo += half + 1;
+          len -= half + 1;
+        } else {
+          len = half;
+        }
+      }
+      rank += lo;
+    }
+    if (rank < kr) out[rank] = x;
+  }
+}
+
+// Place g of the round (places base .. base + kr of the row's k outputs).
+__device__ __forceinline__ void put_key(u64 key, int64_t row, int g, int kr, int k, int base,
+                                        const int32_t* ids, int64_t n, float* vals, int32_t* idx, u64* last) {
+  const uint32_t col = static_cast<uint32_t>(key);
+  vals[row * k + base + g] = dist_of(key);
+  idx[row * k + base + g] = ids != nullptr ? ids[row * n + col] : static_cast<int32_t>(col);
+  if (g == kr - 1) last[row] = key;
+}
+
+// Rows of at most kSmallCols columns: one warp a row, alone in its block
+// (each row's work is a chain of latencies: a warp of its own keeps an SM
+// scheduler to itself).
+template <int KPL>
+__global__ void __launch_bounds__(32)
+select_rows_kernel(const float* __restrict__ dist, int64_t n, int kr, int k, int base,
+                   const u64* __restrict__ lower, const int32_t* __restrict__ ids, float* __restrict__ vals,
+                   int32_t* __restrict__ idx, u64* __restrict__ last) {
+  extern __shared__ __align__(16) u64 bufs[];
+  const int lane = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  WarpSel<KPL> s;
+  s.init(kr, lane, bufs, lower, row, nullptr, nullptr);
+  scan_columns<KPL, 32>(s, dist + row * n, 0, n, lane, true, nullptr);
+  s.drain(true);
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
     const int g = lane * KPL + j;
-    if (g < kr) pool[warp * kr + g] = wl.v[j];
+    if (g < kr) put_key(s.v[j], row, g, kr, k, base, ids, n, vals, idx, last);
+  }
+}
+
+// Longer rows: segs blocks a row (blockIdx.x = row * segs + segment), each
+// taking seg_len columns with 8 warps.  The warps share a bound in shared
+// memory and the row's blocks one in its RowState (64-bit atomicMin); a block
+// merges its warps' lists by rank, writes its list to runs, and the last
+// block of the row to finish (a ticket: __threadfence, then atomicAdd) merges
+// the row's lists, writes the answer and resets the row's ticket and bound
+// for the next call.
+template <int KPL>
+__global__ void __launch_bounds__(kThreads)
+select_segs_kernel(const float* __restrict__ dist, int64_t n, int segs, int64_t seg_len, int kr, int k, int base,
+                   const u64* __restrict__ lower, const int32_t* __restrict__ ids, u64* __restrict__ runs,
+                   RowState* __restrict__ state, float* __restrict__ vals, int32_t* __restrict__ idx,
+                   u64* __restrict__ last) {
+  extern __shared__ __align__(16) u64 pool[];  // the warps' buffers, then the lists merged
+  __shared__ u64 best[kRound];
+  __shared__ u64 sbound;
+  __shared__ int last_block;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x / segs;
+  const int seg = static_cast<int>(blockIdx.x - row * segs);
+  const int64_t a = seg * seg_len, b = a + seg_len < n ? a + seg_len : n;
+  u64* gbound = &state[row].bound;
+  if (threadIdx.x == 0) sbound = kNone;
+  for (int i = threadIdx.x; i < kr; i += kThreads) best[i] = kNone;
+  __syncthreads();
+  WarpSel<KPL> s;
+  s.init(kr, lane, pool + warp * WarpSel<KPL>::kBuf, lower, row, &sbound, gbound);
+  scan_columns<KPL, kThreads>(s, dist + row * n, a, b, threadIdx.x, warp == 0, gbound);
+  s.drain(true);
+  __syncthreads();  // every buffer is read: the pool takes the lists
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int g = lane * KPL + j;
+    if (g < kr) pool[warp * kr + g] = s.v[j];
   }
   __syncthreads();
-  if (warp != 0) return;
-  WarpList<KPL> m;
-  m.init(kr);
-  for (int i0 = 0; i0 < kWarps * kr; i0 += 32) {
-    const int i = i0 + lane;
-    const bool ok = i < kWarps * kr;
-    m.offer(ok ? pool[i] : kNone, ok, lane);
+  rank_merge(pool, kWarps, kr, umin(sbound, __ldcg(gbound)), best);
+  __syncthreads();
+  if (segs > 1) {
+    u64* run = runs + (row * segs + seg) * kr;
+    for (int i = threadIdx.x; i < kr; i += kThreads) run[i] = best[i];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last_block = atomicAdd(&state[row].ticket, 1u) == static_cast<unsigned>(segs - 1);
+    __syncthreads();
+    if (!last_block) return;
+    __threadfence();
+    const u64* rr = runs + row * segs * kr;
+    for (int i = threadIdx.x; i < segs * kr; i += kThreads) pool[i] = __ldcg(rr + i);
+    for (int i = threadIdx.x; i < kr; i += kThreads) best[i] = kNone;
+    __syncthreads();
+    rank_merge(pool, segs, kr, __ldcg(gbound), best);
+    __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int g = lane * KPL + j;
-    if (g >= kr) continue;
-    const uint64_t key = m.v[j];
-    if (!final_) {
-      keys_out[(row * gridDim.x + blockIdx.x) * kr + g] = key;
-      continue;
-    }
-    const uint32_t col = static_cast<uint32_t>(key);
-    vals[row * k + base + g] = dist_of(key);
-    idx[row * k + base + g] = ids != nullptr ? ids[row * ids_n + col] : static_cast<int32_t>(col);
-    if (g == kr - 1) last[row] = key;
+  for (int g = threadIdx.x; g < kr; g += kThreads) put_key(best[g], row, g, kr, k, base, ids, n, vals, idx, last);
+  if (threadIdx.x == 0) {
+    if (segs > 1) state[row].ticket = 0;
+    *gbound = kNone;
   }
 }
 
 template <int KPL>
-void select_pass(bool keys, const dim3& grid, cudaStream_t s, const float* dist, const uint64_t* keys_in,
-                 int64_t n, int64_t seg_len, const uint64_t* lower, int kr, bool final_,
-                 uint64_t* keys_out, float* vals, int32_t* idx, int k, int base, const int32_t* ids,
-                 int64_t ids_n, uint64_t* last) {
-  if (keys) {
-    select_kernel<KPL, true><<<grid, kThreads, 0, s>>>(dist, keys_in, n, seg_len, lower, kr, final_,
-                                                       keys_out, vals, idx, k, base, ids, ids_n, last);
+cudaError_t select_round(cudaStream_t s, const float* dist, int64_t n, int64_t R, int segs, int64_t seg_len, int kr,
+                         int k, int base, const u64* lower, const int32_t* ids, u64* runs, RowState* state,
+                         float* vals, int32_t* idx, u64* last) {
+  if (segs == 0) {
+    select_rows_kernel<KPL><<<static_cast<unsigned>(R), 32, sizeof(u64) * WarpSel<KPL>::kBuf, s>>>(
+        dist, n, kr, k, base, lower, ids, vals, idx, last);
   } else {
-    select_kernel<KPL, false><<<grid, kThreads, 0, s>>>(dist, keys_in, n, seg_len, lower, kr, final_,
-                                                        keys_out, vals, idx, k, base, ids, ids_n, last);
+    const auto grid = static_cast<unsigned>(R * segs);
+    const int keys = kWarps * WarpSel<KPL>::kBuf > kPool ? kWarps * WarpSel<KPL>::kBuf : kPool;
+    select_segs_kernel<KPL><<<grid, kThreads, sizeof(u64) * keys, s>>>(dist, n, segs, seg_len, kr, k, base, lower,
+                                                                       ids, runs, state, vals, idx, last);
   }
-}
-
-void select_dispatch(int kr, bool keys, const dim3& grid, cudaStream_t s, const float* dist,
-                     const uint64_t* keys_in, int64_t n, int64_t seg_len, const uint64_t* lower,
-                     bool final_, uint64_t* keys_out, float* vals, int32_t* idx, int k, int base,
-                     const int32_t* ids, int64_t ids_n, uint64_t* last) {
-  if (kr <= 32) {
-    select_pass<1>(keys, grid, s, dist, keys_in, n, seg_len, lower, kr, final_, keys_out, vals, idx, k, base,
-                   ids, ids_n, last);
-  } else if (kr <= 64) {
-    select_pass<2>(keys, grid, s, dist, keys_in, n, seg_len, lower, kr, final_, keys_out, vals, idx, k, base,
-                   ids, ids_n, last);
-  } else if (kr <= 128) {
-    select_pass<4>(keys, grid, s, dist, keys_in, n, seg_len, lower, kr, final_, keys_out, vals, idx, k, base,
-                   ids, ids_n, last);
-  } else {
-    select_pass<8>(keys, grid, s, dist, keys_in, n, seg_len, lower, kr, final_, keys_out, vals, idx, k, base,
-                   ids, ids_n, last);
-  }
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- ivf_score
 
-// A group of kGroup lanes scores one candidate: each lane takes every
-// kGroup-th lane of the row (a group reads 32 consecutive bytes of a float32
-// row a step), so a warp has 4 rows in flight and a block 32.
-constexpr int kGroup = 8;
+// One block a (query, probe) pair.  Its threads load the probe's cell id,
+// then one slot id each (coalesced; cells of more than TH slots in
+// batches), write every slot's id and the +inf of the invalid ones, and
+// compact the valid slots into shared memory (a ballot a warp, the warps'
+// counts summed by every thread), so sentinels cost nothing wherever they
+// stand.  The 32 groups of kGroup lanes then score the valid rows densely,
+// kIvfRows rows a group at a time: a lane issues every load of its rows
+// (16-byte pieces where the rows and the bank allow, else element loads)
+// before the FMAs, so a block of TH threads has TH / 4 rows in flight (32 KB
+// at W 128 float32 with 256 threads) and a full cell of config 7 (112
+// slots) takes two rounds.  Blocks of 128 threads when the pairs outnumber
+// two blocks of 256 a SM, so that every pair's block is resident at once.  A lane
+// keeps its 16 query elements of a 128-element chunk in registers (the
+// later chunks of a wider row are read again, from L1) and its group sums
+// the query's norm by shuffles: no shared query, no barrier around it.
+constexpr int kIvfRows = 2;     // rows a group gathers at once
+constexpr int kGroup = 8;       // lanes a row
 
-template <int BT>
-__global__ void __launch_bounds__(kThreads)
-ivf_score_kernel(const void* __restrict__ bank, const float* __restrict__ scale,
-                 const float* __restrict__ bias, const float* __restrict__ qmask,
-                 const float* __restrict__ q, const int32_t* __restrict__ cells,
-                 const int32_t* __restrict__ probe, int64_t C, int W, int nlist, int nprobe, int cap,
-                 int64_t n_rows, int metric, float* __restrict__ out, int32_t* __restrict__ ids) {
-  extern __shared__ float qv[];
-  __shared__ float qsq_s;
+// The element at place s (< 16) of the share of lane `sub` of its group in
+// 128-element chunk c: with 16-byte pieces, of piece sub + 8 (s / per) of the
+// chunk (per elements a piece), else every 8th element.
+template <int BT, bool VEC>
+__device__ __forceinline__ int ivf_elem(int c, int sub, int s) {
+  constexpr int per = 16 / Elem<BT>::kBytes;
+  if (!VEC) return 128 * c + sub + 8 * s;
+  return 128 * c + per * (sub + 8 * (s / per)) + s % per;
+}
+
+// The places of chunk c of rows row[t] (-1: none) widened to float32 (INT8
+// times sc[t]); every load of every row is issued before any widening.
+template <int BT, bool VEC>
+__device__ __forceinline__ void ivf_rows(const void* bank, const int64_t (&row)[kIvfRows], int W, int c, int sub,
+                                         const float (&sc)[kIvfRows], float (&x)[kIvfRows][16]) {
+  constexpr int es = Elem<BT>::kBytes, per = 16 / es;
+  if (VEC) {
+    const int64_t pieces = static_cast<int64_t>(W) * es / 16;  // a row's 16-byte pieces
+    uint4 raw[kIvfRows][es];
+    bool in[kIvfRows][es];
+#pragma unroll
+    for (int t = 0; t < kIvfRows; ++t)
+#pragma unroll
+      for (int u = 0; u < es; ++u) {
+        const int64_t pi = static_cast<int64_t>(8 * es) * c + sub + 8 * u;
+        in[t][u] = row[t] >= 0 && pi < pieces;
+        raw[t][u] = in[t][u] ? __ldg(reinterpret_cast<const uint4*>(bank) + row[t] * pieces + pi)
+                             : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+    for (int t = 0; t < kIvfRows; ++t)
+#pragma unroll
+      for (int u = 0; u < es; ++u) {
+        const uint32_t w4[4] = {raw[t][u].x, raw[t][u].y, raw[t][u].z, raw[t][u].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (BT == kF32) {
+            x[t][4 * u + i] = in[t][u] ? __uint_as_float(w4[i]) : 0.0f;
+          } else if (BT == kF16) {
+            const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w4[i]));
+            x[t][per * u + 2 * i] = in[t][u] ? f.x : 0.0f;
+            x[t][per * u + 2 * i + 1] = in[t][u] ? f.y : 0.0f;
+          } else {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const float v = static_cast<float>(static_cast<int8_t>(w4[i] >> (8 * b)));
+              x[t][4 * i + b] = in[t][u] ? __fmul_rn(v, sc[t]) : 0.0f;
+            }
+          }
+        }
+      }
+  } else {
+    float raw[kIvfRows][16];
+#pragma unroll
+    for (int t = 0; t < kIvfRows; ++t)
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        const int d = ivf_elem<BT, VEC>(c, sub, s);
+        const int64_t at = row[t] * W + d;
+        float v = 0.0f;
+        if (row[t] >= 0 && d < W) {
+          if (BT == kF32) v = __ldg(static_cast<const float*>(bank) + at);
+          else if (BT == kF16) v = __half2float(static_cast<const __half*>(bank)[at]);
+          else v = static_cast<float>(static_cast<const int8_t*>(bank)[at]);
+        }
+        raw[t][s] = v;
+      }
+#pragma unroll
+    for (int t = 0; t < kIvfRows; ++t)
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        const bool in = row[t] >= 0 && ivf_elem<BT, VEC>(c, sub, s) < W;
+        x[t][s] = BT == kI8 ? (in ? __fmul_rn(raw[t][s], sc[t]) : 0.0f) : raw[t][s];
+      }
+  }
+}
+
+template <int BT, bool VEC, int TH>
+__global__ void __launch_bounds__(TH)
+ivf_score_kernel(const void* __restrict__ bank, const float* __restrict__ scale, const float* __restrict__ bias,
+                 const float* __restrict__ qmask, const float* __restrict__ q, const int32_t* __restrict__ cells,
+                 const int32_t* __restrict__ probe, int W, int nlist, int nprobe, int cap, int64_t n_rows,
+                 int metric, float* __restrict__ out, int32_t* __restrict__ ids) {
+  constexpr int kIvfWarps = TH / 32, kIvfGroups = TH / kGroup;
+  __shared__ int2 valid_slots[TH];
+  __shared__ int warp_valid[kIvfWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = threadIdx.x % kGroup, group = threadIdx.x / kGroup;
-  const int64_t r = blockIdx.y;
-  const int p = blockIdx.x;
-  for (int d = threadIdx.x; d < W; d += kThreads) qv[d] = q[r * W + d];
-  __syncthreads();
-  if (warp == 0) {
-    float a = 0.0f;
-    for (int d = lane; d < W; d += 32) a = fmaf(qv[d], qv[d], a);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(kFull, a, off);
-    if (lane == 0) qsq_s = a;
-  }
-  __syncthreads();
-  const float qsq = qsq_s;
-  const int cell = probe[r * nprobe + p];
+  const int sub = lane % kGroup, grp = threadIdx.x / kGroup;
+  const int64_t pair = blockIdx.x;
+  // the index loads first: the cell, then the first batch of its slot ids
+  const int cell = __ldg(probe + pair);
   const bool cell_ok = cell >= 0 && cell < nlist;
-  // every lane runs every step (the shuffles below take the whole warp)
-  for (int j0 = 0; j0 < cap; j0 += kThreads / kGroup) {
-    const int j = j0 + group;
-    const int32_t cand = (cell_ok && j < cap) ? cells[static_cast<int64_t>(cell) * cap + j] : -1;
-    const bool valid = cand >= 0 && cand < n_rows && cand < C;  // uniform in a group
-    float dot = 0.0f, rsq = 0.0f;
-    if (valid) {
-#pragma unroll 4
-      for (int d = sub; d < W; d += kGroup) {
-        const float x = bank_at<BT>(bank, scale, cand, W, d);
-        dot = fmaf(x, qv[d], dot);
-        rsq = fmaf(x, x, rsq);
-      }
+  const int32_t* crow = cells + static_cast<int64_t>(cell_ok ? cell : 0) * cap;
+  int32_t cand = (cell_ok && static_cast<int>(threadIdx.x) < cap) ? __ldg(crow + threadIdx.x) : -1;
+  // this lane's query elements of chunk 0, and the query's norm
+  const float* qr = q + (pair / nprobe) * W;
+  const int chunks = (W + 127) / 128;
+  float qv[16], qsq = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 16; ++s) {
+    const int d = ivf_elem<BT, VEC>(0, sub, s);
+    qv[s] = d < W ? __ldg(qr + d) : 0.0f;
+    qsq = fmaf(qv[s], qv[s], qsq);
+  }
+  for (int c = 1; c < chunks; ++c)
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      const int d = ivf_elem<BT, VEC>(c, sub, s);
+      const float v = d < W ? __ldg(qr + d) : 0.0f;
+      qsq = fmaf(v, v, qsq);
     }
 #pragma unroll
-    for (int off = kGroup / 2; off > 0; off >>= 1) {
-      dot += __shfl_xor_sync(kFull, dot, off);
-      rsq += __shfl_xor_sync(kFull, rsq, off);
+  for (int off = kGroup / 2; off > 0; off >>= 1) qsq += __shfl_xor_sync(kFull, qsq, off);
+  float* orow = out + pair * cap;
+  int32_t* irow = ids + pair * cap;
+  for (int b0 = 0; b0 < cap; b0 += TH) {
+    const int j = b0 + static_cast<int>(threadIdx.x);
+    if (b0 > 0) cand = (cell_ok && j < cap) ? __ldg(crow + j) : -1;
+    const bool in = j < cap;
+    const bool ok = in && cand >= 0 && cand < n_rows;
+    if (in) {
+      irow[j] = cand;
+      if (!ok) orow[j] = INFINITY;
     }
-    if (sub == 0 && j < cap) {
-      float dd = INFINITY;
-      if (valid) {
-        dd = metric_of(metric, dot, qsq, rsq);
-        if (bias != nullptr) dd = __fadd_rn(dd, bias[cand]);
-        if (qmask != nullptr) dd = __fadd_rn(dd, qmask[cand]);
+    const unsigned m = __ballot_sync(kFull, ok);
+    if (lane == 0) warp_valid[warp] = __popc(m);
+    __syncthreads();
+    int at = 0, nv = 0;
+#pragma unroll
+    for (int w = 0; w < kIvfWarps; ++w) {
+      at += w < warp ? warp_valid[w] : 0;
+      nv += warp_valid[w];
+    }
+    if (ok) valid_slots[at + __popc(m & ((1u << lane) - 1))] = make_int2(j, cand);
+    __syncthreads();
+    for (int i0 = 0; i0 < nv; i0 += kIvfRows * kIvfGroups) {
+      int slot[kIvfRows];
+      int64_t row[kIvfRows];
+      float sc[kIvfRows], bv[kIvfRows], mv[kIvfRows], dot[kIvfRows], rsq[kIvfRows];
+#pragma unroll
+      for (int t = 0; t < kIvfRows; ++t) {
+        const int i = i0 + t * kIvfGroups + grp;
+        const int2 e = i < nv ? valid_slots[i] : make_int2(-1, -1);
+        slot[t] = e.x;
+        row[t] = e.y;
+        const bool mine = row[t] >= 0 && sub == t;  // the lane that writes row t's distance
+        sc[t] = (BT == kI8 && scale != nullptr && row[t] >= 0) ? __ldg(scale + row[t]) : 1.0f;
+        bv[t] = (mine && bias != nullptr) ? __ldg(bias + row[t]) : 0.0f;
+        mv[t] = (mine && qmask != nullptr) ? __ldg(qmask + row[t]) : 0.0f;
+        dot[t] = 0.0f;
+        rsq[t] = 0.0f;
       }
-      const int64_t at = (r * nprobe + p) * cap + j;
-      out[at] = dd;
-      ids[at] = cand;
+      for (int c = 0; c < chunks; ++c) {
+        float x[kIvfRows][16];
+        ivf_rows<BT, VEC>(bank, row, W, c, sub, sc, x);
+#pragma unroll
+        for (int s = 0; s < 16; ++s) {
+          float qs = qv[s];
+          if (c > 0) {
+            const int d = ivf_elem<BT, VEC>(c, sub, s);
+            qs = d < W ? __ldg(qr + d) : 0.0f;
+          }
+#pragma unroll
+          for (int t = 0; t < kIvfRows; ++t) {
+            dot[t] = fmaf(x[t][s], qs, dot[t]);
+            rsq[t] = fmaf(x[t][s], x[t][s], rsq[t]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kIvfRows; ++t)
+#pragma unroll
+        for (int off = kGroup / 2; off > 0; off >>= 1) {
+          dot[t] += __shfl_xor_sync(kFull, dot[t], off);
+          rsq[t] += __shfl_xor_sync(kFull, rsq[t], off);
+        }
+#pragma unroll
+      for (int t = 0; t < kIvfRows; ++t) {
+        if (row[t] < 0 || sub != t) continue;
+        float dd = metric_of(metric, dot[t], qsq, rsq[t]);
+        if (bias != nullptr) dd = __fadd_rn(dd, bv[t]);
+        if (qmask != nullptr) dd = __fadd_rn(dd, mv[t]);
+        orow[slot[t]] = dd;
+      }
     }
+    __syncthreads();  // the list and the counts are read before the next batch
   }
+}
+
+template <int BT, bool VEC>
+cudaError_t ivf_launch(const void* bank, const float* scale, const float* bias, const float* qmask, const float* q,
+                       const int32_t* cells, const int32_t* probe, int W, int nlist, int nprobe, int cap,
+                       int64_t pairs, int64_t n_rows, int metric, float* out, int32_t* ids, cudaStream_t s) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> sm_counts[kMaxDevices];
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || (sms = sm_counts[dev].load(std::memory_order_relaxed)) == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) sm_counts[dev].store(sms, std::memory_order_relaxed);
+  }
+  const auto grid = static_cast<unsigned>(pairs);
+  if (pairs > 2 * static_cast<int64_t>(sms)) {
+    ivf_score_kernel<BT, VEC, 128><<<grid, 128, 0, s>>>(bank, scale, bias, qmask, q, cells, probe, W, nlist, nprobe,
+                                                        cap, n_rows, metric, out, ids);
+  } else {
+    ivf_score_kernel<BT, VEC, 256><<<grid, 256, 0, s>>>(bank, scale, bias, qmask, q, cells, probe, W, nlist, nprobe,
+                                                        cap, n_rows, metric, out, ids);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -797,35 +1268,39 @@ extern "C" int rtpu_knn_score(const void* bank, int bank_type, const void* scale
 
 // Per row of dist (R, n) float32, its k smallest (dist, column) keys in
 // order: vals (R, k) float32 and idx (R, k) int32 (the column, or
-// ids[row][column] when ids (R, n) is not null).  1 <= k <= n < 2**31.
-// scratch: R * ceil(n / 4096) * min(k, 256) + R uint64.
+// ids[row][column] when ids (R, n) is not null).  1 <= k <= n < 2**31.  The
+// plan (kernels.knn_select_plan): segs 0 takes one warp a row (n <= 2048);
+// segs > 0
+// splits each row into segs segments of seg_len columns, one block each,
+// with segs * min(k, 256) <= 4096.  scratch: R * segs * min(k, 256) + R
+// uint64 (the segments' lists, then each row's last key of a round).
+// state: R or more RowStates of 16 bytes (bound ~0, ticket 0), which every
+// call leaves as it found them.  One launch a round of 256 keys.
 extern "C" int rtpu_knn_select(const void* dist, int64_t n, int64_t R, int k, const void* ids, void* vals,
-                               void* idx, void* scratch, void* stream) {
-  if (n < 1 || n >= (int64_t{1} << 31) || R < 1 || R > 65535 || k < 1 || k > n)
+                               void* idx, int segs, int64_t seg_len, void* scratch, void* state, void* stream) {
+  const int kmax = k < kRound ? k : kRound;
+  const int64_t kMaxGrid = 0x7fffffff;
+  if (n < 1 || n >= (int64_t{1} << 31) || R < 1 || k < 1 || k > n || segs < 0 ||
+      (segs == 0 && (R > kMaxGrid || n > kSmallCols)) ||
+      (segs > 0 && (seg_len < 1 || segs * seg_len < n || (segs - 1) * seg_len >= n ||
+                    static_cast<int64_t>(segs) * kmax > kPool || R > kMaxGrid / segs)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto d = static_cast<const float*>(dist);
   const auto id = static_cast<const int32_t*>(ids);
   const auto v = static_cast<float*>(vals);
   const auto ix = static_cast<int32_t*>(idx);
-  const int64_t segs = (n + kSeg - 1) / kSeg;
-  const int kmax = k < kRound ? k : kRound;
-  auto keys = static_cast<uint64_t*>(scratch);
-  uint64_t* last = keys + R * segs * kmax;
+  auto runs = static_cast<u64*>(scratch);
+  u64* last = runs + R * segs * kmax;
+  auto st = static_cast<RowState*>(state);
   for (int base = 0; base < k; base += kRound) {
     const int kr = k - base < kRound ? k - base : kRound;
-    const uint64_t* lower = base > 0 ? last : nullptr;
-    if (segs == 1) {
-      select_dispatch(kr, false, dim3(1, static_cast<unsigned>(R)), s, d, nullptr, n, n, lower, true, nullptr,
-                      v, ix, k, base, id, n, last);
-    } else {
-      select_dispatch(kr, false, dim3(static_cast<unsigned>(segs), static_cast<unsigned>(R)), s, d, nullptr, n,
-                      kSeg, lower, false, keys, v, ix, k, base, id, n, last);
-      const int64_t m = segs * kr;
-      select_dispatch(kr, true, dim3(1, static_cast<unsigned>(R)), s, nullptr, keys, m, m, nullptr, true,
-                      nullptr, v, ix, k, base, id, n, last);
-    }
-    const cudaError_t err = cudaGetLastError();
+    const u64* lower = base > 0 ? last : nullptr;
+#define RTPU_ROUND(KPL) \
+  select_round<KPL>(s, d, n, R, segs, seg_len, kr, k, base, lower, id, runs, st, v, ix, last)
+    const cudaError_t err = kr <= 32 ? RTPU_ROUND(1) : kr <= 64 ? RTPU_ROUND(2) : kr <= 128 ? RTPU_ROUND(4)
+                                                                                         : RTPU_ROUND(8);
+#undef RTPU_ROUND
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
@@ -834,17 +1309,18 @@ extern "C" int rtpu_knn_select(const void* dist, int64_t n, int64_t R, int k, co
 // out (R, nprobe * cap) float32 and ids (same shape) int32: slot j of cell
 // probe[r][p] (cells (nlist, cap) int32) scored against q row r, the bank
 // as in rtpu_knn_score, plus bias (C,) and qmask (C,) when not null; a slot
-// whose row id is negative or >= n_rows scores +inf.
+// whose row id is negative or >= n_rows scores +inf.  16-byte loads when a
+// row is a multiple of 16 bytes on a 16-byte aligned bank, element loads
+// otherwise.
 extern "C" int rtpu_ivf_score(const void* bank, int bank_type, const void* scale, const void* bias,
                               const void* qmask, const void* q, const void* cells, const void* probe,
                               int64_t C, int W, int64_t R, int nlist, int nprobe, int cap, int64_t n_rows,
                               int metric, void* out, void* ids, void* stream) {
-  if (bank_type < kF32 || bank_type > kI8 || metric < 0 || metric > 2 || W < 1 || R < 1 || R > 65535 ||
-      nprobe < 1 || cap < 1 || nlist < 1 || static_cast<size_t>(W) * 4 > 48 * 1024)
+  const int64_t pairs = R * nprobe;
+  if (bank_type < kF32 || bank_type > kI8 || metric < 0 || metric > 2 || W < 1 || R < 1 || nprobe < 1 ||
+      cap < 1 || nlist < 1 || pairs > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(nprobe), static_cast<unsigned>(R));
-  const size_t smem = static_cast<size_t>(W) * sizeof(float);
   const auto sc = static_cast<const float*>(scale);
   const auto b = static_cast<const float*>(bias);
   const auto qm = static_cast<const float*>(qmask);
@@ -853,15 +1329,15 @@ extern "C" int rtpu_ivf_score(const void* bank, int bank_type, const void* scale
   const auto pr = static_cast<const int32_t*>(probe);
   const auto o = static_cast<float*>(out);
   const auto id = static_cast<int32_t*>(ids);
-  if (bank_type == kF32) {
-    ivf_score_kernel<kF32><<<grid, kThreads, smem, s>>>(bank, sc, b, qm, qq, cl, pr, C, W, nlist, nprobe, cap,
-                                                       n_rows, metric, o, id);
-  } else if (bank_type == kF16) {
-    ivf_score_kernel<kF16><<<grid, kThreads, smem, s>>>(bank, sc, b, qm, qq, cl, pr, C, W, nlist, nprobe, cap,
-                                                       n_rows, metric, o, id);
-  } else {
-    ivf_score_kernel<kI8><<<grid, kThreads, smem, s>>>(bank, sc, b, qm, qq, cl, pr, C, W, nlist, nprobe, cap,
-                                                      n_rows, metric, o, id);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t lim = n_rows < C ? n_rows : C;
+  const int es = bank_type == kF32 ? 4 : (bank_type == kF16 ? 2 : 1);
+  const bool vec = (static_cast<int64_t>(W) * es) % 16 == 0 && reinterpret_cast<uintptr_t>(bank) % 16 == 0;
+#define RTPU_IVF(BT, VEC) \
+  ivf_launch<BT, VEC>(bank, sc, b, qm, qq, cl, pr, W, nlist, nprobe, cap, pairs, lim, metric, o, id, s)
+  cudaError_t err;
+  if (bank_type == kF32) err = vec ? RTPU_IVF(kF32, true) : RTPU_IVF(kF32, false);
+  else if (bank_type == kF16) err = vec ? RTPU_IVF(kF16, true) : RTPU_IVF(kF16, false);
+  else err = vec ? RTPU_IVF(kI8, true) : RTPU_IVF(kI8, false);
+#undef RTPU_IVF
+  return static_cast<int>(err);
 }

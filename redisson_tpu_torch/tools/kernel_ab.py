@@ -11,8 +11,11 @@ tree's kernels and runs its own chip_smoke.py phases check_wordcount
 (config 4's stream: wc_words, wc_sort_runs, segment_reduce) and
 check_vector (knn_score, knn_select, ivf_score, kmeans at config 7's
 shapes and 1M x 128), each kernel checked against its plain version as
-chip_smoke.py checks it; with --paths also run_config4 and run_config7
-through that tree's create().  It prints every kernel's times by run, then
+chip_smoke.py checks it; then config 7's IVF batch at nprobe 2, 4 and 8
+through the public wrappers every tree has (the route's knn_select,
+ivf_score, the candidates' knn_select), on the same inputs in every tree;
+with --paths also run_config4 and run_config7 through that tree's
+create().  It prints every kernel's times by run, the IVF batch's, then
 the paths' word-count walls and config 7's per-leg qps, and writes the
 JSON of the run to --out.
 """
@@ -36,6 +39,31 @@ kernels = CS.check_wordcount(dev, np.random.default_rng(1234), values)
 kernels.update(CS.check_vector(dev, np.random.default_rng(4321)))
 out = {"build_s": build_s,
        "kernels": {k: {key: v for key, v in r.items() if isinstance(v, (int, float))} for k, r in kernels.items()}}
+# config 7's IVF batch through the public wrappers, which every tree has: the
+# route's select (k = nprobe), ivf_score and the candidates' select (k 10,
+# with row ids), on the same inputs in every tree (a seeded k-means of the
+# clustered corpus, as check_vector trains it)
+from redisson_tpu_torch.core import kernels as K
+n, w, nlist = CS.C7_POINTS[1][0], CS.C7_POINTS[1][1], CS.C7_NLIST
+vecs = CS.c7_clustered(np.random.default_rng(CS.C7_SEED), n, w)
+pts = torch.from_numpy(vecs).to(dev)
+ones = torch.ones(n, device=dev)
+init = np.sort(np.random.default_rng(0x1DF5EED ^ n).choice(n, nlist, replace=False))
+cent = pts[torch.from_numpy(init).to(dev)].clone()
+for _ in range(CS.KMEANS_ITERS):
+    cent, assign = K.kmeans_step(pts, ones, cent)
+cells = torch.from_numpy(CS.c7_cells(assign.cpu().numpy(), nlist)[0]).to(dev)
+q = torch.from_numpy(CS.c7_queries(np.random.default_rng(CS.C7_SEED + 1), vecs, CS.C7_QB)).to(dev)
+bias = torch.zeros(n, device=dev)
+route = K.knn_score(cent, None, None, None, q, nlist, "COSINE")
+out["ivf"] = {}
+for nprobe in CS.C7_NPROBES:
+    probe = K.knn_select(route, nprobe)[1]
+    cd, cids = K.ivf_score(pts, None, bias, None, cells, probe, q, n, "COSINE")
+    out["ivf"][nprobe] = {
+        "route_select_ms": CS.time_kernel(lambda i: K.knn_select(route, nprobe)),
+        "ivf_score_ms": CS.time_kernel(lambda i: K.ivf_score(pts, None, bias, None, cells, probe, q, n, "COSINE")),
+        "cand_select_ms": CS.time_kernel(lambda i: K.knn_select(cd, CS.C7_K, cids))}
 if PATHS:
     import redisson_tpu_torch
     client = redisson_tpu_torch.create()
@@ -75,6 +103,10 @@ def main() -> int:
         for key in keys:
             vals = [r["kernels"].get(name, {}).get(key) for r in runs]
             print(f"{name} {key}: " + "  ".join("-" if v is None else f"{v:.4f}" for v in vals))
+    for nprobe in runs[0]["ivf"]:
+        for key in runs[0]["ivf"][nprobe]:
+            vals = [r["ivf"][nprobe][key] for r in runs]
+            print(f"ivf nprobe {nprobe} {key}: " + "  ".join(f"{v:.4f}" for v in vals))
     if args.paths:
         for r in runs:
             c4, c7 = r["config4"], r["config7"]

@@ -976,6 +976,114 @@ def test_knn_select_matches_plain(dev, n, k):
         assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
 
 
+def _select_rows(rng, r, n):
+    """r rows of n: one of each hard kind, then random rows."""
+    d = rng.standard_normal((r, n)).astype(np.float32)
+    d[0] = 1.0                              # one value: every tie to the lower column
+    d[1, ::3] = np.inf
+    d[2] = np.inf                           # every key +inf
+    d[3, : n // 2] = -0.0                   # -0.0 below +0.0, each tie by column
+    d[3, n // 2:] = 0.0
+    d[4] = rng.integers(0, 3, n)            # three values: equal keys across every segment boundary
+    d[5] = np.arange(n, 0, -1)              # descending: every column is a new best
+    d[6, ::2] = d[6, 0]
+    d[7] = -np.inf
+    return d
+
+
+def _select_equal(d, k, ids=None):
+    gv, gi = K.knn_select(d, k, ids)
+    wv, wi = K.knn_select_plain(d, k, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [K.SELECT_SMALL - 1, K.SELECT_SMALL, K.SELECT_SMALL + 1, 4099, 40001, 70001])
+@pytest.mark.parametrize("k", [1, 10, 256, 257])
+def test_knn_select_one_launch_design_matches_plain(dev, n, k):
+    """Rows just under and over the one-warp limit, rows of one and of
+    several segments (the last block's merge), lengths that leave unaligned
+    ends, equal keys across segment boundaries, all +inf, -0.0 and +0.0, k
+    past a round of 256; 19 rows (more than a block's 8 warps), two calls in
+    a row (each leaves the rows' tickets and bounds reset for the next)."""
+    rng = np.random.default_rng(n + k)
+    r = 19
+    d = torch.from_numpy(_select_rows(rng, r, n)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, 2**31 - 1, (r, n)).astype(np.int32)).to(dev)
+    plan = K.knn_select_plan(r, n, k, K._sm_count(d.device))
+    assert (plan.segs == 0) == (n <= K.SELECT_SMALL)
+    if n >= 40001:
+        assert plan.segs > 1
+    for with_ids in (None, ids, None):
+        _select_equal(d, k, with_ids)
+    _select_equal(d[:3], k)  # fewer rows than the state holds
+    _select_equal(d, k)
+
+
+@pytest.mark.parametrize("n", [5, 100, K.SELECT_SMALL + 1, 4097, 9001])
+def test_knn_select_k_equal_n_and_unaligned_rows(dev, n):
+    """k = n (every key, in rounds of 256), and a matrix whose base lies one
+    element past a 16-byte boundary (every row's ends take element loads)."""
+    rng = np.random.default_rng(n)
+    d = torch.from_numpy(_select_rows(rng, 9, n)).to(dev)
+    _select_equal(d, n)
+    moved = _unaligned(d)
+    for k in sorted({1, min(n, 10), min(n, 300)}):
+        _select_equal(moved, k)
+
+
+def test_knn_select_past_65535_rows(dev):
+    rng = np.random.default_rng(2)
+    d = torch.from_numpy(rng.standard_normal((70000, 40)).astype(np.float32)).to(dev)
+    _select_equal(d, 5)
+    d = torch.from_numpy(rng.standard_normal((66000, 4100)).astype(np.float16).astype(np.float32)).to(dev)
+    _select_equal(d, 3)
+
+
+def _ivf_cells(rng, nlist, ccap, n_rows):
+    """Cells of row ids with the sentinel, negative ids and ids past n_rows
+    anywhere in a cell, not only at its end."""
+    cells = rng.integers(0, n_rows, (nlist, ccap)).astype(np.int32)
+    holes = rng.random((nlist, ccap))
+    cells[holes < 0.5] = 0x3FFFFFFF
+    cells[(holes > 0.5) & (holes < 0.55)] = -3
+    cells[(holes > 0.55) & (holes < 0.6)] = n_rows + 1
+    cells[1] = 0x3FFFFFFF                   # an empty cell
+    return cells
+
+
+@pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
+@pytest.mark.parametrize("w", [70, 128, 200])
+@pytest.mark.parametrize("ccap", [112, 300])
+@pytest.mark.parametrize("qn", [9, 70])
+def test_ivf_score_compacted_slots_match_plain(dev, dtype, w, ccap, qn):
+    """Sentinels in the middle of cells, W 70 (element loads for float32,
+    INT8), W 200 (a second chunk of the query), a cell cap past one batch of
+    slots, an unaligned bank view (element loads), INT8 with its scale,
+    FLOAT16; with and without the mask; 45 (query, probe) pairs and 350
+    (blocks of 256 and of 128 threads).  ids bit for bit, distances within
+    1e-5 of their scale."""
+    rng = np.random.default_rng(w + ccap + qn)
+    cap, nlist, n_rows = 3000, 16, 2900
+    bank, scale = _vec_bank(rng, cap, w, dtype, dev)
+    bias = torch.zeros(cap, device=dev)
+    bias[::89] = float("inf")
+    cells = torch.from_numpy(_ivf_cells(rng, nlist, ccap, cap)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((qn, w)).astype(np.float32)).to(dev)
+    probe = torch.from_numpy(rng.integers(0, nlist, (qn, 5)).astype(np.int32)).to(dev)
+    probe[0, 0] = 1
+    qmask = torch.where(torch.rand(cap, device=dev) < 0.3, float("inf"), 0.0)
+    for b in (bank, _unaligned(bank)):
+        for metric in ("L2", "COSINE", "IP"):
+            s = _dist_scale(K._bank_f32(bank, scale), q, metric)
+            for qm in (None, qmask):
+                gd, gids = K.ivf_score(b, scale, bias, qm, cells, probe, q, n_rows, metric)
+                wd, wids = K.ivf_score_plain(bank, scale, bias, qm, cells, probe, q, n_rows, metric)
+                torch.cuda.synchronize()
+                assert torch.equal(gids, wids)
+                _near(gd, wd, s)
+
+
 @pytest.mark.parametrize("dtype", ["FLOAT32", "FLOAT16", "INT8"])
 @pytest.mark.parametrize("metric", ["L2", "COSINE", "IP"])
 def test_ivf_route_score_and_select_match_plain(dev, metric, dtype):

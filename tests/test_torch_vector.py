@@ -238,6 +238,90 @@ def test_knn_select_maps_columns_through_ids():
         K.knn_select(_t(d), 51)
 
 
+@pytest.mark.parametrize("nprobe", [2, 4, 8])
+def test_knn_select_plain_matches_lax_top_k_at_the_ivf_shapes(nprobe):
+    """config 7's IVF batch: the route (64 queries x 1,536 centroids, k =
+    nprobe) and the candidates (64 x nprobe * 112 slots with their row ids,
+    k 10, +inf on sentinel slots), bit for bit against lax.top_k."""
+    import jax
+
+    rng = np.random.default_rng(nprobe)
+    route = rng.standard_normal((64, 1536)).astype(np.float32)
+    route[:, ::97] = route[:, :1]
+    vals, idx = K.knn_select(_t(route), nprobe)
+    neg, ridx = jax.lax.top_k(-jnp.asarray(route), nprobe)
+    assert np.array_equal(idx.numpy(), np.asarray(ridx))
+    assert np.array_equal(vals.numpy(), -np.asarray(neg))
+    slots = nprobe * 112
+    cand = rng.standard_normal((64, slots)).astype(np.float32)
+    cand[rng.random((64, slots)) < 0.7] = np.inf
+    cand[:, 5] = cand[:, 3]
+    ids = rng.integers(0, 50_000, (64, slots)).astype(np.int32)
+    vals, idx = K.knn_select(_t(cand), 10, _t(ids))
+    neg, ridx = jax.lax.top_k(-jnp.asarray(cand), 10)
+    assert np.array_equal(idx.numpy(), np.take_along_axis(ids, np.asarray(ridx), 1))
+    assert np.array_equal(vals.numpy(), -np.asarray(neg))
+
+
+@pytest.mark.parametrize("r,n,k,sms", [(64, 1536, 4, 132), (64, 448, 10, 132), (64, K.SELECT_SMALL, 10, 132),
+                                       (64, K.SELECT_SMALL + 1, 10, 132), (64, 65536, 10, 132),
+                                       (64, 1_048_576, 10, 132), (3, 1_048_576, 10, 132), (64, 1_048_576, 700, 132),
+                                       (19, 40001, 257, 132), (70000, 5000, 1, 132), (1, 2**31 - 1, 256, 8)])
+def test_knn_select_plan_covers_every_column_once(r, n, k, sms):
+    """The segments of a plan cover columns 0 .. n exactly once, none empty;
+    a row's lists fit the last block's merge; the scratch holds every segment's list and each row's last key, the
+    state a bound and a ticket a row."""
+    plan = K.knn_select_plan(r, n, k, sms)
+    kr = min(k, K.SELECT_ROUND)
+    assert plan.state_words == 2 * r
+    if n <= K.SELECT_SMALL:
+        assert plan.segs == 0 and plan.scratch_words == r
+        return
+    assert plan.segs >= 1 and plan.seg_len % 4 == 0
+    assert plan.segs * kr <= K.SELECT_POOL
+    starts = [s * plan.seg_len for s in range(plan.segs)]
+    ends = [min(n, a + plan.seg_len) for a in starts]
+    assert starts[0] == 0 and ends[-1] == n
+    assert all(a < b for a, b in zip(starts, ends))
+    assert all(b == a for b, a in zip(ends[:-1], starts[1:]))
+    assert plan.segs == 1 or plan.seg_len >= K.SELECT_SEG_MIN
+    assert plan.scratch_words == r * plan.segs * kr + r
+    if (r, n, k) == (64, 1_048_576, 10):
+        assert plan.segs == -(-K.SELECT_BLOCKS_PER_SM * sms // r)  # about SELECT_BLOCKS_PER_SM blocks an SM
+
+
+def test_knn_select_hands_the_kernel_its_plan(monkeypatch):
+    """The wrapper allocates the plan's scratch and a state of a bound and
+    a ticket a row, and passes the plan's segments to the kernel."""
+    calls, made, states = [], [], []
+    empty = torch.empty
+
+    class Lib:
+        rtpu_knn_select = "knn_select"
+
+    def state(device, words):
+        states.append(torch.zeros(words, dtype=torch.int64))
+        return states[-1]
+
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: made.append(empty(*a, **kw)) or made[-1])
+    monkeypatch.setattr(K, "_route", lambda t: "cuda")
+    monkeypatch.setattr(K, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(K._build, "library", lambda name: Lib)
+    monkeypatch.setattr(K, "_select_state", state)
+    monkeypatch.setattr(K, "_launch", lambda name, fn, t, *args: calls.append((name, fn, args)))
+    for r, n, k in ((64, 65536, 10), (64, 1536, 4), (5, 9000, 300)):
+        calls.clear()
+        made.clear()
+        K.knn_select(torch.zeros((r, n)), k)
+        plan = K.knn_select_plan(r, n, k, 132)
+        ((name, fn, args),) = calls
+        assert (name, fn) == ("knn_select", "knn_select")
+        assert args[1:4] == (n, r, k) and args[7:9] == (plan.segs, plan.seg_len)
+        (scratch,) = [t for t in made if t.dtype == torch.int64]
+        assert scratch.numel() == plan.scratch_words and args[9] == scratch.data_ptr()
+        assert states[-1].numel() == plan.state_words and args[10] == states[-1].data_ptr()
+
+
 @pytest.mark.parametrize("route", [None, K.KNN_TILE, K.KNN_STREAM_ELEMS, K.KNN_STREAM_VEC])
 def test_knn_score_on_cpu_tensors_is_the_plain_version_by_any_route(route):
     """A card route named for CPU tensors changes nothing: the wrapper

@@ -7,7 +7,10 @@ plain PyTorch versions.
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the fourteen kernels' libraries
      from csrc/ (one nvcc per source, all at once) and print the build
-     seconds;
+     seconds; then, in a child process of this script (--kernels-a-call),
+     count by torch.profiler the kernels one call launches of bitset_get,
+     bitset_set (both forms), kmeans_assign (both routes) and knn_select at
+     the main path's shapes, and fail unless each is 1;
   2. known answers: the CUDA hash chain, read back through hll_add,
      bloom_set and the fused add, gives the hashes the JAX package gives
      (constants below);
@@ -22,12 +25,14 @@ Phases (any failure raises and the script exits non-zero):
      synthetic one, with registers up to 255, and its merge map beside
      torch.maximum (the merge's library call); bitset_get and bitset_set at
      config 5's shape (500 indexes into a 100,000-bit set on its 1 MiB
-     plane), on 1M indexes into a 2**28-bit plane, and at the edges
-     (negative, out-of-range and repeated indexes, a masked tail, n_valid
-     0), beside index_select and index_put_; wc_words (both entry points)
-     on config 4's two chunks and at the edges (words over 63 bytes,
-     control whitespace, a last byte that is not whitespace, eb below the
-     end count, n_words 0), wc_sort_runs on config 4's 8,388,608-row
+     plane: bitset_set's one-block form), on 1M indexes into a 2**28-bit
+     plane (its cooperative form), and at the edges (negative,
+     out-of-range and repeated indexes, a masked tail, n_valid 0; 6,000
+     ops whose repeats lie in other blocks), beside index_select and
+     index_put_; wc_words
+     (both entry points) on config 4's two chunks and at the edges (words
+     over 63 bytes, control whitespace, a last byte that is not
+     whitespace, eb below the end count, n_words 0), wc_sort_runs on config 4's 8,388,608-row
      stream, a stream shorter than d_max and an all-distinct one that
      overflows it, beside torch.sort, and segment_reduce (sum, max, min;
      int32, whole float32 values, whose sum is exact, and N(0, 1000)
@@ -43,7 +48,11 @@ Phases (any failure raises and the script exits non-zero):
      above the live rows, every row dead, duplicates, n_rows below
      capacity, k = 1, k = cap, k past a round of 256);
      ivf_score at config 7's IVF leg (nlist 1,536, nprobe 2, 4, 8); kmeans
-     at 50,000 x 128 x 1,536, two runs equal bit for bit, assign and
+     at 50,000 x 128 x 1,536, two runs equal bit for bit, the assign by the
+     route W 128 takes (3xTF32 on the tensor cores) checked and timed, the
+     tile route (float32) checked at KMEANS_WIDE's W 384, the route taken
+     printed beside its bound (three TF32 products), the float32 bound and
+     torch.matmul's time for the product alone (TF32 off), assign and
      update timed apart;
   4. the main path through redisson_tpu_torch.create() on its default
      device: config 2 (1,000-tenant bank, 10M keys populated in one window,
@@ -92,6 +101,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -108,6 +118,9 @@ import torch
 # float32 add).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# dense TF32 on the tensor cores (the same data sheet): kmeans_assign's
+# tensor-core route runs three TF32 products (3xTF32)
+TF32_OPS_PER_S = 495e12
 # 32-bit integer operations in the source of csrc/hash.cuh and the kernels:
 # the two murmur chains of a u64 key (2 x (2 rounds of 10 + xor + fmix of 8)
 # + or), one bloom probe (mod, flat index, bounds, load, compare, step), one
@@ -168,6 +181,9 @@ C7_SIFT = (1_000_000, 128, 10)
 C7_QB, C7_ORACLE, C7_K, C7_MEASURE_S, C7_IVF_MEASURE_S = 64, 64, 10, 2.0, 1.5
 C7_CLUSTERS, C7_NLIST, C7_NPROBES, C7_SEED = 512, 1536, (2, 4, 8), 77
 KMEANS_ITERS = 6
+# kmeans_assign's tile route, checked at a width past the tensor-core
+# route's 256: (N, W, L), config 7's clustered corpus at W 384
+KMEANS_WIDE = (20_000, 384, 1536)
 # distances are held to their plain versions within DIST_TOL of the size of
 # the terms they are made of (the kernel and torch add a dot product in
 # different orders); ids where a distance stands more than TIE_GAP
@@ -800,15 +816,22 @@ def check_bitset(dev, rng) -> dict:
     idx[:10] = torch.tensor([-1, -size, -size - 1, size, size - 1, 0, 2**31 - 1, -(2**31), 5, 5],
                             dtype=torch.int32, device=dev)
     err = max(err, assert_equal("bitset_get edges", K.bitset_get(plane, idx), K.bitset_get_plain(plane, idx)))
-    for n_valid in (0, 1, 963, 1000):
-        for value in (0, 1):
-            a, b = plane.clone(), plane.clone()
-            got, want = K.bitset_set(a, idx, n_valid, value)[1], K.bitset_set_plain(b, idx, n_valid, value)[1]
-            err = max(err, assert_equal(f"bitset_set edges n_valid={n_valid} value={value}", got, want))
-            err = max(err, assert_equal(f"bitset_set edges n_valid={n_valid} value={value}: plane", a, b))
+    # 1000 ops take the one-block form, 6000 the cooperative grid, whose
+    # repeats (ops 4000-4999 repeat ops 0-999) lie in other blocks
+    big = torch.cat([idx, index_batch(rng, 3000, size, dev), idx, index_batch(rng, 1000, size, dev)])
+    for ops, n_valids in ((idx, (0, 1, 963, 1000)), (big, (0, 1, 2048, 2049, 4500, 6000))):
+        for n_valid in n_valids:
+            for value in (0, 1):
+                a, b = plane.clone(), plane.clone()
+                got, want = K.bitset_set(a, ops, n_valid, value)[1], K.bitset_set_plain(b, ops, n_valid, value)[1]
+                label = f"bitset_set edges, {ops.numel()} ops, n_valid={n_valid} value={value}"
+                err = max(err, assert_equal(label, got, want))
+                err = max(err, assert_equal(f"{label}: plane", a, b))
     for name in checked:
         checked[name].append("4096-lane plane, 1000 ops: negative, out-of-range and repeated indexes"
-                             + (", n_valid 0 / 1 / 963 / 1000, value 0 and 1" if name == "bitset_set" else ""))
+                             + (", n_valid 0 / 1 / 963 / 1000, value 0 and 1; 6000 ops (the cooperative form) "
+                                "repeating ops 0-999 at 4000-4999, n_valid 0 / 1 / 2048 / 2049 / 4500 / 6000"
+                                if name == "bitset_set" else ""))
     shapes = {"": (bt.padded_size(_DEFAULT_BITS), C5_BITS, C5_BIT_OPS),
               "bitmap_2_28_": (1 << BITMAP_LOG2, 1 << BITMAP_LOG2, BITMAP_OPS)}
     get, put = {}, {}
@@ -853,8 +876,9 @@ def check_bitset(dev, rng) -> dict:
         log(f"kernel {name}: {r['ms']:.4f} ms at config 5's shape (plain {r['plain_ms']:.3f} ms, "
             f"{'index_select' if name == 'bitset_get' else 'index_put_'} {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms); {BITMAP_OPS} ops on 2**{BITMAP_LOG2} lanes {r['bitmap_2_28_ms']:.4f} ms "
-            f"(plain {r['bitmap_2_28_plain_ms']:.3f}, library {r['bitmap_2_28_library_ms']:.4f}, bound "
-            f"{r['bitmap_2_28_bound_ms']:.4f}); equal to plain at {checked[name]}")
+            f"(plain {r['bitmap_2_28_plain_ms']:.3f}, library "
+            f"{r['bitmap_2_28_library_ms']:.4f}, bound {r['bitmap_2_28_bound_ms']:.4f}); equal to plain at "
+            f"{checked[name]}")
     return results
 
 
@@ -1152,6 +1176,64 @@ def kernels_per_call(fn):
     return sum(1 for n in names if not n.startswith(("Memset", "Memcpy"))) or None
 
 
+def kernels_a_call_here(dev) -> dict:
+    """Kernels one call launches, by torch.profiler (kernels_per_call), for
+    each wrapper held to one kernel a call, at the shapes the main path gives
+    it: bitset_get and bitset_set at config 5's shape (bitset_set's
+    one-block form) and on 1M indexes into 2**28 lanes (its cooperative
+    form); kmeans_assign at config 7's training shape (the tensor-core
+    route) and at KMEANS_WIDE (the tile route); knn_select (k 10) at 64 x
+    1,048,576 and 64 x 65,536, the IVF route's 64 x 1,536 (k = nprobe) and
+    the IVF candidates' 64 x nprobe x 112 slots with ids (config 7's cells
+    hold 112).  Run in a process of its own (--kernels-a-call): in this
+    script's long process torch.profiler's traces come back empty after the
+    first few."""
+    from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    rng = np.random.default_rng(5)
+    counts = {}
+    for key, (size, hi, n) in {"config5": (bt.padded_size(_DEFAULT_BITS), C5_BITS, C5_BIT_OPS),
+                               "bitmap_2_28": (1 << BITMAP_LOG2, 1 << BITMAP_LOG2, BITMAP_OPS)}.items():
+        plane = torch.zeros(size, dtype=torch.uint8, device=dev)
+        idx = index_batch(rng, n, hi, dev)
+        counts[f"bitset_get {key}"] = kernels_per_call(lambda: K.bitset_get(plane, idx))
+        counts[f"bitset_set {key}"] = kernels_per_call(lambda: K.bitset_set(plane, idx, n, 1))
+        del plane, idx
+    n, w, nlist = C7_POINTS[1][0], C7_POINTS[1][1], C7_NLIST
+    for label, (rows, width, cents) in (("tensor-core", (n, w, nlist)), ("tile", KMEANS_WIDE)):
+        pts = torch.randn((rows, width), device=dev)
+        cent, wt = pts[:cents].clone(), torch.ones(rows, device=dev)
+        counts[f"kmeans_assign {label} {rows} x {width} x {cents}"] = kernels_per_call(
+            lambda: K.kmeans_assign(pts, wt, cent))
+        del pts, cent, wt
+    shapes = [(c7_cap(C7_SIFT[0]), C7_K, False), (c7_cap(C7_POINTS[1][0]), C7_K, False)]
+    shapes += [(nlist, nprobe, False) for nprobe in C7_NPROBES] + [(112 * nprobe, C7_K, True) for nprobe in C7_NPROBES]
+    for cols, k, with_ids in shapes:
+        d = torch.randn((C7_QB, cols), device=dev)
+        ids = torch.randint(0, 1 << 20, (C7_QB, cols), dtype=torch.int32, device=dev) if with_ids else None
+        counts[f"knn_select {C7_QB} x {cols} k {k}{' ids' if with_ids else ''}"] = kernels_per_call(
+            lambda: K.knn_select(d, k, ids))
+        del d, ids
+    return counts
+
+
+def kernels_a_call() -> dict:
+    """kernels_a_call_here's counts, taken in a child process of this
+    script; raises unless each call launched exactly one kernel."""
+    here = os.path.abspath(__file__)
+    out = subprocess.run([sys.executable, here, "--kernels-a-call"], capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(here))
+    if out.returncode != 0:
+        raise AssertionError(f"kernels a call: the child exited {out.returncode}: {out.stderr[-4000:]}")
+    counts = json.loads(out.stdout.strip().splitlines()[-1])
+    wrong = {k: v for k, v in counts.items() if v != 1}
+    if wrong:
+        raise AssertionError(f"kernels a call by torch.profiler, not 1 (None: an empty trace): {wrong}")
+    return counts
+
+
 def select_times(d, k: int, ids=None) -> dict:
     """knn_select on d (R, n) with k (and ids): its time, the plain
     version's, torch.topk's (no ids), its bound (the matrix read once, the
@@ -1162,8 +1244,7 @@ def select_times(d, k: int, ids=None) -> dict:
     r, n = d.shape
     t = {"ms": time_kernel(lambda i: K.knn_select(d, k, ids)),
          "plain_ms": time_plain(lambda i: K.knn_select_plain(d, k, ids)),
-         "topk_ms": time_kernel(lambda i: torch.topk(d, k, dim=1, largest=False)),
-         "kernels_a_call": kernels_per_call(lambda: K.knn_select(d, k, ids))}
+         "topk_ms": time_kernel(lambda i: torch.topk(d, k, dim=1, largest=False))}
     t["bound_ms"], t["bound_by"] = bound_ms(4 * r * n + (4 * r * k if ids is not None else 0) + 8 * r * k, r * n)
     return t
 
@@ -1311,8 +1392,7 @@ def check_vector(dev, rng) -> dict:
              "matmul_ms": time_kernel(lambda i: torch.matmul(q, bank.T)),
              "select_ms": time_kernel(lambda i: K.knn_select(got, k)),
              "select_plain_ms": time_plain(lambda i: K.knn_select_plain(got, k)),
-             "topk_ms": time_kernel(lambda i: torch.topk(got, k, dim=1, largest=False)),
-             "select_kernels": kernels_per_call(lambda: K.knn_select(got, k))}
+             "topk_ms": time_kernel(lambda i: torch.topk(got, k, dim=1, largest=False))}
         t["score_bound_ms"], t["score_bound_by"] = bound_ms(knn_bytes(bank, None, bias, None, C7_QB, c, w),
                                                             2 * C7_QB * c * w + 2 * (C7_QB + c) * w)
         t["select_bound_ms"], t["select_bound_by"] = bound_ms(4 * C7_QB * c + 8 * C7_QB * k, C7_QB * c)
@@ -1387,6 +1467,36 @@ def check_vector(dev, rng) -> dict:
     d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
     two = torch.topk(d, 2, dim=1, largest=False).values
     clear = (two[:, 1] - two[:, 0]) > TIE_GAP * two[:, 0].abs().clamp(min=1.0)
+    # each assign route at a width that takes it (the main path's W 128 the
+    # tensor-core route, W 384 the tile route): the points that differ from
+    # the plain version's inside the gap (allowed) and outside it (none)
+    route_names = {K.KMEANS_MMA: "tensor-core (3xTF32)", K.KMEANS_TILE: "tile (float32)"}
+    assign_route = K.kmeans_assign_route(pts, cent)
+    wide = torch.from_numpy(c7_clustered(np.random.default_rng(C7_SEED + 2), KMEANS_WIDE[0], KMEANS_WIDE[1])).to(dev)
+    route_diff = {}
+    for r, (p_r, w_r, c_r, a_r) in ((assign_route, (pts, weights, cent, a1)),
+                                    (K.kmeans_assign_route(wide, wide[:nlist]),
+                                     (wide, torch.ones(len(wide), device=dev), wide[: KMEANS_WIDE[2]].clone(), None))):
+        ga, gb = K.kmeans_assign(p_r, w_r, c_r), K.kmeans_assign(p_r, w_r, c_r)
+        pa_r = K.kmeans_assign_plain(p_r, w_r, c_r)
+        d_r = ((p_r * p_r).sum(1)[:, None] - 2 * (p_r @ c_r.T) + (c_r * c_r).sum(1)[None, :]).double()
+        two_r = torch.topk(d_r, 2, dim=1, largest=False).values
+        clear_r = (two_r[:, 1] - two_r[:, 0]) > TIE_GAP * two_r[:, 0].abs().clamp(min=1.0)
+        torch.cuda.synchronize()
+        if not torch.equal(ga, gb) or (a_r is not None and not torch.equal(ga, a_r)):
+            raise AssertionError(f"kmeans_assign by the {route_names[r]} route: two runs gave different bits")
+        route_diff[r] = (int((ga[~clear_r] != pa_r[~clear_r]).sum()), int((ga[clear_r] != pa_r[clear_r]).sum()),
+                         int((~clear_r).sum()), f"{p_r.shape[0]} x {p_r.shape[1]} x {c_r.shape[0]}")
+        log(f"kmeans_assign by the {route_names[r]} route at {route_diff[r][3]}: {route_diff[r][0]} of "
+            f"{route_diff[r][2]} near-tied points and {route_diff[r][1]} of {int(clear_r.sum())} points outside "
+            f"the gap ({TIE_GAP} relative) differ from the plain version")
+        if route_diff[r][1] or not torch.equal(ga == -1, w_r == 0):
+            raise AssertionError(f"kmeans_assign by the {route_names[r]} route: {route_diff[r][1]} assignments "
+                                 "differ from the plain version's outside near-ties")
+        del d_r
+    del wide
+    if sorted(route_diff) != sorted(route_names):
+        raise AssertionError(f"kmeans_assign: routes checked {sorted(route_diff)}, not both")
     if not torch.equal(a1[clear], pa[clear]) or not torch.equal(a1 == -1, weights == 0):
         raise AssertionError("kmeans: assignments differ from the plain version's outside near-ties")
     moved = torch.zeros(nlist, dtype=torch.bool, device=dev)
@@ -1430,7 +1540,7 @@ def check_vector(dev, rng) -> dict:
             t = select_times(mat, k_s, ids_s)
             ivf_sel.update({f"ivf_{part}_np{nprobe}_{key}": v for key, v in t.items()})
             log(f"knn_select at the IVF {part} shape, nprobe {nprobe}: {tuple(mat.shape)}, k {k_s}: {t['ms']:.4f} ms "
-                f"({t['kernels_a_call']} kernels a call by torch.profiler; plain {t['plain_ms']:.3f}; torch.topk "
+                f"(plain {t['plain_ms']:.3f}; torch.topk "
                 f"{t['topk_ms']:.4f}; bound {t['bound_ms']:.4f} by {t['bound_by']})")
         valid = int(((gids >= 0) & (gids < n)).sum())
         t = {"nprobe": nprobe, "ms": time_kernel(lambda i: K.ivf_score(pts, None, bias, None, cells_t, probe, q, n,
@@ -1446,15 +1556,40 @@ def check_vector(dev, rng) -> dict:
           "assign_ms": time_kernel(lambda i: K.kmeans_assign(pts, weights, cent)),
           "update_ms": time_kernel(lambda i: K.kmeans_update(pts, weights, cent, a0)),
           "plain_ms": time_plain(lambda i: K.kmeans_step_plain(pts, weights, cent)),
-          "library_ms": None}
-    km["bound_ms"], km["bound_by"] = bound_ms(4 * n * w + 8 * nlist * w + 8 * n, 2 * n * nlist * w + 2 * n * w)
+          # the product alone (TF32 off): no one PyTorch call computes the argmin of the distances
+          "matmul_ms": time_kernel(lambda i: torch.matmul(pts, cent.T)),
+          "library_ms": None,
+          "assign_route": route_names[assign_route],
+          "assign_near_tie_diffs": route_diff[assign_route][0]}
+    # the bound of the route that ran: the tile route's float32 FMAs (the
+    # product and the norms) at 67 TFLOP/s, the tensor-core route's three
+    # TF32 products at 495 TFLOP/s; the bytes (points and weights read, the
+    # centroids read for their norms and the product, the assignment
+    # written) bound neither
+    nbytes = 4 * n * w + 8 * nlist * w + 8 * n
+    km["bound_fp32_ms"], fp32_by = bound_ms(nbytes, 2 * n * nlist * w + 2 * n * w)
+    t_bytes, t_tf32 = nbytes / HBM_BYTES_PER_S * 1e3, 3 * 2 * n * nlist * w / TF32_OPS_PER_S * 1e3
+    km["bound_3xtf32_ms"] = max(t_bytes, t_tf32)
+    if assign_route == K.KMEANS_MMA:
+        km["bound_ms"], km["bound_by"] = km["bound_3xtf32_ms"], "bytes" if t_bytes >= t_tf32 else "operations"
+    else:
+        km["bound_ms"], km["bound_by"] = km["bound_fp32_ms"], fp32_by
+    log(f"kmeans_assign at {n} x {w} x {nlist}: route {km['assign_route']}, {km['assign_ms']:.4f} ms; bound "
+        f"{km['bound_ms']:.4f} ms, the route's (float32 FMAs {km['bound_fp32_ms']:.4f} ms, three TF32 products "
+        f"{km['bound_3xtf32_ms']:.4f} ms); torch.matmul, the product alone (TF32 off), {km['matmul_ms']:.4f} ms; "
+        f"update {km['update_ms']:.4f} ms")
     km.update(max_abs_err=kerr, checked=[f"{n} x {w} points (200 dead), {nlist} centroids from the training's "
                                          "seeded init: two runs equal bit for bit; assignments equal to the plain "
                                          f"version's outside near-ties ({int((~clear).sum())} near-tied points); "
-                                         f"centroids within {DIST_TOL} relative where no assignment differs"],
+                                         "centroids within "
+                                         f"{DIST_TOL} relative where no assignment differs; each assign route, "
+                                         "twice equal and equal to the plain version outside near-ties: "
+                                         + ", ".join(f"the {route_names[r]} route at {d[3]}"
+                                                     for r, d in route_diff.items())],
               shape=f"one Lloyd iteration, {n} x {w} points, {nlist} centroids",
-              launches_per_call="2 wrapper launches a Lloyd step: kmeans_assign (one kernel), kmeans_update "
-                                "(a memset, then count, a three-step scan, scatter and sum)")
+              launches_per_call="2 wrapper launches a Lloyd step: kmeans_assign (one kernel: 3xTF32 on the "
+                                "tensor cores up to W 256, float32 tiles wider), kmeans_update (a memset, then "
+                                "count, a three-step scan, scatter and sum)")
     t4 = next(t for t in ivf_times if t["nprobe"] == 4)
     ivf = {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "library_ms": None, "bound_ms": t4["bound_ms"],
            "bound_by": t4["bound_by"], "max_abs_err": ivf_err,
@@ -1486,7 +1621,7 @@ def check_vector(dev, rng) -> dict:
               "bound_ms": big["select_bound_ms"], "bound_by": big["select_bound_by"], "max_abs_err": select_err,
               "c7_ms": c7["select_ms"], "c7_bound_ms": c7["select_bound_ms"], "c7_plain_ms": c7["select_plain_ms"],
               "c7_library_ms": c7["topk_ms"], "c7_20k_ms": timed[0]["select_ms"],
-              "kernels_a_call": big["select_kernels"], **ivf_sel,
+              **ivf_sel,
               "checked": checked_k + [f"the IVF route (k = nprobe) and candidates (k {C7_K}, with ids) at nprobe "
                                       f"{', '.join(map(str, C7_NPROBES))}"],
               "shape": big["shape"],
@@ -2677,6 +2812,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = _build.build_all()
     log(f"build: {len(_build.SIGNATURES)} libraries from csrc/ in {build_s:.1f}s")
+    per_call = kernels_a_call()
+    log("kernels a call by torch.profiler, in a child process: " + json.dumps(per_call))
     rng = np.random.default_rng(1234)
     check_known_answers(dev)
     kernels = check_kernels(dev, rng)
@@ -2731,6 +2868,10 @@ def main() -> int:
                "knn_select": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:680"),
                "ivf_score": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:739"),
                "kmeans": ("redisson_tpu_torch/csrc/kmeans.cu", "redisson_tpu/core/kernels.py:861")}
+    per_kernel = {}  # the counts of kernels a call by kernel (kmeans_assign's under kmeans)
+    for key, v in per_call.items():
+        wrapper = key.split()[0]
+        per_kernel.setdefault("kmeans" if wrapper == "kmeans_assign" else wrapper, {})[key] = v
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": main_launches[name],
@@ -2738,6 +2879,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r.get("library_ms"),
+         **({"kernels_a_call": per_kernel[name]} if name in per_kernel else {}),
          "more": {key: v for key, v in r.items()
                   if key.endswith("_ms") and key not in ("ms", "plain_ms", "bound_ms", "library_ms")}}
         for name, r in kernels.items()]}
@@ -2752,4 +2894,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--kernels-a-call"]:
+        print(json.dumps(kernels_a_call_here(torch.device("cuda"))))
+        sys.exit(0)
     sys.exit(main())

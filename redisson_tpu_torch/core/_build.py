@@ -57,7 +57,7 @@ SIGNATURES = {
         "rtpu_ivf_score": [_P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _L, _I, _P, _P, _P],
     },
     "kmeans": {
-        "rtpu_kmeans_assign": [_P, _P, _P, _L, _I, _I, _P, _P],
+        "rtpu_kmeans_assign": [_P, _P, _P, _L, _I, _I, _I, _P, _P],
         "rtpu_kmeans_update": [_P, _P, _P, _P, _L, _I, _I, _P, _P, _P],
     },
 }

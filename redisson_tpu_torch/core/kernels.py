@@ -22,8 +22,8 @@ Fourteen kernels carry every program here:
                optional float32 estimate per row; 16-byte loads where the
                banks allow them, else 4-byte ones
   bitset_get   GETBIT batch: gather one uint8 lane per op
-  bitset_set   SETBIT batch: gather every old bit, then store the value
-               (two launches in stream order)
+  bitset_set   SETBIT batch: every old bit read before any store of the
+               value, in one launch (one block, or a cooperative grid)
   wc_words     word count: each word's two 32-bit polynomial hashes and
                start from its end position, the ends found on the card
                (wc_extract_words_auto) or given as deltas (wc_extract_words)
@@ -41,8 +41,10 @@ Fourteen kernels carry every program here:
   ivf_score    IVF: the rows listed in each query's probed cells, scored
                against that query (+inf for the sentinel padding)
   kmeans       IVF training: one Lloyd iteration as two wrappers,
-               kmeans_assign and kmeans_update (the weighted means of
-               rows bucketed in row order, no float atomics)
+               kmeans_assign (3xTF32 on the tensor cores up to W 256,
+               float32 tiles wider: kmeans_assign_route) and
+               kmeans_update (the weighted means of rows bucketed in row
+               order, no float atomics)
 
 The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
 reduce or map a plane elementwise and stay torch ops, as do the row-bank
@@ -1403,17 +1405,31 @@ def _kmeans_operands(points, weights, centroids) -> None:
     _check_f32("centroids", centroids, centroids.shape, points.device)
 
 
+# csrc/kmeans.cu's two designs of kmeans_assign: the tile route (tile_dots,
+# float32 FMAs, any W) and the tensor-core route (3xTF32 on mma.sync, W <= 256)
+KMEANS_TILE, KMEANS_MMA = 0, 1
+KMEANS_MMA_MAX_W = 256
+
+
+def kmeans_assign_route(points, centroids) -> int:
+    """The kmeans_assign design for points (N, W) and centroids (L, W): the
+    tensor-core route up to W 256, the tile route for wider rows."""
+    return KMEANS_MMA if points.shape[1] <= KMEANS_MMA_MAX_W else KMEANS_TILE
+
+
 def kmeans_assign(points, weights, centroids):
     """Each point's (N, W) float32 nearest centroid (L, W) by L2, the first
-    minimum winning: (N,) int32, -1 where weights (N,) is not > 0."""
+    minimum winning: (N,) int32, -1 where weights (N,) is not > 0.  On the
+    card, by kmeans_assign_route's design for W."""
     _kmeans_operands(points, weights, centroids)
     if _route(points) == "plain":
         return kmeans_assign_plain(points, weights, centroids)
     (n, w), l = points.shape, centroids.shape[0]
+    route = kmeans_assign_route(points, centroids)
     points, weights, centroids = points.contiguous(), weights.contiguous(), centroids.contiguous()
     assign = torch.empty(n, dtype=torch.int32, device=points.device)
     _launch("kmeans", _build.library("kmeans").rtpu_kmeans_assign, points,
-            points.data_ptr(), weights.data_ptr(), centroids.data_ptr(), n, w, l, assign.data_ptr())
+            points.data_ptr(), weights.data_ptr(), centroids.data_ptr(), n, w, l, route, assign.data_ptr())
     return assign
 
 

@@ -6,13 +6,40 @@
 //
 //   kmeans_assign: each point's nearest centroid by the squared L2
 //   distance (|p|^2 - 2 p.c) + |c|^2, the first minimum winning; -1 where
-//   the point's weight is not > 0 (a dead row).  Bound on an H100: the
-//   float32 FMAs of the (N x d) x (d x L) product on the CUDA cores.  One
-//   block takes 64 points and walks every tile of 128 centroids with the
-//   tiled product of knn_tile.cuh (float32 FMAs, no tensor cores), keeping
-//   each point's best (distance, centroid) in registers; the 16 threads that
-//   share a point then reduce their bests by (distance, index), so the
-//   first minimum wins whatever the thread order.
+//   the point's weight is not > 0 (a dead row).  One launch a call, by one
+//   of two routes (kernels.kmeans_assign_route picks one):
+//     * the tensor-core route (kmeans_mma_kernel, W <= 256): the product
+//       (N x W) x (W x L) in 3xTF32 on mma.sync.m16n8k8.  Each operand x is
+//       split as it is loaded into a fragment, hi = tf32(x) and lo =
+//       tf32(x - hi), and each dot is the float32 sum of lo*hi + hi*lo +
+//       hi*hi (lo*lo dropped): within a few float32 ulps of the product
+//       of the terms, where one TF32 product keeps ~3 digits.  A block of
+//       256 threads keeps 128 points resident in shared memory as float32
+//       (the depth zero-padded to a multiple of 32) and streams the
+//       centroids, 64 rows by 32 deep at a time, through a three-stage
+//       cp.async ring (16-byte copies when the rows and bases allow,
+//       4-byte ones otherwise); each warp owns 32 points x 32 centroids of
+//       a tile.  The epilogue forms each distance as l2_of does, keeps
+//       every point's best (distance, centroid) in registers (centroids
+//       past L never compete), and the threads and the two warps that share
+//       a point reduce their bests by (distance, index).  Bound on an H100:
+//       the three TF32 products at 495 TFLOP/s (the float32 FMAs at 67
+//       TFLOP/s bound the tile route).  It runs at about a quarter of that
+//       bound.  What holds it is inferred, not profiled (ncu does not run
+//       on the card), from one-edit builds timed against it by
+//       tools/variant_ab.py on an H100 80GB HBM3 at 700 W (PERF.md): 0.458 ms
+//       at 50,000 x 128 x 1,536; the same three mma.sync products of the
+//       high parts, with no split, 0.349; one product, 0.242.  So the
+//       splits take about a quarter of the time, two of the three
+//       products about another quarter, and one product with the rest
+//       (the shared-memory fragment loads, the ring's waits, the epilogue)
+//       the other half;
+//     * the tile route (kmeans_assign_kernel, any W): one block takes 64
+//       points and walks every tile of 128 centroids with the tiled float32
+//       product of knn_tile.cuh on the CUDA cores.
+//   No distance matrix is written and no float atomics are used: two runs
+//   give the same bits, and the first minimum wins whatever the thread
+//   order.
 //
 //   kmeans_update: each centroid becomes the weighted mean of its points,
 //   sums of (point * weight) and of weights taken in row order, one
@@ -37,14 +64,17 @@
 //   Bound: the points' bytes, read once.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "knn_tile.cuh"
 
 namespace {
 
+using namespace rtpu_cp;
 using namespace rtpu_tile;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -107,6 +137,248 @@ kmeans_assign_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     const int64_t p = q0 + tq + TQT * i;
     if (tc == 0 && p < N) assign[p] = w[p] > 0.0f ? (c == INT_MAX ? 0 : c) : -1;
   }
+}
+
+
+// -- the tensor-core route --------------------------------------------------
+
+constexpr int kBM = 128, kBN = 64, kBK = 32, kStages = 3;
+constexpr int kSB = kBK + 4;  // a staged centroid row, in floats
+constexpr int kMmaMaxW = 256;
+
+// rows r0 .. r0 + rows of a (R, W) float32 matrix, columns k0 .. k0 + cols,
+// into shared rows of `stride` floats; past R or W reads 0.  VEC: 16-byte
+// copies (W % 4 == 0 and a 16-byte aligned base), else one float a copy.
+template <bool VEC>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, const float* src, int64_t R, int W,
+                                           int64_t r0, int rows, int k0, int cols) {
+  constexpr int kPer = VEC ? 4 : 1;
+  const int per_row = cols / kPer;
+  for (int e = threadIdx.x; e < rows * per_row; e += kThreads) {
+    const int r = e / per_row, k = (e - r * per_row) * kPer;
+    const int64_t gr = r0 + r;
+    const int gk = k0 + k;
+    const bool ok = gr < R && gk < W;
+    if (VEC) {
+      cp_async16(dst + r * stride + k, ok ? src + gr * W + gk : src, ok ? 16 : 0);
+    } else {
+      cp_async4(dst + r * stride + k, ok ? src + gr * W + gk : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// x = hi + lo + (what neither keeps): hi the nearest TF32 value to x, lo
+// the nearest to x - hi (exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__host__ __device__ constexpr int mma_depth(int W) { return (W + kBK - 1) / kBK * kBK; }
+
+// shared floats: the points (kBM rows of depth + 4), the ring (kStages x
+// kBN rows of kSB), the points' and the tile's norms, and the two warps'
+// bests of each point (distances, then indexes as int32)
+__host__ __device__ constexpr size_t mma_smem(int W) {
+  return sizeof(float) * (static_cast<size_t>(kBM) * (mma_depth(W) + 4) + kStages * kBN * kSB + kBM + kBN + 4 * kBM);
+}
+
+// Warps are 4 (points) x 2 (centroids); warp (wm, wn) owns points wm * 32
+// .. + 32 and centroids wn * 32 .. + 32 of each tile: 2 x 4 m16n8 tiles.
+// In a fragment, lane (g = lane / 4, t = lane % 4) holds A rows g and g + 8
+// at columns t and t + 4, B column g at rows t and t + 4, and the sums of
+// rows g and g + 8 at columns 2t and 2t + 1.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+kmeans_mma_kernel(const float* __restrict__ pts, const float* __restrict__ w, const float* __restrict__ cent,
+                  int64_t N, int W, int L, int32_t* __restrict__ assign) {
+  extern __shared__ __align__(16) float smem[];
+  const int depth = mma_depth(W), sa = depth + 4;  // sa % 32 == 4: fragment loads hit 32 banks
+  float* as = smem;
+  float* ring = as + kBM * sa;
+  float* pn = ring + kStages * kBN * kSB;
+  float* cn = pn + kBM;
+  float* best_d = cn + kBN;
+  int* best_i = reinterpret_cast<int*>(best_d + 2 * kBM);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBM;
+  const int nk = depth / kBK, tiles = (L + kBN - 1) / kBN, total = tiles * nk;
+
+  stage_rows<VEC>(as, sa, pts, N, W, q0, kBM, 0, depth);
+  cp_async_commit();
+  int next_tile = 0, next_k = 0;  // the chunk to copy next
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) {
+      stage_rows<VEC>(ring + s * kBN * kSB, kSB, cent, L, W, static_cast<int64_t>(next_tile) * kBN, kBN,
+                      next_k * kBK, kBK);
+      if (++next_k == nk) next_k = 0, ++next_tile;
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // the points have landed
+  __syncthreads();
+  {  // |p|^2: two threads a point, half the depth each
+    const int r = tid >> 1, k0 = (tid & 1) * (depth / 2);
+    float s = 0.0f;
+    for (int k = 0; k < depth / 2; ++k) s = fmaf(as[r * sa + k0 + k], as[r * sa + k0 + k], s);
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, 1));
+    if ((tid & 1) == 0) pn[r] = s;
+  }
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  float bd[4];
+  int bi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bd[i] = INFINITY;
+    bi[i] = INT_MAX;
+  }
+  // |c|^2 of centroid tid / 4 of a tile: four threads, each the depth
+  // columns tid % 4 + 4j of every chunk
+  const int nrow = tid >> 2, npart = tid & 3;
+  float cpart = 0.0f;
+  int slot = 0, kc = 0, tile = 0;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<kStages - 2>();  // chunk s has landed (this thread's copies)
+    __syncthreads();               // everyone's copies; the slot chunk s - 1 used is free
+    if (s + kStages - 1 < total) {
+      const int fill = slot == 0 ? kStages - 1 : slot - 1;
+      stage_rows<VEC>(ring + fill * kBN * kSB, kSB, cent, L, W, static_cast<int64_t>(next_tile) * kBN, kBN,
+                      next_k * kBK, kBK);
+      if (++next_k == nk) next_k = 0, ++next_tile;
+    }
+    cp_async_commit();
+    const float* st = ring + slot * kBN * kSB;
+    const float* at = as + kc * kBK;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = at + (wm * 32 + i * 16 + g) * sa + kk + t;
+        split_tf32(a[0], ah[i][0], al[i][0]);
+        split_tf32(a[8 * sa], ah[i][1], al[i][1]);
+        split_tf32(a[4], ah[i][2], al[i][2]);
+        split_tf32(a[8 * sa + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* b = st + (wn * 32 + j * 8 + g) * kSB + kk + t;
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[4], bh[j][1], bl[j][1]);
+      }
+      // the small products first, then the large one, into one float32 sum
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(acc[i][j], al[i], bh[j]);
+          mma_tf32(acc[i][j], ah[i], bl[j]);
+          mma_tf32(acc[i][j], ah[i], bh[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kBK / 4; ++j) {
+      const float v = st[nrow * kSB + npart + 4 * j];
+      cpart = fmaf(v, v, cpart);
+    }
+    if (++slot == kStages) slot = 0;
+    if (++kc < nk) continue;
+    // the tile's last chunk: its norms, then every point's best
+    kc = 0;
+    float cs = __fadd_rn(cpart, __shfl_xor_sync(kFull, cpart, 1));
+    cs = __fadd_rn(cs, __shfl_xor_sync(kFull, cs, 2));
+    if (npart == 0) cn[nrow] = cs;
+    cpart = 0.0f;
+    __syncthreads();
+    const int c0 = tile * kBN;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float psq = pn[wm * 32 + i * 16 + h * 8 + g];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // ascending centroid index within a thread
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cl = wn * 32 + j * 8 + 2 * t + e;
+            const float d = l2_of(acc[i][j][2 * h + e], psq, cn[cl]);
+            if (c0 + cl < L && before(d, c0 + cl, bd[2 * i + h], bi[2 * i + h])) {
+              bd[2 * i + h] = d;
+              bi[2 * i + h] = c0 + cl;
+            }
+            acc[i][j][2 * h + e] = 0.0f;
+          }
+      }
+    ++tile;
+  }
+  cp_async_wait<0>();
+  // a point's bests: the four lanes of its quad, then the two warps
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float od = __shfl_xor_sync(kFull, bd[r], off);
+      const int oc = __shfl_xor_sync(kFull, bi[r], off);
+      if (before(od, oc, bd[r], bi[r])) {
+        bd[r] = od;
+        bi[r] = oc;
+      }
+    }
+    if (t == 0) {
+      const int rl = wm * 32 + (r >> 1) * 16 + (r & 1) * 8 + g;
+      best_d[wn * kBM + rl] = bd[r];
+      best_i[wn * kBM + rl] = bi[r];
+    }
+  }
+  __syncthreads();
+  if (tid < kBM && q0 + tid < N) {
+    float d = best_d[tid];
+    int c = best_i[tid];
+    if (before(best_d[kBM + tid], best_i[kBM + tid], d, c)) c = best_i[kBM + tid];
+    const int64_t p = q0 + tid;
+    assign[p] = w[p] > 0.0f ? (c == INT_MAX ? 0 : c) : -1;
+  }
+}
+
+// Raise the kernel's shared-memory limit to the widest rows it takes, once
+// per device.
+template <bool VEC>
+cudaError_t mma_prepare() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && ready[dev].load(std::memory_order_relaxed))) return err;
+  err = cudaFuncSetAttribute(kmeans_mma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(mma_smem(kMmaMaxW)));
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+template <bool VEC>
+cudaError_t mma_launch(const float* pts, const float* w, const float* cent, int64_t N, int W, int L,
+                       int32_t* assign, cudaStream_t s) {
+  const cudaError_t err = mma_prepare<VEC>();
+  if (err != cudaSuccess) return err;
+  kmeans_mma_kernel<VEC><<<static_cast<unsigned>((N + kBM - 1) / kBM), kThreads, mma_smem(W), s>>>(
+      pts, w, cent, N, W, L, assign);
+  return cudaGetLastError();
 }
 
 
@@ -260,15 +532,26 @@ kmeans_sum_kernel(const float* __restrict__ pts, const float* __restrict__ w,
 }  // namespace
 
 // assign (N,) int32: the nearest centroid of cent (L, W) float32 to each
-// point of pts (N, W) float32, -1 where w (N,) is not > 0.
+// point of pts (N, W) float32, -1 where w (N,) is not > 0.  route 0: the
+// tile route (any W); 1: the tensor-core route (W <= 256), with 16-byte
+// copies when W % 4 == 0 and both matrices are 16-byte aligned.
 extern "C" int rtpu_kmeans_assign(const void* pts, const void* w, const void* cent, int64_t N, int W, int L,
-                                  void* assign, void* stream) {
-  if (N < 1 || W < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  int route, void* assign, void* stream) {
+  if (N < 1 || W < 1 || L < 1 || route < 0 || route > 1 || (route == 1 && W > kMmaMaxW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const float*>(pts), c = static_cast<const float*>(cent);
+  const auto wt = static_cast<const float*>(w);
+  const auto a = static_cast<int32_t*>(assign);
+  if (route == 1) {
+    const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(c) % 16 == 0;
+    return static_cast<int>(vec ? mma_launch<true>(p, wt, c, N, W, L, a, s)
+                                : mma_launch<false>(p, wt, c, N, W, L, a, s));
+  }
   using S = Shape<TQT, MQ, MC>;
-  kmeans_assign_kernel<<<static_cast<unsigned>((N + S::BQ - 1) / S::BQ), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(w), static_cast<const float*>(cent), N, W, L,
-      static_cast<int32_t*>(assign));
+  kmeans_assign_kernel<<<static_cast<unsigned>((N + S::BQ - 1) / S::BQ), kThreads, 0, s>>>(p, wt, c, N, W, L, a);
   return static_cast<int>(cudaGetLastError());
 }
 

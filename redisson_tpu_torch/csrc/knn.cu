@@ -72,10 +72,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "knn_tile.cuh"
 
 namespace {
 
+using namespace rtpu_cp;
 using namespace rtpu_tile;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -180,15 +182,6 @@ constexpr size_t stream_smem(int bq, int depth) {
 
 // Byte offset of 16-byte piece p of staged row r.
 __device__ __forceinline__ int piece_at(int r, int p) { return r * kChunk + ((p ^ ((r >> 2) & 7)) << 4); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Chunk kc (depth kc * kPerChunk on) of bank rows c0 .. c0 + kSRows into a
 // stage; bytes past a row's end and rows past C read as 0.

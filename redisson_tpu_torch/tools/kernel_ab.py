@@ -7,15 +7,17 @@ Each TREE is a checkout of this repository (say the parent unpacked with
 `git archive` into a git-ignored directory, and `.` for the change); give
 them in the order to run, e.g. `parent . . parent`.  For each, a fresh
 process, started in that tree with only that tree on its path, builds the
-tree's kernels and runs its own chip_smoke.py phases check_wordcount
-(config 4's stream: wc_words, wc_sort_runs, segment_reduce) and
-check_vector (knn_score, knn_select, ivf_score, kmeans at config 7's
-shapes and 1M x 128), each kernel checked against its plain version as
-chip_smoke.py checks it; then config 7's IVF batch at nprobe 2, 4 and 8
+tree's kernels and runs its own chip_smoke.py phases check_bitset
+(bitset_get and bitset_set at config 5's shape and on 1M indexes into a
+2**28-lane plane), check_wordcount (config 4's stream: wc_words,
+wc_sort_runs, segment_reduce) and check_vector (knn_score, knn_select,
+ivf_score, kmeans at config 7's shapes and 1M x 128), each kernel checked
+against its plain version as chip_smoke.py checks it; then config 7's IVF batch at nprobe 2, 4 and 8
 through the public wrappers every tree has (the route's knn_select,
 ivf_score, the candidates' knn_select), on the same inputs in every tree;
 with --paths also run_config4 and run_config7 through that tree's
-create().  It prints every kernel's times by run, the IVF batch's, then
+create().  It prints every kernel's times by run (the k-means step's
+assign and update on lines of their own), the IVF batch's, then
 the paths' word-count walls and config 7's per-leg qps, and writes the
 JSON of the run to --out.
 """
@@ -35,7 +37,8 @@ from redisson_tpu_torch.core import _build
 build_s = _build.build_all()
 dev = torch.device("cuda")
 values = CS.config4_values()
-kernels = CS.check_wordcount(dev, np.random.default_rng(1234), values)
+kernels = CS.check_bitset(dev, np.random.default_rng(99))
+kernels.update(CS.check_wordcount(dev, np.random.default_rng(1234), values))
 kernels.update(CS.check_vector(dev, np.random.default_rng(4321)))
 out = {"build_s": build_s,
        "kernels": {k: {key: v for key, v in r.items() if isinstance(v, (int, float))} for k, r in kernels.items()}}
@@ -98,6 +101,10 @@ def main() -> int:
         runs.append({"tree": tree, **run_tree(tree, args.paths)})
         print(f"ran {tree}", flush=True)
     names = list(runs[0]["kernels"])
+    for key in ("ms", "assign_ms", "update_ms"):
+        vals = [r["kernels"].get("kmeans", {}).get(key) for r in runs]
+        print(f"kmeans {'step' if key == 'ms' else key[:-3]}: "
+              + "  ".join("-" if v is None else f"{v:.4f}" for v in vals))
     for name in names:
         keys = sorted({k for r in runs for k in r["kernels"].get(name, {}) if k.endswith("_ms") or k == "ms"})
         for key in keys:

@@ -1,0 +1,209 @@
+"""Time one-edit variants of two kernels against their shipped design, in
+turns, in one process on one card:
+
+    python3 -m redisson_tpu_torch.tools.variant_ab [--out FILE]
+
+from the repository root.  A variant is csrc/<library>.cu with the edits
+listed in VARIANTS, built with the flags of core/_build.py into
+_build/variants/ and loaded in place of the library, so that the public
+wrappers launch it.  Each variant is timed against the shipped library in
+the order shipped, variant, variant, shipped, with chip_smoke.py's timing
+(CUDA events behind a sleep kernel), at the main path's shapes:
+
+  kmeans_assign, config 7's training shape (50,000 x 128 points, 1,536
+  centroids of the clustered corpus; the tensor-core route):
+    three_hi   each of the three mma.sync products takes the high TF32
+               parts (hi*hi three times): the low parts' splits go, the
+               count of mma instructions stays (its sums are wrong: timed
+               only)
+    one_hi     the hi*hi product alone: a third of the mma instructions and
+               no low parts (one TF32 product): timed, and its points that
+               differ from the plain version outside chip_smoke.py's
+               TIE_GAP counted
+  bitset_set, config 5's shape (500 ops into its 1 MiB plane) and 1M ops
+  into 2**28 lanes, 20 batches each on a plane 30% set:
+    grid_only  every batch by the cooperative grid kernel (the one-block
+               form off): checked against the plain version bit for bit
+
+It prints one line per variant and shape and, with --out, writes them as
+JSON.  The card's name and power limit come first.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from redisson_tpu_torch.core import _build
+
+# library -> variant -> [(text of the shipped source, its replacement)];
+# each text must occur exactly once
+VARIANTS = {
+    "kmeans": {
+        "three_hi": [("mma_tf32(acc[i][j], al[i], bh[j]);", "mma_tf32(acc[i][j], ah[i], bh[j]);"),
+                     ("mma_tf32(acc[i][j], ah[i], bl[j]);", "mma_tf32(acc[i][j], ah[i], bh[j]);")],
+        "one_hi": [("mma_tf32(acc[i][j], al[i], bh[j]);", ""), ("mma_tf32(acc[i][j], ah[i], bl[j]);", "")],
+    },
+    "bitset": {"grid_only": [("if (n <= kBlockOps) {", "if (false) {")]},
+}
+
+
+def build_variant(lib: str, name: str) -> ctypes.CDLL:
+    """csrc/<lib>.cu with VARIANTS[lib][name]'s edits, built and loaded
+    with the shipped library's entry points."""
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    for old, new in VARIANTS[lib][name]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {lib}/{name}: {old!r} occurs {src.count(old)} times in {lib}.cu")
+        src = src.replace(old, new)
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{lib}_{name}.cu", out / f"lib{lib}_{name}.so"
+    cu.write_text(src)
+    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)],
+                         capture_output=True, text=True)
+    (out / f"{lib}_{name}.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {lib}/{name}:\n{res.stdout}{res.stderr}")
+    handle = ctypes.CDLL(str(so))
+    for fn, argtypes in _build.SIGNATURES[lib].items():
+        getattr(handle, fn).argtypes = argtypes
+        getattr(handle, fn).restype = ctypes.c_int
+    return handle
+
+
+def registers(log_path, kernel: str) -> str:
+    """ptxas's register counts for the entry points whose name holds
+    `kernel`, from a build log."""
+    log = log_path.read_text().splitlines()
+    found = []
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and kernel in line:
+            for nxt in log[i + 1: i + 4]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    found.append(m.group(1))
+                    break
+    return "/".join(found)
+
+
+@contextlib.contextmanager
+def loaded(lib: str, handle: ctypes.CDLL):
+    """The wrappers launch `handle`'s kernels in place of the library's."""
+    shipped = _build.library(lib)
+    _build._libs[lib] = handle
+    try:
+        yield
+    finally:
+        _build._libs[lib] = shipped
+
+
+def in_turns(lib: str, variant: ctypes.CDLL, timed) -> dict:
+    """timed() with the shipped library, the variant, the variant, the
+    shipped library."""
+    out = {"shipped_ms": [], "variant_ms": []}
+    for which in ("shipped", "variant", "variant", "shipped"):
+        with loaded(lib, variant if which == "variant" else _build.library(lib)):
+            out[f"{which}_ms"].append(timed())
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="write the results as JSON here")
+    args = ap.parse_args()
+    sys.path.insert(0, str(_build._PKG.parent))
+    import chip_smoke as CS
+    from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    print(CS.card_line(), flush=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    results = []
+
+    # kmeans_assign at config 7's training shape, as chip_smoke.py builds it
+    n, w, nlist = CS.C7_POINTS[1][0], CS.C7_POINTS[1][1], CS.C7_NLIST
+    rng = np.random.default_rng(4321)
+    pts = torch.from_numpy(CS.c7_clustered(np.random.default_rng(CS.C7_SEED), n, w)).to(dev)
+    weights = torch.ones(n, device=dev)
+    weights[torch.from_numpy(rng.choice(n, 200, replace=False)).to(dev)] = 0.0
+    pts[weights == 0] = 0.0
+    init = np.sort(np.random.default_rng(0x1DF5EED ^ n).choice(np.nonzero(weights.cpu().numpy())[0], nlist,
+                                                                 replace=False))
+    cent = pts[torch.from_numpy(init).to(dev)].clone()
+    plain = K.kmeans_assign_plain(pts, weights, cent)
+    d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    clear = (two[:, 1] - two[:, 0]) > CS.TIE_GAP * two[:, 0].abs().clamp(min=1.0)
+    del d, two
+    shipped_regs = registers(_build.BUILD_DIR / "kmeans.log", "kmeans_mma_kernel")
+    for name in VARIANTS["kmeans"]:
+        variant = build_variant("kmeans", name)
+        times = in_turns("kmeans", variant, lambda: CS.time_kernel(lambda i: K.kmeans_assign(pts, weights, cent),
+                                                                   reps=50))
+        r = {"kernel": "kmeans_assign", "variant": name, "shape": f"{n} x {w} x {nlist}", **times,
+             "registers": registers(_build.BUILD_DIR / "variants" / f"kmeans_{name}.log", "kmeans_mma_kernel"), "shipped_registers": shipped_regs}
+        if name == "one_hi":
+            with loaded("kmeans", variant):
+                got = K.kmeans_assign(pts, weights, cent)
+            r["differ_outside_gap"] = int((got[clear] != plain[clear]).sum())
+            r["differ_near_ties"] = int((got[~clear] != plain[~clear]).sum())
+            r["points_outside_gap"], r["near_tied_points"] = int(clear.sum()), int((~clear).sum())
+        results.append(r)
+    del pts, weights, cent, plain, clear
+    torch.cuda.empty_cache()
+
+    # bitset_set at config 5's shape and on 1M ops into 2**28 lanes
+    rng = np.random.default_rng(99)
+    variant = build_variant("bitset", "grid_only")
+    for label, (size, hi, n_ops) in {"config 5": (bt.padded_size(_DEFAULT_BITS), CS.C5_BITS, CS.C5_BIT_OPS),
+                                     "2**28 lanes": (1 << CS.BITMAP_LOG2, 1 << CS.BITMAP_LOG2,
+                                                     CS.BITMAP_OPS)}.items():
+        base = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+        batches = [CS.index_batch(rng, n_ops, hi, dev) for _ in range(20)]
+
+        def timed():
+            plane = base.clone()
+            K.bitset_set(base.clone(), batches[0], n_ops, 1)  # a launch of this library before the timing
+            return CS.time_kernel(lambda i: K.bitset_set(plane, batches[i], n_ops, 1), reps=len(batches),
+                                  warm=lambda: None)
+
+        times = in_turns("bitset", variant, timed)
+        equal = True
+        with loaded("bitset", variant):
+            for b in batches[:3]:
+                for n_valid in (0, 1, n_ops // 2, n_ops):
+                    for value in (0, 1):
+                        x, y = base.clone(), base.clone()
+                        got = K.bitset_set(x, b, n_valid, value)[1]
+                        want = K.bitset_set_plain(y, b, n_valid, value)[1]
+                        torch.cuda.synchronize()
+                        equal = equal and torch.equal(got, want) and torch.equal(x, y)
+        results.append({"kernel": "bitset_set", "variant": "grid_only", "shape": f"{label}: {n_ops} ops", **times,
+                        "equal_to_plain": equal})
+        del base, batches
+        torch.cuda.empty_cache()
+
+    for r in results:
+        extra = {k: v for k, v in r.items() if k not in ("kernel", "variant", "shape", "shipped_ms", "variant_ms")}
+        print(f"{r['kernel']} {r['variant']} at {r['shape']}: shipped "
+              + " / ".join(f"{t:.4f}" for t in r["shipped_ms"]) + " ms, variant "
+              + " / ".join(f"{t:.4f}" for t in r["variant_ms"]) + " ms; " + json.dumps(extra), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    bad = [r for r in results if r.get("equal_to_plain") is False]
+    return 1 if bad else 0
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,6 +77,28 @@ def test_bitset_set_reports_pre_batch_bits_for_repeated_indexes():
     np.testing.assert_array_equal(bits.numpy(), want_bits)
 
 
+@pytest.mark.parametrize("n_valid", [4001, 5000])
+@pytest.mark.parametrize("value", [0, 1])
+def test_bitset_set_repeats_far_apart_report_pre_batch_bits(n_valid, value):
+    """A batch of 5,000 ops (past the card's one-block form) whose indexes
+    repeat far apart (op i and op 4,000 + i): both report the pre-batch bit,
+    whether the later op is masked or not."""
+    rng = np.random.default_rng(value + n_valid)
+    plane = _plane(n_valid + 3 * value)
+    idx = rng.integers(-SIZE, SIZE, 5000).astype(np.int32)
+    idx[4000:4100] = idx[:100]
+    idx[4999] = idx[0]
+    want_bits, want_old = _jax_set(plane, idx, n_valid, value)
+    bits = torch.from_numpy(plane.copy())
+    _, old = TK.bitset_set(bits, torch.from_numpy(idx), n_valid, value)
+    np.testing.assert_array_equal(old.numpy(), want_old)
+    np.testing.assert_array_equal(bits.numpy(), want_bits)
+    lanes = np.where(idx[:100] < 0, idx[:100] + SIZE, idx[:100])
+    live = min(100, n_valid - 4000)
+    np.testing.assert_array_equal(old.numpy()[4000:4000 + live], plane[lanes[:live]])
+    assert not old.numpy()[n_valid:].any()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_bittensor_ops_match_reference(seed):
     from redisson_tpu.ops import bittensor as jbt

@@ -522,6 +522,58 @@ def test_bitset_set_reports_pre_batch_bits(dev):
     assert plane.nonzero().reshape(-1).tolist() == [4095]
 
 
+# bitset_set's two forms: one block up to 2,048 ops, a cooperative grid past
+# it (1M ops spread over many grid-stride rounds)
+@pytest.mark.parametrize("n", [1, 500, 2048, 2049, 6000, 100_000, 1 << 20])
+def test_bitset_set_one_launch_forms_match_plain(dev, n):
+    """Each form: repeated indexes far apart (op i and op i + n/2 in other
+    blocks) report the pre-batch bit; n_valid 0, 1 and n, both values; two
+    calls back to back on one plane."""
+    rng = np.random.default_rng(n)
+    size = 1 << 16
+    idx = _bitset_idx(rng, n, size, dup=0.0, edges=n >= 16)
+    half = n // 2
+    idx[half:half + min(half, 64)] = idx[:min(half, 64)]
+    idx[n - 1] = idx[0]
+    idx = torch.from_numpy(idx).to(dev)
+    plane = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+    for n_valid in sorted({0, 1, n}):
+        for value in (0, 1):
+            a, b = plane.clone(), plane.clone()
+            _, old_k = K.bitset_set(a, idx, n_valid, value)
+            _, old_p = K.bitset_set_plain(b, idx, n_valid, value)
+            _, again_k = K.bitset_set(a, idx.flip(0), n_valid, 1 - value)
+            _, again_p = K.bitset_set_plain(b, idx.flip(0), n_valid, 1 - value)
+            torch.cuda.synchronize()
+            assert torch.equal(old_k, old_p) and torch.equal(again_k, again_p), (n_valid, value)
+            assert torch.equal(a, b), (n_valid, value)
+
+
+def _kernels_a_call(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+
+
+def test_bitset_set_and_kmeans_assign_launch_one_kernel_a_call(dev):
+    """torch.profiler sees one kernel per bitset_set call (both forms) and
+    per kmeans_assign call (the widths of both routes)."""
+    plane = torch.zeros(1 << 20, dtype=torch.uint8, device=dev)
+    for n in (500, 1 << 18):
+        idx = torch.randint(0, 1 << 20, (n,), dtype=torch.int32, device=dev)
+        assert len(_kernels_a_call(lambda: K.bitset_set(plane, idx, n, 1))) == 1, n
+    for w in (128, 300):  # the tensor-core route, the tile route
+        p, c = torch.randn((3000, w), device=dev), torch.randn((300, w), device=dev)
+        wt = torch.ones(3000, device=dev)
+        assert len(_kernels_a_call(lambda: K.kmeans_assign(p, wt, c))) == 1, w
+
+
 @pytest.mark.parametrize("overlap", [True, False])
 def test_rbatch_on_the_card_matches_the_cpu(dev, overlap):
     """chip_smoke's RBatch stream (every verb; plain, skip_result and
@@ -1141,8 +1193,42 @@ def test_knn_topk_edges_on_the_card(dev):
     assert gi[1].tolist() == [1, 5]  # the duplicate pair, lower index first
 
 
-@pytest.mark.parametrize("shape", [(5000, 64, 100), (3000, 130, 7), (700, 1024, 3)])
+def _groups(c):
+    """Each centroid's group of exact copies (int64), and each group's
+    lowest index."""
+    _, inv = torch.unique(c, dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), c.shape[0], dtype=torch.int64, device=c.device)
+    first.scatter_reduce_(0, inv, torch.arange(c.shape[0], device=c.device), "amin")
+    return inv, first
+
+
+def _clear_of(p, c, gap):
+    """Points whose nearest centroid (float64 of the float32 terms) stands
+    more than `gap` (relative) from every centroid that is not an exact
+    copy of it; all of them where every centroid is a copy of one."""
+    d = ((p * p).sum(1)[:, None] - 2 * (p @ c.T) + (c * c).sum(1)[None, :]).double()
+    inv, _ = _groups(c)
+    best = d.argmin(1)
+    other = torch.where(inv[None, :] == inv[best][:, None], torch.inf, d).min(1).values
+    b = d.gather(1, best[:, None])[:, 0]
+    return (other - b) > gap * b.abs().clamp(min=1.0)
+
+
+# (N, W, L): the old shapes; every width the two routes meet (1, 7, 64, 128,
+# 130, 256, 257) at every L (1, 3, 100, 1,536), N off the 128- and 64-point
+# tiles
+KMEANS_SHAPES = [(5000, 64, 100), (3000, 130, 7), (700, 1024, 3)] + [
+    (1037, w, nlist) for w in (1, 7, 64, 128, 130, 256, 257) for nlist in (1, 3, 100, 1536)]
+
+
+@pytest.mark.parametrize("shape", KMEANS_SHAPES)
 def test_kmeans_step_matches_plain_and_repeats_its_bits(dev, shape):
+    """The assign (the tensor-core route up to W 256, the tile route past
+    it), then the update on its assignment: two runs equal bit for bit,
+    assignments equal to the plain version's outside near-ties, dead rows
+    -1, the centroids no differing point touches equal to the plain
+    version's within 1e-5; exact duplicate centroids (the lower index
+    wins)."""
     n, w, nlist = shape
     rng = np.random.default_rng(n)
     centers = rng.standard_normal((nlist, w)).astype(np.float32) * 3
@@ -1150,26 +1236,59 @@ def test_kmeans_step_matches_plain_and_repeats_its_bits(dev, shape):
     weights = np.ones(n, np.float32)
     weights[rng.choice(n, n // 10, replace=False)] = 0.0
     pts[weights == 0] = 0.0
-    cent = pts[np.sort(rng.choice(np.nonzero(weights)[0], nlist, replace=False))].copy()
+    live = np.nonzero(weights)[0]
+    cent = pts[np.sort(rng.choice(live, nlist, replace=nlist > live.size))].copy()
+    dup = nlist >= 6
+    if dup:
+        cent[nlist - 1] = cent[1]  # an exact copy of centroid 1: it can never win
     p, wt, c = (torch.from_numpy(a).to(dev) for a in (pts, weights, cent))
-    gc, ga = K.kmeans_step(p, wt, c)
-    gc2, ga2 = K.kmeans_step(p, wt, c)
     wc, wa = K.kmeans_step_plain(p, wt, c)
+    # exact copies of a centroid (the explicit one, and those of a point
+    # drawn twice when L exceeds the live points) tie: the kernel gives the
+    # lowest index of the copies, the plain version may round one copy's
+    # distance below another's
+    inv, first = _groups(c)
+    live = wt > 0
+    clear = _clear_of(p, c, 1e-4) & live
+    route = K.kmeans_assign_route(p, c)
+    ga = K.kmeans_assign(p, wt, c)
+    ga2 = K.kmeans_assign(p, wt, c)
+    gc = K.kmeans_update(p, wt, c, ga)
+    gc2 = K.kmeans_update(p, wt, c, ga2)
     torch.cuda.synchronize()
-    assert torch.equal(gc.view(torch.int32), gc2.view(torch.int32)) and torch.equal(ga, ga2)
-    d = ((p * p).sum(1)[:, None] - 2 * (p @ c.T) + (c * c).sum(1)[None, :]).double()
-    two = torch.topk(d, 2, dim=1, largest=False).values
-    clear = (two[:, 1] - two[:, 0]) > 1e-4 * two[:, 0].abs().clamp(min=1.0)
-    assert torch.equal(ga[clear], wa[clear]) and torch.equal(ga == -1, wt == 0)
+    assert torch.equal(gc.view(torch.int32), gc2.view(torch.int32)) and torch.equal(ga, ga2), route
+    assert torch.equal(ga == -1, wt == 0), route
+    assert torch.equal(inv[ga[clear].long()], inv[wa[clear].long()]), route
+    assert torch.equal(first[inv[ga[live].long()]], ga[live].long()), route
+    if dup:
+        assert not bool((ga == nlist - 1).any()), route
     # the cells a differing point leaves or joins may differ; every other
     # centroid is held to the plain version's
     moved = torch.zeros(nlist, dtype=torch.bool, device=dev)
     diff = (ga != wa).nonzero().reshape(-1)
     moved[ga[diff].long().clamp(min=0)] = True
     moved[wa[diff].long().clamp(min=0)] = True
-    assert int((~moved).sum()) > 0
-    err = float((gc[~moved] - wc[~moved]).abs().max()) / float(wc.abs().max())
-    assert err <= 1e-5, err
+    assert int((~moved).sum()) > 0, route
+    err = float((gc[~moved] - wc[~moved]).abs().max()) / max(float(wc.abs().max()), 1e-30)
+    assert err <= 1e-5, (route, err)
+    gs, gas = K.kmeans_step(p, wt, c)
+    torch.cuda.synchronize()
+    assert torch.equal(gas, ga) and torch.equal(gs.view(torch.int32), gc.view(torch.int32))
+
+
+@pytest.mark.parametrize("w", [7, 128, 257])
+def test_kmeans_assign_every_point_dead_and_one_centroid(dev, w):
+    """Every point dead: -1 everywhere; one centroid: every live point takes
+    it (W 7 and 128 by the tensor-core route, 257 by the tile route)."""
+    rng = np.random.default_rng(w)
+    p = torch.from_numpy(rng.standard_normal((333, w)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((5, w)).astype(np.float32)).to(dev)
+    dead = torch.zeros(333, device=dev)
+    half = (torch.arange(333, device=dev) % 2).to(torch.float32)
+    assert K.kmeans_assign(p, dead, c).tolist() == [-1] * 333
+    one = K.kmeans_assign(p, half, c[:1])
+    assert torch.equal(one, torch.where(half > 0, 0, -1).to(torch.int32))
+    assert torch.equal(K.kmeans_update(p, dead, c, torch.full((333,), -1, dtype=torch.int32, device=dev)), c)
 
 
 @pytest.mark.parametrize("n", [1, 255, 257, 20000])

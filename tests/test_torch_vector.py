@@ -470,6 +470,71 @@ def test_kmeans_step_matches_jax(dead):
     assert np.abs(got_c - ref_c).max() <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("case", ["duplicates", "one_centroid", "every_point_dead"])
+def test_kmeans_assign_plain_edges_match_jax(case):
+    """The contract the card's assign routes are held to, on the plain
+    version and the JAX program: exact duplicate centroids go to the lower
+    index (the first minimum), one centroid takes every live point, and
+    every point dead gives -1 everywhere and leaves every centroid."""
+    rng = np.random.default_rng({"duplicates": 5, "one_centroid": 6, "every_point_dead": 7}[case])
+    n, w, nlist = 700, 16, 9
+    centers = rng.standard_normal((nlist, w)).astype(np.float32) * 3
+    pts = (centers[rng.integers(nlist, size=n)] + 0.5 * rng.standard_normal((n, w))).astype(np.float32)
+    weights = np.ones(n, np.float32)
+    weights[rng.choice(n, 30, replace=False)] = 0.0
+    if case == "every_point_dead":
+        weights[:] = 0.0
+    pts[weights == 0] = 0.0
+    cent = centers.copy()
+    if case == "duplicates":
+        cent[6] = cent[1]
+        cent[7] = cent[1]
+        cent[8] = cent[3]
+    elif case == "one_centroid":
+        cent = cent[:1].copy()
+    got_c, got_a = K.kmeans_step(_t(pts), _t(weights), _t(cent))
+    ref_c, ref_a = RK.kmeans_step(_j(pts), _j(weights), _j(cent))
+    got_a, ref_a, got_c, ref_c = got_a.numpy(), np.asarray(ref_a), got_c.numpy(), np.asarray(ref_c)
+    # the float64 first minimum, and the points whose best stands 1e-4
+    # (relative) clear of every centroid that is not a copy of it
+    d64 = _oracle(cent.astype(np.float64), pts, "L2")
+    want = np.where(weights > 0, np.argmin(d64, axis=1), -1)
+    best = d64[np.arange(n), np.argmin(d64, axis=1)]
+    same = (cent[np.argmin(d64, axis=1)][:, None, :] == cent[None, :, :]).all(2)
+    other = np.where(same, np.inf, d64).min(1)
+    clear = (other - best) > 1e-4 * np.maximum(1.0, np.abs(best))
+    assert clear.mean() > 0.95
+    assert np.array_equal(got_a[clear], want[clear]) and np.array_equal(ref_a[clear], want[clear])
+    assert np.array_equal(got_a == -1, weights == 0) and np.array_equal(ref_a == -1, weights == 0)
+    if case == "duplicates":
+        assert not np.isin(got_a, [6, 7, 8]).any() and not np.isin(ref_a, [6, 7, 8]).any()
+        assert (got_a == 1).any() and (got_a == 3).any()
+    if case == "one_centroid":
+        assert np.array_equal(got_a, ref_a)
+    if case == "every_point_dead":
+        assert np.array_equal(got_a, ref_a) and np.array_equal(got_c, cent) and np.array_equal(ref_c, cent)
+    assert np.abs(got_c - ref_c).max() <= 1e-5 * np.abs(ref_c).max()
+
+
+def test_kmeans_assign_route_by_width():
+    """The tensor-core route up to W = 256, the tile route past it."""
+    for w, route in ((1, K.KMEANS_MMA), (7, K.KMEANS_MMA), (128, K.KMEANS_MMA), (256, K.KMEANS_MMA),
+                     (257, K.KMEANS_TILE), (1024, K.KMEANS_TILE)):
+        assert K.kmeans_assign_route(torch.zeros((10, w)), torch.zeros((3, w))) == route, w
+
+
+@pytest.mark.parametrize("w", [12, 256, 257])
+def test_kmeans_assign_on_cpu_tensors_is_the_plain_version_at_either_routes_width(w):
+    """On CPU tensors the wrapper runs the plain version, at the widths of
+    the tensor-core route (12, 256) and of the tile route (257) alike."""
+    rng = np.random.default_rng(8)
+    pts = _t(rng.standard_normal((200, w)).astype(np.float32))
+    weights = _t((rng.random(200) < 0.8).astype(np.float32))
+    cent = _t(rng.standard_normal((7, w)).astype(np.float32))
+    got = K.kmeans_assign(pts, weights, cent)
+    assert torch.equal(got, K.kmeans_assign_plain(pts, weights, cent))
+
+
 def _packed(rng, idx, width_words, extra):
     p = np.zeros((len(idx) + 3, 2 + extra + width_words), np.uint32)
     p[: len(idx), 0] = idx

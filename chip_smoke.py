@@ -8,9 +8,11 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build the fourteen kernels' libraries
      from csrc/ (one nvcc per source, all at once) and print the build
      seconds; then, in a child process of this script (--kernels-a-call),
-     count by torch.profiler the kernels one call launches of bitset_get,
-     bitset_set (both forms), kmeans_assign (both routes) and knn_select at
-     the main path's shapes, and fail unless each is 1;
+     count by torch.profiler the kernels one call launches of bitset_get
+     and bitset_set (one plane, both set forms, and the table form at
+     fanout's level), kmeans_assign (both routes), kmeans_update and
+     knn_select at the main path's shapes, and fail unless each is 1
+     (kmeans_update: 1 or 2, KERNELS_A_CALL);
   2. known answers: the CUDA hash chain, read back through hll_add,
      bloom_set and the fused add, gives the hashes the JAX package gives
      (constants below);
@@ -29,7 +31,11 @@ Phases (any failure raises and the script exits non-zero):
      plane (its cooperative form), and at the edges (negative,
      out-of-range and repeated indexes, a masked tail, n_valid 0; 6,000
      ops whose repeats lie in other blocks), beside index_select and
-     index_put_; wc_words
+     index_put_; both in the table form (one launch a verb for a level of
+     RBatch groups) at fanout's level (128 planes x 500 ops), timed beside
+     128 one-plane launches, and on an edge table (planes of several sizes,
+     one past 1 MiB, negative, out-of-plane and repeated indexes, one-op
+     groups, both set forms); wc_words
      (both entry points) on config 4's two chunks and at the edges (words
      over 63 bytes, control whitespace, a last byte that is not
      whitespace, eb below the end count, n_words 0), wc_sort_runs on config 4's 8,388,608-row
@@ -53,7 +59,9 @@ Phases (any failure raises and the script exits non-zero):
      tile route (float32) checked at KMEANS_WIDE's W 384, the route taken
      printed beside its bound (three TF32 products), the float32 bound and
      torch.matmul's time for the product alone (TF32 off), assign and
-     update timed apart;
+     update timed apart, the update bit for bit against its float32
+     row-order reference on the host (np.add.at) beside its own bound and
+     index_add_ of the weighted rows;
   4. the main path through redisson_tpu_torch.create() on its default
      device: config 2 (1,000-tenant bank, 10M keys populated in one window,
      100k-op contains flushes), config2_batch (the same bank: each flush an
@@ -64,7 +72,8 @@ Phases (any failure raises and the script exits non-zero):
      size, then fanout (config 5's per-tenant objects as one RBatch: 64
      filters in two fused runs, 64 fused add-then-contains pairs, 128 bit
      sets, a counter and a bucket per tenant; then BITOP OR and XOR of each
-     tenant's two bit sets), each path with its kernels' launch counts set
+     tenant's two bit sets; one bitset_get and one bitset_set launch a rep,
+     or it fails), each path with its kernels' launch counts set
      to 0 just before it and read just after its own work (config2_batch
      counts its RBatch flushes only, not the direct calls, parts and
      timings beside them); config2_batch and fanout are then timed with the
@@ -790,12 +799,17 @@ def check_bloom_add(dev, rng) -> dict:
     return out
 
 
-def index_batch(rng, n: int, hi: int, dev, dup: float = 0.1) -> torch.Tensor:
-    """n int32 indexes below `hi`, the last `dup` share repeating the first."""
-    idx = rng.integers(0, hi, n).astype(np.int32)
-    d = int(n * dup)
+def host_indexes(rng, n: int, lo: int, hi: int) -> np.ndarray:
+    """n int32 indexes in [lo, hi), the last 10% repeating the first."""
+    idx = rng.integers(lo, hi, n).astype(np.int32)
+    d = n // 10
     idx[n - d:] = idx[:d]
-    return torch.from_numpy(idx).to(dev)
+    return idx
+
+
+def index_batch(rng, n: int, hi: int, dev) -> torch.Tensor:
+    """host_indexes below `hi` on `dev`."""
+    return torch.from_numpy(host_indexes(rng, n, 0, hi)).to(dev)
 
 
 def check_bitset(dev, rng) -> dict:
@@ -868,6 +882,13 @@ def check_bitset(dev, rng) -> dict:
             checked[name].append(label + (", a stream of 20 batches" if name == "bitset_set" else ""))
         del plane, batches, lib
         torch.cuda.empty_cache()
+    groups = check_bitset_groups(dev, rng)
+    for name in checked:
+        checked[name].append(f"the table form at fanout's level ({2 * C5_TENANTS} planes x {C5_BIT_OPS} ops) and "
+                             "on an edge table (both set forms)")
+    get.update(groups["bitset_get"])
+    put.update(groups["bitset_set"])
+    err = max(err, groups["bitset_get"]["groups_max_abs_err"])
     results = {}
     for name, r in (("bitset_get", get), ("bitset_set", put)):
         results[name] = dict(r, max_abs_err=err, checked=checked[name],
@@ -880,6 +901,85 @@ def check_bitset(dev, rng) -> dict:
             f"{r['bitmap_2_28_library_ms']:.4f}, bound {r['bitmap_2_28_bound_ms']:.4f}); equal to plain at "
             f"{checked[name]}")
     return results
+
+
+def assert_groups_equal(label: str, planes, idx, values) -> float:
+    """kernels.bitset_groups against bitset_groups_plain on clones of the
+    planes, bit for bit (replies and planes)."""
+    from redisson_tpu_torch.core import kernels as K
+
+    ref = [p.clone() for p in planes]
+    got, firsts = K.bitset_groups(planes, idx, values)
+    want, wfirsts = K.bitset_groups_plain(ref, torch.from_numpy(np.concatenate(idx)).to(planes[0].device),
+                                          [a.size for a in idx], values)
+    err = 0.0
+    for g, a in enumerate(idx):
+        err = max(err, assert_equal(f"{label}: group {g} replies", got[firsts[g]:firsts[g] + a.size],
+                                    want[wfirsts[g]:wfirsts[g] + a.size]))
+    for g, (p, r) in enumerate(zip(planes, ref)):
+        err = max(err, assert_equal(f"{label}: group {g} plane", p, r))
+    return err
+
+
+def check_bitset_groups(dev, rng) -> dict:
+    """The table form (kernels.bitset_groups: one upload, one bitset_get
+    launch for a level's reads and one bitset_set launch for its sets)
+    against its plain version, bit for bit: at fanout's shape (a level of
+    config 5's 2 x 64 bit sets, 500 indexes below 100,000 on a 1 MiB plane
+    each, all reads or all sets) and on an edge table (planes of 4,096 to
+    2**21 + 4,096 lanes, negative and out-of-plane indexes, repeats, one-op
+    groups, reads and both values; once with a set group past 2,048 ops,
+    the cooperative form, once within the one-block form).  The fanout
+    levels' device time (staged beforehand: the launches alone) beside 128
+    one-plane launches of the same ops (the per-group path's), the plain
+    version and the bound (32-byte sectors touched, 5 bytes an op, 32 a
+    group)."""
+    from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import bittensor as bt
+
+    err = 0.0
+    edge_sizes = [4096, 4099, (1 << 21) + 4096, 100, 4096, 1 << 16, 7, 1 << 20]
+    edge_values = [None, 1, 1, 0, None, 0, None, 1]
+    for label, big in (("cooperative", 5000), ("one-block", 2000)):
+        counts = [300, 1, 700, 50, 1, big, 20, 2100 if big > 2048 else 900]
+        planes = [(torch.rand(size, device=dev) < 0.3).to(torch.uint8) for size in edge_sizes]
+        idx = [host_indexes(rng, n, -2 * size, 2 * size) for size, n in zip(edge_sizes, counts)]
+        for a, size in zip(idx, edge_sizes):  # negative and out-of-plane edges
+            a[: min(6, a.size)] = [-1, 2**31 - 1, -(2**31), 0, size, -size][: min(6, a.size)]
+        err = max(err, assert_groups_equal(f"bitset_groups edge table ({label} form)", planes, idx, edge_values))
+        del planes
+    groups, size = 2 * C5_TENANTS, bt.padded_size(_DEFAULT_BITS)
+    out = {"bitset_get": {}, "bitset_set": {}}
+    for name, value in (("bitset_get", None), ("bitset_set", 1)):
+        planes = [(torch.rand(size, device=dev) < 0.3).to(torch.uint8) for _ in range(groups)]
+        values = [value] * groups
+        batches = [[host_indexes(rng, C5_BIT_OPS, 0, C5_BITS) for _ in range(groups)] for _ in range(21)]
+        idx = batches.pop()
+        err = max(err, assert_groups_equal(f"{name} at fanout's level", planes, idx, values))
+        levels = [K.bitset_stage(planes, b, values) for b in batches]
+        single = [[torch.from_numpy(a).to(dev) for a in b] for b in batches]
+        flat = [torch.from_numpy(np.concatenate(b)).to(dev) for b in batches]
+        touched = statistics.median(sum(sectors(a.long()) for a in b) for b in single)
+        r = out[name]
+        r["fanout_ms"] = time_kernel(lambda i: K.bitset_launch(planes, levels[i]))
+        if value is None:
+            r["fanout_single_ms"] = time_kernel(lambda i: [K.bitset_get(p, a) for p, a in zip(planes, single[i])])
+        else:
+            r["fanout_single_ms"] = time_kernel(
+                lambda i: [K.bitset_set(p, a, C5_BIT_OPS, 1) for p, a in zip(planes, single[i])])
+        r["fanout_plain_ms"] = time_plain(
+            lambda i: K.bitset_groups_plain(planes, flat[i], [C5_BIT_OPS] * groups, values))
+        # a set dirties each sector it changes once more: bounded below by the reads
+        r["fanout_bound_ms"] = bound_ms(32 * touched + 5 * groups * C5_BIT_OPS + 32 * groups, 0)[0]
+        log(f"kernel {name}, table form at fanout's level ({groups} planes of {size} lanes x {C5_BIT_OPS} ops): "
+            f"{r['fanout_ms']:.4f} ms one launch against {r['fanout_single_ms']:.4f} ms for {groups} one-plane "
+            f"launches (plain {r['fanout_plain_ms']:.3f} ms, bound {r['fanout_bound_ms']:.5f} ms)")
+        del planes, levels, single, flat
+        torch.cuda.empty_cache()
+    for r in out.values():
+        r["groups_max_abs_err"] = err
+    return out
 
 
 def config4_values() -> list:
@@ -1157,6 +1257,18 @@ def knn_bytes(bank, scale, bias, qbias, r: int, c: int, w: int) -> int:
             + 4 * r * w + (0 if qbias is None else 4 * r * c) + 4 * r * c)
 
 
+def kmeans_update_reference(pts, w, cent, assign):
+    """kmeans_update's contract in numpy float32: each cell's sums of point
+    * weight and of weights in row order (np.add.at adds in index order,
+    one rounding a term), divided by max(weights, 1); an empty cell keeps
+    its centroid."""
+    live = assign >= 0
+    sums, cnt = np.zeros_like(cent), np.zeros(cent.shape[0], np.float32)
+    np.add.at(sums, assign[live], pts[live] * w[live, None])
+    np.add.at(cnt, assign[live], w[live])
+    return np.where(cnt[:, None] > 0, sums / np.maximum(cnt, np.float32(1))[:, None], cent)
+
+
 def kernels_per_call(fn):
     """CUDA kernels one call of fn launches, read from a torch.profiler trace
     of that call (memsets and copies not counted); None where the profiler
@@ -1180,9 +1292,11 @@ def kernels_a_call_here(dev) -> dict:
     """Kernels one call launches, by torch.profiler (kernels_per_call), for
     each wrapper held to one kernel a call, at the shapes the main path gives
     it: bitset_get and bitset_set at config 5's shape (bitset_set's
-    one-block form) and on 1M indexes into 2**28 lanes (its cooperative
-    form); kmeans_assign at config 7's training shape (the tensor-core
-    route) and at KMEANS_WIDE (the tile route); knn_select (k 10) at 64 x
+    one-block form), on 1M indexes into 2**28 lanes (its cooperative
+    form) and in the table form at fanout's level (128 planes, all reads or
+    all sets: one kernel a verb); kmeans_assign at config 7's training
+    shape (the tensor-core route) and at KMEANS_WIDE (the tile route), and
+    kmeans_update on each assignment (two kernels); knn_select (k 10) at 64 x
     1,048,576 and 64 x 65,536, the IVF route's 64 x 1,536 (k = nprobe) and
     the IVF candidates' 64 x nprobe x 112 slots with ids (config 7's cells
     hold 112).  Run in a process of its own (--kernels-a-call): in this
@@ -1201,13 +1315,23 @@ def kernels_a_call_here(dev) -> dict:
         counts[f"bitset_get {key}"] = kernels_per_call(lambda: K.bitset_get(plane, idx))
         counts[f"bitset_set {key}"] = kernels_per_call(lambda: K.bitset_set(plane, idx, n, 1))
         del plane, idx
+    groups = 2 * C5_TENANTS
+    planes = [torch.zeros(bt.padded_size(_DEFAULT_BITS), dtype=torch.uint8, device=dev) for _ in range(groups)]
+    idx = [host_indexes(rng, C5_BIT_OPS, 0, C5_BITS) for _ in range(groups)]
+    for wrapper, value in (("bitset_get", None), ("bitset_set", 1)):
+        counts[f"{wrapper} table form, fanout's level of {groups}"] = kernels_per_call(
+            lambda: K.bitset_groups(planes, idx, [value] * groups))
+    del planes
     n, w, nlist = C7_POINTS[1][0], C7_POINTS[1][1], C7_NLIST
     for label, (rows, width, cents) in (("tensor-core", (n, w, nlist)), ("tile", KMEANS_WIDE)):
         pts = torch.randn((rows, width), device=dev)
         cent, wt = pts[:cents].clone(), torch.ones(rows, device=dev)
         counts[f"kmeans_assign {label} {rows} x {width} x {cents}"] = kernels_per_call(
             lambda: K.kmeans_assign(pts, wt, cent))
-        del pts, cent, wt
+        assign = K.kmeans_assign(pts, wt, cent)
+        counts[f"kmeans_update {rows} x {width} x {cents}"] = kernels_per_call(
+            lambda: K.kmeans_update(pts, wt, cent, assign))
+        del pts, cent, wt, assign
     shapes = [(c7_cap(C7_SIFT[0]), C7_K, False), (c7_cap(C7_POINTS[1][0]), C7_K, False)]
     shapes += [(nlist, nprobe, False) for nprobe in C7_NPROBES] + [(112 * nprobe, C7_K, True) for nprobe in C7_NPROBES]
     for cols, k, with_ids in shapes:
@@ -1219,18 +1343,24 @@ def kernels_a_call_here(dev) -> dict:
     return counts
 
 
+# the most kernels one call of a wrapper may launch (every other: exactly 1)
+KERNELS_A_CALL = {"kmeans_update": 2}
+
+
 def kernels_a_call() -> dict:
     """kernels_a_call_here's counts, taken in a child process of this
-    script; raises unless each call launched exactly one kernel."""
+    script; raises unless each call launched one kernel, or between one and
+    KERNELS_A_CALL's count for the wrappers listed there."""
     here = os.path.abspath(__file__)
     out = subprocess.run([sys.executable, here, "--kernels-a-call"], capture_output=True, text=True, timeout=600,
                          cwd=os.path.dirname(here))
     if out.returncode != 0:
         raise AssertionError(f"kernels a call: the child exited {out.returncode}: {out.stderr[-4000:]}")
     counts = json.loads(out.stdout.strip().splitlines()[-1])
-    wrong = {k: v for k, v in counts.items() if v != 1}
+    wrong = {k: v for k, v in counts.items() if v is None or not 1 <= v <= KERNELS_A_CALL.get(k.split()[0], 1)}
     if wrong:
-        raise AssertionError(f"kernels a call by torch.profiler, not 1 (None: an empty trace): {wrong}")
+        raise AssertionError(f"kernels a call by torch.profiler, not as KERNELS_A_CALL allows (None: an empty "
+                             f"trace): {wrong}")
     return counts
 
 
@@ -1463,6 +1593,12 @@ def check_vector(dev, rng) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(c1.view(torch.int32), c2.view(torch.int32)) and torch.equal(a1, a2)):
         raise AssertionError("kmeans: two runs on the card gave different bits")
+    # the update against its float32 row-order reference on the host, bit
+    # for bit (so against the parent's seven-step design, which kept it)
+    want_c = kmeans_update_reference(pts.cpu().numpy(), weights.cpu().numpy(), cent.cpu().numpy(),
+                                     a1.cpu().numpy())
+    if not np.array_equal(c1.cpu().numpy().view(np.int32), want_c.view(np.int32)):
+        raise AssertionError("kmeans_update differs from the float32 row-order reference")
     pc, pa = K.kmeans_step_plain(pts, weights, cent)
     d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
     two = torch.topk(d, 2, dim=1, largest=False).values
@@ -1552,9 +1688,18 @@ def check_vector(dev, rng) -> dict:
                                                 4 * w * valid)
         ivf_times.append(t)
     a0 = K.kmeans_assign(pts, weights, cent)
+    assigned = a0 >= 0
+    weighted, cell, acc = (pts * weights[:, None])[assigned], a0[assigned].long(), torch.zeros_like(cent)
     km = {"ms": time_kernel(lambda i: K.kmeans_step(pts, weights, cent)),
           "assign_ms": time_kernel(lambda i: K.kmeans_assign(pts, weights, cent)),
           "update_ms": time_kernel(lambda i: K.kmeans_update(pts, weights, cent, a0)),
+          "update_plain_ms": time_plain(lambda i: K.kmeans_update_plain(pts, weights, cent, a0)),
+          # the update's library yardstick: index_add_ of the weighted rows,
+          # the sums alone (no counts, no division, no order kept)
+          "update_library_ms": time_kernel(lambda i: acc.index_add_(0, cell, weighted)),
+          # the update's bound: points, weights and assignment read once, the
+          # centroids read and written once
+          "update_bound_ms": bound_ms(4 * n * w + 8 * n + 8 * nlist * w, 0)[0],
           "plain_ms": time_plain(lambda i: K.kmeans_step_plain(pts, weights, cent)),
           # the product alone (TF32 off): no one PyTorch call computes the argmin of the distances
           "matmul_ms": time_kernel(lambda i: torch.matmul(pts, cent.T)),
@@ -1577,19 +1722,21 @@ def check_vector(dev, rng) -> dict:
     log(f"kmeans_assign at {n} x {w} x {nlist}: route {km['assign_route']}, {km['assign_ms']:.4f} ms; bound "
         f"{km['bound_ms']:.4f} ms, the route's (float32 FMAs {km['bound_fp32_ms']:.4f} ms, three TF32 products "
         f"{km['bound_3xtf32_ms']:.4f} ms); torch.matmul, the product alone (TF32 off), {km['matmul_ms']:.4f} ms; "
-        f"update {km['update_ms']:.4f} ms")
+        f"kmeans_update {km['update_ms']:.4f} ms (bound {km['update_bound_ms']:.4f} ms by bytes; index_add_ of the "
+        f"weighted rows, the sums alone, {km['update_library_ms']:.4f} ms)")
     km.update(max_abs_err=kerr, checked=[f"{n} x {w} points (200 dead), {nlist} centroids from the training's "
                                          "seeded init: two runs equal bit for bit; assignments equal to the plain "
                                          f"version's outside near-ties ({int((~clear).sum())} near-tied points); "
                                          "centroids within "
-                                         f"{DIST_TOL} relative where no assignment differs; each assign route, "
+                                         f"{DIST_TOL} relative where no assignment differs; the update bit for bit "
+                                         "against the float32 row-order reference; each assign route, "
                                          "twice equal and equal to the plain version outside near-ties: "
                                          + ", ".join(f"the {route_names[r]} route at {d[3]}"
                                                      for r, d in route_diff.items())],
               shape=f"one Lloyd iteration, {n} x {w} points, {nlist} centroids",
               launches_per_call="2 wrapper launches a Lloyd step: kmeans_assign (one kernel: 3xTF32 on the "
-                                "tensor cores up to W 256, float32 tiles wider), kmeans_update (a memset, then "
-                                "count, a three-step scan, scatter and sum)")
+                                "tensor cores up to W 256, float32 tiles wider), kmeans_update (two kernels: the "
+                                "rows bucketed by cell a tile at a time, then one block a cell adds its bucket)")
     t4 = next(t for t in ivf_times if t["nprobe"] == 4)
     ivf = {"ms": t4["ms"], "plain_ms": t4["plain_ms"], "library_ms": None, "bound_ms": t4["bound_ms"],
            "bound_by": t4["bound_by"], "max_abs_err": ivf_err,
@@ -1602,7 +1749,7 @@ def check_vector(dev, rng) -> dict:
               for v in [t[key]]}, "launch_floor_ms": ivf_sel["launch_floor_ms"],
            "launches_per_call": "1 launch a call: one block a (query, probe) pair compacts the cell's valid "
                                 "slots by ballot and gathers only those, 16 bytes a load where the rows allow"}
-    del pts, weights, cent, c1, c2, pc, d, cells_t, q, a0
+    del pts, weights, cent, c1, c2, pc, d, cells_t, q, a0, assigned, weighted, cell, acc
     torch.cuda.empty_cache()
 
     big = timed[-1]
@@ -2107,6 +2254,11 @@ def run_fanout(client, rng) -> dict:
         wall, launches = fanout_rep(client, rng, f"fan{rep}", keysets, check=True)
         reps.append({"wall_s": wall, "ops_per_s": ops / wall, "launches": launches})
     path_launches = dict(K.launches)
+    # the batch layer's levels: the 128 sets in one bitset_set launch, the
+    # 128 gets in one bitset_get launch
+    bit_launches = [(r["launches"]["bitset_get"], r["launches"]["bitset_set"]) for r in reps]
+    if any(b != (1, 1) for b in bit_launches):
+        raise AssertionError(f"fanout: (bitset_get, bitset_set) launches a rep {bit_launches}, not (1, 1)")
     pooled = {True: [], False: []}
     for i in range(C5_POOL_AB):
         for on in ((True, False) if i % 2 == 0 else (False, True)):
@@ -2114,11 +2266,13 @@ def run_fanout(client, rng) -> dict:
                 wall, _ = fanout_rep(client, rng, f"fanab{i}{on:d}", keysets, check=False)
             pooled[on].append(ops / wall)
     out = {"reps": reps, "ops_per_rep": ops, "ops_per_s": [r["ops_per_s"] for r in reps],
-           "pool_on_ops_per_s": pooled[True], "pool_off_ops_per_s": pooled[False], "launches": path_launches}
+           "pool_on_ops_per_s": pooled[True], "pool_off_ops_per_s": pooled[False], "launches": path_launches,
+           "bitset_launches_a_rep": bit_launches}
     log(f"fanout: {C5_REPS} reps of one RBatch with {ops} ops ({4 * C5_TENANTS} filter ops of {C5_PER} keys, two "
         f"fused runs and {C5_TENANTS} fused pairs; {2 * C5_TENANTS} bit sets x {C5_BIT_OPS} set + get; counters and "
         f"buckets; BITOP OR and XOR a tenant): {', '.join(f'{r:.3e}' for r in out['ops_per_s'])} ops/s; launches a "
-        f"rep {reps[-1]['launches']}; planes, bits and replies equal the plain versions; staging pool on / off in "
+        f"rep {reps[-1]['launches']} (bitset_get, bitset_set a rep: {bit_launches}); planes, bits and replies "
+        f"equal the plain versions; staging pool on / off in "
         f"turns: {', '.join(f'{r:.3e}' for r in pooled[True])} / {', '.join(f'{r:.3e}' for r in pooled[False])} ops/s")
     return out
 
@@ -2868,10 +3022,10 @@ def main() -> int:
                "knn_select": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:680"),
                "ivf_score": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:739"),
                "kmeans": ("redisson_tpu_torch/csrc/kmeans.cu", "redisson_tpu/core/kernels.py:861")}
-    per_kernel = {}  # the counts of kernels a call by kernel (kmeans_assign's under kmeans)
+    per_kernel = {}  # the counts of kernels a call by kernel (kmeans_assign's and kmeans_update's under kmeans)
     for key, v in per_call.items():
         wrapper = key.split()[0]
-        per_kernel.setdefault("kmeans" if wrapper == "kmeans_assign" else wrapper, {})[key] = v
+        per_kernel.setdefault("kmeans" if wrapper.startswith("kmeans_") else wrapper, {})[key] = v
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": main_launches[name],

@@ -43,6 +43,8 @@ SIGNATURES = {
     "bitset": {
         "rtpu_bitset_get": [_P, _L, _P, _I, _P, _P],
         "rtpu_bitset_set": [_P, _L, _P, _I, _I, _I, _P, _P],
+        "rtpu_bitset_get_groups": [_P, _I, _P, _P, _I, _P, _P],
+        "rtpu_bitset_set_groups": [_P, _I, _I, _P, _P, _I, _P, _P],
     },
     "wordcount": {
         "rtpu_wc_words": [_P, _L, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
@@ -131,6 +133,9 @@ def library(name: str) -> ctypes.CDLL:
             if name == "bloom":
                 lib.rtpu_error_string.argtypes = [ctypes.c_int]
                 lib.rtpu_error_string.restype = ctypes.c_char_p
+            if name == "kmeans":
+                lib.rtpu_kmeans_update_scratch.argtypes = [_L, _I]
+                lib.rtpu_kmeans_update_scratch.restype = ctypes.c_int64
             if name == "wordcount":
                 lib.rtpu_wc_sort_region_bytes.argtypes = [_L]
                 lib.rtpu_wc_sort_region_bytes.restype = ctypes.c_int64

@@ -6,8 +6,11 @@ kind); each group concatenates its key payloads into one packed tensor and
 launches ONE kernel, then scatters result slices back to the queued futures.
 Consecutive same-verb bloom groups over different filters fuse into one
 stacked-bank launch and an add-then-contains pair on one filter into one
-dispatch (core/coalesce.py).  Redisson amortizes network round trips at
-this boundary; the port amortizes kernel launches and copies.
+dispatch (core/coalesce.py).  A run of consecutive bit-set groups is split
+into levels (bitset_levels: groups on distinct records), and each level
+is one upload and one launch a verb (kernels.bitset_groups).  Redisson
+amortizes network round trips at this boundary; the port amortizes kernel
+launches and copies.
 
 Execution modes (Redisson's BatchOptions): IN_MEMORY (default: ops are
 grouped and flushed on execute), skip_result (no result transfer) and
@@ -169,11 +172,23 @@ class Batch:
             # add-then-contains hot pair on one filter (one fused program) —
             # run boundaries never cross a verb change, so the ordering
             # contract is untouched; ineligible runs fall back per group.
+            # A run of bit-set groups runs level by level: a group runs
+            # after every earlier group on its record.
             items = list(groups.items())
             i = 0
             while i < len(items):
                 group, ops = items[i]
                 verb = group[1]
+                if verb in _BITSET_VERBS:
+                    # a run of bit-set groups: one upload and a launch a
+                    # verb for each level of groups on distinct records
+                    j = i + 1
+                    while j < len(items) and items[j][0][1] in _BITSET_VERBS:
+                        j += 1
+                    if j - i >= 2:
+                        _bitset_run(self._engine, items[i:j], pending, run_one)
+                        i = j
+                        continue
                 if verb in ("bloom.add", "bloom.contains"):
                     j = i + 1
                     while j < len(items) and items[j][0][1] == verb:
@@ -300,6 +315,106 @@ def _try_fused_run(engine, verb: str, run, pending=None) -> bool:
                 if not op.future.done():
                     op.future._fail(e)
     return True
+
+
+_BITSET_VERBS = ("bitset.set", "bitset.get")
+
+
+def bitset_levels(names: List[str]) -> List[List[int]]:
+    """Levels of a run of bit-set groups naming records `names`: group i's
+    level is the number of earlier groups of the run that name its record.
+    A level's groups name distinct records, so they commute; levels run in
+    order, so each group still sees every earlier group on its record."""
+    seen: Dict[str, int] = {}
+    levels: List[List[int]] = []
+    for i, name in enumerate(names):
+        level = seen.get(name, 0)
+        seen[name] = level + 1
+        if level == len(levels):
+            levels.append([])
+        levels[level].append(i)
+    return levels
+
+
+def _bitset_run(engine, run, pending, run_one) -> None:
+    """A run of >= 2 consecutive bit-set groups, level by level
+    (bitset_levels), each level's live groups in one kernels.bitset_groups
+    call: one upload, one bitset_get launch for its gets and one bitset_set
+    launch for its sets.  Each group is range-checked on the host first (a
+    failing group's futures alone fail); a set group creates or grows its
+    record, a get of a missing record replies zeros and creates nothing, an
+    empty group touches nothing: as per-group dispatch does.  Every record
+    of the run stays locked for the whole run.  A group on a record of
+    another kind goes through run_one."""
+    from redisson_tpu_torch.client.objects.bitset import BitSet
+
+    idx = []
+    for group, ops in run:
+        try:
+            arr = _concat_field(ops, 0, np.int64)
+            BitSet(engine, group[0])._check_range(arr)
+            idx.append(np.ascontiguousarray(arr, np.int32))
+        except Exception as e:  # noqa: BLE001 - lands on the group's futures
+            for op in ops:
+                op.future._fail(e)
+            idx.append(None)
+    with engine.locked_many({group[0] for group, _ops in run}):
+        for level in bitset_levels([group[0] for group, _ops in run]):
+            _bitset_level(engine, [(run[g], idx[g]) for g in level if idx[g] is not None], pending, run_one)
+
+
+def _bitset_level(engine, items, pending, run_one) -> None:
+    from redisson_tpu_torch.client.objects.bitset import BitSet
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+
+    members, planes, idx, values, touched = [], [], [], [], []
+    for (group, ops), arr in items:
+        name, is_set = group[0], group[1] == "bitset.set"
+        try:
+            if arr.size == 0:
+                for op in ops:
+                    op.future._complete(np.zeros(op.n, np.uint8))
+                continue
+            bs = BitSet(engine, name)
+            rec = bs._rec_or_create(int(arr.max()) + 1) if is_set else engine.store.get(name)
+        except Exception as e:  # noqa: BLE001
+            for op in ops:
+                op.future._fail(e)
+            continue
+        if rec is None:  # a get of a missing record
+            for op in ops:
+                op.future._complete(np.zeros(op.n, np.uint8))
+            continue
+        if rec.kind != "bitset":
+            run_one(group, ops)
+            continue
+        members.append(ops)
+        planes.append(rec.arrays["bits"])
+        idx.append(arr)
+        values.append((1 if group[2] else 0) if is_set else None)
+        if is_set:
+            touched.append((bs, rec))
+    if not members:
+        return
+    try:
+        out, firsts = K.bitset_groups(planes, idx, values, pool=engine.staging_pool())
+        for bs, rec in touched:
+            bs._touch_version(rec)
+        if pending is not None:
+            rb = ioplane.ReadbackFuture((out,))
+            pending.append(rb)
+            for ops, first in zip(members, firsts):
+                _assign_lazy_slices(ops, rb, first)
+        else:
+            host = _host(out)
+            for ops, first in zip(members, firsts):
+                _scatter(ops, host[first:])
+    except Exception as e:  # noqa: BLE001 - a failed launch fails the level's futures
+        for ops in members:
+            for op in ops:
+                if not op.future.done():
+                    op.future._fail(e)
 
 
 def _try_fused_pair(engine, add_item, probe_item, pending=None) -> bool:

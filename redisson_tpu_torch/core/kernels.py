@@ -21,9 +21,12 @@ Fourteen kernels carry every program here:
   hll_rows     row gather-max of two banks, optional out-of-place write,
                optional float32 estimate per row; 16-byte loads where the
                banks allow them, else 4-byte ones
-  bitset_get   GETBIT batch: gather one uint8 lane per op
+  bitset_get   GETBIT batch: gather one uint8 lane per op, from one plane
+               or, in the table form (bitset_groups), from the planes of
+               a level of RBatch groups in one launch
   bitset_set   SETBIT batch: every old bit read before any store of the
-               value, in one launch (one block, or a cooperative grid)
+               value, in one launch (one block a group, or a cooperative
+               grid), from one plane or in the table form
   wc_words     word count: each word's two 32-bit polynomial hashes and
                start from its end position, the ends found on the card
                (wc_extract_words_auto) or given as deltas (wc_extract_words)
@@ -43,8 +46,9 @@ Fourteen kernels carry every program here:
   kmeans       IVF training: one Lloyd iteration as two wrappers,
                kmeans_assign (3xTF32 on the tensor cores up to W 256,
                float32 tiles wider: kmeans_assign_route) and
-               kmeans_update (the weighted means of rows bucketed in row
-               order, no float atomics)
+               kmeans_update (two launches: the rows bucketed by cell in
+               row order, then each cell's mean in that order; no float
+               atomics)
 
 The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
 reduce or map a plane elementwise and stay torch ops, as do the row-bank
@@ -788,6 +792,146 @@ def bitset_set(bits, idx, n_valid, value):
     return bits, old
 
 
+# csrc/bitset.cu's table form: a group is 32 bytes (the plane's address and
+# size, its first op, op count, live ops and value)
+BITSET_GROUP_WORDS = 8
+
+
+def bitset_groups_plain(planes, idx, counts, values):
+    """bitset_groups' plain version: group g, ops idx[first_g : first_g +
+    counts[g]] of the int32 `idx` (groups in order), reads planes[g]
+    (values[g] None) or sets values[g] there; (uint8 replies in group
+    order, first op of each group)."""
+    out = torch.empty(idx.shape, dtype=torch.uint8, device=idx.device)
+    firsts, off = [], 0
+    for plane, n, value in zip(planes, counts, values):
+        ops = idx[off : off + n]
+        out[off : off + n] = (bitset_get_plain(plane, ops) if value is None
+                              else bitset_set_plain(plane, ops, n, value)[1])
+        firsts.append(off)
+        off += n
+    return out, firsts
+
+
+def bitset_pack(buf, spans, idx, values):
+    """Fill `buf` (int32, BITSET_GROUP_WORDS a group + 2 a op) with
+    csrc/bitset.cu's table form of the groups: the gets' groups first, then
+    the sets', each launch's groups and ops one contiguous run.  buf holds
+    the table (a row of int64 a group: plane address, plane size, first op
+    within its launch | op count << 32, live ops | value << 32), the int32
+    indexes, then each op's group within its launch.  spans[g] is group g's
+    (plane address, size).  Returns (firsts: group g's first op in the
+    replies, get groups, get ops, the largest set group's ops)."""
+    counts = [int(a.shape[0]) for a in idx]
+    total = sum(counts)
+    n_groups = len(spans)
+    table = buf[: BITSET_GROUP_WORDS * n_groups].view(np.int64).reshape(n_groups, 4)
+    ops, gids = buf[BITSET_GROUP_WORDS * n_groups:][:total], buf[BITSET_GROUP_WORDS * n_groups:][total:]
+    order = [g for g, v in enumerate(values) if v is None] + [g for g, v in enumerate(values) if v is not None]
+    n_get_groups = len(order) - sum(v is not None for v in values)
+    firsts = [0] * n_groups
+    at = n_get = max_set = 0
+    for row, g in enumerate(order):
+        n, value = counts[g], values[g]
+        if value is None:
+            first, gid, code = at, row, 0
+        else:
+            first, gid, code = at - n_get, row - n_get_groups, int(bool(value))
+            max_set = max(max_set, n)
+        table[row] = (spans[g][0], spans[g][1], first | (n << 32), n | (code << 32))
+        ops[at : at + n] = idx[g]
+        gids[at : at + n] = gid
+        firsts[g] = at
+        at += n
+        if value is None:
+            n_get = at
+    return firsts, n_get_groups, n_get, max_set
+
+
+def _bitset_table_shape(planes, idx, values) -> None:
+    if not planes or len(idx) != len(planes) or len(values) != len(planes):
+        raise ValueError("bitset_groups takes at least one group, one plane and value each")
+
+
+class BitsetLevel(NamedTuple):
+    """A table of bit-set groups on the card (bitset_stage): the upload,
+    each group's first reply, the get groups and ops, the largest set
+    group's ops and the ops in all."""
+    staged: torch.Tensor
+    firsts: list
+    n_get_groups: int
+    n_get: int
+    max_set: int
+    total: int
+
+
+def bitset_stage(planes, idx, values, pool=None) -> BitsetLevel:
+    """bitset_groups' one upload: the checked groups packed by bitset_pack
+    and copied to the planes' card (through `pool`'s pinned slots when
+    given)."""
+    _bitset_table_shape(planes, idx, values)
+    device = planes[0].device
+    for p in planes:
+        if p.device != device or p.dtype != torch.uint8 or p.dim() != 1 or not p.is_contiguous():
+            raise ValueError("bit planes are 1-D contiguous uint8 on one card")
+    spans = sorted((p.data_ptr(), p.numel()) for p in planes)
+    if any(a + n > b for (a, n), (b, _) in zip(spans, spans[1:])):
+        raise ValueError("bitset_groups' planes must not overlap")
+    total = sum(int(a.shape[0]) for a in idx)
+    if total >= 2**31:
+        raise ValueError("bitset_groups takes fewer than 2**31 ops a call")
+    words = BITSET_GROUP_WORDS * len(planes) + 2 * total
+    if pool is None:
+        buf, slot = np.zeros(words, np.int32), None
+    else:
+        buf, slot = pool.acquire((words,), np.int32)
+    try:
+        layout = bitset_pack(buf, [(p.data_ptr(), p.numel()) for p in planes], idx, values)
+        staged = stage(buf, device, non_blocking=pool is not None)
+    except BaseException:
+        if pool is not None:
+            pool.release(slot)
+        raise
+    if pool is not None:
+        pool.commit(slot, ioplane.record_event(device))
+    return BitsetLevel(staged, *layout, total)
+
+
+def bitset_launch(planes, level: BitsetLevel) -> torch.Tensor:
+    """The launches of a staged table on its planes: one bitset_get for its
+    get groups, one bitset_set for its set groups; the uint8 replies."""
+    out = torch.empty(level.total, dtype=torch.uint8, device=planes[0].device)
+    lib = _build.library("bitset")
+    n_groups = len(level.firsts)
+    base = level.staged.data_ptr()
+    ops = base + 4 * BITSET_GROUP_WORDS * n_groups
+    gids = ops + 4 * level.total
+    if level.n_get_groups:
+        _launch("bitset_get", lib.rtpu_bitset_get_groups, planes[0], base, level.n_get_groups, ops, gids,
+                level.n_get, out.data_ptr())
+    if level.n_get_groups < n_groups:
+        sets = base + 4 * BITSET_GROUP_WORDS * level.n_get_groups
+        _launch("bitset_set", lib.rtpu_bitset_set_groups, planes[0], sets, n_groups - level.n_get_groups,
+                level.max_set, ops + 4 * level.n_get, gids + 4 * level.n_get, level.total - level.n_get,
+                out.data_ptr() + level.n_get)
+    return out
+
+
+def bitset_groups(planes, idx, values, pool=None):
+    """GETBIT and SETBIT groups on distinct planes in one upload and at most
+    one bitset_get and one bitset_set launch: group g reads planes[g] at its
+    host int32 indexes idx[g] (values[g] None) or sets values[g] (0 or 1)
+    there, every old bit of a group read before any of its writes.  Returns
+    (uint8 replies, firsts): group g's at [firsts[g], firsts[g] + len(idx[g])).
+    On CPU planes, bitset_groups_plain (replies in group order)."""
+    _bitset_table_shape(planes, idx, values)
+    if _route(planes[0]) == "plain":
+        counts = [int(a.shape[0]) for a in idx]
+        return bitset_groups_plain(planes, torch.from_numpy(np.concatenate(idx).astype(np.int32)), counts, values)
+    level = bitset_stage(planes, idx, values, pool)
+    return bitset_launch(planes, level), level.firsts
+
+
 bitset_popcount = bt.popcount
 bitset_and = bt.bit_and
 bitset_or = bt.bit_or
@@ -1436,9 +1580,9 @@ def kmeans_assign(points, weights, centroids):
 def kmeans_update(points, weights, centroids, assign):
     """Each centroid (L, W) the weighted mean of the points (N, W) that
     assign (N,) int32 gives it (-1: none), an empty cell keeping its
-    centroid.  On the card the rows are bucketed by a stable counting sort
-    and each bucket summed in row order with no float atomics, so two runs
-    give the same bits."""
+    centroid.  On the card two launches: the rows bucketed by cell in row
+    order a tile at a time, then one block a cell adds its bucket in that
+    order, with no float atomics, so two runs give the same bits."""
     _kmeans_operands(points, weights, centroids)
     if assign.shape != (points.shape[0],) or assign.dtype != torch.int32 or assign.device != points.device:
         raise ValueError("assign: (N,) int32 on the points' device")
@@ -1448,10 +1592,10 @@ def kmeans_update(points, weights, centroids, assign):
     if w > 1024 or n >= 2**31 - 1:
         raise ValueError(f"the kmeans kernel takes W <= 1024 and N < 2**31 - 1, got {(n, w)}")
     points, weights, centroids = points.contiguous(), weights.contiguous(), centroids.contiguous()
-    m = l * -(-n // 256)  # csrc/kmeans.cu: counts of each (centroid, chunk of 256 rows)
-    scratch = torch.empty(m + 1 + n + -(-m // 2048) + 1, dtype=torch.int32, device=points.device)
+    lib = _build.library("kmeans")
+    scratch = torch.empty(lib.rtpu_kmeans_update_scratch(n, l), dtype=torch.int32, device=points.device)
     new_c = torch.empty_like(centroids)
-    _launch("kmeans", _build.library("kmeans").rtpu_kmeans_update, points,
+    _launch("kmeans", lib.rtpu_kmeans_update, points,
             points.data_ptr(), weights.data_ptr(), centroids.data_ptr(), assign.contiguous().data_ptr(), n, w, l,
             scratch.data_ptr(), new_c.data_ptr())
     return new_c

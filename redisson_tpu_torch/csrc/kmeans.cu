@@ -46,22 +46,27 @@
 //   rounding a term (no FMA contraction), and an empty cell keeps its
 //   centroid.  No float atomics: they add in an order that changes from run
 //   to run, and the centroids are host state that every later IVF reply
-//   depends on, so two trainings must give the same bits.  The rows are
-//   first bucketed by assignment with a stable counting sort (row order
-//   kept within a bucket), so that each centroid's block reads only its own
-//   rows:
-//     kmeans_count   counts[c][b], the rows of chunk b (256 rows) assigned
-//                    to c (integer adds, the same total in any order);
-//     kmeans_tile_sum, kmeans_scan, kmeans_tile_apply
-//                    one exclusive prefix over counts read centroid-major,
-//                    which makes counts[c][b] the place in the bucketed
-//                    order of chunk b's first row of bucket c;
-//     kmeans_scatter each row's place: its chunk's offset plus the rows of
-//                    its chunk and bucket before it;
-//     kmeans_sum     one block a centroid adds its bucket in row order.
+//   depends on, so two trainings must give the same bits.  Two launches
+//   and no memset:
+//     kmeans_bucket_kernel  one block a tile of R >= 512 rows (at most 128
+//                    tiles): the tile's cells counted in shared memory,
+//                    their prefix written as the tile's run places (L + 1
+//                    int32), and one warp walks the tile's rows in order,
+//                    ranking equal cells by __match_any_sync, so each run
+//                    keeps row order;
+//     kmeans_mean_kernel  one block a cell: its runs' places from every
+//                    tile, a block prefix laying them end to end (tile
+//                    order is row order), the bucket's row ids and weights
+//                    staged 1,024 at a time in shared memory, then each
+//                    thread adds its dimensions over them in order with
+//                    eight rows' loads in flight.
+//   No global prefix and no memset: each launch would cost about the
+//   timing's floor (a counting sort in seven launches took 0.0579 ms, 0.0253
+//   of it bucketing).  At 50,000 x 128 x 1,536 the two take 0.0267 ms
+//   against a bound of 0.0082 (the bytes of points, weights, cells and
+//   centroids once) on an H100 80GB HBM3 at 700 W (tools/kernel_ab.py).
 //   Dead rows (assigned -1) add nothing: the reference adds them with
 //   weight 0, and the bank's dead rows are zeros, so the sums are the same.
-//   Bound: the points' bytes, read once.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -381,150 +386,191 @@ cudaError_t mma_launch(const float* pts, const float* w, const float* cent, int6
   return cudaGetLastError();
 }
 
+// -- kmeans_update ------------------------------------------------------------
 
-// counts[c * chunks + b] += 1 for each row of chunk b assigned to c
-__global__ void __launch_bounds__(kThreads)
-kmeans_count_kernel(const int32_t* __restrict__ assign, int64_t N, int64_t chunks, int32_t* __restrict__ counts) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= N) return;
-  const int a = assign[i];
-  if (a >= 0) atomicAdd(&counts[a * chunks + blockIdx.x], 1);
+constexpr int kTileRows = 512;    // a tile's rows, at least
+constexpr int kMaxTiles = 128;    // tiles a call, at most (one a thread of the mean kernel)
+constexpr int kHistCells = 8192;  // cells counted a pass of the bucket kernel
+constexpr int kWindow = 1024;     // rows a mean block stages at once
+
+// The tiling of N rows: R rows a tile (a multiple of 32), B = ceil(N / R)
+// <= kMaxTiles tiles.
+__host__ __device__ __forceinline__ int64_t tile_rows(int64_t N) {
+  const int64_t need = (N + kMaxTiles - 1) / kMaxTiles;
+  const int64_t r = (need + 31) / 32 * 32;
+  return r > kTileRows ? r : kTileRows;
 }
 
-constexpr int kScanThreads = 1024;
-
-// v[0, M) becomes its exclusive prefix sum and v[M] the total, in one
-// block (for the tiles' sums, a few thousand at most): each thread sums a
-// run of M / 1024 entries, a scan over the threads' sums, then each thread
-// rewrites its run.
-__global__ void __launch_bounds__(kScanThreads) kmeans_scan_kernel(int32_t* __restrict__ v, int64_t M) {
-  __shared__ int32_t part[kScanThreads];
-  const int64_t per = (M + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = min(M, threadIdx.x * per), hi = min(M, lo + per);
-  int32_t own = 0;
-  for (int64_t j = lo; j < hi; ++j) own += v[j];
-  part[threadIdx.x] = own;
-  __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const int32_t add = static_cast<int>(threadIdx.x) >= off ? part[threadIdx.x - off] : 0;
-    __syncthreads();
-    part[threadIdx.x] += add;
-    __syncthreads();
-  }
-  int32_t run = part[threadIdx.x] - own;
-  for (int64_t j = lo; j < hi; ++j) {
-    const int32_t c = v[j];
-    v[j] = run;
-    run += c;
-  }
-  if (threadIdx.x == kScanThreads - 1) v[M] = part[kScanThreads - 1];
-}
-
-// The prefix over counts (L * chunks entries) in three steps: each tile of
-// 2,048 entries sums itself, kmeans_scan scans the tiles' sums, and each
-// tile rewrites its entries from its offset.
-constexpr int kScanPer = 8;
-constexpr int kScanTile = kThreads * kScanPer;
-
-// the exclusive prefix of x over the block's threads, and their total
+// The exclusive prefix of x over the block's threads (blockDim.x a multiple
+// of 32, at most 1,024), and their total.  Starts with a barrier, so calls
+// may follow each other.
 __device__ __forceinline__ int32_t block_exclusive_scan(int32_t x, int32_t* total) {
-  __shared__ int32_t warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ int32_t warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   int32_t inc = x;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const int32_t y = __shfl_up_sync(kFull, inc, off);
     if (lane >= off) inc += y;
   }
+  __syncthreads();
   if (lane == 31) warp_sums[warp] = inc;
   __syncthreads();
   int32_t before = 0, all = 0;
-#pragma unroll
-  for (int v = 0; v < kThreads / 32; ++v) {
-    if (v < warp) before += warp_sums[v];
-    all += warp_sums[v];
+  for (int v = 0; v < warps; ++v) {
+    const int32_t s = warp_sums[v];
+    if (v < warp) before += s;
+    all += s;
   }
   *total = all;
   return before + inc - x;
 }
 
+// One block a tile of R rows: the tile's live rows (0 <= assign < L)
+// bucketed by cell in row order into order[b * R, b * R + live), and
+// lst[b][c] (L + 1 a tile) the place in it of cell c's first row
+// (lst[b][L] = live).  Cells are counted kHistCells a pass in shared memory
+// (integer adds: the same counts in any order); one warp then walks the
+// tile's rows in order, 32 at a time, giving equal cells ranks by
+// __match_any_sync, so a bucket keeps row order.
 __global__ void __launch_bounds__(kThreads)
-kmeans_tile_sum_kernel(const int32_t* __restrict__ v, int64_t M, int32_t* __restrict__ tiles) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + threadIdx.x;
-  int32_t s = 0;
-#pragma unroll
-  for (int r = 0; r < kScanPer; ++r) {
-    const int64_t j = base + kThreads * r;
-    if (j < M) s += v[j];
-  }
-  int32_t total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) tiles[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-kmeans_tile_apply_kernel(int32_t* __restrict__ v, int64_t M, const int32_t* __restrict__ tiles) {
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile + static_cast<int64_t>(threadIdx.x) * kScanPer;
-  int32_t x[kScanPer];
-  int32_t s = 0;
-#pragma unroll
-  for (int r = 0; r < kScanPer; ++r) {
-    x[r] = base + r < M ? v[base + r] : 0;
-    s += x[r];
-  }
-  int32_t total;
-  int32_t run = tiles[blockIdx.x] + block_exclusive_scan(s, &total);
-#pragma unroll
-  for (int r = 0; r < kScanPer; ++r) {
-    if (base + r < M) v[base + r] = run;
-    run += x[r];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) v[M] = tiles[gridDim.x];
-}
-
-// order[offs[a][b] + (rows of chunk b before i assigned to a)] = i
-__global__ void __launch_bounds__(kThreads)
-kmeans_scatter_kernel(const int32_t* __restrict__ assign, int64_t N, int64_t chunks,
-                      const int32_t* __restrict__ offs, int32_t* __restrict__ order) {
-  __shared__ int32_t chunk[kThreads];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int a = i < N ? assign[i] : -1;
-  chunk[threadIdx.x] = a;
-  __syncthreads();
-  if (a < 0) return;
-  int rank = 0;
-  for (int j = 0; j < static_cast<int>(threadIdx.x); ++j) rank += chunk[j] == a;
-  order[offs[a * chunks + blockIdx.x] + rank] = static_cast<int32_t>(i);
-}
-
-__global__ void __launch_bounds__(kThreads)
-kmeans_sum_kernel(const float* __restrict__ pts, const float* __restrict__ w,
-                  const float* __restrict__ cent, const int32_t* __restrict__ offs, int64_t chunks,
-                  const int32_t* __restrict__ order, int W, float* __restrict__ out) {
-  const int c = blockIdx.x;
-  // bucket c is order[offs[c][0], offs[c + 1][0]); offs[L][0] is the total
-  const int32_t lo = offs[c * chunks], hi = offs[(c + 1) * chunks];
-  float acc[kMaxDimSlots];
-#pragma unroll
-  for (int r = 0; r < kMaxDimSlots; ++r) acc[r] = 0.0f;
-  float count = 0.0f;  // every thread keeps the same count, in the same order
-  for (int32_t t = lo; t < hi; ++t) {
-    const int64_t row = order[t];
-    const float wr = w[row];
-#pragma unroll
-    for (int r = 0; r < kMaxDimSlots; ++r) {
-      const int d = threadIdx.x + kThreads * r;
-      if (d < W) acc[r] = __fadd_rn(acc[r], __fmul_rn(pts[row * W + d], wr));
+kmeans_bucket_kernel(const int32_t* __restrict__ assign, int64_t N, int L, int64_t R, int32_t* __restrict__ lst,
+                     int32_t* __restrict__ order) {
+  __shared__ int32_t hist[kHistCells];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int rows = static_cast<int>(min(R, N - row0));
+  const int32_t* a_t = assign + row0;
+  int32_t* lst_t = lst + static_cast<int64_t>(blockIdx.x) * (L + 1);
+  int32_t* ord_t = order + row0;
+  int32_t base = 0;  // the tile's live rows in cells before this pass
+  for (int c0 = 0; c0 < L; c0 += kHistCells) {
+    const int cells = min(kHistCells, L - c0);
+    for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows; i += kThreads) {
+      const int a = a_t[i] - c0;
+      if (a >= 0 && a < cells) atomicAdd(&hist[a], 1);
     }
-    count = __fadd_rn(count, wr);
+    __syncthreads();
+    for (int i0 = 0; i0 < cells; i0 += kThreads) {  // exclusive prefix, kThreads cells at a time
+      const int i = i0 + threadIdx.x;
+      const int32_t x = i < cells ? hist[i] : 0;
+      int32_t total;
+      const int32_t at = base + block_exclusive_scan(x, &total);
+      if (i < cells) {
+        hist[i] = at;
+        lst_t[c0 + i] = at;
+      }
+      base += total;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const unsigned lower = (1u << threadIdx.x) - 1u;
+      for (int i0 = 0; i0 < rows; i0 += 32) {
+        const int i = i0 + threadIdx.x;
+        int a = i < rows ? a_t[i] - c0 : -1;
+        if (a >= cells) a = -1;
+        const unsigned same = __match_any_sync(kFull, a);
+        const int at = a >= 0 ? hist[a] : 0;
+        __syncwarp();
+        if (a >= 0) {
+          ord_t[at + __popc(same & lower)] = static_cast<int32_t>(row0 + i);
+          if (threadIdx.x == 31 - __clz(same)) hist[a] = at + __popc(same);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) lst_t[L] = base;
+}
+
+// One block a cell c: thread t < B reads tile t's run of c (lst), a block
+// prefix places the runs one after another (tile order, so row order), and
+// the block stages the bucket's row ids and weights kWindow at a time in
+// shared memory (each slot finds its tile by a binary search of the runs'
+// places) and adds them in that order: DIMS dimensions a thread, eight rows'
+// loads in flight before their adds, one rounding a term.
+template <int DIMS>
+__global__ void __launch_bounds__(kThreads)
+kmeans_mean_kernel(const float* __restrict__ pts, const float* __restrict__ w, const float* __restrict__ cent,
+                   const int32_t* __restrict__ lst, const int32_t* __restrict__ order, int B, int64_t R, int L, int W,
+                   float* __restrict__ out) {
+  __shared__ int32_t run_at[kMaxTiles + 1], run_lo[kMaxTiles];
+  __shared__ int32_t rows_s[kWindow];
+  __shared__ float w_s[kWindow];
+  const int c = blockIdx.x;
+  int32_t lo = 0, n = 0;
+  if (static_cast<int>(threadIdx.x) < B) {
+    const int32_t* l = lst + static_cast<int64_t>(threadIdx.x) * (L + 1) + c;
+    lo = l[0];
+    n = l[1] - lo;
+  }
+  int32_t total;
+  const int32_t at = block_exclusive_scan(n, &total);
+  if (static_cast<int>(threadIdx.x) < B) {
+    run_at[threadIdx.x] = at;
+    run_lo[threadIdx.x] = lo;
+  }
+  if (threadIdx.x == 0) run_at[B] = total;
+  float acc[DIMS];
+#pragma unroll
+  for (int r = 0; r < DIMS; ++r) acc[r] = 0.0f;
+  float count = 0.0f;  // every thread keeps the same count, in the same order
+  for (int32_t w0 = 0; w0 < total; w0 += kWindow) {
+    const int m = min(kWindow, total - w0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      const int32_t p = w0 + k;
+      int lo_t = 0, hi_t = B - 1;  // the last tile whose run starts at or before p
+      while (lo_t < hi_t) {
+        const int mid = (lo_t + hi_t + 1) >> 1;
+        if (run_at[mid] <= p) lo_t = mid;
+        else hi_t = mid - 1;
+      }
+      const int32_t row = order[lo_t * R + run_lo[lo_t] + (p - run_at[lo_t])];
+      rows_s[k] = row;
+      w_s[k] = w[row];
+    }
+    __syncthreads();
+    int k = 0;
+    for (; k + 8 <= m; k += 8) {
+      float v[8][DIMS];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float* p = pts + static_cast<int64_t>(rows_s[k + u]) * W;
+#pragma unroll
+        for (int r = 0; r < DIMS; ++r) {
+          const int d = threadIdx.x + blockDim.x * r;
+          v[u][r] = d < W ? p[d] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float wr = w_s[k + u];
+#pragma unroll
+        for (int r = 0; r < DIMS; ++r) acc[r] = __fadd_rn(acc[r], __fmul_rn(v[u][r], wr));
+        count = __fadd_rn(count, wr);
+      }
+    }
+    for (; k < m; ++k) {
+      const float* p = pts + static_cast<int64_t>(rows_s[k]) * W;
+      const float wr = w_s[k];
+#pragma unroll
+      for (int r = 0; r < DIMS; ++r) {
+        const int d = threadIdx.x + blockDim.x * r;
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(d < W ? p[d] : 0.0f, wr));
+      }
+      count = __fadd_rn(count, wr);
+    }
   }
   const float denom = count > 1.0f ? count : 1.0f;
 #pragma unroll
-  for (int r = 0; r < kMaxDimSlots; ++r) {
-    const int d = threadIdx.x + kThreads * r;
+  for (int r = 0; r < DIMS; ++r) {
+    const int d = threadIdx.x + blockDim.x * r;
     if (d < W) {
-      const int64_t at = static_cast<int64_t>(c) * W + d;
-      out[at] = count > 0.0f ? __fdiv_rn(acc[r], denom) : cent[at];
+      const int64_t o = static_cast<int64_t>(c) * W + d;
+      out[o] = count > 0.0f ? __fdiv_rn(acc[r], denom) : cent[o];
     }
   }
 }
@@ -555,32 +601,40 @@ extern "C" int rtpu_kmeans_assign(const void* pts, const void* w, const void* ce
   return static_cast<int>(cudaGetLastError());
 }
 
+// int32 of scratch rtpu_kmeans_update takes for N rows and L cells: B x
+// (L + 1) run places and N bucketed row ids.
+extern "C" int64_t rtpu_kmeans_update_scratch(int64_t N, int L) {
+  const int64_t R = tile_rows(N);
+  return (N + R - 1) / R * (static_cast<int64_t>(L) + 1) + N;
+}
+
 // new_cent (L, W) float32: the weighted means of the cells that assign
 // (N,) int32 gives, in row order (an empty cell keeps its centroid of
-// cent).  scratch holds M + 1 + N + ceil(M / 2048) + 1 int32, M = L *
-// ceil(N / 256).  W <= 1024.
+// cent; an assignment outside [0, L) adds nothing).  scratch holds
+// rtpu_kmeans_update_scratch(N, L) int32.  Two launches: the bucket
+// kernel, then the mean kernel.  W <= 1024.
 extern "C" int rtpu_kmeans_update(const void* pts, const void* w, const void* cent, const void* assign,
                                   int64_t N, int W, int L, void* scratch, void* new_cent, void* stream) {
   if (N < 1 || N >= INT_MAX || W < 1 || W > kThreads * kMaxDimSlots || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto a = static_cast<const int32_t*>(assign);
-  const int64_t chunks = (N + kThreads - 1) / kThreads;
-  const int64_t M = static_cast<int64_t>(L) * chunks;
-  const auto offs = static_cast<int32_t*>(scratch);
-  int32_t* order = offs + M + 1;
-  const cudaError_t err = cudaMemsetAsync(offs, 0, M * sizeof(int32_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kmeans_count_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, s>>>(a, N, chunks, offs);
-  const int64_t n_tiles = (M + kScanTile - 1) / kScanTile;
-  int32_t* tiles = order + N;
-  kmeans_tile_sum_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(offs, M, tiles);
-  kmeans_scan_kernel<<<1, kScanThreads, 0, s>>>(tiles, n_tiles);
-  kmeans_tile_apply_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(offs, M, tiles);
-  kmeans_scatter_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, s>>>(a, N, chunks, offs, order);
-  kmeans_sum_kernel<<<static_cast<unsigned>(L), kThreads, 0, s>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(w), static_cast<const float*>(cent), offs, chunks,
-      order, W, static_cast<float*>(new_cent));
+  const int64_t R = tile_rows(N);
+  const int B = static_cast<int>((N + R - 1) / R);
+  const auto lst = static_cast<int32_t*>(scratch);
+  int32_t* order = lst + static_cast<int64_t>(B) * (L + 1);
+  kmeans_bucket_kernel<<<B, kThreads, 0, s>>>(static_cast<const int32_t*>(assign), N, L, R, lst, order);
+  const auto p = static_cast<const float*>(pts), wt = static_cast<const float*>(w);
+  const auto c = static_cast<const float*>(cent);
+  const auto o = static_cast<float*>(new_cent);
+  // a thread a dimension up to W 128 (blocks of 128), else blocks of 256
+  // with up to four dimensions a thread
+  const int threads = W <= 128 ? 128 : kThreads;
+  switch ((W + threads - 1) / threads) {
+    case 1: kmeans_mean_kernel<1><<<L, threads, 0, s>>>(p, wt, c, lst, order, B, R, L, W, o); break;
+    case 2: kmeans_mean_kernel<2><<<L, threads, 0, s>>>(p, wt, c, lst, order, B, R, L, W, o); break;
+    case 3: kmeans_mean_kernel<3><<<L, threads, 0, s>>>(p, wt, c, lst, order, B, R, L, W, o); break;
+    default: kmeans_mean_kernel<4><<<L, threads, 0, s>>>(p, wt, c, lst, order, B, R, L, W, o); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

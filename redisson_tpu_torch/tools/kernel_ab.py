@@ -14,12 +14,17 @@ wc_sort_runs, segment_reduce) and check_vector (knn_score, knn_select,
 ivf_score, kmeans at config 7's shapes and 1M x 128), each kernel checked
 against its plain version as chip_smoke.py checks it; then config 7's IVF batch at nprobe 2, 4 and 8
 through the public wrappers every tree has (the route's knn_select,
-ivf_score, the candidates' knn_select), on the same inputs in every tree;
-with --paths also run_config4 and run_config7 through that tree's
-create().  It prints every kernel's times by run (the k-means step's
-assign and update on lines of their own), the IVF batch's, then
-the paths' word-count walls and config 7's per-leg qps, and writes the
-JSON of the run to --out.
+ivf_score, the candidates' knn_select), on the same inputs in every tree
+(the digest of the trained centroids printed: equal digests, equal bits);
+fanout's bit-set levels (128 planes x 500 ops): 128 one-plane launches
+through the public wrappers every tree has, and the table form's launches
+(kernels.bitset_stage / bitset_launch) where the tree has them; with
+--paths also run_fanout (ops/s and launches a rep), run_config4 and
+run_config7 through that tree's create().  It prints every kernel's times
+by run (the k-means step's assign and update on lines of their own), the
+IVF batch's and the fanout levels', then the paths' fanout ops/s,
+word-count walls and config 7's per-leg qps, and writes the JSON of the
+run to --out.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, sys
+import hashlib, json, sys
 import numpy as np, torch
 import chip_smoke as CS
 from redisson_tpu_torch.core import _build
@@ -55,6 +60,7 @@ init = np.sort(np.random.default_rng(0x1DF5EED ^ n).choice(n, nlist, replace=Fal
 cent = pts[torch.from_numpy(init).to(dev)].clone()
 for _ in range(CS.KMEANS_ITERS):
     cent, assign = K.kmeans_step(pts, ones, cent)
+out["trained_centroids_sha256"] = hashlib.sha256(cent.cpu().numpy().tobytes()).hexdigest()
 cells = torch.from_numpy(CS.c7_cells(assign.cpu().numpy(), nlist)[0]).to(dev)
 q = torch.from_numpy(CS.c7_queries(np.random.default_rng(CS.C7_SEED + 1), vecs, CS.C7_QB)).to(dev)
 bias = torch.zeros(n, device=dev)
@@ -67,9 +73,34 @@ for nprobe in CS.C7_NPROBES:
         "route_select_ms": CS.time_kernel(lambda i: K.knn_select(route, nprobe)),
         "ivf_score_ms": CS.time_kernel(lambda i: K.ivf_score(pts, None, bias, None, cells, probe, q, n, "COSINE")),
         "cand_select_ms": CS.time_kernel(lambda i: K.knn_select(cd, CS.C7_K, cids))}
+# fanout's bit-set levels (128 planes of 1 MiB x 500 ops, all reads or all
+# sets): 128 one-plane launches, which every tree has, and the table form's
+# launches where the tree has it, on the same indexes
+from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
+from redisson_tpu_torch.ops import bittensor as bt
+rng = np.random.default_rng(55)
+groups = 2 * CS.C5_TENANTS
+planes = [(torch.rand(bt.padded_size(_DEFAULT_BITS), device=dev) < 0.3).to(torch.uint8) for _ in range(groups)]
+batches = [[rng.integers(0, CS.C5_BITS, CS.C5_BIT_OPS).astype(np.int32) for _ in range(groups)] for _ in range(20)]
+single = [[torch.from_numpy(a).to(dev) for a in b] for b in batches]
+out["fanout_level"] = {
+    "get_one_plane_launches_ms": CS.time_kernel(lambda i: [K.bitset_get(p, a) for p, a in zip(planes, single[i])]),
+    "set_one_plane_launches_ms": CS.time_kernel(
+        lambda i: [K.bitset_set(p, a, CS.C5_BIT_OPS, 1) for p, a in zip(planes, single[i])])}
+if hasattr(K, "bitset_stage"):
+    for verb, value in (("get", None), ("set", 1)):
+        levels = [K.bitset_stage(planes, b, [value] * groups) for b in batches]
+        out["fanout_level"][verb + "_table_ms"] = CS.time_kernel(lambda i: K.bitset_launch(planes, levels[i]))
+        del levels
+del planes, single
+torch.cuda.empty_cache()
 if PATHS:
     import redisson_tpu_torch
     client = redisson_tpu_torch.create()
+    fan = CS.run_fanout(client, np.random.default_rng(13))
+    out["fanout"] = {"ops_per_s": fan["ops_per_s"], "pool_on_ops_per_s": fan["pool_on_ops_per_s"],
+                     "pool_off_ops_per_s": fan["pool_off_ops_per_s"],
+                     "launches_a_rep": [r["launches"] for r in fan["reps"]]}
     out["config4"] = {k: v for k, v in CS.run_config4(client, values).items() if isinstance(v, (int, float, dict))}
     out["config7"] = CS.run_config7(client)
     client.shutdown()
@@ -114,7 +145,19 @@ def main() -> int:
         for key in runs[0]["ivf"][nprobe]:
             vals = [r["ivf"][nprobe][key] for r in runs]
             print(f"ivf nprobe {nprobe} {key}: " + "  ".join(f"{v:.4f}" for v in vals))
+    print("IVF training's centroids after KMEANS_ITERS Lloyd steps, sha256: "
+          + "  ".join(r["trained_centroids_sha256"][:16] for r in runs))
+    for key in runs[0]["fanout_level"]:
+        vals = [r["fanout_level"].get(key) for r in runs]
+        print(f"fanout level {key}: " + "  ".join("-" if v is None else f"{v:.4f}" for v in vals))
     if args.paths:
+        for r in runs:
+            fan = r["fanout"]
+            bits = [(x["bitset_get"], x["bitset_set"]) for x in fan["launches_a_rep"]]
+            print(f"{r['tree']}: fanout ops/s {', '.join(f'{v:.4e}' for v in fan['ops_per_s'])}; (bitset_get, "
+                  f"bitset_set) launches a rep {bits}; staging pool on / off "
+                  f"{', '.join(f'{v:.4e}' for v in fan['pool_on_ops_per_s'])} / "
+                  f"{', '.join(f'{v:.4e}' for v in fan['pool_off_ops_per_s'])}")
         for r in runs:
             c4, c7 = r["config4"], r["config7"]
             qps = ", ".join(f"{leg} {v['qps']:.1f}" for leg, v in c7["legs"].items())

@@ -20,13 +20,26 @@ the order shipped, variant, variant, shipped, with chip_smoke.py's timing
                no low parts (one TF32 product): timed, and its points that
                differ from the plain version outside chip_smoke.py's
                TIE_GAP counted
-  bitset_set, config 5's shape (500 ops into its 1 MiB plane) and 1M ops
-  into 2**28 lanes, 20 batches each on a plane 30% set:
-    grid_only  every batch by the cooperative grid kernel (the one-block
-               form off): checked against the plain version bit for bit
+  bitset_get and bitset_set, config 5's shape (500 ops into its 1 MiB
+  plane) and 1M ops into 2**28 lanes, 20 batches each on a plane 30% set,
+  and the table form at fanout's level (128 such planes x 500 ops, all
+  reads or all sets; staged beforehand, the launches alone):
+    grid_only  every set by the cooperative grid kernel (the one-block
+               form off), checked against the plain version bit for bit
+  kmeans_update, config 7's training shape on the assignment kmeans_assign
+  gives, the seven-step design of commit 44d9f96 (a memset, count, tile
+  sums, scan, tile apply, scatter, sum) cut after each step:
+    update_upto_<step>  returns right after <step>'s launch, so the
+               differences of consecutive cuts time each step (timed only)
+  and the two-launch update that replaced it:
+    update_bucket_only  returns after the bucket kernel (timed only)
 
-It prints one line per variant and shape and, with --out, writes them as
-JSON.  The card's name and power limit come first.
+A variant whose edit texts do not occur in the source (a design since
+replaced: the update steps apply to 44d9f96's csrc/kmeans.cu, so run the
+script in a checkout of that commit with this copy of it) is skipped and
+said so.  --only picks variants by name.  It prints one line per variant
+and shape and, with --out, writes them as JSON.  The card's name and power
+limit come first.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -45,38 +59,69 @@ from redisson_tpu_torch.core import _build
 
 # library -> variant -> [(text of the shipped source, its replacement)];
 # each text must occur exactly once
+_RETURN = "\n  return static_cast<int>(cudaGetLastError());"
+# the launches of 44d9f96's rtpu_kmeans_update, in order
+_UPDATE_STEPS = {
+    "memset": "if (err != cudaSuccess) return static_cast<int>(err);\n  kmeans_count_kernel",
+    "count": "kmeans_count_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, s>>>(a, N, chunks, offs);",
+    "tile_sum": "kmeans_tile_sum_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(offs, M, tiles);",
+    "scan": "kmeans_scan_kernel<<<1, kScanThreads, 0, s>>>(tiles, n_tiles);",
+    "tile_apply": "kmeans_tile_apply_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(offs, M, tiles);",
+    "scatter": "kmeans_scatter_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, s>>>(a, N, chunks, offs, order);",
+}
+_BUCKET_LAUNCH = ("kmeans_bucket_kernel<<<B, kThreads, 0, s>>>(static_cast<const int32_t*>(assign), N, L, R, lst, "
+                  "order);")
 VARIANTS = {
     "kmeans": {
         "three_hi": [("mma_tf32(acc[i][j], al[i], bh[j]);", "mma_tf32(acc[i][j], ah[i], bh[j]);"),
                      ("mma_tf32(acc[i][j], ah[i], bl[j]);", "mma_tf32(acc[i][j], ah[i], bh[j]);")],
         "one_hi": [("mma_tf32(acc[i][j], al[i], bh[j]);", ""), ("mma_tf32(acc[i][j], ah[i], bl[j]);", "")],
+        **{f"update_upto_{step}": [(text, (text.split("\n")[0] + _RETURN + "\n  kmeans_count_kernel")
+                                    if step == "memset" else text + _RETURN)]
+           for step, text in _UPDATE_STEPS.items()},
+        # the two-launch update cut after its bucket kernel
+        "update_bucket_only": [(_BUCKET_LAUNCH, _BUCKET_LAUNCH + _RETURN)],
     },
-    "bitset": {"grid_only": [("if (n <= kBlockOps) {", "if (false) {")]},
+    "bitset": {"grid_only": [("if (max_count <= kBlockOps) {", "if (false) {")]},
 }
 
 
-def build_variant(lib: str, name: str) -> ctypes.CDLL:
-    """csrc/<lib>.cu with VARIANTS[lib][name]'s edits, built and loaded
-    with the shipped library's entry points."""
+def applies(lib: str, name: str) -> bool:
+    """Whether every edit text of the variant occurs once in csrc/<lib>.cu."""
     src = (_build.CSRC / f"{lib}.cu").read_text()
-    for old, new in VARIANTS[lib][name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {lib}/{name}: {old!r} occurs {src.count(old)} times in {lib}.cu")
-        src = src.replace(old, new)
+    return all(src.count(old) == 1 for old, _new in VARIANTS[lib][name])
+
+
+def build_variants(todo) -> dict:
+    """csrc/<lib>.cu with VARIANTS[lib][name]'s edits for each (lib, name)
+    of `todo`, all nvcc processes at once; each loaded with the shipped
+    library's entry points.  Returns {(lib, name): handle}."""
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{lib}_{name}.cu", out / f"lib{lib}_{name}.so"
-    cu.write_text(src)
-    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)],
-                         capture_output=True, text=True)
-    (out / f"{lib}_{name}.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {lib}/{name}:\n{res.stdout}{res.stderr}")
-    handle = ctypes.CDLL(str(so))
-    for fn, argtypes in _build.SIGNATURES[lib].items():
-        getattr(handle, fn).argtypes = argtypes
-        getattr(handle, fn).restype = ctypes.c_int
-    return handle
+    procs = []
+    for lib, name in todo:
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        for old, new in VARIANTS[lib][name]:
+            if src.count(old) != 1:
+                raise RuntimeError(f"variant {lib}/{name}: {old!r} occurs {src.count(old)} times in {lib}.cu")
+            src = src.replace(old, new)
+        cu, so = out / f"{lib}_{name}.cu", out / f"lib{lib}_{name}.so"
+        cu.write_text(src)
+        log = open(out / f"{lib}_{name}.log", "w")
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+        procs.append((lib, name, so, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    handles = {}
+    for lib, name, so, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {lib}/{name}:\n{(out / f'{lib}_{name}.log').read_text()}")
+        handle = ctypes.CDLL(str(so))
+        for fn, argtypes in _build.SIGNATURES[lib].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        handles[lib, name] = handle
+    return handles
 
 
 def registers(log_path, kernel: str) -> str:
@@ -118,6 +163,7 @@ def in_turns(lib: str, variant: ctypes.CDLL, timed) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--only", help="comma-separated variant names (default: every variant)")
     args = ap.parse_args()
     sys.path.insert(0, str(_build._PKG.parent))
     import chip_smoke as CS
@@ -129,9 +175,23 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
+    only = None if args.only is None else set(args.only.split(","))
+    todo = []
+    for lib, variants in VARIANTS.items():
+        for name in variants:
+            if only is not None and name not in only:
+                continue
+            if applies(lib, name):
+                todo.append((lib, name))
+            else:
+                print(f"{lib} {name}: skipped, its edits do not occur in csrc/{lib}.cu", flush=True)
+    s = time.perf_counter()
+    handles = build_variants(todo)
+    print(f"built {len(todo)} variants in {time.perf_counter() - s:.1f}s", flush=True)
     results = []
 
-    # kmeans_assign at config 7's training shape, as chip_smoke.py builds it
+    # kmeans_assign and kmeans_update at config 7's training shape, as
+    # chip_smoke.py builds it
     n, w, nlist = CS.C7_POINTS[1][0], CS.C7_POINTS[1][1], CS.C7_NLIST
     rng = np.random.default_rng(4321)
     pts = torch.from_numpy(CS.c7_clustered(np.random.default_rng(CS.C7_SEED), n, w)).to(dev)
@@ -142,13 +202,21 @@ def main() -> int:
                                                                  replace=False))
     cent = pts[torch.from_numpy(init).to(dev)].clone()
     plain = K.kmeans_assign_plain(pts, weights, cent)
+    a0 = K.kmeans_assign(pts, weights, cent)
     d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
     two = torch.topk(d, 2, dim=1, largest=False).values
     clear = (two[:, 1] - two[:, 0]) > CS.TIE_GAP * two[:, 0].abs().clamp(min=1.0)
     del d, two
     shipped_regs = registers(_build.BUILD_DIR / "kmeans.log", "kmeans_mma_kernel")
-    for name in VARIANTS["kmeans"]:
-        variant = build_variant("kmeans", name)
+    for lib, name in todo:
+        if lib != "kmeans":
+            continue
+        variant = handles[lib, name]
+        if name.startswith("update_"):
+            times = in_turns("kmeans", variant, lambda: CS.time_kernel(
+                lambda i: K.kmeans_update(pts, weights, cent, a0), reps=50))
+            results.append({"kernel": "kmeans_update", "variant": name, "shape": f"{n} x {w} x {nlist}", **times})
+            continue
         times = in_turns("kmeans", variant, lambda: CS.time_kernel(lambda i: K.kmeans_assign(pts, weights, cent),
                                                                    reps=50))
         r = {"kernel": "kmeans_assign", "variant": name, "shape": f"{n} x {w} x {nlist}", **times,
@@ -160,38 +228,65 @@ def main() -> int:
             r["differ_near_ties"] = int((got[~clear] != plain[~clear]).sum())
             r["points_outside_gap"], r["near_tied_points"] = int(clear.sum()), int((~clear).sum())
         results.append(r)
-    del pts, weights, cent, plain, clear
+    del pts, weights, cent, plain, clear, a0
     torch.cuda.empty_cache()
 
-    # bitset_set at config 5's shape and on 1M ops into 2**28 lanes
+    # bitset_get and bitset_set at config 5's shape and on 1M ops into 2**28
+    # lanes (one plane: 20 batches each on a plane 30% set), and the table
+    # form at fanout's level (128 planes x 500 ops, all reads or all sets)
     rng = np.random.default_rng(99)
-    variant = build_variant("bitset", "grid_only")
-    for label, (size, hi, n_ops) in {"config 5": (bt.padded_size(_DEFAULT_BITS), CS.C5_BITS, CS.C5_BIT_OPS),
-                                     "2**28 lanes": (1 << CS.BITMAP_LOG2, 1 << CS.BITMAP_LOG2,
-                                                     CS.BITMAP_OPS)}.items():
-        base = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
-        batches = [CS.index_batch(rng, n_ops, hi, dev) for _ in range(20)]
+    shapes = {"config 5": (bt.padded_size(_DEFAULT_BITS), CS.C5_BITS, CS.C5_BIT_OPS),
+              "2**28 lanes": (1 << CS.BITMAP_LOG2, 1 << CS.BITMAP_LOG2, CS.BITMAP_OPS)}
+    for lib, name in todo:
+        if lib != "bitset":
+            continue
+        variant = handles[lib, name]
+        for label, (size, hi, n_ops) in shapes.items():
+            base = (torch.rand(size, device=dev) < 0.3).to(torch.uint8)
+            batches = [CS.index_batch(rng, n_ops, hi, dev) for _ in range(20)]
+            for kernel in ("bitset_get", "bitset_set"):
+                def timed():
+                    plane = base.clone()
+                    K.bitset_set(base.clone(), batches[0], n_ops, 1)  # a launch of this library before the timing
+                    if kernel == "bitset_get":
+                        return CS.time_kernel(lambda i: K.bitset_get(plane, batches[i]), reps=len(batches))
+                    return CS.time_kernel(lambda i: K.bitset_set(plane, batches[i], n_ops, 1), reps=len(batches),
+                                          warm=lambda: None)
 
-        def timed():
-            plane = base.clone()
-            K.bitset_set(base.clone(), batches[0], n_ops, 1)  # a launch of this library before the timing
-            return CS.time_kernel(lambda i: K.bitset_set(plane, batches[i], n_ops, 1), reps=len(batches),
-                                  warm=lambda: None)
-
-        times = in_turns("bitset", variant, timed)
-        equal = True
-        with loaded("bitset", variant):
-            for b in batches[:3]:
-                for n_valid in (0, 1, n_ops // 2, n_ops):
-                    for value in (0, 1):
-                        x, y = base.clone(), base.clone()
-                        got = K.bitset_set(x, b, n_valid, value)[1]
-                        want = K.bitset_set_plain(y, b, n_valid, value)[1]
-                        torch.cuda.synchronize()
-                        equal = equal and torch.equal(got, want) and torch.equal(x, y)
-        results.append({"kernel": "bitset_set", "variant": "grid_only", "shape": f"{label}: {n_ops} ops", **times,
-                        "equal_to_plain": equal})
-        del base, batches
+                times = in_turns("bitset", variant, timed)
+                equal = True
+                with loaded("bitset", variant):
+                    for b in batches[:3]:
+                        for n_valid in (0, 1, n_ops // 2, n_ops):
+                            for value in (0, 1):
+                                x, y = base.clone(), base.clone()
+                                got = K.bitset_set(x, b, n_valid, value)[1]
+                                want = K.bitset_set_plain(y, b, n_valid, value)[1]
+                                torch.cuda.synchronize()
+                                equal = equal and torch.equal(got, want) and torch.equal(x, y)
+                        equal = equal and torch.equal(K.bitset_get(base, b), K.bitset_get_plain(base, b))
+                results.append({"kernel": kernel, "variant": name, "shape": f"{label}: {n_ops} ops", **times,
+                                "equal_to_plain": equal})
+            del base, batches
+            torch.cuda.empty_cache()
+        groups = 2 * CS.C5_TENANTS
+        planes = [(torch.rand(bt.padded_size(_DEFAULT_BITS), device=dev) < 0.3).to(torch.uint8)
+                  for _ in range(groups)]
+        for kernel, value in (("bitset_get", None), ("bitset_set", 1)):
+            values = [value] * groups
+            batches = [[CS.host_indexes(rng, CS.C5_BIT_OPS, 0, CS.C5_BITS) for _ in range(groups)]
+                       for _ in range(20)]
+            levels = [K.bitset_stage(planes, b, values) for b in batches]
+            times = in_turns("bitset", variant, lambda: CS.time_kernel(lambda i: K.bitset_launch(planes, levels[i])))
+            with loaded("bitset", variant):
+                try:
+                    equal = CS.assert_groups_equal(f"{kernel} {name}", planes, batches[0], values) == 0.0
+                except AssertionError:
+                    equal = False
+            results.append({"kernel": kernel, "variant": name,
+                            "shape": f"the table form, {groups} planes x {CS.C5_BIT_OPS} ops", **times,
+                            "equal_to_plain": equal})
+        del planes
         torch.cuda.empty_cache()
 
     for r in results:

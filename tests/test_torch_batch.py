@@ -467,3 +467,111 @@ def test_repeated_add_name_in_a_batch_falls_back_per_group(pkg, monkeypatch):
         assert (f1.get(), f2.get()) == (20, 10)
     finally:
         c.shutdown()
+
+
+# -- bit-set runs: each level of groups on distinct records in one upload and
+#    one launch a verb (core/batch.py _bitset_run) ------------------------------
+
+
+@pytest.mark.parametrize("names, want", [
+    ([], []),
+    (["a"], [[0]]),
+    (["a", "b", "c"], [[0, 1, 2]]),
+    (["a", "a", "b", "b"], [[0, 2], [1, 3]]),  # fanout: each record set, then read
+    (["a", "b", "a", "a", "c", "b"], [[0, 1, 4], [2, 5], [3]]),
+])
+def test_bitset_levels_split_a_run_by_repeated_records(names, want):
+    assert TB.bitset_levels(names) == want
+
+
+def _bitset_case(b, c, case, rng):
+    """Queue one case's bit-set ops on batch b of client c; returns
+    (futures, names to compare)."""
+    futs = []
+    idx = lambda n, hi=100_000: rng.integers(0, hi, n)  # noqa: E731
+    if case == "interleaved":
+        names = [f"lv:{i}" for i in range(12)]
+        for n in names:
+            futs.append(b.get_bit_set(n).set_async(idx(500)))
+            futs.append(b.get_bit_set(n).get_async(idx(500)))
+        for n in names[:3]:  # a second op joins each get group
+            futs.append(b.get_bit_set(n).get_async(idx(40)))
+        return futs, names
+    if case == "renamed":
+        x, y, z = (b.get_bit_set(n) for n in ("rn:x", "rn:y", "rn:z"))
+        a = idx(300, 5000)
+        futs += [x.set_async(a), y.get_async(idx(50, 5000)), x.get_async(a[::-1]), z.set_async(idx(80, 5000), False),
+                 x.set_async(a[:100], False), y.set_async(a), x.get_async(a), z.get_async(idx(80, 5000))]
+        return futs, ["rn:x", "rn:y", "rn:z"]
+    if case == "value_false":
+        c.get_bit_set("vf:a").set_each(np.arange(0, 6000, 3))
+        for n in ("vf:a", "vf:b", "vf:c"):
+            futs.append(b.get_bit_set(n).set_async(idx(200, 6000), False))
+            futs.append(b.get_bit_set(n).get_async(np.arange(0, 6000, 7)))
+            futs.append(b.get_bit_set(n).set_async(idx(200, 6000), True))
+        return futs, ["vf:a", "vf:b", "vf:c"]
+    if case == "missing":
+        c.get_bit_set("ms:pre").set_each(idx(100, 1000))
+        futs += [b.get_bit_set("ms:1").get_async(idx(20)), b.get_bit_set("ms:pre").get_async(np.arange(1000)),
+                 b.get_bit_set("ms:2").get_async(idx(30)), b.get_bit_set("ms:1").set_async(idx(20)),
+                 b.get_bit_set("ms:e").set_async(np.zeros(0, np.int64)),
+                 b.get_bit_set("ms:f").get_async(np.zeros(0, np.int64)), b.get_bit_set("ms:1").get_async(idx(20))]
+        return futs, ["ms:1", "ms:2", "ms:pre", "ms:e", "ms:f"]
+    if case == "growth":
+        c.get_bit_set("gr:h").set_each(idx(50))
+        big = np.array([5, (1 << 20) + 77, (3 << 20) + 1], np.int64)
+        futs += [b.get_bit_set("gr:g").set_async(big), b.get_bit_set("gr:h").get_async([(2 << 20) + 9, 3, 1 << 20]),
+                 b.get_bit_set("gr:g").get_async(np.array([(3 << 20) + 1, (1 << 20) + 77, 6, 5 << 20])),
+                 b.get_bit_set("gr:h").set_async([(2 << 20) + 9]), b.get_bit_set("gr:h").get_async([(2 << 20) + 9])]
+        return futs, ["gr:g", "gr:h"]
+    assert case == "out_of_range"
+    futs += [b.get_bit_set("oor:a").set_async(idx(100)), b.get_bit_set("oor:bad").set_async([5, -1]),
+             b.get_bit_set("oor:a").get_async(idx(100)), b.get_bit_set("oor:bad2").get_async([2**31 - 1]),
+             b.get_bit_set("oor:c").set_async(idx(100)), b.get_bit_set("oor:c").get_async(idx(100))]
+    return futs, ["oor:a", "oor:bad", "oor:bad2", "oor:c"]
+
+
+BITSET_CASES = ["interleaved", "renamed", "value_false", "missing", "growth", "out_of_range"]
+
+
+def _run_bitset_case(create, io, case, overlap):
+    prev = io.set_overlap(overlap)
+    try:
+        c = create()
+        try:
+            b = c.create_batch()
+            futs, names = _bitset_case(b, c, case, np.random.default_rng(BITSET_CASES.index(case)))
+            try:
+                b.execute()
+            except ValueError:  # the out-of-range group's error, raised by the replies
+                pass
+            replies = []
+            for f in futs:
+                try:
+                    replies.append(_norm(f.get()))
+                except ValueError as e:
+                    replies.append(("error", str(e)))
+            return replies, [_record(c, n) for n in names]
+        finally:
+            c.shutdown()
+    finally:
+        io.set_overlap(prev)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("case", BITSET_CASES)
+def test_bitset_runs_match_the_jax_batch(case, overlap, monkeypatch):
+    """Runs of bit-set groups (many records set then read; one record named
+    again; value False; missing records and empty groups; growth past
+    1 MiB; an out-of-range group among valid ones): replies and records
+    equal to the JAX Batch's, every level one bitset_groups call."""
+    calls = []
+    real = TK.bitset_groups
+    monkeypatch.setattr(TK, "bitset_groups", lambda *a, **k: calls.append(len(a[0])) or real(*a, **k))
+    want = _run_bitset_case(*PACKAGES["jax"][:2], case, overlap)
+    got = _run_bitset_case(*PACKAGES["torch"][:2], case, overlap)
+    assert got == want
+    if case == "interleaved":
+        assert calls == [12, 12]  # level 0: the 12 sets; level 1: the 12 gets
+    if case == "out_of_range":
+        assert [r[0] == "error" for r in got[0]] == [False, True, False, True, False, False]

@@ -99,6 +99,103 @@ def test_bitset_set_repeats_far_apart_report_pre_batch_bits(n_valid, value):
     assert not old.numpy()[n_valid:].any()
 
 
+# -- the multi-plane table form (kernels.bitset_groups) -------------------------
+
+# (plane size, ops, value: None reads): planes of different sizes, one past
+# 1 MiB, one-op groups, a repeat-heavy group, both values
+GROUPS = [(SIZE, 300, None), (SIZE + 3, 1, 1), ((1 << 20) + 4096, 700, 1), (100, 50, 0), (SIZE, 1, None),
+          (2 * SIZE, 400, 0), (7, 20, None)]
+
+
+def _groups(seed):
+    rng = np.random.default_rng(seed)
+    planes, idx, values = [], [], []
+    for size, n, value in GROUPS:
+        planes.append((rng.random(size) < 0.4).astype(np.uint8))
+        a = rng.integers(-2 * size, 2 * size, n).astype(np.int32)  # negative and out-of-plane
+        a[n // 2:] = a[: n - n // 2]  # repeats
+        idx.append(a)
+        values.append(value)
+    return planes, idx, values
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bitset_groups_plain_matches_the_jax_programs_plane_by_plane(seed):
+    """bitset_groups on CPU planes (its plain version) against a loop of the
+    JAX package's bitset_get / bitset_set, one plane at a time: replies in
+    group order and every plane, bit for bit."""
+    planes, idx, values = _groups(seed)
+    tp = [torch.from_numpy(p.copy()) for p in planes]
+    out, firsts = TK.bitset_groups(tp, idx, values)
+    assert firsts == list(np.cumsum([0] + [a.size for a in idx])[:-1])
+    for p, a, v, t, f in zip(planes, idx, values, tp, firsts):
+        if v is None:
+            want_bits, want = p, np.asarray(JK.bitset_get(jnp.asarray(p), jnp.asarray(a)))
+        else:
+            want_bits, want = _jax_set(p, a, a.size, v)
+        np.testing.assert_array_equal(out.numpy()[f:f + a.size], want)
+        np.testing.assert_array_equal(t.numpy(), want_bits)
+
+
+def _model_launches(buf, n_groups, total, planes, n_get_groups, n_get):
+    """csrc/bitset.cu's two table launches, modelled in numpy on the packed
+    upload: the plane of a group is planes[its address]; each op finds its
+    group by its uploaded id and checks it lies in that group's ops."""
+    table = buf[: TK.BITSET_GROUP_WORDS * n_groups].view(np.int64).reshape(n_groups, 4)
+    ops = buf[TK.BITSET_GROUP_WORDS * n_groups:][:total]
+    gids = buf[TK.BITSET_GROUP_WORDS * n_groups:][total:]
+    out = np.zeros(total, np.uint8)
+    writes = []
+    for base, lo, hi in ((0, 0, n_get), (n_get_groups, n_get, total)):
+        for i in range(lo, hi):
+            addr, size, fc, vv = (int(x) for x in table[base + gids[i]])
+            first, count, valid, value = fc & 0xFFFFFFFF, fc >> 32, vv & 0xFFFFFFFF, vv >> 32
+            t = i - lo - first
+            assert 0 <= t < count and valid == count
+            j = int(ops[i]) + size if ops[i] < 0 else int(ops[i])
+            if 0 <= j < size:
+                out[i] = planes[addr][j]
+                if base:
+                    writes.append((addr, j, value))
+    for addr, j, value in writes:  # every read of a set launch before its writes
+        planes[addr][j] = value
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bitset_pack_drives_the_kernels_model_like_the_plain_version(seed):
+    """bitset_pack's table, indexes and group ids, read back by a numpy
+    model of the kernels: the same replies (at the firsts it reports) and
+    planes as the plain version; gets before sets in the upload."""
+    planes, idx, values = _groups(seed)
+    want_planes = [torch.from_numpy(p.copy()) for p in planes]
+    want, _ = TK.bitset_groups(want_planes, idx, values)
+    total = sum(a.size for a in idx)
+    buf = np.zeros(TK.BITSET_GROUP_WORDS * len(planes) + 2 * total, np.int32)
+    firsts, n_get_groups, n_get, max_set = TK.bitset_pack(buf, [(g, p.size) for g, p in enumerate(planes)],
+                                                          idx, values)
+    assert n_get_groups == sum(v is None for v in values)
+    assert n_get == sum(a.size for a, v in zip(idx, values) if v is None)
+    assert max_set == max(a.size for a, v in zip(idx, values) if v is not None)
+    model = [p.copy() for p in planes]
+    got = _model_launches(buf, len(planes), total, model, n_get_groups, n_get)
+    for a, f, g in zip(idx, firsts, range(len(idx))):
+        w0 = int(np.cumsum([0] + [x.size for x in idx])[g])
+        np.testing.assert_array_equal(got[f:f + a.size], want.numpy()[w0:w0 + a.size])
+    for m, w in zip(model, want_planes):
+        np.testing.assert_array_equal(m, w.numpy())
+
+
+def test_bitset_groups_refuses_bad_tables():
+    p = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        TK.bitset_groups([], [], [])
+    with pytest.raises(ValueError):
+        TK.bitset_groups([p], [np.zeros(2, np.int32)], [None, 1])
+    with pytest.raises(ValueError):
+        TK.bitset_groups([p, p], [np.zeros(1, np.int32)], [None, None])
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_bittensor_ops_match_reference(seed):
     from redisson_tpu.ops import bittensor as jbt

@@ -574,6 +574,59 @@ def test_bitset_set_and_kmeans_assign_launch_one_kernel_a_call(dev):
         assert len(_kernels_a_call(lambda: K.kmeans_assign(p, wt, c))) == 1, w
 
 
+def _bitset_table(dev, case):
+    """(planes, host int32 indexes, values) of a level: config 5's fanout
+    (128 1 MiB planes, 500 indexes below 100,000 each; all reads or all
+    sets), or an edge table: planes of different sizes (one past 1 MiB),
+    negative and out-of-plane indexes, repeats, one-op groups, gets and
+    both values; "edges" has set groups past 2,048 ops (the cooperative
+    form), "edges-blocks" none (one block a group)."""
+    rng = np.random.default_rng(len(case))
+    if case in ("fanout-get", "fanout-set"):
+        sizes, counts = [1 << 20] * 128, [500] * 128
+        values = [None] * 128 if case == "fanout-get" else [1] * 128
+        hi = [100_000] * 128
+    else:
+        sizes = [4096, 4099, (1 << 21) + 4096, 100, 4096, 1 << 16, 7, 1 << 20]
+        counts = [300, 1, 700, 50, 1, 5000 if case == "edges" else 2000, 20, 2100 if case == "edges" else 900]
+        values = [None, 1, 1, 0, None, 0, None, 1]
+        hi = [2 * s for s in sizes]
+    planes = [(torch.rand(s, device=dev) < 0.4).to(torch.uint8) for s in sizes]
+    idx = []
+    for n, h in zip(counts, hi):
+        a = rng.integers(-h if case.startswith("edges") else 0, h, n).astype(np.int32)
+        a[n // 2:] = a[: n - n // 2]
+        if n >= 10 and case.startswith("edges"):
+            a[:6] = [-1, 2**31 - 1, -(2**31), 0, h, -h]
+        idx.append(a)
+    return planes, idx, values
+
+
+@pytest.mark.parametrize("case", ["fanout-get", "fanout-set", "edges", "edges-blocks"])
+def test_bitset_groups_match_plain(dev, case):
+    """The table form against its plain version on clones of the planes,
+    bit for bit: replies (at the firsts reported) and every plane."""
+    planes, idx, values = _bitset_table(dev, case)
+    ref = [p.clone() for p in planes]
+    got, firsts = K.bitset_groups(planes, idx, values)
+    want, _ = K.bitset_groups_plain(ref, torch.from_numpy(np.concatenate(idx)).to(dev), [a.size for a in idx], values)
+    torch.cuda.synchronize()
+    off = 0
+    for a, f in zip(idx, firsts):
+        assert torch.equal(got[f:f + a.size], want[off:off + a.size])
+        off += a.size
+    for p, r in zip(planes, ref):
+        assert torch.equal(p, r)
+
+
+def test_bitset_groups_launch_one_kernel_a_verb(dev):
+    """torch.profiler: a level of 128 reads is one kernel, of 128 sets one
+    kernel, a mixed level two (the upload is a copy, not a kernel)."""
+    for case, want in (("fanout-get", 1), ("fanout-set", 1), ("edges-blocks", 2), ("edges", 2)):
+        planes, idx, values = _bitset_table(dev, case)
+        assert len(_kernels_a_call(lambda: K.bitset_groups(planes, idx, values))) == want, case
+
+
 @pytest.mark.parametrize("overlap", [True, False])
 def test_rbatch_on_the_card_matches_the_cpu(dev, overlap):
     """chip_smoke's RBatch stream (every verb; plain, skip_result and
@@ -1311,6 +1364,55 @@ def test_kmeans_update_buckets_in_row_order(dev, n):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     assert torch.equal(got[5:], cent[5:]) and torch.equal(got[3], cent[3])
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _update_reference(pts, w, cent, assign):
+    """kmeans_update's contract in numpy float32: each cell's sum of point
+    * weight and of weights in row order (np.add.at adds in index order,
+    one rounding a term), divided by max(weights, 1); an empty cell keeps
+    its centroid."""
+    live = assign >= 0
+    sums, cnt = np.zeros_like(cent), np.zeros(cent.shape[0], np.float32)
+    np.add.at(sums, assign[live], pts[live] * w[live, None])
+    np.add.at(cnt, assign[live], w[live])
+    return np.where(cnt[:, None] > 0, sums / np.maximum(cnt, np.float32(1))[:, None], cent)
+
+
+# (N, W, L, case): one cell holding most rows, or every row dead; config
+# 7's training shape last
+UPDATE_SHAPES = [(1, 40, 9, "skew"), (255, 40, 9, "skew"), (257, 40, 9, "skew"), (20000, 40, 9, "skew"),
+                 (20000, 130, 300, "skew"), (3000, 1024, 5, "skew"), (257, 64, 9, "dead"),
+                 (50000, 128, 1536, "spread"), (50000, 128, 1536, "skew")]
+
+
+@pytest.mark.parametrize("shape", UPDATE_SHAPES)
+def test_kmeans_update_equals_the_float32_row_order_reference(dev, shape):
+    """The two-launch update bit for bit against the row-order reference:
+    dead rows, empty cells, a cell holding most rows, every row dead."""
+    n, w, nlist, case = shape
+    rng = np.random.default_rng(n + w)
+    pts = rng.standard_normal((n, w)).astype(np.float32)
+    wt = (rng.random(n) < 0.9).astype(np.float32) * rng.random(n).astype(np.float32) * 2
+    cent = rng.standard_normal((nlist, w)).astype(np.float32)
+    assign = rng.integers(0, nlist, n).astype(np.int32)
+    if case == "skew":
+        assign = np.where(rng.random(n) < 0.7, nlist // 2, assign).astype(np.int32)
+    assign[wt == 0] = -1
+    if case == "dead":
+        assign[:] = -1
+    want = _update_reference(pts, wt, cent, assign)
+    p, wt_t, c, a = (torch.from_numpy(x).to(dev) for x in (pts, wt, cent, assign))
+    got = K.kmeans_update(p, wt_t, c, a)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+
+
+def test_kmeans_update_launches_at_most_two_kernels(dev):
+    for n, w, nlist in ((50000, 128, 1536), (3000, 1024, 5), (1, 7, 1)):
+        p, c = torch.randn((n, w), device=dev), torch.randn((nlist, w), device=dev)
+        wt = torch.ones(n, device=dev)
+        a = torch.randint(0, nlist, (n,), dtype=torch.int32, device=dev)
+        assert 1 <= len(_kernels_a_call(lambda: K.kmeans_update(p, wt, c, a))) <= 2, (n, w, nlist)
 
 
 def _replies_agree(a, b, tol=1e-4):

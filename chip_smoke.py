@@ -10,9 +10,12 @@ Phases (any failure raises and the script exits non-zero):
      seconds; then, in a child process of this script (--kernels-a-call),
      count by torch.profiler the kernels one call launches of bitset_get
      and bitset_set (one plane, both set forms, and the table form at
-     fanout's level), kmeans_assign (both routes), kmeans_update and
-     knn_select at the main path's shapes, and fail unless each is 1
-     (kmeans_update: 1 or 2, KERNELS_A_CALL);
+     fanout's level), kmeans_assign (both routes), kmeans_update,
+     knn_select, wc_words (auto form and delta form, config 4's first
+     chunk) and segment_reduce (int32 sum and float32 max at 8,388,608 x
+     1,024, and past the shared limit) at the main path's shapes, and fail
+     unless each is 1 (kmeans_update 1 or 2, wc_words' delta form 1 to 4,
+     segment_reduce past the shared limit 1 or 2: KERNELS_A_CALL);
   2. known answers: the CUDA hash chain, read back through hll_add,
      bloom_set and the fused add, gives the hashes the JAX package gives
      (constants below);
@@ -36,14 +39,16 @@ Phases (any failure raises and the script exits non-zero):
      128 one-plane launches, and on an edge table (planes of several sizes,
      one past 1 MiB, negative, out-of-plane and repeated indexes, one-op
      groups, both set forms); wc_words
-     (both entry points) on config 4's two chunks and at the edges (words
+     (both entry points) on config 4's two chunks, the first also as a
+     slice 5 bytes past a 16-byte boundary, and at the edges (words
      over 63 bytes, control whitespace, a last byte that is not
      whitespace, eb below the end count, n_words 0), wc_sort_runs on config 4's 8,388,608-row
      stream, a stream shorter than d_max and an all-distinct one that
      overflows it, beside torch.sort, and segment_reduce (sum, max, min;
      int32, whole float32 values, whose sum is exact, and N(0, 1000)
-     float32) on 8,388,608 values into 1,024 keys with negative and
-     out-of-range keys, beside scatter_reduce_; the vector kernels
+     float32; max and min with NaN) on 8,388,608 values into 1,024 keys
+     with negative and out-of-range keys, beside scatter_reduce_ (the
+     float32 max on a row of its own); the vector kernels
      (check_vector): knn_score and knn_select in every metric, dtype and
      mask at config 7's 50,000 x 128 point, timed at config 7's points and
      at 1,000,000 x 128 L2 beside torch.matmul (TF32 off) and torch.topk
@@ -1058,6 +1063,15 @@ def check_wordcount(dev, rng, values: list) -> dict:
     err = max(err, same3("wc_words deltas chunk 0", K.wc_extract_words(chunks[0][0], deltas, len(ends), 0),
                          K.wc_extract_words_plain(chunks[0][0], deltas, len(ends), 0)))
     checked.append("config 4's first chunk, delta form")
+    # the first chunk as a slice 5 bytes past a 16-byte boundary
+    big = torch.full((chunks[0][0].numel() + 16,), 32, dtype=torch.uint8, device=dev)
+    sliced = big[5: 5 + chunks[0][0].numel()]
+    sliced.copy_(chunks[0][0])
+    err = max(err, same3("wc_words auto, the first chunk unaligned",
+                         K.wc_extract_words_auto(sliced, *chunks[0][1:]),
+                         K.wc_extract_words_auto_plain(sliced, *chunks[0][1:])))
+    del big, sliced
+    checked.append("config 4's first chunk 5 bytes past a 16-byte boundary, auto form")
     long_vals = ["x" * 200 + " short " + "y" * 64, "z" * 63 + " " + "z" * 64, "a\tb\nc\x0bd\x0ce\rf",
                  "g\x1ch\x1di\x1ej\x1fk", "  lead and  double  "] * 50
     _, lbuf, ln = MR._wc_chunk_bytes(long_vals)
@@ -1146,24 +1160,41 @@ def check_wordcount(dev, rng, values: list) -> dict:
         checked.append(f"{KMR_N} values into {KMR_KEYS} keys, {label}: sum, max, min of int32, of whole float32 "
                        "values (sum exact) and of N(0, 1000) float32 (the sum within 8 * 2**-24 * "
                        "sqrt(count * sum v**2) a key)")
+    # a NaN wins its slot in a float32 max or min, as in XLA's
+    nan_vals = fvals.clone()
+    nan_vals[::9973] = float("nan")
+    for reduce in ("max", "min"):
+        err = max(err, assert_equal(f"segment_reduce {reduce} float32 with NaN", K.segment_reduce(bad, nan_vals, KMR_KEYS, reduce),
+                                    K.segment_reduce_plain(bad, nan_vals, KMR_KEYS, reduce), equal_nan=True))
+    del nan_vals
+    checked.append(f"{KMR_N} float32 values into {KMR_KEYS} keys, 2% of keys negative or out of range, one in "
+                   "9,973 NaN: max and min, the NaN kept")
     keys64 = keys.long()
     zeros = torch.zeros(KMR_KEYS, dtype=torch.int32, device=dev)
     seg = {"ms": time_kernel(lambda i: K.segment_reduce(keys, ivals, KMR_KEYS, "sum")),
            "plain_ms": time_plain(lambda i: K.segment_reduce_plain(keys, ivals, KMR_KEYS, "sum")),
            "library_ms": time_kernel(lambda i: zeros.clone().scatter_reduce_(0, keys64, ivals, "sum")),
-           "max_ms": time_kernel(lambda i: K.segment_reduce(keys, fvals, KMR_KEYS, "max"))}
+           "max_ms": time_kernel(lambda i: K.segment_reduce(keys, fvals, KMR_KEYS, "max")),
+           "max_plain_ms": time_plain(lambda i: K.segment_reduce_plain(keys, fvals, KMR_KEYS, "max")),
+           "max_library_ms": time_kernel(lambda i: torch.full((KMR_KEYS,), -float("inf"), device=dev).scatter_reduce_(
+               0, keys64, fvals, "amax"))}
     seg["bound_ms"], seg["bound_by"] = bound_ms(8 * KMR_N + 4 * KMR_KEYS, OPS_SEGMENT * KMR_N)
+    # the float32 max moves the same bytes and makes the same atomics
+    seg["max_bound_ms"], _ = bound_ms(8 * KMR_N + 4 * KMR_KEYS, OPS_SEGMENT * KMR_N)
     seg.update(max_abs_err=max(err, sum_err), float_sum_max_abs_err=sum_err, checked=checked,
                shape=f"KernelMapReduce sum: {KMR_N} int32 values into {KMR_KEYS} keys (v % {KMR_KEYS})")
     del ivals, fvals, keys, bad, keys64
     torch.cuda.empty_cache()
     # the launches one wrapper call makes (csrc/wordcount.cu, csrc/segment.cu)
-    per_call = {"wc_words": "4 launches a call: end count, scan, end write, words (the delta form: a "
-                            "3-launch scan, words)",
+    per_call = {"wc_words": "1 launch a call: tiles by ticket, 16-byte loads, decoupled look-back ranks, "
+                            "one lane a word, a round's rows written by the block with 16-byte stores (the "
+                            "delta form: a 3-launch scan, words)",
                 "wc_sort_runs": "12 launches a call (and a memset of the look-back status): a histogram "
                                 "of every pass's digits, 8 one-sweep passes (tile ticket, rank, decoupled "
                                 "look-back, write in digit order), run count, scan, partition",
-                "segment_reduce": "2 launches a call: fill, reduce"}
+                "segment_reduce": "1 launch a call up to the shared limit: 16-byte loads, shared copies "
+                                  "merged a cluster at a time, the first cluster's copy stored and the others' "
+                                  "added by global atomics (past it: fill, global atomics)"}
     for name, r in (("wc_words", words), ("wc_sort_runs", sort), ("segment_reduce", seg)):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         r["launches_per_call"] = per_call[name]
@@ -1173,6 +1204,9 @@ def check_wordcount(dev, rng, values: list) -> dict:
             + (f", the one-sweep design's bytes {r['design_bound_ms']:.4f} ms" if "design_bound_ms" in r else "")
             + (f", delta form {r['deltas_ms']:.4f} ms (plain {r['deltas_plain_ms']:.3f}, bound "
                f"{r['deltas_bound_ms']:.4f})" if "deltas_ms" in r else "")
+            + (f", float32 max {r['max_ms']:.4f} ms (plain {r['max_plain_ms']:.3f}, library "
+               f"{r['max_library_ms']:.4f} scatter_reduce_ amax, bound {r['max_bound_ms']:.4f})"
+               if "max_ms" in r else "")
             + f"); equal to plain at {r['checked']}")
     return {"wc_words": words, "wc_sort_runs": sort, "segment_reduce": seg}
 
@@ -1340,11 +1374,37 @@ def kernels_a_call_here(dev) -> dict:
         counts[f"knn_select {C7_QB} x {cols} k {k}{' ids' if with_ids else ''}"] = kernels_per_call(
             lambda: K.knn_select(d, k, ids))
         del d, ids
+    buf, n, eb, base = wc_chunks(config4_values(), dev)[0]
+    host = buf.cpu().numpy()
+    ws = host == 32
+    deltas = torch.from_numpy(np.diff(np.concatenate([[-1], np.nonzero(~ws & np.concatenate(
+        [ws[1:], [True]]))[0]])).astype(np.int32)).to(dev)
+    counts["wc_words auto, config 4's first chunk"] = kernels_per_call(
+        lambda: K.wc_extract_words_auto(buf, n, eb, base))
+    counts["wc_words deltas, config 4's first chunk"] = kernels_per_call(
+        lambda: K.wc_extract_words(buf, deltas, deltas.numel(), base))
+    del buf, deltas
+    vals = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, KMR_N).astype(np.int32)).to(dev)
+    keys = torch.remainder(vals, KMR_KEYS)
+    for label, v, reduce in (("int32 sum", vals, "sum"), ("float32 max", vals.to(torch.float32), "max")):
+        counts[f"segment_reduce {label}, {KMR_N} x {KMR_KEYS}"] = kernels_per_call(
+            lambda: K.segment_reduce(keys, v, KMR_KEYS, reduce))
+    past = K.segment_shared_keys(dev) + 1
+    counts[f"segment_reduce past the shared limit, {KMR_N} x {past}"] = kernels_per_call(
+        lambda: K.segment_reduce(vals, vals, past, "sum"))
     return counts
 
 
-# the most kernels one call of a wrapper may launch (every other: exactly 1)
-KERNELS_A_CALL = {"kmeans_update": 2}
+# the most kernels one call of a wrapper may launch, by the start of its
+# kernels_a_call_here key (every other: exactly 1): kmeans_update's bucket
+# and mean kernels; wc_words' delta form (off the main path): a three-launch
+# scan of the deltas, then the words; segment_reduce past the shared limit
+# (off the main path): a fill, then global atomics
+KERNELS_A_CALL = {"kmeans_update": 2, "wc_words deltas": 4, "segment_reduce past the shared limit": 2}
+
+
+def kernels_allowed(key: str) -> int:
+    return next((v for k, v in KERNELS_A_CALL.items() if key.startswith(k)), 1)
 
 
 def kernels_a_call() -> dict:
@@ -1357,7 +1417,7 @@ def kernels_a_call() -> dict:
     if out.returncode != 0:
         raise AssertionError(f"kernels a call: the child exited {out.returncode}: {out.stderr[-4000:]}")
     counts = json.loads(out.stdout.strip().splitlines()[-1])
-    wrong = {k: v for k, v in counts.items() if v is None or not 1 <= v <= KERNELS_A_CALL.get(k.split()[0], 1)}
+    wrong = {k: v for k, v in counts.items() if v is None or not 1 <= v <= kernels_allowed(k)}
     if wrong:
         raise AssertionError(f"kernels a call by torch.profiler, not as KERNELS_A_CALL allows (None: an empty "
                              f"trace): {wrong}")

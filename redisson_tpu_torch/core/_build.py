@@ -47,11 +47,12 @@ SIGNATURES = {
         "rtpu_bitset_set_groups": [_P, _I, _I, _P, _P, _I, _P, _P],
     },
     "wordcount": {
-        "rtpu_wc_words": [_P, _L, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
+        "rtpu_wc_words_auto": [_P, _L, _I, _I, _L, _P, _L, _P, _P, _P, _P],
+        "rtpu_wc_words_deltas": [_P, _L, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
         "rtpu_wc_sort_runs": [_P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "segment": {
-        "rtpu_segment_reduce": [_P, _I, _P, _I, _I, _L, _L, _P, _P],
+        "rtpu_segment_reduce": [_P, _I, _P, _I, _I, _L, _L, _P, _L, _P, _P],
     },
     "knn": {
         "rtpu_knn_score": [_P, _I, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P, _P],
@@ -118,6 +119,28 @@ def build_all() -> float:
     return time.perf_counter() - start
 
 
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of library `name`'s entry points
+    on a loaded handle of it."""
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    if name == "bloom":
+        lib.rtpu_error_string.argtypes = [ctypes.c_int]
+        lib.rtpu_error_string.restype = ctypes.c_char_p
+    if name == "kmeans":
+        lib.rtpu_kmeans_update_scratch.argtypes = [_L, _I]
+        lib.rtpu_kmeans_update_scratch.restype = ctypes.c_int64
+    if name == "wordcount":
+        for fn in ("rtpu_wc_sort_region_bytes", "rtpu_wc_words_region_words"):
+            getattr(lib, fn).argtypes = [_L]
+            getattr(lib, fn).restype = ctypes.c_int64
+    if name == "segment":
+        lib.rtpu_segment_shared_keys.argtypes = []
+        lib.rtpu_segment_shared_keys.restype = ctypes.c_int64
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built on first use."""
     lib = _libs.get(name)
@@ -126,20 +149,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build_all()
-            lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            if name == "bloom":
-                lib.rtpu_error_string.argtypes = [ctypes.c_int]
-                lib.rtpu_error_string.restype = ctypes.c_char_p
-            if name == "kmeans":
-                lib.rtpu_kmeans_update_scratch.argtypes = [_L, _I]
-                lib.rtpu_kmeans_update_scratch.restype = ctypes.c_int64
-            if name == "wordcount":
-                lib.rtpu_wc_sort_region_bytes.argtypes = [_L]
-                lib.rtpu_wc_sort_region_bytes.restype = ctypes.c_int64
-            _libs[name] = lib
+            _libs[name] = bind(ctypes.CDLL(str(_target(name))), name)
         return _libs[name]
 
 

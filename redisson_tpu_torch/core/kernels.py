@@ -29,11 +29,15 @@ Fourteen kernels carry every program here:
                grid), from one plane or in the table form
   wc_words     word count: each word's two 32-bit polynomial hashes and
                start from its end position, the ends found on the card
-               (wc_extract_words_auto) or given as deltas (wc_extract_words)
+               (wc_extract_words_auto: one launch, the chunk read once,
+               ends ranked by decoupled look-back) or given as deltas
+               (wc_extract_words: a scan, then a thread a row)
   wc_sort_runs word count: a stable one-sweep radix sort of the 64-bit
                word hashes, then each run's first row compacted to the front
   segment_reduce  KernelMapReduce's shuffle and reduce: sum, max or min of
-               int32 or float32 values into n_keys slots
+               int32 or float32 values into n_keys slots; one launch up to
+               segment_shared_keys (shared copies merged a cluster at a
+               time), a fill and global atomics past it
   knn_score    KNN: the (Q, C) float32 distances of queries to a bank
                (float32, float16 or int8 rows widened in the kernel), the
                metric, bias, the n_rows mask and a per-query bias in one
@@ -1038,26 +1042,71 @@ def wc_extract_words_auto_plain(buf, n_words: int, eb: int, base: int):
     return _wc_gather_plain(buf, torch.where(valid, ends, 0), valid, base)
 
 
-def _wc_launch(buf, deltas, rows: int, n_words: int, base: int):
+_tagged_states: dict = {}
+
+
+def _tagged_state(kernel: str, device, words: int, dtype=torch.int64):
+    """The state `kernel`'s calls on this device and stream share (a ticket
+    word, then words that carry the tag of the call that wrote them), and
+    this call's tag.  A word of another tag is not yet written, so the state
+    is zeroed only when it is made (or the tags wrap); every call leaves the
+    ticket at 0."""
+    key = (kernel, device, torch.cuda.current_stream(device).cuda_stream)
+    state = _tagged_states.get(key)
+    if state is None or state[0].numel() < words:
+        state = _tagged_states[key] = [torch.zeros(words, dtype=dtype, device=device), 0]
+    state[1] += 1
+    if state[1] >= 2**31:
+        state[0].zero_()
+        state[1] = 1
+    return state[0], state[1]
+
+
+def _wc_rows(buf, rows: int, out, at: int):
+    """The three (rows,) int32 outputs: new tensors, or rows [at, at + rows)
+    of the caller's three (out)."""
+    if out is None:
+        return [torch.empty(rows, dtype=torch.int32, device=buf.device) for _ in range(3)]
+    if len(out) != 3 or any(t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                            or t.device != buf.device for t in out):
+        raise ValueError(f"out: three contiguous 1-D int32 tensors on the buffer's {buf.device}")
+    if at < 0 or any(at + rows > t.numel() for t in out):
+        raise ValueError(f"rows [{at}, {at + rows}) past out's {min(t.numel() for t in out)} rows")
+    return [t[at: at + rows] for t in out]
+
+
+def _wc_launch(buf, deltas, rows: int, n_words: int, base: int, out=None, at: int = 0):
     _wc_check_buf(buf)
     if not buf.is_contiguous():
         raise ValueError("word-count buffers must be contiguous")
     dev = buf.device
-    out = [torch.empty(rows, dtype=torch.int32, device=dev) for _ in range(3)]
-    if deltas is None:
-        scratch = torch.empty(_wc_tiles(buf.numel()) + 1, dtype=torch.int32, device=dev)
-        ends = torch.empty(max(1, rows), dtype=torch.int32, device=dev)
-    else:
-        if deltas.device != dev or deltas.dim() != 1:
-            raise ValueError(f"deltas: 1-D on the buffer's {dev}, got {tuple(deltas.shape)} on {deltas.device}")
-        deltas = deltas.to(torch.int32).contiguous()
-        scratch = torch.empty(_wc_tiles(rows) + 1, dtype=torch.int32, device=dev)
-        ends = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+    res = _wc_rows(buf, rows, out, at)
+    if rows == 0:
+        return tuple(res)  # nothing to write: no launch
     n_words = max(-1, min(int(n_words), rows))
-    _launch("wc_words", _build.library("wordcount").rtpu_wc_words, buf,
-            buf.data_ptr(), buf.numel(), _ptr(deltas), rows, n_words, int(base) & H.M32,
-            scratch.data_ptr(), ends.data_ptr(), *(t.data_ptr() for t in out))
-    return tuple(out)
+    lib = _build.library("wordcount")
+    if deltas is None:
+        region, tag = _tagged_state("wc_words", dev, lib.rtpu_wc_words_region_words(buf.numel()))
+        _launch("wc_words", lib.rtpu_wc_words_auto, buf, buf.data_ptr(), buf.numel(), rows, n_words,
+                int(base) & H.M32, region.data_ptr(), tag, *(t.data_ptr() for t in res))
+        return tuple(res)
+    if deltas.device != dev or deltas.dim() != 1:
+        raise ValueError(f"deltas: 1-D on the buffer's {dev}, got {tuple(deltas.shape)} on {deltas.device}")
+    deltas = deltas.to(torch.int32).contiguous()
+    scratch = torch.empty(_wc_tiles(rows) + 1, dtype=torch.int32, device=dev)
+    ends = torch.empty(rows + 1, dtype=torch.int32, device=dev)
+    _launch("wc_words", lib.rtpu_wc_words_deltas, buf, buf.data_ptr(), buf.numel(), deltas.data_ptr(), rows,
+            n_words, int(base) & H.M32, scratch.data_ptr(), ends.data_ptr(), *(t.data_ptr() for t in res))
+    return tuple(res)
+
+
+def _wc_plain_into(got, buf, rows: int, out, at: int):
+    if out is None:
+        return got
+    res = _wc_rows(buf, rows, out, at)
+    for r, g in zip(res, got):
+        r.copy_(g)
+    return tuple(res)
 
 
 def wc_extract_words(buf, end_deltas, n_words: int, base: int):
@@ -1072,16 +1121,19 @@ def wc_extract_words(buf, end_deltas, n_words: int, base: int):
     return _wc_launch(buf, end_deltas, end_deltas.numel(), n_words, base)
 
 
-def wc_extract_words_auto(buf, n_words: int, eb: int, base: int):
+def wc_extract_words_auto(buf, n_words: int, eb: int, base: int, out=None, at: int = 0):
     """wc_extract_words with the ends found on the card: every non-space
     byte followed by a space (the last byte counts as followed by one), in
-    ascending order, the first eb of them; eb <= N."""
+    ascending order, the first eb of them; eb <= N.  The buffer may start
+    at any byte (a slice of a larger one).  With out (three 1-D int32
+    tensors of a whole stream), the rows land in rows [at, at + eb) of them
+    and those views are returned."""
     _wc_check_buf(buf)
     if not 0 <= eb <= buf.numel():
         raise ValueError(f"eb = {eb}: the auto form returns at most N = {buf.numel()} rows")
     if _route(buf) == "plain":
-        return wc_extract_words_auto_plain(buf, n_words, eb, base)
-    return _wc_launch(buf, None, eb, n_words, base)
+        return _wc_plain_into(wc_extract_words_auto_plain(buf, n_words, eb, base), buf, eb, out, at)
+    return _wc_launch(buf, None, eb, n_words, base, out, at)
 
 
 def _wc_sort_operands(ha, hb, start) -> int:
@@ -1193,11 +1245,20 @@ def segment_reduce(keys, vals, n_keys: int, reduce: str = "sum"):
         raise ValueError(f"keys on {keys.device}, values on {vals.device}")
     keys, vals = keys.contiguous(), vals.contiguous()
     out = torch.empty(n_keys, dtype=vals.dtype, device=vals.device)
+    # the clusters' ticket, and the tag of the call whose first cluster has
+    # written out
+    state, tag = _tagged_state("segment_reduce", vals.device, 2, torch.int32)
     _launch("segment_reduce", _build.library("segment").rtpu_segment_reduce, vals,
-            keys.data_ptr(), keys.element_size(), vals.data_ptr(),
-            int(vals.dtype == torch.float32), SEGMENT_OPS.index(reduce), vals.numel(), n_keys,
-            out.data_ptr())
+            keys.data_ptr(), keys.element_size(), vals.data_ptr(), int(vals.dtype == torch.float32),
+            SEGMENT_OPS.index(reduce), vals.numel(), n_keys, state.data_ptr(), tag, out.data_ptr())
     return out
+
+
+def segment_shared_keys(device) -> int:
+    """The most keys segment_reduce reduces in one launch on `device` (a
+    block's copy of the result in shared memory); past it, two launches."""
+    with torch.cuda.device(device):
+        return int(_build.library("segment").rtpu_segment_shared_keys())
 
 
 # --------------------------------------------------------------------------

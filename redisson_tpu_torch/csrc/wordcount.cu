@@ -12,13 +12,21 @@
 // Rows at or past n_words hold 0xFFFFFFFF in all three.  The JAX program
 // keeps four per-byte arrays (a cummax and two prefix sums) only to
 // difference them at the ends; the sum of one word's own bytes is the same
-// u32, so here one thread per row walks back from g to the previous
-// whitespace and sums forward: no per-byte array at all.  The auto form
-// finds the ends on the card: every non-whitespace byte followed by
-// whitespace (the last byte counts as followed by it), in ascending order,
-// the first `rows` of them; a row past the ends found reads n - 1, as JAX's
-// sort sentinel does after its min(., n - 1).  The delta form takes its ends
-// as cumsum(deltas) - 1 in int32, then min(., n - 1).
+// u32, so here each word is summed from its own bytes: no per-byte array at
+// all.  The auto form finds the ends on the card: every non-whitespace byte
+// followed by whitespace (the last byte counts as followed by it), in
+// ascending order, the first `rows` of them; a row past the ends found
+// reads n - 1, as JAX's sort sentinel does after its min(., n - 1).  It is
+// one launch (words_auto_kernel): tiles of 8 KB taken by ticket, read once
+// with 16-byte loads into shared memory with a 256-byte halo before them,
+// the ends ranked by a block scan and decoupled look-back over the tiles
+// before (status words tagged with the call, so the region they live in is
+// never cleared), each word hashed by one lane from shared memory, and a
+// round's rows (a vector a thread) staged and written by the whole block
+// with 16-byte stores.  The delta form takes its ends as
+// cumsum(deltas) - 1 in int32, then min(., n - 1): a three-launch scan of
+// the deltas, then one thread a row walks back from its end to the previous
+// whitespace and sums forward.
 //
 // wc_sort_runs replaces wc_sort_runs (:1013-1034): a stable sort of rows by
 // the unsigned 64-bit key (ha:hb), carrying start; then each run of equal
@@ -40,10 +48,9 @@
 // spreads over 2,048 runs of about 2 keys, and the look-back walks 8
 // digits a thread (PERF.md).
 //
-// Bound on an H100: bytes.  The auto form reads the chunk three times with
-// byte loads (the end count, the end write, the words' walk back and
-// forward sum, the last two within a word served from L1/L2) and writes 12
-// bytes a row.  The sort's design moves 220 bytes a row: the histogram (8),
+// Bound on an H100: bytes.  The auto form reads the chunk once (and a
+// 256-byte halo an 8 KB tile) and writes 12 bytes a row; what it moves is
+// mostly its output.  The sort's design moves 220 bytes a row: the histogram (8),
 // 8 passes that read a key and a start and write them (24 each), the run
 // count (8) and the partition (12, and 8 an output row).  Its passes run
 // at about 2 TB/s; what holds them below the HBM rate is each tile's
@@ -53,6 +60,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -184,89 +192,390 @@ cudaError_t scan_exclusive(const uint32_t* in, uint32_t* out, int64_t n, uint32_
 // wc_words
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool is_end(const uint8_t* __restrict__ buf, int64_t n, int64_t i) {
-  return buf[i] != kSpace && (i + 1 == n || buf[i + 1] == kSpace);
-}
+// The word of end g (bytes (lw, g]): ha, hb and start of one output row.
+struct Word {
+  uint32_t a = 0, b = 0, pa = 1, pb = 1;
+  int j = 0;
 
-// Bit k set where byte base + k of the thread's run ends a word.
-__device__ __forceinline__ uint32_t end_mask(const uint8_t* __restrict__ buf, int64_t n, int64_t base) {
-  uint32_t mask = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (base + k < n && is_end(buf, n, base + k)) mask |= 1u << k;
+  __device__ __forceinline__ void add(uint32_t c) {
+    a += (c + 1u) * pa;
+    b += (c + 1u) * pb;
+    if (j < kPowCap) {
+      pa *= kPowA;
+      pb *= kPowB;
+      ++j;
+    }
   }
-  return mask;
+};
+
+__device__ __forceinline__ void word_row(const Word& w, uint32_t len, uint32_t start, uint32_t& ha,
+                                         uint32_t& hb, uint32_t& st) {
+  ha = w.a ^ (len * 2654435761u);
+  hb = w.b + len * 0x9E3779B9u;
+  st = start;
 }
 
+// The delta form: row r's end is the inclusive sum of the deltas minus 1
+// (int32), capped at n - 1; one thread a row walks back from it to the
+// previous whitespace and sums forward.
 __global__ void __launch_bounds__(kThreads)
-end_count_kernel(const uint8_t* __restrict__ buf, int64_t n, uint32_t* __restrict__ tile_counts) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  uint32_t total;
-  block_exclusive(__popc(end_mask(buf, n, base)), total);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
-}
-
-// The ends in ascending order: the end of rank r goes to ends[r], r < rows.
-__global__ void __launch_bounds__(kThreads)
-end_write_kernel(const uint8_t* __restrict__ buf, int64_t n, const uint32_t* __restrict__ tile_off,
-                 int32_t* __restrict__ ends, int rows) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  uint32_t mask = end_mask(buf, n, base);
-  uint32_t total;
-  uint32_t r = block_exclusive(__popc(mask), total) + tile_off[blockIdx.x];
-  while (mask) {
-    const int k = __ffs(mask) - 1;
-    mask &= mask - 1;
-    if (r < (uint32_t)rows) ends[r] = (int32_t)(base + k);
-    ++r;
-  }
-}
-
-// Row r's end: the auto form's rank-r end (n - 1 past the ends found), or
-// the delta form's inclusive sum minus 1 (int32), both capped at n - 1.
-__global__ void __launch_bounds__(kThreads)
-words_kernel(const uint8_t* __restrict__ buf, int64_t n, const int32_t* __restrict__ ends,
-             const uint32_t* __restrict__ n_found, int rows, int n_words, uint32_t base,
-             uint32_t* __restrict__ ha, uint32_t* __restrict__ hb, uint32_t* __restrict__ st) {
+words_kernel(const uint8_t* __restrict__ buf, int64_t n, const int32_t* __restrict__ ends, int rows,
+             int n_words, uint32_t base, uint32_t* __restrict__ ha, uint32_t* __restrict__ hb,
+             uint32_t* __restrict__ st) {
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += gridDim.x * blockDim.x) {
     if (r >= n_words) {
       ha[r] = hb[r] = st[r] = kSentinel;
       continue;
     }
-    int32_t e;
-    if (n_found != nullptr) {
-      e = (uint32_t)r < *n_found ? ends[r] : (int32_t)(n - 1);
-    } else {
-      e = (int32_t)((uint32_t)ends[r] - 1u);
-      if ((int64_t)e > n - 1) e = (int32_t)(n - 1);
-    }
+    int32_t e = (int32_t)((uint32_t)ends[r] - 1u);
+    if ((int64_t)e > n - 1) e = (int32_t)(n - 1);
     int64_t g = e;
     if (g < 0) g += n;
     g = g < 0 ? 0 : (g > n - 1 ? n - 1 : g);
     int64_t lw = g;
     while (lw >= 0 && buf[lw] != kSpace) --lw;
-    uint32_t a = 0, b = 0, pa = 1, pb = 1;
-    int j = 0;
-    for (int64_t i = lw + 1; i <= g; ++i) {
-      const uint32_t c = (uint32_t)buf[i] + 1u;
-      a += c * pa;
-      b += c * pb;
-      if (j < kPowCap) {
-        pa *= kPowA;
-        pb *= kPowB;
-        ++j;
-      }
-    }
-    const uint32_t len = (uint32_t)e - (uint32_t)lw;
-    ha[r] = a ^ (len * 2654435761u);
-    hb[r] = b + len * 0x9E3779B9u;
-    st[r] = (uint32_t)lw + 1u + base;
+    Word w;
+    for (int64_t i = lw + 1; i <= g; ++i) w.add(buf[i]);
+    word_row(w, (uint32_t)e - (uint32_t)lw, (uint32_t)lw + 1u + base, ha[r], hb[r], st[r]);
   }
 }
 
 int row_blocks(int rows) {
   const int b = (rows + kThreads - 1) / kThreads;
   return b < 1 ? 1 : (b > 65535 * 8 ? 65535 * 8 : b);
+}
+
+// The auto form, one launch.  Bytes are addressed by their place u in the
+// 16-byte aligned span that holds the buffer: u = i + off, off = buf & 15,
+// so every 16-byte vector a thread takes is aligned in device memory and in
+// shared memory.  Bytes outside [0, n) read as whitespace: position -1
+// ends a walk back as the JAX program's -1 does, and position n makes the
+// last byte an end.  A block takes tile t (kWordTile bytes of u) by an
+// atomic ticket, loads it with the kHalo bytes before it and the vector
+// after it into shared memory (16-byte loads, all in flight at once; a
+// vector wholly outside the buffer is not read), finds each vector's ends
+// and whitespace as 16-bit masks, ranks them within the tile by one block
+// scan of 16-bit counts packed in 64 bits, publishes the tile's count and
+// finds its first end's rank by decoupled look-back over the tiles before
+// it.  Then, a round at a time (one vector a thread): each warp stages its
+// words as (first byte, last byte) (a word that began before the warp's
+// bytes is walked back to its start by lane 0: through shared memory,
+// then, past the halo, device memory), one lane a word hashes it from
+// shared memory (up to 8 bytes from one unaligned 8-byte read, each byte's
+// power a constant), and the block writes the round's rows with 16-byte
+// stores where the outputs are 16-byte aligned.
+constexpr int kWordThreads = 256;
+constexpr int kWordWarps = kWordThreads / 32;
+constexpr int kWordVecs = 2;  // 16-byte vectors a thread takes of its tile
+constexpr int kWordTile = kWordThreads * kWordVecs * 16;  // bytes a tile
+constexpr int kHalo = 256;  // bytes before the tile held in shared memory
+constexpr int kHaloVecs = kHalo / 16;
+constexpr int kSmemVecs = kHaloVecs + kWordThreads * kWordVecs + 1;  // and the vector after the tile
+constexpr int kRoundEnds = kWordThreads * 16 / 2;  // the most ends a round (a vector a thread) holds
+static_assert(kWordVecs <= 4, "four 16-bit counts a thread travel in one 64-bit scan");
+
+int64_t word_tiles(int64_t n, int off) { return (n + off + kWordTile - 1) / kWordTile; }
+
+__device__ __forceinline__ uint4 spaces4() { return make_uint4(0x20202020u, 0x20202020u, 0x20202020u, 0x20202020u); }
+
+// The aligned vector at u0 of the span, bytes outside [lo, hi) as
+// whitespace; one wholly outside is not read.
+__device__ __forceinline__ uint4 load_vec(const uint8_t* span, int64_t u0, int64_t lo, int64_t hi) {
+  if (u0 + 16 <= lo || u0 >= hi) return spaces4();
+  uint4 v = __ldg(reinterpret_cast<const uint4*>(span + u0));
+  if (u0 < lo || u0 + 16 > hi) {
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int64_t u = u0 + k;
+      if (u < lo || u >= hi) w[k >> 2] = (w[k >> 2] & ~(0xFFu << (8 * (k & 3)))) | (0x20u << (8 * (k & 3)));
+    }
+    v = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  return v;
+}
+
+// Bit k set where byte k of w is whitespace (k < 4).
+__device__ __forceinline__ uint32_t space_bits(uint32_t w) {
+  return ((__vcmpeq4(w, 0x20202020u) & 0x80808080u) * 0x00204081u) >> 28;
+}
+
+__device__ __forceinline__ uint32_t space_mask(uint4 v) {
+  return space_bits(v.x) | space_bits(v.y) << 4 | space_bits(v.z) << 8 | space_bits(v.w) << 12;
+}
+
+// bytes p .. p + 7 of shared memory (any p; 16-byte aligned base; 12
+// bytes readable from p & ~3) as a uint64, byte p lowest
+__device__ __forceinline__ uint64_t bytes8(const uint8_t* sb, int p) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(sb + (p & ~3));
+  const uint32_t a = w[0], b = w[1], c = w[2];
+  const uint32_t sh = 8u * (uint32_t)(p & 3);
+  return (uint64_t)__funnelshift_r(a, b, sh) | (uint64_t)__funnelshift_r(b, c, sh) << 32;
+}
+
+// x**k mod 2**32 (a constant where k is)
+__host__ __device__ constexpr uint32_t pow_u32(uint32_t x, int k) { return k == 0 ? 1u : x * pow_u32(x, k - 1); }
+
+// The look-back status word of a tile: its count in the low 32 bits, above
+// it the call's tag times 2, plus 1 once the count is the inclusive prefix.
+// A word of another tag (an earlier call's, or 0 when the region is new) is
+// not yet written, so the region needs no clearing between calls.
+__device__ __forceinline__ void status_store(uint64_t* at, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(at), "l"(v) : "memory");
+}
+__device__ __forceinline__ uint64_t status_load(const uint64_t* at) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(at) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// Ends of tiles before `tile` (tag's status words), by one warp: 32
+// predecessors a round trip, nearest first; aggregates add up until an
+// inclusive prefix ends the walk.  A word not yet written stops the sum
+// there (the words nearer than it are added) and is read again.
+__device__ uint32_t look_back(const uint64_t* status, int64_t tile, uint32_t tag) {
+  const int lane = threadIdx.x & 31;
+  uint32_t excl = 0;
+  for (int64_t p = tile - 1;;) {
+    const int64_t q = p - lane;
+    uint64_t v = 0;
+    bool ready = true;
+    if (q >= 0) {
+      v = status_load(&status[q]);
+      ready = (uint32_t)(v >> 33) == tag;
+    }
+    const uint32_t waiting = __ballot_sync(0xffffffffu, !ready);
+    const uint32_t incl = __ballot_sync(0xffffffffu, ready && (q < 0 || ((v >> 32) & 1u)));
+    const uint32_t count = ready && q >= 0 ? (uint32_t)v : 0u;
+    const uint32_t needed = incl != 0 ? ((incl & (~incl + 1u)) << 1) - 1u : 0xffffffffu;  // up to the first inclusive
+    if (waiting & needed) {
+      const int k = __ffs(waiting & needed) - 1;  // the nearest word not yet written
+      excl += warp_sum(lane < k ? count : 0u);
+      p -= k;
+      continue;
+    }
+    if (incl != 0) {
+      const int first = __ffs(incl) - 1;
+      return excl + warp_sum(lane <= first ? count : 0u);
+    }
+    excl += warp_sum(count);
+    p -= 32;
+  }
+}
+
+__global__ void __launch_bounds__(kWordThreads)
+words_auto_kernel(const uint8_t* __restrict__ buf, int64_t n, int rows, int n_words, uint32_t base, int64_t tiles,
+                  uint32_t tag, uint32_t* __restrict__ ticket, uint64_t* __restrict__ status,
+                  uint32_t* __restrict__ ha, uint32_t* __restrict__ hb, uint32_t* __restrict__ st, bool vec_rows) {
+  __shared__ uint4 sv[kSmemVecs];
+  __shared__ __align__(16) uint32_t stage[3][kRoundEnds + 4];
+  __shared__ uint64_t warp_counts[kWordWarps];
+  __shared__ uint32_t tile_s, first_s, last_row[3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int off = (int)(reinterpret_cast<uintptr_t>(buf) & 15);
+  const uint8_t* span = buf - off;
+  const int64_t lo = off, hi = n + off;
+  if (threadIdx.x == 0) {
+    const uint32_t t = atomicAdd(ticket, 1u);
+    if ((int64_t)t == tiles - 1) *ticket = 0;  // every block has taken its ticket: ready for the next call
+    tile_s = t;
+    // rows past the ends found read e = n - 1: its word if the last byte
+    // ends one (set below by the thread that hashes it), else none
+    last_row[0] = last_row[1] = 0;
+    last_row[2] = (uint32_t)n + base;
+  }
+  __syncthreads();
+  const int64_t tile = tile_s;
+  const int64_t u_tile = tile * kWordTile, u_smem = u_tile - kHalo;
+  uint4 x[kWordVecs];
+#pragma unroll
+  for (int v = 0; v < kWordVecs; ++v) {
+    x[v] = load_vec(span, u_tile + (int64_t)(v * kWordThreads + threadIdx.x) * 16, lo, hi);
+  }
+  uint4 extra = spaces4();
+  if (threadIdx.x < kHaloVecs) extra = load_vec(span, u_smem + threadIdx.x * 16, lo, hi);
+  else if (threadIdx.x == kHaloVecs) extra = load_vec(span, u_tile + kWordTile, lo, hi);
+  // rows at or past n_words: the sentinel, grid-stride, while the loads fly
+  const int64_t nw = n_words < 0 ? 0 : (n_words < rows ? n_words : rows);
+  for (int64_t r = nw + (int64_t)blockIdx.x * kWordThreads + threadIdx.x; r < rows;
+       r += (int64_t)gridDim.x * kWordThreads) {
+    ha[r] = hb[r] = st[r] = kSentinel;
+  }
+#pragma unroll
+  for (int v = 0; v < kWordVecs; ++v) sv[kHaloVecs + v * kWordThreads + threadIdx.x] = x[v];
+  if (threadIdx.x < kHaloVecs) sv[threadIdx.x] = extra;
+  else if (threadIdx.x == kHaloVecs) sv[kSmemVecs - 1] = extra;
+  __syncthreads();
+
+  // each vector's whitespace and ends (a non-whitespace byte followed by
+  // whitespace; byte 16 is the next vector's first)
+  const uint8_t* sb = reinterpret_cast<const uint8_t*>(sv);
+  uint32_t sp[kWordVecs], ends[kWordVecs];
+  uint64_t packed = 0;
+#pragma unroll
+  for (int v = 0; v < kWordVecs; ++v) {
+    sp[v] = space_mask(x[v]);
+    uint32_t next_sp = __shfl_down_sync(0xffffffffu, sp[v] & 1u, 1);
+    if (lane == 31) next_sp = sb[(kHaloVecs + v * kWordThreads + threadIdx.x + 1) * 16] == kSpace;
+    ends[v] = ~sp[v] & ((sp[v] >> 1) | (next_sp << 15)) & 0xFFFFu;
+    packed |= (uint64_t)__popc(ends[v]) << (16 * v);
+  }
+  // ranks within the tile: vector v * kWordThreads + t comes after every
+  // vector of rounds before v and the vectors of round v of threads before t
+  uint64_t inc = packed;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t y = __shfl_up_sync(0xffffffffu, (unsigned long long)inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) warp_counts[warp] = inc;
+  __syncthreads();
+  uint64_t before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWordWarps; ++w) {
+    const uint64_t c = warp_counts[w];
+    if (w < warp) before += c;
+    total += c;
+  }
+  uint32_t count = 0, round_base[kWordVecs];
+#pragma unroll
+  for (int v = 0; v < kWordVecs; ++v) {
+    round_base[v] = count;
+    count += (uint32_t)(total >> (16 * v)) & 0xFFFFu;
+  }
+  if (warp == 0) {
+    uint32_t first = 0;
+    if (tile == 0) {
+      if (lane == 0) status_store(&status[0], (uint64_t)(2 * tag + 1) << 32 | count);
+    } else {
+      if (lane == 0) status_store(&status[tile], (uint64_t)(2 * tag) << 32 | count);
+      first = look_back(status, tile, tag);
+      if (lane == 0) status_store(&status[tile], (uint64_t)(2 * tag + 1) << 32 | (first + count));
+    }
+    if (lane == 0) first_s = first;
+  }
+  __syncthreads();
+  const int64_t first = first_s;
+
+  uint32_t* sa = stage[0];
+  uint32_t* sbh = stage[1];
+  uint32_t* ss = stage[2];
+#pragma unroll
+  for (int v = 0; v < kWordVecs; ++v) {
+    // the round's rows: [round_first, round_first + round_count), staged
+    // at (row - base_row), base_row 4-row aligned for 16-byte stores
+    const int64_t round_first = first + round_base[v];
+    const uint32_t round_count = (uint32_t)(total >> (16 * v)) & 0xFFFFu;
+    if (round_first >= nw) break;  // block-uniform: no row of the tile is left
+    const int64_t base_row = vec_rows ? round_first & ~int64_t{3} : round_first;
+    const uint32_t woff = (uint32_t)(round_first - base_row) + ((uint32_t)(before >> (16 * v)) & 0xFFFFu);
+    const uint32_t warp_count = (uint32_t)(warp_counts[warp] >> (16 * v)) & 0xFFFFu;
+    const int64_t warp_first = (int64_t)base_row + woff;
+    if (warp_first < nw) {  // warp-uniform
+      // each of the warp's words as (first byte, last byte) in shared-memory
+      // index (negative: before the window), then one lane a word hashes it
+      const int q = v * kWordThreads + threadIdx.x;
+      const int rel0 = kHalo + q * 16;  // the vector's first byte
+      int carry = 0;  // lane 0: the last whitespace before the warp's bytes
+      if (lane == 0) {
+        int r = rel0 - 1;
+        while (r >= 0 && sb[r] != kSpace) --r;
+        if (r < 0) {  // a word longer than the halo: walk on in device memory
+          int64_t i = u_smem - off - 1;
+          while (i >= 0 && buf[i] != kSpace) --i;
+          r = (int)(i + off - u_smem);
+        }
+        carry = r;
+      }
+      // the last whitespace before each lane's vector: a running max over
+      // the lanes before it, and lane 0's walk
+      int last = sp[v] ? rel0 + 31 - __clz(sp[v]) : INT_MIN;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, last, d);
+        if (lane >= d) last = max(last, y);
+      }
+      const int before_lane = __shfl_up_sync(0xffffffffu, last, 1);
+      carry = __shfl_sync(0xffffffffu, carry, 0);
+      const int prev = lane == 0 ? carry : max(before_lane, carry);
+      uint32_t slot = woff + ((uint32_t)((inc - packed) >> (16 * v)) & 0xFFFFu);
+      for (uint32_t rest = ends[v]; rest != 0; rest &= rest - 1) {
+        const int k = __ffs(rest) - 1;
+        const uint32_t below = sp[v] & ((1u << k) - 1u);
+        sa[slot] = (uint32_t)(below ? rel0 + 32 - __clz(below) : prev + 1);
+        sbh[slot] = (uint32_t)(rel0 + k);
+        ++slot;
+      }
+      __syncwarp();
+      for (uint32_t j = woff + lane; j < woff + warp_count && base_row + j < nw; j += 32) {
+        const int start = (int)sa[j], end = (int)sbh[j];
+        const uint32_t len = (uint32_t)(end - start + 1);
+        Word w;
+        if (start >= 0 && len <= 8) {
+          // up to 8 bytes from three 4-byte loads, each byte's power a
+          // constant: no chain of loads
+          const uint64_t x8 = bytes8(sb, start);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            if (k < (int)len) {
+              const uint32_t c = (uint32_t)(x8 >> (8 * k)) & 0xFFu;
+              w.a += (c + 1u) * pow_u32(kPowA, k);
+              w.b += (c + 1u) * pow_u32(kPowB, k);
+            }
+          }
+        } else if (start >= 0 && len <= kPowCap) {  // powers below the cap: no count kept
+          for (int p = start; p <= end; ++p) {
+            const uint32_t c = sb[p] + 1u;
+            w.a += c * w.pa;
+            w.b += c * w.pb;
+            w.pa *= kPowA;
+            w.pb *= kPowB;
+          }
+        } else {
+          for (int p = start; p <= end; ++p) w.add(p >= 0 ? sb[p] : buf[(int64_t)p + u_smem - off]);
+        }
+        const uint32_t at = (uint32_t)((int64_t)start + u_smem - off) + base;  // the first byte's position + base
+        word_row(w, len, at, sa[j], sbh[j], ss[j]);
+        if ((int64_t)end + u_smem - off == n - 1) word_row(w, len, at, last_row[0], last_row[1], last_row[2]);
+      }
+    }
+    __syncthreads();
+    // the round's rows below n_words, the whole block at once: 16-byte
+    // stores of 4 rows where the outputs allow, the round's ends one a row
+    const int64_t row_end = round_first + round_count < nw ? round_first + round_count : nw;
+    for (int64_t r = base_row + 4 * (int64_t)threadIdx.x; r < row_end; r += 4 * (int64_t)kWordThreads) {
+      const uint32_t i = (uint32_t)(r - base_row);
+      if (vec_rows && r >= round_first && r + 4 <= row_end) {
+        *reinterpret_cast<uint4*>(ha + r) = *reinterpret_cast<const uint4*>(sa + i);
+        *reinterpret_cast<uint4*>(hb + r) = *reinterpret_cast<const uint4*>(sbh + i);
+        *reinterpret_cast<uint4*>(st + r) = *reinterpret_cast<const uint4*>(ss + i);
+      } else {
+        for (int u = 0; u < 4; ++u) {
+          if (r + u >= round_first && r + u < row_end) {
+            ha[r + u] = sa[i + u];
+            hb[r + u] = sbh[i + u];
+            st[r + u] = ss[i + u];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tile == tiles - 1) {
+    // rows [ends found, n_words) read e = n - 1 (the rounds ended in a
+    // block-wide barrier)
+    for (int64_t r = first + count + threadIdx.x; r < nw; r += kWordThreads) {
+      ha[r] = last_row[0];
+      hb[r] = last_row[1];
+      st[r] = last_row[2];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -321,18 +630,10 @@ sort_hist_kernel(const uint32_t* __restrict__ ha, const uint32_t* __restrict__ h
     if (h[i] != 0) atomicAdd(&hist[i], h[i]);
 }
 
-// A look-back status word: the count in the low 32 bits, above it the pass's
-// tag, 2 (pass + 1) for the tile's own count (an aggregate) and one more for
-// its inclusive prefix; any other tag (0 after the memset, or an earlier
-// pass's) is not yet written.
-__device__ __forceinline__ void status_store(uint64_t* at, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(at), "l"(v) : "memory");
-}
-__device__ __forceinline__ uint64_t status_load(const uint64_t* at) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(at) : "memory");
-  return v;
-}
+// A pass's look-back status word (status_store, status_load): the count in
+// the low 32 bits, above it the pass's tag, 2 (pass + 1) for the tile's own
+// count (an aggregate) and one more for its inclusive prefix; any other tag
+// (0 after the memset, or an earlier pass's) is not yet written.
 
 // One pass: the tile of the next ticket, ranked by digit stably (each warp
 // ranks its 512 keys in order, then a scan over the warps and the digits),
@@ -537,37 +838,48 @@ runs_write_kernel(const uint64_t* __restrict__ keys, const uint32_t* __restrict_
 
 }  // namespace
 
-// wc_extract_words (deltas given) or wc_extract_words_auto (deltas null):
-// rows output rows of ha, hb, start (uint32 bits).  1 <= n < 2**31.
-//   auto:  scratch tiles_of(n) + 1 words, ends `rows` int32;
-//   delta: scratch tiles_of(rows) + 1 words, ends rows + 1 int32 (the scan).
-extern "C" int rtpu_wc_words(const void* buf, int64_t n, const void* deltas, int rows, int n_words,
-                             int64_t base, void* scratch, void* ends, void* ha, void* hb, void* st,
-                             void* stream) {
+// 64-bit words of the region rtpu_wc_words_auto takes for n bytes at any
+// alignment: the ticket, then a look-back status word a tile.
+extern "C" int64_t rtpu_wc_words_region_words(int64_t n) { return 1 + word_tiles(n, 15); }
+
+// wc_extract_words_auto: `rows` output rows of ha, hb, start (uint32 bits),
+// one launch.  1 <= n < 2**31, 0 <= rows <= n.  region: at least
+// rtpu_wc_words_region_words(n) words, zero when first used, which the calls
+// of one stream share; tag: in [1, 2**31), a different one each call since
+// the region was zeroed (every call leaves the ticket at 0).
+extern "C" int rtpu_wc_words_auto(const void* buf, int64_t n, int rows, int n_words, int64_t base, void* region,
+                                  int64_t tag, void* ha, void* hb, void* st, void* stream) {
+  if (n < 1 || n >= (int64_t{1} << 31) || rows < 0 || rows > n || tag < 1 || tag >= (int64_t{1} << 31))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto b = static_cast<const uint8_t*>(buf);
-  const auto sc = static_cast<uint32_t*>(scratch);
+  const uint8_t* b = static_cast<const uint8_t*>(buf);
+  const int64_t tiles = word_tiles(n, (int)(reinterpret_cast<uintptr_t>(buf) & 15));
+  auto words = static_cast<uint64_t*>(region);
+  const uint32_t call_tag = static_cast<uint32_t>(tag);
+  auto ha_ = static_cast<uint32_t*>(ha), hb_ = static_cast<uint32_t*>(hb), st_ = static_cast<uint32_t*>(st);
+  const bool vec_rows = ((reinterpret_cast<uintptr_t>(ha) | reinterpret_cast<uintptr_t>(hb) |
+                          reinterpret_cast<uintptr_t>(st)) & 15) == 0;
+  words_auto_kernel<<<(unsigned)tiles, kWordThreads, 0, s>>>(b, n, rows, n_words, (uint32_t)base, tiles, call_tag,
+                                                              reinterpret_cast<uint32_t*>(words), words + 1, ha_,
+                                                              hb_, st_, vec_rows);
+  return (int)cudaGetLastError();
+}
+
+// wc_extract_words: the ends are the inclusive sums of the deltas, minus 1.
+// Scratch tiles_of(rows) + 1 words, ends rows + 1 int32 (the scan's output).
+// 1 <= n < 2**31.  Four launches: a three-launch scan, then the words.
+extern "C" int rtpu_wc_words_deltas(const void* buf, int64_t n, const void* deltas, int rows, int n_words,
+                                    int64_t base, void* scratch, void* ends, void* ha, void* hb, void* st,
+                                    void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
   auto e = static_cast<int32_t*>(ends);
-  const uint32_t* found = nullptr;
-  if (deltas == nullptr) {
-    const int64_t t = tiles_of(n);
-    end_count_kernel<<<(unsigned)t, kThreads, 0, s>>>(b, n, sc);
-    scan_single_kernel<<<1, kThreads, 0, s>>>(sc, t, nullptr);
-    end_write_kernel<<<(unsigned)t, kThreads, 0, s>>>(b, n, sc, e, rows);
-    found = sc + t;
-  } else {
-    const cudaError_t err = scan_exclusive(static_cast<const uint32_t*>(deltas),
-                                           reinterpret_cast<uint32_t*>(e), rows, sc, s);
-    if (err != cudaSuccess) return (int)err;
-    e += 1;  // inclusive sums
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (rows > 0) {
-    words_kernel<<<row_blocks(rows), kThreads, 0, s>>>(
-        b, n, e, found, rows, n_words, (uint32_t)base, static_cast<uint32_t*>(ha),
-        static_cast<uint32_t*>(hb), static_cast<uint32_t*>(st));
-  }
+  cudaError_t err = scan_exclusive(static_cast<const uint32_t*>(deltas), reinterpret_cast<uint32_t*>(e), rows,
+                                   static_cast<uint32_t*>(scratch), s);
+  if (err != cudaSuccess || rows == 0) return (int)err;
+  words_kernel<<<row_blocks(rows), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(buf), n, e + 1, rows, n_words, (uint32_t)base, static_cast<uint32_t*>(ha),
+      static_cast<uint32_t*>(hb), static_cast<uint32_t*>(st));
   return (int)cudaGetLastError();
 }
 

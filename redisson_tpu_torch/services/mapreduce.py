@@ -326,33 +326,31 @@ def _wc_tokenize(vals: List[str], n_chunks: int, device, key=None,
                  parts: Optional[Dict[str, float]] = None) -> Optional[_WcScanView]:
     """Host join + device hashing, chunk by chunk; None means "use the host
     path" (non-ASCII whitespace).  Each chunk's end positions are found on
-    the device (wc_extract_words_auto): the host ships only the text.
+    the device (wc_extract_words_auto): the host ships only the text, and
+    each chunk's rows land at their place in the stream's three tensors.
     `parts`, when given, sums the seconds of the join and encode, the H2D
-    copies and the hashing (with the concatenation)."""
+    copies and the hashing."""
     csize = max(1, (len(vals) + n_chunks - 1) // n_chunks)
-    blobs: List[bytes] = []
-    padded: List[int] = []
-    nw = 0
-    words = []
-    base = 0
+    chunks = []
     t = time.perf_counter()
     for ci in range(0, len(vals), csize):
         chunk = _wc_chunk_bytes(vals[ci : ci + csize])
         if chunk is None:
             return None
-        big, buf, n_ends = chunk
-        t = _lap(parts, "join_encode_s", t, device)
+        chunks.append(chunk)
+    t = _lap(parts, "join_encode_s", t, device)
+    ebs = [K.bucket_size(max(1, n_ends)) for _, _, n_ends in chunks]
+    ha, hb, st = (torch.empty(sum(ebs), dtype=torch.int32, device=device) for _ in range(3))
+    at = base = 0
+    for (big, buf, n_ends), eb in zip(chunks, ebs):
         staged = torch.from_numpy(buf).to(device)
         t = _lap(parts, "h2d_s", t, device)
-        words.append(K.wc_extract_words_auto(staged, n_ends, K.bucket_size(max(1, n_ends)), base))
+        K.wc_extract_words_auto(staged, n_ends, eb, base, out=(ha, hb, st), at=at)
         t = _lap(parts, "wc_words_s", t, device)
-        blobs.append(big)
-        padded.append(buf.shape[0])
-        nw += n_ends
+        at += eb
         base += buf.shape[0]
-    ha, hb, st = (torch.cat([w[i] for w in words]) for i in range(3))
-    _lap(parts, "wc_words_s", t, device)
-    return _WcScanView(key, ha, hb, st, blobs, padded, nw)
+    return _WcScanView(key, ha, hb, st, [c[0] for c in chunks], [c[1].shape[0] for c in chunks],
+                       sum(c[2] for c in chunks))
 
 
 def prewarm_word_count(
@@ -373,10 +371,12 @@ def prewarm_word_count(
     eb = min(b, K.bucket_size(max(1, -(-total_words // n_chunks))))
     buf = np.full(b, 32, np.uint8)
     buf[:4] = np.frombuffer(b"abc ", np.uint8)  # one real token
-    part = K.wc_extract_words_auto(torch.from_numpy(buf).to(device), 1, eb, 0)
-    # the sort's shape is the CONCATENATED stream: n_chunks * eb
-    ha, hb, st = (torch.cat([part[i]] * n_chunks) for i in range(3))
-    K.wc_sort_runs(ha, hb, st, 1 << d_max_bits).cpu()
+    staged = torch.from_numpy(buf).to(device)
+    # the sort's shape is the whole stream: n_chunks * eb
+    stream = [torch.empty(n_chunks * eb, dtype=torch.int32, device=device) for _ in range(3)]
+    for i in range(n_chunks):
+        K.wc_extract_words_auto(staged, 1, eb, 0, out=stream, at=i * eb)
+    K.wc_sort_runs(*stream, 1 << d_max_bits).cpu()
 
 
 def _wc_reduce(view: _WcScanView, d_max: int, parts: Optional[Dict[str, float]] = None) -> Dict[str, int]:

@@ -9,8 +9,8 @@ them in the order to run, e.g. `parent . . parent`.  For each, a fresh
 process, started in that tree with only that tree on its path, builds the
 tree's kernels and runs its own chip_smoke.py phases check_bitset
 (bitset_get and bitset_set at config 5's shape and on 1M indexes into a
-2**28-lane plane), check_wordcount (config 4's stream: wc_words,
-wc_sort_runs, segment_reduce) and check_vector (knn_score, knn_select,
+2**28-lane plane), check_wordcount (config 4's stream: wc_words in both
+forms, wc_sort_runs, segment_reduce's int32 sum and float32 max) and check_vector (knn_score, knn_select,
 ivf_score, kmeans at config 7's shapes and 1M x 128), each kernel checked
 against its plain version as chip_smoke.py checks it; then config 7's IVF batch at nprobe 2, 4 and 8
 through the public wrappers every tree has (the route's knn_select,

@@ -1,4 +1,4 @@
-"""Time one-edit variants of two kernels against their shipped design, in
+"""Time one-edit variants of kernels against their shipped design, in
 turns, in one process on one card:
 
     python3 -m redisson_tpu_torch.tools.variant_ab [--out FILE]
@@ -33,11 +33,43 @@ the order shipped, variant, variant, shipped, with chip_smoke.py's timing
                differences of consecutive cuts time each step (timed only)
   and the two-launch update that replaced it:
     update_bucket_only  returns after the bucket kernel (timed only)
+  wc_words at config 4's first chunk (the auto form; the delta form timed
+  beside it), the four-launch design of commit 9c33264 cut after each of
+  its first three launches:
+    wc_upto_<step>  returns right after <step>'s launch (end count, scan,
+               end write; timed only)
+  and the one-launch design that replaced it, checked against the plain
+  version bit for bit:
+    tile_16k   tiles of 16 KB (four vectors a thread) for 8 KB
+    halo_64    a 64-byte halo before each tile for 256
+    memset     the look-back region cleared by a memset each call, in place
+               of the call's tag in its status words
+    cut_ranks  stops each tile after the look-back (timed only)
+    cut_loads  reads no byte of the buffer: every vector is "w23 " four
+               times (timed only)
+    cut_writes hashes and stages every word but writes no row (timed only)
+    cut_hash   stages each word's first and last byte but hashes none
+               (timed only)
+    cut_words  neither finds nor hashes a tile's words, writes its rows
+               (timed only)
+    threads_128     blocks of 128 threads, four vectors each (8 KB tiles)
+    threads_128_4k  blocks of 128 threads, two vectors each (4 KB tiles)
+  segment_reduce, 8,388,608 values into 1,024 keys (int32 sum, float32
+  max), the design of 9c33264 cut:
+    seg_upto_fill  returns after the fill (timed only)
+    seg_no_flush   the shared copies never added into the result (timed
+               only)
+  and the one-launch design, checked against the plain version:
+    cluster_1  no cluster: each block writes its own row
+    cluster_8  clusters of 8 blocks for 4
+    groups_4   four groups of four values a thread in flight for two
+    cut_loop   no reduce loop: the copies, merges and atomics alone (timed
+               only)
 
 A variant whose edit texts do not occur in the source (a design since
-replaced: the update steps apply to 44d9f96's csrc/kmeans.cu, so run the
-script in a checkout of that commit with this copy of it) is skipped and
-said so.  --only picks variants by name.  It prints one line per variant
+replaced: the update steps apply to 44d9f96's csrc/kmeans.cu, the
+wc_upto_ and seg_ cuts to 9c33264's sources, so run the script in a
+checkout of that commit with this copy of it) is skipped and said so.  --only picks variants by name.  It prints one line per variant
 and shape and, with --out, writes them as JSON.  The card's name and power
 limit come first.
 """
@@ -69,6 +101,14 @@ _UPDATE_STEPS = {
     "tile_apply": "kmeans_tile_apply_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(offs, M, tiles);",
     "scatter": "kmeans_scatter_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, s>>>(a, N, chunks, offs, order);",
 }
+# the launches of 9c33264's rtpu_wc_words (the auto form), in order
+_WC_STEPS = {
+    "end_count": "end_count_kernel<<<(unsigned)t, kThreads, 0, s>>>(b, n, sc);",
+    "scan": "scan_single_kernel<<<1, kThreads, 0, s>>>(sc, t, nullptr);",
+    "end_write": "end_write_kernel<<<(unsigned)t, kThreads, 0, s>>>(b, n, sc, e, rows);",
+}
+_SEG_FILL = ("fill_kernel<V, O><<<(unsigned)(fb < kMaxBlocks ? fb : kMaxBlocks), kThreads, 0, s>>>(o, "
+             "n_keys);")
 _BUCKET_LAUNCH = ("kmeans_bucket_kernel<<<B, kThreads, 0, s>>>(static_cast<const int32_t*>(assign), N, L, R, lst, "
                   "order);")
 VARIANTS = {
@@ -83,7 +123,45 @@ VARIANTS = {
         "update_bucket_only": [(_BUCKET_LAUNCH, _BUCKET_LAUNCH + _RETURN)],
     },
     "bitset": {"grid_only": [("if (max_count <= kBlockOps) {", "if (false) {")]},
+    # the four-launch wc_words of 9c33264 cut after each of its first three
+    # launches (end count, scan, end write; the fourth is the words kernel)
+    "wordcount": {**{f"wc_upto_{step}": [(text, text + "\n    return (int)cudaGetLastError();")]
+                     for step, text in _WC_STEPS.items()},
+                  # the one-launch design's choices
+                  "tile_16k": [("constexpr int kWordVecs = 2;", "constexpr int kWordVecs = 4;")],
+                  "halo_64": [("constexpr int kHalo = 256;", "constexpr int kHalo = 64;")],
+                  "memset": [("const uint32_t call_tag = static_cast<uint32_t>(tag);",
+                              "cudaMemsetAsync(region, 0, 8 * (1 + tiles), s);\n  const uint32_t call_tag = 1u;")],
+                  # cuts of the one-launch design (timed only): return after
+                  # the look-back; hash and stage every word but write no row
+                  "cut_ranks": [("if (round_first >= nw) break;", "if (round_first >= 0) break;")],
+                  "cut_loads": [("uint4 v = __ldg(reinterpret_cast<const uint4*>(span + u0));",
+                                 "uint4 v = make_uint4(0x20333277u, 0x20333277u, 0x20333277u, 0x20333277u);")],
+                  "cut_hash": [("j < woff + warp_count && base_row + j < nw; j += 32) {",
+                                "j < woff + warp_count && base_row + j < nw && n < 0; j += 32) {")],
+                  "cut_words": [("    if (warp_first < nw) {  // warp-uniform", "    if (warp_first < nw && n < 0) {")],
+                  "threads_128": [("constexpr int kWordThreads = 256;", "constexpr int kWordThreads = 128;"),
+                                  ("constexpr int kWordVecs = 2;", "constexpr int kWordVecs = 4;")],
+                  "threads_128_4k": [("constexpr int kWordThreads = 256;", "constexpr int kWordThreads = 128;")],
+                  "cut_writes": [("const int64_t row_end = round_first + round_count < nw ? round_first + round_count : nw;",
+                                  "const int64_t row_end = n < 0 ? nw : base_row;")]},
+    # 9c33264's segment_reduce: the fill alone, and everything but the flush
+    # of the shared copies into the result (its global atomics)
+    "segment": {"seg_upto_fill": [(_SEG_FILL, _SEG_FILL + "\n  return cudaGetLastError();")],
+                "seg_no_flush": [("j += blockDim.x) {\n      const V a = acc[j];\n      if (changed(a, id)) combine<O>",
+                                  "j += blockDim.x) {\n      const V a = acc[j];\n      if (changed(a, id) && n < 0) combine<O>")],
+                # the one-launch design's choices
+                "cluster_1": [("constexpr int kCluster = 4;", "constexpr int kCluster = 1;")],
+                "cluster_8": [("constexpr int kCluster = 4;", "constexpr int kCluster = 8;")],
+                "groups_4": [("constexpr int kGroups = 2;", "constexpr int kGroups = 4;")],
+                # a cut of the one-launch design (timed only): no reduce loop
+                "cut_loop": [("  reduce_into<K, V, O>(acc, keys, vals, n, head, groups, n_keys);\n\n  cg::",
+                              "  if (n < 0) reduce_into<K, V, O>(acc, keys, vals, n, head, groups, n_keys);\n\n  cg::")]},
 }
+
+# variants that stop a kernel part way: timed only
+CUTS = {name for lib in VARIANTS.values() for name in lib
+        if name.startswith(("update_upto_", "update_bucket_only", "wc_upto_", "seg_", "cut_"))}
 
 
 def applies(lib: str, name: str) -> bool:
@@ -116,11 +194,7 @@ def build_variants(todo) -> dict:
         log.close()
         if rc != 0:
             raise RuntimeError(f"nvcc failed for {lib}/{name}:\n{(out / f'{lib}_{name}.log').read_text()}")
-        handle = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES[lib].items():
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
-        handles[lib, name] = handle
+        handles[lib, name] = _build.bind(ctypes.CDLL(str(so)), lib)
     return handles
 
 
@@ -190,46 +264,96 @@ def main() -> int:
     print(f"built {len(todo)} variants in {time.perf_counter() - s:.1f}s", flush=True)
     results = []
 
+    # wc_words at config 4's first chunk (both forms), segment_reduce at the
+    # KernelMapReduce shape (int32 sum, float32 max), as chip_smoke.py builds
+    # them; a variant that computes the whole function is also held to the
+    # plain version bit for bit
+    if any(lib == "wordcount" for lib, _ in todo):
+        buf, n_words, eb, base = CS.wc_chunks(CS.config4_values(), dev)[0]
+        host = buf.cpu().numpy()
+        ws = host == 32
+        deltas = torch.from_numpy(np.diff(np.concatenate([[-1], np.nonzero(~ws & np.concatenate(
+            [ws[1:], [True]]))[0]])).astype(np.int32)).to(dev)
+        want = K.wc_extract_words_auto_plain(buf, n_words, eb, base)
+        for lib, name in todo:
+            if lib != "wordcount":
+                continue
+            times = in_turns(lib, handles[lib, name], lambda: CS.time_kernel(
+                lambda i: K.wc_extract_words_auto(buf, n_words, eb, base)))
+            r = {"kernel": "wc_words", "variant": name, "shape": f"config 4's first chunk, {buf.numel()} bytes, "
+                 f"eb {eb}", **times}
+            r.update({f"deltas_{k}": v for k, v in in_turns(lib, handles[lib, name], lambda: CS.time_kernel(
+                lambda i: K.wc_extract_words(buf, deltas, deltas.numel(), base))).items()})
+            if name not in CUTS:
+                with loaded(lib, handles[lib, name]):
+                    got = K.wc_extract_words_auto(buf, n_words, eb, base)
+                    torch.cuda.synchronize()
+                    r["equal_to_plain"] = all(torch.equal(g, w) for g, w in zip(got, want))
+            results.append(r)
+        del buf, deltas, want
+    if any(lib == "segment" for lib, _ in todo):
+        gen = np.random.default_rng(1234)
+        ivals = torch.from_numpy(gen.integers(-(2**31), 2**31 - 1, CS.KMR_N).astype(np.int32)).to(dev)
+        fvals = torch.from_numpy(gen.normal(0, 1000, CS.KMR_N).astype(np.float32)).to(dev)
+        keys = torch.remainder(ivals, CS.KMR_KEYS)
+        for lib, name in todo:
+            if lib != "segment":
+                continue
+            for vals, reduce, kind in ((ivals, "sum", "int32"), (fvals, "max", "float32")):
+                times = in_turns(lib, handles[lib, name], lambda: CS.time_kernel(
+                    lambda i: K.segment_reduce(keys, vals, CS.KMR_KEYS, reduce)))
+                r = {"kernel": "segment_reduce", "variant": name,
+                     "shape": f"{kind} {reduce}, {CS.KMR_N} values into {CS.KMR_KEYS} keys", **times}
+                if name not in CUTS:
+                    with loaded(lib, handles[lib, name]):
+                        got = K.segment_reduce(keys, vals, CS.KMR_KEYS, reduce)
+                        r["equal_to_plain"] = torch.equal(got, K.segment_reduce_plain(keys, vals, CS.KMR_KEYS,
+                                                                                      reduce))
+                results.append(r)
+        del ivals, fvals, keys
+    torch.cuda.empty_cache()
+
     # kmeans_assign and kmeans_update at config 7's training shape, as
     # chip_smoke.py builds it
-    n, w, nlist = CS.C7_POINTS[1][0], CS.C7_POINTS[1][1], CS.C7_NLIST
-    rng = np.random.default_rng(4321)
-    pts = torch.from_numpy(CS.c7_clustered(np.random.default_rng(CS.C7_SEED), n, w)).to(dev)
-    weights = torch.ones(n, device=dev)
-    weights[torch.from_numpy(rng.choice(n, 200, replace=False)).to(dev)] = 0.0
-    pts[weights == 0] = 0.0
-    init = np.sort(np.random.default_rng(0x1DF5EED ^ n).choice(np.nonzero(weights.cpu().numpy())[0], nlist,
-                                                                 replace=False))
-    cent = pts[torch.from_numpy(init).to(dev)].clone()
-    plain = K.kmeans_assign_plain(pts, weights, cent)
-    a0 = K.kmeans_assign(pts, weights, cent)
-    d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
-    two = torch.topk(d, 2, dim=1, largest=False).values
-    clear = (two[:, 1] - two[:, 0]) > CS.TIE_GAP * two[:, 0].abs().clamp(min=1.0)
-    del d, two
-    shipped_regs = registers(_build.BUILD_DIR / "kmeans.log", "kmeans_mma_kernel")
-    for lib, name in todo:
-        if lib != "kmeans":
-            continue
-        variant = handles[lib, name]
-        if name.startswith("update_"):
-            times = in_turns("kmeans", variant, lambda: CS.time_kernel(
-                lambda i: K.kmeans_update(pts, weights, cent, a0), reps=50))
-            results.append({"kernel": "kmeans_update", "variant": name, "shape": f"{n} x {w} x {nlist}", **times})
-            continue
-        times = in_turns("kmeans", variant, lambda: CS.time_kernel(lambda i: K.kmeans_assign(pts, weights, cent),
-                                                                   reps=50))
-        r = {"kernel": "kmeans_assign", "variant": name, "shape": f"{n} x {w} x {nlist}", **times,
-             "registers": registers(_build.BUILD_DIR / "variants" / f"kmeans_{name}.log", "kmeans_mma_kernel"), "shipped_registers": shipped_regs}
-        if name == "one_hi":
-            with loaded("kmeans", variant):
-                got = K.kmeans_assign(pts, weights, cent)
-            r["differ_outside_gap"] = int((got[clear] != plain[clear]).sum())
-            r["differ_near_ties"] = int((got[~clear] != plain[~clear]).sum())
-            r["points_outside_gap"], r["near_tied_points"] = int(clear.sum()), int((~clear).sum())
-        results.append(r)
-    del pts, weights, cent, plain, clear, a0
-    torch.cuda.empty_cache()
+    if any(lib == "kmeans" for lib, _ in todo):
+        n, w, nlist = CS.C7_POINTS[1][0], CS.C7_POINTS[1][1], CS.C7_NLIST
+        rng = np.random.default_rng(4321)
+        pts = torch.from_numpy(CS.c7_clustered(np.random.default_rng(CS.C7_SEED), n, w)).to(dev)
+        weights = torch.ones(n, device=dev)
+        weights[torch.from_numpy(rng.choice(n, 200, replace=False)).to(dev)] = 0.0
+        pts[weights == 0] = 0.0
+        init = np.sort(np.random.default_rng(0x1DF5EED ^ n).choice(np.nonzero(weights.cpu().numpy())[0], nlist,
+                                                                     replace=False))
+        cent = pts[torch.from_numpy(init).to(dev)].clone()
+        plain = K.kmeans_assign_plain(pts, weights, cent)
+        a0 = K.kmeans_assign(pts, weights, cent)
+        d = ((pts * pts).sum(1)[:, None] - 2 * (pts @ cent.T) + (cent * cent).sum(1)[None, :]).double()
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        clear = (two[:, 1] - two[:, 0]) > CS.TIE_GAP * two[:, 0].abs().clamp(min=1.0)
+        del d, two
+        shipped_regs = registers(_build.BUILD_DIR / "kmeans.log", "kmeans_mma_kernel")
+        for lib, name in todo:
+            if lib != "kmeans":
+                continue
+            variant = handles[lib, name]
+            if name.startswith("update_"):
+                times = in_turns("kmeans", variant, lambda: CS.time_kernel(
+                    lambda i: K.kmeans_update(pts, weights, cent, a0), reps=50))
+                results.append({"kernel": "kmeans_update", "variant": name, "shape": f"{n} x {w} x {nlist}", **times})
+                continue
+            times = in_turns("kmeans", variant, lambda: CS.time_kernel(lambda i: K.kmeans_assign(pts, weights, cent),
+                                                                       reps=50))
+            r = {"kernel": "kmeans_assign", "variant": name, "shape": f"{n} x {w} x {nlist}", **times,
+                 "registers": registers(_build.BUILD_DIR / "variants" / f"kmeans_{name}.log", "kmeans_mma_kernel"), "shipped_registers": shipped_regs}
+            if name == "one_hi":
+                with loaded("kmeans", variant):
+                    got = K.kmeans_assign(pts, weights, cent)
+                r["differ_outside_gap"] = int((got[clear] != plain[clear]).sum())
+                r["differ_near_ties"] = int((got[~clear] != plain[~clear]).sum())
+                r["points_outside_gap"], r["near_tied_points"] = int(clear.sum()), int((~clear).sum())
+            results.append(r)
+        del pts, weights, cent, plain, clear, a0
+        torch.cuda.empty_cache()
 
     # bitset_get and bitset_set at config 5's shape and on 1M ops into 2**28
     # lanes (one plane: 20 batches each on a plane 30% set), and the table

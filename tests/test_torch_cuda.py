@@ -16,6 +16,7 @@ import torch
 
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.utils import hashing as H
+import _wc_edges as E  # tests/ is on the path of a test module
 
 pytestmark = pytest.mark.cuda
 
@@ -884,6 +885,146 @@ def test_segment_reduce_empty_and_dropped(dev):
         assert torch.equal(empty, K.segment_reduce_plain(keys[:0], vals[:0], 3, reduce))
     with pytest.raises(ValueError):
         K.segment_reduce(keys, vals.to(torch.int64), 6, "sum")
+
+
+@pytest.mark.parametrize("case", list(E.wc_edge_buffers()))
+def test_wc_words_tile_edges_match_plain(dev, case):
+    """Both forms bit for bit against the plain version at wc_words' tile
+    and halo edges, for each row case (eb below the end count, n_words past
+    it, base near 2**32), on the buffer at its own allocation and as slices
+    starting 1 to 15 bytes past a 16-byte boundary."""
+    buf = E.wc_edge_buffers()[case]
+    big = torch.full((buf.size + 32,), 32, dtype=torch.uint8, device=dev)
+    for off in range(16):
+        t = torch.from_numpy(buf).to(dev) if off == 0 else big[off: off + buf.size]
+        if off:
+            t.copy_(torch.from_numpy(buf).to(dev))
+            assert t.data_ptr() % 16 == off
+        for n_words, eb, base in E.wc_row_cases(buf) if off in (0, 7) else E.wc_row_cases(buf)[:1]:
+            _same(K.wc_extract_words_auto(t, n_words, eb, base), K.wc_extract_words_auto_plain(t, n_words, eb, base))
+            d = torch.from_numpy(E.true_deltas(buf, eb).astype(np.int32)).to(dev)
+            _same(K.wc_extract_words(t, d, n_words, base), K.wc_extract_words_plain(t, d, n_words, base))
+
+
+def test_wc_words_auto_three_calls_in_a_row_are_equal(dev):
+    """The look-back region is shared by every call on a stream and never
+    cleared: three calls in a row (and calls on other sizes between them)
+    give the plain version's rows."""
+    rng = np.random.default_rng(12)
+    big = torch.from_numpy(_text(rng, 60000)).to(dev)
+    small = torch.from_numpy(_text(rng, 300)).to(dev)
+    found = _ends(big.cpu().numpy())
+    want = K.wc_extract_words_auto_plain(big, found, found, 3)
+    for _ in range(3):
+        _same(K.wc_extract_words_auto(big, found, found, 3), want)
+        f = _ends(small.cpu().numpy())
+        _same(K.wc_extract_words_auto(small, f, f, 0), K.wc_extract_words_auto_plain(small, f, f, 0))
+
+
+def test_wc_words_rows_at_an_offset_of_a_stream(dev):
+    """out= and at= put a chunk's rows at their place in the stream's
+    tensors, the other rows untouched."""
+    rng = np.random.default_rng(8)
+    chunks = [torch.from_numpy(_text(rng, n)).to(dev) for n in (500, 900)]
+    ebs = [_ends(c.cpu().numpy()) for c in chunks]
+    stream = [torch.full((sum(ebs) + 5,), 7, dtype=torch.int32, device=dev) for _ in range(3)]
+    at = 0
+    for c, eb in zip(chunks, ebs):
+        got = K.wc_extract_words_auto(c, eb, eb, at, out=stream, at=at)
+        _same(got, K.wc_extract_words_auto_plain(c, eb, eb, at))
+        at += eb
+    torch.cuda.synchronize()
+    assert all(bool((t[at:] == 7).all()) for t in stream)
+    with pytest.raises(ValueError):
+        K.wc_extract_words_auto(chunks[0], ebs[0], ebs[0], 0, out=stream, at=sum(ebs))
+
+
+def test_wc_words_auto_and_segment_reduce_launch_one_kernel_a_call(dev):
+    """torch.profiler: one kernel a wc_words call in the auto form and a
+    segment_reduce call within the shared limit; two past it."""
+    rng = np.random.default_rng(3)
+    buf = torch.from_numpy(_text(rng, 20000)).to(dev)
+    found = _ends(buf.cpu().numpy())
+    assert len(_kernels_a_call(lambda: K.wc_extract_words_auto(buf, found, K.bucket_size(found), 0))) == 1
+    keys = torch.randint(-100, 2000, (1 << 20,), dtype=torch.int32, device=dev)
+    vals = torch.randint(-1000, 1000, (1 << 20,), dtype=torch.int32, device=dev)
+    limit = K.segment_shared_keys(dev)
+    for n_keys, want in ((1024, 1), (limit, 1), (limit + 1, 2)):
+        assert len(_kernels_a_call(lambda: K.segment_reduce(keys, vals, n_keys, "sum"))) == want, n_keys
+
+
+def _segment_all_equal(keys, n_keys, rng, nan=False):
+    """Every op and value type at these keys against the plain version:
+    int32 exact, whole float32 values exact (sum too), N(0, 1000) float32
+    max and min exact and its sum within _float_sum_limit; with nan, one
+    value in 97 NaN, kept by max and min."""
+    n = keys.numel()
+    dev = keys.device
+    ivals = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)).to(dev)
+    whole = torch.from_numpy(rng.integers(-100, 101, n).astype(np.float32)).to(dev)
+    fvals = torch.from_numpy(rng.normal(0, 1000, n).astype(np.float32)).to(dev)
+    if nan:
+        fvals[::97] = float("nan")
+    for reduce in K.SEGMENT_OPS:
+        for v in (ivals, whole, fvals):
+            got = K.segment_reduce(keys, v, n_keys, reduce)
+            want = K.segment_reduce_plain(keys, v, n_keys, reduce)
+            torch.cuda.synchronize()
+            assert got.dtype == v.dtype and got.shape == want.shape
+            if v is fvals and reduce == "sum":
+                assert torch.equal(got.isnan(), want.isnan())
+                keep = ~want.isnan()
+                err = (got[keep].double() - want[keep].double()).abs()
+                assert bool((err <= _float_sum_limit(keys, fvals.nan_to_num(0.0), n_keys)[keep]).all())
+            else:
+                assert torch.equal(got.isnan(), want.isnan()), reduce
+                assert torch.equal(got[~got.isnan()], want[~want.isnan()]), (reduce, v.dtype)
+
+
+@pytest.mark.parametrize("case", list(E.segment_edge_cases()))
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+def test_segment_reduce_share_edges_match_plain(dev, case, key_dtype):
+    keys, _, n_keys = E.segment_edge_cases()[case]
+    rng = np.random.default_rng(len(case))
+    _segment_all_equal(torch.from_numpy(keys).to(key_dtype).to(dev), n_keys, rng, nan=keys.size > 100)
+
+
+def test_segment_reduce_at_and_past_the_shared_limit(dev):
+    """n_keys at the shared limit (one launch) and one past it (a fill and
+    global atomics), keys up to 3 x n_keys either side."""
+    limit = K.segment_shared_keys(dev)
+    assert limit >= 12288
+    rng = np.random.default_rng(5)
+    for n_keys in (limit, limit + 1):
+        for key_dtype in (torch.int32, torch.int64):
+            keys = torch.from_numpy(rng.integers(-3 * n_keys, 3 * n_keys, 300_000)).to(key_dtype).to(dev)
+            _segment_all_equal(keys, n_keys, rng, nan=True)
+
+
+def test_segment_reduce_unaligned_operands_and_repeats(dev):
+    """Keys and values starting 1-3 elements past a 16-byte boundary (the
+    head before the aligned groups, or element loads when the two cannot
+    align together), NaN in max and min, and three calls in a row equal."""
+    rng = np.random.default_rng(9)
+    n = 100_003
+    keys = torch.from_numpy(rng.integers(-1500, 1500, n + 8)).to(dev)
+    vals = torch.from_numpy(rng.normal(0, 10, n + 8).astype(np.float32)).to(dev)
+    vals[::1001] = float("nan")
+    for key_dtype in (torch.int32, torch.int64):
+        k = keys.to(key_dtype)
+        for ko, vo in ((1, 1), (2, 2), (3, 3), (1, 2), (0, 3)):
+            kk, vv = k[ko: ko + n], vals[vo: vo + n]
+            for reduce in ("max", "min"):
+                want = K.segment_reduce_plain(kk, vv, 1000, reduce)
+                outs = [K.segment_reduce(kk, vv, 1000, reduce) for _ in range(3)]
+                torch.cuda.synchronize()
+                for got in outs:
+                    assert torch.equal(got.isnan(), want.isnan())
+                    assert torch.equal(got[~got.isnan()], want[~want.isnan()]), (key_dtype, ko, vo, reduce)
+            iv = (vv.nan_to_num(0.0) * 100).to(torch.int32)
+            want = K.segment_reduce_plain(kk, iv, 1000, "sum")
+            for _ in range(3):
+                assert torch.equal(K.segment_reduce(kk, iv, 1000, "sum"), want)
 
 
 def test_word_count_on_the_card_counts_launches(dev):

@@ -25,6 +25,7 @@ from redisson_tpu_torch.client.codec import StringCodec
 from redisson_tpu_torch.client.objects.map import MapLoader, MapOptions
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.services import mapreduce as MR
+import _wc_edges as E  # tests/ is on the path of a test module
 
 # the corpora of tests/test_wordcount_device.py
 CORPORA = [
@@ -145,6 +146,70 @@ def test_extract_edges_match_jax(case):
     _auto_both(buf, n_words, eb, base)
     for deltas in (_true_deltas(buf, eb), rng.integers(0, 40, eb), rng.integers(0, 65536, eb), np.zeros(eb)):
         _delta_both(buf, deltas, n_words, base)
+
+
+@pytest.mark.parametrize("case", list(E.wc_edge_buffers()))
+def test_extract_tile_edges_match_jax(case):
+    """The card tests' wc_words edges (tile and halo edges, long words, n
+    not a multiple of 16; eb below the end count, n_words past it, base
+    near 2**32), plain against JAX, also on a buffer that starts 7 bytes
+    into a larger one."""
+    buf = E.wc_edge_buffers()[case]
+    for n_words, eb, base in E.wc_row_cases(buf):
+        _auto_both(buf, n_words, eb, base)
+        _delta_both(buf, E.true_deltas(buf, eb), n_words, base)
+    big = np.full(buf.size + 16, 32, np.uint8)
+    big[7: 7 + buf.size] = buf
+    n_words, eb, base = E.wc_row_cases(buf)[0]
+    _auto_both(big[7: 7 + buf.size], n_words, eb, base)
+
+
+def _jax_segment(keys, vals, n_keys, reduce):
+    """KernelMapReduce.pipeline's reduction (redisson_tpu/services/mapreduce.py)."""
+    k, v = jnp.asarray(keys.astype(np.int32)), jnp.asarray(vals)
+    if reduce == "sum":
+        return np.asarray(jnp.zeros((n_keys,), v.dtype).at[k].add(v))
+    if reduce == "max":
+        lo = jnp.iinfo(v.dtype).min if v.dtype.kind == "i" else -jnp.inf
+        return np.asarray(jnp.full((n_keys,), lo, v.dtype).at[k].max(v))
+    hi = jnp.iinfo(v.dtype).max if v.dtype.kind == "i" else jnp.inf
+    return np.asarray(jnp.full((n_keys,), hi, v.dtype).at[k].min(v))
+
+
+@pytest.mark.parametrize("case", list(E.segment_edge_cases()) + ["n_keys at the card's shared limit and past it"])
+def test_segment_edges_match_jax(case):
+    """The card tests' segment_reduce edges, plain against JAX's .at[]:
+    int32 exact; float32 max and min exact with NaN kept; the float32 sum
+    within the rounding of two orders."""
+    rng = np.random.default_rng(3)
+    if case in E.segment_edge_cases():
+        keys, ivals, n_keys = E.segment_edge_cases()[case]
+        sets = [(keys, ivals, n_keys)]
+    else:
+        sets = []
+        for n_keys in (58108, 58109):
+            keys = rng.integers(-3 * n_keys, 3 * n_keys, 50_000)
+            sets.append((keys, rng.integers(-(2**31), 2**31 - 1, keys.size).astype(np.int32), n_keys))
+    for keys, ivals, n_keys in sets:
+        fvals = rng.normal(0, 1000, keys.size).astype(np.float32)
+        fvals[::97] = np.nan
+        for key_dtype in (torch.int32, torch.int64):
+            k = torch.from_numpy(keys).to(key_dtype)
+            for reduce in ("sum", "max", "min"):
+                got = K.segment_reduce(k, torch.from_numpy(ivals), n_keys, reduce).numpy()
+                np.testing.assert_array_equal(got, _jax_segment(keys, ivals, n_keys, reduce))
+                got = K.segment_reduce(k, torch.from_numpy(fvals), n_keys, reduce).numpy()
+                ref = _jax_segment(keys, fvals, n_keys, reduce)
+                if reduce == "sum":
+                    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+                    ok = ~np.isnan(ref)
+                    kk = np.where(keys < 0, keys + n_keys, keys)
+                    live = (kk >= 0) & (kk < n_keys)
+                    mag = np.bincount(kk[live], np.abs(np.nan_to_num(fvals[live])).astype(np.float64), n_keys)
+                    cnt = np.bincount(kk[live], minlength=n_keys)
+                    assert np.all(np.abs(got[ok].astype(np.float64) - ref[ok]) <= 2 * cnt[ok] * 2.0**-24 * mag[ok])
+                else:
+                    np.testing.assert_array_equal(got, ref)
 
 
 def test_extract_auto_refuses_eb_past_the_buffer():

@@ -99,6 +99,24 @@ Phases (any failure raises and the script exits non-zero):
      dispatch's steps on the host, each kernel wrapper's call and device
      time, readback, finish, and the masked query's (Qb, cap) prefilter
      bias built and uploaded);
+     last, the server (run_server): redisson_tpu_torch.server.ServerThread
+     on the card, driven over TCP with the port's net.client.Connection
+     (printing which RESP codec runs, native or Python): config 2 over the
+     wire (BFA.RESERVE of the embedded bank's geometry, 10M keys in 100
+     BFA.MADD64 frames, 30 BFA.MEXISTS64 frames of 100,000 keys: round-trip
+     p50/p99, 0 false negatives, the false-positive rate in [0.005, 0.02],
+     and a pipelined window of 50 frames), config 5's command stream
+     (bench.py:399-428; a warm rep, then four timed reps, every probe found,
+     fewer bloom launches a rep than its 128 BF blob commands, or it
+     fails: the runs coalesced), config 3 over the wire (ten HLLA.MADD64
+     frames of 1M ops, HLLA.MERGEROWS of 5,000 pairs, HLLA.ESTIMATE), one
+     BFA.MEXISTS64 frame's spans with the tracer armed (parse, qos,
+     dispatch, the kernel launch, readback, encode, reply), and the mixed
+     stream of every served verb (tools/wire_stream.py) on a card server
+     and a CPU server, RESP2 then RESP3: equal replies, PFCOUNT and the
+     HLLA estimates within their contract; the path must launch
+     bloom_probe, bloom_set or bloom_add, hll_add, hll_rows, bitset_get and
+     bitset_set;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -210,7 +228,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "single_adds": ("bloom_probe", "bloom_set"),
                 "fanout": ("bloom_probe", "bloom_set", "bitset_set", "bitset_get"),
                 "config4": ("wc_words", "wc_sort_runs", "segment_reduce"),
-                "config7": VECTOR_KERNELS}
+                "config7": VECTOR_KERNELS,
+                "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
 FPP = 0.01
 
 
@@ -1303,26 +1322,38 @@ def kmeans_update_reference(pts, w, cent, assign):
     return np.where(cnt[:, None] > 0, sums / np.maximum(cnt, np.float32(1))[:, None], cent)
 
 
+# traces of one call that kernels_per_call takes before it gives up on an
+# empty one, and processes that kernels_a_call starts before it does
+TRACE_ATTEMPTS = 3
+CHILD_ATTEMPTS = 3
+
+
 def kernels_per_call(fn):
     """CUDA kernels one call of fn launches, read from a torch.profiler trace
     of that call (memsets and copies not counted); None where the profiler
-    records no device activity."""
+    records no device activity in any of TRACE_ATTEMPTS traces (CUPTI on
+    the card's machine now and then hands back an empty one)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as exc:  # a trace that cannot start measures nothing; the kernel ran above
-        log(f"torch.profiler: {exc}")
-        return None
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(1 for n in names if not n.startswith(("Memset", "Memcpy"))) or None
+    for attempt in range(TRACE_ATTEMPTS):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        except RuntimeError as exc:  # a trace that cannot start measures nothing; the kernel ran above
+            log(f"torch.profiler: {exc}")
+            continue
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = sum(1 for n in names if not n.startswith(("Memset", "Memcpy")))
+        if kernels:
+            return kernels
+        log(f"torch.profiler: an empty trace (attempt {attempt + 1} of {TRACE_ATTEMPTS})")
+    return None
 
 
-def kernels_a_call_here(dev) -> dict:
+def kernels_a_call_here(dev, only=None) -> dict:
     """Kernels one call launches, by torch.profiler (kernels_per_call), for
     each wrapper held to one kernel a call, at the shapes the main path gives
     it: bitset_get and bitset_set at config 5's shape (bitset_set's
@@ -1335,63 +1366,63 @@ def kernels_a_call_here(dev) -> dict:
     the IVF candidates' 64 x nprobe x 112 slots with ids (config 7's cells
     hold 112).  Run in a process of its own (--kernels-a-call): in this
     script's long process torch.profiler's traces come back empty after the
-    first few."""
+    first few.  `only` (a set of keys) limits the counts to those keys."""
     from redisson_tpu_torch.client.objects.bitset import _DEFAULT_BITS
     from redisson_tpu_torch.core import kernels as K
     from redisson_tpu_torch.ops import bittensor as bt
 
     rng = np.random.default_rng(5)
     counts = {}
+
+    def measure(key, fn):
+        if only is None or key in only:
+            counts[key] = kernels_per_call(fn)
     for key, (size, hi, n) in {"config5": (bt.padded_size(_DEFAULT_BITS), C5_BITS, C5_BIT_OPS),
                                "bitmap_2_28": (1 << BITMAP_LOG2, 1 << BITMAP_LOG2, BITMAP_OPS)}.items():
         plane = torch.zeros(size, dtype=torch.uint8, device=dev)
         idx = index_batch(rng, n, hi, dev)
-        counts[f"bitset_get {key}"] = kernels_per_call(lambda: K.bitset_get(plane, idx))
-        counts[f"bitset_set {key}"] = kernels_per_call(lambda: K.bitset_set(plane, idx, n, 1))
+        measure(f"bitset_get {key}", lambda: K.bitset_get(plane, idx))
+        measure(f"bitset_set {key}", lambda: K.bitset_set(plane, idx, n, 1))
         del plane, idx
     groups = 2 * C5_TENANTS
     planes = [torch.zeros(bt.padded_size(_DEFAULT_BITS), dtype=torch.uint8, device=dev) for _ in range(groups)]
     idx = [host_indexes(rng, C5_BIT_OPS, 0, C5_BITS) for _ in range(groups)]
     for wrapper, value in (("bitset_get", None), ("bitset_set", 1)):
-        counts[f"{wrapper} table form, fanout's level of {groups}"] = kernels_per_call(
-            lambda: K.bitset_groups(planes, idx, [value] * groups))
+        measure(f"{wrapper} table form, fanout's level of {groups}",
+                lambda: K.bitset_groups(planes, idx, [value] * groups))
     del planes
     n, w, nlist = C7_POINTS[1][0], C7_POINTS[1][1], C7_NLIST
     for label, (rows, width, cents) in (("tensor-core", (n, w, nlist)), ("tile", KMEANS_WIDE)):
         pts = torch.randn((rows, width), device=dev)
         cent, wt = pts[:cents].clone(), torch.ones(rows, device=dev)
-        counts[f"kmeans_assign {label} {rows} x {width} x {cents}"] = kernels_per_call(
-            lambda: K.kmeans_assign(pts, wt, cent))
+        measure(f"kmeans_assign {label} {rows} x {width} x {cents}", lambda: K.kmeans_assign(pts, wt, cent))
         assign = K.kmeans_assign(pts, wt, cent)
-        counts[f"kmeans_update {rows} x {width} x {cents}"] = kernels_per_call(
-            lambda: K.kmeans_update(pts, wt, cent, assign))
+        measure(f"kmeans_update {rows} x {width} x {cents}", lambda: K.kmeans_update(pts, wt, cent, assign))
         del pts, cent, wt, assign
     shapes = [(c7_cap(C7_SIFT[0]), C7_K, False), (c7_cap(C7_POINTS[1][0]), C7_K, False)]
     shapes += [(nlist, nprobe, False) for nprobe in C7_NPROBES] + [(112 * nprobe, C7_K, True) for nprobe in C7_NPROBES]
     for cols, k, with_ids in shapes:
         d = torch.randn((C7_QB, cols), device=dev)
         ids = torch.randint(0, 1 << 20, (C7_QB, cols), dtype=torch.int32, device=dev) if with_ids else None
-        counts[f"knn_select {C7_QB} x {cols} k {k}{' ids' if with_ids else ''}"] = kernels_per_call(
-            lambda: K.knn_select(d, k, ids))
+        measure(f"knn_select {C7_QB} x {cols} k {k}{' ids' if with_ids else ''}",
+                lambda: K.knn_select(d, k, ids))
         del d, ids
     buf, n, eb, base = wc_chunks(config4_values(), dev)[0]
     host = buf.cpu().numpy()
     ws = host == 32
     deltas = torch.from_numpy(np.diff(np.concatenate([[-1], np.nonzero(~ws & np.concatenate(
         [ws[1:], [True]]))[0]])).astype(np.int32)).to(dev)
-    counts["wc_words auto, config 4's first chunk"] = kernels_per_call(
-        lambda: K.wc_extract_words_auto(buf, n, eb, base))
-    counts["wc_words deltas, config 4's first chunk"] = kernels_per_call(
-        lambda: K.wc_extract_words(buf, deltas, deltas.numel(), base))
+    measure("wc_words auto, config 4's first chunk", lambda: K.wc_extract_words_auto(buf, n, eb, base))
+    measure("wc_words deltas, config 4's first chunk", lambda: K.wc_extract_words(buf, deltas, deltas.numel(), base))
     del buf, deltas
     vals = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, KMR_N).astype(np.int32)).to(dev)
     keys = torch.remainder(vals, KMR_KEYS)
     for label, v, reduce in (("int32 sum", vals, "sum"), ("float32 max", vals.to(torch.float32), "max")):
-        counts[f"segment_reduce {label}, {KMR_N} x {KMR_KEYS}"] = kernels_per_call(
-            lambda: K.segment_reduce(keys, v, KMR_KEYS, reduce))
+        measure(f"segment_reduce {label}, {KMR_N} x {KMR_KEYS}",
+                lambda: K.segment_reduce(keys, v, KMR_KEYS, reduce))
     past = K.segment_shared_keys(dev) + 1
-    counts[f"segment_reduce past the shared limit, {KMR_N} x {past}"] = kernels_per_call(
-        lambda: K.segment_reduce(vals, vals, past, "sum"))
+    measure(f"segment_reduce past the shared limit, {KMR_N} x {past}",
+            lambda: K.segment_reduce(vals, vals, past, "sum"))
     return counts
 
 
@@ -1410,13 +1441,22 @@ def kernels_allowed(key: str) -> int:
 def kernels_a_call() -> dict:
     """kernels_a_call_here's counts, taken in a child process of this
     script; raises unless each call launched one kernel, or between one and
-    KERNELS_A_CALL's count for the wrappers listed there."""
+    KERNELS_A_CALL's count for the wrappers listed there.  A key whose
+    traces all came back empty is counted again in a new child, up to
+    CHILD_ATTEMPTS children in all."""
     here = os.path.abspath(__file__)
-    out = subprocess.run([sys.executable, here, "--kernels-a-call"], capture_output=True, text=True, timeout=600,
-                         cwd=os.path.dirname(here))
-    if out.returncode != 0:
-        raise AssertionError(f"kernels a call: the child exited {out.returncode}: {out.stderr[-4000:]}")
-    counts = json.loads(out.stdout.strip().splitlines()[-1])
+    counts, only = {}, None
+    for _ in range(CHILD_ATTEMPTS):
+        args = [] if only is None else [json.dumps(sorted(only))]
+        out = subprocess.run([sys.executable, here, "--kernels-a-call", *args], capture_output=True, text=True,
+                             timeout=600, cwd=os.path.dirname(here))
+        if out.returncode != 0:
+            raise AssertionError(f"kernels a call: the child exited {out.returncode}: {out.stderr[-4000:]}")
+        counts.update(json.loads(out.stdout.strip().splitlines()[-1]))
+        only = {k for k, v in counts.items() if v is None}
+        if not only:
+            break
+        log(f"kernels a call: empty traces for {sorted(only)}; counting them again in a new child")
     wrong = {k: v for k, v in counts.items() if v is None or not 1 <= v <= kernels_allowed(k)}
     if wrong:
         raise AssertionError(f"kernels a call by torch.profiler, not as KERNELS_A_CALL allows (None: an empty "
@@ -2995,6 +3035,319 @@ def rbatch_stream(client, rng, overlap: bool) -> list:
         ioplane.set_overlap(prev)
 
 
+# --------------------------------------------------------------------------
+# phase 4, the server: redisson_tpu_torch.server on the card, over the wire
+# --------------------------------------------------------------------------
+
+# config 2 over the wire (bench.py:737-803's BFA.* blob flushes): the bank
+# populated in frames of 100,000 keys, 30 synchronous BFA.MEXISTS64 frames
+# and a pipelined window of 50; the embedded bank's geometry
+SRV_C2_FRAME, SRV_C2_PROBES, SRV_C2_WINDOW = 100_000, 30, 50
+C2_LANES, C2_K = 96_256, 7
+# config 5's command stream on one server (bench.py:399-428): one warm rep,
+# then timed reps; config 3 over the wire: ten HLLA.MADD64 frames of 1M ops
+SRV_C5_REPS = 4
+# the mixed stream of every served verb, card server against CPU server
+SRV_MIXED_SCALE = 8
+
+
+def server_config5_cmds(rng, tag: str):
+    """bench.py:399-428's config 5 stream (`_mixed_cluster_cmds`), one rep:
+    BF.RESERVE, BF.MADD64 and BF.MEXISTS64 a tenant (three runs of 64),
+    SETBITSB of 500 indexes below 100,000 into two bit sets a tenant, then
+    BITOP OR and XOR.  Returns (commands, ops counted as bench.py counts)."""
+    keysets = [np.arange(t * C5_PER, (t + 1) * C5_PER, dtype=np.int64) * 2654435761
+               for t in range(C5_TENANTS)]
+    blobs = [np.ascontiguousarray(ks, "<i8").tobytes() for ks in keysets]
+    cmds = [("BF.RESERVE", f"bf{tag}{{t{t}}}", FPP, C5_PER) for t in range(C5_TENANTS)]
+    cmds += [("BF.MADD64", f"bf{tag}{{t{t}}}", blobs[t]) for t in range(C5_TENANTS)]
+    cmds += [("BF.MEXISTS64", f"bf{tag}{{t{t}}}", blobs[t]) for t in range(C5_TENANTS)]
+    ops = 2 * C5_TENANTS * C5_PER
+    for t in range(C5_TENANTS):
+        i1 = np.ascontiguousarray(rng.integers(0, C5_BITS, C5_BIT_OPS), "<i4").tobytes()
+        i2 = np.ascontiguousarray(rng.integers(0, C5_BITS, C5_BIT_OPS), "<i4").tobytes()
+        cmds.append(("SETBITSB", f"bits{tag}{{t{t}}}", i1))
+        cmds.append(("SETBITSB", f"bits2{tag}{{t{t}}}", i2))
+        cmds.append(("BITOP", "OR", f"bits{tag}{{t{t}}}", f"bits{tag}{{t{t}}}", f"bits2{tag}{{t{t}}}"))
+        cmds.append(("BITOP", "XOR", f"bits{tag}{{t{t}}}", f"bits{tag}{{t{t}}}", f"bits2{tag}{{t{t}}}"))
+        ops += 2 * C5_BIT_OPS + 2
+    return cmds, ops
+
+
+def _i8(a) -> bytes:
+    return np.ascontiguousarray(a, "<i8").tobytes()
+
+
+def _i4(a) -> bytes:
+    return np.ascontiguousarray(a, "<i4").tobytes()
+
+
+def traced(fn) -> tuple:
+    """Run fn() with the tracer armed: (the frames' traces, fn's wall s)."""
+    from redisson_tpu_torch.observe import trace as obs
+
+    obs.TRACER.reset()
+    prev = obs.set_tracing(True)
+    try:
+        s = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - s
+        for _ in range(100):  # the writer task closes a trace after its write
+            if obs.TRACER.census()["trace_inflight"] == 0:
+                break
+            time.sleep(0.01)
+    finally:
+        obs.set_tracing(prev)
+    return obs.TRACER.entries(), wall
+
+
+def stage_ms(traces) -> dict:
+    """Summed ms by stage over `traces` (member child spans excluded)."""
+    out: dict = {}
+    for tr in traces:
+        for stage, us in tr.stage_totals().items():
+            out[stage] = out.get(stage, 0.0) + us / 1e3
+    return out
+
+
+def verb_ms(server, fn) -> dict:
+    """Handler ms and calls by verb while fn() runs (the server's
+    command.<verb> timers, which every dispatch records)."""
+    def snap():
+        with server.metrics._lock:
+            return {k: (t.count, t.total_s) for k, t in server.metrics._timers.items() if k.startswith("command.")}
+
+    before = snap()
+    fn()
+    after = snap()
+    return {k[len("command."):]: {"calls": c - before.get(k, (0, 0.0))[0],
+                                  "ms": (t - before.get(k, (0, 0.0))[1]) * 1e3}
+            for k, (c, t) in after.items() if c != before.get(k, (0, 0.0))[0]}
+
+
+def server_config2(conn, engine, rng) -> dict:
+    import redisson_tpu_torch
+
+    if conn.execute("BFA.RESERVE", "srv:c2", C2_TENANTS, C2_PER_TENANT, FPP) != b"OK":
+        raise AssertionError("server config2: BFA.RESERVE")
+    rec = engine.store.get("srv:c2")
+    embedded = redisson_tpu_torch.create(device="cpu")
+    embedded.get_bloom_filter_array("c2").try_init(C2_TENANTS, C2_PER_TENANT, FPP)
+    want = embedded.engine.store.get("c2")
+    shape, want_shape = tuple(rec.arrays["bits"].shape), tuple(want.arrays["bits"].shape)
+    if shape != want_shape or rec.meta["k"] != want.meta["k"] or (
+            C2_TENANTS * C2_PER_TENANT == 10_000_000 and (shape, rec.meta["k"]) != ((C2_TENANTS, C2_LANES), C2_K)):
+        raise AssertionError(f"server config2: bank {tuple(rec.arrays['bits'].shape)} k {rec.meta['k']}, "
+                             f"not the embedded {tuple(want.arrays['bits'].shape)} k {want.meta['k']}")
+    embedded.shutdown()
+    frames = []
+    for start in range(0, C2_TENANTS * C2_PER_TENANT, SRV_C2_FRAME):
+        keys = np.arange(start, start + SRV_C2_FRAME, dtype=np.int64) * 2654435761
+        frames.append(("BFA.MADD64", "srv:c2", _i4((keys * 40503) % C2_TENANTS), _i8(keys)))
+    s = time.perf_counter()
+    newly = 0
+    for i in range(0, len(frames), 10):  # ten frames in flight at a time
+        pending = [conn.execute_many_lazy([f]) for f in frames[i:i + 10]]
+        for p in pending:
+            newly += int(np.frombuffer(p.get()[0], np.uint8).sum())
+    populate_s = time.perf_counter() - s
+    flushes = [config2_flush(rng) for _ in range(SRV_C2_PROBES)]
+    conn.execute("BFA.MEXISTS64", "srv:c2", _i4(flushes[0][0]), _i8(flushes[0][1]))  # warm
+    lat, fps = [], []
+    for t, ks in flushes:
+        s = time.perf_counter()
+        reply = conn.execute("BFA.MEXISTS64", "srv:c2", _i4(t), _i8(ks))
+        lat.append(time.perf_counter() - s)
+        found = np.frombuffer(reply, np.uint8)
+        if found.size != C2_FLUSH or not found[0::2].all():
+            raise AssertionError("server config2: false negatives")
+        fps.append(found[1::2].mean())
+    fp = float(np.mean(fps))
+    fp_band(fp, "server config2")
+    window = [("BFA.MEXISTS64", "srv:c2", _i4(t), _i8(ks)) for t, ks in flushes[:10]]
+    s = time.perf_counter()
+    pending = [conn.execute_many_lazy([window[i % len(window)]]) for i in range(SRV_C2_WINDOW)]
+    for i, p in enumerate(pending):
+        if not np.frombuffer(p.get()[0], np.uint8)[0::2].all():
+            raise AssertionError("server config2: false negatives in the window")
+    window_s = time.perf_counter() - s
+    out = {"populate_keys": C2_TENANTS * C2_PER_TENANT, "populate_frames": len(frames),
+           "populate_s": populate_s, "populate_newly": newly, "frame_ops": C2_FLUSH,
+           "frame_p50_ms": pctl(lat, 50) * 1e3, "frame_p99_ms": pctl(lat, 99) * 1e3,
+           "absent_probes": len(flushes) * C2_FLUSH // 2, "false_positive_rate": fp,
+           "window_frames": SRV_C2_WINDOW, "window_contains_per_s": SRV_C2_WINDOW * C2_FLUSH / window_s}
+    log(f"server config2: BFA.RESERVE {shape[0]} x {shape[1]} lanes k {rec.meta['k']} (the embedded bank's), "
+        f"populate {out['populate_keys']} keys in {len(frames)} BFA.MADD64 frames {populate_s:.3f}s ({newly} newly); "
+        f"{len(flushes)} BFA.MEXISTS64 frames of {C2_FLUSH}: round trip p50 {out['frame_p50_ms']:.3f} ms "
+        f"p99 {out['frame_p99_ms']:.3f} ms, fp {fp:.5f} over {out['absent_probes']} absent keys, 0 false "
+        f"negatives; pipelined window of {SRV_C2_WINDOW} frames {out['window_contains_per_s'] / 1e6:.1f}M contains/s")
+    conn.execute("DEL", "srv:c2")
+    return out
+
+
+def server_config5(conn, server) -> dict:
+    from redisson_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(17)
+    bloom = ("bloom_probe", "bloom_set", "bloom_add")
+    blob_cmds = 2 * C5_TENANTS
+    reps = []
+    for rep in range(SRV_C5_REPS + 1):  # the first rep warms
+        cmds, ops = server_config5_cmds(rng, "w" if rep == 0 else f"r{rep}")
+        torch.cuda.synchronize()
+        before = dict(K.launches)
+        s = time.perf_counter()
+        replies = conn.execute_many(cmds)
+        wall = time.perf_counter() - s
+        launched = {k: K.launches[k] - before[k] for k in bloom}
+        for t, r in enumerate(replies[2 * C5_TENANTS: 3 * C5_TENANTS]):
+            if not np.frombuffer(r, np.uint8).all():
+                raise AssertionError(f"server config5: false negatives t{t}")
+        if any(isinstance(r, Exception) for r in replies):
+            raise AssertionError(f"server config5: error replies {[r for r in replies if isinstance(r, Exception)][:3]}")
+        if sum(launched.values()) >= blob_cmds:
+            raise AssertionError(f"server config5: {launched} bloom launches for {blob_cmds} BF blob commands: "
+                                 "the runs did not coalesce")
+        if rep:
+            reps.append({"wall_s": wall, "ops_per_s": ops / wall, "bloom_launches": launched})
+    # one more rep, traced: where the rep's time goes, by stage over its
+    # frames and by verb (handler time)
+    cmds, _ = server_config5_cmds(rng, "traced")
+    by_verb = {}
+    traces, wall = traced(lambda: by_verb.update(verb_ms(server, lambda: conn.execute_many(cmds))))
+    out = {"ops_per_rep": ops, "reps": reps, "ops_per_s": [r["ops_per_s"] for r in reps],
+           "traced_rep": {"wall_ms": wall * 1e3, "frames": len(traces), "stage_ms": stage_ms(traces),
+                          "verb_ms": by_verb}}
+    log(f"server config5: {SRV_C5_REPS} reps of {len(cmds)} commands ({ops} ops, bench.py's count), one warm rep "
+        f"first: {', '.join(f'{r:.3e}' for r in out['ops_per_s'])} ops/s; every probe found; bloom launches a rep "
+        f"{reps[-1]['bloom_launches']} for {blob_cmds} BF blob commands (the runs coalesced)")
+    log(f"server config5, a traced rep ({wall * 1e3:.1f} ms, {len(traces)} frames): by stage "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(out["traced_rep"]["stage_ms"].items(), key=lambda kv: -kv[1]))
+        + " ms; handler time by verb " + ", ".join(f"{k} {v['ms']:.1f} ms / {v['calls']}"
+                                                   for k, v in sorted(by_verb.items(), key=lambda kv: -kv[1]["ms"])))
+    return out
+
+
+def server_config3(conn, rng) -> dict:
+    if conn.execute("HLLA.RESERVE", "srv:c3", C3_TENANTS) != 1:
+        raise AssertionError("server config3: HLLA.RESERVE")
+    frames = [("HLLA.MADD64", "srv:c3", _i4(rng.integers(0, C3_TENANTS, C3_BATCH)),
+               _i8(rng.integers(0, 1 << 60, C3_BATCH))) for _ in range(C3_BATCHES)]
+    add_s = []
+    for f in frames:
+        s = time.perf_counter()
+        if conn.execute(*f) != b"OK":
+            raise AssertionError("server config3: HLLA.MADD64")
+        add_s.append(time.perf_counter() - s)
+    dst = np.arange(0, C3_TENANTS, 2, dtype=np.int32)
+    s = time.perf_counter()
+    conn.execute("HLLA.MERGEROWS", "srv:c3", _i4(dst), _i4(dst + 1))
+    merge_s = time.perf_counter() - s
+    s = time.perf_counter()
+    ests = np.frombuffer(conn.execute("HLLA.ESTIMATE", "srv:c3"), "<f8")
+    est_s = time.perf_counter() - s
+    expected = C3_BATCH * C3_BATCHES / C3_TENANTS
+    even, odd = float(ests[0::2].mean()), float(ests[1::2].mean())
+    if ests.size != C3_TENANTS or not (0.95 * 2 * expected < even < 1.05 * 2 * expected
+                                       and 0.95 * expected < odd < 1.05 * expected):
+        raise AssertionError(f"server config3: estimates off: {ests.size} rows, means {even} / {odd}")
+    traces, wall = traced(lambda: conn.execute(*frames[0]))
+    out = {"add_frames": len(frames), "frame_ops": C3_BATCH, "add_frame_ms": [x * 1e3 for x in add_s],
+           "traced_frame": {"wall_ms": wall * 1e3, "stage_ms": stage_ms(traces)},
+           "add_ops_per_s": C3_BATCH * len(frames) / sum(add_s), "merge_pairs": len(dst),
+           "merge_ms": merge_s * 1e3, "estimate_ms": est_s * 1e3}
+    log(f"server config3: HLLA.RESERVE {C3_TENANTS}; {len(frames)} HLLA.MADD64 frames of {C3_BATCH}: p50 "
+        f"{pctl(add_s, 50) * 1e3:.3f} ms a frame ({out['add_ops_per_s'] / 1e6:.1f}M adds/s); HLLA.MERGEROWS of "
+        f"{len(dst)} pairs {out['merge_ms']:.3f} ms; HLLA.ESTIMATE {out['estimate_ms']:.3f} ms (mean "
+        f"{odd:.1f}, merged rows {even:.1f}); one HLLA.MADD64 frame traced ({wall * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["traced_frame"]["stage_ms"].items()) + " ms")
+    conn.execute("DEL", "srv:c3")
+    return out
+
+
+def server_frame_spans(conn, rng, kernel_ms: float, device) -> dict:
+    """One BFA.MEXISTS64 frame of 100,000 keys with the tracer armed: its
+    spans (parse, qos, dispatch, the kernel launch, readback, encode,
+    reply), beside the kernel's device time from the kernel table.  The
+    parse span runs from the frame's first read to its last: it holds the
+    wait for the rest of the 1.2 MB command."""
+    conn.execute("BFA.RESERVE", "srv:span", C2_TENANTS, C2_PER_TENANT, FPP)
+    t, ks = config2_flush(rng)
+    frame = ("BFA.MEXISTS64", "srv:span", _i4(t), _i8(ks))
+    conn.execute(*frame)  # warm
+    traces, wall = traced(lambda: conn.execute(*frame))
+    wall_ms = wall * 1e3
+    trace = traces[-1]
+    spans = [{"name": sp.name, "off_ms": sp.off_us / 1e3, "ms": sp.dur_us / 1e3, **(sp.attrs or {})}
+             for sp in trace.spans]
+    names = {sp["name"] for sp in spans}
+    want = {"parse", "dispatch", "readback", "encode", "reply"} | ({"launch"} if device != "cpu" else set())
+    if not want <= names:
+        raise AssertionError(f"server spans: {sorted(names)}")
+    out = {"verb": trace.verbs, "keys": C2_FLUSH, "total_ms": trace.total_us / 1e3, "client_wall_ms": wall_ms,
+           "spans": spans, "kernel_device_ms": kernel_ms}
+    log(f"server spans, one BFA.MEXISTS64 frame of {C2_FLUSH} keys (total {out['total_ms']:.3f} ms in the server, "
+        f"{wall_ms:.3f} ms at the client; bloom_probe's device time {kernel_ms:.4f} ms from the kernel table): "
+        + ", ".join(f"{sp['name']} +{sp['off_ms']:.3f} {sp['ms']:.3f} ms" for sp in spans))
+    conn.execute("DEL", "srv:span")
+    return out
+
+
+def server_card_against_cpu(device) -> dict:
+    """The mixed stream of every served verb (tools/wire_stream.py), RESP2
+    then RESP3, on a card server and on a CPU server: the same replies,
+    PFCOUNT and the HLLA estimates within their contract."""
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    stream = W.mixed_stream(seed=21, scale=SRV_MIXED_SCALE, estimates=True)
+    waves = [stream, [("HELLO", "3")] + stream]
+    out = {}
+    for where in (device, "cpu"):
+        with ServerThread(port=0, device=where) as st:
+            out[where != "cpu"] = W.replies(st.server.host, st.server.port, waves)
+    same_bytes = 0
+    for wave, (craw, card), (wraw, cpu) in zip(waves, out[device != "cpu"], out[False]):
+        bad = W.compare(wave, card, cpu)
+        if bad:
+            raise AssertionError(f"server card vs CPU: {len(bad)} replies differ: {bad[:3]}")
+        same_bytes += craw == wraw
+    verbs = sorted({str(c[0]) for c in stream})
+    log(f"server card vs CPU: {len(stream)} commands ({len(verbs)} verbs) twice, RESP2 then RESP3: replies equal "
+        f"(PFCOUNT and the HLLA estimates within their contract; raw bytes equal in {same_bytes} of 2 waves)")
+    return {"commands": 2 * len(stream) + 1, "verbs": len(verbs), "waves_bytes_equal": same_bytes}
+
+
+def run_server(kernels: dict, device="cuda") -> dict:
+    """The server phase: redisson_tpu_torch.server.ServerThread on the card,
+    driven with the port's net.client.Connection."""
+    from redisson_tpu_torch.net import _native
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import ServerThread
+
+    start = time.perf_counter()
+    lib = _native.load()
+    codec = "native" if lib is not None else "python"
+    log(f"server: RESP codec {codec}" + (f" ({os.path.basename(lib._name)})" if lib is not None else ""))
+    rng = np.random.default_rng(31)
+    out = {"codec": codec}
+    with ServerThread(port=0, device=device) as st:
+        if st.server.engine.device.type != torch.device(device).type:
+            raise AssertionError(f"the server did not land on {device}")
+        conn = Connection(st.server.host, st.server.port, timeout=600.0)
+        try:
+            out["config2"] = server_config2(conn, st.server.engine, rng)
+            out["config5"] = server_config5(conn, st.server)
+            out["config3"] = server_config3(conn, rng)
+            out["frame"] = server_frame_spans(conn, rng, kernels["bloom_probe"]["ms"], device)
+        finally:
+            conn.close()
+    out["card_vs_cpu"] = server_card_against_cpu(device)
+    out["seconds"] = time.perf_counter() - start
+    log(f"server phase: {out['seconds']:.1f}s")
+    return out
+
+
 def check_card_against_cpu(create) -> None:
     on_card = small_stream(create(), np.random.default_rng(5))
     on_cpu = small_stream(create(device="cpu"), np.random.default_rng(5))
@@ -3049,7 +3402,8 @@ def main() -> int:
                       ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11))),
                       ("fanout", lambda: run_fanout(client, np.random.default_rng(13))),
                       ("config4", lambda: run_config4(client, values)),
-                      ("config7", lambda: run_config7(client))):
+                      ("config7", lambda: run_config7(client)),
+                      ("server", lambda: run_server(kernels))):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -3058,6 +3412,8 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
+    if not paths["server"]["launches"]["bloom_set"] + paths["server"]["launches"]["bloom_add"]:
+        missing.append("server: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -3108,7 +3464,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--kernels-a-call"]:
-        print(json.dumps(kernels_a_call_here(torch.device("cuda"))))
+    if sys.argv[1:2] == ["--kernels-a-call"]:
+        keys = set(json.loads(sys.argv[2])) if len(sys.argv) > 2 else None
+        print(json.dumps(kernels_a_call_here(torch.device("cuda"), keys)))
         sys.exit(0)
     sys.exit(main())

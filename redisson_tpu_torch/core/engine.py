@@ -10,11 +10,16 @@ The engine owns:
   * per-record mutual exclusion: every compound mutation of one object runs
     under its record lock, one writer per object,
   * engine-scoped services (``service``: the word count's scan views) and
-    the timers of write-behind maps (``schedule_timeout``).
+    the timers of write-behind maps (``schedule_timeout``),
+  * the in-process pub/sub hub (``pubsub``) the server's SUBSCRIBE and
+    PUBLISH verbs use,
+  * the background expiry sweep (``eviction``): started on first use, it
+    reaps the store's expired records (``__store__``) on the cadence of
+    ``config`` (``min_cleanup_delay`` .. ``max_cleanup_delay``).
 
 A trimmed copy of ``redisson_tpu/core/engine.py``: device placement,
-residency, serving lanes, lock renewal, the warm pool and the background
-expiry sweep belong to later slices (expiry here is lazy, on access).
+residency, serving lanes, lock renewal and the warm pool belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch.client.codec import DEFAULT_CODEC, Codec
+from redisson_tpu_torch.config import Config
 from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
+from redisson_tpu_torch.core.pubsub import PubSubHub
 from redisson_tpu_torch.core.store import DeviceStore
 from redisson_tpu_torch.utils import hashing as H
 
@@ -48,8 +55,9 @@ def resolve_device(device) -> torch.device:
 class Engine:
     def __init__(self, config=None, device="cuda"):
         self.device = resolve_device(device)
-        self.config = config
+        self.config = config if config is not None else Config()
         self.store = DeviceStore()
+        self.pubsub = PubSubHub()
         self.default_codec: Codec = DEFAULT_CODEC
         self.query_cache = K.QueryCache()
         # staging shared by every flush packer of this engine
@@ -59,6 +67,24 @@ class Engine:
         self._record_locks: dict[str, list] = {}
         self._locks_guard = threading.Lock()
         self._services: dict = {}
+        self._eviction = None
+        self._closed = False
+
+    @property
+    def eviction(self):
+        """The expiry sweep, started on first use with the store's reaper."""
+        with self._locks_guard:
+            if self._closed:
+                raise RuntimeError("engine is shut down")
+            if self._eviction is None:
+                from redisson_tpu_torch.core.eviction import EvictionScheduler
+
+                self._eviction = EvictionScheduler(
+                    min_delay=self.config.min_cleanup_delay,
+                    max_delay=self.config.max_cleanup_delay,
+                )
+                self._eviction.schedule("__store__", self.store.reap_expired)
+            return self._eviction
 
     # -- locking ------------------------------------------------------------
 
@@ -185,7 +211,12 @@ class Engine:
 
     def shutdown(self):
         with self._locks_guard:
+            self._closed = True
+            eviction, self._eviction = self._eviction, None
             self._services.clear()
+        if eviction is not None:
+            eviction.close()
+        self.pubsub.close()
         self.query_cache.clear()
         self.staging.clear()
         self.store.flushall()

@@ -21,11 +21,15 @@ host waits, never device work (one stream, in order).
 
 ``STATS`` counts blocking syncs, staging waits and readbacks.
 
-Not ported here: ``FlushPipeline``, ``QosLedger``, ``DeviceLane`` and
-``LaneSet`` (the server's lanes, later slices), and the device fault plane
-of the reference (its chaos stall, lane watchdog and quarantine), which
-belongs to the operations slice; ``colocate`` and ``scatter_host_arrays``
-wait for the slices that use them.
+The server's QoS plane keeps its per-class in-flight ledger here
+(``QosLedger``), and its dispatch layer asks ``is_retryable_device_fault``
+which failures reply ``-TRYAGAIN``.
+
+Not ported here: ``FlushPipeline``, ``DeviceLane`` and ``LaneSet`` (the
+lanes of multi-device serving), and the device fault plane of the reference
+(its chaos stall, lane watchdog and quarantine), which belongs to the
+operations slice; ``colocate`` and ``scatter_host_arrays`` wait for the
+slices that use them.
 """
 from __future__ import annotations
 
@@ -373,3 +377,69 @@ class StagingPool:
     def slot_count(self) -> int:
         with self._lock:
             return len(self._slots)
+
+
+# -- device faults the server replies -TRYAGAIN to -----------------------------
+
+
+def is_retryable_device_fault(e: BaseException) -> bool:
+    """The failure shapes the server's dispatch layer converts to a clean
+    retryable ``-TRYAGAIN``: a RuntimeError whose message starts with one of
+    the reference's transient-runtime prefixes.  Matched on the message,
+    never the class.  A CUDA error matches none of them and replies
+    ``ERR internal``; mapping CUDA failures onto retry and ``-OOM`` belongs
+    to the operations slice."""
+    if not isinstance(e, RuntimeError):
+        return False
+    return str(e).lstrip().startswith(
+        ("INTERNAL", "UNAVAILABLE", "ABORTED", "CANCELLED",
+         "DEADLINE_EXCEEDED")
+    )
+
+
+# -- per-class QoS in-flight ledger --------------------------------------------
+
+
+class QosLedger:
+    """Per-deadline-class in-flight accounting: one global ledger on the
+    server's WindowScheduler.  Every ``enter`` must be paired with an
+    ``exit``: the server's metrics gauges read the in-flight rows.  (The
+    reference also keeps one a device lane, with per-stream rows; lanes
+    come with the multi-device slice.)"""
+
+    __slots__ = ("_lock", "frames", "ops", "nbytes", "waiting")
+
+    _CLASSES = ("interactive", "bulk")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.frames = {c: 0 for c in self._CLASSES}
+        self.ops = {c: 0 for c in self._CLASSES}
+        self.nbytes = {c: 0 for c in self._CLASSES}
+        self.waiting = 0  # bulk frames parked at the admission gate
+
+    @classmethod
+    def _cls(cls, qos_class: str) -> str:
+        return qos_class if qos_class in cls._CLASSES else "bulk"
+
+    def enter(self, qos_class: str, ops: int, nbytes: int = 0) -> None:
+        c = self._cls(qos_class)
+        with self._lock:
+            self.frames[c] += 1
+            self.ops[c] += ops
+            self.nbytes[c] += nbytes
+
+    def exit(self, qos_class: str, ops: int, nbytes: int = 0) -> None:
+        c = self._cls(qos_class)
+        with self._lock:
+            self.frames[c] -= 1
+            self.ops[c] -= ops
+            self.nbytes[c] -= nbytes
+
+    def wait_enter(self) -> None:
+        with self._lock:
+            self.waiting += 1
+
+    def wait_exit(self) -> None:
+        with self._lock:
+            self.waiting -= 1

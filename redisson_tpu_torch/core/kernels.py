@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional
 
@@ -81,6 +82,7 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch.core import _build, ioplane
+from redisson_tpu_torch.observe import trace as _obs
 from redisson_tpu_torch.ops import bittensor as bt
 from redisson_tpu_torch.ops import hll as hll_ops
 from redisson_tpu_torch.utils import hashing as H
@@ -89,15 +91,23 @@ MIN_BUCKET = 256
 BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 
 # Launches of each hand kernel since the last reset_launches(); a run reads
-# them to show that its path went through the kernels.
+# them to show that its path went through the kernels.  The server's worker
+# threads launch concurrently, so every change goes through _launches_lock.
 launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
             "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
             "segment_reduce": 0, "knn_score": 0, "knn_select": 0, "ivf_score": 0, "kmeans": 0}
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 
 # --------------------------------------------------------------------------
@@ -135,7 +145,12 @@ def stage(arr: np.ndarray, device, non_blocking: bool = False) -> torch.Tensor:
     `non_blocking` only for pinned host memory (a staging pool's slot)."""
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, non_blocking=non_blocking)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        # a view of a wire blob: on the CPU the tensor would share (and
+        # could write) its bytes
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device, non_blocking=non_blocking)
 
 
 def pack_rows(*arrays, size: int, device, pool=None) -> torch.Tensor:
@@ -333,10 +348,16 @@ def _key_args(keys: Keys):
 
 
 def _launch(name: str, fn, state: torch.Tensor, *args) -> None:
+    # with tracing armed, the host side of the launch is the frame's
+    # `launch` span (the kernel runs after it, in stream order)
+    cur = _obs.current_trace() if _obs._tracer is not None else None
+    t0 = time.monotonic() if cur is not None else 0.0
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         _build.check(name, fn(*args, stream))
-    launches[name] += 1
+    count_launch(name)
+    if cur is not None:
+        cur.add_span("launch", t0, time.monotonic(), kernel=name)
 
 
 # The bloom kernels reduce (h1 + i*h2) mod 2**32 by m with a multiply-high
@@ -1042,24 +1063,32 @@ def wc_extract_words_auto_plain(buf, n_words: int, eb: int, base: int):
     return _wc_gather_plain(buf, torch.where(valid, ends, 0), valid, base)
 
 
+# The per-(device, stream) state of wc_words, segment_reduce and knn_select.
+# Server worker threads launch these kernels concurrently: under this lock
+# two calls never take the same tag, and a state is never replaced while
+# another thread is between taking it and launching on it.
+_state_lock = threading.Lock()
 _tagged_states: dict = {}
 
 
-def _tagged_state(kernel: str, device, words: int, dtype=torch.int64):
+def _tagged_state(kernel: str, device, words: int, dtype=torch.int64, stream=None):
     """The state `kernel`'s calls on this device and stream share (a ticket
     word, then words that carry the tag of the call that wrote them), and
     this call's tag.  A word of another tag is not yet written, so the state
     is zeroed only when it is made (or the tags wrap); every call leaves the
-    ticket at 0."""
-    key = (kernel, device, torch.cuda.current_stream(device).cuda_stream)
-    state = _tagged_states.get(key)
-    if state is None or state[0].numel() < words:
-        state = _tagged_states[key] = [torch.zeros(words, dtype=dtype, device=device), 0]
-    state[1] += 1
-    if state[1] >= 2**31:
-        state[0].zero_()
-        state[1] = 1
-    return state[0], state[1]
+    ticket at 0.  `stream` defaults to the device's current stream."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (kernel, device, stream)
+    with _state_lock:
+        state = _tagged_states.get(key)
+        if state is None or state[0].numel() < words:
+            state = _tagged_states[key] = [torch.zeros(words, dtype=dtype, device=device), 0]
+        state[1] += 1
+        if state[1] >= 2**31:
+            state[0].zero_()
+            state[1] = 1
+        return state[0], state[1]
 
 
 def _wc_rows(buf, rows: int, out, at: int):
@@ -1443,12 +1472,13 @@ def _select_state(device, words: int):
     call leaves them so.  Made anew when a call has more rows than any
     before it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
-    state = _select_states.get(key)
-    if state is None or state.numel() < words:
-        state = torch.zeros(words, dtype=torch.int64, device=device)
-        state[0::2] = -1
-        _select_states[key] = state
-    return state
+    with _state_lock:
+        state = _select_states.get(key)
+        if state is None or state.numel() < words:
+            state = torch.zeros(words, dtype=torch.int64, device=device)
+            state[0::2] = -1
+            _select_states[key] = state
+        return state
 
 
 def knn_select(dist, k: int, ids=None):

@@ -11,7 +11,9 @@ A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
 window, device placement and the residency tiers, which later slices port.
 With no absent guard, the ``*_unguarded`` accessors (which the reference
 keeps for transfer frames and the vector banks' own records) behave as
-``get``/``put``/``delete`` do.
+``get``/``put``/``delete`` do.  ``on_expired`` is the reference's hook: the
+server's tracking table hears of every record the store drops as expired,
+lazily on access or in the engine's ``reap_expired`` sweep.
 """
 from __future__ import annotations
 
@@ -47,12 +49,24 @@ class DeviceStore:
     def __init__(self):
         self._lock = threading.RLock()
         self._states: Dict[str, StateRecord] = {}
+        # Called with the NAMES of expired records the store just dropped.
+        # It must not reenter the store: lazy expiry fires it while the
+        # store lock is held.
+        self.on_expired: Optional[Callable[[list], None]] = None
+
+    def _reaped(self, name: str) -> None:
+        if self.on_expired is not None:
+            try:
+                self.on_expired([name])
+            except Exception:  # noqa: BLE001 — expiry must never fail a read
+                pass
 
     def _get_locked(self, name: str) -> Optional[StateRecord]:
         rec = self._states.get(name)
         if rec is not None and rec.expired():
             del self._states[name]
             rec = None
+            self._reaped(name)
         return rec
 
     def get(self, name: str) -> Optional[StateRecord]:
@@ -104,6 +118,12 @@ class DeviceStore:
     def exists(self, name: str) -> bool:
         return self.get(name) is not None
 
+    def peek(self, name: str) -> bool:
+        """Existence without dropping an expired record."""
+        with self._lock:
+            rec = self._states.get(name)
+            return rec is not None and not rec.expired()
+
     def rename(self, old: str, new: str) -> bool:
         with self._lock:
             rec = self._get_locked(old)
@@ -129,6 +149,25 @@ class DeviceStore:
             return None
         return max(0.0, rec.expire_at - time.time())
 
+    def reap_expired(self) -> int:
+        """Drop every expired record (the engine's sweep); the names go to
+        ``on_expired`` after the store lock is released."""
+        now = time.time()
+        with self._lock:
+            reaped = [n for n, r in self._states.items() if r.expired(now)]
+            for name in reaped:
+                del self._states[name]
+        if reaped and self.on_expired is not None:
+            try:
+                self.on_expired(reaped)
+            except Exception:  # noqa: BLE001 — sweep must survive hook bugs
+                pass
+        return len(reaped)
+
     def flushall(self) -> None:
         with self._lock:
             self._states.clear()
+
+    def __len__(self):
+        with self._lock:
+            return len(self._states)

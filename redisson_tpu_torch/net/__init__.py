@@ -1,2 +1,3 @@
-"""The wire layer.  Only ``resp.RespError`` is here so far; the RESP codec
-and the client come with the server slice."""
+"""The wire layer: RESP framing (``resp``), its host library loader
+(``_native``), the command table (``commands``) and the client connection
+(``client``)."""

@@ -101,6 +101,16 @@ def length_hint(bits: torch.Tensor) -> int:
     return int(hit[-1, 0]) + 1 if hit.numel() else 0
 
 
+def length_tensor(bits: torch.Tensor) -> torch.Tensor:
+    """length_hint as a 0-d int64 tensor on the plane's device, computed
+    without a host sync (the reply of BITOP rides its frame's readback)."""
+    if bits.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=bits.device)
+    nz = bits.flip(0) != 0
+    last = nz.to(torch.uint8).argmax()  # the first set lane from the end
+    return torch.where(nz.any(), bits.numel() - last, 0)
+
+
 # --- serialization boundary (host-side, packed little-endian like Redis) -----
 
 def to_packed(bits_host: np.ndarray, nbits: int) -> bytes:

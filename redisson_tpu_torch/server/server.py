@@ -1,0 +1,1099 @@
+"""TpuServer: asyncio RESP server fronting one Engine ("the sidecar").
+
+Role parity: the reference has no server (Redis is the server); this
+build's data plane lives in THIS process next to the accelerator, so the
+server is the piece that takes the Redis role for remote clients while the
+Engine takes the command-execution role.
+
+Connection discipline mirrors the reference's pipeline
+(client/handler/RedisChannelInitializer.java:74-108): framed RESP in, ordered
+execution per connection (the CommandsQueue FIFO guarantee), replies written
+in arrival order, pubsub push frames interleaved from a writer queue.
+Engine calls execute on a bounded thread pool so the event loop never blocks
+on device dispatch.
+
+A copy of the single-device path of ``redisson_tpu/server/server.py``, on
+state that lives on ``device`` (the CUDA card unless the caller asks for the
+CPU).  Every sketch verb reaches the port's hand kernels through the same
+objects and coalescer the embedded path uses.
+
+  * **Frames.** A pipelined frame dispatches every command first (handlers
+    may return ``LazyReply``: kernels launched, results still on the card),
+    then brings the frame's device results to the host in ONE grouped copy
+    (``core/ioplane.gather_device_results``) and writes the replies in
+    order.  A run of same-verb BF blob commands (``client/routing.py``
+    ``coalescible_frame_runs``) is one fused kernel launch
+    (``verbs/sketch.coalesce_bloom_run``).
+  * **Frame boundaries.** The reference takes each 64 KiB read as a frame,
+    so a pipelined run of blob commands larger than a read (config 5's
+    80 KB BF.MADD64 blobs) never reaches the coalescer as a run.  Here a
+    frame ends where a read ends on a command boundary: while a read stops
+    inside a command, the server reads on (up to ``FRAME_READ_LIMIT``)
+    before it dispatches.  Reply bytes are the same either way.  Latency
+    is not: a complete command waits for the partial one behind it (a
+    small command ahead of a 12 MB ``HLLA.MADD64`` blob waits for the whole
+    blob, where the reference dispatches it at once), and a frame grown so
+    may be classed bulk by the QoS plane where the reference's pieces were
+    interactive.  Reading on only while the frame holds nothing but BF blob
+    commands keeps the reference's framing for mixed frames, but then a
+    client that writes a long pipeline before it reads a reply (config 2's
+    window of 50 ``BFA.MEXISTS64`` frames) stalls: the frames dispatch one
+    by one, their unread replies fill the socket, the writer task waits,
+    the dispatch-ahead bound stops the read loop, and the client's write
+    never ends.
+  * **Overlap.** With the overlap plane on, a frame's readback runs as a
+    future the connection's writer task drains (FIFO, so reply order and
+    framing are untouched) while the read loop dispatches the next frame.
+    The readback waits on an event recorded behind its own copy, never on
+    the whole device.  ``--no-overlap`` restores the serial shape.
+  * **QoS** (``server/scheduler.py``): frames are classified interactive or
+    bulk, charged against their tenant's token bucket (over budget: -BUSY
+    before dispatch), and bulk frames pass a bounded admission gate.
+    ``--no-qos`` / ``RTPU_NO_QOS=1`` restores arrival-order dispatch.
+
+One difference from the reference, visible only when the device fails: the
+reference re-dispatches a fused contains run command by command after ANY
+failure of the fused launch.  Here only an ineligible run
+(``core/coalesce.CoalesceIneligible``, or a precheck of
+``coalesce_bloom_run``) takes the per-command route, since that is the
+designed case; any other failure of a fused run, contains or add, replies a
+per-command ``ERR internal`` (``-TRYAGAIN`` for the reference's retryable
+fault shapes) and counts in ``stats["errors"]``, so a failing kernel is
+never hidden behind a slower path that might succeed.
+
+Left out, each raising NotImplementedError when asked for: device-sharded
+serving (``devices=``), cluster mode, advertised cluster addresses
+(ROADMAP M8), checkpoints and migration journals (ROADMAP M11).  The
+replication and migration links, the residency census, the chaos pause gate
+and the admin verbs (INFO, CONFIG, SAVE, CLUSTER) come with those slices.
+"""
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+from redisson_tpu_torch.client import routing as _routing
+from redisson_tpu_torch.core import ioplane
+from redisson_tpu_torch.core.coalesce import runs_within_admission
+from redisson_tpu_torch.core.engine import Engine
+from redisson_tpu_torch.net import resp
+from redisson_tpu_torch.net.resp import ProtocolError, RespError
+from redisson_tpu_torch.observe import trace as _obs
+from redisson_tpu_torch.server import scheduler as _sched
+from redisson_tpu_torch.server.registry import (
+    REGISTRY,
+    CommandContext,
+    LazyReply,
+    gather_lazy_device_results,
+)
+
+
+class _Encoded:
+    """Pre-encoded wire frame (errors encoded at catch time)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+
+class _PendingFrame:
+    """A frame whose readback is still in flight (overlap plane): the
+    per-connection writer task awaits `fut` (the executor job forcing the
+    frame's LazyReplies), then encodes and writes the replies — while the
+    connection's read loop is already dispatching the NEXT frame.  `proto`
+    is the connection's negotiated protocol AT DISPATCH time: a later
+    frame's HELLO must not re-encode earlier replies.  `trace` is the
+    frame's FrameTrace when tracing is armed, else None."""
+
+    __slots__ = ("results", "fut", "proto", "trace")
+
+    def __init__(self, results: list, fut, proto: int, trace=None):
+        self.results = results
+        self.fut = fut
+        self.proto = proto
+        self.trace = trace
+
+    def encoded(self) -> bytes:
+        return _encode_frame(self.results, self.proto)
+
+
+class _TracedEncoded:
+    """Pre-encoded frame bytes carrying their FrameTrace (tracing armed
+    only): the writer task writes `data` and closes the trace's `reply`
+    span, making the trace total the true client-observable latency."""
+
+    __slots__ = ("data", "trace")
+
+    def __init__(self, data: bytes, trace):
+        self.data = data
+        self.trace = trace
+
+
+# the most bytes one frame reads past its first read while the last read
+# stopped inside a command (see TpuServer._handle)
+FRAME_READ_LIMIT = 64 << 20
+
+# the reference's fixed -TRYAGAIN text for a retryable device fault
+_DEVICE_FAULT_TRYAGAIN = "TRYAGAIN device fault during dispatch; retry"
+
+
+def _error_reply(e: BaseException) -> bytes:
+    """The encoded per-command error of a failed dispatch."""
+    if isinstance(e, RespError):
+        return resp.encode_error(str(e.args[0]))
+    if ioplane.is_retryable_device_fault(e):
+        return resp.encode_error(_DEVICE_FAULT_TRYAGAIN)
+    return resp.encode_error(f"ERR internal: {type(e).__name__}: {e}")
+
+
+def _force_lazies(results: list, server, trace=None) -> None:
+    """Materialize every LazyReply of a frame in place.  Device-form lazies
+    come to the host in one grouped transfer (if it fails, each of them
+    replies the error and counts in ``stats["errors"]``); callable-form
+    lazies force individually.  `trace` (tracing armed only) is activated on this worker
+    thread so the readback span recorded inside the gather lands on the
+    right frame."""
+    if trace is not None:
+        _obs.set_current(trace)
+
+    def fail(i, e):
+        server.stats["errors"] += 1
+        results[i] = _Encoded(_error_reply(e))
+
+    try:
+        dev_idx = [
+            i for i, r in enumerate(results)
+            if isinstance(r, LazyReply) and r.device is not None
+        ]
+        if dev_idx:
+            try:
+                host_vals = gather_lazy_device_results([results[i] for i in dev_idx])
+            except Exception as e:  # noqa: BLE001 — the frame's one readback failed
+                # every device reply of the frame replies the error: no
+                # per-reply copies that might hide a failing device
+                for i in dev_idx:
+                    fail(i, e)
+            else:
+                for i, vals in zip(dev_idx, host_vals):
+                    try:
+                        results[i] = results[i].finish(vals)
+                    except Exception as e:  # noqa: BLE001 — per-reply isolation
+                        fail(i, e)
+        for i, r in enumerate(results):
+            if isinstance(r, LazyReply):
+                try:
+                    results[i] = r.force()
+                except Exception as e:  # noqa: BLE001 — per-reply isolation
+                    fail(i, e)
+    finally:
+        if trace is not None:
+            _obs.clear_current()
+
+
+_REFUSED = {
+    "devices": "device-sharded serving (devices=) comes with ROADMAP M8",
+    "advertise_host": "advertised cluster addresses come with ROADMAP M8",
+    "checkpoint_path": "checkpoints (checkpoint_path=) come with ROADMAP M11",
+    "journal_dir": "migration journals (journal_dir=) come with ROADMAP M11",
+}
+
+
+class TpuServer:
+    def __init__(
+        self,
+        engine: Optional[Engine] = None,
+        host: str = "127.0.0.1",
+        port: int = 6390,
+        password: Optional[str] = None,
+        checkpoint_path: Optional[str] = None,
+        mode: str = "standalone",
+        workers: int = 4,
+        tls_cert_file: Optional[str] = None,
+        tls_key_file: Optional[str] = None,
+        tls_ca_file: Optional[str] = None,
+        users: Optional[Dict[str, str]] = None,
+        overlap: Optional[bool] = None,
+        devices=None,
+        qos: Optional[bool] = None,
+        dispatch_ahead: Optional[int] = None,
+        journal_dir: Optional[str] = None,
+        advertise_host: Optional[str] = None,
+        device="cuda",
+    ):
+        asked = {"devices": devices, "advertise_host": advertise_host,
+                 "checkpoint_path": checkpoint_path, "journal_dir": journal_dir}
+        for name, value in asked.items():
+            if value is not None:
+                raise NotImplementedError(_REFUSED[name])
+        if mode != "standalone":
+            raise NotImplementedError(f"mode={mode!r}: cluster mode comes with ROADMAP M8")
+        self.engine = engine if engine is not None else Engine(device=device)
+        # overlapped device I/O plane: frames with device-form lazy replies
+        # hand their readback to the per-connection writer task instead of
+        # blocking the read loop.  None = follow the process-global switch;
+        # False = the serial A/B reference (--no-overlap).
+        self.overlap = ioplane.overlap_enabled() if overlap is None else bool(overlap)
+        # dispatch-ahead bound: at most this many frames may sit between
+        # "dispatched" and "replies written" per connection (bounds device
+        # memory held by un-drained readbacks); default 2
+        self.readback_ahead = (
+            2 if dispatch_ahead is None else max(1, int(dispatch_ahead))
+        )
+        # deadline classes + per-tenant QoS (server/scheduler.py); None =
+        # follow the process-global switch (RTPU_NO_QOS=1 disarms)
+        self.scheduler = _sched.WindowScheduler(enabled=qos)
+        if self.scheduler.bulk_slots <= 0:
+            # reserve one dispatch slot for interactive traffic: bulk-class
+            # frames across ALL connections share workers-1 admission slots
+            self.scheduler.bulk_slots = max(1, workers - 1)
+        self._bulk_gate: Optional[asyncio.Semaphore] = None
+        self._bulk_gate_n = 0
+        self.host = host
+        self.port = port
+        self.password = password
+        # ACL users (username -> password): AUTH user pass
+        # (BaseConnectionHandler.java:59-122).  "default" aliases `password`.
+        self.users: Dict[str, str] = dict(users or {})
+        # TLS: cert+key enable the listener's TLS; ca_file additionally
+        # REQUIRES client certificates (mTLS)
+        self.tls_cert_file = tls_cert_file
+        self.tls_key_file = tls_key_file
+        self.tls_ca_file = tls_ca_file
+        self.mode = mode
+        self.role = "master"  # HELLO's role; replicas come with ROADMAP M11
+        self.stats = {"connections": 0, "commands": 0, "errors": 0, "sheds": 0}
+        # observability (utils/metrics.py): per-command timers + counters;
+        # hooks = NettyHook-analog SPI
+        from redisson_tpu_torch.net.client import dropped_push_count
+        from redisson_tpu_torch.tracking.table import TrackingTable
+        from redisson_tpu_torch.utils.metrics import MetricsHook, MetricsRegistry
+
+        self.metrics = MetricsRegistry()
+        self.hooks = [MetricsHook(self.metrics)]
+        self.metrics.gauge("keys", lambda: len(self.engine.store))
+        self.metrics.gauge("connections", lambda: self.stats["connections"])
+        # tracing plane (observe/trace.py): the process tracer, disarmed by
+        # default; set_tracing(True) / RTPU_TRACE=1 arms it.  Stage-duration
+        # histograms feed THIS registry (stage.* timers).
+        self.tracer = _obs.TRACER
+        self.tracer.registry = self.metrics
+        self.metrics.gauge(
+            "trace_ring_entries",
+            lambda: self.tracer.census()["trace_ring_entries"],
+        )
+        self.metrics.gauge(
+            "trace_inflight",
+            lambda: self.tracer.census()["trace_inflight"],
+        )
+        self.metrics.gauge("dropped_pushes", dropped_push_count)
+        self.metrics.gauge("qos_shed_ops", lambda: self.scheduler.shed_ops)
+        self.metrics.gauge("qos_shed_frames", lambda: self.scheduler.shed_frames)
+        self.metrics.gauge(
+            "qos_interactive_inflight_ops",
+            lambda: self.scheduler.ledger.ops["interactive"],
+        )
+        self.metrics.gauge(
+            "qos_bulk_inflight_ops", lambda: self.scheduler.ledger.ops["bulk"]
+        )
+        self.metrics.gauge("qos_bulk_waiting", lambda: self.scheduler.ledger.waiting)
+        self._client_ids = iter(range(1, 1 << 62))
+        # server-assisted client tracking (tracking/table.py): per-connection
+        # read-key memory + RESP3 invalidation pushes on write/expiry/
+        # FLUSHALL.  Always constructed (cheap); the dispatch hook costs one
+        # int load while no client has tracking on.
+        self.tracking = TrackingTable(self)
+        self.metrics.gauge("tracking_keys", self.tracking.tracked_key_count)
+        self.metrics.gauge(
+            "tracking_overflow_evictions",
+            lambda: self.tracking.stats["overflow_evictions"],
+        )
+        self.metrics.gauge("tracking_pushes", lambda: self.tracking.stats["pushes"])
+        # expiry invalidation: a key the TTL reaper (or a lazy-expiry read)
+        # drops must invalidate near caches exactly like a DEL would
+        self.engine.store.on_expired = self.tracking.note_expired
+        self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="rtpu-srv")
+        # reserved interactive dispatch capacity: frames the scheduler
+        # classifies interactive run HERE, so a bulk flood holding every
+        # shared worker can never queue ahead of them (threads spawn lazily)
+        self._qos_pool = ThreadPoolExecutor(
+            max_workers=max(2, workers), thread_name_prefix="rtpu-qos"
+        )
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._writers: set = set()
+        self._local_client = None
+
+    # -- registry support ----------------------------------------------------
+
+    def next_client_id(self) -> int:
+        return next(self._client_ids)
+
+    def local_client(self):
+        """Embedded client over this server's engine."""
+        if self._local_client is None:
+            from redisson_tpu_torch.client.redisson import RedissonTpu
+
+            self._local_client = RedissonTpu(self.engine)
+        return self._local_client
+
+    # -- dispatch --------------------------------------------------------------
+
+    def _fused_add_error_invalidate(self, track, run_names) -> None:
+        """A failed fused BF.MADD64 run may have PARTIALLY applied (that is
+        why add runs never re-dispatch) — tracked near caches holding
+        negative `contains` entries for these filters must still be
+        invalidated or they serve stale membership forever.  writer_ctx is
+        None deliberately: the writer's client-side wrapper aborted on the
+        error reply, so even a NOLOOP writer needs the push."""
+        if track is not None and run_names:
+            try:
+                track.note_write(run_names, None)
+            except Exception:  # noqa: BLE001 — never mask the primary error
+                pass
+
+    def _dispatch_one(self, ctx, cmd):
+        """One command with the per-command error translation of the
+        connection loop (RespError -> its reply, worker pool shut down ->
+        drop the connection, anything else sandboxed per command)."""
+        try:
+            return REGISTRY.dispatch(self, ctx, cmd)
+        except ConnectionResetError:
+            raise
+        except RuntimeError as e:
+            if "shutdown" in str(e):  # worker pool stopped: drop conn
+                raise ConnectionResetError(str(e)) from e
+            self.stats["errors"] += 1
+            return _Encoded(_error_reply(e))
+        except Exception as e:  # noqa: BLE001 — sandbox handler bugs per-command
+            self.stats["errors"] += 1
+            return _Encoded(_error_reply(e))
+
+    def _dispatch_bloom_run(self, ctx, cmds):
+        """Coalesced execution of a same-verb BF blob run inside one frame:
+        ONE stacked-bank kernel launch for the whole run instead of one per
+        command, per-command LazyReplies riding the frame's single readback.
+        Only an ineligible run falls back to per-command dispatch (identical
+        semantics); a failure of the fused launch replies per-command
+        errors, for contains runs as for add runs (see the module
+        docstring)."""
+        from redisson_tpu_torch.server.verbs.sketch import coalesce_bloom_run
+
+        cur = _obs.current_trace() if _obs._tracer is not None else None
+        k0 = time.monotonic() if cur is not None else 0.0
+        is_add = bytes(cmds[0][0]).upper() == b"BF.MADD64"
+        # tracking hooks for the fused path (the fallback below dispatches
+        # through REGISTRY.dispatch, which carries its own hooks): probe runs
+        # register their filter names PRE-dispatch, add runs invalidate after
+        # the fused kernel applied
+        track = self.tracking if self.tracking.active else None
+        run_names = None
+        if track is not None:
+            seen = set()
+            run_names = [
+                n for n in (bytes(c[1]).decode() for c in cmds)
+                if not (n in seen or seen.add(n))
+            ]
+            if not is_add:
+                track.note_read(ctx, run_names)
+        try:
+            fused = coalesce_bloom_run(self, ctx, cmds)
+        except Exception as e:  # noqa: BLE001 — per-run isolation
+            if isinstance(e, RuntimeError) and "shutdown" in str(e):
+                # a stopping worker pool drops the connection, never replies
+                # per-command errors
+                raise ConnectionResetError(str(e)) from e
+            if is_add:
+                self._fused_add_error_invalidate(track, run_names)
+            self.stats["errors"] += len(cmds)
+            enc = _Encoded(_error_reply(e))
+            return [enc for _ in cmds]
+        if fused is not None:
+            if cur is not None:
+                # coalescer fan-in: ONE kernel span for the fused run, its
+                # member commands recorded as child spans sharing the
+                # kernel's interval (bounded so a 1000-command blob run
+                # cannot bloat the trace)
+                k1 = time.monotonic()
+                cur.add_span(
+                    "kernel", k0, k1,
+                    verb=bytes(cmds[0][0]).upper().decode(),
+                    members=len(cmds),
+                )
+                for c in cmds[:32]:
+                    cur.add_span(
+                        "kernel.member", k0, k1,
+                        key=bytes(c[1]).decode(errors="replace"),
+                    )
+            if track is not None and is_add:
+                track.note_write(run_names, ctx)
+            return fused
+        return [self._dispatch_one(ctx, cmd) for cmd in cmds]
+
+    def _dispatch_traced(self, fn, ctx, arg, trace=None):
+        """Run one dispatch unit (a command or a coalesced run) on a worker
+        thread; `trace` (tracing armed only) is activated on this thread and
+        the handler window recorded as the frame's `dispatch` span."""
+        if trace is None:
+            return fn(ctx, arg)
+        _obs.set_current(trace)
+        t0 = time.monotonic()
+        try:
+            return fn(ctx, arg)
+        finally:
+            trace.add_span("dispatch", t0, time.monotonic())
+            _obs.clear_current()
+
+    def _pool_for(self, adm):
+        """Worker pool for one frame's dispatch: interactive-class frames
+        (scheduler armed) run on the reserved interactive pool so a bulk
+        flood occupying every shared worker can never queue ahead of them;
+        everything else keeps the shared pool."""
+        if adm is not None and adm.interactive:
+            return self._qos_pool
+        return self._pool
+
+    # -- QoS admission ---------------------------------------------------------
+
+    def _bulk_gate_for(self, slots: int) -> Optional[asyncio.Semaphore]:
+        """The server-wide bulk admission gate: at most `slots` bulk-class
+        frames may be in dispatch at once across ALL connections, so a bulk
+        flood can never occupy every worker ahead of interactive traffic."""
+        if slots <= 0:
+            return None
+        gate = self._bulk_gate
+        if gate is None or self._bulk_gate_n != slots:
+            gate = self._bulk_gate = asyncio.Semaphore(slots)
+            self._bulk_gate_n = slots
+        return gate
+
+    async def _serve_frame(self, ctx, commands, loop, write_q,
+                           readback_slots, alive, trace=None) -> bool:
+        """Admit + dispatch ONE parsed frame (the read loop's per-frame
+        body).  Returns False when the connection must stop reading (writer
+        task dead).  With the scheduler armed the frame is classified
+        (interactive/bulk) and charged against its tenant's token bucket
+        BEFORE anything dispatches: over-budget commands shed with -BUSY,
+        bulk frames pass the bounded bulk admission gate, and the frame's
+        dispatch is accounted on the per-class in-flight ledger.  `trace`
+        (tracing armed only) records admit + bulk-gate wait as the frame's
+        `qos` span."""
+        sched = self.scheduler
+        adm = None
+        bulk_gate = None
+        acquired = begun = False
+        tq0 = time.monotonic() if trace is not None else 0.0
+        if (
+            sched.armed
+            and commands
+            and ctx.authenticated
+            and ctx.multi_queue is None
+        ):
+            adm = sched.admit(ctx, commands)
+            if adm.shed_count:
+                self.stats["sheds"] += adm.shed_count
+        fully_shed = (
+            adm is not None
+            and adm.shed_mask is not None
+            and all(adm.shed_mask)
+        )
+        try:
+            if adm is not None:
+                # a FULLY-refused frame never dispatches (its replies are
+                # pure encodes), so it must not occupy a bulk admission slot
+                if not adm.interactive and not fully_shed:
+                    bulk_gate = self._bulk_gate_for(sched.bulk_slots)
+                    if bulk_gate is not None:
+                        sched.ledger.wait_enter()
+                        try:
+                            await bulk_gate.acquire()
+                            acquired = True
+                        finally:
+                            sched.ledger.wait_exit()
+                sched.begin(adm)
+                begun = True
+                if trace is not None:
+                    trace.qos_class = adm.qos_class
+                    trace.tenant = adm.tenant
+                    trace.add_span(
+                        "qos", tq0, time.monotonic(),
+                        tenant=adm.tenant, cls=adm.qos_class,
+                        items=adm.items, shed=adm.shed_count,
+                    )
+            ok = await self._dispatch_frame(
+                ctx, commands, loop, write_q, readback_slots, alive, adm,
+                trace,
+            )
+        finally:
+            if begun:
+                sched.end(adm)
+            if acquired:
+                bulk_gate.release()
+        if ok and fully_shed and sched.shed_penalty_ms > 0:
+            # fully-refused frame: park THIS connection's read loop for the
+            # shed penalty, so a client spinning on -BUSY cannot turn the
+            # cheap shed path into a parse-plane DoS
+            await asyncio.sleep(sched.shed_penalty_ms / 1000.0)
+        return ok
+
+    async def _dispatch_frame(self, ctx, commands, loop, write_q,
+                              readback_slots, alive, adm=None,
+                              trace=None) -> bool:
+        # Two-phase frame execution: dispatch every command of the
+        # pipelined frame first (handlers may return LazyReply — kernels
+        # launched, NOT waited for), then force all lazy replies together
+        # and write the replies in order.  One device->host copy per frame
+        # instead of per command; per-connection ordering is untouched
+        # (dispatch stays sequential, and the device stream is in-order).
+        # Same-verb BF blob RUNS additionally collapse into one fused kernel
+        # launch each (_dispatch_bloom_run; runs never cross a verb change,
+        # so frame order is preserved exactly).
+        shed_mask = adm.shed_mask if adm is not None else None
+        shed_enc = (
+            resp.encode_error(_sched.busy_error(adm.tenant))
+            if shed_mask is not None else None
+        )
+        pool = self._pool_for(adm)
+        run_at: Dict[int, int] = {}
+        if len(commands) > 1:
+            runs = [
+                (s, e)
+                for s, e in _routing.coalescible_frame_runs(commands)
+                if all(
+                    isinstance(a, (bytes, bytearray))
+                    for c in commands[s:e]
+                    for a in c
+                )
+            ]
+            # QoS shed boundary: a run never spans a shed command — the
+            # fused window covers ADMITTED ops only
+            run_at = dict(runs_within_admission(runs, shed_mask))
+        results: list = []
+        ci = -1
+        for cmd in commands:
+            ci += 1
+            if len(results) > ci:
+                continue  # covered by an already-dispatched run
+            if shed_mask is not None and shed_mask[ci]:
+                # load-shed: -BUSY in frame position, NO dispatch
+                results.append(_Encoded(shed_enc))
+                continue
+            run_end = run_at.get(ci)
+            if run_end is not None:
+                run_cmds = commands[ci:run_end]
+                self.stats["commands"] += len(run_cmds)
+                results.extend(
+                    await loop.run_in_executor(
+                        pool, self._dispatch_traced, self._dispatch_bloom_run,
+                        ctx, run_cmds, trace,
+                    )
+                )
+                continue
+            if not isinstance(cmd, list) or not all(
+                isinstance(a, (bytes, bytearray)) for a in cmd
+            ):
+                results.append(_Encoded(resp.encode_error("ERR bad request frame")))
+                continue
+            self.stats["commands"] += 1
+            results.append(
+                await loop.run_in_executor(
+                    pool, self._dispatch_traced, self._dispatch_one, ctx, cmd,
+                    trace,
+                )
+            )
+        if any(isinstance(r, LazyReply) for r in results):
+            if self.overlap:
+                # overlap plane: hand the readback to the writer task as a
+                # completion-queue entry and go straight back to reading.
+                # FIFO queue order preserves the reply order; proto is
+                # snapshotted at dispatch time.
+                await readback_slots.acquire()
+                if not alive["writer"]:
+                    return False  # connection is going down; stop dispatching
+                if trace is not None:
+                    trace.mark_dispatched()
+                fut = loop.run_in_executor(pool, _force_lazies, results, self, trace)
+                write_q.put_nowait(_PendingFrame(results, fut, ctx.proto, trace))
+                return True
+            await loop.run_in_executor(pool, _force_lazies, results, self, trace)
+        if results:
+            # one queue item per frame — the whole frame's replies encode
+            # in one pass and write in one syscall batch
+            if trace is not None:
+                trace.mark_dispatched()
+                t0 = time.monotonic()
+                data = _encode_frame(results, ctx.proto)
+                trace.add_span("encode", t0, time.monotonic())
+                write_q.put_nowait(_TracedEncoded(data, trace))
+            else:
+                write_q.put_nowait(_encode_frame(results, ctx.proto))
+        return True
+
+    # -- asyncio plumbing ----------------------------------------------------
+
+    async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        self.stats["connections"] += 1
+        self._writers.add(writer)
+        ctx = CommandContext(self)
+        self.tracking.register_conn(ctx)
+        parser = resp.RespParser()
+        loop = asyncio.get_running_loop()
+        write_q: asyncio.Queue = asyncio.Queue()
+
+        def push(msg) -> None:
+            # pubsub listeners fire on engine threads; hop to the loop
+            # (encoded with THIS connection's negotiated protocol)
+            loop.call_soon_threadsafe(
+                write_q.put_nowait, resp.encode_reply(msg, ctx.proto)
+            )
+
+        ctx.push = push
+
+        # dispatch-ahead bound (overlap plane): the read loop may run at most
+        # `readback_ahead` frames ahead of the slowest un-written readback
+        readback_ahead = max(1, self.readback_ahead)
+        readback_slots = asyncio.Semaphore(readback_ahead)
+        # shared liveness flag (writer task -> read loop/_serve_frame)
+        alive = {"writer": True}
+
+        async def writer_task():
+            # The completion queue drain: items are pre-encoded bytes (pubsub
+            # pushes, readback-free frames) or _PendingFrame readback futures
+            # (awaited HERE, off the read loop, so the next frame's dispatch
+            # overlaps this frame's readback).  The queue is FIFO and this
+            # task writes strictly in pop order, so per-connection reply
+            # ordering and RESP framing are preserved exactly.  Everything
+            # drained from one queue pass is joined and written as a SINGLE
+            # transport.write.  Traced items close their `reply` span once
+            # their bytes are written; a trace whose bytes never reach the
+            # wire is abandoned so the inflight census row still drains.
+            held = None  # a _PendingFrame popped while coalescing bytes
+            try:
+                while True:
+                    item = held if held is not None else await write_q.get()
+                    held = None
+                    if item is None:
+                        return
+                    parts: list = []
+                    done_tr = None  # traces of this batch (armed only)
+                    final = False
+                    while True:
+                        if isinstance(item, _PendingFrame):
+                            if parts and not item.fut.done():
+                                # flush what's ready; await this one next pass
+                                held = item
+                                break
+                            try:
+                                await item.fut  # the overlapped readback
+                            except Exception:  # noqa: BLE001 — pool died mid-force
+                                # tear the connection DOWN: a silent return
+                                # leaves the client blocked on recv with no EOF
+                                if item.trace is not None:
+                                    _obs.TRACER.abandon(item.trace)
+                                for t in done_tr or ():
+                                    _obs.TRACER.abandon(t)
+                                try:
+                                    writer.close()
+                                except Exception:  # noqa: BLE001
+                                    pass
+                                return
+                            finally:
+                                readback_slots.release()
+                            if item.trace is None:
+                                parts.append(item.encoded())
+                            else:
+                                t0 = time.monotonic()
+                                parts.append(item.encoded())
+                                item.trace.add_span("encode", t0, time.monotonic())
+                                done_tr = (done_tr or []) + [item.trace]
+                        elif isinstance(item, _TracedEncoded):
+                            parts.append(item.data)
+                            done_tr = (done_tr or []) + [item.trace]
+                        else:
+                            parts.append(item)
+                        if write_q.empty():
+                            break
+                        nxt = write_q.get_nowait()
+                        if nxt is None:
+                            final = True
+                            break
+                        item = nxt
+                    if parts:
+                        writer.write(parts[0] if len(parts) == 1 else b"".join(parts))
+                        try:
+                            await writer.drain()
+                        except ConnectionError:
+                            for t in done_tr or ():
+                                _obs.TRACER.abandon(t)
+                            return
+                        for t in done_tr or ():
+                            _obs.TRACER.finish_reply(t)
+                    if final:
+                        return
+            finally:
+                alive["writer"] = False
+                # un-stick a read loop parked on the dispatch-ahead bound
+                for _ in range(readback_ahead):
+                    readback_slots.release()
+
+        wt = asyncio.create_task(writer_task())
+        try:
+            while True:
+                data = await reader.read(1 << 16)
+                if not data:
+                    break
+                # tracing: frames are stamped AT PARSE TIME and the stamp
+                # rides the frame through every chokepoint.  Disarmed cost:
+                # one module-global load + `is not None` per read.
+                t_parse0 = time.monotonic() if _obs._tracer is not None else None
+                try:
+                    commands = parser.feed(data)
+                    # a frame ends where the client's write ends: while a
+                    # read stops inside a command, read on (up to
+                    # FRAME_READ_LIMIT bytes), so a pipelined run of blob
+                    # commands larger than one read still reaches the
+                    # coalescer as one run (the latency this costs: the
+                    # module docstring)
+                    taken = len(data)
+                    while parser.pending_bytes and taken < FRAME_READ_LIMIT:
+                        more = await reader.read(1 << 16)
+                        if not more:
+                            break
+                        taken += len(more)
+                        commands += parser.feed(more)
+                except ProtocolError as e:
+                    write_q.put_nowait(resp.encode_error(f"ERR protocol error: {e}"))
+                    break
+                trace = None
+                if _obs._tracer is not None and commands:
+                    trace = _obs._tracer.begin_frame(ctx, commands, t0=t_parse0)
+                try:
+                    ok = await self._serve_frame(
+                        ctx, commands, loop, write_q, readback_slots, alive,
+                        trace,
+                    )
+                except BaseException:
+                    # frame died before its replies were queued: close the
+                    # trace's books so the inflight census row drains
+                    if trace is not None and not trace.finished:
+                        _obs.TRACER.abandon(trace)
+                    raise
+                if not ok:
+                    if trace is not None and not trace.finished:
+                        _obs.TRACER.abandon(trace)
+                    break
+        except (ConnectionResetError, asyncio.IncompleteReadError, BrokenPipeError):
+            pass
+        finally:
+            # tracking disconnect-cleanup FIRST: the table must not leak this
+            # conn's keys, and dependents redirecting here must break loudly
+            self.tracking.unregister_conn(ctx)
+            for ch, lid in list(ctx.subscriptions.items()):
+                self.engine.pubsub.unsubscribe(ch, lid)
+            for pat, lid in list(ctx.psubscriptions.items()):
+                self.engine.pubsub.punsubscribe(pat, lid)
+            write_q.put_nowait(None)
+            await wt
+            # traced frames still queued behind the writer's death never
+            # reached the wire: abandon them so trace_inflight drains
+            while not write_q.empty():
+                leftover = write_q.get_nowait()
+                t = getattr(leftover, "trace", None)
+                if t is not None and not t.finished:
+                    _obs.TRACER.abandon(t)
+            self._writers.discard(writer)
+            self.stats["connections"] -= 1
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception:  # noqa: BLE001
+                pass
+
+    @property
+    def tls_enabled(self) -> bool:
+        return self.tls_cert_file is not None
+
+    def _server_ssl_context(self):
+        if not self.tls_enabled:
+            return None
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.tls_cert_file, self.tls_key_file)
+        if self.tls_ca_file:
+            ctx.load_verify_locations(self.tls_ca_file)
+            ctx.verify_mode = ssl.CERT_REQUIRED  # mutual TLS
+        return ctx
+
+    async def start_async(self):
+        self._loop = asyncio.get_running_loop()
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port, reuse_address=True,
+            ssl=self._server_ssl_context(),
+        )
+        if self.port == 0:
+            self.port = self._server.sockets[0].getsockname()[1]
+        return self
+
+    async def serve_forever(self):
+        await self.start_async()
+        async with self._server:
+            await self._server.serve_forever()
+
+    async def serve_until_signal(self, ready_fd: Optional[int] = None):
+        """CLI serve loop: run until SIGTERM or SIGINT (both graceful).
+
+        ``ready_fd``: once the listener is bound (port 0 resolved), write
+        one line — ``READY <host> <port> <pid>`` — to this inherited file
+        descriptor and close it, so a supervisor awaits that line instead of
+        polling the port."""
+        import os
+        import signal as _signal
+
+        loop = asyncio.get_running_loop()
+        stopped = asyncio.Event()
+        installed = []
+        for sig in (_signal.SIGTERM, _signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, stopped.set)
+                installed.append(sig)
+            except (NotImplementedError, RuntimeError):  # non-main thread /
+                pass                                     # exotic loop
+        await self.start_async()
+        if ready_fd is not None:
+            line = f"READY {self.host} {self.port} {os.getpid()}\n".encode()
+            try:
+                os.write(ready_fd, line)
+            finally:
+                try:
+                    os.close(ready_fd)
+                except OSError:
+                    pass
+        try:
+            async with self._server:
+                await stopped.wait()
+        finally:
+            for sig in installed:
+                loop.remove_signal_handler(sig)
+            self.stop()
+
+    def stop(self):
+        loop, server = self._loop, self._server
+        if loop is not None and server is not None:
+            def shutdown():
+                server.close()
+                # drop established connections too: clients must see a dead
+                # node, not a half-alive one
+                for w in list(self._writers):
+                    try:
+                        w.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+
+            try:
+                loop.call_soon_threadsafe(shutdown)
+            except RuntimeError:
+                pass  # loop already closed (repeated stop): nothing to do
+        self._pool.shutdown(wait=False)
+        self._qos_pool.shutdown(wait=False)
+
+
+def _encode_result(result, proto: int = 3) -> bytes:
+    if isinstance(result, str) and result.startswith("+"):
+        return resp.encode_simple(result[1:])
+    if isinstance(result, list) and result and all(isinstance(r, resp.Push) for r in result):
+        # subscribe-style confirmations: stream of push frames
+        return b"".join(resp.encode_reply(r, proto) for r in result)
+    return resp.encode_reply(result, proto)
+
+
+def _encode_frame(results: list, proto: int) -> bytes:
+    """Encode a whole frame's replies as ONE byte string.  Runs of plain
+    values ride a single resp.encode_replies emit (one native arena write
+    for the run); pre-encoded errors and the two special result forms
+    (`+simple` strings, push-frame lists) keep their _encode_result
+    semantics, in place, in order."""
+    parts: list = []
+    run: list = []
+    flush = parts.append
+    for r in results:
+        if isinstance(r, _Encoded):
+            if run:
+                flush(resp.encode_replies(run, proto))
+                run = []
+            flush(r.data)
+        elif isinstance(r, str) and r.startswith("+"):
+            if run:
+                flush(resp.encode_replies(run, proto))
+                run = []
+            flush(resp.encode_simple(r[1:]))
+        elif isinstance(r, list) and r and isinstance(r[0], resp.Push):
+            if run:
+                flush(resp.encode_replies(run, proto))
+                run = []
+            flush(_encode_result(r, proto))
+        else:
+            run.append(r)
+    if run:
+        flush(resp.encode_replies(run, proto))
+    if len(parts) == 1:
+        return parts[0]
+    return b"".join(parts)
+
+
+class ServerThread:
+    """In-process server on a daemon thread — the embedded-test harness
+    (RedisRunner analog for hermetic tests).  Keyword arguments go to
+    TpuServer, ``device`` among them (the CUDA card unless "cpu")."""
+
+    def __init__(self, engine: Optional[Engine] = None, port: int = 0, **kw):
+        self.server = TpuServer(engine=engine, port=port, **kw)
+        self._thread: Optional[threading.Thread] = None
+        self._started = threading.Event()
+
+    def __enter__(self) -> "ServerThread":
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def start(self) -> "ServerThread":
+        def run():
+            async def main():
+                await self.server.start_async()
+                self._started.set()
+                async with self.server._server:
+                    try:
+                        await self.server._server.serve_forever()
+                    except asyncio.CancelledError:
+                        pass
+
+            asyncio.run(main())
+
+        self._thread = threading.Thread(target=run, daemon=True, name="rtpu-server")
+        self._thread.start()
+        if not self._started.wait(timeout=10):
+            raise RuntimeError("server failed to start")
+        return self
+
+    @property
+    def port(self) -> int:
+        return self.server.port
+
+    @property
+    def address(self) -> str:
+        scheme = "tpus" if self.server.tls_enabled else "tpu"
+        return f"{scheme}://{self.server.host}:{self.server.port}"
+
+    def stop(self):
+        self.server.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def client(self):
+        """One-shot admin connection (context manager) to this node — speaks
+        TLS when the node does (trusting the node's own CA/cert chain)."""
+        from contextlib import closing
+
+        from redisson_tpu_torch.net.client import Connection, client_ssl_context
+
+        ssl_ctx = None
+        if self.server.tls_enabled:
+            ssl_ctx = client_ssl_context(
+                ca_file=self.server.tls_ca_file or self.server.tls_cert_file,
+                cert_file=self.server.tls_cert_file if self.server.tls_ca_file else None,
+                key_file=self.server.tls_key_file if self.server.tls_ca_file else None,
+                verify_hostname=False,
+            )
+        return closing(
+            Connection(
+                self.server.host,
+                self.server.port,
+                timeout=120.0,
+                password=self.server.password,
+                ssl_context=ssl_ctx,
+            )
+        )
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="redisson-tpu server on PyTorch")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=6390)
+    ap.add_argument("--password", default=None)
+    ap.add_argument(
+        "--device", default="cuda",
+        help="where the state lives: 'cuda' (the default; without a card the "
+             "server refuses to start) or 'cpu' (the plain PyTorch versions)",
+    )
+    ap.add_argument(
+        "--no-overlap", action="store_true",
+        help="disable the overlapped device I/O plane (core/ioplane): every "
+             "frame's readback blocks its connection's read loop — the "
+             "serial reference path for A/B measurement",
+    )
+    ap.add_argument(
+        "--workers", type=int, default=4,
+        help="data-plane worker threads (the per-connection dispatch pool)",
+    )
+    ap.add_argument(
+        "--no-qos", action="store_true",
+        help="disable the deadline-aware scheduler / per-tenant QoS plane "
+             "(server/scheduler.py): frames dispatch in pure arrival order "
+             "(RTPU_NO_QOS=1 equivalent)",
+    )
+    ap.add_argument(
+        "--dispatch-ahead", type=int, default=None,
+        help="per-connection dispatch-ahead bound: how many frames may sit "
+             "between 'dispatched' and 'replies written' on one connection. "
+             "Default: 2.",
+    )
+    ap.add_argument(
+        "--ready-fd", type=int, default=None,
+        help="inherited fd to write one 'READY <host> <port> <pid>' line to "
+             "once the listener is bound (with --port 0 this reports the "
+             "kernel-chosen port)",
+    )
+    ap.add_argument(
+        "--tls-cert", default=None,
+        help="PEM certificate: enables TLS on the listener (with --tls-key)",
+    )
+    ap.add_argument("--tls-key", default=None, help="PEM private key for --tls-cert")
+    ap.add_argument(
+        "--tls-ca", default=None,
+        help="PEM CA bundle: additionally REQUIRE client certificates "
+             "(mutual TLS)",
+    )
+    args = ap.parse_args(argv)
+    if bool(args.tls_cert) != bool(args.tls_key):
+        ap.error("--tls-cert and --tls-key must be given together")
+    if args.no_overlap:
+        # flip the process-global switch too: the embedded Batch/pack paths
+        # of THIS process must match the server's serial reply path
+        ioplane.set_overlap(False)
+    if args.no_qos:
+        _sched.set_qos(False)
+    srv = TpuServer(
+        Engine(device=args.device),
+        host=args.host,
+        port=args.port,
+        password=args.password,
+        overlap=not args.no_overlap,
+        workers=args.workers,
+        qos=False if args.no_qos else None,
+        dispatch_ahead=args.dispatch_ahead,
+        tls_cert_file=args.tls_cert,
+        tls_key_file=args.tls_key,
+        tls_ca_file=args.tls_ca,
+    )
+    asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd))
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -550,16 +550,23 @@ def test_bitset_set_one_launch_forms_match_plain(dev, n):
             assert torch.equal(a, b), (n_valid, value)
 
 
-def _kernels_a_call(fn):
+def _kernels_a_call(fn, attempts=3):
+    """The kernels one call of fn launches, from a torch.profiler trace; a
+    trace that comes back empty (CUPTI does so now and then) is taken again,
+    up to `attempts` traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+        if kernels:
+            return kernels
+    return kernels
 
 
 def test_bitset_set_and_kmeans_assign_launch_one_kernel_a_call(dev):
@@ -1634,3 +1641,69 @@ def test_search_on_the_card_matches_the_cpu_and_counts_launches(dev):
         assert c["knn_score"] >= 2 and c["knn_select"] >= 2, (name, c)
         if name.startswith("IVF"):
             assert c["ivf_score"] == 2 and c["kmeans"] == 2 * 6, (name, c)  # assign + update, 6 steps
+
+
+def test_threads_launching_wc_words_and_segment_reduce_on_one_stream(dev):
+    """Four threads, each 50 wc_words and 50 segment_reduce calls on
+    distinct inputs on the device's one stream, as the server's workers
+    launch them: every result is its plain version's, bit for bit (no two
+    calls share a tag of kernels._tagged_state)."""
+    import threading
+
+    rng = np.random.default_rng(77)
+    texts = [torch.from_numpy(_text(rng, 1500 + 53 * i)).to(dev) for i in range(8)]
+    ends = [_ends(t.cpu().numpy()) for t in texts]
+    results, errors, lock = [], [], threading.Lock()
+
+    def work(tid):
+        try:
+            r = np.random.default_rng(1000 + tid)
+            mine = []
+            for i in range(50):
+                j = (tid + i) % len(texts)
+                mine.append(("wc", (j, i), K.wc_extract_words_auto(texts[j], ends[j], ends[j], i)))
+                keys = torch.from_numpy(r.integers(-5, 70, 20_000)).to(dev)
+                vals = torch.from_numpy(r.integers(-(2**31), 2**31 - 1, 20_000).astype(np.int32)).to(dev)
+                reduce = ("sum", "max", "min")[i % 3]
+                mine.append(("seg", (keys, vals, reduce), K.segment_reduce(keys, vals, 64, reduce)))
+            with lock:
+                results.extend(mine)
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert len(results) == 400
+    for kind, args, got in results:
+        if kind == "wc":
+            j, base = args
+            _same(got, K.wc_extract_words_auto_plain(texts[j], ends[j], ends[j], base))
+        else:
+            assert torch.equal(got, K.segment_reduce_plain(*args[:2], 64, args[2]))
+
+
+def test_server_on_the_card_replies_as_on_the_cpu(dev):
+    """The mixed stream of every served verb, RESP2 then RESP3, on a server
+    whose state lives on the card and on one on the CPU: the same replies,
+    the HLL estimates within their contract; the sketch kernels launched."""
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    stream = W.mixed_stream(seed=3, scale=4, estimates=True)
+    waves = [stream, [("HELLO", "3")] + stream]
+    out = []
+    for device in ("cpu", "cuda"):
+        K.reset_launches()
+        with ServerThread(port=0, device=device) as st:
+            out.append(W.replies(st.server.host, st.server.port, waves))
+    launched = {k for k, v in K.launches.items() if v}
+    assert {"bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"} <= launched, launched
+    assert launched & {"bloom_set", "bloom_add"}
+    for wave, (_, got), (_, want) in zip(waves, out[1], out[0]):
+        assert W.compare(wave, got, want) == []

@@ -30,6 +30,24 @@ def test_the_walk_covers_the_search_modules():
             "redisson_tpu_torch.net.resp"} <= set(_modules())
 
 
+def test_the_walk_covers_the_server_modules():
+    assert {"redisson_tpu_torch.server.server", "redisson_tpu_torch.server.verbs.sketch",
+            "redisson_tpu_torch.server.verbs.keyspace", "redisson_tpu_torch.server.registry",
+            "redisson_tpu_torch.net.client", "redisson_tpu_torch.net._native",
+            "redisson_tpu_torch.tracking.table"} <= set(_modules())
+
+
+@pytest.mark.parametrize("path", sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_the_reference_native_directory(path):
+    """The port builds its own copy of the RESP library
+    (redisson_tpu_torch/native/resp.cpp into redisson_tpu_torch/_build/);
+    nothing reaches the reference's native/ directory or its library."""
+    text = path.read_text()
+    for needle in ("native/build", "librtpu.so", "_REPO_ROOT", "../native", '"native", "build"'):
+        assert needle not in text, f"{path}: {needle}"
+
+
 def test_every_module_imports_with_jax_and_the_reference_blocked():
     script = f"""
 import sys

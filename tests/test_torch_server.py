@@ -1,0 +1,369 @@
+"""The port's RESP server (redisson_tpu_torch.server) against the reference
+server (redisson_tpu.server) on the CPU: one command stream sent to each,
+before and after HELLO 3, gets the same reply bytes; the HLL estimates hold
+their contract; a run of BF blob commands takes one fused call; expiry,
+pub/sub and tracking pushes, the CLI and the refusals."""
+import hashlib
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from redisson_tpu.server.server import ServerThread as RefServerThread
+from redisson_tpu_torch.core import coalesce as CO
+from redisson_tpu_torch.core import ioplane
+from redisson_tpu_torch.core import kernels as K
+from redisson_tpu_torch.net import resp
+from redisson_tpu_torch.net.client import Connection
+from redisson_tpu_torch.server import ServerThread
+from redisson_tpu_torch.server import registry
+from redisson_tpu_torch.server.verbs import sketch as SK
+from redisson_tpu_torch.tools import wire_stream as W
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _both(waves, **kw):
+    """The replies of a fresh reference server, then of a fresh port
+    server on the CPU, to `waves` on one connection each."""
+    out = []
+    for make in (lambda: RefServerThread(port=0, **kw), lambda: ServerThread(port=0, device="cpu", **kw)):
+        with make() as st:
+            out.append(W.replies(st.server.host, st.server.port, waves))
+    return out
+
+
+def test_reply_digest_matches_the_reference():
+    stream = W.mixed_stream(seed=0)
+    waves = [stream, [("HELLO", "3")] + stream]
+    want, got = _both(waves)
+    for wave, (graw, g), (wraw, w) in zip(waves, got, want):
+        assert W.compare(wave, g, w) == []
+        assert hashlib.sha256(graw).hexdigest() == hashlib.sha256(wraw).hexdigest()
+    # the stream reaches every family: coalesced runs, errors, RESP3 maps
+    assert any(isinstance(r, resp.RespError) for r in got[0][1])
+    assert isinstance(got[1][1][0], dict) and got[1][1][0][b"proto"] == 3
+
+
+@pytest.mark.parametrize("kw", [{"qos": False}, {"overlap": False}, {"dispatch_ahead": 1}],
+                         ids=["qos_off", "overlap_off", "one_frame_ahead"])
+def test_reply_digest_matches_the_reference_with_a_plane_off(kw):
+    """The QoS plane disarmed, the serial readback, and one frame in
+    flight a connection: each keeps the reference's reply bytes."""
+    stream = W.mixed_stream(seed=0)
+    waves = [stream, [("HELLO", "3")] + stream]
+    want, got = _both(waves, **kw)
+    for wave, (graw, g), (wraw, w) in zip(waves, got, want):
+        assert W.compare(wave, g, w) == []
+        assert graw == wraw
+
+
+def test_estimates_hold_their_contracts():
+    stream = W.mixed_stream(seed=1, estimates=True)
+    waves = [stream, [("HELLO", "3")] + stream]
+    want, got = _both(waves)
+    for wave, (_, g), (_, w) in zip(waves, got, want):
+        assert W.compare(wave, g, w) == []
+    replies = dict(zip((c[0] for c in stream), got[0][1]))
+    assert replies["HLLA.ESTIMATE"] and len(replies["HLLA.ESTIMATE"]) == 32 * 8
+    big = [r for c, r in zip(stream, got[0][1]) if c[:2] == ("PFCOUNT", "hll:big")]
+    assert abs(big[0] - 400_000) < 0.02 * 400_000
+    # the contract's tolerance is tight: a PFCOUNT one past it fails
+    assert W.compare([("PFCOUNT", "x")], [400_000 + 3], [400_000]) != []
+
+
+def _filters(conn, names, capacity=5000):
+    conn.execute_many([("BF.RESERVE", n, "0.01", str(capacity)) for n in names])
+
+
+def test_a_run_of_blob_commands_is_one_fused_call(monkeypatch):
+    calls = []
+    real = SK.coalesce_bloom_run
+
+    def spy(server, ctx, cmds):
+        calls.append(len(cmds))
+        return real(server, ctx, cmds)
+
+    monkeypatch.setattr(SK, "coalesce_bloom_run", spy)
+    rng = np.random.default_rng(5)
+    names = [f"f{i}" for i in range(16)]
+    keys = [rng.integers(-2**62, 2**62, 64) for _ in names]
+    probes = [np.concatenate([k[:32], rng.integers(-2**62, 2**62, 32)]) for k in keys]
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, names)
+        add = c.execute_many([("BF.MADD64", n, W._i8(k)) for n, k in zip(names, keys)])
+        assert calls == [16] and all(r == b"\x01" * 64 for r in add)
+        run = c.execute_many([("BF.MEXISTS64", n, W._i8(p)) for n, p in zip(names, probes)])
+        assert calls == [16, 16]
+        singles = [c.execute("BF.MEXISTS64", n, W._i8(p)) for n, p in zip(names, probes)]
+        assert calls == [16, 16]  # a frame of one command is no run
+    assert run == singles
+    assert all(r[:32] == b"\x01" * 32 for r in run)
+
+
+def test_a_run_larger_than_one_read_still_fuses(monkeypatch):
+    """Config 5's blobs (10,000 keys, 80 KB) exceed the server's 64 KiB
+    read: the frame is read to a command boundary before it dispatches."""
+    calls = []
+    real = SK.coalesce_bloom_run
+    monkeypatch.setattr(SK, "coalesce_bloom_run",
+                        lambda server, ctx, cmds: calls.append(len(cmds)) or real(server, ctx, cmds))
+    names = [f"big{i}" for i in range(8)]
+    keys = [np.arange(i * 10_000, (i + 1) * 10_000, dtype=np.int64) * 2654435761 for i in range(8)]
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, names, 10_000)
+        replies = c.execute_many([("BF.MADD64", n, W._i8(k)) for n, k in zip(names, keys)]
+                                 + [("BF.MEXISTS64", n, W._i8(k)) for n, k in zip(names, keys)])
+    assert calls == [8, 8]
+    assert all(r == b"\x01" * 10_000 for r in replies[8:])
+
+
+def test_a_failed_fused_run_replies_errors_and_is_never_redispatched(monkeypatch):
+    """Only an ineligible run takes the per-command route; any other
+    failure of the fused launch replies one error a command."""
+    names = [f"g{i}" for i in range(4)]
+    frame = [("BF.MEXISTS64", n, W._i8(np.arange(8))) for n in names]
+    real_contains = CO.fused_bloom_contains_async
+    dispatched = []
+    real_dispatch = registry.Registry.dispatch
+
+    def counting(self, server, ctx, args):
+        dispatched.append(bytes(args[0]))
+        return real_dispatch(self, server, ctx, args)
+
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, names)
+        monkeypatch.setattr(registry.Registry, "dispatch", counting)
+        want = c.execute_many(frame)  # the fused run
+        assert dispatched == [] and want == [b"\x00" * 8] * 4
+
+        def ineligible(*a, **k):
+            raise CO.CoalesceIneligible("mixed geometry")
+
+        monkeypatch.setattr(CO, "fused_bloom_contains_async", ineligible)
+        assert c.execute_many(frame) == want  # per command, same replies
+        assert dispatched == [b"BF.MEXISTS64"] * 4
+
+        def broken(*a, **k):
+            raise RuntimeError("launch failed")
+
+        monkeypatch.setattr(CO, "fused_bloom_contains_async", broken)
+        errors = st.server.stats["errors"]
+        got = c.execute_many(frame)
+        assert [str(e) for e in got] == ["ERR internal: RuntimeError: launch failed"] * 4
+        assert dispatched == [b"BF.MEXISTS64"] * 4  # nothing re-dispatched
+        assert st.server.stats["errors"] == errors + 4
+        monkeypatch.setattr(CO, "fused_bloom_add_async", broken)
+        got = c.execute_many([("BF.MADD64", n, W._i8(np.arange(8))) for n in names])
+        assert all(isinstance(e, resp.RespError) for e in got)
+        assert dispatched == [b"BF.MEXISTS64"] * 4
+
+        # the frame's one grouped readback fails: every device reply of the
+        # frame replies the error, nothing is copied reply by reply
+        monkeypatch.setattr(CO, "fused_bloom_contains_async", real_contains)
+
+        def no_copy(*a, **k):
+            raise RuntimeError("copy failed")
+
+        monkeypatch.setattr(ioplane, "gather_device_results", no_copy)
+        errors = st.server.stats["errors"]
+        got = c.execute_many(frame + [("PING",)])
+        assert [str(e) for e in got[:4]] == ["ERR internal: RuntimeError: copy failed"] * 4
+        assert got[4] == b"PONG" and st.server.stats["errors"] == errors + 4
+        assert dispatched == [b"BF.MEXISTS64"] * 4 + [b"PING"]  # the run fused
+
+
+def test_a_complete_command_waits_for_the_partial_one_behind_it():
+    """A frame is read to a command boundary: a complete command ahead of
+    a partial one is answered only once the rest arrives (the reference
+    answers it at once), with the same reply bytes."""
+    big = resp.encode_command("BF.MEXISTS64", "f", W._i8(np.arange(10_000)))  # 80 KB
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, ["f"], 10_000)
+        with socket.create_connection((st.server.host, st.server.port)) as s:
+            parser = resp.RespParser(use_native=False)
+            s.sendall(resp.encode_command("PING") + big[:1000])
+            s.settimeout(0.5)
+            with pytest.raises(socket.timeout):
+                s.recv(1 << 16)
+            s.sendall(big[1000:])
+            raw, got = _read_values(s, parser, 2)
+    assert raw.startswith(b"+PONG\r\n") and got[1] == b"\x00" * 10_000
+
+
+def test_expiry_matches_the_reference():
+    waves = [[("SET", "k", "v"), ("SET", "keep", "v"), ("PEXPIRE", "k", "50"), ("PTTL", "keep")],
+             [("EXISTS", "k"), ("DBSIZE",), ("KEYS", "*"), ("GET", "k"), ("TTL", "k")]]
+    out = []
+    for make in (lambda: RefServerThread(port=0), lambda: ServerThread(port=0, device="cpu")):
+        with make() as st:
+            first = W.replies(st.server.host, st.server.port, waves[:1])
+            time.sleep(0.15)
+            out.append(first + W.replies(st.server.host, st.server.port, waves[1:]))
+    assert [raw for raw, _ in out[1]] == [raw for raw, _ in out[0]]
+    assert out[1][1][1][:2] == [0, 1]
+
+
+def test_the_store_reaper_tells_tracking():
+    with ServerThread(port=0, device="cpu") as st:
+        store = st.server.engine.store
+        assert store.on_expired == st.server.tracking.note_expired
+        seen = []
+        store.on_expired = seen.extend
+        with st.client() as c:
+            c.execute("SET", "a", "1", "PX", "20")
+            time.sleep(0.05)
+            assert st.server.engine.eviction is not None
+            assert store.reap_expired() == 1 and seen == ["a"]
+
+
+def _read_values(sock, parser, n, timeout=30.0):
+    sock.settimeout(timeout)
+    raw, got = b"", []
+    while len(got) < n:
+        data = sock.recv(1 << 16)
+        assert data, "server closed early"
+        raw += data
+        got += parser.feed(data)
+    return raw, got
+
+
+def _pubsub_and_tracking(make):
+    """The raw bytes a subscriber and a tracking client receive."""
+    with make() as st:
+        addr = (st.server.host, st.server.port)
+        sub, pub, trk = (socket.create_connection(addr) for _ in range(3))
+        parsers = [resp.RespParser(use_native=False) for _ in range(3)]
+        try:
+            out = []
+            sub.sendall(resp.encode_command("SUBSCRIBE", "news", "more"))
+            out.append(_read_values(sub, parsers[0], 2)[0])
+            pub.sendall(resp.encode_commands([("PUBLISH", "news", "hello"), ("PUBLISH", "none", "x")]))
+            out.append(_read_values(pub, parsers[1], 2)[0])
+            out.append(_read_values(sub, parsers[0], 1)[0])
+            trk.sendall(resp.encode_commands([("HELLO", "3"), ("CLIENT", "TRACKING", "on"),
+                                              ("SET", "t", "1"), ("GET", "t")]))
+            out.append(_read_values(trk, parsers[2], 4)[0])
+            pub.sendall(resp.encode_command("SET", "t", "2"))
+            out.append(_read_values(pub, parsers[1], 1)[0])
+            out.append(_read_values(trk, parsers[2], 1)[0])  # the invalidation push
+            return out
+        finally:
+            for s in (sub, pub, trk):
+                s.close()
+
+
+def test_pubsub_and_tracking_pushes_match_the_reference():
+    want = _pubsub_and_tracking(lambda: RefServerThread(port=0))
+    got = _pubsub_and_tracking(lambda: ServerThread(port=0, device="cpu"))
+    assert got == want
+    assert got[-1].startswith(b">2\r\n$10\r\ninvalidate")
+
+
+def test_cli_serves_on_the_cpu():
+    r, w = os.pipe()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "redisson_tpu_torch.server", "--device", "cpu", "--port", "0",
+         "--ready-fd", str(w)], cwd=ROOT, pass_fds=(w,), stderr=subprocess.PIPE)
+    os.close(w)
+    try:
+        with os.fdopen(r) as f:
+            line = f.readline().split()
+        assert line[0] == "READY" and int(line[3]) == proc.pid
+        conn = Connection(line[1], int(line[2]), timeout=30)
+        assert conn.execute("PING") == b"PONG"
+        conn.close()
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+
+
+def test_without_a_card_the_default_device_raises(monkeypatch):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-m", "redisson_tpu_torch.server", "--port", "0"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerThread()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServerThread(port=0, device="cuda:0")
+
+
+@pytest.mark.parametrize("kw, milestone", [({"devices": 2}, "M8"), ({"mode": "cluster"}, "M8"),
+                                           ({"advertise_host": "10.0.0.1"}, "M8"),
+                                           ({"checkpoint_path": "/tmp/x"}, "M11"),
+                                           ({"journal_dir": "/tmp/j"}, "M11")])
+def test_left_out_arguments_refuse(kw, milestone):
+    with pytest.raises(NotImplementedError, match=milestone):
+        ServerThread(port=0, device="cpu", **kw)
+
+
+def _race(fn, threads: int) -> None:
+    """Run fn on `threads` threads at once with a short switch interval."""
+    workers = [threading.Thread(target=fn) for _ in range(threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in workers)
+
+
+def test_tags_of_threaded_calls_are_distinct():
+    """kernels._tagged_state under 1,000 calls from 20 threads: no two
+    calls share a tag (a stand-in stream key: torch.cuda.current_stream
+    needs a card)."""
+    tags, lock = [], threading.Lock()
+    stand_in = object()
+
+    def calls():
+        mine = [K._tagged_state("test_tags", torch.device("cpu"), 4, stream=stand_in)[1]
+                for _ in range(50)]
+        with lock:
+            tags.extend(mine)
+
+    _race(calls, 20)
+    assert len(tags) == 1000 and len(set(tags)) == 1000
+
+
+def test_launch_counts_are_not_lost_under_threads():
+    K.reset_launches()
+
+    def count():
+        for _ in range(500):
+            K.count_launch("bloom_probe")
+
+    _race(count, 16)
+    assert K.launches["bloom_probe"] == 8000
+    K.reset_launches()
+
+
+def test_a_frames_device_replies_leave_in_one_grouped_copy():
+    """Every device reply of a frame (bit reads and writes, bank probes, a
+    fused run, an HLL estimate) comes to the host in one grouped transfer:
+    one blocking sync a frame in ioplane.STATS."""
+    frame = [("SETBITSB", "b", W._i4([1, 5, 9])), ("GETBITSB", "b", W._i4([1, 2, 5])),
+             ("BFA.MEXISTS64", "bank", W._i4([0, 1]), W._i8([7, 8])),
+             ("BF.MEXISTS64", "f0", W._i8([1, 2])), ("BF.MEXISTS64", "f1", W._i8([3])),
+             ("HLLA.ESTIMATE", "h"), ("BITOP", "OR", "b2", "b")]
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, ["f0", "f1"])
+        c.execute_many([("BFA.RESERVE", "bank", "2", "100", "0.01"), ("HLLA.RESERVE", "h", "4")])
+        for n in (1, 2):
+            ioplane.STATS.reset()
+            replies = c.execute_many(frame)
+            assert ioplane.STATS.snapshot()["blocking_syncs"] == 1, n
+        assert replies[:2] == [b"\x01\x01\x01", b"\x01\x00\x01"] and replies[-1] == 2
+        assert len(replies[5]) == 4 * 8

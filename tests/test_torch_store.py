@@ -46,3 +46,28 @@ def test_get_unguarded_drops_an_expired_record():
     rec.expire_at = time.time() - 1.0
     assert st.get_unguarded("later") is None
     assert "later" not in st.keys() and not st.delete("later")
+
+
+def _expiry_trace(mod):
+    """__len__, peek, reap_expired and on_expired on the same operations."""
+    st = _fill(mod)
+    heard = []
+    st.on_expired = heard.append
+    trace = [len(st), st.peek("a:1"), st.peek("gone"), st.peek("missing"), len(st)]
+    st.put("soon", mod.StateRecord(kind="bucket", expire_at=time.time() - 0.5))
+    st.put("soon2", mod.StateRecord(kind="bucket", expire_at=time.time() - 0.5))
+    trace += [len(st), st.get("soon"), sorted(n for names in heard for n in names)]
+    trace += [st.reap_expired(), sorted(n for names in heard for n in names), len(st), st.reap_expired()]
+    st.put("late", mod.StateRecord(kind="bucket"))
+    st.expire("late", time.time() - 1.0)
+    trace += [st.exists("late"), heard[-1], st.delete("missing"), len(st)]
+    st.on_expired = lambda names: 1 / 0  # a failing hook never fails the store
+    st.put("x", mod.StateRecord(kind="bucket", expire_at=time.time() - 1.0))
+    trace += [st.get("x"), st.reap_expired(), len(st)]
+    return trace
+
+
+def test_expiry_and_length_match_the_reference():
+    want = _expiry_trace(RS)
+    assert _expiry_trace(S) == want
+    assert want[:5] == [6, True, False, False, 6]

@@ -111,7 +111,20 @@ Phases (any failure raises and the script exits non-zero):
      fails: the runs coalesced), config 3 over the wire (ten HLLA.MADD64
      frames of 1M ops, HLLA.MERGEROWS of 5,000 pairs, HLLA.ESTIMATE), one
      BFA.MEXISTS64 frame's spans with the tracer armed (parse, qos,
-     dispatch, the kernel launch, readback, encode, reply), and the mixed
+     dispatch, the kernel launch, readback, encode, reply), the collections
+     leg (server_collections: tools/wire_stream.collections_stream on the
+     card server and a CPU server, RESP2 then RESP3, equal under compare
+     and byte for byte outside the unordered and random verbs; a
+     leaderboard of 250,000 members by ZADD of 1,000 pairs, ZREVRANGE 0 99
+     WITHSCORES against a host sort, 1,000 ZREVRANK and ZSCORE reads
+     p50/p99, 10,000 ZINCRBY in frames of 1,000, ZREVRANGE again; a job
+     queue: four producer connections RPUSH 2,500 ids (cut from 20,000,
+     printed) in commands of 50,
+     four consumer connections BLPOP 1 until empty, every id exactly once,
+     a fifth connection's PING p99 while they park; config 5's stream with
+     a SADD, an LPUSH and a ZADD a tenant, fewer bloom launches a rep than
+     its 128 BF blob commands; handler ms by verb, each line with the
+     card's name and power limit), and the mixed
      stream of every served verb (tools/wire_stream.py) on a card server
      and a CPU server, RESP2 then RESP3: equal replies, PFCOUNT and the
      HLLA estimates within their contract; the path must launch
@@ -124,7 +137,12 @@ Phases (any failure raises and the script exits non-zero):
      replies (the float32 sum of N(0, 100) within its limit); and a search
      stream (TEXT, TAG, NUMERIC and VECTOR fields, adds, updates, deletes,
      FLAT and IVF KNN in every metric and dtype, plain and hybrid) on both:
-     equal replies, the CPU installing the card's trained IVF index.
+     equal replies, the CPU installing the card's trained IVF index; and an
+     op stream through each collection family (lists, queues, sets, sorted
+     sets, multimaps, topics, adders, Keys, MapCache) and a synchronizer
+     stream (locks, fenced and read-write locks, semaphores, latches and a
+     rate limiter from several threads in a fixed interleaving) on both:
+     equal replies and final states.
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
 Without a CUDA card, or without the package beside it, it exits non-zero.
 """
@@ -3318,6 +3336,306 @@ def server_card_against_cpu(device) -> dict:
     return {"commands": 2 * len(stream) + 1, "verbs": len(verbs), "waves_bytes_equal": same_bytes}
 
 
+
+# the collections leg of the server phase (server_collections): the
+# collections stream card against CPU, a leaderboard, a job queue and
+# config 5's stream with collections
+SRV_COLL_SEED, SRV_COLL_SCALE = 23, 2
+SRV_LB_MEMBERS, SRV_LB_BATCH, SRV_LB_FRAME = 250_000, 1_000, 10
+SRV_LB_READS, SRV_LB_INCRS, SRV_LB_INCR_FRAME = 1_000, 10_000, 1_000
+# the job queue is cut from 20,000 ids: on the H100's host 20,000 took 15.7 s
+# of a 26.8 s leg and 5,000 took 7.4 s of 22.0 (PERF.md section 5); the leg
+# aims at ~15 s
+SRV_JOBS, SRV_JOBS_DESIGN, SRV_JOB_BATCH, SRV_JOB_CONNS = 2_500, 20_000, 50, 4
+SRV_C5C_REPS = 1
+
+
+def verb_line(by_verb: dict, top: int = 8) -> str:
+    return ", ".join(f"{k} {v['ms']:.1f} ms / {v['calls']}"
+                     for k, v in sorted(by_verb.items(), key=lambda kv: -kv[1]["ms"])[:top])
+
+
+def collections_card_against_cpu(st, card: str) -> dict:
+    """tools/wire_stream.collections_stream, RESP2 then RESP3, on the card
+    server and on a CPU server of the port: equal under compare, and every
+    reply outside the unordered and random verbs equal byte for byte."""
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    stream = W.collections_stream(seed=SRV_COLL_SEED, scale=SRV_COLL_SCALE)
+    waves = [stream, [("HELLO", "3")] + stream]
+    got = {}
+    by_verb = verb_ms(st.server, lambda: got.update(card=W.replies(st.server.host, st.server.port, waves)))
+    with ServerThread(port=0, device="cpu") as cpu:
+        want = W.replies(cpu.server.host, cpu.server.port, waves)
+    loose = W.UNORDERED_VERBS | W.RANDOM_VERBS
+    bytes_equal = 0
+    for wave, (craw, c), (wraw, w) in zip(waves, got["card"], want):
+        cs, ws = W.reply_spans(craw), W.reply_spans(wraw)
+        if wave[0][0] == "HELLO":  # its reply holds the connection's id, which differs
+            if c[0][b"proto"] != 3 or w[0][b"proto"] != 3:
+                raise AssertionError("collections card vs CPU: HELLO 3")
+            wave, c, w, cs, ws = wave[1:], c[1:], w[1:], cs[1:], ws[1:]
+        bad = W.compare(wave, c, w)
+        bad += [f"#{i} {wave[i][0]} bytes" for i in range(len(wave))
+                if W._verb(wave[i]) not in loose and cs[i] != ws[i]]
+        if bad:
+            raise AssertionError(f"collections card vs CPU: {len(bad)} replies differ: {bad[:3]}")
+        bytes_equal += sum(a == b for a, b in zip(cs, ws))
+    verbs = {W._verb(c) for c in stream}
+    log(f"collections stream [{card}]: {len(stream)} commands ({len(verbs)} verbs, scale {SRV_COLL_SCALE}) twice, "
+        f"RESP2 then RESP3, card server against a CPU server: equal ({bytes_equal} of {2 * len(stream)} replies "
+        f"byte for byte, the rest unordered or random under compare's contracts); handler time by verb "
+        + verb_line(by_verb))
+    return {"commands": 2 * len(stream), "verbs": len(verbs), "bytes_equal": bytes_equal, "verb_ms": by_verb}
+
+
+def collections_leaderboard(conn, server, card: str) -> dict:
+    """A leaderboard: ZADD of SRV_LB_BATCH pairs a command up to
+    SRV_LB_MEMBERS members; ZREVRANGE 0 99 WITHSCORES against a host sort;
+    SRV_LB_READS ZREVRANK and ZSCORE reads with no write between them;
+    SRV_LB_INCRS ZINCRBY in frames; ZREVRANGE again.  The index is rebuilt
+    once after each run of writes (the first read times it)."""
+    from redisson_tpu_torch.server.verbs.common import _fnum
+
+    rng = np.random.default_rng(29)
+    n = SRV_LB_MEMBERS
+    members = [f"player:{i}" for i in range(n)]
+    scores = np.round(rng.gamma(2.0, 500.0, n), 2).tolist()
+    host = dict(zip(members, scores))
+    cmds = [("ZADD", "lb", *[x for i in range(s, min(n, s + SRV_LB_BATCH)) for x in (repr(scores[i]), members[i])])
+            for s in range(0, n, SRV_LB_BATCH)]
+    by_verb = {}
+
+    def top100():
+        want = sorted(host.items(), key=lambda kv: (kv[1], kv[0].encode()), reverse=True)[:100]
+        return [x for m, sc in want for x in (m.encode(), _fnum(sc))]
+
+    def write_phase():
+        s = time.perf_counter()
+        for i in range(0, len(cmds), SRV_LB_FRAME):
+            if conn.execute_many(cmds[i:i + SRV_LB_FRAME]) != [SRV_LB_BATCH] * len(cmds[i:i + SRV_LB_FRAME]):
+                raise AssertionError("leaderboard: ZADD replies")
+        return time.perf_counter() - s
+
+    out = {"members": n}
+    by_verb.update(verb_ms(server, lambda: out.update(zadd_s=write_phase())))
+    s = time.perf_counter()
+    if conn.execute("ZREVRANGE", "lb", 0, 99, "WITHSCORES") != top100():
+        raise AssertionError("leaderboard: ZREVRANGE 0 99 differs from the host sort")
+    out["first_zrevrange_ms"] = (time.perf_counter() - s) * 1e3
+    order = sorted(host, key=lambda m: (host[m], m.encode()), reverse=True)
+    rank = {m: i for i, m in enumerate(order)}
+    picks = [members[int(i)] for i in rng.integers(0, n, SRV_LB_READS)]
+    lat = {"ZREVRANK": [], "ZSCORE": []}
+
+    def reads():
+        for m in picks:
+            t = time.perf_counter()
+            r = conn.execute("ZREVRANK", "lb", m)
+            lat["ZREVRANK"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            sc = conn.execute("ZSCORE", "lb", m)
+            lat["ZSCORE"].append(time.perf_counter() - t)
+            if r != rank[m] or float(sc) != host[m]:
+                raise AssertionError(f"leaderboard: {m} rank {r} score {sc!r}, not {rank[m]} {host[m]!r}")
+
+    by_verb.update(verb_ms(server, reads))
+    incr = [(members[int(i)], repr(float(d))) for i, d in
+            zip(rng.integers(0, n, SRV_LB_INCRS), np.round(rng.normal(0, 100, SRV_LB_INCRS), 2))]
+
+    def increments():
+        s = time.perf_counter()
+        for f in range(0, len(incr), SRV_LB_INCR_FRAME):
+            frame = incr[f:f + SRV_LB_INCR_FRAME]
+            replies = conn.execute_many([("ZINCRBY", "lb", d, m) for m, d in frame])
+            for (m, d), r in zip(frame, replies):
+                host[m] = host[m] + float(d)
+                if float(r) != host[m]:
+                    raise AssertionError(f"leaderboard: ZINCRBY {m} replied {r!r}, not {host[m]!r}")
+        return time.perf_counter() - s
+
+    by_verb.update({f"{k} (increments)": v for k, v in
+                    verb_ms(server, lambda: out.update(zincrby_s=increments())).items()})
+    s = time.perf_counter()
+    conn.execute("ZREVRANK", "lb", members[0])  # the first read after the writes rebuilds the index
+    out["rebuild_read_ms"] = (time.perf_counter() - s) * 1e3
+    if conn.execute("ZREVRANGE", "lb", 0, 99, "WITHSCORES") != top100():
+        raise AssertionError("leaderboard: ZREVRANGE 0 99 after the ZINCRBYs differs from the host sort")
+    for verb, xs in lat.items():
+        out[verb] = {"reads": len(xs), "p50_ms": pctl(xs, 50) * 1e3, "p99_ms": pctl(xs, 99) * 1e3}
+    out["verb_ms"] = by_verb
+    log(f"collections leaderboard [{card}]: {n} members by {len(cmds)} ZADD of {SRV_LB_BATCH} pairs in "
+        f"{out['zadd_s']:.3f}s ({n / out['zadd_s']:.0f} pairs/s); ZREVRANGE 0 99 WITHSCORES equal to the host sort, "
+        f"first read after the writes {out['first_zrevrange_ms']:.1f} ms (the index rebuilt); {SRV_LB_READS} "
+        f"ZREVRANK p50 {out['ZREVRANK']['p50_ms']:.3f} p99 {out['ZREVRANK']['p99_ms']:.3f} ms, ZSCORE p50 "
+        f"{out['ZSCORE']['p50_ms']:.3f} p99 {out['ZSCORE']['p99_ms']:.3f} ms, every one right; {SRV_LB_INCRS} "
+        f"ZINCRBY in frames of {SRV_LB_INCR_FRAME} {out['zincrby_s']:.3f}s; the next ZREVRANK (rebuild) "
+        f"{out['rebuild_read_ms']:.1f} ms; ZREVRANGE again equal; handler time by verb " + verb_line(by_verb))
+    conn.execute("DEL", "lb")
+    return out
+
+
+def collections_job_queue(st, card: str) -> dict:
+    """A job queue: SRV_JOB_CONNS producer connections RPUSH SRV_JOBS ids in
+    commands of SRV_JOB_BATCH; SRV_JOB_CONNS consumer connections take them
+    with BLPOP 1 until the queue stays empty; every id exactly once.  A
+    further connection PINGs all along, while the consumers park."""
+    import threading
+
+    from redisson_tpu_torch.net.client import Connection
+
+    host, port = st.server.host, st.server.port
+    taken = [[] for _ in range(SRV_JOB_CONNS)]
+    errors, pings, done = [], [], threading.Event()
+
+    def consume(k):
+        c = Connection(host, port, timeout=60.0)
+        try:
+            while True:
+                r = c.execute("BLPOP", "jobs", "1")
+                if r is None:
+                    return
+                taken[k].append(int(r[1]))
+        except Exception as e:  # noqa: BLE001 — reported below, the run fails
+            errors.append(e)
+        finally:
+            c.close()
+
+    def produce(k):
+        c = Connection(host, port, timeout=60.0)
+        try:
+            mine = list(range(k, SRV_JOBS, SRV_JOB_CONNS))
+            for i in range(0, len(mine), SRV_JOB_BATCH):
+                c.execute("RPUSH", "jobs", *mine[i:i + SRV_JOB_BATCH])
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+        finally:
+            c.close()
+
+    def ping():
+        c = Connection(host, port, timeout=60.0)
+        try:
+            while not done.is_set():
+                t = time.perf_counter()
+                if c.execute("PING") != b"PONG":
+                    errors.append(AssertionError("PING"))
+                pings.append(time.perf_counter() - t)
+                time.sleep(0.002)
+        finally:
+            c.close()
+
+    def run():
+        consumers = [threading.Thread(target=consume, args=(k,)) for k in range(SRV_JOB_CONNS)]
+        pinger = threading.Thread(target=ping)
+        for t in consumers + [pinger]:
+            t.start()
+        time.sleep(0.1)  # the consumers park before any job arrives
+        s = time.perf_counter()
+        producers = [threading.Thread(target=produce, args=(k,)) for k in range(SRV_JOB_CONNS)]
+        for t in producers:
+            t.start()
+        for t in producers + consumers:
+            t.join(120)
+        wall = time.perf_counter() - s
+        done.set()
+        pinger.join(10)
+        if any(t.is_alive() for t in producers + consumers + [pinger]):
+            raise AssertionError("job queue: a connection did not finish")
+        return wall
+
+    out = {}
+    by_verb = verb_ms(st.server, lambda: out.update(wall_s=run()))
+    if errors:
+        raise AssertionError(f"job queue: {errors[:3]}")
+    got = sorted(x for t in taken for x in t)
+    if got != list(range(SRV_JOBS)):
+        raise AssertionError(f"job queue: {len(got)} jobs taken, {len(set(got))} distinct, of {SRV_JOBS}")
+    out.update(jobs=SRV_JOBS, per_consumer=[len(t) for t in taken], pings=len(pings),
+               ping_p50_ms=pctl(pings, 50) * 1e3, ping_p99_ms=pctl(pings, 99) * 1e3,
+               ping_max_ms=max(pings) * 1e3, verb_ms=by_verb)
+    log(f"collections job queue [{card}]: {SRV_JOB_CONNS} producers RPUSH {SRV_JOBS} ids (cut from "
+        f"{SRV_JOBS_DESIGN} to keep the leg near 15 s) in commands of "
+        f"{SRV_JOB_BATCH}, {SRV_JOB_CONNS} consumers BLPOP 1 until empty: every id taken once "
+        f"({out['per_consumer']} a consumer), {out['wall_s']:.3f}s from the first push to the last consumer's "
+        f"timeout (1 s of it the last BLPOP's wait); a fifth connection's PING while they park: {len(pings)} "
+        f"p50 {out['ping_p50_ms']:.3f} p99 {out['ping_p99_ms']:.3f} max {out['ping_max_ms']:.3f} ms; "
+        f"handler time by verb " + verb_line(by_verb))
+    return out
+
+
+def server_config5_collection_cmds(rng, tag: str):
+    """Config 5's stream (server_config5_cmds) with one SADD, one LPUSH and
+    one ZADD a tenant after the tenant's bloom commands (ahead of its bit-set
+    commands: the BF blob runs stay whole)."""
+    cmds, ops = server_config5_cmds(rng, tag)
+    t = C5_TENANTS
+    assert len(cmds) == 3 * t + 4 * t
+    out = cmds[:3 * t]
+    for k in range(t):
+        out += [("SADD", f"set{tag}{{t{k}}}", f"m{k}"), ("LPUSH", f"list{tag}{{t{k}}}", f"j{k}"),
+                ("ZADD", f"zset{tag}{{t{k}}}", k, f"m{k}")]
+        out += cmds[3 * t + 4 * k: 3 * t + 4 * k + 4]
+    return out, ops + 3 * t
+
+
+def collections_config5(conn, server, card: str) -> dict:
+    from redisson_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(37)
+    bloom = ("bloom_probe", "bloom_set", "bloom_add")
+    reps, by_verb = [], {}
+    for rep in range(SRV_C5C_REPS + 1):  # the first rep warms
+        cmds, ops = server_config5_collection_cmds(rng, f"cw{rep}")
+        torch.cuda.synchronize()
+        before = dict(K.launches)
+        got = {}
+        s = time.perf_counter()
+        counted = verb_ms(server, lambda: got.update(replies=conn.execute_many(cmds)))
+        wall = time.perf_counter() - s
+        replies = got["replies"]
+        launched = {k: K.launches[k] - before[k] for k in bloom}
+        if any(isinstance(r, Exception) for r in replies):
+            raise AssertionError(f"config5 with collections: error replies {[r for r in replies if isinstance(r, Exception)][:3]}")
+        coll = [r for c, r in zip(cmds, replies) if c[0] in ("SADD", "LPUSH", "ZADD")]
+        if coll != [1] * (3 * C5_TENANTS):
+            raise AssertionError(f"config5 with collections: SADD/LPUSH/ZADD replies {coll[:6]}")
+        for t, r in enumerate(replies[2 * C5_TENANTS: 3 * C5_TENANTS]):
+            if not np.frombuffer(r, np.uint8).all():
+                raise AssertionError(f"config5 with collections: false negatives t{t}")
+        if sum(launched.values()) >= 2 * C5_TENANTS:
+            raise AssertionError(f"config5 with collections: {launched} bloom launches for {2 * C5_TENANTS} BF blob "
+                                 "commands: the runs did not coalesce")
+        if rep:
+            reps.append({"wall_s": wall, "ops_per_s": ops / wall, "bloom_launches": launched})
+            for k, v in counted.items():
+                acc = by_verb.setdefault(k, {"calls": 0, "ms": 0.0})
+                acc["calls"] += v["calls"]
+                acc["ms"] += v["ms"]
+    log(f"collections config5 [{card}]: config 5's stream with a SADD, an LPUSH and a ZADD a tenant ({len(cmds)} "
+        f"commands, {ops} ops), {SRV_C5C_REPS} reps after a warm one: "
+        + ", ".join(f"{r['ops_per_s']:.3e}" for r in reps) + f" ops/s; bloom launches a rep {reps[-1]['bloom_launches']} "
+        f"for {2 * C5_TENANTS} BF blob commands (the runs still coalesce); handler time by verb " + verb_line(by_verb))
+    return {"commands": len(cmds), "ops_per_rep": ops, "reps": reps, "verb_ms": by_verb}
+
+
+def server_collections(conn, st, card: str) -> dict:
+    """The collections leg of the server phase, on the card server."""
+    start = time.perf_counter()
+    out, parts = {}, {}
+    for name, run in (("stream", lambda: collections_card_against_cpu(st, card)),
+                      ("leaderboard", lambda: collections_leaderboard(conn, st.server, card)),
+                      ("job_queue", lambda: collections_job_queue(st, card)),
+                      ("config5", lambda: collections_config5(conn, st.server, card))):
+        s = time.perf_counter()
+        out[name] = run()
+        parts[name] = time.perf_counter() - s
+    out["seconds"], out["part_seconds"] = time.perf_counter() - start, parts
+    log(f"collections leg [{card}]: {out['seconds']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    return out
+
+
 def run_server(kernels: dict, device="cuda") -> dict:
     """The server phase: redisson_tpu_torch.server.ServerThread on the card,
     driven with the port's net.client.Connection."""
@@ -3340,11 +3658,162 @@ def run_server(kernels: dict, device="cuda") -> dict:
             out["config5"] = server_config5(conn, st.server)
             out["config3"] = server_config3(conn, rng)
             out["frame"] = server_frame_spans(conn, rng, kernels["bloom_probe"]["ms"], device)
+            out["collections"] = server_collections(conn, st, card_line())
         finally:
             conn.close()
     out["card_vs_cpu"] = server_card_against_cpu(device)
     out["seconds"] = time.perf_counter() - start
     log(f"server phase: {out['seconds']:.1f}s")
+    return out
+
+
+
+def collections_stream(client, rng) -> list:
+    """An op stream through each collection family of create(): lists, the
+    queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
+    and MapCache; then each record's state (the wall-clock instants it
+    holds reduced to whether they are set)."""
+    import threading
+
+    v = [int(x) for x in rng.integers(-1000, 1000, 64)]
+    out = []
+    lst = client.get_list("c:list")
+    lst.add_all(v[:10])
+    lst.add_first("head")
+    out += [lst.add_after("head", "after"), lst.remove_count(v[1], 1), lst.range(0, 4), lst.index_of(v[5]),
+            lst.read_all()]
+    d = client.get_deque("c:deque")
+    for x in v[10:16]:
+        d.add_first(x)
+    out += [d.poll_last(), d.move("c:deque2", "LEFT", "RIGHT"), d.read_all()]
+    bq = client.get_blocking_queue("c:bq")
+    got = []
+    th = threading.Thread(target=lambda: got.append(bq.poll_blocking(10.0)))
+    th.start()
+    bq.offer(v[16])
+    th.join(10)
+    out += [got, bq.poll_blocking(0.01)]
+    pq = client.get_priority_queue("c:pq")
+    for x in v[16:30]:
+        pq.offer(x)
+    out += [pq.poll(), pq.poll_many(3), pq.read_all()]
+    rb = client.get_ring_buffer("c:rb")
+    rb.try_set_capacity(4)
+    for x in v[30:40]:
+        rb.offer(x)
+    out += [rb.read_all()]
+    dest = client.get_blocking_queue("c:dest")
+    dq = client.get_delayed_queue(dest)
+    dq.offer("due", 0.0)
+    dq.offer("later", 600.0)
+    out += [dest.poll_blocking(10.0), dq.read_all()]
+    s1, s2 = client.get_set("c:s1"), client.get_set("c:s2")
+    s1.add_all(v[:20])
+    s2.add_all(v[10:30])
+    out += [sorted(s1.read_intersection("c:s2")), sorted(s1.read_diff("c:s2")), s1.size(),
+            client.get_set("c:s3").union("c:s1", "c:s2")]
+    z = client.get_scored_sorted_set("c:z")
+    z.add_all({f"m{i}": float(x) for i, x in enumerate(v[:40])})
+    out += [z.entry_range(0, 4), z.rank("m3"), z.rev_rank("m3"), z.add_score("m3", 2.5),
+            z.value_range_by_score(-100.0, True, 100.0, False), z.poll_first_entry(), z.poll_last_entry(),
+            z.count(-500.0, True, 500.0, True)]
+    lex = client.get_lex_sorted_set("c:lex")
+    lex.add_all(list("qwertyuiop"))
+    out += [lex.range("e", True, "r", False)]
+    mm = client.get_set_multimap("c:mm")
+    for i, x in enumerate(v[:20]):
+        mm.put(f"k{i % 4}", x)
+    out += [mm.key_size(), mm.size(), sorted(mm.get_all("k1")), sorted(mm.remove_all("k2"))]
+    heard = []
+    t = client.get_topic("c:topic")
+    lid = t.add_listener(lambda ch, msg: heard.append(msg))
+    out += [t.publish(v[0]), t.publish({"x": v[1]})]
+    t.remove_listener(lid)
+    rt = client.get_reliable_topic("c:rt")
+    sid = rt.add_subscriber()
+    for x in v[:5]:
+        rt.publish(x)
+    out += [heard, rt.poll(sid), rt.size()]
+    la, lb = client.get_long_adder("c:adder"), client.get_long_adder("c:adder")
+    for i, x in enumerate(v[:20]):
+        (la if i % 2 else lb).add(x)
+    out += [la.sum(), lb.sum()]
+    la.destroy()
+    lb.destroy()
+    mc = client.get_map_cache("c:mc")
+    mc.put("a", v[0])
+    mc.put_with_ttl("b", v[1], 600.0)
+    out += [mc.get("a"), mc.get("b"), mc.size(), mc.try_set_max_size(2), mc.put("c", 1), mc.put("d", 2), mc.size()]
+    keys = client.get_keys()
+    out += [sorted(keys.get_keys("c:*")), keys.count_exists("c:list", "c:z", "c:none")]
+    from redisson_tpu_torch import state
+
+    for name in sorted(keys.get_keys("c:*")):
+        kind, meta, _, host = state.to_reference(client.engine.store.get(name))
+        if kind == "map_cache":
+            host = {k: [c[0], c[1] is None, c[2], c[4]] for k, c in host.items()}
+        elif kind == "delayed_queue":
+            host = [raw for _, raw in sorted(host)]
+        elif kind == "reliable_topic":
+            host = {**host, "subscribers": sorted(off for off, _ in host["subscribers"].values())}
+        elif isinstance(host, set):
+            host = sorted(host)
+        elif kind.endswith("multimap"):
+            host = {k: sorted(x) for k, x in host["data"].items()}
+        out.append((name, kind, meta, host))
+    return out
+
+
+def sync_stream(client) -> list:
+    """Locks, semaphores and latches from several threads in a fixed
+    interleaving (each step joins the thread it started)."""
+    import threading
+
+    def other(fn):
+        box = []
+        th = threading.Thread(target=lambda: box.append(fn()))
+        th.start()
+        th.join(30)
+        if th.is_alive():
+            raise AssertionError("sync stream: a holder did not finish")
+        return box[0]
+
+    out = []
+    lk = client.get_lock("c:lock")
+    out += [lk.try_lock(), lk.try_lock(), other(lambda: lk.try_lock()), lk.get_hold_count()]
+    lk.unlock()
+    lk.unlock()
+    out += [other(lambda: lk.try_lock(lease_time=0.2)), lk.try_lock(wait_time=5.0), lk.is_held_by_current_thread()]
+    lk.unlock()
+    fl = client.get_fenced_lock("c:fenced")
+    out += [fl.lock_and_get_token(), other(lambda: fl.try_lock_and_get_token())]
+    fl.unlock()
+    rw = client.get_read_write_lock("c:rw")
+    out += [rw.read_lock().try_lock(), other(lambda: rw.read_lock().try_lock()),
+            other(lambda: rw.write_lock().try_lock())]
+    sem = client.get_semaphore("c:sem")
+    out += [sem.try_set_permits(3), other(lambda: sem.try_acquire(2)), sem.try_acquire(2), sem.available_permits()]
+    sem.release(2)
+    out += [sem.available_permits()]
+    latch = client.get_count_down_latch("c:latch")
+    latch.try_set_count(2)
+    waiter = []
+    th = threading.Thread(target=lambda: waiter.append(latch.await_(30.0)))
+    th.start()
+    other(latch.count_down)
+    out += [latch.get_count()]
+    latch.count_down()
+    th.join(30)
+    out += [waiter, latch.get_count()]
+    rl = client.get_rate_limiter("c:rate")
+    out += [rl.try_set_rate("OVERALL", 3, 60.0), [rl.try_acquire() for _ in range(4)], other(lambda: rl.try_acquire())]
+    from redisson_tpu_torch import state
+
+    for name in ("c:lock", "c:fenced", "c:rw", "c:sem", "c:latch"):
+        kind, meta, _, host = state.to_reference(client.engine.store.get(name))
+        host = {k: (v is not None) if k in ("owner", "lease_until", "writer") else
+                (len(v) if k == "readers" else v) for k, v in host.items()}
+        out.append((name, kind, meta, host))
     return out
 
 
@@ -3363,6 +3832,20 @@ def check_card_against_cpu(create) -> None:
                 raise AssertionError(f"RBatch stream (overlap={overlap}) reply {i}: card {a!r} != cpu {b!r}")
         log(f"RBatch stream, overlap {'on' if overlap else 'off'}: {len(on_card)} replies (plain, skip_result and "
             "atomic batches, every verb) and final states equal on the card and the CPU")
+    s = time.perf_counter()
+    for name, stream in (("collections", lambda c: collections_stream(c, np.random.default_rng(9))),
+                         ("synchronizers", sync_stream)):
+        clients = [create(), create(device="cpu")]
+        try:
+            on_card, on_cpu = (stream(c) for c in clients)
+        finally:
+            for c in clients:
+                c.shutdown()
+        for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+            if not same(a, b) or len(on_card) != len(on_cpu):
+                raise AssertionError(f"{name} stream reply {i}: card {a!r} != cpu {b!r}")
+        log(f"{name} stream: {len(on_card)} replies and final states equal on the card and the CPU")
+    log(f"collections and synchronizer streams: {time.perf_counter() - s:.1f}s")
 
 
 def main() -> int:

@@ -1,8 +1,11 @@
 """Object handle base classes.
 
 Every object is a cheap, stateless handle (name + codec) over the engine's
-DeviceStore, as in ``redisson_tpu/client/objects/base.py``.  dump, restore,
-copy and migrate belong to the checkpoint slice.
+DeviceStore, as in ``redisson_tpu/client/objects/base.py``, with its name
+mapping (``Config.name_mapper``: logical name -> stored key).  dump,
+restore, copy and migrate come with ``core/checkpoint.py`` (ROADMAP M11);
+the reference-aware codec (handles stored as references) with the rest of
+``client/codec.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +19,10 @@ from redisson_tpu_torch.core.engine import Engine
 class RObject:
     def __init__(self, engine: Engine, name: str, codec: Optional[Codec] = None):
         self._engine = engine
-        self._name = name
+        # NameMapper SPI: logical name -> stored key, applied at handle
+        # construction as the reference's RedissonObject ctor does
+        mapper = getattr(engine.config, "name_mapper", None)
+        self._name = mapper.map(name) if mapper is not None else name
         self._codec = codec or engine.default_codec
 
     @property
@@ -34,15 +40,35 @@ class RObject:
         with self._engine.locked(self._name):
             return self._engine.store.delete(self._name)
 
+    def _map_name(self, name: str) -> str:
+        """Logical -> stored key for OTHER-object name parameters (dest
+        names, combination operands): cross-key ops must address the same
+        namespace this handle's own name was mapped into."""
+        mapper = getattr(self._engine.config, "name_mapper", None)
+        return mapper.map(name) if mapper is not None else name
+
+    def _unmap_name(self, key: str) -> str:
+        mapper = getattr(self._engine.config, "name_mapper", None)
+        return mapper.unmap(key) if mapper is not None else key
+
     def rename(self, new_name: str) -> None:
+        mapped = self._map_name(new_name)  # stay inside the namespace
         with self._engine.locked(self._name):
-            if not self._engine.store.rename(self._name, new_name):
+            if not self._engine.store.rename(self._name, mapped):
                 raise KeyError(f"object '{self._name}' does not exist")
-            self._name = new_name
+            self._name = mapped
 
     def touch(self) -> bool:
         """True if the object exists."""
         return self._engine.store.exists(self._name)
+
+    def unlink(self) -> bool:
+        """RObject.unlink: in-process reclamation is immediate, so this is
+        delete."""
+        return self.delete()
+
+    def _record(self):
+        return self._engine.store.get(self._name)
 
     def _touch_version(self, rec) -> None:
         rec.version += 1

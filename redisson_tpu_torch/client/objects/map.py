@@ -1,4 +1,4 @@
-"""Map: the hash object, a port of ``redisson_tpu/client/objects/map.py``.
+"""Map / MapCache: the hash-object family, a port of ``redisson_tpu/client/objects/map.py``.
 
 RMap's surface: put/get/fastPut/putIfAbsent/addAndGet/remove/replace,
 getAll/putAll/readAll*, the compute family, pattern scans, MapLoader
@@ -6,12 +6,14 @@ read-through and MapWriter write-through or write-behind.  Keys and values
 are codec-encoded at the boundary (equality is encoded equality), stored in
 a host dict inside the record; compound ops run under the record lock.
 
-Left for later slices: MapCache (per-entry TTL, listeners, the eviction
-plane) and the per-key lock and semaphore accessors.
+MapCache adds per-entry TTL and max-idle, entry listeners on the engine's
+events pool and the size-bounded LRU/LFU mode; every map hands out per-key
+locks, semaphores and latches.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from redisson_tpu_torch.client.objects.base import RExpirable
@@ -75,7 +77,7 @@ class Map(RExpirable):
         self._options = options or MapOptions()
         self._wb_lock = threading.Lock()
         self._wb_queue: List[Tuple[str, Any, Any]] = []  # (op, key, value)
-        self._wb_timer: Optional[threading.Timer] = None
+        self._wb_timer = None  # the wheel Timeout of a queued flush
 
     # -- plumbing -----------------------------------------------------------
 
@@ -102,7 +104,7 @@ class Map(RExpirable):
     def _raw_get_for_update(self, rec, ek: bytes):
         """NON-TOUCHING value fetch: write paths reading the old value, and
         sampling/warm-up probes (random_keys/random_entries/load_all).
-        Same as _raw_get here; the reference's MapCache overrides it to skip
+        Same as _raw_get here; MapCache overrides it to skip
         access tracking — none of those callers may refresh max-idle clocks or
         count as LFU reads."""
         return self._raw_get(rec, ek)
@@ -129,8 +131,9 @@ class Map(RExpirable):
             with self._wb_lock:
                 self._wb_queue.append((op, key, value))
                 if self._wb_timer is None:
-                    # the flush runs on the timer's own thread (user
-                    # MapWriter code may block on I/O)
+                    # shared wheel timer; the flush runs on the timer pool
+                    # (user MapWriter code may block on I/O and wheel
+                    # callbacks must stay short)
                     self._wb_timer = self._engine.schedule_timeout(
                         self._flush_write_behind,
                         self._options.write_behind_delay,
@@ -438,6 +441,49 @@ class Map(RExpirable):
             self.fast_put(key, value)
             return True
 
+    # -- per-key synchronizers (RMap.getLock(key)/getReadWriteLock(key)/
+    # -- getSemaphore/getPermitExpirableSemaphore/getFairLock/
+    # -- getCountDownLatch — entry-granular coordination, names derived
+    # -- from the encoded key's hash like the reference's suffix scheme)
+
+    def _key_object_name(self, key, kind: str) -> str:
+        import hashlib
+
+        h = hashlib.sha1(self._ek(key)).hexdigest()[:16]
+        return f"{self._name}:{h}:{kind}"
+
+    def get_lock(self, key):
+        from redisson_tpu_torch.client.objects.lock import Lock
+
+        return Lock(self._engine, self._key_object_name(key, "lock"))
+
+    def get_fair_lock(self, key):
+        from redisson_tpu_torch.client.objects.lock import FairLock
+
+        return FairLock(self._engine, self._key_object_name(key, "fairlock"))
+
+    def get_read_write_lock(self, key):
+        from redisson_tpu_torch.client.objects.lock import ReadWriteLock
+
+        return ReadWriteLock(self._engine, self._key_object_name(key, "rwlock"))
+
+    def get_semaphore(self, key):
+        from redisson_tpu_torch.client.objects.semaphore import Semaphore
+
+        return Semaphore(self._engine, self._key_object_name(key, "semaphore"))
+
+    def get_permit_expirable_semaphore(self, key):
+        from redisson_tpu_torch.client.objects.semaphore import PermitExpirableSemaphore
+
+        return PermitExpirableSemaphore(
+            self._engine, self._key_object_name(key, "psemaphore")
+        )
+
+    def get_count_down_latch(self, key):
+        from redisson_tpu_torch.client.objects.semaphore import CountDownLatch
+
+        return CountDownLatch(self._engine, self._key_object_name(key, "latch"))
+
     # -- pattern scans (RMap.keySet/values/entrySet(pattern)) ----------------
     # str(k) matching keeps these agreeing with key_iterator(pattern) for
     # non-string keys; the key-only scan never decodes values
@@ -563,3 +609,283 @@ class Map(RExpirable):
 
     def __len__(self):
         return self.size()
+
+
+class MapCache(Map):
+    """RMapCache: per-entry TTL / max-idle (RedissonMapCache.java).
+
+    Entry layout: host[ek] = [ev, expire_at | None, max_idle | None,
+    last_access, hit_count].  Expired entries are reaped lazily on access and
+    by the EvictionScheduler sweep (eviction.py).  Four-element cells from
+    older checkpoints are read transparently (hit_count treated as 0).
+
+    Entry listeners (created/updated/removed/expired) publish on the
+    reference's channel names (`RedissonMapCache.java:1767-1787`:
+    `redisson_map_cache_<kind>:{name}`) through the engine hub, so embedded
+    listeners AND wire pubsub subscribers observe the same events.  Delivery
+    is async on the engine's single-worker events pool: mutation order is
+    preserved, and user listeners never run under the record lock.
+
+    Size-bounded mode (`trySetMaxSize`/`setMaxSize` + EvictionMode LRU|LFU,
+    `RedissonMapCache.java:91-137`): inserts beyond max_size evict the
+    least-recently-used (last_access) or least-frequently-used (hit_count)
+    live entries, which are announced as `removed` events.
+    """
+
+    _kind = "map_cache"
+    # TTL/max-idle expiry removes entries WITHOUT bumping the record version
+    # (lazy reap on access), so (nonce, version) cannot key a scan view here
+    _scan_view_safe = False
+
+    EVENT_KINDS = ("created", "updated", "removed", "expired")
+
+    def _now(self):
+        return time.time()
+
+    # -- entry events --------------------------------------------------------
+
+    def entry_event_channel(self, kind: str) -> str:
+        return f"redisson_map_cache_{kind}:{self._name}"
+
+    def _emit(self, kind: str, ek: bytes, raw, old_raw=None) -> None:
+        """Queue one listener event for async FIFO delivery.  No-op without
+        subscribers so the unlistened hot path never pays decode cost."""
+        hub = self._engine.pubsub
+        ch = self.entry_event_channel(kind)
+        if not hub.has_listeners(ch):
+            return
+        key = self._dk(ek)
+        value = None if raw is None else self._dv(raw)
+        old = None if old_raw is None else self._dv(old_raw)
+        try:
+            self._engine.events_pool.submit(hub.publish, ch, (key, value, old))
+        except RuntimeError:
+            pass  # engine shutting down: events are best-effort
+
+    def add_entry_listener(self, kind: str, fn) -> Tuple[str, int]:
+        """RMapCache.addListener analog; `kind` selects the listener
+        interface (EntryCreated/Updated/Removed/ExpiredListener).  `fn` is
+        called as fn(key, value, old_value); old_value is non-None only for
+        'updated'.  Returns a token for remove_entry_listener."""
+        if kind not in self.EVENT_KINDS:
+            raise ValueError(f"unknown entry event kind: {kind!r}")
+        ch = self.entry_event_channel(kind)
+        lid = self._engine.pubsub.subscribe(ch, lambda _ch, msg: fn(*msg))
+        return (kind, lid)
+
+    def remove_entry_listener(self, token) -> None:
+        kind, lid = token
+        self._engine.pubsub.unsubscribe(self.entry_event_channel(kind), lid)
+
+    # -- cell machinery ------------------------------------------------------
+
+    def _live(self, rec, ek, touch=True):
+        cell = rec.host.get(ek)
+        if cell is None:
+            return None
+        now = self._now()
+        if cell[1] is not None and now >= cell[1]:
+            del rec.host[ek]
+            self._emit("expired", ek, cell[0])
+            return None
+        if cell[2] is not None and now - cell[3] >= cell[2]:
+            del rec.host[ek]
+            self._emit("expired", ek, cell[0])
+            return None
+        if touch:
+            cell[3] = now
+            if len(cell) > 4:
+                cell[4] += 1
+        return cell[0]
+
+    def _store_cell(self, rec, ek: bytes, ev: bytes, exp=None, max_idle=None):
+        """Write one cell, emitting created|updated and enforcing max_size;
+        returns the previous live raw value (None if absent)."""
+        old = self._live(rec, ek, touch=False)
+        # an update carries the access frequency forward: LFU must rank by
+        # read history, and a write resetting it would turn the hottest key
+        # into the next eviction victim
+        prev = rec.host.get(ek)
+        hits = prev[4] if (old is not None and prev is not None and len(prev) > 4) else 0
+        rec.host[ek] = [ev, exp, max_idle, self._now(), hits]
+        if old is None:
+            self._emit("created", ek, ev)
+            self._enforce_max_size(rec, keep=ek)
+        else:
+            self._emit("updated", ek, ev, old)
+        return old
+
+    def _raw_get(self, rec, ek: bytes):
+        return self._live(rec, ek)
+
+    def _raw_get_for_update(self, rec, ek: bytes):
+        # writes fetch the old value WITHOUT touching access tracking:
+        # a put must not refresh max-idle or count as an LFU hit
+        return self._live(rec, ek, touch=False)
+
+    def contains_value(self, value) -> bool:
+        """Cells are [value, exp, idle, ...] lists — the base class's raw
+        comparison never matches; compare the LIVE value per cell
+        (RMapCache.containsValue skips expired entries the same way)."""
+        ev = self._ev(value)
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            return any(
+                self._live(rec, ek, touch=False) == ev
+                for ek in list(rec.host.keys())
+            )
+
+    def _raw_put(self, rec, ek: bytes, ev: bytes):
+        self._store_cell(rec, ek, ev)
+
+    def _raw_del(self, rec, ek: bytes) -> bool:
+        live = self._live(rec, ek, touch=False)
+        if live is None:
+            return False
+        del rec.host[ek]
+        self._emit("removed", ek, live)
+        return True
+
+    # -- size-bounded mode ---------------------------------------------------
+
+    def try_set_max_size(self, max_size: int, mode: str = "LRU") -> bool:
+        """Set the bound only if none exists yet (RMapCache.trySetMaxSize)."""
+        self._check_max_size(max_size, mode)
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            if "max_size" in rec.meta:
+                return False
+            rec.meta["max_size"] = max_size
+            rec.meta["eviction_mode"] = mode
+            self._touch_version(rec)  # the bound must replicate/ship
+            return True
+
+    def set_max_size(self, max_size: int, mode: str = "LRU") -> None:
+        """Set/replace the bound; an already-over-bound map is trimmed on
+        the spot (the reference trims on the next write)."""
+        self._check_max_size(max_size, mode)
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            rec.meta["max_size"] = max_size
+            rec.meta["eviction_mode"] = mode
+            self._enforce_max_size(rec)
+            self._touch_version(rec)
+
+    def get_max_size(self) -> int:
+        rec = self._engine.store.get(self._name)
+        return 0 if rec is None else rec.meta.get("max_size", 0)
+
+    @staticmethod
+    def _check_max_size(max_size: int, mode: str) -> None:
+        # 0 = unbounded (RedissonMapCache.trySetMaxSizeAsync only rejects
+        # negatives); the set-once contract uses key PRESENCE, not truthiness
+        if max_size < 0:
+            raise ValueError("maxSize should not be negative")
+        if mode not in ("LRU", "LFU"):
+            raise ValueError(f"unknown eviction mode: {mode!r}")
+
+    def _enforce_max_size(self, rec, keep: Optional[bytes] = None) -> None:
+        mx = rec.meta.get("max_size") or 0
+        if mx <= 0 or len(rec.host) <= mx:
+            return
+        # reap dead cells FIRST (emitting their honest 'expired' events):
+        # counting them toward the bound would evict live entries while
+        # expired ones hold the capacity
+        for ek in list(rec.host.keys()):
+            self._live(rec, ek, touch=False)
+        if len(rec.host) <= mx:
+            return
+        lfu = rec.meta.get("eviction_mode") == "LFU"
+
+        def rank(item):
+            cell = item[1]
+            if lfu:
+                return cell[4] if len(cell) > 4 else 0
+            return cell[3]  # last_access
+
+        victims = sorted(
+            (kv for kv in rec.host.items() if kv[0] != keep), key=rank
+        )[: len(rec.host) - mx]
+        for vek, vcell in victims:
+            del rec.host[vek]
+            self._emit("removed", vek, vcell[0])
+
+    def put_with_ttl(
+        self,
+        key,
+        value,
+        ttl: Optional[float] = None,
+        max_idle: Optional[float] = None,
+    ):
+        """RMapCache.put(key, value, ttl, maxIdle); returns previous value."""
+        ek, ev = self._ek(key), self._ev(value)
+        now = self._now()
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            old = self._store_cell(rec, ek, ev, now + ttl if ttl else None, max_idle)
+            self._touch_version(rec)
+        self._write_through("write", key, value)
+        return None if old is None else self._dv(old)
+
+    def put_if_absent_with_ttl(
+        self, key, value, ttl: Optional[float] = None, max_idle: Optional[float] = None
+    ):
+        ek, ev = self._ek(key), self._ev(value)
+        now = self._now()
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            old = self._live(rec, ek, touch=False)
+            if old is not None:
+                return self._dv(old)
+            self._store_cell(rec, ek, ev, now + ttl if ttl else None, max_idle)
+            self._touch_version(rec)
+        self._write_through("write", key, value)
+        return None
+
+    def remain_time_to_live_entry(self, key) -> Optional[float]:
+        """Remaining TTL of one entry; None if absent or no TTL."""
+        ek = self._ek(key)
+        with self._engine.locked(self._name):
+            rec = self._rec_or_create()
+            if self._live(rec, ek, touch=False) is None:
+                return None
+            exp = rec.host[ek][1]
+            return None if exp is None else max(0.0, exp - self._now())
+
+    def size(self) -> int:
+        with self._engine.locked(self._name):
+            rec = self._engine.store.get(self._name)
+            if rec is None:
+                return 0
+            for ek in list(rec.host.keys()):
+                self._live(rec, ek, touch=False)
+            return len(rec.host)
+
+    def read_all_entry_set(self):
+        with self._engine.locked(self._name):
+            rec = self._engine.store.get(self._name)
+            if rec is None:
+                return []
+            out = []
+            for ek in list(rec.host.keys()):
+                ev = self._live(rec, ek, touch=False)
+                if ev is not None:
+                    out.append((self._dk(ek), self._dv(ev)))
+            return out
+
+    def read_all_keys(self):
+        return [k for k, _ in self.read_all_entry_set()]
+
+    def read_all_values(self):
+        return [v for _, v in self.read_all_entry_set()]
+
+    def reap_expired(self) -> int:
+        """EvictionScheduler sweep entry point; returns entries removed."""
+        with self._engine.locked(self._name):
+            rec = self._engine.store.get(self._name)
+            if rec is None:
+                return 0
+            before = len(rec.host)
+            for ek in list(rec.host.keys()):
+                self._live(rec, ek, touch=False)
+            return before - len(rec.host)

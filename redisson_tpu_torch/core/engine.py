@@ -9,23 +9,30 @@ The engine owns:
     (core/ioplane.py StagingPool),
   * per-record mutual exclusion: every compound mutation of one object runs
     under its record lock, one writer per object,
-  * engine-scoped services (``service``: the word count's scan views) and
-    the timers of write-behind maps (``schedule_timeout``),
+  * engine-scoped services (``service``: the word count's scan views),
+  * ONE wheel timer (``timer``, utils/timer.py) with the pools that run its
+    tasks: write-behind flushes and delayed-queue transfers
+    (``schedule_timeout`` on ``timer_pool``), lock watchdogs
+    (``start_renewal`` on their own pool), MapCache listener events
+    (``events_pool``, one worker), never a thread per timeout,
+  * the synchronizers' wait entries (``wait_entry``; the blocking queues'
+    ``queue_wait_entry``) and the identity a remote caller's locks are
+    held under (``impersonate``),
   * the in-process pub/sub hub (``pubsub``) the server's SUBSCRIBE and
-    PUBLISH verbs use,
+    PUBLISH verbs and the topics use,
   * the background expiry sweep (``eviction``): started on first use, it
     reaps the store's expired records (``__store__``) on the cadence of
     ``config`` (``min_cleanup_delay`` .. ``max_cleanup_delay``).
 
 A trimmed copy of ``redisson_tpu/core/engine.py``: device placement,
-residency, serving lanes, lock renewal and the warm pool belong to later
-slices.
+residency, serving lanes and the warm pool belong to later slices.
 """
 from __future__ import annotations
 
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from typing import Iterable, Optional, Tuple
+from typing import Any, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,23 +75,43 @@ class Engine:
         self._locks_guard = threading.Lock()
         self._services: dict = {}
         self._eviction = None
+        self._wait_entries: dict = {}
+        self._holder_override = threading.local()
+        self._timer = None
+        self._timer_pool = None
+        self._renewal_pool_ = None
+        self._events_pool_ = None
+        # (name, holder) -> Timeout: active lock-watchdog renewals, all on
+        # the ONE shared wheel timer
+        self._renewals: dict[tuple, Any] = {}
         self._closed = False
 
     @property
     def eviction(self):
         """The expiry sweep, started on first use with the store's reaper."""
+        def make():
+            from redisson_tpu_torch.core.eviction import EvictionScheduler
+
+            sched = EvictionScheduler(
+                min_delay=self.config.min_cleanup_delay,
+                max_delay=self.config.max_cleanup_delay,
+            )
+            sched.schedule("__store__", self.store.reap_expired)
+            return sched
+
+        return self._lazy("_eviction", make)
+
+    def _lazy(self, attr: str, make):
+        """The engine's lazily made service under `attr` (made under the
+        registry guard); raises once the engine is shut down."""
         with self._locks_guard:
             if self._closed:
                 raise RuntimeError("engine is shut down")
-            if self._eviction is None:
-                from redisson_tpu_torch.core.eviction import EvictionScheduler
-
-                self._eviction = EvictionScheduler(
-                    min_delay=self.config.min_cleanup_delay,
-                    max_delay=self.config.max_cleanup_delay,
-                )
-                self._eviction.schedule("__store__", self.store.reap_expired)
-            return self._eviction
+            value = getattr(self, attr)
+            if value is None:
+                value = make()
+                setattr(self, attr, value)
+            return value
 
     # -- locking ------------------------------------------------------------
 
@@ -139,14 +166,157 @@ class Engine:
                 svc = self._services[key] = factory()
             return svc
 
-    @staticmethod
-    def schedule_timeout(fn, delay: float) -> threading.Timer:
-        """Run `fn` on its own daemon thread ~`delay` seconds from now;
-        the returned timer can be cancelled until it fires."""
-        timer = threading.Timer(delay, fn)
-        timer.daemon = True
-        timer.start()
-        return timer
+    # -- synchronizer identities and wait entries ------------------------------
+
+    @contextmanager
+    def impersonate(self, holder_id: Optional[str]):
+        """Execute with an explicit synchronizer-holder identity: the server
+        runs remote calls under the CLIENT's uuid:threadId (the reference's
+        LockName travels from client to Lua the same way)."""
+        if holder_id is None:
+            yield
+            return
+        prev = getattr(self._holder_override, "value", None)
+        self._holder_override.value = holder_id
+        try:
+            yield
+        finally:
+            self._holder_override.value = prev
+
+    def holder_override(self) -> Optional[str]:
+        return getattr(self._holder_override, "value", None)
+
+    def wait_entry(self, key: str):
+        """Shared per-key wait latch (one latch per waiting object).
+
+        Idle entries (no waiters, no buffered signal, untouched for 60s) are
+        pruned by a sweep on the eviction thread; every park is a bounded
+        retry loop, so a signal lost to a prune costs one park timeout,
+        never a hang."""
+        from redisson_tpu_torch.core.pubsub import WaitEntry
+
+        with self._locks_guard:
+            we = self._wait_entries.get(key)
+            if we is None:
+                we = self._wait_entries[key] = WaitEntry()
+        we.touch()  # a fetched entry is in use: restart its idle clock
+        try:
+            self.eviction.schedule("__wait_entry_gc__", self._gc_wait_entries)
+        except RuntimeError:
+            # engine shut down between the entry fetch and the schedule; the
+            # caller's park loop is bounded, so skipping the GC is harmless
+            pass
+        return we
+
+    def _gc_wait_entries(self, max_idle: float = 60.0) -> int:
+        with self._locks_guard:
+            stale = [k for k, we in self._wait_entries.items() if we.idle(max_idle)]
+            for k in stale:
+                del self._wait_entries[k]
+        return len(stale)
+
+    def queue_wait_entry(self, name: str):
+        """The wait entry blocking-queue-family consumers park on: the one
+        authority for the __q_wait__ key format (paired with
+        signal_queue_waiters)."""
+        return self.wait_entry(f"__q_wait__:{name}")
+
+    def signal_queue_waiters(self, name: str) -> None:
+        """Wake queue-family waiters parked on `name` without making a wait
+        entry when nobody waits."""
+        e = self._wait_entries.get(f"__q_wait__:{name}")
+        if e is not None:
+            e.signal(all_=True)
+
+    # -- timers --------------------------------------------------------------
+
+    @property
+    def timer(self):
+        """ONE shared wheel timer for every timeout of this engine."""
+        from redisson_tpu_torch.utils.timer import HashedWheelTimer
+
+        return self._lazy("_timer", HashedWheelTimer)
+
+    @property
+    def timer_pool(self):
+        """Small shared pool that RUNS timed tasks: wheel ticks only
+        enqueue, so a task blocking on a record lock (or on user MapWriter
+        I/O) never stalls every other timeout."""
+        return self._lazy("_timer_pool", lambda: ThreadPoolExecutor(
+            max_workers=4, thread_name_prefix="rtpu-timer-task"))
+
+    def schedule_timeout(self, fn, delay: float):
+        """Run `fn` ~`delay` seconds from now on the shared timer pool.
+        Returns the wheel Timeout (cancellable until it fires)."""
+        pool = self.timer_pool
+        return self.timer.new_timeout(lambda: pool.submit(fn), delay)
+
+    @property
+    def events_pool(self):
+        """SINGLE-worker pool delivering entry events (MapCache listeners):
+        events of one object arrive in mutation order, and a mutator never
+        runs user listeners while it holds the record lock."""
+        return self._lazy("_events_pool_", lambda: ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="rtpu-events"))
+
+    @property
+    def _renewal_pool(self):
+        """Dedicated pool for lease renewals: sharing a pool with user work
+        (MapWriter flushes) would let a blocked writer starve renewals past
+        lease expiry, two holders of one lock.  Several workers, so one
+        renewal stuck on a contended record lock delays no other."""
+        return self._lazy("_renewal_pool_", lambda: ThreadPoolExecutor(
+            max_workers=4, thread_name_prefix="rtpu-renewal"))
+
+    def start_renewal(self, name: str, holder: str, renew, interval: float) -> None:
+        """Register a watchdog renewal for (lock name, holder): one renewal
+        per (entry, holder) whatever the reentrancy; `renew()` returns True
+        to keep renewing, False to stop."""
+        key = (name, holder)
+
+        def tick():
+            # runs on the renewal POOL (renew takes record locks and must
+            # not block the wheel thread)
+            try:
+                keep = bool(renew())
+            except Exception:  # noqa: BLE001 — a failing renew stops renewing
+                keep = False
+            with self._locks_guard:
+                if key not in self._renewals or not keep or self._closed:
+                    self._renewals.pop(key, None)
+                    return
+            nxt = self._schedule_renewal_tick(tick, interval)
+            with self._locks_guard:
+                if key in self._renewals:
+                    self._renewals[key] = nxt
+                else:
+                    nxt.cancel()  # cancel_renewal raced the reschedule
+
+        with self._locks_guard:
+            if key in self._renewals:
+                return  # reentrant re-acquire keeps the existing renewal
+            self._renewals[key] = None  # claim the slot before scheduling
+        first = self._schedule_renewal_tick(tick, interval)
+        with self._locks_guard:
+            if key in self._renewals:
+                self._renewals[key] = first
+            else:
+                first.cancel()  # cancelled between claim and schedule
+
+    def _schedule_renewal_tick(self, tick, interval: float):
+        pool = self._renewal_pool
+        return self.timer.new_timeout(lambda: pool.submit(tick), interval)
+
+    def cancel_renewal(self, name: str, holder: Optional[str] = None) -> None:
+        """Stop renewals for a lock (all holders when holder is None: the
+        force_unlock path)."""
+        with self._locks_guard:
+            keys = [k for k in self._renewals
+                    if k[0] == name and (holder is None or k[1] == holder)]
+            for k in keys:
+                t = self._renewals.pop(k)
+                if t is not None:  # None = start_renewal's claim placeholder
+                    t.cancel()
 
     # -- device placement and staging ----------------------------------------
 
@@ -213,7 +383,20 @@ class Engine:
         with self._locks_guard:
             self._closed = True
             eviction, self._eviction = self._eviction, None
+            timer, self._timer = self._timer, None
+            pools = (self._timer_pool, self._renewal_pool_, self._events_pool_)
+            self._timer_pool = self._renewal_pool_ = self._events_pool_ = None
+            renewals = list(self._renewals.values())
+            self._renewals.clear()
             self._services.clear()
+        for t in renewals:
+            if t is not None:
+                t.cancel()
+        if timer is not None:
+            timer.stop()
+        for p in pools:
+            if p is not None:
+                p.shutdown(wait=False, cancel_futures=True)
         if eviction is not None:
             eviction.close()
         self.pubsub.close()

@@ -61,11 +61,23 @@ per-command ``ERR internal`` (``-TRYAGAIN`` for the reference's retryable
 fault shapes) and counts in ``stats["errors"]``, so a failing kernel is
 never hidden behind a slower path that might succeed.
 
-Left out, each raising NotImplementedError when asked for: device-sharded
-serving (``devices=``), cluster mode, advertised cluster addresses
-(ROADMAP M8), checkpoints and migration journals (ROADMAP M11).  The
-replication and migration links, the residency census, the chaos pause gate
-and the admin verbs (INFO, CONFIG, SAVE, CLUSTER) come with those slices.
+  * **Blocking verbs** (``_SLOW_COMMANDS``: BLPOP, BRPOP, BLMOVE,
+    BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP) dispatch on a wide slow
+    pool, so a parked waiter never holds a worker of the pool every
+    connection shares; inside a frame a blocking verb keeps its place in
+    the reply order.  ``stop()`` sets ``_closing``, which the wait loop
+    (``verbs/common._block_loop``) polls: every parked waiter unparks.
+
+The port serves the connection, keyspace, sketch, collections and zset
+verb families (``server/verbs``).  Left out, each raising
+NotImplementedError when asked for: device-sharded serving (``devices=``),
+cluster mode, advertised cluster addresses (ROADMAP M8), checkpoints and
+migration journals (ROADMAP M11).  Their verbs reply the unknown-command
+error until those slices: the admin verbs (INFO, CONFIG, SAVE, CLUSTER,
+the replication verbs, DUMP, RESTORE, COPY), OBJCALL and MULTI/EXEC,
+streams and geo, and the JSON and FT module verbs; the replication and
+migration links, the residency census and the chaos pause gate come with
+them.
 """
 from __future__ import annotations
 
@@ -136,6 +148,18 @@ class _TracedEncoded:
 # the most bytes one frame reads past its first read while the last read
 # stopped inside a command (see TpuServer._handle)
 FRAME_READ_LIMIT = 64 << 20
+
+# Commands whose handlers may PARK the worker thread (blocking verbs hold it
+# for up to their timeout).  Dispatched on the wide slow pool so the shared
+# dispatch pool never starves.  The reference's list also names OBJCALL*,
+# TXEXEC, EXEC, XREAD, XREADGROUP and WAIT, which the port does not serve
+# yet.
+_SLOW_COMMANDS = frozenset(
+    b.encode() for b in (
+        "BLPOP", "BRPOP", "BLMOVE", "BRPOPLPUSH", "BZPOPMIN", "BZPOPMAX",
+        "BLMPOP", "BZMPOP",
+    )
+)
 
 # the reference's fixed -TRYAGAIN text for a retryable device fault
 _DEVICE_FAULT_TRYAGAIN = "TRYAGAIN device fault during dispatch; retry"
@@ -322,6 +346,13 @@ class TpuServer:
         self._qos_pool = ThreadPoolExecutor(
             max_workers=max(2, workers), thread_name_prefix="rtpu-qos"
         )
+        # blocking verbs park their worker: isolate them on a wide pool so
+        # parked callers can't starve the data-plane workers (the reference
+        # marks such commands isBlockingCommand and gives them dedicated
+        # connections)
+        self._slow_pool = ThreadPoolExecutor(max_workers=64, thread_name_prefix="rtpu-slow")
+        # set by stop(): parked blocking verbs poll it to unpark
+        self._closing = False
         self._server: Optional[asyncio.AbstractServer] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._writers: set = set()
@@ -598,9 +629,12 @@ class TpuServer:
                 results.append(_Encoded(resp.encode_error("ERR bad request frame")))
                 continue
             self.stats["commands"] += 1
+            # blocking verbs go to the wide slow pool: a parked handler must
+            # never starve the pool every connection shares
+            cmd_pool = self._slow_pool if bytes(cmd[0]).upper() in _SLOW_COMMANDS else pool
             results.append(
                 await loop.run_in_executor(
-                    pool, self._dispatch_traced, self._dispatch_one, ctx, cmd,
+                    cmd_pool, self._dispatch_traced, self._dispatch_one, ctx, cmd,
                     trace,
                 )
             )
@@ -881,6 +915,10 @@ class TpuServer:
             self.stop()
 
     def stop(self):
+        # parked blocking verbs (_block_loop) poll this to unpark: a
+        # forever-blocked worker would otherwise survive pool shutdown
+        # (wait=False) and hang interpreter exit via the futures atexit join
+        self._closing = True
         loop, server = self._loop, self._server
         if loop is not None and server is not None:
             def shutdown():
@@ -899,6 +937,7 @@ class TpuServer:
                 pass  # loop already closed (repeated stop): nothing to do
         self._pool.shutdown(wait=False)
         self._qos_pool.shutdown(wait=False)
+        self._slow_pool.shutdown(wait=False)
 
 
 def _encode_result(result, proto: int = 3) -> bytes:

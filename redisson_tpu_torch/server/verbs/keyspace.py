@@ -1,10 +1,6 @@
-"""Keyspace admin, strings/buckets, hashes and scan cursors (RedissonKeys /
-RedissonBucket / RedissonMap surface): a copy of
-``redisson_tpu/server/verbs/keyspace.py`` for the objects the port has.
-
-The set, list and sorted-set verbs (SADD..SCARD, LPUSH..LINDEX,
-ZADD..ZRANGE) come with those objects; until then they reply the
-reference's unknown-command error.
+"""Keyspace admin, strings/buckets, typed data commands and scan cursors
+(RedissonKeys / RedissonBucket / RedissonMap / RSet / RList /
+RScoredSortedSet surface): a copy of ``redisson_tpu/server/verbs/keyspace.py``.
 """
 
 import time
@@ -13,10 +9,11 @@ from typing import Optional
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import register, _s, _int
 from redisson_tpu_torch.server.verbs.common import (
+    _deque,
     _fnum,
-    _norm_range,
     _scan_opts,
     _scan_page,
+    _signal_waiters,
     _typed_handle,
 )
 
@@ -268,6 +265,141 @@ def cmd_hvals(server, ctx, args):
     return _typed_handle(server, "get_map", _s(args[0])).read_all_values()
 
 
+@register("SADD")
+def cmd_sadd(server, ctx, args):
+    s = _typed_handle(server, "get_set", _s(args[0]))
+    return sum(1 for v in args[1:] if s.add(bytes(v)))
+
+
+@register("SREM")
+def cmd_srem(server, ctx, args):
+    s = _typed_handle(server, "get_set", _s(args[0]))
+    return sum(1 for v in args[1:] if s.remove(bytes(v)))
+
+
+@register("SISMEMBER")
+def cmd_sismember(server, ctx, args):
+    return 1 if _typed_handle(server, "get_set", _s(args[0])).contains(bytes(args[1])) else 0
+
+
+@register("SMEMBERS")
+def cmd_smembers(server, ctx, args):
+    # a python set encodes as the RESP3 `~` set frame (RESP2 projects to an
+    # array) — the CommandDecoder.java marker for SMEMBERS-family replies
+    return set(_typed_handle(server, "get_set", _s(args[0])).read_all())
+
+
+@register("SCARD")
+def cmd_scard(server, ctx, args):
+    return _typed_handle(server, "get_set", _s(args[0])).size()
+
+
+
+@register("LPUSH")
+def cmd_lpush(server, ctx, args):
+    d = _deque(server, _s(args[0]))
+    for v in args[1:]:
+        d.add_first(bytes(v))
+    return d.size()
+
+
+@register("RPUSH")
+def cmd_rpush(server, ctx, args):
+    d = _deque(server, _s(args[0]))
+    for v in args[1:]:
+        d.add_last(bytes(v))
+    return d.size()
+
+
+@register("LPOP")
+def cmd_lpop(server, ctx, args):
+    return _deque(server, _s(args[0])).poll_first()
+
+
+@register("RPOP")
+def cmd_rpop(server, ctx, args):
+    return _deque(server, _s(args[0])).poll_last()
+
+
+@register("LLEN")
+def cmd_llen(server, ctx, args):
+    return _deque(server, _s(args[0])).size()
+
+
+@register("LRANGE")
+def cmd_lrange(server, ctx, args):
+    from redisson_tpu_torch.client.objects.scoredsortedset import _norm_range
+
+    d = _deque(server, _s(args[0]))
+    items = d.read_all()
+    lo, hi = _norm_range(_int(args[1]), _int(args[2]), len(items))
+    return items[lo : hi + 1] if hi >= lo else []
+
+
+@register("LINDEX")
+def cmd_lindex(server, ctx, args):
+    items = _deque(server, _s(args[0])).read_all()
+    i = _int(args[1])
+    if i < 0:
+        i += len(items)
+    return items[i] if 0 <= i < len(items) else None
+
+
+@register("ZADD")
+def cmd_zadd(server, ctx, args):
+    name = _s(args[0])
+    z = _typed_handle(server, "get_scored_sorted_set", name)
+    n = 0
+    with server.engine.locked(name):  # multi-member adds land atomically
+        for i in range(1, len(args) - 1, 2):
+            if z.add(float(args[i]), bytes(args[i + 1])):
+                n += 1
+    _signal_waiters(server, name)  # wake parked BZPOPMIN/BZPOPMAX
+    return n
+
+
+@register("ZSCORE")
+def cmd_zscore(server, ctx, args):
+    # float reply: RESP3 double frame `,`, RESP2 Redis-formatted bulk
+    sc = _typed_handle(server, "get_scored_sorted_set", _s(args[0])).get_score(bytes(args[1]))
+    return None if sc is None else float(sc)
+
+
+@register("ZREM")
+def cmd_zrem(server, ctx, args):
+    z = _typed_handle(server, "get_scored_sorted_set", _s(args[0]))
+    return sum(1 for m in args[1:] if z.remove(bytes(m)))
+
+
+@register("ZCARD")
+def cmd_zcard(server, ctx, args):
+    return _typed_handle(server, "get_scored_sorted_set", _s(args[0])).size()
+
+
+@register("ZRANK")
+def cmd_zrank(server, ctx, args):
+    return _typed_handle(server, "get_scored_sorted_set", _s(args[0])).rank(bytes(args[1]))
+
+
+@register("ZINCRBY")
+def cmd_zincrby(server, ctx, args):
+    z = _typed_handle(server, "get_scored_sorted_set", _s(args[0]))
+    return float(z.add_score(bytes(args[2]), float(args[1])))
+
+
+@register("ZRANGE")
+def cmd_zrange(server, ctx, args):
+    z = _typed_handle(server, "get_scored_sorted_set", _s(args[0]))
+    withscores = len(args) > 3 and bytes(args[3]).upper() == b"WITHSCORES"
+    lo, hi = _int(args[1]), _int(args[2])
+    if withscores:
+        out = []
+        for member, score in z.entry_range(lo, hi):
+            out += [member, _fnum(score)]
+        return out
+    return z.value_range(lo, hi)
+
+
 @register("MGET")
 def cmd_mget(server, ctx, args):
     # atomic snapshot across keys (Redis executes MGET as one step): without
@@ -394,6 +526,8 @@ def cmd_getrange(server, ctx, args):
     if v is None:
         return b""
     data = bytes(v)
+    from redisson_tpu_torch.client.objects.scoredsortedset import _norm_range
+
     lo, hi = _norm_range(_int(args[1]), _int(args[2]), len(data))
     return data[lo : hi + 1] if hi >= lo else b""
 

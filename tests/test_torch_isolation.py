@@ -37,6 +37,16 @@ def test_the_walk_covers_the_server_modules():
             "redisson_tpu_torch.tracking.table"} <= set(_modules())
 
 
+def test_the_walk_covers_the_collection_modules():
+    assert {"redisson_tpu_torch.utils.timer", "redisson_tpu_torch.client.objects.list",
+            "redisson_tpu_torch.client.objects.queue", "redisson_tpu_torch.client.objects.set",
+            "redisson_tpu_torch.client.objects.scoredsortedset", "redisson_tpu_torch.client.objects.multimap",
+            "redisson_tpu_torch.client.objects.lock", "redisson_tpu_torch.client.objects.semaphore",
+            "redisson_tpu_torch.client.objects.topic", "redisson_tpu_torch.client.objects.adder",
+            "redisson_tpu_torch.client.objects.keys", "redisson_tpu_torch.server.verbs.collections",
+            "redisson_tpu_torch.server.verbs.zset"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_the_reference_native_directory(path):

@@ -367,3 +367,200 @@ def test_a_frames_device_replies_leave_in_one_grouped_copy():
             assert ioplane.STATS.snapshot()["blocking_syncs"] == 1, n
         assert replies[:2] == [b"\x01\x01\x01", b"\x01\x00\x01"] and replies[-1] == 2
         assert len(replies[5]) == 4 * 8
+
+
+# -- the collections and the blocking plane -----------------------------------
+
+
+def _registered(*modules):
+    """The verbs the port registers from `modules` (server/verbs/*)."""
+    return {v for v, fn in registry.REGISTRY._handlers.items()
+            if fn.__module__.rsplit(".", 1)[-1] in modules}
+
+
+KEYSPACE_COLLECTION_VERBS = {
+    v.encode() for v in ("SADD SREM SISMEMBER SMEMBERS SCARD LPUSH RPUSH LPOP RPOP LLEN LRANGE LINDEX "
+                         "ZADD ZSCORE ZREM ZCARD ZRANK ZINCRBY ZRANGE").split()}
+
+
+def test_collections_stream_matches_the_reference():
+    """Every set, list, sorted-set and hash-extra verb, the multi-pops and
+    the blocking verbs, RESP2 then RESP3: the reference's reply bytes, but
+    for the unordered and random verbs, which hold compare's contracts."""
+    stream = W.collections_stream(seed=3)
+    waves = [stream, [("HELLO", "3")] + stream]
+    want, got = _both(waves)
+    loose = W.UNORDERED_VERBS | W.RANDOM_VERBS
+    for wave, (graw, g), (wraw, w) in zip(waves, got, want):
+        assert W.compare(wave, g, w) == []
+        gs, ws = W.reply_spans(graw), W.reply_spans(wraw)
+        assert len(gs) == len(ws) == len(wave)
+        assert [i for i, c in enumerate(wave) if W._verb(c) not in loose and gs[i] != ws[i]] == []
+        assert sum(isinstance(r, resp.RespError) for r in g) > 30  # the error replies are reached
+    assert isinstance(got[1][1][[c[0] for c in waves[1]].index("SMEMBERS")], set)  # RESP3 `~` frames
+    reached = {W._verb(c) for c in stream}
+    assert _registered("collections", "zset") | KEYSPACE_COLLECTION_VERBS <= reached
+    assert KEYSPACE_COLLECTION_VERBS <= _registered("keyspace")
+
+
+def test_compare_holds_the_random_verbs_to_their_contracts():
+    cmds = [("SADD", "s", "a", "b", "c"), ("SMEMBERS", "s"), ("SRANDMEMBER", "s", "2"),
+            ("SRANDMEMBER", "s", "-4"), ("SPOP", "s"), ("SPOP", "s", "5")]
+    want = [3, [b"a", b"b", b"c"], [b"a", b"b"], [b"a"] * 4, b"c", [b"b", b"a"]]
+    assert W.compare(cmds, [3, [b"c", b"a", b"b"], [b"c", b"a"], [b"b", b"b", b"c", b"a"], b"a",
+                            [b"c", b"b"]], want) == []
+    for at, bad in ((1, [b"a", b"b"]),          # SMEMBERS: another multiset
+                    (2, [b"a", b"a"]),          # a repeat under a positive count
+                    (2, [b"a", b"z"]),          # a member never stored
+                    (3, [b"a"] * 3),            # |count| members for a negative count
+                    (5, [b"c", b"a"])):         # SPOP: a member it popped before
+        assert W.compare(cmds, want[:at] + [bad] + want[at + 1:], want) != []
+
+
+def _send(sock, *cmd):
+    sock.sendall(resp.encode_commands([cmd]))
+
+
+def _read_reply(sock, timeout=10.0) -> bytes:
+    """One reply's raw bytes; b"" when the server closed the connection."""
+    sock.settimeout(timeout)
+    buf = b""
+    while True:
+        try:
+            spans = W.reply_spans(buf)
+            if spans:
+                return spans[0]
+        except (ValueError, IndexError):
+            pass
+        data = sock.recv(65536)
+        if not data:
+            return buf
+        buf += data
+
+
+def _parked(server, n, timeout=5.0):
+    """Wait until `n` blocking handlers are parked on the slow pool."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if sum(1 for t in threading.enumerate() if t.name.startswith("rtpu-slow")) >= n:
+            time.sleep(0.1)  # the handler reaches its wait entry
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"{n} blocking handlers never parked")
+
+
+def _blocking_scenarios(st) -> list:
+    """Raw reply bytes of blocking verbs woken from another connection,
+    timed out, and after HELLO 3."""
+    host, port = st.server.host, st.server.port
+    out = []
+    with socket.create_connection((host, port)) as a, socket.create_connection((host, port)) as b:
+        for park, wake in ((("BLPOP", "q", "q2", "5"), ("RPUSH", "q2", "v1", "v2")),
+                           (("BZPOPMIN", "z", "5"), ("ZADD", "z", "1.5", "m", "2", "n")),
+                           (("BLMOVE", "src", "dst", "LEFT", "RIGHT", "5"), ("RPUSH", "src", "x", "y")),
+                           (("BRPOPLPUSH", "src2", "dst", "5"), ("LPUSH", "src2", "p")),
+                           (("BZMPOP", "5", "1", "z2", "MAX", "COUNT", "2"), ("ZADD", "z2", "1", "a", "3", "b")),
+                           (("BLMPOP", "5", "2", "l1", "l2", "RIGHT"), ("RPUSH", "l2", "r1", "r2"))):
+            t0 = time.time()
+            _send(a, *park)
+            _parked(st.server, 1)
+            _send(b, *wake)
+            out += [_read_reply(b), _read_reply(a), time.time() - t0 < 4]
+        for cmd in (("LRANGE", "dst", "0", "-1"), ("ZRANGE", "z", "0", "-1", "WITHSCORES"),
+                    ("BLPOP", "none", "0.1"), ("BZPOPMAX", "none", "0.1"), ("HELLO", "3"),
+                    ("BLPOP", "none", "0.1"), ("BZPOPMIN", "z", "0.1"), ("BLMOVE", "none", "x", "LEFT", "LEFT", "0.1")):
+            _send(a, *cmd)
+            out.append(_read_reply(a) if cmd[0] != "HELLO" else bool(_read_reply(a)))
+    return out
+
+
+def test_blocking_verbs_woken_and_timed_out_match_the_reference():
+    got = []
+    for make in (lambda: RefServerThread(port=0), lambda: ServerThread(port=0, device="cpu")):
+        with make() as st:
+            got.append(_blocking_scenarios(st))
+    assert got[1] == got[0]
+    assert got[1][1] == b"*2\r\n$2\r\nq2\r\n$2\r\nv1\r\n" and got[1][2]
+    assert got[1][-3] == b"_\r\n"  # the RESP3 nil of a timed-out BLPOP
+
+
+def test_more_parked_waiters_than_workers_leave_ping_answered():
+    with ServerThread(port=0, device="cpu", workers=2) as st:
+        host, port = st.server.host, st.server.port
+        waiters = [socket.create_connection((host, port)) for _ in range(6)]
+        try:
+            for i, w in enumerate(waiters):
+                _send(w, "BLPOP", f"jobs{i % 2}", "10")
+            _parked(st.server, 6)
+            with st.client() as c:
+                t0 = time.time()
+                assert c.execute("PING") == b"PONG"
+                assert time.time() - t0 < 1.0
+                assert c.execute("RPUSH", "jobs0", "a", "b", "c") == 3
+                assert c.execute("RPUSH", "jobs1", "d", "e", "f") == 3
+            got = sorted(_read_reply(w) for w in waiters)
+        finally:
+            for w in waiters:
+                w.close()
+    assert [g.split(b"\r\n")[-2] for g in got] == [b"a", b"b", b"c", b"d", b"e", b"f"]
+
+
+def test_stop_unparks_a_waiter():
+    """stop() unparks a BLPOP parked forever: the reference and the port
+    both end the connection (at most the nil reply first), and the parked
+    handler returns."""
+    seen = []
+    for make in (lambda: RefServerThread(port=0), lambda: ServerThread(port=0, device="cpu")):
+        st = make().start()
+        a = socket.create_connection((st.server.host, st.server.port))
+        try:
+            _send(a, "BLPOP", "never", "0")
+            _parked(st.server, 1)
+            slow = [t for t in threading.enumerate() if t.name.startswith("rtpu-slow")]
+            st.stop()
+            seen.append(_read_reply(a, timeout=5.0))
+            for t in slow:
+                t.join(5.0)
+            assert not any(t.is_alive() for t in slow)
+            assert st.server._closing
+        finally:
+            a.close()
+    assert all(s in (b"", b"*-1\r\n") for s in seen), seen
+
+
+def test_set_verbs_are_served_and_copy_waits_for_checkpoints():
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        assert c.execute("SADD", "s", "a", "b") == 2
+        assert c.execute("SCARD", "s") == 2
+        copy = c.execute("COPY", "s", "t")
+        assert isinstance(copy, resp.RespError) and "unknown command 'COPY'" in str(copy)
+
+
+def _collection_invalidations(make):
+    """The raw bytes a tracking client receives while another connection
+    writes the set, list and sorted set it read (a pop among the writes)."""
+    with make() as st:
+        addr = (st.server.host, st.server.port)
+        trk, w = (socket.create_connection(addr) for _ in range(2))
+        tp, wp = resp.RespParser(use_native=False), resp.RespParser(use_native=False)
+        try:
+            w.sendall(resp.encode_commands([("SADD", "s", "a"), ("RPUSH", "l", "x", "y"), ("ZADD", "z", "1", "m")]))
+            out = [_read_values(w, wp, 3)[0]]
+            trk.sendall(resp.encode_commands([("HELLO", "3"), ("CLIENT", "TRACKING", "on"), ("SMEMBERS", "s"),
+                                              ("LRANGE", "l", "0", "-1"), ("ZRANGE", "z", "0", "-1")]))
+            out.append(_read_values(trk, tp, 5)[0])
+            for cmd in (("SADD", "s", "b"), ("LPOP", "l"), ("ZINCRBY", "z", "2", "m")):
+                w.sendall(resp.encode_command(*cmd))
+                out.append(_read_values(w, wp, 1)[0])
+                out.append(_read_values(trk, tp, 1)[0])  # the invalidation push
+            return out
+        finally:
+            trk.close()
+            w.close()
+
+
+def test_collection_writes_invalidate_tracked_keys_as_the_reference_does():
+    want = _collection_invalidations(lambda: RefServerThread(port=0))
+    got = _collection_invalidations(lambda: ServerThread(port=0, device="cpu"))
+    assert got == want
+    assert [g[:14] for g in got[3::2]] == [b">2\r\n$10\r\ninval"] * 3

@@ -129,7 +129,25 @@ Phases (any failure raises and the script exits non-zero):
      and a CPU server, RESP2 then RESP3: equal replies, PFCOUNT and the
      HLLA estimates within their contract; the path must launch
      bloom_probe, bloom_set or bloom_add, hll_add, hll_rows, bitset_get and
-     bitset_set;
+     bitset_set; then the remote path (run_remote): the port's
+     RemoteRedisson and AsyncRemoteRedisson against a port ServerThread on
+     the card: config 2A (bench.py:737: the config-2 bank through
+     RemoteBloomFilterArray, 1M keys in 100,000-key add_each frames, 12
+     contains flushes of 100,000 keys sync, then gathered on one async
+     connection; contains/s of each, async/sync beside the reference's aim
+     of 10%, printed as met or NOT MET, not a gate; the OBJCALL fallback's
+     contains_flushes against BFA.MEXISTS64), config 3 through
+     RemoteHyperLogLogArray (10,000 counters, ten 1M-op frames), config 5's
+     bit sets (SETBITS by the sync handle, SETBITSB by the async one,
+     GETBITS, BITOP OR and XOR a tenant against numpy), a bloom handle's
+     OBJCALL fallback (count), a RemoteBatch of 1,000 contains ops of 100
+     keys, a MULTI/EXEC holding BF.MADD64 and BF.MEXISTS64, a TXEXEC
+     commit, config 6's near cache (bench.py:804: 8 clients, 512 buckets,
+     zipf 1.0, 99% reads; ops a client cut, printed) with server ops per
+     issued op with tracking off and on, and last a client stream and
+     tools/wire_stream.objcall_stream on a card server and a CPU server:
+     equal replies; the path must launch bloom_probe, bloom_set, hll_add,
+     hll_rows, bitset_get and bitset_set;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -247,7 +265,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "fanout": ("bloom_probe", "bloom_set", "bitset_set", "bitset_get"),
                 "config4": ("wc_words", "wc_sort_runs", "segment_reduce"),
                 "config7": VECTOR_KERNELS,
-                "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
+                "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
+                "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
 FPP = 0.01
 
 
@@ -2977,6 +2996,8 @@ def small_stream(client, rng) -> list:
 
 
 def same(a, b) -> bool:
+    if isinstance(a, BaseException):
+        return type(a) is type(b) and a.args == b.args
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
     if isinstance(a, (list, tuple)):
@@ -3668,6 +3689,457 @@ def run_server(kernels: dict, device="cuda") -> dict:
 
 
 
+# the remote path (run_remote): the port's RemoteRedisson and
+# AsyncRemoteRedisson against a port ServerThread on the card.  Config 2A
+# (bench.py:737): the config-2 bank, 1M keys added in 100,000-key add_each
+# frames, 12 contains flushes of 100,000 keys sync, then gathered on one
+# async connection (the reference's aim: async within 10% of sync)
+RM_C2_INGEST, RM_C2_FRAME, RM_C2_FLUSHES, RM_ASYNC_AIM = 1_000_000, 100_000, 12, 0.9
+# config 6 (bench.py:804): 8 clients, zipf 1.0 reads over 512 buckets at
+# 99% reads, tracking off then on; cut from 4,000 and 20,000 ops a client
+RM_C6_CLIENTS, RM_C6_KEYS, RM_C6_READS, RM_C6_ZIPF = 8, 512, 0.99, 1.0
+RM_C6_OPS, RM_C6_DESIGN_OPS = (500, 2_500), (4_000, 20_000)
+# a RemoteBatch of config2_batch's shape, and the stream held card against CPU
+RM_BATCH_OPS, RM_BATCH_KEYS, RM_STREAM_SEED = 1000, 100, 29
+
+
+def remote_config2(c, address: str, card: str, rng) -> dict:
+    """Config 2A through the typed bank handles, sync then async."""
+    import asyncio
+
+    from redisson_tpu_torch.client.aio import AsyncRemoteRedisson
+
+    bank = c.get_bloom_filter_array("rm:c2")
+    if not bank.try_init(C2_TENANTS, C2_PER_TENANT, FPP):
+        raise AssertionError("remote config2: BFA.RESERVE")
+    keys = np.arange(RM_C2_INGEST, dtype=np.int64) * 2654435761
+    tenants = ((keys * 40503) % C2_TENANTS).astype(np.int32)
+    s = time.perf_counter()
+    newly = sum(int(bank.add_each(tenants[i:i + RM_C2_FRAME], keys[i:i + RM_C2_FRAME]).sum())
+                for i in range(0, RM_C2_INGEST, RM_C2_FRAME))
+    populate_s = time.perf_counter() - s
+    flushes = []
+    for _ in range(RM_C2_FLUSHES):  # config2_flush's shape over the 1M keys added
+        present = keys[rng.integers(0, RM_C2_INGEST, C2_FLUSH)]
+        absent = rng.integers(1 << 50, 1 << 60, C2_FLUSH).astype(np.int64)
+        ks = np.where(np.arange(C2_FLUSH) % 2 == 0, present, absent)
+        flushes.append((((ks * 40503) % C2_TENANTS).astype(np.int32), ks))
+    bank.contains(*flushes[0])  # warm
+    s = time.perf_counter()
+    sync = [bank.contains(t, k) for t, k in flushes]
+    sync_s = time.perf_counter() - s
+    for f in sync:
+        if f.size != C2_FLUSH or not f[0::2].all():
+            raise AssertionError("remote config2: false negatives")
+    # 1M keys in a bank sized for 10M: the rate sits far below the design's
+    fp = float(np.mean([f[1::2].mean() for f in sync]))
+    if fp > 2 * FPP:
+        raise AssertionError(f"remote config2: false-positive rate {fp:.5f} above {2 * FPP}")
+    # the typed handle's OBJCALL fallback: contains_flushes on the server's bank
+    fallback = bank.contains_flushes(flushes[:2])
+    if not all(same(a, b) for a, b in zip(fallback, sync[:2])):
+        raise AssertionError("remote config2: the OBJCALL fallback's replies differ from BFA.MEXISTS64's")
+
+    async def gathered():
+        client = await AsyncRemoteRedisson.connect(address, timeout=600.0)
+        try:
+            abank = client.get_bloom_filter_array("rm:c2")
+            await abank.contains(*flushes[0])  # warm this connection
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*(abank.contains(t, k) for t, k in flushes))
+            gather_s = time.perf_counter() - t0
+            t0 = time.perf_counter()  # the same flushes awaited one at a time
+            for t, k in flushes:
+                await abank.contains(t, k)
+            return outs, gather_s, time.perf_counter() - t0
+        finally:
+            await client.aclose()
+
+    outs, async_s, one_s = asyncio.run(gathered())
+    if not all(same(a, b) for a, b in zip(outs, sync)):
+        raise AssertionError("remote config2: the async replies differ from the sync ones")
+    n = RM_C2_FLUSHES * C2_FLUSH
+    out = {"populate_keys": RM_C2_INGEST, "populate_frames": RM_C2_INGEST // RM_C2_FRAME, "populate_s": populate_s,
+           "populate_newly": newly, "flushes": RM_C2_FLUSHES, "flush_ops": C2_FLUSH, "false_positive_rate": fp,
+           "sync_contains_per_s": n / sync_s, "async_contains_per_s": n / async_s,
+           "async_one_at_a_time_contains_per_s": n / one_s}
+    out["async_over_sync"] = out["async_contains_per_s"] / out["sync_contains_per_s"]
+    met = "met" if out["async_over_sync"] >= RM_ASYNC_AIM else "NOT MET"
+    log(f"remote config2 [{card}]: RemoteBloomFilterArray {C2_TENANTS} x {C2_PER_TENANT} at {FPP}, "
+        f"{RM_C2_INGEST} keys in {out['populate_frames']} add_each frames {populate_s:.3f}s ({newly} newly); "
+        f"{RM_C2_FLUSHES} contains flushes of {C2_FLUSH}: sync {out['sync_contains_per_s'] / 1e6:.2f}M contains/s, "
+        f"async (gathered on one connection) {out['async_contains_per_s'] / 1e6:.2f}M contains/s, async/sync "
+        f"{out['async_over_sync']:.3f} (the reference's aim, within 10% of sync: {met}), awaited one at a time "
+        f"{out['async_one_at_a_time_contains_per_s'] / 1e6:.2f}M contains/s; fp {fp:.5f}, "
+        "0 false negatives; the OBJCALL fallback (contains_flushes) replies the same")
+    c.execute("DEL", "rm:c2")
+    return out
+
+
+def remote_config3(c, card: str, rng) -> dict:
+    """Config 3 through RemoteHyperLogLogArray: 10,000 counters."""
+    hlla = c.get_hyper_log_log_array("rm:c3")
+    if not hlla.try_init(C3_TENANTS):
+        raise AssertionError("remote config3: HLLA.RESERVE")
+    add_s = []
+    for _ in range(C3_BATCHES):
+        t, k = rng.integers(0, C3_TENANTS, C3_BATCH), rng.integers(0, 1 << 60, C3_BATCH)
+        s = time.perf_counter()
+        hlla.add(t, k)
+        add_s.append(time.perf_counter() - s)
+    dst = np.arange(0, C3_TENANTS, 2, dtype=np.int32)
+    hlla.merge_rows(dst, dst + 1)
+    s = time.perf_counter()
+    ests = hlla.estimate_all()
+    est_ms = (time.perf_counter() - s) * 1e3
+    pairs = hlla.estimate_union_pairs(dst[:100], dst[:100] + 1)
+    if not np.allclose(pairs, ests[dst[:100]], rtol=1e-6):  # a merged row is its pair's union
+        raise AssertionError("remote config3: estimate_union_pairs differs from the merged rows")
+    expected = C3_BATCH * C3_BATCHES / C3_TENANTS
+    even, odd = float(ests[0::2].mean()), float(ests[1::2].mean())
+    if ests.size != C3_TENANTS or not (0.95 * 2 * expected < even < 1.05 * 2 * expected
+                                       and 0.95 * expected < odd < 1.05 * expected):
+        raise AssertionError(f"remote config3: estimates off: {ests.size} rows, means {even} / {odd}")
+    out = {"add_frames": C3_BATCHES, "frame_ops": C3_BATCH, "add_ops_per_s": C3_BATCH * C3_BATCHES / sum(add_s),
+           "add_frame_p50_ms": pctl(add_s, 50) * 1e3, "estimate_ms": est_ms}
+    log(f"remote config3 [{card}]: RemoteHyperLogLogArray of {C3_TENANTS}: {C3_BATCHES} add frames of {C3_BATCH}, "
+        f"p50 {out['add_frame_p50_ms']:.3f} ms ({out['add_ops_per_s'] / 1e6:.1f}M adds/s); merge_rows of "
+        f"{len(dst)} pairs; estimate_all {est_ms:.3f} ms (mean {odd:.1f}, merged rows {even:.1f})")
+    c.execute("DEL", "rm:c3")
+    return out
+
+
+def remote_bitsets(c, address: str, card: str, rng) -> dict:
+    """Config 5's bit sets (bench.py:399-428) through the bit-set handles:
+    the sync handle's SETBITS and the async one's SETBITSB, GETBITS, then
+    BITOP OR and XOR a tenant, each against numpy."""
+    import asyncio
+
+    from redisson_tpu_torch.client.aio import AsyncRemoteRedisson
+
+    idx = [[host_indexes(rng, C5_BIT_OPS, 0, C5_BITS) for _ in range(2)] for _ in range(C5_TENANTS)]
+    s = time.perf_counter()
+    for t in range(C5_TENANTS):
+        c.get_bit_set(f"rm:bits:{t}:a").set_each(idx[t][0])
+
+    async def set_b():
+        client = await AsyncRemoteRedisson.connect(address, timeout=600.0)
+        try:
+            await asyncio.gather(*(client.get_bit_set(f"rm:bits:{t}:b").set_each(idx[t][1])
+                                   for t in range(C5_TENANTS)))
+        finally:
+            await client.aclose()
+
+    asyncio.run(set_b())
+    for t in range(C5_TENANTS):
+        a, b = (set(int(i) for i in x) for x in idx[t])
+        ha = c.get_bit_set(f"rm:bits:{t}:a")
+        if not ha.get_each(idx[t][1]).tolist() == [int(i) in a for i in idx[t][1]]:
+            raise AssertionError(f"remote bit sets: GETBITS t{t}")
+        ha.or_(f"rm:bits:{t}:b")
+        if ha.cardinality() != len(a | b):
+            raise AssertionError(f"remote bit sets: BITOP OR t{t}")
+        ha.xor(f"rm:bits:{t}:b")
+        if ha.cardinality() != len(a - b):
+            raise AssertionError(f"remote bit sets: BITOP XOR t{t}")
+    wall = time.perf_counter() - s
+    out = {"tenants": C5_TENANTS, "ops_per_set": C5_BIT_OPS, "wall_s": wall}
+    log(f"remote bit sets [{card}]: {C5_TENANTS} tenants x 2 sets of {C5_BIT_OPS} indexes below {C5_BITS} "
+        f"(SETBITS sync, SETBITSB async), GETBITS, BITOP OR and XOR each against numpy: {wall:.3f}s")
+    for t in range(C5_TENANTS):
+        c.execute("DEL", f"rm:bits:{t}:a", f"rm:bits:{t}:b")
+    return out
+
+
+def remote_objcall_tx(c, card: str, rng) -> dict:
+    """A bloom handle's OBJCALL fallback, a RemoteBatch of 1,000 contains
+    ops, a MULTI/EXEC holding BF.MADD64 and BF.MEXISTS64, and a TXEXEC
+    commit."""
+    bf = c.get_bloom_filter("rm:bf")
+    if not bf.try_init(RM_BATCH_OPS * RM_BATCH_KEYS, FPP):
+        raise AssertionError("remote objcall: BF.RESERVE")
+    keys = rng.integers(0, 1 << 60, RM_BATCH_OPS * RM_BATCH_KEYS).astype(np.int64)
+    newly = int(bf.add_each(keys).sum())
+    count = bf.count()  # not a typed verb: OBJCALL get_bloom_filter.count
+    if not 0.9 * keys.size < count < 1.1 * keys.size:
+        raise AssertionError(f"remote objcall: count() {count} for {keys.size} keys")
+    b = c.create_batch()
+    bb = b.get_bloom_filter("rm:bf")
+    probe = np.where(np.arange(keys.size) % 2 == 0, keys, rng.integers(1 << 60, 1 << 62, keys.size))
+    for i in range(RM_BATCH_OPS):
+        bb.contains_async(probe[i * RM_BATCH_KEYS:(i + 1) * RM_BATCH_KEYS])
+    s = time.perf_counter()
+    flags = b.execute()
+    batch_ms = (time.perf_counter() - s) * 1e3
+    found = np.concatenate(flags)
+    if len(flags) != RM_BATCH_OPS or not found[0::2].all():
+        raise AssertionError("remote objcall: RemoteBatch false negatives")
+    more = rng.integers(1 << 62, (1 << 63) - 1, 1000).astype(np.int64)
+    conn = c.node.pool.acquire()
+    try:
+        tx = conn.execute_many([("MULTI",), ("BF.MADD64", "rm:bf", _i8(more)), ("BF.MEXISTS64", "rm:bf", _i8(more)),
+                                ("EXEC",)])
+    finally:
+        c.node.pool.release(conn)
+    if tx[:3] != [b"OK", b"QUEUED", b"QUEUED"] or not np.frombuffer(tx[3][1], np.uint8).all():
+        raise AssertionError(f"remote objcall: MULTI/EXEC {tx!r:.200}")
+    t = c.create_transaction()
+    t.get_bucket("rm:tx:b").set(newly)
+    t.get_map("rm:tx:m").put("count", count)
+    t.commit()
+    if c.get_bucket("rm:tx:b").get() != newly or c.get_map("rm:tx:m").get("count") != count:
+        raise AssertionError("remote objcall: TXEXEC commit not read back")
+    out = {"batch_ops": RM_BATCH_OPS, "batch_keys": RM_BATCH_KEYS, "batch_ms": batch_ms, "newly": newly,
+           "count": count}
+    log(f"remote objcall [{card}]: BloomFilter add_each of {keys.size} ({newly} newly), count() {count} through "
+        f"the OBJCALL fallback; a RemoteBatch of {RM_BATCH_OPS} contains ops of {RM_BATCH_KEYS} keys {batch_ms:.3f} ms "
+        "(one BF.MEXISTS64); MULTI/EXEC of BF.MADD64 + BF.MEXISTS64; a TXEXEC commit read back")
+    c.execute("DEL", "rm:bf", "rm:tx:b", "rm:tx:m")
+    return out
+
+
+def remote_config6(server, address: str, card: str) -> dict:
+    """Config 6's near cache at a cut size: server ops per issued op with
+    tracking off and on (bench.py:804's phases, fewer ops a client)."""
+    import threading
+
+    from redisson_tpu_torch.client.codec import DEFAULT_CODEC
+    from redisson_tpu_torch.client.remote import RemoteRedisson
+
+    rng = np.random.default_rng(17)
+    p = 1.0 / np.power(np.arange(1, RM_C6_KEYS + 1), RM_C6_ZIPF)
+    p /= p.sum()
+    seed = RemoteRedisson(address, timeout=600.0)
+    seed.execute_many([("SET", f"c6:{i}", DEFAULT_CODEC.encode(b"v0")) for i in range(RM_C6_KEYS)])
+    seed.shutdown()
+
+    def phase(tracked: bool, ops: int) -> dict:
+        clients = [RemoteRedisson(address, timeout=600.0) for _ in range(RM_C6_CLIENTS)]
+        handles = []
+        for cl in clients:
+            if tracked:
+                plane = cl.enable_tracking(cache_entries=4 * RM_C6_KEYS, noloop=True)
+                hs = [plane.get_bucket(f"c6:{i}") for i in range(RM_C6_KEYS)]
+                for h in hs:
+                    h.get()
+                handles.append(hs)
+            else:
+                handles.append([cl.get_bucket(f"c6:{i}") for i in range(RM_C6_KEYS)])
+        streams = [(rng.choice(RM_C6_KEYS, size=ops, p=p), rng.random(ops) >= RM_C6_READS)
+                   for _ in range(RM_C6_CLIENTS)]
+        start = threading.Barrier(RM_C6_CLIENTS + 1)
+        errors = []
+
+        def worker(ci):
+            hs, (idx, writes) = handles[ci], streams[ci]
+            try:
+                start.wait()
+                for j in range(ops):
+                    if writes[j]:
+                        hs[idx[j]].set(b"w%d-%d" % (ci, j))
+                    else:
+                        hs[idx[j]].get()
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(ci,), daemon=True) for ci in range(RM_C6_CLIENTS)]
+        for t in threads:
+            t.start()
+        before = server.stats["commands"]
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        server_ops = server.stats["commands"] - before
+        for cl in clients:
+            cl.shutdown()
+        if errors:
+            raise errors[0]
+        issued = RM_C6_CLIENTS * ops
+        return {"issued_ops": issued, "server_ops": server_ops, "wall_s": wall, "ops_per_s": issued / wall,
+                "server_ops_per_issued": server_ops / issued}
+
+    off, on = phase(False, RM_C6_OPS[0]), phase(True, RM_C6_OPS[1])
+    out = {"clients": RM_C6_CLIENTS, "keys": RM_C6_KEYS, "read_ratio": RM_C6_READS, "zipf_s": RM_C6_ZIPF,
+           "ops_per_client": RM_C6_OPS, "design_ops_per_client": RM_C6_DESIGN_OPS, "off": off, "on": on,
+           "reduction": off["server_ops_per_issued"] / max(on["server_ops_per_issued"], 1e-12)}
+    if on["server_ops_per_issued"] >= off["server_ops_per_issued"]:
+        raise AssertionError(f"remote config6: tracking on did not cut server ops: {off} / {on}")
+    log(f"remote config6 [{card}]: {RM_C6_CLIENTS} clients x zipf({RM_C6_ZIPF}) over {RM_C6_KEYS} buckets at "
+        f"{RM_C6_READS:.0%} reads, {RM_C6_OPS[0]} / {RM_C6_OPS[1]} ops a client (cut from bench.py's "
+        f"{RM_C6_DESIGN_OPS[0]} / {RM_C6_DESIGN_OPS[1]}): tracking off {off['server_ops_per_issued']:.4f} server ops "
+        f"an op ({off['ops_per_s'] / 1e3:.1f}k ops/s), on {on['server_ops_per_issued']:.4f} "
+        f"({on['ops_per_s'] / 1e3:.1f}k ops/s): {out['reduction']:.1f}x fewer")
+    return out
+
+
+def remote_stream(address: str, seed: int) -> list:
+    """One op stream through the port's RemoteRedisson and
+    AsyncRemoteRedisson (typed sketch handles, OBJCALL, OBJCALLM, a
+    RemoteBatch, MULTI/EXEC with WATCH, transactions, a wire lock, a
+    topic); its replies, the HLLA estimates rounded to 6 digits."""
+    import asyncio
+
+    from redisson_tpu_torch.client.aio import AsyncRemoteRedisson
+    from redisson_tpu_torch.client.remote import RemoteRedisson
+
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(-2**62, 2**62, 3000)
+    tenants = rng.integers(0, 16, 3000).astype(np.int32)
+    out = []
+
+    def rec(fn, *a):
+        try:
+            out.append(fn(*a))
+        except Exception as e:  # noqa: BLE001 — the error is the reply
+            out.append(("raised", type(e).__name__, str(e)))
+
+    c, c2 = RemoteRedisson(address, timeout=600.0), RemoteRedisson(address, timeout=600.0)
+    try:
+        bf = c.get_bloom_filter("rs:bf")
+        for fn, *a in ((bf.try_init, 20_000, 0.01), (bf.add_each, ints[:1500]), (bf.contains_each, ints[750:2250]),
+                       (bf.add_all, ["a", "b"]), (bf.contains, "a"), (bf.count,)):
+            rec(fn, *a)
+        bfa = c.get_bloom_filter_array("rs:bfa")
+        for fn, *a in ((bfa.try_init, 16, 2000, 0.01), (bfa.add_each, tenants[:1500], ints[:1500]),
+                       (bfa.contains, tenants[750:2250], ints[750:2250])):
+            rec(fn, *a)
+        hlla = c.get_hyper_log_log_array("rs:hlla")
+        rec(hlla.try_init, 16)
+        rec(hlla.add, tenants, ints)
+        rec(hlla.merge_rows, [0, 2], [1, 3])
+        out.append(np.round(hlla.estimate_all(), 6).tolist())
+        h = c.get_hyper_log_log("rs:h")
+        for fn, *a in ((h.add_all, ints[:2000]), (h.add_all, ["x", "y"]), (h.count,)):
+            rec(fn, *a)
+        bits = c.get_bit_set("rs:bits")
+        idx = rng.integers(0, 50_000, 500)
+        for fn, *a in ((bits.set_each, idx), (bits.get_each, idx + 1), (bits.set_each, idx[:50], False),
+                       (bits.cardinality,), (c.get_bit_set("rs:bits2").set_each, idx[::3]), (bits.xor, "rs:bits2"),
+                       (bits.cardinality,)):
+            rec(fn, *a)
+        m = c.get_map("rs:map")
+        for fn, *a in ((m.put, "a", 1), (m.get, "a"), (m.read_all_map,), (m.nope,)):
+            rec(fn, *a)
+        rec(c.objcall_many, [("get_map", "rs:map", "get", ("a",), {}), ("get_map", "rs:map", "bogus", (), {}),
+                             ("get_bloom_filter", "rs:bf", "contains_each", (ints[:8],), {})])
+        b = c.create_batch()
+        for i in range(20):
+            b.get_bloom_filter("rs:bf").contains_async(ints[i * 100:(i + 1) * 100])
+        b.get_map("rs:map").get("a")
+        rec(b.execute)
+        conn = c.node.pool.acquire()
+        try:
+            rec(conn.execute_many, [("WATCH", "rs:w"), ("MULTI",), ("INCR", "rs:w"),
+                                    ("BF.MEXISTS64", "rs:bf", _i8(ints[:5])), ("EXEC",)])
+            rec(conn.execute, "WATCH", "rs:w")
+            rec(c2.execute, "INCR", "rs:w")
+            rec(conn.execute_many, [("MULTI",), ("INCR", "rs:w"), ("EXEC",)])
+        finally:
+            c.node.pool.release(conn)
+        tx = c.create_transaction()
+        rec(tx.get_bucket("rs:tx").get)
+        rec(c2.get_bucket("rs:tx").set, "racer")
+        rec(tx.get_bucket("rs:tx").set, "lost")
+        rec(tx.commit)
+        tx = c.create_transaction()
+        rec(tx.get_map("rs:txm").put, "k", 1)
+        rec(tx.commit)
+        lk, other = c.get_lock("rs:lock"), c2.get_lock("rs:lock")
+        for fn in (lk.try_lock, other.try_lock, lk.unlock, other.try_lock, other.unlock):
+            rec(fn)
+        got = []
+        c.get_topic("rs:topic").add_listener(lambda ch, msg: got.append((ch, msg)))
+        time.sleep(0.2)
+        rec(c2.get_topic("rs:topic").publish, "hello")
+        deadline = time.time() + 10
+        while not got and time.time() < deadline:
+            time.sleep(0.01)
+        out.append(got)
+    finally:
+        c2.shutdown()
+        c.shutdown()
+
+    async def aio():
+        a = await AsyncRemoteRedisson.connect(address, timeout=600.0)
+        try:
+            abf = a.get_bloom_filter("rs:bf")
+            return [await abf.contains_each(ints[:100]), await a.get_map("rs:map").get("a"),
+                    list(await asyncio.gather(*(a.get_bit_set("rs:bits").get_each(idx[i::4]) for i in range(4))))]
+        finally:
+            await a.aclose()
+
+    out.append(asyncio.run(aio()))
+    return out
+
+
+def remote_card_against_cpu(device, card: str) -> dict:
+    """remote_stream and tools/wire_stream.objcall_stream (RESP2, RESP3) on
+    a card server and a CPU server of the port: the same replies."""
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    stream = W.objcall_stream(seed=RM_STREAM_SEED)
+    waves = [stream, [("HELLO", "3")] + stream]
+    got = {}
+    for where in (device, "cpu"):
+        with ServerThread(port=0, device=where) as st:
+            got[where] = (remote_stream(st.address, RM_STREAM_SEED),
+                          W.replies(st.server.host, st.server.port, waves))
+    card_s, card_w = got[device]
+    cpu_s, cpu_w = got["cpu"]
+    for i, (a, b) in enumerate(zip(card_s, cpu_s)):
+        if not same(a, b) or len(card_s) != len(cpu_s):
+            raise AssertionError(f"remote stream reply {i}: card {a!r:.200} != cpu {b!r:.200}")
+    for wave, (craw, cr), (wraw, wr) in zip(waves, card_w, cpu_w):
+        bad = W.compare(wave, cr, wr)
+        if bad or craw != wraw:
+            raise AssertionError(f"remote OBJCALL stream: {len(bad)} replies differ: {bad[:3]}")
+    log(f"remote card vs CPU [{card}]: the client stream ({len(card_s)} replies, 3,000 keys, not cut) and the "
+        f"OBJCALL stream ({len(stream)} commands, RESP2 then RESP3, byte for byte) equal on the card and the CPU")
+    return {"stream_replies": len(card_s), "objcall_commands": 2 * len(stream) + 1}
+
+
+def run_remote(device="cuda") -> dict:
+    """The remote path: the port's RemoteRedisson and AsyncRemoteRedisson
+    against a port ServerThread on the card."""
+    from redisson_tpu_torch.client.remote import RemoteRedisson
+    from redisson_tpu_torch.server import ServerThread
+
+    start = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(37)
+    out, parts = {}, {}
+    with ServerThread(port=0, device=device) as st:
+        if st.server.engine.device.type != torch.device(device).type:
+            raise AssertionError(f"the server did not land on {device}")
+        c = RemoteRedisson(st.address, timeout=600.0)
+        try:
+            for name, run in (("config2", lambda: remote_config2(c, st.address, card, rng)),
+                              ("config3", lambda: remote_config3(c, card, rng)),
+                              ("bitsets", lambda: remote_bitsets(c, st.address, card, rng)),
+                              ("objcall_tx", lambda: remote_objcall_tx(c, card, rng)),
+                              ("config6", lambda: remote_config6(st.server, st.address, card))):
+                s = time.perf_counter()
+                out[name] = run()
+                parts[name] = time.perf_counter() - s
+        finally:
+            c.shutdown()
+    launches = {}
+    from redisson_tpu_torch.core import kernels as K
+
+    launches.update(K.launches)  # the card-against-CPU run below launches more
+    s = time.perf_counter()
+    out["card_vs_cpu"] = remote_card_against_cpu(device, card)
+    parts["card_vs_cpu"] = time.perf_counter() - s
+    out["launches"] = launches
+    out["seconds"], out["part_seconds"] = time.perf_counter() - start, parts
+    log(f"remote path [{card}]: {out['seconds']:.1f}s (" + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items())
+        + ")")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -3886,7 +4358,8 @@ def main() -> int:
                       ("fanout", lambda: run_fanout(client, np.random.default_rng(13))),
                       ("config4", lambda: run_config4(client, values)),
                       ("config7", lambda: run_config7(client)),
-                      ("server", lambda: run_server(kernels))):
+                      ("server", lambda: run_server(kernels)),
+                      ("remote", lambda: run_remote())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself

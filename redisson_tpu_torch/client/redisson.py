@@ -4,7 +4,8 @@ One client over one embedded Engine, with the factories of
 ``redisson_tpu/client/redisson.py`` for the objects the port has: sketches,
 bit sets, buckets and counters, maps and map caches, adders, sets, sorted
 sets, lists, multimaps, the twelve queue classes, locks, semaphores,
-latches, rate limiters, topics, keys, MapReduce, search and batches.
+latches, rate limiters, topics, keys, MapReduce, search, batches and
+transactions.
 Object handles are cheap and stateless; create them freely.  The stream,
 geo, time-series, binary-stream, local-cached-map and cache-manager
 factories come with those objects (ROADMAP M7).
@@ -333,6 +334,13 @@ class RedissonTpu:
         return self._engine.service("search", lambda: SearchService(self._engine))
 
     # -- batching (RBatch) --------------------------------------------------
+
+    def create_transaction(self, timeout: Optional[float] = None, options=None):
+        """RedissonClient.createTransaction(TransactionOptions) analog; the
+        bare `timeout` form is kept for back-compat."""
+        from redisson_tpu_torch.services.transactions import EmbeddedTransaction
+
+        return EmbeddedTransaction(self._engine, timeout, options)
 
     def create_batch(self, skip_result: bool = False, atomic: bool = False) -> Batch:
         """An RBatch over this client's engine: ops queued on its proxies run

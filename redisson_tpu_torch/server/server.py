@@ -62,22 +62,25 @@ fault shapes) and counts in ``stats["errors"]``, so a failing kernel is
 never hidden behind a slower path that might succeed.
 
   * **Blocking verbs** (``_SLOW_COMMANDS``: BLPOP, BRPOP, BLMOVE,
-    BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP) dispatch on a wide slow
-    pool, so a parked waiter never holds a worker of the pool every
-    connection shares; inside a frame a blocking verb keeps its place in
-    the reply order.  ``stop()`` sets ``_closing``, which the wait loop
+    BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP, and OBJCALL, OBJCALLM,
+    OBJCALLMA, OBJCALLV, TXEXEC and EXEC, which may run a parking object
+    method or wait on the exec mutex) dispatch on a wide slow pool, so a
+    parked waiter never holds a worker of the pool every connection
+    shares; inside a frame a blocking verb keeps its place in the reply
+    order.  ``stop()`` sets ``_closing``, which the wait loop
     (``verbs/common._block_loop``) polls: every parked waiter unparks.
 
-The port serves the connection, keyspace, sketch, collections and zset
-verb families (``server/verbs``).  Left out, each raising
-NotImplementedError when asked for: device-sharded serving (``devices=``),
-cluster mode, advertised cluster addresses (ROADMAP M8), checkpoints and
-migration journals (ROADMAP M11).  Their verbs reply the unknown-command
-error until those slices: the admin verbs (INFO, CONFIG, SAVE, CLUSTER,
-the replication verbs, DUMP, RESTORE, COPY), OBJCALL and MULTI/EXEC,
-streams and geo, and the JSON and FT module verbs; the replication and
-migration links, the residency census and the chaos pause gate come with
-them.
+The port serves the connection, keyspace, sketch, objcall_tx (OBJCALL,
+OBJCALLM, OBJCALLMA, OBJCALLV, MULTI, DISCARD, WATCH, UNWATCH, RESET, EXEC
+and TXEXEC), collections and zset verb families (``server/verbs``).  Left
+out, each raising NotImplementedError when asked for: device-sharded
+serving (``devices=``), cluster mode, advertised cluster addresses
+(ROADMAP M8), checkpoints and migration journals (ROADMAP M11).  Their
+verbs reply the unknown-command error until those slices: the admin verbs
+(INFO, CONFIG, SAVE, CLUSTER, the replication verbs REPLFLUSH and
+REPLSTATE, DUMP, RESTORE, COPY), streams and geo, and the JSON and FT
+module verbs; the replication and migration links, the residency census
+and the chaos pause gate come with them.
 """
 from __future__ import annotations
 
@@ -150,12 +153,14 @@ class _TracedEncoded:
 FRAME_READ_LIMIT = 64 << 20
 
 # Commands whose handlers may PARK the worker thread (blocking verbs hold it
-# for up to their timeout).  Dispatched on the wide slow pool so the shared
-# dispatch pool never starves.  The reference's list also names OBJCALL*,
-# TXEXEC, EXEC, XREAD, XREADGROUP and WAIT, which the port does not serve
-# yet.
+# for up to their timeout; OBJCALL runs arbitrary object methods incl.
+# poll_blocking and lock waits; EXEC and TXEXEC wait on the exec mutex and
+# record locks).  Dispatched on the wide slow pool so the shared dispatch
+# pool never starves.  The reference's list also names XREAD, XREADGROUP
+# and WAIT, which the port does not serve yet.
 _SLOW_COMMANDS = frozenset(
     b.encode() for b in (
+        "OBJCALL", "OBJCALLM", "OBJCALLMA", "OBJCALLV", "TXEXEC", "EXEC",
         "BLPOP", "BRPOP", "BLMOVE", "BRPOPLPUSH", "BZPOPMIN", "BZPOPMAX",
         "BLMPOP", "BZMPOP",
     )
@@ -346,13 +351,23 @@ class TpuServer:
         self._qos_pool = ThreadPoolExecutor(
             max_workers=max(2, workers), thread_name_prefix="rtpu-qos"
         )
-        # blocking verbs park their worker: isolate them on a wide pool so
-        # parked callers can't starve the data-plane workers (the reference
-        # marks such commands isBlockingCommand and gives them dedicated
-        # connections)
+        # OBJCALL handle cache (ordered for LRU eviction; see
+        # verbs/objcall_tx._objcall_resolve)
+        from collections import OrderedDict
+
+        self._objcall_handles: "OrderedDict" = OrderedDict()
+        self._objcall_handles_lock = threading.Lock()
+        # blocking verbs park their worker, and OBJCALL may run arbitrarily
+        # blocking object methods (blocking queues, latches, locks):
+        # isolate them on a wide pool so parked callers can't starve the
+        # data-plane workers (the reference marks such commands
+        # isBlockingCommand and gives them dedicated connections)
         self._slow_pool = ThreadPoolExecutor(max_workers=64, thread_name_prefix="rtpu-slow")
         # set by stop(): parked blocking verbs poll it to unpark
         self._closing = False
+        # EXEC transactions serialize (see cmd_exec: handlers may take record
+        # locks beyond the precomputed key set)
+        self._exec_mutex = threading.Lock()
         self._server: Optional[asyncio.AbstractServer] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._writers: set = set()

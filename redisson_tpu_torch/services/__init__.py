@@ -1,2 +1,3 @@
-"""Services over the object layer: MapReduce (``services/mapreduce.py``) and
-search with vector KNN (``services/search.py``, ``services/vector.py``)."""
+"""Services over the object layer: MapReduce (``services/mapreduce.py``),
+search with vector KNN (``services/search.py``, ``services/vector.py``) and
+transactions (``services/transactions.py``)."""

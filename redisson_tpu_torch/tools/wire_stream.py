@@ -14,6 +14,10 @@ and hash-extra verb, the multi-pops and the blocking verbs (timed-out and
 served), RENAMENX, BITPOS and SORT, with their error replies, and the
 keyspace verbs (TYPE, KEYS, SCAN, EXPIRE, RENAME, DEL) over those records.
 
+``objcall_stream(seed, scale)`` holds the generic object calls (OBJCALL,
+OBJCALLM, OBJCALLMA, OBJCALLV) and the wire transactions (MULTI/EXEC with
+WATCH, TXEXEC), each reply a pickle or a RESP value.
+
 ``replies(host, port, waves)`` sends each wave as one pipelined write on
 one connection and returns, per wave, the raw reply bytes and the parsed
 replies; ``reply_spans(raw)`` splits a wave's raw bytes reply by reply.
@@ -321,6 +325,99 @@ def collections_stream(seed: int = 0, scale: int = 1) -> List[tuple]:
     ]
     return cmds
 
+def objcall_stream(seed: int = 0, scale: int = 1) -> List[tuple]:
+    """Generic object calls and the wire transactions: OBJCALL on maps,
+    buckets, counters, lists, sorted sets, bloom filters, HyperLogLogs,
+    bit sets and a lock (two caller identities), with a codec frame, its
+    error replies (unknown method, bad arguments, bad factory), an OBJCALLM
+    and an OBJCALLMA batch with a failing op, OBJCALLV, MULTI/EXEC (plain,
+    WATCH clean and aborted, EXECABORT, DISCARD, nesting, a blocking pop
+    inside EXEC), RESET, and TXEXEC committed and refused (TXCONFLICT).
+    Payloads are pickled as every client pickles them
+    (``net/safe_pickle.dumps``: the reference's class names)."""
+    from redisson_tpu_torch.client.codec import StringCodec
+    from redisson_tpu_torch.net.safe_pickle import dumps as P
+
+    rng = np.random.default_rng(seed)
+    n = 16 * scale
+    me, other = "c0ffee:1", "beef:2"
+
+    def oc(factory, name, method, *args, caller=me, **kw):
+        return ("OBJCALL", factory, name, method, P((args, kw)), caller)
+
+    keys = [f"k{i}" for i in range(n)]
+    vals = [int(v) for v in rng.integers(0, 1000, n)]
+    ints = rng.integers(-2**62, 2**62, 4 * n)
+    cmds: List[tuple] = [oc("get_map", "oc:m", "put", k, v) for k, v in zip(keys, vals)]
+    cmds += [oc("get_map", "oc:m", "get", k) for k in keys[::3]]
+    cmds += [oc("get_map", "oc:m", "read_all_map"), oc("get_map", "oc:m", "size"),
+             oc("get_map", "oc:m", "remove", keys[0]), oc("get_map", "oc:m", "put_if_absent", keys[1], -1)]
+    cmds += [oc("get_bucket", "oc:b", "set", {"a": [1, 2.5, "x"]}), oc("get_bucket", "oc:b", "get"),
+             oc("get_bucket", "oc:b", "compare_and_set", {"a": [1, 2.5, "x"]}, "y"),
+             oc("get_bucket", "oc:b", "get_and_delete")]
+    cmds += [oc("get_atomic_long", "oc:al", "add_and_get", v) for v in vals[:4]]
+    cmds += [oc("get_atomic_double", "oc:ad", "add_and_get", 0.25), oc("get_atomic_long", "oc:al", "get")]
+    cmds += [oc("get_list", "oc:l", "add_all", vals), oc("get_list", "oc:l", "read_all"),
+             oc("get_list", "oc:l", "get", 3), oc("get_list", "oc:l", "sub_list", 1, 4)]
+    cmds += [oc("get_queue", "oc:q", "offer", v) for v in vals[:3]]
+    cmds += [oc("get_queue", "oc:q", "poll"), oc("get_queue", "oc:q", "poll_many", 5)]
+    cmds += [oc("get_scored_sorted_set", "oc:z", "add", float(v), k) for k, v in zip(keys, vals)]
+    cmds += [oc("get_scored_sorted_set", "oc:z", "entry_range", 0, -1),
+             oc("get_scored_sorted_set", "oc:z", "rank", keys[2])]
+    # the sketches over OBJCALL: the typed handles' fallback route
+    cmds += [oc("get_bloom_filter", "oc:bf", "try_init", 40 * n, 0.01),
+             oc("get_bloom_filter", "oc:bf", "add_all", [f"e{i}" for i in range(n)]),
+             oc("get_bloom_filter", "oc:bf", "add_each", ints[:n]),
+             oc("get_bloom_filter", "oc:bf", "contains_each", ints[: 2 * n]),
+             oc("get_bloom_filter", "oc:bf", "count_contains", [f"e{i}" for i in range(2 * n)]),
+             oc("get_bloom_filter", "oc:bf", "get_size"),
+             oc("get_hyper_log_log", "oc:h", "add_all", [f"h{i}" for i in range(3 * n)]),
+             oc("get_hyper_log_log", "oc:h", "count"),
+             oc("get_bit_set", "oc:bs", "set_each", rng.integers(0, 4096, n)),
+             oc("get_bit_set", "oc:bs", "get_each", np.arange(64)),
+             oc("get_bit_set", "oc:bs", "cardinality")]
+    # a lock: the holder is the caller, so another caller is refused
+    cmds += [oc("get_lock", "oc:lock", "try_lock"), oc("get_lock", "oc:lock", "try_lock", caller=other),
+             oc("get_lock", "oc:lock", "is_held_by_current_thread"),
+             oc("get_lock", "oc:lock", "get_hold_count"), oc("get_lock", "oc:lock", "unlock"),
+             oc("get_lock", "oc:lock", "is_locked")]
+    # the codec frame: a StringCodec map
+    cmds += [oc("get_map", "oc:ms", "put", "a", "b") + (P(StringCodec()),),
+             oc("get_map", "oc:ms", "get", "a") + (P(StringCodec()),),
+             ("HGETALL", "oc:ms")]
+    # error replies: unknown and private methods, bad arguments, bad factory
+    cmds += [oc("get_map", "oc:m", "no_such_method"), oc("get_map", "oc:m", "_rec"),
+             oc("get_map", "oc:m", "put"), oc("get_list", "oc:l", "get", 10**6),
+             ("OBJCALL", "bad_factory", "x", "y", P(((), {})), me),
+             ("OBJCALL", "get_nothing", "x", "y", P(((), {})), me),
+             ("SET", "oc:str", "v"), oc("get_map", "oc:str", "get", "a")]
+    ops = [("get_map", "oc:m", "get", (k,), {}) for k in keys[:4]]
+    ops += [("get_map", "oc:m", "bogus", (), {}), ("get_atomic_long", "oc:al", "increment_and_get", (), {}),
+            ("get_map", "oc:ms", "get", ("a",), {}, P(StringCodec()))]
+    cmds += [("OBJCALLM", P(ops), me), ("OBJCALLMA", P(ops), me)]
+    cmds += [("OBJCALLV", "get_map", "oc:m", "get", P(((keys[3],), {})), me),
+             ("OBJCALLV", "get_bucket", "oc:absent", "get", P(((), {})), me)]
+    # MULTI/EXEC
+    cmds += [("MULTI",), ("INCRBY", "tx:a", "1"), ("INCR", "tx:a"), ("GET", "tx:a"), ("HSET", "oc:m", "f", "v"),
+             ("SET", "tx:s", "v"), ("GET", "tx:s"), ("EXEC",)]
+    cmds += [("WATCH", "tx:a"), ("MULTI",), ("INCR", "tx:a"), ("EXEC",)]
+    cmds += [("WATCH", "tx:a"), ("INCR", "tx:a"), ("MULTI",), ("INCR", "tx:a"), ("EXEC",), ("GET", "tx:a")]
+    cmds += [("WATCH", "tx:a"), ("UNWATCH",), ("INCR", "tx:a"), ("MULTI",), ("INCR", "tx:a"), ("EXEC",)]
+    cmds += [("MULTI",), ("SET", "tx:b", "1"), ("NOSUCHVERB",), ("EXEC",), ("GET", "tx:b")]
+    cmds += [("MULTI",), ("SET", "tx:c", "1"), ("DISCARD",), ("GET", "tx:c"), ("DISCARD",), ("EXEC",)]
+    cmds += [("MULTI",), ("MULTI",), ("WATCH", "x"), ("BLPOP", "tx:none", "5"), ("LPUSH", "tx:l", "a"),
+             ("EXEC",)]
+    cmds += [("WATCH", "tx:a"), ("MULTI",), ("SET", "tx:d", "1"), ("RESET",), ("EXEC",)]
+    # TXEXEC: committed on versions seen as absent, refused on a stale one
+    tx_ops = [("get_bucket", "tx:bucket", "set", ("v1",), {}), ("get_map", "tx:map", "put", ("a", 1), {}),
+              ("get_map", "oc:m", "bogus", (), {})]
+    cmds += [("TXEXEC", P({"tx:bucket": 0, "tx:map": 0}), P(tx_ops), me),
+             oc("get_bucket", "tx:bucket", "get"),
+             ("TXEXEC", P({"tx:bucket": 0}), P(tx_ops[:1]), me),
+             ("TXEXEC", P({}), P([("get_atomic_long", "tx:n", "increment_and_get", (), {})]), me)]
+    return cmds
+
+
 def replies(host: str, port: int, waves: Sequence[Sequence[tuple]],
             timeout: float = 120.0) -> List[Tuple[bytes, list]]:
     """Send each wave as one pipelined write on one connection; return
@@ -465,6 +562,18 @@ def _drawn(verb: bytes, cmd, got, stored: dict) -> bool:
 def _multiset(x) -> list:
     return sorted(x) if isinstance(x, (list, set)) else x
 
+def _equal(g, w) -> bool:
+    """Equal replies: the same types and values, errors (an EXEC reply's
+    too) by their text."""
+    if type(g) is not type(w):
+        return False
+    if isinstance(w, resp.RespError):
+        return g.args == w.args
+    if isinstance(w, list):
+        return len(g) == len(w) and all(_equal(a, b) for a, b in zip(g, w))
+    return g == w
+
+
 def compare(cmds: Sequence[tuple], got: list, want: list) -> List[str]:
     """The replies of `got` that differ from `want` (one wave each), with
     the estimate, unordered and random verbs held to their contracts."""
@@ -485,7 +594,7 @@ def compare(cmds: Sequence[tuple], got: list, want: list) -> List[str]:
             same = (type(g) is type(w) and _drawn(verb, cmd, g, stored_g.keys.get(key, {}))
                     and _drawn(verb, cmd, w, stored_w.keys.get(key, {})))
         else:
-            same = type(g) is type(w) and g == w
+            same = _equal(g, w)
         stored_g.apply(cmd, g)
         stored_w.apply(cmd, w)
         if not same:

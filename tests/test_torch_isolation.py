@@ -47,6 +47,58 @@ def test_the_walk_covers_the_collection_modules():
             "redisson_tpu_torch.server.verbs.zset"} <= set(_modules())
 
 
+def test_the_walk_covers_the_remote_modules():
+    assert {"redisson_tpu_torch.net.safe_pickle", "redisson_tpu_torch.net.detectors",
+            "redisson_tpu_torch.net.retry", "redisson_tpu_torch.client.remote",
+            "redisson_tpu_torch.client.aio", "redisson_tpu_torch.tracking.nearcache",
+            "redisson_tpu_torch.services.transactions",
+            "redisson_tpu_torch.server.verbs.objcall_tx"} <= set(_modules())
+
+
+_BLOCKER = """
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")) or name == "redisson_tpu" \\
+                or name.startswith("redisson_tpu."):
+            raise ImportError("blocked: " + name)
+        return None
+
+for mod in [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "redisson_tpu."))
+            or m == "redisson_tpu"]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+"""
+
+
+def test_a_reply_naming_the_reference_loads_through_the_port_unpickler():
+    """A reference client's codec frame and a reference server's E reply
+    name redisson_tpu classes; with redisson_tpu and jax unimportable the
+    port's unpickler binds them to the port's classes."""
+    import pickle
+
+    from redisson_tpu.client.codec import JsonCodec, StringCodec
+    from redisson_tpu.net.resp import RespError
+
+    blob = pickle.dumps([JsonCodec(), ("E", RespError("ERR x")), StringCodec()])
+    assert b"redisson_tpu.client.codec" in blob
+    script = _BLOCKER + f"""
+from redisson_tpu_torch.client import codec
+from redisson_tpu_torch.net import resp
+from redisson_tpu_torch.net.safe_pickle import safe_loads
+got = safe_loads(bytes.fromhex({blob.hex()!r}))
+assert type(got[0]) is codec.JsonCodec and type(got[2]) is codec.StringCodec, got
+assert type(got[1][1]) is resp.RespError and got[1][1].args == ("ERR x",), got
+assert not [m for m in sys.modules if m == "redisson_tpu" or m.startswith("redisson_tpu.")]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_the_reference_native_directory(path):

@@ -147,7 +147,29 @@ Phases (any failure raises and the script exits non-zero):
      issued op with tracking off and on, and last a client stream and
      tools/wire_stream.objcall_stream on a card server and a CPU server:
      equal replies; the path must launch bloom_probe, bloom_set, hll_add,
-     hll_rows, bitset_get and bitset_set;
+     hll_rows, bitset_get and bitset_set; then the services path
+     (run_services): a port ServerThread on the card driven by the port's
+     Connection and RemoteRedisson: config 7's clustered corpus (50,000 x
+     128 COSINE) ingested by HSET of FLOAT32 blobs in pipelined frames of
+     1,000 into a FLAT index and an IVF index (nlist 1,536) over the same
+     hashes, 20 FT.MSEARCH batches of 64 queries a leg (FLAT, IVF nprobe 2,
+     4, 8): wire qps and batch p50/p99 beside the same run's embedded
+     config 7 qps, recall@10 against the float64 oracle (FLAT >= 0.99, IVF
+     nprobe 4 >= 0.97, or it fails), IVF nprobe 4 at 2x FLAT's qps printed
+     as met or NOT MET (not a gate), single FT.SEARCH KNN queries and a
+     hybrid query with a TAG filter, the banks and centroids on the card or
+     it fails; a stream of 100,000 XADD entries (explicit IDs) read by a
+     group of 4 consumers (XREADGROUP COUNT 100, XACK), every entry once,
+     then XPENDING and XINFO; 100,000 GEOADD members and 1,000 GEOSEARCH
+     BYRADIUS queries (the first 5 against a host haversine); a few hundred
+     JSON.* commands; word_count(executor=...) on a worker-node child
+     (python -m redisson_tpu_torch.node --workers 4) over config 4's values
+     cut to 100,000, equal to the card's embedded word_count, the child
+     stopped and waited for; and last tools/wire_stream.services_stream
+     (X*, GEO*, JSON.*, FT.*, the script verbs) with FT.MSEARCH on the
+     corpus cut to 10,000 rows on a card server and a CPU server, RESP2
+     then RESP3: equal under the stream's clock and KNN contracts; the path
+     must launch knn_score, knn_select, ivf_score and kmeans;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -170,9 +192,11 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -266,7 +290,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "config4": ("wc_words", "wc_sort_runs", "segment_reduce"),
                 "config7": VECTOR_KERNELS,
                 "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
+                "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
+                "services": VECTOR_KERNELS}
 FPP = 0.01
 
 
@@ -4140,6 +4165,473 @@ def run_remote(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the services path: config 7 over the wire, streams, geo, JSON, scripts and
+# the executor on a port server on the card
+# --------------------------------------------------------------------------
+
+# search: config 7's clustered corpus (C7_POINTS[1]: 50,000 x 128, COSINE,
+# k 10) ingested by HSET of FLOAT32 blobs in pipelined frames, FT.MSEARCH
+# batches of C7_QB stacked queries; the card-against-CPU leg cuts the corpus
+SV_FRAME, SV_BATCHES, SV_SINGLES, SV_SEED = 1_000, 20, 8, 79
+SV_CMP_ROWS, SV_CMP_SCALE = 10_000, 3
+# a stream of SV_STREAM entries (explicit IDs) read by SV_CONSUMERS consumers
+# of one group, SV_READ entries a read, each read acknowledged
+SV_STREAM, SV_STREAM_FRAME, SV_CONSUMERS, SV_READ = 100_000, 5_000, 4, 100
+# SV_GEO members (SV_GEO_FRAME a GEOADD), SV_GEO_QUERIES radius searches
+SV_GEO, SV_GEO_FRAME, SV_GEO_QUERIES, SV_GEO_RADIUS_KM = 100_000, 1_000, 1_000, 50
+SV_JSON_DOCS = 80
+# word_count(executor=...) on one worker-node child of SV_NODE_WORKERS
+# threads over config 4's values, cut from C4_ENTRIES to SV_WC_ENTRIES
+SV_WC_ENTRIES, SV_NODE_WORKERS, SV_NODE_WAIT_S = 100_000, 4, 180.0
+# the repository root: the worker node child imports the package from it
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def bank_devices(server, index: str) -> set:
+    """The device types holding `index`'s embedding banks and their IVF
+    centroids and cells."""
+    from redisson_tpu_torch.client.redisson import RedissonTpu
+
+    svc = RedissonTpu(server.engine).get_search()
+    out = set()
+    for bank in svc._idx(index).vectors.banks.values():
+        out |= {t.device.type for t in bank._get_planes() if t is not None}
+        try:
+            arrays = bank._rec().arrays
+        except KeyError:
+            arrays = {}
+        out |= {arrays[k].device.type for k in ("centroids", "cells") if k in arrays}
+    return out
+
+
+def msearch_ids(reply, prefix: str) -> list:
+    """FT.MSEARCH's reply -> a list of row ids a query."""
+    return [[int(bytes(r[i])[len(prefix):]) for i in range(0, len(r), 2)] for r in reply[1:]]
+
+
+def services_search(conn, server, card: str, c7: dict) -> dict:
+    """Config 7 over the wire: HSET ingest of the clustered corpus into a
+    FLAT COSINE index and an IVF index (nlist C7_NLIST) on the same hashes,
+    SV_BATCHES FT.MSEARCH batches of C7_QB queries a leg (FLAT, IVF at
+    nprobe 2, 4 and 8), single FT.SEARCH KNN queries and a hybrid query
+    with a TAG filter, recall@10 against the float64 oracle.  Fails unless
+    the banks and centroids are on the card and the reference's recall
+    floors hold."""
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    n, d, k = C7_POINTS[1]
+    rng = np.random.default_rng(SV_SEED)
+    vecs = c7_clustered(rng, n, d)
+    batches = c7_queries(rng, vecs, SV_BATCHES * C7_QB).reshape(SV_BATCHES, C7_QB, d)
+    oracle_q = c7_queries(rng, vecs, C7_ORACLE)
+    truth = c7_truth(server.engine.device, vecs, oracle_q, "COSINE", k)
+    knn = f"*=>[KNN {k} @emb $v]"
+    for name, algo in (("sv_flat", ["FLAT", "6"]), ("sv_ivf", ["IVF", "8"])):
+        extra = ["NLIST", str(C7_NLIST)] if algo[0] == "IVF" else []
+        reply = conn.execute("FT.CREATE", name, "ON", "HASH", "PREFIX", "1", "sv:", "SCHEMA", "tag", "TAG",
+                             "emb", "VECTOR", *algo, "TYPE", "FLOAT32", "DIM", str(d),
+                             "DISTANCE_METRIC", "COSINE", *extra)
+        if reply != b"OK":
+            raise AssertionError(f"services FT.CREATE {name}: {reply!r}")
+    s = time.perf_counter()
+    for start in range(0, n, SV_FRAME):
+        frame = [("HSET", f"sv:{i}", "tag", "abc"[i % 3], "emb", W.f32_blob(vecs[i]))
+                 for i in range(start, min(n, start + SV_FRAME))]
+        replies = conn.execute_many(frame)
+        if any(r != 2 for r in replies):
+            raise AssertionError(f"services HSET frame at {start}: {replies[:3]}")
+    ingest_s = time.perf_counter() - s
+    legs = {}
+    for leg, name, nprobe in (("flat", "sv_flat", None), ("ivf_np2", "sv_ivf", 2), ("ivf_np4", "sv_ivf", 4),
+                              ("ivf_np8", "sv_ivf", 8)):
+        tail = ("NPROBE", str(nprobe)) if nprobe else ()
+        s = time.perf_counter()  # the first query of an index syncs the hashes (and trains IVF)
+        reply = conn.execute("FT.MSEARCH", name, knn, "PARAMS", "2", "v", W.f32_blob(oracle_q), *tail)
+        first_s = time.perf_counter() - s
+        if isinstance(reply, Exception) or reply[0] != C7_ORACLE:
+            raise AssertionError(f"services {leg}: FT.MSEARCH replied {reply!r:.200}")
+        got = msearch_ids(reply, "sv:")
+        recall = sum(len(truth[i] & set(got[i][:k])) for i in range(C7_ORACLE)) / (k * C7_ORACLE)
+        lat = []
+        for b in range(SV_BATCHES):
+            s = time.perf_counter()
+            reply = conn.execute("FT.MSEARCH", name, knn, "PARAMS", "2", "v", W.f32_blob(batches[b]), *tail)
+            lat.append(time.perf_counter() - s)
+            if isinstance(reply, Exception) or reply[0] != C7_QB or any(len(r) != 2 * k for r in reply[1:]):
+                raise AssertionError(f"services {leg}: batch {b} replied {reply!r:.200}")
+        legs[leg] = {"recall_at_10": recall, "first_query_s": first_s, "qps": SV_BATCHES * C7_QB / sum(lat),
+                     "batch_p50_ms": pctl(lat, 50) * 1e3, "batch_p99_ms": pctl(lat, 99) * 1e3}
+    where = {name: bank_devices(server, name) for name in ("sv_flat", "sv_ivf")}
+    log(f"services search banks: sv_flat on {sorted(where['sv_flat'])}, sv_ivf (bank, centroids, cells) on "
+        f"{sorted(where['sv_ivf'])}")
+    if any(w != {server.engine.device.type} for w in where.values()):  # "cuda" on the card run
+        raise AssertionError(f"services: the search banks are not on the server's device: {where}")
+    singles = {}
+    for name in ("sv_flat", "sv_ivf"):
+        lat = []
+        for i in range(SV_SINGLES):
+            s = time.perf_counter()
+            reply = conn.execute("FT.SEARCH", name, knn, "PARAMS", "2", "v", W.f32_blob(oracle_q[i]), "NOCONTENT")
+            lat.append(time.perf_counter() - s)
+            ids = [int(bytes(x)[3:]) for x in reply[1::2]]
+            if reply[0] != k or len(set(ids) & truth[i]) < k - 2:
+                raise AssertionError(f"services FT.SEARCH {name}: {reply!r:.200}")
+        s = time.perf_counter()
+        reply = conn.execute("FT.SEARCH", name, f"(@tag:{{a}})=>[KNN {k} @emb $v]", "PARAMS", "2", "v",
+                             W.f32_blob(oracle_q[0]), "NOCONTENT")
+        hybrid_ms = (time.perf_counter() - s) * 1e3
+        ids = [int(bytes(x)[3:]) for x in reply[1::2]]
+        if reply[0] != k or any(i % 3 for i in ids):
+            raise AssertionError(f"services hybrid {name}: {reply!r:.200}")
+        singles[name] = {"p50_ms": pctl(lat, 50) * 1e3, "p99_ms": pctl(lat, 99) * 1e3, "hybrid_ms": hybrid_ms}
+    flat, ivf4 = legs["flat"], legs["ivf_np4"]
+    failures = []
+    if flat["recall_at_10"] < 0.99:
+        failures.append(f"FLAT recall {flat['recall_at_10']:.4f} < 0.99")
+    if ivf4["recall_at_10"] < 0.97:
+        failures.append(f"IVF nprobe 4 recall {ivf4['recall_at_10']:.4f} < 0.97")
+    if failures:
+        raise AssertionError("services search: " + "; ".join(failures))
+    embedded = {"flat": c7["legs"]["v7c_flat"]["qps"],
+                **{f"ivf_np{p}": c7["legs"][f"v7c_ivf_np{p}"]["qps"] for p in C7_NPROBES}} if c7 else {}
+    for leg, r in legs.items():
+        log(f"services search {leg} [{card}]: {n} x {d} COSINE over the wire, {SV_BATCHES} FT.MSEARCH batches of "
+            f"{C7_QB}: {r['qps']:.1f} qps (embedded config7 {embedded.get(leg, float('nan')):.1f}), batch p50 "
+            f"{r['batch_p50_ms']:.3f} ms p99 {r['batch_p99_ms']:.3f} ms, recall@10 {r['recall_at_10']:.4f}, "
+            f"first query {r['first_query_s']:.3f} s")
+    ratio = ivf4["qps"] / flat["qps"]
+    log(f"services search [{card}]: ingest {n} HSET in frames of {SV_FRAME} {ingest_s:.3f} s "
+        f"({n / ingest_s:.1f} docs/s); FT.SEARCH KNN p50 " + ", ".join(
+            f"{nm} {v['p50_ms']:.3f} ms (p99 {v['p99_ms']:.3f}, hybrid TAG filter {v['hybrid_ms']:.3f} ms)"
+            for nm, v in singles.items())
+        + f"; floors held: FLAT recall {flat['recall_at_10']:.4f} >= 0.99, IVF nprobe 4 recall "
+        f"{ivf4['recall_at_10']:.4f} >= 0.97; speed aim {'met' if ratio >= 2.0 else 'NOT MET'}: IVF nprobe 4 at "
+        f"{ratio:.3f}x FLAT's wire qps (aim 2, not a gate)")
+    for name in ("sv_flat", "sv_ivf"):
+        conn.execute("FT.DROPINDEX", name)
+    return {"n": n, "dim": d, "k": k, "ingest_s": ingest_s, "legs": legs, "singles": singles,
+            "embedded_qps": embedded, "ivf_speedup_wire": ratio, "bank_devices": {a: sorted(b) for a, b in
+                                                                                 where.items()}}
+
+
+def services_streams(st, card: str) -> dict:
+    """A stream of SV_STREAM entries (XADD with explicit IDs in pipelined
+    frames) read by SV_CONSUMERS consumers of one group, each on its own
+    connection (XREADGROUP COUNT SV_READ, then XACK of what it read); every
+    entry delivered once and acknowledged; XPENDING and XINFO after."""
+    from redisson_tpu_torch.net.client import Connection
+
+    host, port = st.server.host, st.server.port
+    conn = Connection(host, port, timeout=600.0)
+    try:
+        s = time.perf_counter()
+        for start in range(0, SV_STREAM, SV_STREAM_FRAME):
+            frame = [("XADD", "sv:events", f"{i + 1}-0", "user", f"u{i % 9973}", "event", "click",
+                      "ts", str(1_700_000_000_000 + i)) for i in range(start, start + SV_STREAM_FRAME)]
+            conn.execute_many(frame)
+        add_s = time.perf_counter() - s
+        if conn.execute("XLEN", "sv:events") != SV_STREAM or conn.execute(
+                "XGROUP", "CREATE", "sv:events", "g", "0") != b"OK":
+            raise AssertionError("services stream: XLEN or XGROUP CREATE")
+        seen = [[] for _ in range(SV_CONSUMERS)]
+        errors = []
+
+        def consume(j):
+            c = Connection(host, port, timeout=600.0)
+            try:
+                while True:
+                    r = c.execute("XREADGROUP", "GROUP", "g", f"c{j}", "COUNT", str(SV_READ), "STREAMS",
+                                  "sv:events", ">")
+                    if r is None:
+                        return
+                    ids = [e[0] for e in r[0][1]]
+                    seen[j] += ids
+                    if c.execute("XACK", "sv:events", "g", *ids) != len(ids):
+                        raise AssertionError("XACK acknowledged fewer entries than it read")
+            except Exception as e:  # noqa: BLE001 — raised below, in the path
+                errors.append(e)
+            finally:
+                c.close()
+
+        s = time.perf_counter()
+        threads = [threading.Thread(target=consume, args=(j,)) for j in range(SV_CONSUMERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        read_s = time.perf_counter() - s
+        if errors:
+            raise AssertionError(f"services stream consumer: {errors[0]!r}")
+        every = [i for part in seen for i in part]
+        if len(every) != SV_STREAM or len(set(every)) != SV_STREAM:
+            raise AssertionError(f"services stream: {len(every)} entries read, {len(set(every))} distinct")
+        pending = conn.execute("XPENDING", "sv:events", "g")
+        groups = conn.execute("XINFO", "GROUPS", "sv:events")
+        consumers = conn.execute("XINFO", "CONSUMERS", "sv:events", "g")
+        if pending[0] != 0 or groups[0][3] != SV_CONSUMERS or groups[0][5] != 0:
+            raise AssertionError(f"services stream: XPENDING {pending!r}, XINFO GROUPS {groups!r}")
+        conn.execute("DEL", "sv:events")
+    finally:
+        conn.close()
+    out = {"entries": SV_STREAM, "xadd_s": add_s, "xadd_per_s": SV_STREAM / add_s, "read_ack_s": read_s,
+           "read_ack_per_s": SV_STREAM / read_s, "per_consumer": [len(p) for p in seen],
+           "consumers_seen": len(consumers)}
+    log(f"services stream [{card}]: {SV_STREAM} XADD (explicit IDs, frames of {SV_STREAM_FRAME}) {add_s:.3f} s "
+        f"({out['xadd_per_s']:.1f} entries/s); {SV_CONSUMERS} consumers, XREADGROUP COUNT {SV_READ} + XACK: "
+        f"{read_s:.3f} s ({out['read_ack_per_s']:.1f} entries/s), per consumer {out['per_consumer']}, every "
+        f"entry once; XPENDING 0 pending, XINFO {len(consumers)} consumers")
+    return out
+
+
+def services_geo(conn, card: str) -> dict:
+    """SV_GEO members by GEOADD (SV_GEO_FRAME a command), then
+    SV_GEO_QUERIES GEOSEARCH FROMLONLAT BYRADIUS queries, the first few held
+    to a float64 haversine on the host."""
+    from redisson_tpu_torch.client.objects.geo import _haversine_m
+
+    rng = np.random.default_rng(SV_SEED + 1)
+    lon = rng.uniform(-10.0, 30.0, SV_GEO)
+    lat = rng.uniform(35.0, 60.0, SV_GEO)
+    s = time.perf_counter()
+    for start in range(0, SV_GEO, SV_GEO_FRAME * 10):
+        frame = []
+        for c0 in range(start, min(SV_GEO, start + SV_GEO_FRAME * 10), SV_GEO_FRAME):
+            cmd = ["GEOADD", "sv:geo"]
+            for i in range(c0, min(SV_GEO, c0 + SV_GEO_FRAME)):
+                cmd += [f"{lon[i]:.6f}", f"{lat[i]:.6f}", f"m{i}"]
+            frame.append(tuple(cmd))
+        conn.execute_many(frame)
+    add_s = time.perf_counter() - s
+    q = rng.integers(0, SV_GEO, SV_GEO_QUERIES)
+    lat_ms, hits = [], 0
+    plon, plat = np.round(lon, 6), np.round(lat, 6)
+    for j, i in enumerate(q.tolist()):
+        s = time.perf_counter()
+        reply = conn.execute("GEOSEARCH", "sv:geo", "FROMLONLAT", f"{lon[i]:.6f}", f"{lat[i]:.6f}", "BYRADIUS",
+                             str(SV_GEO_RADIUS_KM), "km", "ASC", "COUNT", "10", "WITHDIST")
+        lat_ms.append((time.perf_counter() - s) * 1e3)
+        hits += len(reply)
+        if j < 5:
+            d = _haversine_m(float(f"{lon[i]:.6f}"), float(f"{lat[i]:.6f}"), plon, plat)
+            want = [f"m{x}".encode() for x in np.argsort(d, kind="stable")[:10] if d[x] <= SV_GEO_RADIUS_KM * 1e3]
+            got = [bytes(r[0]) for r in reply]
+            if got[:len(want)] != want[:len(got)] or len(got) != len(want):
+                raise AssertionError(f"services geo query {j}: {got} != {want}")
+    conn.execute("DEL", "sv:geo")
+    out = {"members": SV_GEO, "geoadd_s": add_s, "members_per_s": SV_GEO / add_s, "queries": SV_GEO_QUERIES,
+           "query_p50_ms": pctl(lat_ms, 50), "query_p99_ms": pctl(lat_ms, 99),
+           "queries_per_s": SV_GEO_QUERIES / (sum(lat_ms) / 1e3), "mean_hits": hits / SV_GEO_QUERIES}
+    log(f"services geo [{card}]: {SV_GEO} members by GEOADD of {SV_GEO_FRAME} {add_s:.3f} s "
+        f"({out['members_per_s']:.1f} members/s); {SV_GEO_QUERIES} GEOSEARCH BYRADIUS {SV_GEO_RADIUS_KM} km: "
+        f"p50 {out['query_p50_ms']:.3f} ms p99 {out['query_p99_ms']:.3f} ms ({out['queries_per_s']:.1f}/s, "
+        f"{out['mean_hits']:.2f} hits a query; the first 5 equal to a host haversine)")
+    return out
+
+
+def services_json(conn, card: str) -> dict:
+    """JSON.* over SV_JSON_DOCS documents: SET, NUMINCRBY, ARRAPPEND,
+    STRAPPEND, GET, MERGE, TYPE and DEL, the final documents checked."""
+    cmds = []
+    for i in range(SV_JSON_DOCS):
+        key = f"sv:j{i}"
+        cmds += [("JSON.SET", key, "$", json.dumps({"id": i, "n": 0, "tags": ["a"], "s": "x", "o": {"k": 1}})),
+                 ("JSON.NUMINCRBY", key, "$.n", str(i)), ("JSON.ARRAPPEND", key, "$.tags", '"b"', '"c"'),
+                 ("JSON.STRAPPEND", key, "$.s", '"yz"'), ("JSON.MERGE", key, "$.o", '{"k": null, "m": 2}'),
+                 ("JSON.TYPE", key, "$.tags")]
+    s = time.perf_counter()
+    replies = conn.execute_many(cmds)
+    gets = conn.execute_many([("JSON.GET", f"sv:j{i}") for i in range(SV_JSON_DOCS)])
+    dels = conn.execute_many([("JSON.DEL", f"sv:j{i}") for i in range(SV_JSON_DOCS)])
+    wall = time.perf_counter() - s
+    n_cmds = len(cmds) + 2 * SV_JSON_DOCS
+    errors = [r for r in replies if isinstance(r, Exception)]
+    for i, g in enumerate(gets):
+        want = {"id": i, "n": i, "tags": ["a", "b", "c"], "s": "xyz", "o": {"m": 2}}
+        if errors or json.loads(g) != want or dels[i] != 1:
+            raise AssertionError(f"services JSON doc {i}: {g!r} ({errors[:2]})")
+    log(f"services JSON [{card}]: {n_cmds} JSON.* commands over {SV_JSON_DOCS} documents in {wall * 1e3:.3f} ms "
+        f"({n_cmds / wall:.1f} commands/s), every document as written")
+    return {"commands": n_cmds, "seconds": wall}
+
+
+class WireExecutor:
+    """A coordinator's view of an executor service over the wire."""
+
+    def __init__(self, client, name: str = "redisson_executor"):
+        self._client, self._name = client, name
+
+    def _call(self, method: str, *args):
+        return self._client.objcall("get_executor_service", self._name, method, args, {})
+
+    def submit_payload(self, payload):
+        return self._call("submit_payload", payload)
+
+    def task_state(self, task_id):
+        return self._call("task_state", task_id)
+
+    def await_task_result(self, task_id, timeout):
+        return self._call("await_task_result", task_id, timeout)
+
+
+def services_executor(st, card: str, values: list) -> dict:
+    """word_count(executor=...) on one worker-node child process
+    (``python -m redisson_tpu_torch.node --workers SV_NODE_WORKERS``) over
+    config 4's values cut to SV_WC_ENTRIES, equal to the card's embedded
+    word_count of the same map; the child is stopped and waited for."""
+    from redisson_tpu_torch.client.codec import StringCodec
+    from redisson_tpu_torch.client.redisson import RedissonTpu
+    from redisson_tpu_torch.client.remote import RemoteRedisson
+    from redisson_tpu_torch.services import mapreduce as MR
+
+    cut = values[:SV_WC_ENTRIES]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([HERE] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    s = time.perf_counter()
+    node = subprocess.Popen([sys.executable, "-m", "redisson_tpu_torch.node", "--address", st.address,
+                             "--workers", str(SV_NODE_WORKERS), "--poll-interval", "0.05"],
+                            cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    client = RemoteRedisson(st.address, timeout=600.0)
+    try:
+        ex = WireExecutor(client)
+        while ex._call("count_active_workers") < SV_NODE_WORKERS:
+            if node.poll() is not None:
+                raise AssertionError(f"services: the worker node exited: {node.stderr.read().decode()[-2000:]}")
+            if time.perf_counter() - s > SV_NODE_WAIT_S:
+                raise AssertionError("services: the worker node never registered its workers")
+            time.sleep(0.1)
+        start_s = time.perf_counter() - s
+        m = client.get_map("sv:wc", codec=StringCodec())
+        s = time.perf_counter()
+        for i in range(0, len(cut), 10_000):
+            m.put_all({f"doc-{j}": cut[j] for j in range(i, min(len(cut), i + 10_000))})
+        put_s = time.perf_counter() - s
+        s = time.perf_counter()
+        counts = MR.word_count(m, workers=SV_NODE_WORKERS, executor=ex, timeout=600.0)
+        wc_s = time.perf_counter() - s
+        s = time.perf_counter()
+        embedded = MR.word_count(RedissonTpu(st.server.engine).get_map("sv:wc", codec=StringCodec()))
+        embedded_s = time.perf_counter() - s
+        if counts != embedded or sum(counts.values()) != sum(len(v.split()) for v in cut):
+            raise AssertionError(f"services word_count: the node's counts ({len(counts)} words, "
+                                 f"{sum(counts.values())}) differ from the card's ({len(embedded)} words)")
+        client.get_map("sv:wc").delete()
+    finally:
+        client.shutdown()
+        if node.poll() is None:
+            node.send_signal(signal.SIGINT)  # the node's main stops its workers and exits
+        try:
+            node.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            node.kill()
+            node.wait(timeout=30)
+    out = {"entries": SV_WC_ENTRIES, "cut_from": C4_ENTRIES, "node_workers": SV_NODE_WORKERS,
+           "node_start_s": start_s, "put_s": put_s, "word_count_s": wc_s, "embedded_s": embedded_s,
+           "distinct_words": len(counts), "node_exit": node.returncode}
+    log(f"services executor [{card}]: config 4's values cut from {C4_ENTRIES} to {SV_WC_ENTRIES} entries; "
+        f"one worker-node child of {SV_NODE_WORKERS} workers up in {start_s:.3f} s; put_all {put_s:.3f} s; "
+        f"word_count(executor=...) {wc_s:.3f} s ({SV_WC_ENTRIES / wc_s:.1f} entries/s), equal to the card's "
+        f"embedded word_count ({embedded_s:.3f} s, {len(counts)} words); the node exited {node.returncode}")
+    return out
+
+
+def services_card_against_cpu(device, card: str) -> dict:
+    """tools/wire_stream.services_stream (RESP2, then RESP3) and a search
+    leg on config 7's clustered corpus cut to SV_CMP_ROWS rows (FLAT and
+    IVF at nprobe 2, 4, 8 by FT.MSEARCH), on a card server and a CPU
+    server: the same replies under the stream's contracts.  The card trains
+    the IVF indexes; the CPU server installs them (wire_stream.train_ivf)."""
+    from redisson_tpu_torch.client.redisson import RedissonTpu
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    n, d, k = SV_CMP_ROWS, C7_POINTS[1][1], C7_POINTS[1][2]
+    rng = np.random.default_rng(SV_SEED + 2)
+    vecs = c7_clustered(rng, n, d)
+    qs = c7_queries(rng, vecs, C7_QB)
+    big = [("FT.CREATE", "cmp", "ON", "HASH", "PREFIX", "1", "cmp:", "SCHEMA", "emb", "VECTOR", "IVF", "8",
+            "TYPE", "FLOAT32", "DIM", str(d), "DISTANCE_METRIC", "COSINE", "NLIST", str(C7_NLIST)),
+           ("FT.CREATE", "cmpf", "ON", "HASH", "PREFIX", "1", "cmp:", "SCHEMA", "emb", "VECTOR", "FLAT", "6",
+            "TYPE", "FLOAT32", "DIM", str(d), "DISTANCE_METRIC", "COSINE")]
+    big += [("HSET", f"cmp:{i}", "emb", W.f32_blob(vecs[i])) for i in range(n)]
+    knn = f"*=>[KNN {k} @emb $v]"
+    big_q = [("FT.MSEARCH", "cmpf", knn, "PARAMS", "2", "v", W.f32_blob(qs))]
+    big_q += [("FT.MSEARCH", "cmp", knn, "PARAMS", "2", "v", W.f32_blob(qs), "NPROBE", str(p)) for p in C7_NPROBES]
+    servers = [ServerThread(port=0, device=device).start(), ServerThread(port=0, device="cpu").start()]
+    try:
+        shas = [W.load_scripts(RedissonTpu(st.server.engine)) for st in servers]
+        if shas[0] != shas[1]:
+            raise AssertionError("services: the two servers' script digests differ")
+        setup, queries = W.services_stream(seed=SV_SEED, scale=SV_CMP_SCALE, shas=shas[0])
+        setups = [W.replies(st.server.host, st.server.port, [setup, big]) for st in servers]
+        svcs = [RedissonTpu(st.server.engine).get_search() for st in servers]
+        for index in ("idx:i", "cmp"):
+            W.train_ivf(svcs[0], svcs[1], index)
+        waves = [queries + big_q, [("HELLO", "3")] + queries + big_q]
+        got = [W.replies(st.server.host, st.server.port, waves) for st in servers]
+    finally:
+        for st in servers:
+            st.stop()
+    bad = []
+    for cmds, a, b in zip([setup, big], setups[0], setups[1]):
+        bad += W.compare(cmds, a[1], b[1])
+    contract = set()
+    for cmds, (craw, cr), (wraw, wr) in zip(waves, got[0], got[1]):
+        bad += W.compare(cmds, cr, wr)
+        spans = zip(W.reply_spans(craw), W.reply_spans(wraw))
+        contract |= {W._verb(cmds[i]) for i, (x, y) in enumerate(spans) if x != y}
+    if bad:
+        raise AssertionError(f"services card vs CPU: {len(bad)} replies differ: {bad[:3]}")
+    if contract - W.CLOCK_VERBS - {b"FT.SEARCH", b"FT.MSEARCH"}:
+        raise AssertionError(f"services card vs CPU: bytes differ outside the contracts: {contract}")
+    log(f"services card vs CPU [{card}]: the services stream (scale {SV_CMP_SCALE}: {len(setup)} set-up and "
+        f"{len(queries)} queries, RESP2 then RESP3) and FT.MSEARCH on config 7's corpus cut from "
+        f"{C7_POINTS[1][0]} to {n} rows (FLAT, IVF nprobe {'/'.join(map(str, C7_NPROBES))}) equal on the card "
+        f"and the CPU; bytes differ only in {sorted(v.decode() for v in contract)} (the clock and KNN contracts)")
+    return {"setup": len(setup), "queries": 2 * len(queries) + 1, "corpus_rows": n, "bytes_differ": sorted(
+        v.decode() for v in contract)}
+
+
+def run_services(c7, values: list, device="cuda") -> dict:
+    """The services path: config 7's search over the wire (FT.CREATE,
+    HSET, FT.MSEARCH, FT.SEARCH), streams, geo, JSON and the executor with a
+    worker-node child, on a port ServerThread on the card driven by the
+    port's Connection and RemoteRedisson; then the services stream on the
+    card against the CPU.  `c7` is the run's config7 path (its qps are
+    printed beside the wire's; None prints none), `values` config 4's."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import ServerThread
+
+    start = time.perf_counter()
+    card = card_line()
+    out, parts = {}, {}
+    with ServerThread(port=0, device=device) as st:
+        if st.server.engine.device.type != torch.device(device).type:
+            raise AssertionError(f"the server did not land on {device}")
+        conn = Connection(st.server.host, st.server.port, timeout=600.0)
+        try:
+            for name, run in (("search", lambda: services_search(conn, st.server, card, c7)),
+                              ("streams", lambda: services_streams(st, card)),
+                              ("geo", lambda: services_geo(conn, card)),
+                              ("json", lambda: services_json(conn, card)),
+                              ("executor", lambda: services_executor(st, card, values))):
+                s = time.perf_counter()
+                out[name] = run()
+                parts[name] = time.perf_counter() - s
+        finally:
+            conn.close()
+    launches = dict(K.launches)  # the card-against-CPU run below launches more
+    s = time.perf_counter()
+    out["card_vs_cpu"] = services_card_against_cpu(device, card)
+    parts["card_vs_cpu"] = time.perf_counter() - s
+    out["launches"] = launches
+    out["seconds"], out["part_seconds"] = time.perf_counter() - start, parts
+    log(f"services path [{card}]: {out['seconds']:.1f}s (" + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items())
+        + f"); launches {json.dumps({k: launches[k] for k in VECTOR_KERNELS})}")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -4359,7 +4851,8 @@ def main() -> int:
                       ("config4", lambda: run_config4(client, values)),
                       ("config7", lambda: run_config7(client)),
                       ("server", lambda: run_server(kernels)),
-                      ("remote", lambda: run_remote())):
+                      ("remote", lambda: run_remote()),
+                      ("services", lambda: run_services(paths["config7"], values))):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself

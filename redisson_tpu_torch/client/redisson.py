@@ -4,11 +4,14 @@ One client over one embedded Engine, with the factories of
 ``redisson_tpu/client/redisson.py`` for the objects the port has: sketches,
 bit sets, buckets and counters, maps and map caches, adders, sets, sorted
 sets, lists, multimaps, the twelve queue classes, locks, semaphores,
-latches, rate limiters, topics, keys, MapReduce, search, batches and
-transactions.
-Object handles are cheap and stateless; create them freely.  The stream,
-geo, time-series, binary-stream, local-cached-map and cache-manager
-factories come with those objects (ROADMAP M7).
+latches, rate limiters, topics, streams, time series, geo sets, binary
+streams, JSON buckets, keys, MapReduce, search, scripts and functions,
+batches and transactions, and the services: executors and scheduled
+executors, the remote service, live objects and the elements subscribe
+service.
+Object handles are cheap and stateless; create them freely.  The
+local-cached-map and cache-manager factories come with the local caches
+(ROADMAP M7 part 4), the nodes group with M8.
 """
 from __future__ import annotations
 
@@ -318,12 +321,82 @@ class RedissonTpu:
 
         return ReliableTopic(self._engine, name, codec)
 
+    def get_stream(self, name: str, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.stream import Stream
+
+        return Stream(self._engine, name, codec)
+
+    # -- specialized --------------------------------------------------------
+
+    def get_time_series(self, name: str, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.timeseries import TimeSeries
+
+        return TimeSeries(self._engine, name, codec)
+
+    def get_geo(self, name: str, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.geo import Geo
+
+        return Geo(self._engine, name, codec)
+
+    def get_binary_stream(self, name: str):
+        from redisson_tpu_torch.client.objects.binarystream import BinaryStream
+
+        return BinaryStream(self._engine, name)
+
+    def get_json_bucket(self, name: str):
+        from redisson_tpu_torch.client.objects.binarystream import JsonBucket
+
+        return JsonBucket(self._engine, name)
+
+    # -- distributed services -----------------------------------------------
+
+    def get_executor_service(self, name: str = "redisson_executor"):
+        from redisson_tpu_torch.services.executor import ExecutorService
+
+        return ExecutorService(self._engine, name)
+
+    def get_elements_subscribe_service(self):
+        """ElementsSubscribeService analog (embedded flavor).  setdefault
+        keeps the lazy init race-safe (one shared service instance)."""
+        from redisson_tpu_torch.services.elements import ElementsSubscribeService
+
+        return self.__dict__.setdefault(
+            "_elements_service", ElementsSubscribeService(self)
+        )
+
+    def get_scheduled_executor_service(self, name: str = "redisson_scheduler"):
+        from redisson_tpu_torch.services.executor import ScheduledExecutorService
+
+        return ScheduledExecutorService(self._engine, name)
+
+    def get_remote_service(self, name: str = "redisson_rs"):
+        from redisson_tpu_torch.services.remote import RemoteService
+
+        return RemoteService(self._engine, name)
+
+    def get_live_object_service(self):
+        from redisson_tpu_torch.services.liveobject import LiveObjectService
+
+        return LiveObjectService(self)
+
     # -- keyspace admin (RKeys) ---------------------------------------------
 
     def get_keys(self):
         from redisson_tpu_torch.client.objects.keys import Keys
 
         return Keys(self._engine)
+
+    def get_script(self):
+        # engine-scoped so the sha cache survives across handles (the
+        # reference caches shas per ServiceManager, not per RScript)
+        from redisson_tpu_torch.services.script import ScriptService
+
+        return self._engine.service("script", lambda: ScriptService(self._engine))
+
+    def get_function(self):
+        from redisson_tpu_torch.services.script import FunctionService
+
+        return self._engine.service("function", lambda: FunctionService(self._engine))
 
     # -- search ---------------------------------------------------------------
 
@@ -348,6 +421,9 @@ class RedissonTpu:
         return Batch(self._engine, skip_result=skip_result, atomic=atomic)
 
     def shutdown(self) -> None:
+        svc = getattr(self, "_elements_service", None)
+        if svc is not None:
+            svc.shutdown()
         self._engine.shutdown()
 
     def __enter__(self):

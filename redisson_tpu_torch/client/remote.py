@@ -20,11 +20,11 @@ which writes and reads the reference's class names.  Differences:
   * The lock watchdog's wheel timer and renewal pool belong to the facade,
     not to the process, and ``shutdown()`` stops them, so a client that was
     shut down leaves no thread behind.
-  * Waiting for later slices, each raising NotImplementedError naming its
-    part: ``get_local_cached_map`` (the local caches, ROADMAP M7 part 4),
-    object references (``resolve_ref``: the reference-aware codec, part 4),
-    ``get_elements_subscribe_service`` and ``get_live_object_service``
-    (the services, part 5).  The replication methods (``sync_replication``,
+  * The elements subscribe service's threads are joined by ``shutdown()``.
+  * Waiting for a later slice, each raising NotImplementedError naming its
+    part: ``get_local_cached_map`` (the local caches, ROADMAP M7 part 4) and
+    object references (``resolve_ref``: the reference-aware codec, part 4).
+    The replication methods (``sync_replication``,
     ``replication_state``) are here; the port's server answers their verbs
     with ROADMAP M11.
 """
@@ -50,7 +50,6 @@ logger = logging.getLogger(__name__)
 _tracking_enable_lock = _threading.Lock()
 
 _PART4 = "comes with the local caches and the reference-aware codec (ROADMAP M7 part 4)"
-_PART5 = "comes with the services (ROADMAP M7 part 5)"
 
 
 def resolve_ref(client, ref):
@@ -1107,15 +1106,26 @@ class RemoteSurface:
 
     def get_elements_subscribe_service(self):
         """Resilient blocking-consumer subscriptions (ElementsSubscribeService
-        analog)."""
-        raise NotImplementedError(f"the elements subscribe service {_PART5}")
+        analog): take-loops that re-subscribe across failovers.  setdefault
+        keeps the init race-safe: two racing callers must share ONE service
+        or the loser's subscription registry becomes unreachable."""
+        from redisson_tpu_torch.services.elements import ElementsSubscribeService
+
+        return self.__dict__.setdefault(
+            "_elements_service", ElementsSubscribeService(self)
+        )
 
     def get_keys(self) -> "RemoteKeys":
         return RemoteKeys(self)
 
     def get_live_object_service(self):
-        """RLiveObjectService over the wire."""
-        raise NotImplementedError(f"the live object service {_PART5}")
+        """RLiveObjectService over the wire: the service drives this client's
+        own object factories, so every live-object key (map, index sets,
+        score sets — all {Cls:...}-hashtagged) routes per key exactly like
+        the reference's live objects against a cluster."""
+        from redisson_tpu_torch.services.liveobject import LiveObjectService
+
+        return LiveObjectService(self)
 
     # -- generic surface -----------------------------------------------------
 
@@ -1214,6 +1224,11 @@ class RemoteRedisson(RemoteSurface):
         return bytes(self.node.execute("INFO")).decode()
 
     def shutdown(self) -> None:
+        # cancel element subscriptions FIRST: their daemon loops would
+        # otherwise retry the closed transport forever
+        svc = getattr(self, "_elements_service", None)
+        if svc is not None:
+            svc.shutdown()
         plane = self.__dict__.get("tracking")
         if plane is not None:
             plane.close()

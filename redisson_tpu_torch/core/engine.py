@@ -22,7 +22,11 @@ The engine owns:
     PUBLISH verbs and the topics use,
   * the background expiry sweep (``eviction``): started on first use, it
     reaps the store's expired records (``__store__``) on the cadence of
-    ``config`` (``min_cleanup_delay`` .. ``max_cleanup_delay``).
+    ``config`` (``min_cleanup_delay`` .. ``max_cleanup_delay``),
+  * the closers of the services that started threads on it (``on_shutdown``:
+    executor workers and schedules, remote-service workers), which
+    ``shutdown`` runs first, so a shut-down engine leaves no thread of its
+    own behind.
 
 A trimmed copy of ``redisson_tpu/core/engine.py``: device placement,
 residency, serving lanes and the warm pool belong to later slices.
@@ -84,6 +88,7 @@ class Engine:
         # (name, holder) -> Timeout: active lock-watchdog renewals, all on
         # the ONE shared wheel timer
         self._renewals: dict[tuple, Any] = {}
+        self._closers: list = []
         self._closed = False
 
     @property
@@ -379,7 +384,17 @@ class Engine:
 
     # -- lifecycle ----------------------------------------------------------
 
+    def on_shutdown(self, closer) -> None:
+        """Run `closer()` at the start of ``shutdown``: a service that
+        starts threads registers the call that stops and joins them."""
+        with self._locks_guard:
+            self._closers.append(closer)
+
     def shutdown(self):
+        with self._locks_guard:
+            closers, self._closers = self._closers, []
+        for close in closers:
+            close()
         with self._locks_guard:
             self._closed = True
             eviction, self._eviction = self._eviction, None

@@ -20,6 +20,9 @@ own classes under those wire names (`dumps`: ``redisson_tpu_torch.net.resp
 unpickler binds an allowlisted wire name to the port's class of the same
 path, never importing ``redisson_tpu``.  Either package's client can then
 read the other's server, and an OBJCALL reply is the reference's bytes.
+An allowlisted port class that arrives under its own name (written by a
+plain pickler: a port executor task run by the reference's worker node
+passes the port's codec) binds to the same class.
 
 No torch object travels: `dumps` writes a tensor as the numpy array of its
 values, refuses any other torch object, and `wire_exception` turns an
@@ -136,6 +139,10 @@ def wire_module(module: str):
 class RestrictedUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         root = module.split(".", 1)[0]
+        # a port class under its own name (a plain pickler wrote it: a port
+        # task run by the reference's worker node) is the same allowlisted
+        # class as under its wire name
+        module = wire_module(module) or module
         if (module, name) in _WIRE_CLASSES:
             try:
                 return getattr(importlib.import_module(_port_module(module)), name)

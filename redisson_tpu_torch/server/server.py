@@ -62,25 +62,33 @@ fault shapes) and counts in ``stats["errors"]``, so a failing kernel is
 never hidden behind a slower path that might succeed.
 
   * **Blocking verbs** (``_SLOW_COMMANDS``: BLPOP, BRPOP, BLMOVE,
-    BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP, and OBJCALL, OBJCALLM,
-    OBJCALLMA, OBJCALLV, TXEXEC and EXEC, which may run a parking object
-    method or wait on the exec mutex) dispatch on a wide slow pool, so a
-    parked waiter never holds a worker of the pool every connection
-    shares; inside a frame a blocking verb keeps its place in the reply
-    order.  ``stop()`` sets ``_closing``, which the wait loop
-    (``verbs/common._block_loop``) polls: every parked waiter unparks.
+    BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP, XREAD and XREADGROUP,
+    and OBJCALL, OBJCALLM, OBJCALLMA, OBJCALLV, TXEXEC and EXEC, which may
+    run a parking object method or wait on the exec mutex) dispatch on a
+    wide slow pool, so a parked waiter never holds a worker of the pool
+    every connection shares; inside a frame a blocking verb keeps its place
+    in the reply order.  ``stop()`` sets ``_closing``, which the wait loops
+    (``verbs/common._block_loop`` and XREAD/XREADGROUP BLOCK in
+    ``verbs/streamgeo``) poll: every parked waiter unparks.
+  * **Search.** FT.SEARCH and FT.MSEARCH KNN queries launch the vector
+    kernels (``knn_score``, ``knn_select``, ``ivf_score``) on the engine's
+    device and reply through ``LazyReply``, so their results ride the
+    frame's grouped readback; an IVF field trains its centroids with the
+    k-means kernels on the same device.
 
 The port serves the connection, keyspace, sketch, objcall_tx (OBJCALL,
 OBJCALLM, OBJCALLMA, OBJCALLV, MULTI, DISCARD, WATCH, UNWATCH, RESET, EXEC
-and TXEXEC), collections and zset verb families (``server/verbs``).  Left
-out, each raising NotImplementedError when asked for: device-sharded
-serving (``devices=``), cluster mode, advertised cluster addresses
-(ROADMAP M8), checkpoints and migration journals (ROADMAP M11).  Their
-verbs reply the unknown-command error until those slices: the admin verbs
-(INFO, CONFIG, SAVE, CLUSTER, the replication verbs REPLFLUSH and
-REPLSTATE, DUMP, RESTORE, COPY), streams and geo, and the JSON and FT
-module verbs; the replication and migration links, the residency census
-and the chaos pause gate come with them.
+and TXEXEC), collections, zset, streamgeo (X*, GEO*) and modules (JSON.*,
+FT.*) verb families, and admin's script and function verbs (EVALSHA, EVAL,
+SCRIPT, FCALL, FCALL_RO, FUNCTION) (``server/verbs``).  Left out, each
+raising NotImplementedError when asked for: device-sharded serving
+(``devices=``), cluster mode, advertised cluster addresses (ROADMAP M8),
+checkpoints and migration journals (ROADMAP M11).  Their verbs reply the
+unknown-command error until those slices: the rest of the admin verbs
+(INFO, CONFIG, SAVE, CLUSTER, WAIT, the replication verbs REPLFLUSH and
+REPLSTATE, DUMP, RESTORE, COPY); the replication and migration links, the
+residency census and the chaos pause gate come with them.  FT.CREATE of a
+VECTOR field with SHARDS n > 1 replies the error that names M8.
 """
 from __future__ import annotations
 
@@ -155,14 +163,15 @@ FRAME_READ_LIMIT = 64 << 20
 # Commands whose handlers may PARK the worker thread (blocking verbs hold it
 # for up to their timeout; OBJCALL runs arbitrary object methods incl.
 # poll_blocking and lock waits; EXEC and TXEXEC wait on the exec mutex and
-# record locks).  Dispatched on the wide slow pool so the shared dispatch
-# pool never starves.  The reference's list also names XREAD, XREADGROUP
-# and WAIT, which the port does not serve yet.
+# record locks; XREAD and XREADGROUP park for their BLOCK time).  Dispatched
+# on the wide slow pool so the shared dispatch pool never starves.  The
+# reference's list also names WAIT, an admin verb the port does not serve
+# yet (ROADMAP M11).
 _SLOW_COMMANDS = frozenset(
     b.encode() for b in (
         "OBJCALL", "OBJCALLM", "OBJCALLMA", "OBJCALLV", "TXEXEC", "EXEC",
         "BLPOP", "BRPOP", "BLMOVE", "BRPOPLPUSH", "BZPOPMIN", "BZPOPMAX",
-        "BLMPOP", "BZMPOP",
+        "BLMPOP", "BZMPOP", "XREAD", "XREADGROUP",
     )
 )
 

@@ -11,8 +11,8 @@ from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import _int, _s
 
 # EXEC bodies run handlers inline on one worker; blocking verbs inside an
-# EXEC degrade to a single poll (Redis semantics) via this flag.  Nothing
-# sets it until MULTI/EXEC is ported (ROADMAP M7).
+# EXEC degrade to a single poll (Redis semantics) via this flag
+# (set by verbs/objcall_tx's EXEC).
 _exec_tls = threading.local()
 
 

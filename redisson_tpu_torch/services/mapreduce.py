@@ -3,14 +3,18 @@
 Three ways to run a job:
   * ``MapReduce`` (``client.get_map_reduce``): mapper(key, value, collector)
     and reducer(key, values) over a map's entries, mapper chunks and reducer
-    partitions on local threads;
+    partitions on local threads, or, with ``executor=`` (an ExecutorService
+    handle, embedded or over the wire), as executor tasks that worker
+    processes (``python -m redisson_tpu_torch.node``) claim and run: a
+    worker that dies mid-task has its task re-run on a survivor;
   * ``KernelMapReduce``: an array-native job, a torch ``map_fn`` mapped over
     the values with ``torch.func.vmap`` and the shuffle and reduce as one
     segment reduction (the ``segment_reduce`` kernel on the card);
   * ``word_count`` (BASELINE config 4) and ``device_word_count``: the
     values joined into byte buffers, words hashed on the card (``wc_words``)
     and counted by sorting (``wc_sort_runs``); a map that has not changed
-    re-scans from its staged device view.
+    re-scans from its staged device view; with ``executor=`` the chunks
+    are counted on the worker processes.
 
 Differences from the reference:
   * ``map_fn`` is a torch function run under ``torch.func.vmap`` (the
@@ -20,14 +24,15 @@ Differences from the reference:
     byte kernel cannot see it), and ``STATS`` counts it.  More distinct
     words than the reduce holds (2**17) sort again on the device with room
     for every word, where the reference counts on the host.
-  * The executor path (``executor=``) and the multi-device chunk placement
-    belong to later slices; ``executor=`` raises NotImplementedError.
+  * The multi-device chunk placement belongs to a later slice (ROADMAP M8).
 """
 from __future__ import annotations
 
+import pickle
 import re
 import threading
 import time
+import uuid
 from collections import Counter, defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -37,14 +42,12 @@ import torch
 from redisson_tpu_torch.client.codec import StringCodec
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core.engine import resolve_device
+from redisson_tpu_torch.services.executor import inject_client
 from redisson_tpu_torch.utils import hashing as H
 
 # device scans made, scans served from a staged view, and word counts that
 # took the host path (non-ASCII whitespace)
 STATS = {"device_scans": 0, "view_hits": 0, "host_fallbacks": 0}
-
-_NO_EXECUTOR = ("the executor path of MapReduce runs on worker processes, which the "
-                "port does not have yet (ROADMAP M7)")
 
 
 def reset_stats() -> None:
@@ -67,6 +70,127 @@ class Collector:
         self._parts[int(h1[0]) % self._n][key].append(value)
 
 
+def _part_name(job: str, chunk_idx: int, run: str, pi: int) -> str:
+    return f"mr:{job}:c{chunk_idx}:r{run}:p{pi}"
+
+
+def _mr_map_task(map_name, keys, mapper, n_parts, job, chunk_idx, codec, *, client):
+    """Mapper chunk task (MapperTask.java:50-78 analog): read the chunk in
+    ONE batched call, run the user mapper into an in-memory Collector, flush
+    each partition buffer with ONE bulk multimap merge (vs the reference's
+    per-emit write).
+
+    Partition names are RUN-scoped (fresh uuid per execution): a requeued
+    clone writes to its own names, so a stale slow worker can neither
+    append duplicates to nor delete/clobber the winning run's output — the
+    coordinator tells reducers exactly which run won (the acked one).
+    Loser runs' partitions are unreferenced garbage reaped by the cleanup
+    task.  `codec` is the source map's codec: the worker must encode lookup
+    keys exactly as the writer did, or get_all matches nothing."""
+    from redisson_tpu_torch.client.codec import PickleCodec
+
+    run = uuid.uuid4().hex[:8]
+    source = client.get_map(map_name, codec=codec)
+    entries = source.get_all(keys)
+    c = Collector(n_parts)
+    for k, v in entries.items():
+        mapper(k, v, c)
+    for pi, pmap in enumerate(c._parts):
+        if pmap:
+            mm = client.get_list_multimap(
+                _part_name(job, chunk_idx, run, pi), codec=PickleCodec()
+            )
+            mm.put_all_entries(dict(pmap))
+    return {"entries": len(entries), "run": run}
+
+
+def _mr_reduce_task(job, pi, chunk_runs, reducer, result_name, result_codec, *, client):
+    """Reducer partition task (ReducerTask.java analog): fold each key's
+    value list across every WINNING mapper run's partition output
+    (`chunk_runs` = [(chunk_idx, run), ...] from the acked map results),
+    optionally write into the named result map, return the reduced dict so
+    the coordinator can merge without re-reading.
+
+    IDEMPOTENT: reads only — a requeued re-run (worker died mid-fold) sees
+    every chunk again and the result-map write is a full overwrite of this
+    partition's keys.  Partition cleanup belongs to the COORDINATOR
+    (_mr_cleanup_task in its finally), never to the reducer: deleting as we
+    read would make a re-run silently undercount the already-consumed
+    chunks."""
+    from redisson_tpu_torch.client.codec import PickleCodec
+
+    grouped: Dict[Any, List[Any]] = defaultdict(list)
+    for ci, run in chunk_runs:
+        mm = client.get_list_multimap(_part_name(job, ci, run, pi), codec=PickleCodec())
+        for k, v in mm.entries():
+            grouped[k].append(v)
+    out = {k: reducer(k, vals) for k, vals in grouped.items()}
+    if result_name and out:
+        client.get_map(result_name, codec=result_codec).put_all(out)
+    return out
+
+
+def _wc_chunk_task(map_name, keys, codec, *, client):
+    """word_count mapper chunk: one batched read + the shared C-speed
+    Counter pass.  Returns the chunk's {word: count} dict (small —
+    vocabulary-sized).  Idempotent by construction: no grid writes."""
+    vals = client.get_map(map_name, codec=codec).get_all(keys)
+    return _host_word_count([str(v) for v in vals.values()])
+
+
+def _mr_cleanup_task(job, names=None, *, client):
+    """Best-effort partition reaper.  `names` (the coordinator's known
+    partition names — winning runs x partitions) deletes directly; names is
+    None on FAILED jobs where winning runs are unknown, falling back to a
+    `mr:{job}:*` pattern sweep.  The scan is the exception path only — a
+    KEYS scan per successful job would cost O(total keyspace) every run.
+    A stale clone that flushes after this sweep leaks until a failed-job
+    sweep touches it; that residual is leak-shaped, never correctness-shaped
+    (reducers only read run names the coordinator handed them)."""
+    keys = client.get_keys()
+    if names is None:
+        try:
+            names = list(keys.get_keys(f"mr:{job}:*"))
+        except Exception:  # noqa: BLE001 — best-effort cleanup
+            return 0
+    n = 0
+    for name in names:
+        try:
+            n += int(keys.delete(name))  # per-name: slot-routable
+        except Exception:  # noqa: BLE001 — best-effort cleanup
+            pass
+    return n
+
+
+# grid-aware tasks get the worker's client injected (the @RInject analog;
+# WorkerNode._run_one and ExecutorService._run_task both honor the marker)
+_mr_map_task = inject_client(_mr_map_task)
+_mr_reduce_task = inject_client(_mr_reduce_task)
+_mr_cleanup_task = inject_client(_mr_cleanup_task)
+_wc_chunk_task = inject_client(_wc_chunk_task)
+
+
+def _await_payload_task(executor, task_id: str, timeout: float):
+    """Cross-process task wait that works for local ExecutorService handles
+    AND wire proxies: poll task_state (cheap), fetch the result when done.
+    Results submitted via submit_payload come back as pickled bytes from
+    remote workers but as live objects from in-process worker threads —
+    normalize both."""
+    deadline = time.time() + timeout
+    while True:
+        state = executor.task_state(task_id)
+        if state in ("finished", "failed", "cancelled"):
+            raw = executor.await_task_result(task_id, 5.0)
+            if isinstance(raw, (bytes, bytearray, memoryview)):
+                return pickle.loads(bytes(raw))  # noqa: S301 — coordinator's own task
+            return raw
+        if state is None:
+            raise KeyError(f"unknown task {task_id}")
+        if time.time() > deadline:
+            raise TimeoutError(f"task {task_id} not finished within {timeout}s")
+        time.sleep(0.02)
+
+
 class MapReduce:
     """Generic map-reduce over a Map or collection handle.
 
@@ -74,7 +198,11 @@ class MapReduce:
     reducer(key, values) -> value           — RReducer.reduce analog
     collator(result_dict) -> Any (optional) — RCollator analog
 
-    Mapper chunks and reducer partitions run on local threads.
+    With `executor=` an ExecutorService handle (local or wire proxy), mapper
+    chunks and reducer partitions ship as claimable tasks run by WorkerNode
+    processes / registered workers (CoordinatorTask.java:77-136); without
+    one, the in-process thread path runs (useful for small jobs and tests).
+    mapper/reducer/collator must then be module-level picklable callables.
     """
 
     def __init__(
@@ -86,13 +214,12 @@ class MapReduce:
         workers: int = 4,
         executor=None,
     ):
-        if executor is not None:
-            raise NotImplementedError(_NO_EXECUTOR)
         self._engine = engine
         self._mapper = mapper
         self._reducer = reducer
         self._collator = collator
         self._workers = max(1, workers)
+        self._executor = executor
         self._timeout: Optional[float] = None
 
     def timeout(self, seconds: float) -> "MapReduce":
@@ -110,6 +237,8 @@ class MapReduce:
         """Run the full pipeline; returns the reduced dict (or the collator
         output if a collator was set).  Writes into `result_map` if given
         (the reference's execute(resultMapName))."""
+        if self._executor is not None:
+            return self._execute_distributed(source, result_map)
         entries = self._entries(source)
         n_parts = self._workers
         chunk = max(1, (len(entries) + self._workers - 1) // self._workers)
@@ -166,6 +295,93 @@ class MapReduce:
         if self._collator is not None:
             return self._collator(result)
         return result
+
+    def _execute_distributed(self, source, result_map=None):
+        """Coordinator for the worker-process path (CoordinatorTask.java:
+        77-136): mapper chunks fan out as executor tasks, then one reducer
+        task per partition; every task is claim-fenced and orphan-requeued
+        by the executor machinery, so a worker dying mid-chunk re-runs on a
+        survivor (TasksService re-scheduling)."""
+        ex = self._executor
+        name = getattr(source, "_name", None)
+        if name is None:
+            raise TypeError("distributed MapReduce needs a named Map handle")
+        codec = getattr(source, "_codec", None)
+        keys = source.read_all_keys()
+        job = uuid.uuid4().hex[:12]
+        n_parts = self._workers
+        timeout = self._timeout or 120.0
+        chunk = max(1, (len(keys) + self._workers - 1) // self._workers)
+        chunks = [keys[i : i + chunk] for i in range(0, len(keys), chunk)]
+        try:
+            tids = [
+                ex.submit_payload(
+                    pickle.dumps(
+                        (_mr_map_task, (name, ck, self._mapper, n_parts, job, ci, codec), {}),
+                        protocol=pickle.HIGHEST_PROTOCOL,
+                    )
+                )
+                for ci, ck in enumerate(chunks)
+            ]
+            # the acked map result names the WINNING run per chunk — stale
+            # clones wrote under other run ids nobody will ever read
+            chunk_runs = [
+                (ci, _await_payload_task(ex, tid, timeout)["run"])
+                for ci, tid in enumerate(tids)
+            ]
+            result_name = getattr(result_map, "_name", None)
+            result_codec = getattr(result_map, "_codec", None)
+            rtids = [
+                ex.submit_payload(
+                    pickle.dumps(
+                        (
+                            _mr_reduce_task,
+                            (job, pi, chunk_runs, self._reducer, result_name, result_codec),
+                            {},
+                        ),
+                        protocol=pickle.HIGHEST_PROTOCOL,
+                    )
+                )
+                for pi in range(n_parts)
+            ]
+            result: Dict[Any, Any] = {}
+            for tid in rtids:
+                result.update(_await_payload_task(ex, tid, timeout))
+        except BaseException:
+            # failed/abandoned job: winning runs unknown — pattern sweep
+            self._submit_cleanup(ex, job, None)
+            raise
+        else:
+            # success: delete exactly the winning runs' partition names
+            # (no keyspace scan on the common path); stale-clone orphans
+            # wait for a failed-job sweep — a leak, never a correctness
+            # hazard, because reducers only read runs the coordinator named
+            self._submit_cleanup(
+                ex,
+                job,
+                [
+                    _part_name(job, ci, run, pi)
+                    for ci, run in chunk_runs
+                    for pi in range(n_parts)
+                ],
+            )
+        if self._collator is not None:
+            return self._collator(result)
+        return result
+
+    @staticmethod
+    def _submit_cleanup(ex, job: str, names) -> None:
+        """Fire-and-forget cleanup task (rides the executor so it works from
+        any coordinator — local handle or wire proxy)."""
+        try:
+            ex.submit_payload(
+                pickle.dumps(
+                    (_mr_cleanup_task, (job, names), {}),
+                    protocol=pickle.HIGHEST_PROTOCOL,
+                )
+            )
+        except Exception:  # noqa: BLE001 — best-effort cleanup
+            pass
 
 
 class KernelMapReduce:
@@ -446,14 +662,30 @@ def word_count(source_map, workers: int = 4, executor=None, timeout: float = 120
     """The canonical example (and BASELINE config 4): count words across all
     values of a map, on its engine's device.  A map that has not changed
     since its last count re-scans from the staged device view; the host
-    counts only for non-ASCII whitespace.  `workers` sizes the reference's
-    executor fan-out, which the port does not have yet (``executor=``
-    raises NotImplementedError).  `parts`, when given, receives the seconds
+    counts only for non-ASCII whitespace.  With `executor=`, the keys split
+    into `workers` chunks that ship to WorkerNode processes (the
+    reference's worker-JVM model; escapes the coordinator's GIL), each
+    counted there by the host Counter pass.  `parts`, when given, receives the seconds
     of this scan's parts (read_values_s, join_encode_s, h2d_s, wc_words_s,
     wc_sort_runs_s, d2h_s, decode_s; a view hit has only the last three);
     timing them synchronizes the device between the parts."""
     if executor is not None:
-        raise NotImplementedError(_NO_EXECUTOR)
+        keys = source_map.read_all_keys()
+        codec = getattr(source_map, "_codec", None)
+        chunk = max(1, (len(keys) + workers - 1) // workers)
+        tids = [
+            executor.submit_payload(
+                pickle.dumps(
+                    (_wc_chunk_task, (source_map._name, keys[i : i + chunk], codec), {}),
+                    protocol=pickle.HIGHEST_PROTOCOL,
+                )
+            )
+            for i in range(0, len(keys), chunk)
+        ]
+        total: Counter = Counter()
+        for tid in tids:
+            total.update(_await_payload_task(executor, tid, timeout))
+        return dict(total)
     engine = getattr(source_map, "_engine", None)
     device = engine.device if engine is not None else resolve_device("cuda")
     name = getattr(source_map, "_name", None)

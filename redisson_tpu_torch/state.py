@@ -31,7 +31,10 @@ KINDS = ("bloom", "bloom_array", "hll", "hll_array", "bitset",
          "priority_queue", "ring_buffer", "delayed_queue", "transfer_queue",
          "list_multimap", "set_multimap", "list_multimap_cache", "set_multimap_cache",
          "reliable_topic", "lock", "fenced_lock", "spin_lock", "fair_lock", "rw_lock",
-         "semaphore", "permit_semaphore", "count_down_latch", "rate_limiter")
+         "semaphore", "permit_semaphore", "count_down_latch", "rate_limiter",
+         # streams, geo sets, time series, binary streams, JSON documents and
+         # executor task registries: host-only as well
+         "stream", "geo", "timeseries", "binary_stream", "json_bucket", "executor_tasks")
 
 
 def from_reference(kind: str, meta: Dict[str, Any], arrays_np: Dict[str, np.ndarray],

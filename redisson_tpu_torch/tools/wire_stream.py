@@ -18,6 +18,22 @@ keyspace verbs (TYPE, KEYS, SCAN, EXPIRE, RENAME, DEL) over those records.
 OBJCALLM, OBJCALLMA, OBJCALLV) and the wire transactions (MULTI/EXEC with
 WATCH, TXEXEC), each reply a pickle or a RESP value.
 
+``services_stream(seed, scale, shas)`` returns two lists, the set-up and
+the queries, over streams (X*: explicit IDs, consumer groups and the PEL,
+a timed-out XREAD and XREADGROUP BLOCK, one ``XADD *``), geo sets (GEO*),
+JSON documents (JSON.*), search indexes (FT.*: a FLAT COSINE index with
+TEXT, TAG and NUMERIC fields and an IVF L2 index with a TAG field, KNN
+plain, hybrid with a TAG filter and paged by a cursor, FT.MSEARCH, an
+aggregation paged by FT.CURSOR, the aliases, synonyms, dictionaries,
+FT.CONFIG, FT.SPELLCHECK, FT.INFO) and the script verbs (EVALSHA, SCRIPT,
+FCALL, FCALL_RO, FUNCTION, EVAL) over the scripts and the function library
+that ``load_scripts`` registers server-side (``shas`` is its reply).
+``train_ivf(src, dst, index)`` trains the IVF banks of `index` on one
+server's search service and installs them in the other's, so two servers
+(two packages, or the card and the CPU, whose k-means may differ in the
+last bits) score the same cells: call it between the set-up and the
+queries.
+
 ``replies(host, port, waves)`` sends each wave as one pipelined write on
 one connection and returns, per wave, the raw reply bytes and the parsed
 replies; ``reply_spans(raw)`` splits a wave's raw bytes reply by reply.
@@ -25,7 +41,16 @@ replies; ``reply_spans(raw)`` splits a wave's raw bytes reply by reply.
 PFCOUNT to the PFCOUNT contract (``ops/hll.py``: the integers may differ by
 one more than the float32 tolerance, 1e-6 of the estimate or m * 2**-20 in
 linear counting) and the float64 blobs of HLLA.ESTIMATE / HLLA.ESTPAIRS to
-that tolerance, and the verbs whose replies are unordered or random to
+that tolerance, the clock's fields to their contracts (``CLOCK_VERBS``:
+the ID that ``XADD *`` takes from the clock is an ID, ``<ms>-<seq>``; an
+extended XPENDING row's idle milliseconds are the clock's, the row's
+other fields equal), the KNN replies (``knn_agree``: FT.MSEARCH, and
+FT.SEARCH with a KNN arm) to the search contract (ids equal outside
+near-ties: where two distances lie within ``KNN_TIE`` of each other the
+ids may trade places, and the last tied group may hold other ids of the
+same distance; scores equal, except that two distances on either side of
+a rounding boundary of the ``%.4f`` text differ by one in the last
+digit), and the verbs whose replies are unordered or random to
 their contracts (``UNORDERED_VERBS``, ``RANDOM_VERBS``): SMEMBERS, SINTER,
 SUNION and SDIFF reply the same members as a multiset; SPOP, SRANDMEMBER,
 HRANDFIELD and ZRANDMEMBER reply members of the stored set (with their
@@ -41,6 +66,8 @@ Run both servers on the same stream, e.g. a card server against a CPU one::
 """
 from __future__ import annotations
 
+import json
+import re
 import socket
 from typing import List, Sequence, Tuple
 
@@ -56,6 +83,11 @@ UNORDERED_VERBS = frozenset((b"SMEMBERS", b"SINTER", b"SUNION", b"SDIFF"))
 RANDOM_VERBS = frozenset((b"SPOP", b"SRANDMEMBER", b"HRANDFIELD", b"ZRANDMEMBER"))
 HLL_M = 1 << 14  # the registers of a counter at the default p = 14
 EST_RTOL = 1e-6
+# verbs with a field read from the clock (XADD *'s ID, XPENDING's idle ms)
+CLOCK_VERBS = frozenset((b"XADD", b"XPENDING"))
+# two KNN distances closer than this may trade places in a reply: the
+# %.4f text's last digit, plus the float32 rounding of one distance
+KNN_TIE = 1e-4 + 1e-6
 
 
 def _i8(a) -> bytes:
@@ -418,6 +450,312 @@ def objcall_stream(seed: int = 0, scale: int = 1) -> List[tuple]:
     return cmds
 
 
+# -- the services stream: streams, geo, JSON, search and scripts ---------------
+
+SCRIPT_LIBRARY = "wire_stream_lib"
+
+
+def script_transfer(ctx, keys, args):
+    """Move args[0] units from counter keys[0] to counter keys[1] when the
+    source holds them; reply the destination's count, else 0."""
+    n = int(args[0])
+    src, dst = ctx.get_atomic_long(keys[0]), ctx.get_atomic_long(keys[1])
+    if src.get() < n:
+        return 0
+    src.add_and_get(-n)
+    return dst.add_and_get(n)
+
+
+def script_map_fields(ctx, keys, args):
+    """Put args as field/value pairs into map keys[0]; reply its fields."""
+    m = ctx.get_map(keys[0])
+    for f, v in zip(args[0::2], args[1::2]):
+        m.put(bytes(f).decode(), bytes(v).decode())
+    return [k.encode() for k in sorted(m.read_all_map())]
+
+
+def function_sum(ctx, keys, args):
+    """FCALL: the sum of the integer args."""
+    return sum(int(a) for a in args)
+
+
+def function_list_len(ctx, keys, args):
+    """FCALL_RO: the length of list keys[0]."""
+    return ctx.get_list(keys[0]).size()
+
+
+def load_scripts(client) -> List[str]:
+    """Register the stream's scripts and its function library on the
+    embedded facade of a server's engine (either package's); the digests
+    the stream's EVALSHA calls use."""
+    shas = [client.get_script().script_load(f) for f in (script_transfer, script_map_fields)]
+    client.get_function().load(
+        SCRIPT_LIBRARY, {"fn_sum": function_sum, "fn_list_len": function_list_len}, replace=True
+    )
+    return shas
+
+
+def train_ivf(src, dst, index: str) -> None:
+    """Sync `index` on two servers' search services, train its IVF banks
+    on `src` and install the centroids and assignments in `dst`."""
+    src.sync(index)
+    dst.sync(index)
+    for field, bank in src._idx(index).vectors.banks.items():
+        if bank._ivf is None:
+            continue
+        bank.retrain()
+        ivf, out = bank._ivf, dst._idx(index).vectors.banks[field]._ivf
+        out.centroids, out.assign = ivf.centroids.copy(), ivf.assign.copy()
+        out.trained_rows, out.trains = ivf.trained_rows, ivf.trains
+        out.dirty_rows.clear()
+        out.cells, out.cells_stale = None, True
+
+
+def f32_blob(v) -> bytes:
+    """A FLOAT32 vector field's bytes (little-endian), or Q stacked queries'."""
+    return np.ascontiguousarray(v, "<f4").tobytes()
+
+
+def services_stream(seed: int, scale: int, shas: Sequence[str]) -> Tuple[List[tuple], List[tuple]]:
+    """(set-up, queries) over the streams, geo, JSON, search and script
+    verbs; `scale` multiplies the entry, member and document counts; `shas`
+    are ``load_scripts``' digests."""
+    rng = np.random.default_rng(seed)
+    dim = 16
+    n = 24 * scale
+    setup: List[tuple] = []
+    q: List[tuple] = []
+    # -- streams: explicit IDs (auto IDs come from the clock) -----------------
+    for i in range(n):
+        setup.append(("XADD", "st:a", f"{i + 1}-{i % 3}", "f", str(int(rng.integers(1000))), "g", f"v{i}"))
+    setup += [("XADD", "st:a", "1-0", "f", "dup"), ("XADD", "st:a", "0-0", "f", "zero")]
+    for i in range(12):
+        setup.append(("XADD", "st:b", "MAXLEN", "~", "8", f"{100 + i}-1", "i", str(i)))
+    setup += [("XADD", "st:none", "NOMKSTREAM", "5-1", "f", "v"), ("XADD", "st:auto", "*", "f", "v"),
+              ("XGROUP", "CREATE", "st:a", "g1", "0"), ("XGROUP", "CREATE", "st:a", "g2", "$"),
+              ("XGROUP", "CREATE", "st:a", "g1", "0")]
+    mid = f"{n // 2}-{(n // 2 - 1) % 3}"
+    q += [("XLEN", "st:a"), ("XLEN", "st:b"), ("XRANGE", "st:a", "-", "+", "COUNT", "5"),
+          ("XRANGE", "st:a", "3", mid), ("XREVRANGE", "st:a", "+", "-", "COUNT", "4"),
+          ("XREAD", "COUNT", "3", "STREAMS", "st:a", "st:b", "0", "105-1"),
+          ("XREAD", "STREAMS", "st:b", "$"), ("XREAD", "BLOCK", "20", "STREAMS", "st:b", "999-1"),
+          ("XREAD", "STREAMS", "st:a"),
+          ("XREADGROUP", "GROUP", "g1", "c1", "COUNT", "4", "STREAMS", "st:a", ">"),
+          ("XREADGROUP", "GROUP", "g1", "c2", "COUNT", "3", "STREAMS", "st:a", ">"),
+          ("XREADGROUP", "GROUP", "g1", "c1", "STREAMS", "st:a", "0"),
+          ("XREADGROUP", "GROUP", "g2", "c1", "BLOCK", "20", "STREAMS", "st:a", ">"),
+          ("XREADGROUP", "GROUP", "nog", "c1", "STREAMS", "st:a", ">"),
+          ("XACK", "st:a", "g1", "1-0", "2-1", "99-9"),
+          ("XPENDING", "st:a", "g1"), ("XPENDING", "st:a", "g1", "-", "+", "10"),
+          ("XPENDING", "st:a", "g1", "-", "+", "10", "c2"),
+          ("XPENDING", "st:a", "g1", "IDLE", "3600000", "-", "+", "10"),
+          ("XCLAIM", "st:a", "g1", "c3", "0", "3-2", "JUSTID"),
+          ("XCLAIM", "st:a", "g1", "c3", "0", "4-0"),
+          ("XAUTOCLAIM", "st:a", "g1", "c4", "0", "0", "COUNT", "2", "JUSTID"),
+          ("XAUTOCLAIM", "st:a", "g1", "c4", "3600000", "0"),
+          ("XINFO", "STREAM", "st:a"), ("XINFO", "GROUPS", "st:a"), ("XINFO", "CONSUMERS", "st:a", "g1"),
+          ("XGROUP", "CREATECONSUMER", "st:a", "g1", "c9"), ("XGROUP", "DELCONSUMER", "st:a", "g1", "c9"),
+          ("XGROUP", "SETID", "st:a", "g2", "0"),
+          ("XREADGROUP", "GROUP", "g2", "c1", "COUNT", "2", "NOACK", "STREAMS", "st:a", ">"),
+          ("XPENDING", "st:a", "g2"), ("XGROUP", "DESTROY", "st:a", "g2"),
+          ("XDEL", "st:b", "104-1", "110-1", "1-1"), ("XTRIM", "st:b", "MAXLEN", "5"),
+          ("XTRIM", "st:b", "MINID", "109-1"), ("XRANGE", "st:b", "-", "+"),
+          ("XINFO", "STREAM", "st:none"), ("XADD", "st:a", "f"), ("XGROUP", "NOPE", "st:a"),
+          ("XLEN", "st:auto")]
+    # -- geo ------------------------------------------------------------------
+    lon = rng.uniform(-20.0, 30.0, 2 * n)
+    lat = rng.uniform(30.0, 60.0, 2 * n)
+    geo = ["GEOADD", "geo:a"]
+    for i in range(2 * n):
+        geo += [f"{lon[i]:.6f}", f"{lat[i]:.6f}", f"p{i}"]
+    setup += [tuple(geo), ("GEOADD", "geo:a", "13.361389", "38.115556", "Palermo",
+                           "15.087269", "37.502669", "Catania"),
+              ("GEOADD", "geo:bad", "200", "10", "x")]
+    q += [("GEOPOS", "geo:a", "p0", "p3", "nosuch"), ("GEODIST", "geo:a", "Palermo", "Catania"),
+          ("GEODIST", "geo:a", "Palermo", "Catania", "km"), ("GEODIST", "geo:a", "p1", "p2", "mi"),
+          ("GEODIST", "geo:a", "p1", "p2", "ft"), ("GEODIST", "geo:a", "p1", "nosuch"),
+          ("GEOSEARCH", "geo:a", "FROMLONLAT", "15", "37", "BYRADIUS", "200", "km", "ASC"),
+          ("GEOSEARCH", "geo:a", "FROMLONLAT", "5", "45", "BYRADIUS", "900", "km", "ASC", "COUNT", "6",
+           "WITHDIST", "WITHCOORD"),
+          ("GEOSEARCH", "geo:a", "FROMMEMBER", "p4", "BYBOX", "1500", "1000", "km", "DESC", "WITHDIST"),
+          ("GEOSEARCHSTORE", "geo:out", "geo:a", "FROMLONLAT", "5", "45", "BYRADIUS", "800", "km",
+           "COUNT", "5"),
+          ("GEOSEARCHSTORE", "geo:dist", "geo:a", "FROMLONLAT", "0", "50", "BYRADIUS", "700", "km",
+           "STOREDIST"),
+          ("GEOSEARCHSTORE", "geo:x", "geo:a", "FROMMEMBER", "p5", "BYRADIUS", "800", "km"),
+          ("GEOSEARCH", "geo:out", "FROMLONLAT", "5", "45", "BYRADIUS", "5000", "km", "ASC", "WITHDIST"),
+          ("GEOPOS", "geo:dist", "p1", "p2"),
+          ("GEORADIUS", "geo:a", "15", "37", "200", "km", "WITHDIST", "ASC"),
+          ("GEORADIUS_RO", "geo:a", "10", "40", "500", "km", "COUNT", "3", "ASC"),
+          ("GEORADIUSBYMEMBER", "geo:a", "Palermo", "200", "km", "ASC"),
+          ("GEORADIUSBYMEMBER_RO", "geo:a", "p6", "600", "km", "WITHCOORD", "ASC"),
+          ("GEORADIUS", "geo:a", "15", "37", "200", "km", "STORE", "geo:st"),
+          ("GEOSEARCH", "geo:st", "FROMLONLAT", "15", "37", "BYRADIUS", "300", "km", "ASC"),
+          ("GEORADIUS_RO", "geo:a", "15", "37", "200", "km", "STORE", "x"),
+          ("GEOSEARCH", "geo:a", "BYRADIUS", "10", "km"), ("TYPE", "geo:a")]
+    # -- JSON documents ---------------------------------------------------------
+    doc = {"a": {"b": [1, 2]}, "s": "hi", "n": 4, "t": True, "o": {"x": 1, "y": [3, 4]}}
+    setup += [("JSON.SET", "j:d", "$", json.dumps(doc)), ("JSON.SET", "j:e", "$", json.dumps([1, "x", None]))]
+    q += [("JSON.GET", "j:d"), ("JSON.GET", "j:d", "$.a.b"), ("JSON.GET", "j:d", "$.s", "$.n"),
+          ("JSON.TYPE", "j:d", "$.a"), ("JSON.TYPE", "j:d", "$.t"), ("JSON.NUMINCRBY", "j:d", "$.n", "2.5"),
+          ("JSON.STRAPPEND", "j:d", "$.s", json.dumps("!")), ("JSON.STRLEN", "j:d", "$.s"),
+          ("JSON.ARRAPPEND", "j:d", "$.a.b", "3", "4"), ("JSON.ARRINSERT", "j:d", "$.a.b", "0", "0"),
+          ("JSON.ARRLEN", "j:d", "$.a.b"), ("JSON.ARRINDEX", "j:d", "$.a.b", "3"),
+          ("JSON.ARRPOP", "j:d", "$.a.b"), ("JSON.ARRTRIM", "j:d", "$.a.b", "1", "2"),
+          ("JSON.OBJKEYS", "j:d"), ("JSON.OBJLEN", "j:d", "$.o"), ("JSON.TOGGLE", "j:d", "$.t"),
+          ("JSON.MERGE", "j:d", "$.o", json.dumps({"z": 9, "x": None})), ("JSON.GET", "j:d", "$.o"),
+          ("JSON.SET", "j:d", "$.new", json.dumps([5]), "NX"), ("JSON.SET", "j:d", "$.new", "6", "NX"),
+          ("JSON.SET", "j:d", "$.absent", "1", "XX"), ("JSON.CLEAR", "j:d", "$.o"),
+          ("JSON.DEL", "j:d", "$.new"), ("JSON.GET", "j:d"), ("JSON.GET", "j:e", "$"),
+          ("JSON.ARRLEN", "j:d", "$.s"), ("JSON.NUMINCRBY", "j:d", "$.s", "1"),
+          ("JSON.GET", "j:d", "$.nosuch.deep"), ("JSON.SET", "j:d", "$", "not json"),
+          ("JSON.SET", "j:d", "$", "1", "MAYBE"), ("JSON.GET", "j:none"), ("JSON.DEL", "j:e"),
+          ("JSON.TYPE", "j:e")]
+    # -- search: a FLAT COSINE index and an IVF L2 index -----------------------
+    docs = rng.standard_normal((4 * n, dim)).astype(np.float32)
+    setup.append(("FT.CREATE", "idx:f", "ON", "HASH", "PREFIX", "1", "doc:", "SCHEMA", "title", "TEXT",
+                  "tag", "TAG", "price", "NUMERIC", "SORTABLE", "emb", "VECTOR", "FLAT", "6",
+                  "TYPE", "FLOAT32", "DIM", str(dim), "DISTANCE_METRIC", "COSINE"))
+    for i in range(4 * n):
+        setup.append(("HSET", f"doc:{i}", "title", f"word{i % 7} item{i % 13}", "tag", "abc"[i % 3],
+                      "price", str(i), "emb", f32_blob(docs[i])))
+    centers = rng.standard_normal((8, dim)).astype(np.float32)
+    iv = (centers[rng.integers(8, size=16 * n)] + 0.3 * rng.standard_normal((16 * n, dim))).astype(np.float32)
+    setup.append(("FT.CREATE", "idx:i", "ON", "HASH", "PREFIX", "1", "iv:", "SCHEMA", "tag", "TAG",
+                  "emb", "VECTOR", "IVF", "12", "TYPE", "FLOAT32", "DIM", str(dim),
+                  "DISTANCE_METRIC", "L2", "NLIST", "8", "NPROBE", "2", "TRAIN_MIN", str(8 * n)))
+    for i in range(16 * n):
+        setup.append(("HSET", f"iv:{i}", "tag", "xy"[i % 2], "emb", f32_blob(iv[i])))
+    setup += [("FT.CREATE", "idx:f", "SCHEMA", "t", "TEXT"), ("FT.CREATE", "idx:bad", "SCHEMA", "v", "GEO")]
+    qv = docs[:3] + 0.05
+    # a KNN page whose rest the queries read by cursor 1: a KNN reply (and
+    # its cursor) is made at the frame's readback, after later commands of
+    # the same frame dispatched
+    setup.append(("FT.SEARCH", "idx:f", "*=>[KNN 5 @emb $v]", "PARAMS", "2", "v", f32_blob(qv[1]), "NOCONTENT",
+                  "WITHCURSOR", "COUNT", "2"))
+    qi = iv[:8] + 0.05
+    knn = "*=>[KNN 5 @emb $v]"
+    q += [("FT.SEARCH", "idx:f", "@title:word3", "SORTBY", "price", "DESC", "LIMIT", "0", "5",
+           "NOCONTENT"),
+          ("FT.SEARCH", "idx:f", "@tag:{b} @price:[10 (60]", "NOCONTENT", "LIMIT", "0", "50"),
+          ("FT.SEARCH", "idx:f", "item4 @price:[-inf 40]", "SORTBY", "price", "LIMIT", "0", "3"),
+          ("FT.SEARCH", "idx:f", knn, "PARAMS", "2", "v", f32_blob(qv[0]), "NOCONTENT"),
+          ("FT.SEARCH", "idx:f", "*=>[KNN 4 @emb $v AS dist]", "PARAMS", "2", "v", f32_blob(qv[1]), "NOCONTENT"),
+          ("FT.SEARCH", "idx:f", "(@tag:{a})=>[KNN 6 @emb $v]", "PARAMS", "2", "v", f32_blob(qv[2]),
+           "NOCONTENT"),
+          ("FT.SEARCH", "idx:f", "(@price:[0 30])=>[KNN 3 @emb $v]", "PARAMS", "2", "v", f32_blob(qv[0])),
+          ("FT.CURSOR", "READ", "idx:f", "1", "COUNT", "2"), ("FT.CURSOR", "READ", "idx:f", "1"),
+          ("FT.MSEARCH", "idx:f", "*=>[KNN 10 @emb $v]", "PARAMS", "2", "v", f32_blob(qv)),
+          ("FT.MSEARCH", "idx:f", "(@tag:{b})=>[KNN 4 @emb $v]", "PARAMS", "2", "v", f32_blob(qv)),
+          ("FT.MSEARCH", "idx:i", "*=>[KNN 10 @emb $v]", "PARAMS", "2", "v", f32_blob(qi)),
+          ("FT.MSEARCH", "idx:i", "*=>[KNN 10 @emb $v]", "PARAMS", "2", "v", f32_blob(qi), "NPROBE", "4"),
+          ("FT.SEARCH", "idx:i", "(@tag:{x})=>[KNN 5 @emb $v]", "PARAMS", "2", "v", f32_blob(qi[0]),
+           "NOCONTENT"),
+          ("FT.SEARCH", "idx:i", knn, "PARAMS", "2", "v", f32_blob(qi[1]), "NOCONTENT", "NPROBE", "8"),
+          ("FT.SEARCH", "idx:f", knn, "PARAMS", "2", "v", b"\x00" * 6),
+          ("FT.SEARCH", "idx:f", knn, "PARAMS", "2", "w", f32_blob(qv[0])),
+          ("FT.SEARCH", "idx:f", knn, "PARAMS", "2", "v", f32_blob(qv[0]), "NPROBE", "2"),
+          ("FT.MSEARCH", "idx:f", "@tag:{a}"), ("FT.SEARCH", "idx:none", "*"),
+          ("FT.AGGREGATE", "idx:f", "*", "GROUPBY", "1", "@tag", "REDUCE", "count", "0", "AS", "n",
+           "REDUCE", "avg", "1", "@price", "AS", "avg", "REDUCE", "max", "1", "@price", "AS", "hi",
+           "SORTBY", "2", "@n", "DESC"),
+          ("FT.AGGREGATE", "idx:f", "@price:[0 60]", "GROUPBY", "1", "@title", "REDUCE", "sum", "1",
+           "@price", "AS", "s", "WITHCURSOR", "COUNT", "2"),
+          ("FT.CURSOR", "READ", "idx:f", "2", "COUNT", "3"), ("FT.CURSOR", "READ", "idx:f", "2"),
+          ("FT.CURSOR", "DEL", "idx:f", "2"), ("FT.CURSOR", "READ", "idx:f", "77"),
+          ("FT.INFO", "idx:f"), ("FT.INFO", "idx:i"), ("FT._LIST",),
+          ("FT.ALIASADD", "al:f", "idx:f"), ("FT.SEARCH", "al:f", "word2", "NOCONTENT", "LIMIT", "0", "4"),
+          ("FT.ALIASADD", "al:f", "idx:f"), ("FT.ALIASUPDATE", "al:f", "idx:i"), ("FT.ALIASDEL", "al:f"),
+          ("FT.ALIASDEL", "al:f"),
+          ("FT.SYNUPDATE", "idx:f", "g1", "word1", "item2"), ("FT.SYNDUMP", "idx:f"),
+          ("FT.SEARCH", "idx:f", "@title:word1", "NOCONTENT", "LIMIT", "0", "100"),
+          ("FT.CONFIG", "SET", "MINPREFIX", "3"), ("FT.CONFIG", "GET", "MINPREFIX"), ("FT.CONFIG", "GET", "*"),
+          ("FT.DICTADD", "dict:a", "wordy", "itemz"), ("FT.DICTDUMP", "dict:a"),
+          ("FT.DICTDEL", "dict:a", "itemz", "absent"),
+          ("FT.SPELLCHECK", "idx:f", "wrod1", "DISTANCE", "2", "TERMS", "INCLUDE", "dict:a"),
+          ("FT.ALTER", "idx:f", "SCHEMA", "ADD", "extra", "TAG"), ("HSET", "doc:x", "extra", "q", "title", "zz"),
+          ("FT.SEARCH", "idx:f", "@extra:{q}", "NOCONTENT")]
+    # -- scripts and functions registered server-side --------------------------
+    q += [("INCRBY", "sc:a", "10"), ("EVALSHA", shas[0], "2", "sc:a", "sc:b", "4"),
+          ("EVALSHA", shas[0], "2", "sc:a", "sc:b", "40"), ("GET", "sc:b"),
+          ("EVALSHA", shas[1], "1", "sc:m", "f1", "v1", "f2", "v2"), ("HGETALL", "sc:m"),
+          ("EVALSHA", "f" * 40, "0"), ("EVALSHA", shas[0], "-1"), ("EVALSHA", shas[0], "3", "a"),
+          ("EVAL", "return 1", "0"), ("SCRIPT", "EXISTS", shas[0], shas[1], "e" * 40),
+          ("SCRIPT", "LOAD", "return 1"), ("SCRIPT", "NOPE"),
+          ("RPUSH", "sc:l", "a", "b", "c"), ("FCALL", "fn_sum", "0", "1", "2", "39"),
+          ("FCALL_RO", "fn_list_len", "1", "sc:l"), ("FCALL", "fn_absent", "0"),
+          ("FUNCTION", "LIST"), ("FUNCTION", "LOAD", "x"), ("FUNCTION", "NOPE")]
+    return setup, q
+
+
+def _knn_rows(cmd, reply):
+    """A KNN reply's rows: one [(id, score text, other fields)] list a query."""
+    if _verb(cmd) == b"FT.MSEARCH":
+        return [[(r[i], r[i + 1], None) for i in range(0, len(r), 2)] for r in reply[1:]]
+    if len(reply) == 2 and isinstance(reply[0], list):  # WITHCURSOR: [[n, [id, flds]...], cid]
+        rows = reply[0][1:]
+        pairs = [(r[0], r[1]) for r in rows]
+    else:
+        pairs = list(zip(reply[1::2], reply[2::2]))
+    out = []
+    for doc, flat in pairs:
+        score = flat[-1]
+        out.append((doc, score, tuple(flat[:-1])))
+    return [out]
+
+
+def knn_agree(cmd, got, want) -> bool:
+    """A KNN reply held to the search contract (see the module docstring)."""
+    if isinstance(want, resp.RespError) or not isinstance(got, list) or not isinstance(want, list):
+        return _equal(got, want)
+    if len(got) != len(want) or (_verb(cmd) == b"FT.MSEARCH" and got[0] != want[0]):
+        return False
+    if not (len(want) == 2 and isinstance(want[0], list)) and _verb(cmd) == b"FT.SEARCH":
+        if got[0] != want[0]:  # the hit count
+            return False
+    elif len(want) == 2 and isinstance(want[0], list) and (got[1] != want[1] or got[0][0] != want[0][0]):
+        return False  # the cursor id and the page's row count
+    for g_rows, w_rows in zip(_knn_rows(cmd, got), _knn_rows(cmd, want)):
+        if len(g_rows) != len(w_rows):
+            return False
+        gs = [float(r[1]) for r in g_rows]
+        ws = [float(r[1]) for r in w_rows]
+        if any(abs(a - b) > KNN_TIE for a, b in zip(gs, ws)):
+            return False
+        # groups of near-tied distances: ids equal as sets inside a group,
+        # the last group (it touches the k cut) may hold other tied ids
+        start = 0
+        while start < len(ws):
+            end = start + 1
+            while end < len(ws) and ws[end] - ws[end - 1] <= KNN_TIE:
+                end += 1
+            g_ids = {r[0] for r in g_rows[start:end]}
+            w_ids = {r[0] for r in w_rows[start:end]}
+            if end < len(ws) and g_ids != w_ids:
+                return False
+            if end - start == 1 and end < len(ws) and (g_rows[start][0], g_rows[start][2]) != (
+                    w_rows[start][0], w_rows[start][2]):
+                return False  # a lone row: its id and fields match
+            start = end
+    return True
+
+
+def _clock_agree(cmd, got, want) -> bool:
+    """XADD * and extended XPENDING under the clock contracts."""
+    args = [_b(a).upper() for a in cmd[1:]]
+    if _verb(cmd) == b"XADD":
+        if b"*" not in args:
+            return _equal(got, want)
+        ok = re.compile(rb"\d+-\d+")
+        return all(isinstance(x, bytes) and ok.fullmatch(x) for x in (got, want))
+    if len(cmd) <= 3 or not isinstance(want, list) or not isinstance(got, list):
+        return _equal(got, want)  # the summary form holds no clock field
+    if len(got) != len(want):
+        return False
+    return all(isinstance(g, list) and len(g) == 4 and g[:2] == w[:2] and g[3] == w[3]
+               and isinstance(g[2], int) and g[2] >= 0 for g, w in zip(got, want))
+
+
 def replies(host: str, port: int, waves: Sequence[Sequence[tuple]],
             timeout: float = 120.0) -> List[Tuple[bytes, list]]:
     """Send each wave as one pipelined write on one connection; return
@@ -587,6 +925,10 @@ def compare(cmds: Sequence[tuple], got: list, want: list) -> List[str]:
             same = isinstance(g, resp.RespError) and g.args == w.args
         elif verb in ESTIMATE_VERBS:
             same = _estimates_agree(verb, g, w)
+        elif verb in CLOCK_VERBS:
+            same = _clock_agree(cmd, g, w)
+        elif verb == b"FT.MSEARCH" or (verb == b"FT.SEARCH" and b"KNN" in _b(cmd[2]).upper()):
+            same = knn_agree(cmd, g, w)
         elif verb in UNORDERED_VERBS:
             same = type(g) is type(w) and _multiset(g) == _multiset(w)
         elif verb in RANDOM_VERBS:

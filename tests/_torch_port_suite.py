@@ -3,9 +3,10 @@
 ``load(module, waiting)`` executes the source of ``tests/<module>.py`` in a
 fresh namespace whose imports of ``redisson_tpu`` and its submodules bind
 the port's modules of the same path under ``redisson_tpu_torch`` (the
-module-level imports and the ones inside test bodies alike), with two
-defaults changed for the CPU: ``ServerThread`` and ``redisson_tpu.create``
-put their state on the CPU unless the test asks for a device.  A module
+module-level imports and the ones inside test bodies alike), with four
+defaults changed for the CPU: ``ServerThread``, ``redisson_tpu.create``,
+``RedissonTpu.create`` and ``KernelMapReduce`` put their state on the CPU
+unless the test asks for a device.  A module
 the port does not have yet binds a stand-in whose every attribute raises
 NotImplementedError (a test helper such as the harness's ``free_port``
 excepted), so a test that reaches one fails loudly; such tests
@@ -22,6 +23,9 @@ import types
 from pathlib import Path
 
 import redisson_tpu_torch
+from redisson_tpu_torch.client import redisson as _port_redisson
+from redisson_tpu_torch.services import mapreduce as _port_mapreduce
+from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server import server as _port_server
 
 TESTS = Path(__file__).resolve().parent
@@ -39,6 +43,14 @@ class CpuServerThread(_port_server.ServerThread):
 
 def _create(config=None, device="cpu"):
     return redisson_tpu_torch.create(config, device)
+
+
+class CpuRedissonTpu(_port_redisson.RedissonTpu):
+    """The port's embedded facade, created on the CPU unless asked otherwise."""
+
+    @classmethod
+    def create(cls, config=None, device="cpu"):
+        return super().create(config, device)
 
 
 class _Shim(types.ModuleType):
@@ -60,8 +72,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _exec(conn, *args, timeout=None):
+    """One command on a wire connection, an error reply raised (the
+    reference harness's test helper)."""
+    reply = conn.execute(*args, timeout=timeout)
+    if isinstance(reply, RespError):
+        raise reply
+    return reply
+
+
+class CpuKernelMapReduce(_port_mapreduce.KernelMapReduce):
+    """The port's KernelMapReduce, on the CPU unless asked otherwise."""
+
+    def __init__(self, map_fn, reduce="sum", n_keys=1024, device="cpu"):
+        super().__init__(map_fn, reduce, n_keys, device)
+
+
 # test helpers of modules the port does not have yet, kept by their stand-ins
-_HELPERS = {"redisson_tpu.harness": {"free_port": free_port}}
+_HELPERS = {"redisson_tpu.harness": {"free_port": free_port, "_exec": _exec}}
 
 
 class _Missing(types.ModuleType):
@@ -93,6 +121,10 @@ def _port_module(name: str):
         mod = _Shim(mod, create=_create)
     elif name == "redisson_tpu.server.server":
         mod = _Shim(mod, ServerThread=CpuServerThread)
+    elif name == "redisson_tpu.client.redisson":
+        mod = _Shim(mod, RedissonTpu=CpuRedissonTpu)
+    elif name == "redisson_tpu.services.mapreduce":
+        mod = _Shim(mod, KernelMapReduce=CpuKernelMapReduce)
     _SHIMS[name] = mod
     return mod
 

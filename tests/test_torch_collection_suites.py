@@ -3,8 +3,8 @@ the port's embedded client (``redisson_tpu_torch.create(device="cpu")``).
 
 Every test class of tests/test_collections.py, and the embedded leg of the
 list/set, sorted-set, topic/queue/bucket, synchronizer and sorted-set/
-set-cache semantics suites and of the multimap, permit-expirable semaphore
-and fair-lock tests, is collected here a second time: the same test bodies,
+set-cache semantics suites and of the multimap, permit-expirable semaphore,
+fair-lock and JSON bucket tests, is collected here a second time: the same test bodies,
 with the ``client`` and ``embedded_client`` fixtures giving a fresh port
 client, and the wire leg's ``remote_client`` a port RemoteRedisson on a
 port server on the CPU; in the test bodies ``RemoteRedisson`` and
@@ -82,7 +82,7 @@ SUITES = [
     *(getattr(SY, n) for n in dir(SY) if n.startswith("Test")),
     *(getattr(SS, n) for n in dir(SS) if n.startswith("Test")),
     MP.TestListMultimap, MP.TestSetMultimap, MP.TestPermitExpirableSemaphore, MP.TestFairLock,
-    MP.TestInterfaceDiffTail,
+    MP.TestJsonBucket, MP.TestInterfaceDiffTail,
 ]
 for _cls in SUITES:
     globals()[_cls.__name__] = _port_of(_cls)

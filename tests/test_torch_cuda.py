@@ -1707,3 +1707,33 @@ def test_server_on_the_card_replies_as_on_the_cpu(dev):
     assert launched & {"bloom_set", "bloom_add"}
     for wave, (_, got), (_, want) in zip(waves, out[1], out[0]):
         assert W.compare(wave, got, want) == []
+
+
+def test_services_stream_on_the_card_replies_as_on_the_cpu(dev):
+    """tools/wire_stream.services_stream (X*, GEO*, JSON.*, FT.* FLAT and
+    IVF, the script verbs), RESP2 then RESP3, on a card server and a CPU
+    server: the same replies under the stream's clock and KNN contracts
+    (the CPU installs the card's trained IVF index); FT.* launched the
+    vector kernels on the card, the IVF index trained there."""
+    from redisson_tpu_torch.client.redisson import RedissonTpu
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    K.reset_launches()
+    servers = [ServerThread(port=0, device="cuda").start(), ServerThread(port=0, device="cpu").start()]
+    try:
+        shas = [W.load_scripts(RedissonTpu(st.server.engine)) for st in servers]
+        assert shas[0] == shas[1]
+        setup, queries = W.services_stream(seed=5, scale=2, shas=shas[0])
+        first = [W.replies(st.server.host, st.server.port, [setup]) for st in servers]
+        W.train_ivf(*(RedissonTpu(st.server.engine).get_search() for st in servers), "idx:i")
+        waves = [queries, [("HELLO", "3")] + queries]
+        got = [W.replies(st.server.host, st.server.port, waves) for st in servers]
+    finally:
+        for st in servers:
+            st.stop()
+    launched = {k for k, v in K.launches.items() if v}
+    assert {"knn_score", "knn_select", "ivf_score", "kmeans"} <= launched, launched
+    assert W.compare(setup, first[0][0][1], first[1][0][1]) == []
+    for wave, (_, card), (_, cpu) in zip(waves, got[0], got[1]):
+        assert W.compare(wave, card, cpu) == []

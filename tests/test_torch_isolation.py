@@ -55,6 +55,16 @@ def test_the_walk_covers_the_remote_modules():
             "redisson_tpu_torch.server.verbs.objcall_tx"} <= set(_modules())
 
 
+def test_the_walk_covers_the_services_modules():
+    assert {"redisson_tpu_torch.client.objects.stream", "redisson_tpu_torch.client.objects.geo",
+            "redisson_tpu_torch.client.objects.timeseries", "redisson_tpu_torch.client.objects.binarystream",
+            "redisson_tpu_torch.server.verbs.streamgeo", "redisson_tpu_torch.server.verbs.modules",
+            "redisson_tpu_torch.server.verbs.admin", "redisson_tpu_torch.services.script",
+            "redisson_tpu_torch.services.liveobject", "redisson_tpu_torch.services.remote",
+            "redisson_tpu_torch.services.elements", "redisson_tpu_torch.services.executor",
+            "redisson_tpu_torch.node"} <= set(_modules())
+
+
 _BLOCKER = """
 import sys
 
@@ -201,3 +211,50 @@ def test_cpu_run_leaves_launch_counters_at_zero():
                           "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
                           "segment_reduce": 0, "knn_score": 0, "knn_select": 0, "ivf_score": 0,
                           "kmeans": 0}
+
+
+def test_the_node_help_runs_with_jax_and_the_reference_blocked():
+    """``python -m redisson_tpu_torch.node --help`` with jax and redisson_tpu
+    unimportable."""
+    script = _BLOCKER + """
+import runpy
+sys.argv = ["redisson_tpu_torch.node", "--help"]
+try:
+    runpy.run_module("redisson_tpu_torch.node", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not [m for m in sys.modules if m == "redisson_tpu" or m.startswith(("redisson_tpu.", "jax"))]
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--executors" in out.stdout and "--workers" in out.stdout
+
+
+def test_an_executor_task_pickles_and_unpickles_with_jax_and_the_reference_blocked():
+    """A port coordinator's task payloads (MapReduce's mapper and word
+    count's chunk task, inject_client's marker kept) round-trip through
+    pickle, and run, with jax and redisson_tpu unimportable."""
+    script = _BLOCKER + """
+import pickle
+import redisson_tpu_torch
+from redisson_tpu_torch.services import mapreduce as MR
+from redisson_tpu_torch.services.executor import inject_client
+
+payload = pickle.dumps((MR._wc_chunk_task, ("wc", ["a", "b"], None), {}))
+fn, args, kwargs = pickle.loads(payload)
+assert fn is MR._wc_chunk_task and fn._inject_client, fn
+c = redisson_tpu_torch.create(device="cpu")
+c.get_map("wc").put_all({"a": "x y x", "b": "y"})
+assert fn(*args, client=c, **kwargs) == {"x": 2, "y": 2}
+ex = c.get_executor_service("iso")
+ex.register_workers(1)
+assert ex.submit(MR._host_word_count, ["p q p"]).get(30) == {"p": 2, "q": 1}
+c.shutdown()
+assert not [m for m in sys.modules if m == "redisson_tpu" or m.startswith(("redisson_tpu.", "jax"))]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -2,7 +2,7 @@
 tests/test_services.py's TestMapReduce on both packages, KernelMapReduce
 against the JAX pipeline (sum, max and min of int32 and float32, keys
 negative and out of range), the Collector's partitions, and the executor
-path that waits for a later slice."""
+path on an embedded executor."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,15 +103,27 @@ def test_collector_partitions_equal_the_reference():
 
 
 def test_executor_path_is_not_ported_yet(clients):
-    _, t = clients
-    m = t.get_map("src")
-    m.put("a", "b")
-    with pytest.raises(NotImplementedError, match="M7"):
-        t.get_map_reduce(_mapper, _reducer, executor=object())
-    with pytest.raises(NotImplementedError, match="M7"):
-        MR.MapReduce(t.engine, _mapper, _reducer, executor=object())
-    with pytest.raises(NotImplementedError, match="M7"):
-        MR.word_count(m, executor=object())
+    """The executor path, which waited for the services slice (M7 part 5),
+    runs now: MapReduce and word_count with ``executor=`` (an embedded
+    ExecutorService with registered workers) give the reference's results
+    on both packages, and nothing raises NotImplementedError."""
+    j, t = clients
+    values = {f"k{i}": "a b " + "c " * (i % 3) for i in range(30)}
+    out = []
+    for client in (j, t):
+        m = client.get_map("src")
+        m.put_all(values)
+        ex = client.get_executor_service("mr")
+        ex.register_workers(2)
+        res = client.get_map("res")
+        mr = client.get_map_reduce(_mapper, _reducer, workers=3, executor=ex)
+        mod = RMR if client is j else MR
+        out.append((mr.execute(m, result_map=res), res.read_all_map(),
+                    mod.MapReduce(client.engine, _mapper, _reducer, lambda d: sum(d.values()), 2,
+                                  ex).execute(m),
+                    mod.word_count(m, workers=3, executor=ex)))
+    assert out[1] == out[0]
+    assert out[1][0] == {"a": 30, "b": 30, "c": 30} and out[1][2] == 90
 
 
 def test_kernel_mapreduce_as_in_test_services():

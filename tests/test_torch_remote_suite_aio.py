@@ -3,8 +3,6 @@ clients (tests/_torch_port_suite.py).  ``WAITING`` names each test left
 out and the slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_async_xread_block_is_dedicated": "M7 part 3 (XREAD, streams)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_aio", WAITING, __name__))

@@ -8,9 +8,7 @@ import pytest
 
 from tests import _torch_port_suite
 
-WAITING = {
-    "TestJsonBucket": "M7 part 5 (JSON.*, server/verbs/modules.py)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_multimap_pes_json_semantics", WAITING, __name__,
                                           only=("client", "remote_client")))

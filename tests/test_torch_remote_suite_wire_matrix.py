@@ -4,7 +4,6 @@ test left out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_single_node_surface": "M7 part 3 (its drive reaches get_stream)",
     "test_cluster_surface": "M8 (ClusterRunner)",
     "test_cluster_config_create": "M8 (ClusterRunner, the cluster client)",
     "test_dns_monitor_change_detection": "M8 (net/dns.py)",
@@ -12,8 +11,6 @@ WAITING = {
     "test_create_rejects_bad_read_mode": "M8 (the cluster client's config)",
     "test_remote_local_cached_map_invalidation": "M7 part 4 (local caches)",
     "test_cluster_map_cache_entry_listener": "M8 (ClusterRunner)",
-    "TestGeoRadiusCompat": "M7 part 3 (geo)",
-    "TestFtAdmin": "M7 part 5 (FT.* admin, server/verbs/modules.py)",
 }
 
 globals().update(_torch_port_suite.load("test_wire_matrix", WAITING, __name__))

@@ -72,7 +72,13 @@ Phases (any failure raises and the script exits non-zero):
      100k-op contains flushes), config2_batch (the same bank: each flush an
      RBatch of 1,000 contains_async ops of 100 keys, beside the direct call,
      and one flush of 100,000 one-key ops), config 1 (one 1e7/0.01 filter),
-     config 3 (10k HLL counters), single-key adds (Redisson's
+     config 3 (10k HLL counters), graft (K10, the flagship fused step,
+     through redisson_tpu_torch.graft_entry.entry(): bloom_probe, bloom_set
+     or the fused add, hll_add on one stream, at entry()'s shape, then 100
+     steps of 1M lanes into the same plane and bank; found, the plane and
+     the registers bit for bit against the kernels' plain versions on
+     clones; ms a step beside its bound by the sector rule, steps/s and
+     ops/s), single-key adds (Redisson's
      RBloomFilter.add(key), the facade's add) into a filter of config 1's
      size, then fanout (config 5's per-tenant objects as one RBatch: 64
      filters in two fused runs, 64 fused add-then-contains pairs, 128 bit
@@ -144,7 +150,12 @@ Phases (any failure raises and the script exits non-zero):
      keys, a MULTI/EXEC holding BF.MADD64 and BF.MEXISTS64, a TXEXEC
      commit, config 6's near cache (bench.py:804: 8 clients, 512 buckets,
      zipf 1.0, 99% reads; ops a client cut, printed) with server ops per
-     issued op with tracking off and on, and last a client stream and
+     issued op with tracking off and on, config 6's workload through
+     RemoteLocalCachedMap (one map of 512 entries, each client writing only
+     its own entries; sync INVALIDATE, then TRACKING; ops a client cut,
+     printed): server ops per issued op and the near caches' hit share, the
+     final values equal to the same streams' on a CPU server, and last a
+     client stream and
      tools/wire_stream.objcall_stream on a card server and a CPU server:
      equal replies; the path must launch bloom_probe, bloom_set, hll_add,
      hll_rows, bitset_get and bitset_set; then the services path
@@ -182,7 +193,11 @@ Phases (any failure raises and the script exits non-zero):
      sets, multimaps, topics, adders, Keys, MapCache) and a synchronizer
      stream (locks, fenced and read-write locks, semaphores, latches and a
      rate limiter from several threads in a fixed interleaving) on both:
-     equal replies and final states.
+     equal replies and final states; and the codec leg: a bloom filter and
+     an HLL fed string keys and structured values through each codec beyond
+     the default (composite, zlib, bz2, lzma, LZ4, CBOR, double, msgpack,
+     and protobuf where google.protobuf is installed) and bytes keys, on
+     both: equal planes, registers and replies.
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
 Without a CUDA card, or without the package beside it, it exits non-zero.
 """
@@ -291,7 +306,7 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "config7": VECTOR_KERNELS,
                 "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "services": VECTOR_KERNELS}
+                "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add")}
 FPP = 0.01
 
 
@@ -2439,6 +2454,195 @@ def run_fanout(client, rng) -> dict:
     return out
 
 
+# K10, the flagship fused step (redisson_tpu_torch/graft_entry.py):
+# entry()'s shape (__graft_entry__.py: k 7, m 2**20, p 14, 16 tenants, 4,096
+# lanes, n_valid 3,996) once, then GRAFT_STEPS batches of GRAFT_LANES lanes
+# (GRAFT_VALID valid) twice: at design fill, each step from one snapshot
+# that a prefill of GRAFT_PREFILL keys left (~46,900 keys a tenant, so a
+# step ends each tenant near the ~109,400 keys its 2**20 lanes hold at 1%
+# false positives at k 7); then all into the same plane, which saturates
+GRAFT_STEPS, GRAFT_LANES, GRAFT_VALID, GRAFT_SEED = 100, 1 << 20, 1_000_000, 61
+GRAFT_PREFILL = 750_000
+
+
+def graft_plain_step(bits, regs, keys, n_valid, k, m, p):
+    """The fused step by the kernels' plain versions (core/kernels.py)."""
+    from redisson_tpu_torch.core import kernels as K
+
+    found = K.bloom_probe_plain(bits, bits.shape[1], keys, n_valid, k, m)
+    K.bloom_set_plain(bits, bits.shape[1], keys, n_valid, k, m)
+    K.hll_add_plain(regs, regs.shape[1], keys, n_valid, p)
+    return found
+
+
+def graft_step_bytes(bits, regs, keys, n_valid, k, m, p) -> tuple:
+    """The bytes one step must move by the sector rule, from the state
+    before it (which it leaves untouched): the 32-byte sectors of the plane
+    its answers need and that it changes, the sectors of the bank its adds
+    read and change, 12 operand bytes an op and a found byte a lane.
+    Returns (bytes, found, bits after, regs after) on clones."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.ops import hll as hll_ops
+
+    needed = sectors(needed_probe_positions(bits, keys, bits.shape[1], k, m, n_valid))
+    b2, r2 = bits.clone(), regs.clone()
+    found = graft_plain_step(b2, r2, keys, n_valid, k, m, p)
+    changed = sectors((b2 != bits).reshape(-1).nonzero().reshape(-1))
+    idx, _rho = hll_ops.idx_rho(*K._hash(keys), p)
+    g = K._flat_index(keys.tenant, idx, regs.shape[1], regs.numel())[:n_valid]
+    reg_read = sectors(g[g < regs.numel()])
+    reg_changed = sectors((r2 != regs).reshape(-1).nonzero().reshape(-1))
+    return 32 * (needed + changed + reg_read + reg_changed) + 12 * n_valid + keys.n, found, b2, r2
+
+
+def run_graft(dev) -> dict:
+    """K10 through graft_entry: entry()'s step on the card against the plain
+    path on clones; then GRAFT_STEPS 1M-lane steps at design fill, each from
+    one snapshot (ms a step by events around each step), and the same steps
+    one after another into one plane, which saturates (steps/s and ops/s on
+    the host clock; ms a step on the card from a held replay).  Every step's found, and the plane and bank after the
+    last step of each series, against the plain path; ms a step beside its
+    bound (the sector rule)."""
+    from redisson_tpu_torch import graft_entry as G
+    from redisson_tpu_torch.core import kernels as K
+
+    card = card_line()
+    k, m, p = G.ENTRY_K, G.ENTRY_M, G.ENTRY_P
+    step, args = G.entry(dev)
+    bits, regs, tenant, lo, hi, n_valid = args
+    if bits.device.type != torch.device(dev).type:
+        raise AssertionError(f"graft_entry.entry() did not land on {dev}")
+    keys = K.Keys(n=lo.shape[0], tenant=tenant, lo=lo, hi=hi)
+    entry_bytes, want_found, want_bits, want_regs = graft_step_bytes(bits, regs, keys, n_valid, k, m, p)
+    found, bits, regs = step(*args)
+    err = max(assert_equal("graft entry found", found, want_found),
+              assert_equal("graft entry plane", bits, want_bits),
+              assert_equal("graft entry registers", regs, want_regs))
+    ops_a_step = n_valid * (OPS_HASH_U64 + k * OPS_PROBE + OPS_HLL_ADD)
+    entry_bms, entry_by = bound_ms(entry_bytes, ops_a_step)
+    # the entry shape's step replayed on its own state: ms a step on the card
+    entry_ms = time_kernel(lambda i: step(bits, regs, tenant, lo, hi, n_valid))
+    pb, pr = bits.clone(), regs.clone()
+    entry_plain = time_plain(lambda i: graft_plain_step(pb, pr, keys, n_valid, k, m, p))
+    del pb, pr
+
+    # GRAFT_STEPS new batches of 1M lanes (a tenth repeating an earlier
+    # lane of their batch), and the prefill's batch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(GRAFT_SEED)
+    batches = []
+    for _ in range(GRAFT_STEPS + 1):
+        t = torch.randint(0, G.ENTRY_TENANTS, (GRAFT_LANES,), dtype=torch.int32, device=dev, generator=gen)
+        w = torch.randint(-2**31, 2**31, (2, GRAFT_LANES), dtype=torch.int32, device=dev, generator=gen)
+        src = torch.randint(0, GRAFT_LANES, (GRAFT_LANES // 10,), device=dev, generator=gen)
+        dst = torch.randint(0, GRAFT_LANES, (GRAFT_LANES // 10,), device=dev, generator=gen)
+        t[dst], w[:, dst] = t[src], w[:, src]
+        batches.append((t, w[0].contiguous(), w[1].contiguous()))
+    prefill = batches.pop()
+    ops_big = GRAFT_VALID * (OPS_HASH_U64 + k * OPS_PROBE + OPS_HLL_ADD)
+
+    # design fill: every step from the snapshot, its events around the step
+    # alone (the restore copies lie outside them); a sleep kernel holds the
+    # stream while the host enqueues the series
+    step(bits, regs, *prefill, GRAFT_PREFILL)
+    snap_bits, snap_regs = bits.clone(), regs.clone()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in batches]
+    founds = []
+    torch.cuda._sleep(200_000_000)
+    for (a, b), (t, l, h) in zip(events, batches):
+        bits.copy_(snap_bits)
+        regs.copy_(snap_regs)
+        a.record()
+        founds.append(step(bits, regs, t, l, h, GRAFT_VALID)[0])
+        b.record()
+    torch.cuda.synchronize()
+    fill_ms = [a.elapsed_time(b) for a, b in events]
+    fill_bytes = []
+    for i, (t, l, h) in enumerate(batches):
+        kb = K.Keys(n=GRAFT_LANES, tenant=t, lo=l, hi=h)
+        if i % 10 == 0:  # the sector count of every tenth step's inputs
+            fill_bytes.append(graft_step_bytes(snap_bits, snap_regs, kb, GRAFT_VALID, k, m, p)[0])
+        ref_bits, ref_regs = snap_bits.clone(), snap_regs.clone()
+        want = graft_plain_step(ref_bits, ref_regs, kb, GRAFT_VALID, k, m, p)
+        err = max(err, assert_equal(f"graft design-fill step {i} found", founds[i], want))
+    err = max(err, assert_equal("graft design-fill plane after the last step", bits, ref_bits),
+              assert_equal("graft design-fill registers after the last step", regs, ref_regs))
+    fill_share = [(x != 0).float().mean().item() for x in (snap_bits, bits)]
+    fill_found = statistics.median(f[:GRAFT_VALID].float().mean().item() for f in founds)
+    fill_bms, fill_by = bound_ms(statistics.median(fill_bytes), ops_big)
+    design = {"prefill_keys": GRAFT_PREFILL, "ms_a_step": statistics.median(fill_ms), "ms_first": fill_ms[0],
+              "ms_min": min(fill_ms), "ms_max": max(fill_ms),
+              "ops_per_s": GRAFT_VALID / (statistics.median(fill_ms) / 1e3), "bound_ms": fill_bms,
+              "bound_by": fill_by, "plane_fill_before_after": fill_share, "found_share_median": fill_found}
+    del founds
+
+    # saturated: the same batches one after another into one plane, from
+    # the snapshot
+    bits.copy_(snap_bits)
+    regs.copy_(snap_regs)
+    ref_bits, ref_regs = snap_bits, snap_regs
+    torch.cuda.synchronize()
+    founds = []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for t, l, h in batches:
+        founds.append(step(bits, regs, t, l, h, GRAFT_VALID)[0])
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device_ms = e0.elapsed_time(e1)
+    step_bytes, plain_ms = [], []
+    for i, (t, l, h) in enumerate(batches):
+        kb = K.Keys(n=GRAFT_LANES, tenant=t, lo=l, hi=h)
+        if i % 10 == 0:  # the sector count of every tenth step's inputs
+            step_bytes.append(graft_step_bytes(ref_bits, ref_regs, kb, GRAFT_VALID, k, m, p)[0])
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = graft_plain_step(ref_bits, ref_regs, kb, GRAFT_VALID, k, m, p)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms.append(a.elapsed_time(b))
+        err = max(err, assert_equal(f"graft saturated step {i} found", founds[i], want))
+    err = max(err, assert_equal(f"graft plane after {GRAFT_STEPS} steps", bits, ref_bits),
+              assert_equal(f"graft registers after {GRAFT_STEPS} steps", regs, ref_regs))
+    big_bms, big_by = bound_ms(statistics.median(step_bytes), ops_big)
+    found_share = [f[:GRAFT_VALID].float().mean().item() for f in (founds[0], founds[-1])]
+    sat_fill = (bits != 0).float().mean().item()
+    # the host's launch path paces the series above; the card's own time a
+    # saturated step: the last 20 batches replayed behind a sleep kernel
+    tail = batches[-20:]
+    sat_ms = time_kernel(lambda i: step(bits, regs, *tail[i % len(tail)], GRAFT_VALID))
+    launches = dict(K.launches)
+    out = {"card": card, "entry": {"lanes": int(lo.shape[0]), "n_valid": n_valid, "ms": entry_ms,
+                                   "plain_ms": entry_plain, "bound_ms": entry_bms, "bound_by": entry_by,
+                                   "bytes": entry_bytes},
+           "steps": GRAFT_STEPS, "lanes": GRAFT_LANES, "n_valid": GRAFT_VALID, "design_fill": design,
+           "saturated": {"wall_s": wall, "stream_ms_a_step": device_ms / GRAFT_STEPS, "ms_a_step": sat_ms,
+                         "steps_per_s": GRAFT_STEPS / wall, "ops_per_s": GRAFT_STEPS * GRAFT_VALID / wall,
+                         "bound_ms": big_bms, "bound_by": big_by, "found_share_first_last": found_share,
+                         "plane_fill_after": sat_fill},
+           "plain_ms_a_step": statistics.median(plain_ms), "max_abs_err": err, "launches": launches}
+    log(f"graft [{card}]: the fused step (K10: bloom_probe, bloom_set, hll_add; fused add "
+        f"{K.use_fused_add(bits.numel(), GRAFT_VALID, k)}) at entry()'s shape ({G.ENTRY_TENANTS} x {m} plane, "
+        f"p {p}, {lo.shape[0]} lanes, n_valid {n_valid}): {entry_ms:.4f} ms a step (plain {entry_plain:.3f} ms, "
+        f"bound {entry_bms:.5f} ms by {entry_by}); {GRAFT_STEPS} steps of {GRAFT_LANES} lanes ({GRAFT_VALID} valid) "
+        f"at design fill (each from a snapshot after a prefill of {GRAFT_PREFILL} keys; plane fill "
+        f"{fill_share[0]:.4f} before, {fill_share[1]:.4f} after the last step; found share median "
+        f"{fill_found:.6f}): median {design['ms_a_step']:.4f} ms a step on the card (first {fill_ms[0]:.4f}, "
+        f"{min(fill_ms):.4f}-{max(fill_ms):.4f}), {design['ops_per_s']:.4e} ops/s at the median, bound "
+        f"{fill_bms:.4f} ms by {fill_by}; the same {GRAFT_STEPS} steps one after another from the snapshot "
+        f"(saturated: plane fill {sat_fill:.4f} after them, found share first / last step {found_share[0]:.4f} / "
+        f"{found_share[1]:.4f}): {wall:.3f} s wall, "
+        f"{GRAFT_STEPS / wall:.1f} steps/s, {GRAFT_STEPS * GRAFT_VALID / wall:.4e} ops/s on the host clock "
+        f"({device_ms / GRAFT_STEPS:.4f} ms a step on the stream, the host's launch gaps included), "
+        f"{sat_ms:.4f} ms a step on the card behind a held stream (plain {statistics.median(plain_ms):.3f} ms, "
+        f"bound {big_bms:.4f} ms by {big_by}); found, plane and registers equal the plain path bit for bit; "
+        f"launches {launches}")
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 5: the card against the CPU on one op stream
 # --------------------------------------------------------------------------
@@ -3726,6 +3930,12 @@ RM_C6_CLIENTS, RM_C6_KEYS, RM_C6_READS, RM_C6_ZIPF = 8, 512, 0.99, 1.0
 RM_C6_OPS, RM_C6_DESIGN_OPS = (500, 2_500), (4_000, 20_000)
 # a RemoteBatch of config2_batch's shape, and the stream held card against CPU
 RM_BATCH_OPS, RM_BATCH_KEYS, RM_STREAM_SEED = 1000, 100, 29
+# config 6's workload through RemoteLocalCachedMap: the same 8 clients, zipf
+# and read share over the 512 entries of one map, sync INVALIDATE then
+# TRACKING; each client writes only its own entries (key % 8 == client), so
+# the final values do not depend on the interleaving; cut from 20,000 ops a
+# client
+RM_LC_OPS, RM_LC_DESIGN_OPS, RM_LC_SEED = 2_500, 20_000, 19
 
 
 def remote_config2(c, address: str, card: str, rng) -> dict:
@@ -3999,6 +4209,94 @@ def remote_config6(server, address: str, card: str) -> dict:
     return out
 
 
+def localcache_phase(address: str, server, strategy: str) -> dict:
+    """One RM_LC_OPS-op stream a client through RemoteLocalCachedMap in
+    `strategy` against `server`: server ops per issued op, the near caches'
+    hit share, and the map's final values."""
+    import threading
+
+    from redisson_tpu_torch.client.objects.localcache import LocalCachedMapOptions, SyncStrategy
+    from redisson_tpu_torch.client.remote import RemoteRedisson
+
+    name = f"c6lc:{strategy.lower()}"
+    rng = np.random.default_rng(RM_LC_SEED)
+    p = 1.0 / np.power(np.arange(1, RM_C6_KEYS + 1), RM_C6_ZIPF)
+    p /= p.sum()
+    seed = RemoteRedisson(address, timeout=600.0)
+    seed.get_map(name).put_all({f"k{i}": "v0" for i in range(RM_C6_KEYS)})
+    clients = [RemoteRedisson(address, timeout=600.0) for _ in range(RM_C6_CLIENTS)]
+    opts = LocalCachedMapOptions(sync_strategy=getattr(SyncStrategy, strategy))
+    if strategy == "TRACKING":
+        for cl in clients:
+            cl.enable_tracking()
+    handles = [cl.get_local_cached_map(name, options=opts) for cl in clients]
+    streams = []
+    for ci in range(RM_C6_CLIENTS):
+        idx, writes = rng.choice(RM_C6_KEYS, size=RM_LC_OPS, p=p), rng.random(RM_LC_OPS) >= RM_C6_READS
+        streams.append((np.where(writes, idx - idx % RM_C6_CLIENTS + ci, idx), writes))
+    start = threading.Barrier(RM_C6_CLIENTS + 1)
+    errors = []
+
+    def worker(ci):
+        h, (idx, writes) = handles[ci], streams[ci]
+        try:
+            start.wait()
+            for j in range(RM_LC_OPS):
+                if writes[j]:
+                    h.put(f"k{idx[j]}", f"w{ci}-{j}")
+                else:
+                    h.get(f"k{idx[j]}")
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(ci,), daemon=True) for ci in range(RM_C6_CLIENTS)]
+    for t in threads:
+        t.start()
+    before = server.stats["commands"]
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    server_ops = server.stats["commands"] - before
+    hits, misses = sum(h.hits for h in handles), sum(h.misses for h in handles)
+    final = seed.get_map(name).read_all_map()
+    for h in handles:
+        h.destroy()
+    for cl in clients + [seed]:
+        cl.shutdown()
+    if errors:
+        raise errors[0]
+    issued = RM_C6_CLIENTS * RM_LC_OPS
+    return {"issued_ops": issued, "writes": int(sum(w.sum() for _i, w in streams)), "server_ops": server_ops,
+            "server_ops_per_issued": server_ops / issued, "hit_share": hits / max(1, hits + misses),
+            "wall_s": wall, "ops_per_s": issued / wall, "final": final}
+
+
+def remote_localcache(server, address: str, card: str) -> dict:
+    """Config 6's workload through RemoteLocalCachedMap on the card server,
+    INVALIDATE then TRACKING, each leg's final values held against the
+    same streams on a CPU server."""
+    from redisson_tpu_torch.server import ServerThread
+
+    out = {}
+    for strategy in ("INVALIDATE", "TRACKING"):
+        got = localcache_phase(address, server, strategy)
+        with ServerThread(port=0, device="cpu") as cpu:
+            want = localcache_phase(cpu.address, cpu.server, strategy)
+        if got["final"] != want["final"] or len(got["final"]) != RM_C6_KEYS:
+            bad = [k for k in want["final"] if got["final"].get(k) != want["final"][k]]
+            raise AssertionError(f"local cache {strategy}: {len(bad)} final values differ from the CPU server's")
+        got.pop("final")
+        out[strategy.lower()] = got
+        log(f"remote local cache {strategy} [{card}]: config 6's workload through RemoteLocalCachedMap "
+            f"({RM_C6_CLIENTS} clients x zipf({RM_C6_ZIPF}) over {RM_C6_KEYS} entries at {RM_C6_READS:.0%} reads, "
+            f"{RM_LC_OPS} ops a client, cut from {RM_LC_DESIGN_OPS}; {got['writes']} writes): "
+            f"{got['server_ops_per_issued']:.4f} server ops an issued op, hit share {got['hit_share']:.4f}, "
+            f"{got['ops_per_s'] / 1e3:.1f}k ops/s; final values equal a CPU server's")
+    return out
+
+
 def remote_stream(address: str, seed: int) -> list:
     """One op stream through the port's RemoteRedisson and
     AsyncRemoteRedisson (typed sketch handles, OBJCALL, OBJCALLM, a
@@ -4145,7 +4443,8 @@ def run_remote(device="cuda") -> dict:
                               ("config3", lambda: remote_config3(c, card, rng)),
                               ("bitsets", lambda: remote_bitsets(c, st.address, card, rng)),
                               ("objcall_tx", lambda: remote_objcall_tx(c, card, rng)),
-                              ("config6", lambda: remote_config6(st.server, st.address, card))):
+                              ("config6", lambda: remote_config6(st.server, st.address, card)),
+                              ("localcache", lambda: remote_localcache(st.server, st.address, card))):
                 s = time.perf_counter()
                 out[name] = run()
                 parts[name] = time.perf_counter() - s
@@ -4812,6 +5111,85 @@ def check_card_against_cpu(create) -> None:
     log(f"collections and synchronizer streams: {time.perf_counter() - s:.1f}s")
 
 
+# the codec leg: CODEC_KEYS string keys (and structured values where the
+# codec takes them) through each codec of client/codec.py beyond the default,
+# and CODEC_RAW bytes keys (hashed as they are, as in the reference), into a
+# bloom filter and an HLL on the card and on the CPU; lzma encodes a key in
+# ~1 ms on the host, so it takes CODEC_LZMA_KEYS of them
+CODEC_KEYS, CODEC_LZMA_KEYS, CODEC_RAW, CODEC_SEED = 4_000, 500, 1_000, 67
+
+
+def codec_cases() -> list:
+    """(name, codec, keys) for each codec the leg feeds; protobuf needs
+    google.protobuf's StringValue and is left out, said so, without it."""
+    from redisson_tpu_torch.client import codec as C
+
+    rng = np.random.default_rng(CODEC_SEED)
+    words = [f"user:{i}:{rng.integers(0, 1 << 40)}" for i in range(CODEC_KEYS)]
+    docs = [{"id": i, "tag": w[-6:], "score": float(i) / 3} for i, w in enumerate(words[: CODEC_KEYS // 2])]
+    mixed = words[: CODEC_KEYS // 2] + docs
+    cases = [("composite", C.CompositeCodec(C.StringCodec(), C.PickleCodec()), mixed),
+             ("zlib", C.ZlibCodec(), mixed), ("bz2", C.Bz2Codec(), mixed),
+             ("lzma", C.LzmaCodec(), mixed[: CODEC_LZMA_KEYS // 2] + mixed[-(CODEC_LZMA_KEYS // 2):]),
+             ("lz4", C.Lz4Codec(), mixed), ("lz4 over string", C.Lz4Codec(C.StringCodec()), words),
+             ("cbor", C.CborCodec(), mixed), ("double", C.DoubleCodec(), [float(i) / 7 for i in range(CODEC_KEYS)])]
+    if C.MsgPackCodec is not None:
+        cases.append(("msgpack", C.MsgPackCodec(), mixed))
+    try:
+        from google.protobuf import wrappers_pb2
+    except ImportError:
+        log("codec leg: protobuf left out (no google.protobuf on this machine)")
+    else:
+        cases.append(("protobuf", C.ProtobufCodec(wrappers_pb2.StringValue),
+                      [wrappers_pb2.StringValue(value=w) for w in words]))
+    return cases
+
+
+def check_codecs_card_against_cpu(create) -> dict:
+    """For each codec: a bloom filter and an HLL fed its keys (one add_all
+    of the codec's keys, then the bytes keys) on the card and on the CPU;
+    the planes, the registers and the replies must be equal."""
+    from redisson_tpu_torch import state
+    from redisson_tpu_torch.core import kernels as K
+
+    card = card_line()
+    s = time.perf_counter()
+    raw = [np.random.default_rng(CODEC_SEED + 1).bytes(24) + b"%d" % i for i in range(CODEC_RAW)]
+    clients = [create(), create(device="cpu")]
+    K.reset_launches()
+    out = {}
+    try:
+        for name, codec, keys in codec_cases():
+            got = []
+            for c in clients:
+                bf = c.get_bloom_filter(f"codec:bf:{name}", codec)
+                bf.try_init(2 * len(keys), FPP)
+                hll = c.get_hyper_log_log(f"codec:hll:{name}", codec)
+                replies = [bf.add_all(keys), bf.add_all(raw), hll.add_all(keys), hll.add_all(raw),
+                           bf.contains_each(keys[::7]).tolist(), bf.count_contains(raw), hll.count()]
+                recs = [state.to_reference(c.engine.store.get(f"codec:{kind}:{name}")) for kind in ("bf", "hll")]
+                got.append((replies, recs))
+            (card_r, card_s), (cpu_r, cpu_s) = got
+            if not same(card_r, cpu_r):
+                raise AssertionError(f"codec {name}: card replies {card_r!r:.200} != cpu {cpu_r!r:.200}")
+            for (ck, cm, ca, ch), (pk, pm, pa, ph) in zip(card_s, cpu_s):
+                if (ck, cm, ch) != (pk, pm, ph) or ca.keys() != pa.keys() or \
+                        not all(np.array_equal(ca[a], pa[a]) for a in ca):
+                    raise AssertionError(f"codec {name}: the card's {ck} state differs from the CPU's")
+            out[name] = {"keys": len(keys), "added": card_r[0], "count": card_r[-1]}
+    finally:
+        for c in clients:
+            c.shutdown()
+    launches = {k: v for k, v in K.launches.items() if v}
+    if not (launches.get("bloom_probe") and launches.get("hll_add")):
+        raise AssertionError(f"codec leg: the card launched {launches}")
+    log(f"codec leg [{card}]: {', '.join(out)}: a bloom filter and an HLL fed {CODEC_KEYS} keys through each "
+        f"codec (lzma {CODEC_LZMA_KEYS}: ~1 ms a key to encode on the host) and {CODEC_RAW} bytes keys: planes, "
+        f"registers and replies equal on the card and the CPU "
+        f"({time.perf_counter() - s:.1f}s; launches {launches})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -4846,6 +5224,7 @@ def main() -> int:
                       ("config2_batch", lambda: run_config2_batch(client, np.random.default_rng(43))),
                       ("config1", lambda: run_config1(client)),
                       ("config3", lambda: run_config3(client, np.random.default_rng(7))),
+                      ("graft", lambda: run_graft(dev)),
                       ("single_adds", lambda: run_single_adds(client, np.random.default_rng(11))),
                       ("fanout", lambda: run_fanout(client, np.random.default_rng(13))),
                       ("config4", lambda: run_config4(client, values)),
@@ -4861,8 +5240,9 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    if not paths["server"]["launches"]["bloom_set"] + paths["server"]["launches"]["bloom_add"]:
-        missing.append("server: bloom_set or bloom_add")
+    for path in ("server", "graft"):
+        if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
+            missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -4871,6 +5251,7 @@ def main() -> int:
     check_card_against_cpu(redisson_tpu_torch.create)
     check_mapreduce_card_against_cpu(redisson_tpu_torch.create)
     check_search_card_against_cpu(redisson_tpu_torch.create)
+    check_codecs_card_against_cpu(redisson_tpu_torch.create)
 
     sources = {"bloom_probe": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:184"),
                "bloom_set": ("redisson_tpu_torch/csrc/bloom.cu", "redisson_tpu/core/kernels.py:167"),

@@ -504,7 +504,7 @@ class AsyncRemoteRedisson(_AsyncObjectSurface):
         reply = await self.node.execute(
             "OBJCALL", factory, name, method, payload, self.caller_id()
         )
-        return _unwrap(reply)
+        return _unwrap(reply, self)
 
     # -- transactions ---------------------------------------------------------
 
@@ -519,7 +519,7 @@ class AsyncRemoteRedisson(_AsyncObjectSurface):
             "TXEXEC", safe_pickle.dumps(versions), safe_pickle.dumps(ops),
             self.caller_id(), timeout=timeout,
         )
-        return _unwrap_many(reply)
+        return _unwrap_many(reply, self)
 
     # handles + caller_id come from _AsyncObjectSurface
 
@@ -753,7 +753,7 @@ class AsyncTransaction:
             self._client.caller_id(),
             timeout=self._options.response_timeout,
         )
-        version, result = _unwrap(reply)
+        version, result = _unwrap(reply, self._client)
         self._read_versions.setdefault(name, version)
         return result
 

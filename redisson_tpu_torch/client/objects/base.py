@@ -2,17 +2,19 @@
 
 Every object is a cheap, stateless handle (name + codec) over the engine's
 DeviceStore, as in ``redisson_tpu/client/objects/base.py``, with its name
-mapping (``Config.name_mapper``: logical name -> stored key).  dump,
-restore, copy and migrate come with ``core/checkpoint.py`` (ROADMAP M11);
-the reference-aware codec (handles stored as references) with the rest of
-``client/codec.py``.
+mapping (``Config.name_mapper``: logical name -> stored key).  Every
+handle's codec is reference-aware (``client/codec.ReferenceCodec``): a
+handle stored inside another object persists as a typed reference and reads
+back as a live handle, and a handle pickles as an inert ``ObjectRef`` under
+the reference's module path.  dump, restore, copy and migrate come with
+``core/checkpoint.py`` (ROADMAP M11).
 """
 from __future__ import annotations
 
 import time
 from typing import Optional
 
-from redisson_tpu_torch.client.codec import Codec
+from redisson_tpu_torch.client.codec import Codec, ObjectRef, ReferenceCodec, _codec_spec
 from redisson_tpu_torch.core.engine import Engine
 
 
@@ -23,7 +25,33 @@ class RObject:
         # construction as the reference's RedissonObject ctor does
         mapper = getattr(engine.config, "name_mapper", None)
         self._name = mapper.map(name) if mapper is not None else name
-        self._codec = codec or engine.default_codec
+        # every handle's codec is reference-aware: storing another handle
+        # persists a typed reference, not a serialized copy
+        base = codec or engine.default_codec
+        if isinstance(base, ReferenceCodec):
+            # rebind to THIS engine: a shipped/shared wrapper may carry no
+            # engine (pickled to a worker) or a different one
+            self._codec = (
+                base if base._engine is engine else ReferenceCodec(base.inner, engine)
+            )
+        else:
+            self._codec = ReferenceCodec(base, engine)
+
+    def __reduce__(self):
+        # handles bind an engine and never cross a process boundary live;
+        # they pickle as inert ObjectRef descriptors under the reference's
+        # module path, with the LOGICAL name (resolution re-enters a factory
+        # whose ctor maps again) — the remote result path resolves them back
+        # into handles bound to the receiving client (client/remote.py)
+        from redisson_tpu_torch.net.safe_pickle import wire_module
+
+        codec = self._codec.inner if isinstance(self._codec, ReferenceCodec) else self._codec
+        cls = type(self)
+        return (
+            ObjectRef,
+            (wire_module(cls.__module__) or cls.__module__, cls.__name__,
+             self._unmap_name(self._name), _codec_spec(codec)),
+        )
 
     @property
     def name(self) -> str:

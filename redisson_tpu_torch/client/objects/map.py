@@ -221,7 +221,7 @@ class Map(RExpirable):
         rec = self._engine.store.get(self._name)
         if rec is None:
             return []
-        return [self._dv(ev) for ev in list(rec.host.values())]
+        return self._codec.decode_map_values(list(rec.host.values()))
 
     def read_all_entry_set(self) -> List[Tuple]:
         rec = self._engine.store.get(self._name)
@@ -286,8 +286,9 @@ class Map(RExpirable):
     def put_all(self, entries: Dict) -> None:
         with self._engine.locked(self._name):
             rec = self._rec_or_create()
+            ek, ev = self._codec.encode_map_key, self._codec.encode_map_value
             for k, v in entries.items():
-                self._raw_put(rec, self._ek(k), self._ev(v))
+                self._raw_put(rec, ek(k), ev(v))
             self._touch_version(rec)
         for k, v in entries.items():
             self._write_through("write", k, v)

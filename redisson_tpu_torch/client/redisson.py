@@ -2,16 +2,15 @@
 
 One client over one embedded Engine, with the factories of
 ``redisson_tpu/client/redisson.py`` for the objects the port has: sketches,
-bit sets, buckets and counters, maps and map caches, adders, sets, sorted
-sets, lists, multimaps, the twelve queue classes, locks, semaphores,
-latches, rate limiters, topics, streams, time series, geo sets, binary
-streams, JSON buckets, keys, MapReduce, search, scripts and functions,
-batches and transactions, and the services: executors and scheduled
-executors, the remote service, live objects and the elements subscribe
-service.
-Object handles are cheap and stateless; create them freely.  The
-local-cached-map and cache-manager factories come with the local caches
-(ROADMAP M7 part 4), the nodes group with M8.
+bit sets, buckets and counters, maps, map caches and local cached maps,
+adders, sets, sorted sets, lists, multimaps, the twelve queue classes,
+locks, semaphores, latches, rate limiters, topics, streams, time series,
+geo sets, binary streams, JSON buckets, keys, MapReduce, search, scripts
+and functions, batches and transactions, the JCache manager, and the
+services: executors and scheduled executors, the remote service, live
+objects and the elements subscribe service.
+Object handles are cheap and stateless; create them freely.  The nodes
+group comes with ROADMAP M8.
 """
 from __future__ import annotations
 
@@ -109,6 +108,11 @@ class RedissonTpu:
         self._engine.eviction.schedule_for_record(self._engine, mc._name, mc.reap_expired)
         return mc
 
+    def get_local_cached_map(self, name: str, codec: Optional[Codec] = None, options=None):
+        from redisson_tpu_torch.client.objects.localcache import LocalCachedMap
+
+        return LocalCachedMap(self._engine, name, codec, options)
+
     def get_long_adder(self, name: str):
         from redisson_tpu_torch.client.objects.adder import LongAdder
 
@@ -118,6 +122,11 @@ class RedissonTpu:
         from redisson_tpu_torch.client.objects.adder import DoubleAdder
 
         return DoubleAdder(self._engine, name)
+
+    def get_cache_manager(self):
+        from redisson_tpu_torch.client.jcache import CacheManager
+
+        return CacheManager(self._engine)
 
     def get_set(self, name: str, codec: Optional[Codec] = None):
         from redisson_tpu_torch.client.objects.set import Set

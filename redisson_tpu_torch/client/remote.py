@@ -21,10 +21,10 @@ which writes and reads the reference's class names.  Differences:
     not to the process, and ``shutdown()`` stops them, so a client that was
     shut down leaves no thread behind.
   * The elements subscribe service's threads are joined by ``shutdown()``.
-  * Waiting for a later slice, each raising NotImplementedError naming its
-    part: ``get_local_cached_map`` (the local caches, ROADMAP M7 part 4) and
-    object references (``resolve_ref``: the reference-aware codec, part 4).
-    The replication methods (``sync_replication``,
+  * A local cached map's failsafe timer (a transaction commit's disable
+    that no enable follows) rides the facade's wheel timer, not a thread of
+    its own.
+  * The replication methods (``sync_replication``,
     ``replication_state``) are here; the port's server answers their verbs
     with ROADMAP M11.
 """
@@ -33,6 +33,7 @@ from __future__ import annotations
 import logging
 import threading as _threading
 import time
+import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,34 +50,130 @@ logger = logging.getLogger(__name__)
 # the op is once-per-facade, contention is nil)
 _tracking_enable_lock = _threading.Lock()
 
-_PART4 = "comes with the local caches and the reference-aware codec (ROADMAP M7 part 4)"
+# ObjectRef resolution (RedissonReference over the wire): server-side
+# handles pickle as inert ObjectRef descriptors (objects/base.py
+# __reduce__); the receiving client rebinds them to LIVE handles through
+# its own factories so references read back as objects on every surface.
+_REF_FACTORIES = {
+    "Map": "get_map", "MapCache": "get_map_cache",
+    # LocalCachedMap must rebind as a local-cached handle: resolving it as a
+    # plain map would mutate without publishing invalidations, leaving every
+    # other client's near cache silently stale
+    "LocalCachedMap": "get_local_cached_map",
+    "Set": "get_set", "SetCache": "get_set_cache",
+    "RList": "get_list", "Queue": "get_queue", "Deque": "get_deque",
+    "BlockingQueue": "get_blocking_queue", "BlockingDeque": "get_blocking_deque",
+    "PriorityQueue": "get_priority_queue", "PriorityDeque": "get_priority_deque",
+    "PriorityBlockingQueue": "get_priority_blocking_queue",
+    "PriorityBlockingDeque": "get_priority_blocking_deque",
+    "RingBuffer": "get_ring_buffer",
+    # DelayedQueue deliberately absent: its factory takes the DESTINATION
+    # queue handle, not a name — a by-name rebind can't reconstruct it, so
+    # its references stay inert (name + type still identify it)
+    "TransferQueue": "get_transfer_queue",
+    "ScoredSortedSet": "get_scored_sorted_set",
+    "SortedSet": "get_sorted_set", "LexSortedSet": "get_lex_sorted_set",
+    "ListMultimap": "get_list_multimap", "SetMultimap": "get_set_multimap",
+    "ListMultimapCache": "get_list_multimap_cache",
+    "SetMultimapCache": "get_set_multimap_cache",
+    "BoundedBlockingQueue": "get_bounded_blocking_queue",
+    "Bucket": "get_bucket", "AtomicLong": "get_atomic_long",
+    "AtomicDouble": "get_atomic_double", "IdGenerator": "get_id_generator",
+    "BitSet": "get_bit_set", "BloomFilter": "get_bloom_filter",
+    "HyperLogLog": "get_hyper_log_log", "Geo": "get_geo",
+    "TimeSeries": "get_time_series", "Stream": "get_stream",
+    "JsonBucket": "get_json_bucket", "BinaryStream": "get_binary_stream",
+    "Lock": "get_lock", "FairLock": "get_fair_lock", "SpinLock": "get_spin_lock",
+    "FencedLock": "get_fenced_lock", "Semaphore": "get_semaphore",
+    "CountDownLatch": "get_count_down_latch", "RateLimiter": "get_rate_limiter",
+}
+
+# classes whose handles never decode user values with their codec
+# (synchronizers, numeric counters, raw-bit state): the ref's recorded
+# codec — every handle carries one, usually the default — is irrelevant,
+# so their factories are called name-only.  Everything else MUST honor the
+# reference's codec or fail loudly (see resolve_ref).
+_CODEC_FREE = {
+    "Lock", "FairLock", "SpinLock", "FencedLock", "Semaphore",
+    "CountDownLatch", "RateLimiter", "AtomicLong", "AtomicDouble",
+    "IdGenerator", "BitSet",
+}
 
 
 def resolve_ref(client, ref):
-    """ObjectRef -> live handle (RedissonReference over the wire).  Until
-    then a reply holds no reference: the unpickler refuses an ObjectRef."""
-    raise NotImplementedError(f"object references {_PART4}")
+    """ObjectRef -> live handle via the client's factory; unknown classes
+    stay inert (the descriptor itself is still useful: name + type)."""
+    from redisson_tpu_torch.client.codec import _codec_from_spec
+
+    factory = getattr(client, _REF_FACTORIES.get(ref.cls, ""), None)
+    if factory is None:
+        return ref
+    codec = _codec_from_spec(ref.codec)
+    if ref.codec is not None and codec is None and ref.cls not in _CODEC_FREE:
+        # the reference recorded a codec its spec cannot rebuild
+        # (CompositeCodec halves, parameterized codecs): resolving with the
+        # default codec would silently misdecode — stay inert instead
+        return ref
+    if (
+        codec is not None
+        and type(codec) is type(DEFAULT_CODEC)
+        and getattr(codec, "inner", None) is None
+    ):
+        # every handle records a codec, usually the default: passing the
+        # default along changes nothing, and name-only keeps codec-less
+        # surfaces (async proxies) resolving
+        codec = None
+    if codec is None or ref.cls in _CODEC_FREE:
+        return factory(ref.name)
+    # a factory that cannot honor the reference's NON-default codec must
+    # FAIL here, not silently decode with the default one — the async
+    # surface raises TypeError for exactly that (aio.py make()); swallowing
+    # it would turn a StringCodec list into wrongly-JSON-decoded values
+    # with no trace
+    return factory(ref.name, codec)
 
 
-def _unwrap(reply: Any) -> Any:
+def _resolve_refs(client, value):
+    """Resolve ObjectRefs at the top level and one container level deep —
+    the shapes object methods actually return (scalars, lists, dicts)."""
+    from redisson_tpu_torch.client.codec import ObjectRef
+
+    if client is None:
+        return value
+    if isinstance(value, ObjectRef):
+        return resolve_ref(client, value)
+    if isinstance(value, list):
+        return [resolve_ref(client, v) if isinstance(v, ObjectRef) else v for v in value]
+    if isinstance(value, tuple):
+        return tuple(resolve_ref(client, v) if isinstance(v, ObjectRef) else v for v in value)
+    if isinstance(value, dict):
+        return {
+            (resolve_ref(client, k) if isinstance(k, ObjectRef) else k):
+            (resolve_ref(client, v) if isinstance(v, ObjectRef) else v)
+            for k, v in value.items()
+        }
+    return value
+
+
+def _unwrap(reply: Any, client=None) -> Any:
     if isinstance(reply, RespError):
         raise reply
     if isinstance(reply, (bytes, bytearray)) and reply[:1] in (b"R", b"E"):
         payload = safe_loads(bytes(reply[1:]))
         if reply[:1] == b"E":
             raise payload
-        return payload
+        return _resolve_refs(client, payload)
     return reply
 
 
-def _unwrap_many(reply: Any) -> List[Any]:
+def _unwrap_many(reply: Any, client=None) -> List[Any]:
     """Decode an OBJCALLM reply: list of results with per-op exceptions left
     AS VALUES (batch semantics — the caller decides what to raise)."""
     if isinstance(reply, RespError):
         raise reply
     if not (isinstance(reply, (bytes, bytearray)) and reply[:1] == b"M"):
         raise RespError("ERR bad OBJCALLM reply frame")
-    return [r for _tag, r in safe_loads(bytes(reply[1:]))]
+    return [_resolve_refs(client, r) for _tag, r in safe_loads(bytes(reply[1:]))]
 
 
 class RemoteObjectProxy:
@@ -886,6 +983,325 @@ _GENERIC_FACTORIES = {
 }
 
 
+class RemoteLocalCachedMap:
+    """RLocalCachedMap over the wire: a client-side near cache fed by the
+    shared invalidation channel (`redisson_local_cache:{name}`).
+
+    Protocol interop with the embedded handle (client/objects/localcache.py):
+    messages are (kind, cache_id, payload) tuples; this handle MUTATES the
+    plain map and PUBLISHES its own messages carrying its own cache_id — so
+    originator exclusion works exactly like the reference's excludedId scheme
+    (a client's own writes never evict its own fresh cache entries).  Both
+    the subscription and the mutations route by the MAP NAME's slot, so on a
+    cluster the invalidation feed lives on the shard that owns the data.
+    The map-key codec MUST match the server's default codec (keys align by
+    encoded bytes).
+    """
+
+    def __init__(self, client, name: str, options=None, codec: Optional[Codec] = None):
+        from redisson_tpu_torch.client.objects.localcache import (
+            LocalCachedMapOptions,
+            SyncStrategy,
+            _LocalCache,
+        )
+
+        self._client = client
+        self.name = name
+        self._opts = options or LocalCachedMapOptions.defaults()
+        self._codec = codec or DEFAULT_CODEC
+        self._cache = _LocalCache(self._opts)
+        self._cache_id = uuid.uuid4().hex
+        self._disabled: set = set()  # active tx-commit disable requests
+        self._channel = f"redisson_local_cache:{name}"
+        # mutations ride the PLAIN map: this handle owns its own broadcasts
+        self._proxy = RemoteObjectProxy(client, "get_map", name)
+        self._sync_strategy = self._opts.sync_strategy
+        # TRACKING mode: coherence rides the server-assisted
+        # invalidation plane — no topic subscription, no write broadcasts.
+        # Every OBJCALL read registers the map name on its (tracked) data
+        # connection server-side; any write by anyone pushes an invalidate
+        # down the facade's feed, which clears this handle's cache.
+        self._tracking_mode = self._sync_strategy == SyncStrategy.TRACKING
+        self._sync = (
+            self._sync_strategy != SyncStrategy.NONE and not self._tracking_mode
+        )
+        # generation counter: a fetch only populates the cache if no
+        # invalidation arrived while it was in flight (the wire analog of the
+        # embedded handle's read+populate under the record lock)
+        self._gen = 0
+        self.hits = 0
+        self.misses = 0
+        self._pubsub = None
+        self._tracking_listener = None
+        if self._tracking_mode:
+            plane = getattr(client, "tracking", None)
+            if plane is None:
+                raise RuntimeError(
+                    "SyncStrategy.TRACKING requires the facade's tracking "
+                    "plane: call client.enable_tracking() first"
+                )
+            self._tracking_plane = plane
+            self._tracking_listener = plane.add_name_listener(
+                name, self._on_tracking_invalidate
+            )
+        elif self._sync:
+            # subscribe on the shard that owns the MAP (not the channel
+            # string): that is where OBJCALL mutations execute and publish
+            self._pubsub = client.pubsub_for(name)
+            self._pubsub.subscribe(self._channel, self._on_wire_sync)
+
+    def _on_tracking_invalidate(self, _name) -> None:
+        # record-level granularity: any write to the map drops the whole
+        # near copy (the plane cannot see which entry changed); _gen guards
+        # in-flight fetches exactly like the topic path
+        self._gen += 1
+        self._cache.clear()
+
+    # -- invalidation feed ----------------------------------------------------
+
+    def _on_wire_sync(self, _channel: str, payload) -> None:
+        try:
+            msg = safe_loads(bytes(payload)) if isinstance(payload, (bytes, bytearray)) else payload
+        except Exception:  # noqa: BLE001 — unknown frame: drop all, stay safe
+            self._gen += 1
+            self._cache.clear()
+            return
+        kind, sender = msg[0], msg[1]
+        if sender == self._cache_id:
+            return  # own write (excludedId scheme)
+        self._gen += 1
+        if kind == "inv":
+            for ek in msg[2]:
+                self._cache.invalidate(ek)
+        elif kind == "upd":
+            for ek, ev in msg[2]:
+                self._cache.put(ek, self._codec.decode_map_value(ev))
+        elif kind == "clear":
+            self._cache.clear()
+        elif kind == "disable":
+            # transaction commit handshake (LocalCachedMapDisable analog)
+            self._disabled.add(sender)
+            self._cache.clear()
+            # failsafe: the committer died before the enable (on the
+            # facade's wheel timer, stopped by its shutdown)
+            timer, _pool = self._client.renewal_infra()
+            timer.new_timeout(lambda: self._disabled.discard(sender), 30.0)
+        elif kind == "enable":
+            self._disabled.discard(sender)
+            self._cache.clear()
+
+    def _broadcast(self, kind: str, payload) -> None:
+        if not self._sync:
+            return
+        from redisson_tpu_torch.client.objects.localcache import SyncStrategy
+
+        if kind == "upd" and self._sync_strategy != SyncStrategy.UPDATE:
+            kind, payload = "inv", [ek for ek, _ in payload]
+        blob = safe_pickle.dumps((kind, self._cache_id, payload), protocol=4)
+        # route by the MAP name, not the channel string: subscribers attached
+        # on the map's slot owner (see __init__), and the channel's own slot
+        # differs from the map's
+        self._client.publish_for(self.name, self._channel, blob)
+
+    def _ek(self, key) -> bytes:
+        return self._codec.encode_map_key(key)
+
+    # -- reads (near cache first) ---------------------------------------------
+
+    def get(self, key):
+        if self._disabled:
+            # tx-commit window: read through, never serve or populate
+            return self._proxy.get(key)
+        ek = self._ek(key)
+        hit, value = self._cache.get(ek)
+        if hit:
+            self.hits += 1
+            return value
+        self.misses += 1
+        gen = self._gen
+        value = self._proxy.get(key)
+        if value is not None and self._gen == gen and not self._disabled:
+            # no invalidation raced the fetch: safe to populate
+            self._cache.put(ek, value)
+        return value
+
+    def get_all(self, keys) -> Dict:
+        if self._disabled:
+            return self._proxy.get_all(list(keys))
+        out, missing = {}, []
+        for k in keys:
+            hit, v = self._cache.get(self._ek(k))
+            if hit:
+                self.hits += 1
+                out[k] = v
+            else:
+                self.misses += 1
+                missing.append(k)
+        if missing:
+            gen = self._gen
+            fetched = self._proxy.get_all(missing)
+            if self._gen == gen and not self._disabled:
+                for k, v in fetched.items():
+                    self._cache.put(self._ek(k), v)
+            out.update(fetched)
+        return out
+
+    # -- transaction commit handshake ----------------------------------------
+
+    def tx_disable(self, req_id: str) -> None:
+        """Near-cache disable broadcast for a transaction commit
+        (LocalCachedMapDisable analog); sender = the REQUEST id so no
+        subscriber — including this handle — is excluded."""
+        self._disabled.add(req_id)
+        self._cache.clear()
+        if self._sync:
+            blob = safe_pickle.dumps(("disable", req_id, None), protocol=4)
+            self._client.publish_for(self.name, self._channel, blob)
+
+    def tx_enable(self, req_id: str) -> None:
+        self._disabled.discard(req_id)
+        self._cache.clear()
+        if self._sync:
+            blob = safe_pickle.dumps(("enable", req_id, None), protocol=4)
+            self._client.publish_for(self.name, self._channel, blob)
+
+    def cached_size(self) -> int:
+        return len(self._cache)
+
+    # -- writes (mutate shared map, update own cache, notify peers) -----------
+
+    def _seed_own_write(self) -> bool:
+        """May a write populate its own cache?  TRACKING mode: NO — without
+        NOLOOP the server pops (or, for a write with no prior read, never
+        held) our registration when it applies the write, so nothing
+        guarantees a later foreign write ever invalidates the seed; WITH
+        NOLOOP the self-pushes that would order concurrent own-writes are
+        suppressed, and the map-wide ``_gen`` guard cannot tell two own
+        writers apart — the loser of the server-side race could cache its
+        overwritten value with nothing left to correct it (the
+        tracked-handle seed in TrackedBucket.set survives this because the
+        NearCache generation is per NAME and invalidate drops entries).
+        Topic mode seeds like the reference (excludedId scheme)."""
+        return not self._tracking_mode
+
+    def _own_invalidate(self, eks) -> None:
+        """Drop our local copies after an own write, bumping ``_gen`` FIRST:
+        a concurrent get() that fetched the PRE-write value must fail its
+        populate guard, or it would re-cache the stale value right after
+        this invalidate — and under tracking+NOLOOP the suppressed
+        self-push would never correct it."""
+        self._gen += 1
+        for ek in eks:
+            self._cache.invalidate(ek)
+
+    def _invalidate_on_error(self, eks) -> None:
+        """A raised wire write may still have APPLIED (lost reply) — drop
+        the local copies: under tracking+NOLOOP the self-push is suppressed
+        and in topic mode the broadcast never went out, so nothing else
+        would ever correct a stale cached value."""
+        self._own_invalidate(eks)
+
+    def put(self, key, value):
+        # gen-guarded like get(): an invalidation landing between the wire
+        # write and the populate (our own push, or a foreign writer's)
+        # voids the populate instead of caching over it
+        gen = self._gen
+        seed = self._seed_own_write()
+        try:
+            old = self._proxy.put(key, value)
+        except BaseException:
+            self._invalidate_on_error([self._ek(key)])
+            raise
+        ek = self._ek(key)
+        if not seed:
+            self._own_invalidate([ek])
+        elif self._gen == gen and not self._disabled:
+            self._cache.put(ek, value)
+        self._broadcast("upd", [(ek, self._codec.encode_map_value(value))])
+        return old
+
+    def fast_put(self, key, value) -> bool:
+        gen = self._gen
+        seed = self._seed_own_write()
+        try:
+            created = self._proxy.fast_put(key, value)
+        except BaseException:
+            self._invalidate_on_error([self._ek(key)])
+            raise
+        ek = self._ek(key)
+        if not seed:
+            self._own_invalidate([ek])
+        elif self._gen == gen and not self._disabled:
+            self._cache.put(ek, value)
+        self._broadcast("upd", [(ek, self._codec.encode_map_value(value))])
+        return created
+
+    def put_all(self, entries: Dict) -> None:
+        gen = self._gen
+        seed = self._seed_own_write()
+        try:
+            self._proxy.put_all(entries)
+        except BaseException:
+            self._invalidate_on_error([self._ek(k) for k in entries])
+            raise
+        payload = []
+        populate = seed and self._gen == gen and not self._disabled
+        if not seed:
+            self._own_invalidate([self._ek(k) for k in entries])
+        for k, v in entries.items():
+            ek = self._ek(k)
+            if populate:
+                self._cache.put(ek, v)
+            payload.append((ek, self._codec.encode_map_value(v)))
+        self._broadcast("upd", payload)
+
+    def remove(self, key):
+        ek = self._ek(key)
+        try:
+            old = self._proxy.remove(key)
+        finally:
+            self._own_invalidate([ek])
+        self._broadcast("inv", [ek])
+        return old
+
+    def fast_remove(self, *keys) -> int:
+        eks = [self._ek(k) for k in keys]
+        try:
+            n = self._proxy.fast_remove(*keys)
+        finally:
+            self._own_invalidate(eks)
+        self._broadcast("inv", eks)
+        return n
+
+    def clear(self) -> None:
+        try:
+            self._proxy.clear()
+        finally:
+            self._gen += 1  # void in-flight populates (see _own_invalidate)
+            self._cache.clear()
+        if self._sync:
+            blob = safe_pickle.dumps(("clear", self._cache_id), protocol=4)
+            self._client.publish_for(self.name, self._channel, blob)
+
+    def destroy(self) -> None:
+        """Detach the invalidation listener (RObject.destroy parity) — keep
+        the shared channel alive for other handles on the same connection."""
+        if self._pubsub is not None:
+            self._pubsub.remove_listener(self._channel, self._on_wire_sync)
+            self._pubsub = None
+        if self._tracking_listener is not None:
+            self._tracking_plane.remove_name_listener(
+                self.name, self._tracking_listener
+            )
+            self._tracking_listener = None
+        self._cache.clear()
+
+    def __getattr__(self, method: str):
+        # everything else (size, contains_key, read_all_keys, ...) rides the
+        # plain OBJCALL proxy with no near-cache involvement
+        return getattr(self._proxy, method)
+
+
 class RemoteSurface:
     """Handle-factory surface shared by the single-node client and the
     cluster client: every factory only talks through the transport seam
@@ -967,7 +1383,7 @@ class RemoteSurface:
         if codec is not None:
             frame.append(safe_pickle.dumps(codec))
         reply = self.execute(*frame)
-        return _unwrap(reply)
+        return _unwrap(reply, self)
 
     def objcall_many(
         self, ops: List[Tuple], caller: Optional[str] = None,
@@ -982,7 +1398,7 @@ class RemoteSurface:
         reply = self.execute(
             "OBJCALLM", payload, caller or self.caller_id(), timeout=timeout
         )
-        return _unwrap_many(reply)
+        return _unwrap_many(reply, self)
 
     def objcall_many_batch(
         self, ops: List[Tuple], atomic: bool = False, timeout: Optional[float] = None
@@ -996,7 +1412,7 @@ class RemoteSurface:
         cmd = "OBJCALLMA" if atomic else "OBJCALLM"
         payload = safe_pickle.dumps(wire_ops)
         reply = self.execute(cmd, payload, self.caller_id(), timeout=timeout)
-        return _unwrap_many(reply)
+        return _unwrap_many(reply, self)
 
     @staticmethod
     def _normalize_batch_op(op: Tuple) -> Tuple:
@@ -1061,7 +1477,7 @@ class RemoteSurface:
             "TXEXEC", safe_pickle.dumps(versions), safe_pickle.dumps(ops),
             self.caller_id(), timeout=timeout,
         )
-        return _unwrap_many(reply)
+        return _unwrap_many(reply, self)
 
     # -- hot-path handles ----------------------------------------------------
 
@@ -1089,9 +1505,10 @@ class RemoteSurface:
     def get_topic(self, name: str, codec: Optional[Codec] = None) -> "RemoteTopic":
         return RemoteTopic(self, self._map_name(name), codec)
 
-    def get_local_cached_map(self, name: str, codec: Optional[Codec] = None, options=None):
-        """RLocalCachedMap over the wire (RemoteLocalCachedMap)."""
-        raise NotImplementedError(f"local cached maps {_PART4}")
+    def get_local_cached_map(
+        self, name: str, codec: Optional[Codec] = None, options=None
+    ) -> "RemoteLocalCachedMap":
+        return RemoteLocalCachedMap(self, self._map_name(name), options=options, codec=codec)
 
     def create_batch(self, options: Optional["BatchOptions"] = None) -> "RemoteBatch":
         return RemoteBatch(self, options)

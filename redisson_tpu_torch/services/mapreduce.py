@@ -39,7 +39,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from redisson_tpu_torch.client.codec import StringCodec
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core.engine import resolve_device
 from redisson_tpu_torch.services.executor import inject_client
@@ -709,8 +708,8 @@ def word_count(source_map, workers: int = 4, executor=None, timeout: float = 120
     with _gc_paused():
         t = time.perf_counter()
         raw = source_map.read_all_values()
-        if isinstance(getattr(source_map, "_codec", None), StringCodec):
-            vals = raw  # StringCodec decodes to str: skip the 1M-item copy
+        if set(map(type, raw)) <= {str}:
+            vals = raw  # all str (a StringCodec map): skip the 1M-item copy
         else:
             vals = [v if type(v) is str else str(v) for v in raw]
         if not vals:

@@ -30,18 +30,16 @@ Facades:
     PARTIALLY COMMITTED (see RemoteTransaction._commit_frames).
 
 Transaction-scoped object views give read-your-writes inside the transaction
-(the reference's transactional RBucket/RBuckets/RMap/RMapCache/RSet/RSetCache
-wrappers, RedissonTransaction.java:84-196).
+(the reference's transactional RBucket/RBuckets/RMap/RMapCache/RSet/RSetCache/
+RLocalCachedMap wrappers, RedissonTransaction.java:84-196).
 
-A copy of ``redisson_tpu/services/transactions.py``.  The transactional
-local cached map (``TxLocalCachedMap`` with its commit-time near-cache
-handshake) waits for the local caches (ROADMAP M7 part 4);
-``get_local_cached_map`` raises NotImplementedError until then.  Wire frames
-are pickled by ``net/safe_pickle.dumps``, under the reference's class names.
+A copy of ``redisson_tpu/services/transactions.py``.  Wire frames are
+pickled by ``net/safe_pickle.dumps``, under the reference's class names.
 """
 from __future__ import annotations
 
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from redisson_tpu_torch.net import safe_pickle
@@ -113,6 +111,7 @@ class BaseTransaction:
         self._read_versions: Dict[str, int] = {}  # mapped name -> version
         self._local: Dict[Tuple[str, Any], Any] = {}  # read-your-writes buffer
         self._deleted: Set[Tuple[str, Any]] = set()
+        self._lc_views: List["TxLocalCachedMap"] = []
         self._state = "active"
         self._created_at = time.time()
 
@@ -136,13 +135,13 @@ class BaseTransaction:
     def get_set_cache(self, name: str, codec=None) -> "TxSetCache":
         return TxSetCache(self, "get_set_cache", name, codec)
 
-    def get_local_cached_map(self, from_handle):
-        """RTransaction.getLocalCachedMap(fromInstance): waits for the local
-        caches."""
-        raise NotImplementedError(
-            "transactional local cached maps come with the local caches "
-            "(ROADMAP M7 part 4)"
-        )
+    def get_local_cached_map(self, from_handle) -> "TxLocalCachedMap":
+        """Takes the LIVE handle (RTransaction.getLocalCachedMap(fromInstance)
+        signature): the handle carries the near-cache channel used for the
+        commit-time disable/enable handshake."""
+        view = TxLocalCachedMap(self, from_handle)
+        self._lc_views.append(view)
+        return view
 
     # -- buffering ------------------------------------------------------------
 
@@ -237,7 +236,13 @@ class EmbeddedTransaction(BaseTransaction):
     def _handle(self, factory: str, name: str, codec):
         from redisson_tpu_torch.client.redisson import RedissonTpu
 
-        return getattr(RedissonTpu(self._engine), factory)(name, codec)
+        client = RedissonTpu(self._engine)
+        if factory == "get_local_cached_map":
+            # plain-map application: invalidations are broadcast by the view's
+            # commit handshake, and a throwaway LocalCachedMap handle would
+            # leak a subscription per committed op
+            return getattr(client, "get_map")(name, codec)
+        return getattr(client, factory)(name, codec)
 
     def _versioned_read(self, factory, name, mapped, method, args, kwargs, codec):
         with self._engine.locked(mapped):
@@ -248,18 +253,24 @@ class EmbeddedTransaction(BaseTransaction):
 
     def _apply_commit(self) -> None:
         names = sorted({op.mapped for op in self._ops} | set(self._read_versions))
-        with self._engine.locked_many(names):
-            for mapped, seen in self._read_versions.items():
-                rec = self._engine.store.get(mapped)
-                cur = 0 if rec is None else rec.version
-                if cur != seen:
-                    raise TransactionException(
-                        f"object '{mapped}' changed concurrently "
-                        f"(version {seen} -> {cur})"
-                    )
-            for op in self._ops:
-                handle = self._handle(op.factory, op.name, op.codec)
-                getattr(handle, op.method)(*op.args, **op.kwargs)
+        for view in self._lc_views:
+            view._disable_caches()
+        try:
+            with self._engine.locked_many(names):
+                for mapped, seen in self._read_versions.items():
+                    rec = self._engine.store.get(mapped)
+                    cur = 0 if rec is None else rec.version
+                    if cur != seen:
+                        raise TransactionException(
+                            f"object '{mapped}' changed concurrently "
+                            f"(version {seen} -> {cur})"
+                        )
+                for op in self._ops:
+                    handle = self._handle(op.factory, op.name, op.codec)
+                    getattr(handle, op.method)(*op.args, **op.kwargs)
+        finally:
+            for view in self._lc_views:
+                view._enable_caches()
 
 
 # alias kept for existing callers (client/redisson.py, tests)
@@ -358,7 +369,7 @@ class RemoteTransaction(BaseTransaction):
         reply = self._client.execute(
             *frame, timeout=self._options.response_timeout
         )
-        version, result = _unwrap(reply)
+        version, result = _unwrap(reply, self._client)
         return version, result
 
     def _apply_commit(self) -> None:
@@ -368,7 +379,13 @@ class RemoteTransaction(BaseTransaction):
         all_names = sorted(set(versions) | set(op_names))
         if not all_names:
             return
-        self._commit_frames(all_names, versions, wire_ops, op_names)
+        for view in self._lc_views:
+            view._disable_caches()
+        try:
+            self._commit_frames(all_names, versions, wire_ops, op_names)
+        finally:
+            for view in self._lc_views:
+                view._enable_caches()
         if self._options.sync_slaves:
             self._client.sync_replication(
                 all_names, timeout=self._options.sync_timeout
@@ -687,3 +704,32 @@ class TxSetCache(TxSet):
         else:
             self._buffer("add", v, ttl)  # SetCache.add(value, ttl)
 
+
+class TxLocalCachedMap(TxMap):
+    """RedissonTransactionalLocalCachedMap: the TxMap surface over the
+    backing map, plus the commit-time near-cache disable/enable handshake
+    (LocalCachedMapDisable/Enable messages, RedissonTransaction.java
+    disableLocalCache/enableLocalCache): every subscriber — including the
+    committing client — bypasses its near cache from just before the commit
+    frame until the enable broadcast, so no client can serve a stale
+    near-cache read between apply and invalidation delivery."""
+
+    def __init__(self, tx: BaseTransaction, handle):
+        super().__init__(
+            tx, "get_local_cached_map", handle.name,
+            getattr(handle, "_codec", None),
+        )
+        self._handle = handle
+        self._req_id = uuid.uuid4().hex
+
+    def _disable_caches(self) -> None:
+        try:
+            self._handle.tx_disable(self._req_id)
+        except Exception:  # noqa: BLE001 — handshake is best-effort
+            pass
+
+    def _enable_caches(self) -> None:
+        try:
+            self._handle.tx_enable(self._req_id)
+        except Exception:  # noqa: BLE001
+            pass

@@ -1,7 +1,7 @@
 """Time two trees' kernels in turns on one CUDA card, e.g. a parent commit
 against its change.
 
-    python3 -m redisson_tpu_torch.tools.kernel_ab [--paths] [--out FILE] TREE [TREE ...]
+    python3 -m redisson_tpu_torch.tools.kernel_ab [--paths | --config4] [--out FILE] TREE [TREE ...]
 
 Each TREE is a checkout of this repository (say the parent unpacked with
 `git archive` into a git-ignored directory, and `.` for the change); give
@@ -24,7 +24,8 @@ run_config7 through that tree's create().  It prints every kernel's times
 by run (the k-means step's assign and update on lines of their own), the
 IVF batch's and the fanout levels', then the paths' fanout ops/s,
 word-count walls and config 7's per-leg qps, and writes the JSON of the
-run to --out.
+run to --out.  With --config4 a tree runs run_config4 alone (the put_all,
+both word counts and their parts), for host-side changes on that path.
 """
 from __future__ import annotations
 
@@ -108,10 +109,24 @@ print("AB " + json.dumps(out, default=str))
 """
 
 
-def run_tree(tree: str, paths: bool) -> dict:
+CHILD_CONFIG4 = r"""
+import json
+import chip_smoke as CS
+import redisson_tpu_torch
+from redisson_tpu_torch.core import _build
+build_s = _build.build_all()
+values = CS.config4_values()
+client = redisson_tpu_torch.create()
+c4 = {k: v for k, v in CS.run_config4(client, values).items() if isinstance(v, (int, float, dict))}
+client.shutdown()
+print("AB " + json.dumps({"build_s": build_s, "config4": c4}, default=str))
+"""
+
+
+def run_tree(tree: str, paths: bool, config4: bool = False) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    proc = subprocess.run([sys.executable, "-c", CHILD.replace("PATHS", str(paths))], cwd=tree, env=env,
-                          capture_output=True, text=True)
+    code = CHILD_CONFIG4 if config4 else CHILD.replace("PATHS", str(paths))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, env=env, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     line = next(x for x in reversed(proc.stdout.splitlines()) if x.startswith("AB "))
@@ -122,6 +137,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--config4", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -129,8 +145,16 @@ def main() -> int:
     print(card, flush=True)
     runs = []
     for tree in args.trees:
-        runs.append({"tree": tree, **run_tree(tree, args.paths)})
+        runs.append({"tree": tree, **run_tree(tree, args.paths, args.config4)})
         print(f"ran {tree}", flush=True)
+    if args.config4:
+        for r in runs:
+            c4 = r["config4"]
+            parts = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in c4["cold_parts"].items())
+            print(f"{r['tree']}: config4 put_all {c4['put_all_s']:.4f} s, word_count cold {c4['cold_s']:.4f} s, "
+                  f"warm {c4['warm_s'] * 1e3:.3f} ms; cold parts {parts}")
+        _write(args.out, card, runs)
+        return 0
     names = list(runs[0]["kernels"])
     for key in ("ms", "assign_ms", "update_ms"):
         vals = [r["kernels"].get("kmeans", {}).get(key) for r in runs]
@@ -163,10 +187,14 @@ def main() -> int:
             qps = ", ".join(f"{leg} {v['qps']:.1f}" for leg, v in c7["legs"].items())
             print(f"{r['tree']}: config4 word_count cold {c4['cold_s']:.4f} s, warm {c4['warm_s'] * 1e3:.3f} ms; "
                   f"config7 qps {qps}; v7_sift parts " + json.dumps(c7["parts"].get("v7_sift")))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"card": card, "runs": runs}, f, indent=1, default=str)
+    _write(args.out, card, runs)
     return 0
+
+
+def _write(path, card: str, runs: list) -> None:
+    if path:
+        with open(path, "w") as f:
+            json.dump({"card": card, "runs": runs}, f, indent=1, default=str)
 
 
 if __name__ == "__main__":

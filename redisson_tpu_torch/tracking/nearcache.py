@@ -30,10 +30,9 @@ Coherence disciplines:
     so negative (and positive — those are immutable outright) lookups are
     cached per (filter, key) and the filter's add stream invalidates them.
 
-A copy of ``redisson_tpu/tracking/nearcache.py`` less the plane's name
-listeners (``add_name_listener``), which only the local cached map's
-TRACKING sync strategy rides: they come with the local caches (ROADMAP M7
-part 4).
+A copy of ``redisson_tpu/tracking/nearcache.py``, with the plane's name
+listeners (``add_name_listener``) that the local cached map's TRACKING sync
+strategy rides.
 """
 from __future__ import annotations
 
@@ -179,6 +178,7 @@ class ClientTracking:
         # is PER-NODE — see _rtpu_feed_epoch below)
         self._epoch = 0
         self._closed = False
+        self._name_listeners: Dict[str, List[Callable]] = {}
         self._hub_listener = None
         # future nodes (cluster topology refresh constructs NodeClients from
         # _node_kw) inherit the arming hook automatically
@@ -292,6 +292,7 @@ class ClientTracking:
                     self._epoch += 1
                     node.pool.clear_idle()
                     self.cache.flush()
+                    self._notify(None)
                     feed.add_invalidation_listener(self._on_invalidate)
                     feed.on_disconnect = self._on_feed_down
                     feed._rtpu_inv_armed = True
@@ -313,10 +314,12 @@ class ClientTracking:
         if keys is None:
             # FLUSHALL / flush-everything frame
             self.cache.flush()
+            self._notify(None)
             return
         for k in keys:
             name = k.decode() if isinstance(k, (bytes, bytearray)) else str(k)
             self.cache.invalidate(name)
+            self._notify(name)
 
     def _on_feed_down(self, feed) -> None:
         node = getattr(feed, "_rtpu_inv_node", None)
@@ -333,6 +336,7 @@ class ClientTracking:
         if node is not None:
             node.pool.clear_idle()
         self.cache.flush()
+        self._notify(None)
 
     def connection_lost(self, address: str) -> None:
         """Node-level disconnect (events hub): the gap may have swallowed
@@ -344,6 +348,39 @@ class ClientTracking:
         with self._lock:
             self._epoch += 1
         self.cache.flush()
+        self._notify(None)
+
+    # -- name listeners (localcache TRACKING mode rides these) ----------------
+
+    def add_name_listener(self, name: str, fn: Callable) -> Callable:
+        """fn(name) on that name's invalidation; fn(None) on a full flush."""
+        with self._lock:
+            self._name_listeners.setdefault(name, []).append(fn)
+        return fn
+
+    def remove_name_listener(self, name: str, fn: Callable) -> None:
+        with self._lock:
+            fns = self._name_listeners.get(name)
+            if fns is None:
+                return
+            try:
+                fns.remove(fn)
+            except ValueError:
+                return
+            if not fns:
+                del self._name_listeners[name]
+
+    def _notify(self, name: Optional[str]) -> None:
+        with self._lock:
+            if name is None:
+                fns = [f for lst in self._name_listeners.values() for f in lst]
+            else:
+                fns = list(self._name_listeners.get(name, ()))
+        for fn in fns:
+            try:
+                fn(name)
+            except Exception:  # noqa: BLE001 — listener bugs stay contained
+                pass
 
     # -- read-through helper --------------------------------------------------
 
@@ -386,6 +423,7 @@ class ClientTracking:
     def close(self) -> None:
         with self._lock:
             self._closed = True
+            self._name_listeners.clear()
         hub = getattr(self.client, "events_hub", None)
         if hub is not None and self._hub_listener is not None:
             hub.remove_listener(self._hub_listener)

@@ -1737,3 +1737,38 @@ def test_services_stream_on_the_card_replies_as_on_the_cpu(dev):
     assert W.compare(setup, first[0][0][1], first[1][0][1]) == []
     for wave, (_, card), (_, cpu) in zip(waves, got[0], got[1]):
         assert W.compare(wave, card, cpu) == []
+
+
+@pytest.mark.parametrize("fused_add", [False, True], ids=["set", "fused_add"])
+def test_fused_step_on_the_card_matches_its_plain_path(dev, fused_add, monkeypatch):
+    """K10 (graft_entry.fused_step) on the card: found, plane and registers
+    bit for bit against the same step on the CPU, over two steps with
+    in-batch duplicates, tenants outside the plane and a masked tail; with
+    the insert by bloom_set and, forced, by the fused add.  Each step
+    launches bloom_probe, the insert and hll_add once."""
+    from redisson_tpu_torch import graft_entry as G
+
+    if fused_add:
+        monkeypatch.setattr(K, "use_fused_add", lambda size, n_valid, k: True)
+    rng = np.random.default_rng(3)
+    tenants, m, p, b = 6, 1 << 16, 12, 4096
+    state = {where: (torch.zeros((tenants, m), dtype=torch.uint8, device=where),
+                     torch.zeros((tenants, 1 << p), dtype=torch.uint8, device=where))
+             for where in (dev, torch.device("cpu"))}
+    for n_valid in (b - 77, b):
+        t = rng.integers(0, tenants, b).astype(np.int32)
+        t[:4] = (-1, tenants, -tenants, tenants + 3)
+        lo = rng.integers(0, 1 << 32, b, dtype=np.uint64).astype(np.uint32)
+        hi = rng.integers(0, 1 << 32, b, dtype=np.uint64).astype(np.uint32)
+        lo[b // 2:], hi[b // 2:], t[b // 2:] = lo[: b - b // 2], hi[: b - b // 2], t[: b - b // 2]
+        out = {}
+        for where, (bits, regs) in state.items():
+            ops = [torch.from_numpy(a.copy()).to(where) for a in (t, lo, hi)]
+            K.reset_launches()
+            out[where.type] = G.fused_step(bits, regs, *ops, n_valid, 7)
+            torch.cuda.synchronize()
+            if where.type == "cuda":
+                insert = "bloom_add" if fused_add else "bloom_set"
+                assert (K.launches["bloom_probe"], K.launches[insert], K.launches["hll_add"]) == (1, 1, 1)
+        for got, want in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(got.cpu(), want)

@@ -65,6 +65,12 @@ def test_the_walk_covers_the_services_modules():
             "redisson_tpu_torch.node"} <= set(_modules())
 
 
+def test_the_walk_covers_the_cache_and_codec_modules():
+    assert {"redisson_tpu_torch.graft_entry", "redisson_tpu_torch.client.jcache",
+            "redisson_tpu_torch.client.objects.localcache", "redisson_tpu_torch.utils.lz4block",
+            "redisson_tpu_torch.client.codec"} <= set(_modules())
+
+
 _BLOCKER = """
 import sys
 
@@ -101,6 +107,37 @@ got = safe_loads(bytes.fromhex({blob.hex()!r}))
 assert type(got[0]) is codec.JsonCodec and type(got[2]) is codec.StringCodec, got
 assert type(got[1][1]) is resp.RespError and got[1][1].args == ("ERR x",), got
 assert not [m for m in sys.modules if m == "redisson_tpu" or m.startswith("redisson_tpu.")]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_a_reference_stored_handle_resolves_to_a_port_handle():
+    """A map value the reference stored as a handle reference names the
+    reference's module path; with redisson_tpu and jax unimportable the
+    port's codec binds it to the port's class of the same path."""
+    import redisson_tpu
+
+    ref = redisson_tpu.create()
+    try:
+        inner = ref.get_list("iso:inner")
+        ref.get_map("iso:outer").put("l", inner)
+        raw = next(iter(ref.engine.store.get("iso:outer").host.values()))
+    finally:
+        ref.shutdown()
+    assert b"redisson_tpu.client.objects.list" in raw
+    script = _BLOCKER + f"""
+import redisson_tpu_torch
+c = redisson_tpu_torch.create(device="cpu")
+c.get_list("iso:inner").add("x")
+got = c.get_map("iso:outer")._codec.decode_map_value(bytes.fromhex({raw.hex()!r}))
+assert type(got).__module__ == "redisson_tpu_torch.client.objects.list", type(got)
+assert got.read_all() == ["x"]
+c.shutdown()
+assert not [m for m in sys.modules if m == "redisson_tpu" or m.startswith(("redisson_tpu.", "jax"))]
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,

@@ -66,6 +66,33 @@ def test_word_count_fast_path(clients):
     assert out[0] == out[1] == {"tick": 200, "tock": 100}
 
 
+def test_word_count_over_values_that_are_not_all_strings(clients):
+    """A StringCodec map holding a handle (read back as a live handle) and a
+    default-codec map of ints and strings both count str() of each value,
+    as the reference does."""
+    from redisson_tpu.client.codec import StringCodec as RString
+    from redisson_tpu_torch.client.codec import StringCodec as TString
+
+    out = []
+    for c, wc, codec in zip(clients, (RMR.word_count, MR.word_count), (RString(), TString())):
+        m = c.get_map("src:ref", codec=codec)
+        m.put_all({i: "tick tock tick" for i in range(50)})
+        m.put("h", c.get_list("src:ref:inner"))
+        vals = m.read_all_values()
+        got = wc(m, workers=4)
+        want = MR._host_word_count([v if type(v) is str else str(v) for v in vals])
+        # the handle's repr ends in its address, which differs a read
+        assert sorted(got.values()) == sorted(want.values())
+        assert {w: c for w, c in got.items() if not w.startswith("0x")} == \
+            {w: c for w, c in want.items() if not w.startswith("0x")}
+        assert sum(1 for v in vals if type(v) is not str) == 1
+        n = c.get_map("src:mixed")
+        n.put_all({i: (i if i % 2 else f"w{i % 3} tock") for i in range(60)})
+        out.append((got["tick"], got["tock"], wc(n, workers=4)))
+    assert out[0] == out[1]
+    assert out[1][:2] == (100, 50)
+
+
 @pytest.mark.parametrize("workers", [1, 3, 16])
 def test_generic_on_a_random_corpus_and_a_plain_source(clients, workers):
     rng = np.random.default_rng(workers)

@@ -6,11 +6,6 @@ from tests import _torch_port_suite
 WAITING = {
     "test_epochless_handoff_invalidates_after_fenced_migration": "M8 (slot migration, ClusterRunner's _exec)",
     "test_replica_reads_arm_tracking_and_invalidate": "M11 (replica reads) on M8's ClusterRunner",
-    "test_localcache_tracking_sync_mode": "M7 part 4 (local caches)",
-    "test_localcache_tracking_mode_requires_plane": "M7 part 4 (local caches)",
-    "test_localcache_tracking_own_write_does_not_stale_seed": "M7 part 4 (local caches)",
-    "test_localcache_tracking_own_write_voids_inflight_get": "M7 part 4 (local caches)",
-    "test_localcache_topic_put_races_foreign_invalidation": "M7 part 4 (local caches)",
     "test_tracking_census_and_metrics_gauges": "M11 (the resource census, chaos/census.py)",
     "test_tracking_soak_migration_smoke": "M8 (ClusterRunner under the chaos soak harness)",
     "test_tracking_soak_kill_failover": "M8 (ClusterRunner under the chaos soak harness)",

@@ -9,7 +9,6 @@ WAITING = {
     "test_dns_monitor_change_detection": "M8 (net/dns.py)",
     "test_host_of_parsing": "M8 (net/dns.py)",
     "test_create_rejects_bad_read_mode": "M8 (the cluster client's config)",
-    "test_remote_local_cached_map_invalidation": "M7 part 4 (local caches)",
     "test_cluster_map_cache_entry_listener": "M8 (ClusterRunner)",
 }
 

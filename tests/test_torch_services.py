@@ -282,11 +282,13 @@ class Calc:
 
 
 def _settles_to(before: set, deadline: float = 15.0, server_pools=()) -> set:
-    """The threads still alive beyond `before` once things settle, less
-    the server's own pools (they grow on demand and end with the server)."""
+    """The names of the threads still alive beyond `before` (the threads
+    alive then, by identity: a thread an earlier test left running may
+    share a name with a new one) once things settle, less the server's own
+    pools (they grow on demand and end with the server)."""
     def extra():
         return {t.name for t in threading.enumerate()
-                if t.name not in before and not t.name.startswith(tuple(server_pools))}
+                if t not in before and not t.name.startswith(tuple(server_pools))}
 
     end = time.time() + deadline
     while extra() and time.time() < end:
@@ -295,7 +297,7 @@ def _settles_to(before: set, deadline: float = 15.0, server_pools=()) -> set:
 
 
 def test_an_embedded_facade_with_every_service_shuts_down_to_no_thread():
-    before = {t.name for t in threading.enumerate()}
+    before = set(threading.enumerate())
     c = redisson_tpu_torch.create(device="cpu")
     ex = c.get_executor_service("thr")
     ex.register_workers(2)
@@ -317,14 +319,14 @@ def test_an_embedded_facade_with_every_service_shuts_down_to_no_thread():
     while not got and time.time() < end:
         time.sleep(0.02)
     assert got == [5]
-    assert len({t.name for t in threading.enumerate()} - before) >= 8
+    assert len({t.name for t in threading.enumerate() if t not in before}) >= 8
     c.shutdown()
     assert _settles_to(before) == set()
 
 
 def test_a_remote_facade_and_a_node_leave_no_thread():
     with ServerThread(port=0, device="cpu") as st:
-        before = {t.name for t in threading.enumerate()}
+        before = set(threading.enumerate())
         c = RemoteRedisson(st.address, timeout=30.0)
         node = WorkerNode(st.address, workers=2, poll_interval=0.05).start()
         got = []
@@ -340,7 +342,9 @@ def test_a_remote_facade_and_a_node_leave_no_thread():
         assert got == [1]
         node.stop()
         c.shutdown()
-        assert _settles_to(before, server_pools=("rtpu-srv", "rtpu-qos", "rtpu-slow")) == set()
+        # the server engine's sweeper starts with the queue's first wait
+        # entry and, like its pools, ends with the server
+        assert _settles_to(before, server_pools=("rtpu-srv", "rtpu-qos", "rtpu-slow", "rtpu-eviction")) == set()
 
 
 # -- the port's worker node in its own processes --------------------------------

@@ -1,0 +1,8 @@
+"""The reference's tests/test_object_references.py, unedited, on the port's server and clients
+(tests/_torch_port_suite.py).  ``WAITING`` names each test left out and
+the slice it waits for."""
+from tests import _torch_port_suite
+
+WAITING: dict = {}
+
+globals().update(_torch_port_suite.load("test_object_references", WAITING, __name__))

@@ -180,7 +180,21 @@ Phases (any failure raises and the script exits non-zero):
      (X*, GEO*, JSON.*, FT.*, the script verbs) with FT.MSEARCH on the
      corpus cut to 10,000 rows on a card server and a CPU server, RESP2
      then RESP3: equal under the stream's clock and KNN contracts; the path
-     must launch knn_score, knn_select, ivf_score and kmeans;
+     must launch knn_score, knn_select, ivf_score and kmeans; then the
+     cluster path (run_cluster, config 5, bench.py:452-490):
+     redisson_tpu_torch.harness.ClusterRunner(masters=8, workers=16) on the
+     card driven by the port's ClusterRedisson(scan_interval=0), config 5's
+     stream (a warm rep, then four timed reps through execute_many, every
+     probe found, no error reply, fewer bloom launches a rep than its 128
+     BF blob commands: each shard's runs coalesced), a raw connection to
+     every master that does not own a name's slot replying MOVED <slot>
+     <owner>, and the same stream on a CPU ClusterRunner(masters=8), reply
+     for reply; and the cluster_proc path (run_cluster_proc, config 5p,
+     bench.py:498-530): ClusterSupervisor(masters=8) of server processes
+     (--workers 16), each on the card, the same stream, then a SIGTERM to
+     each: every exit code 0, each log naming cuda and the kernel launches
+     it made (the path's launches are their sum); both paths must launch
+     bloom_probe, bitset_set and bloom_set or bloom_add;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -306,7 +320,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "config7": VECTOR_KERNELS,
                 "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add")}
+                "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add"),
+                "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set")}
 FPP = 0.01
 
 
@@ -4931,6 +4946,187 @@ def run_services(c7, values: list, device="cuda") -> dict:
     return out
 
 
+# the cluster paths: config 5 (bench.py:452-490, 8 in-process masters with
+# 16 workers each) and config 5p (bench.py:498-530, the same 8 masters as
+# server processes), config 5's stream (server_config5_cmds) through the
+# port's ClusterRedisson; the ready timeout covers a child's torch import
+# and CUDA start
+CL_MASTERS, CL_WORKERS, CL_SEED, CL_READY_S = 8, 16, 11, 240
+
+
+def cluster_reps(client, label: str, card: str, count: bool) -> tuple:
+    """One warm rep, then SRV_C5_REPS timed reps of config 5's stream
+    through client.execute_many: every probe found, no error reply, and
+    with `count` (this process launches the kernels) fewer bloom launches a
+    rep than its 128 BF blob commands, so each shard's runs coalesced.
+    Returns (the timings, every rep's replies)."""
+    from redisson_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(CL_SEED)
+    bloom = ("bloom_probe", "bloom_set", "bloom_add")
+    blob_cmds = 2 * C5_TENANTS
+    reps, replies_by_rep = [], []
+    for rep in range(SRV_C5_REPS + 1):  # the first rep warms
+        cmds, ops = server_config5_cmds(rng, "w" if rep == 0 else f"r{rep}")
+        before = dict(K.launches)
+        s = time.perf_counter()
+        replies = client.execute_many(cmds)
+        wall = time.perf_counter() - s
+        launched = {k: K.launches[k] - before[k] for k in bloom}
+        errors = [r for r in replies if isinstance(r, Exception)]
+        if errors:
+            raise AssertionError(f"{label}: error replies {errors[:3]}")
+        for t, r in enumerate(replies[2 * C5_TENANTS: 3 * C5_TENANTS]):
+            if not np.frombuffer(r, np.uint8).all():
+                raise AssertionError(f"{label}: false negatives t{t}")
+        if count and sum(launched.values()) >= blob_cmds:
+            raise AssertionError(f"{label}: {launched} bloom launches for {blob_cmds} BF blob commands: "
+                                 "the shards' runs did not coalesce")
+        replies_by_rep.append(replies)
+        if rep:
+            reps.append({"wall_s": wall, "ops_per_s": ops / wall, **({"bloom_launches": launched} if count else {})})
+    out = {"ops_per_rep": ops, "reps": reps, "ops_per_s": [r["ops_per_s"] for r in reps]}
+    log(f"{label} config5 [{card}]: {SRV_C5_REPS} reps of {len(cmds)} commands ({ops} ops, bench.py's count) "
+        f"over {CL_MASTERS} masters, one warm rep first: {', '.join(f'{r:.3e}' for r in out['ops_per_s'])} ops/s; "
+        "every probe found" + (f"; bloom launches a rep {reps[-1]['bloom_launches']} for {blob_cmds} BF blob "
+                               "commands (each shard's runs coalesced)" if count else ""))
+    return out, replies_by_rep
+
+
+def cluster_moved(runner) -> str:
+    """A raw connection to a master that does not own a name's slot gets
+    MOVED <slot> <owner>; the owner serves it."""
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.net.resp import RespError
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    name = f"bfw{{t{C5_TENANTS - 1}}}"  # a filter of the warm rep
+    slot = calc_slot(name.encode())
+    owner = next(i for i, (lo, hi) in enumerate(runner.slot_ranges) if lo <= slot <= hi)
+    blob = _i8(np.arange((C5_TENANTS - 1) * C5_PER, C5_TENANTS * C5_PER, dtype=np.int64) * 2654435761)
+    want = f"MOVED {slot} {runner.masters[owner].address}"
+    for i, m in enumerate(runner.masters):
+        conn = Connection(m.server.server.host, m.port, timeout=600.0)
+        try:
+            reply = conn.execute("BF.MEXISTS64", name, blob)
+        finally:
+            conn.close()
+        if i == owner:
+            if isinstance(reply, Exception) or not np.frombuffer(reply, np.uint8).all():
+                raise AssertionError(f"cluster: the owner of {name} replied {str(reply)[:80]}")
+        elif not (isinstance(reply, RespError) and str(reply) == want):
+            raise AssertionError(f"cluster: master {i} replied {str(reply)[:80]} for {name}, want {want}")
+    return want
+
+
+def run_cluster(device="cuda") -> dict:
+    """The cluster path (config 5): ClusterRunner(masters=8, workers=16) of
+    port servers on the card, driven by the port's ClusterRedisson; a MOVED
+    from every master that does not own a name; then the same stream on a
+    CPU cluster of 8 masters, reply for reply."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.harness import ClusterRunner
+
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    start = time.perf_counter()
+    card = card_line()
+    out = {}
+    runner = ClusterRunner(masters=CL_MASTERS, workers=CL_WORKERS, device=device).run()
+    try:
+        landed = {m.server.server.engine.device.type for m in runner.masters}
+        if landed != {torch.device(device).type}:
+            raise AssertionError(f"cluster: masters on {landed}, not {device}")
+        out["startup_s"] = time.perf_counter() - start
+        client = runner.client(scan_interval=0, timeout=600.0)
+        try:
+            out["config5"], got = cluster_reps(client, "cluster", card, device != "cpu")
+        finally:
+            client.shutdown()
+        out["moved"] = cluster_moved(runner)
+    finally:
+        runner.shutdown()
+    launches = dict(K.launches)  # the CPU run below launches none
+    s = time.perf_counter()
+    cpu = ClusterRunner(masters=CL_MASTERS, workers=CL_WORKERS, device="cpu").run()
+    try:
+        client = cpu.client(scan_interval=0, timeout=600.0)
+        try:
+            _, want = cluster_reps(client, "cluster (CPU)", card, False)
+        finally:
+            client.shutdown()
+    finally:
+        cpu.shutdown()
+    for rep, (g, w) in enumerate(zip(got, want)):
+        bad = [i for i, (a, b) in enumerate(zip(g, w)) if not same(a, b)]
+        if bad or len(g) != len(w):
+            raise AssertionError(f"cluster: rep {rep} replies differ from the CPU cluster's at {bad[:5]}")
+    out["card_vs_cpu"] = {"reps": len(got), "replies": sum(len(g) for g in got), "cpu_s": time.perf_counter() - s}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    log(f"cluster path [{card}]: {out['seconds']:.1f}s (startup {out['startup_s']:.1f}s, CPU cluster "
+        f"{out['card_vs_cpu']['cpu_s']:.1f}s); {out['card_vs_cpu']['replies']} replies equal to the CPU "
+        f"cluster's; a non-owner replies {out['moved']!r}")
+    return out
+
+
+def run_cluster_proc(device="cuda") -> dict:
+    """The cluster_proc path (config 5p): ClusterSupervisor(masters=8) of
+    server processes (python -m redisson_tpu_torch.server, 16 workers), each
+    on the card, config 5's stream through the port's ClusterRedisson, then
+    a SIGTERM to each: every exit code 0, every log naming the device it
+    served on and the kernels it launched (the path's launches are their
+    sum)."""
+    from redisson_tpu_torch.cluster import ClusterSupervisor
+
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    start = time.perf_counter()
+    card = card_line()
+    out = {}
+    sup = ClusterSupervisor(masters=CL_MASTERS, server_args=("--workers", str(CL_WORKERS)),
+                            platform=None if device == "cuda" else device, ready_timeout=CL_READY_S)
+    try:
+        sup.start()
+        out["startup_s"] = time.perf_counter() - start
+        client = sup.client(scan_interval=0, timeout=600.0)
+        try:
+            if not client.wait_routable(timeout=60.0):
+                raise AssertionError("cluster_proc: the processes never served every slot")
+            out["config5"], _ = cluster_reps(client, "cluster_proc", card, False)
+        finally:
+            client.shutdown()
+        codes = [sup.stop(node, timeout=60.0) for node in sup.masters]
+        logs = [sup.log_tail(node, 1 << 16) for node in sup.masters]
+    finally:
+        sup.shutdown()
+    if codes != [0] * CL_MASTERS:
+        raise AssertionError(f"cluster_proc: exit codes {codes}\n" + logs[0][-2000:])
+    launches, served = {}, set()
+    for i, text in enumerate(logs):
+        lines = text.splitlines()
+        on = [ln.split()[-1] for ln in lines if ln.startswith("serving on ")]
+        counts = [json.loads(ln[len("kernel launches "):]) for ln in lines if ln.startswith("kernel launches ")]
+        if len(on) != 1 or torch.device(on[0]).type != torch.device(device).type or len(counts) != 1:
+            raise AssertionError(f"cluster_proc: m{i} served on {on}, launch lines {len(counts)}:\n{text[-2000:]}")
+        served.add(on[0])
+        for k, v in counts[0].items():
+            launches[k] = launches.get(k, 0) + v
+    blob_cmds = 2 * C5_TENANTS * (SRV_C5_REPS + 1)
+    bloom = sum(launches.get(k, 0) for k in ("bloom_probe", "bloom_set", "bloom_add"))
+    if device != "cpu" and bloom >= blob_cmds:
+        raise AssertionError(f"cluster_proc: {bloom} bloom launches for {blob_cmds} BF blob commands: "
+                             "the shards' runs did not coalesce")
+    out.update(exit_codes=codes, served_on=sorted(served), launches=launches,
+               seconds=time.perf_counter() - start)
+    log(f"cluster_proc path [{card}]: {out['seconds']:.1f}s (start of {CL_MASTERS} processes "
+        f"{out['startup_s']:.1f}s); exit codes {codes}; served on {sorted(served)}; the children's launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -5231,7 +5427,9 @@ def main() -> int:
                       ("config7", lambda: run_config7(client)),
                       ("server", lambda: run_server(kernels)),
                       ("remote", lambda: run_remote()),
-                      ("services", lambda: run_services(paths["config7"], values))):
+                      ("services", lambda: run_services(paths["config7"], values)),
+                      ("cluster", lambda: run_cluster()),
+                      ("cluster_proc", lambda: run_cluster_proc())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -5240,7 +5438,7 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft"):
+    for path in ("server", "graft", "cluster", "cluster_proc"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]

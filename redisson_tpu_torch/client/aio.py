@@ -15,9 +15,9 @@ connection-establishment failures retry — once a command is written, a
 timeout or connection loss raises instead of re-sending (a shared
 multiplexed connection would otherwise replay non-idempotent ops).
 
-A copy of ``redisson_tpu/client/aio.py``; pickled frames go through
-``net/safe_pickle`` as the sync client's do.  The slot-routed
-``AsyncClusterRedisson`` comes with the cluster client (ROADMAP M8).
+A copy of ``redisson_tpu/client/aio.py``, the slot-routed
+``AsyncClusterRedisson`` included; pickled frames go through
+``net/safe_pickle`` as the sync client's do.
 """
 from __future__ import annotations
 
@@ -617,12 +617,478 @@ class AsyncRemoteRedisson(_AsyncObjectSurface):
 
 
 class AsyncClusterRedisson(_AsyncObjectSurface):
-    """Async slot-routed facade: comes with the cluster client."""
+    """Async slot-routed facade: the async counterpart of
+    ClusterRedisson, consuming the SAME pure routing core
+    (client/routing.py) — slot table from CLUSTER SLOTS, MOVED/ASK/TRYAGAIN
+    redirect loop, per-shard pipeline grouping — over multiplexed
+    AsyncNodeClients (one pipelined connection per master).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AsyncClusterRedisson comes with the multi-device slice (ROADMAP M8)"
+    Usage::
+
+        client = await AsyncClusterRedisson.connect(["tpu://h1:p", "tpu://h2:p"])
+        await client.execute("SET", "k", "v")
+        m = client.get_map("m"); await m.put("a", 1)
+        await client.aclose()
+    """
+
+    def __init__(
+        self,
+        seeds: List[str],
+        password: Optional[str] = None,
+        timeout: float = 30.0,
+        max_redirects: int = 5,
+        scan_interval: float = 5.0,
+        username: Optional[str] = None,
+        ssl_context=None,
+        ssl_hostname: Optional[str] = None,
+        nat_mapper=None,
+    ):
+        from redisson_tpu_torch.client import routing
+        from redisson_tpu_torch.net.client import address_uses_tls, client_ssl_context
+
+        self._routing = routing
+        self._nat_mapper = nat_mapper  # NatMapper SPI (advertised -> reachable)
+        self._seeds = list(seeds)
+        self._password = password
+        self._username = username
+        if ssl_context is None and any(address_uses_tls(s) for s in seeds):
+            ssl_context = client_ssl_context()  # scheme-driven default TLS
+        self._ssl_context = ssl_context
+        self._ssl_hostname = ssl_hostname
+        self.timeout = timeout
+        self.max_redirects = max_redirects
+        self._scan_interval = scan_interval
+        self._nodes: Dict[str, AsyncNodeClient] = {}  # "host:port" -> client
+        self._slots: List[Optional[str]] = []
+        self._masters: List[str] = []  # every master in the current view
+        self._refresh_lock: Optional[asyncio.Lock] = None
+        self._scan_task: Optional[asyncio.Task] = None
+        self._closing = False
+        self.codec: Codec = DEFAULT_CODEC
+        self._pubsubs: Dict[str, AsyncConnection] = {}  # addr -> pubsub conn
+        self._pubsub_locks: Dict[str, asyncio.Lock] = {}
+        self._sub_queues: Dict[str, List["asyncio.Queue"]] = {}
+
+    @classmethod
+    async def connect(cls, seeds: List[str], **kw) -> "AsyncClusterRedisson":
+        client = cls(seeds, **kw)
+        if not await client.refresh_topology():
+            await client.aclose()
+            raise ConnectionError(f"no reachable cluster node among {seeds}")
+        if client._scan_interval and client._scan_interval > 0:
+            client._scan_task = asyncio.create_task(client._scan_loop())
+        return client
+
+    # -- topology -------------------------------------------------------------
+
+    def _node(self, addr: str) -> AsyncNodeClient:
+        node = self._nodes.get(addr)
+        if node is None:
+            node = self._nodes[addr] = AsyncNodeClient(
+                addr,
+                password=self._password,
+                username=self._username,
+                timeout=self.timeout,
+                ssl_context=self._ssl_context,
+                ssl_hostname=self._ssl_hostname,
+            )
+        return node
+
+    async def refresh_topology(self) -> bool:
+        if self._refresh_lock is None:
+            self._refresh_lock = asyncio.Lock()
+        async with self._refresh_lock:
+            view = None
+            for addr in list(self._nodes) + self._seeds:
+                try:
+                    view = await self._node_for_probe(addr).execute(
+                        "CLUSTER", "SLOTS", timeout=5.0
+                    )
+                    break
+                except Exception:  # noqa: BLE001 — try the next node
+                    continue
+            if view is None:
+                return False
+            new_slots, masters = self._routing.parse_view(view)
+            nat = self._nat_mapper
+            if nat is not None:
+                table = {a: nat.map(a) for a in masters}
+                new_slots = [None if a is None else table.get(a, a) for a in new_slots]
+                masters = {table[a]: None for a in masters}
+            stale = [a for a in self._nodes if a not in masters]
+            self._slots = new_slots
+            self._masters = list(masters)  # ALL masters, not just contacted
+            for a in stale:
+                node = self._nodes.pop(a)
+                try:
+                    await node.close()
+                except Exception:  # noqa: BLE001
+                    pass
+            return True
+
+    def _node_for_probe(self, addr: str) -> AsyncNodeClient:
+        if addr in self._nodes:
+            return self._nodes[addr]
+        from redisson_tpu_torch.net.client import parse_address as _pa
+
+        host, port = _pa(addr)
+        return self._node(f"{host}:{port}")
+
+    async def _scan_loop(self) -> None:
+        while not self._closing:
+            await asyncio.sleep(self._scan_interval)
+            try:
+                await self.refresh_topology()
+            except Exception:  # noqa: BLE001 — keep scanning
+                pass
+
+    def _owner(self, slot: int) -> AsyncNodeClient:
+        addr = self._slots[slot] if self._slots else None
+        if addr is None:
+            raise ConnectionError(f"no entry serves slot {slot}")
+        return self._node(addr)
+
+    # -- command path (async RedisExecutor redirect machine) -------------------
+
+    async def execute(self, *cmd_args, timeout: Optional[float] = None) -> Any:
+        R = self._routing
+        cmd = str(cmd_args[0]).upper()
+        if cmd in R.ALL_SHARD:
+            return await self._execute_all_shards(cmd, cmd_args, timeout)
+        slot, write = R.route(cmd, cmd_args[1:])
+        if slot == R.SPLIT:
+            return await self._execute_split_keys(cmd_args, timeout)
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_redirects + 1):
+            if self._closing:
+                raise ConnectionError("client is closed")
+            try:
+                if slot is None:
+                    if not self._nodes and not await self.refresh_topology():
+                        raise ConnectionError("no cluster entries")
+                    node = next(iter(self._nodes.values()))
+                else:
+                    node = self._owner(slot)
+                if C.is_blocking(cmd_args[0], cmd_args[1:]):
+                    # dedicated connection: a park must not head-of-line-
+                    # block the shard's shared multiplexed FIFO
+                    return await node.execute_blocking(*cmd_args, timeout=timeout)
+                return await node.execute(*cmd_args, timeout=timeout)
+            except RespError as e:
+                kind, target = self._routing.classify_redirect(e)
+                if kind == "moved":
+                    last = e
+                    await self.refresh_topology()
+                    continue
+                if kind == "ask":
+                    try:
+                        return await self._execute_asking(target, cmd_args, timeout)
+                    except RespError as e2:
+                        if self._routing.is_redirect(e2):
+                            last = e2
+                            await self.refresh_topology()
+                            continue
+                        raise
+                    except (ConnectionError, OSError, TimeoutError) as e2:
+                        if write and isinstance(e2, TimeoutError):
+                            raise
+                        last = e2
+                        await self.refresh_topology()
+                        await asyncio.sleep(min(0.1 * (attempt + 1), 1.0))
+                        continue
+                if kind == "tryagain":
+                    last = e
+                    await asyncio.sleep(min(0.05 * (attempt + 1), 0.5))
+                    continue
+                raise
+            except (ConnectionError, OSError, TimeoutError) as e:
+                if write and isinstance(e, TimeoutError):
+                    # at-most-once for writes (the sync client's
+                    # no-retry-after-write rule; see AsyncNodeClient.execute)
+                    raise
+                last = e
+                await self.refresh_topology()
+                await asyncio.sleep(min(0.1 * (attempt + 1), 1.0))
+                continue
+        assert last is not None
+        raise last
+
+    async def _execute_asking(self, target: str, cmd_args, timeout) -> Any:
+        """ASKING + command back-to-back on the importing node.  Both frames
+        are written in ONE event-loop step (no await between the two
+        writes), so no other task's command can interleave on the shared
+        multiplexed connection — the one-shot ASKING admission stays paired
+        with OUR command."""
+        node = self._node(target)
+        if C.is_blocking(cmd_args[0], cmd_args[1:]):
+            # a redirected BLPOP must not park the shard's shared FIFO
+            return await node.execute_blocking(*cmd_args, timeout=timeout, asking=True)
+        replies = await node.execute_pipeline(
+            [("ASKING",), tuple(cmd_args)], timeout=timeout
         )
+        reply = replies[1]
+        if isinstance(reply, RespError):
+            raise reply
+        return reply
+
+    async def _execute_all_shards(self, cmd: str, cmd_args, timeout) -> Any:
+        mode = self._routing.ALL_SHARD[cmd]
+        if not self._masters and not await self.refresh_topology():
+            raise ConnectionError("no cluster entries")
+        # fan out over EVERY master in the view — lazily-contacted nodes
+        # alone would return partial KEYS/DBSIZE and partial FLUSHALL
+        nodes = [self._node(a) for a in self._masters]
+        replies = await asyncio.gather(
+            *(n.execute(*cmd_args, timeout=timeout) for n in nodes)
+        )
+        if mode == "concat":
+            out: List[Any] = []
+            for r in replies:
+                out.extend(r or [])
+            return out
+        if mode == "sum":
+            return sum(int(r or 0) for r in replies)
+        return "+OK"
+
+    async def _execute_split_keys(self, cmd_args, timeout) -> Any:
+        """Cross-slot DEL/UNLINK: ONE multi-key sub-command per slot (the
+        sync client's grouping, never one round trip per key), slot groups
+        concurrent, counts summed.  Each group re-enters execute() so the
+        full redirect machinery applies per slot."""
+        cmd, keys = str(cmd_args[0]), list(cmd_args[1:])
+        groups = self._routing.group_by_slot(keys)
+        counts = await asyncio.gather(
+            *(self.execute(cmd, *ks, timeout=timeout) for ks in groups.values())
+        )
+        return sum(int(c or 0) for c in counts)
+
+    async def execute_pipeline(
+        self, commands: List[Tuple], timeout: Optional[float] = None
+    ) -> List[Any]:
+        """Per-shard grouped pipeline (the async executeBatchedAsync): one
+        write burst per owning master, groups concurrent, results in
+        submission order.  Rows that come back MOVED/ASK re-route through
+        the single-command path."""
+        cmds = [tuple(c) for c in commands]
+        groups: Dict[Optional[str], List[int]] = {}
+        for i, c in enumerate(cmds):
+            slot, _w = self._routing.route(str(c[0]), c[1:])
+            addr = None if slot in (None, self._routing.SPLIT) else (
+                self._slots[slot] if self._slots else None
+            )
+            groups.setdefault(addr, []).append(i)
+        results: List[Any] = [None] * len(cmds)
+
+        async def run_group(addr, idxs):
+            if addr is None:
+                for i in idxs:
+                    try:
+                        results[i] = await self.execute(*cmds[i], timeout=timeout)
+                    except Exception as e:  # noqa: BLE001 — errors stay as data
+                        results[i] = e
+                return
+            node = self._node(addr)
+            try:
+                replies = await node.execute_pipeline([cmds[i] for i in idxs], timeout=timeout)
+            except (ConnectionError, OSError) as e:
+                for i in idxs:
+                    try:
+                        results[i] = await self.execute(*cmds[i], timeout=timeout)
+                    except Exception as e2:  # noqa: BLE001
+                        results[i] = e2
+                return
+            for i, r in zip(idxs, replies):
+                if isinstance(r, RespError) and self._routing.is_redirect(r):
+                    try:
+                        r = await self.execute(*cmds[i], timeout=timeout)
+                    except Exception as e:  # noqa: BLE001
+                        r = e
+                results[i] = r
+
+        await asyncio.gather(*(run_group(a, idxs) for a, idxs in groups.items()))
+        return results
+
+    # -- object surface --------------------------------------------------------
+
+    async def objcall(self, factory: str, name: str, method: str, args, kwargs) -> Any:
+        payload = safe_pickle.dumps((args, kwargs))
+        return _unwrap(
+            await self.execute(
+                "OBJCALL", factory, name, method, payload, self.caller_id()
+            ),
+            self,
+        )
+
+    async def objcall_many(self, ops: List[Tuple]) -> List[Any]:
+        """Per-shard OBJCALLM grouping, groups concurrent (the async twin of
+        ClusterRedisson.objcall_many; same at-most-once timeout rule)."""
+        ops = [tuple(op) for op in ops]
+        groups = self._routing.group_by_slot_owner(
+            self._slots, [op[1] for op in ops]
+        )
+        results: List[Any] = [None] * len(ops)
+
+        async def run_group(addr, idxs):
+            node = self._node(addr) if addr else next(iter(self._nodes.values()))
+            payload = safe_pickle.dumps([ops[i] for i in idxs])
+            try:
+                replies = _unwrap_many(
+                    await node.execute("OBJCALLM", payload, self.caller_id()),
+                    self,
+                )
+            except TimeoutError:
+                raise  # frame may have executed: no per-op re-run (double-apply)
+            except (ConnectionError, OSError):
+                replies = []
+                for i in idxs:
+                    f, n, m, a, kw = ops[i][:5]
+                    try:
+                        replies.append(await self.objcall(f, n, m, a, kw))
+                    except Exception as e:  # noqa: BLE001
+                        replies.append(e)
+            for i, r in zip(idxs, replies):
+                if isinstance(r, RespError) and self._routing.is_redirect(r):
+                    f, n, m, a, kw = ops[i][:5]
+                    try:
+                        r = await self.objcall(f, n, m, a, kw)
+                    except Exception as e:  # noqa: BLE001
+                        r = e
+                results[i] = r
+
+        await asyncio.gather(*(run_group(a, idxs) for a, idxs in groups.items()))
+        return results
+
+    # -- transactions ---------------------------------------------------------
+
+    def create_transaction(self, options=None) -> "AsyncTransaction":
+        return AsyncTransaction(self, options)
+
+    def tx_groups(self, names: List[str]) -> Dict[Any, List[str]]:
+        """One TXEXEC frame per slot owner (ClusterRedisson.tx_groups twin)."""
+        names = list(names)
+        groups = self._routing.group_by_slot_owner(self._slots, names)
+        return {addr: [names[i] for i in idxs] for addr, idxs in groups.items()}
+
+    async def txexec(self, group_key, versions, ops, timeout=None) -> List[Any]:
+        node = (
+            self._node(group_key) if group_key
+            else next(iter(self._nodes.values()))
+        )
+        reply = await node.execute(
+            "TXEXEC", safe_pickle.dumps(versions), safe_pickle.dumps(ops),
+            self.caller_id(), timeout=timeout,
+        )
+        return _unwrap_many(reply, self)
+
+    # handles + caller_id come from _AsyncObjectSurface
+
+    # -- pubsub (slot-routed: subscriptions ride the channel owner) -----------
+
+    def _on_push(self, p: Push) -> None:
+        self._dispatch_message_push(p, self._sub_queues)
+
+    def _channels_owned_by(self, addr: str) -> List[str]:
+        from redisson_tpu_torch.utils.crc16 import calc_slot as _cs
+
+        return [
+            ch
+            for ch in self._sub_queues
+            if self._slots and self._slots[_cs(ch.encode())] == addr
+        ]
+
+    async def _pubsub_connection(self, addr: str) -> AsyncConnection:
+        """Per-master pubsub connection, built under a per-address lock
+        (concurrent first subscribes must not leak a connection) and
+        re-attached with EVERY channel the address currently owns when
+        rebuilt — the AsyncRemoteRedisson reconnect discipline, per shard."""
+        lock = self._pubsub_locks.setdefault(addr, asyncio.Lock())
+        async with lock:
+            if self._closing:
+                raise ConnectionError("client is closing")
+            conn = self._pubsubs.get(addr)
+            if conn is None or conn.closed:
+                from redisson_tpu_torch.net.client import parse_address as _pa
+
+                host, port = _pa(addr)
+                conn = await AsyncConnection(
+                    host,
+                    port,
+                    password=self._password,
+                    username=self._username,
+                    ssl_context=self._ssl_context,
+                    ssl_hostname=self._ssl_hostname,
+                ).connect()
+                conn.push_handler = self._on_push
+                for ch in self._channels_owned_by(addr):
+                    conn.send("SUBSCRIBE", ch)
+                await conn.drain()
+                conn._reader_task.add_done_callback(
+                    lambda _t, a=addr: self._on_pubsub_dropped(a)
+                )
+                self._pubsubs[addr] = conn
+            return conn
+
+    def _on_pubsub_dropped(self, addr: str) -> None:
+        if self._closing or not self._channels_owned_by(addr):
+            return
+
+        async def reconnect():
+            delay = 0.2
+            while not self._closing and self._channels_owned_by(addr):
+                try:
+                    await self._pubsub_connection(addr)
+                    return
+                except (ConnectionError, OSError):
+                    await asyncio.sleep(delay)
+                    delay = min(delay * 2, 5.0)
+
+        try:
+            asyncio.get_running_loop().create_task(reconnect())
+        except RuntimeError:  # loop already closed
+            pass
+
+    async def subscribe(self, channel: str) -> "asyncio.Queue":
+        """Subscribe on the channel's slot-owner master (SSUBSCRIBE
+        semantics — publishes route to the same node, so fan-out holds)."""
+        from redisson_tpu_torch.utils.crc16 import calc_slot as _cs
+
+        addr = self._slots[_cs(channel.encode())] if self._slots else None
+        if addr is None:
+            raise ConnectionError(f"no owner for channel {channel!r}")
+        q: asyncio.Queue = asyncio.Queue()
+        fresh = channel not in self._sub_queues
+        self._sub_queues.setdefault(channel, []).append(q)
+        conn = await self._pubsub_connection(addr)
+        if fresh and not conn.closed:
+            # a brand-new channel on a LIVE connection still needs its
+            # SUBSCRIBE; if _pubsub_connection just rebuilt the connection it
+            # already attached this channel — the duplicate SUBSCRIBE is
+            # idempotent server-side (per-connection subscription set)
+            conn.send("SUBSCRIBE", channel)
+            await conn.drain()
+        return q
+
+    async def aclose(self) -> None:
+        self._closing = True
+        if self._scan_task is not None:
+            self._scan_task.cancel()
+            try:
+                await self._scan_task
+            except asyncio.CancelledError:
+                pass
+        for conn in self._pubsubs.values():
+            await conn.close()
+        for node in self._nodes.values():
+            await node.close()
+
+    async def __aenter__(self):
+        return self
+
+    async def __aexit__(self, *exc):
+        await self.aclose()
+        return False
+
+
 
 
 class AsyncBloomFilter:

@@ -10,7 +10,7 @@ and functions, batches and transactions, the JCache manager, and the
 services: executors and scheduled executors, the remote service, live
 objects and the elements subscribe service.
 Object handles are cheap and stateless; create them freely.  The nodes
-group comes with ROADMAP M8.
+group comes with ROADMAP M8 part 2.
 """
 from __future__ import annotations
 

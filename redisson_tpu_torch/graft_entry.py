@@ -30,7 +30,7 @@ flat in int32, which is the same index while ``|tenant| * m < 2**31``
 (16 tenants of 2**20 lanes: any tenant below 2,048 in magnitude).
 
 ``dryrun_multichip`` (the reference's sharded step over a device mesh)
-waits for the mesh and its collectives (ROADMAP M8).
+waits for the mesh and its collectives (ROADMAP M8 part 2).
 """
 from __future__ import annotations
 

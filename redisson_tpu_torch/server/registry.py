@@ -12,9 +12,10 @@ by the connection loop (CommandsQueue FIFO discipline).
 A copy of ``redisson_tpu/server/registry.py`` for the verb families the port
 serves (``server/verbs``).  Device values of a ``LazyReply`` are torch
 tensors: a frame's values come to the host in one grouped copy
-(``core/ioplane.gather_device_results``).  The chaos plane's device-dispatch
-hook and the cluster routing checks come with the operations and
-multi-device slices.
+(``core/ioplane.gather_device_results``).  A node in a cluster checks each
+command's slots before it dispatches (``TpuServer.check_routing``: MOVED,
+ASK).  The chaos plane's device-dispatch hook comes with the operations
+slice (ROADMAP M11).
 """
 from __future__ import annotations
 
@@ -156,8 +157,14 @@ class Registry:
             raise RespError(f"ERR unknown command '{cmd.decode()}'")
         if not ctx.authenticated and cmd not in (b"AUTH", b"HELLO", b"QUIT", b"PING"):
             raise RespError("NOAUTH Authentication required.")
-        # one-shot ASK admission: consumed by every command
-        ctx.asking = False
+        # one-shot ASK admission: consumed by every command (the ASKING
+        # handler re-arms it for the next one)
+        asking, ctx.asking = ctx.asking, False
+        if server.cluster_view or server.role == "replica":
+            # queue-time MOVED/ASK replies match Redis cluster; EXEC rechecks
+            # the whole group before applying anything
+            server.check_routing(cmd.decode(), args[1:], asking=asking,
+                                 readonly=ctx.readonly)
         if ctx.multi_queue is not None and cmd not in self._TX_IMMEDIATE:
             ctx.multi_queue.append([bytes(a) for a in args])
             return "+QUEUED"

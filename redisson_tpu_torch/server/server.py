@@ -76,27 +76,40 @@ never hidden behind a slower path that might succeed.
     frame's grouped readback; an IVF field trains its centroids with the
     k-means kernels on the same device.
 
+  * **Cluster mode.** A node that holds a cluster view (``CLUSTER
+    SETVIEW``, installed by ``harness.ClusterRunner`` or the process
+    ``cluster.ClusterSupervisor`` through ``cluster/topology.py``) checks
+    every keyed command before it dispatches (``check_routing``, called by
+    the registry, by OBJCALLM/EXEC/TXEXEC and by the coalesced BF run):
+    a slot it does not own replies ``MOVED <slot> <host>:<port>``.  The
+    migration windows (MIGRATING, IMPORTING, RECOVERING) and the replica
+    role are ported with ``check_routing`` but stay empty: the verbs that
+    would set them (CLUSTER SETSLOT, MIGRATESLOT(S), WINDOWS, REPLICAOF)
+    reply an error naming ROADMAP M11.
+
 The port serves the connection, keyspace, sketch, objcall_tx (OBJCALL,
 OBJCALLM, OBJCALLMA, OBJCALLV, MULTI, DISCARD, WATCH, UNWATCH, RESET, EXEC
 and TXEXEC), collections, zset, streamgeo (X*, GEO*) and modules (JSON.*,
-FT.*) verb families, and admin's script and function verbs (EVALSHA, EVAL,
-SCRIPT, FCALL, FCALL_RO, FUNCTION) (``server/verbs``).  Left out, each
-raising NotImplementedError when asked for: device-sharded serving
-(``devices=``), cluster mode, advertised cluster addresses (ROADMAP M8),
+FT.*) verb families, admin's script and function verbs (EVALSHA, EVAL,
+SCRIPT, FCALL, FCALL_RO, FUNCTION), and the cluster view verbs (CLUSTER
+SLOTS, MYID, INFO, SETVIEW, RESET, COUNTKEYSINSLOT, GETKEYSINSLOT, and
+ASKING) (``server/verbs``).  Left out, each raising NotImplementedError when
+asked for: device-sharded serving (``devices=``, ROADMAP M8 part 2),
 checkpoints and migration journals (ROADMAP M11).  Their verbs reply the
 unknown-command error until those slices: the rest of the admin verbs
-(INFO, CONFIG, SAVE, CLUSTER, WAIT, the replication verbs REPLFLUSH and
-REPLSTATE, DUMP, RESTORE, COPY); the replication and migration links, the
-residency census and the chaos pause gate come with them.  FT.CREATE of a
-VECTOR field with SHARDS n > 1 replies the error that names M8.
+(INFO, CONFIG, SAVE, WAIT, the replication verbs REPLFLUSH and REPLSTATE,
+DUMP, RESTORE, COPY); the replication and migration links, the
+residency census and the chaos pause gate come with them.  FT.CREATE of a VECTOR field with SHARDS
+n > 1 replies the error that names M8 part 2.
 """
 from __future__ import annotations
 
 import asyncio
 import threading
 import time
+import uuid
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from redisson_tpu_torch.client import routing as _routing
 from redisson_tpu_torch.core import ioplane
@@ -233,8 +246,7 @@ def _force_lazies(results: list, server, trace=None) -> None:
 
 
 _REFUSED = {
-    "devices": "device-sharded serving (devices=) comes with ROADMAP M8",
-    "advertise_host": "advertised cluster addresses come with ROADMAP M8",
+    "devices": "device-sharded serving (devices=) comes with ROADMAP M8 part 2",
     "checkpoint_path": "checkpoints (checkpoint_path=) come with ROADMAP M11",
     "journal_dir": "migration journals (journal_dir=) come with ROADMAP M11",
 }
@@ -262,13 +274,11 @@ class TpuServer:
         advertise_host: Optional[str] = None,
         device="cuda",
     ):
-        asked = {"devices": devices, "advertise_host": advertise_host,
-                 "checkpoint_path": checkpoint_path, "journal_dir": journal_dir}
+        asked = {"devices": devices, "checkpoint_path": checkpoint_path,
+                 "journal_dir": journal_dir}
         for name, value in asked.items():
             if value is not None:
                 raise NotImplementedError(_REFUSED[name])
-        if mode != "standalone":
-            raise NotImplementedError(f"mode={mode!r}: cluster mode comes with ROADMAP M8")
         self.engine = engine if engine is not None else Engine(device=device)
         # overlapped device I/O plane: frames with device-form lazy replies
         # hand their readback to the per-connection writer task instead of
@@ -292,6 +302,11 @@ class TpuServer:
         self._bulk_gate_n = 0
         self.host = host
         self.port = port
+        # the address this node IS in cluster views: a cross-host node binds
+        # 0.0.0.0 but is named in views and its READY line by its routable
+        # address; without the split, owns_slot never matches and the node
+        # MOVED-bounces its own slots forever.  None = the bind host.
+        self.advertise_host = advertise_host
         self.password = password
         # ACL users (username -> password): AUTH user pass
         # (BaseConnectionHandler.java:59-122).  "default" aliases `password`.
@@ -302,8 +317,12 @@ class TpuServer:
         self.tls_key_file = tls_key_file
         self.tls_ca_file = tls_ca_file
         self.mode = mode
-        self.role = "master"  # HELLO's role; replicas come with ROADMAP M11
-        self.stats = {"connections": 0, "commands": 0, "errors": 0, "sheds": 0}
+        self.node_id = uuid.uuid4().hex
+        # replica_reads / replica_fallbacks count check_routing's replica
+        # branch, which no node reaches until the replication slice
+        # (ROADMAP M11)
+        self.stats = {"connections": 0, "commands": 0, "errors": 0, "sheds": 0,
+                      "replica_reads": 0, "replica_fallbacks": 0}
         # observability (utils/metrics.py): per-command timers + counters;
         # hooks = NettyHook-analog SPI
         from redisson_tpu_torch.net.client import dropped_push_count
@@ -350,6 +369,22 @@ class TpuServer:
             lambda: self.tracking.stats["overflow_evictions"],
         )
         self.metrics.gauge("tracking_pushes", lambda: self.tracking.stats["pushes"])
+        # cluster_view: [(slot_from, slot_to, host, port, node_id)] when this
+        # node is part of a cluster (CLUSTER SETVIEW, cluster/topology.py)
+        self.cluster_view: List[Tuple[int, int, str, int, str]] = []
+        # highest accepted SETVIEW fencing token: a stale coordinator's late
+        # view write carries a lower token and is refused (STALEVIEW)
+        self.view_epoch: int = 0
+        # the migration windows and the crash-recovery fence of the
+        # reference's live resharding (slot -> "host:port"): check_routing
+        # reads them; they stay empty until the migration verbs come with
+        # ROADMAP M11
+        self.migrating_slots: Dict[int, str] = {}
+        self.importing_slots: Dict[int, str] = {}
+        self.recovering_slots: Dict[int, str] = {}
+        # replication role: "master" until REPLICAOF comes with ROADMAP M11
+        self.role = "master"
+        self.master_address: Optional[str] = None
         # expiry invalidation: a key the TTL reaper (or a lazy-expiry read)
         # drops must invalidate near caches exactly like a DEL would
         self.engine.store.on_expired = self.tracking.note_expired
@@ -394,6 +429,132 @@ class TpuServer:
 
             self._local_client = RedissonTpu(self.engine)
         return self._local_client
+
+    # -- cluster routing ---------------------------------------------------------
+
+    def cluster_slots(self) -> List[Any]:
+        """CLUSTER SLOTS reply shape: [from, to, [host, port, id]]."""
+        if not self.cluster_view:
+            return [[0, 16383,
+                     [self.public_host.encode(), self.port,
+                      self.node_id.encode()]]]
+        return [
+            [lo, hi, [h.encode(), p, nid.encode()]]
+            for (lo, hi, h, p, nid) in self.cluster_view
+        ]
+
+    @property
+    def public_host(self) -> str:
+        """The host this node is KNOWN BY (views, READY line): the
+        advertised address when bind and routable addresses differ
+        (cross-host nodes binding 0.0.0.0), else the bind host."""
+        return self.advertise_host or self.host
+
+    def address(self) -> str:
+        return f"{self.public_host}:{self.port}"
+
+    def owns_slot(self, slot: int) -> bool:
+        if not self.cluster_view:
+            return True
+        for lo, hi, h, p, _nid in self.cluster_view:
+            if lo <= slot <= hi:
+                if (h, p) == (self.public_host, self.port):
+                    return True
+                # a replica serves READS for its master's range (the READONLY
+                # connection mode of Redis cluster replicas); writes are
+                # rejected separately by the role check in check_routing
+                return self.role == "replica" and self.master_address == f"{h}:{p}"
+        return False  # unassigned slot: treat as not owned
+
+    def moved_target(self, slot: int) -> Optional[Tuple[str, int]]:
+        for lo, hi, h, p, _nid in self.cluster_view:
+            if lo <= slot <= hi:
+                return h, p
+        return None
+
+    def check_routing(self, cmd: str, args: List[bytes], asking: bool = False,
+                      readonly: bool = False) -> None:
+        """MOVED/ASK + READONLY enforcement (the server half of the
+        reference's redirect protocol, cluster/ClusterConnectionManager +
+        command/RedisExecutor redirect handling).
+
+        Migration window semantics (Redis slot-migration model):
+          * slot MIGRATING here: keys still present serve locally; absent
+            keys redirect ASK to the draining target (they either moved
+            already or must be created there);
+          * slot IMPORTING here: normally MOVED back to the source (the view
+            still names it), but a command preceded by ASKING is served.
+
+        Replica read admission (Redis parity): a CLUSTER replica serves
+        keyed reads only to connections that armed READONLY — everyone
+        else is MOVED to the master (writes get the -READONLY refusal
+        below).  The windows and the replica role stay empty in the port
+        until ROADMAP M11, so today a keyed command is served or MOVED.
+        """
+        from redisson_tpu_torch.net import commands as C
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        if self.cluster_view:
+            migrating_absent = migrating_present = 0
+            ask_target = None
+            replica_read = False
+            for key in C.command_keys(cmd, args):
+                slot = calc_slot(key)
+                if slot in self.recovering_slots:
+                    # interrupted-migration fence: neither the restored
+                    # local copy nor an ASK hop is safe until the journal
+                    # resume settles the slot
+                    raise RespError(
+                        f"TRYAGAIN slot {slot} recovering from an "
+                        "interrupted migration"
+                    )
+                if self.owns_slot(slot):
+                    if self.role == "replica" and not C.is_write(cmd, args):
+                        if not readonly:
+                            # keyed reads without READONLY bounce to the
+                            # master
+                            self.stats["replica_fallbacks"] += 1
+                            ma = self.master_address
+                            if ma:
+                                raise RespError(f"MOVED {slot} {ma}")
+                        else:
+                            replica_read = True
+                    target = self.migrating_slots.get(slot)
+                    if target is not None:
+                        name = key.decode() if isinstance(key, bytes) else key
+                        if self.engine.store.peek(name):
+                            migrating_present += 1
+                        else:
+                            migrating_absent += 1
+                            ask_target, ask_slot = target, slot
+                    continue
+                if asking and slot in self.importing_slots:
+                    continue  # one-shot admission during the handoff window
+                target = self.moved_target(slot)
+                if target is not None:
+                    raise RespError(f"MOVED {slot} {target[0]}:{target[1]}")
+                raise RespError(f"CLUSTERDOWN Hash slot {slot} not served")
+            if migrating_absent:
+                if migrating_present:
+                    # mixed present/absent across a migration window: neither
+                    # node holds every key right now (Redis TRYAGAIN)
+                    raise RespError(
+                        "TRYAGAIN Multiple keys request during rehashing of slot"
+                    )
+                raise RespError(f"ASK {ask_slot} {ask_target}")
+            if replica_read:
+                self.stats["replica_reads"] += 1
+        if self.role == "replica" and C.is_write(cmd, args):
+            raise RespError("READONLY You can't write against a read only replica.")
+
+    def slot_names(self, slot: int) -> List[str]:
+        """The names stored here whose key hashes to `slot` (COUNTKEYSINSLOT
+        and GETKEYSINSLOT)."""
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        return [
+            n for n in self.engine.store.keys() if calc_slot(n.encode()) == slot
+        ]
 
     # -- dispatch --------------------------------------------------------------
 
@@ -922,7 +1083,7 @@ class TpuServer:
                 pass                                     # exotic loop
         await self.start_async()
         if ready_fd is not None:
-            line = f"READY {self.host} {self.port} {os.getpid()}\n".encode()
+            line = f"READY {self.public_host} {self.port} {os.getpid()}\n".encode()
             try:
                 os.write(ready_fd, line)
             finally:
@@ -1084,10 +1245,23 @@ class ServerThread:
 
 def main(argv=None):
     import argparse
+    import json
 
     ap = argparse.ArgumentParser(description="redisson-tpu server on PyTorch")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=6390)
+    ap.add_argument(
+        "--advertise-host", default=None,
+        help="the routable address this node is named by in cluster views "
+             "and its READY line when it differs from the bind --host "
+             "(cross-host nodes bind 0.0.0.0; without this a node would "
+             "MOVED-bounce its own slots)",
+    )
+    ap.add_argument(
+        "--mode", default="standalone", choices=("standalone", "cluster"),
+        help="the mode HELLO reports; a node routes by slot once a cluster "
+             "view is installed (CLUSTER SETVIEW) in either mode",
+    )
     ap.add_argument("--password", default=None)
     ap.add_argument(
         "--device", default="cuda",
@@ -1145,6 +1319,8 @@ def main(argv=None):
         Engine(device=args.device),
         host=args.host,
         port=args.port,
+        advertise_host=args.advertise_host,
+        mode=args.mode,
         password=args.password,
         overlap=not args.no_overlap,
         workers=args.workers,
@@ -1154,7 +1330,13 @@ def main(argv=None):
         tls_key_file=args.tls_key,
         tls_ca_file=args.tls_ca,
     )
+    # the node's log (a supervisor sends stdout there) names the device it
+    # serves on, and at a graceful stop the kernel launches it made
+    print(f"serving on {srv.engine.device}", flush=True)
     asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd))
+    from redisson_tpu_torch.core import kernels as K
+
+    print("kernel launches " + json.dumps(dict(K.launches)), flush=True)
     return 0
 
 

@@ -1,17 +1,119 @@
-"""Script and function verbs (the RScript and RFunction wire surface).
+"""Cluster view verbs, and the script and function verbs (the RScript and
+RFunction wire surface).
 
-A copy of the script and function verbs of
-``redisson_tpu/server/verbs/admin.py``: EVALSHA, EVAL, SCRIPT, FCALL,
-FCALL_RO and FUNCTION, on the engine's ``services/script.py`` services.
-Scripts are Python callables registered server-side, so callers address
-them by digest (EVALSHA) or by function name (FCALL); EVAL, SCRIPT LOAD and
-FUNCTION LOAD/DUMP reply the reference's errors.  The rest of the file
-(node info, CONFIG, SAVE, CLUSTER, the replication verbs, DUMP, RESTORE,
-COPY, WAIT) comes with the operations slice (ROADMAP M11).
+A copy of two parts of ``redisson_tpu/server/verbs/admin.py``:
+
+  * CLUSTER SLOTS, MYID, INFO, SETVIEW (with ``TOKEN`` fencing), RESET,
+    COUNTKEYSINSLOT and GETKEYSINSLOT, and ASKING, with the reference's
+    replies.  The other CLUSTER subcommands reply an error naming the slice
+    that brings them: the device-placement ones (DEVICES, DEVMOVE,
+    DEVPROBE, DEVEVACUATE, QOS) ROADMAP M8 part 2, the migration and
+    residency ones (SETSLOT, WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY)
+    ROADMAP M11, as does REPLICAOF.  REPLICAS replies the empty list a
+    master with no replica replies: no replica can attach before M11.
+  * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
+    ``services/script.py`` services.  Scripts are Python callables
+    registered server-side, so callers address them by digest (EVALSHA) or
+    by function name (FCALL); EVAL, SCRIPT LOAD and FUNCTION LOAD/DUMP
+    reply the reference's errors.
+
+The rest of the file (node info, CONFIG, SAVE, the replication verbs, DUMP,
+RESTORE, COPY, WAIT) comes with the operations slice (ROADMAP M11).
 """
 
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import register, _s, _int
+
+# -- cluster view (the slot map the topology programs install) ---------------
+
+# CLUSTER subcommands the port does not serve yet -> the slice that brings them
+_CLUSTER_LATER = {
+    b"DEVICES": "M8 part 2", b"DEVMOVE": "M8 part 2", b"DEVPROBE": "M8 part 2",
+    b"DEVEVACUATE": "M8 part 2", b"QOS": "M8 part 2",
+    b"SETSLOT": "M11", b"WINDOWS": "M11", b"MIGRATESLOT": "M11",
+    b"MIGRATESLOTS": "M11", b"RESIDENCY": "M11",
+}
+
+
+@register("CLUSTER")
+def cmd_cluster(server, ctx, args):
+    sub = bytes(args[0]).upper() if args else b""
+    if sub == b"SLOTS":
+        return server.cluster_slots()
+    if sub == b"MYID":
+        return server.node_id.encode()
+    if sub == b"INFO":
+        return f"cluster_enabled:{1 if server.cluster_view else 0}\r\ncluster_state:ok\r\n".encode()
+    if sub == b"SETVIEW":
+        # SETVIEW [TOKEN <n>] <from> <to> <host> <port> <node_id> ...
+        # (5-tuples) — the topology programs (harness.ClusterRunner,
+        # cluster.ClusterSupervisor) install the slot map on every node.
+        # TOKEN carries the writing coordinator's fencing token: a view
+        # stamped with a LOWER token than the last accepted one is a stale
+        # coordinator's late write and is rejected.
+        rest = args[1:]
+        token = None
+        if rest and bytes(rest[0]).upper() == b"TOKEN":
+            token = _int(rest[1])
+            rest = rest[2:]
+        if len(rest) % 5 != 0:
+            raise RespError("ERR SETVIEW expects 5-tuples")
+        if token is not None:
+            if token < server.view_epoch:
+                raise RespError(
+                    f"STALEVIEW token {token} < accepted epoch {server.view_epoch}"
+                )
+            server.view_epoch = token
+        view = []
+        for i in range(0, len(rest), 5):
+            view.append(
+                (
+                    _int(rest[i]),
+                    _int(rest[i + 1]),
+                    _s(rest[i + 2]),
+                    _int(rest[i + 3]),
+                    _s(rest[i + 4]),
+                )
+            )
+        server.cluster_view = view
+        return "+OK"
+    if sub == b"RESET":
+        server.cluster_view = []
+        return "+OK"
+    if sub == b"COUNTKEYSINSLOT":
+        return len(server.slot_names(_int(args[1])))
+    if sub == b"GETKEYSINSLOT":
+        names = server.slot_names(_int(args[1]))
+        limit = _int(args[2]) if len(args) > 2 else len(names)
+        return [n.encode() for n in names[:limit]]
+    later = _CLUSTER_LATER.get(sub)
+    if later is not None:
+        raise RespError(
+            f"ERR CLUSTER {sub.decode()} is not served by this port yet "
+            f"(ROADMAP {later})"
+        )
+    raise RespError("ERR unknown CLUSTER subcommand")
+
+
+@register("ASKING")
+def cmd_asking(server, ctx, args):
+    """One-shot admission for the NEXT command on this connection into an
+    IMPORTING slot (the redirect half of the ASK protocol)."""
+    ctx.asking = True
+    return "+OK"
+
+
+@register("REPLICAOF")
+def cmd_replicaof(server, ctx, args):
+    raise RespError(
+        "ERR REPLICAOF is not served by this port yet (ROADMAP M11: replication)"
+    )
+
+
+@register("REPLICAS")
+def cmd_replicas(server, ctx, args):
+    # a master's replica list: empty, as no replica attaches before M11
+    return []
 
 # -- script / function / admin verbs (RScript + RFunction wire surface) ------
 

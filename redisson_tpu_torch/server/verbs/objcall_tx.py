@@ -1,8 +1,8 @@
 """Generic object invocation (OBJCALL*) and wire transactions (MULTI/EXEC/WATCH + TXEXEC).
 
-A copy of ``redisson_tpu/server/verbs/objcall_tx.py`` on the single-device
-server: the cluster routing prechecks (a cluster view, a replica role) come
-with ROADMAP M8.  Pickled payloads go through ``net/safe_pickle``: results
+A copy of ``redisson_tpu/server/verbs/objcall_tx.py``, with its cluster
+routing prechecks: OBJCALLM checks each op's name, EXEC its whole queue and
+TXEXEC its whole frame before anything applies.  Pickled payloads go through ``net/safe_pickle``: results
 and exceptions are written under the reference's class names, a tensor as
 its numpy array, and an exception of a class outside the builtins and this
 package (a CUDA error raised by a kernel) as the nearest builtin exception
@@ -170,6 +170,12 @@ def _objcallm_apply(server, ops, caller):
         factory, name, method, call_args, call_kwargs = op[:5]
         codec_blob = op[5] if len(op) > 5 else None
         try:
+            if server.cluster_view:
+                # per-op routing check (the frame itself is keyless)
+                server.check_routing(
+                    "OBJCALL",
+                    [str(factory).encode(), str(name).encode(), str(method).encode()],
+                )
             out.append(
                 (
                     "R",
@@ -263,6 +269,11 @@ def cmd_exec(server, ctx, args):
         raise RespError(
             "EXECABORT Transaction discarded because of previous errors."
         )
+    # routing precheck over the WHOLE group before anything applies: a slot
+    # migrated since queue time must bounce the entire EXEC, never half of it
+    if server.cluster_view or server.role == "replica":
+        for qargs in queue:
+            server.check_routing(bytes(qargs[0]).decode().upper(), qargs[1:])
     names = set(watches)
     for qargs in queue:
         for key in C.command_keys(bytes(qargs[0]).decode().upper(), qargs[1:]):
@@ -343,6 +354,14 @@ def cmd_txexec(server, ctx, args):
     names = sorted(
         {str(n) for n in versions} | {str(op[1]) for op in ops if op[1]}
     )
+    # whole-frame routing precheck BEFORE any lock/apply: a mid-migration
+    # frame must bounce atomically (the client refreshes its topology and
+    # retries the full commit — nothing has applied)
+    if server.cluster_view:
+        for n in names:
+            server.check_routing(
+                "OBJCALL", [b"tx", n.encode(), b"precheck"]
+            )
     with server.engine.locked_many(names):
         for name, seen in versions.items():
             rec = server.engine.store.get(str(name))

@@ -365,8 +365,9 @@ def coalesce_bloom_run(server, ctx, cmds: List[List[bytes]]):
     per-command dispatch, which reproduces exact per-command semantics and
     errors).  Prechecks mirror Registry.dispatch's pre-dispatch gates; any
     state that would make them diverge (open MULTI, unauthenticated
-    connection, pending ASKING) disqualifies the run.  Only an ineligible
-    run returns None: any other failure raises to the caller."""
+    connection, pending ASKING, routing redirect) disqualifies the run.
+    Only an ineligible run returns None: any other failure raises to the
+    caller."""
     import numpy as np
 
     from redisson_tpu_torch.core import coalesce as CO
@@ -380,6 +381,11 @@ def coalesce_bloom_run(server, ctx, cmds: List[List[bytes]]):
     for cmd in cmds:
         if len(cmd) != 3:
             return None
+        if server.cluster_view or server.role == "replica":
+            try:
+                server.check_routing(verb.decode(), cmd[1:], asking=False)
+            except RespError:
+                return None  # redirect/readonly: per-command path replies
         try:
             names.append(_s(cmd[1]))
             keys = np.frombuffer(bytes(cmd[2]), dtype="<i8")

@@ -24,7 +24,7 @@ Differences from the reference:
     byte kernel cannot see it), and ``STATS`` counts it.  More distinct
     words than the reduce holds (2**17) sort again on the device with room
     for every word, where the reference counts on the host.
-  * The multi-device chunk placement belongs to a later slice (ROADMAP M8).
+  * The multi-device chunk placement belongs to a later slice (ROADMAP M8 part 2).
 """
 from __future__ import annotations
 

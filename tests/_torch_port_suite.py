@@ -3,13 +3,13 @@
 ``load(module, waiting)`` executes the source of ``tests/<module>.py`` in a
 fresh namespace whose imports of ``redisson_tpu`` and its submodules bind
 the port's modules of the same path under ``redisson_tpu_torch`` (the
-module-level imports and the ones inside test bodies alike), with four
+module-level imports and the ones inside test bodies alike), with six
 defaults changed for the CPU: ``ServerThread``, ``redisson_tpu.create``,
-``RedissonTpu.create`` and ``KernelMapReduce`` put their state on the CPU
-unless the test asks for a device.  A module
-the port does not have yet binds a stand-in whose every attribute raises
-NotImplementedError (a test helper such as the harness's ``free_port``
-excepted), so a test that reaches one fails loudly; such tests
+``RedissonTpu.create``, ``KernelMapReduce``, the harness's ``ClusterRunner``
+and ``Engine`` put their state on the CPU unless the test asks for a
+device.  A module the port does not have yet binds a stand-in whose every
+attribute raises NotImplementedError, so a test that reaches one fails
+loudly; such tests
 are named in the caller's ``waiting`` dict (test -> the slice it waits for)
 and are not collected.  The caller puts the returned names into its own
 globals, where pytest collects them.
@@ -18,14 +18,17 @@ from __future__ import annotations
 
 import builtins
 import importlib
-import socket
+import signal
+import threading
 import types
+from contextlib import contextmanager
 from pathlib import Path
 
 import redisson_tpu_torch
+from redisson_tpu_torch import harness as _port_harness
 from redisson_tpu_torch.client import redisson as _port_redisson
+from redisson_tpu_torch.core import engine as _port_engine
 from redisson_tpu_torch.services import mapreduce as _port_mapreduce
-from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server import server as _port_server
 
 TESTS = Path(__file__).resolve().parent
@@ -65,20 +68,19 @@ class _Shim(types.ModuleType):
         return getattr(self._real, name)
 
 
-def free_port() -> int:
-    """A free TCP port on localhost (the reference harness's test helper)."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+class CpuClusterRunner(_port_harness.ClusterRunner):
+    """The port's ClusterRunner, its nodes on the CPU unless asked otherwise."""
+
+    def __init__(self, masters: int = 3, replicas_per_master: int = 0, **server_kw):
+        server_kw.setdefault("device", "cpu")
+        super().__init__(masters, replicas_per_master, **server_kw)
 
 
-def _exec(conn, *args, timeout=None):
-    """One command on a wire connection, an error reply raised (the
-    reference harness's test helper)."""
-    reply = conn.execute(*args, timeout=timeout)
-    if isinstance(reply, RespError):
-        raise reply
-    return reply
+class CpuEngine(_port_engine.Engine):
+    """The port's Engine, on the CPU unless asked otherwise."""
+
+    def __init__(self, config=None, device="cpu"):
+        super().__init__(config, device)
 
 
 class CpuKernelMapReduce(_port_mapreduce.KernelMapReduce):
@@ -88,14 +90,8 @@ class CpuKernelMapReduce(_port_mapreduce.KernelMapReduce):
         super().__init__(map_fn, reduce, n_keys, device)
 
 
-# test helpers of modules the port does not have yet, kept by their stand-ins
-_HELPERS = {"redisson_tpu.harness": {"free_port": free_port, "_exec": _exec}}
-
-
 class _Missing(types.ModuleType):
     def __getattr__(self, name):
-        if name in _HELPERS.get(self.__name__, {}):
-            return _HELPERS[self.__name__][name]
         if name.startswith("__"):
             raise AttributeError(name)
         what = f"{self.__name__}.{name}"
@@ -125,6 +121,10 @@ def _port_module(name: str):
         mod = _Shim(mod, RedissonTpu=CpuRedissonTpu)
     elif name == "redisson_tpu.services.mapreduce":
         mod = _Shim(mod, KernelMapReduce=CpuKernelMapReduce)
+    elif name == "redisson_tpu.harness":
+        mod = _Shim(mod, ClusterRunner=CpuClusterRunner)
+    elif name == "redisson_tpu.core.engine":
+        mod = _Shim(mod, Engine=CpuEngine)
     _SHIMS[name] = mod
     return mod
 
@@ -163,3 +163,24 @@ def load(module: str, waiting: dict, into: str, only=None) -> dict:
             continue
         out[name] = obj
     return out
+
+
+@contextmanager
+def time_limit(seconds: float):
+    """Fail the test in it (TimeoutError) if it outlasts `seconds`: the
+    limit of a test that starts server processes.  Armed only on the main
+    thread, where SIGALRM is delivered."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def expired(*_):
+        raise TimeoutError(f"test outlasted its {seconds}s limit")
+
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)

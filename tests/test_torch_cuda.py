@@ -1709,6 +1709,49 @@ def test_server_on_the_card_replies_as_on_the_cpu(dev):
         assert W.compare(wave, got, want) == []
 
 
+def test_cluster_on_the_card_coalesces_a_bf_run(dev):
+    """A two-master port cluster on the card: a pipelined BF run to each
+    master is one fused launch (fewer bloom launches than commands), a
+    foreign name gets MOVED, and the replies equal a CPU cluster's."""
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.tools import wire_stream as W
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    def names(runner, mi, n):
+        lo, hi = runner.slot_ranges[mi]
+        return [k for k in (f"f{i}" for i in range(10_000)) if lo <= calc_slot(k.encode()) <= hi][:n]
+
+    rng = np.random.default_rng(8)
+    blobs = [W._i8(rng.integers(-2**62, 2**62, 500)) for _ in range(8)]
+    out, launched = [], {}
+    for device in ("cpu", "cuda"):
+        runner = ClusterRunner(masters=2, device=device).run()
+        try:
+            K.reset_launches()
+            replies = []
+            for mi, m in enumerate(runner.masters):
+                own, foreign = names(runner, mi, 8), names(runner, 1 - mi, 1)
+                waves = [[("BF.RESERVE", n, "0.01", "5000") for n in own],
+                         [("BF.MADD64", n, b) for n, b in zip(own, blobs)],
+                         [("BF.MEXISTS64", n, b[::-1]) for n, b in zip(own, blobs)],
+                         [("BF.MEXISTS64", foreign[0], blobs[0])]]
+                replies += [got for _, got in W.replies(m.server.server.host, m.server.server.port, waves)]
+            # a MOVED names the owner's address: by master index, to compare
+            addrs = {f"{m.server.server.host}:{m.port}": f"m{i}" for i, m in enumerate(runner.masters)}
+            replies = [[r if isinstance(r, bytes) else " ".join(addrs.get(w, w) for w in str(r).split())
+                        for r in wave] for wave in replies]
+            launched[device] = dict(K.launches)
+            out.append(replies)
+        finally:
+            runner.shutdown()
+    assert out[1] == out[0]
+    assert all(str(r[0]).startswith("MOVED ") for r in (out[1][3], out[1][7]))
+    card = launched["cuda"]
+    assert card["bloom_probe"] > 0 and card["bloom_set"] + card["bloom_add"] > 0
+    # 32 BF blob commands in runs of 8: far fewer launches than commands
+    assert card["bloom_probe"] + card["bloom_set"] + card["bloom_add"] < 32
+
+
 def test_services_stream_on_the_card_replies_as_on_the_cpu(dev):
     """tools/wire_stream.services_stream (X*, GEO*, JSON.*, FT.* FLAT and
     IVF, the script verbs), RESP2 then RESP3, on a card server and a CPU

@@ -65,6 +65,15 @@ def test_the_walk_covers_the_services_modules():
             "redisson_tpu_torch.node"} <= set(_modules())
 
 
+def test_the_walk_covers_the_cluster_modules():
+    assert {"redisson_tpu_torch.cluster", "redisson_tpu_torch.cluster.topology",
+            "redisson_tpu_torch.cluster.supervisor", "redisson_tpu_torch.cluster.hostdriver",
+            "redisson_tpu_torch.harness", "redisson_tpu_torch.client.cluster",
+            "redisson_tpu_torch.client.routing", "redisson_tpu_torch.client.replicated",
+            "redisson_tpu_torch.net.balancer", "redisson_tpu_torch.net.dns",
+            "redisson_tpu_torch.config"} <= set(_modules())
+
+
 def test_the_walk_covers_the_cache_and_codec_modules():
     assert {"redisson_tpu_torch.graft_entry", "redisson_tpu_torch.client.jcache",
             "redisson_tpu_torch.client.objects.localcache", "redisson_tpu_torch.utils.lz4block",

@@ -3,8 +3,6 @@ clients (tests/_torch_port_suite.py).  ``WAITING`` names each test left
 out and the slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_async_cluster_cross_shard": "M8 (ClusterRunner, AsyncClusterRedisson)",
-}
+WAITING = {}
 
 globals().update(_torch_port_suite.load("test_aio_transactions", WAITING, __name__))

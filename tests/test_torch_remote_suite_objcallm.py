@@ -4,8 +4,7 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_objcallm_cluster_groups_per_shard": "M8 (ClusterRunner)",
-    "test_objcallm_cluster_survives_stale_routing": "M8 (ClusterRunner, slot migration)",
+    "test_objcallm_cluster_survives_stale_routing": "M11 (slot migration)",
 }
 
 globals().update(_torch_port_suite.load("test_objcallm", WAITING, __name__))

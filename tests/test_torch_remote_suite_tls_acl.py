@@ -4,7 +4,7 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_cluster_over_tls_with_migration": "M8 (ClusterRunner over TLS, slot migration)",
+    "test_cluster_over_tls_with_migration": "M11 (slot migration)",
 }
 
 globals().update(_torch_port_suite.load("test_tls_acl", WAITING, __name__))

@@ -4,11 +4,11 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_epochless_handoff_invalidates_after_fenced_migration": "M8 (slot migration, ClusterRunner's _exec)",
-    "test_replica_reads_arm_tracking_and_invalidate": "M11 (replica reads) on M8's ClusterRunner",
+    "test_epochless_handoff_invalidates_after_fenced_migration": "M11 (slot migration)",
+    "test_tracking_soak_migration_smoke": "M11 (the chaos soak harness, slot migration)",
+    "test_tracking_soak_kill_failover": "M11 (the chaos soak harness, failover)",
+    "test_replica_reads_arm_tracking_and_invalidate": "M11 (replica reads)",
     "test_tracking_census_and_metrics_gauges": "M11 (the resource census, chaos/census.py)",
-    "test_tracking_soak_migration_smoke": "M8 (ClusterRunner under the chaos soak harness)",
-    "test_tracking_soak_kill_failover": "M8 (ClusterRunner under the chaos soak harness)",
     # not waiting for a slice: its subprocess runs the source text
     # "from redisson_tpu.net.resp import ...", which no loader reaches;
     # tests/test_torch_resp.py holds the port's RTPU_NO_NATIVE codec

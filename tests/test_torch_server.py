@@ -297,13 +297,24 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
         ServerThread(port=0, device="cuda:0")
 
 
-@pytest.mark.parametrize("kw, milestone", [({"devices": 2}, "M8"), ({"mode": "cluster"}, "M8"),
-                                           ({"advertise_host": "10.0.0.1"}, "M8"),
+@pytest.mark.parametrize("kw, milestone", [({"devices": 2}, "M8 part 2"), ({"devices": "all"}, "M8 part 2"),
+                                           ({"devices": 1}, "M8 part 2"),
                                            ({"checkpoint_path": "/tmp/x"}, "M11"),
                                            ({"journal_dir": "/tmp/j"}, "M11")])
 def test_left_out_arguments_refuse(kw, milestone):
     with pytest.raises(NotImplementedError, match=milestone):
         ServerThread(port=0, device="cpu", **kw)
+
+
+def test_cluster_mode_and_advertised_host_are_served():
+    """mode= and advertise_host= are taken: HELLO reports the mode, and a
+    node is named by its advertised host in CLUSTER SLOTS."""
+    with ServerThread(port=0, device="cpu", mode="cluster", advertise_host="10.0.0.1") as st:
+        with st.client() as c:
+            assert c.execute("HELLO", "3")[b"mode"] == b"cluster"
+            (lo, hi, (host, port, nid)), = c.execute("CLUSTER", "SLOTS")
+        assert (lo, hi, host, port) == (0, 16383, b"10.0.0.1", st.port)
+        assert nid == st.server.node_id.encode()
 
 
 def _race(fn, threads: int) -> None:

@@ -1,0 +1,8 @@
+"""The reference's tests/test_config.py, unedited, on the port's config,
+clients and cluster (tests/_torch_port_suite.py).  ``WAITING`` names each
+test left out and the slice it waits for."""
+from tests import _torch_port_suite
+
+WAITING = {}
+
+globals().update(_torch_port_suite.load("test_config", WAITING, __name__))

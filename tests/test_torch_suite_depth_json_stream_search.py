@@ -4,7 +4,7 @@ slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_role_breadcrumb_distinguishes_promoted_from_restarted": "M8 (ClusterRunner)",
+    "test_role_breadcrumb_distinguishes_promoted_from_restarted": "M11 (replicas, REPLICAOF)",
 }
 
 globals().update(_torch_port_suite.load("test_depth_json_stream_search", WAITING, __name__))

@@ -3,8 +3,6 @@
 slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "TestWireFacades::test_cluster_search": "M8 (ClusterRunner)",
-}
+WAITING = {}
 
 globals().update(_torch_port_suite.load("test_liveobject", WAITING, __name__))

@@ -4,10 +4,7 @@ slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_typed_commands_route_on_cluster": "M8 (ClusterRunner)",
-    "test_new_typed_commands_route_on_cluster": "M8 (ClusterRunner)",
-    "test_round3_verbs_route_on_cluster": "M8 (ClusterRunner)",
-    "test_sort_store_routes_as_key_on_cluster": "M8 (ClusterRunner)",
+    "test_round3_verbs_route_on_cluster": "M11 (COPY)",
     "test_copy_and_renamenx": "M11 (COPY)",
     "test_copy_device_backed_object_no_alias": "M11 (COPY)",
     "test_config_and_wait": "M11 (CONFIG and WAIT, server/verbs/admin.py)",

@@ -194,7 +194,27 @@ Phases (any failure raises and the script exits non-zero):
      (--workers 16), each on the card, the same stream, then a SIGTERM to
      each: every exit code 0, each log naming cuda and the kernel launches
      it made (the path's launches are their sum); both paths must launch
-     bloom_probe, bitset_set and bloom_set or bloom_add;
+     bloom_probe, bitset_set and bloom_set or bloom_add; then the sharded
+     path (run_sharded, parallel/: every position on the one card, so
+     nothing here is a multi-GPU result): config 2's bank (1,000 x 96,256
+     lanes, k 7) as a ShardedBloomFilterArray on dp 2 x shard 4 over 8
+     positions beside an unsharded BloomFilterArray, 100 add flushes of
+     100,000 ops (config 2's 10M keys: the bank at its design load) and 20
+     contains flushes (flags equal flush by flush, the gathered plane
+     equal; flush p50s and launches a flush printed), config 3's 10,000
+     counters (p 14) tenant-sharded over 4 beside a HyperLogLogArray (10
+     batches of 1M; registers and estimate_all equal), a 2**28-bit
+     ShardedBitSet over 4 shards beside a BitSet (1M sets, gets, clears and
+     the cardinality equal), graft_entry.dryrun_multichip(8) (the live
+     reshard 4 -> 8 -> 4 under traffic, 0 lost probes) and config 5d's A/B
+     (bench.py:636-734: config 5's stream from 8 connections at once on a
+     server with devices=1 and one with devices=4; replies bit-identical,
+     ops/s, lane dispatches and peak lane concurrency printed); its counts
+     are read there, the windowed kernels (bloom_probe, bloom_set,
+     hll_add, bitset_get, bitset_set with a shard window, shard 1 of 4) are
+     then held to their plain versions on parts of those records and timed
+     beside their bounds (their rows in the kernels line, named "<kernel>
+     window"), and the path fails unless each windowed form was launched;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -212,6 +232,8 @@ Phases (any failure raises and the script exits non-zero):
      the default (composite, zlib, bz2, lzma, LZ4, CBOR, double, msgpack,
      and protobuf where google.protobuf is installed) and bytes keys, on
      both: equal planes, registers and replies.
+Earlier paths keep their depth: the sharded path took 9.2 s on an H100 80GB
+HBM3 at 700.00 W, inside the room the script's time limit had.
 The second-to-last line is the kernels JSON; the last line is the ok JSON.
 Without a CUDA card, or without the package beside it, it exits non-zero.
 """
@@ -321,7 +343,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "server": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add"),
-                "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set")}
+                "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set"),
+                "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
 FPP = 0.01
 
 
@@ -5127,6 +5150,464 @@ def run_cluster_proc(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the sharded path (parallel/): one logical object over the positions of a
+# mesh, and a server owning several positions.  Every position is on the
+# one card: nothing here measures a collective or a copy across GPUs.
+# --------------------------------------------------------------------------
+
+# config 2's bank (bench.py:36) on dp 2 x shard 4 over 8 positions; config
+# 3's counters (bench.py:294) tenant-sharded over 4; a 2**28-bit set over 4
+# shards (dp 1) with 1M set, get and cardinality operations
+SH_DP, SH_SHARD, SH_POSITIONS = 2, 4, 8
+SH_C2_ADDS, SH_C2_PROBES = C2_TENANTS * C2_PER_TENANT // C2_FLUSH, 20  # adds fill the bank to its design load
+SH_C3_BATCHES = C3_BATCHES
+SH_5D_POSITIONS, SH_5D_CONNS, SH_5D_REPS = 4, 8, 2
+# the windowed kernels' rows in the kernels line: the TPU-side program each
+# windowed form carries (parallel/sharded.py)
+SH_WINDOW_REPLACES = {"bloom_probe": "redisson_tpu/parallel/sharded.py:50",
+                      "bloom_set": "redisson_tpu/parallel/sharded.py:50",
+                      "hll_add": "redisson_tpu/parallel/sharded.py:122",
+                      "bitset_get": "redisson_tpu/parallel/sharded.py:173",
+                      "bitset_set": "redisson_tpu/parallel/sharded.py:173"}
+
+
+def window_name(kernel: str) -> str:
+    return f"{kernel} window"
+
+
+def launches_since(before: dict) -> dict:
+    """The launches made since `before` (a copy of the counts), by kernel;
+    the path's own counts run on."""
+    from redisson_tpu_torch.core import kernels as K
+
+    return {k: v - before[k] for k, v in K.launches.items() if v > before[k]}
+
+
+def sharded_config2(client, card: str) -> tuple:
+    """Config 2's bank as a ShardedBloomFilterArray beside an unsharded
+    BloomFilterArray of the same m and k: 100k-op add flushes, then 100k-op
+    contains flushes (half present keys, half absent), flags equal flush by
+    flush and the gathered plane equal to the unsharded one.  Returns the
+    leg's numbers and, for the window checks, the sharded record."""
+    from redisson_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(91)
+    sbf = client.get_sharded_bloom_filter_array("sh:c2")
+    ubf = client.get_bloom_filter_array("sh:c2u")
+    if not (sbf.try_init(C2_TENANTS, C2_PER_TENANT, FPP) and ubf.try_init(C2_TENANTS, C2_PER_TENANT, FPP)):
+        raise AssertionError("sharded config2: bank exists")
+    if (sbf.get_size(), sbf.get_hash_iterations()) != (ubf.get_size(), ubf.get_hash_iterations()):
+        raise AssertionError(f"sharded config2: m, k {sbf.get_size(), sbf.get_hash_iterations()} against "
+                             f"{ubf.get_size(), ubf.get_hash_iterations()}")
+    lat = {"sharded add": [], "unsharded add": [], "sharded contains": [], "unsharded contains": []}
+    launches_a_flush = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        got = fn()
+        lat[label].append(time.perf_counter() - s)
+        return got
+
+    for i in range(SH_C2_ADDS):
+        t = rng.integers(0, C2_TENANTS, C2_FLUSH).astype(np.int32)
+        ks = rng.integers(0, 1 << 62, C2_FLUSH).astype(np.int64)
+        ks[-1000:] = ks[:1000]  # equal keys in one flush: both read the pre-flush plane
+        t[-1000:] = t[:1000]
+        before = dict(K.launches)
+        got = timed("sharded add", lambda: sbf.add_each(t, ks))
+        if i == 0:
+            launches_a_flush["add"] = launches_since(before)
+        want = timed("unsharded add", lambda: ubf.add_each(t, ks))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded config2: add flush {i} newly flags differ from the unsharded bank's")
+    for i in range(SH_C2_PROBES):
+        t, ks = config2_flush(rng)
+        before = dict(K.launches)
+        got = timed("sharded contains", lambda: sbf.contains_each(t, ks))
+        if i == 0:
+            launches_a_flush["contains"] = launches_since(before)
+        want = timed("unsharded contains", lambda: ubf.contains(t, ks))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"sharded config2: contains flush {i} differs from the unsharded bank's")
+    rec = client.engine.store.get("sh:c2")
+    assert_equal("sharded config2 plane (gathered) against the unsharded bank",
+                 rec.arrays["bits"].gather(), client.engine.store.get("sh:c2u").arrays["bits"])
+    out = {"bank": f"{C2_TENANTS}x{sbf.get_size()}, k {sbf.get_hash_iterations()}",
+           "mesh": f"dp {SH_DP} x shard {SH_SHARD} over {SH_POSITIONS} positions of one card",
+           "add_flushes": SH_C2_ADDS, "contains_flushes": SH_C2_PROBES, "flush_ops": C2_FLUSH,
+           **{f"{k.replace(' ', '_')}_p50_ms": pctl(v, 50) * 1e3 for k, v in lat.items()},
+           "launches_a_flush": launches_a_flush}
+    log(f"sharded config2 [{card}; {out['mesh']}]: bank {out['bank']}, {SH_C2_ADDS} add and {SH_C2_PROBES} "
+        f"contains flushes of {C2_FLUSH} ops: add p50 {out['sharded_add_p50_ms']:.3f} ms (unsharded "
+        f"{out['unsharded_add_p50_ms']:.3f} ms), contains p50 {out['sharded_contains_p50_ms']:.3f} ms (unsharded "
+        f"{out['unsharded_contains_p50_ms']:.3f} ms); launches a flush {launches_a_flush}; flags and the "
+        "gathered plane equal the unsharded bank's")
+    ubf.delete()
+    return out, rec
+
+
+def sharded_config3(client, card: str) -> tuple:
+    """Config 3's 10,000 counters (p 14) as a ShardedHllArray (tenants over
+    4 shards) beside an unsharded HyperLogLogArray: registers equal, and
+    estimate_all equal."""
+    rng = np.random.default_rng(93)
+    sh = client.get_sharded_hll_array("sh:c3")
+    un = client.get_hyper_log_log_array("sh:c3u")
+    if not (sh.try_init(C3_TENANTS) and un.try_init(C3_TENANTS)):
+        raise AssertionError("sharded config3: bank exists")
+    lat = {"sharded": [], "unsharded": []}
+    for _ in range(SH_C3_BATCHES):
+        t = rng.integers(0, C3_TENANTS, C3_BATCH).astype(np.int32)
+        ks = rng.integers(0, 1 << 60, C3_BATCH).astype(np.int64)
+        for label, fn in (("sharded", lambda: sh.add_each(t, ks)), ("unsharded", lambda: un.add(t, ks))):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat[label].append(time.perf_counter() - s)
+    rec = client.engine.store.get("sh:c3")
+    assert_equal("sharded config3 registers (gathered) against the unsharded bank",
+                 rec.arrays["regs"].gather(), client.engine.store.get("sh:c3u").arrays["regs"])
+    got, want = sh.estimate_all(), un.estimate_all()
+    if not np.array_equal(got, want):
+        raise AssertionError("sharded config3: estimate_all differs from the unsharded bank's")
+    out = {"counters": C3_TENANTS, "batches": SH_C3_BATCHES, "batch_ops": C3_BATCH,
+           "sharded_add_p50_ms": pctl(lat["sharded"], 50) * 1e3,
+           "unsharded_add_p50_ms": pctl(lat["unsharded"], 50) * 1e3}
+    log(f"sharded config3 [{card}]: {C3_TENANTS} counters over {SH_SHARD} shards, {SH_C3_BATCHES} batches of "
+        f"{C3_BATCH}: add p50 {out['sharded_add_p50_ms']:.3f} ms (unsharded {out['unsharded_add_p50_ms']:.3f} ms); "
+        "registers and estimate_all equal the unsharded bank's")
+    un.delete()
+    return out, rec
+
+
+def sharded_bitset(client, card: str) -> tuple:
+    """One 2**28-bit ShardedBitSet over 4 shards beside an unsharded BitSet:
+    1M sets (old bits), 1M gets, cardinality, then 1M clears: equal."""
+    rng = np.random.default_rng(95)
+    sh = client.get_sharded_bit_set("sh:bits")
+    un = client.get_bit_set("sh:bitsu")
+    if not sh.try_init(1 << BITMAP_LOG2):
+        raise AssertionError("sharded bitset: exists")
+    lat = {}
+
+    def both(label, fn_sh, fn_un):
+        out = []
+        for name, fn in (("sharded " + label, fn_sh), ("unsharded " + label, fn_un)):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out.append(fn())
+            lat[name] = (time.perf_counter() - s) * 1e3
+        if not np.array_equal(np.asarray(out[0], bool), np.asarray(out[1], bool)):
+            raise AssertionError(f"sharded bitset: {label} differs from the unsharded bit set's")
+        return out[0]
+
+    idx = host_indexes(rng, BITMAP_OPS, 0, 1 << BITMAP_LOG2)
+    both("set", lambda: sh.set_each(idx), lambda: un.set_each(idx))
+    both("set again", lambda: sh.set_each(idx[::-1].copy()), lambda: un.set_each(idx[::-1].copy()))
+    probe = host_indexes(rng, BITMAP_OPS, 0, 1 << BITMAP_LOG2)
+    both("get", lambda: sh.get_each(probe), lambda: un.get_each(probe))
+    card_sh, card_un = sh.cardinality(), un.cardinality()
+    if card_sh != card_un:
+        raise AssertionError(f"sharded bitset: cardinality {card_sh} against {card_un}")
+    clear = idx[: BITMAP_OPS // 2]
+    both("clear", lambda: sh.set_each(clear, False), lambda: un.set_each(clear, False))
+    rec = client.engine.store.get("sh:bits")
+    plane = rec.arrays["bits"].gather()
+    assert_equal("sharded bitset plane (gathered) against the unsharded one", plane,
+                 client.engine.store.get("sh:bitsu").arrays["bits"][: plane.numel()])
+    out = {"bits": 1 << BITMAP_LOG2, "ops": BITMAP_OPS, "cardinality": card_sh,
+           **{k.replace(" ", "_") + "_ms": v for k, v in lat.items()}}
+    log(f"sharded bitset [{card}]: 2**{BITMAP_LOG2} bits over {SH_SHARD} shards, {BITMAP_OPS} sets, gets and "
+        f"clears, cardinality {card_sh}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in lat.items())
+        + "; old bits, gets, cardinality and the plane equal the unsharded bit set's")
+    un.delete()
+    return out, rec
+
+
+def window_keys(batch, d: int, part):
+    return batch.keys(d, part.device), batch.valid(d)
+
+
+def needed_window_positions(part, width, kb, k, m, n_valid, col_lo):
+    """Flat positions of `part` that n_valid ops must read to answer a
+    windowed probe: each op's owned probes up to and including its first
+    0 (another shard's probes read nothing)."""
+    from redisson_tpu_torch.core import kernels as K
+
+    size = part.numel()
+    g = K._bloom_positions(part, width, kb, k, m, col_lo)[:n_valid]
+    inside = g < size
+    zero = (inside & (part.reshape(-1)[torch.where(inside, g, 0)] == 0)).to(torch.int32)
+    after_a_zero = (torch.cumsum(zero, dim=1) - zero) > 0
+    return g[inside & ~after_a_zero]
+
+
+def check_windows(mgr, c2, c3, bits) -> dict:
+    """Each windowed kernel at a non-zero window (shard 1 of 4) on a part of
+    the sharded records the path left, at the main path's shapes, against
+    its plain version; its time, the plain version's, and its bound: bytes
+    at 3.35 TB/s over the 32-byte sectors touched."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.utils import hashing as H
+
+    rng = np.random.default_rng(97)
+    out = {}
+    s = 1
+    # bloom_probe and bloom_set on shard 1's columns of config 2's bank
+    plane = c2.arrays["bits"]
+    part = plane.parts[0, s]
+    w = part.shape[1]
+    k, m = c2.meta["k"], c2.meta["m"]
+    geom = mgr.geometry()
+    batches = []
+    for _ in range(8):
+        t, ks = config2_flush(rng)
+        lo, hi = H.int_keys_to_u32_pair(ks)
+        batch, _ = mgr.pad_batch(t, lo, hi, geom)
+        batches.append(window_keys(batch, 0, part))
+    err = 0.0
+    for newly in (False, True):
+        for kb, nv in batches[:2]:
+            err = max(err, assert_equal(f"bloom_probe window newly={newly}",
+                                        K.bloom_probe(part, w, kb, nv, k, m, newly, col_lo=s * w),
+                                        K.bloom_probe_plain(part, w, kb, nv, k, m, newly, col_lo=s * w)))
+    ms = time_kernel(lambda i: K.bloom_probe(part, w, batches[i % 8][0], batches[i % 8][1], k, m, col_lo=s * w))
+    plain = time_plain(lambda i: K.bloom_probe_plain(part, w, batches[i % 8][0], batches[i % 8][1], k, m,
+                                                     col_lo=s * w))
+    nv = batches[0][1]
+    touched = statistics.median(sectors(needed_window_positions(part, w, kb, k, m, n, s * w)) for kb, n in batches)
+    bms, by = bound_ms(32 * touched + 12 * nv + nv, nv * (OPS_HASH_U64 + k * OPS_PROBE))
+    out["bloom_probe"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                              shape=f"shard 1 of {plane.parts.shape[1]}: ({part.shape[0]}, {w}) columns "
+                                    f"[{s * w}, {(s + 1) * w}) of config 2's bank, a dp slice of {nv} ops, k {k}")
+    err = 0.0
+    for kb, n in batches[:2]:
+        a, b = part.clone(), part.clone()
+        K.bloom_set(a, w, kb, n, k, m, col_lo=s * w)
+        K.bloom_set_plain(b, w, kb, n, k, m, col_lo=s * w)
+        err = max(err, assert_equal("bloom_set window", a, b))
+    work = part.clone()
+    ms = time_kernel(lambda i: K.bloom_set(work, w, batches[i % 8][0], batches[i % 8][1], k, m, col_lo=s * w))
+    plain = time_plain(lambda i: K.bloom_set_plain(work, w, batches[i % 8][0], batches[i % 8][1], k, m,
+                                                   col_lo=s * w))
+    owned = statistics.median(sectors(g[g < part.numel()]) for g in
+                              (K._bloom_positions(part, w, kb, k, m, s * w)[:n] for kb, n in batches))
+    bms, by = bound_ms(32 * owned + 12 * nv, nv * (OPS_HASH_U64 + k * OPS_PROBE))
+    out["bloom_set"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                            shape=out["bloom_probe"]["shape"] + ", stores of every owned probe")
+    del work, a, b
+    # hll_add on shard 1's rows of config 3's bank
+    regs = c3.arrays["regs"]
+    part = regs.parts[0, s]
+    t_local, width = part.shape
+    hb = []
+    for _ in range(4):
+        t = rng.integers(0, C3_TENANTS, C3_BATCH).astype(np.int32)
+        lo, hi = H.int_keys_to_u32_pair(rng.integers(0, 1 << 60, C3_BATCH).astype(np.int64))
+        batch, _ = mgr.pad_batch(t, lo, hi, geom)
+        hb.append(window_keys(batch, 0, part))
+    p = width.bit_length() - 1
+    a, b = part.clone(), part.clone()
+    for kb, n in hb:
+        K.hll_add(a, width, kb, n, p, row_lo=s * t_local)
+        K.hll_add_plain(b, width, kb, n, p, row_lo=s * t_local)
+    err = assert_equal("hll_add window", a, b)
+    ms = time_kernel(lambda i: K.hll_add(a, width, hb[i % 4][0], hb[i % 4][1], p, row_lo=s * t_local))
+    plain = time_plain(lambda i: K.hll_add_plain(b, width, hb[i % 4][0], hb[i % 4][1], p, row_lo=s * t_local))
+    kb, n = hb[0]
+    h1, _ = K._hash(kb)
+    r = kb.tenant.to(torch.int64)[:n] - s * t_local
+    own = (r >= 0) & (r < t_local)
+    read = sectors((r * width + (h1[:n] & (width - 1)).to(torch.int64))[own])
+    # a register is written only where the rank raises it: at most every
+    # sector read; the bound counts the reads and the op words
+    bms, by = bound_ms(32 * read + 12 * n, n * (OPS_HASH_U64 + OPS_HLL_ADD))
+    out["hll_add"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                          shape=f"shard 1 of {regs.parts.shape[1]}: rows [{s * t_local}, {(s + 1) * t_local}) "
+                                f"of config 3's bank, a dp slice of {n} ops (owned: {int(own.sum())})")
+    del a, b
+    # bitset_get and bitset_set on shard 1's bits of the 2**28-bit set
+    plane = bits.arrays["bits"]
+    part = plane.parts[0, s]
+    size = part.numel()
+    ib = [K.stage(host_indexes(rng, BITMAP_OPS, 0, 1 << BITMAP_LOG2).astype(np.int32), part.device)
+          for _ in range(4)]
+    err = max(assert_equal("bitset_get window", K.bitset_get(part, i, lo=s * size),
+                           K.bitset_get_plain(part, i, lo=s * size)) for i in ib)
+    ms = time_kernel(lambda i: K.bitset_get(part, ib[i % 4], lo=s * size))
+    plain = time_plain(lambda i: K.bitset_get_plain(part, ib[i % 4], lo=s * size))
+    local = ib[0].to(torch.int64) - s * size
+    owned = sectors(local[(local >= 0) & (local < size)])
+    bms, by = bound_ms(32 * owned + 5 * BITMAP_OPS, BITMAP_OPS * 4)
+    out["bitset_get"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                             shape=f"shard 1 of {plane.parts.shape[1]}: bits [{s * size}, {(s + 1) * size}) of "
+                                   f"the 2**{BITMAP_LOG2}-bit set, {BITMAP_OPS} indexes over the whole set")
+    err = 0.0
+    for i in ib[:2]:
+        a, b = part.clone(), part.clone()
+        got, want = K.bitset_set(a, i, BITMAP_OPS, 1, lo=s * size)[1], K.bitset_set_plain(b, i, BITMAP_OPS, 1,
+                                                                                          lo=s * size)[1]
+        err = max(err, assert_equal("bitset_set window old bits", got, want), assert_equal("bitset_set window", a, b))
+    del a, b
+
+    def owned_sectors(i):
+        local = i.to(torch.int64) - s * size
+        return sectors(local[(local >= 0) & (local < size)])
+
+    # a stream of 20 new batches, each on the part the batches before it
+    # left (a bit already set is not written again); the write is bound by
+    # the owned sectors read and the sectors changed
+    stream = ib + [K.stage(host_indexes(rng, BITMAP_OPS, 0, 1 << BITMAP_LOG2).astype(np.int32), part.device)
+                   for _ in range(16)]
+    ms, plain, nbytes, stream_err = time_stream(
+        "bitset_set window", lambda pl, i: K.bitset_set(pl, i, BITMAP_OPS, 1, lo=s * size),
+        lambda pl, i: K.bitset_set_plain(pl, i, BITMAP_OPS, 1, lo=s * size), part.clone(), part.clone(), stream,
+        lambda i, changed: 32 * (owned_sectors(i) + sectors(changed)) + 5 * BITMAP_OPS)
+    bms, by = bound_ms(nbytes, BITMAP_OPS * 4)
+    out["bitset_set"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=max(err, stream_err),
+                             shape=out["bitset_get"]["shape"] + ", a stream of 20 batches")
+    del stream
+    for name, v in out.items():
+        v["library_ms"] = None  # no one PyTorch call computes a shard's windowed form
+        log(f"kernel {window_name(name)}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound "
+            f"{v['bound_ms']:.4f} ms by {v['bound_by']}); equal to plain at {v['shape']}")
+    return {window_name(k): v for k, v in out.items()}
+
+
+def c5d_leg(device, n_positions: int, card: str) -> dict:
+    """Config 5's stream (bench.py:636-734's config 5d) against one server
+    with placement on `n_positions` positions of the card: SH_5D_CONNS
+    connections at once, each a share of the tenants, a warm rep then
+    SH_5D_REPS timed reps; the replies in command order."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.server import ServerThread
+
+    st = ServerThread(port=0, devices=n_positions, workers=16, device=device).start()
+    conns = [Connection(st.server.host, st.port, timeout=600.0) for _ in range(SH_5D_CONNS)]
+    try:
+        eng = st.server.engine
+        if ioplane.replica_occupancy() is not None:
+            raise AssertionError("config5d: the modelled occupancy is armed on the card")
+        rng = np.random.default_rng(CL_SEED)
+        rates, replies_by_rep = [], []
+        for rep in range(SH_5D_REPS + 1):  # the first rep warms
+            cmds, ops = server_config5_cmds(rng, "w" if rep == 0 else f"r{rep}")
+            slices = [[] for _ in range(SH_5D_CONNS)]
+            for i, c in enumerate(cmds):
+                key = next(a for a in c[1:] if isinstance(a, str) and "{t" in a)
+                slices[int(key.split("{t")[1].rstrip("}")) % SH_5D_CONNS].append(i)
+            replies = [None] * len(cmds)
+            errs = []
+            start = threading.Barrier(SH_5D_CONNS + 1)
+
+            def worker(j):
+                try:
+                    start.wait()
+                    for i, r in zip(slices[j], conns[j].execute_many([cmds[i] for i in slices[j]])):
+                        replies[i] = r
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=worker, args=(j,), daemon=True) for j in range(SH_5D_CONNS)]
+            for th in threads:
+                th.start()
+            eng.lanes.reset_concurrency()
+            start.wait()
+            s = time.perf_counter()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - s
+            if errs:
+                raise errs[0]
+            bad = [r for r in replies if isinstance(r, Exception)]
+            if bad:
+                raise AssertionError(f"config5d: error replies {bad[:3]}")
+            for t, r in enumerate(replies[2 * C5_TENANTS: 3 * C5_TENANTS]):
+                if not np.frombuffer(r, np.uint8).all():
+                    raise AssertionError(f"config5d: false negatives t{t}")
+            replies_by_rep.append(replies)
+            if rep:
+                rates.append(ops / wall)
+        peak = eng.lanes.reset_concurrency()
+        dispatches = {lane.dev_id: lane.dispatches for lane in eng.lanes.lanes()}
+    finally:
+        for c in conns:
+            c.close()
+        st.stop()
+    return {"positions": n_positions, "ops_per_s": rates, "peak_lane_concurrency": peak,
+            "lane_dispatches": dispatches, "replies": replies_by_rep}
+
+
+def sharded_config5d(device, card: str) -> dict:
+    """Config 5d's A/B: one server with placement on 1 position against one
+    on SH_5D_POSITIONS positions, all of the one card; replies bit-identical."""
+    one = c5d_leg(device, 1, card)
+    many = c5d_leg(device, SH_5D_POSITIONS, card)
+    for rep, (a, b) in enumerate(zip(one["replies"], many["replies"])):
+        bad = [i for i, (x, y) in enumerate(zip(a, b)) if not same(x, y)]
+        if bad or len(a) != len(b):
+            raise AssertionError(f"config5d: rep {rep} replies differ between the legs at {bad[:5]}")
+    out = {}
+    for leg in (one, many):
+        leg.pop("replies")
+        out[f"{leg['positions']}_positions"] = leg
+        log(f"config5d [{card}; {leg['positions']} position(s), all on the one card: no multi-GPU result]: "
+            f"{', '.join(f'{r:.3e}' for r in leg['ops_per_s'])} ops/s, peak lane concurrency "
+            f"{leg['peak_lane_concurrency']}, lane dispatches {leg['lane_dispatches']}")
+    out["replies_bit_identical"] = True
+    log("config5d: the two legs' replies are bit-identical")
+    return out
+
+
+def run_sharded(device="cuda") -> dict:
+    """The sharded path: config 2's bank, config 3's counters and a
+    2**28-bit set sharded over positions of the card beside their unsharded
+    counterparts, dryrun_multichip (the live reshard), config 5d's A/B; the
+    path's launch counts are read before the window checks, which follow."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch import graft_entry
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.parallel.manager import MeshManager
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    cfg = Config()
+    cfg.mesh.dp, cfg.mesh.shard, cfg.mesh.n_devices = SH_DP, SH_SHARD, SH_POSITIONS
+    client = redisson_tpu_torch.create(cfg, device)
+    out = {}
+    try:
+        mgr = MeshManager.of(client.engine)
+        landed = {str(p.device) for p in mgr.mesh.devices.flat}
+        if len(landed) != 1 or torch.device(device).type not in next(iter(landed)):
+            raise AssertionError(f"sharded: positions on {landed}")
+        out["config2"], c2 = sharded_config2(client, card)
+        out["config3"], c3 = sharded_config3(client, card)
+        mgr.reshard(1, SH_SHARD)  # the bit set: 4 shards, no dp replica
+        out["bitset"], bits = sharded_bitset(client, card)
+        out["dryrun_multichip"] = graft_entry.dryrun_multichip(SH_POSITIONS, device)
+        out["config5d"] = sharded_config5d(device, card)
+        out["launches"] = dict(K.launches)
+        out["window_launches"] = dict(K.window_launches)
+        missing = [k for k, v in out["window_launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"sharded: the path never launched the windowed {missing}")
+        mgr.reshard(SH_DP, SH_SHARD)
+        out["kernels"] = check_windows(mgr, c2, c3, bits)
+    finally:
+        client.shutdown()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    log(f"sharded path [{card}]: {out['seconds']:.1f}s; window launches {out['window_launches']}")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -5429,7 +5910,8 @@ def main() -> int:
                       ("remote", lambda: run_remote()),
                       ("services", lambda: run_services(paths["config7"], values)),
                       ("cluster", lambda: run_cluster()),
-                      ("cluster_proc", lambda: run_cluster_proc())):
+                      ("cluster_proc", lambda: run_cluster_proc()),
+                      ("sharded", lambda: run_sharded())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -5466,6 +5948,16 @@ def main() -> int:
                "knn_select": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:680"),
                "ivf_score": ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:739"),
                "kmeans": ("redisson_tpu_torch/csrc/kmeans.cu", "redisson_tpu/core/kernels.py:861")}
+    # the windowed forms (the sharded programs, K12): their own rows, their
+    # launches the sharded path's windowed ones
+    window = paths["sharded"].pop("kernels")
+    kernels.update(window)
+    by_path = {name: {path: v["launches"][name] for path, v in paths.items()} for name in K.launches}
+    for name in window:
+        base = name.split()[0]
+        sources[name] = (sources[base][0], SH_WINDOW_REPLACES[base])
+        main_launches[name] = paths["sharded"]["window_launches"][base]
+        by_path[name] = {"sharded": main_launches[name]}
     per_kernel = {}  # the counts of kernels a call by kernel (kmeans_assign's and kmeans_update's under kmeans)
     for key, v in per_call.items():
         wrapper = key.split()[0]
@@ -5473,7 +5965,7 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
          "launches": main_launches[name],
-         "launches_by_path": {path: v["launches"][name] for path, v in paths.items()},
+         "launches_by_path": by_path[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r.get("library_ms"),

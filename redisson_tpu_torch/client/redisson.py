@@ -8,9 +8,9 @@ locks, semaphores, latches, rate limiters, topics, streams, time series,
 geo sets, binary streams, JSON buckets, keys, MapReduce, search, scripts
 and functions, batches and transactions, the JCache manager, and the
 services: executors and scheduled executors, the remote service, live
-objects and the elements subscribe service.
-Object handles are cheap and stateless; create them freely.  The nodes
-group comes with ROADMAP M8 part 2.
+objects and the elements subscribe service, the sharded sketches (one
+object over the mesh's positions, ``parallel/``) and the nodes group.
+Object handles are cheap and stateless; create them freely.
 """
 from __future__ import annotations
 
@@ -44,6 +44,25 @@ class RedissonTpu:
         from redisson_tpu_torch.client.objects.bloom_array import BloomFilterArray
 
         return BloomFilterArray(self._engine, name)
+
+    def get_sharded_bloom_filter_array(self, name: str):
+        """Bloom bank whose bit plane is sharded over the mesh
+        (parallel/manager.py)."""
+        from redisson_tpu_torch.client.objects.sharded import ShardedBloomFilterArray
+
+        return ShardedBloomFilterArray(self._engine, name)
+
+    def get_sharded_hll_array(self, name: str):
+        """HLL bank whose tenant axis is sharded over the mesh."""
+        from redisson_tpu_torch.client.objects.sharded import ShardedHllArray
+
+        return ShardedHllArray(self._engine, name)
+
+    def get_sharded_bit_set(self, name: str):
+        """ONE logical bit set column-sharded over the mesh."""
+        from redisson_tpu_torch.client.objects.sharded import ShardedBitSet
+
+        return ShardedBitSet(self._engine, name)
 
     def get_hyper_log_log(self, name: str, codec: Optional[Codec] = None):
         from redisson_tpu_torch.client.objects.hyperloglog import HyperLogLog
@@ -408,6 +427,12 @@ class RedissonTpu:
         return self._engine.service("function", lambda: FunctionService(self._engine))
 
     # -- search ---------------------------------------------------------------
+
+    def get_nodes_group(self):
+        """The engine's positions as topology nodes (client/nodes.py)."""
+        from redisson_tpu_torch.client.nodes import NodesGroup
+
+        return NodesGroup.embedded(self._engine)
 
     def get_search(self):
         """The engine's search service (FT indexes, KNN over VECTOR fields)."""

@@ -12,7 +12,7 @@ A copy of ``redisson_tpu/cluster/__init__.py`` for the cluster serving path:
     spawn over an ssh channel), :class:`K8sDriver` (pod-spec codegen).
 
 The process-chaos primitives (``cluster/chaos.py``) and the QoS and
-residency control loops come with ROADMAP M11 and M8 part 2.
+residency control loops come with ROADMAP M11 and M8 part 3.
 """
 from redisson_tpu_torch.cluster.hostdriver import (  # noqa: F401
     HostDriver,

@@ -36,7 +36,7 @@ arms TLS by default.
 Left out until their slices, each raising NotImplementedError: replicas
 (``replicas_per_master > 0``), checkpoints (``checkpoint_interval > 0``),
 ``promote_replica``, ``rolling_restart`` and ``scrape`` (ROADMAP M11), and
-``start_qos_rebalance`` (ROADMAP M8 part 2).  ``restart`` brings a node back
+``start_qos_rebalance`` (ROADMAP M8 part 3).  ``restart`` brings a node back
 empty: there is no checkpoint to restore before M11, and the supervisor
 passes no ``--checkpoint`` or ``--journal-dir`` (the port's server refuses
 both).
@@ -581,11 +581,11 @@ class ClusterSupervisor:
     def start_qos_rebalance(self, global_rate: float, **kw):
         raise NotImplementedError(
             "the fleet QoS rebalancer comes with the device-sharding slice "
-            "(ROADMAP M8 part 2)"
+            "(ROADMAP M8 part 3)"
         )
 
     def stop_qos_rebalance(self) -> None:
-        """Nothing to stop: start_qos_rebalance comes with M8 part 2."""
+        """Nothing to stop: start_qos_rebalance comes with M8 part 3."""
 
     def scrape(self) -> str:
         raise NotImplementedError(f"the METRICS scrape {_M11}")

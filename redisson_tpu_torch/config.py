@@ -15,9 +15,9 @@ two cleanup delays, every object handle and ``Keys`` map names through
 and the ``command_mapper``, ``credentials_resolver`` and ``nat_mapper``
 SPI slots (``client/remote.py``, ``client/cluster.py``).  The replicated
 section parses, but its client (``client/replicated.py``) comes with the
-replication slice (ROADMAP M11); the batching and mesh knobs parse for
-config-file parity and are read by nothing until the device-sharding slice
-(ROADMAP M8 part 2).
+replication slice (ROADMAP M11); the batching knobs parse for config-file
+parity and are read by nothing yet.  The mesh knobs drive the sharded
+objects' mesh (``parallel/manager.MeshManager``).
 """
 from __future__ import annotations
 
@@ -140,8 +140,11 @@ class MeshConfig:
     """Device-mesh layout for the embedded data plane (L3', SURVEY §7.1-3).
 
     The reference has no analog — the closest is the cluster slot layout;
-    here it's (dp, shard) axis sizes over the local devices.  Parsed only:
-    the mesh comes with ROADMAP M8 part 2.
+    here it's (dp, shard) axis sizes over the local positions
+    (``parallel/mesh.local_devices``), read by ``parallel/manager``.
+    ``n_devices`` is the count of local positions (round robin over the
+    cards; None: one a card, or the CPU's configured count); ``platform`` is
+    parsed and read by nothing: the engine's device picks the positions.
     """
 
     dp: int = 1                  # data-parallel axis size (1 = no dp split)

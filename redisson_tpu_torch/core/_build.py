@@ -32,17 +32,17 @@ _PROBES = [_I, _I, _L, _U]  # n_valid, k, m, fastmod_magic(m)
 # library -> {entry point: argtypes}; every entry point returns int.
 SIGNATURES = {
     "bloom": {
-        "rtpu_bloom_probe": [_P, _L, _L, *_KEYS, *_PROBES, _I, _I, _P, _P],
-        "rtpu_bloom_set": [_P, _L, _L, *_KEYS, *_PROBES, _P],
+        "rtpu_bloom_probe": [_P, _L, _L, *_KEYS, *_PROBES, _L, _I, _I, _P, _P],
+        "rtpu_bloom_set": [_P, _L, _L, *_KEYS, *_PROBES, _L, _P],
         "rtpu_bloom_add": [_P, _L, _L, *_KEYS, *_PROBES, _I, _I, _P, _P, _P, _P, _P],
     },
     "hll": {
-        "rtpu_hll_add": [_P, _L, _L, _I, *_KEYS, _I, _P],
+        "rtpu_hll_add": [_P, _L, _L, _I, *_KEYS, _I, _L, _P],
         "rtpu_hll_rows": [_P, _L, _P, _L, _P, _P, _L, _L, _P, _P, _F, _P],
     },
     "bitset": {
-        "rtpu_bitset_get": [_P, _L, _P, _I, _P, _P],
-        "rtpu_bitset_set": [_P, _L, _P, _I, _I, _I, _P, _P],
+        "rtpu_bitset_get": [_P, _L, _P, _I, _L, _P, _P],
+        "rtpu_bitset_set": [_P, _L, _P, _I, _I, _I, _L, _P, _P],
         "rtpu_bitset_get_groups": [_P, _I, _P, _P, _I, _P, _P],
         "rtpu_bitset_set_groups": [_P, _I, _I, _P, _P, _I, _P, _P],
     },

@@ -127,10 +127,16 @@ def _concat_segments(engine, keys_list) -> Tuple[np.ndarray, np.ndarray, List[in
 
 def _validated_records(engine, names: Sequence[str]):
     """Fetch and geometry-check the run's records.  Caller holds the locks.
-    Every plane of the stack must live on one device."""
+
+    Every plane of the stack must live on one device, and with placement on
+    every record must be owned by one position (``StateRecord.position``):
+    the server splits a frame's runs a position at a time
+    (``placement.plan_frame``), so a mixed run here happens only
+    mid-handoff, and it falls back to per-record dispatch, each record on
+    its own owner's lane."""
     recs = []
     m = k = shape = hname = None
-    device = None
+    device = position = None
     for name in names:
         rec = engine.store.get(name)
         if rec is None or rec.kind != "bloom":
@@ -140,6 +146,7 @@ def _validated_records(engine, names: Sequence[str]):
             hname = rec.meta.get("hash")
             shape = rec.arrays["bits"].shape
             device = _plane_device(rec.arrays["bits"])
+            position = rec.position
         elif (
             rec.meta["m"] != m
             or rec.meta["k"] != k
@@ -147,7 +154,7 @@ def _validated_records(engine, names: Sequence[str]):
             or rec.arrays["bits"].shape != shape
         ):
             raise CoalesceIneligible("mixed filter geometry in run")
-        elif _plane_device(rec.arrays["bits"]) != device:
+        elif _plane_device(rec.arrays["bits"]) != device or rec.position != position:
             raise CoalesceIneligible("planes span devices")
         recs.append(rec)
     if len(names) * shape[0] > K.BANK_MAX_CELLS:

@@ -28,15 +28,22 @@ The engine owns:
     ``shutdown`` runs first, so a shut-down engine leaves no thread of its
     own behind.
 
-A trimmed copy of ``redisson_tpu/core/engine.py``: device placement,
-residency, serving lanes and the warm pool belong to later slices.
+With ``enable_placement`` the 16384-slot table maps onto the mesh
+positions (``server/placement.py``): every record installed from then on is
+owned by its slot's position (``StateRecord.position``), the engine keeps a
+serving lane a position (``lanes``, ``core/ioplane.LaneSet``), and
+``move_slot_records`` hands a slot to another position under the record
+locks, fenced by epoch.
+
+A trimmed copy of ``redisson_tpu/core/engine.py``: residency and the warm
+pool (``prewarm`` and its ``all_devices``) belong to the operations slice.
 """
 from __future__ import annotations
 
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +68,12 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _device_key(device) -> Tuple[str, int]:
+    """A torch device with its index filled in (cuda is cuda:0 unless said)."""
+    device = torch.device(device)
+    return device.type, device.index or 0
 
 
 class Engine:
@@ -90,6 +103,10 @@ class Engine:
         self._renewals: dict[tuple, Any] = {}
         self._closers: list = []
         self._closed = False
+        # device-sharded serving: slot -> position placement and a serving
+        # lane a position; None keeps the single-device engine
+        self.placement = None
+        self.lanes = None
 
     @property
     def eviction(self):
@@ -325,19 +342,109 @@ class Engine:
 
     # -- device placement and staging ----------------------------------------
 
+    def enable_placement(self, devices=None, n_devices: Optional[int] = None):
+        """Map the 16384-slot table onto mesh positions (`devices`, default
+        `n_devices` local positions of the engine's device kind, all when
+        None): every record installed from here on is owned by its slot's
+        position, frames routed to different positions dispatch down their
+        own lanes, and coalesced runs fuse a position at a time.  Returns
+        the SlotPlacement.
+
+        The positions must all be the engine's device: the object handles
+        stage their keys on it, so records on several cards would need
+        handles that stage on a record's card (ROADMAP M8 part 3)."""
+        from redisson_tpu_torch.parallel.mesh import local_devices
+        from redisson_tpu_torch.server.placement import SlotPlacement
+
+        if devices is None:
+            devices = local_devices(self.device, count=n_devices)
+            n_devices = None
+        placement = SlotPlacement(devices=devices, n_devices=n_devices)
+        home = _device_key(self.device)
+        if any(_device_key(getattr(d, "device", d)) != home for d in placement.devices):
+            raise NotImplementedError(
+                "placement over positions on more than one device is not served "
+                "yet (ROADMAP M8 part 3); every position must be the engine's "
+                f"device {self.device}"
+            )
+        with self._locks_guard:
+            self.placement = placement
+            self.lanes = ioplane.LaneSet(placement.devices)
+        self.store.placement_hook = self._place_record
+        return placement
+
     def device_for_name(self, name: str):
-        """Owner device of `name`'s slot; None, as the port has no placement
-        yet (every record lives on self.device)."""
-        return None
+        """Owner position of `name`'s slot, or None with placement off."""
+        p = self.placement
+        return None if p is None else p.device_for_name(name)
+
+    def _place_record(self, name: str, rec) -> None:
+        """DeviceStore placement hook: the record's owner is its slot's
+        position.  Every position is on the engine's device, so no tensor
+        moves."""
+        p = self.placement
+        if p is not None:
+            rec.position = p.device_id_for_name(name)
+
+    def move_slots_records(self, targets: Dict[int, int],
+                           epoch: Optional[int] = None,
+                           skip_stale: bool = False) -> Tuple[int, int]:
+        """Bulk fenced slot -> position handoff: fence and repoint every slot
+        of ``targets`` ({slot: position index}), then re-own the affected
+        records in ONE store scan, each under its record lock (a dispatch in
+        flight holds the lock and finishes under the old owner).  Returns
+        (records moved, stale slots); a stale coordinator's epoch raises
+        PlacementStaleEpoch unless ``skip_stale`` counts it instead."""
+        from redisson_tpu_torch.server.placement import PlacementStaleEpoch
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        p = self.placement
+        if p is None:
+            raise RuntimeError("placement is not enabled on this engine")
+        fenced: Dict[int, int] = {}
+        stale = 0
+        for slot, dev_index in targets.items():
+            try:
+                p.assign(slot, dev_index, epoch)  # fences + repoints routing
+                fenced[slot] = dev_index
+            except PlacementStaleEpoch:
+                if not skip_stale:
+                    raise
+                stale += 1  # a newer rebalance owns this slot now
+        if not fenced:
+            return 0, stale
+        moving = [
+            (n, fenced[s])
+            for n in self.store.keys()
+            for s in (calc_slot(n.encode()),)
+            if s in fenced
+        ]
+        moved = 0
+        for name, dev_index in moving:
+            with self.locked(name):
+                rec = self.store.get_unguarded(name)
+                if rec is not None and rec.position != dev_index:
+                    rec.position = dev_index
+                    moved += 1
+        return moved, stale
+
+    def move_slot_records(self, slot: int, dev_index: int,
+                          epoch: Optional[int] = None) -> int:
+        """One fenced slot -> position handoff (CLUSTER DEVMOVE's unit)."""
+        moved, _stale = self.move_slots_records({slot: dev_index}, epoch)
+        return moved
 
     def staging_pool(self, device=None):
         """The engine's pinned double-buffered staging pool, or None when the
         overlap plane is off (the serial A/B reference) or the device is
         the CPU, where slot reuse would rewrite a staged tensor
-        (ioplane.staging_reuse_safe).  `device` names a placement lane's
-        pool in the reference; the port has one pool."""
+        (ioplane.staging_reuse_safe).  With placement on and a `device` (a
+        position) given, that position's lane pool: each lane's uploads
+        double-buffer on their own."""
         if not (ioplane.overlap_enabled() and ioplane.staging_reuse_safe(self.device)):
             return None
+        if device is not None and self.lanes is not None:
+            return self.lanes.lane(device).pool
         return self.staging
 
     # -- key packing --------------------------------------------------------
@@ -417,4 +524,6 @@ class Engine:
         self.pubsub.close()
         self.query_cache.clear()
         self.staging.clear()
+        if self.lanes is not None:
+            self.lanes.clear()
         self.store.flushall()

@@ -25,11 +25,26 @@ The server's QoS plane keeps its per-class in-flight ledger here
 (``QosLedger``), and its dispatch layer asks ``is_retryable_device_fault``
 which failures reply ``-TRYAGAIN``.
 
-Not ported here: ``FlushPipeline``, ``DeviceLane`` and ``LaneSet`` (the
-lanes of multi-device serving), and the device fault plane of the reference
-(its chaos stall, lane watchdog and quarantine), which belongs to the
-operations slice; ``colocate`` and ``scatter_host_arrays`` wait for the
-slices that use them.
+Multi-device serving (``server/placement.py``) dispatches through the
+per-position lanes here: ``DeviceLane`` (a staging pool, a ``FlushPipeline``,
+a QoS ledger and the occupancy gate: dispatches bound for one position
+serialize, dispatches bound for different positions overlap) and
+``LaneSet`` (the registry, with the peak dispatch concurrency).
+``colocate`` moves a tensor to another device without a host round trip
+(counted in ``STATS``: ``d2d_colocations``, ``host_colocations``).
+
+Lanes on positions of one card dispatch on that card's current stream, in
+order.  A lane stream of its own would let a kernel that still reads or
+writes a record run after another connection's DEL handed the record's
+memory to a new tensor (PyTorch's caching allocator reuses a block on the
+stream that allocated it), unless every place that drops a record's
+tensors called ``record_stream``; lanes on different cards dispatch on
+their own cards' streams and overlap there.  The lane fault counters
+(``consec_faults``, ``total_faults``, ``quarantined``) are fields that stay
+0 until the operations slice's fault plane (the reference's chaos stall,
+lane watchdog and quarantine) sets them; the preemptible sub-windows and
+the interactive stream of a lane come with the QoS fleet.
+``scatter_host_arrays`` waits for the operations slice.
 """
 from __future__ import annotations
 
@@ -94,7 +109,8 @@ class IOStats:
     while the device value was not yet ready (the part not hidden)."""
 
     __slots__ = ("_lock", "blocking_syncs", "readbacks", "readback_wait_s",
-                 "readback_exposed_s", "staging_waits")
+                 "readback_exposed_s", "staging_waits", "d2d_colocations",
+                 "host_colocations")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -106,6 +122,11 @@ class IOStats:
         self.readback_wait_s = 0.0
         self.readback_exposed_s = 0.0
         self.staging_waits = 0
+        # cross-device moves (colocate): device to device, or through the
+        # host (a numpy value uploaded); the cross-device merges keep the
+        # second at 0
+        self.d2d_colocations = 0
+        self.host_colocations = 0
 
     def count_sync(self, n: int = 1) -> None:
         with self._lock:
@@ -115,6 +136,13 @@ class IOStats:
         with self._lock:
             self.blocking_syncs += 1
             self.staging_waits += 1
+
+    def count_colocation(self, through_host: bool) -> None:
+        with self._lock:
+            if through_host:
+                self.host_colocations += 1
+            else:
+                self.d2d_colocations += 1
 
     def add_readback(self, wall_s: float, was_ready: bool) -> None:
         with self._lock:
@@ -132,10 +160,57 @@ class IOStats:
                 "readback_wait_s": self.readback_wait_s,
                 "readback_exposed_s": self.readback_exposed_s,
                 "staging_waits": self.staging_waits,
+                "d2d_colocations": self.d2d_colocations,
+                "host_colocations": self.host_colocations,
             }
 
 
 STATS = IOStats()
+
+# per-device ledgers (keyed by the torch device's name): the grouped
+# readback counts its sync on the device it read from, a lane its readbacks
+_DEVICE_STATS: "dict[str, IOStats]" = {}
+_DEVICE_STATS_LOCK = threading.Lock()
+
+
+def device_stats(device) -> IOStats:
+    """The IOStats ledger of one torch device (created on first use)."""
+    key = str(torch.device(device))
+    with _DEVICE_STATS_LOCK:
+        st = _DEVICE_STATS.get(key)
+        if st is None:
+            st = _DEVICE_STATS[key] = IOStats()
+        return st
+
+
+def device_stats_snapshot() -> dict:
+    """{device name: snapshot} of every per-device ledger."""
+    with _DEVICE_STATS_LOCK:
+        items = list(_DEVICE_STATS.items())
+    return {k: st.snapshot() for k, st in items}
+
+
+def reset_device_stats() -> None:
+    with _DEVICE_STATS_LOCK:
+        items = list(_DEVICE_STATS.values())
+    for st in items:
+        st.reset()
+
+
+def colocate(value, device) -> torch.Tensor:
+    """`value` as a tensor on `device`: itself when it is already there, a
+    device-to-device copy otherwise (a peer copy between cards; counted
+    ``d2d_colocations``), an upload for a numpy value (counted
+    ``host_colocations``).  Never a round trip through host memory for a
+    tensor."""
+    device = torch.device(device)
+    if isinstance(value, torch.Tensor):
+        if value.device == device:
+            return value
+        STATS.count_colocation(through_host=False)
+        return value.to(device)
+    STATS.count_colocation(through_host=True)
+    return torch.as_tensor(np.asarray(value), device=device)
 
 
 def device_of(value) -> Optional[torch.device]:
@@ -254,6 +329,7 @@ def gather_device_results(groups: Sequence[Sequence[Any]]) -> List[tuple]:
     for device, fis in buckets.items():
         parts = [flat[fi] for fi in fis]
         STATS.count_sync()
+        device_stats(device).count_sync()
         merged = _fetch(device, parts)
         off = 0
         for fi in fis:
@@ -382,13 +458,21 @@ class StagingPool:
 # -- device faults the server replies -TRYAGAIN to -----------------------------
 
 
+class LaneWatchdogTimeout(RuntimeError):
+    """A device readback exceeded the armed lane-watchdog bound: the frame
+    fails retryably (-TRYAGAIN) instead of wedging its writer.  Raised by
+    the operations slice's lane watchdog; the lanes here never arm it."""
+
+
 def is_retryable_device_fault(e: BaseException) -> bool:
     """The failure shapes the server's dispatch layer converts to a clean
-    retryable ``-TRYAGAIN``: a RuntimeError whose message starts with one of
-    the reference's transient-runtime prefixes.  Matched on the message,
-    never the class.  A CUDA error matches none of them and replies
-    ``ERR internal``; mapping CUDA failures onto retry and ``-OOM`` belongs
-    to the operations slice."""
+    retryable ``-TRYAGAIN``: the lane-watchdog timeout, and a RuntimeError
+    whose message starts with one of the reference's transient-runtime
+    prefixes.  Matched on the message, never the class.  A CUDA error
+    matches none of them and replies ``ERR internal``; mapping CUDA failures
+    onto retry and ``-OOM`` belongs to the operations slice."""
+    if isinstance(e, LaneWatchdogTimeout):
+        return True
     if not isinstance(e, RuntimeError):
         return False
     return str(e).lstrip().startswith(
@@ -402,12 +486,12 @@ def is_retryable_device_fault(e: BaseException) -> bool:
 
 class QosLedger:
     """Per-deadline-class in-flight accounting: one global ledger on the
-    server's WindowScheduler.  Every ``enter`` must be paired with an
-    ``exit``: the server's metrics gauges read the in-flight rows.  (The
-    reference also keeps one a device lane, with per-stream rows; lanes
-    come with the multi-device slice.)"""
+    server's WindowScheduler, one a DeviceLane.  Every ``enter`` must be
+    paired with an ``exit``: the server's metrics gauges read the in-flight
+    rows, CLUSTER DEVICES the cumulative ones (``wire_row``)."""
 
-    __slots__ = ("_lock", "frames", "ops", "nbytes", "waiting")
+    __slots__ = ("_lock", "frames", "ops", "nbytes", "waiting",
+                 "dispatched_ops", "dispatched_frames")
 
     _CLASSES = ("interactive", "bulk")
 
@@ -417,6 +501,8 @@ class QosLedger:
         self.ops = {c: 0 for c in self._CLASSES}
         self.nbytes = {c: 0 for c in self._CLASSES}
         self.waiting = 0  # bulk frames parked at the admission gate
+        self.dispatched_ops = {c: 0 for c in self._CLASSES}
+        self.dispatched_frames = {c: 0 for c in self._CLASSES}
 
     @classmethod
     def _cls(cls, qos_class: str) -> str:
@@ -428,6 +514,8 @@ class QosLedger:
             self.frames[c] += 1
             self.ops[c] += ops
             self.nbytes[c] += nbytes
+            self.dispatched_ops[c] += ops
+            self.dispatched_frames[c] += 1
 
     def exit(self, qos_class: str, ops: int, nbytes: int = 0) -> None:
         c = self._cls(qos_class)
@@ -443,3 +531,241 @@ class QosLedger:
     def wait_exit(self) -> None:
         with self._lock:
             self.waiting -= 1
+
+    def census(self, prefix: str = "qos") -> dict:
+        """Drain-to-zero gauges only (the cumulative counters are on the
+        wire views)."""
+        with self._lock:
+            out = {f"{prefix}_bulk_waiting": float(self.waiting)}
+            for c in self._CLASSES:
+                out[f"{prefix}_{c}_inflight_frames"] = float(self.frames[c])
+                out[f"{prefix}_{c}_inflight_ops"] = float(self.ops[c])
+                out[f"{prefix}_{c}_inflight_bytes"] = float(self.nbytes[c])
+            return out
+
+    def wire_row(self) -> list:
+        """[in-flight ops i/b, in-flight bytes i/b, dispatched ops i/b]: the
+        CLUSTER DEVICES per-lane projection."""
+        with self._lock:
+            return [
+                self.ops["interactive"], self.ops["bulk"],
+                self.nbytes["interactive"], self.nbytes["bulk"],
+                self.dispatched_ops["interactive"],
+                self.dispatched_ops["bulk"],
+            ]
+
+
+# -- dispatch-ahead flush driver -----------------------------------------------
+
+
+class FlushPipeline:
+    """stage -> dispatch -> fetch driver for a stream of flush windows (a
+    lane's A/B harness).
+
+    ``submit(fn)``: ``fn()`` stages and dispatches ONE window and returns
+    ``(device_values, finish)`` with ``finish(host_tuple) -> result``.
+
+      * overlap on: returns a ReadbackFuture at once; at most ``depth``
+        windows stay unforced, so submitting window depth+1 forces the
+        oldest, whose readback by then overlapped the younger windows'
+        staging and dispatch.
+      * overlap off: the strict serial reference, a readback forced at
+        every submit.
+
+    ``submit(fn, interactive=True)`` forces the window's readback at once
+    instead of parking it behind bulk windows; with ``deadline_s`` set, a
+    window older than the deadline is forced by the next submit.  Neither
+    reorders device work, only waits, so results are the same."""
+
+    def __init__(self, *, overlap: Optional[bool] = None, depth: int = 2,
+                 deadline_s: Optional[float] = None):
+        self.overlap = overlap_enabled() if overlap is None else bool(overlap)
+        self.depth = max(1, depth)
+        self.deadline_s = deadline_s
+        self._ring: List[Tuple[ReadbackFuture, float]] = []
+
+    @staticmethod
+    def _force(fut: ReadbackFuture) -> None:
+        try:
+            fut.result()
+        except Exception:  # noqa: BLE001 — the error stays on the future
+            pass
+
+    def submit(self, fn: Callable[[], Tuple[Sequence[Any], Optional[Callable]]],
+               interactive: bool = False) -> ReadbackFuture:
+        device, finish = fn()
+        fut = ReadbackFuture(device, finish)
+        if not self.overlap:
+            self._force(fut)
+            return fut
+        now = time.monotonic()
+        if self.deadline_s is not None:
+            while self._ring and now - self._ring[0][1] > self.deadline_s:
+                self._force(self._ring.pop(0)[0])
+        if interactive:
+            self._force(fut)
+            return fut
+        self._ring.append((fut, now))
+        if len(self._ring) > self.depth:
+            self._force(self._ring.pop(0)[0])
+        return fut
+
+    def pending(self) -> int:
+        return len(self._ring)
+
+    def drain(self) -> None:
+        """Force every still-pending window (end of the stream)."""
+        ring, self._ring = self._ring, []
+        for fut, _t in ring:
+            self._force(fut)
+
+
+# -- per-position serving lanes ------------------------------------------------
+
+_replica_ns_per_item: Optional[float] = None
+
+
+def set_replica_occupancy(ns_per_item: Optional[float]) -> Optional[float]:
+    """Arm/disarm the modelled device occupancy: with a value set, every
+    ``DeviceLane.occupy(n_items)`` holds its lane n_items * ns_per_item
+    nanoseconds, the per-chip compute time a device would serialize on its
+    stream.  It exists only for A/B measurement on machines without the
+    devices (the reference's bench config 5d arms it off the chip); it
+    stays disarmed on the card, where the kernels take their own time.
+    Returns the previous value."""
+    global _replica_ns_per_item
+    prev = _replica_ns_per_item
+    _replica_ns_per_item = ns_per_item
+    return prev
+
+
+def replica_occupancy() -> Optional[float]:
+    return _replica_ns_per_item
+
+
+class DeviceLane:
+    """One position's serving lane: staging pool, flush pipeline, QoS
+    ledger, and the occupancy gate (dispatches bound for one position
+    serialize; dispatches bound for different positions overlap)."""
+
+    def __init__(self, device, laneset: "LaneSet", depth: int = 2):
+        self.device = device
+        self.dev_id = getattr(device, "id", 0)
+        torch_dev = getattr(device, "device", device)
+        self.pool = StagingPool(depth=depth, pin=torch.device(torch_dev).type == "cuda")
+        self.pipeline = FlushPipeline(depth=depth)
+        self.qos = QosLedger()
+        self._laneset = laneset
+        self._gate = threading.Lock()
+        self.dispatches = 0
+        # fault ledger: set by the operations slice's fault plane; 0 here
+        self.consec_faults = 0
+        self.total_faults = 0
+        self.quarantined = False
+        self.last_fault_kind = ""
+
+    def occupy(self, n_items: int = 0, qos_class: Optional[str] = None,
+               nbytes: int = 0) -> "_LaneOccupancy":
+        """Context manager bounding one dispatch's occupancy of the lane:
+        holds the gate and, with ``set_replica_occupancy`` armed, the
+        modelled compute time of `n_items` ops; with `qos_class` (the
+        scheduler armed) the dispatch is on the lane's QoS ledger while it
+        holds the lane."""
+        return _LaneOccupancy(self, n_items, qos_class, nbytes)
+
+    def submit(self, fn, interactive: bool = False) -> ReadbackFuture:
+        return self.pipeline.submit(fn, interactive=interactive)
+
+
+class _LaneOccupancy:
+    __slots__ = ("_lane", "_n", "_cls", "_nbytes")
+
+    def __init__(self, lane: DeviceLane, n_items: int,
+                 qos_class: Optional[str] = None, nbytes: int = 0):
+        self._lane = lane
+        self._n = n_items
+        self._cls = qos_class
+        self._nbytes = nbytes
+
+    def __enter__(self) -> DeviceLane:
+        if self._cls is not None:
+            self._lane.qos.enter(self._cls, self._n, self._nbytes)
+        self._lane._gate.acquire()
+        self._lane._laneset._enter()
+        self._lane.dispatches += 1
+        return self._lane
+
+    def __exit__(self, *exc):
+        try:
+            ns = _replica_ns_per_item
+            if ns is not None and self._n > 0:
+                time.sleep(self._n * ns * 1e-9)
+        finally:
+            self._lane._laneset._exit()
+            self._lane._gate.release()
+            if self._cls is not None:
+                self._lane.qos.exit(self._cls, self._n, self._nbytes)
+        return False
+
+
+class LaneSet:
+    """The engine's per-position lane registry and cross-lane concurrency
+    accounting (``peak_concurrent`` > 1 shows that frames routed to
+    different positions dispatched at the same time)."""
+
+    def __init__(self, devices: Sequence[Any], depth: int = 2):
+        self._lanes = {
+            getattr(d, "id", i): DeviceLane(d, self, depth=depth)
+            for i, d in enumerate(devices)
+        }
+        self._lock = threading.Lock()
+        self._active = 0
+        self.peak_concurrent = 0
+
+    def lane(self, device) -> DeviceLane:
+        dev_id = device if isinstance(device, int) else getattr(device, "id", 0)
+        lane = self._lanes.get(dev_id)
+        if lane is None:  # unknown position (placement grew): a lane for it
+            with self._lock:
+                lane = self._lanes.get(dev_id)
+                if lane is None:
+                    lane = self._lanes[dev_id] = DeviceLane(device, self)
+        return lane
+
+    def lanes(self) -> List[DeviceLane]:
+        return list(self._lanes.values())
+
+    def _enter(self) -> None:
+        with self._lock:
+            self._active += 1
+            if self._active > self.peak_concurrent:
+                self.peak_concurrent = self._active
+
+    def _exit(self) -> None:
+        with self._lock:
+            self._active -= 1
+
+    def active(self) -> int:
+        with self._lock:
+            return self._active
+
+    def reset_concurrency(self) -> int:
+        with self._lock:
+            prev, self.peak_concurrent = self.peak_concurrent, 0
+            return prev
+
+    def census(self) -> dict:
+        """Flat gauges: staging slots and in-flight dispatches return to
+        their baseline after a storm."""
+        out = {"lanes": len(self._lanes), "active_dispatches": self.active()}
+        for dev_id, lane in sorted(self._lanes.items()):
+            out[f"lane{dev_id}_staging_slots"] = lane.pool.slot_count()
+            out[f"lane{dev_id}_quarantined"] = int(lane.quarantined)
+            out[f"lane{dev_id}_consec_faults"] = lane.consec_faults
+            out.update(lane.qos.census(prefix=f"lane{dev_id}_qos"))
+        return out
+
+    def clear(self) -> None:
+        for lane in self._lanes.values():
+            lane.pool.clear()
+            lane.pipeline.drain()

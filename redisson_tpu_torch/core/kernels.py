@@ -54,6 +54,13 @@ Fourteen kernels carry every program here:
                row order, then each cell's mean in that order; no float
                atomics)
 
+bloom_probe, bloom_set, hll_add, bitset_get and bitset_set also take a
+shard window (``col_lo``, ``row_lo``, ``lo``): the state is one shard's
+columns, rows or bits of a plane sharded over a mesh
+(``parallel/sharded.py``), another shard's probe counts as set (bloom),
+another shard's op is dropped (hll) or reads 0 (bitset), and each plain
+version takes the same window.  ``window_launches`` counts those launches.
+
 The rest of the BitSet programs (popcount, BITOP, BITPOS, length) only
 reduce or map a plane elementwise and stay torch ops, as do the row-bank
 writes and growth of the vector banks (they bitcast and scatter rows).
@@ -96,18 +103,29 @@ BANK_MAX_CELLS = 2**31 - 2048  # int32 flat-index space minus sentinel headroom
 launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll_rows": 0,
             "bitset_get": 0, "bitset_set": 0, "wc_words": 0, "wc_sort_runs": 0,
             "segment_reduce": 0, "knn_score": 0, "knn_select": 0, "ivf_score": 0, "kmeans": 0}
+# Of those, the launches with a shard window (parallel/sharded.py: the
+# sharded sketch programs' windowed forms of five kernels).
+window_launches = {"bloom_probe": 0, "bloom_set": 0, "hll_add": 0, "bitset_get": 0, "bitset_set": 0}
 _launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launches_lock:
-        for name in launches:
-            launches[name] = 0
+        for counts in (launches, window_launches):
+            for name in counts:
+                counts[name] = 0
 
 
 def count_launch(name: str) -> None:
     with _launches_lock:
         launches[name] += 1
+
+
+def _count_window(name: str, lo) -> None:
+    """Count a launch that just ran with a shard window (lo not None)."""
+    if lo is not None:
+        with _launches_lock:
+            window_launches[name] += 1
 
 
 # --------------------------------------------------------------------------
@@ -441,11 +459,33 @@ def _bloom_result(plane, n: int, out):
     return torch.zeros((), dtype=torch.int32, device=plane.device)
 
 
-def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
-    """Plain version of bloom_probe: per op, are all k bits set (or, with
-    `newly`, was any of them 0); ops >= n_valid give False."""
+def _window_cols(idx: torch.Tensor, col_lo: Optional[int], width: int):
+    """A shard's column window (parallel/sharded.py): each global probe's
+    column in the shard that holds columns [col_lo, col_lo + width), and
+    whether this shard holds it; with no window, idx and all True."""
+    if col_lo is None:
+        return idx, None
+    local = idx - col_lo
+    owned = (local >= 0) & (local < width)
+    return torch.where(owned, local, 0), owned
+
+
+def _bloom_positions(plane, width, keys: Keys, k, m, col_lo):
+    """Flat plane position of every probe; `size` (reads 1, never written)
+    outside the plane or, with a window, where another shard holds it."""
     h1, h2 = _hash(keys)
-    g = _flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, plane.numel())
+    cols, owned = _window_cols(H.bloom_indexes(h1, h2, k, m), col_lo, width)
+    g = _flat_index(keys.tenant, cols, width, plane.numel())
+    return g if owned is None else torch.where(owned, g, plane.numel())
+
+
+def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS,
+                      col_lo=None):
+    """Plain version of bloom_probe: per op, are all k bits set (or, with
+    `newly`, was any of them 0); ops >= n_valid give False.  With `col_lo`
+    the plane is one shard's columns [col_lo, col_lo + width) of every row
+    and another shard's probe counts as set."""
+    g = _bloom_positions(plane, width, keys, k, m, col_lo)
     found = bt.contains(plane.reshape(-1), g)
     flags = (~found if newly else found) & _valid(keys.n, n_valid, plane.device)
     if out == BITS:
@@ -455,31 +495,43 @@ def bloom_probe_plain(plane, width, keys: Keys, n_valid, k, m, newly=False, out=
     return flags
 
 
-def bloom_probe(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS):
+def _window(lo: Optional[int]) -> int:
+    """A window's first column, row or bit as the kernels take it: -1 for
+    none (the whole plane)."""
+    if lo is None:
+        return -1
+    if lo < 0:
+        raise ValueError(f"a shard window starts at a non-negative index, got {lo}")
+    return int(lo)
+
+
+def bloom_probe(plane, width, keys: Keys, n_valid, k, m, newly=False, out=FLAGS, col_lo=None):
     if _route(plane) == "plain":
-        return bloom_probe_plain(plane, width, keys, n_valid, k, m, newly, out)
+        return bloom_probe_plain(plane, width, keys, n_valid, k, m, newly, out, col_lo)
     n_valid = _bloom_operands(plane, keys, n_valid, m, out)
     result = _bloom_result(plane, keys.n, out)
     _launch("bloom_probe", _build.library("bloom").rtpu_bloom_probe, plane,
             plane.data_ptr(), plane.numel(), width, *_key_args(keys),
-            n_valid, k, m, fastmod_magic(m), int(newly), out, result.data_ptr())
+            n_valid, k, m, fastmod_magic(m), _window(col_lo), int(newly), out, result.data_ptr())
+    _count_window("bloom_probe", col_lo)
     return result
 
 
-def bloom_set_plain(plane, width, keys: Keys, n_valid, k, m):
-    h1, h2 = _hash(keys)
-    g = _flat_index(keys.tenant, H.bloom_indexes(h1, h2, k, m), width, plane.numel())
+def bloom_set_plain(plane, width, keys: Keys, n_valid, k, m, col_lo=None):
+    g = _bloom_positions(plane, width, keys, k, m, col_lo)
     bt.set_bits(plane.view(-1), g[_valid(keys.n, n_valid, plane.device)])
 
 
-def bloom_set(plane, width, keys: Keys, n_valid, k, m) -> None:
-    """Set the k bits of every op < n_valid, in place."""
+def bloom_set(plane, width, keys: Keys, n_valid, k, m, col_lo=None) -> None:
+    """Set the k bits of every op < n_valid, in place; with `col_lo`, only
+    the probes of the shard whose columns the plane holds."""
     if _route(plane) == "plain":
-        return bloom_set_plain(plane, width, keys, n_valid, k, m)
+        return bloom_set_plain(plane, width, keys, n_valid, k, m, col_lo)
     n_valid = _bloom_operands(plane, keys, n_valid, m, FLAGS)
     _launch("bloom_set", _build.library("bloom").rtpu_bloom_set, plane,
             plane.data_ptr(), plane.numel(), width, *_key_args(keys),
-            n_valid, k, m, fastmod_magic(m))
+            n_valid, k, m, fastmod_magic(m), _window(col_lo))
+    _count_window("bloom_set", col_lo)
 
 
 def bloom_add_plain(plane, width, keys: Keys, n_valid, k, m, out=FLAGS):
@@ -534,25 +586,36 @@ def bloom_add(plane, width, keys: Keys, n_valid, k, m, out=FLAGS):
     return newly
 
 
-def hll_add_plain(regs, width, keys: Keys, n_valid, p):
+def hll_add_plain(regs, width, keys: Keys, n_valid, p, row_lo=None):
     h1, h2 = _hash(keys)
     idx, rho = hll_ops.idx_rho(h1, h2, p)
     flat = regs.view(-1)
-    g = _flat_index(keys.tenant, idx, width, flat.numel())
+    if row_lo is None:
+        g = _flat_index(keys.tenant, idx, width, flat.numel())
+    else:
+        r = keys.tenant.to(torch.int64) - row_lo
+        owned = (r >= 0) & (r < flat.numel() // width)
+        g = torch.where(owned, r * width + idx, flat.numel())
     g = torch.where(_valid(keys.n, n_valid, regs.device), g, flat.numel())
     hll_ops.add(flat, g, rho)
 
 
-def hll_add(regs, width, keys: Keys, n_valid, p) -> None:
-    """Scatter-max the rank of every op < n_valid into its register, in place."""
+def hll_add(regs, width, keys: Keys, n_valid, p, row_lo=None) -> None:
+    """Scatter-max the rank of every op < n_valid into its register, in
+    place.  With `row_lo` the bank is one shard's rows [row_lo, row_lo +
+    rows) of a tenant-sharded bank: an op's row is its tenant - row_lo, and
+    another shard's tenant is dropped."""
     if _route(regs) == "plain":
-        return hll_add_plain(regs, width, keys, n_valid, p)
+        return hll_add_plain(regs, width, keys, n_valid, p, row_lo)
+    if row_lo is not None and keys.tenant is None:
+        raise ValueError("a row window needs a tenant per op")
     _require_cuda_operands(regs, keys.tenant, keys.lo, keys.hi, keys.words, keys.nbytes)
     if regs.dtype != torch.uint8 or regs.data_ptr() % 4 or regs.numel() % 4:
         raise ValueError("register banks are uint8, 4-byte aligned, a multiple of 4 long")
     _launch("hll_add", _build.library("hll").rtpu_hll_add, regs,
             regs.data_ptr(), regs.numel(), width, p, *_key_args(keys),
-            max(0, min(n_valid, keys.n)))
+            max(0, min(n_valid, keys.n)), _window(row_lo))
+    _count_window("hll_add", row_lo)
 
 
 def _row_index(rows: torch.Tensor, count: int) -> torch.Tensor:
@@ -774,38 +837,53 @@ def _bitset_operands(bits, idx) -> None:
         raise ValueError("bit planes are 1-D uint8")
 
 
-def bitset_get_plain(bits, idx):
-    return bt.get_bits(bits, idx)
+def _bit_lanes(bits, idx, lo: Optional[int]):
+    """Indexes as bt.get_bits/set_bits take them: with a shard window, the
+    lane in the shard that holds bits [lo, lo + size), or `size` (reads 0,
+    never written) where another shard holds it."""
+    if lo is None:
+        return idx
+    local = idx.to(torch.int64) - lo
+    return torch.where((local >= 0) & (local < bits.shape[0]), local, bits.shape[0])
 
 
-def bitset_get(bits, idx):
+def bitset_get_plain(bits, idx, lo=None):
+    return bt.get_bits(bits, _bit_lanes(bits, idx, lo))
+
+
+def bitset_get(bits, idx, lo=None):
     """GETBIT batch: uint8 lane of every index of the int32 `idx`; an index
-    in [-size, -1] counts from the end, any other outside the plane reads 0."""
+    in [-size, -1] counts from the end, any other outside the plane reads 0.
+    With `lo` the plane is one shard's bits [lo, lo + size) and another
+    shard's index reads 0."""
     if _route(bits) == "plain":
-        return bitset_get_plain(bits, idx)
+        return bitset_get_plain(bits, idx, lo)
     _bitset_operands(bits, idx)
     out = torch.empty(idx.shape, dtype=torch.uint8, device=bits.device)
     if idx.numel():
         _launch("bitset_get", _build.library("bitset").rtpu_bitset_get, bits,
-                bits.data_ptr(), bits.numel(), idx.data_ptr(), idx.numel(), out.data_ptr())
+                bits.data_ptr(), bits.numel(), idx.data_ptr(), idx.numel(), _window(lo),
+                out.data_ptr())
+        _count_window("bitset_get", lo)
     return out
 
 
-def bitset_set_plain(bits, idx, n_valid, value):
+def bitset_set_plain(bits, idx, n_valid, value, lo=None):
     valid = _valid(idx.shape[0], n_valid, bits.device)
     # masked ops index past every plane (int64, so no wrap brings them back)
-    safe = torch.where(valid, idx.to(torch.int64), bits.shape[0])
+    safe = torch.where(valid, _bit_lanes(bits, idx, lo).to(torch.int64), bits.shape[0])
     old = bt.get_bits(bits, safe)
     bt.set_bits(bits, safe, int(value))
     return bits, old
 
 
-def bitset_set(bits, idx, n_valid, value):
+def bitset_set(bits, idx, n_valid, value, lo=None):
     """SETBIT batch, in place: every op < n_valid reports the bit its index
     held before the batch and stores `value` (0 or 1); returns (bits, old
-    uint8 per op, 0 for masked and out-of-range ops)."""
+    uint8 per op, 0 for masked and out-of-range ops).  With `lo`, a shard's
+    window as in bitset_get: another shard's index reads 0, writes nothing."""
     if _route(bits) == "plain":
-        return bitset_set_plain(bits, idx, n_valid, value)
+        return bitset_set_plain(bits, idx, n_valid, value, lo)
     _bitset_operands(bits, idx)
     if idx.dim() != 1:
         raise ValueError("bitset_set takes a 1-D index batch")
@@ -813,7 +891,9 @@ def bitset_set(bits, idx, n_valid, value):
     if idx.numel():
         _launch("bitset_set", _build.library("bitset").rtpu_bitset_set, bits,
                 bits.data_ptr(), bits.numel(), idx.data_ptr(), idx.numel(),
-                max(0, min(int(n_valid), idx.numel())), int(bool(value)), old.data_ptr())
+                max(0, min(int(n_valid), idx.numel())), int(bool(value)), _window(lo),
+                old.data_ptr())
+        _count_window("bitset_set", lo)
     return bits, old
 
 

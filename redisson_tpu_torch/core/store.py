@@ -8,7 +8,10 @@ under the engine's per-record locks (core/engine.py ``locked`` /
 tensor where they write out of place (the HLL merges).
 
 A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
-window, device placement and the residency tiers, which later slices port.
+window and the residency tiers, which the operations slice ports.  With
+placement on, ``placement_hook`` runs at every install (get_or_create's new
+record, put, put_unguarded) and names the record's owner position
+(``StateRecord.position``).
 With no absent guard, the ``*_unguarded`` accessors (which the reference
 keeps for transfer frames and the vector banks' own records) behave as
 ``get``/``put``/``delete`` do.  ``on_expired`` is the reference's hook: the
@@ -37,6 +40,9 @@ class StateRecord:
     # recreated, so a cache keyed on the record (the word count's scan views)
     # compares (nonce, version), not the version alone
     nonce: int = field(default_factory=lambda: secrets.randbits(63))
+    # the mesh position that owns the record (its slot's, with placement on;
+    # server/placement.py), else None
+    position: Optional[int] = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.expire_at is not None and (now or time.time()) >= self.expire_at
@@ -53,6 +59,14 @@ class DeviceStore:
         # It must not reenter the store: lazy expiry fires it while the
         # store lock is held.
         self.on_expired: Optional[Callable[[list], None]] = None
+        # placement hook: called with (name, record) at every install so a
+        # placement-enabled engine names the owner position of the record
+        self.placement_hook: Optional[Callable[[str, StateRecord], None]] = None
+
+    def _placed(self, name: str, rec: StateRecord) -> StateRecord:
+        if self.placement_hook is not None:
+            self.placement_hook(name, rec)
+        return rec
 
     def _reaped(self, name: str) -> None:
         if self.on_expired is not None:
@@ -81,7 +95,7 @@ class DeviceStore:
                 rec = factory()
                 if rec.kind != kind:
                     raise TypeError(f"factory made a {rec.kind}, expected {kind}")
-                self._states[name] = rec
+                self._states[name] = self._placed(name, rec)
             elif rec.kind != kind:
                 raise TypeError(
                     f"object '{name}' holds a {rec.kind}, requested {kind} "
@@ -91,7 +105,7 @@ class DeviceStore:
 
     def put(self, name: str, rec: StateRecord) -> None:
         with self._lock:
-            self._states[name] = rec
+            self._states[name] = self._placed(name, rec)
 
     put_unguarded = put
 

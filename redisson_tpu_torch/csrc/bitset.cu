@@ -73,9 +73,17 @@ struct Group {
 static_assert(sizeof(Group) == 32, "core/kernels.py packs 32-byte groups");
 
 // The plane position of an index, or -1 when it reads 0 / writes nothing.
-__device__ __forceinline__ int64_t lane_of(int32_t idx, int64_t size) {
+// lo >= 0: the plane is a shard's bits [lo, lo + size) of one logical bit
+// set (parallel/sharded.py), and an index another shard holds reads 0 and
+// writes nothing.  lo < 0: the whole plane, a negative index counting from
+// its end once.
+__device__ __forceinline__ int64_t lane_of(int32_t idx, int64_t size, int64_t lo) {
   int64_t i = idx;
-  if (i < 0) i += size;
+  if (lo >= 0) {
+    i -= lo;
+  } else if (i < 0) {
+    i += size;
+  }
   return (i >= 0 && i < size) ? i : -1;
 }
 
@@ -86,10 +94,10 @@ __device__ __forceinline__ Group group_of(int i, const Group* table, const Group
 
 __global__ void __launch_bounds__(kThreads)
 bitset_read_kernel(const Group* __restrict__ table, Group one, const int32_t* __restrict__ idx,
-                   const int32_t* __restrict__ gid, int n, uint8_t* __restrict__ out) {
+                   const int32_t* __restrict__ gid, int n, int64_t lo, uint8_t* __restrict__ out) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     const Group g = group_of(i, table, one, gid);
-    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size) : -1;
+    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size, lo) : -1;
     out[i] = j >= 0 ? __ldg(g.bits + j) : 0;
   }
 }
@@ -98,7 +106,7 @@ bitset_read_kernel(const Group* __restrict__ table, Group one, const int32_t* __
 // every write
 __global__ void __launch_bounds__(kThreads)
 bitset_set_block_kernel(const Group* __restrict__ table, Group one, const int32_t* __restrict__ idx,
-                        uint8_t* __restrict__ old) {
+                        int64_t lo, uint8_t* __restrict__ old) {
   const Group g = table == nullptr ? one : table[blockIdx.x];
   const auto value = static_cast<uint8_t>(g.value);
   int64_t lane[kBlockPer];
@@ -106,7 +114,7 @@ bitset_set_block_kernel(const Group* __restrict__ table, Group one, const int32_
 #pragma unroll
   for (int r = 0; r < kBlockPer; ++r) {
     const int t = threadIdx.x + kThreads * r;
-    lane[r] = t < g.valid ? lane_of(idx[g.first + t], g.size) : -1;
+    lane[r] = t < g.valid ? lane_of(idx[g.first + t], g.size, lo) : -1;
     was[r] = lane[r] >= 0 ? g.bits[lane[r]] : 0;
   }
   __syncthreads();
@@ -122,17 +130,17 @@ bitset_set_block_kernel(const Group* __restrict__ table, Group one, const int32_
 // the writes
 __global__ void __launch_bounds__(kThreads)
 bitset_set_grid_kernel(const Group* __restrict__ table, Group one, const int32_t* __restrict__ idx,
-                       const int32_t* __restrict__ gid, int n, uint8_t* old) {
+                       const int32_t* __restrict__ gid, int n, int64_t lo, uint8_t* old) {
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const Group g = group_of(i, table, one, gid);
-    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size) : -1;
+    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size, lo) : -1;
     old[i] = j >= 0 ? g.bits[j] : 0;
   }
   cooperative_groups::this_grid().sync();
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const Group g = group_of(i, table, one, gid);
-    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size) : -1;
+    const int64_t j = i - g.first < g.valid ? lane_of(idx[i], g.size, lo) : -1;
     if (j >= 0 && old[i] != g.value) g.bits[j] = static_cast<uint8_t>(g.value);
   }
 }
@@ -161,25 +169,25 @@ int blocks_for(int n) {
 }
 
 cudaError_t read_launch(const Group* table, const Group& one, const int32_t* idx, const int32_t* gid, int n,
-                        uint8_t* out, cudaStream_t s) {
-  if (n > 0) bitset_read_kernel<<<blocks_for(n), kThreads, 0, s>>>(table, one, idx, gid, n, out);
+                        int64_t lo, uint8_t* out, cudaStream_t s) {
+  if (n > 0) bitset_read_kernel<<<blocks_for(n), kThreads, 0, s>>>(table, one, idx, gid, n, lo, out);
   return cudaGetLastError();
 }
 
 // The set of n ops in one launch: one block a group when no group has more
 // than kBlockOps ops, else the cooperative grid.
 cudaError_t set_launch(const Group* table, Group one, int n_groups, int max_count, const int32_t* idx,
-                       const int32_t* gid, int n, uint8_t* old, cudaStream_t s) {
+                       const int32_t* gid, int n, int64_t lo, uint8_t* old, cudaStream_t s) {
   if (n < 1) return cudaGetLastError();
   if (max_count <= kBlockOps) {
-    bitset_set_block_kernel<<<n_groups, kThreads, 0, s>>>(table, one, idx, old);
+    bitset_set_block_kernel<<<n_groups, kThreads, 0, s>>>(table, one, idx, lo, old);
     return cudaGetLastError();
   }
   int resident = 0;
   const cudaError_t err = grid_resident(resident);
   if (err != cudaSuccess) return err;
   const int need = (n + kThreads - 1) / kThreads;
-  void* args[] = {&table, &one, &idx, &gid, &n, &old};
+  void* args[] = {&table, &one, &idx, &gid, &n, &lo, &old};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bitset_set_grid_kernel),
                                      dim3(need < resident ? need : resident), dim3(kThreads), args, 0, s);
 }
@@ -188,20 +196,22 @@ bool table_ok(int n_groups, int n) { return n_groups >= 1 && n >= 0; }
 
 }  // namespace
 
-// out[i] = bits[idx[i]] for i < n (every op valid).
-extern "C" int rtpu_bitset_get(const void* bits, int64_t size, const void* idx, int n, void* out, void* stream) {
+// out[i] = bits[idx[i]] for i < n (every op valid); lo >= 0 is a shard's
+// window (lane_of).
+extern "C" int rtpu_bitset_get(const void* bits, int64_t size, const void* idx, int n, int64_t lo, void* out,
+                               void* stream) {
   const Group one{static_cast<uint8_t*>(const_cast<void*>(bits)), size, 0, n, n, 0};
-  return (int)read_launch(nullptr, one, static_cast<const int32_t*>(idx), nullptr, n,
+  return (int)read_launch(nullptr, one, static_cast<const int32_t*>(idx), nullptr, n, lo,
                           static_cast<uint8_t*>(out), static_cast<cudaStream_t>(stream));
 }
 
 // old[i] = the pre-batch bit of op i (0 for i >= n_valid), then `value` at
 // the index of every op i < n_valid; one launch.  0 <= n_valid <= n (the
-// wrapper clamps).
-extern "C" int rtpu_bitset_set(void* bits, int64_t size, const void* idx, int n, int n_valid, int value, void* old,
-                               void* stream) {
+// wrapper clamps); lo >= 0 is a shard's window (lane_of).
+extern "C" int rtpu_bitset_set(void* bits, int64_t size, const void* idx, int n, int n_valid, int value, int64_t lo,
+                               void* old, void* stream) {
   const Group one{static_cast<uint8_t*>(bits), size, 0, n, n_valid, value};
-  return (int)set_launch(nullptr, one, 1, n, static_cast<const int32_t*>(idx), nullptr, n,
+  return (int)set_launch(nullptr, one, 1, n, static_cast<const int32_t*>(idx), nullptr, n, lo,
                          static_cast<uint8_t*>(old), static_cast<cudaStream_t>(stream));
 }
 
@@ -211,7 +221,7 @@ extern "C" int rtpu_bitset_get_groups(const void* table, int n_groups, const voi
                                       void* out, void* stream) {
   if (!table_ok(n_groups, n)) return (int)cudaErrorInvalidValue;
   return (int)read_launch(static_cast<const Group*>(table), Group{}, static_cast<const int32_t*>(idx),
-                          static_cast<const int32_t*>(gid), n, static_cast<uint8_t*>(out),
+                          static_cast<const int32_t*>(gid), n, -1, static_cast<uint8_t*>(out),
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -221,6 +231,6 @@ extern "C" int rtpu_bitset_set_groups(const void* table, int n_groups, int max_c
                                       const void* gid, int n, void* old, void* stream) {
   if (!table_ok(n_groups, n)) return (int)cudaErrorInvalidValue;
   return (int)set_launch(static_cast<const Group*>(table), Group{}, n_groups, max_count,
-                         static_cast<const int32_t*>(idx), static_cast<const int32_t*>(gid), n,
+                         static_cast<const int32_t*>(idx), static_cast<const int32_t*>(gid), n, -1,
                          static_cast<uint8_t*>(old), static_cast<cudaStream_t>(stream));
 }

@@ -117,8 +117,8 @@ __device__ __forceinline__ bool stages_set(F&& probe) {
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 bloom_probe_kernel(const uint8_t* __restrict__ plane, int64_t size, uint32_t width,
-                   rtpu::KeyBatch kb, int n_valid, int k, rtpu::FastMod mod, int newly,
-                   int out_mode, void* __restrict__ out) {
+                   rtpu::KeyBatch kb, int n_valid, int k, rtpu::FastMod mod, int64_t col_lo,
+                   int newly, int out_mode, void* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool flag = false;
   if (i < n_valid) {
@@ -127,7 +127,9 @@ bloom_probe_kernel(const uint8_t* __restrict__ plane, int64_t size, uint32_t wid
     const bool bank = kb.tenant != nullptr;
     const uint32_t row = rtpu::row_base(kb, i, width);
     auto probe = [&](int j) -> uint8_t {
-      const int64_t g = rtpu::flat_at(bank, row, mod(h1 + (uint32_t)j * h2), size);
+      const int64_t c = rtpu::window_col(col_lo, mod(h1 + (uint32_t)j * h2), width);
+      if (c < 0) return 1;  // another shard's probe counts as set
+      const int64_t g = rtpu::flat_at(bank, row, (uint32_t)c, size);
       return g >= 0 ? __ldg(plane + g) : (uint8_t)1;  // outside reads as 1
     };
     bool found = true;
@@ -144,7 +146,7 @@ bloom_probe_kernel(const uint8_t* __restrict__ plane, int64_t size, uint32_t wid
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 bloom_set_kernel(uint8_t* __restrict__ plane, int64_t size, uint32_t width,
-                 rtpu::KeyBatch kb, int n_valid, int k, rtpu::FastMod mod) {
+                 rtpu::KeyBatch kb, int n_valid, int k, rtpu::FastMod mod, int64_t col_lo) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_valid) return;
   uint32_t h1, h2;
@@ -154,7 +156,9 @@ bloom_set_kernel(uint8_t* __restrict__ plane, int64_t size, uint32_t width,
   const int kk = K > 0 ? K : k;
 #pragma unroll
   for (int j = 0; j < kk; ++j) {
-    const int64_t g = rtpu::flat_at(bank, row, mod(h1 + (uint32_t)j * h2), size);
+    const int64_t c = rtpu::window_col(col_lo, mod(h1 + (uint32_t)j * h2), width);
+    if (c < 0) continue;  // another shard's probe: never written here
+    const int64_t g = rtpu::flat_at(bank, row, (uint32_t)c, size);
     if (g >= 0) plane[g] = 1;  // outside is dropped
   }
 }
@@ -422,21 +426,29 @@ cudaError_t launch_binning(int64_t size, uint32_t width, const rtpu::KeyBatch& k
 // Each entry point launches on `stream` and returns the first CUDA error
 // (cudaGetLastError() after its launches); the Python wrapper raises when it
 // is not 0.  `magic` is fastmod_magic(m) from core/kernels.py.
+//
+// bloom_probe and bloom_set take a shard's column window (col_lo >= 0): the
+// plane is one shard's (T, width) columns [col_lo, col_lo + width) of a
+// filter whose probes still hash over the global domain m.  A probe outside
+// the window belongs to another shard: it counts as set, for found and for
+// newly alike, and is never written, so each shard's result combines with
+// the others' by AND (found) or OR (newly).  col_lo < 0 is the whole plane.
 extern "C" int rtpu_bloom_probe(const void* plane, int64_t size, int64_t width,
                                 const void* tenant, const void* lo, const void* hi,
                                 const void* words, const void* nbytes, int n_words,
                                 int n, int n_valid, int k, int64_t m, uint64_t magic,
-                                int newly, int out_mode, void* out, void* stream) {
+                                int64_t col_lo, int newly, int out_mode, void* out,
+                                void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto kb = rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n);
   const rtpu::FastMod mod{magic, (uint32_t)m};
   const auto p = static_cast<const uint8_t*>(plane);
   if (k == kPathK) {
     bloom_probe_kernel<kPathK><<<blocks_for(n), kThreads, 0, s>>>(
-        p, size, (uint32_t)width, kb, n_valid, k, mod, newly, out_mode, out);
+        p, size, (uint32_t)width, kb, n_valid, k, mod, col_lo, newly, out_mode, out);
   } else {
     bloom_probe_kernel<0><<<blocks_for(n), kThreads, 0, s>>>(
-        p, size, (uint32_t)width, kb, n_valid, k, mod, newly, out_mode, out);
+        p, size, (uint32_t)width, kb, n_valid, k, mod, col_lo, newly, out_mode, out);
   }
   return (int)cudaGetLastError();
 }
@@ -444,17 +456,17 @@ extern "C" int rtpu_bloom_probe(const void* plane, int64_t size, int64_t width,
 extern "C" int rtpu_bloom_set(void* plane, int64_t size, int64_t width, const void* tenant,
                               const void* lo, const void* hi, const void* words,
                               const void* nbytes, int n_words, int n, int n_valid, int k,
-                              int64_t m, uint64_t magic, void* stream) {
+                              int64_t m, uint64_t magic, int64_t col_lo, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto kb = rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n);
   const rtpu::FastMod mod{magic, (uint32_t)m};
   const auto p = static_cast<uint8_t*>(plane);
   if (k == kPathK) {
     bloom_set_kernel<kPathK><<<blocks_for(n), kThreads, 0, s>>>(p, size, (uint32_t)width,
-                                                                kb, n_valid, k, mod);
+                                                                kb, n_valid, k, mod, col_lo);
   } else {
     bloom_set_kernel<0><<<blocks_for(n), kThreads, 0, s>>>(p, size, (uint32_t)width, kb,
-                                                           n_valid, k, mod);
+                                                           n_valid, k, mod, col_lo);
   }
   return (int)cudaGetLastError();
 }

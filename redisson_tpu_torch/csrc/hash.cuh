@@ -106,6 +106,16 @@ __device__ __forceinline__ int64_t flat_at(bool has_tenant, uint32_t row, uint32
   return (g >= 0 && g < size) ? g : -1;
 }
 
+// A shard's column window (parallel/sharded.py): the probe at global column
+// idx belongs to the shard that holds columns [col_lo, col_lo + width) of
+// every row; its column there, or -1 when another shard owns it.  col_lo < 0
+// is no window: idx itself, the whole-plane callers' rule.
+__device__ __forceinline__ int64_t window_col(int64_t col_lo, uint32_t idx, uint32_t width) {
+  if (col_lo < 0) return idx;
+  const int64_t local = (int64_t)idx - col_lo;
+  return (local >= 0 && local < (int64_t)width) ? local : -1;
+}
+
 // tenant[i]*width mod 2**32: op i's row start, read once per op.
 __device__ __forceinline__ uint32_t row_base(const KeyBatch& kb, int i, uint32_t width) {
   return kb.tenant != nullptr ? kb.tenant[i] * width : 0u;

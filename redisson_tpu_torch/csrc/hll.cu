@@ -57,13 +57,21 @@ constexpr int kBins = 256;
 
 __global__ void __launch_bounds__(kAddThreads)
 hll_add_kernel(uint8_t* __restrict__ regs, int64_t size, uint32_t width, int p,
-               rtpu::KeyBatch kb, int n_valid) {
+               rtpu::KeyBatch kb, int n_valid, int64_t row_lo) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_valid) return;
   uint32_t h1, h2;
   rtpu::hash_key(kb, i, h1, h2);
   const uint32_t rho = (uint32_t)__clz((int)h2) + 1u;
-  const int64_t g = rtpu::flat_index(kb.tenant, i, width, h1 & ((1u << p) - 1u), size);
+  const uint32_t idx = h1 & ((1u << p) - 1u);
+  int64_t g;
+  if (row_lo >= 0) {  // a shard's rows [row_lo, row_lo + size / width)
+    const int64_t r = (int64_t)(int32_t)kb.tenant[i] - row_lo;
+    if (r < 0 || r >= size / width) return;  // another shard's tenant
+    g = r * width + idx;
+  } else {
+    g = rtpu::flat_index(kb.tenant, i, width, idx, size);
+  }
   if (g < 0) return;  // outside is dropped
   unsigned int* word = reinterpret_cast<unsigned int*>(regs + (g & ~(int64_t)3));
   const int shift = (int)(g & 3) * 8;
@@ -274,14 +282,19 @@ bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_
 
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
+//
+// hll_add takes a shard's row window (row_lo >= 0, a tenant batch): the bank
+// is one shard's rows [row_lo, row_lo + size / width) of a tenant-sharded
+// bank (parallel/sharded.py), an op's row is tenant - row_lo, and an op
+// whose tenant another shard holds is dropped.  row_lo < 0: the whole bank.
 extern "C" int rtpu_hll_add(void* regs, int64_t size, int64_t width, int p,
                             const void* tenant, const void* lo, const void* hi,
                             const void* words, const void* nbytes, int n_words, int n,
-                            int n_valid, void* stream) {
+                            int n_valid, int64_t row_lo, void* stream) {
   const int blocks = n > 0 ? (n + kAddThreads - 1) / kAddThreads : 1;
   hll_add_kernel<<<blocks, kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(regs), size, (uint32_t)width, p,
-      rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n), n_valid);
+      rtpu::key_batch(tenant, lo, hi, words, nbytes, n_words, n), n_valid, row_lo);
   return (int)cudaGetLastError();
 }
 

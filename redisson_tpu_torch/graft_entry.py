@@ -29,10 +29,17 @@ it as set (``fill_value=1``) and drops its writes; the kernels index it
 flat in int32, which is the same index while ``|tenant| * m < 2**31``
 (16 tenants of 2**20 lanes: any tenant below 2,048 in magnitude).
 
-``dryrun_multichip`` (the reference's sharded step over a device mesh)
-waits for the mesh and its collectives (ROADMAP M8 part 2).
+``dryrun_multichip`` is the counterpart of ``__graft_entry__``'s: one
+sharded step through the engine path (object handles -> MeshManager -> the
+windowed kernels) over a dp 2 x shard 4 mesh of 8 positions, then a live
+reshard 4 -> 8 -> 4 under traffic with no probe lost.  The reference's
+checkpoint round trip of the sharded records waits for the checkpoints
+(ROADMAP M11).  On one card the 8 positions share it: the run holds the
+programs and the reshard, not a collective across GPUs.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -114,3 +121,105 @@ def entry(device="cuda"):
         torch.from_numpy(hi).to(dev),
         ENTRY_BATCH - ENTRY_PAD,
     )
+
+
+def dryrun_multichip(n_devices: int = 8, device="cuda") -> dict:
+    """One sharded step THROUGH THE ENGINE PATH on an n-position mesh: a
+    sharded bloom bank (columns over `shard`, ops over `dp`), a sharded
+    bit set and a tenant-sharded HLL bank, then a live reshard shard 4 ->
+    n -> 4 while a writer adds to the bank: every acknowledged add is found
+    after it, and the HLL registers move without changing.  Raises on any
+    failure; returns what it saw."""
+    import threading
+
+    import redisson_tpu_torch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.parallel import mesh as M
+    from redisson_tpu_torch.parallel.manager import MeshManager
+
+    cfg = Config()
+    cfg.mesh.dp = 2 if n_devices >= 4 and n_devices % 2 == 0 else 1
+    cfg.mesh.shard = n_devices // cfg.mesh.dp
+    cfg.mesh.n_devices = n_devices
+    client = redisson_tpu_torch.create(cfg, device)
+    try:
+        mgr = MeshManager.of(client._engine)
+        n_shard = mgr.n_shard
+        if dict(mgr.mesh.shape) != {M.DP_AXIS: cfg.mesh.dp, M.SHARD_AXIS: n_shard}:
+            raise AssertionError(f"mesh {mgr.mesh.shape}, asked dp {cfg.mesh.dp} x shard {cfg.mesh.shard}")
+        tenants = 2 * n_shard
+        B = 64 * cfg.mesh.dp
+        rng = np.random.default_rng(0)
+        keys = rng.integers(0, 1 << 60, B).astype(np.int64)
+        tenant = (np.arange(B) % tenants).astype(np.int32)
+
+        bf = client.get_sharded_bloom_filter_array("dryrun:bloom")
+        if not bf.try_init(tenants, expected_insertions=10_000, false_probability=0.01):
+            raise AssertionError("dryrun: bloom bank exists")
+        if not bf.add_each(tenant, keys).all():
+            raise AssertionError("fresh random keys must all report newly added")
+        if not bf.contains_each(tenant, keys).all():
+            raise AssertionError("keys just added must all be found")
+
+        bs = client.get_sharded_bit_set("dryrun:bits")
+        bs.try_init(1 << 20)
+        idxs = rng.integers(0, 1 << 20, 256)
+        bs.set_each(idxs)
+        if not bs.get_each(idxs).all() or bs.cardinality() != len(np.unique(idxs)):
+            raise AssertionError("sharded bit set lost a bit")
+
+        h = client.get_sharded_hll_array("dryrun:hll")
+        h.try_init(tenants, p=8)
+        h.add_each(tenant, keys)
+        ests = h.estimate_all()
+        if ests.shape != (tenants,) or not (ests > 0).all():
+            raise AssertionError(f"sharded HLL estimates {ests}")
+
+        # live resharding under traffic: the dual-routing window is per
+        # record (a dispatch in flight finishes on the old geometry under
+        # the record lock, later ones adapt the plane)
+        dp0, shard0 = cfg.mesh.dp, n_shard
+        acked, errs = [], []
+
+        def writer():
+            try:
+                r2 = np.random.default_rng(7)
+                for _ in range(12):
+                    ks = r2.integers(0, 1 << 60, 64).astype(np.int64)
+                    tn = (np.arange(64) % tenants).astype(np.int32)
+                    bf.add_each(tn, ks)
+                    acked.append((tn, ks))  # acknowledged once add_each returned
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+        th = threading.Thread(target=writer)
+        th.start()
+        while len(acked) < 3 and th.is_alive():
+            time.sleep(0.01)
+        mgr.reshard(dp=1, shard=n_devices)
+        while len(acked) < 7 and th.is_alive():
+            time.sleep(0.01)
+        mgr.reshard(dp=dp0, shard=shard0)
+        th.join(timeout=300)
+        if th.is_alive():
+            raise AssertionError("writer wedged during the reshard")
+        if errs:
+            raise AssertionError(f"writer failed during the reshard: {errs}")
+        lost = sum(int((~bf.contains_each(tn, ks)).sum()) for tn, ks in acked)
+        if lost:
+            raise AssertionError(f"{lost} probes lost across the reshard")
+        ests2 = h.estimate_all()
+        mgr.reshard(dp=1, shard=n_devices)
+        if not np.array_equal(h.estimate_all(), ests2):
+            raise AssertionError("HLL registers changed across a reshard")
+        mgr.reshard(dp=dp0, shard=shard0)
+        out = {"mesh": dict(mgr.mesh.shape), "positions": n_devices,
+               "devices": sorted({str(p.device) for p in mgr.mesh.devices.flat}),
+               "bloom_m": bf.get_size(), "tenants": tenants, "acked_batches": len(acked),
+               "lost_probes": lost, "reshards": f"{shard0}->{n_devices}->{shard0}"}
+    finally:
+        client.shutdown()
+    print(f"dryrun_multichip OK: mesh={out['mesh']} positions={n_devices} on {out['devices']}, bloom "
+          f"m={out['bloom_m']} sharded over {shard0}, hll tenants={tenants}, engine path, live reshard "
+          f"{out['reshards']} under traffic: {len(acked)} acked batches, 0 lost probes", flush=True)
+    return out

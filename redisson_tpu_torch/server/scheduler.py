@@ -50,8 +50,8 @@ server's metrics registry.
 
 A copy of ``redisson_tpu/server/scheduler.py`` without the knobs only other
 slices reach: the ``CONFIG SET qos-*`` surface (admin verbs, ROADMAP M11),
-tenant weights (``CLUSTER QOS REBALANCE``, M8 part 2), and the flush-window
-deadline and bulk sub-windows of ``FlushPipeline`` and the lanes (M8 part 2).
+tenant weights (``CLUSTER QOS REBALANCE``, M8 part 3), and the flush-window
+deadline and bulk sub-windows of ``FlushPipeline`` and the lanes (M8 part 3).
 """
 from __future__ import annotations
 

@@ -93,18 +93,34 @@ and TXEXEC), collections, zset, streamgeo (X*, GEO*) and modules (JSON.*,
 FT.*) verb families, admin's script and function verbs (EVALSHA, EVAL,
 SCRIPT, FCALL, FCALL_RO, FUNCTION), and the cluster view verbs (CLUSTER
 SLOTS, MYID, INFO, SETVIEW, RESET, COUNTKEYSINSLOT, GETKEYSINSLOT, and
-ASKING) (``server/verbs``).  Left out, each raising NotImplementedError when
-asked for: device-sharded serving (``devices=``, ROADMAP M8 part 2),
-checkpoints and migration journals (ROADMAP M11).  Their verbs reply the
-unknown-command error until those slices: the rest of the admin verbs
-(INFO, CONFIG, SAVE, WAIT, the replication verbs REPLFLUSH and REPLSTATE,
-DUMP, RESTORE, COPY); the replication and migration links, the
-residency census and the chaos pause gate come with them.  FT.CREATE of a VECTOR field with SHARDS
-n > 1 replies the error that names M8 part 2.
+ASKING), the node-info verbs (TIME, INFO, MEMORY) and the device-placement
+verbs (CLUSTER DEVICES, DEVMOVE) (``server/verbs``).
+
+  * **Positions** (``devices=``, ``--devices``): the 16384-slot table maps
+    onto that many mesh positions (``server/placement.py``; ``"all"``: the
+    local positions, ``parallel/mesh.local_devices``), each record is owned
+    by its slot's position, and a pipelined frame splits by the placement
+    plan (``SlotPlacement.plan_frame``): "sharded" segments run one bucket a
+    position on the worker pool at once, each under its position's lane
+    (``core/ioplane.DeviceLane``: dispatches bound for one position
+    serialize, for different positions overlap), "serial" segments run in
+    frame order as barriers; replies keep frame order.  A frame's
+    single-position commands and coalesced runs on the sequential path hold
+    their position's lane as well.  Positions on one card share its stream
+    (``core/ioplane.py`` says why).  The lanes' preemptible sub-windows and
+    deadline classes come with the QoS fleet (ROADMAP M8 part 3).
+
+Left out, each raising NotImplementedError when asked for: checkpoints and
+migration journals (ROADMAP M11).  Their verbs reply the unknown-command
+error until that slice: CONFIG, SAVE, WAIT, the replication verbs REPLFLUSH
+and REPLSTATE, DUMP, RESTORE, COPY; the replication and migration links,
+the residency census and the chaos pause gate come with them.  FT.CREATE of
+a VECTOR field with SHARDS n > 1 replies the error that names M8 part 3.
 """
 from __future__ import annotations
 
 import asyncio
+import functools
 import threading
 import time
 import uuid
@@ -246,7 +262,6 @@ def _force_lazies(results: list, server, trace=None) -> None:
 
 
 _REFUSED = {
-    "devices": "device-sharded serving (devices=) comes with ROADMAP M8 part 2",
     "checkpoint_path": "checkpoints (checkpoint_path=) come with ROADMAP M11",
     "journal_dir": "migration journals (journal_dir=) come with ROADMAP M11",
 }
@@ -274,12 +289,19 @@ class TpuServer:
         advertise_host: Optional[str] = None,
         device="cuda",
     ):
-        asked = {"devices": devices, "checkpoint_path": checkpoint_path,
-                 "journal_dir": journal_dir}
+        asked = {"checkpoint_path": checkpoint_path, "journal_dir": journal_dir}
         for name, value in asked.items():
             if value is not None:
                 raise NotImplementedError(_REFUSED[name])
         self.engine = engine if engine is not None else Engine(device=device)
+        # device-sharded serving: `devices` maps the 16384-slot table onto
+        # that many mesh positions ("all": every local position).  None (the
+        # default) is the single-device server; an engine whose placement
+        # is already enabled is left as configured.
+        if devices is not None and self.engine.placement is None:
+            n = None if devices in ("all", "ALL") else int(devices)
+            self.engine.enable_placement(n_devices=n)
+        self.started_at = time.time()
         # overlapped device I/O plane: frames with device-form lazy replies
         # hand their readback to the per-connection writer task instead of
         # blocking the read loop.  None = follow the process-global switch;
@@ -663,6 +685,155 @@ class TpuServer:
             trace.add_span("dispatch", t0, time.monotonic())
             _obs.clear_current()
 
+    # -- per-position lanes (device-sharded serving) ---------------------------
+
+    def _lane_for(self, cmds):
+        """The one position lane every key of `cmds` maps to, else None
+        (no placement, keyless or mixed-position: no occupancy gate)."""
+        eng = self.engine
+        if eng.placement is None or eng.lanes is None:
+            return None
+        dev = None
+        for cmd in cmds:
+            d = eng.placement.device_index_for_command(cmd)
+            if d is None or (dev is not None and d != dev):
+                return None
+            dev = d
+        if dev is None:
+            return None
+        return eng.lanes.lane(eng.placement.devices[dev])
+
+    def _occupancy_gate(self, cmds, qos_class: Optional[str] = None):
+        """Lane-occupancy context for one sequential-path dispatch (a
+        command or a coalesced run): the owning position's lane when every
+        key maps to one position, else None.  Dispatches from concurrent
+        connections bound for different positions overlap, same-position
+        ones serialize."""
+        lane = self._lane_for(cmds)
+        if lane is None:
+            return None
+        return lane.occupy(
+            _sched.estimate_device_items(cmds), qos_class=qos_class,
+            nbytes=_sched._frame_nbytes(cmds) if qos_class is not None else 0,
+        )
+
+    def _dispatch_laned(self, ctx, cmd, qos_class: Optional[str] = None):
+        """_dispatch_one under the command's lane (when it has one)."""
+        gate = self._occupancy_gate((cmd,), qos_class)
+        if gate is None:
+            return self._dispatch_one(ctx, cmd)
+        with gate:
+            return self._dispatch_one(ctx, cmd)
+
+    def _dispatch_bloom_run_laned(self, ctx, cmds, qos_class: Optional[str] = None):
+        """_dispatch_bloom_run under the run's lane; a run whose filters
+        span positions takes no gate (the coalescer refuses such a run and
+        it dispatches command by command)."""
+        gate = self._occupancy_gate(cmds, qos_class)
+        if gate is None:
+            return self._dispatch_bloom_run(ctx, cmds)
+        with gate:
+            return self._dispatch_bloom_run(ctx, cmds)
+
+    def _dispatch_device_bucket(self, ctx, dev_index: int, items,
+                                qos_class: Optional[str] = None):
+        """One position's ordered slice of a pipelined frame (a plan_frame
+        "sharded" segment), on a worker thread while the other positions'
+        buckets run on theirs, under the position's lane.  Same-verb BF blob
+        runs inside the bucket still coalesce.  Returns [(frame index,
+        result), ...]."""
+        eng = self.engine
+        lane = eng.lanes.lane(eng.placement.devices[dev_index]) if eng.lanes is not None else None
+        cmds = [c for _i, c in items]
+        run_at: Dict[int, int] = (
+            dict(_routing.coalescible_frame_runs(cmds)) if len(cmds) > 1 else {}
+        )
+        out = []
+
+        def dispatch_all():
+            ci = 0
+            while ci < len(cmds):
+                run_end = run_at.get(ci)
+                if run_end is not None:
+                    replies = self._dispatch_bloom_run(ctx, cmds[ci:run_end])
+                    for off, r in enumerate(replies):
+                        out.append((items[ci + off][0], r))
+                    ci = run_end
+                    continue
+                out.append((items[ci][0], self._dispatch_one(ctx, cmds[ci])))
+                ci += 1
+
+        if lane is None:
+            dispatch_all()
+            return out
+        with lane.occupy(
+            _sched.estimate_device_items(cmds), qos_class=qos_class,
+            nbytes=_sched._frame_nbytes(cmds) if qos_class is not None else 0,
+        ):
+            dispatch_all()
+        return out
+
+    async def _run_frame_sharded(self, ctx, commands, plan, loop, adm=None, trace=None):
+        """Execute one pipelined frame under a placement plan: "sharded"
+        segments fan their per-position buckets out on the worker pool at
+        once (each bucket FIFO on its lane: per-key order holds because a
+        key maps to one position), "serial" segments run in frame order as
+        barriers.  Replies go by frame index whatever the completion
+        order."""
+        qos_class = adm.qos_class if adm is not None else None
+        pool = self._pool_for(adm)
+        results: list = [None] * len(commands)
+        for seg_kind, seg in plan:
+            if seg_kind == "serial":
+                for i in seg:
+                    cmd = commands[i]
+                    self.stats["commands"] += 1
+                    if not isinstance(cmd, list) or not all(
+                        isinstance(a, (bytes, bytearray)) for a in cmd
+                    ):
+                        results[i] = _Encoded(resp.encode_error("ERR bad request frame"))
+                        continue
+                    cmd_pool = self._slow_pool if bytes(cmd[0]).upper() in _SLOW_COMMANDS else pool
+                    results[i] = await loop.run_in_executor(
+                        cmd_pool, self._dispatch_traced, self._dispatch_one, ctx, cmd, trace,
+                    )
+                continue
+            jobs = []
+            for dev_index, idxs in seg.items():
+                self.stats["commands"] += len(idxs)
+                jobs.append(loop.run_in_executor(
+                    pool, self._dispatch_traced,
+                    lambda c, a, d=dev_index: self._dispatch_device_bucket(c, d, a, qos_class),
+                    ctx, [(i, commands[i]) for i in idxs], trace,
+                ))
+            outs = await asyncio.gather(*jobs, return_exceptions=True)
+            err = next((o for o in outs if isinstance(o, BaseException)), None)
+            if err is not None:
+                raise err
+            for out in outs:
+                for i, r in out:
+                    results[i] = r
+        return results
+
+    def _frame_plan(self, ctx, commands, shed_mask):
+        """The placement plan of a pipelined frame, or None (the plain
+        sequential loop): placement on, no MULTI queue, authenticated, no
+        ASKING, nothing shed, more than one command."""
+        if (
+            self.engine.placement is None
+            or ctx.multi_queue is not None
+            or not ctx.authenticated
+            or getattr(ctx, "asking", False)
+            or shed_mask is not None
+            or len(commands) < 2
+        ):
+            return None
+        # with the modelled occupancy armed, even a one-position frame runs
+        # the lane path, so both legs of an A/B run the same code
+        return self.engine.placement.plan_frame(
+            commands, single_device_ok=ioplane.replica_occupancy() is not None,
+        )
+
     def _pool_for(self, adm):
         """Worker pool for one frame's dispatch: interactive-class frames
         (scheduler armed) run on the reserved interactive pool so a bulk
@@ -773,6 +944,19 @@ class TpuServer:
             if shed_mask is not None else None
         )
         pool = self._pool_for(adm)
+        plan = self._frame_plan(ctx, commands, shed_mask)
+        if plan is not None:
+            results = await self._run_frame_sharded(ctx, commands, plan, loop, adm, trace)
+            return await self._finish_frame(ctx, results, loop, write_q, readback_slots,
+                                            alive, pool, trace)
+        qos_class = adm.qos_class if adm is not None else None
+        # the dispatch units, chosen once a frame: with placement off, the
+        # plain ones (no lane to look up per command)
+        if self.engine.placement is None:
+            run_fn, one_fn = self._dispatch_bloom_run, self._dispatch_one
+        else:
+            run_fn = functools.partial(self._dispatch_bloom_run_laned, qos_class=qos_class)
+            one_fn = functools.partial(self._dispatch_laned, qos_class=qos_class)
         run_at: Dict[int, int] = {}
         if len(commands) > 1:
             runs = [
@@ -803,8 +987,7 @@ class TpuServer:
                 self.stats["commands"] += len(run_cmds)
                 results.extend(
                     await loop.run_in_executor(
-                        pool, self._dispatch_traced, self._dispatch_bloom_run,
-                        ctx, run_cmds, trace,
+                        pool, self._dispatch_traced, run_fn, ctx, run_cmds, trace,
                     )
                 )
                 continue
@@ -819,10 +1002,16 @@ class TpuServer:
             cmd_pool = self._slow_pool if bytes(cmd[0]).upper() in _SLOW_COMMANDS else pool
             results.append(
                 await loop.run_in_executor(
-                    cmd_pool, self._dispatch_traced, self._dispatch_one, ctx, cmd,
-                    trace,
+                    cmd_pool, self._dispatch_traced, one_fn, ctx, cmd, trace,
                 )
             )
+        return await self._finish_frame(ctx, results, loop, write_q, readback_slots,
+                                        alive, pool, trace)
+
+    async def _finish_frame(self, ctx, results, loop, write_q, readback_slots, alive,
+                            pool, trace=None) -> bool:
+        """Bring a dispatched frame's device results to the host and queue
+        its replies, in frame order."""
         if any(isinstance(r, LazyReply) for r in results):
             if self.overlap:
                 # overlap plane: hand the readback to the writer task as a
@@ -850,6 +1039,63 @@ class TpuServer:
             else:
                 write_q.put_nowait(_encode_frame(results, ctx.proto))
         return True
+
+    # -- node info -------------------------------------------------------------
+
+    def info_text(self) -> str:
+        up = int(time.time() - self.started_at)
+        return (
+            "# Server\r\n"
+            f"redis_version:7.2.0-rtpu\r\nrun_id:{self.node_id}\r\n"
+            f"tcp_port:{self.port}\r\nuptime_in_seconds:{up}\r\nmode:{self.mode}\r\n"
+            "# Clients\r\n"
+            f"connected_clients:{self.stats['connections']}\r\n"
+            "# Stats\r\n"
+            f"total_commands_processed:{self.stats['commands']}\r\n"
+            f"errors:{self.stats['errors']}\r\n"
+            "# Keyspace\r\n"
+            f"db0:keys={len(self.engine.store)},expires=0\r\n"
+        )
+
+    def commandstats_text(self) -> str:
+        """INFO commandstats: per-verb calls/usec/usec_per_call from the
+        MetricsRegistry's ``command.<verb>`` timers."""
+        lines = ["# Commandstats"]
+        with self.metrics._lock:
+            timers = sorted(self.metrics._timers.items())
+        for name, t in timers:
+            if not name.startswith("command."):
+                continue
+            verb = name[len("command."):]
+            usec = int(t.total_s * 1e6)
+            per = usec / t.count if t.count else 0.0
+            lines.append(
+                f"cmdstat_{verb}:calls={t.count},usec={usec},"
+                f"usec_per_call={per:.2f}"
+            )
+        return "\r\n".join(lines) + "\r\n"
+
+    def config_view(self) -> Dict[str, Any]:
+        """The node's knob table as the reference's CONFIG GET reads it, for
+        the knobs the port has (the CONFIG verb comes with ROADMAP M11)."""
+        ev = self.engine._eviction
+        cfg = self.engine.config
+        return {
+            "port": self.port,
+            "mode": self.mode,
+            "role": self.role,
+            "node-id": self.node_id,
+            "tls": bool(self.tls_cert_file),
+            "eviction-min-delay": ev.min_delay if ev else cfg.min_cleanup_delay,
+            "eviction-max-delay": ev.max_delay if ev else cfg.max_cleanup_delay,
+            "tracking-table-max-keys": self.tracking.max_keys,
+            "placement-devices": (
+                self.engine.placement.n_devices
+                if self.engine.placement is not None else 0
+            ),
+            "dispatch-ahead": self.readback_ahead,
+            "trace-enabled": int(_obs.tracing_enabled()),
+        }
 
     # -- asyncio plumbing ----------------------------------------------------
 
@@ -1291,6 +1537,14 @@ def main(argv=None):
              "Default: 2.",
     )
     ap.add_argument(
+        "--devices", default=None,
+        help="device-sharded serving: map the 16384-slot table onto this many "
+             "mesh positions ('all' = every local position: one a GPU, or "
+             "RTPU_CPU_POSITIONS on the CPU); each record is owned by its "
+             "slot's position and frames dispatch down per-position lanes.  "
+             "Default: one device (no placement).",
+    )
+    ap.add_argument(
         "--ready-fd", type=int, default=None,
         help="inherited fd to write one 'READY <host> <port> <pid>' line to "
              "once the listener is bound (with --port 0 this reports the "
@@ -1326,6 +1580,7 @@ def main(argv=None):
         workers=args.workers,
         qos=False if args.no_qos else None,
         dispatch_ahead=args.dispatch_ahead,
+        devices=args.devices,
         tls_cert_file=args.tls_cert,
         tls_key_file=args.tls_key,
         tls_ca_file=args.tls_ca,

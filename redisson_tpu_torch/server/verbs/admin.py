@@ -1,38 +1,135 @@
-"""Cluster view verbs, and the script and function verbs (the RScript and
-RFunction wire surface).
+"""Node info, cluster view and device-placement verbs, and the script and
+function verbs (the RScript and RFunction wire surface).
 
-A copy of two parts of ``redisson_tpu/server/verbs/admin.py``:
+A copy of three parts of ``redisson_tpu/server/verbs/admin.py``:
 
+  * TIME, INFO and MEMORY (the node-info verbs the nodes group reads).
   * CLUSTER SLOTS, MYID, INFO, SETVIEW (with ``TOKEN`` fencing), RESET,
     COUNTKEYSINSLOT and GETKEYSINSLOT, and ASKING, with the reference's
-    replies.  The other CLUSTER subcommands reply an error naming the slice
-    that brings them: the device-placement ones (DEVICES, DEVMOVE,
-    DEVPROBE, DEVEVACUATE, QOS) ROADMAP M8 part 2, the migration and
-    residency ones (SETSLOT, WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY)
-    ROADMAP M11, as does REPLICAOF.  REPLICAS replies the empty list a
-    master with no replica replies: no replica can attach before M11.
+    replies; CLUSTER DEVICES (each position's slot count and label, its
+    lane's QOS row and its FAULTS row, which stays 0 until the operations
+    slice's fault plane) and DEVMOVE (a fenced slot -> position handoff,
+    STALEEPOCH for a stale coordinator).  The other CLUSTER subcommands
+    reply an error naming the slice that brings them: DEVPROBE and
+    DEVEVACUATE (they need the fault plane and ``server/migration.py``),
+    the migration and residency ones (SETSLOT, WINDOWS, MIGRATESLOT,
+    MIGRATESLOTS, RESIDENCY) ROADMAP M11, as does REPLICAOF; QOS (tenant
+    weights and the fleet's rebalance) ROADMAP M8 part 3.  REPLICAS replies
+    the empty list a master with no replica replies: no replica can attach
+    before M11.
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
     by function name (FCALL); EVAL, SCRIPT LOAD and FUNCTION LOAD/DUMP
     reply the reference's errors.
 
-The rest of the file (node info, CONFIG, SAVE, the replication verbs, DUMP,
-RESTORE, COPY, WAIT) comes with the operations slice (ROADMAP M11).
+The rest of the file (CONFIG, SAVE, the replication verbs, DUMP, RESTORE,
+COPY, WAIT) comes with the operations slice (ROADMAP M11).
 """
+
+import sys
+import time
 
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import register, _s, _int
+
+# -- admin / node info (redisnode/* surface) ---------------------------------
+
+
+@register("TIME")
+def cmd_time(server, ctx, args):
+    t = time.time()
+    return [str(int(t)).encode(), str(int((t % 1) * 1e6)).encode()]
+
+
+@register("INFO")
+def cmd_info(server, ctx, args):
+    """INFO [section]: the default sections, or one named section
+    (``commandstats``: per-verb calls, usec and usec_per_call)."""
+    if args:
+        section = _s(args[0]).lower()
+        if section == "commandstats":
+            return server.commandstats_text().encode()
+        if section in ("all", "everything"):
+            return (server.info_text() + server.commandstats_text()).encode()
+    return server.info_text().encode()
+
+
+@register("MEMORY")
+def cmd_memory(server, ctx, args):
+    sub = bytes(args[0]).upper() if args else b""
+    if sub == b"USAGE":
+        rec = server.engine.store.get(_s(args[1]))
+        if rec is None:
+            return None
+        total = 0
+        for arr in rec.arrays.values():
+            total += int(getattr(arr, "nbytes", 0) or 0)
+        if rec.host is not None:
+            total += sys.getsizeof(rec.host)
+        return total
+    if sub == b"STATS":
+        return [b"keys.count", len(server.engine.store)]
+    return "+OK"
+
 
 # -- cluster view (the slot map the topology programs install) ---------------
 
 # CLUSTER subcommands the port does not serve yet -> the slice that brings them
 _CLUSTER_LATER = {
-    b"DEVICES": "M8 part 2", b"DEVMOVE": "M8 part 2", b"DEVPROBE": "M8 part 2",
-    b"DEVEVACUATE": "M8 part 2", b"QOS": "M8 part 2",
+    b"DEVPROBE": "M11: the device fault plane", b"DEVEVACUATE": "M11: the device fault plane",
+    b"QOS": "M8 part 3: the QoS fleet",
     b"SETSLOT": "M11", b"WINDOWS": "M11", b"MIGRATESLOT": "M11",
     b"MIGRATESLOTS": "M11", b"RESIDENCY": "M11",
 }
+
+
+def _cluster_devices(server):
+    """[n_devices, [position id, slots owned, label, [QOS, ...], [FAULTS,
+    quarantined, consec_faults, total_faults, last_fault_kind]]...]; [0]
+    without placement."""
+    p = server.engine.placement
+    if p is None:
+        return [0]
+    counts = p.slot_counts()
+    lanes = server.engine.lanes
+    out = [p.n_devices]
+    for i, d in enumerate(p.devices):
+        row = [getattr(d, "id", i), counts[i], str(d).encode()]
+        if lanes is not None:
+            lane = lanes.lane(d)
+            row.append([b"QOS"] + lane.qos.wire_row())
+            row.append([
+                b"FAULTS", int(lane.quarantined), lane.consec_faults,
+                lane.total_faults, lane.last_fault_kind.encode(),
+            ])
+        out.append(row)
+    return out
+
+
+def _cluster_devmove(server, args):
+    """DEVMOVE <position> [EPOCH <n>] <slot>...: a fenced slot -> position
+    handoff in this process; the number of records that moved."""
+    from redisson_tpu_torch.server.placement import PlacementStaleEpoch
+
+    if server.engine.placement is None:
+        raise RespError("ERR placement is not enabled on this server")
+    rest = list(args[1:])
+    dev_index = _int(rest[0])
+    rest = rest[1:]
+    epoch = None
+    if rest and bytes(rest[0]).upper() == b"EPOCH":
+        epoch = _int(rest[1])
+        rest = rest[2:]
+    moved = 0
+    try:
+        for s in (_int(a) for a in rest):
+            moved += server.engine.move_slot_records(s, dev_index, epoch)
+    except PlacementStaleEpoch as e:
+        raise RespError(str(e))
+    except ValueError as e:
+        raise RespError(f"ERR {e}")
+    return moved
 
 
 @register("CLUSTER")
@@ -86,6 +183,10 @@ def cmd_cluster(server, ctx, args):
         names = server.slot_names(_int(args[1]))
         limit = _int(args[2]) if len(args) > 2 else len(names)
         return [n.encode() for n in names[:limit]]
+    if sub == b"DEVICES":
+        return _cluster_devices(server)
+    if sub == b"DEVMOVE":
+        return _cluster_devmove(server, args)
     later = _CLUSTER_LATER.get(sub)
     if later is not None:
         raise RespError(

@@ -7,7 +7,7 @@ A copy of ``redisson_tpu/server/verbs/modules.py`` for the port's server.
 KNN replies (FT.SEARCH, FT.MSEARCH) are ``LazyReply``s over the vector
 kernels' outputs, read back with the rest of the frame; a kernel that fails
 replies an error, never a slower path.  A VECTOR field with SHARDS n > 1
-replies the error of ``services/vector.VectorPlane``, which names M8 part 2.
+replies the error of ``services/vector.VectorPlane``, which names M8 part 3.
 """
 
 
@@ -334,7 +334,7 @@ def cmd_ft_create(server, ctx, args):
     a trained coarse-centroid bank and scores only the top-NPROBE cells;
     FLOAT16/INT8 compress the bank at upload and dequantize in-kernel;
     the two axes compose (services/vector.py).  SHARDS s > 1 (a bank split
-    across devices) replies an error until ROADMAP M8 part 2.  Each VECTOR field
+    across devices) replies an error until ROADMAP M8 part 3.  Each VECTOR field
     gets an embedding bank on the engine's device."""
     name = _s(args[0])
     prefixes = [""]
@@ -398,7 +398,7 @@ def cmd_ft_create(server, ctx, args):
         _ft(server).create(name, schema, prefixes, doc_mode="hash",
                            vector=vector)
     except (ValueError, NotImplementedError) as e:
-        # NotImplementedError: SHARDS n > 1 (sharded banks, ROADMAP M8 part 2)
+        # NotImplementedError: SHARDS n > 1 (sharded banks, ROADMAP M8 part 3)
         raise RespError(f"ERR {e}")
     _ft_invalidate(server, ctx, name)
     return "+OK"

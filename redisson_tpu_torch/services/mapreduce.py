@@ -24,7 +24,12 @@ Differences from the reference:
     byte kernel cannot see it), and ``STATS`` counts it.  More distinct
     words than the reduce holds (2**17) sort again on the device with room
     for every word, where the reference counts on the host.
-  * The multi-device chunk placement belongs to a later slice (ROADMAP M8 part 2).
+
+On an engine with placement on (``Engine.enable_placement``), a scan has a
+chunk for each position at least and chunk i runs on ``devices[i % D]``'s
+device; a chunk on another device than the stream's is merged onto it by
+``ioplane.colocate`` (a peer copy, never a host gather).  Positions on one
+card write their rows straight into the stream.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core.engine import resolve_device
 from redisson_tpu_torch.services.executor import inject_client
@@ -538,13 +544,17 @@ def _wc_chunk_bytes(vals: List[str]) -> Optional[Tuple[bytes, np.ndarray, int]]:
 
 
 def _wc_tokenize(vals: List[str], n_chunks: int, device, key=None,
-                 parts: Optional[Dict[str, float]] = None) -> Optional[_WcScanView]:
+                 parts: Optional[Dict[str, float]] = None, devices=None) -> Optional[_WcScanView]:
     """Host join + device hashing, chunk by chunk; None means "use the host
     path" (non-ASCII whitespace).  Each chunk's end positions are found on
     the device (wc_extract_words_auto): the host ships only the text, and
     each chunk's rows land at their place in the stream's three tensors.
     `parts`, when given, sums the seconds of the join and encode, the H2D
-    copies and the hashing."""
+    copies and the hashing.  `devices` (placement's positions): chunk i is
+    hashed on devices[i % D]'s device and its rows are copied device to
+    device into the stream where that is another device."""
+    if devices is not None and len(devices) > 1:
+        n_chunks = max(n_chunks, len(devices))
     csize = max(1, (len(vals) + n_chunks - 1) // n_chunks)
     chunks = []
     t = time.perf_counter()
@@ -557,10 +567,15 @@ def _wc_tokenize(vals: List[str], n_chunks: int, device, key=None,
     ebs = [K.bucket_size(max(1, n_ends)) for _, _, n_ends in chunks]
     ha, hb, st = (torch.empty(sum(ebs), dtype=torch.int32, device=device) for _ in range(3))
     at = base = 0
-    for (big, buf, n_ends), eb in zip(chunks, ebs):
-        staged = torch.from_numpy(buf).to(device)
+    for i, ((big, buf, n_ends), eb) in enumerate(zip(chunks, ebs)):
+        chunk_dev = device if not devices else torch.device(getattr(devices[i % len(devices)], "device", device))
+        staged = torch.from_numpy(buf).to(chunk_dev)
         t = _lap(parts, "h2d_s", t, device)
-        K.wc_extract_words_auto(staged, n_ends, eb, base, out=(ha, hb, st), at=at)
+        if chunk_dev == ha.device:
+            K.wc_extract_words_auto(staged, n_ends, eb, base, out=(ha, hb, st), at=at)
+        else:
+            for dst, rows in zip((ha, hb, st), K.wc_extract_words_auto(staged, n_ends, eb, base)):
+                dst[at:at + eb] = ioplane.colocate(rows, ha.device)
         t = _lap(parts, "wc_words_s", t, device)
         at += eb
         base += buf.shape[0]
@@ -722,7 +737,9 @@ def word_count(source_map, workers: int = 4, executor=None, timeout: float = 120
             if rec2 is not None and (rec2.nonce, rec2.version) == key0:
                 key = key0
         _lap(parts, "read_values_s", t, device)
-        view = _wc_tokenize(vals, 2, device, key, parts)
+        placement = getattr(engine, "placement", None) if engine is not None else None
+        view = _wc_tokenize(vals, 2, device, key, parts,
+                            devices=placement.devices if placement is not None else None)
         if view is None:
             return _host_fallback(vals)
         STATS["device_scans"] += 1

@@ -30,7 +30,7 @@ scores are the same bits whichever path chose the rows.  The IVF index
 path: a mode the caller chooses, never a fallback that a failure trips.
 
 Not here yet: ``SHARDS n > 1`` (``ShardedEmbeddingBank`` and the sharded
-merge, which come with the multi-device slice: such an index raises
+merge, which come with ROADMAP M8 part 3: such an index raises
 NotImplementedError), residency admission, the chaos fault plane, and the
 serving-lane gate (a no-op without device placement).  A failed bank
 allocation on the card (``torch.cuda.OutOfMemoryError``) raises
@@ -1149,7 +1149,7 @@ class VectorPlane:
             if spec.shards > 1:
                 raise NotImplementedError(
                     f"SHARDS {spec.shards} on field '{f}': sharded vector banks "
-                    "are not ported yet (SHARDS 1 only)"
+                    "are not ported yet (SHARDS 1 only; ROADMAP M8 part 3)"
                 )
         self.banks: Dict[str, EmbeddingBank] = {
             f: EmbeddingBank(engine, index, spec, block=block, reset=reset)

@@ -4,10 +4,12 @@
 fresh namespace whose imports of ``redisson_tpu`` and its submodules bind
 the port's modules of the same path under ``redisson_tpu_torch`` (the
 module-level imports and the ones inside test bodies alike), with six
-defaults changed for the CPU: ``ServerThread``, ``redisson_tpu.create``,
-``RedissonTpu.create``, ``KernelMapReduce``, the harness's ``ClusterRunner``
-and ``Engine`` put their state on the CPU unless the test asks for a
-device.  A module the port does not have yet binds a stand-in whose every
+defaults changed for the CPU: ``ServerThread`` (from ``redisson_tpu.server``
+and its ``server`` module), ``redisson_tpu.create``, ``RedissonTpu.create``,
+``KernelMapReduce``, the harness's ``ClusterRunner`` and ``Engine`` put
+their state on the CPU unless the test asks for a device.  Importing this
+module gives the CPU 8 mesh positions (``parallel/mesh.set_cpu_positions``),
+as the reference's tests/conftest.py gives JAX 8 host devices.  A module the port does not have yet binds a stand-in whose every
 attribute raises NotImplementedError, so a test that reaches one fails
 loudly; such tests
 are named in the caller's ``waiting`` dict (test -> the slice it waits for)
@@ -27,11 +29,14 @@ from pathlib import Path
 import redisson_tpu_torch
 from redisson_tpu_torch import harness as _port_harness
 from redisson_tpu_torch.client import redisson as _port_redisson
+from redisson_tpu_torch.parallel import mesh as _port_mesh
 from redisson_tpu_torch.core import engine as _port_engine
 from redisson_tpu_torch.services import mapreduce as _port_mapreduce
 from redisson_tpu_torch.server import server as _port_server
 
 TESTS = Path(__file__).resolve().parent
+
+_port_mesh.set_cpu_positions(8)
 REF, PORT = "redisson_tpu", "redisson_tpu_torch"
 
 
@@ -115,7 +120,7 @@ def _port_module(name: str):
         mod = _Missing(name)
     if name == REF:
         mod = _Shim(mod, create=_create)
-    elif name == "redisson_tpu.server.server":
+    elif name in ("redisson_tpu.server", "redisson_tpu.server.server"):
         mod = _Shim(mod, ServerThread=CpuServerThread)
     elif name == "redisson_tpu.client.redisson":
         mod = _Shim(mod, RedissonTpu=CpuRedissonTpu)

@@ -338,7 +338,7 @@ def test_replicas_and_replicated_clients_wait_for_m11():
     for call in (lambda: sup.promote_replica(None), lambda: sup.rolling_restart(), sup.scrape):
         with pytest.raises(NotImplementedError, match="M11"):
             call()
-    with pytest.raises(NotImplementedError, match="M8 part 2"):
+    with pytest.raises(NotImplementedError, match="M8 part 3"):
         sup.start_qos_rebalance(1000.0)
 
 

@@ -1815,3 +1815,96 @@ def test_fused_step_on_the_card_matches_its_plain_path(dev, fused_add, monkeypat
                 assert (K.launches["bloom_probe"], K.launches[insert], K.launches["hll_add"]) == (1, 1, 1)
         for got, want in zip(out["cuda"], out["cpu"]):
             assert torch.equal(got.cpu(), want)
+
+
+# -- shard windows (parallel/sharded.py) ----------------------------------
+
+
+@pytest.mark.parametrize("s", [0, 1, 3])
+def test_windowed_bloom_kernels_match_plain(dev, s):
+    """bloom_probe (found and newly) and bloom_set with a column window on
+    shard s of 4 equal their plain versions, out-of-range tenants and a
+    masked tail included, and the launch counts as windowed."""
+    rng = np.random.default_rng(41 + s)
+    T, shards, w, m = 5, 4, 512, 1900  # the stored width 2048 > m
+    part = (torch.rand((T, w), device=dev) < 0.5).to(torch.uint8)
+    kb = _u64(rng, 700, 1024, dev, tenants=T)
+    K.reset_launches()
+    for newly in (False, True):
+        for out in (K.FLAGS, K.BITS, K.COUNT):
+            got = K.bloom_probe(part, w, kb, 650, 7, m, newly, out, col_lo=s * w)
+            want = K.bloom_probe_plain(part, w, kb, 650, 7, m, newly, out, col_lo=s * w)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (newly, out)
+    for k in (7, 5):
+        a, b = part.clone(), part.clone()
+        K.bloom_set(a, w, kb, 650, k, m, col_lo=s * w)
+        K.bloom_set_plain(b, w, kb, 650, k, m, col_lo=s * w)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), k
+    assert K.window_launches["bloom_probe"] == 6 and K.window_launches["bloom_set"] == 2
+
+
+@pytest.mark.parametrize("s", [0, 2])
+def test_windowed_hll_and_bitset_kernels_match_plain(dev, s):
+    rng = np.random.default_rng(51 + s)
+    rows, p = 6, 10
+    regs = torch.randint(0, 8, (rows, 1 << p), dtype=torch.uint8, device=dev)
+    kb = _u64(rng, 3000, 4096, dev, tenants=4 * rows)
+    a, b = regs.clone(), regs.clone()
+    K.hll_add(a, 1 << p, kb, 2900, p, row_lo=s * rows)
+    K.hll_add_plain(b, 1 << p, kb, 2900, p, row_lo=s * rows)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    size = 1 << 16
+    bits = (torch.rand(size, device=dev) < 0.5).to(torch.uint8)
+    idx = torch.from_numpy(rng.integers(-5, 4 * size + 5, 7000).astype(np.int32)).to(dev)
+    assert torch.equal(K.bitset_get(bits, idx, lo=s * size), K.bitset_get_plain(bits, idx, lo=s * size))
+    for n_valid, value in ((7000, 1), (6500, 0), (0, 1)):
+        x, y = bits.clone(), bits.clone()
+        got = K.bitset_set(x, idx, n_valid, value, lo=s * size)[1]
+        want = K.bitset_set_plain(y, idx, n_valid, value, lo=s * size)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(x, y), (n_valid, value)
+
+
+def test_sharded_objects_on_the_card_equal_unsharded(dev):
+    """The three sharded objects on dp 2 x shard 4 over 8 positions of the
+    card equal their unsharded counterparts, through a 4 -> 8 -> 4 reshard."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.parallel.manager import MeshManager
+
+    cfg = Config()
+    cfg.mesh.dp, cfg.mesh.shard, cfg.mesh.n_devices = 2, 4, 8
+    c = redisson_tpu_torch.create(cfg)
+    try:
+        rng = np.random.default_rng(3)
+        mgr = MeshManager.of(c.engine)
+        sbf, ubf = c.get_sharded_bloom_filter_array("s"), c.get_bloom_filter_array("u")
+        assert sbf.try_init(16, 5000, 0.01) and ubf.try_init(16, 5000, 0.01)
+        assert sbf.get_size() == ubf.get_size()
+        t = rng.integers(0, 16, 4000).astype(np.int32)
+        ks = rng.integers(0, 1 << 62, 4000).astype(np.int64)
+        assert np.array_equal(sbf.add_each(t, ks), ubf.add_each(t, ks))
+        mgr.reshard(1, 8)
+        probe = np.concatenate([ks, rng.integers(0, 1 << 62, 4000).astype(np.int64)])
+        tp = np.concatenate([t, t])
+        assert np.array_equal(sbf.contains_each(tp, probe), ubf.contains(tp, probe))
+        mgr.reshard(2, 4)
+        assert torch.equal(c.engine.store.get("s").arrays["bits"].gather(), c.engine.store.get("u").arrays["bits"])
+        sh, un = c.get_sharded_hll_array("h"), c.get_hyper_log_log_array("hu")
+        sh.try_init(10, p=12)
+        un.try_init(10, p=12)
+        t = rng.integers(0, 10, 20000).astype(np.int32)
+        sh.add_each(t, ks.repeat(5))
+        un.add(t, ks.repeat(5))
+        assert np.array_equal(sh.estimate_all(), un.estimate_all())
+        sb, ub = c.get_sharded_bit_set("b"), c.get_bit_set("bu")
+        sb.try_init(1 << 20)
+        idx = rng.integers(0, 1 << 20, 9000)
+        assert np.array_equal(sb.set_each(idx), ub.set_each(idx).astype(bool))
+        assert np.array_equal(sb.get_each(idx[::-1].copy()), ub.get_each(idx[::-1].copy()).astype(bool))
+        assert sb.cardinality() == ub.cardinality()
+    finally:
+        c.shutdown()

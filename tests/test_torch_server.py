@@ -297,13 +297,27 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
         ServerThread(port=0, device="cuda:0")
 
 
-@pytest.mark.parametrize("kw, milestone", [({"devices": 2}, "M8 part 2"), ({"devices": "all"}, "M8 part 2"),
-                                           ({"devices": 1}, "M8 part 2"),
-                                           ({"checkpoint_path": "/tmp/x"}, "M11"),
+@pytest.mark.parametrize("kw, milestone", [({"checkpoint_path": "/tmp/x"}, "M11"),
                                            ({"journal_dir": "/tmp/j"}, "M11")])
 def test_left_out_arguments_refuse(kw, milestone):
     with pytest.raises(NotImplementedError, match=milestone):
         ServerThread(port=0, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("devices", [2, "all", 1])
+def test_devices_argument_places_the_slots(devices):
+    """devices= maps the slot table onto that many positions ("all": the
+    CPU's configured positions) and serves: CLUSTER DEVICES lists each
+    position's slots."""
+    from redisson_tpu_torch.parallel import mesh
+
+    n = mesh.cpu_positions() if devices == "all" else devices
+    with ServerThread(port=0, device="cpu", devices=devices) as st:
+        assert st.server.engine.placement.n_devices == n
+        with st.client() as c:
+            reply = c.execute("CLUSTER", "DEVICES")
+            assert reply[0] == n and sum(row[1] for row in reply[1:]) == 16384
+            assert c.execute("SET", "k", "v") in (b"OK", "OK") and c.execute("GET", "k") == b"v"
 
 
 def test_cluster_mode_and_advertised_host_are_served():

@@ -3,9 +3,6 @@
 slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_embedded_nodes_group": "M8 part 2 (the nodes group, client/nodes.py)",
-    "test_remote_nodes_group": "M8 part 2 (the nodes group, client/nodes.py)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_script_search_nodes", WAITING, __name__))

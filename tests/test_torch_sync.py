@@ -19,7 +19,6 @@ import redisson_tpu
 import redisson_tpu_torch
 from redisson_tpu.client.objects import lock as rlock
 from redisson_tpu_torch.client.objects import lock as tlock
-from redisson_tpu_torch.client.redisson import RedissonTpu
 from redisson_tpu_torch.core.engine import Engine
 
 PACKAGES = {"reference": (redisson_tpu, rlock), "port": (redisson_tpu_torch, tlock)}
@@ -218,32 +217,61 @@ def test_permits_leases_latches_and_rate_limits():
 # -- the wheel timer ----------------------------------------------------------
 
 
-def _timer_threads():
-    return [t for t in threading.enumerate() if t.name == "rtpu-wheel-timer"]
+# The scenario runs in a fresh interpreter: the thread counts below are the
+# process's, and in a pytest worker that ran other files first, their
+# leftover pools (an engine never shut down, the reference's process-wide
+# pools) may start threads during the sleep.  The lease is 3 s (renewed every
+# 1 s): with 0.6 s, a renewal had 0.24-0.31 s of headroom before its lease
+# ran out, less than a loaded machine can stall a process.  The check comes
+# 4 s after the first lock, past its lease, so a lock is still held only if
+# the watchdog renewed it.
+_WATCHDOGS = """
+import json, sys, threading, time
+from redisson_tpu_torch.client.objects import lock as tlock
+from redisson_tpu_torch.client.redisson import RedissonTpu
+from redisson_tpu_torch.core.engine import Engine
+
+tlock.DEFAULT_LEASE = 3.0
+wheel = lambda: [t for t in threading.enumerate() if t.name == "rtpu-wheel-timer"]
+before = set(threading.enumerate())
+engine = Engine(device="cpu")
+client = RedissonTpu(engine)
+try:
+    locks = [client.get_lock(f"wd:{i}") for i in range(1000)]
+    t0 = time.monotonic()
+    for lk in locks:
+        lk.lock()
+    time.sleep(max(0.0, t0 + 4.0 - time.monotonic()))  # 1.33 leases after the first lock
+    added = [t for t in threading.enumerate() if t not in before]
+    out = {"timers": len(wheel()) - sum(t in before for t in wheel()),
+           "added": sorted(t.name for t in added),
+           "locked": sum(lk.is_locked() for lk in locks), "renewals": len(engine._renewals)}
+    for lk in locks:
+        lk.unlock()
+    out["renewals_after_unlock"] = len(engine._renewals)
+finally:
+    engine.shutdown()
+print(json.dumps(out))
+"""
 
 
-def test_a_thousand_watchdogs_ride_one_timer_thread(monkeypatch):
-    monkeypatch.setattr(tlock, "DEFAULT_LEASE", 0.6)
-    before = set(threading.enumerate())
-    engine = Engine(device="cpu")
-    client = RedissonTpu(engine)
-    try:
-        locks = [client.get_lock(f"wd:{i}") for i in range(1000)]
-        for lk in locks:
-            lk.lock()
-        time.sleep(0.5)  # past the first renewal ticks (every 0.2 s)
-        added = [t for t in threading.enumerate() if t not in before]
-        names = sorted({t.name.rsplit("_", 1)[0] for t in added})
-        assert len(_timer_threads()) - sum(t in before for t in _timer_threads()) <= 1
-        # the wheel, its task pools (4 workers each at most) and the sweep
-        assert len(added) <= 1 + 4 + 4 + 1, names
-        assert all(lk.is_locked() for lk in locks)
-        assert len(engine._renewals) == 1000
-        for lk in locks:
-            lk.unlock()
-        assert not engine._renewals
-    finally:
-        engine.shutdown()
+def test_a_thousand_watchdogs_ride_one_timer_thread():
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    run = subprocess.run([sys.executable, "-c", _WATCHDOGS], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parent.parent)
+    assert run.returncode == 0, run.stderr[-2000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    names = sorted({n.rsplit("_", 1)[0] for n in got["added"]})
+    assert got["timers"] <= 1
+    # the wheel, its task pools (4 workers each at most) and the sweep
+    assert len(got["added"]) <= 1 + 4 + 4 + 1, names
+    assert got["locked"] == 1000
+    assert got["renewals"] == 1000
+    assert got["renewals_after_unlock"] == 0
 
 
 def test_engine_shutdown_leaves_no_timer_thread():

@@ -215,6 +215,25 @@ Phases (any failure raises and the script exits non-zero):
      then held to their plain versions on parts of those records and timed
      beside their bounds (their rows in the kernels line, named "<kernel>
      window"), and the path fails unless each windowed form was launched;
+     then the qos path (run_qos, bench.py:1409-1560's config 2q preempt
+     leg on a devices=1 server: 2 bulk connections each send 30 frames of
+     6 BF.MADD64 of 20,000 new keys with the sub-window at 20,000 items
+     while an interactive connection probes 64 keys in a loop; armed, then
+     with ioplane.set_preempt(False); the replies equal between the legs
+     and to a CPU server's on the same stream, more than one sub-window a
+     frame armed, each leg's interactive p50 and p99 and the lane's
+     preemptions printed; then 3 QosRebalancer sweeps over an 8-master
+     ClusterRunner on the card, each push summing to the global rate and
+     following the demand), which must launch bloom_probe and bloom_set or
+     bloom_add; and the sharded_vector path (run_sharded_vector, config 7s,
+     bench.py:2034-2200: 40,000 x 64 COSINE, k 10, batches of 64, FLAT at
+     SHARDS 1 and 8 over 8 positions of the card, ids equal outside near
+     ties and recall@10 >= 0.99 against the float64 oracle, one IVF cell
+     at SHARDS 8 (nlist 32, nprobe 8) with its recall printed), which must
+     launch knn_score and knn_select; K19 (kernels.knn_sharded_merge, one
+     knn_select launch a merge) is then held to its plain version at its
+     shape, (64, 80) k 10, and timed beside torch.topk and its bound (its
+     row "knn_select K19", its launches the path's merges);
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -344,7 +363,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "remote": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add"),
                 "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set"),
-                "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
+                "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
+                "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select")}
 FPP = 0.01
 
 
@@ -5608,6 +5628,371 @@ def run_sharded(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the qos path: config 2q's preempt leg and the fleet rebalancer
+# --------------------------------------------------------------------------
+
+# bench.py:1440-1445's shape: frames of 6 BF.MADD64 of 20,000 keys, a
+# 20,000-item sub-window (one command a chunk), a 64-key interactive probe
+QS_CMDS, QS_KEYS, QS_SUB_ITEMS, QS_INT_KEYS = 6, 20_000, 20_000, 64
+QS_FRAMES, QS_BULK_CONNS = 30, 2  # frames a bulk connection: the stream is fixed
+QS_MASTERS, QS_RATE, QS_SWEEPS = 8, 100_000.0, 3
+
+
+def qos_bulk_frames(conn_index: int) -> list:
+    """The bulk frames of one connection: its own filters, new keys a frame
+    (so the newly-added flags are the stream's, whatever the timing)."""
+    frames = []
+    for f in range(QS_FRAMES):
+        base = (conn_index * QS_FRAMES + f) * QS_KEYS
+        blob = _i8((np.arange(QS_KEYS, dtype=np.int64) + base) * 2654435761)
+        frames.append([("BF.MADD64", f"q2q:b{conn_index}.{i}{{qq}}", blob) for i in range(QS_CMDS)])
+    return frames
+
+
+def qos_leg(device, armed: bool) -> dict:
+    """One leg of config 2q's preempt A/B on a devices=1 server: QS_BULK_CONNS
+    bulk connections each send their QS_FRAMES frames while an interactive
+    connection probes QS_INT_KEYS keys in a loop; the replies, the probe
+    latencies, the lane's preemptions and its bulk dispatches."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.server import ServerThread
+
+    prev = ioplane.set_preempt(armed)
+    st = ServerThread(port=0, devices=1, workers=4, device=device).start()
+    conns, stop = [], threading.Event()
+    try:
+        host, port = st.server.host, st.server.port
+        admin = Connection(host, port, timeout=600.0)
+        conns.append(admin)
+        setup = [("CONFIG", "SET", "qos-bulk-subwindow-items", str(QS_SUB_ITEMS)),
+                 ("BF.RESERVE", "q2q:int{qq}", "0.01", "10000"),
+                 ("BF.MADD64", "q2q:int{qq}", _i8(np.arange(QS_INT_KEYS, dtype=np.int64) * 40503))]
+        setup += [("BF.RESERVE", f"q2q:b{c}.{i}{{qq}}", "0.01", str(QS_FRAMES * QS_KEYS))
+                  for c in range(QS_BULK_CONNS) for i in range(QS_CMDS)]
+        replies = {"setup": admin.execute_many(setup)}
+        lane = st.server.engine.lanes.lanes()[0]
+        probe = ("BF.MEXISTS64", "q2q:int{qq}", _i8(np.arange(QS_INT_KEYS, dtype=np.int64) * 40503))
+        samples, probes, errors = [], [], []
+        before = lane.dispatches
+
+        def bulk(c: int):
+            try:
+                conn = Connection(host, port, timeout=600.0)
+                conns.append(conn)
+                conn.execute("CLIENT", "QOS", "CLASS", "bulk")
+                replies[f"bulk{c}"] = [conn.execute_many(fr, timeout=600.0) for fr in qos_bulk_frames(c)]
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        def interactive():
+            try:
+                conn = Connection(host, port, timeout=600.0)
+                conns.append(conn)
+                conn.execute("CLIENT", "QOS", "CLASS", "interactive")
+                while not stop.is_set():
+                    s = time.perf_counter()
+                    probes.append(conn.execute(*probe, timeout=600.0))
+                    samples.append(time.perf_counter() - s)
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+
+        it = threading.Thread(target=interactive, daemon=True)
+        it.start()
+        bulks = [threading.Thread(target=bulk, args=(c,), daemon=True) for c in range(QS_BULK_CONNS)]
+        s = time.perf_counter()
+        for th in bulks:
+            th.start()
+        for th in bulks:
+            th.join()
+        wall = time.perf_counter() - s
+        stop.set()
+        it.join(60)
+        if errors:
+            raise errors[0]
+        if len(set(probes)) != 1 or not np.frombuffer(probes[0], np.uint8).all():
+            raise AssertionError("qos: an interactive probe missed a present key")
+        bulk_dispatches = lane.dispatches - before - len(probes)
+        frames = QS_FRAMES * QS_BULK_CONNS
+        out = {"armed": armed, "interactive_ops": len(samples),
+               "interactive_p50_ms": pctl(samples, 50) * 1e3, "interactive_p99_ms": pctl(samples, 99) * 1e3,
+               "preemptions": lane.preemptions, "bulk_dispatches": bulk_dispatches,
+               "bulk_frames": frames, "bulk_wall_s": wall, "replies": replies, "probe": probes[0]}
+        if armed and bulk_dispatches < 2 * frames:
+            raise AssertionError(f"qos: {bulk_dispatches} bulk dispatches for {frames} frames armed")
+        if not armed and lane.preemptions:
+            raise AssertionError("qos: a disarmed lane yielded")
+        return out
+    finally:
+        stop.set()
+        for c in conns:
+            with contextlib.suppress(Exception):
+                c.close()
+        st.stop()
+        ioplane.set_preempt(prev)
+        ioplane.set_bulk_subwindow_items(0)
+
+
+def qos_stream_replies(device) -> dict:
+    """The qos legs' stream on one connection a bulk sender, in order, on a
+    server on `device` (the CPU's replies to hold the card's to)."""
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.server import ServerThread
+
+    with ServerThread(port=0, devices=1, workers=4, device=device) as st:
+        conn = Connection(st.server.host, st.server.port, timeout=600.0)
+        try:
+            setup = [("CONFIG", "SET", "qos-bulk-subwindow-items", str(QS_SUB_ITEMS)),
+                     ("BF.RESERVE", "q2q:int{qq}", "0.01", "10000"),
+                     ("BF.MADD64", "q2q:int{qq}", _i8(np.arange(QS_INT_KEYS, dtype=np.int64) * 40503))]
+            setup += [("BF.RESERVE", f"q2q:b{c}.{i}{{qq}}", "0.01", str(QS_FRAMES * QS_KEYS))
+                      for c in range(QS_BULK_CONNS) for i in range(QS_CMDS)]
+            out = {"setup": conn.execute_many(setup)}
+            for c in range(QS_BULK_CONNS):
+                out[f"bulk{c}"] = [conn.execute_many(fr, timeout=600.0) for fr in qos_bulk_frames(c)]
+            return out
+        finally:
+            conn.close()
+
+
+def qos_fleet(device, card: str) -> dict:
+    """QS_SWEEPS QosRebalancer sweeps over an 8-master ClusterRunner on the
+    card: one tenant's demand, skewed by master (master i gets i + 1 frames
+    a sweep through its own CLIENT QOS TENANT connection), pushed splits
+    summing to the global rate."""
+    from contextlib import closing
+
+    from redisson_tpu_torch.cluster.qos_control import QosRebalancer
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    runner = ClusterRunner(masters=QS_MASTERS, workers=4, device=device).run()
+    conns = []
+    try:
+        def factory(m):
+            return lambda: closing(Connection(m.server.server.host, m.server.server.port, timeout=600.0))
+
+        rb = QosRebalancer({m.address: factory(m) for m in runner.masters}, QS_RATE)
+        names, j = {}, 0
+        while len(names) < QS_MASTERS:  # a filter a master, on a slot it owns
+            name = f"q2q:fleet{j}"
+            owner = next(i for i, m in enumerate(runner.masters)
+                         if m.server.server.owns_slot(calc_slot(name.encode())))
+            names.setdefault(owner, name)
+            j += 1
+        for i, m in enumerate(runner.masters):
+            conn = Connection(m.server.server.host, m.server.server.port, timeout=600.0)
+            conns.append(conn)
+            conn.execute("CLIENT", "QOS", "TENANT", "acme")
+            conn.execute("BF.RESERVE", names[i], "0.01", "1000000")
+        pushed = [rb.step()]
+        for sweep in range(1, QS_SWEEPS):
+            for i, conn in enumerate(conns):
+                for f in range(i + 1):
+                    conn.execute("BF.MADD64", names[i],
+                                 _i8(np.arange(2000, dtype=np.int64) + 10_000 * (sweep * 64 + f)))
+            pushed.append(rb.step())
+        if pushed[0] != {}:
+            raise AssertionError(f"qos fleet: the baseline sweep pushed {pushed[0]}")
+        for split in (p["acme"] for p in pushed[1:]):
+            if set(split) != {m.address for m in runner.masters} or abs(sum(split.values()) - QS_RATE) > 1e-6 * QS_RATE:
+                raise AssertionError(f"qos fleet: split {split} does not sum to {QS_RATE} over the masters")
+        last = pushed[-1]["acme"]
+        by_master = [last[m.address] for m in runner.masters]
+        if by_master != sorted(by_master):
+            raise AssertionError(f"qos fleet: the split {by_master} does not follow the demand")
+        rates = [m.server.server.scheduler._tenants["acme"].bucket.rate for m in runner.masters]
+        if any(abs(r - s) > 1e-6 * QS_RATE for r, s in zip(rates, by_master)):
+            raise AssertionError("qos fleet: a master's bucket is not its pushed rate")
+        log(f"qos fleet [{card}]: {QS_SWEEPS} sweeps over {QS_MASTERS} masters, last split "
+            + ", ".join(f"{r:.0f}" for r in by_master) + f" (sum {sum(by_master):.3f} of {QS_RATE:.0f})")
+        return {"sweeps": rb.sweeps, "push_errors": rb.push_errors, "last_split": by_master}
+    finally:
+        for c in conns:
+            c.close()
+        runner.shutdown()
+
+
+def run_qos(device="cuda") -> dict:
+    """The qos path: config 2q's preempt leg (bench.py:1409-1560) armed and
+    disarmed on a devices=1 server on the card, replies equal between the
+    legs and to a CPU server's on the same stream; the interactive p50 and
+    p99 and the lane's preemptions printed (this path claims no speed);
+    then the fleet rebalancer over 8 masters on the card."""
+    from redisson_tpu_torch.core import kernels as K
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    armed = qos_leg(device, True)
+    disarmed = qos_leg(device, False)
+    for key in armed["replies"]:
+        if not all(same(a, b) for a, b in zip(armed["replies"][key], disarmed["replies"][key])):
+            raise AssertionError(f"qos: the {key} replies differ between the armed and disarmed legs")
+    cpu = qos_stream_replies("cpu")
+    for key, want in cpu.items():
+        got = armed["replies"][key]
+        if len(got) != len(want) or not all(same(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"qos: the {key} replies differ from the CPU server's")
+    out = {}
+    for leg in (armed, disarmed):
+        leg.pop("replies")
+        leg.pop("probe")
+        name = "armed" if leg["armed"] else "disarmed"
+        out[name] = leg
+        log(f"qos {name} [{card}]: interactive p50 {leg['interactive_p50_ms']:.3f} ms, p99 "
+            f"{leg['interactive_p99_ms']:.3f} ms over {leg['interactive_ops']} probes; "
+            f"{leg['bulk_dispatches']} bulk dispatches for {leg['bulk_frames']} frames, "
+            f"{leg['preemptions']} preemptions; bulk wall {leg['bulk_wall_s']:.2f} s")
+    out["fleet"] = qos_fleet(device, card)
+    out["launches"] = dict(K.launches)  # the CPU server above launches none
+    out["seconds"] = time.perf_counter() - start
+    log(f"qos path [{card}]: {out['seconds']:.1f}s; the legs' replies equal each other and the CPU server's")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the sharded_vector path: config 7s
+# --------------------------------------------------------------------------
+
+# bench.py:2076-2077: 40,000 x 64 float32, COSINE, k 10, stacked batches of
+# 64, a 64-query float64 oracle; FLAT at SHARDS 1 and 8 over 8 positions of
+# the card, and one IVF cell (8 shards)
+SV7_N, SV7_D, SV7_K, SV7_QB, SV7_ORACLE, SV7_MEASURE_S = 40_000, 64, 10, 64, 64, 1.5
+SV7_SHARDS, SV7_IVF = 8, {"algo": "IVF", "nlist": 32, "nprobe": 8}
+
+
+def sv7_leg(svc, name: str, spec: dict, vecs, queries, oracle_q, truth, card: str) -> dict:
+    from redisson_tpu_torch.core import ioplane
+
+    svc.create_index(name, {"emb": "VECTOR"},
+                     vector={"emb": dict(spec, dim=SV7_D, metric="COSINE")})
+    s = time.perf_counter()
+    for i in range(SV7_N):
+        svc.add_document(name, f"d{i}", {"emb": vecs[i]})
+    ingest_s = time.perf_counter() - s
+    dev, fin = svc.knn(name, "emb", queries, SV7_K)  # flush (and train) outside the clock
+    fin(dev)
+    merges = ioplane.STATS.snapshot()["sharded_knn_merges"]
+    done, s = 0, time.perf_counter()
+    while time.perf_counter() - s < SV7_MEASURE_S:
+        dev, fin = svc.knn(name, "emb", queries, SV7_K)
+        fin(dev)
+        done += SV7_QB
+    qps = done / (time.perf_counter() - s)
+    dev, fin = svc.knn(name, "emb", oracle_q, SV7_K)
+    raw = tuple(v.clone() for v in dev)
+    got = fin(dev)
+    merges = ioplane.STATS.snapshot()["sharded_knn_merges"] - merges
+    hits = sum(len(truth[i] & {int(doc[1:]) for doc, _s in got[i][:SV7_K]}) for i in range(SV7_ORACLE))
+    bank = svc._idx(name).vectors.banks["emb"]
+    row = {"shards": spec.get("shards", 1), "algo": spec.get("algo", "FLAT"), "knn_qps": qps,
+           "recall_at_10": hits / (SV7_K * SV7_ORACLE), "ingest_s": ingest_s, "merges": merges,
+           "bank_device_bytes": bank.device_bytes(),
+           "bytes_by_position": {str(d): b for d, b in sorted(bank.device_bytes_by_device().items())}}
+    log(f"config7s {name} [{card}]: {qps:.1f} qps (batches of {SV7_QB}), recall@10 {row['recall_at_10']:.4f}, "
+        f"ingest {ingest_s:.1f}s, {merges} sharded merges, bytes by position {row['bytes_by_position']}")
+    return row, got, raw
+
+
+def k19_times(dev, card: str) -> dict:
+    """K19 alone at its main-path shape: 8 legs of (64, 10), sorted as a
+    shard's top-k is, merged to k 10 over the (64, 80) concatenation, beside
+    its plain version, torch.topk on the concatenation (the library call)
+    and its bound (the legs' distances and ids read once, the three (64, 10)
+    outputs written once; a compare an entry)."""
+    from redisson_tpu_torch.core import kernels as K
+
+    rng = np.random.default_rng(19)
+    dists = [torch.from_numpy(np.sort(rng.standard_normal((SV7_QB, SV7_K)).astype(np.float32), axis=1)).to(dev)
+             for _ in range(SV7_SHARDS)]
+    idxs = [torch.from_numpy(rng.integers(0, SV7_N, (SV7_QB, SV7_K)).astype(np.int32)).to(dev)
+            for _ in range(SV7_SHARDS)]
+    sop = torch.arange(SV7_SHARDS, dtype=torch.int32, device=dev).repeat_interleave(SV7_K)
+    got = K.knn_sharded_merge(dists, idxs, sop, SV7_K)
+    want = K.knn_sharded_merge_plain(dists, idxs, sop, SV7_K)
+    err = max(assert_equal(f"K19 {n}", g, w) for n, g, w in zip(("dist", "shard", "local"), got, want))
+    cat = torch.cat(dists, dim=1)
+    total = SV7_SHARDS * SV7_K
+    t = {"max_abs_err": err,
+         "ms": time_kernel(lambda i: K.knn_sharded_merge(dists, idxs, sop, SV7_K)),
+         "plain_ms": time_plain(lambda i: K.knn_sharded_merge_plain(dists, idxs, sop, SV7_K)),
+         "library_ms": time_kernel(lambda i: torch.topk(cat, SV7_K, dim=1, largest=False)),
+         "select_ms": time_kernel(lambda i: K.knn_select(cat, SV7_K))}
+    t["bound_ms"], t["bound_by"] = bound_ms(8 * SV7_QB * total + 12 * SV7_QB * SV7_K, SV7_QB * total)
+    log(f"K19 (64, {total}) k {SV7_K} [{card}]: {t['ms']:.4f} ms (knn_select alone {t['select_ms']:.4f}), "
+        f"plain {t['plain_ms']:.4f}, torch.topk {t['library_ms']:.4f}, bound {t['bound_ms']:.6f} ms")
+    return t
+
+
+def run_sharded_vector(device="cuda") -> dict:
+    """The sharded_vector path: config 7s (bench.py:2034-2200) on 8
+    positions of the card, FLAT at SHARDS 1 and 8 (ids equal outside near
+    ties, recall@10 >= 0.99 against the float64 oracle), one IVF cell at
+    SHARDS 8 with its recall, then K19 timed alone."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.core.engine import Engine
+    from redisson_tpu_torch.services.search import SearchService
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(73)
+    vecs = rng.standard_normal((SV7_N, SV7_D)).astype(np.float32)
+    queries = rng.standard_normal((SV7_QB, SV7_D)).astype(np.float32)
+    oracle_q = rng.standard_normal((SV7_ORACLE, SV7_D)).astype(np.float32)
+    q64, v64 = oracle_q.astype(np.float64), vecs.astype(np.float64)
+    dist64 = 1.0 - (q64 @ v64.T) / (np.linalg.norm(q64, axis=1)[:, None] * np.linalg.norm(v64, axis=1)[None, :])
+    truth = [set(np.argsort(dist64[i], kind="stable")[:SV7_K].tolist()) for i in range(SV7_ORACLE)]
+    eng = Engine(device=device)
+    eng.enable_placement(n_devices=SV7_SHARDS)
+    io_before = ioplane.STATS.snapshot()
+    out = {}
+    try:
+        svc = SearchService(eng)
+        out["flat_1"], got1, raw1 = sv7_leg(svc, "v7s_1", {"shards": 1}, vecs, queries, oracle_q, truth, card)
+        merges = ioplane.STATS.snapshot()["sharded_knn_merges"]
+        out["flat_8"], got8, raw8 = sv7_leg(svc, "v7s_8", {"shards": SV7_SHARDS}, vecs, queries, oracle_q,
+                                            truth, card)
+        out["ivf_8"], _, _ = sv7_leg(svc, "v7s_ivf", dict(SV7_IVF, shards=SV7_SHARDS), vecs, queries, oracle_q,
+                                     truth, card)
+        out["k19_merges"] = ioplane.STATS.snapshot()["sharded_knn_merges"] - merges
+        launches = dict(K.launches)
+        for leg in ("flat_1", "flat_8"):
+            if out[leg]["recall_at_10"] < 0.99:
+                raise AssertionError(f"config7s {leg}: recall@10 {out[leg]['recall_at_10']} < 0.99")
+        if out["flat_1"]["merges"] or not out["flat_8"]["merges"]:
+            raise AssertionError("config7s: merges on the 1-shard leg or none on the 8-shard leg")
+        # ids: the 1-shard leg's rows against the 8-shard leg's global rowids
+        ids8 = torch.from_numpy(svc._idx("v7s_8").vectors.banks["emb"].resolve_hits(raw8)[1])
+        ids1 = raw1[1].cpu()
+        d1 = raw1[0].cpu()
+        out["ids_compared"] = assert_ids_outside_near_ties("config7s 8 shards", ids8[:SV7_ORACLE],
+                                                           ids1[:SV7_ORACLE], d1[:SV7_ORACLE])
+        if [[d for d, _s in r] for r in got1] != [[d for d, _s in r] for r in got8]:
+            log("config7s: the doc lists differ between 1 and 8 shards at near ties only")
+        out["host_colocations"] = ioplane.STATS.snapshot()["host_colocations"] - io_before["host_colocations"]
+        if out["host_colocations"]:
+            raise AssertionError("config7s: a sharded merge went through the host")
+        for name in ("v7s_1", "v7s_8", "v7s_ivf"):
+            svc.drop_index(name)
+    finally:
+        eng.shutdown()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["k19"] = k19_times(torch.device(device), card) if device != "cpu" else {}
+    out["seconds"] = time.perf_counter() - start
+    log(f"sharded_vector path [{card}]: {out['seconds']:.1f}s; FLAT 1 shard {out['flat_1']['knn_qps']:.1f} qps, "
+        f"8 shards {out['flat_8']['knn_qps']:.1f} qps, IVF 8 shards recall@10 "
+        f"{out['ivf_8']['recall_at_10']:.4f}; {out['ids_compared']} ids equal outside near ties; "
+        f"{out['k19_merges']} K19 merges")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -5911,7 +6296,9 @@ def main() -> int:
                       ("services", lambda: run_services(paths["config7"], values)),
                       ("cluster", lambda: run_cluster()),
                       ("cluster_proc", lambda: run_cluster_proc()),
-                      ("sharded", lambda: run_sharded())):
+                      ("sharded", lambda: run_sharded()),
+                      ("qos", lambda: run_qos()),
+                      ("sharded_vector", lambda: run_sharded_vector())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -5920,7 +6307,7 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft", "cluster", "cluster_proc"):
+    for path in ("server", "graft", "cluster", "cluster_proc", "qos"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]
@@ -5958,6 +6345,13 @@ def main() -> int:
         sources[name] = (sources[base][0], SH_WINDOW_REPLACES[base])
         main_launches[name] = paths["sharded"]["window_launches"][base]
         by_path[name] = {"sharded": main_launches[name]}
+    # K19, the sharded banks' merge: one knn_select launch a merge, its own
+    # row (its launches the merges of the sharded_vector path)
+    k19 = paths["sharded_vector"].pop("k19")
+    kernels["knn_select K19"] = k19
+    sources["knn_select K19"] = ("redisson_tpu_torch/csrc/knn.cu", "redisson_tpu/core/kernels.py:840")
+    main_launches["knn_select K19"] = paths["sharded_vector"]["k19_merges"]
+    by_path["knn_select K19"] = {"sharded_vector": main_launches["knn_select K19"]}
     per_kernel = {}  # the counts of kernels a call by kernel (kmeans_assign's and kmeans_update's under kmeans)
     for key, v in per_call.items():
         wrapper = key.split()[0]

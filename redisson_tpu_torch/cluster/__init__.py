@@ -9,10 +9,13 @@ A copy of ``redisson_tpu/cluster/__init__.py`` for the cluster serving path:
     SETVIEW program shared with the in-process harness;
   * :mod:`~redisson_tpu_torch.cluster.hostdriver` — where node processes RUN:
     :class:`LocalHostDriver` (subprocesses), :class:`SshHostDriver` (remote
-    spawn over an ssh channel), :class:`K8sDriver` (pod-spec codegen).
+    spawn over an ssh channel), :class:`K8sDriver` (pod-spec codegen);
+  * :mod:`~redisson_tpu_torch.cluster.qos_control` — the fleet-wide tenant
+    budget loop (:class:`QosRebalancer`), which
+    ``ClusterSupervisor.start_qos_rebalance`` runs.
 
-The process-chaos primitives (``cluster/chaos.py``) and the QoS and
-residency control loops come with ROADMAP M11 and M8 part 3.
+The process-chaos primitives (``cluster/chaos.py``) and the residency
+control loop come with ROADMAP M11.
 """
 from redisson_tpu_torch.cluster.hostdriver import (  # noqa: F401
     HostDriver,

@@ -35,8 +35,10 @@ arms TLS by default.
 
 Left out until their slices, each raising NotImplementedError: replicas
 (``replicas_per_master > 0``), checkpoints (``checkpoint_interval > 0``),
-``promote_replica``, ``rolling_restart`` and ``scrape`` (ROADMAP M11), and
-``start_qos_rebalance`` (ROADMAP M8 part 3).  ``restart`` brings a node back
+``promote_replica``, ``rolling_restart`` and ``scrape`` (ROADMAP M11).
+``start_qos_rebalance`` runs the fleet's tenant budget loop
+(``cluster/qos_control.py``) over the masters, and ``shutdown`` stops it.
+``restart`` brings a node back
 empty: there is no checkpoint to restore before M11, and the supervisor
 passes no ``--checkpoint`` or ``--journal-dir`` (the port's server refuses
 both).
@@ -187,6 +189,7 @@ class ClusterSupervisor:
             self._master_hosts = [_LOCAL_HOST_LABEL] * masters
         self.masters: List[NodeProc] = []
         self.replicas: List[NodeProc] = []
+        self._qos_rebalancer = None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -230,7 +233,8 @@ class ClusterSupervisor:
         reap every exit code.  Bounded end to end: a wedged node
         (SIGSTOPped) cannot stall the teardown — SIGKILL reaps even a
         stopped process.  Driver-held resources (ssh channels) are released
-        last."""
+        last.  The QoS rebalancer stops first."""
+        self.stop_qos_rebalance()
         for node in self.nodes():
             if node.alive():
                 node.handle.signal(signal.SIGTERM)
@@ -578,14 +582,35 @@ class ClusterSupervisor:
             kw.setdefault("ssl_context", self.client_ssl_context())
         return ClusterRedisson(self.seeds(), **kw)
 
-    def start_qos_rebalance(self, global_rate: float, **kw):
-        raise NotImplementedError(
-            "the fleet QoS rebalancer comes with the device-sharding slice "
-            "(ROADMAP M8 part 3)"
-        )
+    def start_qos_rebalance(self, global_rate: float, *,
+                            global_burst: Optional[float] = None,
+                            interval: float = 1.0,
+                            min_share: float = 0.05,
+                            tenant_weights: Optional[Dict[str, float]] = None):
+        """Arm the fleet-wide tenant budget loop (``cluster/qos_control.py``,
+        reference ``cluster/supervisor.py:839-880``): scrape every master's
+        ``CLUSTER QOS`` tenant table and re-split each tenant's
+        ``global_rate`` (times its weight, ``tenant_weights``) across the
+        masters by observed demand, pushed by ``CLUSTER QOS REBALANCE``.
+        Masters only: replicas admit no writes.  The connections are the
+        fleet's own (TLS and password included).  Idempotent; stopped by
+        ``stop_qos_rebalance`` and by ``shutdown``."""
+        from redisson_tpu_torch.cluster.qos_control import QosRebalancer
+
+        if self._qos_rebalancer is not None:
+            return self._qos_rebalancer
+        factories = {n.address: self._conn_factory(n) for n in self.masters}
+        self._qos_rebalancer = QosRebalancer(
+            factories, global_rate, global_burst=global_burst,
+            interval=interval, min_share=min_share,
+            tenant_weights=tenant_weights,
+        ).start()
+        return self._qos_rebalancer
 
     def stop_qos_rebalance(self) -> None:
-        """Nothing to stop: start_qos_rebalance comes with M8 part 3."""
+        rb, self._qos_rebalancer = self._qos_rebalancer, None
+        if rb is not None:
+            rb.stop()
 
     def scrape(self) -> str:
         raise NotImplementedError(f"the METRICS scrape {_M11}")

@@ -352,7 +352,8 @@ class Engine:
 
         The positions must all be the engine's device: the object handles
         stage their keys on it, so records on several cards would need
-        handles that stage on a record's card (ROADMAP M8 part 3)."""
+        handles that stage on a record's card (ROADMAP queue 1: placement
+        over positions on more than one card)."""
         from redisson_tpu_torch.parallel.mesh import local_devices
         from redisson_tpu_torch.server.placement import SlotPlacement
 
@@ -364,7 +365,7 @@ class Engine:
         if any(_device_key(getattr(d, "device", d)) != home for d in placement.devices):
             raise NotImplementedError(
                 "placement over positions on more than one device is not served "
-                "yet (ROADMAP M8 part 3); every position must be the engine's "
+                "yet (ROADMAP queue 1); every position must be the engine's "
                 f"device {self.device}"
             )
         with self._locks_guard:
@@ -439,12 +440,18 @@ class Engine:
         overlap plane is off (the serial A/B reference) or the device is
         the CPU, where slot reuse would rewrite a staged tensor
         (ioplane.staging_reuse_safe).  With placement on and a `device` (a
-        position) given, that position's lane pool: each lane's uploads
-        double-buffer on their own."""
+        position) given, that position's lane pool (its interactive slot
+        inside an interactive occupancy): each lane's uploads double-buffer
+        on their own."""
         if not (ioplane.overlap_enabled() and ioplane.staging_reuse_safe(self.device)):
             return None
         if device is not None and self.lanes is not None:
-            return self.lanes.lane(device).pool
+            lane = self.lanes.lane(device)
+            # an interactive occupancy marks its thread, so its packing
+            # stages through the lane's interactive slot
+            if ioplane.current_stream() == "interactive":
+                return lane.ipool
+            return lane.pool
         return self.staging
 
     # -- key packing --------------------------------------------------------

@@ -42,9 +42,35 @@ tensors called ``record_stream``; lanes on different cards dispatch on
 their own cards' streams and overlap there.  The lane fault counters
 (``consec_faults``, ``total_faults``, ``quarantined``) are fields that stay
 0 until the operations slice's fault plane (the reference's chaos stall,
-lane watchdog and quarantine) sets them; the preemptible sub-windows and
-the interactive stream of a lane come with the QoS fleet.
-``scatter_host_arrays`` waits for the operations slice.
+lane watchdog and quarantine) sets them.  ``scatter_host_arrays`` waits for
+the operations slice.
+
+**Bulk-window preemption** (reference ``redisson_tpu/core/ioplane.py``
+``:97-160``, ``:227``, ``:1099``, ``:1225-1420``), behind one switch
+(``RTPU_NO_PREEMPT=1`` / ``set_preempt(False)`` / the server's
+``--no-preempt``):
+
+  * sub-windows: an oversized bulk run splits into chunks of at most
+    ``bulk_subwindow_items()`` items (``CONFIG SET
+    qos-bulk-subwindow-items``), each its own lane occupancy, with
+    ``DeviceLane.preempt_point`` between chunks, so a waiting interactive
+    dispatch goes before the next chunk instead of after the whole window;
+  * the interactive stream: an interactive-class occupancy takes the lane's
+    interactive gate (``_igate``), staging slot (``ipool``) and dispatch
+    queue (``ipipeline``), so it never queues behind the bulk gate.
+
+The interactive "stream" is a host gate in front of the card's one
+in-order stream, as the reference's is a gate in front of one device
+queue: a second CUDA stream would race bulk writes to the same record and
+a dropped record's reused block (the paragraph above).  So a chunk yields
+the card only once its own kernels are done: the server waits on the
+chunk's work (``wait_device``) before it releases the chunk's occupancy,
+and the interactive kernel then finds the stream empty.  Disarmed, the
+plane is the single-gate, unsplit shape, with the same replies.
+
+``FlushPipeline``'s window deadline defaults to ``window_deadline()``
+(``CONFIG SET qos-interactive-deadline-ms``).  ``STATS.sharded_knn_merges``
+counts the sharded vector banks' on-device merges (K19).
 """
 from __future__ import annotations
 
@@ -74,6 +100,71 @@ def set_overlap(on: bool) -> bool:
     return prev
 
 
+# process-global flush-window deadline: FlushPipelines built without an
+# explicit deadline_s follow this default, so CONFIG SET
+# qos-interactive-deadline-ms arms the deadline-triggered window close for
+# every pipeline built afterwards.  None = deadline trigger off.
+_window_deadline_s: Optional[float] = None
+
+
+def set_window_deadline(seconds: Optional[float]) -> Optional[float]:
+    """Set the default FlushPipeline window deadline; returns the previous
+    value (callers restore it)."""
+    global _window_deadline_s
+    prev = _window_deadline_s
+    _window_deadline_s = seconds
+    return prev
+
+
+def window_deadline() -> Optional[float]:
+    return _window_deadline_s
+
+
+# -- bulk-window preemption (see the module docstring) ------------------------
+
+_preempt = os.environ.get("RTPU_NO_PREEMPT", "") not in ("1", "true", "yes")
+
+
+def preempt_enabled() -> bool:
+    return _preempt
+
+
+def set_preempt(on: bool) -> bool:
+    """Flip the process-global preemption switch; returns the previous
+    value (callers restore it)."""
+    global _preempt
+    prev = _preempt
+    _preempt = bool(on)
+    return prev
+
+
+# target device items per bulk sub-window (0 = splitting off, the whole
+# window dispatches at once); CONFIG SET qos-bulk-subwindow-items sets it
+_bulk_subwindow_items = 0
+
+
+def bulk_subwindow_items() -> int:
+    return _bulk_subwindow_items
+
+
+def set_bulk_subwindow_items(n: int) -> int:
+    """Set the sub-window split target; returns the previous value."""
+    global _bulk_subwindow_items
+    prev = _bulk_subwindow_items
+    _bulk_subwindow_items = max(0, int(n))
+    return prev
+
+
+# which lane stream the current thread's dispatch occupies ("interactive"
+# while an interactive occupancy is held): Engine.staging_pool reads it to
+# hand the interactive dispatch its own staging slot
+_stream_tls = threading.local()
+
+
+def current_stream() -> Optional[str]:
+    return getattr(_stream_tls, "stream", None)
+
+
 def staging_reuse_safe(device) -> bool:
     """Pooled host-buffer reuse needs the upload to COPY.  On the CPU the
     staged tensor is ``torch.from_numpy`` of the slot itself, so refilling
@@ -97,6 +188,16 @@ def _passed(event) -> bool:
     return event is None or bool(event.query())
 
 
+def wait_device(device) -> None:
+    """Wait until the work enqueued so far on `device`'s current stream is
+    done (one event, not the whole card); nothing on the CPU.  A bulk
+    sub-window calls it before it releases its lane, so the card is idle
+    when a waiting interactive dispatch launches."""
+    ev = record_event(device)
+    if ev is not None:
+        ev.synchronize()
+
+
 # -- blocking-sync + readback accounting --------------------------------------
 
 
@@ -110,7 +211,7 @@ class IOStats:
 
     __slots__ = ("_lock", "blocking_syncs", "readbacks", "readback_wait_s",
                  "readback_exposed_s", "staging_waits", "d2d_colocations",
-                 "host_colocations")
+                 "host_colocations", "sharded_knn_merges")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -127,6 +228,7 @@ class IOStats:
         # second at 0
         self.d2d_colocations = 0
         self.host_colocations = 0
+        self.sharded_knn_merges = 0
 
     def count_sync(self, n: int = 1) -> None:
         with self._lock:
@@ -152,6 +254,12 @@ class IOStats:
             if not was_ready:
                 self.readback_exposed_s += wall_s
 
+    def count_sharded_merge(self) -> None:
+        """One on-device sharded-KNN top-k merge ran: with host_colocations
+        unmoved it shows the cross-shard reduce stayed on the device."""
+        with self._lock:
+            self.sharded_knn_merges += 1
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -162,6 +270,7 @@ class IOStats:
                 "staging_waits": self.staging_waits,
                 "d2d_colocations": self.d2d_colocations,
                 "host_colocations": self.host_colocations,
+                "sharded_knn_merges": self.sharded_knn_merges,
             }
 
 
@@ -491,9 +600,14 @@ class QosLedger:
     rows, CLUSTER DEVICES the cumulative ones (``wire_row``)."""
 
     __slots__ = ("_lock", "frames", "ops", "nbytes", "waiting",
-                 "dispatched_ops", "dispatched_frames")
+                 "dispatched_ops", "dispatched_frames",
+                 "stream_inflight", "stream_dispatched")
 
     _CLASSES = ("interactive", "bulk")
+    # lane streams: "interactive" only when the interactive gate served the
+    # dispatch (preemption armed and the frame interactive-class), "bulk"
+    # otherwise, so a disarmed run books every dispatch on the bulk stream
+    _STREAMS = ("interactive", "bulk")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -503,6 +617,8 @@ class QosLedger:
         self.waiting = 0  # bulk frames parked at the admission gate
         self.dispatched_ops = {c: 0 for c in self._CLASSES}
         self.dispatched_frames = {c: 0 for c in self._CLASSES}
+        self.stream_inflight = {s: 0 for s in self._STREAMS}
+        self.stream_dispatched = {s: 0 for s in self._STREAMS}
 
     @classmethod
     def _cls(cls, qos_class: str) -> str:
@@ -532,6 +648,29 @@ class QosLedger:
         with self._lock:
             self.waiting -= 1
 
+    def stream_enter(self, stream: str, ops: int) -> None:
+        s = stream if stream in self._STREAMS else "bulk"
+        with self._lock:
+            self.stream_inflight[s] += ops
+            self.stream_dispatched[s] += ops
+
+    def stream_exit(self, stream: str, ops: int) -> None:
+        s = stream if stream in self._STREAMS else "bulk"
+        with self._lock:
+            self.stream_inflight[s] -= ops
+
+    def stream_rows(self) -> list:
+        """``[b"STREAM", name, in-flight ops, dispatched ops]`` a lane
+        stream, as CLUSTER QOS appends them; the leading tag keeps them apart
+        from the class rows (row[0] the class name), which the occupancy
+        balancer reads."""
+        with self._lock:
+            return [
+                [b"STREAM", s.encode(), self.stream_inflight[s],
+                 self.stream_dispatched[s]]
+                for s in self._STREAMS
+            ]
+
     def census(self, prefix: str = "qos") -> dict:
         """Drain-to-zero gauges only (the cumulative counters are on the
         wire views)."""
@@ -541,6 +680,8 @@ class QosLedger:
                 out[f"{prefix}_{c}_inflight_frames"] = float(self.frames[c])
                 out[f"{prefix}_{c}_inflight_ops"] = float(self.ops[c])
                 out[f"{prefix}_{c}_inflight_bytes"] = float(self.nbytes[c])
+            for s in self._STREAMS:
+                out[f"{prefix}_stream_{s}_inflight"] = float(self.stream_inflight[s])
             return out
 
     def wire_row(self) -> list:
@@ -573,15 +714,17 @@ class FlushPipeline:
         every submit.
 
     ``submit(fn, interactive=True)`` forces the window's readback at once
-    instead of parking it behind bulk windows; with ``deadline_s`` set, a
-    window older than the deadline is forced by the next submit.  Neither
+    instead of parking it behind bulk windows; with ``deadline_s`` set
+    (default ``window_deadline()``), a window older than the deadline is
+    forced by the next submit.  Neither
     reorders device work, only waits, so results are the same."""
 
     def __init__(self, *, overlap: Optional[bool] = None, depth: int = 2,
                  deadline_s: Optional[float] = None):
         self.overlap = overlap_enabled() if overlap is None else bool(overlap)
         self.depth = max(1, depth)
-        self.deadline_s = deadline_s
+        # None follows the process-global default (window_deadline())
+        self.deadline_s = _window_deadline_s if deadline_s is None else deadline_s
         self._ring: List[Tuple[ReadbackFuture, float]] = []
 
     @staticmethod
@@ -646,18 +789,29 @@ def replica_occupancy() -> Optional[float]:
 class DeviceLane:
     """One position's serving lane: staging pool, flush pipeline, QoS
     ledger, and the occupancy gate (dispatches bound for one position
-    serialize; dispatches bound for different positions overlap)."""
+    serialize; dispatches bound for different positions overlap), plus the
+    interactive stream: its own gate, staging slot and dispatch queue."""
 
     def __init__(self, device, laneset: "LaneSet", depth: int = 2):
         self.device = device
         self.dev_id = getattr(device, "id", 0)
         torch_dev = getattr(device, "device", device)
-        self.pool = StagingPool(depth=depth, pin=torch.device(torch_dev).type == "cuda")
+        pin = torch.device(torch_dev).type == "cuda"
+        self.pool = StagingPool(depth=depth, pin=pin)
         self.pipeline = FlushPipeline(depth=depth)
         self.qos = QosLedger()
         self._laneset = laneset
         self._gate = threading.Lock()
+        # the interactive stream: depth 1 on both, as interactive windows
+        # never park (FlushPipeline forces them at submit) and one slot
+        # matches one-at-a-time, latency-bound traffic
+        self._igate = threading.Lock()
+        self.ipool = StagingPool(depth=1, pin=pin)
+        self.ipipeline = FlushPipeline(depth=1)
+        self._icond = threading.Condition(threading.Lock())
+        self._iwaiting = 0  # interactive dispatches queued or in flight
         self.dispatches = 0
+        self.preemptions = 0  # preemption points that yielded
         # fault ledger: set by the operations slice's fault plane; 0 here
         self.consec_faults = 0
         self.total_faults = 0
@@ -670,15 +824,60 @@ class DeviceLane:
         holds the gate and, with ``set_replica_occupancy`` armed, the
         modelled compute time of `n_items` ops; with `qos_class` (the
         scheduler armed) the dispatch is on the lane's QoS ledger while it
-        holds the lane."""
+        holds the lane.  With preemption armed an interactive-class
+        dispatch holds the interactive gate instead of the bulk one."""
         return _LaneOccupancy(self, n_items, qos_class, nbytes)
 
     def submit(self, fn, interactive: bool = False) -> ReadbackFuture:
+        """Route one flush window: armed interactive windows go through the
+        interactive dispatch queue (a parked bulk ring never delays forcing
+        them), everything else, and everything when disarmed, through the
+        bulk pipeline."""
+        if interactive and _preempt:
+            return self.ipipeline.submit(fn, interactive=True)
         return self.pipeline.submit(fn, interactive=interactive)
+
+    def interactive_waiting(self) -> int:
+        with self._icond:
+            return self._iwaiting
+
+    def _ienter(self) -> None:
+        with self._icond:
+            self._iwaiting += 1
+
+    def _iexit(self) -> None:
+        with self._icond:
+            self._iwaiting -= 1
+            if self._iwaiting <= 0:
+                self._icond.notify_all()
+
+    def preempt_point(self, timeout: float = 0.05) -> bool:
+        """The preemption point between bulk sub-windows: with preemption
+        armed and interactive dispatches queued or in flight on this lane,
+        wait up to `timeout` seconds for them, so they launch before the
+        next sub-window takes the lane.  The caller holds no lane gate and
+        no record lock here, and the wait is bounded, so a stuck client
+        cannot stall the bulk stream.  Returns True when it yielded."""
+        if not _preempt:
+            return False
+        yielded = False
+        with self._icond:
+            if self._iwaiting > 0:
+                deadline = time.monotonic() + timeout
+                while self._iwaiting > 0:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._icond.wait(left)
+                yielded = True
+        if yielded:
+            self.preemptions += 1
+        return yielded
 
 
 class _LaneOccupancy:
-    __slots__ = ("_lane", "_n", "_cls", "_nbytes")
+    __slots__ = ("_lane", "_n", "_cls", "_nbytes", "_stream", "_gate",
+                 "_prev_stream")
 
     def __init__(self, lane: DeviceLane, n_items: int,
                  qos_class: Optional[str] = None, nbytes: int = 0):
@@ -686,11 +885,27 @@ class _LaneOccupancy:
         self._n = n_items
         self._cls = qos_class
         self._nbytes = nbytes
+        # stream selection: the interactive stream only with preemption
+        # armed; disarmed, everything serializes through the bulk gate
+        if qos_class == "interactive" and _preempt:
+            self._stream = "interactive"
+            self._gate = lane._igate
+        else:
+            self._stream = "bulk"
+            self._gate = lane._gate
+        self._prev_stream = None
 
     def __enter__(self) -> DeviceLane:
         if self._cls is not None:
             self._lane.qos.enter(self._cls, self._n, self._nbytes)
-        self._lane._gate.acquire()
+        self._lane.qos.stream_enter(self._stream, self._n)
+        if self._stream == "interactive":
+            # seen by preempt_point from the moment the dispatch queues on
+            # the interactive gate, not only once it holds it
+            self._lane._ienter()
+        self._gate.acquire()
+        self._prev_stream = getattr(_stream_tls, "stream", None)
+        _stream_tls.stream = self._stream
         self._lane._laneset._enter()
         self._lane.dispatches += 1
         return self._lane
@@ -702,7 +917,11 @@ class _LaneOccupancy:
                 time.sleep(self._n * ns * 1e-9)
         finally:
             self._lane._laneset._exit()
-            self._lane._gate.release()
+            _stream_tls.stream = self._prev_stream
+            self._gate.release()
+            if self._stream == "interactive":
+                self._lane._iexit()
+            self._lane.qos.stream_exit(self._stream, self._n)
             if self._cls is not None:
                 self._lane.qos.exit(self._cls, self._n, self._nbytes)
         return False
@@ -760,6 +979,8 @@ class LaneSet:
         out = {"lanes": len(self._lanes), "active_dispatches": self.active()}
         for dev_id, lane in sorted(self._lanes.items()):
             out[f"lane{dev_id}_staging_slots"] = lane.pool.slot_count()
+            out[f"lane{dev_id}_istaging_slots"] = lane.ipool.slot_count()
+            out[f"lane{dev_id}_iwaiting"] = lane.interactive_waiting()
             out[f"lane{dev_id}_quarantined"] = int(lane.quarantined)
             out[f"lane{dev_id}_consec_faults"] = lane.consec_faults
             out.update(lane.qos.census(prefix=f"lane{dev_id}_qos"))
@@ -768,4 +989,6 @@ class LaneSet:
     def clear(self) -> None:
         for lane in self._lanes.values():
             lane.pool.clear()
+            lane.ipool.clear()
             lane.pipeline.drain()
+            lane.ipipeline.drain()

@@ -54,6 +54,12 @@ Fourteen kernels carry every program here:
                row order, then each cell's mean in that order; no float
                atomics)
 
+The sharded vector banks' merge (K19, ``knn_sharded_merge``, reference
+``core/kernels.py:840-858``) is a concatenation (a copy) and one
+``knn_select`` launch over the (Q, sum of k_s) matrix: its key order
+(distance, then column; +inf after every finite value; -0.0 before +0.0)
+is the reference's ``lax.top_k(-dist)`` over the concatenation.
+
 bloom_probe, bloom_set, hll_add, bitset_get and bitset_set also take a
 shard window (``col_lo``, ``row_lo``, ``lo``): the state is one shard's
 columns, rows or bits of a plane sharded over a mesh
@@ -1586,6 +1592,28 @@ def knn_select(dist, k: int, ids=None):
             dist.data_ptr(), n, r, k, _ptr(ids), vals.data_ptr(), idx.data_ptr(), plan.segs, plan.seg_len,
             scratch.data_ptr(), state.data_ptr())
     return vals, idx
+
+
+def _sharded_merge(select, dists, idxs, shard_of_pos, k: int):
+    dist_cat = torch.cat(list(dists), dim=1)
+    idx_cat = torch.cat(list(idxs), dim=1)
+    vals, pos = select(dist_cat.contiguous(), int(k))
+    pos = pos.long()
+    return vals, shard_of_pos[pos], idx_cat.gather(1, pos)
+
+
+def knn_sharded_merge_plain(dists, idxs, shard_of_pos, k: int):
+    return _sharded_merge(knn_select_plain, dists, idxs, shard_of_pos, k)
+
+
+def knn_sharded_merge(dists, idxs, shard_of_pos, k: int):
+    """The global top-k of a sharded bank's legs: dists/idxs are tuples of
+    per-shard (Q, k_s) float32 / int32 top-k outputs on one device,
+    shard_of_pos (sum k_s,) int32 the shard of each concatenated column.
+    Concatenates the legs in order and keeps each row's k smallest by
+    (distance, concatenated position) with one knn_select launch.  Returns
+    (dist (Q, k) float32, shard (Q, k) int32, local index (Q, k) int32)."""
+    return _sharded_merge(knn_select, dists, idxs, shard_of_pos, k)
 
 
 def ivf_score_plain(bank, scale, bias, qmask, cells, probe, q, n_rows: int, metric: str):

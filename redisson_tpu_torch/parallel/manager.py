@@ -248,6 +248,20 @@ class MeshManager:
             lambda mesh: make_sharded_hll_kernels(mesh, p=p, n_rows=rows),
         )
 
+    def knn_merge_kernel(self, n_legs: int, geom: Optional[Geometry] = None):
+        """The sharded banks' top-k of top-ks (K19, ``K.knn_sharded_merge``)
+        for an ``n_legs`` constellation (reference ``parallel/manager.py:311-330``),
+        geometry-keyed like every sharded program: a 4 -> 8 -> 4 reshard
+        lands back on the program object built before, with no new build."""
+        def build(_mesh):
+            # a fresh wrapper a geometry, so the pool returns this object
+            def merge(dists, idxs, shard_of_pos, k):
+                return K.knn_sharded_merge(dists, idxs, shard_of_pos, k)
+
+            return merge
+
+        return self._cached(geom, ("knn_merge", n_legs), build)
+
     # -- placement helpers ---------------------------------------------------
 
     def round_up(self, value: int, multiple: int) -> int:

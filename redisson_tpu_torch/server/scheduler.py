@@ -25,7 +25,13 @@ this module transfers that playbook onto the device-window pipeline:
     dispatch* — no queue residency, no partial kernel work — and a
     partially-covered frame sheds only its over-budget tail (coalesced runs
     never form across the shed boundary, core/coalesce.py).  Budgets are
-    off by default; ``WindowScheduler.set_tenant_rate`` arms one.
+    off by default; ``CONFIG SET qos-tenant-rate`` arms them for every
+    tenant, ``CLUSTER QOS REBALANCE`` (``set_tenant_rate``) for one.
+    Interactive windows additionally close early in
+    ``ioplane.FlushPipeline`` (``qos-interactive-deadline-ms``), and an
+    oversized bulk run splits into sub-windows with a preemption point
+    between them (``qos-bulk-subwindow-items``, the lanes of
+    ``core/ioplane.py``).
 
 Disarm with ``RTPU_NO_QOS=1`` / ``set_qos(False)`` / ``python -m
 redisson_tpu_torch.server --no-qos``: the disarmed plane reproduces the historical arrival-order
@@ -48,10 +54,8 @@ frame's classification + tenant charge + bulk-gate wait is recorded as its
 ``server._serve_frame``), and the ``stage.qos`` histogram feeds the
 server's metrics registry.
 
-A copy of ``redisson_tpu/server/scheduler.py`` without the knobs only other
-slices reach: the ``CONFIG SET qos-*`` surface (admin verbs, ROADMAP M11),
-tenant weights (``CLUSTER QOS REBALANCE``, M8 part 3), and the flush-window
-deadline and bulk sub-windows of ``FlushPipeline`` and the lanes (M8 part 3).
+A copy of ``redisson_tpu/server/scheduler.py`` (the reference's CONFIG
+surface at ``:310-358``, tenant weights at ``:174`` and ``:380-403``).
 """
 from __future__ import annotations
 
@@ -171,13 +175,18 @@ class TokenBucket:
 
 
 class TenantState:
-    __slots__ = ("bucket", "admitted_ops", "shed_ops", "shed_frames")
+    __slots__ = ("bucket", "admitted_ops", "shed_ops", "shed_frames",
+                 "weight")
 
-    def __init__(self, bucket: TokenBucket):
+    def __init__(self, bucket: TokenBucket, weight: float = 1.0):
         self.bucket = bucket
         self.admitted_ops = 0
         self.shed_ops = 0
         self.shed_frames = 0
+        # service-class weight: gold=2.0/silver=1.0
+        # style multiplier the fleet rebalance loop scales this tenant's
+        # GLOBAL rate by; 1.0 (default) reproduces unweighted behavior
+        self.weight = float(weight)
 
 
 # -- admission -----------------------------------------------------------------
@@ -259,16 +268,31 @@ class WindowScheduler:
                  tenant_rate: float = 0.0,
                  tenant_burst: Optional[float] = None,
                  interactive_max_items: int = 256,
-                 bulk_slots: int = 0):
+                 interactive_deadline_ms: float = 0.0,
+                 bulk_slots: int = 0,
+                 bulk_subwindow_items: int = 0):
         self.enabled = qos_enabled() if enabled is None else bool(enabled)
         self.tenant_rate = float(tenant_rate)
         self.tenant_burst = tenant_burst  # None = follow rate
         self.interactive_max_items = int(interactive_max_items)
+        # flush-window deadline (0 = trigger off, the historical shape):
+        # CONFIG SET qos-interactive-deadline-ms arms ioplane's deadline-
+        # triggered window close (the server pushes the value into the
+        # process-global FlushPipeline default AND every live lane pipeline)
+        self.interactive_deadline_ms = float(interactive_deadline_ms)
         # bulk admission slots: how many bulk-class frames may be in dispatch
         # at once across ALL connections (0 = derive from the server's worker
         # count at wiring time: workers - 1, so one dispatch slot is always
         # reserved for interactive traffic)
         self.bulk_slots = int(bulk_slots)
+        # preemptible sub-windows: target device items per bulk
+        # sub-window — an oversized fused run splits into chunks of at most
+        # this many items, with a lane preemption point between chunks
+        # (0 = splitting off, the historical whole-window dispatch).  The
+        # server pushes the value into the process-global
+        # ioplane.set_bulk_subwindow_items so every lane's dispatch path
+        # shares it.
+        self.bulk_subwindow_items = int(bulk_subwindow_items)
         # penalty for a FULLY-refused frame: the offending connection's read
         # loop parks this long after its -BUSY replies flush, so a client
         # that spins on BUSY instead of backing off cannot convert the cheap
@@ -288,11 +312,63 @@ class WindowScheduler:
     def armed(self) -> bool:
         return self.enabled and _qos
 
+    # -- config surface (CONFIG GET/SET qos-*) --------------------------------
+
+    def config_view(self) -> Dict[str, object]:
+        return {
+            "qos-enabled": int(self.enabled),
+            "qos-tenant-rate": self.tenant_rate,
+            "qos-tenant-burst": (
+                self.tenant_burst if self.tenant_burst is not None else ""
+            ),
+            "qos-interactive-max-items": self.interactive_max_items,
+            "qos-interactive-deadline-ms": self.interactive_deadline_ms,
+            "qos-bulk-slots": self.bulk_slots,
+            "qos-bulk-subwindow-items": self.bulk_subwindow_items,
+            "qos-shed-penalty-ms": self.shed_penalty_ms,
+        }
+
+    def config_set(self, key: str, value: str) -> bool:
+        if key == "qos-enabled":
+            self.enabled = value not in ("0", "false", "no", "off")
+            return True
+        if key == "qos-tenant-rate":
+            self.tenant_rate = float(value)
+            self._reset_buckets()
+            return True
+        if key == "qos-tenant-burst":
+            self.tenant_burst = float(value) if value else None
+            self._reset_buckets()
+            return True
+        if key == "qos-interactive-max-items":
+            self.interactive_max_items = int(value)
+            return True
+        if key == "qos-interactive-deadline-ms":
+            self.interactive_deadline_ms = float(value)
+            return True
+        if key == "qos-bulk-slots":
+            self.bulk_slots = int(value)
+            return True
+        if key == "qos-bulk-subwindow-items":
+            self.bulk_subwindow_items = max(0, int(value))
+            return True
+        if key == "qos-shed-penalty-ms":
+            self.shed_penalty_ms = float(value)
+            return True
+        return False
+
+    def _reset_buckets(self) -> None:
+        """Rate/burst reconfiguration re-mints every tenant's bucket (stats
+        are preserved — only the budget changes)."""
+        with self._lock:
+            for ts in self._tenants.values():
+                ts.bucket = TokenBucket(self.tenant_rate, self.tenant_burst)
+
     def set_tenant_rate(self, tenant: str, rate: float,
                         burst: Optional[float] = None) -> None:
-        """Per-tenant budget (the ``CLUSTER QOS REBALANCE`` actuator's
-        handle in the reference; the uniform ``tenant_rate`` covers the
-        common case).  An EXISTING bucket is retargeted in
+        """Per-tenant budget override (the ``CLUSTER QOS REBALANCE``
+        actuator and the test hook; the uniform ``qos-tenant-rate`` knob
+        covers the common case).  An EXISTING bucket is retargeted in
         place — tokens are preserved (capped at the new burst), never
         re-minted: the fleet rebalance loop pushes every sweep, and a
         re-mint would hand the tenant a fresh burst per push, inflating
@@ -308,12 +384,34 @@ class WindowScheduler:
             if b.tokens > b.burst:
                 b.tokens = b.burst
 
+    def set_tenant_weight(self, tenant: str, weight: float) -> None:
+        """Per-tenant service-class weight (``CLUSTER QOS REBALANCE ...
+        WEIGHT``).  Orthogonal to the bucket: the weight only changes how
+        the FLEET loop sizes this tenant's global rate, so setting it never
+        re-mints or retargets tokens (the token-preserving contract of
+        set_tenant_rate is untouched)."""
+        if weight <= 0:
+            raise ValueError("tenant weight must be positive")
+        with self._lock:
+            ts = self._tenants.get(tenant)
+            if ts is None:
+                ts = TenantState(
+                    TokenBucket(self.tenant_rate, self.tenant_burst)
+                )
+                self._tenants[tenant] = ts
+            ts.weight = float(weight)
+
+    def tenant_weight(self, tenant: str) -> float:
+        with self._lock:
+            ts = self._tenants.get(tenant)
+            return ts.weight if ts is not None else 1.0
+
     # -- classification -------------------------------------------------------
 
     def classify(self, ctx, commands: Sequence) -> Tuple[str, List[int], int]:
         """(qos_class, per-command items, total items).  The connection's
         declared class wins; the heuristic default is: small frames (total
-        estimated device items <= ``interactive_max_items``) are
+        estimated device items <= qos-interactive-max-items) are
         interactive, everything else is bulk."""
         per = [estimate_command_items(c) for c in commands]
         total = sum(per)
@@ -380,19 +478,32 @@ class WindowScheduler:
 
     # -- observability --------------------------------------------------------
 
+    def census(self) -> Dict[str, float]:
+        """Drain-to-zero gauges + the shed counters, census/metrics shaped.
+        The in-flight rows MUST return to 0 at quiesce (the soak's
+        flat-census assertion guards the new accounting)."""
+        out = self.ledger.census(prefix="qos")
+        out["qos_shed_ops_total"] = float(self.shed_ops)
+        out["qos_shed_frames_total"] = float(self.shed_frames)
+        return out
+
     def tenant_table(
         self, now: Optional[float] = None,
-    ) -> List[Tuple[str, float, int, int, int]]:
-        """[(tenant, bucket_level, admitted_ops, shed_ops, shed_frames)] —
-        what CLIENT QOS GET reads."""
+    ) -> List[Tuple[str, float, int, int, int, float]]:
+        """[(tenant, bucket_level, admitted_ops, shed_ops, shed_frames,
+        weight)] — the CLUSTER QOS wire view."""
         if now is None:
             now = time.monotonic()
         with self._lock:
             return [
                 (name, ts.bucket.level(now), ts.admitted_ops,
-                 ts.shed_ops, ts.shed_frames)
+                 ts.shed_ops, ts.shed_frames, ts.weight)
                 for name, ts in sorted(self._tenants.items())
             ]
+
+    def tenant_sheds(self) -> Dict[str, int]:
+        with self._lock:
+            return {n: ts.shed_ops for n, ts in self._tenants.items()}
 
 
 def busy_error(tenant: str) -> str:

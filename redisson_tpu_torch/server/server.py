@@ -107,15 +107,33 @@ verbs (CLUSTER DEVICES, DEVMOVE) (``server/verbs``).
     frame order as barriers; replies keep frame order.  A frame's
     single-position commands and coalesced runs on the sequential path hold
     their position's lane as well.  Positions on one card share its stream
-    (``core/ioplane.py`` says why).  The lanes' preemptible sub-windows and
-    deadline classes come with the QoS fleet (ROADMAP M8 part 3).
+    (``core/ioplane.py`` says why).
+  * **Preemptible sub-windows** (reference ``server/server.py:1383-1630``):
+    with preemption armed (``--no-preempt`` / ``RTPU_NO_PREEMPT=1``
+    disarm it) and ``qos-bulk-subwindow-items`` set, a bulk coalesced run
+    on a lane, or a position's bucket of a sharded frame, splits at
+    command (or coalesced-run) boundaries into chunks of at most that many
+    items (``core/coalesce.plan_subwindows``; one oversized command keeps
+    its own chunk).  Each chunk is its own lane occupancy, waits for its
+    kernels before it lets the lane go (``ioplane.wait_device``: a launch
+    returns before the kernel runs, and an interactive kernel launched
+    behind a running chunk would wait for it on the card's one stream),
+    and ``lane.preempt_point()`` sits between chunks.  A failed chunk
+    replies per-command errors and is never re-dispatched; earlier chunks
+    stay applied (at most once a sub-window).  Replies are the unsplit
+    dispatch's bytes, in frame order.
+  * **CONFIG** (``config_view``/``config_set``, reference ``:483-680``):
+    the knobs of the planes the port has, the ``qos-*`` knobs among them.
+    The knobs of planes the operations slice brings (``checkpoint-path``,
+    ``residency-enabled``, ``device-budget-bytes``, ``lane-watchdog-ms``,
+    ``lane-quarantine-after``) read the reference's defaults, and setting
+    one replies an error naming ROADMAP M11.
 
 Left out, each raising NotImplementedError when asked for: checkpoints and
 migration journals (ROADMAP M11).  Their verbs reply the unknown-command
-error until that slice: CONFIG, SAVE, WAIT, the replication verbs REPLFLUSH
+error until that slice: SAVE, WAIT, the replication verbs REPLFLUSH
 and REPLSTATE, DUMP, RESTORE, COPY; the replication and migration links,
-the residency census and the chaos pause gate come with them.  FT.CREATE of
-a VECTOR field with SHARDS n > 1 replies the error that names M8 part 3.
+the residency census and the chaos pause gate come with them.
 """
 from __future__ import annotations
 
@@ -129,7 +147,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from redisson_tpu_torch.client import routing as _routing
 from redisson_tpu_torch.core import ioplane
-from redisson_tpu_torch.core.coalesce import runs_within_admission
+from redisson_tpu_torch.core.coalesce import plan_subwindows, runs_within_admission
 from redisson_tpu_torch.core.engine import Engine
 from redisson_tpu_torch.net import resp
 from redisson_tpu_torch.net.resp import ProtocolError, RespError
@@ -264,6 +282,25 @@ def _force_lazies(results: list, server, trace=None) -> None:
 _REFUSED = {
     "checkpoint_path": "checkpoints (checkpoint_path=) come with ROADMAP M11",
     "journal_dir": "migration journals (journal_dir=) come with ROADMAP M11",
+}
+
+
+# CONFIG knobs of the operations slice's planes (ROADMAP M11: checkpoints,
+# residency, the lane watchdog and quarantine): CONFIG GET reads the
+# reference's defaults, CONFIG SET replies an error naming the plane
+_M11_KNOBS = {
+    "checkpoint-path": "",
+    "device-budget-bytes": 0,
+    "residency-enabled": 0,
+    "lane-watchdog-ms": 0,
+    "lane-quarantine-after": 3,
+}
+_M11_KNOBS_PLANE = {
+    "checkpoint-path": "checkpoints",
+    "device-budget-bytes": "the residency plane",
+    "residency-enabled": "the residency plane",
+    "lane-watchdog-ms": "the lane watchdog",
+    "lane-quarantine-after": "the lane quarantine",
 }
 
 
@@ -410,7 +447,13 @@ class TpuServer:
         # expiry invalidation: a key the TTL reaper (or a lazy-expiry read)
         # drops must invalidate near caches exactly like a DEL would
         self.engine.store.on_expired = self.tracking.note_expired
+        # the embedding-bank census as one labeled gauge family: the totals
+        # (ftvec_banks, ftvec_device_bytes, ftvec_index_bytes) and the
+        # ftvec_*_bytes_dev<N> rows a position, which exist only while the
+        # position holds bank bytes (FT.DROPINDEX takes a shard's row away)
+        self.metrics.multi_gauge("ftvec", self._ftvec_census)
         self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="rtpu-srv")
+        self._workers = workers
         # reserved interactive dispatch capacity: frames the scheduler
         # classifies interactive run HERE, so a bulk flood holding every
         # shared worker can never queue ahead of them (threads spawn lazily)
@@ -685,6 +728,19 @@ class TpuServer:
             trace.add_span("dispatch", t0, time.monotonic())
             _obs.clear_current()
 
+    def _ftvec_census(self) -> dict:
+        """The embedding banks' census rows from the search service, zeros
+        while it does not exist (a scrape does not create it)."""
+        svc = self.engine._services.get("search")
+        zeros = {"ftvec_banks": 0.0, "ftvec_device_bytes": 0.0,
+                 "ftvec_index_bytes": 0.0}
+        if svc is None:
+            return zeros
+        try:
+            return svc.device_census()
+        except Exception:  # noqa: BLE001 — a broken gauge must not kill the scrape
+            return zeros
+
     # -- per-position lanes (device-sharded serving) ---------------------------
 
     def _lane_for(self, cmds):
@@ -710,12 +766,7 @@ class TpuServer:
         connections bound for different positions overlap, same-position
         ones serialize."""
         lane = self._lane_for(cmds)
-        if lane is None:
-            return None
-        return lane.occupy(
-            _sched.estimate_device_items(cmds), qos_class=qos_class,
-            nbytes=_sched._frame_nbytes(cmds) if qos_class is not None else 0,
-        )
+        return None if lane is None else self._chunk_occupancy(lane, cmds, qos_class)
 
     def _dispatch_laned(self, ctx, cmd, qos_class: Optional[str] = None):
         """_dispatch_one under the command's lane (when it has one)."""
@@ -725,15 +776,54 @@ class TpuServer:
         with gate:
             return self._dispatch_one(ctx, cmd)
 
+    def _subwindow_target(self, qos_class: Optional[str]) -> int:
+        """The bulk sub-window item target of one dispatch: > 0 only with
+        preemption armed, splitting set, and a dispatch that is not
+        interactive (interactive frames dispatch whole)."""
+        if qos_class == "interactive" or not ioplane.preempt_enabled():
+            return 0
+        return ioplane.bulk_subwindow_items()
+
+    @staticmethod
+    def _chunk_occupancy(lane, cmds, qos_class: Optional[str]):
+        """`lane`'s occupancy for dispatching `cmds` (their items and, with
+        the scheduler armed, their class and bytes on its ledger)."""
+        return lane.occupy(
+            _sched.estimate_device_items(cmds), qos_class=qos_class,
+            nbytes=_sched._frame_nbytes(cmds) if qos_class is not None else 0,
+        )
+
+    @staticmethod
+    def _lane_torch_device(lane):
+        return getattr(lane.device, "device", lane.device)
+
     def _dispatch_bloom_run_laned(self, ctx, cmds, qos_class: Optional[str] = None):
         """_dispatch_bloom_run under the run's lane; a run whose filters
         span positions takes no gate (the coalescer refuses such a run and
-        it dispatches command by command)."""
-        gate = self._occupancy_gate(cmds, qos_class)
-        if gate is None:
+        it dispatches command by command).  An oversized bulk run splits
+        into sub-windows (the module docstring): each chunk a complete
+        fused dispatch with its own occupancy, a preemption point between
+        chunks, replies extended in frame order."""
+        lane = self._lane_for(cmds)
+        if lane is None:
             return self._dispatch_bloom_run(ctx, cmds)
-        with gate:
-            return self._dispatch_bloom_run(ctx, cmds)
+        target = self._subwindow_target(qos_class)
+        plan = None
+        if target > 0:
+            plan = plan_subwindows([_sched.estimate_command_items(c) for c in cmds], target)
+        if plan is None or len(plan) < 2:
+            with self._chunk_occupancy(lane, cmds, qos_class):
+                return self._dispatch_bloom_run(ctx, cmds)
+        dev = self._lane_torch_device(lane)
+        out = []
+        for k, (a, b) in enumerate(plan):
+            if k:
+                lane.preempt_point()
+            sub = cmds[a:b]
+            with self._chunk_occupancy(lane, sub, qos_class):
+                out.extend(self._dispatch_bloom_run(ctx, sub))
+                ioplane.wait_device(dev)
+        return out
 
     def _dispatch_device_bucket(self, ctx, dev_index: int, items,
                                 qos_class: Optional[str] = None):
@@ -741,7 +831,8 @@ class TpuServer:
         "sharded" segment), on a worker thread while the other positions'
         buckets run on theirs, under the position's lane.  Same-verb BF blob
         runs inside the bucket still coalesce.  Returns [(frame index,
-        result), ...]."""
+        result), ...].  An oversized bulk bucket splits into sub-windows as a
+        coalesced run does (``_dispatch_bloom_run_laned``)."""
         eng = self.engine
         lane = eng.lanes.lane(eng.placement.devices[dev_index]) if eng.lanes is not None else None
         cmds = [c for _i, c in items]
@@ -750,9 +841,9 @@ class TpuServer:
         )
         out = []
 
-        def dispatch_all():
-            ci = 0
-            while ci < len(cmds):
+        def dispatch_all(lo: int, hi: int):
+            ci = lo
+            while ci < hi:
                 run_end = run_at.get(ci)
                 if run_end is not None:
                     replies = self._dispatch_bloom_run(ctx, cmds[ci:run_end])
@@ -764,13 +855,33 @@ class TpuServer:
                 ci += 1
 
         if lane is None:
-            dispatch_all()
+            dispatch_all(0, len(cmds))
             return out
-        with lane.occupy(
-            _sched.estimate_device_items(cmds), qos_class=qos_class,
-            nbytes=_sched._frame_nbytes(cmds) if qos_class is not None else 0,
-        ):
-            dispatch_all()
+        # sub-windows: segments cut at dispatch-unit boundaries (one
+        # coalesced run or one command), so a fused add run is never split
+        target = self._subwindow_target(qos_class)
+        segs = None
+        if target > 0:
+            units: List[Tuple[int, int]] = []
+            ci = 0
+            while ci < len(cmds):
+                units.append((ci, run_at.get(ci, ci + 1)))
+                ci = units[-1][1]
+            plan = plan_subwindows(
+                [_sched.estimate_device_items(cmds[a:b]) for a, b in units], target)
+            if len(plan) > 1:
+                segs = [(units[lo][0], units[hi - 1][1]) for lo, hi in plan]
+        if segs is None:
+            with self._chunk_occupancy(lane, cmds, qos_class):
+                dispatch_all(0, len(cmds))
+            return out
+        dev = self._lane_torch_device(lane)
+        for k, (a, b) in enumerate(segs):
+            if k:
+                lane.preempt_point()
+            with self._chunk_occupancy(lane, cmds[a:b], qos_class):
+                dispatch_all(a, b)
+                ioplane.wait_device(dev)
         return out
 
     async def _run_frame_sharded(self, ctx, commands, plan, loop, adm=None, trace=None):
@@ -1076,16 +1187,18 @@ class TpuServer:
         return "\r\n".join(lines) + "\r\n"
 
     def config_view(self) -> Dict[str, Any]:
-        """The node's knob table as the reference's CONFIG GET reads it, for
-        the knobs the port has (the CONFIG verb comes with ROADMAP M11)."""
+        """CONFIG GET surface: the node's live knob table (reference
+        ``server/server.py:483-527``).  The knobs of the operations slice's
+        planes read the reference's defaults (``_M11_KNOBS``)."""
         ev = self.engine._eviction
         cfg = self.engine.config
-        return {
+        view = {
             "port": self.port,
             "mode": self.mode,
             "role": self.role,
             "node-id": self.node_id,
             "tls": bool(self.tls_cert_file),
+            # before the eviction scheduler starts, what it WILL use
             "eviction-min-delay": ev.min_delay if ev else cfg.min_cleanup_delay,
             "eviction-max-delay": ev.max_delay if ev else cfg.max_cleanup_delay,
             "tracking-table-max-keys": self.tracking.max_keys,
@@ -1095,7 +1208,114 @@ class TpuServer:
             ),
             "dispatch-ahead": self.readback_ahead,
             "trace-enabled": int(_obs.tracing_enabled()),
+            "trace-ring-capacity": self.tracer.ring_capacity,
+            "slowlog-log-slower-than": self.tracer.slowlog_slower_than_us,
+            "slowlog-max-len": self.tracer.slowlog_max_len,
         }
+        from redisson_tpu_torch.services import vector as _V
+
+        view["ivf-cell-imbalance"] = _V.IVF_CELL_IMBALANCE
+        view["ivf-cell-cap-max"] = _V.IVF_CELL_CAP_MAX
+        view["ftvec-device-budget"] = _V.DEVICE_BYTES_BUDGET
+        view.update(_M11_KNOBS)
+        view.update(self.scheduler.config_view())
+        return view
+
+    def config_set(self, key: str, value: str) -> bool:
+        """CONFIG SET: the runtime-tunable subset (reference
+        ``server/server.py:529-680``).  Structural knobs (port, TLS, mode)
+        are read-only; a knob of the operations slice's planes replies an
+        error naming ROADMAP M11."""
+        if key in _M11_KNOBS:
+            raise RespError(
+                f"ERR CONFIG SET {key} is not served by this port yet "
+                f"(ROADMAP M11: {_M11_KNOBS_PLANE[key]})"
+            )
+        if key == "eviction-min-delay":
+            self.engine.eviction.min_delay = float(value)
+            return True
+        if key == "eviction-max-delay":
+            self.engine.eviction.max_delay = float(value)
+            return True
+        if key == "tracking-table-max-keys":
+            n = int(value)
+            if n <= 0:
+                return False
+            self.tracking.max_keys = n
+            return True
+        if key == "dispatch-ahead":
+            n = int(value)
+            if n <= 0:
+                return False
+            # connections opened from now on size their dispatch-ahead
+            # semaphore with this (see _handle)
+            self.readback_ahead = n
+            return True
+        if key == "trace-enabled":
+            _obs.set_tracing(value.lower() not in ("0", "false", "no", "off"))
+            return True
+        if key == "trace-ring-capacity":
+            n = int(value)
+            if n <= 0:
+                return False
+            self.tracer.set_ring_capacity(n)
+            return True
+        if key == "slowlog-log-slower-than":
+            # microseconds; negative disables the slowlog, 0 logs every frame
+            self.tracer.slowlog_slower_than_us = int(value)
+            return True
+        if key == "slowlog-max-len":
+            n = int(value)
+            if n <= 0:
+                return False
+            self.tracer.set_slowlog_max_len(n)
+            return True
+        if key == "ivf-cell-imbalance":
+            # the cell_cap bound's multiplier, read at the next cell rebuild
+            v = float(value)
+            if v < 1.0:
+                return False
+            from redisson_tpu_torch.services import vector as _V
+
+            _V.set_ivf_cell_imbalance(v)
+            return True
+        if key == "ivf-cell-cap-max":
+            # the gather-width ceiling (0 = unbounded)
+            n = int(value)
+            if n < 0:
+                return False
+            from redisson_tpu_torch.services import vector as _V
+
+            _V.set_ivf_cell_cap_max(n)
+            return True
+        if key == "ftvec-device-budget":
+            # a bank's device-bytes budget (0 = unlimited)
+            n = int(value)
+            if n < 0:
+                return False
+            from redisson_tpu_torch.services import vector as _V
+
+            _V.set_device_bytes_budget(n)
+            return True
+        if key.startswith("qos-"):
+            if key == "qos-bulk-slots" and int(value) <= 0:
+                # 0 re-derives from the workers as at construction: it
+                # never disables the flood protection
+                value = str(max(1, self._workers - 1))
+            ok = self.scheduler.config_set(key, value)
+            if ok and key == "qos-interactive-deadline-ms":
+                # live lane pipelines now, pipelines built later through
+                # the process-global default
+                sec = self.scheduler.interactive_deadline_ms / 1000.0
+                ioplane.set_window_deadline(sec if sec > 0 else None)
+                if self.engine.lanes is not None:
+                    for lane in self.engine.lanes.lanes():
+                        lane.pipeline.deadline_s = sec if sec > 0 else None
+            if ok and key == "qos-bulk-subwindow-items":
+                # the process-global target every lane's dispatch reads
+                ioplane.set_bulk_subwindow_items(self.scheduler.bulk_subwindow_items)
+            return ok
+        return False
 
     # -- asyncio plumbing ----------------------------------------------------
 
@@ -1531,6 +1751,13 @@ def main(argv=None):
              "(RTPU_NO_QOS=1 equivalent)",
     )
     ap.add_argument(
+        "--no-preempt", action="store_true",
+        help="disable the bulk-window preemption plane (core/ioplane): no "
+             "sub-window splitting, no interactive lane stream; every "
+             "dispatch serializes through the one lane gate "
+             "(RTPU_NO_PREEMPT=1 equivalent)",
+    )
+    ap.add_argument(
         "--dispatch-ahead", type=int, default=None,
         help="per-connection dispatch-ahead bound: how many frames may sit "
              "between 'dispatched' and 'replies written' on one connection. "
@@ -1569,6 +1796,8 @@ def main(argv=None):
         ioplane.set_overlap(False)
     if args.no_qos:
         _sched.set_qos(False)
+    if args.no_preempt:
+        ioplane.set_preempt(False)
     srv = TpuServer(
         Engine(device=args.device),
         host=args.host,

@@ -1,30 +1,35 @@
-"""Node info, cluster view and device-placement verbs, and the script and
-function verbs (the RScript and RFunction wire surface).
+"""Node info, CONFIG, cluster view, QoS and device-placement verbs, and the
+script and function verbs (the RScript and RFunction wire surface).
 
-A copy of three parts of ``redisson_tpu/server/verbs/admin.py``:
+A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
 
-  * TIME, INFO and MEMORY (the node-info verbs the nodes group reads).
+  * TIME, INFO and MEMORY (the node-info verbs the nodes group reads), and
+    CONFIG GET/SET over the server's knob table (reference ``:1375-1392``;
+    ``TpuServer.config_view``/``config_set`` say which knobs).
   * CLUSTER SLOTS, MYID, INFO, SETVIEW (with ``TOKEN`` fencing), RESET,
     COUNTKEYSINSLOT and GETKEYSINSLOT, and ASKING, with the reference's
     replies; CLUSTER DEVICES (each position's slot count and label, its
     lane's QOS row and its FAULTS row, which stays 0 until the operations
     slice's fault plane) and DEVMOVE (a fenced slot -> position handoff,
-    STALEEPOCH for a stale coordinator).  The other CLUSTER subcommands
-    reply an error naming the slice that brings them: DEVPROBE and
-    DEVEVACUATE (they need the fault plane and ``server/migration.py``),
-    the migration and residency ones (SETSLOT, WINDOWS, MIGRATESLOT,
-    MIGRATESLOTS, RESIDENCY) ROADMAP M11, as does REPLICAOF; QOS (tenant
-    weights and the fleet's rebalance) ROADMAP M8 part 3.  REPLICAS replies
-    the empty list a master with no replica replies: no replica can attach
-    before M11.
+    STALEEPOCH for a stale coordinator); CLUSTER QOS, the window
+    scheduler's view (its class rows, the lanes' STREAM rows and a TENANT
+    row a tenant, weight last) and ``REBALANCE <tenant> <rate> [<burst>]
+    [WEIGHT <w>]``, the fleet rebalancer's actuator (reference
+    ``:224-300``; ``cluster/qos_control.py``).  The other CLUSTER
+    subcommands reply an error naming the slice that brings them: DEVPROBE
+    and DEVEVACUATE (they need the fault plane and
+    ``server/migration.py``), the migration and residency ones (SETSLOT,
+    WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY) ROADMAP M11, as does
+    REPLICAOF.  REPLICAS replies the empty list a master with no replica
+    replies: no replica can attach before M11.
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
     by function name (FCALL); EVAL, SCRIPT LOAD and FUNCTION LOAD/DUMP
     reply the reference's errors.
 
-The rest of the file (CONFIG, SAVE, the replication verbs, DUMP, RESTORE,
-COPY, WAIT) comes with the operations slice (ROADMAP M11).
+The rest of the file (SAVE, the replication verbs, DUMP, RESTORE, COPY,
+WAIT) comes with the operations slice (ROADMAP M11).
 """
 
 import sys
@@ -32,6 +37,7 @@ import time
 
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import register, _s, _int
+from redisson_tpu_torch.server.verbs.common import _glob_match
 
 # -- admin / node info (redisnode/* surface) ---------------------------------
 
@@ -73,12 +79,30 @@ def cmd_memory(server, ctx, args):
     return "+OK"
 
 
+@register("CONFIG")
+def cmd_config(server, ctx, args):
+    """CONFIG GET pattern | CONFIG SET key value over the server's live
+    knob table."""
+    sub = bytes(args[0]).upper()
+    if sub == b"GET":
+        pattern = _s(args[1]) if len(args) > 1 else "*"
+        out = []
+        for k, v in sorted(server.config_view().items()):
+            if _glob_match(pattern, k):
+                out += [k.encode(), str(v).encode()]
+        return out
+    if sub == b"SET":
+        if not server.config_set(_s(args[1]), _s(args[2])):
+            raise RespError(f"ERR Unknown or read-only CONFIG parameter '{_s(args[1])}'")
+        return "+OK"
+    raise RespError(f"ERR Unknown CONFIG subcommand '{_s(args[0])}'")
+
+
 # -- cluster view (the slot map the topology programs install) ---------------
 
 # CLUSTER subcommands the port does not serve yet -> the slice that brings them
 _CLUSTER_LATER = {
     b"DEVPROBE": "M11: the device fault plane", b"DEVEVACUATE": "M11: the device fault plane",
-    b"QOS": "M8 part 3: the QoS fleet",
     b"SETSLOT": "M11", b"WINDOWS": "M11", b"MIGRATESLOT": "M11",
     b"MIGRATESLOTS": "M11", b"RESIDENCY": "M11",
 }
@@ -104,6 +128,64 @@ def _cluster_devices(server):
                 lane.total_faults, lane.last_fault_kind.encode(),
             ])
         out.append(row)
+    return out
+
+
+def _cluster_qos_rebalance(server, args):
+    """REBALANCE <tenant> <rate> [<burst>] [WEIGHT <w>]: one node's share of
+    a tenant's fleet budget, pushed by the fleet rebalancer
+    (``cluster/qos_control.py``).  The weight is stored on the tenant's
+    state for the rebalancer's split; the rate retarget keeps the bucket's
+    tokens."""
+    if len(args) < 4:
+        raise RespError("ERR CLUSTER QOS REBALANCE <tenant> <rate> [<burst>] [WEIGHT <w>]")
+    rest = list(args[2:])
+    weight = None
+    if len(rest) >= 2 and bytes(rest[-2]).upper() == b"WEIGHT":
+        try:
+            weight = float(rest[-1])
+        except ValueError:
+            raise RespError("ERR value is not a valid float") from None
+        rest = rest[:-2]
+    tenant = _s(rest[0]) if rest else ""
+    try:
+        rate = float(rest[1])
+        burst = float(rest[2]) if len(rest) > 2 else None
+    except (IndexError, ValueError):
+        raise RespError("ERR value is not a valid float") from None
+    if weight is not None:
+        server.scheduler.set_tenant_weight(tenant, weight)
+    server.scheduler.set_tenant_rate(tenant, rate, burst)
+    return b"OK"
+
+
+def _cluster_qos(server):
+    """[armed, shed_ops, shed_frames, [class, in-flight frames, ops,
+    bytes]..., [STREAM, name, in-flight ops, dispatched ops]... (summed over
+    the lanes), [TENANT, name, bucket level, admitted, shed ops, shed
+    frames, weight]...]: the class rows stay where the occupancy balancer
+    reads them, and the tagged rows after them."""
+    sched = server.scheduler
+    led = sched.ledger
+    out = [1 if sched.armed else 0, sched.shed_ops, sched.shed_frames]
+    for cls in ("interactive", "bulk"):
+        out.append([cls.encode(), led.frames[cls], led.ops[cls], led.nbytes[cls]])
+    lanes = server.engine.lanes
+    if lanes is not None:
+        agg = {}
+        for lane in lanes.lanes():
+            for _tag, name, infl, disp in lane.qos.stream_rows():
+                cur = agg.setdefault(name, [0, 0])
+                cur[0] += infl
+                cur[1] += disp
+        for name in (b"interactive", b"bulk"):
+            if name in agg:
+                out.append([b"STREAM", name] + agg[name])
+    for name, level, admitted, shed_ops, shed_frames, weight in sched.tenant_table():
+        out.append([
+            b"TENANT", name.encode(), int(level), admitted,
+            shed_ops, shed_frames, f"{weight:g}".encode(),
+        ])
     return out
 
 
@@ -187,6 +269,10 @@ def cmd_cluster(server, ctx, args):
         return _cluster_devices(server)
     if sub == b"DEVMOVE":
         return _cluster_devmove(server, args)
+    if sub == b"QOS":
+        if len(args) > 1 and bytes(args[1]).upper() == b"REBALANCE":
+            return _cluster_qos_rebalance(server, args)
+        return _cluster_qos(server)
     later = _CLUSTER_LATER.get(sub)
     if later is not None:
         raise RespError(

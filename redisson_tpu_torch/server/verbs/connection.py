@@ -251,7 +251,7 @@ def _client_qos(server, ctx, args):
         tenant = ctx.tenant or "default"
         level = 0.0
         sheds = 0
-        for name, lvl, _adm, shed_ops, _sf in sched.tenant_table():
+        for name, lvl, _adm, shed_ops, _sf, _w in sched.tenant_table():
             if name == tenant:
                 level, sheds = lvl, shed_ops
                 break

@@ -6,8 +6,9 @@ numkeys/syntax validation cannot diverge between families.
 A copy of ``redisson_tpu/server/verbs/modules.py`` for the port's server.
 KNN replies (FT.SEARCH, FT.MSEARCH) are ``LazyReply``s over the vector
 kernels' outputs, read back with the rest of the frame; a kernel that fails
-replies an error, never a slower path.  A VECTOR field with SHARDS n > 1
-replies the error of ``services/vector.VectorPlane``, which names M8 part 3.
+replies an error, never a slower path.  A VECTOR field with SHARDS n > 1 is
+a sharded bank (``services/vector.ShardedEmbeddingBank``): FT.INFO lists
+its shards.
 """
 
 
@@ -333,9 +334,10 @@ def cmd_ft_create(server, ctx, args):
     (the nargs pairs may arrive in any order).  IVF routes queries through
     a trained coarse-centroid bank and scores only the top-NPROBE cells;
     FLOAT16/INT8 compress the bank at upload and dequantize in-kernel;
-    the two axes compose (services/vector.py).  SHARDS s > 1 (a bank split
-    across devices) replies an error until ROADMAP M8 part 3.  Each VECTOR field
-    gets an embedding bank on the engine's device."""
+    SHARDS s > 1 splits the bank row-wise across s mesh positions with an
+    on-device top-k merge; all three axes compose (services/vector.py).
+    Each VECTOR field gets an embedding bank owned by the index's slot
+    position (by each shard's, sharded)."""
     name = _s(args[0])
     prefixes = [""]
     i = 1
@@ -397,8 +399,7 @@ def cmd_ft_create(server, ctx, args):
     try:
         _ft(server).create(name, schema, prefixes, doc_mode="hash",
                            vector=vector)
-    except (ValueError, NotImplementedError) as e:
-        # NotImplementedError: SHARDS n > 1 (sharded banks, ROADMAP M8 part 3)
+    except ValueError as e:
         raise RespError(f"ERR {e}")
     _ft_invalidate(server, ctx, name)
     return "+OK"

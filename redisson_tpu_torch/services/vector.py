@@ -26,15 +26,25 @@ Every reply score comes from ``_pair_score_math`` over the mirror, so the
 scores are the same bits whichever path chose the rows.  The IVF index
 (centroids, assignments, cell lists) is host state that both paths read.
 
+``SHARDS n > 1`` (``ShardedEmbeddingBank``, reference ``:1500-2007``) splits
+a bank row-wise into n EmbeddingBanks under shard-salted record names
+(``pick_shard_record_names``: with placement on, shard i's record is owned
+by the position (owner + i) % positions).  A query runs one leg a live
+shard, concurrently on ``_fanout_pool``, each leg under its own position's
+lane, and the legs' (Q, k_s) tops merge on the card in one K19 call
+(``kernels.knn_sharded_merge``: a concatenation and one ``knn_select``),
+never through the host.  Positions of one card share its stream, so the
+legs' kernels queue in order there; ``knn_select``'s shared per-stream
+state is left reset by every call, so concurrent callers on one stream
+stay sound.  With placement on, every KNN dispatch holds the owning
+position's lane (``_lane_gate``).
+
 ``RTPU_NO_VECTOR=1`` or ``set_vector(False)`` selects the reference's NumPy
 path: a mode the caller chooses, never a fallback that a failure trips.
 
-Not here yet: ``SHARDS n > 1`` (``ShardedEmbeddingBank`` and the sharded
-merge, which come with ROADMAP M8 part 3: such an index raises
-NotImplementedError), residency admission, the chaos fault plane, and the
-serving-lane gate (a no-op without device placement).  A failed bank
-allocation on the card (``torch.cuda.OutOfMemoryError``) raises
-``DeviceOomError``, the reference's ``-OOM`` reply.
+Not here yet: residency admission and the chaos fault plane (ROADMAP M11).
+A failed bank allocation on the card (``torch.cuda.OutOfMemoryError``)
+raises ``DeviceOomError``, the reference's ``-OOM`` reply.
 """
 from __future__ import annotations
 
@@ -145,8 +155,7 @@ class VectorFieldSpec:
     ``train_min`` — row count at which the coarse quantizer first trains;
                  0 resolves to max(4 * nlist, 256).  Below it IVF scores
                  FLAT (exact).
-    ``shards`` — row-parallel shards; only 1 is ported (see the module
-                 docstring)."""
+    ``shards`` — row-parallel shards (``ShardedEmbeddingBank`` past 1)."""
 
     field: str
     dim: int
@@ -221,6 +230,36 @@ def bank_record_name(index: str, field: str) -> str:
     """DeviceStore name of one index-field embedding bank (the ``{index}``
     hashtag maps it to the index's keyspace slot)."""
     return "__ftvec__{%s}:%s" % (index, field)
+
+
+def shard_record_name(index: str, field: str, shard: int, salt: int) -> str:
+    """DeviceStore name of ONE shard of a sharded bank (a stored name, the
+    reference's).  The hashtag embeds the shard id and a salt, so each shard
+    record owns its own slot: placement gives it that slot's position and
+    DEVMOVE moves it like any record."""
+    return "__ftvec__{%s#s%d.%d}:%s" % (index, shard, salt, field)
+
+
+def pick_shard_record_names(engine, index: str, field: str,
+                            n: int) -> List[str]:
+    """Shard record names whose slots land on distinct positions: shard i
+    targets position (owner(base) + i) % positions (``device_span``), and
+    the salt is searched until the name's slot maps there (deterministic
+    given the placement table).  Placement off: salt 0."""
+    p = getattr(engine, "placement", None)
+    if p is None:
+        return [shard_record_name(index, field, i, 0) for i in range(n)]
+    span = p.device_span(p.device_id_for_name(bank_record_name(index, field)), n)
+    names = []
+    for i, want in enumerate(span):
+        for salt in range(512):
+            nm = shard_record_name(index, field, i, salt)
+            if p.device_id_for_name(nm) == want:
+                names.append(nm)
+                break
+        else:  # 512 probes over 16384 slots always hit
+            names.append(shard_record_name(index, field, i, 0))
+    return names
 
 
 def _query_bucket(n: int) -> int:
@@ -426,7 +465,8 @@ class DeviceRowBank:
                 raise VectorBudgetError(
                     f"bank '{getattr(self, 'name', '?')}' would hold "
                     f"{projected} device bytes at capacity {new_cap} — over "
-                    f"the {budget}-byte per-device budget; compress its TYPE"
+                    f"the {budget}-byte per-device budget; shard the index "
+                    f"(SHARDS n) or compress its TYPE"
                 )
         dev = self.device
         try:
@@ -588,8 +628,20 @@ class RecordRowBank(DeviceRowBank):
         rec.meta["rows"] = self.rows
         rec.version += 1
 
+    def _owner_position(self):
+        """The position that owns the bank's record (placement on), else
+        None."""
+        p = self._engine.placement
+        if p is None:
+            return None
+        rec = self._engine.store.get_unguarded(self.name)
+        pos = rec.position if rec is not None else None
+        if pos is None:
+            pos = p.device_id_for_name(self.name)
+        return p.devices[pos]
+
     def _staging_pool(self):
-        return self._engine.staging_pool()
+        return self._engine.staging_pool(self._owner_position())
 
     def _record_guard(self):
         return self._engine.locked(self.name)
@@ -678,14 +730,17 @@ class _IvfPlane:
 
 
 class EmbeddingBank(RecordRowBank):
-    """One index-field embedding bank and its KNN dispatch."""
+    """One index-field embedding bank and its KNN dispatch.  ``record_name``
+    overrides the bank's record name: ``ShardedEmbeddingBank`` makes one
+    EmbeddingBank a shard, under the shard's salted name."""
 
     def __init__(self, engine, index: str, spec: VectorFieldSpec,
-                 block: int = DEFAULT_BLOCK, reset: bool = True):
+                 block: int = DEFAULT_BLOCK, reset: bool = True,
+                 record_name: Optional[str] = None):
         self.spec = spec
         self._ivf = _IvfPlane(spec) if spec.algo == "IVF" else None
         super().__init__(
-            engine, bank_record_name(index, spec.field),
+            engine, record_name or bank_record_name(index, spec.field),
             spec.dim, block=block, dtype=spec.dtype,
             meta=dict(spec.to_meta(), index=index), reset=reset,
         )
@@ -942,8 +997,14 @@ class EmbeddingBank(RecordRowBank):
         return sum(int(arrays[k].nbytes) for k in ("centroids", "cells") if k in arrays)
 
     def owner_device_id(self) -> int:
-        """Device index the bank's planes sit on (0 for the CPU)."""
-        return self.device.index or 0
+        """The owning position (placement on; the label of the per-device
+        census rows), else the index of the device the planes sit on (0
+        for the CPU)."""
+        try:
+            pos = self._owner_position()
+        except KeyError:
+            pos = None
+        return pos.id if pos is not None else (self.device.index or 0)
 
     def device_bytes_by_device(self) -> Dict[int, int]:
         b = self.device_bytes()
@@ -970,6 +1031,16 @@ class EmbeddingBank(RecordRowBank):
                 self._rebuild_cells()
 
     # -- scoring --------------------------------------------------------------
+
+    def _lane_gate(self, n_items: int):
+        """Hold the owning position's serving lane for the dispatch: KNN
+        occupancy is accounted a position as the sketch verbs' is (nothing
+        without placement)."""
+        lanes = self._engine.lanes
+        pos = self._owner_position() if lanes is not None else None
+        if pos is None:
+            return nullcontext()
+        return lanes.lane(pos).occupy(n_items)
 
     def _pad_queries(self, q: np.ndarray, qb: int) -> np.ndarray:
         """Stack to the query bucket and the physical bank width (zero lanes,
@@ -998,7 +1069,9 @@ class EmbeddingBank(RecordRowBank):
             if self._ivf is not None:
                 self._ivf_sync()
             staged = K.stage(self._pad_queries(q, _query_bucket(nq)), self.device)
-            dist, idx, k_eff = self.dispatch((bank, bias, scale, rows), staged, k, nprobe, allowed_rows)
+            cand = self._ivf.cell_cap * self._resolve_nprobe(nprobe) if self.ivf_ready() else rows
+            with self._lane_gate(nq * max(1, min(rows, cand))):
+                dist, idx, k_eff = self.dispatch((bank, bias, scale, rows), staged, k, nprobe, allowed_rows)
         return dist, idx, nq, k_eff
 
     def dispatch(self, planes, staged, k: int, nprobe: Optional[int] = None,
@@ -1137,22 +1210,383 @@ class EmbeddingBank(RecordRowBank):
         return top.astype(np.float32), idx.astype(np.int32), nq, k_eff
 
 
+_FANOUT_POOL = None
+_FANOUT_POOL_LOCK = threading.Lock()
+
+
+def _gmap_decode(g: np.ndarray, local: np.ndarray) -> np.ndarray:
+    """Shard-local rowids -> global rowids through one shard's gmap, entries
+    out of range (IVF padding sentinels, capacity padding) mapped to -1: the
+    one guarded lookup both reply paths share."""
+    local = np.asarray(local)
+    ok = (local >= 0) & (local < g.shape[0])
+    return np.where(ok, g[np.clip(local, 0, max(0, g.shape[0] - 1))], -1)
+
+
+def _fanout_pool():
+    """The worker pool of the sharded banks' legs: each leg stages its
+    queries and holds its own shard's lane, so legs dispatched from several
+    threads overlap on positions that are different cards (and queue in
+    order on one card's stream)."""
+    global _FANOUT_POOL
+    if _FANOUT_POOL is None:
+        with _FANOUT_POOL_LOCK:
+            if _FANOUT_POOL is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                _FANOUT_POOL = ThreadPoolExecutor(
+                    max_workers=16, thread_name_prefix="rtpu-ftvec-shard"
+                )
+    return _FANOUT_POOL
+
+
+class ShardedEmbeddingBank:
+    """One index-field embedding bank split ROW-WISE over mesh positions
+    (``SHARDS n``; reference ``services/vector.py:1530-1920``): n
+    EmbeddingBank shards, each a full bank (its own IVF plane, storage and
+    lane accounting) under a shard-salted record, so every per-record
+    discipline (DEVMOVE, FT.DROPINDEX, the census) applies shard by shard.
+    A manifest record under ``bank_record_name`` lists the shard names.
+
+    Routing: a global rowid goes once to the LEAST-FULL shard (``_route``,
+    ``_local``), and each shard keeps its local -> global map (``_gmap``).
+    A query runs one ``knn_async`` leg a live shard on ``_fanout_pool``
+    (each leg under its position's lane), then merges the legs' (Q, k_s)
+    tops on the card in one K19 call (``MeshManager.knn_merge_kernel``),
+    never through the host (``STATS.host_colocations`` unmoved,
+    ``sharded_knn_merges`` counted).  The NumPy path runs the SAME legs in
+    the same shard order and merges them with a stable argsort, and the
+    reply scores come from ``_pair_score_math`` over the shard mirrors, so
+    both paths give the same replies for every shards x algo x dtype."""
+
+    KIND = "vector_bank_manifest"
+
+    def __init__(self, engine, index: str, spec: VectorFieldSpec,
+                 block: int = DEFAULT_BLOCK, reset: bool = True):
+        self.spec = spec
+        self._engine = engine
+        self.index = index
+        self.block = max(1, int(block))
+        self.name = bank_record_name(index, spec.field)
+        self._lock = threading.RLock()
+        with engine.locked(self.name):
+            old = engine.store.get_unguarded(self.name)
+            if reset and old is not None:
+                # a rebuilt index must not leak its old shard records
+                # (their salted names may differ this time)
+                for nm in old.meta.get("shard_names", ()):
+                    engine.store.delete_unguarded(nm)
+                engine.store.delete_unguarded(self.name)
+                old = None
+            if old is not None and old.meta.get("shard_names"):
+                names = list(old.meta["shard_names"])
+            else:
+                names = pick_shard_record_names(engine, index, spec.field, spec.shards)
+                engine.store.put_unguarded(
+                    self.name,
+                    StateRecord(
+                        kind=self.KIND,
+                        meta=dict(spec.to_meta(), index=index, shard_names=list(names)),
+                        arrays={},
+                    ),
+                )
+        self.shard_names = names
+        self.shards: List[EmbeddingBank] = [
+            EmbeddingBank(engine, index, spec, block=block, reset=reset, record_name=nm)
+            for nm in names
+        ]
+        # global rowid -> (shard, shard-local rowid); -1 = never assigned
+        self._route = np.full(0, -1, np.int32)
+        self._local = np.full(0, -1, np.int32)
+        # a shard's local rowid -> global rowid (append-only: a local slot
+        # never re-routes, so decoding needs no lock ordering)
+        self._gmap: List[np.ndarray] = [np.full(0, -1, np.int32) for _ in names]
+        # local slots assigned a shard, the least-full counter: kept here
+        # because a shard's own set_row runs outside this lock, so its row
+        # count lags the minting
+        self._assigned: List[int] = [0 for _ in names]
+        self._merge_rr = 0  # round-robin cursor of the merge position
+        # staged shard_of_pos operands, keyed by (leg shards, k_s, device)
+        self._sop_cache: Dict[Tuple, Any] = {}
+        self.rows = 0
+
+    # -- routing --------------------------------------------------------------
+
+    def _grow_routing_locked(self, rowid: int) -> None:
+        if rowid < self._route.shape[0]:
+            return
+        cap = max(self.block, 2 * max(1, self._route.shape[0]))
+        while cap <= rowid:
+            cap *= 2
+        for attr in ("_route", "_local"):
+            cur = getattr(self, attr)
+            grown = np.full(cap, -1, np.int32)
+            grown[: cur.shape[0]] = cur
+            setattr(self, attr, grown)
+
+    def _assign_locked(self, rowid: int) -> Tuple[int, int]:
+        """Route a new rowid to the least-full shard (ties to the lower
+        shard) and mint its local slot."""
+        s = int(np.argmin(self._assigned))
+        loc = self._assigned[s]
+        self._assigned[s] = loc + 1
+        self._route[rowid] = s
+        self._local[rowid] = loc
+        g = self._gmap[s]
+        if loc >= g.shape[0]:
+            cap = max(DEFAULT_BLOCK, 2 * max(1, g.shape[0]))
+            while cap <= loc:
+                cap *= 2
+            grown = np.full(cap, -1, np.int32)
+            grown[: g.shape[0]] = g
+            self._gmap[s] = g = grown
+        g[loc] = rowid
+        return s, loc
+
+    def set_row(self, rowid: int, row: Optional[np.ndarray]) -> None:
+        # routing under the facade lock, the shard write outside it: a
+        # shard's block flush must not stall ingest to the other shards
+        with self._lock:
+            self._grow_routing_locked(rowid)
+            s = int(self._route[rowid])
+            if s < 0:
+                s, loc = self._assign_locked(rowid)
+            else:
+                loc = int(self._local[rowid])
+            self.rows = max(self.rows, rowid + 1)
+        self.shards[s].set_row(loc, row)
+
+    # -- the EmbeddingBank surface, summed over the shards --------------------
+
+    @property
+    def h2d_flushes(self) -> int:
+        return sum(sh.h2d_flushes for sh in self.shards)
+
+    @property
+    def grows(self) -> int:
+        return sum(sh.grows for sh in self.shards)
+
+    def device_bytes(self) -> int:
+        return sum(sh.device_bytes() for sh in self.shards)
+
+    def index_device_bytes(self) -> int:
+        return sum(sh.index_device_bytes() for sh in self.shards)
+
+    def logical_f32_bytes(self) -> int:
+        return sum(sh.logical_f32_bytes() for sh in self.shards)
+
+    def pending_count(self) -> int:
+        return sum(sh.pending_count() for sh in self.shards)
+
+    def device_bytes_by_device(self) -> Dict[int, int]:
+        out: Dict[int, int] = {}
+        for sh in self.shards:
+            for d, b in sh.device_bytes_by_device().items():
+                out[d] = out.get(d, 0) + b
+        return out
+
+    def index_bytes_by_device(self) -> Dict[int, int]:
+        out: Dict[int, int] = {}
+        for sh in self.shards:
+            for d, b in sh.index_bytes_by_device().items():
+                out[d] = out.get(d, 0) + b
+        return out
+
+    def ivf_ready(self) -> bool:
+        return any(sh.ivf_ready() for sh in self.shards)
+
+    def retrain(self) -> None:
+        for sh in self.shards:
+            sh.retrain()
+
+    def flush_pending(self) -> int:
+        return sum(sh.flush_pending() for sh in self.shards)
+
+    def drop(self) -> None:
+        for sh in self.shards:
+            sh.drop()
+        with self._engine.locked(self.name):
+            self._engine.store.delete_unguarded(self.name)
+
+    def shard_rows(self) -> List[Dict[str, Any]]:
+        """A row a shard for FT.INFO and the census."""
+        return [
+            {
+                "shard": i, "record": sh.name, "rows": sh.rows,
+                "device": sh.owner_device_id(),
+                "device_bytes": sh.device_bytes(),
+                "index_device_bytes": sh.index_device_bytes(),
+            }
+            for i, sh in enumerate(self.shards)
+        ]
+
+    # -- scoring --------------------------------------------------------------
+
+    def _legs(self, allowed_rows: Optional[np.ndarray]):
+        """[(shard, shard-local allowed rows | None)]: the one leg choice
+        both paths share.  Ascending shard order (the merge's tie order),
+        empty shards skipped, and a shard the prefilter leaves no row of is
+        not dispatched at all."""
+        with self._lock:
+            if allowed_rows is None:
+                return [(s, None) for s in range(len(self.shards)) if self.shards[s].rows > 0]
+            al = np.asarray(allowed_rows, np.int64).reshape(-1)
+            al = al[(al >= 0) & (al < self._route.shape[0])]
+            rs = self._route[al]
+            ls = self._local[al]
+            legs = []
+            for s in range(len(self.shards)):
+                if self.shards[s].rows <= 0:
+                    continue
+                m = rs == s
+                if np.any(m):
+                    legs.append((s, ls[m].astype(np.int64)))
+            return legs
+
+    def _merge_kernel(self, n_legs: int):
+        """K19 through MeshManager's geometry-keyed cache: a 4 -> 8 -> 4
+        reshard lands back on the program object built before."""
+        from redisson_tpu_torch.parallel.manager import MeshManager
+
+        return MeshManager.of(self._engine).knn_merge_kernel(n_legs)
+
+    def _merge_lane_gate(self, position, n_items: int):
+        lanes = self._engine.lanes
+        if lanes is None or position is None:
+            return nullcontext()
+        return lanes.lane(position).occupy(n_items)
+
+    def knn_async(self, queries: np.ndarray, k: int,
+                  allowed_rows: Optional[np.ndarray] = None,
+                  nprobe: Optional[int] = None):
+        """Row-parallel KNN: one ``knn_async`` leg a live shard, at once on
+        the fan-out pool, then the legs' (Q, k_s) tops merged by K19 on the
+        device of the merge leg (the legs rotate as merge legs, each merge
+        under that leg's position's lane).  Returns (dist, shard, local,
+        q_count, k_eff); resolve_hits decodes (shard, local) to global
+        rowids on the host."""
+        q = np.ascontiguousarray(queries, np.float32).reshape(-1, self.spec.dim)
+        nq = q.shape[0]
+        legs = self._legs(allowed_rows)
+        if not legs:
+            return None
+        pool = _fanout_pool()
+        futs = [pool.submit(self.shards[s].knn_async, q, k, al, nprobe) for s, al in legs]
+        outs = []
+        for (s, _al), f in zip(legs, futs):
+            o = f.result()
+            if o is not None:
+                outs.append((s, o))
+        if not outs:
+            return None
+        with self._lock:
+            rr = self._merge_rr
+            self._merge_rr = rr + 1
+        merge_shard, merge_out = outs[rr % len(outs)]
+        dest = merge_out[0].device
+        position = self.shards[merge_shard]._owner_position()
+        dists = [ioplane.colocate(o[0], dest) for _s, o in outs]
+        idxs = [ioplane.colocate(o[1], dest) for _s, o in outs]
+        key = (tuple(s for s, _o in outs), tuple(o[3] for _s, o in outs), str(dest))
+        with self._lock:
+            sop = self._sop_cache.get(key)
+        if sop is None:
+            sop = K.stage(np.concatenate([np.full(o[3], s, np.int32) for s, o in outs]), dest)
+            with self._lock:
+                if len(self._sop_cache) >= 64:
+                    self._sop_cache.clear()
+                self._sop_cache[key] = sop
+        total = sum(o[3] for _s, o in outs)
+        k_out = max(1, min(int(k), total))
+        merge = self._merge_kernel(len(outs))
+        # the merge charges the merge position's lane on top of the legs
+        with self._merge_lane_gate(position, nq * total):
+            dist, sid, lidx = merge(tuple(dists), tuple(idxs), sop, k_out)
+        ioplane.STATS.count_sharded_merge()
+        return dist, sid, lidx, nq, k_out
+
+    def resolve_hits(self, vals) -> Tuple[np.ndarray, np.ndarray]:
+        """(dist, shard, local), device tensors or host arrays -> (dist,
+        GLOBAL rowids) on the host; non-finite or unmapped entries resolve
+        to rowid -1 (callers skip them)."""
+        dist = _host(vals[0])
+        sid = _host(vals[1])
+        lidx = _host(vals[2])
+        with self._lock:
+            gmaps = list(self._gmap)
+        glob = np.full(dist.shape, -1, np.int32)
+        finite = np.isfinite(dist)
+        if np.any(finite):
+            for s in np.unique(sid[finite]):
+                m = finite & (sid == s)
+                glob[m] = _gmap_decode(gmaps[int(s)], lidx[m])
+        return dist, glob
+
+    def knn_host(self, queries: np.ndarray, k: int,
+                 allowed_rows: Optional[np.ndarray] = None,
+                 nprobe: Optional[int] = None):
+        """The NumPy path: the SAME legs (each shard's own ``knn_host``),
+        concatenated in the same shard order and merged by one stable
+        argsort, position for position the device merge."""
+        q = np.ascontiguousarray(queries, np.float32).reshape(-1, self.spec.dim)
+        legs = self._legs(allowed_rows)
+        if not legs:
+            return None
+        outs = []
+        for s, al in legs:
+            o = self.shards[s].knn_host(q, k, allowed_rows=al, nprobe=nprobe)
+            if o is not None:
+                outs.append((s, o))
+        if not outs:
+            return None
+        with self._lock:
+            gmaps = list(self._gmap)
+        dist_cat = np.concatenate([o[0] for _s, o in outs], axis=1)
+        # an IVF leg may carry padding sentinels (probed cells holding fewer
+        # than k live rows): decoded through the same guarded lookup
+        glob_cat = np.concatenate([_gmap_decode(gmaps[s], o[1]) for s, o in outs], axis=1)
+        k_out = max(1, min(int(k), dist_cat.shape[1]))
+        order = np.argsort(dist_cat, axis=1, kind="stable")[:, :k_out]
+        top = np.take_along_axis(dist_cat, order, axis=1)
+        idx = np.take_along_axis(glob_cat, order, axis=1)
+        return top.astype(np.float32), idx.astype(np.int32), q.shape[0], k_out
+
+    def pair_scores(self, q: np.ndarray, qis: np.ndarray,
+                    rowids: np.ndarray) -> np.ndarray:
+        """The reply score routine over the SHARD mirrors: each global
+        rowid's dequantized row, gathered shard by shard, then the one
+        per-pair reduction: the bits a plain bank of the same rows gives."""
+        rid = np.asarray(rowids, np.int64).reshape(-1)
+        with self._lock:
+            rs = self._route[rid]
+            ls = self._local[rid]
+        rows = np.zeros((rid.shape[0], self.spec.dim), np.float32)
+        for s in np.unique(rs):
+            if s < 0:  # winners are always routed
+                continue
+            m = rs == s
+            sh = self.shards[int(s)]
+            with sh._lock:
+                rows[m] = sh._host[ls[m]]
+        qs = np.ascontiguousarray(q, np.float32)[np.asarray(qis, np.int64)]
+        return _pair_score_math(rows, qs, self.spec.metric)
+
+
 class VectorPlane:
-    """Per-index vector fields: field -> EmbeddingBank sharing the index's
-    doc rowid space."""
+    """Per-index vector fields: field -> EmbeddingBank (or, for SHARDS n > 1,
+    ShardedEmbeddingBank) sharing the index's doc rowid space.  SHARDS 1 is
+    the plain bank, so its replies are an unsharded index's."""
 
     def __init__(self, engine, index: str,
                  specs: Dict[str, VectorFieldSpec],
                  block: int = DEFAULT_BLOCK, reset: bool = True):
         self.index = index
-        for f, spec in specs.items():
-            if spec.shards > 1:
-                raise NotImplementedError(
-                    f"SHARDS {spec.shards} on field '{f}': sharded vector banks "
-                    "are not ported yet (SHARDS 1 only; ROADMAP M8 part 3)"
-                )
-        self.banks: Dict[str, EmbeddingBank] = {
-            f: EmbeddingBank(engine, index, spec, block=block, reset=reset)
+        self.banks: Dict[str, Any] = {
+            f: (
+                ShardedEmbeddingBank(engine, index, spec, block=block, reset=reset)
+                if spec.shards > 1
+                else EmbeddingBank(engine, index, spec, block=block, reset=reset)
+            )
             for f, spec in specs.items()
         }
 
@@ -1214,5 +1648,8 @@ class VectorPlane:
                     "trained": b.ivf_ready(),
                     "index_device_bytes": b.index_device_bytes(),
                 })
+            if isinstance(b, ShardedEmbeddingBank):
+                row["shards"] = b.spec.shards
+                row["shard_rows"] = b.shard_rows()
             out.append(row)
         return out

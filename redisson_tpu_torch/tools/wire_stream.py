@@ -497,18 +497,21 @@ def load_scripts(client) -> List[str]:
 
 def train_ivf(src, dst, index: str) -> None:
     """Sync `index` on two servers' search services, train its IVF banks
-    on `src` and install the centroids and assignments in `dst`."""
+    on `src` and install the centroids and assignments in `dst` (a sharded
+    bank's shard by shard)."""
     src.sync(index)
     dst.sync(index)
     for field, bank in src._idx(index).vectors.banks.items():
-        if bank._ivf is None:
-            continue
-        bank.retrain()
-        ivf, out = bank._ivf, dst._idx(index).vectors.banks[field]._ivf
-        out.centroids, out.assign = ivf.centroids.copy(), ivf.assign.copy()
-        out.trained_rows, out.trains = ivf.trained_rows, ivf.trains
-        out.dirty_rows.clear()
-        out.cells, out.cells_stale = None, True
+        other = dst._idx(index).vectors.banks[field]
+        for sb, db in zip(getattr(bank, "shards", [bank]), getattr(other, "shards", [other])):
+            if sb._ivf is None or not sb.rows:
+                continue
+            sb.retrain()
+            ivf, out = sb._ivf, db._ivf
+            out.centroids, out.assign = ivf.centroids.copy(), ivf.assign.copy()
+            out.trained_rows, out.trains = ivf.trained_rows, ivf.trains
+            out.dirty_rows.clear()
+            out.cells, out.cells_stale = None, True
 
 
 def f32_blob(v) -> bytes:

@@ -26,6 +26,8 @@ import types
 from contextlib import contextmanager
 from pathlib import Path
 
+import pytest
+
 import redisson_tpu_torch
 from redisson_tpu_torch import harness as _port_harness
 from redisson_tpu_torch.client import redisson as _port_redisson
@@ -137,6 +139,10 @@ def _port_module(name: str):
 def _import(name, globals=None, locals=None, fromlist=(), level=0):
     if level == 0 and (name == REF or name.startswith(REF + ".")):
         mod = _port_module(name)
+        for item in fromlist or ():
+            # `from pkg import submodule`: a port submodule not imported yet
+            if item != "*" and not isinstance(mod, _Missing) and not hasattr(mod, item):
+                _port_module(f"{name}.{item}")
         return mod if fromlist else _port_module(REF)
     return builtins.__import__(name, globals, locals, fromlist, level)
 
@@ -189,3 +195,11 @@ def time_limit(seconds: float):
     finally:
         signal.setitimer(signal.ITIMER_REAL, 0)
         signal.signal(signal.SIGALRM, old)
+
+
+@pytest.fixture()
+def devices():
+    """The port's stand-in for tests/conftest.py's ``devices`` (JAX's 8 host
+    devices): the CPU's 8 mesh positions.  A suite file that runs tests
+    taking ``devices`` imports it into its globals."""
+    return _port_mesh.local_devices("cpu", 8)

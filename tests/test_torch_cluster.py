@@ -338,8 +338,11 @@ def test_replicas_and_replicated_clients_wait_for_m11():
     for call in (lambda: sup.promote_replica(None), lambda: sup.rolling_restart(), sup.scrape):
         with pytest.raises(NotImplementedError, match="M11"):
             call()
-    with pytest.raises(NotImplementedError, match="M8 part 3"):
-        sup.start_qos_rebalance(1000.0)
+    # the fleet QoS loop is served: idempotent, stopped by shutdown
+    rb = sup.start_qos_rebalance(1000.0, interval=3600.0)
+    assert sup.start_qos_rebalance(1000.0) is rb and rb._thread is not None
+    sup.shutdown()
+    assert sup._qos_rebalancer is None and rb._thread is None
 
 
 def test_config_loads_cluster_sections_from_files(tmp_path):

@@ -1293,6 +1293,38 @@ def test_knn_select_past_65535_rows(dev):
     _select_equal(d, 3)
 
 
+@pytest.mark.parametrize("case", ["random", "ties", "inf", "zeros"])
+@pytest.mark.parametrize("n_legs", [1, 8])
+def test_knn_sharded_merge_matches_plain(dev, n_legs, case):
+    """K19 at its main-path shapes, (64, 10) and (64, 80): the legs' sorted
+    top-ks concatenated and merged by one knn_select launch, equal to the
+    plain version bit for bit, with ties across legs, +inf dead rows and
+    -0.0 against +0.0."""
+    rng = np.random.default_rng(n_legs * 7 + len(case))
+    dists = []
+    for _ in range(n_legs):
+        d = rng.standard_normal((64, 10)).astype(np.float32)
+        if case == "ties":
+            d = (np.round(d * 2) / 2).astype(np.float32)
+        elif case == "inf":
+            d[rng.random(d.shape) < 0.4] = np.inf
+        elif case == "zeros":
+            m = rng.random(d.shape)
+            d[m < 0.3] = 0.0
+            d[(m >= 0.3) & (m < 0.6)] = -0.0
+        dists.append(torch.from_numpy(np.sort(d, axis=1, kind="stable")).to(dev))
+    idxs = [torch.from_numpy(rng.integers(0, 5000, (64, 10)).astype(np.int32)).to(dev)
+            for _ in range(n_legs)]
+    sop = torch.arange(n_legs, dtype=torch.int32, device=dev).repeat_interleave(10)
+    for k in (1, 10, 10 * n_legs):
+        K.reset_launches()
+        got = K.knn_sharded_merge(dists, idxs, sop, k)
+        assert K.launches["knn_select"] == 1
+        want = K.knn_sharded_merge_plain(dists, idxs, sop, k)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
 def _ivf_cells(rng, nlist, ccap, n_rows):
     """Cells of row ids with the sentinel, negative ids and ids past n_rows
     anywhere in a cell, not only at its end."""

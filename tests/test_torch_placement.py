@@ -137,7 +137,8 @@ def test_cluster_devices_and_devmove_over_the_wire_equal_the_reference():
         assert c.execute("CLUSTER", "DEVICES") == [0]
         assert "placement is not enabled" in str(c.execute("CLUSTER", "DEVMOVE", 1, 5))
         assert "M11" in str(c.execute("CLUSTER", "DEVPROBE", 1))
-        assert "M8 part 3" in str(c.execute("CLUSTER", "QOS"))
+        q = c.execute("CLUSTER", "QOS")
+        assert q[0] == 1 and [bytes(r[0]) for r in q[3:5]] == [b"interactive", b"bulk"]
 
 
 @pytest.fixture()
@@ -171,7 +172,7 @@ def test_records_are_owned_by_their_slots_position(engine):
     with pytest.raises(PlacementStaleEpoch, match="STALEEPOCH"):
         engine.move_slot_records(slot, src, epoch=9)
     assert engine.store.get(name).position == dst
-    with pytest.raises(NotImplementedError, match="M8 part 3"):
+    with pytest.raises(NotImplementedError, match="more than one device"):
         Engine(device="cpu").enable_placement(devices=[TM.Position(0, __import__("torch").device("meta"))])
 
 

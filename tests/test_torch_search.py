@@ -271,12 +271,18 @@ def test_bank_record_and_census():
 
 
 def test_shards_raise_not_implemented():
+    """SHARDS n > 1 builds the sharded bank (it raised NotImplementedError
+    before the sharded banks were ported); SHARDS 1 the plain one, SHARDS 0
+    a ValueError (tests/test_torch_vector_sharded.py holds their replies)."""
     svc = S.SearchService(Engine(device="cpu"))
-    with pytest.raises(NotImplementedError, match="SHARDS"):
-        svc.create_index("sh", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "shards": 2}})
-    assert svc.index_names() == []
-    svc.create_index("sh", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "shards": 1}})
-    assert svc.index_names() == ["sh"]
+    svc.create_index("sh", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "shards": 2}})
+    bank = svc._idx("sh").vectors.banks["emb"]
+    assert isinstance(bank, V.ShardedEmbeddingBank) and len(bank.shards) == 2
+    svc.create_index("s1", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "shards": 1}})
+    assert not isinstance(svc._idx("s1").vectors.banks["emb"], V.ShardedEmbeddingBank)
+    with pytest.raises(ValueError, match="SHARDS"):
+        svc.create_index("s0", {"emb": "VECTOR"}, vector={"emb": {"dim": 4, "shards": 0}})
+    assert svc.index_names() == ["s1", "sh"]
 
 
 # -- IVF and compressed banks (tests/test_vector_search.py:660-877) ----------

@@ -123,12 +123,20 @@ def test_clock_contract_holds_ids_and_pending_rows():
 
 
 def test_ft_create_with_shards_replies_the_error_naming_m8():
-    with ServerThread(port=0, device="cpu") as st, st.client() as c:
-        got = c.execute("FT.CREATE", "sh", "SCHEMA", "v", "VECTOR", "FLAT", "8", "TYPE", "FLOAT32",
-                        "DIM", "4", "DISTANCE_METRIC", "L2", "SHARDS", "2")
-        assert isinstance(got, resp.RespError)
-        assert "SHARDS 2" in str(got) and "not ported" in str(got) and not str(got).startswith("ERR internal")
-        assert c.execute("FT._LIST") == []
+    """SHARDS n > 1 is served since the sharded banks came (it replied an
+    error naming the slice before): FT.CREATE replies as the reference's
+    server does, SHARDS 2 OK, SHARDS 0 and -2 the reference's errors
+    (tests/test_torch_vector_sharded.py holds the queries)."""
+    stream = [("FT.CREATE", f"sh{n}", "SCHEMA", "v", "VECTOR", "FLAT", "8", "TYPE", "FLOAT32",
+               "DIM", "4", "DISTANCE_METRIC", "L2", "SHARDS", n) for n in ("2", "0", "-2")]
+    stream.append(("FT._LIST",))
+    rs, ps = _servers()
+    with rs, ps:
+        want = W.replies("127.0.0.1", rs.port, [stream])
+        got = W.replies("127.0.0.1", ps.port, [stream])
+    assert got[0][0] == want[0][0]
+    assert got[0][1][0] == b"OK" and got[0][1][-1] == [b"sh2"]
+    assert all(isinstance(r, resp.RespError) for r in got[0][1][1:3])
 
 
 @pytest.mark.parametrize("wrapper", ["knn_score", "knn_select"])

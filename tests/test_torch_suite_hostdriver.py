@@ -7,7 +7,7 @@ from tests import _torch_port_suite
 
 WAITING = {
     "test_ssh_fleet_boots_tls_armed_and_anti_affine": "M11 (replicas, on the ssh fleet)",
-    "test_ssh_fleet_weighted_qos_rebalance": "M8 part 3 (the QoS rebalancer) and M11 (replicas)",
+    "test_ssh_fleet_weighted_qos_rebalance": "M11 (replicas, on the ssh fleet)",
     "test_ssh_fleet_refuses_plaintext": "M11 (replicas, on the ssh fleet)",
     "test_ssh_fleet_host_kill_promote_and_recover": "M11 (replicas, promote_replica)",
     "test_local_fleet_stays_plaintext": "M11 (checkpoints: the CLI's restore=)",

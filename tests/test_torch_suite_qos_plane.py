@@ -1,0 +1,13 @@
+"""The reference's tests/test_qos_plane.py, unedited, on the port
+(tests/_torch_port_suite.py), with the CPU's 8 mesh positions standing in
+for the ``devices`` fixture.  ``WAITING`` names each test left out and the
+slice it waits for."""
+from tests import _torch_port_suite
+from tests._torch_port_suite import devices  # noqa: F401  (the fixture)
+
+WAITING = {
+    "test_scheduler_census_tracked_and_drains": "M11 (the chaos census, chaos/census.py)",
+    "test_qos_soak_profile": "M11 (the chaos soak, chaos/soak.py)",
+}
+
+globals().update(_torch_port_suite.load("test_qos_plane", WAITING, __name__))

@@ -3,8 +3,6 @@
 slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "TestMapFamily::test_config_get_is_map_shaped": "M11 (CONFIG, server/verbs/admin.py)",
-}
+WAITING = {}
 
 globals().update(_torch_port_suite.load("test_resp3_verb_families", WAITING, __name__))

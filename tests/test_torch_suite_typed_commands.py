@@ -7,7 +7,7 @@ WAITING = {
     "test_round3_verbs_route_on_cluster": "M11 (COPY)",
     "test_copy_and_renamenx": "M11 (COPY)",
     "test_copy_device_backed_object_no_alias": "M11 (COPY)",
-    "test_config_and_wait": "M11 (CONFIG and WAIT, server/verbs/admin.py)",
+    "test_config_and_wait": "M11 (WAIT, server/verbs/admin.py)",
 }
 
 globals().update(_torch_port_suite.load("test_typed_commands", WAITING, __name__))

@@ -364,7 +364,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "services": VECTOR_KERNELS, "graft": ("bloom_probe", "hll_add"),
                 "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set"),
                 "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select")}
+                "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select"),
+                "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",)}
 FPP = 0.01
 
 
@@ -5993,6 +5994,348 @@ def run_sharded_vector(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the durability path: checkpoints, DUMP/RESTORE/COPY, SAVE and --restore
+# --------------------------------------------------------------------------
+
+# config 2's bank (C2_*) and config 3's counters (C3_*) saved and loaded;
+# over the wire one filter of DU_WIRE_KEYS keys and one HLL of as many
+DU_WIRE_KEYS = 100_000
+
+
+def _same_tensor(label: str, got, want) -> None:
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want.to(got.device)):
+        raise AssertionError(f"{label}: not equal bit for bit")
+
+
+def durability_wire(dev, wdir: str, card: str) -> dict:
+    """DUMP, RESTORE and COPY of one bloom filter and one HLL on a one-master
+    ClusterSupervisor whose node serves devices=1 on the card with its
+    checkpoint path, then SAVE, one more write, SHUTDOWN SAVE and the
+    supervisor's restart with --restore: the same replies come back, and
+    the write made after SAVE proves the SHUTDOWN SAVE generation loaded."""
+    from redisson_tpu_torch.cluster.supervisor import ClusterSupervisor
+
+    # one hash tag: COPY's two keys share a slot on a cluster node
+    keys = (np.arange(DU_WIRE_KEYS, dtype=np.int64) * 2654435761) ^ 0x5DEECE66D
+    probe = np.concatenate([keys[::2], keys[::2] + 1])
+    reads = [("BF.MEXISTS64", "{du}:bf", _i8(probe)), ("PFCOUNT", "{du}:hll"),
+             ("BF.MEXISTS64", "{du}:bf:r", _i8(probe)), ("PFCOUNT", "{du}:hll:r"),
+             ("BF.MEXISTS64", "{du}:bf:c", _i8(probe)), ("PFCOUNT", "{du}:hll:c")]
+    sup = ClusterSupervisor(masters=1, base_dir=os.path.join(wdir, "fleet"), server_args=["--devices", "1"],
+                            platform="cpu" if dev == "cpu" else None, ready_timeout=300.0).start()
+    try:
+        node = sup.masters[0]
+        path = node.checkpoint_path
+        with sup.conn(node, timeout=600.0) as conn:
+            setup = conn.execute_many([("BF.RESERVE", "{du}:bf", "0.01", str(4 * DU_WIRE_KEYS)),
+                                       ("BF.MADD64", "{du}:bf", _i8(keys)), ("PFADD64", "{du}:hll", _i8(keys))])
+            if setup[0] != b"OK":
+                raise AssertionError(f"durability wire: setup {setup[0]!r}")
+            s = time.perf_counter()
+            blobs = conn.execute_many([("DUMP", "{du}:bf"), ("DUMP", "{du}:hll")])
+            dump_ms = (time.perf_counter() - s) * 1e3
+            s = time.perf_counter()
+            restored = conn.execute_many([("RESTORE", "{du}:bf:r", "0", blobs[0]),
+                                          ("RESTORE", "{du}:hll:r", "0", blobs[1]),
+                                          ("COPY", "{du}:bf", "{du}:bf:c"), ("COPY", "{du}:hll", "{du}:hll:c")])
+            restore_copy_ms = (time.perf_counter() - s) * 1e3
+            if restored != [b"OK", b"OK", 1, 1]:
+                raise AssertionError(f"durability wire: RESTORE/COPY replied {restored}")
+            got = conn.execute_many(reads)
+            if not (got[0] == got[2] == got[4] and got[1] == got[3] == got[5]):
+                raise AssertionError("durability wire: a restored or copied object answers otherwise")
+            if not np.frombuffer(got[0], np.uint8)[: len(keys) // 2].all():
+                raise AssertionError("durability wire: a present key was not found")
+            if conn.execute("SAVE") != b"OK":
+                raise AssertionError("durability wire: SAVE")
+            # only SHUTDOWN SAVE's generation holds this key
+            if conn.execute("SET", "{du}:late", "after-save") != b"OK":
+                raise AssertionError("durability wire: SET after SAVE")
+            try:
+                reply = conn.execute("SHUTDOWN", "SAVE")
+            except (ConnectionError, EOFError):
+                reply = b"OK"  # the server closed the connection as it stopped
+            if reply != b"OK":
+                raise AssertionError(f"durability wire: SHUTDOWN SAVE replied {reply!r}")
+        rc = sup.wait_exit(node, 60.0)
+        if rc != 0:
+            raise AssertionError(f"durability wire: SHUTDOWN SAVE exit {rc}: {sup.log_tail(node)!r}")
+        if not os.path.exists(path) or not os.path.exists(path + ".1"):
+            raise AssertionError("durability wire: SAVE and SHUTDOWN SAVE left no two generations")
+        s = time.perf_counter()
+        sup.restart(node)
+        boot_s = time.perf_counter() - s
+        with sup.conn(node, timeout=600.0) as conn:
+            again = conn.execute_many(reads + [("GET", "{du}:late")])
+        text = sup.log_tail(node, 1 << 16)
+    finally:
+        sup.shutdown()
+    if again[:-1] != got:
+        raise AssertionError("durability wire: the restarted server answers otherwise")
+    if again[-1] != b"after-save":
+        raise AssertionError(f"durability wire: the restart did not load SHUTDOWN SAVE's generation: {again[-1]!r}")
+    if f"serving on {dev}" not in text or "restored 7 records" not in text:
+        raise AssertionError(f"durability wire: restart log {text[-1000:]!r}")
+    out = {"dump_ms": dump_ms, "restore_copy_ms": restore_copy_ms, "blob_bytes": [len(b) for b in blobs],
+           "restart_with_restore_s": boot_s, "shutdown_exit": rc}
+    log(f"durability wire [{card}]: DUMP of a {DU_WIRE_KEYS}-key filter and an HLL {dump_ms:.1f} ms "
+        f"({out['blob_bytes'][0]} and {out['blob_bytes'][1]} bytes), RESTORE and COPY of both "
+        f"{restore_copy_ms:.1f} ms; SAVE, a write, SHUTDOWN SAVE (exit {rc}), and the supervisor's restart "
+        f"with --restore in {boot_s:.1f} s answering the same and the write")
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_durability(device="cuda") -> dict:
+    """The durability path, on its own create() client on the card: config
+    2's bank filled to its 10M keys and config 3's 10,000 counters, a
+    contains flush and estimate_all, checkpoint.save and checkpoint.load
+    into a fresh engine on the card (its plane, registers, found flags and
+    estimates equal the saved ones bit for bit; bloom_probe and hll_rows run
+    on restored state) and into a port engine on the CPU (equal planes);
+    then DUMP/RESTORE/COPY, SAVE and a --restore restart over the wire."""
+    import shutil
+    import tempfile
+
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import checkpoint
+    from redisson_tpu_torch.core import kernels as K
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    dev = torch.device(device)
+    rng = np.random.default_rng(91)
+    wdir = tempfile.mkdtemp(prefix="rtpu-durability-")
+    client = redisson_tpu_torch.create(device=device)
+    out = {}
+    try:
+        arr = client.get_bloom_filter_array("du:c2")
+        if not arr.try_init(C2_TENANTS, C2_PER_TENANT, FPP):
+            raise AssertionError("durability: bank exists")
+        arr.add_flushes_async(config2_ingest())
+        bank = client.get_hyper_log_log_array("du:c3")
+        bank.try_init(C3_TENANTS)
+        for _ in range(C3_BATCHES):
+            bank.add(rng.integers(0, C3_TENANTS, C3_BATCH).astype(np.int32),
+                     rng.integers(0, 1 << 60, C3_BATCH).astype(np.int64))
+        t, ks = config2_flush(rng)
+        found = arr.contains(t, ks)
+        ests = bank.estimate_all()
+        if not found[0::2].all():
+            raise AssertionError("durability: false negatives before the save")
+        path = os.path.join(wdir, "engine.ckpt")
+        _sync(dev)
+        s = time.perf_counter()
+        n = checkpoint.save(client.engine, path)
+        save_s = time.perf_counter() - s
+        nbytes = os.path.getsize(path)
+        fresh = redisson_tpu_torch.create(device=device)
+        try:
+            s = time.perf_counter()
+            if checkpoint.load(fresh.engine, path) != n:
+                raise AssertionError("durability: load count differs from save count")
+            _sync(dev)
+            load_s = time.perf_counter() - s
+            for name, key in (("du:c2", "bits"), ("du:c3", "regs")):
+                _same_tensor(f"durability {name}", fresh.engine.store.get(name).arrays[key],
+                             client.engine.store.get(name).arrays[key])
+            found2 = fresh.get_bloom_filter_array("du:c2").contains(t, ks)
+            ests2 = fresh.get_hyper_log_log_array("du:c3").estimate_all()
+            if not np.array_equal(found, found2) or not np.array_equal(ests, ests2):
+                raise AssertionError("durability: the restored state answers otherwise")
+        finally:
+            fresh.shutdown()
+        cpu = redisson_tpu_torch.create(device="cpu")
+        try:
+            s = time.perf_counter()
+            checkpoint.load(cpu.engine, path)
+            cpu_load_s = time.perf_counter() - s
+            for name, key in (("du:c2", "bits"), ("du:c3", "regs")):
+                _same_tensor(f"durability {name} on the CPU", cpu.engine.store.get(name).arrays[key],
+                             client.engine.store.get(name).arrays[key])
+        finally:
+            cpu.shutdown()
+        launches = dict(K.launches)
+        out.update({"records": n, "file_bytes": nbytes, "save_s": save_s, "save_mb_per_s": nbytes / save_s / 1e6,
+                    "load_s": load_s, "load_mb_per_s": nbytes / load_s / 1e6, "cpu_load_s": cpu_load_s})
+        log(f"durability [{card}]: checkpoint of config 2's bank ({C2_TENANTS * C2_PER_TENANT} keys) and config "
+            f"3's {C3_TENANTS} counters, {nbytes} bytes: save {save_s:.3f} s ({out['save_mb_per_s']:.1f} MB/s), "
+            f"load onto the card {load_s:.3f} s ({out['load_mb_per_s']:.1f} MB/s), onto the CPU {cpu_load_s:.3f} s; "
+            f"plane, registers, {len(found)} found flags and {len(ests)} estimates equal bit for bit")
+        out["wire"] = durability_wire(device, wdir, card)
+    finally:
+        client.shutdown()
+        shutil.rmtree(wdir, ignore_errors=True)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    log(f"durability path [{card}]: {out['seconds']:.1f}s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the observe path: TRACE, SLOWLOG, LATENCY, METRICS on the card
+# --------------------------------------------------------------------------
+
+OB_FRAMES, OB_SPANS = 20, ("parse", "stage", "dispatch", "readback", "reply")
+
+
+def _span_pctls(traces, names) -> dict:
+    """p50 and p99 ms of each named span over `traces` (wire entries)."""
+    by = {n: [] for n in names}
+    for t in traces:
+        tot = {}
+        for sp in t[7]:
+            nm = bytes(sp[0]).decode()
+            if nm in by:
+                tot[nm] = tot.get(nm, 0) + int(sp[2])
+        for nm, us in tot.items():
+            by[nm].append(us / 1e3)
+    return {n: {"p50_ms": pctl(v, 50), "p99_ms": pctl(v, 99), "frames": len(v)} for n, v in by.items() if v}
+
+
+def observe_qos_spans(device, card: str) -> dict:
+    """Config 2q's preempt leg, armed and disarmed, with the tracer armed:
+    the interactive probe's stage (the lane-gate wait) and dispatch spans."""
+    from redisson_tpu_torch.observe import trace as obs
+
+    out = {}
+    for armed in (True, False):
+        obs.TRACER.reset()
+        obs.TRACER.set_ring_capacity(1 << 16)
+        prev = obs.set_tracing(True)
+        try:
+            leg = qos_leg(device, armed)
+        finally:
+            obs.set_tracing(prev)
+        probes = [tr for tr in obs.TRACER.entries() if tr.qos_class == "interactive" and tr.verbs == "BF.MEXISTS64"]
+        stats = {}
+        for stage in ("stage", "dispatch", "readback"):
+            vals = [tr.stage_us(stage) / 1e3 for tr in probes]
+            stats[stage] = {"p50_ms": pctl(vals, 50), "p99_ms": pctl(vals, 99)}
+        total = [tr.total_us / 1e3 for tr in probes]
+        name = "armed" if armed else "disarmed"
+        out[name] = {"probes": len(probes), "total_p50_ms": pctl(total, 50), "total_p99_ms": pctl(total, 99),
+                     "client_p50_ms": leg["interactive_p50_ms"], "client_p99_ms": leg["interactive_p99_ms"],
+                     "preemptions": leg["preemptions"], **stats}
+        log(f"observe qos {name} [{card}]: {len(probes)} traced interactive probes, in the server total p50 "
+            f"{out[name]['total_p50_ms']:.3f} ms p99 {out[name]['total_p99_ms']:.3f} ms; stage (lane-gate wait) "
+            f"p50 {stats['stage']['p50_ms']:.3f} ms p99 {stats['stage']['p99_ms']:.3f} ms, dispatch p50 "
+            f"{stats['dispatch']['p50_ms']:.3f} ms p99 {stats['dispatch']['p99_ms']:.3f} ms, readback p50 "
+            f"{stats['readback']['p50_ms']:.3f} ms p99 {stats['readback']['p99_ms']:.3f} ms; at the client p50 "
+            f"{leg['interactive_p50_ms']:.3f} ms p99 {leg['interactive_p99_ms']:.3f} ms")
+    obs.TRACER.set_ring_capacity(512)
+    return out
+
+
+def observe_cluster_metrics(device, card: str) -> dict:
+    """METRICS CLUSTER on a ClusterRunner of 3 masters on the card: one
+    exposition with every node's rows under its node= label."""
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.net.client import Connection
+
+    runner = ClusterRunner(masters=3, workers=4, device=device).run()
+    try:
+        m0 = runner.masters[0].server.server
+        conn = Connection(m0.host, m0.port, timeout=600.0)
+        try:
+            text = bytes(conn.execute("METRICS", "CLUSTER")).decode()
+        finally:
+            conn.close()
+        labels = {f'node="{m.address.split("://")[-1]}"' for m in runner.masters}
+        seen = {lab for lab in labels if lab in text}
+        if seen != labels:
+            raise AssertionError(f"observe: METRICS CLUSTER merged {sorted(seen)} of {sorted(labels)}")
+        rows = len(text.splitlines())
+    finally:
+        runner.shutdown()
+    log(f"observe METRICS CLUSTER [{card}]: {rows} rows from 3 masters, each under its node= label")
+    return {"rows": rows, "nodes": len(seen)}
+
+
+def run_observe(device="cuda") -> dict:
+    """The observe path, on a devices=1 server on the card: OB_FRAMES traced
+    100k-key BFA.MEXISTS64 frames at config 2's shape, each carrying parse,
+    stage, dispatch, readback and reply spans (their p50/p99 printed); the
+    config-2q probes' stage and dispatch spans armed and disarmed; SLOWLOG
+    GET, LATENCY LATEST and METRICS's stage timers; METRICS CLUSTER over 3
+    masters."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.observe import trace as obs
+    from redisson_tpu_torch.server.server import ServerThread
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    rng = np.random.default_rng(97)
+    prev = obs.tracing_enabled()
+    st = ServerThread(port=0, devices=1, device=device).start()
+    out = {}
+    try:
+        conn = Connection(st.server.host, st.server.port, timeout=600.0)
+        try:
+            setup = [("CONFIG", "SET", "trace-enabled", "yes"), ("CONFIG", "SET", "slowlog-log-slower-than", "0"),
+                     ("CONFIG", "SET", "slowlog-max-len", "1024"), ("CONFIG", "SET", "trace-ring-capacity", "1024"),
+                     ("TRACE", "RESET"), ("SLOWLOG", "RESET"), ("LATENCY", "RESET"),
+                     ("BFA.RESERVE", "ob:c2", C2_TENANTS, C2_PER_TENANT, FPP)]
+            conn.execute_many(setup)
+            for t, ks in config2_ingest()[:2]:
+                conn.execute("BFA.MADD64", "ob:c2", _i4(t), _i8(ks))
+            flushes = [config2_flush(rng) for _ in range(OB_FRAMES)]
+            conn.execute("TRACE", "RESET")
+            lat = []
+            for t, ks in flushes:
+                s = time.perf_counter()
+                conn.execute("BFA.MEXISTS64", "ob:c2", _i4(t), _i8(ks))
+                lat.append(time.perf_counter() - s)
+            time.sleep(0.2)  # a trace ends after its reply's write
+            traces = [tr for tr in conn.execute("TRACE", "GET", "1024") if bytes(tr[3]) == b"BFA.MEXISTS64"]
+            if len(traces) != OB_FRAMES:
+                raise AssertionError(f"observe: {len(traces)} traced frames of {OB_FRAMES}")
+            for tr in traces:
+                names = {bytes(sp[0]).decode() for sp in tr[7]}
+                if not set(OB_SPANS) <= names:
+                    raise AssertionError(f"observe: a frame's spans {sorted(names)} lack {set(OB_SPANS) - names}")
+            spans = _span_pctls(traces, OB_SPANS + ("qos", "launch", "encode"))
+            out["frame_spans"] = spans
+            out["frame_client_p50_ms"], out["frame_client_p99_ms"] = pctl(lat, 50) * 1e3, pctl(lat, 99) * 1e3
+            log(f"observe frames [{card}]: {OB_FRAMES} traced BFA.MEXISTS64 frames of {C2_FLUSH} keys, at the "
+                f"client p50 {out['frame_client_p50_ms']:.3f} ms p99 {out['frame_client_p99_ms']:.3f} ms; spans "
+                + ", ".join(f"{n} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f} ms" for n, v in spans.items()))
+            slow = conn.execute("SLOWLOG", "GET", "1024")
+            n_slow = sum(1 for e in slow if bytes(e[3][0]) == b"BFA.MEXISTS64")
+            latest = conn.execute("LATENCY", "LATEST")
+            metrics = bytes(conn.execute("METRICS")).decode()
+            stage_rows = [ln for ln in metrics.splitlines() if ln.startswith("rtpu_stage_")]
+            if n_slow < OB_FRAMES or not latest or not any(ln.startswith("rtpu_stage_stage_") for ln in stage_rows):
+                raise AssertionError(f"observe: SLOWLOG {n_slow} frames, LATENCY LATEST {len(latest)} rows, "
+                                     f"{len(stage_rows)} stage timer rows")
+            out.update({"slowlog_frames": n_slow, "latency_events": sorted(bytes(e[0]).decode() for e in latest),
+                        "metrics_stage_rows": len(stage_rows)})
+            log(f"observe [{card}]: SLOWLOG GET lists {n_slow} of the frames, LATENCY LATEST "
+                f"{out['latency_events']}, METRICS {len(stage_rows)} stage.* timer rows")
+            conn.execute("CONFIG", "SET", "trace-enabled", "no")
+        finally:
+            conn.close()
+    finally:
+        st.stop()
+        obs.set_tracing(prev)
+    out["qos"] = observe_qos_spans(device, card)
+    out["cluster_metrics"] = observe_cluster_metrics(device, card)
+    out["launches"] = dict(K.launches)
+    out["seconds"] = time.perf_counter() - start
+    log(f"observe path [{card}]: {out['seconds']:.1f}s")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -6298,7 +6641,9 @@ def main() -> int:
                       ("cluster_proc", lambda: run_cluster_proc()),
                       ("sharded", lambda: run_sharded()),
                       ("qos", lambda: run_qos()),
-                      ("sharded_vector", lambda: run_sharded_vector())):
+                      ("sharded_vector", lambda: run_sharded_vector()),
+                      ("durability", lambda: run_durability()),
+                      ("observe", lambda: run_observe())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself

@@ -6,8 +6,9 @@ mapping (``Config.name_mapper``: logical name -> stored key).  Every
 handle's codec is reference-aware (``client/codec.ReferenceCodec``): a
 handle stored inside another object persists as a typed reference and reads
 back as a live handle, and a handle pickles as an inert ``ObjectRef`` under
-the reference's module path.  dump, restore, copy and migrate come with
-``core/checkpoint.py`` (ROADMAP M11).
+the reference's module path.  dump, restore, copy_to and migrate share
+``core/checkpoint.py``'s single-record codec with the DUMP, RESTORE and COPY
+verbs.
 """
 from __future__ import annotations
 
@@ -94,6 +95,68 @@ class RObject:
         """RObject.unlink: in-process reclamation is immediate, so this is
         delete."""
         return self.delete()
+
+    def dump(self) -> bytes:
+        """Portable serialized state (RObject.dump / the DUMP verb): the
+        single-record codec shared with checkpoints, plus a hash_version
+        stamp (core/checkpoint.dump_record)."""
+        from redisson_tpu_torch.core import checkpoint
+
+        return checkpoint.dump_record(self._engine, self._name)
+
+    def _restore(self, state: bytes, ttl: Optional[float], replace: bool) -> None:
+        from redisson_tpu_torch.core import checkpoint
+
+        checkpoint.restore_record(self._engine, self._name, state, ttl, replace)
+
+    def restore(self, state: bytes, ttl: Optional[float] = None) -> None:
+        """RObject.restore: install a dump under this name; BUSYKEY error if
+        the name exists (Redis RESTORE semantics)."""
+        self._restore(state, ttl, replace=False)
+
+    def restore_and_replace(self, state: bytes, ttl: Optional[float] = None) -> None:
+        self._restore(state, ttl, replace=True)
+
+    def copy_to(self, dest_name: str, replace: bool = False) -> bool:
+        """RObject.copy: clone this record under `dest_name` (the COPY verb
+        and this method share core/checkpoint.clone_record)."""
+        from redisson_tpu_torch.core import checkpoint
+
+        return checkpoint.clone_record(
+            self._engine, self._name, self._map_name(dest_name), replace
+        )
+
+    def migrate(
+        self,
+        address: str,
+        timeout: float = 10.0,
+        delete_local: bool = True,
+        replace: bool = False,
+        password: Optional[str] = None,
+        username: Optional[str] = None,
+        ssl_context=None,
+    ) -> None:
+        """RObject.migrate: DUMP here, RESTORE on the node at `address`
+        (tpu://host:port), then delete locally — the Redis MIGRATE recipe.
+        The remaining TTL is measured here and travels as RESTORE's explicit
+        ttl operand (0: persistent), a destination collision is BUSYKEY
+        unless `replace`, and secured destinations take credentials/TLS."""
+        from redisson_tpu_torch.net.client import NodeClient
+
+        ttl = self._engine.store.ttl(self._name)  # before dump: no expiry race
+        blob = self.dump()
+        ttl_ms = max(1, int(ttl * 1000)) if ttl is not None else 0
+        node = NodeClient(
+            address, ping_interval=0, password=password, username=username,
+            ssl_context=ssl_context,
+        )
+        try:
+            args = ("RESTORE", self._name, ttl_ms, blob) + (("REPLACE",) if replace else ())
+            node.execute(*args, timeout=timeout)  # error replies RAISE RespError
+        finally:
+            node.close()
+        if delete_local:
+            self.delete()
 
     def _record(self):
         return self._engine.store.get(self._name)

@@ -33,15 +33,21 @@ decision: :class:`LocalHostDriver` (default) spawns subprocesses,
 ready-line/signal/reap contract, and a fleet with any genuinely remote host
 arms TLS by default.
 
+Checkpoints: every node has its own checkpoint path
+(``<base_dir>/<node>/ckpt/head.ckpt``, passed as ``--checkpoint``), where
+SAVE and ``SHUTDOWN SAVE`` write, and ``checkpoint_interval > 0`` arms each
+node's ``AutoCheckpointer`` (``--checkpoint-interval``), which also takes a
+final snapshot when the node is SIGTERM'd.  ``restart`` passes ``--restore`` once the
+node's checkpoint exists, so the fresh process comes back with the records
+of its last snapshot.  ``scrape`` merges every live node's METRICS with
+``node=`` labels.
+
 Left out until their slices, each raising NotImplementedError: replicas
-(``replicas_per_master > 0``), checkpoints (``checkpoint_interval > 0``),
-``promote_replica``, ``rolling_restart`` and ``scrape`` (ROADMAP M11).
-``start_qos_rebalance`` runs the fleet's tenant budget loop
-(``cluster/qos_control.py``) over the masters, and ``shutdown`` stops it.
-``restart`` brings a node back
-empty: there is no checkpoint to restore before M11, and the supervisor
-passes no ``--checkpoint`` or ``--journal-dir`` (the port's server refuses
-both).
+(``replicas_per_master > 0``), ``promote_replica`` and ``rolling_restart``
+(ROADMAP M11 parts 3 and 4); no ``--journal-dir`` is passed (the port's
+server refuses it until part 4).  ``start_qos_rebalance`` runs the fleet's
+tenant budget loop (``cluster/qos_control.py``) over the masters, and
+``shutdown`` stops it.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ from redisson_tpu_torch.net.retry import RetryPolicy, call_with_retry
 #: the implicit single-domain label a host-unaware supervisor places on
 _LOCAL_HOST_LABEL = "local"
 
-_M11 = "comes with the replication and checkpoint slice (ROADMAP M11)"
+_M11 = "comes with the replication and migration slices (ROADMAP M11 parts 3-4)"
 
 #: the view-learning schedule for a node rejoining the fleet: its peers may
 #: themselves be restarting, so a refused connect retries instead of failing
@@ -91,6 +97,7 @@ class NodeProc:
         self.master_index = master_index
         self.base_dir = base_dir
         self.host_label = host_label  # failure domain (driver-interpreted)
+        self.checkpoint_path = os.path.join(base_dir, "ckpt", "head.ckpt")
         self.log_path = os.path.join(base_dir, "server.log")
         self.host = "127.0.0.1"
         self.port = 0            # learned from the first ready line, then pinned
@@ -134,7 +141,8 @@ class ClusterSupervisor:
         try:
             client = sup.client()          # slot-routed, real TCP
             sup.kill(sup.masters[0])       # SIGKILL — a real dead process
-            sup.restart(sup.masters[0])    # same port, fresh empty process
+            sup.restart(sup.masters[0])    # same port, fresh process,
+                                           # --restore from its checkpoint
         finally:
             sup.shutdown()
 
@@ -160,8 +168,6 @@ class ClusterSupervisor:
     ):
         if replicas_per_master > 0:
             raise NotImplementedError(f"replicas_per_master={replicas_per_master} {_M11}")
-        if checkpoint_interval > 0:
-            raise NotImplementedError(f"checkpoint_interval={checkpoint_interval} {_M11}")
         self.n_masters = masters
         self.replicas_per_master = replicas_per_master
         self.password = password
@@ -275,7 +281,7 @@ class ClusterSupervisor:
             host_label=host_label,
         )
 
-    def _server_cli(self, node: NodeProc) -> List[str]:
+    def _server_cli(self, node: NodeProc, restore: bool = False) -> List[str]:
         """The full server CLI for one node — everything except
         ``--ready-fd``, which the driver owns (local: inherited pipe fd;
         ssh: fd 3 dup'd onto the channel's stdout)."""
@@ -289,6 +295,11 @@ class ClusterSupervisor:
             # cross-host nodes bind wide but are NAMED by their routable
             # address everywhere (views, READY)
             cmd += ["--advertise-host", connect]
+        cmd += ["--checkpoint", node.checkpoint_path]
+        if self.checkpoint_interval > 0:
+            cmd += ["--checkpoint-interval", str(self.checkpoint_interval)]
+        if restore and os.path.exists(node.checkpoint_path):
+            cmd.append("--restore")
         if self.password:
             cmd += ["--password", self.password]
         if self.platform:
@@ -300,11 +311,11 @@ class ClusterSupervisor:
         cmd += self.server_args
         return cmd
 
-    def _spawn(self, node: NodeProc) -> None:
+    def _spawn(self, node: NodeProc, restore: bool = False) -> None:
         node.handle = self.driver.spawn(
-            node.name, node.host_label, self._server_cli(node),
+            node.name, node.host_label, self._server_cli(node, restore),
             node.log_path, dict(self.extra_env),
-            ensure_dirs=(node.base_dir,),
+            ensure_dirs=(os.path.dirname(node.checkpoint_path),),
         )
         node.generation += 1
 
@@ -475,14 +486,15 @@ class ClusterSupervisor:
         return node.reap()
 
 
-    def restart(self, node: NodeProc, force: bool = False) -> NodeProc:
+    def restart(self, node: NodeProc, restore: bool = True,
+                force: bool = False) -> NodeProc:
         """Bring a dead node back on the SAME address.  **Idempotent**: a
         node that is still alive is left untouched (double restart is a
         no-op — the supervisor never kills a healthy process by accident)
         unless ``force=True``, which first stops it through the escalating
-        SIGTERM→SIGKILL path.  The fresh process starts empty (checkpoints
-        come with ROADMAP M11) and relearns the cluster view from a live
-        peer, retried under :class:`~redisson_tpu_torch.net.retry.RetryPolicy`:
+        SIGTERM→SIGKILL path.  The fresh process ``--restore``\\ s its
+        checkpoint (when one exists) and relearns the cluster view from a
+        live peer, retried under :class:`~redisson_tpu_torch.net.retry.RetryPolicy`:
         the view is re-fetched inside every attempt across ALL live nodes,
         so a peer that died between attempts costs one retry, not the
         restart."""
@@ -491,7 +503,7 @@ class ClusterSupervisor:
                 return node
             self.stop(node)
         node.reap()  # capture the exit code before respawning
-        self._spawn(node)
+        self._spawn(node, restore=restore)
         self.wait_ready(node)
 
         def _relearn_view() -> None:
@@ -613,7 +625,23 @@ class ClusterSupervisor:
             rb.stop()
 
     def scrape(self) -> str:
-        raise NotImplementedError(f"the METRICS scrape {_M11}")
+        """Fleet-wide Prometheus scrape: pull ``METRICS`` from every live
+        node and merge the expositions with per-node ``node="host:port"``
+        labels (the ``METRICS CLUSTER`` verb is the wire half; both ride
+        ``utils.metrics.merge_prometheus_texts``).  Dead or unreachable
+        nodes contribute nothing rather than failing the scrape."""
+        from redisson_tpu_torch.utils.metrics import merge_prometheus_texts
+
+        texts: Dict[str, str] = {}
+        for node in self.nodes():
+            if not node.alive():
+                continue
+            try:
+                with self.conn(node, timeout=10.0) as c:
+                    texts[node.address] = bytes(c.execute("METRICS")).decode()
+            except Exception:  # noqa: BLE001 — scrape the rest of the fleet
+                continue
+        return merge_prometheus_texts(texts)
 
     def log_tail(self, node: NodeProc, max_bytes: int = 4096) -> str:
         try:

@@ -68,6 +68,13 @@ chunk's work (``wait_device``) before it releases the chunk's occupancy,
 and the interactive kernel then finds the stream empty.  Disarmed, the
 plane is the single-gate, unsplit shape, with the same replies.
 
+**Trace sites** (reference ``:539-610``, ``:1388-1416``): with tracing armed
+(``observe/trace.py``) and a frame trace current on the thread,
+``ReadbackFuture.result`` records a ``readback`` span whose ``blocking``
+flag says whether the event behind the result's kernels had not yet passed
+when the force came, and a lane occupancy records the wait for its gate as
+``stage`` and the hold as ``dispatch``.
+
 ``FlushPipeline``'s window deadline defaults to ``window_deadline()``
 (``CONFIG SET qos-interactive-deadline-ms``).  ``STATS.sharded_knn_merges``
 counts the sharded vector banks' on-device merges (K19).
@@ -81,6 +88,10 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# tracing plane (observe/trace.py): every site below guards on the
+# process-global `_obs._tracer`, so the disarmed cost is one global load
+from redisson_tpu_torch.observe import trace as _obs
 
 # -- global switch ------------------------------------------------------------
 
@@ -387,7 +398,19 @@ class ReadbackFuture:
                 self._done = True
                 self._device = ()
             else:
-                STATS.add_readback(time.perf_counter() - t0, was_ready)
+                wall = time.perf_counter() - t0
+                STATS.add_readback(wall, was_ready)
+                if _obs._tracer is not None:
+                    cur = _obs.current_trace()
+                    if cur is not None:
+                        # this frame PAID a blocking sync iff the event
+                        # behind its kernels had not passed when the force
+                        # came
+                        now = time.monotonic()
+                        cur.add_span(
+                            "readback", now - wall, now,
+                            blocking=int(not was_ready), grouped=0,
+                        )
                 self._deliver(host)
         if self._error is not None:
             raise self._error
@@ -876,8 +899,13 @@ class DeviceLane:
 
 
 class _LaneOccupancy:
+    """One dispatch's hold of a lane.  With tracing armed and a frame trace
+    current on the thread, the wait for the lane gate is the frame's
+    `stage` span and the hold itself its `dispatch` span (reference
+    ``:1388-1416``)."""
+
     __slots__ = ("_lane", "_n", "_cls", "_nbytes", "_stream", "_gate",
-                 "_prev_stream")
+                 "_prev_stream", "_tcur", "_tmark")
 
     def __init__(self, lane: DeviceLane, n_items: int,
                  qos_class: Optional[str] = None, nbytes: int = 0):
@@ -894,6 +922,8 @@ class _LaneOccupancy:
             self._stream = "bulk"
             self._gate = lane._gate
         self._prev_stream = None
+        self._tcur = None
+        self._tmark = 0.0
 
     def __enter__(self) -> DeviceLane:
         if self._cls is not None:
@@ -903,7 +933,21 @@ class _LaneOccupancy:
             # seen by preempt_point from the moment the dispatch queues on
             # the interactive gate, not only once it holds it
             self._lane._ienter()
-        self._gate.acquire()
+        if _obs._tracer is not None:
+            self._tcur = _obs.current_trace()
+        if self._tcur is not None:
+            # `stage` = time queued behind the lane gate (ahead of the
+            # card); the occupancy hold becomes the `dispatch` span
+            t0 = time.monotonic()
+            self._gate.acquire()
+            self._tmark = time.monotonic()
+            self._tcur.add_span(
+                "stage", t0, self._tmark,
+                device=self._lane.dev_id, items=self._n,
+                nbytes=self._nbytes, stream=self._stream,
+            )
+        else:
+            self._gate.acquire()
         self._prev_stream = getattr(_stream_tls, "stream", None)
         _stream_tls.stream = self._stream
         self._lane._laneset._enter()
@@ -916,6 +960,12 @@ class _LaneOccupancy:
             if ns is not None and self._n > 0:
                 time.sleep(self._n * ns * 1e-9)
         finally:
+            if self._tcur is not None:
+                self._tcur.add_span(
+                    "dispatch", self._tmark, time.monotonic(),
+                    device=self._lane.dev_id, items=self._n,
+                    nbytes=self._nbytes, stream=self._stream,
+                )
             self._lane._laneset._exit()
             _stream_tls.stream = self._prev_stream
             self._gate.release()

@@ -32,9 +32,10 @@ flat in int32, which is the same index while ``|tenant| * m < 2**31``
 ``dryrun_multichip`` is the counterpart of ``__graft_entry__``'s: one
 sharded step through the engine path (object handles -> MeshManager -> the
 windowed kernels) over a dp 2 x shard 4 mesh of 8 positions, then a live
-reshard 4 -> 8 -> 4 under traffic with no probe lost.  The reference's
-checkpoint round trip of the sharded records waits for the checkpoints
-(ROADMAP M11).  On one card the 8 positions share it: the run holds the
+reshard 4 -> 8 -> 4 under traffic with no probe lost, and the reference's
+checkpoint round trip of the sharded records: saved gathered, loaded into a
+fresh engine as whole tensors, re-sharded lazily on their next dispatch.
+On one card the 8 positions share it: the run holds the
 programs and the reshard, not a collective across GPUs.
 """
 from __future__ import annotations
@@ -130,6 +131,8 @@ def dryrun_multichip(n_devices: int = 8, device="cuda") -> dict:
     n -> 4 while a writer adds to the bank: every acknowledged add is found
     after it, and the HLL registers move without changing.  Raises on any
     failure; returns what it saw."""
+    import os
+    import tempfile
     import threading
 
     import redisson_tpu_torch
@@ -174,6 +177,26 @@ def dryrun_multichip(n_devices: int = 8, device="cuda") -> dict:
         ests = h.estimate_all()
         if ests.shape != (tenants,) or not (ests > 0).all():
             raise AssertionError(f"sharded HLL estimates {ests}")
+
+        # checkpoint round trip: gather on save, lazy re-shard on the next
+        # dispatch of the fresh engine
+        from redisson_tpu_torch.core import checkpoint
+
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "dryrun.ckp")
+            if checkpoint.save(client._engine, path) < 2:
+                raise AssertionError("dryrun: the checkpoint missed a sharded record")
+            fresh = redisson_tpu_torch.create(cfg, device)
+            try:
+                if checkpoint.load(fresh._engine, path) < 2:
+                    raise AssertionError("dryrun: the checkpoint load missed a record")
+                bf2 = fresh.get_sharded_bloom_filter_array("dryrun:bloom")
+                if not bf2.contains_each(tenant, keys).all():
+                    raise AssertionError("sharded bloom state lost in the checkpoint")
+                if not np.array_equal(fresh.get_sharded_hll_array("dryrun:hll").estimate_all(), ests):
+                    raise AssertionError("sharded HLL state changed in the checkpoint")
+            finally:
+                fresh.shutdown()
 
         # live resharding under traffic: the dual-routing window is per
         # record (a dispatch in flight finishes on the old geometry under
@@ -221,5 +244,6 @@ def dryrun_multichip(n_devices: int = 8, device="cuda") -> dict:
         client.shutdown()
     print(f"dryrun_multichip OK: mesh={out['mesh']} positions={n_devices} on {out['devices']}, bloom "
           f"m={out['bloom_m']} sharded over {shard0}, hll tenants={tenants}, engine path, live reshard "
-          f"{out['reshards']} under traffic: {len(acked)} acked batches, 0 lost probes", flush=True)
+          f"{out['reshards']} under traffic: {len(acked)} acked batches, 0 lost probes, checkpoint "
+          f"round trip of the sharded records", flush=True)
     return out

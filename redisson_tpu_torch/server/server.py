@@ -93,8 +93,11 @@ and TXEXEC), collections, zset, streamgeo (X*, GEO*) and modules (JSON.*,
 FT.*) verb families, admin's script and function verbs (EVALSHA, EVAL,
 SCRIPT, FCALL, FCALL_RO, FUNCTION), and the cluster view verbs (CLUSTER
 SLOTS, MYID, INFO, SETVIEW, RESET, COUNTKEYSINSLOT, GETKEYSINSLOT, and
-ASKING), the node-info verbs (TIME, INFO, MEMORY) and the device-placement
-verbs (CLUSTER DEVICES, DEVMOVE) (``server/verbs``).
+ASKING), the node-info verbs (TIME, INFO, MEMORY), the device-placement
+verbs (CLUSTER DEVICES, DEVMOVE), the observability verbs (ROLE, METRICS,
+TRACE, SLOWLOG, LATENCY) and the durability verbs (SAVE, BGSAVE,
+BGREWRITEAOF, LASTSAVE, SHUTDOWN, RESTORESTATE, DUMP, RESTORE, COPY)
+(``server/verbs``).
 
   * **Positions** (``devices=``, ``--devices``): the 16384-slot table maps
     onto that many mesh positions (``server/placement.py``; ``"all"``: the
@@ -123,22 +126,34 @@ verbs (CLUSTER DEVICES, DEVMOVE) (``server/verbs``).
     stay applied (at most once a sub-window).  Replies are the unsplit
     dispatch's bytes, in frame order.
   * **CONFIG** (``config_view``/``config_set``, reference ``:483-680``):
-    the knobs of the planes the port has, the ``qos-*`` knobs among them.
-    The knobs of planes the operations slice brings (``checkpoint-path``,
-    ``residency-enabled``, ``device-budget-bytes``, ``lane-watchdog-ms``,
-    ``lane-quarantine-after``) read the reference's defaults, and setting
-    one replies an error naming ROADMAP M11.
+    the knobs of the planes the port has, the ``qos-*`` knobs and
+    ``checkpoint-path`` among them.  The knobs of planes the operations
+    slice brings later (``residency-enabled``, ``device-budget-bytes``,
+    ``lane-watchdog-ms``, ``lane-quarantine-after``) read the reference's
+    defaults, and setting one replies an error naming ROADMAP M11.
+  * **Durability** (``core/checkpoint.py``): ``checkpoint_path`` (the CLI's
+    ``--checkpoint``, with ``--restore`` at boot and
+    ``--checkpoint-interval`` for an ``AutoCheckpointer`` that flushes on a
+    graceful stop) is the default path of SAVE, BGSAVE, SHUTDOWN and
+    RESTORESTATE.
+  * **Tracing** (``observe/trace.py``): a traced frame records ``qos``,
+    ``dispatch``, ``readback`` and ``reply`` spans; a frame dispatched
+    under a position's lane records the lane-gate wait as ``stage`` and the
+    occupancy as ``dispatch`` (``core/ioplane._LaneOccupancy``), as the
+    reference's does.  TRACE, SLOWLOG, LATENCY and METRICS read them.
 
-Left out, each raising NotImplementedError when asked for: checkpoints and
-migration journals (ROADMAP M11).  Their verbs reply the unknown-command
-error until that slice: SAVE, WAIT, the replication verbs REPLFLUSH
-and REPLSTATE, DUMP, RESTORE, COPY; the replication and migration links,
-the residency census and the chaos pause gate come with them.
+Left out, raising NotImplementedError when asked for: migration journals
+(``journal_dir``, ROADMAP M11 part 4).  The replication verbs (REPLFLUSH,
+REPLPING, REPLPUSH, REPLPUSHSEG, REPLREGISTER, REPLSNAPSHOT, REPLSTATE),
+IMPORTRECORDS and WAIT reply the unknown-command error until M11 parts 3
+and 4; the replication and migration links, the residency census and the
+chaos pause gate come with them.
 """
 from __future__ import annotations
 
 import asyncio
 import functools
+import os
 import threading
 import time
 import uuid
@@ -279,24 +294,16 @@ def _force_lazies(results: list, server, trace=None) -> None:
             _obs.clear_current()
 
 
-_REFUSED = {
-    "checkpoint_path": "checkpoints (checkpoint_path=) come with ROADMAP M11",
-    "journal_dir": "migration journals (journal_dir=) come with ROADMAP M11",
-}
-
-
-# CONFIG knobs of the operations slice's planes (ROADMAP M11: checkpoints,
+# CONFIG knobs of the operations slice's planes still to come (ROADMAP M11:
 # residency, the lane watchdog and quarantine): CONFIG GET reads the
 # reference's defaults, CONFIG SET replies an error naming the plane
 _M11_KNOBS = {
-    "checkpoint-path": "",
     "device-budget-bytes": 0,
     "residency-enabled": 0,
     "lane-watchdog-ms": 0,
     "lane-quarantine-after": 3,
 }
 _M11_KNOBS_PLANE = {
-    "checkpoint-path": "checkpoints",
     "device-budget-bytes": "the residency plane",
     "residency-enabled": "the residency plane",
     "lane-watchdog-ms": "the lane watchdog",
@@ -326,10 +333,10 @@ class TpuServer:
         advertise_host: Optional[str] = None,
         device="cuda",
     ):
-        asked = {"checkpoint_path": checkpoint_path, "journal_dir": journal_dir}
-        for name, value in asked.items():
-            if value is not None:
-                raise NotImplementedError(_REFUSED[name])
+        if journal_dir is not None:
+            raise NotImplementedError(
+                "migration journals (journal_dir=) come with ROADMAP M11 part 4"
+            )
         self.engine = engine if engine is not None else Engine(device=device)
         # device-sharded serving: `devices` maps the 16384-slot table onto
         # that many mesh positions ("all": every local position).  None (the
@@ -367,6 +374,9 @@ class TpuServer:
         # MOVED-bounces its own slots forever.  None = the bind host.
         self.advertise_host = advertise_host
         self.password = password
+        # SAVE / SHUTDOWN / RESTORESTATE default path (core/checkpoint.py);
+        # CONFIG SET checkpoint-path changes it at run time
+        self.checkpoint_path = checkpoint_path
         # ACL users (username -> password): AUTH user pass
         # (BaseConnectionHandler.java:59-122).  "default" aliases `password`.
         self.users: Dict[str, str] = dict(users or {})
@@ -377,11 +387,13 @@ class TpuServer:
         self.tls_ca_file = tls_ca_file
         self.mode = mode
         self.node_id = uuid.uuid4().hex
-        # replica_reads / replica_fallbacks count check_routing's replica
-        # branch, which no node reaches until the replication slice
-        # (ROADMAP M11)
+        # replica_reads / replica_redirects_stale / replica_fallbacks count
+        # the replica read path, which no node reaches until the replication
+        # slice (ROADMAP M11 part 3); METRICS carries them as the
+        # reference's does
         self.stats = {"connections": 0, "commands": 0, "errors": 0, "sheds": 0,
-                      "replica_reads": 0, "replica_fallbacks": 0}
+                      "replica_reads": 0, "replica_redirects_stale": 0,
+                      "replica_fallbacks": 0}
         # observability (utils/metrics.py): per-command timers + counters;
         # hooks = NettyHook-analog SPI
         from redisson_tpu_torch.net.client import dropped_push_count
@@ -444,6 +456,9 @@ class TpuServer:
         # replication role: "master" until REPLICAOF comes with ROADMAP M11
         self.role = "master"
         self.master_address: Optional[str] = None
+        # the address this master was promoted from (ROLE's 4th element);
+        # None until failover comes with ROADMAP M11
+        self.promoted_from: Optional[str] = None
         # expiry invalidation: a key the TTL reaper (or a lazy-expiry read)
         # drops must invalidate near caches exactly like a DEL would
         self.engine.store.on_expired = self.tracking.note_expired
@@ -452,6 +467,12 @@ class TpuServer:
         # ftvec_*_bytes_dev<N> rows a position, which exist only while the
         # position holds bank bytes (FT.DROPINDEX takes a shard's row away)
         self.metrics.multi_gauge("ftvec", self._ftvec_census)
+        # per-device record bytes over every record kind: record_bytes_dev<N>
+        # totals and record_bytes_dev<N>_<kind> rows, present only while the
+        # device holds bytes (reference ``_device_bytes_census``)
+        self.metrics.multi_gauge("devbytes", self._device_bytes_census)
+        for name in ("replica_reads", "replica_redirects_stale", "replica_fallbacks"):
+            self.metrics.gauge(name, lambda name=name: self.stats[name])
         self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="rtpu-srv")
         self._workers = workers
         # reserved interactive dispatch capacity: frames the scheduler
@@ -474,6 +495,8 @@ class TpuServer:
         self._slow_pool = ThreadPoolExecutor(max_workers=64, thread_name_prefix="rtpu-slow")
         # set by stop(): parked blocking verbs poll it to unpark
         self._closing = False
+        # the CLI serve loop's stop event: SHUTDOWN ends the process too
+        self._serve_stopped: Optional[asyncio.Event] = None
         # EXEC transactions serialize (see cmd_exec: handlers may take record
         # locks beyond the precomputed key set)
         self._exec_mutex = threading.Lock()
@@ -714,19 +737,34 @@ class TpuServer:
             return fused
         return [self._dispatch_one(ctx, cmd) for cmd in cmds]
 
-    def _dispatch_traced(self, fn, ctx, arg, trace=None):
-        """Run one dispatch unit (a command or a coalesced run) on a worker
-        thread; `trace` (tracing armed only) is activated on this thread and
-        the handler window recorded as the frame's `dispatch` span."""
+    def _dispatch_traced(self, fn, ctx, arg, trace=None, span=True):
+        """Run one dispatch unit (a command, a coalesced run or a position's
+        bucket) on a worker thread with `trace` (tracing armed only) current
+        there, so the spans recorded deep inside it (lane gates, readbacks)
+        land on the frame.  With `span` the handler window is the frame's
+        `dispatch` span; the lane wrappers pass span=False, since a lane's
+        occupancy records `stage` and `dispatch` (and a laneless dispatch
+        its own, ``_timed``)."""
         if trace is None:
             return fn(ctx, arg)
         _obs.set_current(trace)
+        try:
+            return self._timed(fn, ctx, arg) if span else fn(ctx, arg)
+        finally:
+            _obs.clear_current()
+
+    @staticmethod
+    def _timed(fn, ctx, arg):
+        """fn(ctx, arg), its window recorded as the `dispatch` span of this
+        thread's frame trace (tracing armed only)."""
+        trace = _obs.current_trace()
+        if trace is None:
+            return fn(ctx, arg)
         t0 = time.monotonic()
         try:
             return fn(ctx, arg)
         finally:
             trace.add_span("dispatch", t0, time.monotonic())
-            _obs.clear_current()
 
     def _ftvec_census(self) -> dict:
         """The embedding banks' census rows from the search service, zeros
@@ -740,6 +778,34 @@ class TpuServer:
             return svc.device_census()
         except Exception:  # noqa: BLE001 — a broken gauge must not kill the scrape
             return zeros
+
+    def _device_bytes_census(self) -> dict:
+        """One store scan summing each record's tensors by (device index,
+        kind); a sharded plane spans positions and counts on none (the
+        reference's multi-device arrays), a CPU tensor counts as device 0
+        (the reference's one CPU device)."""
+        import torch
+
+        by_dev: dict = {}
+        by_kind: dict = {}
+        with self.engine.store._lock:
+            records = [(r.kind, r) for r in self.engine.store._states.values() if not r.expired()]
+        for kind, rec in records:
+            for arr in list(rec.arrays.values()):
+                if not isinstance(arr, torch.Tensor):
+                    continue
+                n = float(arr.numel() * arr.element_size())
+                if n <= 0.0:
+                    continue
+                d = arr.device.index or 0
+                by_dev[d] = by_dev.get(d, 0.0) + n
+                by_kind[(d, kind)] = by_kind.get((d, kind), 0.0) + n
+        out: dict = {}
+        for d, v in sorted(by_dev.items()):
+            out[f"record_bytes_dev{d}"] = v
+        for (d, kind), v in sorted(by_kind.items()):
+            out[f"record_bytes_dev{d}_{kind}"] = v
+        return out
 
     # -- per-position lanes (device-sharded serving) ---------------------------
 
@@ -772,7 +838,7 @@ class TpuServer:
         """_dispatch_one under the command's lane (when it has one)."""
         gate = self._occupancy_gate((cmd,), qos_class)
         if gate is None:
-            return self._dispatch_one(ctx, cmd)
+            return self._timed(self._dispatch_one, ctx, cmd)
         with gate:
             return self._dispatch_one(ctx, cmd)
 
@@ -806,7 +872,7 @@ class TpuServer:
         chunks, replies extended in frame order."""
         lane = self._lane_for(cmds)
         if lane is None:
-            return self._dispatch_bloom_run(ctx, cmds)
+            return self._timed(self._dispatch_bloom_run, ctx, cmds)
         target = self._subwindow_target(qos_class)
         plan = None
         if target > 0:
@@ -825,7 +891,7 @@ class TpuServer:
                 ioplane.wait_device(dev)
         return out
 
-    def _dispatch_device_bucket(self, ctx, dev_index: int, items,
+    def _dispatch_device_bucket(self, ctx, items, dev_index: int,
                                 qos_class: Optional[str] = None):
         """One position's ordered slice of a pipelined frame (a plan_frame
         "sharded" segment), on a worker thread while the other positions'
@@ -912,10 +978,11 @@ class TpuServer:
             jobs = []
             for dev_index, idxs in seg.items():
                 self.stats["commands"] += len(idxs)
+                bucket = functools.partial(self._dispatch_device_bucket,
+                                           dev_index=dev_index, qos_class=qos_class)
                 jobs.append(loop.run_in_executor(
                     pool, self._dispatch_traced,
-                    lambda c, a, d=dev_index: self._dispatch_device_bucket(c, d, a, qos_class),
-                    ctx, [(i, commands[i]) for i in idxs], trace,
+                    bucket, ctx, [(i, commands[i]) for i in idxs], trace, False,
                 ))
             outs = await asyncio.gather(*jobs, return_exceptions=True)
             err = next((o for o in outs if isinstance(o, BaseException)), None)
@@ -1062,10 +1129,14 @@ class TpuServer:
                                             alive, pool, trace)
         qos_class = adm.qos_class if adm is not None else None
         # the dispatch units, chosen once a frame: with placement off, the
-        # plain ones (no lane to look up per command)
+        # plain ones (no lane to look up per command), each its own
+        # `dispatch` span; with it on, the lane wrappers, whose occupancy
+        # records `stage` and `dispatch`
         if self.engine.placement is None:
+            unit = self._dispatch_traced
             run_fn, one_fn = self._dispatch_bloom_run, self._dispatch_one
         else:
+            unit = functools.partial(self._dispatch_traced, span=False)
             run_fn = functools.partial(self._dispatch_bloom_run_laned, qos_class=qos_class)
             one_fn = functools.partial(self._dispatch_laned, qos_class=qos_class)
         run_at: Dict[int, int] = {}
@@ -1098,7 +1169,7 @@ class TpuServer:
                 self.stats["commands"] += len(run_cmds)
                 results.extend(
                     await loop.run_in_executor(
-                        pool, self._dispatch_traced, run_fn, ctx, run_cmds, trace,
+                        pool, unit, run_fn, ctx, run_cmds, trace,
                     )
                 )
                 continue
@@ -1113,7 +1184,7 @@ class TpuServer:
             cmd_pool = self._slow_pool if bytes(cmd[0]).upper() in _SLOW_COMMANDS else pool
             results.append(
                 await loop.run_in_executor(
-                    cmd_pool, self._dispatch_traced, one_fn, ctx, cmd, trace,
+                    cmd_pool, unit, one_fn, ctx, cmd, trace,
                 )
             )
         return await self._finish_frame(ctx, results, loop, write_q, readback_slots,
@@ -1197,6 +1268,7 @@ class TpuServer:
             "mode": self.mode,
             "role": self.role,
             "node-id": self.node_id,
+            "checkpoint-path": self.checkpoint_path or "",
             "tls": bool(self.tls_cert_file),
             # before the eviction scheduler starts, what it WILL use
             "eviction-min-delay": ev.min_delay if ev else cfg.min_cleanup_delay,
@@ -1236,6 +1308,9 @@ class TpuServer:
             return True
         if key == "eviction-max-delay":
             self.engine.eviction.max_delay = float(value)
+            return True
+        if key == "checkpoint-path":
+            self.checkpoint_path = value or None
             return True
         if key == "tracking-table-max-keys":
             n = int(value)
@@ -1513,6 +1588,27 @@ class TpuServer:
             ctx.verify_mode = ssl.CERT_REQUIRED  # mutual TLS
         return ctx
 
+    def link_client(self, address: str, **kw):
+        """NodeClient for this node's OUTGOING links (METRICS CLUSTER's
+        scrape of its peers): inherits the node's password and, when TLS is
+        on, a client context trusting the cluster CA (hostname checks off —
+        cluster peers are addressed by IP)."""
+        from redisson_tpu_torch.net.client import NodeClient, client_ssl_context
+
+        kw.setdefault("password", self.password)
+        if self.tls_enabled:
+            kw.setdefault(
+                "ssl_context",
+                client_ssl_context(
+                    # self-signed deployments trust the node cert itself
+                    ca_file=self.tls_ca_file or self.tls_cert_file,
+                    cert_file=self.tls_cert_file,
+                    key_file=self.tls_key_file,
+                    verify_hostname=False,
+                ),
+            )
+        return NodeClient(address, **kw)
+
     async def start_async(self):
         self._loop = asyncio.get_running_loop()
         self._server = await asyncio.start_server(
@@ -1535,11 +1631,10 @@ class TpuServer:
         one line — ``READY <host> <port> <pid>`` — to this inherited file
         descriptor and close it, so a supervisor awaits that line instead of
         polling the port."""
-        import os
         import signal as _signal
 
         loop = asyncio.get_running_loop()
-        stopped = asyncio.Event()
+        stopped = self._serve_stopped = asyncio.Event()
         installed = []
         for sig in (_signal.SIGTERM, _signal.SIGINT):
             try:
@@ -1574,6 +1669,10 @@ class TpuServer:
         if loop is not None and server is not None:
             def shutdown():
                 server.close()
+                if self._serve_stopped is not None:
+                    # SHUTDOWN over the wire ends the CLI process, as
+                    # Redis's does
+                    self._serve_stopped.set()
                 # drop established connections too: clients must see a dead
                 # node, not a half-alive one
                 for w in list(self._writers):
@@ -1729,6 +1828,15 @@ def main(argv=None):
              "view is installed (CLUSTER SETVIEW) in either mode",
     )
     ap.add_argument("--password", default=None)
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint path: SAVE, SHUTDOWN and RESTORESTATE default to it")
+    ap.add_argument("--restore", action="store_true",
+                    help="load the checkpoint at boot (when the file exists)")
+    ap.add_argument(
+        "--checkpoint-interval", type=float, default=0.0,
+        help="seconds between automatic snapshots (0 = manual SAVE only); "
+             "a final snapshot is taken at a graceful stop",
+    )
     ap.add_argument(
         "--device", default="cuda",
         help="where the state lives: 'cuda' (the default; without a card the "
@@ -1790,6 +1898,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if bool(args.tls_cert) != bool(args.tls_key):
         ap.error("--tls-cert and --tls-key must be given together")
+    if args.checkpoint_interval > 0 and not args.checkpoint:
+        ap.error("--checkpoint-interval requires --checkpoint <path>")
     if args.no_overlap:
         # flip the process-global switch too: the embedded Batch/pack paths
         # of THIS process must match the server's serial reply path
@@ -1798,13 +1908,15 @@ def main(argv=None):
         _sched.set_qos(False)
     if args.no_preempt:
         ioplane.set_preempt(False)
+    engine = Engine(device=args.device)
     srv = TpuServer(
-        Engine(device=args.device),
+        engine,
         host=args.host,
         port=args.port,
         advertise_host=args.advertise_host,
         mode=args.mode,
         password=args.password,
+        checkpoint_path=args.checkpoint,
         overlap=not args.no_overlap,
         workers=args.workers,
         qos=False if args.no_qos else None,
@@ -1817,7 +1929,25 @@ def main(argv=None):
     # the node's log (a supervisor sends stdout there) names the device it
     # serves on, and at a graceful stop the kernel launches it made
     print(f"serving on {srv.engine.device}", flush=True)
-    asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd))
+    from redisson_tpu_torch.core import checkpoint
+
+    # a fresh boot has nothing to restore yet: a supervisor's restart passes
+    # --restore once the node's checkpoint directory exists
+    if args.restore and args.checkpoint and os.path.exists(args.checkpoint):
+        n = checkpoint.load(engine, args.checkpoint)
+        print(f"restored {n} records from {args.checkpoint}", flush=True)
+    checkpointer = None
+    if args.checkpoint and args.checkpoint_interval > 0:
+        checkpointer = checkpoint.AutoCheckpointer(
+            engine, args.checkpoint, args.checkpoint_interval
+        ).start()
+    try:
+        # SIGTERM and SIGINT both land on the graceful path
+        asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd))
+    finally:
+        if checkpointer is not None:
+            # flush-on-stop: writes since the last tick reach disk
+            checkpointer.stop()
     from redisson_tpu_torch.core import kernels as K
 
     print("kernel launches " + json.dumps(dict(K.launches)), flush=True)

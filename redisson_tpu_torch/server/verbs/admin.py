@@ -28,11 +28,22 @@ A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
     by function name (FCALL); EVAL, SCRIPT LOAD and FUNCTION LOAD/DUMP
     reply the reference's errors.
 
-The rest of the file (SAVE, the replication verbs, DUMP, RESTORE, COPY,
-WAIT) comes with the operations slice (ROADMAP M11).
+  * ROLE (the master form; a replica's comes with the replication slice),
+    METRICS (and METRICS CLUSTER over ``TpuServer.link_client``), and the
+    tracing plane's TRACE, SLOWLOG and LATENCY over ``observe/trace.py``
+    (reference ``:959-1152``).
+  * The durability verbs over ``core/checkpoint.py``: SAVE, BGSAVE,
+    BGREWRITEAOF (a background checkpoint: there is no AOF), LASTSAVE,
+    SHUTDOWN (a failed final save aborts it), RESTORESTATE, DUMP and
+    RESTORE (reference ``:1154-1232``, ``:1440-1476``).
+
+The replication verbs (REPLFLUSH, REPLPING, REPLPUSH, REPLPUSHSEG,
+REPLREGISTER, REPLSNAPSHOT, REPLSTATE), IMPORTRECORDS and WAIT come with the
+operations slice (ROADMAP M11 parts 3 and 4).
 """
 
 import sys
+import threading
 import time
 
 from redisson_tpu_torch.net.resp import RespError
@@ -301,6 +312,292 @@ def cmd_replicaof(server, ctx, args):
 def cmd_replicas(server, ctx, args):
     # a master's replica list: empty, as no replica attaches before M11
     return []
+
+
+@register("ROLE")
+def cmd_role(server, ctx, args):
+    """Redis ROLE parity, in the master form: ["master", 0, [replica
+    addrs], promoted-from].  No replica attaches before the replication
+    slice, so the list is empty and the node was never promoted."""
+    return [b"master", 0, [], (server.promoted_from or "").encode()]
+
+
+@register("METRICS")
+def cmd_metrics(server, ctx, args):
+    """Prometheus text exposition of the node's metrics registry.
+
+    ``METRICS CLUSTER``: fan the scrape out to every master in this node's
+    cluster view and merge the expositions with per-node
+    ``node="host:port"`` labels (``utils.metrics.merge_prometheus_texts``,
+    which ``ClusterSupervisor.scrape`` rides too).  A dead peer contributes
+    nothing rather than failing the whole scrape."""
+    if args and bytes(args[0]).upper() == b"CLUSTER":
+        from redisson_tpu_torch.utils.metrics import merge_prometheus_texts
+
+        texts = {server.address(): server.metrics.prometheus_text()}
+        seen = {(server.host, server.port)}
+        for _lo, _hi, host, port, _nid in server.cluster_view:
+            if (host, port) in seen:
+                continue
+            seen.add((host, port))
+            try:
+                link = server.link_client(
+                    f"{host}:{port}", ping_interval=0, retry_attempts=1
+                )
+                try:
+                    texts[f"{host}:{port}"] = bytes(
+                        link.execute("METRICS", timeout=10.0)
+                    ).decode()
+                finally:
+                    link.close()
+            except Exception:  # noqa: BLE001 — dead peer: scrape the rest
+                continue
+        return merge_prometheus_texts(texts).encode()
+    return server.metrics.prometheus_text().encode()
+
+
+# -- tracing plane verbs (TRACE / SLOWLOG / LATENCY) -------------------------
+
+
+def _span_wire(span) -> list:
+    """One stage span on the wire: [name, off_us, dur_us, [k, v, ...]]."""
+    attrs = []
+    if span.attrs:
+        for k, v in span.attrs.items():
+            attrs.append(k.encode())
+            attrs.append(v if isinstance(v, int) else str(v).encode())
+    return [span.name.encode(), span.off_us, span.dur_us, attrs]
+
+
+def _trace_wire(tr) -> list:
+    """One frame trace on the wire: [id, unix_ms, total_us, verb, n_cmds,
+    class, tenant, [span, ...]] — tools/trace_dump.py renders this as a
+    per-stage waterfall."""
+    return [
+        tr.trace_id, int(tr.ts * 1000), tr.total_us, tr.verbs.encode(),
+        tr.n_cmds, (tr.qos_class or "").encode(), (tr.tenant or "").encode(),
+        [_span_wire(s) for s in tr.spans],
+    ]
+
+
+@register("TRACE")
+def cmd_trace(server, ctx, args):
+    """TRACE GET [n] [BY total|<stage>] | RESET | CONFIG GET|SET k v —
+    the per-frame span ring over the wire.  GET returns the slowest-n
+    finished traces ordered by total duration (or by one stage's summed
+    duration), each a full span tree.  Empty while tracing is disarmed
+    (CONFIG SET trace-enabled yes arms)."""
+    sub = bytes(args[0]).upper() if args else b"GET"
+    tracer = server.tracer
+    if sub == b"GET":
+        rest = list(args[1:])
+        n = 10
+        by = "total"
+        if rest and bytes(rest[0]).upper() != b"BY":
+            n = _int(rest[0])
+            rest = rest[1:]
+        if rest and bytes(rest[0]).upper() == b"BY":
+            if len(rest) < 2:
+                raise RespError("ERR TRACE GET ... BY needs a stage name")
+            by = _s(rest[1])
+        return [_trace_wire(t) for t in tracer.slowest(n, by=by)]
+    if sub == b"RESET":
+        tracer.reset()
+        return "+OK"
+    if sub == b"CONFIG":
+        mode = bytes(args[1]).upper() if len(args) > 1 else b"GET"
+        if mode == b"GET":
+            out = []
+            view = server.config_view()
+            for k in ("trace-enabled", "trace-ring-capacity",
+                      "slowlog-log-slower-than", "slowlog-max-len"):
+                out += [k.encode(), str(view[k]).encode()]
+            return out
+        if mode == b"SET":
+            if len(args) < 4:
+                raise RespError("ERR TRACE CONFIG SET <key> <value>")
+            if not server.config_set(_s(args[2]), _s(args[3])):
+                raise RespError(
+                    f"ERR unknown TRACE CONFIG parameter '{_s(args[2])}'"
+                )
+            return "+OK"
+        raise RespError("ERR TRACE CONFIG expects GET|SET")
+    raise RespError("ERR TRACE expects GET|RESET|CONFIG")
+
+
+@register("SLOWLOG")
+def cmd_slowlog(server, ctx, args):
+    """SLOWLOG GET [n] | RESET | LEN over the trace ring (threshold: CONFIG
+    SET slowlog-log-slower-than <us>, negative disables, 0 logs every
+    frame).  Each entry carries the per-stage breakdown:
+    [id, unix_ts, total_us, [verb, ncmds], [[stage, dur_us], ...]]."""
+    sub = bytes(args[0]).upper() if args else b"GET"
+    tracer = server.tracer
+    if sub == b"GET":
+        n = _int(args[1]) if len(args) > 1 else 10
+        out = []
+        for sid, ts, dur_us, tr, stages in tracer.slowlog_get(n):
+            out.append([
+                sid, ts, dur_us,
+                [tr.verbs.encode(), str(tr.n_cmds).encode()],
+                [[st.encode(), us] for st, us in sorted(stages.items())],
+            ])
+        return out
+    if sub == b"LEN":
+        return tracer.slowlog_len()
+    if sub == b"RESET":
+        tracer.slowlog_reset()
+        return "+OK"
+    raise RespError("ERR SLOWLOG expects GET|RESET|LEN")
+
+
+@register("LATENCY")
+def cmd_latency(server, ctx, args):
+    """LATENCY HISTORY <event> | RESET [event ...] | LATEST over the
+    per-stage samples the tracer collects (events are stage names: total,
+    qos, dispatch, stage, kernel, readback, reply)."""
+    sub = bytes(args[0]).upper() if args else b""
+    tracer = server.tracer
+    if sub == b"HISTORY":
+        if len(args) < 2:
+            raise RespError("ERR LATENCY HISTORY <event>")
+        # (unix ts, MILLISECONDS) pairs; a sub-ms sample rounds up to 1 so
+        # it never reads as "no latency"
+        return [
+            [ts, max(1, int(round(ms)))]
+            for ts, ms in tracer.latency_history(_s(args[1]))
+        ]
+    if sub == b"RESET":
+        return tracer.latency_reset([_s(a) for a in args[1:]])
+    if sub == b"LATEST":
+        out = []
+        for ev in tracer.latency_events():
+            hist = tracer.latency_history(ev)
+            if not hist:
+                continue
+            ts, ms = hist[-1]
+            worst = max(m for _t, m in hist)
+            out.append([
+                ev.encode(), ts,
+                max(1, int(round(ms))), max(1, int(round(worst))),
+            ])
+        return out
+    raise RespError("ERR LATENCY expects HISTORY|RESET|LATEST")
+
+
+# -- durability verbs (core/checkpoint.py) -----------------------------------
+
+
+def _checkpoint_path(server, args) -> str:
+    path = _s(args[0]) if args else server.checkpoint_path
+    if path is None:
+        raise RespError("ERR no checkpoint path configured")
+    return path
+
+
+@register("SAVE")
+def cmd_save(server, ctx, args):
+    from redisson_tpu_torch.core import checkpoint
+
+    checkpoint.save(server.engine, _checkpoint_path(server, args))
+    return "+OK"
+
+
+@register("BGSAVE")
+def cmd_bgsave(server, ctx, args):
+    """Checkpoint in the background (the RDB BGSAVE role); LASTSAVE reports
+    the completion time of the most recent one."""
+    path = _checkpoint_path(server, args)
+    from redisson_tpu_torch.core import checkpoint
+
+    def run():
+        try:
+            checkpoint.save(server.engine, path)
+            server.__dict__["_lastsave"] = int(time.time())
+        except Exception:  # noqa: BLE001 — background save: best-effort
+            pass
+
+    threading.Thread(target=run, daemon=True, name="rtpu-bgsave").start()
+    return "+Background saving started"
+
+
+@register("BGREWRITEAOF")
+def cmd_bgrewriteaof(server, ctx, args):
+    """No AOF exists: durability is checkpoints (and, with the operations
+    slice, replication), so the rewrite degrades to a background
+    checkpoint."""
+    cmd_bgsave(server, ctx, args)
+    return "+Background append only file rewriting started"
+
+
+@register("LASTSAVE")
+def cmd_lastsave(server, ctx, args):
+    return int(server.__dict__.get("_lastsave", 0))
+
+
+@register("SHUTDOWN")
+def cmd_shutdown(server, ctx, args):
+    """SHUTDOWN [NOSAVE|SAVE]: optionally checkpoint, then stop the server.
+    The stop runs on a side thread so this handler's worker can finish its
+    frame; a failed final save ABORTS the shutdown, as in Redis."""
+    mode = bytes(args[0]).upper() if args else b""
+    if mode == b"SAVE" and not server.checkpoint_path:
+        raise RespError("ERR no checkpoint path configured")
+    if mode == b"SAVE" or (mode != b"NOSAVE" and server.checkpoint_path):
+        from redisson_tpu_torch.core import checkpoint
+
+        try:
+            checkpoint.save(server.engine, server.checkpoint_path)
+            server.__dict__["_lastsave"] = int(time.time())
+        except Exception as e:  # noqa: BLE001 — data would be lost silently
+            raise RespError(f"ERR shutdown save failed, aborting: {e}")
+    threading.Thread(target=server.stop, daemon=True, name="rtpu-shutdown").start()
+    return "+OK"
+
+
+@register("RESTORESTATE")
+def cmd_restorestate(server, ctx, args):
+    from redisson_tpu_torch.core import checkpoint
+
+    return checkpoint.load(server.engine, _checkpoint_path(server, args))
+
+
+@register("DUMP")
+def cmd_dump(server, ctx, args):
+    """DUMP key — the portable record blob (core/checkpoint.dump_record);
+    a missing key dumps nil."""
+    from redisson_tpu_torch.core import checkpoint
+
+    try:
+        return checkpoint.dump_record(server.engine, _s(args[0]))
+    except KeyError:
+        return None
+
+
+@register("RESTORE")
+def cmd_restore(server, ctx, args):
+    """RESTORE key ttl(ms) blob [REPLACE] [PERSIST] — BUSYKEY unless
+    REPLACE; ttl 0 is no expiry (RObject.migrate ships the remaining TTL
+    as this operand)."""
+    from redisson_tpu_torch.core import checkpoint
+
+    name = _s(args[0])
+    ttl_ms = _int(args[1])
+    if ttl_ms < 0:
+        raise RespError("ERR Invalid TTL value, must be >= 0")
+    opts = {bytes(a).upper() for a in args[3:]}
+    if opts - {b"REPLACE", b"PERSIST"}:
+        raise RespError("ERR syntax error")
+    try:
+        checkpoint.restore_record(
+            server.engine, name, bytes(args[2]),
+            ttl_ms / 1000.0 if ttl_ms > 0 else None,
+            b"REPLACE" in opts, persist=b"PERSIST" in opts or ttl_ms == 0,
+        )
+    except ValueError as e:
+        msg = str(e)
+        raise RespError(msg if msg.startswith("BUSYKEY") else f"ERR {msg}")
+    return "+OK"
 
 # -- script / function / admin verbs (RScript + RFunction wire surface) ------
 

@@ -1,9 +1,7 @@
 """Sorted sets: ZADD family, lex ranges, combination reads, range stores
 (RScoredSortedSet wire surface), with RENAMENX, BITPOS and SORT: a copy of
-``redisson_tpu/server/verbs/zset.py``.
-
-COPY is left out: it clones a record through ``core/checkpoint.py``
-(ROADMAP M11), and until then replies the unknown-command error.
+``redisson_tpu/server/verbs/zset.py``.  COPY clones a record of any kind
+through ``core/checkpoint.clone_record``.
 """
 
 from typing import Dict
@@ -253,6 +251,17 @@ def cmd_zinterstore(server, ctx, args):
 
 
 # -- generic verbs (RedisCommands.java rows toward full verb parity) ---------
+
+@register("COPY")
+def cmd_copy(server, ctx, args):
+    """COPY src dst [REPLACE] — record-level clone, any object kind
+    (core/checkpoint.clone_record: tensors deep-copy on their device)."""
+    from redisson_tpu_torch.core import checkpoint
+
+    src, dst = _s(args[0]), _s(args[1])
+    replace = any(bytes(a).upper() == b"REPLACE" for a in args[2:])
+    return 1 if checkpoint.clone_record(server.engine, src, dst, replace) else 0
+
 
 @register("RENAMENX")
 def cmd_renamenx(server, ctx, args):

@@ -11,7 +11,7 @@ verb and a wrong-arity call.  ``scale`` multiplies the key counts.
 
 ``collections_stream(seed, scale)`` reaches every set, list, sorted-set
 and hash-extra verb, the multi-pops and the blocking verbs (timed-out and
-served), RENAMENX, BITPOS and SORT, with their error replies, and the
+served), RENAMENX, BITPOS, SORT and COPY, with their error replies, and the
 keyspace verbs (TYPE, KEYS, SCAN, EXPIRE, RENAME, DEL) over those records.
 
 ``objcall_stream(seed, scale)`` holds the generic object calls (OBJCALL,
@@ -344,6 +344,10 @@ def collections_stream(seed: int = 0, scale: int = 1) -> List[tuple]:
         ("SORT", "l:n"), ("SORT", "l:n", "DESC", "LIMIT", "1", "4"), ("SORT", "l:p", "ALPHA"),
         ("SORT", "l:p"), ("SORT", "s:c", "ALPHA", "DESC"), ("SORT", "l:n", "STORE", "l:sorted"),
         ("LRANGE", "l:sorted", "0", "-1"), ("SORT", "l:none"), ("SORT", "l:n", "BOGUS"),
+        ("COPY", "z:a", "z:copy"), ("COPY", "z:a", "z:copy"), ("ZADD", "z:copy", "9", "only-copy"),
+        ("ZRANGE", "z:copy", "0", "-1", "WITHSCORES"), ("ZCARD", "z:a"),
+        ("COPY", "l:sorted", "z:copy", "REPLACE"), ("LRANGE", "z:copy", "0", "-1"),
+        ("COPY", "s:none", "x:copy"), ("EXISTS", "x:copy"),
         # wrong types and arities
         ("SADD", "l:a", "x"), ("LPUSH", "s:a", "x"), ("ZADD", "h:a", "1", "x"), ("HSETNX", "z:a", "f", "v"),
         ("SMEMBERS", "z:a"), ("LRANGE", "h:a", "0", "1"), ("SADD",), ("ZRANGE", "z:a"),

@@ -329,13 +329,19 @@ def test_an_ssh_loopback_fleet_serves_over_tls():
 def test_replicas_and_replicated_clients_wait_for_m11():
     for make in (lambda: ClusterRunner(masters=1, replicas_per_master=1, device="cpu"),
                  lambda: ClusterSupervisor(masters=1, replicas_per_master=1),
-                 lambda: ClusterSupervisor(masters=1, checkpoint_interval=5.0),
                  lambda: ReplicatedRedisson(["127.0.0.1:1"]),
                  lambda: ReplicatedRedisson.create(port_config.Config())):
         with pytest.raises(NotImplementedError, match="M11"):
             make()
-    sup = ClusterSupervisor(masters=1)
-    for call in (lambda: sup.promote_replica(None), lambda: sup.rolling_restart(), sup.scrape):
+    # checkpoints came with M11 part 1: each node's checkpoint path and
+    # interval go on its command line; scrape merges the live nodes (none)
+    sup = ClusterSupervisor(masters=1, checkpoint_interval=5.0)
+    node = sup._make_node("m0", "master", 0)
+    cli = sup._server_cli(node, restore=True)  # no checkpoint yet: no --restore
+    assert cli[cli.index("--checkpoint") + 1] == node.checkpoint_path
+    assert cli[cli.index("--checkpoint-interval") + 1] == "5.0" and "--restore" not in cli
+    assert sup.scrape() == "\n"
+    for call in (lambda: sup.promote_replica(None), lambda: sup.rolling_restart()):
         with pytest.raises(NotImplementedError, match="M11"):
             call()
     # the fleet QoS loop is served: idempotent, stopped by shutdown

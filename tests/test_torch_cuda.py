@@ -1940,3 +1940,48 @@ def test_sharded_objects_on_the_card_equal_unsharded(dev):
         assert sb.cardinality() == ub.cardinality()
     finally:
         c.shutdown()
+
+
+def test_checkpoint_and_dump_round_trip_on_the_card(dev, tmp_path):
+    """A checkpoint saved from the card loads onto the card and onto the
+    CPU bit for bit (the format is the device's own nowhere); DUMP, RESTORE
+    and COPY keep the state on the card, and the restored and copied
+    objects answer as the source."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import checkpoint
+
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 62, 5000, dtype=np.int64)
+    tenants = (np.arange(5000) % 8).astype(np.int32)
+    src = redisson_tpu_torch.create(device=dev)
+    try:
+        ba = src.get_bloom_filter_array("cc:bfa")
+        ba.try_init(8, 2000, 0.01)
+        ba.add_each(tenants, keys)
+        h = src.get_hyper_log_log_array("cc:hlla")
+        h.try_init(8)
+        h.add(tenants, keys)
+        path = str(tmp_path / "card.ckpt")
+        assert checkpoint.save(src.engine, path) == 2
+        for target in (dev, torch.device("cpu")):
+            fresh = redisson_tpu_torch.create(device=target)
+            try:
+                assert checkpoint.load(fresh.engine, path) == 2
+                for name, key in (("cc:bfa", "bits"), ("cc:hlla", "regs")):
+                    got = fresh.engine.store.get(name).arrays[key]
+                    assert got.device.type == target.type
+                    assert torch.equal(got.cpu(), src.engine.store.get(name).arrays[key].cpu())
+                assert np.array_equal(fresh.get_bloom_filter_array("cc:bfa").contains(tenants, keys),
+                                      ba.contains(tenants, keys))
+            finally:
+                fresh.shutdown()
+        before = dict(K.launches)
+        checkpoint.restore_record(src.engine, "cc:bfa:r", checkpoint.dump_record(src.engine, "cc:bfa"))
+        assert checkpoint.clone_record(src.engine, "cc:hlla", "cc:hlla:c")
+        for name, key in (("cc:bfa:r", "bits"), ("cc:hlla:c", "regs")):
+            assert src.engine.store.get(name).arrays[key].device.type == "cuda"
+        assert src.get_bloom_filter_array("cc:bfa:r").contains(tenants, keys).all()
+        assert np.array_equal(src.get_hyper_log_log_array("cc:hlla:c").estimate_all(), h.estimate_all())
+        assert K.launches["bloom_probe"] > before["bloom_probe"] and K.launches["hll_rows"] > before["hll_rows"]
+    finally:
+        src.shutdown()

@@ -166,11 +166,17 @@ def test_armed_and_disarmed_replies_are_the_same_bytes():
 def test_operations_knobs_read_defaults_and_refuse_sets():
     with ServerThread(port=0, device="cpu") as st, RefServerThread(port=0) as ref, \
             st.client() as c, ref.client() as rc:
-        for key in ("checkpoint-path", "residency-enabled", "device-budget-bytes",
+        for key in ("residency-enabled", "device-budget-bytes",
                     "lane-watchdog-ms", "lane-quarantine-after"):
             assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
             err = c.execute("CONFIG", "SET", key, "1")
             assert isinstance(err, RespError) and "M11" in str(err)
+        # checkpoint-path came with the checkpoints: read and set as the
+        # reference's
+        for conn in (c, rc):
+            assert conn.execute("CONFIG", "GET", "checkpoint-path") == [b"checkpoint-path", b""]
+            assert conn.execute("CONFIG", "SET", "checkpoint-path", "/tmp/cp.ckpt") == b"OK"
+        assert c.execute("CONFIG", "GET", "checkpoint-path") == rc.execute("CONFIG", "GET", "checkpoint-path")
 
 
 def test_preempt_point_yields_to_a_waiting_interactive_dispatch():

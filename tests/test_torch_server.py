@@ -125,6 +125,38 @@ def test_a_run_larger_than_one_read_still_fuses(monkeypatch):
     assert all(r == b"\x01" * 10_000 for r in replies[8:])
 
 
+def test_a_kernel_failure_in_a_fused_run_replies_errors_per_command(monkeypatch):
+    """The port keeps its choice against the reference's fallback: a fused
+    contains run whose kernel fails (injected at the kernel wrapper the
+    fused path launches, ``kernels.bloom_probe``) replies ``ERR internal``
+    for every command of the run, counts each in ``stats["errors"]``, and
+    never re-dispatches the run command by command."""
+    names = [f"kf{i}" for i in range(5)]
+    frame = [("BF.MEXISTS64", n, W._i8(np.arange(16))) for n in names]
+    dispatched = []
+    real_dispatch = registry.Registry.dispatch
+
+    def counting(self, server, ctx, args):
+        dispatched.append(bytes(args[0]))
+        return real_dispatch(self, server, ctx, args)
+
+    def failing_kernel(*a, **k):
+        raise RuntimeError("injected kernel failure")
+
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        _filters(c, names)
+        assert c.execute_many(frame) == [b"\x00" * 16] * 5  # the fused run works
+        monkeypatch.setattr(registry.Registry, "dispatch", counting)
+        monkeypatch.setattr(K, "bloom_probe", failing_kernel)
+        errors = st.server.stats["errors"]
+        got = c.execute_many(frame)
+        assert [str(e) for e in got] == ["ERR internal: RuntimeError: injected kernel failure"] * 5
+        assert st.server.stats["errors"] == errors + 5
+        assert dispatched == []  # no per-command dispatch ran
+        monkeypatch.undo()
+        assert c.execute_many(frame) == [b"\x00" * 16] * 5
+
+
 def test_a_failed_fused_run_replies_errors_and_is_never_redispatched(monkeypatch):
     """Only an ineligible run takes the per-command route; any other
     failure of the fused launch replies one error a command."""
@@ -297,9 +329,12 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
         ServerThread(port=0, device="cuda:0")
 
 
-@pytest.mark.parametrize("kw, milestone", [({"checkpoint_path": "/tmp/x"}, "M11"),
-                                           ({"journal_dir": "/tmp/j"}, "M11")])
+@pytest.mark.parametrize("kw, milestone", [({"journal_dir": "/tmp/j"}, "M11"),
+                                           ({"journal_dir": "/tmp/j", "checkpoint_path": "/tmp/x"},
+                                            "M11")])
 def test_left_out_arguments_refuse(kw, milestone):
+    """Migration journals wait for M11 part 4, also beside a checkpoint
+    path (which is served)."""
     with pytest.raises(NotImplementedError, match=milestone):
         ServerThread(port=0, device="cpu", **kw)
 
@@ -554,11 +589,16 @@ def test_stop_unparks_a_waiter():
 
 
 def test_set_verbs_are_served_and_copy_waits_for_checkpoints():
+    """COPY came with the checkpoints: it clones the set, which then lives
+    on its own."""
     with ServerThread(port=0, device="cpu") as st, st.client() as c:
         assert c.execute("SADD", "s", "a", "b") == 2
         assert c.execute("SCARD", "s") == 2
-        copy = c.execute("COPY", "s", "t")
-        assert isinstance(copy, resp.RespError) and "unknown command 'COPY'" in str(copy)
+        assert c.execute("COPY", "s", "t") == 1
+        assert c.execute("COPY", "s", "t") == 0
+        assert c.execute("SADD", "t", "c") == 1
+        assert sorted(c.execute("SMEMBERS", "t")) == [b"a", b"b", b"c"]
+        assert c.execute("SCARD", "s") == 2
 
 
 def _collection_invalidations(make):

@@ -8,7 +8,6 @@ import pytest
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_sigterm_flushes_checkpoint_and_exits_zero": "M11 (checkpoints)",
     "test_rearm_recovery_fences_restored_source": "M11 (migration journals, rearm_recovery)",
     "test_cross_process_kill_mid_drain_smoke": "M11 (the chaos soak harness, migrate_slots)",
     "test_cross_process_kill_at_every_phase": "M11 (the chaos soak harness, migrate_slots)",

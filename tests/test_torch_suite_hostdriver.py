@@ -10,7 +10,6 @@ WAITING = {
     "test_ssh_fleet_weighted_qos_rebalance": "M11 (replicas, on the ssh fleet)",
     "test_ssh_fleet_refuses_plaintext": "M11 (replicas, on the ssh fleet)",
     "test_ssh_fleet_host_kill_promote_and_recover": "M11 (replicas, promote_replica)",
-    "test_local_fleet_stays_plaintext": "M11 (checkpoints: the CLI's restore=)",
     # not waiting for a slice: it asserts the reference's module name in
     # the remote script; the port's starts ``-m redisson_tpu_torch.server``
     "test_ssh_remote_script_pipeline": "none (the reference's module name)",

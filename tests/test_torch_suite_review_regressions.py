@@ -1,0 +1,7 @@
+"""The reference's tests/test_review_regressions.py, unedited, on the port
+(tests/_torch_port_suite.py); every test runs (``WAITING`` is empty)."""
+from tests import _torch_port_suite
+
+WAITING = {}
+
+globals().update(_torch_port_suite.load("test_review_regressions", WAITING, __name__))

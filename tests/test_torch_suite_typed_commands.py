@@ -4,9 +4,6 @@ slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_round3_verbs_route_on_cluster": "M11 (COPY)",
-    "test_copy_and_renamenx": "M11 (COPY)",
-    "test_copy_device_backed_object_no_alias": "M11 (COPY)",
     "test_config_and_wait": "M11 (WAIT, server/verbs/admin.py)",
 }
 

@@ -233,7 +233,29 @@ Phases (any failure raises and the script exits non-zero):
      launch knn_score and knn_select; K19 (kernels.knn_sharded_merge, one
      knn_select launch a merge) is then held to its plain version at its
      shape, (64, 80) k 10, and timed beside torch.topk and its bound (its
-     row "knn_select K19", its launches the path's merges);
+     row "knn_select K19", its launches the path's merges); then the
+     durability and observe paths (run_durability, run_observe:
+     checkpoints, DUMP/RESTORE/COPY, TRACE/SLOWLOG/LATENCY/METRICS); then
+     the warm path (run_warm, core/warmpool.py): config 2's bank, config
+     3's counters and an HLL saved into a checkpoint, Engine.prewarm in
+     this process (a second pass warms 0, the records equal their copies),
+     and two server processes on the card restoring it, one with
+     --prewarm: their first and second 100k-key BFA.MEXISTS64, PFADD and
+     PFCOUNT at the client, and --prewarm's seconds and pool stats; and the
+     replication path (run_replication, server/replication.py):
+     ClusterRunner(masters=1, replicas_per_master=1) on the card, the
+     master filled to configs 2 and 3's design loads, REPLICAOF timed (s
+     and MB/s), bursts of 1,000 bank keys and 10,000 counter ops and one
+     100,000-key flush each shipped by REPLFLUSH (bytes, delta or full,
+     time), the replica equal to the master by torch.equal after each;
+     BFA.MEXISTS64 through ClusterRedisson(read_mode="replica") equal to
+     the master's bytes with the replica's bloom_probe launches counted;
+     K23 (the packed upload) and K24 (the block patch), torch ops, held to
+     per-array copies and to the numpy patch and timed beside their byte
+     bounds (printed, not in the kernels line: no hand kernel); bad REPLPUSH
+     deltas refused with the card still usable; REPLSTATE staleness and
+     WAIT 1 p50/p99 under a 5 s writer; and a ClusterSupervisor replica
+     process answering a READONLY read with the master's bytes;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -365,7 +387,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "cluster": ("bloom_probe", "bitset_set"), "cluster_proc": ("bloom_probe", "bitset_set"),
                 "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select"),
-                "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",)}
+                "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",),
+                "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add")}
 FPP = 0.01
 
 
@@ -6336,6 +6359,613 @@ def run_observe(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the warm path: a checkpoint restored by two server processes on the card,
+# one with --prewarm (core/warmpool.py)
+# --------------------------------------------------------------------------
+
+WM_HLL_KEYS, WM_PFADD, WM_READY_S = 100_000, 100, 300.0
+
+
+def _spawn_server(args, log_path: str, device):
+    """python -m redisson_tpu_torch.server with `args` on `device`, its
+    output to log_path; returns (process, READY line's host, port)."""
+    import select
+
+    r, w = os.pipe()
+    cmd = [sys.executable, "-m", "redisson_tpu_torch.server", "--port", "0", "--ready-fd", str(w), *args]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(cmd, cwd=HERE, pass_fds=(w,), stdout=logf, stderr=subprocess.STDOUT)
+    os.close(w)
+    buf, deadline = b"", time.monotonic() + WM_READY_S
+    try:
+        while b"\n" not in buf:
+            ready, _, _ = select.select([r], [], [], 0.5)
+            if ready:
+                chunk = os.read(r, 4096)
+                if not chunk:
+                    break
+                buf += chunk
+            elif proc.poll() is not None or time.monotonic() > deadline:
+                break
+    finally:
+        os.close(r)
+    line = buf.decode(errors="replace").split()
+    if len(line) < 3 or line[0] != "READY":
+        proc.kill()
+        proc.wait(30)
+        with open(log_path, errors="replace") as f:
+            raise AssertionError(f"warm: a server never reported ready:\n{f.read()[-2000:]}")
+    return proc, line[1], int(line[2])
+
+
+def _stop_server(proc, log_path: str) -> str:
+    proc.terminate()
+    try:
+        rc = proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait(30)
+    with open(log_path, errors="replace") as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"warm: a server exited {rc}:\n{text[-2000:]}")
+    return text
+
+
+def warm_firsts(host: str, port: int, rng) -> dict:
+    """The first and second 100k-key BFA.MEXISTS64 frame, PFADD and
+    PFCOUNT on a freshly restored server, in ms at the client."""
+    from redisson_tpu_torch.net.client import Connection
+
+    conn = Connection(host, port, timeout=600.0)
+    out = {}
+    try:
+        for i in range(2):
+            t, ks = config2_flush(rng)
+            words = [f"wm:{i}:{j}" for j in range(WM_PFADD)]
+            for verb, cmd in (("bfa_mexists64", ("BFA.MEXISTS64", "wm:c2", _i4(t), _i8(ks))),
+                              ("pfadd", ("PFADD", "wm:hll", *words)), ("pfcount", ("PFCOUNT", "wm:hll"))):
+                s = time.perf_counter()
+                reply = conn.execute(*cmd)
+                out[f"{verb}_{'first' if i == 0 else 'second'}_ms"] = (time.perf_counter() - s) * 1e3
+                if verb == "bfa_mexists64" and not np.frombuffer(reply, np.uint8)[0::2].all():
+                    raise AssertionError("warm: a present key was not found after the restore")
+    finally:
+        conn.close()
+    return out
+
+
+def run_warm(device="cuda") -> dict:
+    """The warm path: config 2's bank at its design load, config 3's 10,000
+    counters and one HLL, saved once into a checkpoint; in this process
+    Engine.prewarm warms their kernels on throwaway planes (a second pass
+    warms none, the records equal their copies by torch.equal); then two
+    server processes on the card restore the checkpoint, one with
+    --prewarm: the first and second 100k-key BFA.MEXISTS64 frame, PFADD and
+    PFCOUNT of each, and --prewarm's own seconds and pool stats from its
+    log."""
+    import shutil
+    import tempfile
+
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import checkpoint
+    from redisson_tpu_torch.core import kernels as K
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    dev = torch.device(device)
+    rng = np.random.default_rng(101)
+    wdir = tempfile.mkdtemp(prefix="rtpu-warm-")
+    client = redisson_tpu_torch.create(device=device)
+    out = {}
+    try:
+        arr = client.get_bloom_filter_array("wm:c2")
+        arr.try_init(C2_TENANTS, C2_PER_TENANT, FPP)
+        arr.add_flushes_async(config2_ingest())
+        bank = client.get_hyper_log_log_array("wm:c3")
+        bank.try_init(C3_TENANTS)
+        for _ in range(C3_BATCHES):
+            bank.add(rng.integers(0, C3_TENANTS, C3_BATCH).astype(np.int32),
+                     rng.integers(0, 1 << 60, C3_BATCH).astype(np.int64))
+        client.get_hyper_log_log("wm:hll").add_all(rng.integers(0, 1 << 60, WM_HLL_KEYS).astype(np.int64))
+        engine = client.engine
+        before = {(n, k): v.clone() for n in ("wm:c2", "wm:c3", "wm:hll")
+                  for k, v in engine.store.get(n).arrays.items()}
+        _sync(dev)
+        s = time.perf_counter()
+        first = engine.prewarm()
+        _sync(dev)
+        prewarm_s = time.perf_counter() - s
+        again = engine.prewarm()
+        if first < 3 or again != 0:
+            raise AssertionError(f"warm: prewarm warmed {first}, then {again}")
+        for (n, k), v in before.items():
+            _same_tensor(f"warm: {n}/{k} after prewarm", engine.store.get(n).arrays[k], v)
+        del before
+        stats = engine.warm_pool.stats()
+        path = os.path.join(wdir, "warm.ckpt")
+        _sync(dev)
+        nrec = checkpoint.save(engine, path)
+        out.update({"in_process": {"warmed": first, "second_pass": again, "prewarm_s": prewarm_s,
+                                   "pool": stats}, "records": nrec, "file_bytes": os.path.getsize(path)})
+        log(f"warm [{card}]: Engine.prewarm warmed {first} keys in {prewarm_s:.6f} s, a second pass {again}; "
+            f"the records equal their copies; pool {json.dumps(stats)}; checkpoint of {nrec} records, "
+            f"{out['file_bytes']} bytes")
+    finally:
+        client.shutdown()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    launches = dict(K.launches)
+    try:
+        servers = {}
+        for label, extra in (("cold", []), ("prewarm", ["--prewarm"])):
+            log_path = os.path.join(wdir, f"{label}.log")
+            s = time.perf_counter()
+            proc, host, port = _spawn_server(["--checkpoint", path, "--restore", *extra], log_path, device)
+            ready_s = time.perf_counter() - s
+            try:
+                firsts = warm_firsts(host, port, np.random.default_rng(103))
+            finally:
+                text = _stop_server(proc, log_path)
+            if f"restored {nrec} records" not in text:
+                raise AssertionError(f"warm: {label} server log {text[-1000:]!r}")
+            servers[label] = {"ready_s": ready_s, **firsts}
+            if extra:
+                line = next((ln for ln in text.splitlines() if ln.startswith("prewarmed ")), None)
+                if line is None:
+                    raise AssertionError(f"warm: no prewarm line in {text[-1000:]!r}")
+                # "prewarmed <n> keys in <seconds> s <pool stats JSON>"
+                parts = line.split(maxsplit=6)
+                servers[label].update({"prewarmed": int(parts[1]), "prewarm_s": float(parts[4]),
+                                       "pool": json.loads(parts[6])})
+                if servers[label]["prewarmed"] != first:
+                    raise AssertionError(f"warm: the server warmed {parts[1]} keys, this process {first}")
+            log(f"warm server {label} [{card}]: ready {ready_s:.1f} s after spawn; first BFA.MEXISTS64 of "
+                f"{C2_FLUSH} keys {firsts['bfa_mexists64_first_ms']:.3f} ms (second "
+                f"{firsts['bfa_mexists64_second_ms']:.3f}), first PFADD {firsts['pfadd_first_ms']:.3f} ms "
+                f"(second {firsts['pfadd_second_ms']:.3f}), first PFCOUNT {firsts['pfcount_first_ms']:.3f} ms "
+                f"(second {firsts['pfcount_second_ms']:.3f})"
+                + (f"; --prewarm warmed {servers[label]['prewarmed']} keys in "
+                   f"{servers[label]['prewarm_s']:.6f} s, pool {json.dumps(servers[label]['pool'])}"
+                   if extra else ""))
+        out["servers"] = servers
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    log(f"warm path [{card}]: {out['seconds']:.1f}s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the replication path: a master and a replica on the card
+# (server/replication.py), and K23 and K24 against their plain versions
+# --------------------------------------------------------------------------
+
+RP_BANK_BURST, RP_HLL_BURST, RP_READ_FRAMES = 1000, 10_000, 5
+RP_STALE_S = 5.0
+# K24's planes: element counts that are not a whole number of 256-byte
+# blocks (config 2's expanded bank is 96.3 MB of uint8)
+RP_K24_U8, RP_K24_I32 = 96_300_017, 10_000_003
+# K23's timed record: five arrays of odd sizes, ~46 MB
+RP_K23_SHAPES = {"a": ((1_000_003,), np.bool_), "b": ((1000, 9_631), np.uint8), "c": ((4_000_037,), np.int32),
+                 "d": ((3_001, 1_001), np.float32), "e": ((1_000_001,), np.int64)}
+
+
+def _k23_record(rng, shapes) -> dict:
+    out = {}
+    for k, (shape, dt) in shapes.items():
+        if dt == np.bool_:
+            out[k] = rng.integers(0, 2, shape).astype(bool)
+        elif np.dtype(dt).kind == "f":
+            out[k] = rng.standard_normal(shape).astype(dt)
+        else:
+            info = np.iinfo(dt)
+            out[k] = rng.integers(info.min, info.max, shape, dtype=dt, endpoint=True)
+    return out
+
+
+def _wall_ms(fn, dev, reps: int = 5) -> float:
+    """Median wall ms of fn() between two syncs of the card."""
+    fn()
+    times = []
+    for _ in range(reps):
+        _sync(dev)
+        s = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append((time.perf_counter() - s) * 1e3)
+    return statistics.median(times)
+
+
+def check_k23(dev, rng, card: str) -> dict:
+    """K23 (ioplane.scatter_host_arrays): a record of bool, uint8, int32,
+    float32 and int64 arrays of odd sizes equals a per-array .to(device),
+    small and at ~46 MB; timed with the pinned pool beside the per-array
+    copies and the one host-to-device copy of the merged stream alone."""
+    from redisson_tpu_torch.core import ioplane
+
+    pool = ioplane.StagingPool(pin=dev.type == "cuda")
+    small = _k23_record(rng, {"a": ((13,), np.bool_), "b": ((3, 7), np.uint8), "c": ((5,), np.int32),
+                              "d": ((3, 3), np.float32), "e": ((7,), np.int64), "f": ((9,), np.uint8)})
+    big = _k23_record(rng, RP_K23_SHAPES)
+    for label, rec in (("small", small), ("timed", big)):
+        got = ioplane.scatter_host_arrays(rec, dev, pool)
+        for k, v in rec.items():
+            _same_tensor(f"K23 {label} {k}", got[k], torch.from_numpy(v).to(dev))
+    _, total = ioplane.scatter_layout(big)
+    nbytes = sum(v.nbytes for v in big.values())
+    ms = _wall_ms(lambda: ioplane.scatter_host_arrays(big, dev, pool), dev)
+    plain_ms = _wall_ms(lambda: [torch.from_numpy(v).to(dev) for v in big.values()], dev)
+    pinned = torch.empty(total, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+    copy_ms = _wall_ms(lambda: pinned.to(dev, non_blocking=True), dev)
+    bound, by = bound_ms(2 * nbytes, 0)
+    out = {"name": "K23 scatter_host_arrays", "route": "torch ops", "source": "redisson_tpu_torch/core/ioplane.py",
+           "replaces": "redisson_tpu/core/ioplane.py:753", "bytes": nbytes, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "h2d_copy_ms": copy_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+    log(f"K23 [{card}]: {len(big)} arrays, {nbytes} bytes, equal to per-array copies; {ms:.3f} ms (pinned pool) "
+        f"vs per-array .to() {plain_ms:.3f} ms, the merged stream's host-to-device copy alone {copy_ms:.3f} ms, "
+        f"bound {bound:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return out
+
+
+def _k24_numpy(host: np.ndarray, d: dict) -> np.ndarray:
+    """The plain version: the numpy patch of the host copy."""
+    be = d["data"].shape[1]
+    flat = host.reshape(-1)
+    nb = -(-flat.size // be)
+    blocks = np.concatenate([flat, np.zeros(nb * be - flat.size, flat.dtype)]).reshape(nb, be)
+    blocks[d["idx"]] = d["data"]  # numpy assigns in order: a repeated index keeps its last data
+    return blocks.reshape(-1)[: flat.size].reshape(host.shape)
+
+
+def check_k24(dev, rng, card: str) -> dict:
+    """K24 (replication._apply_array_delta) on a uint8 and an int32 plane
+    whose element counts are not whole blocks: 1 block, 1,000 blocks with
+    repeats (the partial last block among them) and 60% of the blocks,
+    each equal to the numpy patch of the host copy and timed beside it and
+    beside its byte bound."""
+    from redisson_tpu_torch.server import replication
+
+    out = {"name": "K24 _apply_array_delta", "route": "torch ops",
+           "source": "redisson_tpu_torch/server/replication.py",
+           "replaces": "redisson_tpu/server/replication.py:102", "library_ms": None, "cases": {}}
+    worst = None
+    for dt, n in ((np.uint8, RP_K24_U8), (np.int32, RP_K24_I32)):
+        host = (rng.integers(0, 256, n, dtype=np.uint8) if dt == np.uint8
+                else rng.integers(-2**31, 2**31, n, dtype=np.int32))
+        cur = torch.from_numpy(host).to(dev)
+        be = replication._block_elems(np.dtype(dt))
+        nb = -(-n // be)
+        for label, idx in (("1 block", np.asarray([nb // 2])),
+                           ("1000 blocks, repeats", np.concatenate([rng.choice(nb - 1, 950, replace=False),
+                                                                    rng.choice(nb - 1, 49), [nb - 1]])),
+                           ("60% of the blocks", rng.choice(nb, int(0.6 * nb), replace=False))):
+            idx = idx.astype(np.int32)
+            data = rng.integers(0, 127, (idx.size, be)).astype(dt)
+            d = {"idx": idx, "data": data, "shape": host.shape, "dtype": str(np.dtype(dt)), "nblocks": nb}
+            replication._validate_array_delta("k24", "a", cur, d)
+            got = replication._apply_array_delta(cur, d)
+            s = time.perf_counter()
+            want = _k24_numpy(host, d)
+            plain_ms = (time.perf_counter() - s) * 1e3
+            _same_tensor(f"K24 {np.dtype(dt)} {label}", got, torch.from_numpy(want))
+            _same_tensor(f"K24 {np.dtype(dt)} {label}: the plane is untouched", cur, torch.from_numpy(host))
+            del got, want
+            ms = _wall_ms(lambda: replication._apply_array_delta(cur, d), dev)
+            bound, by = bound_ms(2 * host.nbytes + data.nbytes + idx.nbytes, 0)
+            key = f"{np.dtype(dt)} {label}"
+            out["cases"][key] = {"elements": n, "blocks": int(idx.size), "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound}
+            log(f"K24 [{card}]: {np.dtype(dt)} plane of {n} elements, {label} ({idx.size} indexes): equal to the "
+                f"numpy patch; {ms:.3f} ms vs numpy {plain_ms:.3f} ms, bound {bound:.4f} ms")
+            if worst is None or label == "1000 blocks, repeats" and dt == np.uint8:
+                worst = (ms, plain_ms, bound, by)
+        del cur
+    out.update(ms=worst[0], plain_ms=worst[1], bound_ms=worst[2], bound_by=worst[3], max_abs_err=0.0)
+    return out
+
+
+def _rp_records(server) -> dict:
+    eng = server.engine
+    return {n: eng.store.get_unguarded(n) for n in ("rp:c2", "rp:c3")}
+
+
+def _rp_equal(master, replica, label: str) -> None:
+    m, r = _rp_records(master), _rp_records(replica)
+    for name, key in (("rp:c2", "bits"), ("rp:c3", "regs")):
+        if r[name] is None or r[name].version != m[name].version:
+            raise AssertionError(f"replication {label}: {name} version "
+                                 f"{None if r[name] is None else r[name].version} vs {m[name].version}")
+        _same_tensor(f"replication {label}: {name}", r[name].arrays[key], m[name].arrays[key])
+
+
+def _rp_ship(conn, src, label: str, master, replica) -> dict:
+    """One REPLFLUSH, timed; the bytes, full and delta records it shipped."""
+    before = dict(src.stats)
+    s = time.perf_counter()
+    reply = conn.execute("REPLFLUSH")
+    ship_s = time.perf_counter() - s
+    _rp_equal(master, replica, label)
+    out = {"ship_s": ship_s, "records": reply,
+           **{k: src.stats[k] - before[k] for k in ("bytes", "records_full", "records_delta", "pushes")}}
+    return out
+
+
+def rp_fill(conn, rng) -> None:
+    """Config 2's bank at its design load (100 flushes of 100,000 keys) and
+    config 3's 10 batches of 1M ops into 10,000 counters, over the wire."""
+    conn.execute("BFA.RESERVE", "rp:c2", C2_TENANTS, C2_PER_TENANT, FPP)
+    for t, ks in config2_ingest():
+        conn.execute_many([("BFA.MADD64", "rp:c2", _i4(t[i:i + C2_FLUSH]), _i8(ks[i:i + C2_FLUSH]))
+                           for i in range(0, len(ks), C2_FLUSH)])
+    conn.execute("HLLA.RESERVE", "rp:c3", C3_TENANTS)
+    for _ in range(C3_BATCHES):
+        conn.execute("HLLA.MADD64", "rp:c3", _i4(rng.integers(0, C3_TENANTS, C3_BATCH)),
+                     _i8(rng.integers(0, 1 << 60, C3_BATCH)))
+
+
+def rp_bad_deltas(replica, address) -> list:
+    """REPLPUSH frames whose delta names a block past the plane and whose
+    shipped shape differs: each must reply an error and write nothing."""
+    from redisson_tpu_torch.net import safe_pickle
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import replication
+
+    rec = replica.engine.store.get_unguarded("rp:c2")
+    plane = rec.arrays["bits"]
+    shape = tuple(plane.shape)
+    nb = -(-plane.numel() // 256)
+    head = {"name": "rp:c2", "kind": rec.kind, "meta": dict(rec.meta), "version": rec.version + 1,
+            "nonce": rec.nonce, "expire_at": rec.expire_at, "host_pickled": safe_pickle.dumps(rec.host, protocol=4),
+            "delta_base": rec.version}
+    row = np.zeros((1, 256), np.uint8)
+    bad = {"past the plane": {"idx": np.asarray([nb + 5], np.int32), "data": row, "shape": shape,
+                              "dtype": "uint8", "nblocks": nb},
+           "another shape": {"idx": np.asarray([0], np.int32), "data": row, "shape": (shape[0], shape[1] + 256),
+                             "dtype": "uint8", "nblocks": nb + shape[0]}}
+    replies = []
+    conn = Connection(*address, timeout=600.0)
+    try:
+        for label, d in bad.items():
+            blob = replication._wire_payload([dict(head, arrays_delta={"bits": d})], None)
+            try:
+                reply = conn.execute("REPLPUSH", blob)
+            except Exception as e:  # noqa: BLE001 — the error reply
+                reply = e
+            if "REPLPUSH delta" not in str(reply):
+                raise AssertionError(f"replication: a bad delta ({label}) replied {reply!r}")
+            replies.append(str(reply))
+    finally:
+        conn.close()
+    if replica.engine.store.get_unguarded("rp:c2") is not rec:
+        raise AssertionError("replication: a refused delta replaced the record")
+    return replies
+
+
+def rp_staleness(master_addr, replica_addr, src, rng) -> dict:
+    """A writer of 1,000-key BFA.MADD64 frames for RP_STALE_S seconds with
+    the shipper's interval at its default; REPLSTATE's staleness on the
+    replica every 10 ms from a thread of its own, and WAIT 1's time on the
+    master, one after another."""
+    from redisson_tpu_torch.net.client import Connection
+
+    stop = threading.Event()
+    errors, stale = [], []
+
+    def sampler():
+        sconn = Connection(*replica_addr, timeout=600.0)
+        try:
+            while not stop.is_set():
+                stale.append(int(sconn.execute("REPLSTATE")[2]))
+                time.sleep(0.01)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+        finally:
+            sconn.close()
+
+    def writer():
+        wconn = Connection(*master_addr, timeout=600.0)
+        try:
+            while not stop.is_set():
+                keys = rng.integers(0, 1 << 60, RP_BANK_BURST).astype(np.int64)
+                wconn.execute("BFA.MADD64", "rp:c2", _i4((keys * 40503) % C2_TENANTS), _i8(keys))
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+        finally:
+            wconn.close()
+
+    mconn = Connection(*master_addr, timeout=600.0)
+    waits = []
+    threads = [threading.Thread(target=writer, daemon=True), threading.Thread(target=sampler, daemon=True)]
+    pushes0 = dict(src.stats)
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + RP_STALE_S
+        while time.perf_counter() < deadline:
+            s = time.perf_counter()
+            if mconn.execute("WAIT", 1, 1000) != 1:
+                raise AssertionError("replication: WAIT 1 did not reach the replica")
+            waits.append((time.perf_counter() - s) * 1e3)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+        mconn.close()
+    if errors:
+        raise errors[0]
+    if min(stale) < 0:
+        raise AssertionError("replication: REPLSTATE says the replica never synced")
+    return {"samples": len(stale), "waits": len(waits), "staleness_p50_ms": pctl(stale, 50),
+            "staleness_p99_ms": pctl(stale, 99), "wait_p50_ms": pctl(waits, 50), "wait_p99_ms": pctl(waits, 99),
+            **{k: src.stats[k] - pushes0[k] for k in ("pushes", "bytes", "records_full", "records_delta")}}
+
+
+def rp_process_replica(device, card: str) -> dict:
+    """ClusterSupervisor(masters=1, replicas_per_master=1), children on the
+    card: a write, WAIT 1, and a READONLY read on the replica replying the
+    master's bytes."""
+    from redisson_tpu_torch.cluster import ClusterSupervisor
+
+    start = time.perf_counter()
+    keys = np.arange(C2_FLUSH, dtype=np.int64) * 2654435761
+    probe = _i8(np.concatenate([keys[::2], keys[::2] + 1]))
+    sup = ClusterSupervisor(masters=1, replicas_per_master=1, platform=None if device == "cuda" else device,
+                            ready_timeout=WM_READY_S)
+    try:
+        sup.start()
+        up_s = time.perf_counter() - start
+        with sup.conn(sup.masters[0], timeout=600.0) as m:
+            m.execute_many([("BF.RESERVE", "{rp}:bf", "0.01", str(4 * C2_FLUSH)), ("BF.MADD64", "{rp}:bf", _i8(keys))])
+            s = time.perf_counter()
+            acked = m.execute("WAIT", 1, 60000)
+            wait_ms = (time.perf_counter() - s) * 1e3
+            want = m.execute("BF.MEXISTS64", "{rp}:bf", probe)
+        with sup.conn(sup.replicas[0], timeout=600.0) as r:
+            r.execute("READONLY")
+            got = r.execute("BF.MEXISTS64", "{rp}:bf", probe)
+            role = r.execute("ROLE")
+    finally:
+        sup.shutdown()
+    if acked != 1 or got != want or bytes(role[0]) != b"slave":
+        raise AssertionError(f"replication process replica: WAIT {acked}, ROLE {role[0]!r}, equal {got == want}")
+    out = {"start_s": up_s, "wait_ms": wait_ms, "seconds": time.perf_counter() - start}
+    log(f"replication process replica [{card}]: master and replica processes up in {up_s:.1f} s; a "
+        f"{C2_FLUSH}-key write, WAIT 1 in {wait_ms:.3f} ms, the replica's READONLY BF.MEXISTS64 equals the "
+        f"master's")
+    return out
+
+
+def run_replication(device="cuda") -> dict:
+    """The replication path on ClusterRunner(masters=1, replicas_per_master=1)
+    on the card: the master filled to configs 2 and 3's design loads with
+    its shipper stalled, then REPLICAOF (the full sync, timed); bursts of
+    1,000 bank keys and 10,000 counter ops, each shipped by REPLFLUSH as a
+    block delta, and one 100,000-key flush that ships in full; replica
+    reads through ClusterRedisson(read_mode="replica"); K23 and K24 against
+    their plain versions; bad deltas refused with the context usable;
+    staleness and WAIT under a 5 s writer; a replica process."""
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.net.client import Connection
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    dev = torch.device(device)
+    rng = np.random.default_rng(107)
+    out = {}
+    runner = ClusterRunner(masters=1, replicas_per_master=1, device=device, workers=4).run()
+    try:
+        mnode, rnode = runner.masters[0], runner.replicas[0]
+        master, replica = mnode.server.server, rnode.server.server
+        maddr, raddr = (master.host, master.port), (replica.host, replica.port)
+        src = master.replication_source()
+        mconn, rconn = Connection(*maddr, timeout=600.0), Connection(*raddr, timeout=600.0)
+        try:
+            runner.stall_replication(mnode)
+            s = time.perf_counter()
+            rp_fill(mconn, rng)
+            _sync(dev)
+            fill_s = time.perf_counter() - s
+            state_bytes = sum(v.numel() * v.element_size() for rec in _rp_records(master).values()
+                              for v in rec.arrays.values())
+            s = time.perf_counter()
+            rconn.execute("REPLICAOF", master.host, master.port, timeout=600.0)
+            sync_s = time.perf_counter() - s
+            _rp_equal(master, replica, "full sync")
+            out["full_sync"] = {"fill_s": fill_s, "state_bytes": state_bytes, "sync_s": sync_s,
+                                "mb_per_s": state_bytes / sync_s / 1e6}
+            log(f"replication full sync [{card}]: {state_bytes} bytes of bank and registers (filled in "
+                f"{fill_s:.1f} s) in {sync_s:.3f} s by REPLICAOF, {out['full_sync']['mb_per_s']:.1f} MB/s; "
+                f"equal by torch.equal")
+            # the shipper's interval thread sleeps through the timed ships
+            src.interval = 3600.0
+            time.sleep(0.5)
+            runner.resume_replication(mnode)
+            out["first_sweep"] = _rp_ship(mconn, src, "the first sweep after the sync", master, replica)
+            deltas = {}
+            keys = rng.integers(1 << 50, 1 << 60, RP_BANK_BURST).astype(np.int64)
+            mconn.execute("BFA.MADD64", "rp:c2", _i4((keys * 40503) % C2_TENANTS), _i8(keys))
+            deltas["bank 1000 keys"] = _rp_ship(mconn, src, "a 1,000-key burst", master, replica)
+            mconn.execute("HLLA.MADD64", "rp:c3", _i4(rng.integers(0, C3_TENANTS, RP_HLL_BURST)),
+                          _i8(rng.integers(0, 1 << 60, RP_HLL_BURST)))
+            deltas["counters 10000 ops"] = _rp_ship(mconn, src, "a 10,000-op burst", master, replica)
+            keys = rng.integers(1 << 50, 1 << 60, C2_FLUSH).astype(np.int64)
+            mconn.execute("BFA.MADD64", "rp:c2", _i4((keys * 40503) % C2_TENANTS), _i8(keys))
+            deltas["bank 100000 keys"] = _rp_ship(mconn, src, "a 100,000-key flush", master, replica)
+            full = {"rp:c2": _rp_records(master)["rp:c2"].arrays["bits"].numel(),
+                    "rp:c3": _rp_records(master)["rp:c3"].arrays["regs"].numel()}
+            # the bursts move a few blocks and ship as deltas; the 100,000-key
+            # flush ships as whichever the 60% rule says (printed)
+            if deltas["bank 1000 keys"]["records_delta"] != 1 or deltas["counters 10000 ops"]["records_delta"] != 1:
+                raise AssertionError(f"replication: the bursts shipped {deltas}")
+            out["ships"] = {"first_sweep": out["first_sweep"], **deltas, "full_record_bytes": full}
+            for label, d in [("first sweep", out["first_sweep"])] + list(deltas.items()):
+                log(f"replication ship [{card}]: {label}: REPLFLUSH {d['ship_s'] * 1e3:.3f} ms, {d['bytes']} bytes "
+                    f"on the wire ({d['records_delta']} delta, {d['records_full']} full records; the bank is "
+                    f"{full['rp:c2']} bytes, the registers {full['rp:c3']}); replica equal by torch.equal")
+            # replica reads, their launches counted on their own
+            client = runner.client(read_mode="replica", scan_interval=0, timeout=600.0)
+            try:
+                frames = [config2_flush(rng) for _ in range(RP_READ_FRAMES)]
+                reads0, probes0 = replica.stats["replica_reads"], K.launches["bloom_probe"]
+                got = [client.execute("BFA.MEXISTS64", "rp:c2", _i4(t), _i8(ks)) for t, ks in frames]
+                replica_probes = K.launches["bloom_probe"] - probes0
+                replica_reads = replica.stats["replica_reads"] - reads0
+                want = [mconn.execute("BFA.MEXISTS64", "rp:c2", _i4(t), _i8(ks)) for t, ks in frames]
+            finally:
+                client.shutdown()
+            if got != want or replica_reads < RP_READ_FRAMES or replica_probes == 0:
+                raise AssertionError(f"replication: replica reads equal {got == want}, {replica_reads} counted, "
+                                     f"{replica_probes} bloom_probe launches")
+            out["replica_reads"] = {"frames": RP_READ_FRAMES, "replica_reads": replica_reads,
+                                    "bloom_probe_launches": replica_probes}
+            log(f"replication replica reads [{card}]: {RP_READ_FRAMES} BFA.MEXISTS64 frames of {C2_FLUSH} keys "
+                f"through ClusterRedisson(read_mode='replica') equal the master's bytes; replica_reads "
+                f"{replica_reads}, bloom_probe launches {replica_probes}")
+            launches = dict(K.launches)
+            out["k23"] = check_k23(dev, rng, card)
+            out["k24"] = check_k24(dev, rng, card)
+            K.launches.update(launches)  # K23 and K24 launch no counted kernel
+            out["bad_deltas"] = rp_bad_deltas(replica, raddr)
+            again = mconn.execute("BFA.MEXISTS64", "rp:c2", _i4(frames[0][0]), _i8(frames[0][1]))
+            if rconn.execute("READONLY") != b"OK":
+                raise AssertionError("replication: READONLY")
+            if rconn.execute("BFA.MEXISTS64", "rp:c2", _i4(frames[0][0]), _i8(frames[0][1])) != again:
+                raise AssertionError("replication: after the bad deltas the replica answers otherwise")
+            _sync(dev)  # the context is still usable
+            log(f"replication bad deltas [{card}]: {len(out['bad_deltas'])} REPLPUSH frames refused "
+                f"({'; '.join(r.split('ValueError: ')[-1][:48] for r in out['bad_deltas'])}); the replica answers "
+                f"the master's bytes "
+                f"and the card synchronizes")
+            src.interval = 0.2
+            out["staleness"] = rp_staleness(maddr, raddr, src, rng)
+            st = out["staleness"]
+            log(f"replication staleness [{card}]: {RP_STALE_S:.0f} s of {RP_BANK_BURST}-key writes: REPLSTATE "
+                f"staleness over {st['samples']} samples p50 {st['staleness_p50_ms']:.1f} ms p99 "
+                f"{st['staleness_p99_ms']:.1f} ms; WAIT 1 over {st['waits']} calls p50 {st['wait_p50_ms']:.3f} ms "
+                f"p99 {st['wait_p99_ms']:.3f} ms; {st['pushes']} pushes, {st['bytes']} bytes, "
+                f"{st['records_full']} full and {st['records_delta']} delta records")
+        finally:
+            mconn.close()
+            rconn.close()
+    finally:
+        runner.shutdown()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    out["launches"] = dict(K.launches)
+    out["process_replica"] = rp_process_replica(device, card)
+    out["seconds"] = time.perf_counter() - start
+    log(f"replication path [{card}]: {out['seconds']:.1f}s")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -6643,7 +7273,9 @@ def main() -> int:
                       ("qos", lambda: run_qos()),
                       ("sharded_vector", lambda: run_sharded_vector()),
                       ("durability", lambda: run_durability()),
-                      ("observe", lambda: run_observe())):
+                      ("observe", lambda: run_observe()),
+                      ("warm", lambda: run_warm()),
+                      ("replication", lambda: run_replication())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -6715,6 +7347,8 @@ def main() -> int:
     for name, r in kernels.items():
         log(json.dumps({"kernel": name, "launches": main_launches[name],
                         **{key: v for key, v in r.items() if isinstance(v, (int, float))}}))
+    # K23 and K24 are torch ops, not hand kernels: their line of their own
+    log(json.dumps({"torch_ops": [paths["replication"]["k23"], paths["replication"]["k24"]]}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

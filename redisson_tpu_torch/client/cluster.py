@@ -18,9 +18,8 @@ their cards.
 
 A copy of ``redisson_tpu/client/cluster.py`` on the port's ``RemoteSurface``;
 pickled frames go through ``net/safe_pickle`` as the single-node client's
-do.  The replica read paths (``read_mode`` "replica" / "master_slave", the
-REPLSTATE staleness probe) come across as code, but find no replica until
-the replication slice (ROADMAP M11): every read is served by its master.
+do.  Reads follow ``read_mode`` ("replica" / "master_slave" read from the
+masters' replicas, with the REPLSTATE staleness probe when a bound is set).
 """
 from __future__ import annotations
 

@@ -25,8 +25,7 @@ which writes and reads the reference's class names.  Differences:
     that no enable follows) rides the facade's wheel timer, not a thread of
     its own.
   * The replication methods (``sync_replication``,
-    ``replication_state``) are here; the port's server answers their verbs
-    with ROADMAP M11.
+    ``replication_state``) drive the server's REPLFLUSH and REPLSTATE.
 """
 from __future__ import annotations
 

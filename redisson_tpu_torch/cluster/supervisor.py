@@ -2,7 +2,7 @@
 
 Parity target: the reference's ``RedisRunner.java`` — spawn/stop/restart
 actual ``redis-server`` processes and form clusters out of them.  A copy of
-``redisson_tpu/cluster/supervisor.py`` for masters, on the port's server
+``redisson_tpu/cluster/supervisor.py`` on the port's server
 (``python -m redisson_tpu_torch.server``):
 
   * each node is a real subprocess with its own log file and its own GIL;
@@ -18,7 +18,11 @@ actual ``redis-server`` processes and form clusters out of them.  A copy of
     output for post-mortems: the port's server logs the device it serves
     on at start and its kernel launches at a graceful stop;
   * topology wiring goes through :mod:`redisson_tpu_torch.cluster.topology`
-    — the SAME slot-assignment program the in-process harness uses.
+    — the SAME slot-assignment program the in-process harness uses;
+  * replicas (``replicas_per_master > 0``) are processes of their own,
+    placed off their master's host when ``hosts`` allows (anti-affinity),
+    attached by REPLICAOF at start and re-attached by ``restart`` (a
+    restarted replica re-syncs; a restarted master's replicas re-register).
 
 Devices: ``platform=None`` (the default) starts every child on the CUDA
 card; ``platform="cpu"`` passes ``--device cpu``.  A child asked for the
@@ -42,10 +46,9 @@ node's checkpoint exists, so the fresh process comes back with the records
 of its last snapshot.  ``scrape`` merges every live node's METRICS with
 ``node=`` labels.
 
-Left out until their slices, each raising NotImplementedError: replicas
-(``replicas_per_master > 0``), ``promote_replica`` and ``rolling_restart``
-(ROADMAP M11 parts 3 and 4); no ``--journal-dir`` is passed (the port's
-server refuses it until part 4).  ``start_qos_rebalance`` runs the fleet's
+Left out until their slice, each raising NotImplementedError:
+``promote_replica`` and ``rolling_restart`` (ROADMAP M11 part 4); no
+``--journal-dir`` is passed (the port's server refuses it until part 4).  ``start_qos_rebalance`` runs the fleet's
 tenant budget loop (``cluster/qos_control.py``) over the masters, and
 ``shutdown`` stops it.
 """
@@ -70,7 +73,7 @@ from redisson_tpu_torch.net.retry import RetryPolicy, call_with_retry
 #: the implicit single-domain label a host-unaware supervisor places on
 _LOCAL_HOST_LABEL = "local"
 
-_M11 = "comes with the replication and migration slices (ROADMAP M11 parts 3-4)"
+_M11 = "comes with the migration slice (ROADMAP M11 part 4)"
 
 #: the view-learning schedule for a node rejoining the fleet: its peers may
 #: themselves be restarting, so a refused connect retries instead of failing
@@ -146,9 +149,10 @@ class ClusterSupervisor:
         finally:
             sup.shutdown()
 
-    Cross-host: ``ClusterSupervisor(masters=2, hosts=("hostA", "hostB"),
-    driver=SshHostDriver(...))`` places masters round-robin, spawns over
-    the driver, and arms fleet TLS automatically (``tls=False`` opts out,
+    Cross-host: ``ClusterSupervisor(masters=2, replicas_per_master=1,
+    hosts=("hostA", "hostB"), driver=SshHostDriver(...))`` places masters
+    round-robin and replicas off their master's host, spawns over the
+    driver, and arms fleet TLS automatically (``tls=False`` opts out,
     ``tls=True`` forces it for local fleets)."""
 
     def __init__(
@@ -166,8 +170,6 @@ class ClusterSupervisor:
         hosts: Optional[Sequence[str]] = None,
         tls: Optional[bool] = None,
     ):
-        if replicas_per_master > 0:
-            raise NotImplementedError(f"replicas_per_master={replicas_per_master} {_M11}")
         self.n_masters = masters
         self.replicas_per_master = replicas_per_master
         self.password = password
@@ -185,14 +187,21 @@ class ClusterSupervisor:
         self._client_ssl = None
         self.base_dir = base_dir or tempfile.mkdtemp(prefix="rtpu-cluster-")
         self.slot_ranges = topology.split_slots(masters)
-        # failure-domain placement: explicit hosts= spreads masters over
-        # them; a host-unaware supervisor is ONE implicit domain
+        # failure-domain placement: explicit hosts= engages anti-affinity
+        # (loudly degraded when impossible); a host-unaware supervisor is
+        # ONE implicit domain
         if hosts:
             self.hosts = list(hosts)
-            self._master_hosts, _ = topology.assign_hosts(self.hosts, masters)
+            self._master_hosts, self._replica_hosts = topology.assign_hosts(
+                self.hosts, masters, replicas_per_master
+            )
         else:
             self.hosts = [_LOCAL_HOST_LABEL]
             self._master_hosts = [_LOCAL_HOST_LABEL] * masters
+            self._replica_hosts = {
+                (mi, r): _LOCAL_HOST_LABEL
+                for mi in range(masters) for r in range(replicas_per_master)
+            }
         self.masters: List[NodeProc] = []
         self.replicas: List[NodeProc] = []
         self._qos_rebalancer = None
@@ -221,6 +230,14 @@ class ClusterSupervisor:
                 )
                 self.masters.append(node)
                 self._spawn(node)
+            for mi in range(self.n_masters):
+                for r in range(self.replicas_per_master):
+                    node = self._make_node(
+                        f"r{mi}-{r}", "replica", master_index=mi,
+                        host_label=self._replica_hosts[(mi, r)],
+                    )
+                    self.replicas.append(node)
+                    self._spawn(node)
             for node in self.nodes():
                 self.wait_ready(node)
             self.install_topology()
@@ -497,7 +514,9 @@ class ClusterSupervisor:
         live peer, retried under :class:`~redisson_tpu_torch.net.retry.RetryPolicy`:
         the view is re-fetched inside every attempt across ALL live nodes,
         so a peer that died between attempts costs one retry, not the
-        restart."""
+        restart.  The replica links the death severed are re-wired: a
+        replica re-syncs from its master, a master's replicas re-register
+        with the fresh process."""
         if node.alive():
             if not force:
                 return node
@@ -513,6 +532,28 @@ class ClusterSupervisor:
                 topology.install_view([self._conn_factory(node)], view)
 
         call_with_retry(_REJOIN_RETRY, _relearn_view)
+        if node.role == "replica" and node.master_index is not None:
+            master = self.masters[node.master_index]
+            if master.alive():
+                call_with_retry(
+                    _REJOIN_RETRY,
+                    lambda: topology.wire_replica(
+                        self._conn_factory(node), master.host, master.port
+                    ),
+                )
+        elif node.role == "master":
+            # replicas of THIS master lost their push registration with the
+            # old process: re-attach them
+            for rep in self.replicas:
+                if rep.master_index is not None \
+                        and self.masters[rep.master_index] is node \
+                        and rep.alive():
+                    call_with_retry(
+                        _REJOIN_RETRY,
+                        lambda rep=rep: topology.wire_replica(
+                            self._conn_factory(rep), node.host, node.port
+                        ),
+                    )
         return node
 
     # -- fleet lifecycle (ROADMAP M11) -----------------------------------------
@@ -558,12 +599,18 @@ class ClusterSupervisor:
         return self.planned_view()
 
     def install_topology(self) -> None:
-        """Initial wiring: push the planned view everywhere — the same
-        program ClusterRunner runs, through cluster/topology."""
+        """Initial wiring: push the planned view everywhere, attach replicas
+        — the same program ClusterRunner runs, through cluster/topology."""
         topology.install_view(
             [self._conn_factory(n) for n in self.nodes() if n.alive()],
             self.planned_view(),
         )
+        for rep in self.replicas:
+            master = self.masters[rep.master_index]
+            if rep.alive() and master.alive():
+                topology.wire_replica(
+                    self._conn_factory(rep), master.host, master.port
+                )
 
     # -- access ---------------------------------------------------------------
 

@@ -13,10 +13,8 @@ single source of truth:
     create-cluster default layout, ``redis-cli --cluster create``);
   * :func:`view_tuples` / :func:`flatten_view` — the ``CLUSTER SETVIEW``
     5-tuple program built from (slot-range, master identity) pairs;
-  * :func:`install_view` — push one view to every live node.
-
-Attaching a replica to its master (the reference's ``wire_replica``) comes
-with the replication slice (ROADMAP M11).
+  * :func:`install_view` — push one view to every live node;
+  * :func:`wire_replica` — attach a replica to its master (``REPLICAOF``).
 
 Callers hand over *connection factories* (zero-arg callables returning a
 context-managed connection with ``.execute``), so the same wiring code drives
@@ -104,6 +102,20 @@ class PlacementDegraded(UserWarning):
     """Host anti-affinity could not be honored (fewer failure domains than
     the replication factor needs) — the fleet still forms, but a single
     host failure can now take a master AND its replica together."""
+
+
+def wire_replica(
+    conn_factory: Callable[[], Any],
+    master_host: str,
+    master_port: int,
+    timeout: Optional[float] = 120.0,
+) -> None:
+    """Attach one replica to its master (REPLICAOF full sync + register).
+    The generous default timeout covers the snapshot transfer."""
+    with conn_factory() as c:
+        check_reply(
+            c.execute("REPLICAOF", master_host, master_port, timeout=timeout)
+        )
 
 
 def assign_hosts(

@@ -13,10 +13,9 @@ What the port reads: the engine's expiry sweep (``core/eviction.py``) its
 two cleanup delays, every object handle and ``Keys`` map names through
 ``name_mapper``, the wire clients the single-server and cluster sections
 and the ``command_mapper``, ``credentials_resolver`` and ``nat_mapper``
-SPI slots (``client/remote.py``, ``client/cluster.py``).  The replicated
-section parses, but its client (``client/replicated.py``) comes with the
-replication slice (ROADMAP M11); the batching knobs parse for config-file
-parity and are read by nothing yet.  The mesh knobs drive the sharded
+SPI slots (``client/remote.py``, ``client/cluster.py``), and the
+replicated section its client (``client/replicated.py``); the batching
+knobs parse for config-file parity and are read by nothing yet.  The mesh knobs drive the sharded
 objects' mesh (``parallel/manager.MeshManager``).
 """
 from __future__ import annotations

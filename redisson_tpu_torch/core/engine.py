@@ -35,8 +35,12 @@ serving lane a position (``lanes``, ``core/ioplane.LaneSet``), and
 ``move_slot_records`` hands a slot to another position under the record
 locks, fenced by epoch.
 
-A trimmed copy of ``redisson_tpu/core/engine.py``: residency and the warm
-pool (``prewarm`` and its ``all_devices``) belong to the operations slice.
+``prewarm`` runs the hot kernels of live records once on throwaway
+planes (``core/warmpool.py``), every position's with placement on;
+``warm_pool`` is the process-global pool of warm keys.
+
+A trimmed copy of ``redisson_tpu/core/engine.py``: residency belongs to the
+operations slice.
 """
 from __future__ import annotations
 
@@ -434,6 +438,34 @@ class Engine:
         """One fenced slot -> position handoff (CLUSTER DEVMOVE's unit)."""
         moved, _stale = self.move_slots_records({slot: dev_index}, epoch)
         return moved
+
+    # -- kernel warm pool ----------------------------------------------------
+
+    @property
+    def warm_pool(self):
+        """The process-global kernel warm pool (core/warmpool.py)."""
+        from redisson_tpu_torch.core import warmpool
+
+        return warmpool.POOL
+
+    def prewarm(self, names=None, buckets=(0,), all_devices: Optional[bool] = None) -> int:
+        """Run the hot kernels of live records once, at the given batch
+        buckets, on throwaway planes (the TasksRunnerService warm-pool
+        analog): at boot or before a timed serving phase, never on the hot
+        path.  Returns the count of keys this call warmed.
+
+        With placement on, the default warms every record's geometry on
+        EVERY position, so a slot handoff finds its target warm; pass
+        ``all_devices=False`` to warm only each record's owner."""
+        from redisson_tpu_torch.core import warmpool
+
+        if all_devices is None:
+            all_devices = self.placement is not None
+        return warmpool.prewarm_store(
+            self, names=names, buckets=buckets,
+            devices=(self.placement.devices
+                     if (all_devices and self.placement is not None) else None),
+        )
 
     def staging_pool(self, device=None):
         """The engine's pinned double-buffered staging pool, or None when the

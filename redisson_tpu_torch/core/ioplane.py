@@ -42,8 +42,13 @@ tensors called ``record_stream``; lanes on different cards dispatch on
 their own cards' streams and overlap there.  The lane fault counters
 (``consec_faults``, ``total_faults``, ``quarantined``) are fields that stay
 0 until the operations slice's fault plane (the reference's chaos stall,
-lane watchdog and quarantine) sets them.  ``scatter_host_arrays`` waits for
-the operations slice.
+lane watchdog and quarantine) sets them.
+
+``scatter_host_arrays`` (K23) is the inverse of the grouped readback: a
+record's host arrays packed into one stream (each piece at a 16-byte
+offset, so ``view(dtype)`` may cut it), one host-to-device copy through a
+staging slot, and the pieces cut on the device; replication's full ship
+installs through it.
 
 **Bulk-window preemption** (reference ``redisson_tpu/core/ioplane.py``
 ``:97-160``, ``:227``, ``:1099``, ``:1225-1420``), behind one switch
@@ -476,6 +481,80 @@ def gather_device_results(groups: Sequence[Sequence[Any]]) -> List[tuple]:
     return [tuple(host[i] for i in pos) for pos in index]
 
 
+# each piece of scatter_host_arrays' merged stream starts at a multiple of
+# this: Tensor.view(dtype) on a uint8 slice needs an offset that is a
+# multiple of the new item size, and 16 keeps a piece fit for the kernels'
+# 16-byte loads
+SCATTER_ALIGN = 16
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype; TypeError for one torch lacks."""
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def scatter_layout(arrays: dict) -> Tuple[List[tuple], int]:
+    """The merged stream's layout for scatter_host_arrays: one
+    ``(key, offset, nbytes, numpy dtype, shape)`` a key in sorted order,
+    each offset rounded up to SCATTER_ALIGN, and the stream's length.
+    Raises on a dtype that does not round-trip (``np.dtype(a.dtype.name)``)
+    or that torch has no dtype for: the host-side packing errors."""
+    layout = []
+    off = 0
+    for k in sorted(arrays):
+        a = np.asarray(arrays[k])
+        np.dtype(a.dtype.name)
+        _torch_dtype(a.dtype)
+        off = -(-off // SCATTER_ALIGN) * SCATTER_ALIGN
+        layout.append((k, off, int(a.nbytes), a.dtype, tuple(a.shape)))
+        off += int(a.nbytes)
+    return layout, off
+
+
+def scatter_host_arrays(arrays: dict, device, pool: "Optional[StagingPool]" = None
+                        ) -> dict:
+    """Upload a dict of host arrays to `device` with ONE host->device copy
+    (K23; reference ``core/ioplane.py:753-830``), the inverse of
+    gather_device_results: every array is laid as bytes into one merged
+    uint8 stream (a bool array as uint8 0/1), each piece at a 16-byte
+    offset, filled through `pool`'s pinned slot when one is given (the
+    slot is handed out again only after the event recorded behind this
+    copy has passed), copied once, then cut into the record's tensors on
+    the device by ``narrow``, ``view(dtype)`` and ``reshape``: no kernel
+    runs, nothing is computed.  The tensors returned share the merged
+    stream's storage.  Returns {key: tensor on `device`}."""
+    device = torch.device(device)
+    layout, total = scatter_layout(arrays)
+    if total == 0:  # nothing but empty planes
+        return {k: torch.from_numpy(np.asarray(arrays[k]).copy()).to(device)
+                for k, *_ in layout}
+    # the alignment gaps are never read: no zeroing
+    if pool is not None:
+        buf, slot = pool.acquire((total,), np.uint8, zero=False)
+    else:
+        buf, slot = np.empty(total, np.uint8), None
+    try:
+        stream = torch.from_numpy(buf)
+        for k, off, nbytes, _dt, _shape in layout:
+            if nbytes:
+                # torch's copy, which spreads a large one over the host's
+                # threads, where numpy's takes one
+                src = torch.from_numpy(np.ascontiguousarray(arrays[k])).reshape(-1)
+                stream[off:off + nbytes].copy_(src.view(torch.uint8))
+        merged = stream.to(device, non_blocking=pool is not None)
+    except BaseException:
+        if pool is not None:
+            pool.release(slot)
+        raise
+    if pool is not None:
+        pool.commit(slot, record_event(device))
+    out = {}
+    for k, off, nbytes, dt, shape in layout:
+        piece = merged.narrow(0, off, nbytes)
+        out[k] = piece.view(_torch_dtype(dt)).reshape(shape)
+    return out
+
+
 def force_all(futures: Sequence[ReadbackFuture]) -> None:
     """Materialize several ReadbackFutures with ONE grouped transfer (the
     embedded Batch drains its pending groups through here)."""
@@ -514,7 +593,8 @@ class StagingPool:
     ``acquire(shape, dtype)`` hands out a zeroed numpy view backed by one of
     ``depth`` reusable slots (pinned host memory with ``pin``);
     ``commit(slot, event)`` pairs the slot with the event recorded behind
-    the copy made from it and frees it.  acquire prefers a free slot whose
+    the copy made from it and frees it (``zero=False`` skips the zeroing,
+    for a caller that writes every byte it reads).  acquire prefers a free slot whose
     copy has passed, then a new slot (up to ``depth``), and only then waits
     (counted as a staging wait) on a free slot's copy, so refilling buffer
     A overlaps buffer B's copy in flight.  When every slot is checked out
@@ -535,7 +615,8 @@ class StagingPool:
         else:
             slot.buf = np.empty(nbytes, np.uint8)
 
-    def acquire(self, shape, dtype=np.uint32) -> Tuple[np.ndarray, Optional[_StageSlot]]:
+    def acquire(self, shape, dtype=np.uint32,
+                zero: bool = True) -> Tuple[np.ndarray, Optional[_StageSlot]]:
         want = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
         with self._lock:
             free = [s for s in self._slots if not s.busy]
@@ -551,7 +632,7 @@ class StagingPool:
                 slot.busy = True
         if slot is None:
             self.oneoffs += 1
-            return np.zeros(shape, dtype), None
+            return (np.zeros if zero else np.empty)(shape, dtype), None
         staged, slot.staged = slot.staged, None
         if staged is not None and not staged.query():
             # the double-buffer boundary: the slot's previous copy is still
@@ -561,7 +642,8 @@ class StagingPool:
         if slot.buf.nbytes < want:
             self._grow(slot, max(want, 1))
         view = slot.buf[:want].view(dtype).reshape(shape)
-        view[...] = 0
+        if zero:
+            view[...] = 0
         return view, slot
 
     def commit(self, slot: Optional[_StageSlot], event) -> None:

@@ -8,13 +8,11 @@ localhost ports; here nodes are in-process ServerThreads (hermetic) — chaos
 tests call ``stop_node`` mid-load exactly like RedissonFailoverTest kills
 masters.
 
-A copy of ``redisson_tpu/harness.py`` for masters: every keyword argument
-of ``ClusterRunner`` goes to each node's ``ServerThread``, ``device`` among
+A copy of ``redisson_tpu/harness.py``: every keyword argument of
+``ClusterRunner`` goes to each node's ``ServerThread``, ``device`` among
 them, so the nodes' state lives on the CUDA card unless the caller passes
-``device="cpu"``.  Replicas (``replicas_per_master > 0``) and the
-replication and failover operations (``stall_replication``,
-``resume_replication``, ``promote``, ``adopt_failover``) raise
-NotImplementedError naming ROADMAP M11, the replication slice.
+``device="cpu"``.  Replicas (``replicas_per_master > 0``) attach to their
+masters by REPLICAOF (``server/replication.py``).
 """
 from __future__ import annotations
 
@@ -29,9 +27,6 @@ from redisson_tpu_torch.server.server import ServerThread
 # the process-level ClusterSupervisor so the in-process and multi-process
 # cluster shapes cannot drift in how the 16384 slots map onto masters
 split_slots = _topology.split_slots
-
-_M11 = "replicas and failover come with the replication slice (ROADMAP M11)"
-
 
 def _exec(conn, *args, timeout: Optional[float] = None):
     reply = conn.execute(*args, timeout=timeout)
@@ -63,11 +58,9 @@ class ClusterNode:
 
 
 class ClusterRunner:
-    """Form an n-master in-process cluster."""
+    """Form an n-master (optionally replicated) in-process cluster."""
 
     def __init__(self, masters: int = 3, replicas_per_master: int = 0, **server_kw):
-        if replicas_per_master > 0:
-            raise NotImplementedError(f"replicas_per_master={replicas_per_master}: {_M11}")
         self.n_masters = masters
         self.replicas_per_master = replicas_per_master
         self.server_kw = server_kw
@@ -80,7 +73,12 @@ class ClusterRunner:
             for _ in range(self.n_masters):
                 st = ServerThread(port=free_port(), **self.server_kw).start()
                 self.masters.append(ClusterNode(st, "master"))
+            for mi in range(self.n_masters):
+                for _ in range(self.replicas_per_master):
+                    st = ServerThread(port=free_port(), **self.server_kw).start()
+                    self.replicas.append(ClusterNode(st, "replica", master_index=mi))
             self.install_view()
+            self.wire_replicas()
         except BaseException:
             # a half-formed cluster must not leak serving threads
             self.shutdown()
@@ -113,8 +111,15 @@ class ClusterRunner:
         )
 
     def wire_replicas(self) -> None:
-        if self.replicas:
-            raise NotImplementedError(_M11)
+        for node in self.replicas:
+            if node.stopped:
+                continue
+            master = self.masters[node.master_index]
+            if master.stopped:
+                continue
+            _topology.wire_replica(
+                node.server.client, master.server.server.host, master.port
+            )
 
     # -- chaos ops (RedisRunner stop()/restart() analog) ----------------------
 
@@ -135,19 +140,60 @@ class ClusterRunner:
         node.server = ServerThread(port=port, **self.server_kw).start()
         node.stopped = False
         self.install_view()
+        self.wire_replicas()  # re-attach replica links severed by the restart
         return node
 
     def stall_replication(self, node: ClusterNode) -> None:
-        raise NotImplementedError(_M11)
+        """Freeze this master's record shipper (replica lag grows until
+        resumed): the repl-link-partition chaos op."""
+        src = node.server.server._replication
+        if src is not None:
+            src.stall()
 
     def resume_replication(self, node: ClusterNode) -> None:
-        raise NotImplementedError(_M11)
+        src = node.server.server._replication
+        if src is not None:
+            src.resume()
 
     def adopt_failover(self, dead_address: str, promoted_address: str) -> Optional[ClusterNode]:
-        raise NotImplementedError(_M11)
+        """Sync this runner's bookkeeping with a promotion an external
+        coordinator performed: the promoted replica becomes masters[i] for
+        the dead master's range.  Returns the dead node (still stopped), so
+        callers can restart_node() it as a fresh replica of the promoted
+        master."""
+        mi = next(
+            (i for i, m in enumerate(self.masters) if m.address == dead_address),
+            None,
+        )
+        promoted = next(
+            (r for r in self.replicas if r.address == promoted_address), None
+        )
+        if mi is None or promoted is None:
+            return None
+        dead = self.masters[mi]
+        promoted.role = "master"
+        promoted.master_index = None
+        self.masters[mi] = promoted
+        self.replicas = [r for r in self.replicas if r is not promoted]
+        dead.role = "replica"
+        dead.master_index = mi
+        self.replicas.append(dead)
+        return dead
 
     def promote(self, replica: ClusterNode) -> None:
-        raise NotImplementedError(_M11)
+        """Manual failover: the replica takes over its dead master's slot
+        range."""
+        mi = replica.master_index
+        with replica.server.client() as c:
+            _exec(c, "REPLICAOF", "NO", "ONE")
+        replica.role = "master"
+        old = self.masters[mi]
+        self.masters[mi] = ClusterNode(replica.server, "master")
+        self.replicas = [r for r in self.replicas if r is not replica]
+        if not old.stopped:
+            self.stop_node(old)
+        self.install_view()
+        self.wire_replicas()
 
     def seeds(self) -> List[str]:
         return [m.address for m in self.masters if not m.stopped] + [

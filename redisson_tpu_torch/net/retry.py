@@ -24,8 +24,9 @@ Semantics:
     overshoot its caller's deadline (deadline propagation, not per-try
     timeouts that silently multiply).
 
-A copy of ``redisson_tpu/net/retry.py`` less its replica-link profiles,
-which the replication links of ROADMAP M11 read.
+A copy of ``redisson_tpu/net/retry.py`` less its link profiles: the
+replication link (``replica_link_kwargs``) has the one fixed policy of the
+reference's default ``lan`` profile.
 """
 from __future__ import annotations
 
@@ -147,3 +148,12 @@ class RetryClock:
         if delay > 0:
             time.sleep(delay)
 
+
+
+def replica_link_kwargs() -> dict:
+    """NodeClient kwargs for a replication data link (ReplicaHandle's push
+    link, REPLICAOF's full-sync pull): the single-shot link of the
+    reference's default profile.  The failure detectors own liveness and a
+    dropped link is rebuilt by the shipper's next sweep, so per-call
+    retries stay off."""
+    return {"ping_interval": 0, "retry_attempts": 1}

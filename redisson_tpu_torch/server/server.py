@@ -81,11 +81,12 @@ never hidden behind a slower path that might succeed.
     ``cluster.ClusterSupervisor`` through ``cluster/topology.py``) checks
     every keyed command before it dispatches (``check_routing``, called by
     the registry, by OBJCALLM/EXEC/TXEXEC and by the coalesced BF run):
-    a slot it does not own replies ``MOVED <slot> <host>:<port>``.  The
-    migration windows (MIGRATING, IMPORTING, RECOVERING) and the replica
-    role are ported with ``check_routing`` but stay empty: the verbs that
-    would set them (CLUSTER SETSLOT, MIGRATESLOT(S), WINDOWS, REPLICAOF)
-    reply an error naming ROADMAP M11.
+    a slot it does not own replies ``MOVED <slot> <host>:<port>``.  A
+    replica (REPLICAOF, ``server/replication.py``) serves READONLY reads
+    of its master's slots and refuses writes.  The migration windows
+    (MIGRATING, IMPORTING, RECOVERING) are ported with ``check_routing``
+    but stay empty: the verbs that would set them (CLUSTER SETSLOT,
+    MIGRATESLOT(S), WINDOWS) reply an error naming ROADMAP M11.
 
 The port serves the connection, keyspace, sketch, objcall_tx (OBJCALL,
 OBJCALLM, OBJCALLMA, OBJCALLV, MULTI, DISCARD, WATCH, UNWATCH, RESET, EXEC
@@ -142,12 +143,15 @@ BGREWRITEAOF, LASTSAVE, SHUTDOWN, RESTORESTATE, DUMP, RESTORE, COPY)
     occupancy as ``dispatch`` (``core/ioplane._LaneOccupancy``), as the
     reference's does.  TRACE, SLOWLOG, LATENCY and METRICS read them.
 
+Replication (``server/replication.py``): REPLICAOF, the REPL* verbs and
+WAIT; ``replication_source()`` is the master's lazy shipper, closed by
+``stop``.  ``--prewarm`` warms the restored records' kernels at boot
+(``core/warmpool.py``).
+
 Left out, raising NotImplementedError when asked for: migration journals
-(``journal_dir``, ROADMAP M11 part 4).  The replication verbs (REPLFLUSH,
-REPLPING, REPLPUSH, REPLPUSHSEG, REPLREGISTER, REPLSNAPSHOT, REPLSTATE),
-IMPORTRECORDS and WAIT reply the unknown-command error until M11 parts 3
-and 4; the replication and migration links, the residency census and the
-chaos pause gate come with them.
+(``journal_dir``, ROADMAP M11 part 4).  IMPORTRECORDS replies the
+unknown-command error until M11 part 4; the migration links, the residency
+census and the chaos pause gate come with it.
 """
 from __future__ import annotations
 
@@ -225,15 +229,14 @@ FRAME_READ_LIMIT = 64 << 20
 # Commands whose handlers may PARK the worker thread (blocking verbs hold it
 # for up to their timeout; OBJCALL runs arbitrary object methods incl.
 # poll_blocking and lock waits; EXEC and TXEXEC wait on the exec mutex and
-# record locks; XREAD and XREADGROUP park for their BLOCK time).  Dispatched
-# on the wide slow pool so the shared dispatch pool never starves.  The
-# reference's list also names WAIT, an admin verb the port does not serve
-# yet (ROADMAP M11).
+# record locks; XREAD and XREADGROUP park for their BLOCK time; WAIT parks
+# until its replica count or timeout).  Dispatched on the wide slow pool so
+# the shared dispatch pool never starves.
 _SLOW_COMMANDS = frozenset(
     b.encode() for b in (
         "OBJCALL", "OBJCALLM", "OBJCALLMA", "OBJCALLV", "TXEXEC", "EXEC",
         "BLPOP", "BRPOP", "BLMOVE", "BRPOPLPUSH", "BZPOPMIN", "BZPOPMAX",
-        "BLMPOP", "BZMPOP", "XREAD", "XREADGROUP",
+        "BLMPOP", "BZMPOP", "XREAD", "XREADGROUP", "WAIT",
     )
 )
 
@@ -388,9 +391,8 @@ class TpuServer:
         self.mode = mode
         self.node_id = uuid.uuid4().hex
         # replica_reads / replica_redirects_stale / replica_fallbacks count
-        # the replica read path, which no node reaches until the replication
-        # slice (ROADMAP M11 part 3); METRICS carries them as the
-        # reference's does
+        # the replica read path (a replica serves and refuses reads);
+        # METRICS carries them as the reference's does
         self.stats = {"connections": 0, "commands": 0, "errors": 0, "sheds": 0,
                       "replica_reads": 0, "replica_redirects_stale": 0,
                       "replica_fallbacks": 0}
@@ -453,12 +455,32 @@ class TpuServer:
         self.migrating_slots: Dict[int, str] = {}
         self.importing_slots: Dict[int, str] = {}
         self.recovering_slots: Dict[int, str] = {}
-        # replication role: "master" until REPLICAOF comes with ROADMAP M11
-        self.role = "master"
+        # -- cluster / replication role (server/replication.py) -------------
+        self.role = "master"  # "master" | "replica"
         self.master_address: Optional[str] = None
-        # the address this master was promoted from (ROLE's 4th element);
-        # None until failover comes with ROADMAP M11
+        # the bounded-staleness stamp: the highest sweep-cut offset this
+        # REPLICA applied (a REPLPUSH payload's stamp or a REPLPING), the
+        # master's wall clock at that cut, and the LOCAL monotonic receipt
+        # time: staleness is measured against the local receipt, so clock
+        # skew between hosts can never fake freshness
+        self.repl_applied_offset = 0
+        self.repl_applied_ts = 0.0
+        self.repl_applied_at: Optional[float] = None
+        # set on REPLICAOF NO ONE: the master this node replicated before
+        # (ROLE's breadcrumb for coordinators adopting half-finished
+        # failovers)
         self.promoted_from: Optional[str] = None
+        self._replication = None  # the lazy ReplicationSource (master side)
+        self._repl_lock = threading.Lock()
+        # REPLPUSHSEG staging: xfer_id -> [chunk slots, last-touch monotonic]
+        self._repl_xfers: Dict[str, list] = {}
+        self._repl_xfers_lock = threading.Lock()
+        # resumable REPLSNAPSHOT staging: xfer_id -> [blob, chunk_bytes,
+        # last-touch monotonic], one immutable cut a replica FETCHes by
+        # offset, reaped by staleness
+        self._snap_stages: Dict[str, list] = {}
+        self._snap_lock = threading.Lock()
+        self._snap_seq = 0
         # expiry invalidation: a key the TTL reaper (or a lazy-expiry read)
         # drops must invalidate near caches exactly like a DEL would
         self.engine.store.on_expired = self.tracking.note_expired
@@ -576,8 +598,8 @@ class TpuServer:
         Replica read admission (Redis parity): a CLUSTER replica serves
         keyed reads only to connections that armed READONLY — everyone
         else is MOVED to the master (writes get the -READONLY refusal
-        below).  The windows and the replica role stay empty in the port
-        until ROADMAP M11, so today a keyed command is served or MOVED.
+        below).  The migration windows stay empty in the port until
+        ROADMAP M11 part 4.
         """
         from redisson_tpu_torch.net import commands as C
         from redisson_tpu_torch.utils.crc16 import calc_slot
@@ -1588,6 +1610,15 @@ class TpuServer:
             ctx.verify_mode = ssl.CERT_REQUIRED  # mutual TLS
         return ctx
 
+    def replication_source(self):
+        """The lazy master-side record shipper (server/replication.py)."""
+        from redisson_tpu_torch.server.replication import ReplicationSource
+
+        with self._repl_lock:
+            if self._replication is None:
+                self._replication = ReplicationSource(self)
+            return self._replication
+
     def link_client(self, address: str, **kw):
         """NodeClient for this node's OUTGOING links (METRICS CLUSTER's
         scrape of its peers): inherits the node's password and, when TLS is
@@ -1685,6 +1716,8 @@ class TpuServer:
                 loop.call_soon_threadsafe(shutdown)
             except RuntimeError:
                 pass  # loop already closed (repeated stop): nothing to do
+        if self._replication is not None:
+            self._replication.close()
         self._pool.shutdown(wait=False)
         self._qos_pool.shutdown(wait=False)
         self._slow_pool.shutdown(wait=False)
@@ -1838,6 +1871,11 @@ def main(argv=None):
              "a final snapshot is taken at a graceful stop",
     )
     ap.add_argument(
+        "--prewarm", action="store_true",
+        help="warm the hot kernels of the restored records at boot "
+             "(core/warmpool: the first request's latency stays clean)",
+    )
+    ap.add_argument(
         "--device", default="cuda",
         help="where the state lives: 'cuda' (the default; without a card the "
              "server refuses to start) or 'cpu' (the plain PyTorch versions)",
@@ -1936,6 +1974,11 @@ def main(argv=None):
     if args.restore and args.checkpoint and os.path.exists(args.checkpoint):
         n = checkpoint.load(engine, args.checkpoint)
         print(f"restored {n} records from {args.checkpoint}", flush=True)
+    if args.prewarm:
+        t0 = time.perf_counter()
+        n = engine.prewarm()
+        print(f"prewarmed {n} keys in {time.perf_counter() - t0:.6f} s "
+              f"{json.dumps(engine.warm_pool.stats())}", flush=True)
     checkpointer = None
     if args.checkpoint and args.checkpoint_interval > 0:
         checkpointer = checkpoint.AutoCheckpointer(

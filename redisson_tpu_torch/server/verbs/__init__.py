@@ -9,8 +9,8 @@ object calls and the wire transactions), collections (the hash extras,
 sets, lists, the multi-pops and the blocking verbs, BLMPOP and BZMPOP
 among them), zset (the rest of the sorted-set surface, RENAMENX, BITPOS
 and SORT), streamgeo (X* and GEO*) and modules (JSON.* and FT.*), with
-their shared preludes in ``common``.  The rest of admin, and COPY, come
-with ROADMAP M11; any verb the port does not serve replies the
+their shared preludes in ``common``.  IMPORTRECORDS and COPY come with
+ROADMAP M11 part 4; any verb the port does not serve replies the
 reference's unknown-command error.  Order mirrors the reference's
 registration order.
 """

@@ -19,17 +19,14 @@ A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
     subcommands reply an error naming the slice that brings them: DEVPROBE
     and DEVEVACUATE (they need the fault plane and
     ``server/migration.py``), the migration and residency ones (SETSLOT,
-    WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY) ROADMAP M11, as does
-    REPLICAOF.  REPLICAS replies the empty list a master with no replica
-    replies: no replica can attach before M11.
+    WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY) ROADMAP M11.
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
     by function name (FCALL); EVAL, SCRIPT LOAD and FUNCTION LOAD/DUMP
     reply the reference's errors.
 
-  * ROLE (the master form; a replica's comes with the replication slice),
-    METRICS (and METRICS CLUSTER over ``TpuServer.link_client``), and the
+  * ROLE (a master's and a replica's form), METRICS (and METRICS CLUSTER over ``TpuServer.link_client``), and the
     tracing plane's TRACE, SLOWLOG and LATENCY over ``observe/trace.py``
     (reference ``:959-1152``).
   * The durability verbs over ``core/checkpoint.py``: SAVE, BGSAVE,
@@ -37,9 +34,14 @@ A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
     SHUTDOWN (a failed final save aborts it), RESTORESTATE, DUMP and
     RESTORE (reference ``:1154-1232``, ``:1440-1476``).
 
-The replication verbs (REPLFLUSH, REPLPING, REPLPUSH, REPLPUSHSEG,
-REPLREGISTER, REPLSNAPSHOT, REPLSTATE), IMPORTRECORDS and WAIT come with the
-operations slice (ROADMAP M11 parts 3 and 4).
+  * Replication over ``server/replication.py`` (reference ``:526-990``,
+    ``:1343-1373``): REPLICAOF (a resumable full sync, then REPLREGISTER;
+    NO ONE promotes, leaving the promoted-from breadcrumb), REPLSNAPSHOT
+    (BEGIN, FETCH, END), REPLREGISTER, REPLPUSH, REPLPUSHSEG, REPLPING,
+    REPLSTATE [MAXSTALE], REPLFLUSH, WAIT and REPLICAS.  The push-stream
+    verbs apply only on a replica (a promoted master refuses a late push).
+
+IMPORTRECORDS comes with the migration slice (ROADMAP M11 part 4).
 """
 
 import sys
@@ -48,7 +50,7 @@ import time
 
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server.registry import register, _s, _int
-from redisson_tpu_torch.server.verbs.common import _glob_match
+from redisson_tpu_torch.server.verbs.common import _exec_tls, _glob_match
 
 # -- admin / node info (redisnode/* surface) ---------------------------------
 
@@ -301,25 +303,401 @@ def cmd_asking(server, ctx, args):
     return "+OK"
 
 
+# -- replication (server/replication.py) -------------------------------------
+
+
+def _tracking_invalidator(server):
+    """apply_records' on_applied hook: transfer frames (replication
+    pushes, migration imports) change the keyspace exactly like writes, so
+    tracked readers on this node must invalidate."""
+    tracking = getattr(server, "tracking", None)
+    if tracking is None or not tracking.active:
+        return None
+    return lambda names: tracking.note_write(list(names), None)
+
+
+def _bank_resync(server, names) -> None:
+    """A full ship replaces a vector_bank record's arrays behind any
+    service-level bank object bound to it: resync the bank's host mirror
+    and row count, so a later (e.g. post-promotion) query never scores a
+    stale mirror."""
+    services = getattr(server.engine, "_services", None)
+    if not services or services.get("search") is None or not names:
+        return
+    try:
+        from redisson_tpu_torch.services.vector import sync_banks_from_records
+
+        sync_banks_from_records(server.engine, names)
+    except Exception:  # noqa: BLE001 — observability seam: never fail the apply
+        pass
+
+
+def _replica_on_applied(server):
+    """The replica's on_applied: tracked readers invalidate and service
+    banks re-adopt the records installed by the push stream."""
+    tracking_cb = _tracking_invalidator(server)
+
+    def on_applied(names):
+        if tracking_cb is not None:
+            tracking_cb(names)
+        _bank_resync(server, names)
+
+    return on_applied
+
+
+def _stamp_recorder(server):
+    """apply_records' on_payload hook: adopt the push's replication stamp
+    (the master's sweep-cut offset and wall time) AFTER the records
+    applied, so REPLSTATE never runs ahead of what a replica read sees.
+    The receipt time is monotonic: staleness needs no clock agreement
+    between hosts."""
+
+    def on_payload(payload):
+        off = payload.get("repl_offset")
+        if off is None:
+            return  # a scoped cover ship: records, not a sweep cut
+        server.repl_applied_offset = int(off)
+        server.repl_applied_ts = float(payload.get("repl_ts") or 0.0)
+        server.repl_applied_at = time.monotonic()
+
+    return on_payload
+
+
+def _require_replica(server, verb: str) -> None:
+    """The replication-stream verbs apply only on a replica: a promoted
+    master must NEVER apply a late push from its old master, which would
+    turn its state back to before the failover.  The refused pusher marks
+    the link unhealthy."""
+    if server.role != "replica":
+        raise RespError(
+            f"ERR {verb} rejected: node is a master (stale replication push)"
+        )
+
+
+def _promote_flush(server) -> None:
+    """The promotion barrier: the replica's state becomes MASTER state the
+    instant the role flips, so half-assembled segmented pushes are
+    dropped, tracked readers invalidate across the keyspace, the staleness
+    clock resets (a master is never stale) and service banks re-adopt
+    their records."""
+    with server._repl_xfers_lock:
+        server._repl_xfers.clear()
+    server.repl_applied_at = None
+    names = list(server.engine.store.keys())
+    cb = _tracking_invalidator(server)
+    if cb is not None and names:
+        try:
+            cb(names)
+        except Exception:  # noqa: BLE001
+            pass
+    _bank_resync(server, names)
+    server.stats["promotions"] = server.stats.get("promotions", 0) + 1
+
+
 @register("REPLICAOF")
 def cmd_replicaof(server, ctx, args):
+    """REPLICAOF NO ONE -> become master; REPLICAOF <host> <port> -> full
+    sync from the master (a resumable chunked pull), then register for its
+    push stream."""
+    if len(args) == 2 and bytes(args[0]).upper() == b"NO" and bytes(args[1]).upper() == b"ONE":
+        promoted = server.role == "replica"
+        if promoted and server.master_address:
+            # the breadcrumb for successor coordinators: a master that can
+            # name the master it was promoted FROM is a half-finished
+            # failover; a restarted stale master cannot
+            server.promoted_from = server.master_address
+        # the role flips FIRST: from here every late push of the old master
+        # is refused by _require_replica, THEN the barrier scrubs what the
+        # replica stream staged
+        server.role = "master"
+        server.master_address = None
+        if promoted:
+            _promote_flush(server)
+        return "+OK"
+    if len(args) != 2:
+        raise RespError("ERR REPLICAOF <host> <port> | NO ONE")
+    host, port = _s(args[0]), _int(args[1])
+    from redisson_tpu_torch.net.retry import replica_link_kwargs
+    from redisson_tpu_torch.server import replication
+
+    # nodes of one grid share credentials and transport security
+    master = server.link_client(f"{host}:{port}", **replica_link_kwargs())
+    try:
+        blob = replication.pull_snapshot(master, timeout=60.0)
+        replication.apply_records(
+            server.engine, blob,
+            on_applied=_tracking_invalidator(server),
+        )
+        # register by the address this node is KNOWN BY: the master's push
+        # link must reach a routable address, not a 0.0.0.0 bind
+        reply = master.execute("REPLREGISTER", server.public_host, server.port)
+        if isinstance(reply, RespError):
+            raise reply
+    finally:
+        master.close()
+    server.role = "replica"
+    server.master_address = f"{host}:{port}"
+    # a PREVIOUS master's stamps must not answer fresh: the staleness clock
+    # restarts at the new master's first push or heartbeat
+    server.repl_applied_at = None
+    return "+OK"
+
+
+def _reap_stale_snaps(server, now: float, keep: str = "") -> None:
+    """Drop staged snapshot cuts untouched past the stale window (the
+    caller holds server._snap_lock): a replica that died mid-pull must not
+    pin its cut for good."""
+    from redisson_tpu_torch.server.replication import SNAP_STAGE_STALE_S
+
+    stages = server._snap_stages
+    for k in [k for k, (_b, _c, ts) in stages.items()
+              if k != keep and now - ts > SNAP_STAGE_STALE_S]:
+        del stages[k]
+
+
+@register("REPLSNAPSHOT")
+def cmd_replsnapshot(server, ctx, args):
+    """Bare REPLSNAPSHOT -> the full serialized cut (the one-ship form).
+
+    Subcommands (the resumable full sync; replication.pull_snapshot is the
+    client half):
+
+      * ``BEGIN [CHUNK n]`` — serialize ONE immutable cut, stage it, reply
+        ``[xfer_id, total_bytes, crc32, chunk_bytes]``;
+      * ``FETCH <id> <offset>`` — the staged bytes at ``offset`` (up to the
+        stage's chunk size); an unknown or reaped id replies
+        ``SNAPEXPIRED``, so the puller restarts from a fresh BEGIN;
+      * ``END <id>`` — release the stage (idempotent)."""
+    import zlib
+
+    from redisson_tpu_torch.server import replication
+
+    if not args:
+        blob, _shipped = replication.serialize_records(server.engine)
+        return blob
+    sub = bytes(args[0]).upper()
+    now = time.monotonic()
+    if sub == b"BEGIN":
+        chunk = replication.SNAPSHOT_CHUNK_BYTES
+        if len(args) >= 3 and bytes(args[1]).upper() == b"CHUNK":
+            chunk = max(1, _int(args[2]))
+        blob, _shipped = replication.serialize_records(server.engine)
+        with server._snap_lock:
+            _reap_stale_snaps(server, now)
+            while len(server._snap_stages) >= replication.SNAP_STAGE_MAX:
+                # backstop only: drop the least recently touched stage
+                stages = server._snap_stages
+                del stages[min(stages, key=lambda k: stages[k][2])]
+            server._snap_seq += 1
+            xfer_id = f"snap-{server.node_id[:8]}-{server._snap_seq}"
+            server._snap_stages[xfer_id] = [blob, chunk, now]
+        return [xfer_id, len(blob), zlib.crc32(blob), chunk]
+    if sub == b"FETCH":
+        xfer_id, offset = _s(args[1]), _int(args[2])
+        with server._snap_lock:
+            _reap_stale_snaps(server, now, keep=xfer_id)
+            entry = server._snap_stages.get(xfer_id)
+            if entry is None:
+                raise RespError(
+                    f"SNAPEXPIRED unknown snapshot transfer {xfer_id}"
+                )
+            blob, chunk, _ts = entry
+            entry[2] = now
+        if not (0 <= offset <= len(blob)):
+            raise RespError(
+                f"ERR snapshot offset {offset} outside 0..{len(blob)}"
+            )
+        return blob[offset:offset + chunk]
+    if sub == b"END":
+        with server._snap_lock:
+            server._snap_stages.pop(_s(args[1]), None)
+        return "+OK"
     raise RespError(
-        "ERR REPLICAOF is not served by this port yet (ROADMAP M11: replication)"
+        "ERR REPLSNAPSHOT [BEGIN [CHUNK n] | FETCH <id> <offset> | END <id>]"
     )
+
+
+@register("REPLREGISTER")
+def cmd_replregister(server, ctx, args):
+    host, port = _s(args[0]), _int(args[1])
+    server.replication_source().register(f"{host}:{port}")
+    return "+OK"
+
+
+@register("REPLPUSH")
+def cmd_replpush(server, ctx, args):
+    from redisson_tpu_torch.server import replication
+
+    _require_replica(server, "REPLPUSH")
+    # any live push proves the link is back: reap the transfers a dead
+    # predecessor abandoned mid-segment
+    with server._repl_xfers_lock:
+        _reap_stale_xfers(server, time.monotonic())
+    return replication.apply_records(
+        server.engine, bytes(args[0]),
+        on_applied=_replica_on_applied(server),
+        on_payload=_stamp_recorder(server),
+    )
+
+
+# REPLPUSHSEG staging: a transfer untouched for REPL_XFER_STALE_S is
+# abandoned (its pusher's per-segment timeout is 60 s); REPL_XFER_MAX is the
+# hard leak backstop, far above any sane count of concurrent transfers
+REPL_XFER_STALE_S = 120.0
+REPL_XFER_MAX = 64
+
+
+def _reap_stale_xfers(server, now: float, keep: str = "") -> None:
+    """Drop staged transfers untouched past the stale window (the caller
+    holds server._repl_xfers_lock).  Runs on EVERY replication push, so an
+    abandoned transfer cannot linger when no later segmented ship starts."""
+    xfers = server._repl_xfers
+    for k in [k for k, (_slots, ts) in xfers.items()
+              if k != keep and now - ts > REPL_XFER_STALE_S]:
+        del xfers[k]
+
+
+@register("REPLPUSHSEG")
+def cmd_replpushseg(server, ctx, args):
+    """REPLPUSHSEG <xfer_id> <seq> <nsegs> <chunk> — one bounded slice of an
+    oversized REPLPUSH blob (replication.SEGMENT_BYTES).  The last slice
+    reassembles and applies the blob; the others stage on the host and
+    reply +OK.  Staging evicts by staleness, never by insertion order."""
+    from redisson_tpu_torch.server import replication
+
+    _require_replica(server, "REPLPUSHSEG")
+    xfer_id, seq, nsegs = _s(args[0]), _int(args[1]), _int(args[2])
+    chunk = bytes(args[3])
+    now = time.monotonic()
+    xfers = server._repl_xfers
+    with server._repl_xfers_lock:
+        _reap_stale_xfers(server, now, keep=xfer_id)
+        if seq == 0:
+            while len(xfers) >= REPL_XFER_MAX:
+                # backstop only: drop the least recently touched transfer
+                del xfers[min(xfers, key=lambda k: xfers[k][1])]
+            xfers[xfer_id] = [[None] * nsegs, now]
+        entry = xfers.get(xfer_id)
+        if entry is None or len(entry[0]) != nsegs or not (0 <= seq < nsegs):
+            raise RespError(f"ERR unknown replication transfer {xfer_id}/{seq}")
+        entry[0][seq] = chunk
+        entry[1] = now
+        if any(s is None for s in entry[0]):
+            return "+OK"
+        del xfers[xfer_id]
+        blob = b"".join(entry[0])
+    return replication.apply_records(
+        server.engine, blob,
+        on_applied=_replica_on_applied(server),
+        on_payload=_stamp_recorder(server),
+    )
+
+
+@register("REPLPING")
+def cmd_replping(server, ctx, args):
+    """REPLPING <offset> <ts> — the master's heartbeat on a clean sweep: the
+    replica's applied offset advances with no payload, so bounded-staleness
+    replica reads stay eligible while the keyspace is idle."""
+    _require_replica(server, "REPLPING")
+    server.repl_applied_offset = _int(args[0])
+    try:
+        server.repl_applied_ts = float(_s(args[1]))
+    except (ValueError, IndexError):
+        server.repl_applied_ts = 0.0
+    server.repl_applied_at = time.monotonic()
+    return "+OK"
+
+
+@register("REPLSTATE")
+def cmd_replstate(server, ctx, args):
+    """REPLSTATE [MAXSTALE <ms>] -> [role, applied_offset, staleness_ms,
+    view_epoch] — the server half of the bounded-staleness contract.
+
+    staleness_ms counts from the monotonic RECEIPT of the last applied push
+    or heartbeat; -1 means the replica never synced (always too stale); a
+    master replies 0.  The MAXSTALE form replies the same and also counts
+    replica_redirects_stale when the answer exceeds the client's bound."""
+    max_stale = None
+    if args:
+        if len(args) == 2 and bytes(args[0]).upper() == b"MAXSTALE":
+            max_stale = _int(args[1])
+        else:
+            raise RespError("ERR REPLSTATE [MAXSTALE <ms>]")
+    if server.role != "replica":
+        stale_ms = 0
+    elif server.repl_applied_at is None:
+        stale_ms = -1
+    else:
+        stale_ms = int((time.monotonic() - server.repl_applied_at) * 1000.0)
+    if max_stale is not None and server.role == "replica" \
+            and (stale_ms < 0 or stale_ms > max_stale):
+        server.stats["replica_redirects_stale"] += 1
+    return [
+        server.role.encode(),
+        int(server.repl_applied_offset),
+        stale_ms,
+        int(server.view_epoch),
+    ]
+
+
+@register("REPLFLUSH")
+def cmd_replflush(server, ctx, args):
+    """Ship dirty records to every replica NOW (the WAIT / syncSlaves
+    analog)."""
+    if server._replication is None:
+        return 0
+    return server._replication.flush()
+
+
+@register("WAIT")
+def cmd_wait(server, ctx, args):
+    """WAIT numreplicas timeout(ms): flush dirty records to the replicas
+    now and reply how many replicas are attached (a count >= numreplicas
+    means the flush was SHIPPED to that many: the REPLFLUSH semantics)."""
+    if len(args) < 2:
+        raise RespError("ERR wrong number of arguments for 'wait' command")
+    want = _int(args[0])
+    timeout_ms = _int(args[1])
+    if timeout_ms < 0:
+        raise RespError("ERR timeout is negative")
+    # Redis's WAIT timeout 0 blocks until the replica count is reached
+    deadline = None if timeout_ms == 0 else time.time() + timeout_ms / 1000.0
+    while True:
+        n = 0
+        if server._replication is not None:
+            server._replication.flush()
+            n = len(server._replication.replicas())
+        if (
+            n >= want
+            or (deadline is not None and time.time() >= deadline)
+            or getattr(server, "_closing", False)
+            or getattr(_exec_tls, "in_exec", False)  # no parking inside EXEC
+        ):
+            return n
+        time.sleep(0.02)  # parked, not spinning: this holds a pool worker
 
 
 @register("REPLICAS")
 def cmd_replicas(server, ctx, args):
-    # a master's replica list: empty, as no replica attaches before M11
-    return []
+    if server._replication is None:
+        return []
+    return [a.encode() for a in server._replication.replicas()]
 
 
 @register("ROLE")
 def cmd_role(server, ctx, args):
-    """Redis ROLE parity, in the master form: ["master", 0, [replica
-    addrs], promoted-from].  No replica attaches before the replication
-    slice, so the list is empty and the node was never promoted."""
-    return [b"master", 0, [], (server.promoted_from or "").encode()]
+    """Redis ROLE parity: a master -> ["master", 0, [replica addrs],
+    promoted-from]; a replica -> ["slave", host, port, "connected", 0].
+    Failover coordinators probe it to find a dead master's replicas.  The
+    4th element of the master form goes past Redis: the address this
+    master was promoted FROM (empty when it never was a replica)."""
+    if server.role == "replica" and server.master_address:
+        host, _, port = server.master_address.rpartition(":")
+        return [b"slave", host.encode(), int(port), b"connected", 0]
+    reps = []
+    if server._replication is not None:
+        reps = [a.encode() for a in server._replication.replicas()]
+    return [b"master", 0, reps, (server.promoted_from or "").encode()]
 
 
 @register("METRICS")

@@ -609,6 +609,23 @@ def prewarm_word_count(
     K.wc_sort_runs(*stream, 1 << d_max_bits).cpu()
 
 
+def prewarm_word_count_pooled(total_chars: int, total_words: int,
+                              n_chunks: int = 2, device="cuda") -> bool:
+    """prewarm_word_count through the warm pool (reference
+    ``core/warmpool.py:358``): repeated boots and repeated jobs over
+    same-bucket corpora skip the warm.  True iff this call did the work."""
+    from redisson_tpu_torch.core import warmpool
+
+    device = resolve_device(device)
+    b = K.bucket_size(max(1, -(-total_chars // n_chunks)))
+    eb = K.bucket_size(max(1, -(-total_words // n_chunks)))
+
+    def thunk():
+        prewarm_word_count(total_chars, total_words, n_chunks=n_chunks, device=device)
+
+    return warmpool.POOL.warm(("wc", (b, eb, n_chunks), "uint8", 0, (str(device),)), thunk)
+
+
 def _wc_reduce(view: _WcScanView, d_max: int, parts: Optional[Dict[str, float]] = None) -> Dict[str, int]:
     """Count runs of the sorted word stream.  More than d_max distinct words
     sort again with room for every row, still on the device.  `parts`, when

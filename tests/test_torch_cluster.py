@@ -327,12 +327,15 @@ def test_an_ssh_loopback_fleet_serves_over_tls():
 # -- what waits for later slices ---------------------------------------------------
 
 def test_replicas_and_replicated_clients_wait_for_m11():
-    for make in (lambda: ClusterRunner(masters=1, replicas_per_master=1, device="cpu"),
-                 lambda: ClusterSupervisor(masters=1, replicas_per_master=1),
-                 lambda: ReplicatedRedisson(["127.0.0.1:1"]),
-                 lambda: ReplicatedRedisson.create(port_config.Config())):
-        with pytest.raises(NotImplementedError, match="M11"):
-            make()
+    # replicas and the replicated client came with M11 part 3: the runner
+    # and the supervisor plan a replica a master, and the replicated
+    # client refuses a config without node addresses as the reference's does
+    runner = ClusterRunner(masters=2, replicas_per_master=1, device="cpu")
+    assert runner.replicas_per_master == 1 and runner.replicas == []
+    plan = ClusterSupervisor(masters=2, replicas_per_master=1)
+    assert plan._replica_hosts == {(0, 0): "local", (1, 0): "local"}
+    with pytest.raises(ValueError, match="node_addresses"):
+        ReplicatedRedisson.create(port_config.Config())
     # checkpoints came with M11 part 1: each node's checkpoint path and
     # interval go on its command line; scrape merges the live nodes (none)
     sup = ClusterSupervisor(masters=1, checkpoint_interval=5.0)

@@ -1985,3 +1985,62 @@ def test_checkpoint_and_dump_round_trip_on_the_card(dev, tmp_path):
         assert K.launches["bloom_probe"] > before["bloom_probe"] and K.launches["hll_rows"] > before["hll_rows"]
     finally:
         src.shutdown()
+
+
+def test_replication_k23_k24_and_a_replica_on_the_card(dev):
+    """K23 (the packed upload) equals per-array copies and K24 (the block
+    patch) the numpy patch, on the card; a master and a replica on the card
+    hold equal planes after a full sync and after a delta, and a delta
+    whose block lies past the plane is refused before it launches anything,
+    leaving the context usable."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.server import replication as R
+
+    rng = np.random.default_rng(9)
+    arrays = {"a": rng.integers(0, 2, 13).astype(bool), "b": rng.integers(0, 256, (3, 7), dtype=np.uint8),
+              "c": rng.integers(-2**31, 2**31, 5, dtype=np.int32),
+              "d": rng.standard_normal((3, 3)).astype(np.float32),
+              "e": rng.integers(-2**62, 2**62, 7, dtype=np.int64)}
+    got = ioplane.scatter_host_arrays(arrays, dev, ioplane.StagingPool(pin=True))
+    for k, v in arrays.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k].cpu(), torch.from_numpy(v))
+    for dt in (np.uint8, np.int32):
+        host = rng.integers(0, 100, 256 * 37 + 5).astype(dt)
+        be = R._block_elems(np.dtype(dt))
+        nb = -(-host.size // be)
+        idx = np.asarray([0, 5, 5, nb - 1, 3], np.int32)
+        d = {"idx": idx, "data": rng.integers(0, 100, (idx.size, be)).astype(dt), "shape": host.shape,
+             "dtype": str(np.dtype(dt)), "nblocks": nb}
+        want = np.concatenate([host, np.zeros(nb * be - host.size, dt)]).reshape(nb, be)
+        want[idx] = d["data"]
+        cur = torch.from_numpy(host).to(dev)
+        out = R._apply_array_delta(cur, d)
+        assert torch.equal(out.cpu(), torch.from_numpy(want.reshape(-1)[: host.size]))
+        assert torch.equal(cur.cpu(), torch.from_numpy(host))
+    runner = ClusterRunner(masters=1, replicas_per_master=1, device="cuda").run()
+    try:
+        master, replica = runner.masters[0].server, runner.replicas[0].server
+        with master.client() as c:
+            c.execute("BF.RESERVE", "cr:bf", "0.01", "50000")
+            c.execute("BF.MADD64", "cr:bf", np.arange(3000, dtype=np.int64).tobytes())
+            c.execute("REPLFLUSH")
+            c.execute("BF.MADD64", "cr:bf", np.arange(3000, 3050, dtype=np.int64).tobytes())
+            c.execute("REPLFLUSH")
+        assert master.server.replication_source().stats["records_delta"] >= 1
+        m = master.server.engine.store.get_unguarded("cr:bf")
+        r = replica.server.engine.store.get_unguarded("cr:bf")
+        assert r.arrays["bits"].device.type == "cuda" and torch.equal(r.arrays["bits"], m.arrays["bits"])
+        bad = {"name": "cr:bf", "kind": r.kind, "meta": dict(r.meta), "version": r.version + 1,
+               "nonce": r.nonce, "expire_at": r.expire_at, "host_pickled": R.safe_pickle.dumps(r.host, protocol=4),
+               "delta_base": r.version,
+               "arrays_delta": {"bits": {"idx": np.asarray([10**6], np.int32), "data": np.zeros((1, 256), np.uint8),
+                                         "shape": tuple(r.arrays["bits"].shape), "dtype": "uint8",
+                                         "nblocks": -(-r.arrays["bits"].numel() // 256)}}}
+        with replica.client() as c:
+            reply = c.execute("REPLPUSH", R._wire_payload([bad], None))
+        assert "out of range" in str(reply)
+        torch.cuda.synchronize()
+        assert replica.server.engine.store.get_unguarded("cr:bf") is r
+    finally:
+        runner.shutdown()

@@ -294,9 +294,9 @@ def test_trace_dump_reads_the_port_s_ring():
 
 
 def test_the_port_registers_every_verb_but_the_replication_ones():
-    """The slice's 14 verbs are registered; what the reference registers
-    beyond the port is the replication verbs, IMPORTRECORDS and WAIT
-    (ROADMAP M11 parts 3 and 4)."""
+    """The slice's 14 verbs are registered, and the replication verbs and
+    WAIT since; what the reference registers beyond the port is
+    IMPORTRECORDS (ROADMAP M11 part 4)."""
     import redisson_tpu.server.server  # noqa: F401 — registers the verbs
     import redisson_tpu_torch.server.server  # noqa: F401
     from redisson_tpu.server import registry as ref_registry
@@ -304,7 +304,8 @@ def test_the_port_registers_every_verb_but_the_replication_ones():
 
     ref, port = set(ref_registry.REGISTRY._handlers), set(port_registry.REGISTRY._handlers)
     assert port - ref == set()
-    assert ref - port == {b"IMPORTRECORDS", b"REPLFLUSH", b"REPLPING", b"REPLPUSH", b"REPLPUSHSEG",
-                          b"REPLREGISTER", b"REPLSNAPSHOT", b"REPLSTATE", b"WAIT"}
+    assert ref - port == {b"IMPORTRECORDS"}
+    assert {b"REPLFLUSH", b"REPLPING", b"REPLPUSH", b"REPLPUSHSEG", b"REPLREGISTER",
+            b"REPLSNAPSHOT", b"REPLSTATE", b"WAIT", b"REPLICAOF", b"REPLICAS"} <= port
     assert {b"ROLE", b"METRICS", b"TRACE", b"SLOWLOG", b"LATENCY", b"SAVE", b"BGSAVE", b"BGREWRITEAOF",
             b"LASTSAVE", b"SHUTDOWN", b"RESTORESTATE", b"DUMP", b"RESTORE", b"COPY"} <= port

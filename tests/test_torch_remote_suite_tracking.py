@@ -7,7 +7,6 @@ WAITING = {
     "test_epochless_handoff_invalidates_after_fenced_migration": "M11 (slot migration)",
     "test_tracking_soak_migration_smoke": "M11 (the chaos soak harness, slot migration)",
     "test_tracking_soak_kill_failover": "M11 (the chaos soak harness, failover)",
-    "test_replica_reads_arm_tracking_and_invalidate": "M11 (replica reads)",
     "test_tracking_census_and_metrics_gauges": "M11 (the resource census, chaos/census.py)",
     # not waiting for a slice: its subprocess runs the source text
     # "from redisson_tpu.net.resp import ...", which no loader reaches;

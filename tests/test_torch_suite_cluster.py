@@ -5,12 +5,7 @@ slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_replication_prunes_deleted_records": "M11 (replicas, REPLFLUSH)",
-    "test_replication_and_replica_reads": "M11 (replicas, replica reads)",
-    "test_manual_failover_promote": "M11 (replicas, promote)",
     "test_failover_coordinator_auto_promotes": "M11 (FailoverCoordinator, replicas)",
-    "test_password_protected_cluster_bootstrap_and_replication": "M11 (replicas, REPLFLUSH)",
-    "test_replication_recreate_within_ship_interval": "M11 (replicas, REPLFLUSH)",
     "test_failover_coordinator_keeps_unpromotable_master_pending": "M11 (FailoverCoordinator)",
 }
 

@@ -3,8 +3,6 @@
 slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_role_breadcrumb_distinguishes_promoted_from_restarted": "M11 (replicas, REPLICAOF)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_depth_json_stream_search", WAITING, __name__))

@@ -19,8 +19,6 @@ WAITING = {
     "test_hll_union_across_devices_matches_single_device_and_stays_on_device": _D2D,
     "test_bitset_bitop_across_devices_stays_on_device": _D2D,
     "test_wordcount_spreads_chunks_and_merges_without_host_gather": _D2D,
-    "test_prewarm_warms_every_device_and_move_hits_pool": "M11 (the warm pool, core/warmpool.py)",
-    "test_prewarm_without_placement_keeps_historical_keys": "M11 (the warm pool, core/warmpool.py)",
     "test_device_rebalance_kill_at_every_phase": "M11 (server/migration.py's journaled rebalance)",
     "test_rebalance_resume_skips_slots_a_newer_rebalance_owns": "M11 (server/migration.py's journaled rebalance)",
     "test_mixed_journal_dir_resume_paths_never_cross": "M11 (server/migration.py's journaled rebalance)",

@@ -6,9 +6,6 @@ import pytest
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_ssh_fleet_boots_tls_armed_and_anti_affine": "M11 (replicas, on the ssh fleet)",
-    "test_ssh_fleet_weighted_qos_rebalance": "M11 (replicas, on the ssh fleet)",
-    "test_ssh_fleet_refuses_plaintext": "M11 (replicas, on the ssh fleet)",
     "test_ssh_fleet_host_kill_promote_and_recover": "M11 (replicas, promote_replica)",
     # not waiting for a slice: it asserts the reference's module name in
     # the remote script; the port's starts ``-m redisson_tpu_torch.server``

@@ -1,0 +1,8 @@
+"""The reference's tests/test_replsnapshot_resume.py, unedited, on the port
+(tests/_torch_port_suite.py).  ``WAITING`` names each test left out and the
+slice it waits for."""
+from tests import _torch_port_suite
+
+WAITING: dict = {}
+
+globals().update(_torch_port_suite.load("test_replsnapshot_resume", WAITING, __name__))

@@ -3,8 +3,6 @@
 names each test left out and the slice it waits for."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_engine_warm_pool_prewarm_is_idempotent": "M11 (the warm pool, core/warmpool.py)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_resharding", WAITING, __name__))

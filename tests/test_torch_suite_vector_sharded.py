@@ -3,8 +3,6 @@
 names each test left out and why."""
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_mesh_warm_pool_sharded_knn_survives_reshard": "M11 (the warm pool, core/warmpool.py: Engine.prewarm)",
-}
+WAITING: dict = {}
 
 globals().update(_torch_port_suite.load("test_vector_sharded", WAITING, __name__))

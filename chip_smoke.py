@@ -255,7 +255,34 @@ Phases (any failure raises and the script exits non-zero):
      bounds (printed, not in the kernels line: no hand kernel); bad REPLPUSH
      deltas refused with the card still usable; REPLSTATE staleness and
      WAIT 1 p50/p99 under a 5 s writer; and a ClusterSupervisor replica
-     process answering a READONLY read with the master's bytes;
+     process answering a READONLY read with the master's bytes; last the
+     migration path (run_migration, server/migration.py): (a) two masters
+     on the card with a journal directory, config 2's bank (1M keys), config
+     3's counters (1M ops) and config 5's 64 tenants on master 0, a writer
+     of 10,000-key BFA.MADD64 and HLLA.MADD64 frames, 10 ms apart, through
+     the port's ClusterRedisson while three journaled migrate_slots windows move the
+     bank's slot, the counters' slot and config 5's 64 slots to master 1:
+     each window's seconds, bytes and MB/s, IMPORTRECORDS frames, the
+     writer's p50/p99 before and during it and the ASK, MOVED and TRYAGAIN
+     redirects it followed; every acked bank key reads 1 on the target,
+     every record has one owner, and every plane equals the CPU replay of
+     the same setup and acked frames bit for bit (and HLLA.ESTIMATE's
+     reply); (b) config 5's records moved with the coordinator killed after
+     PLANNED, WINDOW_OPEN, DRAINING:1, VIEW_COMMITTED and STABLE, each
+     followed by resume_migrations: rolled back or completed, one owner,
+     acked keys found, planes equal the CPU replay's; (d) config 5's
+     records on a server of 8 positions on the card: rebalance_devices of
+     half the slots killed at PLANNED, DRAINING:1 and STABLE and resumed,
+     BF.MEXISTS64, GETBIT and GETBITSB replies equal those before and a
+     CPU server's (the positions share the card: no move between cards is
+     measured); (c) ClusterSupervisor(masters=2, replicas_per_master=1)
+     processes on the card: the bank migrated with the coordinator killed
+     after DRAINING:1 and the target SIGKILLed, the target restarted (its
+     import journal replayed at boot), resume_migrations, a WAIT 1 covered
+     write, the master killed and promote_replica, then rolling_restart of
+     the masters with a client open: exit codes 0, generations +1, each
+     old log ending with its kernel launches line, every acked key found
+     after each step, each step's seconds;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -388,7 +415,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "sharded": ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select"),
                 "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",),
-                "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add")}
+                "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add"),
+                "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
 FPP = 0.01
 
 
@@ -6966,6 +6994,528 @@ def run_replication(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the migration path: live slot migration, journals and failover on the card
+# (server/migration.py, server/migration_journal.py, cluster/chaos.py)
+# --------------------------------------------------------------------------
+
+# config 2's bank and config 3's counters take C2_INGEST keys and C3_BATCH
+# ops before the windows (their widths are the configs': 96.3 MB and 163.8
+# MB); the writer's frames, the pause after each of its acks (a paced
+# writer: its acked stream is replayed on the CPU) and its seconds before
+# and after each window
+MG_FRAME, MG_WRITER_GAP_S, MG_LEAD_S = 10_000, 0.01, 0.5
+MG_PHASES = ("PLANNED", "WINDOW_OPEN", "DRAINING:1", "VIEW_COMMITTED", "STABLE")
+MG_DEV_PHASES = ("PLANNED", "DRAINING:1", "STABLE")
+MG_POSITIONS, MG_READY_S = 8, 300.0
+# a key the writer sends is past every key of the fills
+MG_WRITER_BASE = 20_000_000
+
+
+def _mg_tags(owner_range, prefix: str, n: int) -> list:
+    """n hash tags (each its own slot) whose slots lie in owner_range."""
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    lo, hi = owner_range
+    out, slots = [], set()
+    for i in range(1_000_000):
+        t = f"{prefix}{i}"
+        s = calc_slot(t.encode())
+        if lo <= s <= hi and s not in slots:
+            out.append(t)
+            slots.add(s)
+            if len(out) == n:
+                return out
+    raise AssertionError(f"migration: fewer than {n} tags on {owner_range}")
+
+
+def _mg_config5(tags, rng) -> tuple:
+    """Config 5's records on the given tags: a C5_PER-key filter and a
+    C5_BITS-bit set a tenant (C5_BIT_OPS indexes).  Returns (commands, the
+    filters' names, every name, {filter: its keys})."""
+    cmds, filters, names, keys = [], [], [], {}
+    for t, tag in enumerate(tags):
+        f, b = f"mg:bf{{{tag}}}", f"mg:bits{{{tag}}}"
+        ks = np.arange(t * C5_PER, (t + 1) * C5_PER, dtype=np.int64) * 2654435761
+        cmds += [("BF.RESERVE", f, FPP, C5_PER), ("BF.MADD64", f, _i8(ks)),
+                 ("SETBITSB", b, _i4(rng.integers(0, C5_BITS, C5_BIT_OPS)))]
+        filters.append(f)
+        names += [f, b]
+        keys[f] = [ks]
+    return cmds, filters, names, keys
+
+
+def _mg_fill(bank: str, hll: str, rng) -> list:
+    """Config 2's bank and config 3's counters, reserved and filled."""
+    cmds = [("BFA.RESERVE", bank, C2_TENANTS, C2_PER_TENANT, FPP), ("HLLA.RESERVE", hll, C3_TENANTS)]
+    keys = np.arange(C2_INGEST, dtype=np.int64) * 2654435761
+    for i in range(0, C2_INGEST, C2_FLUSH):
+        ks = keys[i:i + C2_FLUSH]
+        cmds.append(("BFA.MADD64", bank, _i4((ks * 40503) % C2_TENANTS), _i8(ks)))
+    for i in range(0, C3_BATCH, C2_FLUSH):
+        cmds.append(("HLLA.MADD64", hll, _i4(rng.integers(0, C3_TENANTS, C2_FLUSH)),
+                     _i8(rng.integers(0, 1 << 60, C2_FLUSH))))
+    return cmds
+
+
+def _mg_run(conn, cmds, label: str) -> None:
+    """Send commands in frames of 16; every reply must be a success."""
+    for i in range(0, len(cmds), 16):
+        for cmd, reply in zip(cmds[i:i + 16], conn.execute_many(cmds[i:i + 16])):
+            if isinstance(reply, Exception):
+                raise AssertionError(f"{label}: {cmd[0]} {cmd[1]} replied {reply}")
+
+
+def _mg_bank_keys(frames) -> tuple:
+    """The (tenants, keys) of every BFA.MADD64 command among `frames`."""
+    t = [np.frombuffer(c[2], "<i4") for c in frames if c[0] == "BFA.MADD64"]
+    k = [np.frombuffer(c[3], "<i8") for c in frames if c[0] == "BFA.MADD64"]
+    return np.concatenate(t), np.concatenate(k)
+
+
+def _mg_all_found(conn, label: str, cmd: str, name: str, tenants, keys) -> int:
+    """Every key reads 1 by BFA.MEXISTS64 (tenants given) or BF.MEXISTS64."""
+    for i in range(0, len(keys), C2_FLUSH):
+        args = (_i4(tenants[i:i + C2_FLUSH]),) if tenants is not None else ()
+        reply = conn.execute(cmd, name, *args, _i8(keys[i:i + C2_FLUSH]))
+        if isinstance(reply, Exception) or not np.frombuffer(reply, np.uint8).all():
+            raise AssertionError(f"migration {label}: an acked key of {name} reads 0 ({str(reply)[:80]})")
+    return len(keys)
+
+
+def _mg_owners(masters, names) -> dict:
+    """{name: the indexes of the masters holding it}."""
+    return {n: [i for i, m in enumerate(masters) if m.server.server.engine.store.peek(n)] for n in names}
+
+
+def _mg_one_owner(masters, names, want: int, label: str) -> None:
+    bad = {n: o for n, o in _mg_owners(masters, names).items() if o != [want]}
+    if bad:
+        raise AssertionError(f"migration {label}: records not on exactly master {want}: {list(bad.items())[:4]}")
+
+
+def _mg_same_planes(server, cpu_server, names, label: str) -> int:
+    """Each record's arrays on `server` equal the CPU replay's bit for bit."""
+    total = 0
+    for n in names:
+        got, want = server.engine.store.get_unguarded(n), cpu_server.engine.store.get_unguarded(n)
+        if got is None or want is None or sorted(got.arrays) != sorted(want.arrays):
+            raise AssertionError(f"migration {label}: {n} missing or of other arrays")
+        for k, v in want.arrays.items():
+            _same_tensor(f"migration {label}: {n}.{k}", got.arrays[k], v)
+            total += v.numel() * v.element_size()
+    return total
+
+
+def _mg_imports(server) -> tuple:
+    """(IMPORTRECORDS calls, their seconds) of a server's commandstats."""
+    t = server.metrics._timers.get("command.importrecords")
+    return (0, 0.0) if t is None else (t.count, t.total_s)
+
+
+class _MgWriter(threading.Thread):
+    """Sends BFA.MADD64 frames into the bank and HLLA.MADD64 frames into
+    the counters through a ClusterRedisson, one at a time, each of MG_FRAME
+    fresh keys, MG_WRITER_GAP_S apart; keeps every acked frame in order with
+    its start and latency, and every failure."""
+
+    def __init__(self, client, bank: str, hll: str):
+        super().__init__(daemon=True, name="mg-writer")
+        self.client, self.bank, self.hll = client, bank, hll
+        self.frames, self.errors = [], []
+        self.halt = threading.Event()
+
+    def run(self):
+        i = 0
+        while not self.halt.is_set():
+            keys = (MG_WRITER_BASE + np.arange(i * MG_FRAME, (i + 1) * MG_FRAME, dtype=np.int64)) * 2654435761
+            if i % 2 == 0:
+                cmd = ("BFA.MADD64", self.bank, _i4((keys * 40503) % C2_TENANTS), _i8(keys))
+            else:
+                cmd = ("HLLA.MADD64", self.hll, _i4(keys % C3_TENANTS), _i8(keys))
+            i += 1
+            s = time.perf_counter()
+            try:
+                self.client.execute(*cmd)
+            except Exception as e:  # noqa: BLE001 — an unacked frame fails the leg
+                self.errors.append(f"{cmd[0]}: {e!r}")
+                continue
+            self.frames.append((s, (time.perf_counter() - s) * 1e3, cmd))
+            self.halt.wait(MG_WRITER_GAP_S)
+
+
+def _mg_pctl(frames, lo: float, hi: float) -> dict:
+    ms = [f[1] for f in frames if f[0] < hi and f[0] + f[1] / 1e3 > lo]
+    return {"frames": len(ms), "p50_ms": pctl(ms, 50) if ms else None, "p99_ms": pctl(ms, 99) if ms else None}
+
+
+def mg_live(runner, cpu, jd: str, card: str) -> dict:
+    """Leg a: config 2's bank, config 3's counters and config 5's 64
+    tenants on master 0, a writer of BFA.MADD64 and HLLA.MADD64 frames
+    through the port's ClusterRedisson, and three journaled migrate_slots
+    windows to master 1 (the bank's slot, the counters' slot, config 5's
+    64 slots) while it writes."""
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.migration import migrate_slots
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    rng = np.random.default_rng(211)
+    src, dst = (m.server.server for m in runner.masters)
+    b_tag, h_tag = _mg_tags(runner.slot_ranges[0], "mgb", 2)
+    bank, hll = f"mg:c2{{{b_tag}}}", f"mg:c3{{{h_tag}}}"
+    c5_cmds, filters, c5_names, _ = _mg_config5(_mg_tags(runner.slot_ranges[0], "mgt", C5_TENANTS), rng)
+    setup = _mg_fill(bank, hll, rng) + c5_cmds
+    conn = Connection(src.host, src.port, timeout=600.0)
+    try:
+        s = time.perf_counter()
+        _mg_run(conn, setup, "setup")
+        setup_s = time.perf_counter() - s
+    finally:
+        conn.close()
+    client = runner.client(scan_interval=0, timeout=600.0)
+    writer = _MgWriter(client, bank, hll)
+    windows = []
+    try:
+        writer.start()
+        time.sleep(MG_LEAD_S)
+        for label, slots, names in (("bank", [calc_slot(b_tag.encode())], [bank]),
+                                    ("counters", [calc_slot(h_tag.encode())], [hll]),
+                                    ("config5", sorted({calc_slot(n.encode()) for n in c5_names}), c5_names)):
+            redirects, (calls0, imp_s0) = dict(client.redirect_stats), _mg_imports(dst)
+            s = time.perf_counter()
+            moved = migrate_slots(src.address(), dst.address(), slots, journal_dir=jd)
+            e = time.perf_counter()
+            calls, imp_s = _mg_imports(dst)
+            nbytes = sum(v.numel() * v.element_size() for n in names
+                         for v in dst.engine.store.get_unguarded(n).arrays.values())
+            windows.append({"window": label, "slots": len(slots), "records": moved, "bytes": nbytes,
+                            "seconds": e - s, "mb_per_s": nbytes / (e - s) / 1e6,
+                            "importrecords_frames": calls - calls0, "importrecords_s": imp_s - imp_s0,
+                            "redirects": {k: client.redirect_stats[k] - v for k, v in redirects.items()},
+                            "start": s, "end": e})
+            time.sleep(MG_LEAD_S)
+    finally:
+        writer.halt.set()
+        writer.join(120)
+        client.shutdown()
+    if writer.errors:
+        raise AssertionError(f"migration live: {len(writer.errors)} writer frames failed: {writer.errors[:3]}")
+    if [w["records"] for w in windows] != [1, 1, len(c5_names)]:
+        raise AssertionError(f"migration live: records moved {[w['records'] for w in windows]}")
+    acked = [f[2] for f in writer.frames]
+    before = _mg_pctl(writer.frames, 0.0, windows[0]["start"])
+    for w in windows:
+        w["writer"] = _mg_pctl(writer.frames, w.pop("start"), w.pop("end"))
+    names = [bank, hll] + c5_names
+    _mg_one_owner(runner.masters, names, 1, "live")
+    t, k = _mg_bank_keys([c for c in setup if c[1] == bank] + acked)
+    conn = Connection(dst.host, dst.port, timeout=600.0)
+    cconn = Connection(cpu.host, cpu.port, timeout=600.0)
+    try:
+        found = _mg_all_found(conn, "live", "BFA.MEXISTS64", bank, t, k)
+        # the CPU replay: the same setup and acked frames, in order
+        _mg_run(cconn, setup + acked, "CPU replay")
+        if conn.execute("HLLA.ESTIMATE", hll) != cconn.execute("HLLA.ESTIMATE", hll):
+            raise AssertionError("migration live: the counters' estimates differ from the CPU replay's")
+    finally:
+        conn.close()
+        cconn.close()
+    replayed = _mg_same_planes(dst, cpu, names, "live")
+    out = {"setup_s": setup_s, "writer_before": before, "windows": windows, "acked_frames": len(acked),
+           "acked_bank_keys_found": found, "planes_bytes_equal": replayed}
+    log(f"migration live [{card}]: setup {setup_s:.1f} s; writer before the windows: {before['frames']} frames "
+        f"p50 {before['p50_ms']:.3f} ms p99 {before['p99_ms']:.3f} ms")
+    for w in windows:
+        wr = w["writer"]
+        log(f"migration live [{card}]: {w['window']}: {w['records']} records of {w['slots']} slots, {w['bytes']} "
+            f"bytes in {w['seconds']:.3f} s ({w['mb_per_s']:.1f} MB/s; IMPORTRECORDS {w['importrecords_frames']} "
+            f"frames, {w['importrecords_s']:.3f} s on the target); writer during it {wr['frames']} frames"
+            + (f" p50 {wr['p50_ms']:.3f} ms p99 {wr['p99_ms']:.3f} ms" if wr["frames"] else "")
+            + f"; redirects followed {w['redirects']}")
+    log(f"migration live [{card}]: {len(acked)} acked writer frames; {found} acked bank keys read 1 on the target; "
+        f"every record on master 1 alone; {replayed} bytes of planes equal the CPU replay bit for bit, and so "
+        "do the counters' HLLA.ESTIMATE replies")
+    return out, (setup + acked, filters, c5_names)
+
+
+def mg_kills(runner, cpu, jd: str, card: str, filters, c5_names) -> dict:
+    """Leg b: config 5's records moved between the masters by a journaled
+    migrate_slots killed after each phase, each followed by
+    resume_migrations, with an acked BF.MADD64 frame into every filter
+    before each kill."""
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.migration import CoordinatorKilled, migrate_slots, resume_migrations
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    slots = sorted({calc_slot(n.encode()) for n in c5_names})
+    client = runner.client(scan_interval=0, timeout=600.0)
+    acked, keys, phases = [], {f: [] for f in filters}, []
+    try:
+        for p, phase in enumerate(MG_PHASES):
+            owner = _mg_owners(runner.masters, c5_names[:1])[c5_names[0]][0]
+            a, b = (runner.masters[owner].server.server, runner.masters[1 - owner].server.server)
+            for t, f in enumerate(filters):
+                ks = (np.arange(C5_PER, dtype=np.int64) + (p + 1) * 10_000_000 + t * C5_PER) * 2654435761
+                client.execute("BF.MADD64", f, _i8(ks))
+                acked.append(("BF.MADD64", f, _i8(ks)))
+                keys[f].append(ks)
+            s = time.perf_counter()
+            try:
+                migrate_slots(a.address(), b.address(), slots, journal_dir=jd, crash_after=phase)
+                killed = False
+            except CoordinatorKilled:
+                killed = True
+            k = time.perf_counter()
+            results = resume_migrations(jd)
+            e = time.perf_counter()
+            action = [r["action"] for r in results]
+            want = (["rolled_back"] if phase == "PLANNED" else [] if phase == "STABLE" else ["completed"])
+            if killed != (phase != "STABLE") or action != want:
+                raise AssertionError(f"migration kills: {phase}: killed {killed}, resume {results}")
+            holder = owner if phase == "PLANNED" else 1 - owner
+            _mg_one_owner(runner.masters, c5_names, holder, f"kill at {phase}")
+            phases.append({"phase": phase, "action": action, "holder": holder, "until_kill_s": k - s,
+                           "resume_s": e - k})
+        for f in filters:
+            _mg_all_found(client, f"kills ({f})", "BF.MEXISTS64", f, None, np.concatenate(keys[f]))
+    finally:
+        client.shutdown()
+    cconn = Connection(cpu.host, cpu.port, timeout=600.0)
+    try:
+        _mg_run(cconn, acked, "CPU replay")
+    finally:
+        cconn.close()
+    holder = runner.masters[phases[-1]["holder"]].server.server
+    replayed = _mg_same_planes(holder, cpu, c5_names, "kills")
+    for ph in phases:
+        log(f"migration kills [{card}]: coordinator killed after {ph['phase']}: {ph['until_kill_s']:.3f} s to the "
+            f"kill, resume_migrations {ph['resume_s']:.3f} s -> {ph['action'] or 'nothing in flight'}; "
+            f"{len(c5_names)} records on master {ph['holder']} alone")
+    log(f"migration kills [{card}]: every acked key of {len(filters)} filters reads 1; {replayed} bytes of planes "
+        f"equal the CPU replay bit for bit")
+    return {"phases": phases, "planes_bytes_equal": replayed}
+
+
+def _mg_last_generation_ends(log_text: str) -> str:
+    """The last line an old generation of a node wrote before the last
+    ``serving on`` line (the node's newest start)."""
+    lines = [ln for ln in log_text.splitlines() if ln.strip()]
+    starts = [i for i, ln in enumerate(lines) if ln.startswith("serving on ")]
+    if len(starts) < 2:
+        return ""
+    return lines[starts[-1] - 1]
+
+
+def mg_processes(device, card: str) -> dict:
+    """Leg c: ClusterSupervisor(masters=2, replicas_per_master=1) server
+    processes on the card (each with --checkpoint and --journal-dir):
+    config 2's bank migrated with the coordinator killed after its first
+    drain sweep and the target SIGKILLed (kill_pair_at_phase), the target
+    restarted (its import journal replayed at boot), resume_migrations;
+    then a WAIT 1 covered write, the master killed and promote_replica;
+    then rolling_restart of the masters with a client connection open.
+    Every acked key reads 1 after each step."""
+    from redisson_tpu_torch.cluster import ClusterSupervisor
+    from redisson_tpu_torch.cluster.chaos import kill_pair_at_phase
+    from redisson_tpu_torch.server.migration import resume_migrations
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    steps, out = {}, {}
+    rng = np.random.default_rng(223)
+    sup = ClusterSupervisor(masters=2, replicas_per_master=1, platform=None if device == "cuda" else device,
+                            ready_timeout=MG_READY_S)
+    client = None
+    try:
+        s = time.perf_counter()
+        sup.start()
+        steps["start 4 processes"] = time.perf_counter() - s
+        client = sup.client(scan_interval=0, timeout=600.0)
+        if not client.wait_routable(timeout=60.0):
+            raise AssertionError("migration processes: the fleet never served every slot")
+        tag = _mg_tags(sup.slot_ranges[0], "mgp", 1)[0]
+        bank = f"mg:c2{{{tag}}}"
+        fill = [c for c in _mg_fill(bank, f"mg:unused{{{tag}}}", rng) if c[1] == bank]
+        s = time.perf_counter()
+        for cmd in fill:
+            client.execute(*cmd)
+        steps["fill the bank"] = time.perf_counter() - s
+        t, k = _mg_bank_keys(fill)
+        src, dst = sup.masters
+        s = time.perf_counter()
+        rcs = kill_pair_at_phase(sup, src, dst, [calc_slot(tag.encode())], "DRAINING:1")
+        steps["migrate, coordinator killed after DRAINING:1, target SIGKILLed"] = time.perf_counter() - s
+        if rcs != {"target": -signal.SIGKILL}:
+            raise AssertionError(f"migration processes: kill_pair_at_phase {rcs}")
+        s = time.perf_counter()
+        sup.restart(dst)
+        steps["restart the target (import journal replayed at boot)"] = time.perf_counter() - s
+        s = time.perf_counter()
+        results = resume_migrations(sup.journal_dir)
+        steps["resume_migrations"] = time.perf_counter() - s
+        if [r["action"] for r in results] != ["completed"]:
+            raise AssertionError(f"migration processes: resume {results}")
+        client.refresh_topology()
+        _mg_all_found(client, "processes after the resume", "BFA.MEXISTS64", bank, t, k)
+        ks = (MG_WRITER_BASE + np.arange(C2_FLUSH, dtype=np.int64)) * 2654435761
+        ts = ((ks * 40503) % C2_TENANTS).astype(np.int32)
+        with sup.conn(dst, timeout=600.0) as c:
+            c.execute("BFA.MADD64", bank, _i4(ts), _i8(ks))
+            s = time.perf_counter()
+            acks = c.execute("WAIT", 1, 60000)
+            steps["WAIT 1"] = time.perf_counter() - s
+        if acks != 1:
+            raise AssertionError(f"migration processes: WAIT 1 replied {acks}")
+        t, k = np.concatenate([t, ts]), np.concatenate([k, ks])
+        s = time.perf_counter()
+        sup.kill(dst)
+        promoted = sup.promote_replica(dst)
+        steps["kill the master, promote_replica"] = time.perf_counter() - s
+        if promoted is None:
+            raise AssertionError("migration processes: no replica to promote")
+        client.refresh_topology()
+        _mg_all_found(client, "processes after the promotion", "BFA.MEXISTS64", bank, t, k)
+        gens = [n.generation for n in sup.masters]
+        s = time.perf_counter()
+        rolled = sup.rolling_restart(nodes=list(sup.masters))
+        steps["rolling_restart of the masters, a client open"] = time.perf_counter() - s
+        codes = [r["exit_code"] for r in rolled]
+        ends = [_mg_last_generation_ends(sup.log_tail(n, 1 << 20)) for n in sup.masters]
+        if codes != [0, 0] or [n.generation for n in sup.masters] != [g + 1 for g in gens] \
+                or not all(e.startswith("kernel launches {") for e in ends):
+            raise AssertionError(f"migration processes: rolling restart codes {codes}, generations "
+                                 f"{[n.generation for n in sup.masters]} from {gens}, old logs end {ends}")
+        client.refresh_topology()
+        found = _mg_all_found(client, "processes after the roll", "BFA.MEXISTS64", bank, t, k)
+        logs = [sup.log_tail(n, 1 << 20) for n in sup.masters + sup.replicas]
+    finally:
+        if client is not None:
+            client.shutdown()
+        sup.shutdown()
+    launches = {}
+    for text in logs:
+        for ln in text.splitlines():
+            if ln.startswith("kernel launches "):
+                for key, v in json.loads(ln[len("kernel launches "):]).items():
+                    launches[key] = launches.get(key, 0) + v
+    out.update(steps_s=steps, rolling_exit_codes=codes, acked_keys_found=found, children_launches=launches)
+    for name, secs in steps.items():
+        log(f"migration processes [{card}]: {name}: {secs:.3f} s")
+    log(f"migration processes [{card}]: rolling restart exit codes {codes}, each generation +1, each old log "
+        f"ends with its kernel launches line; {found} acked keys read 1 after each step; the children's launches "
+        + json.dumps({key: v for key, v in launches.items() if v}))
+    return out
+
+
+def mg_rebalance(device, jd: str, card: str) -> dict:
+    """Leg d: config 5's records on a server of MG_POSITIONS positions;
+    rebalance_devices of half the slots, journaled, killed at each phase
+    and resumed; BF.MEXISTS64, GETBIT and GETBITSB replies equal those
+    before the moves and a CPU server's."""
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.server.migration import CoordinatorKilled, rebalance_devices, resume_device_rebalances
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    rng = np.random.default_rng(227)
+    tags = [f"mgd{t}" for t in range(C5_TENANTS)]
+    cmds, filters, names, keys = _mg_config5(tags, rng)
+    probe = [("BF.MEXISTS64", f, _i8(np.concatenate([keys[f][0], keys[f][0] + 1]))) for f in filters]
+    probe += [("GETBIT", n, int(i)) for n in names if n.startswith("mg:bits") for i in rng.integers(0, C5_BITS, 4)]
+    probe += [("GETBITSB", n, _i4(rng.integers(0, C5_BITS, C5_BIT_OPS))) for n in names if n.startswith("mg:bits")]
+    replies, phases = {}, []
+    for where, on in (("cpu", "cpu"), ("card", device)):
+        with ServerThread(port=0, device=on, devices=MG_POSITIONS) as st, st.client() as c:
+            _mg_run(c, cmds, f"rebalance setup ({where})")
+            replies[where] = c.execute_many(probe)
+            if where == "cpu":
+                continue
+            engine = st.server.engine
+            p = engine.placement
+            slots = sorted({calc_slot(n.encode()) for n in names})
+            for phase in MG_DEV_PHASES:
+                targets = {s: (p.device_id_for_slot(s) + MG_POSITIONS // 2) % MG_POSITIONS
+                           for s in slots[: len(slots) // 2]}
+                s = time.perf_counter()
+                try:
+                    rebalance_devices(engine, targets, journal_dir=jd, crash_after=phase, batch=len(targets) // 2)
+                    killed = False
+                except CoordinatorKilled:
+                    killed = True
+                k = time.perf_counter()
+                results = resume_device_rebalances(engine, jd)
+                e = time.perf_counter()
+                want = [] if phase == "STABLE" else ["completed"]
+                if not killed or [r["action"] for r in results] != want:
+                    raise AssertionError(f"migration rebalance: {phase}: killed {killed}, resume {results}")
+                if any(p.device_id_for_slot(s) != d for s, d in targets.items()):
+                    raise AssertionError(f"migration rebalance: {phase}: slots not on their targets")
+                moved = [n for n in names if engine.store.get_unguarded(n).position
+                         != p.device_id_for_slot(calc_slot(n.encode()))]
+                if moved:
+                    raise AssertionError(f"migration rebalance: {phase}: records off their owner: {moved[:4]}")
+                got = c.execute_many(probe)
+                if got != replies["card"]:
+                    raise AssertionError(f"migration rebalance: {phase}: replies changed by the move")
+                phases.append({"phase": phase, "slots": len(targets), "until_kill_s": k - s, "resume_s": e - k,
+                               "moved": sum(r["moved"] for r in results)})
+    if replies["card"] != replies["cpu"]:
+        raise AssertionError("migration rebalance: the card's replies differ from the CPU server's")
+    for ph in phases:
+        log(f"migration rebalance [{card}]: {ph['slots']} of {C5_TENANTS} slots ({2 * C5_TENANTS} records) over "
+            f"{MG_POSITIONS} positions, killed at {ph['phase']} after {ph['until_kill_s']:.3f} s, resumed in "
+            f"{ph['resume_s']:.3f} s ({ph['moved']} records moved by the rebalance, as its journal counts); "
+            f"{len(probe)} replies equal those before and the CPU's")
+    log(f"migration rebalance [{card}]: the {MG_POSITIONS} positions share this one card: a move re-owns a record "
+        "and copies nothing; nothing here measures a move between cards")
+    return {"phases": phases, "probe_replies": len(probe)}
+
+
+def run_migration(device="cuda") -> dict:
+    """The migration path: leg a (live migration under a writer, in one
+    process), b (the coordinator killed after each phase), c (server
+    processes: a target SIGKILL, failover, rolling restart) and d (a device
+    rebalance over positions on one card)."""
+    import tempfile
+
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.server import ServerThread
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="rtpu-mig-") as tmp:
+        runner = ClusterRunner(masters=2, device=device, workers=4, journal_dir=os.path.join(tmp, "a")).run()
+        cpu = ServerThread(port=0, device="cpu").start()
+        try:
+            landed = {m.server.server.engine.device.type for m in runner.masters}
+            if landed != {torch.device(device).type}:
+                raise AssertionError(f"migration: masters on {landed}, not {device}")
+            s = time.perf_counter()
+            out["live"], (_, filters, c5_names) = mg_live(runner, cpu.server, os.path.join(tmp, "a"), card)
+            out["live"]["seconds"] = time.perf_counter() - s
+            s = time.perf_counter()
+            out["kills"] = mg_kills(runner, cpu.server, os.path.join(tmp, "a"), card, filters, c5_names)
+            out["kills"]["seconds"] = time.perf_counter() - s
+        finally:
+            cpu.stop()
+            runner.shutdown()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+        s = time.perf_counter()
+        out["rebalance"] = mg_rebalance(device, os.path.join(tmp, "d"), card)
+        out["rebalance"]["seconds"] = time.perf_counter() - s
+        out["launches"] = dict(K.launches)  # the processes below launch in their own
+        s = time.perf_counter()
+        out["processes"] = mg_processes(device, card)
+        out["processes"]["seconds"] = time.perf_counter() - s
+    out["seconds"] = time.perf_counter() - start
+    log(f"migration path [{card}]: {out['seconds']:.1f}s (live {out['live']['seconds']:.1f} s, kills "
+        f"{out['kills']['seconds']:.1f} s, rebalance {out['rebalance']['seconds']:.1f} s, processes "
+        f"{out['processes']['seconds']:.1f} s)")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -7275,7 +7825,8 @@ def main() -> int:
                       ("durability", lambda: run_durability()),
                       ("observe", lambda: run_observe()),
                       ("warm", lambda: run_warm()),
-                      ("replication", lambda: run_replication())):
+                      ("replication", lambda: run_replication()),
+                      ("migration", lambda: run_migration())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -7284,7 +7835,7 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft", "cluster", "cluster_proc", "qos"):
+    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]

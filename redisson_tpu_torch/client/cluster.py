@@ -20,6 +20,8 @@ A copy of ``redisson_tpu/client/cluster.py`` on the port's ``RemoteSurface``;
 pickled frames go through ``net/safe_pickle`` as the single-node client's
 do.  Reads follow ``read_mode`` ("replica" / "master_slave" read from the
 masters' replicas, with the REPLSTATE staleness probe when a bound is set).
+``redirect_stats`` counts the MOVED, ASK and TRYAGAIN replies ``execute``
+followed (the reference keeps no such count).
 """
 from __future__ import annotations
 
@@ -140,6 +142,9 @@ class ClusterRedisson(RemoteSurface):
             "replica_redirects_stale": 0,
             "replica_fallbacks": 0,
         }
+        # the redirects execute() followed: MOVED (a refresh), ASK (a hop
+        # into a migration window) and TRYAGAIN (a backed-off retry)
+        self.redirect_stats: Dict[str, int] = {"moved": 0, "ask": 0, "tryagain": 0}
         self._shard_offsets: Dict[str, int] = {}  # master addr -> max offset seen
         if balancer is None and read_mode != READ_MASTER:
             # replica-read profiles default to lane-occupancy scoring:
@@ -451,6 +456,7 @@ class ClusterRedisson(RemoteSurface):
                 if msg.startswith("MOVED "):
                     # MOVED <slot> <host>:<port> — refresh and re-route
                     # (cluster/ClusterConnectionManager topology diff analog)
+                    self.redirect_stats["moved"] += 1
                     last = e
                     self.refresh_topology()
                     continue
@@ -458,6 +464,7 @@ class ClusterRedisson(RemoteSurface):
                     # ASK <slot> <host:port> — one-shot redirect into the
                     # migration window; NO topology refresh (the view still
                     # names the draining owner until finalization)
+                    self.redirect_stats["ask"] += 1
                     try:
                         return self._execute_asking(msg.split()[2], cmd_args, timeout)
                     except RespError as e2:
@@ -481,6 +488,7 @@ class ClusterRedisson(RemoteSurface):
                     # multi-key op spanning a live migration window: neither
                     # node holds every key yet — back off and retry
                     # (RedisExecutor treats TRYAGAIN as a scheduled retry)
+                    self.redirect_stats["tryagain"] += 1
                     last = e
                     time.sleep(min(0.05 * (attempt + 1), 0.5))
                     continue

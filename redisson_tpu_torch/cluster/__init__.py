@@ -12,10 +12,11 @@ A copy of ``redisson_tpu/cluster/__init__.py`` for the cluster serving path:
     spawn over an ssh channel), :class:`K8sDriver` (pod-spec codegen);
   * :mod:`~redisson_tpu_torch.cluster.qos_control` — the fleet-wide tenant
     budget loop (:class:`QosRebalancer`), which
-    ``ClusterSupervisor.start_qos_rebalance`` runs.
+    ``ClusterSupervisor.start_qos_rebalance`` runs;
+  * :mod:`~redisson_tpu_torch.cluster.chaos` — process-chaos primitives
+    (the coordinator killed at a journal phase, SIGKILL-at-phase storms).
 
-The process-chaos primitives (``cluster/chaos.py``) and the residency
-control loop come with ROADMAP M11.
+The residency control loop comes with ROADMAP M11 part 5.
 """
 from redisson_tpu_torch.cluster.hostdriver import (  # noqa: F401
     HostDriver,

@@ -46,11 +46,16 @@ node's checkpoint exists, so the fresh process comes back with the records
 of its last snapshot.  ``scrape`` merges every live node's METRICS with
 ``node=`` labels.
 
-Left out until their slice, each raising NotImplementedError:
-``promote_replica`` and ``rolling_restart`` (ROADMAP M11 part 4); no
-``--journal-dir`` is passed (the port's server refuses it until part 4).  ``start_qos_rebalance`` runs the fleet's
-tenant budget loop (``cluster/qos_control.py``) over the masters, and
-``shutdown`` stops it.
+The supervisor process doubles as the migration coordinator's home: its
+``journal_dir`` (``<base_dir>/journal``, passed to every node as
+``--journal-dir``) holds the write-ahead migration journals and the nodes'
+import journals, so killing a server process mid-migration and resuming
+by ``server/migration.resume_migrations`` crosses a real process boundary.
+``promote_replica`` fails a dead master over onto its replica with its
+in-flight import windows, and ``rolling_restart`` recycles the fleet one
+node at a time behind a health barrier.  ``start_qos_rebalance`` runs the
+fleet's tenant budget loop (``cluster/qos_control.py``) over the masters,
+and ``shutdown`` stops it.
 """
 from __future__ import annotations
 
@@ -68,12 +73,11 @@ from redisson_tpu_torch.cluster.hostdriver import (
     HostDriver, LocalHostDriver, NodeHandle,
 )
 from redisson_tpu_torch.net.client import Connection
+from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.net.retry import RetryPolicy, call_with_retry
 
 #: the implicit single-domain label a host-unaware supervisor places on
 _LOCAL_HOST_LABEL = "local"
-
-_M11 = "comes with the migration slice (ROADMAP M11 part 4)"
 
 #: the view-learning schedule for a node rejoining the fleet: its peers may
 #: themselves be restarting, so a refused connect retries instead of failing
@@ -186,6 +190,11 @@ class ClusterSupervisor:
         self._tls_key: Optional[str] = None
         self._client_ssl = None
         self.base_dir = base_dir or tempfile.mkdtemp(prefix="rtpu-cluster-")
+        # the COORDINATOR's migration-journal home: migrate_slots and
+        # resume_migrations run in THIS process against the spawned servers,
+        # and every node journals its imports here (--journal-dir)
+        self.journal_dir = os.path.join(self.base_dir, "journal")
+        os.makedirs(self.journal_dir, exist_ok=True)
         self.slot_ranges = topology.split_slots(masters)
         # failure-domain placement: explicit hosts= engages anti-affinity
         # (loudly degraded when impossible); a host-unaware supervisor is
@@ -312,7 +321,12 @@ class ClusterSupervisor:
             # cross-host nodes bind wide but are NAMED by their routable
             # address everywhere (views, READY)
             cmd += ["--advertise-host", connect]
-        cmd += ["--checkpoint", node.checkpoint_path]
+        cmd += [
+            "--checkpoint", node.checkpoint_path,
+            # a node that died mid-migration re-arms its windows from the
+            # journal directory BEFORE serving (migration.rearm_recovery)
+            "--journal-dir", self.journal_dir,
+        ]
         if self.checkpoint_interval > 0:
             cmd += ["--checkpoint-interval", str(self.checkpoint_interval)]
         if restore and os.path.exists(node.checkpoint_path):
@@ -556,14 +570,185 @@ class ClusterSupervisor:
                     )
         return node
 
-    # -- fleet lifecycle (ROADMAP M11) -----------------------------------------
+    # -- fleet lifecycle -------------------------------------------------------
 
     def promote_replica(self, master: NodeProc) -> Optional[NodeProc]:
-        raise NotImplementedError(f"promote_replica {_M11}")
+        """Fail a DEAD master over onto one of its live replicas, keeping
+        any in-flight import window intact: the replica is promoted
+        (``REPLICAOF NO ONE``), inherits the dead master's slots in the
+        fleet view, and re-arms the IMPORTING windows of every in-flight
+        journaled migration that targeted the dead address — then REPLAYS
+        the dead master's journaled import batches onto it
+        (apply-by-version: a no-op for every batch its REPLPUSH-covered
+        link already delivered, the recovery path for any it missed),
+        making it the durable continuation of the import, which
+        ``resume_migrations(readdress={dead: promoted})`` then drives to
+        STABLE.  Only after the replay are the dead master's in-flight
+        import journals terminalized (superseded), and the bookkeeping
+        swaps so a later ``restart()`` of the old process brings it back
+        as a replica of its successor.  Returns the promoted node, or
+        None when the master has no live replica."""
+        from redisson_tpu_torch.server.migration_journal import (
+            ImportJournal, MigrationJournal,
+        )
 
-    def rolling_restart(self, nodes=None, grace: float = 15.0,
-                        health_timeout: float = 60.0):
-        raise NotImplementedError(f"rolling_restart {_M11}")
+        mi = self.masters.index(master)
+        rep = next(
+            (r for r in self.replicas
+             if r.master_index == mi and r.alive()),
+            None,
+        )
+        if rep is None:
+            return None
+        dead_addr = master.address
+        inflight_imports = [
+            ij for ij in ImportJournal.in_flight(self.journal_dir)
+            if ij.target == dead_addr
+        ]
+        def _promote() -> None:
+            # idempotent end to end (REPLICAOF NO ONE, epoch-fenced SETSLOT
+            # re-sends, apply-by-version IMPORTRECORDS replays), so the
+            # whole block retries as one unit — a failover must survive the
+            # very transport chaos that made it necessary
+            with self.conn(rep) as c:
+                topology.check_reply(c.execute("REPLICAOF", "NO", "ONE"))
+                # in-flight import windows move WITH the promotion: the same
+                # epoch re-fences, so the resumed drain's re-sends stay
+                # idempotent and a stale coordinator stays fenced out
+                for j in MigrationJournal.in_flight(self.journal_dir):
+                    planned = j.entry("PLANNED")
+                    if not planned \
+                            or planned.get("kind") == "device_rebalance":
+                        continue
+                    if planned["target"] == dead_addr:
+                        for s in planned["slots"]:
+                            topology.check_reply(c.execute(
+                                "CLUSTER", "SETSLOT", int(s), "IMPORTING",
+                                planned["source"], "EPOCH", j.epoch,
+                            ))
+                # replay the dead target's journaled batches onto the
+                # promoted node BEFORE superseding the journal: the REPLPUSH
+                # cover on the import ack is best-effort (a stalled shipper
+                # or unhealthy replica link ships nothing and the ack still
+                # authorized the source's delete), so the journal — the one
+                # durability point the ack actually proved — must not be
+                # retired on an assumption.  apply-by-version makes the
+                # replay a no-op for every batch the replica DID receive,
+                # and the EPOCH stamp re-journals the batches under the
+                # promoted node's own import journal, which the resumed
+                # migration's STABLE then settles.
+                for ij in inflight_imports:
+                    for blob in ij.batch_blobs():
+                        args = ["IMPORTRECORDS", "EPOCH", ij.epoch]
+                        if ij.source:
+                            args += ["SOURCE", ij.source]
+                        topology.check_reply(
+                            c.execute(*args, blob, timeout=60.0)
+                        )
+
+        call_with_retry(_REJOIN_RETRY, _promote)
+        for ij in inflight_imports:
+            ij.append("STABLE", superseded_by=rep.address)
+        new_view = [
+            (lo, hi, rep.host, rep.port, rep.node_id)
+            if f"{h}:{p}" == dead_addr else (lo, hi, h, p, nid)
+            for lo, hi, h, p, nid in self.current_view()
+        ]
+        rep.role, master.role = "master", "replica"
+        self.replicas.remove(rep)
+        rep.master_index = None
+        self.masters[mi] = rep
+        master.master_index = mi
+        self.replicas.append(master)
+        call_with_retry(
+            _REJOIN_RETRY,
+            lambda: topology.install_view(
+                [self._conn_factory(n) for n in self.nodes() if n.alive()],
+                new_view,
+            ),
+        )
+        return rep
+
+    def rolling_restart(
+        self,
+        nodes: Optional[Sequence[NodeProc]] = None,
+        grace: float = 15.0,
+        health_timeout: float = 60.0,
+    ) -> List[Dict[str, object]]:
+        """Restart/upgrade a LIVE fleet one node at a time with zero acked
+        loss: per node — drain (``REPLFLUSH`` ships everything dirty to its
+        replicas, ``SAVE`` pins the restart's restore point), escalating
+        graceful stop, respawn on the same address, then a health barrier
+        (cluster routable end to end, the restarted node answering, its
+        replica links re-attached) before the roll moves on.  Replicas
+        roll first so no master ever loses its last replica mid-step.
+        Default order covers every node; pass ``nodes`` to roll a subset
+        (e.g. masters only).  Returns one summary dict per node rolled."""
+        order = (
+            list(nodes) if nodes is not None
+            else list(self.replicas) + list(self.masters)
+        )
+        rolled: List[Dict[str, object]] = []
+        for node in order:
+            if node.alive():
+                try:
+                    with self.conn(node, timeout=60.0) as c:
+                        c.execute("REPLFLUSH", timeout=30.0)
+                        reply = c.execute("SAVE", timeout=60.0)
+                        if isinstance(reply, RespError):
+                            raise reply
+                except Exception:  # noqa: BLE001 — wedged node: the
+                    pass           # escalating stop below still bounds us
+            rc = self.stop(node, timeout=grace)
+            # force: if even SIGKILL could not reap in time (rc None), the
+            # retried stop inside restart() keeps the roll bounded instead
+            # of silently no-opping on a still-"alive" zombie
+            self.restart(node, force=True)
+            self._health_barrier(node, timeout=health_timeout)
+            rolled.append({
+                "node": node.name, "exit_code": rc,
+                "generation": node.generation,
+            })
+        return rolled
+
+    def _health_barrier(self, node: NodeProc, timeout: float = 60.0) -> None:
+        """One roll step's gate: the fleet routes end to end again AND the
+        restarted node's replication links are re-attached (a master must
+        list its live replicas — replication catch-up restarts from the
+        full-sync pull ``wire_replica`` triggers) before the next node goes
+        down."""
+        deadline = time.monotonic() + timeout
+        client = self.client(scan_interval=0.5)
+        try:
+            if not client.wait_routable(
+                timeout=max(1.0, deadline - time.monotonic())
+            ):
+                raise NodeStartupError(
+                    f"fleet not routable after rolling {node.name}\n"
+                    + self.log_tail(node)
+                )
+        finally:
+            client.shutdown()
+        want = [
+            rep for rep in self.replicas
+            if node.role == "master" and rep.master_index is not None
+            and self.masters[rep.master_index] is node and rep.alive()
+        ]
+        while want:
+            try:
+                with self.conn(node, timeout=10.0) as c:
+                    have = {
+                        topology._s(a) for a in c.execute("REPLICAS") or []
+                    }
+                if all(rep.address in have for rep in want):
+                    return
+            except Exception:  # noqa: BLE001 — node still settling
+                pass
+            if time.monotonic() >= deadline:
+                raise NodeStartupError(
+                    f"replicas never re-attached to {node.name} after roll"
+                )
+            time.sleep(0.1)
 
     # -- topology -------------------------------------------------------------
 

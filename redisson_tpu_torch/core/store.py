@@ -7,16 +7,17 @@ under the engine's per-record locks (core/engine.py ``locked`` /
 ``locked_many``), so each object has one writer at a time.  Kernels update the record's tensors in place, or install a new
 tensor where they write out of place (the HLL merges).
 
-A copy of ``redisson_tpu/core/store.py`` without its hooks for the migration
-window and the residency tiers, which the operations slice ports.  With
-placement on, ``placement_hook`` runs at every install (get_or_create's new
-record, put, put_unguarded) and names the record's owner position
-(``StateRecord.position``).
-With no absent guard, the ``*_unguarded`` accessors (which the reference
-keeps for transfer frames and the vector banks' own records) behave as
-``get``/``put``/``delete`` do.  ``on_expired`` is the reference's hook: the
-server's tracking table hears of every record the store drops as expired,
-lazily on access or in the engine's ``reap_expired`` sweep.
+A copy of ``redisson_tpu/core/store.py`` without its hooks for the
+residency tiers, which the operations slice ports.  With placement on,
+``placement_hook`` runs at every install (get_or_create's new record, put,
+put_unguarded) and names the record's owner position
+(``StateRecord.position``).  ``absent_guard`` is the slot-migration
+window's hook: the server installs one that ASK-redirects any touch of an
+ABSENT name in a MIGRATING slot; the ``*_unguarded`` accessors bypass it
+for transfer frames (migration and replication) and the vector banks' own
+records.  ``on_expired`` is the reference's hook: the server's tracking
+table hears of every record the store drops as expired, lazily on access
+or in the engine's ``reap_expired`` sweep.
 """
 from __future__ import annotations
 
@@ -55,6 +56,13 @@ class DeviceStore:
     def __init__(self):
         self._lock = threading.RLock()
         self._states: Dict[str, StateRecord] = {}
+        # Called with a name whenever an ABSENT name is touched: created
+        # (get_or_create / put) or read/deleted as missing (get / delete).
+        # The migration window installs one that ASK-redirects absent names
+        # in MIGRATING slots: creations must happen on the target, and a
+        # record the drain just moved must redirect rather than read as nil
+        # (server/server.py _migration_absent_guard).
+        self.absent_guard: Optional[Callable[[str], None]] = None
         # Called with the NAMES of expired records the store just dropped.
         # It must not reenter the store: lazy expiry fires it while the
         # store lock is held.
@@ -75,12 +83,18 @@ class DeviceStore:
             except Exception:  # noqa: BLE001 — expiry must never fail a read
                 pass
 
-    def _get_locked(self, name: str) -> Optional[StateRecord]:
+    def _live_locked(self, name: str) -> Optional[StateRecord]:
         rec = self._states.get(name)
         if rec is not None and rec.expired():
             del self._states[name]
             rec = None
             self._reaped(name)
+        return rec
+
+    def _get_locked(self, name: str) -> Optional[StateRecord]:
+        rec = self._live_locked(name)
+        if rec is None and self.absent_guard is not None:
+            self.absent_guard(name)
         return rec
 
     def get(self, name: str) -> Optional[StateRecord]:
@@ -90,7 +104,7 @@ class DeviceStore:
     def get_or_create(self, name: str, kind: str,
                       factory: Callable[[], StateRecord]) -> StateRecord:
         with self._lock:
-            rec = self._get_locked(name)
+            rec = self._get_locked(name)  # the absent guard raises in a window
             if rec is None:
                 rec = factory()
                 if rec.kind != kind:
@@ -105,20 +119,38 @@ class DeviceStore:
 
     def put(self, name: str, rec: StateRecord) -> None:
         with self._lock:
+            # an expired entry is absent: recreating it in a MIGRATING slot
+            # must ASK-redirect as get/get_or_create would
+            cur = self._states.get(name)
+            if (cur is None or cur.expired()) and self.absent_guard is not None:
+                self.absent_guard(name)
             self._states[name] = self._placed(name, rec)
 
-    put_unguarded = put
+    def put_unguarded(self, name: str, rec: StateRecord) -> None:
+        """Install bypassing the absent guard: ONLY for migration and
+        replication transfer frames, which create records in windowed slots
+        (the importing side) or overwrite during a drain."""
+        with self._lock:
+            self._states[name] = self._placed(name, rec)
 
     def delete(self, name: str) -> bool:
         with self._lock:
+            existed = self._states.pop(name, None) is not None
+            if not existed and self.absent_guard is not None:
+                self.absent_guard(name)
+            return existed
+
+    def delete_unguarded(self, name: str) -> bool:
+        """Delete bypassing the absent guard (the drain's own removal)."""
+        with self._lock:
             return self._states.pop(name, None) is not None
 
-    delete_unguarded = delete
-
     def get_unguarded(self, name: str) -> Optional[StateRecord]:
-        """get() without the reference's absent guard; an expired record is
-        dropped and reads as absent."""
-        return self.get(name)
+        """get() without the absent guard, for transfer-frame appliers that
+        probe absent names; an expired record is dropped and reads as
+        absent."""
+        with self._lock:
+            return self._live_locked(name)
 
     def keys(self, pattern: Optional[str] = None) -> List[str]:
         """SCAN/KEYS analog: the names of the records that have not expired,
@@ -133,7 +165,9 @@ class DeviceStore:
         return self.get(name) is not None
 
     def peek(self, name: str) -> bool:
-        """Existence without dropping an expired record."""
+        """Existence without the absent guard and without dropping an
+        expired record: routing decisions (TRYAGAIN against ASK) and the
+        drain's own bookkeeping."""
         with self._lock:
             rec = self._states.get(name)
             return rec is not None and not rec.expired()

@@ -83,10 +83,18 @@ never hidden behind a slower path that might succeed.
     the registry, by OBJCALLM/EXEC/TXEXEC and by the coalesced BF run):
     a slot it does not own replies ``MOVED <slot> <host>:<port>``.  A
     replica (REPLICAOF, ``server/replication.py``) serves READONLY reads
-    of its master's slots and refuses writes.  The migration windows
-    (MIGRATING, IMPORTING, RECOVERING) are ported with ``check_routing``
-    but stay empty: the verbs that would set them (CLUSTER SETSLOT,
-    MIGRATESLOT(S), WINDOWS) reply an error naming ROADMAP M11.
+    of its master's slots and refuses writes.
+  * **Live slot migration** (``server/migration.py`` drives it): CLUSTER
+    SETSLOT opens a MIGRATING window on the source and an IMPORTING one on
+    the target; an absent key in a MIGRATING slot replies ``ASK``, a
+    multi-key command split across the window ``TRYAGAIN``, and the
+    store's absent guard (``_migration_absent_guard``) closes the race with
+    the drain.  ``migrate_slot_batch`` ships records in batches of
+    ``DRAIN_BATCH_RECORDS`` by IMPORTRECORDS, each under its records' locks,
+    and deletes them here once the target acks.  With ``journal_dir`` the
+    target journals every batch before it acks (``ImportJournal``), and a
+    restarted node re-arms its windows and replays its journals at boot
+    (RECOVERING slots reply TRYAGAIN until the migration settles).
 
 The port serves the connection, keyspace, sketch, objcall_tx (OBJCALL,
 OBJCALLM, OBJCALLMA, OBJCALLV, MULTI, DISCARD, WATCH, UNWATCH, RESET, EXEC
@@ -94,11 +102,12 @@ and TXEXEC), collections, zset, streamgeo (X*, GEO*) and modules (JSON.*,
 FT.*) verb families, admin's script and function verbs (EVALSHA, EVAL,
 SCRIPT, FCALL, FCALL_RO, FUNCTION), and the cluster view verbs (CLUSTER
 SLOTS, MYID, INFO, SETVIEW, RESET, COUNTKEYSINSLOT, GETKEYSINSLOT, and
-ASKING), the node-info verbs (TIME, INFO, MEMORY), the device-placement
-verbs (CLUSTER DEVICES, DEVMOVE), the observability verbs (ROLE, METRICS,
-TRACE, SLOWLOG, LATENCY) and the durability verbs (SAVE, BGSAVE,
-BGREWRITEAOF, LASTSAVE, SHUTDOWN, RESTORESTATE, DUMP, RESTORE, COPY)
-(``server/verbs``).
+ASKING), the migration verbs (CLUSTER SETSLOT, WINDOWS, MIGRATESLOT,
+MIGRATESLOTS, and IMPORTRECORDS), the node-info verbs (TIME, INFO,
+MEMORY), the device-placement verbs (CLUSTER DEVICES, DEVMOVE), the
+observability verbs (ROLE, METRICS, TRACE, SLOWLOG, LATENCY) and the
+durability verbs (SAVE, BGSAVE, BGREWRITEAOF, LASTSAVE, SHUTDOWN,
+RESTORESTATE, DUMP, RESTORE, COPY) (``server/verbs``).
 
   * **Positions** (``devices=``, ``--devices``): the 16384-slot table maps
     onto that many mesh positions (``server/placement.py``; ``"all"``: the
@@ -148,10 +157,8 @@ WAIT; ``replication_source()`` is the master's lazy shipper, closed by
 ``stop``.  ``--prewarm`` warms the restored records' kernels at boot
 (``core/warmpool.py``).
 
-Left out, raising NotImplementedError when asked for: migration journals
-(``journal_dir``, ROADMAP M11 part 4).  IMPORTRECORDS replies the
-unknown-command error until M11 part 4; the migration links, the residency
-census and the chaos pause gate come with it.
+The residency census and the chaos pause gate come with the operations
+slice's later parts (ROADMAP M11).
 """
 from __future__ import annotations
 
@@ -336,10 +343,6 @@ class TpuServer:
         advertise_host: Optional[str] = None,
         device="cuda",
     ):
-        if journal_dir is not None:
-            raise NotImplementedError(
-                "migration journals (journal_dir=) come with ROADMAP M11 part 4"
-            )
         self.engine = engine if engine is not None else Engine(device=device)
         # device-sharded serving: `devices` maps the 16384-slot table onto
         # that many mesh positions ("all": every local position).  None (the
@@ -448,13 +451,34 @@ class TpuServer:
         # highest accepted SETVIEW fencing token: a stale coordinator's late
         # view write carries a lower token and is refused (STALEVIEW)
         self.view_epoch: int = 0
-        # the migration windows and the crash-recovery fence of the
-        # reference's live resharding (slot -> "host:port"): check_routing
-        # reads them; they stay empty until the migration verbs come with
-        # ROADMAP M11
+        # live slot migration windows (slot -> "host:port"), set by CLUSTER
+        # SETSLOT and read by check_routing
         self.migrating_slots: Dict[int, str] = {}
         self.importing_slots: Dict[int, str] = {}
+        # the crash-recovery fence: slots whose journaled migration was in
+        # flight when THIS process last died (rearm_recovery at boot).
+        # Until resume_migrations settles the journal, every keyed command
+        # on them replies TRYAGAIN: the restored copies may be stale against
+        # what the pre-crash drain already shipped
         self.recovering_slots: Dict[int, str] = {}
+        # per-slot migration fencing: the highest epoch a journaled
+        # coordinator stamped on the slot.  A re-send at the same epoch is
+        # accepted (the idempotent redo), a lower one is a stale
+        # coordinator's late write and replies STALEEPOCH
+        self.slot_epochs: Dict[int, int] = {}
+        # the ACTIVE journaled epoch per MIGRATING slot (set by SETSLOT
+        # MIGRATING ... EPOCH n): the drain stamps it on every outgoing
+        # IMPORTRECORDS so the target journals the batch before it acks.
+        # Distinct from slot_epochs, the high-water mark, which would
+        # attribute a later unjournaled migration's batches to a settled
+        # journal
+        self.migrating_epochs: Dict[int, int] = {}
+        # the import side's journals: the shared journal directory
+        # (--journal-dir, which ClusterSupervisor passes every node) and the
+        # OPEN import journals by epoch
+        self.journal_dir = journal_dir
+        self._import_journals: Dict[int, Any] = {}
+        self._import_journal_lock = threading.Lock()
         # -- cluster / replication role (server/replication.py) -------------
         self.role = "master"  # "master" | "replica"
         self.master_address: Optional[str] = None
@@ -598,8 +622,7 @@ class TpuServer:
         Replica read admission (Redis parity): a CLUSTER replica serves
         keyed reads only to connections that armed READONLY — everyone
         else is MOVED to the master (writes get the -READONLY refusal
-        below).  The migration windows stay empty in the port until
-        ROADMAP M11 part 4.
+        below).
         """
         from redisson_tpu_torch.net import commands as C
         from redisson_tpu_torch.utils.crc16 import calc_slot
@@ -657,14 +680,302 @@ class TpuServer:
         if self.role == "replica" and C.is_write(cmd, args):
             raise RespError("READONLY You can't write against a read only replica.")
 
+    # -- live slot migration (server side) -----------------------------------
+
+    def _migration_absent_guard(self, name: str) -> None:
+        """DeviceStore absent-name hook: any touch of an ABSENT record in a
+        MIGRATING slot redirects to the target.  This closes the races the
+        pre-dispatch ASK check cannot: a record the drain deletes between
+        check_routing and the handler would otherwise be silently recreated
+        here (lost acked write) or read as nil (read-your-writes violation)."""
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        slot = calc_slot(name.encode())
+        target = self.migrating_slots.get(slot)
+        if target is not None:
+            raise RespError(f"ASK {slot} {target}")
+
+    def fence_slot_epoch(self, slot: int, epoch: Optional[int]) -> None:
+        """Accept-or-reject a migration-control command's fencing epoch for
+        one slot.  Epoch-less commands (legacy callers, manual admin) pass
+        unfenced; an epoch below the highest accepted one is a stale
+        coordinator's late write and is refused loudly."""
+        if epoch is None:
+            return
+        cur = self.slot_epochs.get(slot, 0)
+        if epoch < cur:
+            raise RespError(
+                f"STALEEPOCH slot {slot} fenced at epoch {cur}; got {epoch}"
+            )
+        self.slot_epochs[slot] = epoch
+
+    def set_slot_migrating(self, slot: int, target: str,
+                           epoch: Optional[int] = None) -> None:
+        self.migrating_slots[slot] = target
+        if epoch is not None:
+            # journaled drain: outgoing IMPORTRECORDS carry this epoch so
+            # the target journals each batch before acking
+            self.migrating_epochs[slot] = epoch
+        self.engine.store.absent_guard = self._migration_absent_guard
+
+    def set_slot_importing(self, slot: int, source: str) -> None:
+        self.importing_slots[slot] = source
+
+    def set_slot_recovering(self, slot: int, target: str,
+                            epoch: Optional[int] = None) -> None:
+        self.recovering_slots[slot] = target
+        # fence-first invalidation (the case Redis gets wrong-by-config): a
+        # RECOVERING slot's restored copies may be stale against what the
+        # pre-crash drain already shipped — every near cache drops the
+        # slot's keys BEFORE the slot serves anything again, stamped with
+        # THIS handoff's fencing epoch (the caller's, NOT the recorded
+        # slot_epochs high-water mark: an epoch-less handoff of a slot a
+        # PREVIOUS journaled migration fenced would otherwise be deduped
+        # against that stale record and emit nothing) so the resume
+        # re-send is idempotent
+        # slot_names is a full store scan — only pay it when a tracking
+        # client could actually hear the invalidation (rearm_recovery calls
+        # this per in-flight slot BEFORE serving; with tracking idle the
+        # boot path must stay O(1))
+        self.tracking.invalidate_slot(
+            slot, epoch,
+            self.slot_names(slot) if self.tracking.active else None,
+        )
+
+    def set_slot_stable(self, slot: int, epoch: Optional[int] = None) -> None:
+        migrated = slot in self.migrating_slots or slot in self.recovering_slots
+        self.migrating_slots.pop(slot, None)
+        self.importing_slots.pop(slot, None)
+        self.recovering_slots.pop(slot, None)  # resume settled the journal
+        self.migrating_epochs.pop(slot, None)
+        if not self.migrating_slots:
+            self.engine.store.absent_guard = None
+        self._settle_import_journals(epoch)
+        if migrated:
+            # handoff finalized on the SOURCE: whatever the per-key drain
+            # stream didn't already invalidate (keys read-but-absent, keys
+            # registered after their ship) flushes here, stamped with THIS
+            # command's epoch — None (unfenced legacy migration) always
+            # emits, a journaled re-send at its own epoch dedupes
+            self.tracking.invalidate_slot(slot, epoch)
+
+    # -- import-side journal (the target-kill durability gap) -----------------
+
+    def journal_import_batch(self, epoch: int, source: Optional[str],
+                             blob: bytes) -> None:
+        """Make one accepted IMPORTRECORDS batch durable (fsync'd into this
+        node's ImportJournal) BEFORE it is applied or acked — the source
+        deletes a record only once its batch survives a SIGKILL here.  A
+        batch arriving for an epoch whose journal is already terminal is a
+        stale re-ship of a settled migration: applied (idempotent by
+        version) but not re-journaled — terminal journals stay terminal."""
+        from redisson_tpu_torch.server.migration_journal import ImportJournal
+
+        if self.journal_dir is None:
+            return
+        with self._import_journal_lock:
+            j = self._import_journals.get(epoch)
+            if j is None:
+                j = ImportJournal.open_for(
+                    self.journal_dir, self.address(), epoch, source=source
+                )
+                if j.is_terminal():
+                    return
+                self._import_journals[epoch] = j
+            j.append_batch(blob)
+
+    def adopt_import_journal(self, journal) -> None:
+        """Boot-time re-adoption (migration.rearm_recovery): a replayed
+        in-flight import journal stays open on the restarted node so the
+        resumed migration's final SETSLOT STABLE settles it."""
+        with self._import_journal_lock:
+            self._import_journals[journal.epoch] = journal
+
+    def import_journal_rows(self) -> List[Tuple[int, str, int, str]]:
+        """(epoch, phase, batches journaled, source) per OPEN import
+        journal — the CLUSTER WINDOWS rows that let an operator see an
+        in-flight import from the receiving end."""
+        with self._import_journal_lock:
+            return [
+                (epoch, j.phase or "", j.batch_count(), j.source or "")
+                for epoch, j in sorted(self._import_journals.items())
+            ]
+
+    def _settle_import_journals(self, epoch: Optional[int]) -> None:
+        """Terminalize the import journal for `epoch` once its migration's
+        LAST window slot goes STABLE (no remaining MIGRATING/IMPORTING/
+        RECOVERING slot fenced at that epoch) — after which gc may prune it
+        and a restart no longer replays it."""
+        if epoch is None or not self._import_journals:
+            return
+
+        def _settleable() -> bool:
+            j = self._import_journals.get(epoch)
+            if j is None:
+                return False
+            open_slots = (
+                set(self.importing_slots) | set(self.migrating_slots)
+                | set(self.recovering_slots)
+            )
+            # still a window in flight for this migration? not settleable
+            return not any(
+                self.slot_epochs.get(s) == epoch for s in open_slots
+            )
+
+        with self._import_journal_lock:
+            if not _settleable():
+                return
+        # durability point OUTSIDE the lock: a concurrent drain's
+        # journal-and-ack (journal_import_batch) must not stall behind a
+        # full-store snapshot and time its source's link out
+        if not self._checkpoint_import_state():
+            return  # not durable yet: keep the journal for boot replay
+        with self._import_journal_lock:
+            if not _settleable():  # a re-opened window raced the save
+                return
+            self._import_journals.pop(epoch).append("STABLE", settled=True)
+
+    def _checkpoint_import_state(self) -> bool:
+        """Make the imported records as durable as this node's normal
+        story BEFORE an import journal retires: the journal holds the only
+        durable copy of batches whose source copies are already deleted,
+        so it may only terminalize once a checkpoint covers them — else a
+        SIGKILL after STABLE but before the next snapshot would restore a
+        pre-import checkpoint with nothing left to replay.  A node with no
+        checkpoint configured has no durability floor to wait for.
+        Returns False (journal kept in flight, replayed at next boot) when
+        the save fails."""
+        if self.checkpoint_path is None:
+            return True
+        from redisson_tpu_torch.core import checkpoint
+
+        try:
+            checkpoint.save(self.engine, self.checkpoint_path)
+            self.__dict__["_lastsave"] = int(time.time())
+            return True
+        except Exception:  # noqa: BLE001 — keep the journal instead
+            return False
+
     def slot_names(self, slot: int) -> List[str]:
-        """The names stored here whose key hashes to `slot` (COUNTKEYSINSLOT
-        and GETKEYSINSLOT)."""
         from redisson_tpu_torch.utils.crc16 import calc_slot
 
         return [
             n for n in self.engine.store.keys() if calc_slot(n.encode()) == slot
         ]
+
+    # records shipped per IMPORTRECORDS frame during drains: a journaled
+    # target fsyncs ONCE per frame, so batch coalescing divides the
+    # journal-before-ack cost by the batch width
+    DRAIN_BATCH_RECORDS = 32
+
+    def migrate_slot_batch(self, slots, limit: int = 0,
+                           batch: Optional[int] = None) -> int:
+        """Drain MIGRATING slot(s) to their targets; limit<=0 drains fully.
+
+        Records ship in BATCHES of `batch` (default DRAIN_BATCH_RECORDS)
+        per IMPORTRECORDS frame, grouped by (target, epoch).  The whole
+        batch's record locks are held (sorted order — deadlock-free) across
+        serialize -> IMPORTRECORDS -> local delete, the same atomicity the
+        per-record path had: every mutation path (object handles AND the
+        store-level DEL/EXPIRE commands) takes these locks, so no client
+        write, delete, or expire can interleave between the snapshot
+        leaving and the local copies dying — the zero-lost-acked-writes
+        contract holds for deletes too (a DEL either lands before the
+        snapshot, keeping the record out of the batch, or blocks until the
+        name is locally absent and then ASK-redirects to the target).
+        Redis gets the same guarantee from MIGRATE's single-threaded
+        blocking; we pay it per-batch instead of per-server.  A journaled
+        target fsyncs its ImportJournal ONCE per frame (journal-before-ack
+        and the pre-ack replica cover are per-frame contracts — both hold
+        unchanged), so the batch width directly divides the durability
+        overhead the import journal adds.
+        """
+        from redisson_tpu_torch.net.client import NodeClient
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        if isinstance(slots, int):
+            slots = [slots]
+        targets: Dict[int, str] = {}
+        for s in slots:
+            t = self.migrating_slots.get(s)
+            if t is None:
+                raise RespError(f"ERR slot {s} is not MIGRATING")
+            targets[s] = t
+        wanted = set(targets)
+        names = [
+            (n, calc_slot(n.encode()))
+            for n in self.engine.store.keys()
+            if calc_slot(n.encode()) in wanted
+        ]
+        if limit and limit > 0:
+            names = names[:limit]
+        if not names:
+            return 0
+        if batch is None or batch <= 0:
+            batch = self.DRAIN_BATCH_RECORDS
+        # group by (target, epoch) preserving scan order: one frame may
+        # carry records of MANY slots, but never records bound for
+        # different targets or fenced at different epochs
+        groups: Dict[Tuple[str, Optional[int]], List[str]] = {}
+        for name, slot in names:
+            key = (targets[slot], self.migrating_epochs.get(slot))
+            groups.setdefault(key, []).append(name)
+        moved = 0
+        links: Dict[str, NodeClient] = {}
+        try:
+            for (target, ep), gnames in groups.items():
+                link = links.get(target)
+                if link is None:
+                    link = links[target] = self.link_client(
+                        target, ping_interval=0, retry_attempts=1
+                    )
+                for i in range(0, len(gnames), batch):
+                    moved += self._drain_batch_locked(
+                        link, ep, gnames[i : i + batch]
+                    )
+        finally:
+            for link in links.values():
+                link.close()
+        return moved
+
+    def _drain_batch_locked(self, link, ep: Optional[int],
+                            names: List[str]) -> int:
+        """Ship one drain batch under ALL its record locks (sorted
+        acquisition; serialize_records re-enters each per-record RLock)."""
+        from redisson_tpu_torch.server import replication
+
+        with self.engine.locked_many(names):
+            present = [n for n in names if self.engine.store.peek(n)]
+            if not present:
+                return 0  # expired/deleted meanwhile
+            blob, shipped = replication.serialize_records(
+                self.engine, present, include_live=False
+            )
+            if not shipped:
+                return 0
+            if ep is not None:
+                # journaled migration: the target fsyncs the whole frame
+                # into its ImportJournal BEFORE this ack — the local
+                # deletes below are then safe against a target SIGKILL,
+                # at ONE fsync per batch
+                link.execute(
+                    "IMPORTRECORDS", "EPOCH", ep, "SOURCE",
+                    self.address(), blob, timeout=30.0,
+                )
+            else:
+                link.execute("IMPORTRECORDS", blob, timeout=30.0)
+            shipped_names = [n for n, _nonce, _ver in shipped]
+            for name in shipped_names:
+                self.engine.store.delete_unguarded(name)
+            # drain-stream invalidation: the records just left this node —
+            # a near cache serving them would miss every write the target
+            # accepts from now on (push enqueue only, so holding the locks
+            # here is fine); active-guarded like every other site so an
+            # idle-tracking migration never touches the dispatch-shared
+            # table lock
+            if self.tracking.active:
+                self.tracking.note_write(shipped_names, None)
+            return len(shipped_names)
 
     # -- dispatch --------------------------------------------------------------
 
@@ -1655,13 +1966,22 @@ class TpuServer:
         async with self._server:
             await self._server.serve_forever()
 
-    async def serve_until_signal(self, ready_fd: Optional[int] = None):
+    async def serve_until_signal(self, ready_fd: Optional[int] = None,
+                                 journal_dir: Optional[str] = None):
         """CLI serve loop: run until SIGTERM or SIGINT (both graceful).
 
         ``ready_fd``: once the listener is bound (port 0 resolved), write
         one line — ``READY <host> <port> <pid>`` — to this inherited file
         descriptor and close it, so a supervisor awaits that line instead of
-        polling the port."""
+        polling the port.  With a journal directory, the node re-arms the
+        migration windows it was a party to and replays its import journals
+        (``migration.rearm_recovery``) before that line goes out.
+
+        On the signal the listener and every established connection close
+        BEFORE the loop leaves ``async with self._server``: since Python
+        3.12 its ``wait_closed()`` waits for every open connection, so a
+        client left connected would hold the process until a supervisor's
+        SIGKILL, and the caller's flush-on-stop would never run."""
         import signal as _signal
 
         loop = asyncio.get_running_loop()
@@ -1674,6 +1994,17 @@ class TpuServer:
             except (NotImplementedError, RuntimeError):  # non-main thread /
                 pass                                     # exotic loop
         await self.start_async()
+        if journal_dir is not None:
+            # the IMPORTRECORDS handler journals into it: armed before serving
+            self.journal_dir = journal_dir
+        if self.journal_dir is not None:
+            # BEFORE the ready line (supervised clients gate on it): restored
+            # copies of mid-migration slots must answer TRYAGAIN, not serve
+            # a forked lineage, and batches this node acked but lost with its
+            # memory come back from its import journals
+            from redisson_tpu_torch.server.migration import rearm_recovery
+
+            rearm_recovery(self, self.journal_dir)
         if ready_fd is not None:
             line = f"READY {self.public_host} {self.port} {os.getpid()}\n".encode()
             try:
@@ -1683,13 +2014,15 @@ class TpuServer:
                     os.close(ready_fd)
                 except OSError:
                     pass
-        try:
-            async with self._server:
+        async with self._server:
+            try:
                 await stopped.wait()
-        finally:
-            for sig in installed:
-                loop.remove_signal_handler(sig)
-            self.stop()
+            finally:
+                for sig in installed:
+                    loop.remove_signal_handler(sig)
+                # stop() closes the listener and the connections (on this
+                # loop, while __aexit__ waits for them)
+                self.stop()
 
     def stop(self):
         # parked blocking verbs (_block_loop) poll this to unpark: a
@@ -1871,6 +2204,13 @@ def main(argv=None):
              "a final snapshot is taken at a graceful stop",
     )
     ap.add_argument(
+        "--journal-dir", default=None,
+        help="the migration journal directory (shared with the coordinator): "
+             "accepted IMPORTRECORDS batches are journaled here before the "
+             "ack, and at boot the node re-arms the migration windows it was "
+             "a party to and replays its import journals before serving",
+    )
+    ap.add_argument(
         "--prewarm", action="store_true",
         help="warm the hot kernels of the restored records at boot "
              "(core/warmpool: the first request's latency stays clean)",
@@ -1986,7 +2326,8 @@ def main(argv=None):
         ).start()
     try:
         # SIGTERM and SIGINT both land on the graceful path
-        asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd))
+        asyncio.run(srv.serve_until_signal(ready_fd=args.ready_fd,
+                                           journal_dir=args.journal_dir))
     finally:
         if checkpointer is not None:
             # flush-on-stop: writes since the last tick reach disk

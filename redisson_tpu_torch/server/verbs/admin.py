@@ -1,7 +1,7 @@
 """Node info, CONFIG, cluster view, QoS and device-placement verbs, and the
 script and function verbs (the RScript and RFunction wire surface).
 
-A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
+A copy of these parts of ``redisson_tpu/server/verbs/admin.py``:
 
   * TIME, INFO and MEMORY (the node-info verbs the nodes group reads), and
     CONFIG GET/SET over the server's knob table (reference ``:1375-1392``;
@@ -17,9 +17,8 @@ A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
     [WEIGHT <w>]``, the fleet rebalancer's actuator (reference
     ``:224-300``; ``cluster/qos_control.py``).  The other CLUSTER
     subcommands reply an error naming the slice that brings them: DEVPROBE
-    and DEVEVACUATE (they need the fault plane and
-    ``server/migration.py``), the migration and residency ones (SETSLOT,
-    WINDOWS, MIGRATESLOT, MIGRATESLOTS, RESIDENCY) ROADMAP M11.
+    and DEVEVACUATE (the device fault plane, ROADMAP M11 part 6) and
+    RESIDENCY (the residency plane, part 5).
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
@@ -41,7 +40,12 @@ A copy of four parts of ``redisson_tpu/server/verbs/admin.py``:
     REPLSTATE [MAXSTALE], REPLFLUSH, WAIT and REPLICAS.  The push-stream
     verbs apply only on a replica (a promoted master refuses a late push).
 
-IMPORTRECORDS comes with the migration slice (ROADMAP M11 part 4).
+  * Live slot migration (reference ``:108-192``, ``:355-368``, ``:600``):
+    CLUSTER SETSLOT (MIGRATING, IMPORTING, STABLE, NODE; ``EPOCH n`` fences
+    the slot, a lower epoch replies STALEEPOCH), WINDOWS (the windows and
+    the open import journals), MIGRATESLOT and MIGRATESLOTS (the drain,
+    ``TpuServer.migrate_slot_batch``), and IMPORTRECORDS, the transfer
+    frame a drain sends, journaled before its ack.
 """
 
 import sys
@@ -115,9 +119,9 @@ def cmd_config(server, ctx, args):
 
 # CLUSTER subcommands the port does not serve yet -> the slice that brings them
 _CLUSTER_LATER = {
-    b"DEVPROBE": "M11: the device fault plane", b"DEVEVACUATE": "M11: the device fault plane",
-    b"SETSLOT": "M11", b"WINDOWS": "M11", b"MIGRATESLOT": "M11",
-    b"MIGRATESLOTS": "M11", b"RESIDENCY": "M11",
+    b"DEVPROBE": "M11 part 6: the device fault plane",
+    b"DEVEVACUATE": "M11 part 6: the device fault plane",
+    b"RESIDENCY": "M11 part 5: the residency plane",
 }
 
 
@@ -272,12 +276,104 @@ def cmd_cluster(server, ctx, args):
     if sub == b"RESET":
         server.cluster_view = []
         return "+OK"
+    # -- live slot migration (MIGRATING/IMPORTING window + drain) ------------
+    if sub == b"SETSLOT":
+        # SETSLOT <slot> MIGRATING <host:port> | IMPORTING <host:port> |
+        #         STABLE | NODE <host:port> <node_id>   [EPOCH <n>]
+        # EPOCH is the journaled coordinator's per-migration fencing token
+        # (server.fence_slot_epoch): re-send with the SAME epoch is the
+        # idempotent resume path; a LOWER epoch is a stale coordinator and
+        # replies STALEEPOCH before any state changes.
+        slot = _int(args[1])
+        mode = bytes(args[2]).upper()
+        rest = list(args[3:])
+        epoch = None
+        if len(rest) >= 2 and bytes(rest[-2]).upper() == b"EPOCH":
+            epoch = _int(rest[-1])
+            rest = rest[:-2]
+        server.fence_slot_epoch(slot, epoch)
+        if mode == b"MIGRATING":
+            server.set_slot_migrating(slot, _s(rest[0]), epoch)
+            return "+OK"
+        if mode == b"IMPORTING":
+            server.set_slot_importing(slot, _s(rest[0]))
+            return "+OK"
+        if mode == b"STABLE":
+            server.set_slot_stable(slot, epoch)
+            return "+OK"
+        if mode == b"NODE":
+            # finalize locally: point the slot at its new owner in this
+            # node's view and clear the window state (the orchestrator also
+            # pushes a full SETVIEW; NODE keeps single-node finalization
+            # correct even before that lands)
+            addr, nid = _s(rest[0]), _s(rest[1])
+            host, port = addr.rsplit(":", 1)
+            new_view = []
+            for lo, hi, h, p, vnid in server.cluster_view:
+                if lo <= slot <= hi:
+                    # split the range around the reassigned slot
+                    if lo <= slot - 1:
+                        new_view.append((lo, slot - 1, h, p, vnid))
+                    new_view.append((slot, slot, host, int(port), nid))
+                    if slot + 1 <= hi:
+                        new_view.append((slot + 1, hi, h, p, vnid))
+                else:
+                    new_view.append((lo, hi, h, p, vnid))
+            server.cluster_view = new_view
+            server.set_slot_stable(slot, epoch)
+            return "+OK"
+        raise RespError("ERR SETSLOT expects MIGRATING|IMPORTING|STABLE|NODE")
+    if sub == b"WINDOWS":
+        # live migration-window state, over the wire: a coordinator or an
+        # operator checks "all slots STABLE" on server processes, whose
+        # server.migrating_slots it cannot reach.
+        # Reply: [["MIGRATING", slot, target], ..., ["IMPORTING", slot, src]]
+        out = [
+            [b"MIGRATING", s, t.encode()]
+            for s, t in sorted(server.migrating_slots.items())
+        ]
+        out += [
+            [b"IMPORTING", s, src.encode()]
+            for s, src in sorted(server.importing_slots.items())
+        ]
+        out += [
+            [b"RECOVERING", s, t.encode()]
+            for s, t in sorted(server.recovering_slots.items())
+        ]
+        # target-side import-journal state: an operator can see
+        # an in-flight import from the RECEIVING end — epoch, phase,
+        # batches made durable pre-ack, and the draining source.  Rows
+        # disappear when the migration's last slot goes STABLE (the
+        # journal terminalizes), so "no windows" keeps meaning "settled".
+        out += [
+            [b"IMPORTJOURNAL", epoch, phase.encode(), batches, src.encode()]
+            for epoch, phase, batches, src in server.import_journal_rows()
+        ]
+        return out
     if sub == b"COUNTKEYSINSLOT":
         return len(server.slot_names(_int(args[1])))
     if sub == b"GETKEYSINSLOT":
         names = server.slot_names(_int(args[1]))
         limit = _int(args[2]) if len(args) > 2 else len(names)
         return [n.encode() for n in names[:limit]]
+    if sub == b"MIGRATESLOT":
+        # drain one MIGRATING slot (optional batch limit; <=0 = fully)
+        limit = _int(args[2]) if len(args) > 2 else 0
+        return server.migrate_slot_batch(_int(args[1]), limit)
+    if sub == b"MIGRATESLOTS":
+        # MIGRATESLOTS [EPOCH <n>] <slot>... — drain MANY migrating slots
+        # in one store scan (the orchestrator's bulk form: a reshard of
+        # hundreds of slots must not pay a full keyspace scan per slot).
+        # EPOCH fences every named slot like SETSLOT EPOCH does.
+        rest = list(args[1:])
+        epoch = None
+        if rest and bytes(rest[0]).upper() == b"EPOCH":
+            epoch = _int(rest[1])
+            rest = rest[2:]
+        slots = [_int(a) for a in rest]
+        for s in slots:
+            server.fence_slot_epoch(s, epoch)
+        return server.migrate_slot_batch(slots)
     if sub == b"DEVICES":
         return _cluster_devices(server)
     if sub == b"DEVMOVE":
@@ -372,6 +468,67 @@ def _require_replica(server, verb: str) -> None:
         raise RespError(
             f"ERR {verb} rejected: node is a master (stale replication push)"
         )
+
+
+@register("IMPORTRECORDS")
+def cmd_importrecords(server, ctx, args):
+    """IMPORTRECORDS [EPOCH <n> [SOURCE <addr>]] <blob> — install migrated
+    records (slot-migration transfer frame; the blob carries records only —
+    no live-list pruning, unlike REPLPUSH).
+
+    With EPOCH (a journaled migration's fenced drain) and a configured
+    journal dir, the batch is fsync'd into this node's
+    :class:`~redisson_tpu_torch.server.migration_journal.ImportJournal`
+    BEFORE it is applied or acked — the source deletes only records this
+    node has made durable, which closes the target-kill gap.  When
+    replicas are attached, the applied records are additionally
+    REPLPUSH-covered before the ack, so a dead target's promoted replica
+    carries the in-flight import forward.
+
+    A node started WITHOUT a journal dir accepts EPOCH frames but journals
+    nothing — the degraded mode, kept for the manual migration path.  The target-kill guarantee therefore requires the
+    fleet to share a journal dir; the ClusterSupervisor enforces this by
+    construction (``--journal-dir`` is passed to every node it spawns)."""
+    from redisson_tpu_torch.server import replication
+
+    rest = list(args)
+    epoch = source = None
+    while len(rest) > 2:
+        head = bytes(rest[0]).upper()
+        if head == b"EPOCH":
+            epoch = _int(rest[1])
+        elif head == b"SOURCE":
+            source = _s(rest[1])
+        else:
+            break
+        rest = rest[2:]
+    if len(rest) != 1:
+        raise RespError("ERR IMPORTRECORDS [EPOCH n [SOURCE addr]] <blob>")
+    blob = bytes(rest[0])
+    if epoch is not None:
+        # durability point FIRST: a SIGKILL after this line loses nothing
+        # the source will delete (the reply below is what authorizes it)
+        server.journal_import_batch(epoch, source, blob)
+    applied_names: list = []
+    tracking_cb = _tracking_invalidator(server)
+
+    def on_applied(names):
+        applied_names.extend(names)
+        if tracking_cb is not None:
+            tracking_cb(names)
+
+    applied = replication.apply_records(
+        server.engine, blob, on_applied=on_applied
+    )
+    repl = server._replication
+    if epoch is not None and applied_names \
+            and repl is not None and repl.replicas():
+        # replica-covered target (journaled imports only — the legacy
+        # epoch-less path never promised it): best-effort push of JUST the
+        # applied records before the ack, so failover-by-promotion starts
+        # from a caught-up replica (the journal remains the proof)
+        repl.cover(applied_names)
+    return applied
 
 
 def _promote_flush(server) -> None:

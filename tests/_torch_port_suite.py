@@ -3,9 +3,10 @@
 ``load(module, waiting)`` executes the source of ``tests/<module>.py`` in a
 fresh namespace whose imports of ``redisson_tpu`` and its submodules bind
 the port's modules of the same path under ``redisson_tpu_torch`` (the
-module-level imports and the ones inside test bodies alike), with six
-defaults changed for the CPU: ``ServerThread`` (from ``redisson_tpu.server``
-and its ``server`` module), ``redisson_tpu.create``, ``RedissonTpu.create``,
+module-level imports and the ones inside test bodies alike), with seven
+defaults changed for the CPU: ``ServerThread`` and ``TpuServer`` (from
+``redisson_tpu.server`` and its ``server`` module), ``redisson_tpu.create``,
+``RedissonTpu.create``,
 ``KernelMapReduce``, the harness's ``ClusterRunner`` and ``Engine`` put
 their state on the CPU unless the test asks for a device.  Importing this
 module gives the CPU 8 mesh positions (``parallel/mesh.set_cpu_positions``),
@@ -49,6 +50,15 @@ class CpuServerThread(_port_server.ServerThread):
         if engine is None:
             kw.setdefault("device", "cpu")
         super().__init__(engine, port, **kw)
+
+
+class CpuTpuServer(_port_server.TpuServer):
+    """The port's TpuServer, its engine on the CPU unless asked otherwise."""
+
+    def __init__(self, engine=None, *args, **kw):
+        if engine is None:
+            kw.setdefault("device", "cpu")
+        super().__init__(engine, *args, **kw)
 
 
 def _create(config=None, device="cpu"):
@@ -123,7 +133,7 @@ def _port_module(name: str):
     if name == REF:
         mod = _Shim(mod, create=_create)
     elif name in ("redisson_tpu.server", "redisson_tpu.server.server"):
-        mod = _Shim(mod, ServerThread=CpuServerThread)
+        mod = _Shim(mod, ServerThread=CpuServerThread, TpuServer=CpuTpuServer)
     elif name == "redisson_tpu.client.redisson":
         mod = _Shim(mod, RedissonTpu=CpuRedissonTpu)
     elif name == "redisson_tpu.services.mapreduce":

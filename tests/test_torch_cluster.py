@@ -7,7 +7,9 @@ master index.  Each package's ``ClusterRedisson`` then drives the other's
 cluster with the same replies; the process ``ClusterSupervisor`` spawns
 port servers whose logs name their device and kernel launches.
 """
+import os
 import signal
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -277,6 +279,40 @@ def test_supervised_nodes_log_their_device_and_launches():
             sup.shutdown()
 
 
+def test_a_sigterm_with_a_client_open_exits_zero_and_flushes():
+    """SIGTERM is the graceful path also while a cluster client holds its
+    connections open: each node closes them before it waits for them,
+    exits 0 well inside its grace, runs its flush-on-stop (the checkpoint
+    holds the write, though the interval never ticked) and ends its log
+    with its kernel launches."""
+    from redisson_tpu_torch.core import checkpoint
+    from redisson_tpu_torch.core.engine import Engine
+
+    with time_limit(PROC_TEST_S):
+        sup = ClusterSupervisor(masters=2, platform="cpu", checkpoint_interval=3600.0,
+                                ready_timeout=60.0).start()
+        try:
+            client = sup.client(scan_interval=0)
+            try:
+                assert client.wait_routable(timeout=30.0)
+                names = [_name_in(sup, mi, "st") for mi in range(2)]
+                assert client.execute_many([("SET", n, "kept") for n in names]) == [b"OK"] * 2
+                start = time.monotonic()
+                codes = [sup.stop(node, timeout=10.0) for node in sup.masters]
+                took = time.monotonic() - start
+            finally:
+                client.shutdown()
+            assert codes == [0, 0] and took < 10.0, (codes, took, [sup.log_tail(n) for n in sup.masters])
+            for name, node in zip(names, sup.masters):
+                log = sup.log_tail(node)
+                assert log.strip().splitlines()[-1].startswith("kernel launches {"), log
+                engine = Engine(device="cpu")
+                assert checkpoint.load(engine, node.checkpoint_path) == 1
+                assert engine.store.get(name) is not None
+        finally:
+            sup.shutdown()
+
+
 def test_a_node_asked_for_a_missing_card_fails_its_start(monkeypatch):
     """No fallback: a child asked for the card on a machine without one
     exits non-zero and the supervisor raises with its log."""
@@ -344,9 +380,11 @@ def test_replicas_and_replicated_clients_wait_for_m11():
     assert cli[cli.index("--checkpoint") + 1] == node.checkpoint_path
     assert cli[cli.index("--checkpoint-interval") + 1] == "5.0" and "--restore" not in cli
     assert sup.scrape() == "\n"
-    for call in (lambda: sup.promote_replica(None), lambda: sup.rolling_restart()):
-        with pytest.raises(NotImplementedError, match="M11"):
-            call()
+    # migration journals came with M11 part 4: every node journals its
+    # imports into the supervisor's journal directory; a roll of no nodes
+    # restarts nothing
+    assert cli[cli.index("--journal-dir") + 1] == sup.journal_dir
+    assert os.path.isdir(sup.journal_dir) and sup.rolling_restart(nodes=[]) == []
     # the fleet QoS loop is served: idempotent, stopped by shutdown
     rb = sup.start_qos_rebalance(1000.0, interval=3600.0)
     assert sup.start_qos_rebalance(1000.0) is rb and rb._thread is not None

@@ -2044,3 +2044,82 @@ def test_replication_k23_k24_and_a_replica_on_the_card(dev):
         assert replica.server.engine.store.get_unguarded("cr:bf") is r
     finally:
         runner.shutdown()
+
+
+def test_migration_on_the_card_moves_planes_bit_for_bit(dev, tmp_path):
+    """A journaled migration between two masters on the card, its
+    coordinator killed after the first drain sweep and resumed: the target
+    holds the source's bloom bank and HLL registers equal by torch.equal,
+    its BFA.MEXISTS64 launches bloom_probe on the card, and its replies
+    equal a CPU pair's after the same migration.  Then 8 positions on the
+    card: a device rebalance killed at PLANNED and resumed leaves GETBIT and
+    BF.MEXISTS64 replies as they were."""
+    from redisson_tpu_torch.harness import ClusterRunner
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.server import migration as mig
+    from redisson_tpu_torch.tools import wire_stream as W
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    rng = np.random.default_rng(23)
+    tenants = rng.integers(0, 8, 4000).astype(np.int32)
+    keys = rng.integers(-2**62, 2**62, 4000)
+    counters = rng.integers(0, 32, 4000).astype(np.int32)
+    replies = {}
+    for device in ("cpu", "cuda"):
+        jd = str(tmp_path / device)
+        runner = ClusterRunner(masters=2, device=device, journal_dir=jd).run()
+        try:
+            lo, hi = runner.slot_ranges[0]
+            tag = next(t for t in (f"m{i}" for i in range(10_000)) if lo <= calc_slot(t.encode()) <= hi)
+            src, dst = (m.server.server for m in runner.masters)
+            c = Connection(src.host, src.port, timeout=120.0)
+            try:
+                c.execute("BFA.RESERVE", f"{{{tag}}}bank", 8, 1000, "0.01")
+                c.execute("BFA.MADD64", f"{{{tag}}}bank", W._i4(tenants), W._i8(keys))
+                c.execute("HLLA.RESERVE", f"{{{tag}}}hll", 32)
+                c.execute("HLLA.MADD64", f"{{{tag}}}hll", W._i4(counters), W._i8(keys))
+            finally:
+                c.close()
+            before = {n: {k: v.clone() for k, v in src.engine.store.get(n).arrays.items()}
+                      for n in (f"{{{tag}}}bank", f"{{{tag}}}hll")}
+            with pytest.raises(mig.CoordinatorKilled):
+                mig.migrate_slots(src.address(), dst.address(), [calc_slot(tag.encode())],
+                                  journal_dir=jd, crash_after="DRAINING:1")
+            assert [r["action"] for r in mig.resume_migrations(jd)] == ["completed"]
+            for name, arrays in before.items():
+                assert src.engine.store.peek(name) is False
+                for k, v in arrays.items():
+                    got = dst.engine.store.get(name).arrays[k]
+                    assert got.device.type == device and torch.equal(got.cpu(), v.cpu())
+            K.reset_launches()
+            c = Connection(dst.host, dst.port, timeout=120.0)
+            try:
+                replies[device] = [c.execute("BFA.MEXISTS64", f"{{{tag}}}bank", W._i4(tenants), W._i8(keys[::-1])),
+                                   c.execute("HLLA.ESTIMATE", f"{{{tag}}}hll")]
+            finally:
+                c.close()
+            if device == "cuda":
+                assert K.launches["bloom_probe"] >= 1 and K.launches["hll_rows"] >= 1
+        finally:
+            runner.shutdown()
+    assert replies["cuda"] == replies["cpu"]
+    with ServerThread(port=0, device="cuda", devices=8) as st, st.client() as c:
+        names = [f"rb{i}" for i in range(16)]
+        for i, n in enumerate(names):
+            c.execute("BF.RESERVE", f"bf{n}", "0.01", "1000")
+            c.execute("BF.MADD64", f"bf{n}", W._i8(keys[i * 100:(i + 1) * 100]))
+            c.execute("SETBITSB", f"bits{n}", W._i8(np.arange(i, 4000, 37)), 1)
+        probe = [("BF.MEXISTS64", f"bf{n}", W._i8(keys[:1600])) for n in names]
+        probe += [("GETBIT", f"bits{n}", j) for n in names for j in (i * 37 for i in range(0, 100, 7))]
+        want = c.execute_many(probe)
+        engine = st.server.engine
+        p = engine.placement
+        slots = sorted({calc_slot(n.encode()) for n in (f"bf{m}" for m in names)})
+        targets = {s: (p.device_id_for_slot(s) + 4) % p.n_devices for s in slots[: len(slots) // 2]}
+        jd = str(tmp_path / "rebalance")
+        with pytest.raises(mig.CoordinatorKilled):
+            mig.rebalance_devices(engine, targets, journal_dir=jd, crash_after="PLANNED")
+        assert [r["action"] for r in mig.resume_device_rebalances(engine, jd)] == ["completed"]
+        assert all(p.device_id_for_slot(s) == d for s, d in targets.items())
+        assert c.execute_many(probe) == want

@@ -4,7 +4,6 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_epochless_handoff_invalidates_after_fenced_migration": "M11 (slot migration)",
     "test_tracking_soak_migration_smoke": "M11 (the chaos soak harness, slot migration)",
     "test_tracking_soak_kill_failover": "M11 (the chaos soak harness, failover)",
     "test_tracking_census_and_metrics_gauges": "M11 (the resource census, chaos/census.py)",

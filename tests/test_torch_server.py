@@ -329,14 +329,32 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
         ServerThread(port=0, device="cuda:0")
 
 
-@pytest.mark.parametrize("kw, milestone", [({"journal_dir": "/tmp/j"}, "M11"),
-                                           ({"journal_dir": "/tmp/j", "checkpoint_path": "/tmp/x"},
-                                            "M11")])
-def test_left_out_arguments_refuse(kw, milestone):
-    """Migration journals wait for M11 part 4, also beside a checkpoint
-    path (which is served)."""
-    with pytest.raises(NotImplementedError, match=milestone):
-        ServerThread(port=0, device="cpu", **kw)
+@pytest.mark.parametrize("checkpoint", [False, True])
+def test_journal_dir_journals_each_import_before_its_ack(tmp_path, checkpoint):
+    """journal_dir= arms the import journal: an IMPORTRECORDS EPOCH frame
+    is journaled (one BATCH entry) and applied, CLUSTER WINDOWS shows the
+    open journal, and SETSLOT STABLE at the epoch settles it (after a
+    checkpoint, when the node has a checkpoint path)."""
+    from redisson_tpu_torch.server import replication
+    from redisson_tpu_torch.server.migration_journal import ImportJournal
+
+    kw = {"checkpoint_path": str(tmp_path / "head.ckpt")} if checkpoint else {}
+    with ServerThread(port=0, device="cpu") as src, src.client() as c:
+        c.execute("SET", "jk", "v")
+        blob, shipped = replication.serialize_records(src.server.engine, ["jk"], include_live=False)
+    assert [n for n, _nonce, _ver in shipped] == ["jk"]
+    jd = str(tmp_path / "journal")
+    with ServerThread(port=0, device="cpu", journal_dir=jd, **kw) as st, st.client() as c:
+        assert st.server.journal_dir == jd
+        assert c.execute("IMPORTRECORDS", "EPOCH", 7, "SOURCE", "127.0.0.1:1", blob) == 1
+        assert c.execute("GET", "jk") == b"v"
+        assert c.execute("CLUSTER", "WINDOWS") == [[b"IMPORTJOURNAL", 7, b"BATCH", 1, b"127.0.0.1:1"]]
+        [j] = ImportJournal.in_flight(jd)
+        assert j.batch_blobs() == [blob] and j.epoch == 7
+        assert c.execute("CLUSTER", "SETSLOT", 0, "STABLE", "EPOCH", 7) == b"OK"
+        assert c.execute("CLUSTER", "WINDOWS") == []
+    assert ImportJournal.in_flight(jd) == [] and ImportJournal.scan(jd)[0].phase == "STABLE"
+    assert os.path.exists(tmp_path / "head.ckpt") == checkpoint
 
 
 @pytest.mark.parametrize("devices", [2, "all", 1])

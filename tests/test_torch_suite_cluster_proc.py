@@ -8,14 +8,10 @@ import pytest
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_rearm_recovery_fences_restored_source": "M11 (migration journals, rearm_recovery)",
     "test_cross_process_kill_mid_drain_smoke": "M11 (the chaos soak harness, migrate_slots)",
     "test_cross_process_kill_at_every_phase": "M11 (the chaos soak harness, migrate_slots)",
     "test_cross_process_target_kill_mid_drain_smoke": "M11 (the chaos soak harness, migrate_slots)",
     "test_cross_process_double_kill_at_every_phase": "M11 (the chaos soak harness, migrate_slots)",
-    "test_rolling_restart_preserves_acked_writes": "M11 (rolling_restart: SAVE, REPLFLUSH)",
-    "test_import_survives_kill_after_stable": "M11 (migrate_slots, checkpoints)",
-    "test_promote_replica_carries_import_window_across_failover": "M11 (replicas, promote_replica)",
     "test_fleet_soak_two_cycles_every_phase": "M11 (the fleet soak harness)",
 }
 

@@ -6,7 +6,6 @@ import pytest
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_ssh_fleet_host_kill_promote_and_recover": "M11 (replicas, promote_replica)",
     # not waiting for a slice: it asserts the reference's module name in
     # the remote script; the port's starts ``-m redisson_tpu_torch.server``
     "test_ssh_remote_script_pipeline": "none (the reference's module name)",

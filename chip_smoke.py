@@ -282,7 +282,27 @@ Phases (any failure raises and the script exits non-zero):
      write, the master killed and promote_replica, then rolling_restart of
      the masters with a client open: exit codes 0, generations +1, each
      old log ending with its kernel launches line, every acked key found
-     after each step, each step's seconds;
+     after each step, each step's seconds; last the residency path
+     (run_residency, core/residency.py): (a) config 8 (bench.py:2333): 64
+     tenant filters of 100,000 keys at 1%, 512 member keys each, 1,200
+     zipf(1.1) sessions of 4 calls of 64 keys all HOT, then under a budget
+     of 1/4 of the footprint swept every 50 sessions: bench.py's eleven
+     config8_* numbers, every probe found, the post-sweep HOT bytes within
+     the budget, the overcommit at least 4x, the hot-hit ratio and the
+     fault-in p99 beside the reference's floor and ceiling
+     (tools/perf_gate.py) as MET or NOT MET; (b) a card server holding
+     config 2's bank (96.3 MB) and config 3's counters (163.8 MB): each
+     DEMOTEd to WARM and to COLD over the wire, a BFA.MEXISTS64 or
+     HLLA.ESTIMATE after each byte-identical to the HOT reply and a CPU
+     server's, each demotion's and fault-in's time and bytes, and
+     memory_allocated falling by at least the record's bytes at each
+     demotion; the CLUSTER RESIDENCY table and the METRICS residency rows;
+     (c) config 5's records on 8 positions of the card, a budget pressuring
+     position 0: the ResidencyRebalancer's SWEEP, then SHED, then CLUSTER
+     DEVEVACUATE 1 DIR with position 0's lane flagged quarantined; replies
+     equal those before and a CPU server's, positions 0 and 1 own no slot;
+     (d) a vector bank grown past device-budget-bytes demotes colder bloom
+     records first and, grown further, raises VectorBudgetError;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -416,7 +436,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "qos": ("bloom_probe",), "sharded_vector": ("knn_score", "knn_select"),
                 "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",),
                 "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add"),
-                "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
+                "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
+                "residency": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
 FPP = 0.01
 
 
@@ -7516,6 +7537,408 @@ def run_migration(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the residency path: HOT/WARM/COLD tiers on the card (core/residency.py,
+# CLUSTER RESIDENCY, DEVEVACUATE, cluster/residency_control.py)
+# --------------------------------------------------------------------------
+
+# config 8 (bench.py:2333-2453): 64 tenant filters of 100,000 keys at 1%,
+# 512 member keys each, zipf(1.1) popularity over a permutation from seed 8,
+# 1,200 sessions of 4 calls of 64 keys, a budget of 1/4 of the footprint
+# swept every 50 sessions; the reference's floors (tools/perf_gate.py)
+C8_TENANTS, C8_CAP, C8_KEYS, C8_SEED = 64, 100_000, 512, 8
+C8_SESSIONS, C8_CALLS, C8_BATCH, C8_SWEEP_EVERY = 1200, 4, 64, 50
+C8_HOT_HIT_FLOOR, C8_FAULT_P99_CEILING_MS, C8_OVERCOMMIT_FLOOR = 0.9, 250.0, 4.0
+# leg c: config 5's records over 8 positions of the card; leg d: the
+# vector bank's width and the bloom records it demotes as it grows
+RS_POSITIONS, RS_VEC_DIM, RS_VEC_BLOOMS, RS_VEC_BLOOM_CAP = 8, 128, 6, 100_000
+
+
+def rs_config8(device, card: str) -> dict:
+    """Leg a, config 8 at its own size through create(): the all-HOT leg,
+    then the overcommitted leg (budget 1/4 of the measured footprint, a
+    sweep every 50 sessions).  Every probe is a member key; the post-sweep
+    HOT bytes fit the budget; the overcommit is at least 4x."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import residency as R
+
+    client = redisson_tpu_torch.create(device=device)
+    eng = client._engine
+    rng = np.random.default_rng(C8_SEED)
+    filters, member = [], []
+    for i in range(C8_TENANTS):
+        bf = client.get_bloom_filter(f"cfg8:t{i}")
+        if not bf.try_init(C8_CAP, FPP):
+            raise AssertionError(f"config8: cfg8:t{i} exists")
+        keys = np.arange(i * 1_000_000, i * 1_000_000 + C8_KEYS, dtype=np.int64)
+        bf.add_all(keys)
+        filters.append(bf)
+        member.append(keys)
+    popularity = 1.0 / np.arange(1, C8_TENANTS + 1, dtype=np.float64) ** 1.1
+    popularity /= popularity.sum()
+    order = rng.permutation(C8_TENANTS)
+
+    def run_leg(sweep_every):
+        mgr = eng.residency
+        prom0 = mgr.promotions if mgr is not None else 0
+        calls = 0
+        t0 = time.perf_counter()
+        for s in range(C8_SESSIONS):
+            t = int(order[rng.choice(C8_TENANTS, p=popularity)])
+            for _ in range(C8_CALLS):
+                found = filters[t].contains_each(member[t][rng.integers(0, C8_KEYS, C8_BATCH)])
+                calls += 1
+                if not np.asarray(found).all():
+                    raise AssertionError(f"config8: a false negative on tenant {t} after tier cycling")
+            if mgr is not None and sweep_every and s % sweep_every == sweep_every - 1:
+                mgr.sweep()
+        elapsed = time.perf_counter() - t0
+        faults = (mgr.promotions - prom0) if mgr is not None else 0
+        return calls * C8_BATCH / elapsed, 1.0 - faults / calls, faults
+
+    try:
+        allhot_ops, _, _ = run_leg(0)
+        mgr = eng.enable_residency(min_idle_s=0.01)
+        hot0 = sum(mgr.hot_bytes_by_device().values())
+        budget = max(1, hot0 // 4)
+        prev_budget = R.set_device_budget_bytes(budget)
+        prev_tier = R.set_tier(True)
+        try:
+            time.sleep(0.05)  # past min_idle_s, so the first sweep can demote
+            mgr.sweep()
+            over = sum(mgr.hot_bytes_by_device().values())
+            if over > budget:
+                raise AssertionError(f"config8: the sweep left {over} HOT bytes over the {budget}-byte budget")
+            ops, hot_hit, faults = run_leg(C8_SWEEP_EVERY)
+            samples = list(mgr.fault_in_samples)
+            p99 = float(np.percentile(samples, 99)) if samples else 0.0
+            out = {"config8_overcommit_ops_per_sec": round(ops), "config8_hot_hit_ratio": round(hot_hit, 4),
+                   "config8_fault_in_p99_ms": round(p99, 3), "config8_overcommit_ratio": round(hot0 / budget, 2),
+                   "config8_allhot_ops_per_sec": round(allhot_ops), "config8_fault_ins": int(faults),
+                   "config8_demotions_warm": int(mgr.demotions_warm),
+                   "config8_demotions_cold": int(mgr.demotions_cold), "config8_tenants": C8_TENANTS,
+                   "config8_budget_bytes": int(budget), "config8_footprint_bytes": int(hot0)}
+        finally:
+            R.set_tier(prev_tier)
+            R.set_device_budget_bytes(prev_budget)
+    finally:
+        client.shutdown()
+    if out["config8_overcommit_ratio"] < C8_OVERCOMMIT_FLOOR:
+        raise AssertionError(f"config8: overcommit {out['config8_overcommit_ratio']} under 4x")
+    log(f"config8 [{card}]: {C8_TENANTS} tenants, footprint {hot0 / 1e6:.3f} MB, budget {budget / 1e6:.3f} MB "
+        f"({hot0 / budget:.2f}x overcommit), post-sweep HOT {over / 1e6:.3f} MB; every probe found")
+    log(f"config8 [{card}]: " + json.dumps(out))
+    for label, value, bound, met in (
+            ("hot-hit ratio", out["config8_hot_hit_ratio"], f">= {C8_HOT_HIT_FLOOR}",
+             out["config8_hot_hit_ratio"] >= C8_HOT_HIT_FLOOR),
+            ("fault-in p99 ms", out["config8_fault_in_p99_ms"], f"<= {C8_FAULT_P99_CEILING_MS}",
+             out["config8_fault_in_p99_ms"] <= C8_FAULT_P99_CEILING_MS)):
+        log(f"config8 [{card}]: {label} {value} against the reference's bound {bound} "
+            f"(tools/perf_gate.py, not a claim): {'MET' if met else 'NOT MET'}")
+    return out
+
+
+def _rs_tier_cycle(conn, server, name: str, probe, want, cpu_reply, device, card: str) -> list:
+    """DEMOTE `name` to WARM, then to COLD (from HOT again), each followed by
+    the probe: its reply equals the HOT one and the CPU server's; the
+    demotion's and the fault-in's times and bytes, and memory_allocated
+    around each."""
+    mgr = server.engine.residency
+    rows = []
+    for cold in (False, True):
+        nbytes = sum(int(t.nbytes) for t in server.engine.store.get_unguarded(name).arrays.values())
+        on_card = torch.device(device).type == "cuda"
+        _sync(torch.device(device))
+        m0 = torch.cuda.memory_allocated() if on_card else 0
+        s = time.perf_counter()
+        cmd = ("CLUSTER", "RESIDENCY", "DEMOTE", name) + (("COLD",) if cold else ())
+        if conn.execute(*cmd) != 1:
+            raise AssertionError(f"residency tiers: {' '.join(cmd)} did not demote")
+        demote_s = time.perf_counter() - s
+        m1 = torch.cuda.memory_allocated() if on_card else 0
+        tier = conn.execute("CLUSTER", "RESIDENCY", "TIER", name)
+        if tier != (b"cold" if cold else b"warm") or (on_card and m1 > m0 - nbytes):
+            raise AssertionError(f"residency tiers: {name} is {tier}, memory_allocated {m0} -> {m1} "
+                                 f"(the record holds {nbytes} bytes)")
+        n0 = len(mgr.fault_in_samples)
+        s = time.perf_counter()
+        got = conn.execute(*probe)
+        first_s = time.perf_counter() - s
+        _sync(torch.device(device))
+        m2 = torch.cuda.memory_allocated() if on_card else 0
+        if len(mgr.fault_in_samples) != n0 + 1:
+            raise AssertionError(f"residency tiers: the probe of {name} did not fault it in once")
+        rec = server.engine.store.get_unguarded(name)
+        if rec.tier != "hot" or any(t.device.type != torch.device(device).type for t in rec.arrays.values()):
+            raise AssertionError(f"residency tiers: {name} is not back on the card")
+        if got != want or got != cpu_reply:
+            raise AssertionError(f"residency tiers: {probe[0]} of {name} differs after a "
+                                 f"{'COLD' if cold else 'WARM'} cycle from the HOT reply or the CPU's")
+        rows.append({"record": name, "tier": "cold" if cold else "warm", "bytes": nbytes,
+                     "demote_ms": demote_s * 1e3, "fault_in_ms": mgr.fault_in_samples[-1],
+                     "first_reply_ms": first_s * 1e3, "allocated_before": m0, "after_demote": m1,
+                     "after_promote": m2})
+        log(f"residency tiers [{card}]: {name} ({nbytes / 1e6:.1f} MB) HOT -> {rows[-1]['tier'].upper()} in "
+            f"{rows[-1]['demote_ms']:.3f} ms (DEMOTE round trip), fault-in {rows[-1]['fault_in_ms']:.3f} ms "
+            f"(the first {probe[0]} reply {rows[-1]['first_reply_ms']:.3f} ms); memory_allocated {m0} -> {m1} "
+            f"-> {m2} bytes; the reply equals the HOT one and the CPU server's")
+    return rows
+
+
+def rs_tiers(device, card: str) -> dict:
+    """Leg b: a card server holding config 2's 1,000-tenant bank (96.3 MB)
+    and config 3's 10,000 counters (163.8 MB), filled by 1M keys and 1M
+    ops; one BFA.MEXISTS64 and one HLLA.ESTIMATE reply while HOT, then
+    each record DEMOTEd to WARM and to COLD over the wire, the same
+    command after each; replies byte-identical to the HOT ones and a CPU
+    server's.  The CLUSTER RESIDENCY table and the METRICS residency rows."""
+    from redisson_tpu_torch.server import ServerThread
+
+    rng = np.random.default_rng(131)
+    t, ks = config2_ingest()[0]
+    fill = [("BFA.RESERVE", "rs:c2", C2_TENANTS, C2_PER_TENANT, FPP), ("HLLA.RESERVE", "rs:c3", C3_TENANTS)]
+    fill += [("BFA.MADD64", "rs:c2", _i4(t[i:i + C2_FLUSH]), _i8(ks[i:i + C2_FLUSH]))
+             for i in range(0, len(ks), C2_FLUSH)]
+    fill.append(("HLLA.MADD64", "rs:c3", _i4(rng.integers(0, C3_TENANTS, C3_BATCH)),
+                 _i8(rng.integers(0, 1 << 60, C3_BATCH))))
+    probe_t = np.concatenate([t[:C2_FLUSH // 2], rng.integers(0, C2_TENANTS, C2_FLUSH // 2).astype(np.int32)])
+    probe_k = np.concatenate([ks[:C2_FLUSH // 2], rng.integers(1 << 40, 1 << 41, C2_FLUSH // 2)])
+    probes = {"rs:c2": ("BFA.MEXISTS64", "rs:c2", _i4(probe_t), _i8(probe_k)),
+              "rs:c3": ("HLLA.ESTIMATE", "rs:c3")}
+    with ServerThread(port=0, device="cpu") as st, st.client() as c:
+        c.execute_many(fill)
+        cpu = {n: c.execute(*p) for n, p in probes.items()}
+    out = {"cycles": []}
+    with ServerThread(port=0, device=device, workers=4) as st, st.client() as c:
+        for cmd, reply in zip(fill, c.execute_many(fill)):
+            if isinstance(reply, Exception):
+                raise AssertionError(f"residency tiers: {cmd[0]} replied {reply}")
+        if c.execute("CONFIG", "SET", "residency-enabled", "yes") != b"OK":
+            raise AssertionError("residency tiers: CONFIG SET residency-enabled refused")
+        try:
+            hot = {n: c.execute(*p) for n, p in probes.items()}
+            found = np.frombuffer(hot["rs:c2"], np.uint8)
+            if hot != cpu or not found[:C2_FLUSH // 2].all():
+                raise AssertionError("residency tiers: the HOT replies differ from the CPU server's")
+            for name in ("rs:c2", "rs:c3"):
+                out["cycles"] += _rs_tier_cycle(c, st.server, name, probes[name], hot[name], cpu[name], device,
+                                                card)
+            table = c.execute("CLUSTER", "RESIDENCY")
+            metrics = [ln for ln in bytes(c.execute("METRICS")).decode().splitlines() if "residency_" in ln]
+            if not any("residency_bytes_dev0_hot" in ln for ln in metrics):
+                raise AssertionError(f"residency tiers: METRICS has no residency rows: {metrics}")
+            log(f"residency tiers [{card}]: CLUSTER RESIDENCY {table}")
+            log(f"residency tiers [{card}]: METRICS residency rows {metrics}")
+            out["table"] = str(table)
+        finally:
+            c.execute("CONFIG", "SET", "residency-enabled", "no")
+    return out
+
+
+def rs_shed(device, jd: str, card: str) -> dict:
+    """Leg c: config 5's records on a server of 8 positions on the card, 16
+    tenants on position 0 and 48 over the others; a budget that pressures
+    position 0 alone (every record touched within min_idle_s, so a sweep
+    frees nothing); ResidencyRebalancer.step() until it has issued SWEEP,
+    then SHED (all of position 0's slots); then CLUSTER DEVEVACUATE 1 DIR
+    <journal> with position 0's lane flagged quarantined (the flag the
+    fault plane sets), so its survivors skip position 0.  BF.MEXISTS64,
+    GETBIT and GETBITSB replies equal those before and a CPU server's;
+    positions 0 and 1 own no slot at the end."""
+    from contextlib import closing
+
+    from redisson_tpu_torch.cluster import ResidencyRebalancer
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import ServerThread
+
+    rng = np.random.default_rng(233)
+    span = 16384 // RS_POSITIONS
+    tags = _mg_tags((0, span - 1), "rsz", C5_TENANTS // 4) + _mg_tags((span, 16383), "rsy", C5_TENANTS * 3 // 4)
+    cmds, filters, names, keys = _mg_config5(tags, rng)
+    bitsets = [n for n in names if n.startswith("mg:bits")]
+    probe = [("BF.MEXISTS64", f, _i8(np.concatenate([keys[f][0], keys[f][0] + 1]))) for f in filters]
+    probe += [("GETBIT", n, int(i)) for n in bitsets for i in rng.integers(0, C5_BITS, 4)]
+    probe += [("GETBITSB", n, _i4(rng.integers(0, C5_BITS, C5_BIT_OPS))) for n in bitsets]
+    with ServerThread(port=0, device="cpu", devices=RS_POSITIONS) as st, st.client() as c:
+        _mg_run(c, cmds, "residency shed setup (cpu)")
+        cpu = c.execute_many(probe)
+    out = {}
+    with ServerThread(port=0, device=device, devices=RS_POSITIONS, workers=4) as st, st.client() as c:
+        srv = st.server
+        # armed before the records exist, so each is touched at creation
+        srv.enable_residency(min_idle_s=600.0)
+        try:
+            _mg_run(c, cmds, "residency shed setup (card)")
+            before = c.execute_many(probe)
+            if before != cpu:
+                raise AssertionError("residency shed: the card's replies differ from the CPU server's")
+            p = srv.engine.placement
+            hot = srv.engine.residency.hot_bytes_by_device()
+            others = max(v for d, v in hot.items() if d != 0)
+            if hot.get(0, 0) <= others:
+                raise AssertionError(f"residency shed: position 0 holds no more than the others: {hot}")
+            budget = (hot[0] + others) // 2
+            c.execute("CONFIG", "SET", "device-budget-bytes", budget)
+            addr = (srv.host, srv.port)
+            rb = ResidencyRebalancer({"node": lambda: closing(Connection(*addr, timeout=120.0))},
+                                     shed_after=2, shed_count=p.slot_counts()[0], journal_dir=jd)
+            steps = []
+            s = time.perf_counter()
+            while len(steps) < 4 and not any(a == "shed" for _n, a, _d in rb.last_actions):
+                t0 = time.perf_counter()
+                acts = rb.step()
+                steps.append({"actions": acts, "ms": (time.perf_counter() - t0) * 1e3})
+            shed_s = time.perf_counter() - s
+            kinds = [a for st_ in steps for a in st_["actions"]]
+            if kinds != [("node", "sweep", 0), ("node", "shed", 0)] or rb.push_errors:
+                raise AssertionError(f"residency shed: the rebalancer's actions {kinds} (errors {rb.push_errors})")
+            after_shed = c.execute_many(probe)
+            counts_shed = p.slot_counts()
+            srv.engine.lanes.lane(0).quarantined = True
+            try:
+                s = time.perf_counter()
+                ev = c.execute("CLUSTER", "DEVEVACUATE", 1, "DIR", jd)
+                evac_s = time.perf_counter() - s
+            finally:
+                srv.engine.lanes.lane(0).quarantined = False
+            after = c.execute_many(probe)
+            counts = p.slot_counts()
+            if isinstance(ev, Exception) or after_shed != before or after != before:
+                raise AssertionError(f"residency shed: DEVEVACUATE replied {ev}, or the replies changed")
+            if counts[0] or counts[1] or sum(counts) != 16384:
+                raise AssertionError(f"residency shed: slot counts at the end {counts}")
+            moved = [n for n in names if srv.engine.store.get_unguarded(n).position in (0, 1)]
+            if moved:
+                raise AssertionError(f"residency shed: records still on positions 0 and 1: {moved[:4]}")
+            out = {"budget": budget, "hot_by_position": hot, "steps": steps, "shed_s": shed_s,
+                   "slots_after_shed": counts_shed, "evacuate": list(ev), "evacuate_s": evac_s,
+                   "slots_after": counts, "probe_replies": len(probe)}
+        finally:
+            c.execute("CONFIG", "SET", "device-budget-bytes", 0)
+            c.execute("CONFIG", "SET", "residency-enabled", "no")
+    log(f"residency shed [{card}]: config 5's {len(names)} records over {RS_POSITIONS} positions, position 0 "
+        f"{hot[0]} HOT bytes (the most of any other {others}), budget {budget}: the rebalancer issued "
+        + ", then ".join(f"{a.upper()} on position {d} ({st_['ms']:.3f} ms)"
+                         for st_ in steps for (_n, a, d) in st_["actions"])
+        + f" in {shed_s:.3f} s (the sweep freed nothing: every record was touched within min_idle_s); slots "
+        f"{counts_shed[:2]} on positions 0 and 1 after the shed")
+    log(f"residency shed [{card}]: CLUSTER DEVEVACUATE 1 DIR replied {list(ev)} in {evac_s:.3f} s with position "
+        f"0 flagged quarantined; slots {counts}; {len(probe)} BF.MEXISTS64, GETBIT and GETBITSB replies equal "
+        "those before and the CPU server's.  The 8 positions share this one card: a move re-owns a record and "
+        "copies nothing, and nothing here measures a move between cards")
+    return out
+
+
+def rs_vector(device, card: str) -> dict:
+    """Leg d: a vector bank on the card grown past device-budget-bytes
+    demotes colder bloom records first; grown further, past what can be
+    demoted, it raises VectorBudgetError.  The blooms answer as before once
+    the budget is lifted."""
+    from redisson_tpu_torch.client.redisson import RedissonTpu
+    from redisson_tpu_torch.core import residency as R
+    from redisson_tpu_torch.core.engine import Engine
+    from redisson_tpu_torch.services.search import SearchService
+    from redisson_tpu_torch.services.vector import VectorBudgetError, bank_record_name
+
+    rng = np.random.default_rng(271)
+    client = RedissonTpu(Engine(device=device))
+    eng = client._engine
+    mgr = eng.enable_residency(min_idle_s=0.0)
+    prev_tier, prev_budget = R.set_tier(True), R.set_device_budget_bytes(0)
+    try:
+        blooms, member = [], {}
+        for i in range(RS_VEC_BLOOMS):
+            name = f"rsv:bf{i}"
+            bf = client.get_bloom_filter(name)
+            bf.try_init(RS_VEC_BLOOM_CAP, FPP)
+            member[name] = rng.integers(0, 1 << 40, 1000)
+            bf.add_all(member[name])
+            blooms.append(name)
+        want = {n: np.asarray(client.get_bloom_filter(n).contains_each(member[n])) for n in blooms}
+        bloom_bytes = sum(int(t.nbytes) for n in blooms for t in eng.store.get_unguarded(n).arrays.values())
+        svc = SearchService(eng)
+        svc.create_index("rsv", {"emb": "VECTOR"}, vector={"emb": {"dim": RS_VEC_DIM}})
+        bank = bank_record_name("rsv", "emb")
+        rows = [0]
+
+        def fill(n):
+            for _ in range(n):
+                svc.add_document("rsv", f"rsv:d{rows[0]}", {"emb": rng.standard_normal(RS_VEC_DIM).astype(np.float32)})
+                rows[0] += 1
+
+        # grow the bank to the largest power-of-two capacity whose bytes stay
+        # at most the blooms' (so one doubling can be paid by demoting them,
+        # and the next cannot)
+        per_row = RS_VEC_DIM * 4 + 4
+        cap0 = 256
+        while cap0 * 2 * per_row <= bloom_bytes:
+            cap0 *= 2
+        fill(cap0)
+        svc.knn("rsv", "emb", np.ones(RS_VEC_DIM, np.float32), 5)
+        bank_bytes = sum(int(t.nbytes) for t in eng.store.get_unguarded(bank).arrays.values())
+        budget = bloom_bytes + bank_bytes + 4096
+        R.set_device_budget_bytes(budget)
+        _sync(torch.device(device))
+        m0 = torch.cuda.memory_allocated() if torch.device(device).type == "cuda" else 0
+        s = time.perf_counter()
+        fill(256)  # one doubling: demote first
+        grow_s = time.perf_counter() - s
+        warm = [n for n in blooms if mgr.tier_of(n) == R.WARM]
+        m1 = torch.cuda.memory_allocated() if torch.device(device).type == "cuda" else 0
+        if not warm or mgr.tier_of(bank) != R.HOT:
+            raise AssertionError(f"residency vector: growth demoted {warm}, the bank is {mgr.tier_of(bank)}")
+        try:
+            fill(cap0)  # the next doubling: not enough left to demote
+            raise AssertionError("residency vector: growth past what can be demoted did not raise")
+        except VectorBudgetError as e:
+            refused = str(e)
+        R.set_device_budget_bytes(0)
+        for n in blooms:
+            np.testing.assert_array_equal(np.asarray(client.get_bloom_filter(n).contains_each(member[n])), want[n])
+        out = {"bloom_bytes": bloom_bytes, "bank_bytes": bank_bytes, "budget": budget, "demoted": len(warm),
+               "grow_ms": grow_s * 1e3, "allocated": [m0, m1], "rows": rows[0]}
+    finally:
+        R.set_tier(prev_tier)
+        R.set_device_budget_bytes(prev_budget)
+        client.shutdown()
+    log(f"residency vector [{card}]: a {RS_VEC_DIM}-wide bank of {bank_bytes} bytes beside {RS_VEC_BLOOMS} "
+        f"bloom records of {bloom_bytes} bytes under a {budget}-byte budget: its doubling demoted {len(warm)} "
+        f"blooms first ({grow_s * 1e3:.3f} ms for the 256 rows that grew it; memory_allocated {m0} -> {m1}); the "
+        f"next doubling raised VectorBudgetError ({refused[:90]}...); the blooms answer as before")
+    return out
+
+
+def run_residency(device="cuda") -> dict:
+    """The residency path: (a) config 8 at its own size, (b) config 2's bank
+    and config 3's counters through WARM and COLD over the wire, (c) the
+    pressure rebalancer's SWEEP and SHED, then DEVEVACUATE, on 8 positions,
+    (d) a vector bank's growth demoting colder records, then refused."""
+    import tempfile
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    out = {}
+    for leg, run in (("config8", lambda: rs_config8(device, card)), ("tiers", lambda: rs_tiers(device, card))):
+        s = time.perf_counter()
+        out[leg] = run()
+        out[leg]["seconds"] = time.perf_counter() - s
+    with tempfile.TemporaryDirectory(prefix="rtpu-res-") as jd:
+        s = time.perf_counter()
+        out["shed"] = rs_shed(device, jd, card)
+        out["shed"]["seconds"] = time.perf_counter() - s
+    s = time.perf_counter()
+    out["vector"] = rs_vector(device, card)
+    out["vector"]["seconds"] = time.perf_counter() - s
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    log(f"residency path [{card}]: {out['seconds']:.1f}s (config8 {out['config8']['seconds']:.1f} s, tiers "
+        f"{out['tiers']['seconds']:.1f} s, shed {out['shed']['seconds']:.1f} s, vector "
+        f"{out['vector']['seconds']:.1f} s)")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -7826,7 +8249,8 @@ def main() -> int:
                       ("observe", lambda: run_observe()),
                       ("warm", lambda: run_warm()),
                       ("replication", lambda: run_replication()),
-                      ("migration", lambda: run_migration())):
+                      ("migration", lambda: run_migration()),
+                      ("residency", lambda: run_residency())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -7835,7 +8259,7 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration"):
+    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]

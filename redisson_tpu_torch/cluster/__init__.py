@@ -13,10 +13,11 @@ A copy of ``redisson_tpu/cluster/__init__.py`` for the cluster serving path:
   * :mod:`~redisson_tpu_torch.cluster.qos_control` — the fleet-wide tenant
     budget loop (:class:`QosRebalancer`), which
     ``ClusterSupervisor.start_qos_rebalance`` runs;
+  * :mod:`~redisson_tpu_torch.cluster.residency_control` — the fleet-wide
+    device-memory pressure loop (:class:`ResidencyRebalancer`: demote
+    first through CLUSTER RESIDENCY SWEEP, then shed through SHED);
   * :mod:`~redisson_tpu_torch.cluster.chaos` — process-chaos primitives
     (the coordinator killed at a journal phase, SIGKILL-at-phase storms).
-
-The residency control loop comes with ROADMAP M11 part 5.
 """
 from redisson_tpu_torch.cluster.hostdriver import (  # noqa: F401
     HostDriver,
@@ -26,6 +27,10 @@ from redisson_tpu_torch.cluster.hostdriver import (  # noqa: F401
     NodeHandle,
     SshHostDriver,
     SshTransport,
+)
+from redisson_tpu_torch.cluster.residency_control import (  # noqa: F401
+    ResidencyRebalancer,
+    parse_residency_table,
 )
 from redisson_tpu_torch.cluster.supervisor import (  # noqa: F401
     ClusterSupervisor,

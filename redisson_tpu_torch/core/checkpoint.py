@@ -452,10 +452,20 @@ def clone_record(engine, src_name: str, dst_name: str, replace: bool = False) ->
             return False
         if engine.store.exists(dst_name) and not replace:
             return False
+        if rec.stash is None and rec.cold_path is None:
+            arrays = {k: _device_copy(v) for k, v in rec.arrays.items()}
+        else:
+            # a demoted source: the clone lands HOT from the host view, and
+            # the source stays WARM/COLD (a copy must not double its
+            # device footprint)
+            arrays = {
+                k: _to_device(np.array(v), engine.device)  # never the stash's memory
+                for k, v in _residency.record_host_arrays(rec).items()
+            }
         clone = StateRecord(
             kind=rec.kind,
             meta=pickle.loads(pickle.dumps(dict(rec.meta))),
-            arrays={k: _device_copy(v) for k, v in rec.arrays.items()},
+            arrays=arrays,
             host=pickle.loads(pickle.dumps(rec.host)),
         )
         clone.expire_at = rec.expire_at

@@ -39,8 +39,13 @@ locks, fenced by epoch.
 planes (``core/warmpool.py``), every position's with placement on;
 ``warm_pool`` is the process-global pool of warm keys.
 
-A trimmed copy of ``redisson_tpu/core/engine.py``: residency belongs to the
-operations slice.
+``enable_residency`` arms the HOT/WARM/COLD residency plane
+(``core/residency.py``) for the engine's store: the getters fault a
+demoted record back in on first touch, and a sweeper demotes the
+least-recently-touched clean records past ``device-budget-bytes``;
+``try_locked`` is the demoter's non-blocking record lock.
+
+A copy of ``redisson_tpu/core/engine.py``.
 """
 from __future__ import annotations
 
@@ -111,6 +116,8 @@ class Engine:
         # lane a position; None keeps the single-device engine
         self.placement = None
         self.lanes = None
+        # the tiered residency plane: None until enable_residency()
+        self.residency = None
 
     @property
     def eviction(self):
@@ -163,6 +170,26 @@ class Engine:
                 yield
         finally:
             self._release_entry(name, entry)
+
+    def try_locked(self, name: str):
+        """Non-blocking record lock: a held context manager, or None when
+        another thread holds the lock RIGHT NOW.  The residency demoter
+        uses it, so releasing cold tensors never stalls a serving path: a
+        busy record simply stays HOT this sweep."""
+        entry = self._acquire_entry(name)
+        if not entry[0].acquire(blocking=False):
+            self._release_entry(name, entry)
+            return None
+
+        @contextmanager
+        def _held():
+            try:
+                yield
+            finally:
+                entry[0].release()
+                self._release_entry(name, entry)
+
+        return _held()
 
     @contextmanager
     def locked_many(self, names: Iterable[str]):
@@ -383,6 +410,56 @@ class Engine:
         p = self.placement
         return None if p is None else p.device_for_name(name)
 
+    # -- tiered residency ------------------------------------------------------
+
+    def enable_residency(self, budget_bytes: Optional[int] = None,
+                         spill_dir: Optional[str] = None,
+                         sweep_interval: float = 0.0, **kw):
+        """Arm the HOT/WARM/COLD residency plane for this engine's store:
+        getters fault WARM/COLD records back in on first touch, and the
+        (optional) background sweeper demotes least-recently-touched clean
+        records whenever a device exceeds ``device-budget-bytes``.
+        Idempotent; returns the ResidencyManager."""
+        from redisson_tpu_torch.core import residency as _residency
+
+        if self.residency is None:
+            self.residency = _residency.ResidencyManager(
+                self, spill_dir=spill_dir, sweep_interval=sweep_interval,
+                **kw,
+            )
+            self.store.residency = self.residency
+        if budget_bytes is not None:
+            _residency.set_device_budget_bytes(budget_bytes)
+        return self.residency
+
+    def disable_residency(self) -> None:
+        """Detach the residency plane from this store.  Every WARM/COLD
+        record is promoted back to HOT FIRST: once the getters stop routing
+        to the manager nothing would fault a demoted record back in, and
+        its state would read as empty.  Demotion stops before the first
+        promotion (the sweeper, the budget and the DEMOTE verb alike), so
+        none can strand a record behind the detach; a promotion that raises
+        leaves the plane attached and demoting again, and the error reaches
+        the caller."""
+        mgr = self.residency
+        if mgr is None:
+            return
+        interval = mgr.close()
+        try:
+            with self.store._lock:
+                demoted = [
+                    (n, r) for n, r in self.store._states.items()
+                    if r.tier != "hot"
+                ]
+            for name, rec in demoted:
+                mgr.fault_in(name, rec)
+        except BaseException:
+            mgr.reopen(interval)
+            raise
+        self.residency = None
+        self.store.residency = None
+        mgr.stop()
+
     def _place_record(self, name: str, rec) -> None:
         """DeviceStore placement hook: the record's owner is its slot's
         position.  Every position is on the engine's device, so no tensor
@@ -560,6 +637,10 @@ class Engine:
                 p.shutdown(wait=False, cancel_futures=True)
         if eviction is not None:
             eviction.close()
+        if self.residency is not None:
+            self.residency.stop()
+            self.residency = None
+            self.store.residency = None
         self.pubsub.close()
         self.query_cache.clear()
         self.staging.clear()

@@ -42,7 +42,10 @@ tensors called ``record_stream``; lanes on different cards dispatch on
 their own cards' streams and overlap there.  The lane fault counters
 (``consec_faults``, ``total_faults``, ``quarantined``) are fields that stay
 0 until the operations slice's fault plane (the reference's chaos stall,
-lane watchdog and quarantine) sets them.
+lane watchdog and quarantine) sets them.  Every live ``LaneSet`` is held
+weakly in ``_LANE_SETS``; ``quarantined_device_ids`` reads the
+``quarantined`` flags over it (the device evacuation's survivors skip
+them).
 
 ``scatter_host_arrays`` (K23) is the inverse of the grouped readback: a
 record's host arrays packed into one stream (each piece at a 16-byte
@@ -89,6 +92,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1059,6 +1063,21 @@ class _LaneOccupancy:
         return False
 
 
+# every live LaneSet, weakly held (reference ``core/ioplane.py:1185``)
+_LANE_SETS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def quarantined_device_ids() -> set:
+    """Position ids currently quarantined on ANY live lane set (empty
+    until the fault plane's watchdog sets a lane's flag)."""
+    out = set()
+    for ls in list(_LANE_SETS):
+        for dev_id, lane in list(ls._lanes.items()):
+            if lane.quarantined:
+                out.add(dev_id)
+    return out
+
+
 class LaneSet:
     """The engine's per-position lane registry and cross-lane concurrency
     accounting (``peak_concurrent`` > 1 shows that frames routed to
@@ -1072,6 +1091,7 @@ class LaneSet:
         self._lock = threading.Lock()
         self._active = 0
         self.peak_concurrent = 0
+        _LANE_SETS.add(self)
 
     def lane(self, device) -> DeviceLane:
         dev_id = device if isinstance(device, int) else getattr(device, "id", 0)

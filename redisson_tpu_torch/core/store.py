@@ -7,8 +7,12 @@ under the engine's per-record locks (core/engine.py ``locked`` /
 ``locked_many``), so each object has one writer at a time.  Kernels update the record's tensors in place, or install a new
 tensor where they write out of place (the HLL merges).
 
-A copy of ``redisson_tpu/core/store.py`` without its hooks for the
-residency tiers, which the operations slice ports.  With placement on,
+A copy of ``redisson_tpu/core/store.py``.  The public getters (``get``,
+``get_or_create`` and what reads through them) are the residency plane's
+fault-in chokepoint: a WARM or COLD record (``core/residency.py``) is
+promoted back to HOT there, after the store lock is released; the
+``*_unguarded`` accessors and ``census_records`` never promote.  With
+placement on,
 ``placement_hook`` runs at every install (get_or_create's new record, put,
 put_unguarded) and names the record's owner position
 (``StateRecord.position``).  ``absent_guard`` is the slot-migration
@@ -28,6 +32,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+from redisson_tpu_torch.core import residency as _res
+
 
 @dataclass
 class StateRecord:
@@ -44,6 +50,17 @@ class StateRecord:
     # the mesh position that owns the record (its slot's, with placement on;
     # server/placement.py), else None
     position: Optional[int] = None
+    # residency plane: HOT = tensors on the device, WARM = tensors released
+    # with the exact host bytes in `stash`, COLD = stash spilled to the
+    # verified container at `cold_path`.  The tier moves only under the
+    # record lock and the manager's transition lock; version does NOT bump
+    # on a tier change (the content is the same, so replication and
+    # migration do not re-ship a demoted record).
+    tier: str = _res.HOT
+    stash: Optional[Dict[str, Any]] = None   # WARM host mirror (numpy)
+    stash_dev: int = -1                      # ledger key the tensors left
+    cold_path: Optional[str] = None          # COLD spill file
+    cold_bytes: int = 0                      # spilled host bytes (census)
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.expire_at is not None and (now or time.time()) >= self.expire_at
@@ -70,6 +87,11 @@ class DeviceStore:
         # placement hook: called with (name, record) at every install so a
         # placement-enabled engine names the owner position of the record
         self.placement_hook: Optional[Callable[[str, StateRecord], None]] = None
+        # the residency manager (Engine.enable_residency): the armed
+        # `_res._tier_plane` guard routes getter touches here, so several
+        # engines in one process never cross-wire.  None = no tiering even
+        # while the process-global plane is armed.
+        self.residency = None
 
     def _placed(self, name: str, rec: StateRecord) -> StateRecord:
         if self.placement_hook is not None:
@@ -99,7 +121,15 @@ class DeviceStore:
 
     def get(self, name: str) -> Optional[StateRecord]:
         with self._lock:
-            return self._get_locked(name)
+            rec = self._get_locked(name)
+        # the fault-in chokepoint: a WARM/COLD record promotes back to HOT
+        # here, OUTSIDE the store lock (promotion takes the record lock and
+        # the owner lane's gate).  Disarmed cost: one module-global load
+        # and an is-None test.
+        plane = _res._tier_plane
+        if plane is not None and rec is not None:
+            plane.on_record_access(self, name, rec)
+        return rec
 
     def get_or_create(self, name: str, kind: str,
                       factory: Callable[[], StateRecord]) -> StateRecord:
@@ -115,7 +145,10 @@ class DeviceStore:
                     f"object '{name}' holds a {rec.kind}, requested {kind} "
                     "(WRONGTYPE in the reference)"
                 )
-            return rec
+        plane = _res._tier_plane
+        if plane is not None and rec is not None:
+            plane.on_record_access(self, name, rec)
+        return rec
 
     def put(self, name: str, rec: StateRecord) -> None:
         with self._lock:
@@ -151,6 +184,16 @@ class DeviceStore:
         absent."""
         with self._lock:
             return self._live_locked(name)
+
+    def census_records(self):
+        """Non-expired ``(kind, record)`` pairs in one snapshot: the ledger
+        scans read each record's tensors WITHOUT the store lock, so a gauge
+        scrape never serializes against the write path."""
+        with self._lock:
+            return [
+                (r.kind, r) for r in list(self._states.values())
+                if not r.expired()
+            ]
 
     def keys(self, pattern: Optional[str] = None) -> List[str]:
         """SCAN/KEYS analog: the names of the records that have not expired,

@@ -40,9 +40,11 @@ refuse-connect does not abort a whole reshard.
 
 Device rebalances (``rebalance_devices``) move slots between the mesh
 positions of one process on ``Engine.move_slots_records``, journaled in the
-same directory.  The reference's quarantine evacuation (``evacuation_plan``,
-``shed_plan``, ``evacuate_device``) reads the device fault plane's
-quarantine set and comes with it.
+same directory.  ``evacuation_plan`` and ``shed_plan`` spread a position's
+slots round robin over the survivors (the positions whose lanes are not
+quarantined, ``core/ioplane.quarantined_device_ids``), and
+``evacuate_device`` runs the whole plan as a journaled device rebalance:
+CLUSTER DEVEVACUATE and the residency plane's CLUSTER RESIDENCY SHED.
 """
 from __future__ import annotations
 
@@ -728,6 +730,71 @@ def resume_device_rebalances(engine, journal_dir: str) -> List[Dict[str, Any]]:
                 "error": repr(e),
             })
     return out
+
+
+def evacuation_plan(placement, dev_index: int) -> Dict[int, int]:
+    """Target owners for every slot of ``dev_index``: round robin over the
+    surviving positions (every other position whose lane is not itself
+    quarantined).  The plan feeds :func:`rebalance_devices` unchanged, so
+    an evacuation IS a journaled, resumable device rebalance."""
+    from redisson_tpu_torch.core.ioplane import quarantined_device_ids
+
+    if not 0 <= dev_index < placement.n_devices:
+        raise ValueError(f"device index {dev_index} outside placement")
+    bad = quarantined_device_ids()
+    survivors = [
+        i for i, d in enumerate(placement.devices)
+        if i != dev_index and getattr(d, "id", i) not in bad
+    ]
+    if not survivors:
+        raise ValueError(
+            f"no surviving devices to evacuate device {dev_index} onto"
+        )
+    owner = placement.owner_snapshot()
+    slots = (owner == dev_index).nonzero()[0]
+    return {
+        int(s): survivors[j % len(survivors)]
+        for j, s in enumerate(slots)
+    }
+
+
+def shed_plan(placement, dev_index: int, count: int) -> Dict[int, int]:
+    """Partial evacuation: target owners for up to ``count`` of
+    ``dev_index``'s slots (its lowest), round robin over the survivors —
+    the actuator the residency rebalancer drives.  Same contract as
+    :func:`evacuation_plan`, bounded so one shed step moves a bite of the
+    position, not the whole position."""
+    full = evacuation_plan(placement, dev_index)
+    if count <= 0 or count >= len(full):
+        return full
+    keep = sorted(full)[:count]
+    return {s: full[s] for s in keep}
+
+
+def evacuate_device(engine, dev_index: int,
+                    journal_dir: Optional[str] = None,
+                    crash_after: Optional[str] = None):
+    """Evacuate every slot of position ``dev_index`` onto the survivors
+    through the journaled device rebalance.  Returns ``(records_moved,
+    targets, epoch)``; epoch is None when unjournaled or when the position
+    owned no slot (nothing ran).  Keyed traffic on the moving slots rides
+    the TRYAGAIN fence; a killed coordinator resumes through
+    :func:`resume_device_rebalances`."""
+    placement = engine.placement
+    if placement is None:
+        raise RuntimeError("placement is not enabled on this engine")
+    targets = evacuation_plan(placement, dev_index)
+    if not targets:
+        return 0, targets, None
+    moved = rebalance_devices(
+        engine, targets, journal_dir=journal_dir, crash_after=crash_after
+    )
+    epoch = None
+    if journal_dir is not None:
+        # every target slot was fenced at the journal's epoch before any
+        # record moved: read it back off the placement for the reply
+        epoch = placement.epoch_of(next(iter(targets)))
+    return moved, targets, epoch
 
 
 class _DeviceRebalanceRun:

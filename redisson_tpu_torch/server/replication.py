@@ -375,7 +375,8 @@ def snapshot_records(engine, names: List[str]) -> Dict[str, dict]:
     tensor copied on the device (the copy is waited for before the lock is
     released, so a later mutation on another stream cannot race it); the
     device-to-host pull of every copy is then ONE transfer a device,
-    outside the locks (``ioplane.gather_device_results``)."""
+    outside the locks (``ioplane.gather_device_results``).  A WARM or COLD
+    record ships its stash or spill bytes and stays demoted."""
     staged = []
     for name in names:
         with engine.locked(name):
@@ -383,7 +384,12 @@ def snapshot_records(engine, names: List[str]) -> Dict[str, dict]:
             if rec is None or rec.expired():
                 continue
             item = _record_head(rec, name)
-            item["arrays"] = {k: _device_cut(v) for k, v in rec.arrays.items()}
+            if rec.stash is not None or rec.cold_path is not None:
+                # a demoted record: its exact bytes already live on the
+                # host (gather passes numpy through); never promote
+                item["arrays"] = _residency.record_host_arrays(rec)
+            else:
+                item["arrays"] = {k: _device_cut(v) for k, v in rec.arrays.items()}
             for dev in {v.device for v in item["arrays"].values()
                         if isinstance(v, torch.Tensor)}:
                 ioplane.wait_device(dev)

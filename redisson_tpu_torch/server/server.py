@@ -136,11 +136,17 @@ RESTORESTATE, DUMP, RESTORE, COPY) (``server/verbs``).
     stay applied (at most once a sub-window).  Replies are the unsplit
     dispatch's bytes, in frame order.
   * **CONFIG** (``config_view``/``config_set``, reference ``:483-680``):
-    the knobs of the planes the port has, the ``qos-*`` knobs and
-    ``checkpoint-path`` among them.  The knobs of planes the operations
-    slice brings later (``residency-enabled``, ``device-budget-bytes``,
-    ``lane-watchdog-ms``, ``lane-quarantine-after``) read the reference's
-    defaults, and setting one replies an error naming ROADMAP M11.
+    the knobs of the planes the port has, the ``qos-*`` knobs,
+    ``checkpoint-path``, ``residency-enabled`` and ``device-budget-bytes``
+    among them.  The lane fault plane's knobs (``lane-watchdog-ms``,
+    ``lane-quarantine-after``) read the reference's defaults, and setting
+    one replies an error naming ROADMAP M11 part 6.
+  * **Residency** (``core/residency.py``): ``enable_residency`` arms the
+    HOT/WARM/COLD plane with the slot fences wired in (a migrating,
+    importing or recovering slot never demotes); the CLI's
+    ``--residency`` arms it at boot and ``--no-tier`` pins the getter
+    guard disarmed for the process's life, as ``RTPU_NO_TIER=1`` does;
+    the ``residency`` METRICS family carries the per-tier rows.
   * **Durability** (``core/checkpoint.py``): ``checkpoint_path`` (the CLI's
     ``--checkpoint``, with ``--restore`` at boot and
     ``--checkpoint-interval`` for an ``AutoCheckpointer`` that flushes on a
@@ -157,8 +163,8 @@ WAIT; ``replication_source()`` is the master's lazy shipper, closed by
 ``stop``.  ``--prewarm`` warms the restored records' kernels at boot
 (``core/warmpool.py``).
 
-The residency census and the chaos pause gate come with the operations
-slice's later parts (ROADMAP M11).
+The chaos pause gate comes with the operations slice's last part
+(ROADMAP M11 part 6).
 """
 from __future__ import annotations
 
@@ -304,20 +310,16 @@ def _force_lazies(results: list, server, trace=None) -> None:
             _obs.clear_current()
 
 
-# CONFIG knobs of the operations slice's planes still to come (ROADMAP M11:
-# residency, the lane watchdog and quarantine): CONFIG GET reads the
+# CONFIG knobs of the operations slice's plane still to come (ROADMAP M11
+# part 6: the lane watchdog and quarantine): CONFIG GET reads the
 # reference's defaults, CONFIG SET replies an error naming the plane
 _M11_KNOBS = {
-    "device-budget-bytes": 0,
-    "residency-enabled": 0,
     "lane-watchdog-ms": 0,
     "lane-quarantine-after": 3,
 }
 _M11_KNOBS_PLANE = {
-    "device-budget-bytes": "the residency plane",
-    "residency-enabled": "the residency plane",
-    "lane-watchdog-ms": "the lane watchdog",
-    "lane-quarantine-after": "the lane quarantine",
+    "lane-watchdog-ms": "part 6, the lane watchdog",
+    "lane-quarantine-after": "part 6, the lane quarantine",
 }
 
 
@@ -517,6 +519,10 @@ class TpuServer:
         # totals and record_bytes_dev<N>_<kind> rows, present only while the
         # device holds bytes (reference ``_device_bytes_census``)
         self.metrics.multi_gauge("devbytes", self._device_bytes_census)
+        # the residency plane's per-tier rows (residency_bytes_dev<N>_{hot,
+        # warm,cold}) and its counters: rows exist only while a manager is
+        # armed and the tier holds bytes, so DEL drains them
+        self.metrics.multi_gauge("residency", self._residency_census)
         for name in ("replica_reads", "replica_redirects_stale", "replica_fallbacks"):
             self.metrics.gauge(name, lambda name=name: self.stats[name])
         self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="rtpu-srv")
@@ -1108,7 +1114,12 @@ class TpuServer:
         if svc is None:
             return zeros
         try:
-            return svc.device_census()
+            # observe-only: a scrape never faults a demoted bank back in (a
+            # WARM bank reports 0 device bytes, which is what it holds)
+            from redisson_tpu_torch.core import residency as _res
+
+            with _res.no_promote():
+                return svc.device_census()
         except Exception:  # noqa: BLE001 — a broken gauge must not kill the scrape
             return zeros
 
@@ -1139,6 +1150,45 @@ class TpuServer:
         for (d, kind), v in sorted(by_kind.items()):
             out[f"record_bytes_dev{d}_{kind}"] = v
         return out
+
+    def _residency_census(self) -> dict:
+        """The residency plane's rows: empty while no manager is armed, so
+        the family adds nothing to a scrape."""
+        mgr = self.engine.residency
+        if mgr is None:
+            return {}
+        try:
+            return mgr.census()
+        except Exception:  # noqa: BLE001 — a broken gauge must not kill the scrape
+            return {}
+
+    def _residency_fence_check(self, name: str) -> bool:
+        """True when ``name``'s slot is mid-migration on this node: the
+        demoter never touches a record the fenced mover is about to
+        snapshot."""
+        if not (self.migrating_slots or self.importing_slots
+                or self.recovering_slots):
+            return False
+        from redisson_tpu_torch.utils.crc16 import calc_slot
+
+        slot = calc_slot(name.encode())
+        return (slot in self.migrating_slots
+                or slot in self.importing_slots
+                or slot in self.recovering_slots)
+
+    def enable_residency(self, **kw) -> None:
+        """Arm the residency plane with the server's fences wired in (CONFIG
+        SET residency-enabled yes, the --residency boot path).  Under
+        RTPU_NO_TIER=1 or --no-tier this is a refused no-op end to end: a
+        manager whose sweeper demotes while the getter guard stays disarmed
+        would strand WARM records with no fault-in path."""
+        from redisson_tpu_torch.core import residency as _res
+
+        if _res._NO_TIER:
+            return
+        self.engine.enable_residency(**kw)
+        self.engine.residency.fence_check = self._residency_fence_check
+        _res.set_tier(True)
 
     # -- per-position lanes (device-sharded serving) ---------------------------
 
@@ -1622,6 +1672,13 @@ class TpuServer:
         view["ivf-cell-imbalance"] = _V.IVF_CELL_IMBALANCE
         view["ivf-cell-cap-max"] = _V.IVF_CELL_CAP_MAX
         view["ftvec-device-budget"] = _V.DEVICE_BYTES_BUDGET
+        # the residency plane: the per-device byte budget and arming
+        from redisson_tpu_torch.core import residency as _res
+
+        view["device-budget-bytes"] = _res.DEVICE_BUDGET_BYTES
+        view["residency-enabled"] = int(
+            self.engine.residency is not None and _res.tier_enabled()
+        )
         view.update(_M11_KNOBS)
         view.update(self.scheduler.config_view())
         return view
@@ -1629,8 +1686,8 @@ class TpuServer:
     def config_set(self, key: str, value: str) -> bool:
         """CONFIG SET: the runtime-tunable subset (reference
         ``server/server.py:529-680``).  Structural knobs (port, TLS, mode)
-        are read-only; a knob of the operations slice's planes replies an
-        error naming ROADMAP M11."""
+        are read-only; a knob of the lane fault plane replies an error
+        naming ROADMAP M11 part 6."""
         if key in _M11_KNOBS:
             raise RespError(
                 f"ERR CONFIG SET {key} is not served by this port yet "
@@ -1704,6 +1761,30 @@ class TpuServer:
             from redisson_tpu_torch.services import vector as _V
 
             _V.set_device_bytes_budget(n)
+            return True
+        if key == "device-budget-bytes":
+            # the per-device budget the residency sweeper demotes against
+            # (0 = unlimited; the explicit demotion verbs still work)
+            n = int(value)
+            if n < 0:
+                return False
+            from redisson_tpu_torch.core import residency as _res
+
+            _res.set_device_budget_bytes(n)
+            return True
+        if key == "residency-enabled":
+            # arm or disarm the residency plane live; disarming promotes
+            # every demoted record back to HOT first
+            on = value.lower() not in ("0", "false", "no", "off")
+            from redisson_tpu_torch.core import residency as _res
+
+            if on:
+                self.enable_residency(sweep_interval=1.0)
+            else:
+                # the guard stays armed until every record is HOT again:
+                # a promotion that fails leaves the plane serving
+                self.engine.disable_residency()
+                _res.set_tier(False)
             return True
         if key.startswith("qos-"):
             if key == "qos-bulk-slots" and int(value) <= 0:
@@ -2244,6 +2325,20 @@ def main(argv=None):
              "(RTPU_NO_PREEMPT=1 equivalent)",
     )
     ap.add_argument(
+        "--no-tier", action="store_true",
+        help="disable the tiered residency plane (core/residency) for the "
+             "process's life: every record stays HOT on its device, and "
+             "neither --residency nor CONFIG SET residency-enabled yes arms "
+             "it (RTPU_NO_TIER=1 equivalent; replies are bit-identical)",
+    )
+    ap.add_argument(
+        "--residency", action="store_true",
+        help="arm the tiered residency plane at boot (cold records demote "
+             "to host RAM or spill under the per-device device-budget-bytes "
+             "budget and fault back in on first touch; also CONFIG SET "
+             "residency-enabled yes)",
+    )
+    ap.add_argument(
         "--dispatch-ahead", type=int, default=None,
         help="per-connection dispatch-ahead bound: how many frames may sit "
              "between 'dispatched' and 'replies written' on one connection. "
@@ -2286,6 +2381,10 @@ def main(argv=None):
         _sched.set_qos(False)
     if args.no_preempt:
         ioplane.set_preempt(False)
+    if args.no_tier:
+        from redisson_tpu_torch.core import residency as _res_tier
+
+        _res_tier.pin_disarmed()
     engine = Engine(device=args.device)
     srv = TpuServer(
         engine,
@@ -2314,6 +2413,8 @@ def main(argv=None):
     if args.restore and args.checkpoint and os.path.exists(args.checkpoint):
         n = checkpoint.load(engine, args.checkpoint)
         print(f"restored {n} records from {args.checkpoint}", flush=True)
+    if args.residency and not args.no_tier:
+        srv.enable_residency(sweep_interval=1.0)
     if args.prewarm:
         t0 = time.perf_counter()
         n = engine.prewarm()

@@ -15,10 +15,13 @@ A copy of these parts of ``redisson_tpu/server/verbs/admin.py``:
     scheduler's view (its class rows, the lanes' STREAM rows and a TENANT
     row a tenant, weight last) and ``REBALANCE <tenant> <rate> [<burst>]
     [WEIGHT <w>]``, the fleet rebalancer's actuator (reference
-    ``:224-300``; ``cluster/qos_control.py``).  The other CLUSTER
-    subcommands reply an error naming the slice that brings them: DEVPROBE
-    and DEVEVACUATE (the device fault plane, ROADMAP M11 part 6) and
-    RESIDENCY (the residency plane, part 5).
+    ``:224-300``; ``cluster/qos_control.py``).  CLUSTER DEVEVACUATE (a
+    position's every slot onto the survivors, a journaled device
+    rebalance) and CLUSTER RESIDENCY (the residency plane's table, TIER,
+    DEMOTE [COLD], SWEEP and SHED, reference ``:332-470``;
+    ``cluster/residency_control.py`` drives SWEEP and SHED).  DEVPROBE
+    replies an error naming the slice that brings it (the device fault
+    plane, ROADMAP M11 part 6).
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
@@ -120,8 +123,6 @@ def cmd_config(server, ctx, args):
 # CLUSTER subcommands the port does not serve yet -> the slice that brings them
 _CLUSTER_LATER = {
     b"DEVPROBE": "M11 part 6: the device fault plane",
-    b"DEVEVACUATE": "M11 part 6: the device fault plane",
-    b"RESIDENCY": "M11 part 5: the residency plane",
 }
 
 
@@ -229,6 +230,124 @@ def _cluster_devmove(server, args):
     except ValueError as e:
         raise RespError(f"ERR {e}")
     return moved
+
+
+def _cluster_devevacuate(server, args):
+    """DEVEVACUATE <position> [DIR <journal_dir>]: every slot the position
+    owns onto the surviving positions through the journaled device
+    rebalance.  Reply: [moved_records, evacuated_slots, epoch] (epoch -1
+    when unjournaled)."""
+    from redisson_tpu_torch.server import migration as mig
+
+    if server.engine.placement is None:
+        raise RespError("ERR placement is not enabled on this server")
+    rest = list(args[1:])
+    dev_index = _int(rest[0])
+    journal_dir = None
+    if len(rest) >= 3 and bytes(rest[1]).upper() == b"DIR":
+        journal_dir = _s(rest[2])
+    try:
+        moved, targets, epoch = mig.evacuate_device(
+            server.engine, dev_index, journal_dir=journal_dir
+        )
+    except ValueError as e:
+        raise RespError(f"ERR {e}")
+    return [moved, len(targets), -1 if epoch is None else epoch]
+
+
+def _cluster_residency_shed(server, rest):
+    """SHED <position> [COUNT n] [DIR d]: up to n of the position's slots
+    onto the survivors through the journaled device rebalance (the
+    pressure rebalancer's actuator).  Legal with the manager off: an
+    operator may pre-drain a position before arming tiers.  Reply:
+    [records_moved, slots_moved]."""
+    from redisson_tpu_torch.server import migration as mig
+
+    if server.engine.placement is None:
+        raise RespError("ERR placement is not enabled on this server")
+    usage = "ERR CLUSTER RESIDENCY SHED <dev> [COUNT n] [DIR d]"
+    if not rest:
+        raise RespError(usage)
+    dev_index = _int(rest[0])
+    rest = rest[1:]
+    count = 8
+    journal_dir = None
+    while rest:
+        word = bytes(rest[0]).upper()
+        if word == b"COUNT" and len(rest) >= 2:
+            count = _int(rest[1])
+            rest = rest[2:]
+        elif word == b"DIR" and len(rest) >= 2:
+            journal_dir = _s(rest[1])
+            rest = rest[2:]
+        else:
+            raise RespError(usage)
+    try:
+        targets = mig.shed_plan(server.engine.placement, dev_index, count)
+        moved = mig.rebalance_devices(
+            server.engine, targets, journal_dir=journal_dir
+        ) if targets else 0
+    except ValueError as e:
+        raise RespError(f"ERR {e}")
+    return [moved, len(targets)]
+
+
+def _cluster_residency(server, args):
+    """CLUSTER RESIDENCY: [armed, budget_bytes, [DEV, dev, hot, warm,
+    cold]..., [CTR, promotions, demotions_warm, demotions_cold, cold_loads,
+    fault_in_ms_total, fault_in_ms_max]] (no DEV or CTR rows while no
+    manager is armed); TIER <key> (hot/warm/cold; hot with the plane off);
+    DEMOTE <key> [COLD] (1 when the tier changed); SWEEP ([demoted,
+    colded, freed_bytes]); SHED (``_cluster_residency_shed``)."""
+    from redisson_tpu_torch.core import residency as _res
+
+    mgr = server.engine.residency
+    if len(args) > 1:
+        op = bytes(args[1]).upper()
+        if op == b"TIER":
+            if len(args) < 3:
+                raise RespError("ERR CLUSTER RESIDENCY TIER <key>")
+            if mgr is None:
+                return _res.HOT.encode()  # disarmed: HOT by construction
+            t = mgr.tier_of(_s(args[2]))
+            if t is None:
+                raise RespError("ERR no such key")
+            return t.encode()
+        if op == b"SHED":
+            return _cluster_residency_shed(server, list(args[2:]))
+        if mgr is None:
+            raise RespError(
+                "ERR residency plane is not enabled "
+                "(CONFIG SET residency-enabled yes)"
+            )
+        if op == b"DEMOTE":
+            if len(args) < 3:
+                raise RespError("ERR CLUSTER RESIDENCY DEMOTE <key> [COLD]")
+            cold = len(args) > 3 and bytes(args[3]).upper() == b"COLD"
+            return 1 if mgr.demote(_s(args[2]), cold=cold, force=True) else 0
+        if op == b"SWEEP":
+            swept = mgr.sweep()
+            return [swept["demoted"], swept["colded"], int(swept["freed_bytes"])]
+        raise RespError("ERR unknown CLUSTER RESIDENCY subcommand")
+    armed = 1 if (mgr is not None and _res.tier_enabled()) else 0
+    out = [armed, int(_res.DEVICE_BUDGET_BYTES)]
+    if mgr is None:
+        return out
+    devs: dict = {}
+    for k, v in mgr.census().items():
+        if k.startswith("residency_bytes_dev"):
+            num, _, tier = k[len("residency_bytes_dev"):].partition("_")
+            devs.setdefault(int(num), {})[tier] = int(v)
+    for d in sorted(devs):
+        row = devs[d]
+        out.append([b"DEV", d, row.get("hot", 0), row.get("warm", 0),
+                    row.get("cold", 0)])
+    out.append([
+        b"CTR", mgr.promotions, mgr.demotions_warm, mgr.demotions_cold,
+        mgr.cold_loads, f"{mgr.fault_in_ms_total:g}".encode(),
+        f"{mgr.fault_in_ms_max:g}".encode(),
+    ])
+    return out
 
 
 @register("CLUSTER")
@@ -378,6 +497,10 @@ def cmd_cluster(server, ctx, args):
         return _cluster_devices(server)
     if sub == b"DEVMOVE":
         return _cluster_devmove(server, args)
+    if sub == b"DEVEVACUATE":
+        return _cluster_devevacuate(server, args)
+    if sub == b"RESIDENCY":
+        return _cluster_residency(server, args)
     if sub == b"QOS":
         if len(args) > 1 and bytes(args[1]).upper() == b"REBALANCE":
             return _cluster_qos_rebalance(server, args)

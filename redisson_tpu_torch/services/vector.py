@@ -42,7 +42,13 @@ position's lane (``_lane_gate``).
 ``RTPU_NO_VECTOR=1`` or ``set_vector(False)`` selects the reference's NumPy
 path: a mode the caller chooses, never a fallback that a failure trips.
 
-Not here yet: residency admission and the chaos fault plane (ROADMAP M11).
+Residency (``core/residency.py``): a record-backed bank's growth is
+admitted against ``device-budget-bytes`` first (``admit_device_alloc``
+demotes colder clean records off the owner's device and raises
+``VectorBudgetError`` only when not enough could be demoted), every plane
+read or write funnels through ``RecordRowBank._rec``, which faults a
+demoted bank back in, and ``bank_has_pending`` pins a bank with pending
+rows HOT.  Not here yet: the chaos fault plane (ROADMAP M11 part 6).
 A failed bank allocation on the card (``torch.cuda.OutOfMemoryError``)
 raises ``DeviceOomError``, the reference's ``-OOM`` reply.
 """
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -59,6 +66,7 @@ import torch
 
 from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
+from redisson_tpu_torch.core import residency as _res
 from redisson_tpu_torch.core.store import StateRecord
 from redisson_tpu_torch.net.resp import RespError
 
@@ -468,6 +476,21 @@ class DeviceRowBank:
                     f"the {budget}-byte per-device budget; shard the index "
                     f"(SHARDS n) or compress its TYPE"
                 )
+        if self.BUDGETED:
+            # residency admission: growth that would push the owner's
+            # device past device-budget-bytes first demotes that device's
+            # colder clean records; VectorBudgetError is the LAST resort
+            # (raised in admit_device_alloc when not enough was demotable)
+            eng = getattr(self, "_engine", None)
+            mgr = getattr(eng, "residency", None) if eng is not None else None
+            if mgr is not None and _res.tier_enabled():
+                delta = (self._projected_device_bytes(new_cap)
+                         - self._projected_device_bytes(self._cap))
+                pos = self._owner_position()
+                mgr.admit_device_alloc(
+                    self.device if pos is None else pos, delta,
+                    exclude=(getattr(self, "name", ""),),
+                )
         dev = self.device
         try:
             grown = torch.zeros((new_cap, self.pwidth), dtype=_TORCH_DTYPES[self.dtype], device=dev)
@@ -579,6 +602,21 @@ class DeviceRowBank:
             return len(self._pending)
 
 
+# live record-backed banks by (store identity, record name): the residency
+# demoter's dirty probe reads this to pin banks with PENDING rows HOT
+# (demoting mid-accumulation would turn the next flush into a promotion
+# and a flush).  Weak values: a dropped index's bank leaves by dying.
+_LIVE_BANKS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def bank_has_pending(store, name: str) -> bool:
+    """Lock-free dirty probe for the residency plane (len() of a dict is
+    atomic under the GIL; advisory: a racing flush re-touches the record
+    and the touch clock pins it anyway)."""
+    bank = _LIVE_BANKS.get((id(store), name))
+    return bank is not None and len(getattr(bank, "_pending", ())) > 0
+
+
 class RecordRowBank(DeviceRowBank):
     """DeviceRowBank whose planes live in a DeviceStore StateRecord on the
     engine's device; deleting the record (FT.DROPINDEX) releases them."""
@@ -608,11 +646,18 @@ class RecordRowBank(DeviceRowBank):
                         arrays={},
                     ),
                 )
+        _LIVE_BANKS[(id(engine.store), name)] = self
 
     def _rec(self):
         rec = self._engine.store.get_unguarded(self.name)
         if rec is None:
             raise KeyError(f"vector bank '{self.name}' was dropped")
+        # residency fault-in: every bank plane read or write funnels
+        # through here, so a demoted bank promotes before any caller can
+        # see its released planes.  The store getters' one-load guard.
+        plane = _res._tier_plane
+        if plane is not None and rec.tier is not _res.HOT:
+            plane.on_record_access(self._engine.store, self.name, rec)
         return rec
 
     def _get_planes(self):
@@ -621,10 +666,12 @@ class RecordRowBank(DeviceRowBank):
 
     def _set_planes(self, bank, bias, scale) -> None:
         rec = self._rec()
-        rec.arrays["bank"] = bank
-        rec.arrays["bias"] = bias
+        planes = {"bank": bank, "bias": bias}
         if scale is not None:
-            rec.arrays["scale"] = scale
+            planes["scale"] = scale
+        # the index's centroids and cells may be views of the buffer a
+        # promotion cut these planes from
+        _res.replace_planes(rec, planes)
         rec.meta["rows"] = self.rows
         rec.version += 1
 
@@ -981,8 +1028,7 @@ class EmbeddingBank(RecordRowBank):
                 cent = padded
             dc = K.stage(np.ascontiguousarray(cent, np.float32), self.device)
             dl = K.stage(np.ascontiguousarray(ivf.cells), self.device)
-            rec.arrays["centroids"] = dc
-            rec.arrays["cells"] = dl
+            _res.replace_planes(rec, {"centroids": dc, "cells": dl})
             rec.version += 1
             ivf.uploaded_stamp = ivf.stamp
             ivf.index_uploads += 1

@@ -2123,3 +2123,43 @@ def test_migration_on_the_card_moves_planes_bit_for_bit(dev, tmp_path):
         assert [r["action"] for r in mig.resume_device_rebalances(engine, jd)] == ["completed"]
         assert all(p.device_id_for_slot(s) == d for s, d in targets.items())
         assert c.execute_many(probe) == want
+
+
+def test_residency_demote_and_promote_a_bloom_bank_on_the_card(dev):
+    """A bloom bank on the card demoted WARM and COLD and faulted back in:
+    its plane is bit-identical, its probes answer as before, the
+    promotion lands on the card, and memory_allocated falls by at least
+    the plane's bytes at each demotion."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.core import residency as R
+
+    prev = R.set_tier(True)
+    client = redisson_tpu_torch.create(device="cuda")
+    try:
+        eng = client._engine
+        mgr = eng.enable_residency(min_idle_s=0.0)
+        bank = client.get_bloom_filter_array("res:bank")
+        assert bank.try_init(64, 20_000, 0.01)
+        rng = np.random.default_rng(17)
+        tids = np.repeat(np.arange(64, dtype=np.int32), 300)
+        keys = rng.integers(0, 1 << 40, tids.size)
+        bank.add(tids, keys)
+        probe_t = np.concatenate([tids[::7], tids[::7]])
+        probe_k = np.concatenate([keys[::7], keys[::7] + 1])
+        want_plane = eng.store.get_unguarded("res:bank").arrays["bits"].clone()
+        want = np.asarray(bank.contains(probe_t, probe_k))
+        assert want[: tids[::7].size].all()
+        nbytes = int(want_plane.nbytes)
+        for cold in (False, True):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            assert mgr.demote("res:bank", cold=cold, force=True)
+            assert torch.cuda.memory_allocated() <= before - nbytes
+            rec = eng.store.get_unguarded("res:bank")
+            np.testing.assert_array_equal(np.asarray(bank.contains(probe_t, probe_k)), want)
+            assert rec.tier == R.HOT and rec.arrays["bits"].device.type == "cuda"
+            assert torch.equal(rec.arrays["bits"], want_plane)
+        assert mgr.promotions == 2 and mgr.cold_loads == 1
+    finally:
+        client.shutdown()
+        R.set_tier(prev)

@@ -164,13 +164,31 @@ def test_armed_and_disarmed_replies_are_the_same_bytes():
 
 
 def test_operations_knobs_read_defaults_and_refuse_sets():
+    from redisson_tpu.core import residency as ref_res
+    from redisson_tpu_torch.core import residency as port_res
+
+    saved = [(m, m.tier_enabled(), m.DEVICE_BUDGET_BYTES) for m in (ref_res, port_res)]
     with ServerThread(port=0, device="cpu") as st, RefServerThread(port=0) as ref, \
             st.client() as c, ref.client() as rc:
-        for key in ("residency-enabled", "device-budget-bytes",
-                    "lane-watchdog-ms", "lane-quarantine-after"):
-            assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
-            err = c.execute("CONFIG", "SET", key, "1")
-            assert isinstance(err, RespError) and "M11" in str(err)
+        try:
+            for key in ("residency-enabled", "device-budget-bytes",
+                        "lane-watchdog-ms", "lane-quarantine-after"):
+                assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
+            # the residency knobs came with the residency plane: they set and
+            # read back as the reference's
+            for key, value in (("device-budget-bytes", "1048576"), ("residency-enabled", "yes"),
+                               ("residency-enabled", "no"), ("device-budget-bytes", "0")):
+                assert c.execute("CONFIG", "SET", key, value) == rc.execute("CONFIG", "SET", key, value) == b"OK"
+                assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
+                assert c.execute("CONFIG", "GET", "residency-enabled") == rc.execute("CONFIG", "GET", "residency-enabled")
+            # the lane fault plane's knobs still refuse, naming M11 part 6
+            for key in ("lane-watchdog-ms", "lane-quarantine-after"):
+                err = c.execute("CONFIG", "SET", key, "1")
+                assert isinstance(err, RespError) and "M11" in str(err) and "part 6" in str(err)
+        finally:
+            for mod, tier, budget in saved:
+                mod.set_tier(tier)
+                mod.set_device_budget_bytes(budget)
         # checkpoint-path came with the checkpoints: read and set as the
         # reference's
         for conn in (c, rc):

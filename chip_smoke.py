@@ -302,7 +302,27 @@ Phases (any failure raises and the script exits non-zero):
      DEVEVACUATE 1 DIR with position 0's lane flagged quarantined; replies
      equal those before and a CPU server's, positions 0 and 1 own no slot;
      (d) a vector bank grown past device-budget-bytes demotes colder bloom
-     records first and, grown further, raises VectorBudgetError;
+     records first and, grown further, raises VectorBudgetError; last the
+     faults path (run_faults: chaos/faults.py, the lane watchdog and
+     quarantine, CLUSTER DEVPROBE) on a devices=8 server (8 positions of
+     the card) holding config 2's bank, 10M keys in 100 BFA.MADD64
+     frames: (a) a device_kernel streak on the bank's owner position
+     replies -TRYAGAIN, then the quarantine reply on its keys; the FAULTS
+     rows; DEVPROBE [0, 1]; DEVEVACUATE moves its slots and the bank to a
+     survivor; every acked key found; DEVPROBE [1, 0] once the plane is
+     cleared; every reply a CPU server's (8 CPU positions) for the same
+     stream and schedule; (b) lane-watchdog-ms 50 and the card's stream
+     stalled ~2 s by torch.cuda._sleep (calibrated by CUDA events): a
+     100,000-key BFA.MEXISTS64 frame replies -TRYAGAIN within 0.5 s, the
+     owner's lane records watchdog_timeout, and once the stall drains the
+     next frames reply as the CPU's and DEVPROBE passes; (c) a ballast
+     sized from mem_get_info leaves less than a vector bank's growth:
+     FT.SEARCH replies the fixed -OOM (the CPU's injected device_oom
+     reply), the connection lives, the ballast freed the retry lands with
+     the CPU's top-k, and memory_allocated returns to its level; (d) a
+     BFA.MEXISTS64 frame's p50 with no plane and with an empty one,
+     tools/chaos_overhead_bench's shipped/stripped ratio, and K25's
+     DEVPROBE ping (printed on the torch_ops line);
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -437,7 +457,8 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "durability": ("bloom_probe", "hll_rows"), "observe": ("bloom_probe",),
                 "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add"),
                 "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "residency": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set")}
+                "residency": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
+                "faults": ("bloom_probe",)}
 FPP = 0.01
 
 
@@ -1631,6 +1652,18 @@ def kernels_a_call_here(dev, only=None) -> dict:
     past = K.segment_shared_keys(dev) + 1
     measure(f"segment_reduce past the shared limit, {KMR_N} x {past}",
             lambda: K.segment_reduce(vals, vals, past, "sum"))
+    if only is None or K25_KEY in only:
+        import types
+
+        from redisson_tpu_torch.core.engine import Engine
+        from redisson_tpu_torch.server.verbs.admin import _dev_probe
+
+        eng = Engine(device=dev)
+        eng.enable_placement(n_devices=FA_POSITIONS)
+        try:
+            measure(K25_KEY, lambda: _dev_probe(types.SimpleNamespace(engine=eng), FA_POSITIONS - 1))
+        finally:
+            eng.shutdown()
     return counts
 
 
@@ -1638,8 +1671,12 @@ def kernels_a_call_here(dev, only=None) -> dict:
 # kernels_a_call_here key (every other: exactly 1): kmeans_update's bucket
 # and mean kernels; wc_words' delta form (off the main path): a three-launch
 # scan of the deltas, then the words; segment_reduce past the shared limit
-# (off the main path): a fill, then global atomics
-KERNELS_A_CALL = {"kmeans_update": 2, "wc_words deltas": 4, "segment_reduce past the shared limit": 2}
+# (off the main path): a fill, then global atomics; K25c, DEVPROBE's ping
+# (torch ops, not a hand kernel): the arange, then the add (its launches on
+# the faults path are its probes times its count)
+K25_KEY = "K25c DEVPROBE ping"
+KERNELS_A_CALL = {"kmeans_update": 2, "wc_words deltas": 4, "segment_reduce past the shared limit": 2,
+                  K25_KEY: 2}
 
 
 def kernels_allowed(key: str) -> int:
@@ -7939,6 +7976,437 @@ def run_residency(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the faults path: the fault plane and the device-fault domain on the card
+# (chaos/faults.py, the lane watchdog and quarantine, CLUSTER DEVPROBE and
+# DEVEVACUATE, the -OOM of a vector bank's growth)
+# --------------------------------------------------------------------------
+
+# config 2's bank on 8 positions of the card over the wire: 10M keys in 100
+# BFA.MADD64 frames, BFA.MEXISTS64 frames of 100,000 keys
+FA_FRAME, FA_POSITIONS = C2_FLUSH, 8
+# leg b: the card's stream stalled FA_STALL_MS under a FA_WATCHDOG_MS
+# watchdog: a frame must reply -TRYAGAIN within FA_TRIP_S
+FA_STALL_MS, FA_WATCHDOG_MS, FA_TRIP_S, FA_CAL_CYCLES = 2000.0, 50, 0.5, 50_000_000
+# leg c: a FLAT bank of FA_OOM_ROWS rows of FA_OOM_DIM floats, FA_OOM_MORE
+# rows left pending (fewer than the bank's block, so the search's flush
+# grows it: to twice the rows), FA_OOM_MARGIN bytes of the card left free
+FA_OOM_DIM, FA_OOM_ROWS, FA_OOM_MORE, FA_OOM_MARGIN = 512, 8192, 255, 8 << 20
+# leg d: frames timed a variant, K25 probes timed
+FA_P50_FRAMES, FA_PINGS = 40, 200
+FA_TRYAGAIN = b"-TRYAGAIN device fault during dispatch; retry\r\n"
+FA_PASS, FA_FAIL_QUARANTINED = b"*2\r\n:1\r\n:0\r\n", b"*2\r\n:0\r\n:1\r\n"
+
+
+class _FaWire:
+    """One connection to a server: send a wave, read its raw reply spans."""
+
+    def __init__(self, server):
+        import socket
+
+        from redisson_tpu_torch.net import resp
+
+        self._resp = resp
+        self.sock = socket.create_connection((server.host, server.port), timeout=300)
+        self.parser = resp.RespParser(use_native=False)
+
+    def wave(self, cmds) -> list:
+        from redisson_tpu_torch.tools import wire_stream as W
+
+        self.sock.sendall(self._resp.encode_commands(list(cmds)))
+        raw, got = [], 0
+        while got < len(cmds):
+            data = self.sock.recv(1 << 22)
+            if not data:
+                raise AssertionError("faults: the server closed the connection")
+            raw.append(data)
+            got += len(self.parser.feed(data))
+        return W.reply_spans(b"".join(raw))
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _fa_devices(wire) -> list:
+    """CLUSTER DEVICES without the labels (a position's label names its
+    device: cuda:0 or cpu)."""
+    from redisson_tpu_torch.net import resp
+
+    (rows,) = resp.RespParser(use_native=False).feed(wire.wave([("CLUSTER", "DEVICES")])[0])
+    return [rows[0]] + [[r[0], r[1]] + r[3:] for r in rows[1:]]
+
+
+def _fa_bulk(span: bytes) -> bytes:
+    return span[span.index(b"\r\n") + 2:-2]
+
+
+def fa_frames() -> tuple:
+    """Config 2's fill as BFA.MADD64 frames, the same keys as BFA.MEXISTS64
+    frames (every key acked), and two mixed probe frames (config2_flush)."""
+    fill, acked = [], []
+    for start in range(0, C2_TENANTS * C2_PER_TENANT, FA_FRAME):
+        keys = np.arange(start, start + FA_FRAME, dtype=np.int64) * 2654435761
+        t = _i4((keys * 40503) % C2_TENANTS)
+        fill.append(("BFA.MADD64", "fa:c2", t, _i8(keys)))
+        acked.append(("BFA.MEXISTS64", "fa:c2", t, _i8(keys)))
+    rng = np.random.default_rng(251)
+    mixed = [("BFA.MEXISTS64", "fa:c2", _i4(t), _i8(ks)) for t, ks in (config2_flush(rng) for _ in range(2))]
+    return fill, acked, mixed
+
+
+def fa_injected(server, wire, frames, jd: str) -> tuple:
+    """Leg a on one server: config 2's bank filled; a device_kernel streak
+    on the bank's owner position (each frame of its own) replies -TRYAGAIN
+    until the lane quarantines, then the quarantine reply; CLUSTER DEVICES'
+    FAULTS rows; DEVPROBE [0, 1] while the plane faults; DEVEVACUATE moves
+    the slots and the bank to a survivor; every acked key found; the mixed
+    probes; the plane cleared, DEVPROBE [1, 0].  Returns ([(step,
+    replies)], the owner, the plane's injections)."""
+    import hashlib
+
+    from redisson_tpu_torch.chaos.faults import FaultSchedule
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    fill, acked, mixed = frames
+    out = []
+
+    def step(label, cmds):
+        r = wire.wave(cmds)
+        out.append((label, r))
+        return r
+
+    step("reserve", [("BFA.RESERVE", "fa:c2", C2_TENANTS, C2_PER_TENANT, FPP)])
+    h = hashlib.sha256()
+    for i in range(0, len(fill), 10):  # ten frames in flight at a time
+        for span in wire.wave(fill[i:i + 10]):
+            h.update(span)
+    out.append(("fill", h.hexdigest()))
+    victim = int(server.engine.placement.owner_snapshot()[calc_slot(b"fa:c2")])
+    sched = FaultSchedule(25)
+    sched.add("device_kernel", port=victim, after=0, count=1000)
+    plane = sched.plane()
+    with plane.active():
+        for k in range(ioplane.quarantine_after()):
+            step(f"launch fault {k}", [mixed[0]])
+        step("quarantined", [mixed[0]])
+        out.append(("devices quarantined", _fa_devices(wire)))
+        step("probe faulted", [("CLUSTER", "DEVPROBE", victim)])
+        step("evacuate", [("CLUSTER", "DEVEVACUATE", victim, "DIR", jd)])
+        out.append(("devices evacuated", _fa_devices(wire)))
+        missing = 0
+        for i in range(0, len(acked), 10):
+            for span in wire.wave(acked[i:i + 10]):
+                missing += FA_FRAME - int(np.frombuffer(_fa_bulk(span), np.uint8).sum())
+        out.append(("acked keys missing", missing))
+        step("mixed", mixed)
+    step("probe cleared", [("CLUSTER", "DEVPROBE", victim)])
+    out.append(("devices cleared", _fa_devices(wire)))
+    return out, victim, dict(plane.injected)
+
+
+def _fa_check_injected(got: list, victim: int) -> None:
+    steps = dict((label, r) for label, r in got)
+    faults = [r for label, r in got if label.startswith("launch fault")]
+    if faults != [[FA_TRYAGAIN]] * len(faults) or not faults:
+        raise AssertionError(f"faults: the launch faults replied {faults}")
+    want_q = f"-TRYAGAIN device {victim} quarantined; retry after evacuation\r\n".encode()
+    if steps["quarantined"] != [want_q]:
+        raise AssertionError(f"faults: the quarantined position replied {steps['quarantined']}")
+    row = steps["devices quarantined"][1 + victim][-1]
+    if row[:2] != [b"FAULTS", 1] or row[4] != b"kernel_launch":
+        raise AssertionError(f"faults: the FAULTS row {row}")
+    if steps["probe faulted"] != [FA_FAIL_QUARANTINED] or steps["probe cleared"] != [FA_PASS]:
+        raise AssertionError(f"faults: DEVPROBE {steps['probe faulted']} then {steps['probe cleared']}")
+    if steps["devices evacuated"][1 + victim][1] != 0 or steps["acked keys missing"] != 0:
+        raise AssertionError(f"faults: evacuation left {steps['devices evacuated'][1 + victim][1]} slots, "
+                             f"{steps['acked keys missing']} acked keys missing")
+
+
+def fa_stall(server, wire, mixed, want: list, card: str) -> dict:
+    """Leg b: lane-watchdog-ms 50; the card's stream stalled ~2 s by
+    torch.cuda._sleep (its cycles calibrated by CUDA events); a
+    BFA.MEXISTS64 frame replies -TRYAGAIN within 0.5 s and the owner's lane
+    records watchdog_timeout; once the stall drains, the mixed frames
+    reply as the CPU's and DEVPROBE passes."""
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    owner = int(server.engine.placement.owner_snapshot()[calc_slot(b"fa:c2")])
+    lane = server.engine.lanes.lane(server.engine.placement.devices[owner])
+    if wire.wave([("CONFIG", "SET", "lane-watchdog-ms", str(FA_WATCHDOG_MS))]) != [b"+OK\r\n"]:
+        raise AssertionError("faults: CONFIG SET lane-watchdog-ms refused")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(FA_CAL_CYCLES)
+        e1.record()
+        e1.synchronize()
+        cycles_per_ms = FA_CAL_CYCLES / e0.elapsed_time(e1)
+        faults0 = lane.total_faults
+        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s0.record()
+        torch.cuda._sleep(int(cycles_per_ms * FA_STALL_MS))
+        s1.record()
+        reply = wire.wave([mixed[0]])
+        trip_s = time.perf_counter() - t0
+        tripped = (lane.total_faults - faults0, lane.last_fault_kind)
+        s1.synchronize()
+        drained_s = time.perf_counter() - t0
+        stall_ms = s0.elapsed_time(s1)
+        after = wire.wave(mixed)
+        probe = wire.wave([("CLUSTER", "DEVPROBE", owner)])
+    finally:
+        wire.wave([("CONFIG", "SET", "lane-watchdog-ms", "0")])
+    if reply != [FA_TRYAGAIN] or trip_s > FA_TRIP_S:
+        raise AssertionError(f"faults stall: a frame behind the stalled stream replied {reply[0][:80]} "
+                             f"after {trip_s:.3f} s (limit {FA_TRIP_S} s)")
+    if tripped != (1, "watchdog_timeout"):
+        raise AssertionError(f"faults stall: the owner's lane recorded {tripped}")
+    if after != want or probe != [FA_PASS]:
+        raise AssertionError("faults stall: the frames after the stall differ from the CPU's, or DEVPROBE failed")
+    out = {"cycles_per_ms": cycles_per_ms, "stall_ms": stall_ms, "trip_s": trip_s, "drained_s": drained_s,
+           "watchdog_ms": FA_WATCHDOG_MS}
+    log(f"faults stall [{card}]: the stream stalled {stall_ms:.1f} ms ({cycles_per_ms:.0f} cycles/ms); a "
+        f"BFA.MEXISTS64 frame replied -TRYAGAIN after {trip_s * 1e3:.1f} ms under a {FA_WATCHDOG_MS} ms "
+        f"watchdog, position {owner}'s lane recorded watchdog_timeout; drained at {drained_s:.3f} s, the next "
+        f"frames equal the CPU's, DEVPROBE [1, 0]")
+    return out
+
+
+def _fa_topk(span: bytes) -> list:
+    """The ids of an FT.SEARCH KNN reply (its scores are float sums whose
+    last digit may differ between the card and the host)."""
+    from redisson_tpu_torch.net import resp
+
+    (reply,) = resp.RespParser(use_native=False).feed(span)
+    return [reply[0]] + [bytes(x) for x in reply[1::2]]
+
+
+def fa_oom_cmds() -> tuple:
+    """Leg c's stream: the index, its rows, the pending rows, the query."""
+    rng = np.random.default_rng(252)
+    vecs = rng.standard_normal((FA_OOM_ROWS + FA_OOM_MORE, FA_OOM_DIM)).astype(np.float32)
+    create = ("FT.CREATE", "fx", "ON", "HASH", "PREFIX", "1", "fx:", "SCHEMA", "emb", "VECTOR", "FLAT", "6",
+              "TYPE", "FLOAT32", "DIM", str(FA_OOM_DIM), "DISTANCE_METRIC", "L2")
+    rows = [("HSET", f"fx:{i}", "emb", vecs[i].tobytes()) for i in range(FA_OOM_ROWS)]
+    more = [("HSET", f"fx:{i}", "emb", vecs[i].tobytes()) for i in range(FA_OOM_ROWS, len(vecs))]
+    knn = ("FT.SEARCH", "fx", "*=>[KNN 10 @emb $v]", "PARAMS", "2", "v", (vecs[3] + 0.01).tobytes(), "NOCONTENT")
+    return create, rows, more, knn
+
+
+def _fa_load(wire, create, rows, more) -> None:
+    for cmds in ([create], *(rows[i:i + 512] for i in range(0, len(rows), 512)), more):
+        bad = [r for r in (wire.wave(cmds) if cmds else []) if r.startswith(b"-")]
+        if bad:
+            raise AssertionError(f"faults oom: the load replied {bad[0]}")
+
+
+def fa_oom_cpu(cmds) -> list:
+    """Leg c's want: a CPU server, an injected device_oom at the search's
+    growth: [-OOM, the retry's reply]."""
+    from redisson_tpu_torch.chaos.faults import FaultSchedule
+    from redisson_tpu_torch.server import ServerThread
+
+    create, rows, more, knn = cmds
+    with ServerThread(port=0, device="cpu", devices=FA_POSITIONS, workers=4) as st:
+        wire = _FaWire(st.server)
+        try:
+            _fa_load(wire, create, rows, more)
+            sched = FaultSchedule(26)
+            sched.add("device_oom", after=0, count=1)
+            with sched.plane().active():
+                oom = wire.wave([knn])
+            return oom + wire.wave([knn])
+        finally:
+            wire.close()
+
+
+def fa_oom(wire, cmds, want: list, card: str) -> dict:
+    """Leg c: the bank filled to FA_OOM_ROWS rows and FA_OOM_MORE pending;
+    a ballast sized from mem_get_info leaves FA_OOM_MARGIN bytes, less than
+    the growth's; FT.SEARCH replies the fixed -OOM (the CPU's injected one),
+    the connection lives; the ballast freed, the retry lands with the CPU's
+    top-k; FT.DROPINDEX DD returns memory_allocated to its level before
+    (measured after one small index's create, search and drop: knn_select
+    keeps a few bytes of state a device and stream from its first call)."""
+    create, rows, more, knn = cmds
+    warm = ["fw" if a == "fx" else "fw:" if a == "fx:" else a for a in create]
+    _fa_load(wire, tuple(warm), [("HSET", f"fw:{i}", "emb", rows[i][3]) for i in range(8)], [])
+    wire.wave([("FT.SEARCH", "fw", *knn[2:]), ("FT.DROPINDEX", "fw", "DD")])
+    gc.collect()
+    m0 = torch.cuda.memory_allocated()
+    _fa_load(wire, create, rows, more)
+    growth = 2 * FA_OOM_ROWS * (FA_OOM_DIM * 4 + 4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    ballast, size = None, free - FA_OOM_MARGIN
+    while ballast is None:
+        try:
+            ballast = torch.empty(size, dtype=torch.uint8, device="cuda")
+        except torch.OutOfMemoryError:
+            size -= 2 << 20
+    left = torch.cuda.mem_get_info()[0]
+    log(f"faults oom [{card}]: free {free} of {total} bytes; ballast {size} bytes; {left} bytes left for a "
+        f"growth of {growth} bytes")
+    try:
+        oom = wire.wave([knn])
+        pong = wire.wave([("PING",)])
+    finally:
+        del ballast
+    retry = wire.wave([knn])
+    if oom[0] != want[0] or not oom[0].startswith(b"-OOM device out of memory growing vector bank"):
+        raise AssertionError(f"faults oom: the search replied {oom[0][:120]}, the CPU's injected {want[0][:120]}")
+    if pong != [b"+PONG\r\n"] or _fa_topk(retry[0]) != _fa_topk(want[1]):
+        raise AssertionError(f"faults oom: after the -OOM PING {pong}, the retry {retry[0][:120]} "
+                             f"vs the CPU's {want[1][:120]}")
+    if wire.wave([("FT.DROPINDEX", "fx", "DD")]) != [b"+OK\r\n"]:
+        raise AssertionError("faults oom: FT.DROPINDEX")
+    gc.collect()
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    if m1 != m0:
+        raise AssertionError(f"faults oom: memory_allocated {m0} before the leg, {m1} after")
+    log(f"faults oom [{card}]: FT.SEARCH replied {oom[0][:-2].decode()}; PING answered; the ballast freed, "
+        f"the retry's top-k equals the CPU's; memory_allocated {m0} before and after")
+    return {"free": free, "ballast": size, "left": left, "growth": growth, "memory_allocated": m0}
+
+
+def fa_cost(server, wire, mixed, device, card: str) -> dict:
+    """Leg d: a BFA.MEXISTS64 frame's p50 with no plane and with an empty
+    plane, in turns; chaos_overhead_bench's shipped/stripped ratio; K25's
+    ping timed in the process (CLUSTER DEVPROBE's _dev_probe) and over the
+    wire."""
+    from redisson_tpu_torch.chaos.faults import FaultSchedule
+    from redisson_tpu_torch.server.verbs.admin import _dev_probe
+    from redisson_tpu_torch.tools import chaos_overhead_bench as bench
+
+    times = {"none": [], "empty": []}
+    empty = FaultSchedule(0).plane()
+    for k in range(2 * FA_P50_FRAMES):
+        variant = ("none", "empty")[k % 2]
+        with (empty.active() if variant == "empty" else contextlib.nullcontext()):
+            s = time.perf_counter()
+            wire.wave([mixed[k % 2]])
+            times[variant].append((time.perf_counter() - s) * 1e3)
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    ratio = bench.measure(batches=20, pipeline=500, rounds=3, device=device)
+    pos = server.engine.placement.n_devices - 1
+    probe = [None]
+
+    def ping():
+        probe[0] = _dev_probe(server, pos)
+
+    ping_ms = _wall_ms(ping, torch.device(device), reps=FA_PINGS)
+    if probe[0] != [1, 0]:
+        raise AssertionError(f"faults: K25's ping replied {probe[0]}")
+    wire_ms = []
+    for _ in range(FA_PINGS // 4):
+        s = time.perf_counter()
+        if wire.wave([("CLUSTER", "DEVPROBE", pos)]) != [FA_PASS]:
+            raise AssertionError("faults: DEVPROBE over the wire failed")
+        wire_ms.append((time.perf_counter() - s) * 1e3)
+    dev = torch.device(device)
+    plain_ms = _wall_ms(lambda: int((torch.arange(8, dtype=torch.int32, device=dev) + 1).sum()), dev,
+                        reps=FA_PINGS)
+    out = {"frame_p50_ms": p50, "bench": ratio, "ping_ms": ping_ms, "ping_wire_ms": statistics.median(wire_ms),
+           "ping_plain_ms": plain_ms}
+    log(f"faults cost [{card}]: a 100,000-key BFA.MEXISTS64 frame p50 {p50['none']:.3f} ms with no plane, "
+        f"{p50['empty']:.3f} ms with an empty plane; chaos_overhead_bench shipped/none "
+        f"{ratio['shipped/none']:.0f} ops/s, empty plane {ratio['shipped/empty-plane']:.0f}, stripped "
+        f"{ratio['stripped']:.0f}: ratio {ratio['ratio']:.3f} (the reference aims at >= 0.97); K25's ping "
+        f"{ping_ms:.4f} ms in the process ({plain_ms:.4f} ms for its ops alone), {out['ping_wire_ms']:.3f} ms "
+        f"over the wire")
+    return out
+
+
+def run_faults(device="cuda") -> dict:
+    """The faults path on a server of 8 positions of the card (devices=8;
+    "all" is one position a card) with config 2's bank: (a) injected launch faults, the
+    quarantine, DEVPROBE and DEVEVACUATE, every reply the CPU server's for
+    the same stream and schedule; (b) a real stall of the card's stream
+    under the armed watchdog; (c) a real CUDA OOM at a vector bank's growth;
+    (d) the disarmed cost and K25's ping."""
+    import tempfile
+
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.server.verbs import admin
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    frames = fa_frames()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="rtpu-faults-") as jd:
+        # the CPU server's stream first, closed before the card's opens:
+        # the lanes' fault ledger is process-wide by position id
+        s = time.perf_counter()
+        with ServerThread(port=0, device="cpu", devices=FA_POSITIONS, workers=4) as cpu:
+            wire = _FaWire(cpu.server)
+            try:
+                want, victim_cpu, injected_cpu = fa_injected(cpu.server, wire, frames, f"{jd}/cpu")
+            finally:
+                wire.close()
+        cpu_s = time.perf_counter() - s
+        oom_cmds = fa_oom_cmds()
+        oom_want = fa_oom_cpu(oom_cmds)
+        with ServerThread(port=0, device=device, devices=FA_POSITIONS, workers=4) as st:
+            if st.server.engine.placement.n_devices != FA_POSITIONS:
+                raise AssertionError("faults: the card server has "
+                                     f"{st.server.engine.placement.n_devices} positions")
+            wire = _FaWire(st.server)
+            try:
+                admin.probe_pings = 0  # the card's K25 pings, from 0 just before its legs
+                s = time.perf_counter()
+                got, victim, injected = fa_injected(st.server, wire, frames, f"{jd}/card")
+                out["injected"] = {"seconds": time.perf_counter() - s, "cpu_seconds": cpu_s,
+                                   "victim": victim, "faults_injected": injected}
+                if victim != victim_cpu or injected != injected_cpu:
+                    raise AssertionError(f"faults: owner {victim} vs the CPU's {victim_cpu}, injected "
+                                         f"{injected} vs {injected_cpu}")
+                for (label, a), (_l, b) in zip(got, want):
+                    if a != b:
+                        raise AssertionError(f"faults: {label} differs from the CPU server's: {str(a)[:300]} "
+                                             f"vs {str(b)[:300]}")
+                _fa_check_injected(got, victim)
+                log(f"faults injected [{card}]: a device_kernel streak on position {victim} replied "
+                    f"-TRYAGAIN {ioplane.quarantine_after()} times, then the quarantine reply; DEVPROBE "
+                    f"[0, 1]; DEVEVACUATE {dict(got)['evacuate'][0]!r}; every one of "
+                    f"{C2_TENANTS * C2_PER_TENANT} acked keys found; DEVPROBE [1, 0] once cleared; every "
+                    f"reply the CPU server's ({out['injected']['seconds']:.1f} s, the CPU's {cpu_s:.1f} s)")
+                mixed_want = dict(want)["mixed"]
+                s = time.perf_counter()
+                out["stall"] = fa_stall(st.server, wire, frames[2], mixed_want, card)
+                out["stall"]["seconds"] = time.perf_counter() - s
+                s = time.perf_counter()
+                out["oom"] = fa_oom(wire, oom_cmds, oom_want, card)
+                out["oom"]["seconds"] = time.perf_counter() - s
+                s = time.perf_counter()
+                out["cost"] = fa_cost(st.server, wire, frames[2], device, card)
+                out["cost"]["seconds"] = time.perf_counter() - s
+                probes = admin.probe_pings
+            finally:
+                wire.close()
+    if probes == 0:
+        raise AssertionError("faults: no K25 ping reached the card")
+    cost = out["cost"]
+    # launches: main() multiplies the probes by the kernels a probe launches
+    out["k25"] = {"name": K25_KEY, "route": "torch ops",
+                  "source": "redisson_tpu_torch/server/verbs/admin.py",
+                  "replaces": "redisson_tpu/server/verbs/admin.py:500", "probes": probes,
+                  "max_abs_err": 0.0, "ms": cost["ping_ms"], "plain_ms": cost["ping_plain_ms"],
+                  "wire_ms": cost["ping_wire_ms"], "bound_ms": bound_ms(2 * 8 * 4, 8)[0],
+                  "bound_by": bound_ms(2 * 8 * 4, 8)[1], "library_ms": None}
+    out["seconds"] = time.perf_counter() - start
+    log(f"faults path [{card}]: {out['seconds']:.1f}s (injected {out['injected']['seconds']:.1f} s, stall "
+        f"{out['stall']['seconds']:.1f} s, oom {out['oom']['seconds']:.1f} s, cost {cost['seconds']:.1f} s)")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -8250,7 +8718,8 @@ def main() -> int:
                       ("warm", lambda: run_warm()),
                       ("replication", lambda: run_replication()),
                       ("migration", lambda: run_migration()),
-                      ("residency", lambda: run_residency())):
+                      ("residency", lambda: run_residency()),
+                      ("faults", lambda: run_faults())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -8259,7 +8728,7 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency"):
+    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency", "faults"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]
@@ -8322,8 +8791,11 @@ def main() -> int:
     for name, r in kernels.items():
         log(json.dumps({"kernel": name, "launches": main_launches[name],
                         **{key: v for key, v in r.items() if isinstance(v, (int, float))}}))
-    # K23 and K24 are torch ops, not hand kernels: their line of their own
-    log(json.dumps({"torch_ops": [paths["replication"]["k23"], paths["replication"]["k24"]]}))
+    # K23, K24 and K25 are torch ops, not hand kernels: their line of their own
+    k25 = paths["faults"].pop("k25")
+    k25["kernels_a_probe"] = per_call[K25_KEY]
+    k25["launches"] = k25["probes"] * k25["kernels_a_probe"]
+    log(json.dumps({"torch_ops": [paths["replication"]["k23"], paths["replication"]["k24"], k25]}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

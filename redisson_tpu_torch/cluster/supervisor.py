@@ -74,16 +74,19 @@ from redisson_tpu_torch.cluster.hostdriver import (
 )
 from redisson_tpu_torch.net.client import Connection
 from redisson_tpu_torch.net.resp import RespError
-from redisson_tpu_torch.net.retry import RetryPolicy, call_with_retry
+from redisson_tpu_torch.net.retry import RetryPolicy, call_with_retry, link_policy
 
 #: the implicit single-domain label a host-unaware supervisor places on
 _LOCAL_HOST_LABEL = "local"
 
-#: the view-learning schedule for a node rejoining the fleet: its peers may
-#: themselves be restarting, so a refused connect retries instead of failing
-#: the whole restart
-_REJOIN_RETRY = RetryPolicy(max_attempts=5, base_delay=0.1, max_delay=1.0,
-                            jitter=0.2, deadline_s=20.0)
+
+def _rejoin_retry_policy() -> RetryPolicy:
+    """The view-learning schedule for a node rejoining the fleet: its peers
+    may themselves be restarting, so a refused connect retries instead of
+    failing the whole restart.  A fresh policy a call (each carries its own
+    jitter RNG) from the active link profile (net/retry LINK_PROFILES
+    "rejoin"; RTPU_RETRY_PROFILE=wan stretches it)."""
+    return link_policy("rejoin")
 
 
 class NodeStartupError(RuntimeError):
@@ -173,6 +176,7 @@ class ClusterSupervisor:
         driver: Optional[HostDriver] = None,
         hosts: Optional[Sequence[str]] = None,
         tls: Optional[bool] = None,
+        retry_profile: Optional[str] = None,
     ):
         self.n_masters = masters
         self.replicas_per_master = replicas_per_master
@@ -185,6 +189,10 @@ class ClusterSupervisor:
         # covers a child's import of torch and its CUDA start
         self.ready_timeout = ready_timeout
         self.driver = driver if driver is not None else LocalHostDriver()
+        # --retry-profile for every node (net/retry LINK_PROFILES; "wan"
+        # stretches cluster-link backoff for real networks).  The
+        # coordinator side (this process) follows RTPU_RETRY_PROFILE.
+        self.retry_profile = retry_profile
         self.tls = tls  # None = auto: on iff any host is remote
         self._tls_cert: Optional[str] = None
         self._tls_key: Optional[str] = None
@@ -339,6 +347,8 @@ class ClusterSupervisor:
             # every node gets the fleet cert: client listeners refuse
             # plaintext fleet-wide, not just on the remote hops
             cmd += ["--tls-cert", self._tls_cert, "--tls-key", self._tls_key]
+        if self.retry_profile:
+            cmd += ["--retry-profile", self.retry_profile]
         cmd += self.server_args
         return cmd
 
@@ -545,12 +555,12 @@ class ClusterSupervisor:
             if view:
                 topology.install_view([self._conn_factory(node)], view)
 
-        call_with_retry(_REJOIN_RETRY, _relearn_view)
+        call_with_retry(_rejoin_retry_policy(), _relearn_view)
         if node.role == "replica" and node.master_index is not None:
             master = self.masters[node.master_index]
             if master.alive():
                 call_with_retry(
-                    _REJOIN_RETRY,
+                    _rejoin_retry_policy(),
                     lambda: topology.wire_replica(
                         self._conn_factory(node), master.host, master.port
                     ),
@@ -563,7 +573,7 @@ class ClusterSupervisor:
                         and self.masters[rep.master_index] is node \
                         and rep.alive():
                     call_with_retry(
-                        _REJOIN_RETRY,
+                        _rejoin_retry_policy(),
                         lambda rep=rep: topology.wire_replica(
                             self._conn_factory(rep), node.host, node.port
                         ),
@@ -646,7 +656,7 @@ class ClusterSupervisor:
                             c.execute(*args, blob, timeout=60.0)
                         )
 
-        call_with_retry(_REJOIN_RETRY, _promote)
+        call_with_retry(_rejoin_retry_policy(), _promote)
         for ij in inflight_imports:
             ij.append("STABLE", superseded_by=rep.address)
         new_view = [
@@ -661,7 +671,7 @@ class ClusterSupervisor:
         master.master_index = mi
         self.replicas.append(master)
         call_with_retry(
-            _REJOIN_RETRY,
+            _rejoin_retry_policy(),
             lambda: topology.install_view(
                 [self._conn_factory(n) for n in self.nodes() if n.alive()],
                 new_view,

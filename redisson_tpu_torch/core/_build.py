@@ -154,7 +154,14 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(kernel: str, code: int) -> None:
-    """Raise if a launch returned a CUDA error."""
+    """Raise if a launch returned a CUDA error, in the shape torch gives its
+    own (``torch.AcceleratorError("CUDA error: ...")``), so the server's
+    fault taxonomy (``ioplane.is_retryable_device_fault``) reads a failed
+    hand-kernel launch as it reads a failed torch op: -TRYAGAIN counted on
+    the lane, or, for ``out of memory``, not retryable."""
     if code != 0:
+        import torch
+
         msg = library("bloom").rtpu_error_string(code).decode()
-        raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
+        error = getattr(torch, "AcceleratorError", RuntimeError)
+        raise error(f"CUDA error: {msg} (launching {kernel}, code {code})")

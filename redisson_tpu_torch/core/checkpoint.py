@@ -46,9 +46,9 @@ Durability generations: ``save`` keeps the last ``keep`` good snapshots
 truncated, falls back to the newest intact generation LOUDLY (logged and
 counted in ``STATS``).
 
-The storage fault hook (``_storage_plane``) is the reference's seam for
-injected ENOSPC, torn writes and fsync failures; it returns None until the
-chaos plane comes with the operations slice (ROADMAP M11 part 6).
+The storage fault hook (``_storage_plane``) returns the installed chaos
+plane (``chaos/faults.py``), which injects ENOSPC, torn writes and fsync
+failures at the snapshot write and fsync.
 """
 from __future__ import annotations
 
@@ -91,8 +91,11 @@ class CheckpointCorruptError(ValueError):
 
 
 def _storage_plane():
-    """The injected storage-fault plane; none until the chaos plane."""
-    return None
+    # the same process-global plane net/client.py consults; checkpoint I/O
+    # is cold path, so no zero-cost contract applies here
+    from redisson_tpu_torch.net import client as _net
+
+    return _net._fault_plane
 
 
 # serializes same-process savers (AutoCheckpointer thread vs SAVE command);

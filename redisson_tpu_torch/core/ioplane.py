@@ -39,13 +39,42 @@ writes a record run after another connection's DEL handed the record's
 memory to a new tensor (PyTorch's caching allocator reuses a block on the
 stream that allocated it), unless every place that drops a record's
 tensors called ``record_stream``; lanes on different cards dispatch on
-their own cards' streams and overlap there.  The lane fault counters
-(``consec_faults``, ``total_faults``, ``quarantined``) are fields that stay
-0 until the operations slice's fault plane (the reference's chaos stall,
-lane watchdog and quarantine) sets them.  Every live ``LaneSet`` is held
-weakly in ``_LANE_SETS``; ``quarantined_device_ids`` reads the
-``quarantined`` flags over it (the device evacuation's survivors skip
-them).
+their own cards' streams and overlap there.
+
+**The device-fault domain** (reference ``:156-221``, ``:495-600``,
+``:834-839``, ``:1183-1284``, ``:1371-1381``):
+
+  * the lane watchdog (``set_lane_watchdog_ms``, CONFIG SET
+    ``lane-watchdog-ms``; 0 = off): armed, a readback polls the CUDA event
+    recorded behind its kernels until the bound and then fails with
+    ``LaneWatchdogTimeout`` (retryable) in place of waiting.  It never
+    calls ``synchronize()`` and never starts the blocking copy before the
+    event has passed, so a trip leaves no copy into host memory behind it;
+    the staging slots the abandoned kernels read from are handed out again
+    only once their own ``staged`` events have passed (``StagingPool``);
+  * the fault ledger: each lane counts consecutive faults (a failed launch,
+    a watchdog trip, an OOM at bank growth) and flips to QUARANTINED at
+    ``quarantine_after()`` (CONFIG SET ``lane-quarantine-after``); a clean
+    readback resets the streak, only a passing probe (CLUSTER DEVPROBE)
+    clears the flag.  ``note_device_fault`` attributes a fault to every
+    live ``LaneSet`` (held weakly in ``_LANE_SETS``); ``note_raised_fault``
+    counts a CUDA error that the dispatch layer or the probe caught, once
+    (a fault counted where it was raised is marked), and
+    ``quarantined_device_ids`` reads the flags (the device evacuation's
+    survivors skip them);
+  * the chaos plane (``chaos/faults.py``, installed in
+    ``net/client._fault_plane``): a lane occupancy consults it before it
+    takes the gate (``device_kernel``), and a readback before it waits
+    (``device_hang``).
+
+Disarmed (no plane, watchdog off) each site costs one global load and a
+compare, and allocates nothing.  Faults are attributed to mesh positions:
+a lane occupancy makes its position current on the thread
+(``current_position``), and a ``ReadbackFuture`` made there keeps it.
+Positions of one card share its stream, so a real stall there times out
+every lane that waits behind it; the reference's devices stall one at a
+time.  ``is_retryable_device_fault`` maps CUDA's failures onto the
+reference's replies (its docstring).
 
 ``scatter_host_arrays`` (K23) is the inverse of the grouped readback: a
 record's host arrays packed into one stream (each piece at a 16-byte
@@ -98,6 +127,9 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+# the chaos plane (chaos/faults.py) lives in net/client's process global
+# `_fault_plane`; every device-fault site reads it once
+from redisson_tpu_torch.net import client as _net
 # tracing plane (observe/trace.py): every site below guards on the
 # process-global `_obs._tracer`, so the disarmed cost is one global load
 from redisson_tpu_torch.observe import trace as _obs
@@ -175,14 +207,78 @@ def set_bulk_subwindow_items(n: int) -> int:
     return prev
 
 
+# -- lane watchdog and quarantine knobs ----------------------------------------
+#
+# Armed (CONFIG SET lane-watchdog-ms > 0), a readback whose kernels have not
+# finished within the bound raises `LaneWatchdogTimeout`, which the server
+# replies as a retryable -TRYAGAIN and the lane's fault ledger counts toward
+# quarantine.  0 = off: the unbounded wait, with the same replies.
+
+_lane_watchdog_s = 0.0
+
+
+def lane_watchdog_ms() -> int:
+    return int(_lane_watchdog_s * 1000)
+
+
+def set_lane_watchdog_ms(ms: int) -> int:
+    """Arm/disarm the readback lane watchdog (0 = off); returns the
+    previous value in ms (callers restore it)."""
+    global _lane_watchdog_s
+    prev = int(_lane_watchdog_s * 1000)
+    _lane_watchdog_s = max(0, int(ms)) / 1000.0
+    return prev
+
+
+# consecutive device faults/timeouts that flip a lane to QUARANTINED
+_quarantine_after = 3
+
+
+def quarantine_after() -> int:
+    return _quarantine_after
+
+
+def set_quarantine_after(n: int) -> int:
+    """Set the consecutive-fault quarantine threshold (at least 1);
+    returns the previous value."""
+    global _quarantine_after
+    prev = _quarantine_after
+    _quarantine_after = max(1, int(n))
+    return prev
+
+
 # which lane stream the current thread's dispatch occupies ("interactive"
 # while an interactive occupancy is held): Engine.staging_pool reads it to
-# hand the interactive dispatch its own staging slot
+# hand the interactive dispatch its own staging slot.  `position` is the id
+# of the lane's mesh position while an occupancy is held: the position a
+# readback made there belongs to.
 _stream_tls = threading.local()
 
 
 def current_stream() -> Optional[str]:
     return getattr(_stream_tls, "stream", None)
+
+
+def current_position() -> Optional[int]:
+    """The position id of the lane occupancy the current thread holds,
+    else None."""
+    return getattr(_stream_tls, "position", None)
+
+
+def positions_of(values: Sequence[Any], position: Optional[int] = None) -> tuple:
+    """The position ids a readback of `values` belongs to: `position` when
+    given, else each tensor's device index (0 for the CPU, as the
+    reference's values without placement live on its device 0); numpy
+    values belong to none."""
+    if position is not None:
+        return (position,)
+    out = []
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            d = v.device.index or 0
+            if d not in out:
+                out.append(d)
+    return tuple(out)
 
 
 def staging_reuse_safe(device) -> bool:
@@ -364,11 +460,15 @@ class ReadbackFuture:
     exposed time attributed) and caches.  ``force_all`` primes several
     futures with ONE grouped transfer instead; device references are
     released either way.  Kernels never write a result tensor after it is
-    returned, so holding it is safe."""
+    returned, so holding it is safe.  The future belongs to `position`
+    (default: the lane occupancy current on the thread, else its tensors'
+    devices): a hung readback's fault lands on that position's lanes."""
 
-    __slots__ = ("_device", "_event", "_finish", "_value", "_error", "_done")
+    __slots__ = ("_device", "_event", "_finish", "_value", "_error", "_done",
+                 "_positions")
 
-    def __init__(self, device: Sequence[Any], finish: Optional[Callable] = None):
+    def __init__(self, device: Sequence[Any], finish: Optional[Callable] = None,
+                 position: Optional[int] = None):
         self._device: tuple = tuple(device)
         devs = {v.device for v in self._device if isinstance(v, torch.Tensor)}
         self._event = record_event(next(iter(devs))) if len(devs) == 1 else None
@@ -376,6 +476,9 @@ class ReadbackFuture:
         self._value = None
         self._error: Optional[BaseException] = None
         self._done = False
+        self._positions = positions_of(
+            self._device, current_position() if position is None else position
+        )
 
     def done(self) -> bool:
         return self._done
@@ -395,7 +498,40 @@ class ReadbackFuture:
         self._device = ()  # release device memory references
         self._event = None
 
+    def _trip(self, wall: float) -> None:
+        """The watchdog fired: account the bounded wait, attribute a
+        timeout to every involved position's lanes, and fail this future
+        with `LaneWatchdogTimeout`.  No copy was started, so nothing still
+        writes host memory for it; dropping the tensors hands their blocks
+        back to the caching allocator in stream order."""
+        STATS.add_readback(wall, False)
+        for d in self._positions:
+            note_device_fault(d, "watchdog_timeout")
+        if _obs._tracer is not None:
+            cur = _obs.current_trace()
+            if cur is not None:
+                now = time.monotonic()
+                cur.add_span("readback", now - wall, now,
+                             blocking=1, grouped=0, timeout=1)
+        self._error = LaneWatchdogTimeout(_watchdog_text(self._positions))
+        self._done = True
+        self._device = ()
+        self._event = None
+
+    def _guard(self, plane, bound: float) -> None:
+        """Armed-only gate shared by ``result()`` and ``force_all``
+        (``_bounded_wait``); a timeout fails this future.  Never called on
+        the disarmed path."""
+        t0 = time.perf_counter()
+        if _bounded_wait(plane, self._positions, bound, self._event) is not None:
+            self._trip(time.perf_counter() - t0)
+
     def result(self):
+        if not self._done:
+            plane = _net._fault_plane
+            bound = _lane_watchdog_s
+            if plane is not None or bound > 0.0:
+                self._guard(plane, bound)
         if not self._done:
             was_ready = self.ready()
             t0 = time.perf_counter()
@@ -403,12 +539,17 @@ class ReadbackFuture:
                 host = tuple(_to_host(v) for v in self._device)
             except Exception as e:  # noqa: BLE001 — surfaced below
                 STATS.add_readback(time.perf_counter() - t0, was_ready)
+                for d in self._positions:
+                    note_device_fault(d, "readback_error")
+                mark_fault_noted(e)
                 self._error = e
                 self._done = True
                 self._device = ()
             else:
                 wall = time.perf_counter() - t0
                 STATS.add_readback(wall, was_ready)
+                for d in self._positions:  # a clean readback ends a streak
+                    note_device_ok(d)
                 if _obs._tracer is not None:
                     cur = _obs.current_trace()
                     if cur is not None:
@@ -441,11 +582,85 @@ def _fetch(device: torch.device, parts: List[torch.Tensor]) -> np.ndarray:
     return host.numpy().copy()
 
 
-def gather_device_results(groups: Sequence[Sequence[Any]]) -> List[tuple]:
+def _watchdog_text(positions) -> str:
+    devs = ", ".join(str(d) for d in sorted(positions)) or "?"
+    return (f"readback exceeded lane-watchdog bound ({lane_watchdog_ms()}ms) "
+            f"on device(s) {devs}")
+
+
+def _bounded_wait(plane, positions: Sequence[int], bound: float, event
+                  ) -> Optional[List[int]]:
+    """The armed gate before a readback of values that belong to
+    `positions`, behind `event`: any injected hung-transfer stall
+    (``device_hang``), then the watchdog's poll of the event until `bound`
+    (never ``synchronize()``, and no copy started).  None when the values
+    may be copied; else the positions that timed out, after a wait of the
+    bound: those whose injected stall passed it, or every position of a
+    wait on the stream that did not end (one stream: every position behind
+    it timed out)."""
+    if plane is not None:
+        stalls = [plane.on_device_readback(d) for d in positions]
+        stall = max(stalls, default=0.0)
+        if stall > 0.0:
+            if bound > 0.0 and stall > bound:
+                time.sleep(bound)
+                return [d for d, s in zip(positions, stalls) if s > bound]
+            time.sleep(stall)
+    if bound > 0.0:
+        deadline = time.monotonic() + bound
+        while not _passed(event):
+            left = deadline - time.monotonic()
+            if left <= 0.0:
+                return list(positions)
+            time.sleep(min(0.002, left))
+    return None
+
+
+def _readback_guard(device: torch.device, positions: Sequence[int]) -> None:
+    """Armed-only gate of the grouped fetch from `device`, whose values
+    belong to `positions` (``_bounded_wait`` on an event recorded now on
+    the device's stream, behind every kernel the values wait for; the
+    reference fetches each device's bucket on its own thread, one wait of
+    the bound covers every position here).  Raises ``LaneWatchdogTimeout``
+    (retryable) with the fault on the timed-out positions' lanes.
+    Disarmed cost: one global load and one float compare."""
+    plane = _net._fault_plane
+    bound = _lane_watchdog_s
+    if (plane is None and bound <= 0.0) or not positions:
+        return
+    hung = _bounded_wait(plane, positions, bound,
+                         record_event(device) if bound > 0.0 else None)
+    if hung is not None:
+        for d in hung:
+            note_device_fault(d, "watchdog_timeout")
+        raise LaneWatchdogTimeout(_watchdog_text(hung))
+
+
+def _bucket_positions(flat, fis, owner, positions) -> List[int]:
+    """The positions the values `fis` of a grouped fetch belong to."""
+    out: List[int] = []
+    for fi in fis:
+        ids = positions[owner[fi]] if positions is not None else None
+        if not isinstance(ids, tuple):
+            ids = positions_of((flat[fi],), ids)
+        for d in ids:
+            if d not in out:
+                out.append(d)
+    return out
+
+
+def gather_device_results(groups: Sequence[Sequence[Any]],
+                          positions: Optional[Sequence[Any]] = None,
+                          note_faults: bool = True) -> List[tuple]:
     """Fetch every device value of `groups` with ONE device->host transfer
     per device: view each value as a contiguous uint8 stream, concatenate
     them on the device, copy the merged stream once, then split and
-    reinterpret each piece on the host.  numpy values pass through."""
+    reinterpret each piece on the host.  numpy values pass through.
+    `positions` (one entry a group: a position id, a tuple of them, or
+    None for each tensor's device index) names the positions each group
+    belongs to, for the armed watchdog and the injected stalls
+    (``_readback_guard``), and for a failed copy, counted on them as a
+    ``readback_error`` unless `note_faults` is False."""
     flat: List[Any] = []  # tensor (as uint8 stream) or host value
     meta: List[Optional[tuple]] = []  # (dtype, shape) of each tensor
     index: List[List[int]] = []
@@ -467,11 +682,29 @@ def gather_device_results(groups: Sequence[Sequence[Any]]) -> List[tuple]:
             host[fi] = flat[fi]
         else:
             buckets.setdefault(flat[fi].device, []).append(fi)
+    owner = None  # the group of each flat value, when armed or failed
+
+    def groups_of():
+        return {fi: g for g, pos in enumerate(index) for fi in pos}
+
+    if _net._fault_plane is not None or _lane_watchdog_s > 0.0:
+        owner = groups_of()
     for device, fis in buckets.items():
         parts = [flat[fi] for fi in fis]
+        if owner is not None:
+            _readback_guard(device, _bucket_positions(flat, fis, owner, positions))
         STATS.count_sync()
         device_stats(device).count_sync()
-        merged = _fetch(device, parts)
+        try:
+            merged = _fetch(device, parts)
+        except Exception as e:
+            # a failed copy (a sticky CUDA error surfaces at the first call
+            # after it): the fault lands on the bucket's positions once
+            if note_faults and is_retryable_device_fault(e) and not _noted(e):
+                for d in _bucket_positions(flat, fis, owner or groups_of(), positions):
+                    note_device_fault(d, "readback_error")
+                mark_fault_noted(e)
+            raise
         off = 0
         for fi in fis:
             n = flat[fi].numel()
@@ -565,8 +798,23 @@ def force_all(futures: Sequence[ReadbackFuture]) -> None:
     todo = [f for f in futures if not f.done()]
     if not todo:
         return
+    # the same gate result() applies: injected stalls land here too, and
+    # the armed watchdog fails a hung future with LaneWatchdogTimeout
+    # instead of wedging the grouped drain.  Disarmed cost: one global
+    # load and one float compare.
+    plane = _net._fault_plane
+    bound = _lane_watchdog_s
+    if plane is not None or bound > 0.0:
+        for f in todo:
+            f._guard(plane, bound)
+        todo = [f for f in todo if not f.done()]  # tripped: error delivered
+        if not todo:
+            return
     try:
-        host_groups = gather_device_results([f._device for f in todo])
+        # a failed grouped copy is counted by each future's own retry
+        host_groups = gather_device_results(
+            [f._device for f in todo], [f._positions for f in todo],
+            note_faults=False)
     except Exception:  # noqa: BLE001 — grouped path failed; force singly
         for f in todo:
             try:
@@ -640,7 +888,10 @@ class StagingPool:
         staged, slot.staged = slot.staged, None
         if staged is not None and not staged.query():
             # the double-buffer boundary: the slot's previous copy is still
-            # in flight — wait (counted) before touching its bytes
+            # in flight — wait (counted) before touching its bytes.  This
+            # also keeps reuse safe after a lane-watchdog trip: the copy
+            # that fed the abandoned kernels was committed with its event,
+            # so its slot is not refilled before that copy has read it
             STATS.count_staging_wait()
             staged.synchronize()
         if slot.buf.nbytes < want:
@@ -678,23 +929,79 @@ class StagingPool:
 
 class LaneWatchdogTimeout(RuntimeError):
     """A device readback exceeded the armed lane-watchdog bound: the frame
-    fails retryably (-TRYAGAIN) instead of wedging its writer.  Raised by
-    the operations slice's lane watchdog; the lanes here never arm it."""
+    fails retryably (-TRYAGAIN) instead of wedging its writer."""
+
+
+# set on an exception whose fault was counted where it was raised (the
+# chaos plane's chokepoints, a failed readback): the dispatch layer that
+# later replies it does not count it again
+_NOTED_ATTR = "_rtpu_fault_noted"
+
+
+def _noted(e: BaseException) -> bool:
+    return getattr(e, _NOTED_ATTR, False)
+
+
+def mark_fault_noted(e: BaseException) -> None:
+    try:
+        setattr(e, _NOTED_ATTR, True)
+    except (AttributeError, TypeError):  # an exception type with __slots__
+        pass
+
+
+def note_raised_fault(e: BaseException, dev_id: Optional[int],
+                      kind: str = "kernel_launch") -> None:
+    """Count `e`, raised by device work on position `dev_id`, on that
+    position's lanes when it is a retryable device fault (a failed launch,
+    a sticky CUDA error surfacing at a later call) not counted yet.  A
+    watchdog trip and a fault counted where it was raised are not counted
+    again; `dev_id` None (no lane occupancy current) counts nothing."""
+    if (dev_id is None or isinstance(e, LaneWatchdogTimeout) or _noted(e)
+            or not is_retryable_device_fault(e)):
+        return
+    mark_fault_noted(e)
+    note_device_fault(dev_id, kind)
+
+
+def is_out_of_memory(e: BaseException) -> bool:
+    """A CUDA allocation failure: ``torch.OutOfMemoryError``, or a
+    RuntimeError with the caching allocator's text or the runtime's
+    ``cudaErrorMemoryAllocation`` text."""
+    if isinstance(e, torch.OutOfMemoryError):
+        return True
+    if not isinstance(e, RuntimeError):
+        return False
+    text = str(e).lstrip()
+    return "CUDA out of memory" in text or text.startswith("CUDA error: out of memory")
 
 
 def is_retryable_device_fault(e: BaseException) -> bool:
     """The failure shapes the server's dispatch layer converts to a clean
-    retryable ``-TRYAGAIN``: the lane-watchdog timeout, and a RuntimeError
-    whose message starts with one of the reference's transient-runtime
-    prefixes.  Matched on the message, never the class.  A CUDA error
-    matches none of them and replies ``ERR internal``; mapping CUDA failures
-    onto retry and ``-OOM`` belongs to the operations slice."""
+    retryable ``-TRYAGAIN`` (counted on the lane where it was raised):
+
+      * ``LaneWatchdogTimeout``;
+      * ``torch.AcceleratorError``, and any RuntimeError whose message
+        starts with ``CUDA error:``, unless it is an OOM: a failed launch,
+        an illegal address, a device-side assert.  The last two are sticky:
+        they lose the process's CUDA context, every later dispatch fails
+        the same way, each lane reaches ``lane-quarantine-after`` and
+        quarantines, and only a restart of the process (the supervisor's
+        ``kill``/``restart``) recovers;
+      * a RuntimeError whose message starts with one of the reference's
+        transient-runtime prefixes (``INTERNAL``, ``UNAVAILABLE``, ...).
+
+    ``torch.OutOfMemoryError`` is not retryable: at a vector bank's growth
+    it replies ``-OOM`` (``services/vector.DeviceOomError``), elsewhere
+    ``ERR internal``, as the reference does with ``RESOURCE_EXHAUSTED``."""
     if isinstance(e, LaneWatchdogTimeout):
         return True
-    if not isinstance(e, RuntimeError):
+    if not isinstance(e, RuntimeError) or is_out_of_memory(e):
         return False
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
     return str(e).lstrip().startswith(
-        ("INTERNAL", "UNAVAILABLE", "ABORTED", "CANCELLED",
+        ("CUDA error:", "INTERNAL", "UNAVAILABLE", "ABORTED", "CANCELLED",
          "DEADLINE_EXCEEDED")
     )
 
@@ -921,11 +1228,43 @@ class DeviceLane:
         self._iwaiting = 0  # interactive dispatches queued or in flight
         self.dispatches = 0
         self.preemptions = 0  # preemption points that yielded
-        # fault ledger: set by the operations slice's fault plane; 0 here
+        # fault ledger: consecutive faults/timeouts trip quarantine; a clean
+        # readback resets the streak, a passing probe (CLUSTER DEVPROBE)
+        # clears the flag
         self.consec_faults = 0
         self.total_faults = 0
         self.quarantined = False
+        self.quarantined_at = 0.0
         self.last_fault_kind = ""
+
+    def note_fault(self, kind: str) -> bool:
+        """Record one device-layer fault (a failed launch, a readback
+        timeout or error, an OOM at growth).  Trips QUARANTINED at the
+        consecutive threshold; returns True when this call flipped it."""
+        self.total_faults += 1
+        self.consec_faults += 1
+        self.last_fault_kind = kind
+        if not self.quarantined and self.consec_faults >= _quarantine_after:
+            self.quarantined = True
+            self.quarantined_at = time.monotonic()
+            if _obs._tracer is not None:
+                cur = _obs.current_trace()
+                if cur is not None:
+                    now = time.monotonic()
+                    cur.add_span("quarantine", now, now, device=self.dev_id)
+            return True
+        return False
+
+    def note_ok(self) -> None:
+        """A device operation completed cleanly: the consecutive-fault
+        streak (not the quarantine flag: only a probe clears that) resets."""
+        if self.consec_faults:
+            self.consec_faults = 0
+
+    def unquarantine(self) -> None:
+        """Clear quarantine (the probe-passed path)."""
+        self.quarantined = False
+        self.consec_faults = 0
 
     def occupy(self, n_items: int = 0, qos_class: Optional[str] = None,
                nbytes: int = 0) -> "_LaneOccupancy":
@@ -991,7 +1330,7 @@ class _LaneOccupancy:
     ``:1388-1416``)."""
 
     __slots__ = ("_lane", "_n", "_cls", "_nbytes", "_stream", "_gate",
-                 "_prev_stream", "_tcur", "_tmark")
+                 "_prev_stream", "_prev_position", "_tcur", "_tmark")
 
     def __init__(self, lane: DeviceLane, n_items: int,
                  qos_class: Optional[str] = None, nbytes: int = 0):
@@ -1008,10 +1347,22 @@ class _LaneOccupancy:
             self._stream = "bulk"
             self._gate = lane._gate
         self._prev_stream = None
+        self._prev_position = None
         self._tcur = None
         self._tmark = 0.0
 
     def __enter__(self) -> DeviceLane:
+        # the dispatch chokepoint of the chaos plane: consulted before any
+        # ledger entry, so an injected launch failure unwinds with nothing
+        # to undo (__exit__ never runs when __enter__ raises)
+        plane = _net._fault_plane
+        if plane is not None:
+            try:
+                plane.on_device_dispatch(self._lane.dev_id)
+            except BaseException as e:
+                self._lane.note_fault("kernel_launch")
+                mark_fault_noted(e)
+                raise
         if self._cls is not None:
             self._lane.qos.enter(self._cls, self._n, self._nbytes)
         self._lane.qos.stream_enter(self._stream, self._n)
@@ -1036,6 +1387,8 @@ class _LaneOccupancy:
             self._gate.acquire()
         self._prev_stream = getattr(_stream_tls, "stream", None)
         _stream_tls.stream = self._stream
+        self._prev_position = getattr(_stream_tls, "position", None)
+        _stream_tls.position = self._lane.dev_id
         self._lane._laneset._enter()
         self._lane.dispatches += 1
         return self._lane
@@ -1054,6 +1407,7 @@ class _LaneOccupancy:
                 )
             self._lane._laneset._exit()
             _stream_tls.stream = self._prev_stream
+            _stream_tls.position = self._prev_position
             self._gate.release()
             if self._stream == "interactive":
                 self._lane._iexit()
@@ -1063,13 +1417,34 @@ class _LaneOccupancy:
         return False
 
 
-# every live LaneSet, weakly held (reference ``core/ioplane.py:1185``)
+# every live LaneSet, weakly held (reference ``core/ioplane.py:1185``):
+# device faults observed where no lane reference exists (ReadbackFuture,
+# the grouped fetch, the registry, a bank's growth) are attributed here
 _LANE_SETS: "weakref.WeakSet" = weakref.WeakSet()
 
 
+def note_device_fault(dev_id: int, kind: str) -> bool:
+    """Attribute one device fault to every registered lane for position
+    `dev_id`; returns True when any lane newly flipped to QUARANTINED."""
+    tripped = False
+    for ls in list(_LANE_SETS):
+        lane = ls._lanes.get(dev_id)
+        if lane is not None and lane.note_fault(kind):
+            tripped = True
+    return tripped
+
+
+def note_device_ok(dev_id: int) -> None:
+    """A readback on position `dev_id` completed cleanly: reset its lanes'
+    consecutive-fault streaks (quarantine itself clears only via probe)."""
+    for ls in list(_LANE_SETS):
+        lane = ls._lanes.get(dev_id)
+        if lane is not None:
+            lane.note_ok()
+
+
 def quarantined_device_ids() -> set:
-    """Position ids currently quarantined on ANY live lane set (empty
-    until the fault plane's watchdog sets a lane's flag)."""
+    """Position ids currently quarantined on ANY live lane set."""
     out = set()
     for ls in list(_LANE_SETS):
         for dev_id, lane in list(ls._lanes.items()):

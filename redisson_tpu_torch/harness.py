@@ -143,6 +143,15 @@ class ClusterRunner:
         self.wire_replicas()  # re-attach replica links severed by the restart
         return node
 
+    def pause_node(self, node: ClusterNode) -> None:
+        """SIGSTOP analog: the node stops answering (pings included) but
+        keeps its sockets open: the hung-but-accepting failure mode only
+        command-timeout detectors catch (TpuServer.pause)."""
+        node.server.server.pause()
+
+    def resume_node(self, node: ClusterNode) -> None:
+        node.server.server.resume()
+
     def stall_replication(self, node: ClusterNode) -> None:
         """Freeze this master's record shipper (replica lag grows until
         resumed): the repl-link-partition chaos op."""

@@ -17,9 +17,7 @@ Addresses are "tpu://host:port" (RedisURI analog); "tpus://" (and
 "rediss://") selects TLS, mirroring the reference's scheme-driven SSL
 (client/handler/RedisChannelInitializer.java:110-219).
 
-A copy of ``redisson_tpu/net/client.py`` less the chaos plane's transport
-fault hooks (``install_fault_plane``), which come with the operations
-slice.  One difference: closing joins the threads a client started (the
+A copy of ``redisson_tpu/net/client.py``.  One difference: closing joins the threads a client started (the
 pool's idle reaper, the ping loop, the pub/sub reader), so a client that
 was shut down leaves no thread behind.
 """
@@ -35,6 +33,27 @@ from redisson_tpu_torch.net import resp
 from redisson_tpu_torch.net.detectors import FailedNodeDetector
 from redisson_tpu_torch.net.resp import Push, RespError
 from redisson_tpu_torch.utils import metrics as _metrics
+
+# Process-global transport fault plane (chaos/faults.py FaultPlane): every
+# Connection consults it at its three event sites (connect, send, recv), so
+# injected faults flow through the real failure paths (pool discard, retry
+# machinery, detector feeds) instead of bypassing them.
+#
+# Zero-cost contract (tests/test_torch_faults.py and
+# tools/chaos_overhead_bench.py): with no plane installed an event costs one
+# module-global load and one `is None` branch: no attribute chase, no call,
+# no allocation.  Every event site reads `_fault_plane` into a local once
+# and branches; nothing else may be added to the disarmed path.
+_fault_plane = None
+
+
+def install_fault_plane(plane):
+    """Install (or clear, with None) the process-global fault plane.
+    Returns the previously installed plane so callers can restore it."""
+    global _fault_plane
+    prev = _fault_plane
+    _fault_plane = plane
+    return prev
 
 # Process-global count of ORPHANED pushes: RESP3 push frames that arrived on
 # a connection with no push_handler installed.  The old behavior consumed
@@ -120,6 +139,9 @@ class Connection:
         self._pending: "deque" = deque()  # decoded frames awaiting delivery
         self.push_handler: Optional[Callable[[Push], None]] = None
         self.dropped_pushes = 0  # orphaned pushes dropped (no handler)
+        plane = _fault_plane
+        if plane is not None:
+            plane.on_connect(host, port)  # may raise ConnectionRefusedError
         self._sock = socket.create_connection((host, port), timeout=connect_timeout)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         if ssl_context is not None:
@@ -154,6 +176,9 @@ class Connection:
 
     def send(self, *args) -> None:
         try:
+            plane = _fault_plane
+            if plane is not None and not plane.on_send(self):
+                return  # one-way partition (out): frame never leaves
             self._sock.sendall(resp.encode_command(*args))
         except (OSError, ValueError) as e:
             self.close()
@@ -196,6 +221,11 @@ class Connection:
             if not data:
                 self.close()
                 raise ConnectionError_(f"connection to {self.host}:{self.port} closed by peer")
+            plane = _fault_plane
+            if plane is not None:
+                data = plane.on_recv(self, data)
+                if data is None:
+                    continue  # one-way partition (in): reply silently lost
             self._pending.extend(self._parser.feed(data))
 
     def execute(self, *args, timeout: Optional[float] = None) -> Any:
@@ -214,6 +244,9 @@ class Connection:
             return 0
         payload = resp.encode_commands(commands)
         try:
+            plane = _fault_plane
+            if plane is not None and not plane.on_send(self):
+                payload = b""  # partition (out): the whole frame is lost
             self._sock.sendall(payload)
         except OSError as e:
             self.close()
@@ -462,7 +495,13 @@ class PubSubConnection:
                                 raise ConnectionError_(
                                     "pubsub connection closed by peer"
                                 )
-                            conn._pending.extend(conn._parser.feed(data))
+                            plane = _fault_plane
+                            if plane is not None:
+                                # chaos parity with read_reply: injected
+                                # drops and truncation hit the push feed too
+                                data = plane.on_recv(conn, data)
+                            if data is not None:
+                                conn._pending.extend(conn._parser.feed(data))
                     while conn._pending:
                         batch.append(conn._pending.popleft())
                 # route pushes OUTSIDE the lock: listener callbacks may be

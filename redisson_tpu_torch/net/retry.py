@@ -24,16 +24,17 @@ Semantics:
     overshoot its caller's deadline (deadline propagation, not per-try
     timeouts that silently multiply).
 
-A copy of ``redisson_tpu/net/retry.py`` less its link profiles: the
-replication link (``replica_link_kwargs``) has the one fixed policy of the
-reference's default ``lan`` profile.
+A copy of ``redisson_tpu/net/retry.py``, with its link profiles
+(``LINK_PROFILES``, ``RTPU_RETRY_PROFILE``, the server's
+``--retry-profile``): ``lan`` (the default) and ``wan``.
 """
 from __future__ import annotations
 
+import os
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Dict, Optional
 
 
 class DeadlineExceeded(TimeoutError):
@@ -150,10 +151,88 @@ class RetryClock:
 
 
 
+# -- link profiles -------------------------------------------------------------
+#
+# One switch tunes the cadence of EVERY cluster-internal link without code
+# changes: ``RTPU_RETRY_PROFILE=wan`` (or ``tpu-server --retry-profile wan``)
+# stretches backoff/deadlines for links that cross real networks, while the
+# default ``lan`` profile is NUMERICALLY IDENTICAL to the policies the call
+# sites hard-coded before profiles existed — so single-host fleets (and every
+# deterministic fault-schedule test) see byte-identical retry behavior.
+#
+# Kinds:
+#   * ``admin``   — migration coordinator control links (SETSLOT /
+#     MIGRATESLOTS / SETVIEW; migration._admin_retry_policy historically)
+#   * ``rejoin``  — supervisor view-learning / replica re-wiring during
+#     restarts and promotions (supervisor._rejoin_retry_policy historically)
+#   * ``replica`` — replication data links (ReplicaHandle, REPLICAOF
+#     full-sync pulls).  ``None`` = the legacy single-shot discipline
+#     (``retry_attempts=1``): on a LAN the failure detectors own liveness
+#     and a dropped link is rebuilt by the shipper, so per-call retries stay
+#     off; on a WAN the link itself retries with backoff so one flapped
+#     packet doesn't force a full link teardown.
+
+LINK_PROFILES: Dict[str, Dict[str, Optional[dict]]] = {
+    "lan": {
+        "admin": dict(max_attempts=4, base_delay=0.05, max_delay=1.0,
+                      jitter=0.2, deadline_s=30.0),
+        "rejoin": dict(max_attempts=5, base_delay=0.1, max_delay=1.0,
+                       jitter=0.2, deadline_s=20.0),
+        "replica": None,
+    },
+    "wan": {
+        "admin": dict(max_attempts=8, base_delay=0.25, max_delay=8.0,
+                      jitter=0.3, deadline_s=120.0),
+        "rejoin": dict(max_attempts=8, base_delay=0.5, max_delay=8.0,
+                       jitter=0.3, deadline_s=90.0),
+        "replica": dict(max_attempts=5, base_delay=0.25, max_delay=5.0,
+                        jitter=0.3, deadline_s=60.0),
+    },
+}
+
+_active_profile: Optional[str] = None  # None = resolve from env on first use
+
+
+def set_retry_profile(profile: Optional[str]) -> None:
+    """Pin the process-wide link profile (``"lan"`` / ``"wan"``); ``None``
+    un-pins it so the next lookup re-reads ``RTPU_RETRY_PROFILE``."""
+    global _active_profile
+    if profile is not None and profile not in LINK_PROFILES:
+        raise ValueError(
+            f"unknown retry profile {profile!r} "
+            f"(have: {', '.join(sorted(LINK_PROFILES))})"
+        )
+    _active_profile = profile
+
+
+def current_profile() -> str:
+    """The active link profile: pinned value, else ``RTPU_RETRY_PROFILE``
+    (unknown values fall back to ``lan`` rather than failing a server boot)."""
+    if _active_profile is not None:
+        return _active_profile
+    env = os.environ.get("RTPU_RETRY_PROFILE", "lan").lower()
+    return env if env in LINK_PROFILES else "lan"
+
+
+def link_policy(kind: str, **overrides) -> RetryPolicy:
+    """A fresh :class:`RetryPolicy` for one link kind under the active
+    profile.  ``overrides`` patch individual fields (e.g. a caller-owned
+    ``deadline_s``) without forking the profile table."""
+    spec = LINK_PROFILES[current_profile()].get(kind)
+    if spec is None:
+        raise KeyError(f"link kind {kind!r} has no policy under "
+                       f"profile {current_profile()!r}")
+    return RetryPolicy(**{**spec, **overrides})
+
+
 def replica_link_kwargs() -> dict:
-    """NodeClient kwargs for a replication data link (ReplicaHandle's push
-    link, REPLICAOF's full-sync pull): the single-shot link of the
-    reference's default profile.  The failure detectors own liveness and a
-    dropped link is rebuilt by the shipper's next sweep, so per-call
-    retries stay off."""
-    return {"ping_interval": 0, "retry_attempts": 1}
+    """NodeClient kwargs for a replication data link under the active
+    profile.  ``lan`` reproduces the legacy single-shot link exactly
+    (``ping_interval=0, retry_attempts=1`` — deterministic fault-schedule
+    event counts depend on it); ``wan`` adds a per-call RetryPolicy so
+    transient WAN flaps retry with backoff instead of killing the link."""
+    spec = LINK_PROFILES[current_profile()].get("replica")
+    kw: dict = {"ping_interval": 0, "retry_attempts": 1}
+    if spec is not None:
+        kw["retry_policy"] = RetryPolicy(**spec)
+    return kw

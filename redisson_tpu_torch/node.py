@@ -18,13 +18,16 @@ Usage::
     python -m redisson_tpu_torch.node --address tpu://host:6390 \
         --executors redisson_executor --workers 4
 
-A copy of ``redisson_tpu/node.py`` for the port.  One difference:
-each task's claim renewer is joined when the task ends, so ``stop()``
-leaves no thread of the node behind.
+A copy of ``redisson_tpu/node.py`` for the port.  Two differences: each
+task's claim renewer is joined when the task ends, so ``stop()`` leaves no
+thread of the node behind; and ``main`` stops the node cleanly (exit 0) on
+SIGINT or SIGTERM however early the signal lands, where the reference's
+catches KeyboardInterrupt only once ``start()`` has returned.
 """
 from __future__ import annotations
 
 import pickle
+import signal
 import threading
 import time
 import traceback
@@ -168,17 +171,30 @@ def main(argv=None):
     ap.add_argument("--password", default=None)
     ap.add_argument("--poll-interval", type=float, default=0.2)
     args = ap.parse_args(argv)
+    # SIGINT and SIGTERM only set `stopping`, from the first line on: a
+    # signal that lands while the node is still being built or started
+    # (Thread.start waits for each worker thread to run, and the first
+    # worker's heartbeat can make the node visible before the second
+    # starts) must stop it as cleanly as one that lands while it serves
+    stopping = threading.Event()
+
+    def on_signal(_signum, _frame):
+        stopping.set()
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, on_signal)
     node = WorkerNode(
         args.address,
         executors=[e.strip() for e in args.executors.split(",") if e.strip()],
         workers=args.workers,
         poll_interval=args.poll_interval,
         password=args.password,
-    ).start()
+    )
     try:
-        while True:
-            time.sleep(3600)
-    except KeyboardInterrupt:
+        node.start()
+        while not stopping.wait(1.0):
+            pass
+    finally:
         node.stop()
 
 

@@ -51,7 +51,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from redisson_tpu_torch.net.client import NodeClient
-from redisson_tpu_torch.net.retry import RetryPolicy
+from redisson_tpu_torch.net.retry import RetryPolicy, link_policy
 from redisson_tpu_torch.server.migration_journal import ImportJournal, MigrationJournal
 from redisson_tpu_torch.utils.crc16 import MAX_SLOT
 
@@ -67,10 +67,10 @@ class CoordinatorKilled(BaseException):
 def _admin_retry_policy() -> RetryPolicy:
     """Migration control traffic's retry schedule: a fresh policy per link
     (each carries its own jitter RNG) with a deadline that bounds any one
-    control verb's total retry budget.  The numbers are the reference's
-    ``lan`` link profile for admin links."""
-    return RetryPolicy(max_attempts=4, base_delay=0.05, max_delay=1.0,
-                       jitter=0.2, deadline_s=30.0)
+    control verb's total retry budget.  Numbers come from the active link
+    profile (RTPU_RETRY_PROFILE): ``lan`` by default, ``wan`` stretches
+    attempts, backoff and deadline for cross-host links."""
+    return link_policy("admin")
 
 
 def _admin(addr: str, password: Optional[str], ssl_context=None) -> NodeClient:

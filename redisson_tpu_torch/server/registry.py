@@ -14,8 +14,9 @@ serves (``server/verbs``).  Device values of a ``LazyReply`` are torch
 tensors: a frame's values come to the host in one grouped copy
 (``core/ioplane.gather_device_results``).  A node in a cluster checks each
 command's slots before it dispatches (``TpuServer.check_routing``: MOVED,
-ASK).  The chaos plane's device-dispatch hook comes with the operations
-slice (ROADMAP M11).
+ASK).  With the chaos plane installed a keyed command consults its
+position's device-dispatch stream before the handler runs
+(``_consult_device_dispatch``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from redisson_tpu_torch.core import ioplane
+from redisson_tpu_torch.net import client as _net
 from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.observe import trace as _obs
 from redisson_tpu_torch.utils.metrics import run_hooks_end, run_hooks_start
@@ -41,9 +43,13 @@ class LazyReply:
       LazyReply(force=fn)              — fn() -> reply, forced individually;
       LazyReply(device=(tensors...), finish=fn) — fn(host_arrays) -> reply,
         host_arrays delivered by the frame-level grouped transfer.
+
+    A device-form reply belongs to the position whose lane occupancy was
+    current when it was made (``ioplane.current_position``), for the lane
+    watchdog and the injected stalls of the grouped fetch.
     """
 
-    __slots__ = ("device", "finish", "_force")
+    __slots__ = ("device", "finish", "_force", "position")
 
     def __init__(self, force: Optional[Callable[[], Any]] = None,
                  device: Optional[tuple] = None,
@@ -51,6 +57,7 @@ class LazyReply:
         self._force = force
         self.device = device
         self.finish = finish
+        self.position = ioplane.current_position() if device is not None else None
 
     def force(self) -> Any:
         if self._force is not None:
@@ -75,13 +82,18 @@ def gather_lazy_device_results(lazies: List["LazyReply"]) -> List[tuple]:
         if cur is not None:
             was_ready = _settled(lazies)
             t0 = time.monotonic()
-            out = ioplane.gather_device_results([lz.device for lz in lazies])
+            out = _gather(lazies)
             cur.add_span(
                 "readback", t0, time.monotonic(),
                 grouped=len(lazies), blocking=int(not was_ready),
             )
             return out
-    return ioplane.gather_device_results([lz.device for lz in lazies])
+    return _gather(lazies)
+
+
+def _gather(lazies: List["LazyReply"]) -> List[tuple]:
+    return ioplane.gather_device_results(
+        [lz.device for lz in lazies], [lz.position for lz in lazies])
 class CommandContext:
     """Per-connection state (db selection, auth, subscriptions)."""
 
@@ -168,6 +180,13 @@ class Registry:
         if ctx.multi_queue is not None and cmd not in self._TX_IMMEDIATE:
             ctx.multi_queue.append([bytes(a) for a in args])
             return "+QUEUED"
+        # device-dispatch chokepoint: with the chaos plane armed a command
+        # routed to a faulted position fails here, with the exception a
+        # failed launch raises, before the handler applies anything.
+        # Disarmed cost: one global load and an `is None` branch.
+        plane = _net._fault_plane
+        if plane is not None:
+            _consult_device_dispatch(plane, server, args)
         # client-tracking hooks (tracking/table.py): `active` is an int load
         # + compare, so a server with no tracking clients pays ~nothing.
         # Reads register PRE-dispatch (a concurrent writer must see the
@@ -202,6 +221,32 @@ class Registry:
         if track is not None:
             track.post_dispatch(ctx, cmd, args[1:])
         return result
+
+
+def _consult_device_dispatch(plane, server, args) -> None:
+    """Armed-only slow path: resolve the command's owning position (the
+    single-position verbs of SlotPlacement) and consult the chaos plane's
+    per-position dispatch stream.  A raised fault is attributed to the
+    lane's quarantine ledger before it surfaces."""
+    eng = getattr(server, "engine", None)
+    placement = getattr(eng, "placement", None)
+    if placement is None:
+        return
+    try:
+        dev_index = placement.device_index_for_command(
+            [bytes(a) for a in args]
+        )
+    except Exception:  # noqa: BLE001 — unroutable: not a device command
+        return
+    if dev_index is None:
+        return
+    dev_id = getattr(placement.devices[dev_index], "id", dev_index)
+    try:
+        plane.on_device_dispatch(dev_id)
+    except BaseException as e:
+        ioplane.note_device_fault(dev_id, "kernel_launch")
+        ioplane.mark_fault_noted(e)
+        raise
 
 
 REGISTRY = Registry()

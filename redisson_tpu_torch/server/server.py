@@ -57,9 +57,23 @@ failure of the fused launch.  Here only an ineligible run
 (``core/coalesce.CoalesceIneligible``, or a precheck of
 ``coalesce_bloom_run``) takes the per-command route, since that is the
 designed case; any other failure of a fused run, contains or add, replies a
-per-command ``ERR internal`` (``-TRYAGAIN`` for the reference's retryable
-fault shapes) and counts in ``stats["errors"]``, so a failing kernel is
-never hidden behind a slower path that might succeed.
+per-command ``ERR internal`` (``-TRYAGAIN`` for a retryable fault shape)
+and counts in ``stats["errors"]``, so a failing kernel is never hidden
+behind a slower path that might succeed.
+
+**The device-fault domain** (reference ``:95-101``, ``:1181-1187``,
+``:1357-1361``, ``:1438-1443``, ``:1522-1525``, ``:1559-1564``): a keyed
+command, coalesced run or position bucket bound for a QUARANTINED lane
+replies ``-TRYAGAIN device <id> quarantined; retry after evacuation``
+without dispatching, and a retryable device fault
+(``ioplane.is_retryable_device_fault``: a failed CUDA launch, the lane
+watchdog's timeout) replies ``-TRYAGAIN device fault during dispatch;
+retry``; the connection lives.  One more difference: a launch failure as a
+coalesced run's or a bucket's occupancy is taken (the chaos plane's
+dispatch chokepoint) replies each of its commands the error, where the
+reference's frame raises and drops the connection.  ``pause``/``resume``
+are the chaos plane's pause gate (the SIGSTOP analog): a paused server
+parks every dispatch, bounded at 60 s.
 
   * **Blocking verbs** (``_SLOW_COMMANDS``: BLPOP, BRPOP, BLMOVE,
     BRPOPLPUSH, BZPOPMIN, BZPOPMAX, BLMPOP, BZMPOP, XREAD and XREADGROUP,
@@ -137,10 +151,8 @@ RESTORESTATE, DUMP, RESTORE, COPY) (``server/verbs``).
     dispatch's bytes, in frame order.
   * **CONFIG** (``config_view``/``config_set``, reference ``:483-680``):
     the knobs of the planes the port has, the ``qos-*`` knobs,
-    ``checkpoint-path``, ``residency-enabled`` and ``device-budget-bytes``
-    among them.  The lane fault plane's knobs (``lane-watchdog-ms``,
-    ``lane-quarantine-after``) read the reference's defaults, and setting
-    one replies an error naming ROADMAP M11 part 6.
+    ``checkpoint-path``, ``residency-enabled``, ``device-budget-bytes``,
+    ``lane-watchdog-ms`` and ``lane-quarantine-after`` among them.
   * **Residency** (``core/residency.py``): ``enable_residency`` arms the
     HOT/WARM/COLD plane with the slot fences wired in (a migrating,
     importing or recovering slot never demotes); the CLI's
@@ -163,8 +175,8 @@ WAIT; ``replication_source()`` is the master's lazy shipper, closed by
 ``stop``.  ``--prewarm`` warms the restored records' kernels at boot
 (``core/warmpool.py``).
 
-The chaos pause gate comes with the operations slice's last part
-(ROADMAP M11 part 6).
+``--retry-profile lan|wan`` sets the link retry cadence of the node's
+cluster-internal connections (``net/retry.py``'s ``LINK_PROFILES``).
 """
 from __future__ import annotations
 
@@ -253,8 +265,13 @@ _SLOW_COMMANDS = frozenset(
     )
 )
 
-# the reference's fixed -TRYAGAIN text for a retryable device fault
+# the reference's fixed -TRYAGAIN texts: byte-identical whichever layer
+# detects the fault and whether the chaos plane is armed or not
 _DEVICE_FAULT_TRYAGAIN = "TRYAGAIN device fault during dispatch; retry"
+
+
+def _quarantined_tryagain(dev_id: int) -> str:
+    return f"TRYAGAIN device {dev_id} quarantined; retry after evacuation"
 
 
 def _error_reply(e: BaseException) -> bytes:
@@ -310,19 +327,6 @@ def _force_lazies(results: list, server, trace=None) -> None:
             _obs.clear_current()
 
 
-# CONFIG knobs of the operations slice's plane still to come (ROADMAP M11
-# part 6: the lane watchdog and quarantine): CONFIG GET reads the
-# reference's defaults, CONFIG SET replies an error naming the plane
-_M11_KNOBS = {
-    "lane-watchdog-ms": 0,
-    "lane-quarantine-after": 3,
-}
-_M11_KNOBS_PLANE = {
-    "lane-watchdog-ms": "part 6, the lane watchdog",
-    "lane-quarantine-after": "part 6, the lane quarantine",
-}
-
-
 class TpuServer:
     def __init__(
         self,
@@ -365,6 +369,10 @@ class TpuServer:
         self.readback_ahead = (
             2 if dispatch_ahead is None else max(1, int(dispatch_ahead))
         )
+        # chaos pause gate (the SIGSTOP analog): cleared = every dispatch
+        # parks on it; clients see reply timeouts, not dropped connections
+        self._pause_gate = threading.Event()
+        self._pause_gate.set()
         # deadline classes + per-tenant QoS (server/scheduler.py); None =
         # follow the process-global switch (RTPU_NO_QOS=1 disarms)
         self.scheduler = _sched.WindowScheduler(enabled=qos)
@@ -998,22 +1006,48 @@ class TpuServer:
             except Exception:  # noqa: BLE001 — never mask the primary error
                 pass
 
+    # -- chaos hooks (fault plane, server layer) ------------------------------
+
+    def pause(self) -> None:
+        """Stop answering commands without dropping connections (the
+        SIGSTOP/GC-pause analog).  Paused workers park on the gate; clients
+        observe reply timeouts, feeding FailedCommandsTimeoutDetector."""
+        self._pause_gate.clear()
+
+    def resume(self) -> None:
+        self._pause_gate.set()
+
+    @property
+    def paused(self) -> bool:
+        return not self._pause_gate.is_set()
+
+    def _pause_wait(self) -> None:
+        if not self._pause_gate.is_set():
+            # bounded so a forgotten resume() degrades to a long stall, not
+            # a permanently wedged worker pool
+            self._pause_gate.wait(timeout=60.0)
+
+    def _failed(self, e: BaseException, n: int = 1) -> _Encoded:
+        """The per-command error reply of a dispatch unit of `n` commands
+        that raised `e` (worker pool shut down -> drop the connection)."""
+        if isinstance(e, RuntimeError) and "shutdown" in str(e):
+            raise ConnectionResetError(str(e)) from e
+        # a real CUDA failure of the handler counts on the lane it ran under
+        ioplane.note_raised_fault(e, ioplane.current_position())
+        self.stats["errors"] += n
+        return _Encoded(_error_reply(e))
+
     def _dispatch_one(self, ctx, cmd):
         """One command with the per-command error translation of the
         connection loop (RespError -> its reply, worker pool shut down ->
         drop the connection, anything else sandboxed per command)."""
+        self._pause_wait()
         try:
             return REGISTRY.dispatch(self, ctx, cmd)
         except ConnectionResetError:
             raise
-        except RuntimeError as e:
-            if "shutdown" in str(e):  # worker pool stopped: drop conn
-                raise ConnectionResetError(str(e)) from e
-            self.stats["errors"] += 1
-            return _Encoded(_error_reply(e))
         except Exception as e:  # noqa: BLE001 — sandbox handler bugs per-command
-            self.stats["errors"] += 1
-            return _Encoded(_error_reply(e))
+            return self._failed(e)
 
     def _dispatch_bloom_run(self, ctx, cmds):
         """Coalesced execution of a same-verb BF blob run inside one frame:
@@ -1025,6 +1059,7 @@ class TpuServer:
         docstring)."""
         from redisson_tpu_torch.server.verbs.sketch import coalesce_bloom_run
 
+        self._pause_wait()
         cur = _obs.current_trace() if _obs._tracer is not None else None
         k0 = time.monotonic() if cur is not None else 0.0
         is_add = bytes(cmds[0][0]).upper() == b"BF.MADD64"
@@ -1051,6 +1086,7 @@ class TpuServer:
                 raise ConnectionResetError(str(e)) from e
             if is_add:
                 self._fused_add_error_invalidate(track, run_names)
+            ioplane.note_raised_fault(e, ioplane.current_position())
             self.stats["errors"] += len(cmds)
             enc = _Encoded(_error_reply(e))
             return [enc for _ in cmds]
@@ -1215,15 +1251,29 @@ class TpuServer:
         connections bound for different positions overlap, same-position
         ones serialize."""
         lane = self._lane_for(cmds)
-        return None if lane is None else self._chunk_occupancy(lane, cmds, qos_class)
+        if lane is None:
+            return None
+        if lane.quarantined:
+            # a QUARANTINED lane rejects new keyed work retryably while its
+            # slots evacuate or await a probe: never a dispatch into a
+            # faulted device stream
+            raise RespError(_quarantined_tryagain(lane.dev_id))
+        return self._chunk_occupancy(lane, cmds, qos_class)
 
     def _dispatch_laned(self, ctx, cmd, qos_class: Optional[str] = None):
-        """_dispatch_one under the command's lane (when it has one)."""
-        gate = self._occupancy_gate((cmd,), qos_class)
-        if gate is None:
-            return self._timed(self._dispatch_one, ctx, cmd)
-        with gate:
-            return self._dispatch_one(ctx, cmd)
+        """_dispatch_one under the command's lane (when it has one).  A
+        quarantined lane, or a launch failure as the occupancy is taken,
+        replies the command's error (-TRYAGAIN)."""
+        try:
+            gate = self._occupancy_gate((cmd,), qos_class)
+            if gate is None:
+                return self._timed(self._dispatch_one, ctx, cmd)
+            with gate:
+                return self._dispatch_one(ctx, cmd)
+        except ConnectionResetError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the gate's failure is the reply
+            return self._failed(e)
 
     def _subwindow_target(self, qos_class: Optional[str]) -> int:
         """The bulk sub-window item target of one dispatch: > 0 only with
@@ -1256,23 +1306,52 @@ class TpuServer:
         lane = self._lane_for(cmds)
         if lane is None:
             return self._timed(self._dispatch_bloom_run, ctx, cmds)
+        if lane.quarantined:
+            # per-command retryable rejection: the run never dispatched,
+            # so at-most-once holds trivially
+            self.stats["errors"] += len(cmds)
+            enc = _Encoded(resp.encode_error(_quarantined_tryagain(lane.dev_id)))
+            return [enc for _ in cmds]
         target = self._subwindow_target(qos_class)
         plan = None
         if target > 0:
             plan = plan_subwindows([_sched.estimate_command_items(c) for c in cmds], target)
         if plan is None or len(plan) < 2:
-            with self._chunk_occupancy(lane, cmds, qos_class):
-                return self._dispatch_bloom_run(ctx, cmds)
+            plan = [(0, len(cmds))]
         dev = self._lane_torch_device(lane)
         out = []
         for k, (a, b) in enumerate(plan):
             if k:
                 lane.preempt_point()
             sub = cmds[a:b]
-            with self._chunk_occupancy(lane, sub, qos_class):
-                out.extend(self._dispatch_bloom_run(ctx, sub))
-                ioplane.wait_device(dev)
+            out.extend(self._laned_unit(
+                lane, sub, qos_class,
+                lambda sub=sub: self._dispatch_bloom_run(ctx, sub),
+                dev if len(plan) > 1 else None))
         return out
+
+    def _laned_unit(self, lane, cmds, qos_class, run, dev=None) -> list:
+        """`run()` (the replies of `cmds`) under one occupancy of `lane`,
+        waiting for its kernels on `dev` before the lane goes when given
+        (a sub-window).  A launch failure as the occupancy is taken (the
+        chaos plane's dispatch chokepoint) replies each command the error:
+        nothing was dispatched, so nothing is re-dispatched either (the
+        reference drops the connection here)."""
+        try:
+            occupancy = self._chunk_occupancy(lane, cmds, qos_class)
+            occupancy.__enter__()
+        except ConnectionResetError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the unit's reply
+            enc = self._failed(e, len(cmds))
+            return [enc for _ in cmds]
+        try:
+            out = run()
+            if dev is not None:
+                ioplane.wait_device(dev)
+            return out
+        finally:
+            occupancy.__exit__(None, None, None)
 
     def _dispatch_device_bucket(self, ctx, items, dev_index: int,
                                 qos_class: Optional[str] = None):
@@ -1282,30 +1361,35 @@ class TpuServer:
         runs inside the bucket still coalesce.  Returns [(frame index,
         result), ...].  An oversized bulk bucket splits into sub-windows as a
         coalesced run does (``_dispatch_bloom_run_laned``)."""
+        self._pause_wait()
         eng = self.engine
         lane = eng.lanes.lane(eng.placement.devices[dev_index]) if eng.lanes is not None else None
+        if lane is not None and lane.quarantined:
+            # the whole bucket rejects retryably in frame position; the
+            # other positions' buckets still serve
+            self.stats["errors"] += len(items)
+            enc = _Encoded(resp.encode_error(_quarantined_tryagain(lane.dev_id)))
+            return [(i, enc) for i, _c in items]
         cmds = [c for _i, c in items]
         run_at: Dict[int, int] = (
             dict(_routing.coalescible_frame_runs(cmds)) if len(cmds) > 1 else {}
         )
-        out = []
 
-        def dispatch_all(lo: int, hi: int):
+        def dispatch_all(lo: int, hi: int) -> list:
+            replies = []
             ci = lo
             while ci < hi:
                 run_end = run_at.get(ci)
                 if run_end is not None:
-                    replies = self._dispatch_bloom_run(ctx, cmds[ci:run_end])
-                    for off, r in enumerate(replies):
-                        out.append((items[ci + off][0], r))
+                    replies.extend(self._dispatch_bloom_run(ctx, cmds[ci:run_end]))
                     ci = run_end
                     continue
-                out.append((items[ci][0], self._dispatch_one(ctx, cmds[ci])))
+                replies.append(self._dispatch_one(ctx, cmds[ci]))
                 ci += 1
+            return replies
 
         if lane is None:
-            dispatch_all(0, len(cmds))
-            return out
+            return list(zip((i for i, _c in items), dispatch_all(0, len(cmds))))
         # sub-windows: segments cut at dispatch-unit boundaries (one
         # coalesced run or one command), so a fused add run is never split
         target = self._subwindow_target(qos_class)
@@ -1321,17 +1405,16 @@ class TpuServer:
             if len(plan) > 1:
                 segs = [(units[lo][0], units[hi - 1][1]) for lo, hi in plan]
         if segs is None:
-            with self._chunk_occupancy(lane, cmds, qos_class):
-                dispatch_all(0, len(cmds))
-            return out
-        dev = self._lane_torch_device(lane)
+            segs = [(0, len(cmds))]
+        dev = self._lane_torch_device(lane) if len(segs) > 1 else None
+        replies = []
         for k, (a, b) in enumerate(segs):
             if k:
                 lane.preempt_point()
-            with self._chunk_occupancy(lane, cmds[a:b], qos_class):
-                dispatch_all(a, b)
-                ioplane.wait_device(dev)
-        return out
+            replies.extend(self._laned_unit(
+                lane, cmds[a:b], qos_class,
+                lambda a=a, b=b: dispatch_all(a, b), dev))
+        return list(zip((i for i, _c in items), replies))
 
     async def _run_frame_sharded(self, ctx, commands, plan, loop, adm=None, trace=None):
         """Execute one pipelined frame under a placement plan: "sharded"
@@ -1642,8 +1725,7 @@ class TpuServer:
 
     def config_view(self) -> Dict[str, Any]:
         """CONFIG GET surface: the node's live knob table (reference
-        ``server/server.py:483-527``).  The knobs of the operations slice's
-        planes read the reference's defaults (``_M11_KNOBS``)."""
+        ``server/server.py:483-527``)."""
         ev = self.engine._eviction
         cfg = self.engine.config
         view = {
@@ -1662,6 +1744,9 @@ class TpuServer:
                 if self.engine.placement is not None else 0
             ),
             "dispatch-ahead": self.readback_ahead,
+            # the device-fault domain: lane watchdog and quarantine
+            "lane-watchdog-ms": ioplane.lane_watchdog_ms(),
+            "lane-quarantine-after": ioplane.quarantine_after(),
             "trace-enabled": int(_obs.tracing_enabled()),
             "trace-ring-capacity": self.tracer.ring_capacity,
             "slowlog-log-slower-than": self.tracer.slowlog_slower_than_us,
@@ -1679,20 +1764,13 @@ class TpuServer:
         view["residency-enabled"] = int(
             self.engine.residency is not None and _res.tier_enabled()
         )
-        view.update(_M11_KNOBS)
         view.update(self.scheduler.config_view())
         return view
 
     def config_set(self, key: str, value: str) -> bool:
         """CONFIG SET: the runtime-tunable subset (reference
         ``server/server.py:529-680``).  Structural knobs (port, TLS, mode)
-        are read-only; a knob of the lane fault plane replies an error
-        naming ROADMAP M11 part 6."""
-        if key in _M11_KNOBS:
-            raise RespError(
-                f"ERR CONFIG SET {key} is not served by this port yet "
-                f"(ROADMAP M11: {_M11_KNOBS_PLANE[key]})"
-            )
+        are read-only."""
         if key == "eviction-min-delay":
             self.engine.eviction.min_delay = float(value)
             return True
@@ -1715,6 +1793,22 @@ class TpuServer:
             # connections opened from now on size their dispatch-ahead
             # semaphore with this (see _handle)
             self.readback_ahead = n
+            return True
+        if key == "lane-watchdog-ms":
+            # bounded readback wait: 0 disarms (the unbounded wait, with
+            # the same replies)
+            n = int(value)
+            if n < 0:
+                return False
+            ioplane.set_lane_watchdog_ms(n)
+            return True
+        if key == "lane-quarantine-after":
+            # consecutive device faults/timeouts that flip a lane to
+            # QUARANTINED (CLUSTER DEVICES shows the state)
+            n = int(value)
+            if n <= 0:
+                return False
+            ioplane.set_quarantine_after(n)
             return True
         if key == "trace-enabled":
             _obs.set_tracing(value.lower() not in ("0", "false", "no", "off"))
@@ -2110,6 +2204,7 @@ class TpuServer:
         # forever-blocked worker would otherwise survive pool shutdown
         # (wait=False) and hang interpreter exit via the futures atexit join
         self._closing = True
+        self._pause_gate.set()  # release chaos-paused workers
         loop, server = self._loop, self._server
         if loop is not None and server is not None:
             def shutdown():
@@ -2368,6 +2463,14 @@ def main(argv=None):
         help="PEM CA bundle: additionally REQUIRE client certificates "
              "(mutual TLS)",
     )
+    ap.add_argument(
+        "--retry-profile", default=None, choices=("lan", "wan"),
+        help="link retry cadence for cluster-internal connections "
+             "(net/retry.py LINK_PROFILES): 'lan' (default) keeps the tight "
+             "schedules; 'wan' stretches backoff and deadlines for links "
+             "that cross real networks.  Sets RTPU_RETRY_PROFILE, which "
+             "child processes inherit.",
+    )
     args = ap.parse_args(argv)
     if bool(args.tls_cert) != bool(args.tls_key):
         ap.error("--tls-cert and --tls-key must be given together")
@@ -2385,6 +2488,10 @@ def main(argv=None):
         from redisson_tpu_torch.core import residency as _res_tier
 
         _res_tier.pin_disarmed()
+    if args.retry_profile:
+        # the one channel: net/retry.current_profile reads it in this
+        # process, and coordinator code spawned from it inherits it
+        os.environ["RTPU_RETRY_PROFILE"] = args.retry_profile
     engine = Engine(device=args.device)
     srv = TpuServer(
         engine,

@@ -9,8 +9,8 @@ A copy of these parts of ``redisson_tpu/server/verbs/admin.py``:
   * CLUSTER SLOTS, MYID, INFO, SETVIEW (with ``TOKEN`` fencing), RESET,
     COUNTKEYSINSLOT and GETKEYSINSLOT, and ASKING, with the reference's
     replies; CLUSTER DEVICES (each position's slot count and label, its
-    lane's QOS row and its FAULTS row, which stays 0 until the operations
-    slice's fault plane) and DEVMOVE (a fenced slot -> position handoff,
+    lane's QOS row and its FAULTS row: quarantined, consecutive and total
+    faults, the last fault's kind) and DEVMOVE (a fenced slot -> position handoff,
     STALEEPOCH for a stale coordinator); CLUSTER QOS, the window
     scheduler's view (its class rows, the lanes' STREAM rows and a TENANT
     row a tenant, weight last) and ``REBALANCE <tenant> <rate> [<burst>]
@@ -19,9 +19,11 @@ A copy of these parts of ``redisson_tpu/server/verbs/admin.py``:
     position's every slot onto the survivors, a journaled device
     rebalance) and CLUSTER RESIDENCY (the residency plane's table, TIER,
     DEMOTE [COLD], SWEEP and SHED, reference ``:332-470``;
-    ``cluster/residency_control.py`` drives SWEEP and SHED).  DEVPROBE
-    replies an error naming the slice that brings it (the device fault
-    plane, ROADMAP M11 part 6).
+    ``cluster/residency_control.py`` drives SWEEP and SHED).  CLUSTER
+    DEVPROBE <position> (reference ``:325-330``, ``:481-513``): one
+    known-answer dispatch and readback through the position's lane (K25's
+    ping, ``_dev_probe``), replying ``[passed, quarantined]``; a pass
+    clears the lane's quarantine.
   * EVALSHA, EVAL, SCRIPT, FCALL, FCALL_RO and FUNCTION, on the engine's
     ``services/script.py`` services.  Scripts are Python callables
     registered server-side, so callers address them by digest (EVALSHA) or
@@ -119,12 +121,6 @@ def cmd_config(server, ctx, args):
 
 
 # -- cluster view (the slot map the topology programs install) ---------------
-
-# CLUSTER subcommands the port does not serve yet -> the slice that brings them
-_CLUSTER_LATER = {
-    b"DEVPROBE": "M11 part 6: the device fault plane",
-}
-
 
 def _cluster_devices(server):
     """[n_devices, [position id, slots owned, label, [QOS, ...], [FAULTS,
@@ -505,13 +501,63 @@ def cmd_cluster(server, ctx, args):
         if len(args) > 1 and bytes(args[1]).upper() == b"REBALANCE":
             return _cluster_qos_rebalance(server, args)
         return _cluster_qos(server)
-    later = _CLUSTER_LATER.get(sub)
-    if later is not None:
-        raise RespError(
-            f"ERR CLUSTER {sub.decode()} is not served by this port yet "
-            f"(ROADMAP {later})"
-        )
+    if sub == b"DEVPROBE":
+        # DEVPROBE <position>: one real tiny dispatch and readback through
+        # the position's lane; both chaos chokepoints (occupancy enter,
+        # readback) consult, so a still-faulted position stays quarantined
+        # while a clean pass clears it.  Reply: [passed, quarantined]
+        if len(args) < 2:
+            raise RespError("ERR wrong number of arguments for 'cluster|devprobe' command")
+        return _dev_probe(server, _int(args[1]))
     raise RespError("ERR unknown CLUSTER subcommand")
+
+
+# K25 pings whose ops were issued on a position's device since a run set
+# it to 0 (a probe stopped by a fault before its ops is not counted): a run
+# reads it to show that its path went through the ping
+probe_pings = 0
+_probe_pings_lock = threading.Lock()
+
+
+def _dev_probe(server, dev_index: int):
+    """K25's known-answer ping (reference ``:481-513``): occupy the lane
+    (the chaos plane's launch chokepoint), compute ``arange(8) + 1`` on the
+    position's device with torch ops, read it back through
+    ``ReadbackFuture`` (the hung-transfer and watchdog chokepoint) and check
+    the sum is 36.  A fault the chaos plane injected, a watchdog trip and
+    a failed readback count themselves on the lane's ledger; any other
+    device fault of the probe (a sticky CUDA error raised by its first
+    op) is counted here, so nothing counts twice.  A pass clears the
+    quarantine.  After a sticky CUDA error (the context is
+    lost) every probe fails, and the node's restart is the recovery."""
+    global probe_pings
+    import torch
+
+    from redisson_tpu_torch.core import ioplane
+
+    p = server.engine.placement
+    lanes = server.engine.lanes
+    if p is None or lanes is None:
+        raise RespError("ERR placement is not enabled on this server")
+    if not (0 <= dev_index < p.n_devices):
+        raise RespError(f"ERR device index {dev_index} outside placement")
+    position = p.devices[dev_index]
+    lane = lanes.lane(position)
+    try:
+        with lane.occupy(1):
+            val = torch.arange(8, dtype=torch.int32, device=position.device) + 1
+            with _probe_pings_lock:
+                probe_pings += 1
+            fut = ioplane.ReadbackFuture((val,), position=lane.dev_id)
+        ok = int(fut.result().sum()) == 36  # sum(1..8)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as e:  # noqa: BLE001 — a failing probe is the answer
+        ioplane.note_raised_fault(e, lane.dev_id)
+        return [0, int(lane.quarantined)]
+    if ok:
+        lane.unquarantine()
+    return [1 if ok else 0, int(lane.quarantined)]
 
 
 @register("ASKING")

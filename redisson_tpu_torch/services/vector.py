@@ -48,9 +48,10 @@ demotes colder clean records off the owner's device and raises
 ``VectorBudgetError`` only when not enough could be demoted), every plane
 read or write funnels through ``RecordRowBank._rec``, which faults a
 demoted bank back in, and ``bank_has_pending`` pins a bank with pending
-rows HOT.  Not here yet: the chaos fault plane (ROADMAP M11 part 6).
-A failed bank allocation on the card (``torch.cuda.OutOfMemoryError``)
-raises ``DeviceOomError``, the reference's ``-OOM`` reply.
+rows HOT.  A failed bank allocation on the card (``torch.OutOfMemoryError``
+from the grown planes' ``torch.zeros``, or the chaos plane's injected
+``device_oom``) raises ``DeviceOomError``, the reference's ``-OOM`` reply,
+with the pending rows kept.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core import residency as _res
 from redisson_tpu_torch.core.store import StateRecord
+from redisson_tpu_torch.net import client as _net
 from redisson_tpu_torch.net.resp import RespError
 
 # -- global switch (the A/B discipline of ioplane.set_overlap) ----------------
@@ -138,9 +140,12 @@ class VectorBudgetError(RuntimeError):
 
 
 class DeviceOomError(RespError):
-    """A device allocation failed (``torch.cuda.OutOfMemoryError``) growing
-    a bank: the clean, retryable ``-OOM`` reply.  The rows that triggered
-    the growth stay pending, so nothing acked is lost."""
+    """A device allocation failed (``torch.OutOfMemoryError``, real or
+    injected by the chaos plane's ``device_oom``) growing a bank: the
+    clean, retryable ``-OOM`` reply, counted on the owner lane's fault
+    ledger as ``alloc_oom``.  The fixed text keeps the reply the
+    reference's.  The rows that triggered the growth stay pending, so
+    nothing acked is lost."""
 
     def __init__(self, name: str):
         super().__init__(
@@ -492,6 +497,18 @@ class DeviceRowBank:
                     exclude=(getattr(self, "name", ""),),
                 )
         dev = self.device
+        dev_id = self._fault_position_id()
+        # device allocation chokepoint: the injected and the real CUDA OOM
+        # converge on one DeviceOomError (_oom); no cache flush and retry,
+        # no fall back to the host
+        plane = _net._fault_plane
+        if plane is not None:
+            try:
+                plane.on_device_alloc(dev_id, self._projected_device_bytes(new_cap))
+            except RuntimeError as e:
+                if ioplane.is_out_of_memory(e):
+                    self._oom(dev_id, e)
+                raise
         try:
             grown = torch.zeros((new_cap, self.pwidth), dtype=_TORCH_DTYPES[self.dtype], device=dev)
             gbias = torch.zeros((new_cap,), dtype=torch.float32, device=dev)
@@ -503,10 +520,24 @@ class DeviceRowBank:
                 if gscale is not None and scale is not None:
                     gscale = K.rowbank_grow_plane(scale, gscale)
                 self.grows += 1
-        except torch.cuda.OutOfMemoryError as e:
-            raise DeviceOomError(getattr(self, "name", "?")) from e
+        except RuntimeError as e:
+            if ioplane.is_out_of_memory(e):
+                self._oom(dev_id, e)
+            raise
         self._set_planes(grown, gbias, gscale)
         self._cap = new_cap
+
+    def _fault_position_id(self) -> int:
+        """The position a device fault of this bank counts on (0 for a
+        bank outside placement, as the reference's device 0)."""
+        return 0
+
+    def _oom(self, dev_id: int, cause: BaseException) -> None:
+        """The card's memory ran out growing this bank: count the fault on
+        the lane's quarantine ledger and raise the one fixed ``-OOM`` reply
+        (never the raw error, never a dead connection)."""
+        ioplane.note_device_fault(dev_id, "alloc_oom")
+        raise DeviceOomError(getattr(self, "name", "?")) from cause
 
     def _pack_items(self, buf: np.ndarray, items) -> None:
         """Fill the packed upload: col 0 rowid, col 1 bias bits, [col 2
@@ -689,6 +720,10 @@ class RecordRowBank(DeviceRowBank):
 
     def _staging_pool(self):
         return self._engine.staging_pool(self._owner_position())
+
+    def _fault_position_id(self) -> int:
+        pos = self._owner_position()
+        return 0 if pos is None else pos.id
 
     def _record_guard(self):
         return self._engine.locked(self.name)

@@ -2163,3 +2163,131 @@ def test_residency_demote_and_promote_a_bloom_bank_on_the_card(dev):
     finally:
         client.shutdown()
         R.set_tier(prev)
+
+
+def test_the_armed_watchdog_trips_behind_a_stalled_stream_on_the_card(dev):
+    """The card's stream stalled ~1 s by torch.cuda._sleep: with
+    lane-watchdog-ms 50 a readback of a tensor made behind the stall fails
+    with LaneWatchdogTimeout within 0.5 s (it polls the event and never
+    synchronizes), the fault lands on the position's lane, and the grouped
+    fetch trips the same way; once the stall drains the same tensors read
+    back their values and a probe's readback clears the streak."""
+    import time
+
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core.engine import Engine
+
+    eng = Engine(device="cuda")
+    eng.enable_placement(n_devices=2)
+    lane = eng.lanes.lane(eng.placement.devices[1])
+    prev = ioplane.set_lane_watchdog_ms(50)
+    try:
+        # load every kernel the test launches before the stall: a kernel's
+        # first launch loads its module (CUDA's lazy loading), which waits
+        # for the running spin kernel on the host, so the readback below
+        # would start only after the stall had drained
+        torch.cuda._sleep(1_000_000)
+        warm = [torch.arange(16, device=dev) * 3, torch.ones(4, device=dev)]
+        ioplane.gather_device_results([(warm[0],), (warm[1],)], [1, 1])
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(20_000_000)
+        e1.record()
+        e1.synchronize()
+        cycles = int(20_000_000 / e0.elapsed_time(e1) * 1000.0)  # ~1 s
+        torch.cuda._sleep(cycles)
+        vals = [torch.arange(16, device=dev) * 3, torch.ones(4, device=dev)]
+        t0 = time.monotonic()
+        fut = ioplane.ReadbackFuture((vals[0],), position=1)
+        with pytest.raises(ioplane.LaneWatchdogTimeout):
+            fut.result()
+        with pytest.raises(ioplane.LaneWatchdogTimeout):
+            ioplane.gather_device_results([(vals[0],), (vals[1],)], [1, 1])
+        assert time.monotonic() - t0 < 0.5 + 0.1
+        assert lane.total_faults == 2 and lane.last_fault_kind == "watchdog_timeout"
+        torch.cuda.synchronize()
+        assert ioplane.ReadbackFuture((vals[0],), position=1).result().tolist() == list(range(0, 48, 3))
+        assert lane.consec_faults == 0
+    finally:
+        ioplane.set_lane_watchdog_ms(prev)
+        eng.shutdown()
+
+
+# a server of 8 positions of the card whose CUDA context a device-side
+# assert has lost: prints what its frames and probes replied as JSON
+_STICKY_DRIVER = r"""
+import json, os, socket
+import torch
+from redisson_tpu_torch.core import ioplane
+from redisson_tpu_torch.net import resp
+from redisson_tpu_torch.server import ServerThread
+from redisson_tpu_torch.utils.crc16 import calc_slot
+
+st = ServerThread(port=0, device="cuda", devices=8, workers=2)
+st.start()
+sock = socket.create_connection((st.server.host, st.server.port), timeout=60)
+parser = resp.RespParser(use_native=False)
+
+
+def wave(*cmd):
+    sock.sendall(resp.encode_commands([cmd]))
+    raw = b""
+    while True:
+        data = sock.recv(1 << 16)
+        raw += data
+        if not data or parser.feed(data):
+            return raw.decode()
+
+
+p, lanes = st.server.engine.placement, st.server.engine.lanes
+key = "sticky0"
+victim = int(p.owner_snapshot()[calc_slot(key.encode())])
+other = (victim + 1) % p.n_devices
+out = {"n": ioplane.quarantine_after(), "victim_id": lanes.lane(p.devices[victim]).dev_id,
+       "first": wave("PFADD", key, "a")}
+try:
+    x = torch.zeros(4, device="cuda")
+    x[torch.tensor([10], device="cuda")] = 1.0  # out of bounds: a device-side assert
+    torch.cuda.synchronize()
+    out["assert"] = None
+except Exception as e:
+    out["assert"] = type(e).__name__ + ": " + str(e)[:120]
+out["frames"] = [wave("PFADD", key, f"x{i}") for i in range(out["n"] + 1)]
+vl, ol = lanes.lane(p.devices[victim]), lanes.lane(p.devices[other])
+out["victim"] = [vl.total_faults, vl.quarantined, vl.last_fault_kind]
+out["probe_victim"] = wave("CLUSTER", "DEVPROBE", str(victim))
+out["victim_after_probe"] = vl.total_faults
+out["probe_other"] = [wave("CLUSTER", "DEVPROBE", str(other)) for _ in range(out["n"])]
+out["other"] = [ol.total_faults, ol.quarantined, ol.last_fault_kind]
+print(json.dumps(out), flush=True)
+os._exit(0)  # the lost context cannot be torn down cleanly
+"""
+
+
+def test_a_sticky_cuda_error_quarantines_every_lane_on_the_card(dev):
+    """A device-side assert loses the process's CUDA context: in a child
+    process, every later frame replies -TRYAGAIN and counts on its lane
+    (kernel_launch) until lane-quarantine-after quarantines it; DEVPROBE
+    then answers [0, 1] and counts its own failure once, and another
+    position's probes fail until its lane quarantines too.  Recovery is a
+    restart of the process."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _STICKY_DRIVER], capture_output=True, text=True,
+                         timeout=300, cwd=root)
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    n = out["n"]
+    assert out["first"] == ":1\r\n"
+    assert out["assert"] is not None and "device-side assert" in out["assert"], out["assert"]
+    assert out["frames"][:n] == ["-TRYAGAIN device fault during dispatch; retry\r\n"] * n, out["frames"]
+    assert out["frames"][n] == (f"-TRYAGAIN device {out['victim_id']} quarantined; "
+                                "retry after evacuation\r\n"), out["frames"]
+    assert out["victim"] == [n, True, "kernel_launch"]
+    assert out["probe_victim"] == "*2\r\n:0\r\n:1\r\n" and out["victim_after_probe"] == n + 1
+    assert out["probe_other"][-1] == "*2\r\n:0\r\n:1\r\n", out["probe_other"]
+    assert out["other"][:2] == [n, True], out["other"]

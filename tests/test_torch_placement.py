@@ -136,7 +136,7 @@ def test_cluster_devices_and_devmove_over_the_wire_equal_the_reference():
     with ServerThread(port=0, device="cpu") as st, st.client() as c:
         assert c.execute("CLUSTER", "DEVICES") == [0]
         assert "placement is not enabled" in str(c.execute("CLUSTER", "DEVMOVE", 1, 5))
-        assert "M11" in str(c.execute("CLUSTER", "DEVPROBE", 1))
+        assert "placement is not enabled" in str(c.execute("CLUSTER", "DEVPROBE", 1))
         q = c.execute("CLUSTER", "QOS")
         assert q[0] == 1 and [bytes(r[0]) for r in q[3:5]] == [b"interactive", b"bulk"]
 

@@ -19,7 +19,6 @@ from redisson_tpu.server.server import ServerThread as RefServerThread
 from redisson_tpu.services import vector as ref_vector
 from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.net.client import Connection
-from redisson_tpu_torch.net.resp import RespError
 from redisson_tpu_torch.server import ServerThread
 from redisson_tpu_torch.services import vector as port_vector
 from redisson_tpu_torch.tools import wire_stream as W
@@ -181,10 +180,15 @@ def test_operations_knobs_read_defaults_and_refuse_sets():
                 assert c.execute("CONFIG", "SET", key, value) == rc.execute("CONFIG", "SET", key, value) == b"OK"
                 assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
                 assert c.execute("CONFIG", "GET", "residency-enabled") == rc.execute("CONFIG", "GET", "residency-enabled")
-            # the lane fault plane's knobs still refuse, naming M11 part 6
-            for key in ("lane-watchdog-ms", "lane-quarantine-after"):
-                err = c.execute("CONFIG", "SET", key, "1")
-                assert isinstance(err, RespError) and "M11" in str(err) and "part 6" in str(err)
+            # the lane fault plane's knobs came with the device-fault domain:
+            # they set, refuse out-of-range values and read back as the
+            # reference's
+            for key, value in (("lane-watchdog-ms", "250"), ("lane-quarantine-after", "4"),
+                               ("lane-watchdog-ms", "-1"), ("lane-quarantine-after", "0"),
+                               ("lane-watchdog-ms", "0"), ("lane-quarantine-after", "3")):
+                got, want = c.execute("CONFIG", "SET", key, value), rc.execute("CONFIG", "SET", key, value)
+                assert (type(got).__name__, str(got)) == (type(want).__name__, str(want))
+                assert c.execute("CONFIG", "GET", key) == rc.execute("CONFIG", "GET", key)
         finally:
             for mod, tier, budget in saved:
                 mod.set_tier(tier)

@@ -4,9 +4,8 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_tracking_soak_migration_smoke": "M11 (the chaos soak harness, slot migration)",
-    "test_tracking_soak_kill_failover": "M11 (the chaos soak harness, failover)",
-    "test_tracking_census_and_metrics_gauges": "M11 (the resource census, chaos/census.py)",
+    "test_tracking_soak_migration_smoke": "M11 part 6b (the chaos soak harness, slot migration)",
+    "test_tracking_soak_kill_failover": "M11 part 6b (the chaos soak harness, failover)",
     # not waiting for a slice: its subprocess runs the source text
     # "from redisson_tpu.net.resp import ...", which no loader reaches;
     # tests/test_torch_resp.py holds the port's RTPU_NO_NATIVE codec

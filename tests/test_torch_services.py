@@ -564,6 +564,53 @@ def test_the_node_main_stops_on_sigint():
             assert p.wait(timeout=20) == 0
 
 
+# a node whose main thread is still inside start() when its first worker's
+# heartbeat makes it visible: the second worker thread's start waits
+_SLOW_START_NODE = """
+import sys, time
+from redisson_tpu_torch import node
+
+start = node.WorkerNode.start
+
+
+def slow_start(self):
+    out = start(self)
+    time.sleep(3.0)  # a main thread starved after its workers run
+    return out
+
+
+node.WorkerNode.start = slow_start
+node.main(sys.argv[1:])
+"""
+
+
+def test_the_node_main_stops_on_a_sigint_that_lands_during_start():
+    """A SIGINT that lands while the node's main thread is still in start()
+    (under load, Thread.start waits while the first worker already
+    heartbeats) stops it with exit 0, as one that lands while it serves."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    with ServerThread(port=0, device="cpu") as st:
+        p = subprocess.Popen(
+            [sys.executable, "-c", _SLOW_START_NODE, "--address", st.address, "--workers", "2",
+             "--poll-interval", "0.05"],
+            env=env, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        )
+        c = RemoteRedisson(st.address, timeout=30.0)
+        try:
+            end = time.time() + 60
+            while _active_workers(c) < 1:
+                assert time.time() < end and p.poll() is None
+                time.sleep(0.1)
+        finally:
+            c.shutdown()
+            p.send_signal(signal.SIGINT)
+            rc = p.wait(timeout=20)
+            err = p.stderr.read().decode(errors="replace")
+            p.stderr.close()
+        assert rc == 0, err[-2000:]
+
+
 # -- the host paths the port reworked: geo's packed coordinates, the stream's
 # -- bisected group reads ---------------------------------------------------------
 

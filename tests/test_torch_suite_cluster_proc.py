@@ -8,11 +8,11 @@ import pytest
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_cross_process_kill_mid_drain_smoke": "M11 (the chaos soak harness, migrate_slots)",
-    "test_cross_process_kill_at_every_phase": "M11 (the chaos soak harness, migrate_slots)",
-    "test_cross_process_target_kill_mid_drain_smoke": "M11 (the chaos soak harness, migrate_slots)",
-    "test_cross_process_double_kill_at_every_phase": "M11 (the chaos soak harness, migrate_slots)",
-    "test_fleet_soak_two_cycles_every_phase": "M11 (the fleet soak harness)",
+    "test_cross_process_kill_mid_drain_smoke": "M11 part 6b (the chaos soak harness, migrate_slots)",
+    "test_cross_process_kill_at_every_phase": "M11 part 6b (the chaos soak harness, migrate_slots)",
+    "test_cross_process_target_kill_mid_drain_smoke": "M11 part 6b (the chaos soak harness, migrate_slots)",
+    "test_cross_process_double_kill_at_every_phase": "M11 part 6b (the chaos soak harness, migrate_slots)",
+    "test_fleet_soak_two_cycles_every_phase": "M11 part 6b (the fleet soak harness)",
 }
 
 globals().update(_torch_port_suite.load("test_cluster_proc", WAITING, __name__))

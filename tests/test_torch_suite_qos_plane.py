@@ -6,8 +6,7 @@ from tests import _torch_port_suite
 from tests._torch_port_suite import devices  # noqa: F401  (the fixture)
 
 WAITING = {
-    "test_scheduler_census_tracked_and_drains": "M11 (the chaos census, chaos/census.py)",
-    "test_qos_soak_profile": "M11 (the chaos soak, chaos/soak.py)",
+    "test_qos_soak_profile": "M11 part 6b (the chaos soak, chaos/soak.py)",
 }
 
 globals().update(_torch_port_suite.load("test_qos_plane", WAITING, __name__))

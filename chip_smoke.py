@@ -322,7 +322,22 @@ Phases (any failure raises and the script exits non-zero):
      the CPU's top-k, and memory_allocated returns to its level; (d) a
      BFA.MEXISTS64 frame's p50 with no plane and with an empty one,
      tools/chaos_overhead_bench's shipped/stripped ratio, and K25's
-     DEVPROBE ping (printed on the torch_ops line);
+     DEVPROBE ping (printed on the torch_ops line); last the soak path
+     (run_soak: chaos/soak.py's harnesses on 8 positions of the card, their
+     own assertions the gates, each engine checked on the card before its
+     leg's workload): (a) the standard profile, SoakHarness(SoakConfig(
+     cycles=1, seconds_per_phase=1.0, positions=8)): a 2-master cluster
+     with a replica each under transport faults, a master kill, failover
+     and recovery, zero acked writes lost, and the embedded sharded bloom
+     array (dp 2 x shard 4) resharded 4 -> 8 -> 4 with every acked add
+     found, a flat census; (b) the device-shard profile,
+     DeviceShardSoakHarness(DeviceShardSoakConfig(cycles=1, positions=8)):
+     one server on 8 positions, its slot table rebalanced 8 -> 4 -> 8 under
+     bucket and bloom traffic and tracked readers, no acked write lost, no
+     stale tracked read, the lane census flat, host_colocations 0; each
+     report's summary, each leg's wall seconds, memory_allocated before and
+     after the path, and the windowed launches (the sharded bloom array's)
+     counted as the sharded path counts them;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -458,7 +473,7 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add"),
                 "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "residency": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "faults": ("bloom_probe",)}
+                "faults": ("bloom_probe",), "soak": ("bloom_probe",)}
 FPP = 0.01
 
 
@@ -8407,6 +8422,114 @@ def run_faults(device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the soak path: two of chaos/soak.py's harnesses on 8 positions of the card
+# --------------------------------------------------------------------------
+
+SK_POSITIONS = 8
+
+
+def sk_engines(harness) -> list:
+    """The engines a soak harness built: its cluster's nodes, its server,
+    its embedded client."""
+    runner = getattr(harness, "_runner", None)
+    nodes = runner.masters + runner.replicas if runner is not None else []
+    server = getattr(harness, "_server", None)
+    embedded = getattr(harness, "_embedded", None)
+    return ([n.server.server.engine for n in nodes] + ([server.server.engine] if server is not None else [])
+            + ([embedded._engine] if embedded is not None else []))
+
+
+def sk_leg(name: str, harness, device, card: str, timed=()) -> dict:
+    """Run one harness; its setup is checked to have put every engine on
+    `device` before the leg's workload starts, and each method named in
+    `timed` has its wall seconds a call recorded.  A failed assertion of
+    the harness is not caught: it fails the script."""
+    setup, kind = harness._setup, torch.device(device).type
+    steps = {m: [] for m in timed}
+
+    def timing(method, fn):
+        def run(*a, **k):
+            s = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                steps[method].append(time.perf_counter() - s)
+        return run
+
+    for m in timed:
+        setattr(harness, m, timing(m, getattr(harness, m)))
+
+    def checked_setup():
+        setup()
+        engines = sk_engines(harness)
+        where = sorted({e.device.type for e in engines})
+        if not engines or where != [kind]:
+            raise AssertionError(f"soak {name}: the harness's engines are on {where}, not {kind}")
+
+    harness._setup = checked_setup
+    s = time.perf_counter()
+    report = harness.run()
+    seconds = time.perf_counter() - s
+    log(f"soak {name} [{card}]: {seconds:.1f} s{''.join(f', {m} {v} s' for m, v in steps.items())}: "
+        f"{report.summary()}")
+    return {"seconds": seconds, "summary": report.summary(), "report": report, **steps}
+
+
+def run_soak(device="cuda") -> dict:
+    """The soak path, last: (a) the standard profile (transport faults, a
+    master kill, failover and recovery, the embedded sharded bloom array
+    resharded 4 -> 8 -> 4) and (b) the device-shard profile (one server on
+    8 positions, the slot table rebalanced 8 -> 4 -> 8), both on 8
+    positions of the card, the harnesses' own assertions the gates."""
+    from redisson_tpu_torch.chaos import soak
+    from redisson_tpu_torch.core import kernels as K
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    on_card = torch.device(device).type == "cuda"
+    out = {"memory_allocated_before": torch.cuda.memory_allocated() if on_card else 0}
+    a = sk_leg("standard", soak.SoakHarness(soak.SoakConfig(
+        cycles=1, seconds_per_phase=1.0, device=device, positions=SK_POSITIONS)), device, card,
+        timed=("_kill_failover_recover", "_bloom_phase"))
+    ra = a.pop("report")
+    if ra.cycles_completed != 1 or not ra.failovers or not ra.verified_writes \
+            or not ra.bloom_keys_verified or len(ra.census) != 1:
+        raise AssertionError(f"soak standard: {ra.summary()}")
+    out["standard"] = {**a, "acked_writes": ra.acked_writes, "verified_writes": ra.verified_writes,
+                       "errors": ra.errors, "failovers": len(ra.failovers),
+                       "bloom_keys_verified": ra.bloom_keys_verified, "injected_faults": ra.injected_faults}
+    b = sk_leg("device_shard", soak.DeviceShardSoakHarness(soak.DeviceShardSoakConfig(
+        cycles=1, device=device, positions=SK_POSITIONS)), device, card, timed=("_rebalance",))
+    rb = b.pop("report")
+    if rb.cycles_completed != 1 or rb.rebalances != 2 or rb.stale_reads or rb.host_colocations \
+            or not rb.bloom_keys_verified:
+        raise AssertionError(f"soak device_shard: {rb.summary()}")
+    out["device_shard"] = {**b, "writes_acked": rb.writes_acked, "reads": rb.reads, "errors": rb.errors,
+                           "rebalances": rb.rebalances, "records_moved": rb.records_moved,
+                           "bloom_keys_verified": rb.bloom_keys_verified,
+                           "host_colocations": rb.host_colocations}
+    out["launches"] = dict(K.launches)
+    out["window_launches"] = dict(K.window_launches)
+    # the reshard leg's sharded bloom array: windowed probes and sets
+    missing = [k for k in ("bloom_probe", "bloom_set") if out["window_launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"soak: the path never launched the windowed {missing}")
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        out["memory_allocated_after"] = torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+    else:
+        out["memory_allocated_after"] = 0
+    out["seconds"] = time.perf_counter() - start
+    log(f"soak path [{card}]: {out['seconds']:.1f}s (standard {a['seconds']:.1f} s, device_shard "
+        f"{b['seconds']:.1f} s); memory_allocated {out['memory_allocated_before']} before the path, "
+        f"{out['memory_allocated_after']} after; window launches {out['window_launches']}")
+    return out
+
+
 def collections_stream(client, rng) -> list:
     """An op stream through each collection family of create(): lists, the
     queues, the sets, the scored sorted set, multimaps, topics, adders, Keys
@@ -8719,7 +8842,8 @@ def main() -> int:
                       ("replication", lambda: run_replication()),
                       ("migration", lambda: run_migration()),
                       ("residency", lambda: run_residency()),
-                      ("faults", lambda: run_faults())):
+                      ("faults", lambda: run_faults()),
+                      ("soak", lambda: run_soak())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -8728,7 +8852,8 @@ def main() -> int:
             main_launches[k] += v
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
-    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency", "faults"):
+    for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency", "faults",
+                 "soak"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]
@@ -8764,8 +8889,8 @@ def main() -> int:
     for name in window:
         base = name.split()[0]
         sources[name] = (sources[base][0], SH_WINDOW_REPLACES[base])
-        main_launches[name] = paths["sharded"]["window_launches"][base]
-        by_path[name] = {"sharded": main_launches[name]}
+        by_path[name] = {path: paths[path]["window_launches"][base] for path in ("sharded", "soak")}
+        main_launches[name] = sum(by_path[name].values())
     # K19, the sharded banks' merge: one knn_select launch a merge, its own
     # row (its launches the merges of the sharded_vector path)
     k19 = paths["sharded_vector"].pop("k19")

@@ -10,8 +10,9 @@ lanes (``core/ioplane.LaneSet``) at the same time.
 Rebalancing is online and FENCED: a device move is a slot handoff inside
 one process, with the epoch discipline of the journaled slot migrations:
 ``fence()`` refuses a lower epoch with STALEEPOCH, and a re-issue at the
-recorded epoch is idempotent.  The journaled rebalance driver
-(``rebalance_devices``) comes with ``server/migration.py`` (ROADMAP M11).
+recorded epoch is idempotent.  The journaled rebalance driver is
+``server/migration.rebalance_devices`` (with ``resume_device_rebalances``
+and ``evacuate_device``).
 
 Placement is opt-in (``Engine.enable_placement`` / ``devices=`` /
 ``--devices``): with it off, nothing here runs.

@@ -3,9 +3,10 @@ RSet / RList / RDeque wire surface): a copy of
 ``redisson_tpu/server/verbs/collections.py``.
 
 BLMPOP and BZMPOP live here too: the reference registers them in
-``server/verbs/admin.py``, a module the port has not ported yet (ROADMAP
-M11); their handlers are the reference's.  The blocking verbs run on the
-server's slow pool (``server.py`` ``_SLOW_COMMANDS``).
+``server/verbs/admin.py``; the port keeps them beside the blocking list
+and sorted-set pops they share their loop with, and their handlers are the
+reference's.  The blocking verbs run on the server's slow pool
+(``server.py`` ``_SLOW_COMMANDS``).
 """
 
 

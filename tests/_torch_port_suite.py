@@ -3,12 +3,14 @@
 ``load(module, waiting)`` executes the source of ``tests/<module>.py`` in a
 fresh namespace whose imports of ``redisson_tpu`` and its submodules bind
 the port's modules of the same path under ``redisson_tpu_torch`` (the
-module-level imports and the ones inside test bodies alike), with seven
+module-level imports and the ones inside test bodies alike), with these
 defaults changed for the CPU: ``ServerThread`` and ``TpuServer`` (from
 ``redisson_tpu.server`` and its ``server`` module), ``redisson_tpu.create``,
 ``RedissonTpu.create``,
 ``KernelMapReduce``, the harness's ``ClusterRunner`` and ``Engine`` put
-their state on the CPU unless the test asks for a device.  Importing this
+their state on the CPU unless the test asks for a device, and each of
+``redisson_tpu.chaos.soak``'s twelve ``*SoakConfig`` is a subclass whose
+``device`` is the CPU.  Importing this
 module gives the CPU 8 mesh positions (``parallel/mesh.set_cpu_positions``),
 as the reference's tests/conftest.py gives JAX 8 host devices.  A module the port does not have yet binds a stand-in whose every
 attribute raises NotImplementedError, so a test that reaches one fails
@@ -20,6 +22,7 @@ globals, where pytest collects them.
 from __future__ import annotations
 
 import builtins
+import dataclasses
 import importlib
 import signal
 import threading
@@ -31,6 +34,7 @@ import pytest
 
 import redisson_tpu_torch
 from redisson_tpu_torch import harness as _port_harness
+from redisson_tpu_torch.chaos import soak as _port_soak
 from redisson_tpu_torch.client import redisson as _port_redisson
 from redisson_tpu_torch.parallel import mesh as _port_mesh
 from redisson_tpu_torch.core import engine as _port_engine
@@ -107,6 +111,20 @@ class CpuKernelMapReduce(_port_mapreduce.KernelMapReduce):
         super().__init__(map_fn, reduce, n_keys, device)
 
 
+def _cpu_soak_config(cls):
+    """The soak config `cls` with its ``device`` defaulting to the CPU."""
+    return dataclasses.make_dataclass(
+        cls.__name__, [("device", str, dataclasses.field(default="cpu"))],
+        bases=(cls,), namespace={"__doc__": cls.__doc__, "__module__": __name__},
+    )
+
+
+CPU_SOAK_CONFIGS = {
+    name: _cpu_soak_config(getattr(_port_soak, name))
+    for name in dir(_port_soak) if name.endswith("SoakConfig")
+}
+
+
 class _Missing(types.ModuleType):
     def __getattr__(self, name):
         if name.startswith("__"):
@@ -142,6 +160,8 @@ def _port_module(name: str):
         mod = _Shim(mod, ClusterRunner=CpuClusterRunner)
     elif name == "redisson_tpu.core.engine":
         mod = _Shim(mod, Engine=CpuEngine)
+    elif name == "redisson_tpu.chaos.soak":
+        mod = _Shim(mod, **CPU_SOAK_CONFIGS)
     _SHIMS[name] = mod
     return mod
 

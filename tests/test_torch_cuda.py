@@ -10,6 +10,11 @@ them; from the repository root:
 (--noconftest: tests/conftest.py sets up JAX for the other test files.)
 Plain versus JAX is covered on the CPU by tests/test_torch_kernels.py.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -1587,12 +1592,58 @@ def test_kmeans_update_equals_the_float32_row_order_reference(dev, shape):
     assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
 
 
+# A child's tracing loop: `make(case)` (defined before it) gives the call;
+# the child prints, a case each, its kernel count, null for an empty trace.
+_CHILD_TRACE = """
+import json, sys
+from torch.profiler import ProfilerActivity, profile
+out = []
+for case in json.loads(sys.argv[1]):
+    fn = make(case)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out.append(len([x for x in names if not x.startswith(("Memset", "Memcpy"))]) or None)
+print(json.dumps(out))
+"""
+
+
+def _kernels_a_call_in_children(make_src: str, cases, attempts=3) -> dict:
+    """The kernels one call launches for each case, traced by torch.profiler
+    in a short child process (in a long process, such as this whole file
+    run at once, its traces come back empty after the first few); a case
+    whose trace came back empty is traced again in a fresh child, up to
+    `attempts` children.  `make_src` defines make(case) -> the call, with
+    torch, torch.device "cuda" as dev and kernels as K in scope."""
+    head = ("import torch\nfrom redisson_tpu_torch.core import kernels as K\n"
+            "dev = torch.device('cuda')\n")
+    counts, left = {}, [list(c) for c in cases]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for _ in range(attempts):
+        out = subprocess.run([sys.executable, "-c", head + make_src + _CHILD_TRACE, json.dumps(left)],
+                             capture_output=True, text=True, timeout=600, cwd=root)
+        assert out.returncode == 0, out.stderr[-4000:]
+        counts.update(zip(map(tuple, left), json.loads(out.stdout.strip().splitlines()[-1])))
+        left = [list(c) for c, v in counts.items() if v is None]
+        if not left:
+            break
+    return counts
+
+
 def test_kmeans_update_launches_at_most_two_kernels(dev):
-    for n, w, nlist in ((50000, 128, 1536), (3000, 1024, 5), (1, 7, 1)):
-        p, c = torch.randn((n, w), device=dev), torch.randn((nlist, w), device=dev)
-        wt = torch.ones(n, device=dev)
-        a = torch.randint(0, nlist, (n,), dtype=torch.int32, device=dev)
-        assert 1 <= len(_kernels_a_call(lambda: K.kmeans_update(p, wt, c, a))) <= 2, (n, w, nlist)
+    counts = _kernels_a_call_in_children("""
+def make(case):
+    n, w, nlist = case
+    p, c = torch.randn((n, w), device=dev), torch.randn((nlist, w), device=dev)
+    wt = torch.ones(n, device=dev)
+    a = torch.randint(0, nlist, (n,), dtype=torch.int32, device=dev)
+    return lambda: K.kmeans_update(p, wt, c, a)
+""", ((50000, 128, 1536), (3000, 1024, 5), (1, 7, 1)))
+    for case, n in counts.items():
+        assert n is not None and 1 <= n <= 2, (case, n)
 
 
 def _replies_agree(a, b, tol=1e-4):

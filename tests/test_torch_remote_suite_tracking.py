@@ -4,8 +4,6 @@ out and the slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_tracking_soak_migration_smoke": "M11 part 6b (the chaos soak harness, slot migration)",
-    "test_tracking_soak_kill_failover": "M11 part 6b (the chaos soak harness, failover)",
     # not waiting for a slice: its subprocess runs the source text
     # "from redisson_tpu.net.resp import ...", which no loader reaches;
     # tests/test_torch_resp.py holds the port's RTPU_NO_NATIVE codec

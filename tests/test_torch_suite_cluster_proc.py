@@ -1,19 +1,13 @@
 """The reference's tests/test_cluster_proc.py, unedited, on the port's
 process cluster (cluster.ClusterSupervisor spawning ``python -m
 redisson_tpu_torch.server --device cpu`` children;
-tests/_torch_port_suite.py).  ``WAITING`` names each test left out and the
-slice it waits for."""
+tests/_torch_port_suite.py, whose soak configs default to the CPU too).
+Every test runs: none waits for a slice."""
 import pytest
 
 from tests import _torch_port_suite
 
-WAITING = {
-    "test_cross_process_kill_mid_drain_smoke": "M11 part 6b (the chaos soak harness, migrate_slots)",
-    "test_cross_process_kill_at_every_phase": "M11 part 6b (the chaos soak harness, migrate_slots)",
-    "test_cross_process_target_kill_mid_drain_smoke": "M11 part 6b (the chaos soak harness, migrate_slots)",
-    "test_cross_process_double_kill_at_every_phase": "M11 part 6b (the chaos soak harness, migrate_slots)",
-    "test_fleet_soak_two_cycles_every_phase": "M11 part 6b (the fleet soak harness)",
-}
+WAITING = {}
 
 globals().update(_torch_port_suite.load("test_cluster_proc", WAITING, __name__))
 

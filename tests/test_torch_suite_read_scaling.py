@@ -4,8 +4,6 @@ slice it waits for."""
 from tests import _torch_port_suite
 
 WAITING = {
-    "test_read_scale_soak_smoke": "M11 part 6b (the chaos soak harness, chaos/soak.py)",
-    "test_read_scale_soak_kill_failover": "M11 part 6b (the chaos soak harness, failover)",
     # not waiting for a slice: its subprocess runs the source text
     # "from redisson_tpu.harness import ...", which no loader reaches;
     # tests/test_torch_replication.py drives the same read stream against

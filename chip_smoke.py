@@ -311,8 +311,8 @@ Phases (any failure raises and the script exits non-zero):
      rows; DEVPROBE [0, 1]; DEVEVACUATE moves its slots and the bank to a
      survivor; every acked key found; DEVPROBE [1, 0] once the plane is
      cleared; every reply a CPU server's (8 CPU positions) for the same
-     stream and schedule; (b) lane-watchdog-ms 50 and the card's stream
-     stalled ~2 s by torch.cuda._sleep (calibrated by CUDA events): a
+     stream and schedule; (b) lane-watchdog-ms 50 and the owner lane's
+     stream stalled ~2 s by torch.cuda._sleep (calibrated by CUDA events): a
      100,000-key BFA.MEXISTS64 frame replies -TRYAGAIN within 0.5 s, the
      owner's lane records watchdog_timeout, and once the stall drains the
      next frames reply as the CPU's and DEVPROBE passes; (c) a ballast
@@ -337,7 +337,33 @@ Phases (any failure raises and the script exits non-zero):
      stale tracked read, the lane census flat, host_colocations 0; each
      report's summary, each leg's wall seconds, memory_allocated before and
      after the path, and the windowed launches (the sharded bloom array's)
-     counted as the sharded path counts them;
+     counted as the sharded path counts them; last the multicard path
+     (run_multicard): (a) on any card count, a devices=8 server with its
+     positions on one card, each lane on a CUDA stream of its own: position
+     0's lane spins ~500 ms under a 50 ms lane watchdog while positions 1-7
+     serve 12 BF.MEXISTS64 frames of 10,000 keys each on their own
+     connections: every one replies before the spin ends (p50/p99 printed),
+     equal to a CPU server's, and only position 0's lane trips (a future
+     behind the spin raises LaneWatchdogTimeout, a frame to position 0
+     replies -TRYAGAIN); then a 1M-key filter made off the lanes is deleted
+     while position 1's probe of it waits behind a spin, a buffer of its
+     size filled with ones is allocated, and the plane's block is not handed
+     out under the probe, whose flags equal the plain version's; (b) on two
+     or more cards, a devices=8 server round robin over every card holding
+     config 2's bank and config 3's counters: PFMERGE, PFCOUNT and BITOP
+     across cards equal a CPU server's with no value through the host; a
+     live rebalance 8 -> 4 -> 8 (positions 4-7's slots to positions on
+     other cards, then back) under a BF.MADD64 writer: each step's seconds,
+     bytes moved by peer copies and GB/s, every acked key read back, every
+     record's tensors on its owner's card; the bank and counters then equal
+     one card's bit for bit; the mixed stream RESP2 and RESP3 equal a CPU
+     server's; sharded config 2 and 3 (dp 2 x shard 4 over the cards) equal
+     one-card objects; the sharded_vector path over the cards; config 5d's
+     ops/s on every card beside one card's, replies bit-identical;
+     host_colocations 0.  On one card leg (b) prints that it needs two cards
+     and saw one, which is not a pass of it.  The earlier paths with
+     positions (sharded, sharded_vector, migration, residency, faults,
+     soak) pass cuda:0, so their positions stay on one card;
   5. a small op stream and an RBatch stream through every batch verb
      (overlapped and serial, skip_result, atomic) through create() on the
      card and on the CPU: equal replies and equal final states; and
@@ -473,7 +499,10 @@ PATH_KERNELS = {"config2": ("bloom_add", "bloom_probe"), "config2_batch": ("bloo
                 "warm": ("bloom_probe", "hll_add", "hll_rows"), "replication": ("bloom_probe", "hll_add"),
                 "migration": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
                 "residency": ("bloom_probe", "hll_add", "hll_rows", "bitset_get", "bitset_set"),
-                "faults": ("bloom_probe",), "soak": ("bloom_probe",)}
+                "faults": ("bloom_probe",), "soak": ("bloom_probe",), "multicard": ("bloom_probe",)}
+# what leg (b) of the multicard path must launch on two or more cards
+MC_CARD_KERNELS = ("bloom_probe", "bloom_set", "hll_add", "hll_rows", "bitset_get", "bitset_set", "knn_score",
+                   "knn_select")
 FPP = 0.01
 
 
@@ -5329,7 +5358,7 @@ def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in K.launches.items() if v > before[k]}
 
 
-def sharded_config2(client, card: str) -> tuple:
+def sharded_config2(client, card: str, where: str = "one card") -> tuple:
     """Config 2's bank as a ShardedBloomFilterArray beside an unsharded
     BloomFilterArray of the same m and k: 100k-op add flushes, then 100k-op
     contains flushes (half present keys, half absent), flags equal flush by
@@ -5380,7 +5409,7 @@ def sharded_config2(client, card: str) -> tuple:
     assert_equal("sharded config2 plane (gathered) against the unsharded bank",
                  rec.arrays["bits"].gather(), client.engine.store.get("sh:c2u").arrays["bits"])
     out = {"bank": f"{C2_TENANTS}x{sbf.get_size()}, k {sbf.get_hash_iterations()}",
-           "mesh": f"dp {SH_DP} x shard {SH_SHARD} over {SH_POSITIONS} positions of one card",
+           "mesh": f"dp {SH_DP} x shard {SH_SHARD} over {SH_POSITIONS} positions of {where}",
            "add_flushes": SH_C2_ADDS, "contains_flushes": SH_C2_PROBES, "flush_ops": C2_FLUSH,
            **{f"{k.replace(' ', '_')}_p50_ms": pctl(v, 50) * 1e3 for k, v in lat.items()},
            "launches_a_flush": launches_a_flush}
@@ -6213,6 +6242,17 @@ def durability_wire(dev, wdir: str, card: str) -> dict:
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def allocated() -> int:
+    """torch.cuda.memory_allocated once the blocks freed behind other
+    streams' work are settled: a tensor used on another stream than its own
+    (a record claimed by a lane, DeviceStore.claim) is handed back by the
+    caching allocator at its next allocation after that work passed, so
+    sync the card and allocate a byte first."""
+    torch.cuda.synchronize()
+    torch.empty(1, device="cuda")
+    return torch.cuda.memory_allocated()
 
 
 def run_durability(device="cuda") -> dict:
@@ -7701,13 +7741,13 @@ def _rs_tier_cycle(conn, server, name: str, probe, want, cpu_reply, device, card
         nbytes = sum(int(t.nbytes) for t in server.engine.store.get_unguarded(name).arrays.values())
         on_card = torch.device(device).type == "cuda"
         _sync(torch.device(device))
-        m0 = torch.cuda.memory_allocated() if on_card else 0
+        m0 = allocated() if on_card else 0
         s = time.perf_counter()
         cmd = ("CLUSTER", "RESIDENCY", "DEMOTE", name) + (("COLD",) if cold else ())
         if conn.execute(*cmd) != 1:
             raise AssertionError(f"residency tiers: {' '.join(cmd)} did not demote")
         demote_s = time.perf_counter() - s
-        m1 = torch.cuda.memory_allocated() if on_card else 0
+        m1 = allocated() if on_card else 0
         tier = conn.execute("CLUSTER", "RESIDENCY", "TIER", name)
         if tier != (b"cold" if cold else b"warm") or (on_card and m1 > m0 - nbytes):
             raise AssertionError(f"residency tiers: {name} is {tier}, memory_allocated {m0} -> {m1} "
@@ -7717,7 +7757,7 @@ def _rs_tier_cycle(conn, server, name: str, probe, want, cpu_reply, device, card
         got = conn.execute(*probe)
         first_s = time.perf_counter() - s
         _sync(torch.device(device))
-        m2 = torch.cuda.memory_allocated() if on_card else 0
+        m2 = allocated() if on_card else 0
         if len(mgr.fault_in_samples) != n0 + 1:
             raise AssertionError(f"residency tiers: the probe of {name} did not fault it in once")
         rec = server.engine.store.get_unguarded(name)
@@ -7931,12 +7971,12 @@ def rs_vector(device, card: str) -> dict:
         budget = bloom_bytes + bank_bytes + 4096
         R.set_device_budget_bytes(budget)
         _sync(torch.device(device))
-        m0 = torch.cuda.memory_allocated() if torch.device(device).type == "cuda" else 0
+        m0 = allocated() if torch.device(device).type == "cuda" else 0
         s = time.perf_counter()
         fill(256)  # one doubling: demote first
         grow_s = time.perf_counter() - s
         warm = [n for n in blooms if mgr.tier_of(n) == R.WARM]
-        m1 = torch.cuda.memory_allocated() if torch.device(device).type == "cuda" else 0
+        m1 = allocated() if torch.device(device).type == "cuda" else 0
         if not warm or mgr.tier_of(bank) != R.HOT:
             raise AssertionError(f"residency vector: growth demoted {warm}, the bank is {mgr.tier_of(bank)}")
         try:
@@ -8005,8 +8045,12 @@ FA_FRAME, FA_POSITIONS = C2_FLUSH, 8
 FA_STALL_MS, FA_WATCHDOG_MS, FA_TRIP_S, FA_CAL_CYCLES = 2000.0, 50, 0.5, 50_000_000
 # leg c: a FLAT bank of FA_OOM_ROWS rows of FA_OOM_DIM floats, FA_OOM_MORE
 # rows left pending (fewer than the bank's block, so the search's flush
-# grows it: to twice the rows), FA_OOM_MARGIN bytes of the card left free
-FA_OOM_DIM, FA_OOM_ROWS, FA_OOM_MORE, FA_OOM_MARGIN = 512, 8192, 255, 8 << 20
+# grows it: to twice the rows), FA_OOM_MARGIN bytes of the card left free:
+# less than the growth's 33.6 MB, and room for the search's small tensors
+# (the caching allocator gives each stream that allocates them a 2 MiB
+# segment of its own, and the search touches its lane's stream and the
+# default one)
+FA_OOM_DIM, FA_OOM_ROWS, FA_OOM_MORE, FA_OOM_MARGIN = 512, 8192, 255, 16 << 20
 # leg d: frames timed a variant, K25 probes timed
 FA_P50_FRAMES, FA_PINGS = 40, 200
 FA_TRYAGAIN = b"-TRYAGAIN device fault during dispatch; retry\r\n"
@@ -8139,11 +8183,12 @@ def _fa_check_injected(got: list, victim: int) -> None:
 
 
 def fa_stall(server, wire, mixed, want: list, card: str) -> dict:
-    """Leg b: lane-watchdog-ms 50; the card's stream stalled ~2 s by
-    torch.cuda._sleep (its cycles calibrated by CUDA events); a
-    BFA.MEXISTS64 frame replies -TRYAGAIN within 0.5 s and the owner's lane
-    records watchdog_timeout; once the stall drains, the mixed frames
-    reply as the CPU's and DEVPROBE passes."""
+    """Leg b: lane-watchdog-ms 50; the owner lane's stream stalled ~2 s by
+    torch.cuda._sleep launched under the lane's occupancy (its cycles
+    calibrated by CUDA events); a BFA.MEXISTS64 frame replies -TRYAGAIN
+    within 0.5 s and the owner's lane records watchdog_timeout; once the
+    stall drains, the mixed frames reply as the CPU's and DEVPROBE
+    passes."""
     from redisson_tpu_torch.utils.crc16 import calc_slot
 
     owner = int(server.engine.placement.owner_snapshot()[calc_slot(b"fa:c2")])
@@ -8162,9 +8207,10 @@ def fa_stall(server, wire, mixed, want: list, card: str) -> dict:
         faults0 = lane.total_faults
         s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        s0.record()
-        torch.cuda._sleep(int(cycles_per_ms * FA_STALL_MS))
-        s1.record()
+        with lane.occupy(1):  # the spin on the owner lane's own stream
+            s0.record()
+            torch.cuda._sleep(int(cycles_per_ms * FA_STALL_MS))
+            s1.record()
         reply = wire.wave([mixed[0]])
         trip_s = time.perf_counter() - t0
         tripped = (lane.total_faults - faults0, lane.last_fault_kind)
@@ -8213,10 +8259,24 @@ def fa_oom_cmds() -> tuple:
 
 
 def _fa_load(wire, create, rows, more) -> None:
-    for cmds in ([create], *(rows[i:i + 512] for i in range(0, len(rows), 512)), more):
+    for cmds in ([create] if create is not None else [], *(rows[i:i + 512] for i in range(0, len(rows), 512)),
+                 more):
         bad = [r for r in (wire.wave(cmds) if cmds else []) if r.startswith(b"-")]
         if bad:
             raise AssertionError(f"faults oom: the load replied {bad[0]}")
+
+
+def _fa_build(wire, cmds) -> None:
+    """Leg c's bank: its FA_OOM_ROWS rows, then a search (the index syncs
+    its rows into the bank at a search: FA_OOM_ROWS rows, its capacity),
+    then FA_OOM_MORE rows that wait for the next search, whose flush grows
+    the bank to twice its rows."""
+    create, rows, more, knn = cmds
+    _fa_load(wire, create, rows, [])
+    built = wire.wave([knn])
+    if built[0].startswith(b"-"):
+        raise AssertionError(f"faults oom: the search that builds the bank replied {built[0][:120]}")
+    _fa_load(wire, None, [], more)
 
 
 def fa_oom_cpu(cmds) -> list:
@@ -8229,7 +8289,7 @@ def fa_oom_cpu(cmds) -> list:
     with ServerThread(port=0, device="cpu", devices=FA_POSITIONS, workers=4) as st:
         wire = _FaWire(st.server)
         try:
-            _fa_load(wire, create, rows, more)
+            _fa_build(wire, cmds)
             sched = FaultSchedule(26)
             sched.add("device_oom", after=0, count=1)
             with sched.plane().active():
@@ -8246,14 +8306,18 @@ def fa_oom(wire, cmds, want: list, card: str) -> dict:
     the connection lives; the ballast freed, the retry lands with the CPU's
     top-k; FT.DROPINDEX DD returns memory_allocated to its level before
     (measured after one small index's create, search and drop: knn_select
-    keeps a few bytes of state a device and stream from its first call)."""
+    keeps a few bytes of state a device and stream from its first call, and
+    each lane has a stream of its own, so the level is held net of that
+    state, kernels.launch_state_bytes)."""
+    from redisson_tpu_torch.core import kernels as K
+
     create, rows, more, knn = cmds
     warm = ["fw" if a == "fx" else "fw:" if a == "fx:" else a for a in create]
     _fa_load(wire, tuple(warm), [("HSET", f"fw:{i}", "emb", rows[i][3]) for i in range(8)], [])
     wire.wave([("FT.SEARCH", "fw", *knn[2:]), ("FT.DROPINDEX", "fw", "DD")])
     gc.collect()
-    m0 = torch.cuda.memory_allocated()
-    _fa_load(wire, create, rows, more)
+    m0 = allocated() - sum(K.launch_state_bytes().values())
+    _fa_build(wire, cmds)
     growth = 2 * FA_OOM_ROWS * (FA_OOM_DIM * 4 + 4)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -8264,14 +8328,30 @@ def fa_oom(wire, cmds, want: list, card: str) -> dict:
             ballast = torch.empty(size, dtype=torch.uint8, device="cuda")
         except torch.OutOfMemoryError:
             size -= 2 << 20
+    # the caching allocator may still hold free blocks of the growth's
+    # size inside segments a live tensor keeps (empty_cache returns whole
+    # segments only); the growth allocates on the default stream, as these
+    # do, so they are taken too, until a block of the bank's size is
+    # nowhere to be had
+    bank_bytes = 2 * FA_OOM_ROWS * FA_OOM_DIM * 4
+    absorbed = []
+    while True:
+        try:
+            absorbed.append(torch.empty(bank_bytes, dtype=torch.uint8, device="cuda"))
+        except torch.OutOfMemoryError:
+            break
     left = torch.cuda.mem_get_info()[0]
-    log(f"faults oom [{card}]: free {free} of {total} bytes; ballast {size} bytes; {left} bytes left for a "
-        f"growth of {growth} bytes")
+    log(f"faults oom [{card}]: free {free} of {total} bytes; ballast {size} bytes and {len(absorbed)} cached "
+        f"blocks of {bank_bytes}; {left} bytes left for a growth of {growth} bytes; reserved "
+        f"{torch.cuda.memory_reserved()}, allocated {torch.cuda.memory_allocated()}")
     try:
         oom = wire.wave([knn])
+        after = (torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved(), torch.cuda.memory_allocated())
         pong = wire.wave([("PING",)])
     finally:
-        del ballast
+        del ballast, absorbed
+    log(f"faults oom [{card}]: after the search {after[0]} bytes free, reserved {after[1]}, allocated "
+        f"{after[2]}")
     retry = wire.wave([knn])
     if oom[0] != want[0] or not oom[0].startswith(b"-OOM device out of memory growing vector bank"):
         raise AssertionError(f"faults oom: the search replied {oom[0][:120]}, the CPU's injected {want[0][:120]}")
@@ -8282,11 +8362,12 @@ def fa_oom(wire, cmds, want: list, card: str) -> dict:
         raise AssertionError("faults oom: FT.DROPINDEX")
     gc.collect()
     torch.cuda.synchronize()
-    m1 = torch.cuda.memory_allocated()
+    m1 = allocated() - sum(K.launch_state_bytes().values())
     if m1 != m0:
-        raise AssertionError(f"faults oom: memory_allocated {m0} before the leg, {m1} after")
+        raise AssertionError(f"faults oom: memory_allocated net of the launch state {m0} before the leg, "
+                             f"{m1} after")
     log(f"faults oom [{card}]: FT.SEARCH replied {oom[0][:-2].decode()}; PING answered; the ballast freed, "
-        f"the retry's top-k equals the CPU's; memory_allocated {m0} before and after")
+        f"the retry's top-k equals the CPU's; memory_allocated net of the launch state {m0} before and after")
     return {"free": free, "ballast": size, "left": left, "growth": growth, "memory_allocated": m0}
 
 
@@ -8489,7 +8570,7 @@ def run_soak(device="cuda") -> dict:
     start = time.perf_counter()
     card = card_line()
     on_card = torch.device(device).type == "cuda"
-    out = {"memory_allocated_before": torch.cuda.memory_allocated() if on_card else 0}
+    out = {"memory_allocated_before": allocated() if on_card else 0}
     a = sk_leg("standard", soak.SoakHarness(soak.SoakConfig(
         cycles=1, seconds_per_phase=1.0, device=device, positions=SK_POSITIONS)), device, card,
         timed=("_kill_failover_recover", "_bloom_phase"))
@@ -8519,7 +8600,7 @@ def run_soak(device="cuda") -> dict:
     gc.collect()
     if on_card:
         torch.cuda.synchronize()
-        out["memory_allocated_after"] = torch.cuda.memory_allocated()
+        out["memory_allocated_after"] = allocated()
         torch.cuda.empty_cache()
     else:
         out["memory_allocated_after"] = 0
@@ -8527,6 +8608,511 @@ def run_soak(device="cuda") -> dict:
     log(f"soak path [{card}]: {out['seconds']:.1f}s (standard {a['seconds']:.1f} s, device_shard "
         f"{b['seconds']:.1f} s); memory_allocated {out['memory_allocated_before']} before the path, "
         f"{out['memory_allocated_after']} after; window launches {out['window_launches']}")
+    return out
+
+
+# the multicard path (run_multicard): (a) a lane stream for each position,
+# on one card; (b) positions over every card of the host
+MC_POSITIONS = 8
+MC_WATCHDOG_MS, MC_SPIN_MS, MC_RACE_SPIN_MS = 50, 500, 100
+MC_FRAME_KEYS, MC_FRAMES = 10_000, 6      # a position 1-7 frame's keys; frames each while position 0 spins
+MC_FILTER_N = 200_000                     # each position's filter: capacity, and the keys added to it
+MC_RACE_N = 1 << 20                       # the DEL race's filter
+MC_WRITERS, MC_WRITER_FRAME = 16, 2_000   # the rebalance's writer: filters and keys a frame
+MC_C5D_CONNS = 8
+
+
+def one_card(device) -> str:
+    """`device` with its index: a path's positions on one card stay on it
+    on a host with several (parallel/mesh.local_devices)."""
+    d = torch.device(device)
+    return str(d if d.type != "cuda" or d.index is not None else torch.device("cuda", 0))
+
+
+def mc_names(placement, prefix: str) -> list:
+    """One name a position, each owned by that position."""
+    names = [None] * placement.n_devices
+    i = 0
+    while any(n is None for n in names):
+        n = f"{prefix}{i}"
+        p = placement.device_id_for_name(n)
+        if names[p] is None:
+            names[p] = n
+        i += 1
+    return names
+
+
+def mc_cycles_per_ms() -> float:
+    torch.cuda._sleep(1_000_000)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(FA_CAL_CYCLES)
+    e1.record()
+    e1.synchronize()
+    return FA_CAL_CYCLES / e0.elapsed_time(e1)
+
+
+def mc_setup(names, rng) -> tuple:
+    """Each position's filter filled with MC_FILTER_N keys, and each position
+    1-7's MC_FRAMES probe frames (half the keys present)."""
+    keys = {n: rng.integers(0, 1 << 62, MC_FILTER_N).astype(np.int64) for n in names}
+    cmds = [("BF.RESERVE", n, FPP, MC_FILTER_N) for n in names]
+    cmds += [("BF.MADD64", n, _i8(keys[n])) for n in names]
+    frames = {}
+    for p, n in enumerate(names):
+        fr = []
+        for _ in range(MC_FRAMES):
+            ks = np.concatenate([rng.choice(keys[n], MC_FRAME_KEYS // 2),
+                                 rng.integers(0, 1 << 62, MC_FRAME_KEYS - MC_FRAME_KEYS // 2)])
+            fr.append(("BF.MEXISTS64", n, _i8(ks)))
+        frames[p] = fr
+    return cmds, frames
+
+
+def mc_del_race(eng, name: str, cycles_per_ms: float) -> dict:
+    """A filter made off the lanes (its plane's block in the default
+    stream's pool) is probed on its owner's lane behind a spin; while the
+    probe waits, the record is deleted from outside the lane and a buffer
+    of the plane's size filled with ones is allocated on the default
+    stream.  The allocator must not hand the plane's block out under the
+    pending probe, and the probe's flags must equal the plain version's."""
+    from redisson_tpu_torch.client.objects.bloom import BloomFilter
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.core.engine import Engine
+
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 62, MC_RACE_N).astype(np.int64)
+    probe = np.concatenate([keys[: MC_RACE_N // 2], rng.integers(0, 1 << 62, MC_RACE_N // 2)]).astype(np.int64)
+    plain = Engine(device="cpu")
+    try:
+        pbf = BloomFilter(plain, name)
+        pbf.try_init(MC_RACE_N, FPP)
+        pbf.add_all(keys)
+        want = pbf.contains_each(probe)
+    finally:
+        plain.shutdown()
+    bf = BloomFilter(eng, name)
+    bf.try_init(MC_RACE_N, FPP)
+    bf.add_all(keys)
+    torch.cuda.synchronize()
+    plane = eng.store.get(name).arrays["bits"]
+    ptr, nbytes, dev = plane.data_ptr(), plane.numel(), plane.device
+    del plane
+    lane = eng.lanes.lane(eng.placement.devices[eng.placement.device_id_for_name(name)])
+    end = torch.cuda.Event()
+    with lane.occupy(1):
+        torch.cuda._sleep(int(cycles_per_ms * MC_RACE_SPIN_MS))
+        found, n = bf.contains_each_async(probe)
+        fut = ioplane.ReadbackFuture((found,), lambda h: K.unpack_found(h[0], n))
+        end.record()
+    if not eng.store.delete(name):
+        raise AssertionError("multicard DEL race: the record was not there to delete")
+    junk = torch.full((nbytes,), 255, dtype=torch.uint8, device=dev)
+    pending = not end.query()
+    reused = junk.data_ptr() == ptr
+    got = fut.result()
+    if not pending:
+        raise AssertionError("multicard DEL race: the probe had finished before the DEL; the race was not run")
+    if reused or not np.array_equal(got, want):
+        raise AssertionError(f"multicard DEL race: block reused under the probe {reused}, flags equal the plain "
+                             f"version's {np.array_equal(got, want)}")
+    del junk
+    return {"keys": MC_RACE_N, "probe": int(probe.size), "block_reused": reused}
+
+
+def mc_streams(card: str) -> dict:
+    """Leg (a), on any card count: a devices=8 server with every position on
+    one card.  Position 0's lane runs a MC_SPIN_MS device spin under a
+    MC_WATCHDOG_MS lane watchdog while positions 1-7 each serve MC_FRAMES
+    BF.MEXISTS64 frames on their own connections: every such frame replies
+    before the spin ends, equal to a CPU server's, and only position 0's
+    lane trips (a future made behind the spin, and a frame to position 0,
+    reply LaneWatchdogTimeout and -TRYAGAIN).  Then the DEL race
+    (mc_del_race) on position 1."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server import ServerThread
+
+    dev = one_card("cuda")
+    replies, out = {}, {}
+    for where in ("cpu", "card"):
+        rng = np.random.default_rng(301)
+        with ServerThread(port=0, device="cpu" if where == "cpu" else dev, devices=MC_POSITIONS,
+                          workers=16) as st:
+            eng = st.server.engine
+            names = mc_names(eng.placement, "mc:a")
+            cmds, frames = mc_setup(names, rng)
+            conns = [Connection(st.server.host, st.port, timeout=120.0) for _ in range(MC_POSITIONS)]
+            try:
+                setup = conns[0].execute_many(cmds)
+                if any(isinstance(r, Exception) for r in setup):
+                    raise AssertionError(f"multicard streams: setup failed ({where})")
+                if where == "cpu":
+                    replies["cpu"] = {p: conns[p].execute_many(frames[p]) for p in range(1, MC_POSITIONS)}
+                    continue
+                if {str(q.device) for q in eng.placement.devices} != {str(dev)}:
+                    raise AssertionError(f"multicard streams: positions on {eng.placement.devices}")
+                streams = {lane.dev_id: lane.stream for lane in eng.lanes.lanes()}
+                if len({s.cuda_stream for s in streams.values()}) != MC_POSITIONS:
+                    raise AssertionError("multicard streams: the lanes do not have a stream each")
+                for p in range(MC_POSITIONS):  # every kernel and copy loaded before the spin
+                    conns[p].execute_many(frames[p][:2])
+                torch.arange(8, device=dev).cpu()
+                cycles_per_ms = mc_cycles_per_ms()
+                lanes = [eng.lanes.lane(eng.placement.devices[p]) for p in range(MC_POSITIONS)]
+                faults0 = [ln.total_faults for ln in lanes]
+                conns[0].execute("CONFIG", "SET", "lane-watchdog-ms", str(MC_WATCHDOG_MS))
+                lat = {p: [] for p in range(1, MC_POSITIONS)}
+                first = {}
+                got = {}
+                errs = []
+                try:
+                    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    with lanes[0].occupy(1):
+                        s0.record()
+                        torch.cuda._sleep(int(cycles_per_ms * MC_SPIN_MS))
+                        s1.record()
+                        behind = ioplane.ReadbackFuture((torch.arange(8, device=dev),))
+                    t0 = time.perf_counter()
+
+                    def serve(p):
+                        try:
+                            got[p] = []
+                            for fr in frames[p]:
+                                s = time.perf_counter()
+                                got[p].append(conns[p].execute_many([fr])[0])
+                                lat[p].append(time.perf_counter() - s)
+                                first.setdefault(p, time.perf_counter() - t0)
+                        except Exception as e:  # noqa: BLE001 — raised below
+                            errs.append(e)
+
+                    threads = [threading.Thread(target=serve, args=(p,), daemon=True)
+                               for p in range(1, MC_POSITIONS)]
+                    for th in threads:
+                        th.start()
+                    p0 = conns[0].execute_many(frames[0][1:2])[0]
+                    for th in threads:
+                        th.join()
+                    served_s = time.perf_counter() - t0
+                    spin_running = not s1.query()
+                    try:
+                        behind.result()
+                        tripped = False
+                    except ioplane.LaneWatchdogTimeout:
+                        tripped = True
+                    s1.synchronize()
+                    spin_ms = s0.elapsed_time(s1)
+                finally:
+                    conns[0].execute("CONFIG", "SET", "lane-watchdog-ms", "0")
+                if errs:
+                    raise errs[0]
+                faults = [ln.total_faults - f for ln, f in zip(lanes, faults0)]
+                bad = [p for p in got if any(isinstance(r, Exception) for r in got[p])]
+                if bad or not spin_running:
+                    raise AssertionError(f"multicard streams: positions {bad} replied errors, or their frames "
+                                         f"ended after the spin ({served_s * 1e3:.1f} ms, each position's first "
+                                         f"reply by {max(first.values()) * 1e3:.1f} ms, spin {spin_ms:.1f} ms)")
+                if not tripped or not faults[0] or any(faults[1:]) or lanes[0].last_fault_kind != "watchdog_timeout":
+                    raise AssertionError(f"multicard streams: faults by lane {faults}, position 0 tripped {tripped}")
+                if not (isinstance(p0, Exception) and "TRYAGAIN" in str(p0)):
+                    raise AssertionError(f"multicard streams: position 0's frame behind the spin replied {p0!r:.80}")
+                probe = conns[0].execute("CLUSTER", "DEVPROBE", 0)
+                replies["card"] = got
+                all_lat = [x for v in lat.values() for x in v]
+                out = {"positions": MC_POSITIONS, "spin_ms": spin_ms, "watchdog_ms": MC_WATCHDOG_MS,
+                       "frames": len(all_lat), "frame_keys": MC_FRAME_KEYS, "served_ms": served_s * 1e3,
+                       "first_reply_ms": max(first.values()) * 1e3,
+                       "p50_ms": pctl(all_lat, 50) * 1e3, "p99_ms": pctl(all_lat, 99) * 1e3,
+                       "faults_by_lane": faults, "devprobe_after": [int(x) for x in probe],
+                       "launch_state_bytes": sum(K.launch_state_bytes().values())}
+                out["del_race"] = mc_del_race(eng, names[1] + ":race", cycles_per_ms)
+            finally:
+                for c in conns:
+                    c.close()
+    for p in range(1, MC_POSITIONS):
+        if not all(same(a, b) for a, b in zip(replies["card"][p], replies["cpu"][p])):
+            raise AssertionError(f"multicard streams: position {p}'s replies differ from the CPU server's")
+    log(f"multicard streams [{card}; {MC_POSITIONS} positions of one card, a stream each]: position 0's lane "
+        f"spun {out['spin_ms']:.1f} ms under a {MC_WATCHDOG_MS} ms watchdog; {out['frames']} BF.MEXISTS64 frames "
+        f"of {MC_FRAME_KEYS} keys to positions 1-7 replied in {out['served_ms']:.1f} ms (each position's first "
+        f"by {out['first_reply_ms']:.1f} ms), before the spin ended: "
+        f"p50 {out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms, equal to the CPU server's; faults by lane "
+        f"{out['faults_by_lane']} (position 0's future and frame: LaneWatchdogTimeout, -TRYAGAIN); DEVPROBE 0 "
+        f"after the spin {out['devprobe_after']}; the shared launch state {out['launch_state_bytes']} bytes over "
+        f"every (kernel, card, stream)")
+    log(f"multicard DEL race [{card}]: a {MC_RACE_N}-key filter deleted off its lane while position 1's probe "
+        f"of {2 * (MC_RACE_N // 2)} keys waited behind a {MC_RACE_SPIN_MS} ms spin; the plane's block was not "
+        "handed out under it and the flags equal the plain version's")
+    return out
+
+
+def mc_on_owner_cards(eng, label: str) -> int:
+    """Every record's tensors on its owner position's card; the count of
+    tensors checked."""
+    p = eng.placement
+    n = 0
+    for name in eng.store.keys():
+        rec = eng.store.get_unguarded(name)
+        if rec is None or rec.position is None:
+            continue
+        want = torch.device(p.devices[rec.position].device)
+        for key, a in rec.arrays.items():
+            if isinstance(a, torch.Tensor):
+                n += 1
+                if a.device != want:
+                    raise AssertionError(f"multicard {label}: {name}.{key} on {a.device}, its owner "
+                                         f"position {rec.position} on {want}")
+    return n
+
+
+def mc_k13(conn, cpu_conn, eng, cpu_eng, card: str) -> dict:
+    """K13 across cards: counters and bit sets on positions of different
+    cards, PFMERGE, PFCOUNT over several keys and BITOP OR/XOR: replies
+    equal a CPU server's, the merged registers and planes its bit for bit,
+    and no value through the host."""
+    from redisson_tpu_torch.core import ioplane
+
+    hs, bs = mc_names(eng.placement, "mc:kh"), mc_names(eng.placement, "mc:kb")
+    rng = np.random.default_rng(17)
+    cmds = []
+    for h, b in zip(hs, bs):
+        cmds.append(("PFADD", h, *[b"k%d" % int(x) for x in rng.integers(0, 1 << 40, 2000)]))
+        cmds += [("SETBIT", b, int(x), 1) for x in rng.integers(0, 1 << 16, 64)]
+    cmds += [("PFCOUNT", *hs), ("PFMERGE", hs[0], *hs[1:]), ("PFCOUNT", hs[0]),
+             ("BITOP", "OR", bs[0], *bs), ("BITCOUNT", bs[0]), ("BITOP", "XOR", bs[1], *bs[1:]),
+             ("BITCOUNT", bs[1])]
+    before = ioplane.STATS.snapshot()
+    got = conn.execute_many(cmds)
+    after = ioplane.STATS.snapshot()
+    want = cpu_conn.execute_many(cmds)
+    if not all(same(a, b) for a, b in zip(got, want)):
+        raise AssertionError("multicard K13: replies differ from the CPU server's")
+    for name, key in ((hs[0], "regs"), (bs[0], "bits"), (bs[1], "bits")):
+        assert_equal(f"multicard K13 {name}", eng.store.get(name).arrays[key].cpu(),
+                     cpu_eng.store.get(name).arrays[key])
+    cards = sorted({str(eng.placement.devices[eng.store.get(h).position].device) for h in hs})
+    d2d = after["d2d_colocations"] - before["d2d_colocations"]
+    host = after["host_colocations"] - before["host_colocations"]
+    if len(cards) < 2 or not d2d or host:
+        raise AssertionError(f"multicard K13: sources on {cards}, {d2d} peer copies, {host} through the host")
+    log(f"multicard K13 [{card}]: PFMERGE and PFCOUNT over {len(hs)} counters and BITOP OR/XOR over {len(bs)} bit "
+        f"sets on {cards}: replies, registers and planes equal the CPU server's; {d2d} peer copies of "
+        f"{after['d2d_bytes'] - before['d2d_bytes']} bytes, none through the host")
+    return {"cards": cards, "peer_copies": d2d, "host_colocations": host}
+
+
+def mc_rebalance(st, conn, card: str) -> list:
+    """A live rebalance 8 -> 4 -> 8 under a writer: positions 4-7's slots
+    go to positions 1, 2, 3, 0 (another card each on two or four cards),
+    then every slot back to its first owner; each step's seconds, the
+    bytes its peer copies moved and their GB/s; after each step every
+    acked key reads back and every record sits on its owner's card."""
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.net.client import Connection
+    from redisson_tpu_torch.server.migration import rebalance_devices
+
+    eng = st.server.engine
+    p = eng.placement
+    first = p.owner_snapshot().copy()
+    writers = [f"mc:w{j}" for j in range(MC_WRITERS)]
+    if any(isinstance(r, Exception) for r in conn.execute_many([("BF.RESERVE", w, FPP, 1_000_000)
+                                                                 for w in writers])):
+        raise AssertionError("multicard rebalance: reserve failed")
+    acked = {w: [] for w in writers}
+    stop = threading.Event()
+    errs, tryagain = [], [0]
+    wconn = Connection(st.server.host, st.port, timeout=120.0)
+
+    def writer():
+        rng = np.random.default_rng(29)
+        j = 0
+        try:
+            while not stop.is_set():
+                w = writers[j % MC_WRITERS]
+                ks = rng.integers(0, 1 << 62, MC_WRITER_FRAME).astype(np.int64)
+                r = wconn.execute_many([("BF.MADD64", w, _i8(ks))])[0]
+                if isinstance(r, Exception):
+                    if "TRYAGAIN" not in str(r):
+                        raise AssertionError(f"writer: {r}")
+                    tryagain[0] += 1
+                else:
+                    acked[w].append(ks)
+                j += 1
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    steps = []
+    try:
+        time.sleep(0.2)
+        plan = (("8 -> 4", {int(s): (int(o) - 3) % 4 for s, o in enumerate(first) if o >= 4}),
+                ("4 -> 8", {int(s): int(o) for s, o in enumerate(first) if o >= 4}))
+        for label, targets in plan:
+            before = ioplane.STATS.snapshot()
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            moved = rebalance_devices(eng, targets)
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+            secs = time.perf_counter() - s
+            after = ioplane.STATS.snapshot()
+            nbytes = after["d2d_bytes"] - before["d2d_bytes"]
+            tensors = mc_on_owner_cards(eng, f"rebalance {label}")
+            snap = {w: list(v) for w, v in acked.items()}
+            n_acked = sum(k.size for v in snap.values() for k in v)
+            got = conn.execute_many([("BF.MEXISTS64", w, _i8(np.concatenate(v))) for w, v in snap.items() if v])
+            lost = sum(int((np.frombuffer(r, np.uint8) == 0).sum()) for r in got)
+            if lost or any(isinstance(r, Exception) for r in got):
+                raise AssertionError(f"multicard rebalance {label}: {lost} acked keys lost")
+            if after["host_colocations"] != before["host_colocations"]:
+                raise AssertionError(f"multicard rebalance {label}: a move went through the host")
+            steps.append({"step": label, "slots": len(targets), "records_moved": moved, "seconds": secs,
+                          "bytes": nbytes, "gb_per_s": nbytes / secs / 1e9, "acked_keys": n_acked,
+                          "tensors_on_owner_cards": tensors})
+    finally:
+        stop.set()
+        th.join()
+        wconn.close()
+    if errs:
+        raise errs[0]
+    for st in steps:
+        log(f"multicard rebalance {st['step']} [{card}]: {st['slots']} slots, {st['records_moved']} records "
+            f"re-owned in {st['seconds']:.3f} s, {st['bytes']} bytes by peer copies ({st['gb_per_s']:.2f} GB/s "
+            f"over the step's wall clock); {st['acked_keys']} acked keys read back, "
+            f"{st['tensors_on_owner_cards']} tensors on their owners' cards; writer -TRYAGAIN {tryagain[0]}")
+    return steps
+
+
+def mc_cards(card: str) -> dict:
+    """Leg (b), on two or more cards: a devices=8 server round robin over
+    every card holding config 2's bank and config 3's counters; K13 across
+    cards; a sharded bloom (dp 2 x shard 4) over the cards beside one-card
+    objects; config 5d's stream on every card beside one card; the mixed
+    stream RESP2 and RESP3 equal a CPU server's; a live rebalance 8 -> 4 ->
+    8 under a writer."""
+    import redisson_tpu_torch
+    from redisson_tpu_torch.config import Config
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core import kernels as K
+    from redisson_tpu_torch.parallel.manager import MeshManager
+    from redisson_tpu_torch.server import ServerThread
+    from redisson_tpu_torch.tools import wire_stream as W
+
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    io0 = ioplane.STATS.snapshot()
+    with ServerThread(port=0, device="cuda", devices=MC_POSITIONS, workers=16) as st, st.client() as c, \
+            ServerThread(port=0, device="cpu", devices=MC_POSITIONS, workers=4) as cpu, cpu.client() as cc:
+        eng = st.server.engine
+        cards = sorted({str(q.device) for q in eng.placement.devices})
+        if len(cards) != n_cards:
+            raise AssertionError(f"multicard cards: positions on {cards} of {n_cards} cards")
+        s = time.perf_counter()
+        rp_fill(c, np.random.default_rng(31))
+        out["load_s"] = time.perf_counter() - s
+        out["k13"] = mc_k13(c, cc, eng, cpu.server.engine, card)
+        out["tensors_on_owner_cards"] = mc_on_owner_cards(eng, "load")
+        out["rebalance"] = mc_rebalance(st, c, card)
+        # the bank and the counters after both moves: equal to one-card objects fed the same stream
+        ref = redisson_tpu_torch.create(device=one_card("cuda"))
+        try:
+            bank = ref.get_bloom_filter_array("rp:c2")
+            bank.try_init(C2_TENANTS, C2_PER_TENANT, FPP)
+            for t, ks in config2_ingest():
+                for i in range(0, len(ks), C2_FLUSH):
+                    bank.add(t[i:i + C2_FLUSH], ks[i:i + C2_FLUSH])
+            regs = ref.get_hyper_log_log_array("rp:c3")
+            regs.try_init(C3_TENANTS)
+            rng = np.random.default_rng(31)
+            for _ in range(C3_BATCHES):
+                regs.add(rng.integers(0, C3_TENANTS, C3_BATCH), rng.integers(0, 1 << 60, C3_BATCH))
+            for name, key in (("rp:c2", "bits"), ("rp:c3", "regs")):
+                got = eng.store.get(name).arrays[key]
+                assert_equal(f"multicard {name} on {got.device} against one card's", got.cpu(),
+                             ref.engine.store.get(name).arrays[key].cpu())
+        finally:
+            ref.shutdown()
+    stream = W.mixed_stream(seed=41, scale=2, estimates=True)
+    waves = [stream, [("HELLO", "3")] + stream]
+    raw = {}
+    for where in ("cuda", "cpu"):
+        with ServerThread(port=0, device=where, devices=MC_POSITIONS) as st:
+            raw[where] = W.replies(st.server.host, st.server.port, waves)
+    for wave, (_cr, got), (_wr, want) in zip(waves, raw["cuda"], raw["cpu"]):
+        bad = W.compare(wave, got, want)
+        if bad:
+            raise AssertionError(f"multicard mixed stream: {len(bad)} replies differ from the CPU's: {bad[:3]}")
+    out["mixed_commands"] = 2 * len(stream) + 1
+    # a sharded bloom over the cards beside unsharded one-card banks; the
+    # launches of the sharded objects counted a card
+    cfg = Config()
+    cfg.mesh.dp, cfg.mesh.shard, cfg.mesh.n_devices = SH_DP, SH_SHARD, SH_POSITIONS
+    client = redisson_tpu_torch.create(cfg, "cuda")
+    try:
+        landed = sorted({str(q.device) for q in MeshManager.of(client.engine).mesh.devices.flat})
+        if len(landed) != n_cards:
+            raise AssertionError(f"multicard sharded: the mesh on {landed}")
+        before = dict(K.card_launches)
+        out["sharded_config2"], _rec = sharded_config2(client, card, where=f"{n_cards} cards")
+        out["sharded_config3"], _rec = sharded_config3(client, card)
+        after = dict(K.card_launches)
+        by_card = {f"{k} cuda:{i}": v - before.get((k, i), 0) for (k, i), v in sorted(after.items())
+                   if v != before.get((k, i), 0)}
+    finally:
+        client.shutdown()
+    out["sharded_launches_by_card"] = by_card
+    log(f"multicard sharded [{card}]: config 2 and 3's sharded objects (and their unsharded one-card "
+        f"counterparts on cuda:0) launched by card {by_card}")
+    out["sharded_vector"] = run_sharded_vector("cuda")
+    one = c5d_leg(one_card("cuda"), MC_POSITIONS, card)
+    many = c5d_leg("cuda", MC_POSITIONS, card)
+    for rep, (a, b) in enumerate(zip(one["replies"], many["replies"])):
+        if len(a) != len(b) or not all(same(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"multicard config5d: rep {rep} replies differ between one card and {n_cards}")
+    out["config5d"] = {"one_card_ops_per_s": one["ops_per_s"], "cards_ops_per_s": many["ops_per_s"]}
+    io1 = ioplane.STATS.snapshot()
+    out["host_colocations"] = io1["host_colocations"] - io0["host_colocations"]
+    if out["host_colocations"]:
+        raise AssertionError(f"multicard cards: {out['host_colocations']} values went through the host")
+    log(f"multicard cards [{card}; {n_cards} cards, positions {cards}]: config 2's bank and config 3's counters "
+        f"loaded in {out['load_s']:.1f} s; after the rebalances both equal one card's bit for bit; "
+        f"{out['tensors_on_owner_cards']} tensors on their owners' cards; the mixed stream's "
+        f"{out['mixed_commands']} commands RESP2 and RESP3 equal a CPU server's; config5d ops/s on {n_cards} cards "
+        f"{', '.join(f'{r:.3e}' for r in many['ops_per_s'])} beside one card's "
+        f"{', '.join(f'{r:.3e}' for r in one['ops_per_s'])} (replies bit-identical); host_colocations 0")
+    return out
+
+
+def run_multicard(device="cuda") -> dict:
+    """The multicard path: leg (a) on any card count, leg (b) on two or more
+    cards; on one card leg (b) prints that it needs two cards, which is
+    not a pass of it."""
+    from redisson_tpu_torch.core import kernels as K
+
+    gc.collect()
+    start = time.perf_counter()
+    card = card_line()
+    out = {"streams": mc_streams(card)}
+    launches = dict(K.launches)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["cards"] = mc_cards(card)
+        missing = [k for k in MC_CARD_KERNELS if K.launches[k] == launches[k]]
+        if missing:
+            raise AssertionError(f"multicard cards: leg (b) never launched {missing}")
+    else:
+        out["cards"] = None
+        log(f"multicard cards [{card}]: leg (b) needs two cards and saw {n_cards}: not run, so placement over "
+            "several cards (peer copies, K13 across cards, moves between cards) is unverified by this run")
+    out["launches"] = {k: v for k, v in K.launches.items()}
+    out["launches_leg_a"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    log(f"multicard path [{card}]: {out['seconds']:.1f} s")
     return out
 
 
@@ -8833,17 +9419,18 @@ def main() -> int:
                       ("services", lambda: run_services(paths["config7"], values)),
                       ("cluster", lambda: run_cluster()),
                       ("cluster_proc", lambda: run_cluster_proc()),
-                      ("sharded", lambda: run_sharded()),
+                      ("sharded", lambda: run_sharded(one_card("cuda"))),
                       ("qos", lambda: run_qos()),
-                      ("sharded_vector", lambda: run_sharded_vector()),
+                      ("sharded_vector", lambda: run_sharded_vector(one_card("cuda"))),
                       ("durability", lambda: run_durability()),
                       ("observe", lambda: run_observe()),
                       ("warm", lambda: run_warm()),
                       ("replication", lambda: run_replication()),
-                      ("migration", lambda: run_migration()),
-                      ("residency", lambda: run_residency()),
-                      ("faults", lambda: run_faults()),
-                      ("soak", lambda: run_soak())):
+                      ("migration", lambda: run_migration(one_card("cuda"))),
+                      ("residency", lambda: run_residency(one_card("cuda"))),
+                      ("faults", lambda: run_faults(one_card("cuda"))),
+                      ("soak", lambda: run_soak(one_card("cuda"))),
+                      ("multicard", lambda: run_multicard())):
         K.reset_launches()  # each path's counts, from 0 just before it
         paths[name] = run()
         # a path that measures beside its own work reads its counts itself
@@ -8853,7 +9440,7 @@ def main() -> int:
     client.shutdown()
     missing = [f"{path}: {k}" for path, ks in PATH_KERNELS.items() for k in ks if paths[path]["launches"][k] == 0]
     for path in ("server", "graft", "cluster", "cluster_proc", "qos", "migration", "residency", "faults",
-                 "soak"):
+                 "soak", "multicard"):
         if not paths[path]["launches"]["bloom_set"] + paths[path]["launches"]["bloom_add"]:
             missing.append(f"{path}: bloom_set or bloom_add")
     missing += [k for k, v in main_launches.items() if v == 0]

@@ -46,11 +46,20 @@ class EmbeddedNode(BaseNode):
         self.address = f"device://{device.platform}/{device.id}"
 
     def ping(self, timeout: float = 5.0) -> bool:
+        """A known-answer op on the position's card, on its lane's stream
+        with placement on (under the lane's occupancy)."""
+        import contextlib
+
         import torch
 
+        lanes = self._engine.lanes
+        lane = lanes.lane(self.device) if lanes is not None else None
+        gate = (lane.occupy(1) if lane is not None and lane.torch_device == self.device.device
+                else contextlib.nullcontext())
         try:
-            x = torch.arange(4, dtype=torch.int32, device=self.device.device)
-            return int(x.sum()) == 6
+            with gate:
+                x = torch.arange(4, dtype=torch.int32, device=self.device.device)
+                return int(x.sum()) == 6
         except Exception:  # noqa: BLE001 — a failed dispatch is a failed ping
             return False
 

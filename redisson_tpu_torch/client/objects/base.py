@@ -59,6 +59,12 @@ class RObject:
         return self._name
 
     @property
+    def _home(self):
+        """The card (or the CPU) this object's tensors live on: its owner
+        position's with placement on (``Engine.home``)."""
+        return self._engine.home(self._name)
+
+    @property
     def codec(self) -> Codec:
         return self._codec
 

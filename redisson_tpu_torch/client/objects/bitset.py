@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from redisson_tpu_torch.client.objects.base import RExpirable
+from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.core import kernels as K
 from redisson_tpu_torch.core.store import StateRecord
 from redisson_tpu_torch.ops import bittensor as bt
@@ -24,7 +25,7 @@ _DEFAULT_BITS = 1 << 20
 
 class BitSet(RExpirable):
     def _rec_or_create(self, min_bits: int = 0) -> StateRecord:
-        device = self._engine.device
+        device = self._home
 
         def factory():
             return StateRecord(
@@ -85,9 +86,10 @@ class BitSet(RExpirable):
         if n == 0:
             return np.zeros((0,), np.uint8), 0
         b = K.pow2_bucket(n)
-        staged = K.stage(K.pad_to(idx, b), self._engine.device)
+        staged = K.stage(K.pad_to(idx, b), self._home)
         with self._engine.locked(self._name):
             rec = self._rec_or_create(int(idx.max()) + 1)
+            staged = self._engine.on_card(staged, rec.arrays["bits"])
             _, old = K.bitset_set(rec.arrays["bits"], staged, n, 1 if value else 0)
             self._touch_version(rec)
         return old, n
@@ -103,11 +105,12 @@ class BitSet(RExpirable):
         n = idx.shape[0]
         if n == 0:
             return np.zeros((0,), np.uint8), 0
-        staged = K.stage(K.pad_to(idx, K.pow2_bucket(n)), self._engine.device)
+        staged = K.stage(K.pad_to(idx, K.pow2_bucket(n)), self._home)
         with self._engine.locked(self._name):
             rec = self._engine.store.get(self._name)
             if rec is None:
                 return np.zeros(idx.shape, np.uint8), n
+            staged = self._engine.on_card(staged, rec.arrays["bits"])
             got = K.bitset_get(rec.arrays["bits"], staged)
         return got, n
 
@@ -161,7 +164,9 @@ class BitSet(RExpirable):
                 elif other.kind != "bitset":
                     raise TypeError(f"'{nm}' is not a BitSet")
                 else:
-                    o_bits = other.arrays["bits"]
+                    # a source on another card comes over by a peer copy
+                    # (ioplane.colocate, counted), never through the host
+                    o_bits = ioplane.colocate(other.arrays["bits"], acc.device)
                 if o_bits.shape[0] > acc.shape[0]:
                     grown = bt.make(o_bits.shape[0], acc.device)
                     grown[: acc.shape[0]] = acc

@@ -52,7 +52,7 @@ class BloomFilter(RExpirable):
                     kind="bloom",
                     meta={"n": expected_insertions, "p": false_probability,
                           "m": m, "k": k, "hash": H.HASH_NAME},
-                    arrays={"bits": bt.make(m, self._engine.device)},
+                    arrays={"bits": bt.make(m, self._home)},
                 )
 
             self._engine.store.get_or_create(self._name, "bloom", factory)
@@ -94,12 +94,13 @@ class BloomFilter(RExpirable):
     def add_all_async(self, objs):
         """Batch add with the newly-added count left on the device (0-d int32);
         only reading it waits for the card."""
-        kind, arrays, n = self._engine.pack_keys(objs, self._codec)
+        kind, arrays, n = self._engine.pack_keys(objs, self._codec, device=self._home)
         if n == 0:
             return np.int32(0)
         with self._engine.locked(self._name):
             rec = self._rec()
             m, k = rec.meta["m"], rec.meta["k"]
+            arrays = self._engine.on_card(arrays, rec.arrays["bits"])
             if kind == "u64":
                 _, count = K.bloom_add_packed_count(rec.arrays["bits"], arrays, n, k, m)
             else:
@@ -116,12 +117,13 @@ class BloomFilter(RExpirable):
 
     def add_each_async(self, objs):
         """Batch add: (device newly-added flags, n_valid), no host sync."""
-        kind, arrays, n = self._engine.pack_keys(objs, self._codec)
+        kind, arrays, n = self._engine.pack_keys(objs, self._codec, device=self._home)
         if n == 0:
             return np.zeros((0,), bool), 0
         with self._engine.locked(self._name):
             rec = self._rec()
             m, k = rec.meta["m"], rec.meta["k"]
+            arrays = self._engine.on_card(arrays, rec.arrays["bits"])
             if kind == "u64":
                 _, newly = K.bloom_add_packed(rec.arrays["bits"], arrays, n, k, m)
             else:
@@ -147,7 +149,8 @@ class BloomFilter(RExpirable):
     def contains_each_async(self, objs):
         """Membership with no host sync: an int32 bitmap for integer keys
         (decode with kernels.unpack_found), device bool flags otherwise."""
-        kind, arrays, n = self._engine.pack_keys(objs, self._codec, cache_hot=True)
+        kind, arrays, n = self._engine.pack_keys(objs, self._codec, cache_hot=True,
+                                                  device=self._home)
         if n == 0:
             return np.zeros((0,), np.uint32), 0
         # dispatch under the record lock: the plane is read in stream order
@@ -155,6 +158,7 @@ class BloomFilter(RExpirable):
         with self._engine.locked(self._name):
             rec = self._rec()
             m, k = rec.meta["m"], rec.meta["k"]
+            arrays = self._engine.on_card(arrays, rec.arrays["bits"])
             if kind == "u64":
                 found = K.bloom_contains_packed_bits(rec.arrays["bits"], arrays, n, k, m)
             else:

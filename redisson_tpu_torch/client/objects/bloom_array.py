@@ -43,7 +43,7 @@ class BloomFilterArray(RExpirable):
                     meta={"tenants": tenants, "n": expected_insertions,
                           "p": false_probability, "m": m, "k": k, "hash": H.HASH_NAME},
                     arrays={"bits": torch.zeros((tenants, m), dtype=torch.uint8,
-                                                device=self._engine.device)},
+                                                device=self._home)},
                 ),
             )
             return True
@@ -86,13 +86,16 @@ class BloomFilterArray(RExpirable):
         n = arr.shape[0]
         b = K.bucket_size(max(1, n))
 
+        device = self._home
+
         def build():
             lo, hi = H.int_keys_to_u32_pair(arr)
-            return K.pack_rows(t, lo, hi, size=b, device=self._engine.device,
-                               pool=self._engine.staging_pool())
+            return K.pack_rows(t, lo, hi, size=b, device=device,
+                               pool=self._engine.staging_pool(device))
 
         if cache_hot and n >= 4096:
-            return self._engine.query_cache.cached_staged(build, t, arr, extra=b"bfa%d" % b), n
+            tag = b"bfa%d|%s" % (b, self._engine.cache_tag(device))
+            return self._engine.query_cache.cached_staged(build, t, arr, extra=tag), n
         return build(), n
 
     def add_each(self, tenant_ids, keys) -> np.ndarray:
@@ -107,6 +110,7 @@ class BloomFilterArray(RExpirable):
             return np.zeros((0,), bool), 0
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["bits"])
             _, newly = K.bloom_bank_add_packed(rec.arrays["bits"], tlh, n,
                                                rec.meta["k"], rec.meta["m"])
             self._touch_version(rec)
@@ -123,6 +127,7 @@ class BloomFilterArray(RExpirable):
             return np.int32(0)
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["bits"])
             _, count = K.bloom_bank_add_packed_count(rec.arrays["bits"], tlh, n,
                                                      rec.meta["k"], rec.meta["m"])
             self._touch_version(rec)
@@ -141,6 +146,7 @@ class BloomFilterArray(RExpirable):
             return np.zeros((0,), np.uint32), 0
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["bits"])
             found = K.bloom_bank_contains_packed_bits(rec.arrays["bits"], tlh, n,
                                                       rec.meta["k"], rec.meta["m"])
         return found, n
@@ -181,7 +187,7 @@ class BloomFilterArray(RExpirable):
             if n < bb:  # repeat-pad: idempotent for add, ignored for contains
                 dst[:, n:bb] = dst[:, n - 1 : n]
 
-        device = self._engine.device
+        device = self._home
         if len(rows) == len(flushes):
             buf = np.zeros((3, len(rows) * bb), np.uint32)
             for i, (t, arr) in enumerate(rows):
@@ -199,6 +205,7 @@ class BloomFilterArray(RExpirable):
         tlh, bb, lengths = self._pack_flush_window(flushes)
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["bits"])
             packed = K.bloom_bank_contains_packed_bits(rec.arrays["bits"], tlh, tlh.shape[1],
                                                        rec.meta["k"], rec.meta["m"])
         return packed, bb, lengths
@@ -215,6 +222,7 @@ class BloomFilterArray(RExpirable):
         tlh, bb, lengths = self._pack_flush_window(flushes)
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["bits"])
             _, newly = K.bloom_bank_add_packed_bits(rec.arrays["bits"], tlh, tlh.shape[1],
                                                     rec.meta["k"], rec.meta["m"])
             self._touch_version(rec)

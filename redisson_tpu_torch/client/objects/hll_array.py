@@ -25,7 +25,7 @@ class HyperLogLogArray(RExpirable):
                 StateRecord(
                     kind="hll_array",
                     meta={"tenants": tenants, "p": p, "hash": H.HASH_NAME},
-                    arrays={"regs": hll_ops.make_bank(tenants, p, self._engine.device)},
+                    arrays={"regs": hll_ops.make_bank(tenants, p, self._home)},
                 ),
             )
             return True
@@ -51,9 +51,10 @@ class HyperLogLogArray(RExpirable):
         if n == 0:
             return
         lo, hi = H.int_keys_to_u32_pair(arr)
-        tlh = K.pack_rows(t, lo, hi, size=K.bucket_size(n), device=self._engine.device)
+        tlh = K.pack_rows(t, lo, hi, size=K.bucket_size(n), device=self._home)
         with self._engine.locked(self._name):
             rec = self._rec()
+            tlh = self._engine.on_card(tlh, rec.arrays["regs"])
             K.hll_bank_add_packed(rec.arrays["regs"], tlh, n, rec.meta["p"])
             self._touch_version(rec)
 
@@ -72,9 +73,9 @@ class HyperLogLogArray(RExpirable):
             raise ValueError("dst_ids and src_ids must be aligned")
         if dst.shape[0] == 0:
             return
-        device = self._engine.device
         with self._engine.locked(self._name):
             rec = self._rec()
+            device = rec.arrays["regs"].device
             P = rec.arrays["regs"].shape[0]
             if (int(dst.min()) < 0 or int(dst.max()) >= P
                     or int(src.min()) < 0 or int(src.max()) >= P):
@@ -112,7 +113,9 @@ class HyperLogLogArray(RExpirable):
         return self.estimate_union_pairs_async(a_ids, b_ids).cpu().numpy()
 
     def estimate_union_pairs_async(self, a_ids, b_ids):
-        a = K.stage(np.ascontiguousarray(a_ids, np.int32), self._engine.device)
-        b = K.stage(np.ascontiguousarray(b_ids, np.int32), self._engine.device)
+        a = K.stage(np.ascontiguousarray(a_ids, np.int32), self._home)
+        b = K.stage(np.ascontiguousarray(b_ids, np.int32), self._home)
         with self._engine.locked(self._name):
-            return K.hll_bank_estimate_union_pairs(self._rec().arrays["regs"], a, b)
+            regs = self._rec().arrays["regs"]
+            a, b = self._engine.on_card((a, b), regs)
+            return K.hll_bank_estimate_union_pairs(regs, a, b)

@@ -14,15 +14,22 @@ Geometry notes:
     (each shard owns a contiguous column range of every tenant's plane);
   * hll: tenants are rounded up to a shard-axis multiple (each shard owns a
     tenant range; adds route with zero collectives, estimates gather).
+
+Streams: a sharded plane's parts span the mesh's cards, so every public
+call of these handles runs on each card's default stream
+(``ioplane.default_streams``), from whichever lane it is dispatched: all
+work on one plane is in one order on each card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from redisson_tpu_torch.client.objects.base import RExpirable
+from redisson_tpu_torch.core import ioplane
 from redisson_tpu_torch.client.objects.bloom import (
     optimal_num_of_bits,
     optimal_num_of_hash_functions,
@@ -40,6 +47,21 @@ BITSET_AXIS = 0   # (m,): bits sharded
 
 def _host(flags: torch.Tensor, n: int) -> np.ndarray:
     return flags[:n].cpu().numpy().astype(bool)
+
+
+def _on_default_streams(cls):
+    """Run every public method of `cls` under ``ioplane.default_streams``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with ioplane.default_streams():
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in list(vars(cls).items()):
+        if not name.startswith("_") and callable(fn):
+            setattr(cls, name, wrap(fn))
+    return cls
 
 
 class _ShardedBase(RExpirable):
@@ -81,6 +103,7 @@ class _ShardedBase(RExpirable):
         return self._mgr.n_shard
 
 
+@_on_default_streams
 class ShardedBloomFilterArray(_ShardedBase):
     """Multi-tenant bloom bank whose bit plane is sharded across the mesh."""
 
@@ -201,6 +224,7 @@ class ShardedBloomFilterArray(_ShardedBase):
             return total.cpu().numpy()
 
 
+@_on_default_streams
 class ShardedHllArray(_ShardedBase):
     """Multi-tenant HLL bank with the tenant axis sharded across the mesh:
     adds are shard-local (no combine but the dp replicas'), estimates
@@ -272,6 +296,7 @@ class ShardedHllArray(_ShardedBase):
             self._touch_version(rec)
 
 
+@_on_default_streams
 class ShardedBitSet(_ShardedBase):
     """ONE logical RBitSet column-sharded across the mesh.
 

@@ -386,7 +386,9 @@ def _bitset_level(engine, items, pending, run_one) -> None:
             for op in ops:
                 op.future._complete(np.zeros(op.n, np.uint8))
             continue
-        if rec.kind != "bitset":
+        if rec.kind != "bitset" or (planes and rec.arrays["bits"].device != planes[0].device):
+            # not a bit set, or a plane on another card than the level's
+            # table: the group runs on its own
             run_one(group, ops)
             continue
         members.append(ops)
@@ -398,7 +400,8 @@ def _bitset_level(engine, items, pending, run_one) -> None:
     if not members:
         return
     try:
-        out, firsts = K.bitset_groups(planes, idx, values, pool=engine.staging_pool())
+        out, firsts = K.bitset_groups(planes, idx, values,
+                                      pool=engine.staging_pool(planes[0].device))
         for bs, rec in touched:
             bs._touch_version(rec)
         if pending is not None:

@@ -125,6 +125,7 @@ def _snapshot_records(engine) -> List[Dict[str, Any]]:
         # holding the record lock gives a consistent (kind, meta, arrays) cut;
         # the host state is serialized inside the lock
         with engine.locked(name):
+            store.claim(rec)  # after the kernels queued on its lane
             out.append(
                 {
                     "name": name,
@@ -299,7 +300,7 @@ def load(engine, path: str) -> int:
     for r in payload["records"]:
         if r["expire_at"] is not None and r["expire_at"] <= now:
             continue
-        arrays = {k: _to_device(v, engine.device) for k, v in r["arrays"].items()}
+        arrays = {k: _to_device(v, engine.home(r["name"])) for k, v in r["arrays"].items()}
         rec = StateRecord(
             kind=r["kind"],
             meta=r["meta"],
@@ -410,7 +411,7 @@ def restore_record(
         rec = StateRecord(
             kind=payload["kind"],
             meta=dict(payload["meta"]),
-            arrays={k: _to_device(v, engine.device) for k, v in payload["arrays"].items()},
+            arrays={k: _to_device(v, engine.home(name)) for k, v in payload["arrays"].items()},
             host=host,
         )
         if persist:
@@ -462,7 +463,7 @@ def clone_record(engine, src_name: str, dst_name: str, replace: bool = False) ->
             # the source stays WARM/COLD (a copy must not double its
             # device footprint)
             arrays = {
-                k: _to_device(np.array(v), engine.device)  # never the stash's memory
+                k: _to_device(np.array(v), engine.home(dst_name))  # never the stash's memory
                 for k, v in _residency.record_host_arrays(rec).items()
             }
         clone = StateRecord(

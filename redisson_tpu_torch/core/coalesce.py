@@ -163,12 +163,15 @@ def _validated_records(engine, names: Sequence[str]):
 
 
 def _pack_window(engine, slot: np.ndarray, keys: np.ndarray, device=None):
-    """(slot, keys) -> staged (3, B) int32 transfer buffer + n_valid, staged
-    through the engine's pinned double-buffered pool when it has one."""
+    """(slot, keys) -> staged (3, B) int32 transfer buffer + n_valid on the
+    card of `device` (the run's position; the engine's device without
+    one), staged through that position's pinned double-buffered pool when
+    it has one."""
     n = keys.shape[0]
     b = K.bucket_size(n)
     lo, hi = H.int_keys_to_u32_pair(keys)
-    return K.pack_rows(slot, lo, hi, size=b, device=engine.device,
+    card = engine.device if device is None else getattr(device, "device", device)
+    return K.pack_rows(slot, lo, hi, size=b, device=card,
                        pool=engine.staging_pool(device)), n
 
 
@@ -182,6 +185,7 @@ def fused_bloom_contains_async(engine, names: Sequence[str], keys_list):
     with engine.locked_many(set(names)):
         recs, m, k = _validated_records(engine, names)
         planes = torch.stack([r.arrays["bits"] for r in recs])
+        tlh = engine.on_card(tlh, planes)
         found = K.bloom_bank_contains_packed(planes, tlh, n, k, m)
     return found, lengths
 
@@ -199,6 +203,7 @@ def fused_bloom_add_async(engine, names: Sequence[str], keys_list):
     with engine.locked_many(set(names)):
         recs, m, k = _validated_records(engine, names)
         planes = torch.stack([r.arrays["bits"] for r in recs])
+        tlh = engine.on_card(tlh, planes)
         planes, newly = K.bloom_bank_add_packed(planes, tlh, n, k, m)
         for i, rec in enumerate(recs):
             rec.arrays["bits"].copy_(planes[i])
@@ -216,8 +221,9 @@ def fused_bloom_pair_async(engine, name: str, add_keys, probe_keys):
         raise CoalesceIneligible("non-integer key batch")
     if add_arr.size == 0 or probe_arr.size == 0:
         raise CoalesceIneligible("empty side of fused pair")
-    kind_a, lh_a, n_a = engine.pack_keys(add_arr, None)
-    kind_p, lh_p, n_p = engine.pack_keys(probe_arr, None)
+    home = engine.home(name)
+    kind_a, lh_a, n_a = engine.pack_keys(add_arr, None, device=home)
+    kind_p, lh_p, n_p = engine.pack_keys(probe_arr, None, device=home)
     if kind_a != "u64" or kind_p != "u64":
         raise CoalesceIneligible("fused pair requires u64 key packing")
     with engine.locked(name):
@@ -225,6 +231,7 @@ def fused_bloom_pair_async(engine, name: str, add_keys, probe_keys):
         if rec is None or rec.kind != "bloom":
             raise CoalesceIneligible(f"'{name}' is not an initialized bloom filter")
         m, k = rec.meta["m"], rec.meta["k"]
+        lh_a, lh_p = engine.on_card((lh_a, lh_p), rec.arrays["bits"])
         _, newly, found = K.bloom_fused_add_contains(rec.arrays["bits"], lh_a, n_a, lh_p, n_p, k, m)
         rec.version += 1
     return newly, n_a, found, n_p

@@ -29,11 +29,17 @@ The engine owns:
     own behind.
 
 With ``enable_placement`` the 16384-slot table maps onto the mesh
-positions (``server/placement.py``): every record installed from then on is
-owned by its slot's position (``StateRecord.position``), the engine keeps a
-serving lane a position (``lanes``, ``core/ioplane.LaneSet``), and
-``move_slot_records`` hands a slot to another position under the record
-locks, fenced by epoch.
+positions (``server/placement.py``), on one card or laid over several:
+every record installed from then on is owned by its slot's position
+(``StateRecord.position``) and its tensors are committed to that
+position's card, the engine keeps a serving lane a position (``lanes``,
+``core/ioplane.LaneSet``, each lane on a card with a CUDA stream of its
+own), and ``move_slot_records`` hands a slot to another position under the
+record locks, fenced by epoch, moving the tensors to the new owner's card
+by peer copies.  ``home(name)`` is the card a name's tensors live on: the
+object handles make and stage there.  With lanes on cards the store's
+getters hand each record to the thread's stream (``DeviceStore.claim``,
+``_claim_record``).
 
 ``prewarm`` runs the hot kernels of live records once on throwaway
 planes (``core/warmpool.py``), every position's with placement on;
@@ -85,6 +91,13 @@ def _device_key(device) -> Tuple[str, int]:
     return device.type, device.index or 0
 
 
+def _stream_tag(device: torch.device) -> bytes:
+    """`device` and, on a card, the thread's current stream there."""
+    if device.type != "cuda":
+        return str(device).encode()
+    return b"%s|%d" % (str(device).encode(), torch.cuda.current_stream(device).cuda_stream)
+
+
 class Engine:
     def __init__(self, config=None, device="cuda"):
         self.device = resolve_device(device)
@@ -93,8 +106,11 @@ class Engine:
         self.pubsub = PubSubHub()
         self.default_codec: Codec = DEFAULT_CODEC
         self.query_cache = K.QueryCache()
-        # staging shared by every flush packer of this engine
+        # staging shared by every flush packer of this engine (and one
+        # pool for each other card placement lays positions on)
         self.staging = ioplane.StagingPool(pin=self.device.type == "cuda")
+        self._card_staging: Dict[Tuple[str, int], Any] = {
+            _device_key(self.device): self.staging}
         # name -> [RLock, refcount]: entries exist only while someone holds or
         # waits on them, so object churn can't grow the registry unboundedly
         self._record_locks: dict[str, list] = {}
@@ -376,15 +392,13 @@ class Engine:
     def enable_placement(self, devices=None, n_devices: Optional[int] = None):
         """Map the 16384-slot table onto mesh positions (`devices`, default
         `n_devices` local positions of the engine's device kind, all when
-        None): every record installed from here on is owned by its slot's
-        position, frames routed to different positions dispatch down their
-        own lanes, and coalesced runs fuse a position at a time.  Returns
-        the SlotPlacement.
-
-        The positions must all be the engine's device: the object handles
-        stage their keys on it, so records on several cards would need
-        handles that stage on a record's card (ROADMAP queue 1: placement
-        over positions on more than one card)."""
+        None, laid round robin over every visible card): every record
+        installed from here on is owned by its slot's position and its
+        tensors are committed to that position's card, frames routed to
+        different positions dispatch down their own lanes (each on a CUDA
+        stream of its own on its card), and coalesced runs fuse a position
+        at a time.  Positions on the CPU and on cards do not mix.  Returns
+        the SlotPlacement."""
         from redisson_tpu_torch.parallel.mesh import local_devices
         from redisson_tpu_torch.server.placement import SlotPlacement
 
@@ -392,17 +406,18 @@ class Engine:
             devices = local_devices(self.device, count=n_devices)
             n_devices = None
         placement = SlotPlacement(devices=devices, n_devices=n_devices)
-        home = _device_key(self.device)
-        if any(_device_key(getattr(d, "device", d)) != home for d in placement.devices):
-            raise NotImplementedError(
-                "placement over positions on more than one device is not served "
-                "yet (ROADMAP queue 1); every position must be the engine's "
-                f"device {self.device}"
+        kinds = {torch.device(getattr(d, "device", d)).type for d in placement.devices}
+        if kinds != {self.device.type}:
+            raise ValueError(
+                f"positions on {sorted(kinds)} for an engine on {self.device.type}"
             )
+        lanes = ioplane.LaneSet(placement.devices)
         with self._locks_guard:
             self.placement = placement
-            self.lanes = ioplane.LaneSet(placement.devices)
+            self.lanes = lanes
         self.store.placement_hook = self._place_record
+        if any(lane.stream is not None for lane in lanes.lanes()):
+            self.store.stream_hook = self._claim_record
         return placement
 
     def device_for_name(self, name: str):
@@ -460,13 +475,77 @@ class Engine:
         self.store.residency = None
         mgr.stop()
 
-    def _place_record(self, name: str, rec) -> None:
-        """DeviceStore placement hook: the record's owner is its slot's
-        position.  Every position is on the engine's device, so no tensor
-        moves."""
+    def home(self, name: str) -> torch.device:
+        """The card (or the CPU) `name`'s tensors live on: its owner
+        position's device with placement on, else the engine's device.
+        The object handles make a record's tensors and stage its operands
+        here."""
         p = self.placement
-        if p is not None:
-            rec.position = p.device_id_for_name(name)
+        if p is None:
+            return self.device
+        return torch.device(p.device_for_name(name).device)
+
+    @staticmethod
+    def _claim_record(rec) -> None:
+        """DeviceStore stream handoff (``DeviceStore.claim``): make the
+        current thread's stream on the record's card wait for the stream
+        that last used the record, and mark every tensor of the record
+        used on it (``record_stream``), so a tensor dropped anywhere returns
+        to the caching allocator only after both streams passed that
+        point.  A record first seen here, or whose tensors are on another
+        card than its stream (a fault-in after a move), is stamped with the
+        current stream."""
+        dev = next((a.device for a in rec.arrays.values()
+                    if isinstance(a, torch.Tensor) and a.is_cuda), None)
+        if dev is None:
+            return
+        cur = torch.cuda.current_stream(dev)
+        s = rec.stream
+        if s is not None and s.device == dev:
+            if cur == s:
+                return
+            cur.wait_stream(s)
+            for a in rec.arrays.values():
+                if isinstance(a, torch.Tensor) and a.device == dev:
+                    a.record_stream(cur)
+        rec.stream = cur
+
+    @staticmethod
+    def _move_record_to(rec, device) -> bool:
+        """Commit a record's tensors to `device` (a card or the CPU) by peer
+        copies (``ioplane.colocate``), after the work queued on them (the
+        caller claimed the record); True iff anything moved.  Sharded
+        planes (the parallel layer owns their layout) and host values
+        never move."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        moved = False
+        for key, arr in list(rec.arrays.items()):
+            if isinstance(arr, torch.Tensor) and arr.device != device:
+                rec.arrays[key] = ioplane.colocate(arr, device)
+                moved = True
+        if moved and device.type == "cuda":
+            rec.stream = torch.cuda.current_stream(device)
+        return moved
+
+    def _place_record(self, name: str, rec, rename: bool = False) -> None:
+        """DeviceStore placement hook: the record's owner is its slot's
+        position, and its tensors are committed to that position's card.
+        At a rename (`rename`) a record whose tensors already sit on the
+        new owner's card keeps its position, as the reference's arrays
+        keep their device."""
+        p = self.placement
+        if p is None:
+            return
+        position = p.device_for_name(name)
+        device = torch.device(position.device)
+        if rename and all(a.device == device for a in rec.arrays.values()
+                          if isinstance(a, torch.Tensor)):
+            return
+        self.store.claim(rec)
+        self._move_record_to(rec, device)
+        rec.position = position.id
 
     def move_slots_records(self, targets: Dict[int, int],
                            epoch: Optional[int] = None,
@@ -474,9 +553,11 @@ class Engine:
         """Bulk fenced slot -> position handoff: fence and repoint every slot
         of ``targets`` ({slot: position index}), then re-own the affected
         records in ONE store scan, each under its record lock (a dispatch in
-        flight holds the lock and finishes under the old owner).  Returns
-        (records moved, stale slots); a stale coordinator's epoch raises
-        PlacementStaleEpoch unless ``skip_stale`` counts it instead."""
+        flight holds the lock and finishes under the old owner), their
+        tensors moved to the new owner's card by peer copies when it is
+        another card.  Returns (records re-owned, stale slots); a stale
+        coordinator's epoch raises PlacementStaleEpoch unless
+        ``skip_stale`` counts it instead."""
         from redisson_tpu_torch.server.placement import PlacementStaleEpoch
         from redisson_tpu_torch.utils.crc16 import calc_slot
 
@@ -503,9 +584,11 @@ class Engine:
         ]
         moved = 0
         for name, dev_index in moving:
+            device = torch.device(p.devices[dev_index].device)
             with self.locked(name):
-                rec = self.store.get_unguarded(name)
+                rec = self.store.get_unguarded(name)  # claimed for this thread
                 if rec is not None and rec.position != dev_index:
+                    self._move_record_to(rec, device)
                     rec.position = dev_index
                     moved += 1
         return moved, stale
@@ -551,27 +634,62 @@ class Engine:
         (ioplane.staging_reuse_safe).  With placement on and a `device` (a
         position) given, that position's lane pool (its interactive slot
         inside an interactive occupancy): each lane's uploads double-buffer
-        on their own."""
+        on their own.  A torch device (a card) gives the pool of the lane
+        whose occupancy the thread holds on that card, else the card's own
+        pool: a slot is never shared with another lane, whose copy may wait
+        behind a stalled stream."""
         if not (ioplane.overlap_enabled() and ioplane.staging_reuse_safe(self.device)):
             return None
-        if device is not None and self.lanes is not None:
-            lane = self.lanes.lane(device)
+        if device is None:
+            return self.staging
+        lanes = self.lanes
+        if lanes is not None and isinstance(device, (torch.device, str)):
+            held = ioplane.current_position()
+            if held is not None:
+                lane = lanes.lane(held)
+                if _device_key(lane.torch_device) == _device_key(device):
+                    device = lane.device
+        if lanes is not None and not isinstance(device, (torch.device, str)):
+            lane = lanes.lane(device)
             # an interactive occupancy marks its thread, so its packing
             # stages through the lane's interactive slot
             if ioplane.current_stream() == "interactive":
                 return lane.ipool
             return lane.pool
-        return self.staging
+        key = _device_key(getattr(device, "device", device))
+        with self._locks_guard:
+            pool = self._card_staging.get(key)
+            if pool is None:
+                pool = self._card_staging[key] = ioplane.StagingPool(pin=True)
+            return pool
 
     # -- key packing --------------------------------------------------------
+
+    @staticmethod
+    def on_card(value, state):
+        """`value` (a tensor or a tuple of them, staged on a record's home
+        before its lock was taken) on `state`'s device: itself in the
+        common case, a peer copy when a slot handoff moved the record in
+        between (``ioplane.colocate``)."""
+        dev = state.device
+        if isinstance(value, torch.Tensor):
+            return value if value.device == dev else ioplane.colocate(value, dev)
+        return tuple(v if v.device == dev else ioplane.colocate(v, dev) for v in value)
+
+    @staticmethod
+    def cache_tag(device) -> bytes:
+        """The query cache's tag of `device` and the thread's stream there:
+        a staged entry is reused only where it was staged."""
+        return _stream_tag(torch.device(device))
 
     @staticmethod
     def is_int_batch(objs) -> bool:
         return isinstance(objs, np.ndarray) and objs.dtype.kind in "iu"
 
     def pack_keys(self, objs, codec: Optional[Codec],
-                  cache_hot: bool = False) -> Tuple[str, tuple, int]:
-        """Normalize a key batch for the hash kernels.
+                  cache_hot: bool = False, device=None) -> Tuple[str, tuple, int]:
+        """Normalize a key batch for the hash kernels, staged on `device`
+        (default: the engine's; a handle passes its record's ``home``).
 
         Returns (kind, arrays, n_valid):
           kind="u64":   arrays = ONE (2, B) int32 tensor (rows lo, hi)
@@ -580,6 +698,7 @@ class Engine:
         numpy integer arrays are hashed as int64 directly, skipping the codec.
         """
         codec = codec or self.default_codec
+        device = self.device if device is None else torch.device(device)
         if self.is_int_batch(objs):
             arr = np.ascontiguousarray(objs, dtype=np.int64)
             n = arr.shape[0]
@@ -587,12 +706,16 @@ class Engine:
 
             def build():
                 lo, hi = H.int_keys_to_u32_pair(arr)
-                return K.pack_rows(lo, hi, size=b, device=self.device, pool=self.staging_pool())
+                return K.pack_rows(lo, hi, size=b, device=device,
+                                   pool=self.staging_pool(device))
 
             if cache_hot and n >= 4096:
                 # hot-set reuse, READ paths only: a serving loop re-probing
-                # the same working set skips the pack and the upload
-                return "u64", self.query_cache.cached_staged(build, arr, extra=b"u64%d" % b), n
+                # the same working set skips the pack and the upload.  The
+                # entry is the card's and the stream's it was staged on, so
+                # no stream reads it before its upload or after its reuse
+                tag = b"u64%d|%s" % (b, _stream_tag(device))
+                return "u64", self.query_cache.cached_staged(build, arr, extra=tag), n
             return "u64", build(), n
         if isinstance(objs, (bytes, str, int, float)) or not isinstance(objs, (list, tuple, np.ndarray)):
             objs = [objs]
@@ -601,8 +724,8 @@ class Engine:
         words, nbytes = H.pack_keys(encoded)
         b = K.pow2_bucket(max(1, n))
         w = max(4, K.pow2_bucket(max(1, words.shape[0]), minimum=4))
-        words = K.stage(K.pad_to(K.pad_to(words, b, axis=1), w, axis=0), self.device)
-        nbytes = K.stage(K.pad_to(nbytes, b), self.device)
+        words = K.stage(K.pad_to(K.pad_to(words, b, axis=1), w, axis=0), device)
+        nbytes = K.stage(K.pad_to(nbytes, b), device)
         return "bytes", (words, nbytes), n
 
     # -- lifecycle ----------------------------------------------------------
@@ -643,7 +766,8 @@ class Engine:
             self.store.residency = None
         self.pubsub.close()
         self.query_cache.clear()
-        self.staging.clear()
+        for pool in self._card_staging.values():
+            pool.clear()
         if self.lanes is not None:
             self.lanes.clear()
         self.store.flushall()

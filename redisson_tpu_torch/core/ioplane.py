@@ -17,7 +17,7 @@ that the RBatch boundary drains through.
 Disable with ``set_overlap(False)`` or ``RTPU_NO_OVERLAP=1`` for A/B
 measurement: the batch then forces each group's results before the next
 group dispatches.  Results are identical in both modes: the plane reorders
-host waits, never device work (one stream, in order).
+host waits, never device work (each stream in order).
 
 ``STATS`` counts blocking syncs, staging waits and readbacks.
 
@@ -33,13 +33,30 @@ serialize, dispatches bound for different positions overlap) and
 ``colocate`` moves a tensor to another device without a host round trip
 (counted in ``STATS``: ``d2d_colocations``, ``host_colocations``).
 
-Lanes on positions of one card dispatch on that card's current stream, in
-order.  A lane stream of its own would let a kernel that still reads or
-writes a record run after another connection's DEL handed the record's
-memory to a new tensor (PyTorch's caching allocator reuses a block on the
-stream that allocated it), unless every place that drops a record's
-tensors called ``record_stream``; lanes on different cards dispatch on
-their own cards' streams and overlap there.
+**Streams.**  Each lane on a card owns a CUDA stream of its own
+(``DeviceLane.stream``, from PyTorch's pool of streams, on the position's
+card): an occupancy makes that stream current on the dispatching thread,
+and its card the current device, so every kernel (``core/kernels._launch``
+launches on ``torch.cuda.current_stream``) and torch op of the dispatch
+runs there.  Positions of one card overlap on the card, as positions on
+several cards overlap on theirs, and a wait that does not end holds only
+its own lane.  What this costs is ordering across streams, kept by three
+rules:
+
+  * a record moves between streams only through ``DeviceStore.claim``
+    (every store getter calls it): the claiming stream waits for the work
+    queued on the stream that last used the record, and each of the
+    record's tensors is marked used there (``Tensor.record_stream``), so a
+    tensor dropped anywhere (DEL, overwrite, expiry, eviction, FLUSHALL, a
+    demotion, a drain) goes back to the caching allocator only once every
+    stream that used it has passed that point;
+  * a readback waits on the event recorded behind its values' kernels on
+    their lane's stream and copies on that stream (``ReadbackFuture``,
+    ``gather_device_results``), never on the card's default stream, which
+    another thread's claim may hold behind a stalled lane;
+  * a copy between cards (``colocate``) orders the target card's current
+    stream after the source's with an event, and is a peer copy: cards that
+    cannot reach each other raise, nothing goes through the host.
 
 **The device-fault domain** (reference ``:156-221``, ``:495-600``,
 ``:834-839``, ``:1183-1284``, ``:1371-1381``):
@@ -71,10 +88,10 @@ Disarmed (no plane, watchdog off) each site costs one global load and a
 compare, and allocates nothing.  Faults are attributed to mesh positions:
 a lane occupancy makes its position current on the thread
 (``current_position``), and a ``ReadbackFuture`` made there keeps it.
-Positions of one card share its stream, so a real stall there times out
-every lane that waits behind it; the reference's devices stall one at a
-time.  ``is_retryable_device_fault`` maps CUDA's failures onto the
-reference's replies (its docstring).
+Each position's readback waits on its own lane's event, so a stall on one
+lane trips only that lane's watchdog, as the reference's devices stall
+one at a time.  ``is_retryable_device_fault`` maps CUDA's failures onto
+the reference's replies (its docstring).
 
 ``scatter_host_arrays`` (K23) is the inverse of the grouped readback: a
 record's host arrays packed into one stream (each piece at a 16-byte
@@ -96,13 +113,13 @@ installs through it.
     interactive gate (``_igate``), staging slot (``ipool``) and dispatch
     queue (``ipipeline``), so it never queues behind the bulk gate.
 
-The interactive "stream" is a host gate in front of the card's one
-in-order stream, as the reference's is a gate in front of one device
-queue: a second CUDA stream would race bulk writes to the same record and
-a dropped record's reused block (the paragraph above).  So a chunk yields
-the card only once its own kernels are done: the server waits on the
-chunk's work (``wait_device``) before it releases the chunk's occupancy,
-and the interactive kernel then finds the stream empty.  Disarmed, the
+The interactive "stream" is a host gate in front of the lane's one
+in-order CUDA stream, as the reference's is a gate in front of one device
+queue: bulk and interactive dispatches of one position write the same
+records, so they share the lane's stream.  A chunk yields the lane only
+once its own kernels are done: the server waits on the chunk's work
+(``wait_device``) before it releases the chunk's occupancy, and the
+interactive kernel then finds the stream empty.  Disarmed, the
 plane is the single-gate, unsplit shape, with the same replies.
 
 **Trace sites** (reference ``:539-610``, ``:1388-1416``): with tracing armed
@@ -265,6 +282,66 @@ def current_position() -> Optional[int]:
     return getattr(_stream_tls, "position", None)
 
 
+def current_lane_stream() -> "Optional[torch.cuda.Stream]":
+    """The CUDA stream of the lane occupancy the current thread holds (a
+    lane on a card), else None."""
+    return getattr(_stream_tls, "cuda", None)
+
+
+def lane_stream_of(values) -> "Optional[torch.cuda.Stream]":
+    """The stream device `values` were made on, when that is the lane
+    stream of the occupancy the thread holds: every tensor of them on the
+    lane's card.  None otherwise (they belong to their cards' current
+    streams, which are the default streams outside a lane)."""
+    s = getattr(_stream_tls, "cuda", None)
+    if s is None:
+        return None
+    dev = s.device
+    for v in values:
+        if isinstance(v, torch.Tensor) and v.device != dev:
+            return None
+    return s
+
+
+def hand_off(values, stream) -> None:
+    """Hand tensors made on `stream` (a lane's, after its occupancy) to the
+    thread's current stream of that card: the current stream waits for
+    `stream`, and each tensor is marked used there."""
+    if stream is None:
+        return
+    cur = torch.cuda.current_stream(stream.device)
+    if cur == stream:
+        return
+    cur.wait_stream(stream)
+    for v in values:
+        if isinstance(v, torch.Tensor) and v.device == stream.device:
+            v.record_stream(cur)
+
+
+class default_streams:
+    """Context: the current thread's card streams back to each card's
+    default stream for the block, the lane's included.  The sharded planes
+    (``parallel/sharded.py``) span every card of their mesh and run there,
+    so every dispatch of one plane, from whichever lane, is in one order.
+    On the way out the lane's stream waits for the default stream of its
+    card, so what the block made is ordered before the lane's later work
+    and its readbacks."""
+
+    __slots__ = ("_lane",)
+
+    def __enter__(self):
+        self._lane = getattr(_stream_tls, "cuda", None)
+        if self._lane is not None:
+            torch.cuda.set_stream(torch.cuda.default_stream(self._lane.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self._lane is not None:
+            torch.cuda.set_stream(self._lane)
+            self._lane.wait_stream(torch.cuda.default_stream(self._lane.device))
+        return False
+
+
 def positions_of(values: Sequence[Any], position: Optional[int] = None) -> tuple:
     """The position ids a readback of `values` belongs to: `position` when
     given, else each tensor's device index (0 for the CPU, as the
@@ -305,13 +382,20 @@ def _passed(event) -> bool:
 
 
 def wait_device(device) -> None:
-    """Wait until the work enqueued so far on `device`'s current stream is
-    done (one event, not the whole card); nothing on the CPU.  A bulk
-    sub-window calls it before it releases its lane, so the card is idle
-    when a waiting interactive dispatch launches."""
+    """Wait until the work enqueued so far on `device`'s current stream (a
+    lane's, inside its occupancy) is done (one event, not the whole card);
+    nothing on the CPU.  A bulk sub-window calls it before it releases its
+    lane, so the lane is idle when a waiting interactive dispatch
+    launches."""
     ev = record_event(device)
     if ev is not None:
         ev.synchronize()
+
+
+def _event_on(stream) -> "torch.cuda.Event":
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
 
 
 # -- blocking-sync + readback accounting --------------------------------------
@@ -327,7 +411,7 @@ class IOStats:
 
     __slots__ = ("_lock", "blocking_syncs", "readbacks", "readback_wait_s",
                  "readback_exposed_s", "staging_waits", "d2d_colocations",
-                 "host_colocations", "sharded_knn_merges")
+                 "d2d_bytes", "host_colocations", "sharded_knn_merges")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -343,6 +427,7 @@ class IOStats:
         # host (a numpy value uploaded); the cross-device merges keep the
         # second at 0
         self.d2d_colocations = 0
+        self.d2d_bytes = 0  # bytes the device-to-device moves copied
         self.host_colocations = 0
         self.sharded_knn_merges = 0
 
@@ -355,12 +440,13 @@ class IOStats:
             self.blocking_syncs += 1
             self.staging_waits += 1
 
-    def count_colocation(self, through_host: bool) -> None:
+    def count_colocation(self, through_host: bool, nbytes: int = 0) -> None:
         with self._lock:
             if through_host:
                 self.host_colocations += 1
             else:
                 self.d2d_colocations += 1
+                self.d2d_bytes += nbytes
 
     def add_readback(self, wall_s: float, was_ready: bool) -> None:
         with self._lock:
@@ -385,6 +471,7 @@ class IOStats:
                 "readback_exposed_s": self.readback_exposed_s,
                 "staging_waits": self.staging_waits,
                 "d2d_colocations": self.d2d_colocations,
+                "d2d_bytes": self.d2d_bytes,
                 "host_colocations": self.host_colocations,
                 "sharded_knn_merges": self.sharded_knn_merges,
             }
@@ -422,17 +509,46 @@ def reset_device_stats() -> None:
         st.reset()
 
 
+# (source card, target card) -> True once peer access was checked
+_peer_checked: dict = {}
+
+
+def _require_peer(src: int, dst: int) -> None:
+    """Raise unless card `src`'s memory is reachable from card `dst`: a
+    copy between cards that cannot reach each other would be staged
+    through host memory by CUDA, and nothing here goes through the
+    host in silence."""
+    if (src, dst) in _peer_checked:
+        return
+    if not torch.cuda.can_device_access_peer(dst, src):
+        raise RuntimeError(
+            f"cuda:{dst} cannot access cuda:{src}'s memory as a peer: a copy "
+            "between them would go through the host"
+        )
+    _peer_checked[(src, dst)] = True
+
+
 def colocate(value, device) -> torch.Tensor:
     """`value` as a tensor on `device`: itself when it is already there, a
-    device-to-device copy otherwise (a peer copy between cards; counted
-    ``d2d_colocations``), an upload for a numpy value (counted
-    ``host_colocations``).  Never a round trip through host memory for a
-    tensor."""
+    device-to-device copy otherwise (counted ``d2d_colocations``), an
+    upload for a numpy value (counted ``host_colocations``).  Between
+    cards it is a peer copy: the target card's current stream waits on an
+    event recorded behind the work queued on the source card's current
+    stream, the copy runs, and cards without peer access raise.  Never a
+    round trip through host memory for a tensor."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if isinstance(value, torch.Tensor):
         if value.device == device:
             return value
-        STATS.count_colocation(through_host=False)
+        STATS.count_colocation(through_host=False,
+                               nbytes=value.numel() * value.element_size())
+        src = value.device
+        if src.type == "cuda" and device.type == "cuda":
+            _require_peer(src.index, device.index)
+            torch.cuda.current_stream(device).wait_event(
+                _event_on(torch.cuda.current_stream(src)))
         return value.to(device)
     STATS.count_colocation(through_host=True)
     return torch.as_tensor(np.asarray(value), device=device)
@@ -462,16 +578,20 @@ class ReadbackFuture:
     released either way.  Kernels never write a result tensor after it is
     returned, so holding it is safe.  The future belongs to `position`
     (default: the lane occupancy current on the thread, else its tensors'
-    devices): a hung readback's fault lands on that position's lanes."""
+    devices): a hung readback's fault lands on that position's lanes.  The
+    event is recorded on the stream current where the future is made (the
+    lane's, inside an occupancy), and the copy waits on it and runs on that
+    stream."""
 
-    __slots__ = ("_device", "_event", "_finish", "_value", "_error", "_done",
-                 "_positions")
+    __slots__ = ("_device", "_event", "_stream", "_finish", "_value", "_error",
+                 "_done", "_positions")
 
     def __init__(self, device: Sequence[Any], finish: Optional[Callable] = None,
                  position: Optional[int] = None):
         self._device: tuple = tuple(device)
         devs = {v.device for v in self._device if isinstance(v, torch.Tensor)}
         self._event = record_event(next(iter(devs))) if len(devs) == 1 else None
+        self._stream = lane_stream_of(self._device)
         self._finish = finish
         self._value = None
         self._error: Optional[BaseException] = None
@@ -497,6 +617,7 @@ class ReadbackFuture:
         self._done = True
         self._device = ()  # release device memory references
         self._event = None
+        self._stream = None
 
     def _trip(self, wall: float) -> None:
         """The watchdog fired: account the bounded wait, attribute a
@@ -517,13 +638,14 @@ class ReadbackFuture:
         self._done = True
         self._device = ()
         self._event = None
+        self._stream = None
 
     def _guard(self, plane, bound: float) -> None:
         """Armed-only gate shared by ``result()`` and ``force_all``
         (``_bounded_wait``); a timeout fails this future.  Never called on
         the disarmed path."""
         t0 = time.perf_counter()
-        if _bounded_wait(plane, self._positions, bound, self._event) is not None:
+        if _bounded_wait(plane, [(self._event, self._positions)], bound):
             self._trip(time.perf_counter() - t0)
 
     def result(self):
@@ -536,7 +658,7 @@ class ReadbackFuture:
             was_ready = self.ready()
             t0 = time.perf_counter()
             try:
-                host = tuple(_to_host(v) for v in self._device)
+                host = _copy_out(self._device, self._event, self._stream)
             except Exception as e:  # noqa: BLE001 — surfaced below
                 STATS.add_readback(time.perf_counter() - t0, was_ready)
                 for d in self._positions:
@@ -567,18 +689,38 @@ class ReadbackFuture:
         return self._value
 
 
-def _fetch(device: torch.device, parts: List[torch.Tensor]) -> np.ndarray:
-    """ONE transfer of byte views `parts` (all on `device`) to the host."""
-    merged = parts[0] if len(parts) == 1 else torch.cat(parts)
+def _copy_out(values: tuple, event, stream) -> tuple:
+    """`values` on the host: the copies run on `stream` (the lane's that
+    made them), after `event` when given; on the thread's current streams
+    without a stream."""
+    if stream is None:
+        return tuple(_to_host(v) for v in values)
+    with torch.cuda.stream(stream):
+        if event is not None:
+            stream.wait_event(event)
+        return tuple(_to_host(v) for v in values)
+
+
+def _fetch(device: torch.device, parts: List[torch.Tensor], events=(),
+           stream=None) -> np.ndarray:
+    """ONE transfer of byte views `parts` (all on `device`) to the host,
+    after `events` (those recorded behind the parts' kernels), on `stream`
+    (a lane's; default: the thread's current stream of `device`)."""
     if device.type != "cuda":
+        merged = parts[0] if len(parts) == 1 else torch.cat(parts)
         return merged.numpy().copy()
-    # pinned memory from PyTorch's caching host allocator: a non_blocking
-    # copy into pageable memory would be synchronous, and a fresh
-    # cudaHostAlloc per flush would cost more than the copy
-    host = torch.empty(merged.numel(), dtype=torch.uint8, pin_memory=True)
-    host.copy_(merged, non_blocking=True)
-    ev = record_event(device)
-    ev.synchronize()
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        for ev in events:
+            stream.wait_event(ev)
+        merged = parts[0] if len(parts) == 1 else torch.cat(parts)
+        # pinned memory from PyTorch's caching host allocator: a non_blocking
+        # copy into pageable memory would be synchronous, and a fresh
+        # cudaHostAlloc per flush would cost more than the copy
+        host = torch.empty(merged.numel(), dtype=torch.uint8, pin_memory=True)
+        host.copy_(merged, non_blocking=True)
+        _event_on(stream).synchronize()
     return host.numpy().copy()
 
 
@@ -588,16 +730,16 @@ def _watchdog_text(positions) -> str:
             f"on device(s) {devs}")
 
 
-def _bounded_wait(plane, positions: Sequence[int], bound: float, event
-                  ) -> Optional[List[int]]:
-    """The armed gate before a readback of values that belong to
-    `positions`, behind `event`: any injected hung-transfer stall
-    (``device_hang``), then the watchdog's poll of the event until `bound`
-    (never ``synchronize()``, and no copy started).  None when the values
-    may be copied; else the positions that timed out, after a wait of the
-    bound: those whose injected stall passed it, or every position of a
-    wait on the stream that did not end (one stream: every position behind
-    it timed out)."""
+def _bounded_wait(plane, waits: Sequence[tuple], bound: float) -> List[int]:
+    """The armed gate before a readback of values behind `waits`, pairs of
+    (event, the positions of the values behind it): any injected
+    hung-transfer stall (``device_hang``), then the watchdog's poll of the
+    events until `bound` (never ``synchronize()``, and no copy started).
+    Empty when the values may be copied; else the positions that timed
+    out, after a wait of the bound: those whose injected stall passed it,
+    or those whose event had not passed (each lane's event is its own: a
+    stall holds only the positions behind it)."""
+    positions = [d for _ev, ds in waits for d in ds]
     if plane is not None:
         stalls = [plane.on_device_readback(d) for d in positions]
         stall = max(stalls, default=0.0)
@@ -608,32 +750,46 @@ def _bounded_wait(plane, positions: Sequence[int], bound: float, event
             time.sleep(stall)
     if bound > 0.0:
         deadline = time.monotonic() + bound
-        while not _passed(event):
+        pending = list(waits)
+        while True:
+            pending = [w for w in pending if not _passed(w[0])]
+            if not pending:
+                break
             left = deadline - time.monotonic()
             if left <= 0.0:
-                return list(positions)
+                hung: List[int] = []
+                for _ev, ds in pending:
+                    hung.extend(d for d in ds if d not in hung)
+                return hung
             time.sleep(min(0.002, left))
-    return None
+    return []
 
 
-def _readback_guard(device: torch.device, positions: Sequence[int]) -> None:
-    """Armed-only gate of the grouped fetch from `device`, whose values
-    belong to `positions` (``_bounded_wait`` on an event recorded now on
-    the device's stream, behind every kernel the values wait for; the
-    reference fetches each device's bucket on its own thread, one wait of
-    the bound covers every position here).  Raises ``LaneWatchdogTimeout``
-    (retryable) with the fault on the timed-out positions' lanes.
-    Disarmed cost: one global load and one float compare."""
+def _readback_guard(waits: Sequence[tuple]) -> None:
+    """Armed-only gate of one card's part of a grouped fetch, whose values
+    wait behind `waits` ((event, positions) pairs: each lane's event
+    recorded behind its values' kernels; ``_bounded_wait``, one bound for
+    them all).  Raises ``LaneWatchdogTimeout`` (retryable) with the fault
+    on the timed-out positions' lanes, and only theirs.  Disarmed cost:
+    one global load and one float compare."""
     plane = _net._fault_plane
     bound = _lane_watchdog_s
-    if (plane is None and bound <= 0.0) or not positions:
+    if (plane is None and bound <= 0.0) or not any(ds for _ev, ds in waits):
         return
-    hung = _bounded_wait(plane, positions, bound,
-                         record_event(device) if bound > 0.0 else None)
-    if hung is not None:
+    hung = _bounded_wait(plane, waits, bound)
+    if hung:
         for d in hung:
             note_device_fault(d, "watchdog_timeout")
         raise LaneWatchdogTimeout(_watchdog_text(hung))
+
+
+def _wait_of(w) -> tuple:
+    """(event, lane stream) of one group's `waits` entry."""
+    if isinstance(w, tuple):
+        return w
+    if isinstance(w, torch.cuda.Stream):
+        return None, w
+    return w, None
 
 
 def _bucket_positions(flat, fis, owner, positions) -> List[int]:
@@ -651,7 +807,8 @@ def _bucket_positions(flat, fis, owner, positions) -> List[int]:
 
 def gather_device_results(groups: Sequence[Sequence[Any]],
                           positions: Optional[Sequence[Any]] = None,
-                          note_faults: bool = True) -> List[tuple]:
+                          note_faults: bool = True,
+                          waits: Optional[Sequence[Any]] = None) -> List[tuple]:
     """Fetch every device value of `groups` with ONE device->host transfer
     per device: view each value as a contiguous uint8 stream, concatenate
     them on the device, copy the merged stream once, then split and
@@ -660,7 +817,12 @@ def gather_device_results(groups: Sequence[Sequence[Any]],
     None for each tensor's device index) names the positions each group
     belongs to, for the armed watchdog and the injected stalls
     (``_readback_guard``), and for a failed copy, counted on them as a
-    ``readback_error`` unless `note_faults` is False."""
+    ``readback_error`` unless `note_faults` is False.  `waits` (one entry
+    a group) says what each group's values wait behind: the event recorded
+    behind their kernels, the lane stream they were made on (an event is
+    recorded there now), both as (event, stream), or None for the thread's
+    current stream.  A card's copy runs on the first lane stream among its
+    groups, after every group's event."""
     flat: List[Any] = []  # tensor (as uint8 stream) or host value
     meta: List[Optional[tuple]] = []  # (dtype, shape) of each tensor
     index: List[List[int]] = []
@@ -682,21 +844,47 @@ def gather_device_results(groups: Sequence[Sequence[Any]],
             host[fi] = flat[fi]
         else:
             buckets.setdefault(flat[fi].device, []).append(fi)
-    owner = None  # the group of each flat value, when armed or failed
+    owner = None  # the group of each flat value, when armed, waiting or failed
 
     def groups_of():
         return {fi: g for g, pos in enumerate(index) for fi in pos}
 
-    if _net._fault_plane is not None or _lane_watchdog_s > 0.0:
+    armed = _net._fault_plane is not None or _lane_watchdog_s > 0.0
+    if armed or waits is not None:
         owner = groups_of()
+    recorded: dict = {}  # lane stream -> the event recorded on it now
     for device, fis in buckets.items():
         parts = [flat[fi] for fi in fis]
+        events: List[Any] = []
+        copy_stream = None
+        by_event: dict = {}  # id(event) -> (event, the flat values behind it)
         if owner is not None:
-            _readback_guard(device, _bucket_positions(flat, fis, owner, positions))
+            for fi in fis:
+                ev, st = _wait_of(waits[owner[fi]] if waits is not None else None)
+                if st is not None and st.device != device:
+                    st = ev = None  # another card's lane: not this value's
+                if st is not None:
+                    if copy_stream is None:
+                        copy_stream = st
+                    if ev is None:
+                        if st not in recorded:
+                            recorded[st] = _event_on(st)
+                        ev = recorded[st]
+                elif ev is None and armed:
+                    if device not in recorded:
+                        recorded[device] = record_event(device)
+                    ev = recorded[device]
+                by_event.setdefault(id(ev), (ev, []))[1].append(fi)
+            events = [ev for ev, _f in by_event.values()
+                      if isinstance(ev, torch.cuda.Event)]
+        if armed:
+            _readback_guard([
+                (ev, _bucket_positions(flat, f, owner, positions))
+                for ev, f in by_event.values()])
         STATS.count_sync()
         device_stats(device).count_sync()
         try:
-            merged = _fetch(device, parts)
+            merged = _fetch(device, parts, events, copy_stream)
         except Exception as e:
             # a failed copy (a sticky CUDA error surfaces at the first call
             # after it): the fault lands on the bucket's positions once
@@ -814,7 +1002,8 @@ def force_all(futures: Sequence[ReadbackFuture]) -> None:
         # a failed grouped copy is counted by each future's own retry
         host_groups = gather_device_results(
             [f._device for f in todo], [f._positions for f in todo],
-            note_faults=False)
+            note_faults=False,
+            waits=[(f._event, f._stream) for f in todo])
     except Exception:  # noqa: BLE001 — grouped path failed; force singly
         for f in todo:
             try:
@@ -1206,13 +1395,23 @@ class DeviceLane:
     """One position's serving lane: staging pool, flush pipeline, QoS
     ledger, and the occupancy gate (dispatches bound for one position
     serialize; dispatches bound for different positions overlap), plus the
-    interactive stream: its own gate, staging slot and dispatch queue."""
+    interactive stream: its own gate, staging slot and dispatch queue.  On
+    a card the lane owns a CUDA stream there (``stream``; None on the CPU):
+    its occupancy makes it current, with the card as the current device.
+    PyTorch hands streams out of a pool of 32 a card, so lanes beyond 32
+    on one card share streams, in order."""
 
     def __init__(self, device, laneset: "LaneSet", depth: int = 2):
         self.device = device
         self.dev_id = getattr(device, "id", 0)
-        torch_dev = getattr(device, "device", device)
-        pin = torch.device(torch_dev).type == "cuda"
+        torch_dev = torch.device(getattr(device, "device", device))
+        pin = torch_dev.type == "cuda"
+        self.stream = None
+        if pin and torch.cuda.is_available():
+            if torch_dev.index is None:
+                torch_dev = torch.device("cuda", torch.cuda.current_device())
+            self.stream = torch.cuda.Stream(device=torch_dev)
+        self.torch_device = torch_dev
         self.pool = StagingPool(depth=depth, pin=pin)
         self.pipeline = FlushPipeline(depth=depth)
         self.qos = QosLedger()
@@ -1330,7 +1529,8 @@ class _LaneOccupancy:
     ``:1388-1416``)."""
 
     __slots__ = ("_lane", "_n", "_cls", "_nbytes", "_stream", "_gate",
-                 "_prev_stream", "_prev_position", "_tcur", "_tmark")
+                 "_prev_stream", "_prev_position", "_prev_cuda", "_tcur",
+                 "_tmark")
 
     def __init__(self, lane: DeviceLane, n_items: int,
                  qos_class: Optional[str] = None, nbytes: int = 0):
@@ -1348,6 +1548,7 @@ class _LaneOccupancy:
             self._gate = lane._gate
         self._prev_stream = None
         self._prev_position = None
+        self._prev_cuda = None
         self._tcur = None
         self._tmark = 0.0
 
@@ -1389,6 +1590,17 @@ class _LaneOccupancy:
         _stream_tls.stream = self._stream
         self._prev_position = getattr(_stream_tls, "position", None)
         _stream_tls.position = self._lane.dev_id
+        lane_stream = self._lane.stream
+        if lane_stream is not None:
+            # the lane's stream current on its card, and its card the
+            # current device: (previous device, previous stream there,
+            # previous lane stream of the thread)
+            dev = lane_stream.device
+            self._prev_cuda = (torch.cuda.current_device(),
+                               torch.cuda.current_stream(dev),
+                               getattr(_stream_tls, "cuda", None))
+            torch.cuda.set_stream(lane_stream)
+            _stream_tls.cuda = lane_stream
         self._lane._laneset._enter()
         self._lane.dispatches += 1
         return self._lane
@@ -1408,6 +1620,12 @@ class _LaneOccupancy:
             self._lane._laneset._exit()
             _stream_tls.stream = self._prev_stream
             _stream_tls.position = self._prev_position
+            if self._prev_cuda is not None:
+                prev_dev, prev_stream, prev_lane = self._prev_cuda
+                self._prev_cuda = None
+                torch.cuda.set_stream(prev_stream)
+                torch.cuda.set_device(prev_dev)
+                _stream_tls.cuda = prev_lane
             self._gate.release()
             if self._stream == "interactive":
                 self._lane._iexit()

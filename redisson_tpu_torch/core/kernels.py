@@ -112,6 +112,8 @@ launches = {"bloom_probe": 0, "bloom_set": 0, "bloom_add": 0, "hll_add": 0, "hll
 # Of those, the launches with a shard window (parallel/sharded.py: the
 # sharded sketch programs' windowed forms of five kernels).
 window_launches = {"bloom_probe": 0, "bloom_set": 0, "hll_add": 0, "bitset_get": 0, "bitset_set": 0}
+# Of those, the CUDA launches on each card: (kernel, card index) -> count.
+card_launches: dict = {}
 _launches_lock = threading.Lock()
 
 
@@ -120,6 +122,7 @@ def reset_launches() -> None:
         for counts in (launches, window_launches):
             for name in counts:
                 counts[name] = 0
+        card_launches.clear()
 
 
 def count_launch(name: str) -> None:
@@ -379,7 +382,10 @@ def _launch(name: str, fn, state: torch.Tensor, *args) -> None:
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         _build.check(name, fn(*args, stream))
-    count_launch(name)
+    key = (name, state.device.index)
+    with _launches_lock:
+        launches[name] += 1
+        card_launches[key] = card_launches.get(key, 0) + 1
     if cur is not None:
         cur.add_span("launch", t0, time.monotonic(), kernel=name)
 
@@ -1550,6 +1556,21 @@ def _sm_count(device) -> int:
     if device not in _sm_counts:
         _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _sm_counts[device]
+
+
+def launch_state_bytes() -> dict:
+    """Bytes of the launch state the ticket-ordered kernels share, by
+    (kernel, device, stream), as the caching allocator counts them (its
+    blocks are multiples of 512 bytes): one copy for each stream a kernel
+    ran on, so a card with a lane stream for each position holds one a
+    lane."""
+    def held(t) -> int:
+        return -(-int(t.numel() * t.element_size()) // 512) * 512
+
+    with _state_lock:
+        out = {(k, str(d), s): held(t) for (k, d, s), (t, _tag) in _tagged_states.items()}
+        out.update({("knn_select", str(d), s): held(t) for (d, s), t in _select_states.items()})
+    return out
 
 
 def _select_state(device, words: int):

@@ -24,9 +24,13 @@ observe a tier.  Demotion is safe by construction: only clean state
 demotes (vector banks with pending rows pin HOT), fenced or migrating
 slots never demote (``fence_check``), records touched within
 ``min_idle_s`` never demote (the touch clock closes the get-then-read
-race), and sharded or host-only records are simply ineligible: a numpy
-plane and a ``ShardedPlane`` pin HOT, a ``torch.Tensor`` on any device
-(the CPU's included) may demote.
+race), and sharded or host-only records are ineligible for the budget's
+demotions: a numpy plane and a ``ShardedPlane`` pin HOT there, a
+``torch.Tensor`` on any device (the CPU's included) may demote.  A forced
+demotion (``demote(force=True)``, CLUSTER RESIDENCY DEMOTE) takes any
+record with arrays, as the reference's does: its fault-in brings every
+array back as a tensor on the owner's card.  With ``cold_after_s`` set, a
+sweep spills WARM records idle that long COLD.
 
 **What a device is here.**  The ledgers (``hot_bytes_by_device``,
 ``census``, the budget's victims, CLUSTER RESIDENCY's rows) key a record
@@ -34,8 +38,10 @@ by its owner position (``StateRecord.position``) when placement is on,
 and by its tensors' device index when it is off.  The reference keys by
 the JAX device of each single-device array, which is the record's
 position on the CPU's 8 forced devices, so both packages give the same
-rows there.  On one card with placement on, the budget is per position
-and the card's 8 positions share its memory.
+rows there.  The budget is per position, as the reference's is per
+device: with one position a card (the reference's layout) it is the
+card's; positions sharing a card each have it.  A fault-in uploads onto
+the owner position's card through that position's lane pool.
 
 Arming follows the trace plane's discipline: ``_tier_plane`` is the ONE
 module global every store-getter site loads.  ``None`` (the default)
@@ -50,7 +56,7 @@ Lock discipline (the dispatch path's order is lane -> record):
 
   * promotion runs WITHOUT the store lock (getters fire the hook after
     release), takes the record lock first, then the per-record transition
-    lock, then TRIES the owner lane's bulk gate with a short timeout — a
+    lock, then TRIES the owner lane's bulk gate for ``gate_timeout_s`` — a
     dispatch holding the gate while waiting on this record's lock would
     otherwise deadlock lock against lock; on timeout the upload proceeds
     gateless.  A promotion fired from inside a lane occupancy (bulk or
@@ -59,13 +65,18 @@ Lock discipline (the dispatch path's order is lane -> record):
   * demotion try-acquires the record lock (never blocks a serving path)
     and snapshots and swaps the tensors entirely under it.
 
-Ordering on the card: every lane launches on the card's one stream, so a
-demotion's device-to-host copy (``Tensor.cpu()``, which waits for it)
-follows every kernel already queued on the record, and the command that
-touched a promoted record launches behind the promotion's copy.  A
-promotion that raises (``torch.cuda.OutOfMemoryError`` among others)
-leaves the record WARM or COLD with its stash or spill intact, and the
-error reaches the caller: no fallback puts the record on the CPU.
+Ordering on the card: a demotion claims the record for its thread's
+stream (``DeviceStore.claim``), so its device-to-host copy follows every
+kernel queued on the record's lane stream, and the released tensors go
+back to the allocator only once that stream passed them; a promotion
+uploads on the stream current where it is fired (the lane's inside an
+occupancy), and the command that touched the record claims it behind the
+copy.  A packed upload refused for a dtype (one torch has no dtype for,
+a non-native byte order) falls back to one upload an array, the same
+bytes (``upload_array``), as the reference's does.  A promotion that
+raises (``torch.cuda.OutOfMemoryError`` among others) leaves the record
+WARM or COLD with its stash or spill intact, and the error reaches the
+caller: no fallback puts the record on the CPU.
 """
 from __future__ import annotations
 
@@ -130,8 +141,9 @@ _tier_plane: Optional[_TierPlane] = None
 
 _tls = threading.local()
 
-# how long a promotion outside a lane occupancy waits for the owner lane's
-# bulk gate before it uploads without it
+# the default of ResidencyManager's gate_timeout_s: how long a promotion
+# outside a lane occupancy waits for the owner lane's bulk gate before it
+# uploads without it
 GATE_TIMEOUT_S = 0.25
 
 
@@ -240,6 +252,20 @@ def replace_planes(rec, planes: Dict[str, Any]) -> None:
             rec.arrays[k] = a.clone()
 
 
+def upload_array(value, device) -> torch.Tensor:
+    """One host array as a tensor on `device`, the same bytes: the fault-in's
+    per-array path for what the packed upload refuses.  A non-native byte
+    order is read in the native one (the same values); a ``bfloat16``
+    array (``ml_dtypes``, which torch.from_numpy does not read) travels
+    as its uint16 bit patterns and is viewed as ``torch.bfloat16``."""
+    a = np.ascontiguousarray(value)
+    if not a.dtype.isnative:
+        a = a.astype(a.dtype.newbyteorder("="))
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.uint16)).to(device).view(torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
 def _host_bytes(arrays: Dict[str, Any]) -> int:
     return sum(int(getattr(a, "nbytes", 0)) for a in arrays.values())
 
@@ -316,11 +342,19 @@ class ResidencyManager:
     the ``CLUSTER RESIDENCY`` verb and the METRICS multi-gauge render."""
 
     def __init__(self, engine, spill_dir: Optional[str] = None,
-                 min_idle_s: float = 0.25, sweep_interval: float = 0.0):
+                 min_idle_s: float = 0.25, cold_after_s: float = 0.0,
+                 sweep_interval: float = 0.0,
+                 gate_timeout_s: float = GATE_TIMEOUT_S):
         self.engine = engine
         self._spill_dir = spill_dir
         self._owns_spill_dir = False
         self.min_idle_s = float(min_idle_s)
+        # WARM records idle longer than this spill COLD at a sweep (0 =
+        # never on their own)
+        self.cold_after_s = float(cold_after_s)
+        # how long a promotion outside a lane occupancy waits for the owner
+        # lane's bulk gate before it uploads without it
+        self.gate_timeout_s = float(gate_timeout_s)
         # touch clock: name -> (sequence, monotonic seconds); plain dict
         # writes are atomic under the GIL, so the getter path takes no lock
         self._clock = itertools.count(1)
@@ -471,13 +505,22 @@ class ResidencyManager:
             lane = self.engine.lanes.lane(device)
         gate = None
         if lane is not None and ioplane.current_stream() is None:
-            if lane._gate.acquire(timeout=GATE_TIMEOUT_S):
+            if lane._gate.acquire(timeout=self.gate_timeout_s):
                 gate = lane._gate
         try:
-            pool = self.engine.staging_pool(device)
             target = self.engine.device if device is None else device.device
-            arrays = ioplane.scatter_host_arrays(stash, target, pool=pool)
+            pool = self.engine.staging_pool(device)
+            try:
+                arrays = ioplane.scatter_host_arrays(stash, target, pool=pool)
+            except (TypeError, ValueError):
+                # the packed path refused a dtype (one torch has no dtype
+                # for, or a byte order it does not read): each array
+                # uploads on its own, the same bytes
+                arrays = {k: upload_array(v, target) for k, v in stash.items()}
             rec.arrays.update(arrays)
+            # the tensors are the upload's stream's from here on
+            rec.stream = None
+            self.engine.store.claim(rec)
         finally:
             if gate is not None:
                 gate.release()
@@ -526,11 +569,13 @@ class ResidencyManager:
                         return False
                     if force and (not rec.arrays or self.fence_check(name)):
                         return False
-                    if force and any(_array_device(rec, a) is None
-                                     for a in rec.arrays.values()):
-                        return False  # nothing single-device to release
-                    # one device-to-host copy a tensor; each waits for the
-                    # kernels queued before it on the card's stream
+                    # one device-to-host copy a tensor (a ShardedPlane
+                    # gathered whole, a numpy plane as it is), each after
+                    # the kernels queued on the record (``claim``); a
+                    # forced demotion takes any record, as the reference's
+                    # does, and the fault-in brings it back as tensors on
+                    # its owner's card
+                    eng.store.claim(rec)
                     stash = {k: host_array(v) for k, v in rec.arrays.items()}
                     dev = -1
                     for a in rec.arrays.values():
@@ -627,11 +672,10 @@ class ResidencyManager:
     # -- sweeper --------------------------------------------------------------
 
     def sweep(self) -> Dict[str, int]:
-        """One control-loop pass: demote each over-budget device back under
-        ``device-budget-bytes``, then GC spill files of deleted records.
-        Nothing spills COLD on its own here (the reference's idle-time
-        spill has no caller): COLD is ``CLUSTER RESIDENCY DEMOTE <key>
-        COLD``.  ``colded`` stays in the reply's shape and is 0."""
+        """One control-loop pass: (1) demote each over-budget device back
+        under ``device-budget-bytes``; (2) spill WARM records idle for
+        ``cold_after_s`` or longer COLD (with it set); (3) GC spill files
+        of deleted records."""
         out = {"demoted": 0, "colded": 0, "freed_bytes": 0}
         budget = DEVICE_BUDGET_BYTES
         if budget:
@@ -640,6 +684,16 @@ class ResidencyManager:
                     before = self.demotions_warm
                     out["freed_bytes"] += self.make_room(dev_id, hot - budget)
                     out["demoted"] += self.demotions_warm - before
+        if self.cold_after_s > 0:
+            with self.engine.store._lock:
+                warm = [
+                    n for n, r in self.engine.store._states.items()
+                    if r.tier == WARM and not r.expired()
+                ]
+            for name in warm:
+                if self.touch_age(name) >= self.cold_after_s:
+                    if self.demote(name, cold=True):
+                        out["colded"] += 1
         self._gc_spills()
         return out
 

@@ -12,10 +12,13 @@ A copy of ``redisson_tpu/core/store.py``.  The public getters (``get``,
 fault-in chokepoint: a WARM or COLD record (``core/residency.py``) is
 promoted back to HOT there, after the store lock is released; the
 ``*_unguarded`` accessors and ``census_records`` never promote.  With
-placement on,
-``placement_hook`` runs at every install (get_or_create's new record, put,
-put_unguarded) and names the record's owner position
-(``StateRecord.position``).  ``absent_guard`` is the slot-migration
+placement on, ``placement_hook`` runs at every install (get_or_create's
+new record, put, put_unguarded) and at a RENAME: it names the record's
+owner position (``StateRecord.position``) and commits its tensors to that
+position's card.  ``claim`` is the stream handoff of a placement over
+cards (``core/ioplane.py``, "Streams"): every getter calls it on the
+record it returns, and a reader that walks ``_states`` itself calls it
+before it reads a record's tensors.  ``absent_guard`` is the slot-migration
 window's hook: the server installs one that ASK-redirects any touch of an
 ABSENT name in a MIGRATING slot; the ``*_unguarded`` accessors bypass it
 for transfer frames (migration and replication) and the vector banks' own
@@ -61,6 +64,9 @@ class StateRecord:
     stash_dev: int = -1                      # ledger key the tensors left
     cold_path: Optional[str] = None          # COLD spill file
     cold_bytes: int = 0                      # spilled host bytes (census)
+    # the CUDA stream that last used the record's tensors (a lane's, or a
+    # card's default stream), with placement over cards; None elsewhere
+    stream: Any = field(default=None, repr=False, compare=False)
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.expire_at is not None and (now or time.time()) >= self.expire_at
@@ -85,8 +91,12 @@ class DeviceStore:
         # store lock is held.
         self.on_expired: Optional[Callable[[list], None]] = None
         # placement hook: called with (name, record) at every install so a
-        # placement-enabled engine names the owner position of the record
-        self.placement_hook: Optional[Callable[[str, StateRecord], None]] = None
+        # placement-enabled engine names the owner position of the record,
+        # and with (new name, record, True) at a rename
+        self.placement_hook: Optional[Callable[..., None]] = None
+        # stream handoff: called with a record before its tensors are used
+        # on the thread's current stream (``claim``); None = one stream
+        self.stream_hook: Optional[Callable[[StateRecord], None]] = None
         # the residency manager (Engine.enable_residency): the armed
         # `_res._tier_plane` guard routes getter touches here, so several
         # engines in one process never cross-wire.  None = no tiering even
@@ -97,6 +107,16 @@ class DeviceStore:
         if self.placement_hook is not None:
             self.placement_hook(name, rec)
         return rec
+
+    def claim(self, rec: Optional[StateRecord]) -> None:
+        """Hand `rec` to the current thread's stream on its card: that
+        stream waits for the work queued where the record was last used,
+        and its tensors are marked used there, so whoever drops them later
+        returns their memory only after both streams passed.  A no-op with
+        one stream (no hook)."""
+        hook = self.stream_hook
+        if hook is not None and rec is not None:
+            hook(rec)
 
     def _reaped(self, name: str) -> None:
         if self.on_expired is not None:
@@ -111,6 +131,7 @@ class DeviceStore:
             del self._states[name]
             rec = None
             self._reaped(name)
+        self.claim(rec)
         return rec
 
     def _get_locked(self, name: str) -> Optional[StateRecord]:
@@ -221,6 +242,8 @@ class DeviceStore:
             if rec is None:
                 return False
             if new != old:
+                if self.placement_hook is not None:
+                    self.placement_hook(new, rec, True)
                 self._states[new] = rec
                 del self._states[old]
             return True

@@ -145,8 +145,13 @@ bitset_set_grid_kernel(const Group* __restrict__ table, Group one, const int32_t
   }
 }
 
-// The grid kernel's co-resident blocks on the current device, asked once
-// per device.
+// The grid kernel's blocks on the current device, asked once per device:
+// half of what one card holds resident.  Every position's lane launches on
+// a stream of its own, so other streams' kernels may hold some of the SMs
+// when a cooperative grid launches; a grid of the whole residency would
+// wait for them to end (behind a stalled lane: for as long as it stalls),
+// where half of it finds room beside them.  The grid-stride loops take any
+// grid size.
 cudaError_t grid_resident(int& blocks) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> known[kMaxDevices];
@@ -158,7 +163,7 @@ cudaError_t grid_resident(int& blocks) {
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bitset_set_grid_kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  blocks = sms * per_sm;
+  blocks = sms * (per_sm > 1 ? per_sm / 2 : 1);
   if (dev < kMaxDevices) known[dev].store(blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }

@@ -22,9 +22,11 @@ between positions on one device are copies and elementwise ops on that
 device.  That is how the CPU tests get 8 positions on torch's one CPU
 device and how ``chip_smoke.py`` runs 8 shards on one H100.  JAX cannot do
 this outside forced host devices: its Mesh takes each device once.
-Positions on one card measure no cross-GPU collective; a mesh over several
-GPUs copies between cards with peer copies (``core/ioplane.colocate``) and
-is unverified on more than one GPU.
+``local_devices("cuda")`` lays the positions over every visible card (the
+reference's one position per chip of a multi-chip host); a card named with
+its index (``"cuda:1"``) keeps them all on that card.  Between cards the
+sharded planes, K13's merges and the slot handoffs move tensors by peer
+copies (``core/ioplane.colocate``), never through the host.
 """
 from __future__ import annotations
 
@@ -81,12 +83,17 @@ def local_devices(device=None, count: Optional[int] = None) -> List[Position]:
     """The local mesh positions on `device`'s kind (the card when there is
     one, else the CPU).  ``count`` None: one a GPU, or ``cpu_positions()``
     on the CPU; else ``count`` positions laid round robin over the GPUs (or
-    all on the CPU)."""
+    all on the CPU).  A card given with its index (``cuda:N``) takes every
+    position itself."""
     kind = _kind(device)
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA card for a mesh on cuda")
-        gpus = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        index = torch.device(device).index if device is not None else None
+        if index is not None:
+            gpus = [torch.device("cuda", index)]
+        else:
+            gpus = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         n = len(gpus) if count is None else int(count)
         return [Position(i, gpus[i % len(gpus)]) for i in range(n)]
     if kind != "cpu":

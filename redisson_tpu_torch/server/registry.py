@@ -46,10 +46,11 @@ class LazyReply:
 
     A device-form reply belongs to the position whose lane occupancy was
     current when it was made (``ioplane.current_position``), for the lane
-    watchdog and the injected stalls of the grouped fetch.
+    watchdog and the injected stalls of the grouped fetch, and its values
+    are read back on that lane's stream (``stream``).
     """
 
-    __slots__ = ("device", "finish", "_force", "position")
+    __slots__ = ("device", "finish", "_force", "position", "stream")
 
     def __init__(self, force: Optional[Callable[[], Any]] = None,
                  device: Optional[tuple] = None,
@@ -58,18 +59,22 @@ class LazyReply:
         self.device = device
         self.finish = finish
         self.position = ioplane.current_position() if device is not None else None
+        self.stream = ioplane.lane_stream_of(device) if device is not None else None
 
     def force(self) -> Any:
         if self._force is not None:
             return self._force()
-        return self.finish(tuple(ioplane._to_host(v) for v in self.device))
+        return self.finish(ioplane._copy_out(self.device, None, self.stream))
 
 
 def _settled(lazies: List["LazyReply"]) -> bool:
     """True when no device value of `lazies` still waits on device work:
-    an event recorded now on each value's device has already passed."""
-    devs = {ioplane.device_of(v) for lz in lazies for v in lz.device}
-    return all(ioplane._passed(ioplane.record_event(d)) for d in devs if d is not None)
+    an event recorded now on each value's lane stream (or its device's
+    current stream) has already passed."""
+    devs = {ioplane.device_of(v) for lz in lazies if lz.stream is None for v in lz.device}
+    streams = {lz.stream for lz in lazies if lz.stream is not None}
+    return (all(ioplane._passed(ioplane.record_event(d)) for d in devs if d is not None)
+            and all(ioplane._passed(ioplane._event_on(s)) for s in streams))
 
 
 def gather_lazy_device_results(lazies: List["LazyReply"]) -> List[tuple]:
@@ -93,7 +98,8 @@ def gather_lazy_device_results(lazies: List["LazyReply"]) -> List[tuple]:
 
 def _gather(lazies: List["LazyReply"]) -> List[tuple]:
     return ioplane.gather_device_results(
-        [lz.device for lz in lazies], [lz.position for lz in lazies])
+        [lz.device for lz in lazies], [lz.position for lz in lazies],
+        waits=[lz.stream for lz in lazies])
 class CommandContext:
     """Per-connection state (db selection, auth, subscriptions)."""
 

@@ -426,6 +426,7 @@ def serialize_records(
     shipped: List[Tuple[str, int, int]] = []
     for name, rec in items:
         with engine.locked(name):
+            engine.store.claim(rec)  # after the kernels queued on its lane
             item = _record_head(rec, name)
             item["arrays"] = _residency.record_host_arrays(rec)
             out.append(item)
@@ -570,7 +571,7 @@ def apply_records(engine, blob: bytes, on_applied=None, on_payload=None) -> int:
                 if arrays is None:
                     # went from stale to fresh between the peek and the
                     # lock (rare): one copy an array
-                    arrays = _place_singly(item["arrays"], engine.device)
+                    arrays = _place_singly(item["arrays"], engine.home(name))
             rec = StateRecord(
                 kind=item["kind"],
                 meta=item["meta"],

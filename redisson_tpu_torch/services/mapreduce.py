@@ -718,8 +718,11 @@ def word_count(source_map, workers: int = 4, executor=None, timeout: float = 120
             total.update(_await_payload_task(executor, tid, timeout))
         return dict(total)
     engine = getattr(source_map, "_engine", None)
-    device = engine.device if engine is not None else resolve_device("cuda")
     name = getattr(source_map, "_name", None)
+    if engine is None:
+        device = resolve_device("cuda")
+    else:
+        device = engine.home(name) if name is not None else engine.device
     cache = rec = None
     if engine is not None and name is not None and getattr(source_map, "_scan_view_safe", False):
         rec = engine.store.get(name)

@@ -649,8 +649,10 @@ def bank_has_pending(store, name: str) -> bool:
 
 
 class RecordRowBank(DeviceRowBank):
-    """DeviceRowBank whose planes live in a DeviceStore StateRecord on the
-    engine's device; deleting the record (FT.DROPINDEX) releases them."""
+    """DeviceRowBank whose planes live in a DeviceStore StateRecord on its
+    name's card (``Engine.home``: the owner position's with placement on);
+    deleting the record (FT.DROPINDEX) releases them.  ``device`` follows
+    the planes when a slot handoff moves the record to another card."""
 
     KIND = "vector_bank"
     BUDGETED = True
@@ -658,7 +660,7 @@ class RecordRowBank(DeviceRowBank):
     def __init__(self, engine, name: str, width: int,
                  block: int = DEFAULT_BLOCK, dtype: str = "FLOAT32",
                  meta: Optional[dict] = None, reset: bool = True):
-        super().__init__(width, block, dtype=dtype, device=engine.device)
+        super().__init__(width, block, dtype=dtype, device=engine.home(name))
         self._engine = engine
         self.name = name
         with engine.locked(name):
@@ -705,6 +707,22 @@ class RecordRowBank(DeviceRowBank):
         _res.replace_planes(rec, planes)
         rec.meta["rows"] = self.rows
         rec.version += 1
+
+    @property
+    def device(self) -> torch.device:
+        """The card the bank's planes live on, else its name's home."""
+        eng = self.__dict__.get("_engine")
+        if eng is None:  # DeviceRowBank.__init__, before the engine is set
+            return self.__dict__["_device0"]
+        rec = eng.store._states.get(self.name)
+        bank = rec.arrays.get("bank") if rec is not None else None
+        if isinstance(bank, torch.Tensor):
+            return bank.device
+        return eng.home(self.name)
+
+    @device.setter
+    def device(self, value) -> None:
+        self.__dict__["_device0"] = torch.device(value)
 
     def _owner_position(self):
         """The position that owns the bank's record (placement on), else
@@ -1149,10 +1167,14 @@ class EmbeddingBank(RecordRowBank):
                 return None
             if self._ivf is not None:
                 self._ivf_sync()
-            staged = K.stage(self._pad_queries(q, _query_bucket(nq)), self.device)
+            staged = K.stage(self._pad_queries(q, _query_bucket(nq)), bank.device)
             cand = self._ivf.cell_cap * self._resolve_nprobe(nprobe) if self.ivf_ready() else rows
             with self._lane_gate(nq * max(1, min(rows, cand))):
                 dist, idx, k_eff = self.dispatch((bank, bias, scale, rows), staged, k, nprobe, allowed_rows)
+                lane = ioplane.current_lane_stream()
+            # made on the lane's stream: the thread's own stream of the
+            # card takes them over (a readback or K19's merge reads them)
+            ioplane.hand_off((dist, idx), lane)
         return dist, idx, nq, k_eff
 
     def dispatch(self, planes, staged, k: int, nprobe: Optional[int] = None,
@@ -1162,7 +1184,7 @@ class EmbeddingBank(RecordRowBank):
         IVF once trained.  Returns (dist, idx, k_eff).  Called under the
         bank lock, after _ivf_sync."""
         bank, bias, scale, rows = planes
-        dev, metric = self.device, self.spec.metric
+        dev, metric = bank.device, self.spec.metric
         if self.ivf_ready():
             np_eff = self._resolve_nprobe(nprobe)
             dc, dl = self._ensure_index_device()
@@ -1566,8 +1588,6 @@ class ShardedEmbeddingBank:
         merge_shard, merge_out = outs[rr % len(outs)]
         dest = merge_out[0].device
         position = self.shards[merge_shard]._owner_position()
-        dists = [ioplane.colocate(o[0], dest) for _s, o in outs]
-        idxs = [ioplane.colocate(o[1], dest) for _s, o in outs]
         key = (tuple(s for s, _o in outs), tuple(o[3] for _s, o in outs), str(dest))
         with self._lock:
             sop = self._sop_cache.get(key)
@@ -1580,8 +1600,13 @@ class ShardedEmbeddingBank:
         total = sum(o[3] for _s, o in outs)
         k_out = max(1, min(int(k), total))
         merge = self._merge_kernel(len(outs))
-        # the merge charges the merge position's lane on top of the legs
-        with self._merge_lane_gate(position, nq * total):
+        # the merge charges the merge position's lane on top of the legs;
+        # the legs' tops (each handed to its card's default stream) come
+        # over by peer copies and merge on the default streams, which the
+        # lane then waits for
+        with self._merge_lane_gate(position, nq * total), ioplane.default_streams():
+            dists = [ioplane.colocate(o[0], dest) for _s, o in outs]
+            idxs = [ioplane.colocate(o[1], dest) for _s, o in outs]
             dist, sid, lidx = merge(tuple(dists), tuple(idxs), sop, k_out)
         ioplane.STATS.count_sharded_merge()
         return dist, sid, lidx, nq, k_out

@@ -2342,3 +2342,403 @@ def test_a_sticky_cuda_error_quarantines_every_lane_on_the_card(dev):
     assert out["probe_victim"] == "*2\r\n:0\r\n:1\r\n" and out["victim_after_probe"] == n + 1
     assert out["probe_other"][-1] == "*2\r\n:0\r\n:1\r\n", out["probe_other"]
     assert out["other"][:2] == [n, True], out["other"]
+
+
+# -- a stream for each position, and positions over several cards ----------------
+
+
+def _cycles_per_ms() -> float:
+    """torch.cuda._sleep's cycles a millisecond, by CUDA events."""
+    torch.cuda._sleep(1_000_000)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(20_000_000)
+    e1.record()
+    e1.synchronize()
+    return 20_000_000 / e0.elapsed_time(e1)
+
+
+@pytest.fixture()
+def one_card_lanes(dev):
+    """An engine with 8 positions on card 0, each lane on a stream of its own."""
+    from redisson_tpu_torch.core.engine import Engine
+
+    eng = Engine(device="cuda:0")
+    eng.enable_placement(n_devices=8)
+    yield eng
+    torch.cuda.synchronize()
+    eng.shutdown()
+
+
+def _lane(eng, position: int):
+    return eng.lanes.lane(eng.placement.devices[position])
+
+
+def test_a_spin_on_one_lane_holds_no_other_lanes_readback(one_card_lanes):
+    """Position 0's lane spins ~400 ms; a value made on position 1's lane
+    after the spin was launched reads back while the spin still runs."""
+    from redisson_tpu_torch.core import ioplane
+
+    eng = one_card_lanes
+    lanes = [_lane(eng, p) for p in range(8)]
+    assert len({ln.stream.cuda_stream for ln in lanes}) == 8
+    with lanes[1].occupy(1):  # load every kernel and copy before the spin
+        ioplane.ReadbackFuture((torch.arange(16, device="cuda:0") * 3,)).result()
+    cycles = _cycles_per_ms()
+    end = torch.cuda.Event()
+    with lanes[0].occupy(1):
+        torch.cuda._sleep(int(cycles * 400))
+        end.record()
+    with lanes[1].occupy(1):
+        fut = ioplane.ReadbackFuture((torch.arange(16, device="cuda:0") * 3,))
+    assert fut.result().tolist() == list(range(0, 48, 3))
+    assert not end.query(), "position 1's readback waited for position 0's spin"
+    end.synchronize()
+
+
+def test_only_the_spinning_lanes_watchdog_trips(one_card_lanes):
+    """lane-watchdog-ms 50: a readback behind position 0's ~400 ms spin
+    fails with LaneWatchdogTimeout and counts on lane 0 alone, while
+    readbacks of positions 1-7, one by one and grouped, pass."""
+    from redisson_tpu_torch.core import ioplane
+
+    eng = one_card_lanes
+    lanes = [_lane(eng, p) for p in range(8)]
+    for ln in lanes:  # every kernel loaded before the spin, as the test launches it
+        with ln.occupy(1):
+            ioplane.ReadbackFuture((torch.ones(4, device="cuda:0") * ln.dev_id,)).result()
+    ioplane.force_all([ioplane.ReadbackFuture((torch.ones(4, device="cuda:0"),)) for _ in range(2)])
+    cycles = _cycles_per_ms()
+    prev = ioplane.set_lane_watchdog_ms(50)
+    try:
+        with lanes[0].occupy(1):
+            torch.cuda._sleep(int(cycles * 400))
+            stuck = ioplane.ReadbackFuture((torch.ones(4, device="cuda:0"),))
+        others = []
+        for ln in lanes[1:]:
+            with ln.occupy(1):
+                others.append(ioplane.ReadbackFuture((torch.ones(4, device="cuda:0") * ln.dev_id,)))
+        assert [f.result().tolist() for f in others[:3]] == [[float(p)] * 4 for p in (1, 2, 3)]
+        ioplane.force_all(others[3:])
+        assert [f.result().tolist() for f in others[3:]] == [[float(p)] * 4 for p in (4, 5, 6, 7)]
+        with pytest.raises(ioplane.LaneWatchdogTimeout, match="device\\(s\\) 0"):
+            stuck.result()
+        assert [ln.total_faults for ln in lanes] == [1] + [0] * 7
+    finally:
+        ioplane.set_lane_watchdog_ms(prev)
+        torch.cuda.synchronize()
+
+
+def test_a_record_dropped_under_its_lanes_kernel_is_not_reused(one_card_lanes):
+    """A filter made off the lanes (its plane's block in the default
+    stream's pool) is probed on position 1's lane behind a spin; the
+    record is deleted from outside the lane while the probe waits and a
+    buffer of the plane's size filled with ones is allocated on the default
+    stream: it gets another block, and the probe's flags equal the plain
+    version's."""
+    from redisson_tpu_torch.client.objects.bloom import BloomFilter
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core.engine import Engine
+
+    eng = one_card_lanes
+    name = next(f"race{i}" for i in range(1000) if eng.placement.device_id_for_name(f"race{i}") == 1)
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 62, 1 << 18).astype(np.int64)
+    probe = np.concatenate([keys[: 1 << 17], rng.integers(0, 1 << 62, 1 << 17)]).astype(np.int64)
+    plain = Engine(device="cpu")
+    pbf = BloomFilter(plain, name)
+    pbf.try_init(1 << 18, 0.01)
+    pbf.add_all(keys)
+    want = pbf.contains_each(probe)
+    plain.shutdown()
+    bf = BloomFilter(eng, name)
+    bf.try_init(1 << 18, 0.01)
+    bf.add_all(keys)
+    bf.contains_each(probe[:8])  # the probe's kernels loaded before the spin
+    torch.cuda.synchronize()
+    plane = eng.store.get(name).arrays["bits"]
+    ptr, nbytes = plane.data_ptr(), plane.numel()
+    del plane
+    cycles = _cycles_per_ms()
+    end = torch.cuda.Event()
+    with _lane(eng, 1).occupy(1):
+        torch.cuda._sleep(int(cycles * 200))
+        found, n = bf.contains_each_async(probe)
+        fut = ioplane.ReadbackFuture((found,), lambda h: K.unpack_found(h[0], n))
+        end.record()
+    assert eng.store.delete(name)
+    junk = torch.full((nbytes,), 255, dtype=torch.uint8, device="cuda:0")
+    assert not end.query(), "the probe finished before the DEL: no race was run"
+    assert junk.data_ptr() != ptr, "the plane's block was handed out under the pending probe"
+    np.testing.assert_array_equal(fut.result(), want)
+
+
+def test_a_cooperative_bitset_set_runs_beside_a_spinning_lane(one_card_lanes):
+    """bitset_set's cooperative grid (a group past one block's ops) on
+    position 1's lane finishes while position 0's lane still spins: the
+    grid takes half the card's residency, so it fits beside other
+    streams' kernels."""
+    eng = one_card_lanes
+    rng = np.random.default_rng(9)
+    bits = torch.zeros(1 << 22, dtype=torch.uint8, device="cuda:0")
+    idx = torch.from_numpy(rng.integers(0, 1 << 22, 1 << 20).astype(np.int32)).cuda(0)
+    want_bits = K.bitset_set_plain(bits.clone(), idx, idx.numel(), 1)[0]
+    with _lane(eng, 1).occupy(1):
+        K.bitset_set(bits.clone(), idx, idx.numel(), 1)  # loaded before the spin
+        torch.cuda.synchronize()
+    cycles = _cycles_per_ms()
+    end, done = torch.cuda.Event(), torch.cuda.Event()
+    with _lane(eng, 0).occupy(1):
+        torch.cuda._sleep(int(cycles * 400))
+        end.record()
+    with _lane(eng, 1).occupy(1):
+        got, old = K.bitset_set(bits, idx, idx.numel(), 1)
+        done.record()
+    done.synchronize()
+    assert not end.query(), "the cooperative grid waited for the spinning lane"
+    assert torch.equal(got, want_bits) and int(old.sum()) == 0
+    end.synchronize()
+
+
+def _cards_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA cards for positions over several cards; saw {n}")
+    return n
+
+
+@pytest.fixture()
+def over_cards():
+    """An engine whose 2 x (card count) positions lie round robin over every card."""
+    from redisson_tpu_torch.core.engine import Engine
+
+    n = _cards_or_skip()
+    eng = Engine(device="cuda")
+    eng.enable_placement(n_devices=2 * n)
+    assert len({str(p.device) for p in eng.placement.devices}) == n
+    yield eng
+    for d in range(n):
+        torch.cuda.synchronize(d)
+    eng.shutdown()
+
+
+def _on_distinct_cards(placement, count: int, prefix: str) -> list:
+    names, cards = [], set()
+    for i in range(100_000):
+        name = f"{prefix}{i}"
+        card = str(placement.device_for_name(name).device)
+        if card not in cards:
+            cards.add(card)
+            names.append(name)
+            if len(names) == count:
+                return names
+    raise AssertionError("not enough cards")
+
+
+def test_records_commit_and_move_between_cards_bit_for_bit(over_cards):
+    """Every record's registers sit on its owner's card; a fenced slot
+    handoff to a position on another card moves them by a peer copy, bit
+    for bit, and the counter reads the same."""
+    from redisson_tpu_torch.client.objects.hyperloglog import HyperLogLog
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    eng = over_cards
+    p = eng.placement
+    names = _on_distinct_cards(p, 2, "cm")
+    for name in names:
+        HyperLogLog(eng, name).add_all([f"{name}:{j}" for j in range(500)])
+        assert eng.store.get(name).arrays["regs"].device == torch.device(p.device_for_name(name).device)
+    name = names[0]
+    before = eng.store.get(name).arrays["regs"].cpu()
+    count = HyperLogLog(eng, name).count()
+    slot = calc_slot(name.encode())
+    src = p.device_id_for_slot(slot)
+    dst = next(i for i, q in enumerate(p.devices) if q.device != p.devices[src].device)
+    ioplane.STATS.reset()
+    assert eng.move_slot_records(slot, dst, epoch=5) >= 1
+    snap = ioplane.STATS.snapshot()
+    regs = eng.store.get(name).arrays["regs"]
+    assert regs.device == torch.device(p.devices[dst].device)
+    assert torch.equal(regs.cpu(), before)
+    assert snap["d2d_colocations"] >= 1 and snap["host_colocations"] == 0
+    assert snap["d2d_bytes"] == before.numel()
+    assert HyperLogLog(eng, name).count() == count
+    HyperLogLog(eng, name).add_all(["after the move"])  # kernels on the new card's lane
+    assert HyperLogLog(eng, name).count() >= count
+
+
+def test_k13_across_cards_goes_through_no_host(over_cards):
+    """PFCOUNT and PFMERGE over counters on several cards, and BITOP over
+    bit sets on two: equal to one card's, peer copies only."""
+    from redisson_tpu_torch.client.objects.bitset import BitSet
+    from redisson_tpu_torch.client.objects.hyperloglog import HyperLogLog
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core.engine import Engine
+
+    eng = over_cards
+    plain = Engine(device="cuda:0")
+    try:
+        names = _on_distinct_cards(eng.placement, torch.cuda.device_count(), "k13h")
+        rng = np.random.default_rng(3)
+        for name in names:
+            keys = [f"{name}:{int(k)}" for k in rng.integers(0, 1 << 40, 300)]
+            HyperLogLog(eng, name).add_all(keys)
+            HyperLogLog(plain, name).add_all(keys)
+        ioplane.STATS.reset()
+        want = HyperLogLog(plain, names[0]).count_with(*names[1:])
+        assert HyperLogLog(eng, names[0]).count_with(*names[1:]) == want
+        HyperLogLog(eng, names[0]).merge_with(*names[1:])
+        HyperLogLog(plain, names[0]).merge_with(*names[1:])
+        regs = eng.store.get(names[0]).arrays["regs"]
+        assert regs.device == torch.device(eng.placement.device_for_name(names[0]).device)
+        assert torch.equal(regs.cpu(), plain.store.get(names[0]).arrays["regs"].cpu())
+        a, b = _on_distinct_cards(eng.placement, 2, "k13b")
+        BitSet(eng, a).set_each(np.array([1, 5, 9]))
+        BitSet(eng, b).set_each(np.array([2, 5, 100]))
+        BitSet(eng, a).or_(b)
+        got = np.asarray(BitSet(eng, a).get_each(np.arange(128)))
+        assert sorted(np.nonzero(got)[0].tolist()) == [1, 2, 5, 9, 100]
+        snap = ioplane.STATS.snapshot()
+        assert snap["host_colocations"] == 0 and snap["d2d_colocations"] > 0
+    finally:
+        plain.shutdown()
+
+
+# the reference's tests/test_device_sharding.py cases that assert device
+# identity or device-to-device copies across positions: on the CPU they wait
+# (tests/test_torch_suite_device_sharding.py), here they run on positions
+# laid over the cards
+DEVICE_SHARDING_ON_CARDS = (
+    "test_records_commit_to_owner_device",
+    "test_put_unguarded_places_like_migration_import",
+    "test_device_rebalance_kill_at_every_phase",
+    "test_move_slot_records_fenced_and_bit_identical",
+    "test_gather_device_results_buckets_per_device",
+    "test_hll_union_across_devices_matches_single_device_and_stays_on_device",
+    "test_bitset_bitop_across_devices_stays_on_device",
+    "test_wordcount_spreads_chunks_and_merges_without_host_gather",
+)
+
+
+def _owner_card(eng, name):
+    return torch.device(eng.placement.device_for_name(name).device)
+
+
+@pytest.mark.parametrize("case", DEVICE_SHARDING_ON_CARDS)
+def test_device_sharding_on_cards(case, over_cards, tmp_path):
+    """The reference's device-identity and device-to-device cases, each
+    with the port's calls, on positions over every card."""
+    from redisson_tpu_torch.client.objects.bitset import BitSet
+    from redisson_tpu_torch.client.objects.hyperloglog import HyperLogLog
+    from redisson_tpu_torch.core import ioplane
+    from redisson_tpu_torch.core.engine import Engine
+    from redisson_tpu_torch.core.store import StateRecord
+    from redisson_tpu_torch.server.migration import CoordinatorKilled, rebalance_devices, resume_device_rebalances
+    from redisson_tpu_torch.server.placement import PlacementStaleEpoch
+    from redisson_tpu_torch.utils.crc16 import calc_slot
+
+    eng = over_cards
+    p = eng.placement
+    if case == "test_records_commit_to_owner_device":
+        for name in _on_distinct_cards(p, torch.cuda.device_count(), "own"):
+            HyperLogLog(eng, name).add_all([f"{name}:{j}" for j in range(20)])
+            assert eng.store.get(name).arrays["regs"].device == _owner_card(eng, name)
+    elif case == "test_put_unguarded_places_like_migration_import":
+        name = next(f"imp{i}" for i in range(1000) if _owner_card(eng, f"imp{i}").index != 0)
+        eng.store.put_unguarded(name, StateRecord(kind="bitset", meta={},
+                                                  arrays={"bits": torch.zeros(64, dtype=torch.uint8,
+                                                                              device="cuda:0")}))
+        assert eng.store.get(name).arrays["bits"].device == _owner_card(eng, name)
+    elif case in ("test_move_slot_records_fenced_and_bit_identical", "test_device_rebalance_kill_at_every_phase"):
+        names = [f"reb{i}" for i in range(6)]
+        for name in names:
+            HyperLogLog(eng, name).add_all([f"{name}:{j}" for j in range(50)])
+        baseline = {n: eng.store.get(n).arrays["regs"].cpu() for n in names}
+        slots = sorted({calc_slot(n.encode()) for n in names})
+        phases = ("PLANNED", "DRAINING:1", "STABLE") if "kill" in case else (None,)
+        for phase in phases:
+            target = {s: (p.device_id_for_slot(s) + 1) % p.n_devices for s in slots}
+            if phase is None:
+                epoch = 10
+                for s, d in target.items():
+                    eng.move_slot_records(s, d, epoch=epoch)
+            else:
+                jd = str(tmp_path / "journal")
+                with pytest.raises(CoordinatorKilled):
+                    rebalance_devices(eng, target, journal_dir=jd, crash_after=phase)
+                resume_device_rebalances(eng, jd)
+                epoch = max(p.epoch_of(s) for s in slots)
+            for name in names:
+                regs = eng.store.get(name).arrays["regs"]
+                assert regs.device == torch.device(p.devices[target[calc_slot(name.encode())]].device)
+                assert torch.equal(regs.cpu(), baseline[name])
+            with pytest.raises(PlacementStaleEpoch, match="STALEEPOCH"):
+                eng.move_slot_records(slots[0], 0, epoch=epoch - 1)
+    elif case == "test_gather_device_results_buckets_per_device":
+        n = torch.cuda.device_count()
+        rng = np.random.default_rng(11)
+        host_vals = [rng.integers(0, 255, 97).astype(np.uint8) for _ in range(2 * n)]
+        groups = [(torch.from_numpy(v).to(f"cuda:{i % n}"),) for i, v in enumerate(host_vals)]
+        ioplane.reset_device_stats()
+        before = ioplane.STATS.snapshot()["blocking_syncs"]
+        out = ioplane.gather_device_results(groups)
+        for got, want in zip(out, host_vals):
+            np.testing.assert_array_equal(got[0], want)
+        assert ioplane.STATS.snapshot()["blocking_syncs"] - before == n
+        assert len([d for d, s in ioplane.device_stats_snapshot().items() if s["blocking_syncs"]]) == n
+    elif case == "test_hll_union_across_devices_matches_single_device_and_stays_on_device":
+        plain = Engine(device="cuda:0")
+        try:
+            names = _on_distinct_cards(p, torch.cuda.device_count(), "hu")
+            rng = np.random.default_rng(3)
+            for name in names:
+                keys = [f"{name}:{int(k)}" for k in rng.integers(0, 1 << 40, 300)]
+                HyperLogLog(eng, name).add_all(keys)
+                HyperLogLog(plain, name).add_all(keys)
+            ioplane.STATS.reset()
+            want = HyperLogLog(plain, names[0]).count_with(*names[1:])
+            assert HyperLogLog(eng, names[0]).count_with(*names[1:]) == want
+            snap = ioplane.STATS.snapshot()
+            assert snap["host_colocations"] == 0 and snap["d2d_colocations"] > 0
+            HyperLogLog(eng, names[0]).merge_with(*names[1:])
+            assert eng.store.get(names[0]).arrays["regs"].device == _owner_card(eng, names[0])
+            assert HyperLogLog(eng, names[0]).count() == want
+            assert ioplane.STATS.snapshot()["host_colocations"] == 0
+        finally:
+            plain.shutdown()
+    elif case == "test_bitset_bitop_across_devices_stays_on_device":
+        a, b = _on_distinct_cards(p, 2, "bo")
+        BitSet(eng, a).set_each(np.array([1, 5, 9]))
+        BitSet(eng, b).set_each(np.array([2, 5, 100]))
+        ioplane.STATS.reset()
+        BitSet(eng, a).or_(b)
+        snap = ioplane.STATS.snapshot()
+        assert snap["host_colocations"] == 0 and snap["d2d_colocations"] > 0
+        got = np.asarray(BitSet(eng, a).get_each(np.arange(128)))
+        assert sorted(np.nonzero(got)[0].tolist()) == [1, 2, 5, 9, 100]
+    else:
+        import collections
+
+        import redisson_tpu_torch
+        from redisson_tpu_torch.client.codec import StringCodec
+        from redisson_tpu_torch.services import mapreduce
+
+        c = redisson_tpu_torch.create(device="cuda")
+        try:
+            c.engine.enable_placement(n_devices=2 * torch.cuda.device_count())
+            m = c.get_map("ds:wc", codec=StringCodec())
+            rng = np.random.default_rng(5)
+            vocab = [f"w{i}" for i in range(40)]
+            entries = {f"d{i}": " ".join(vocab[j] for j in rng.integers(0, 40, 6)) for i in range(3000)}
+            m.put_all(entries)
+            ioplane.STATS.reset()
+            got = mapreduce.word_count(m)
+            snap = ioplane.STATS.snapshot()
+            want = collections.Counter(w for v in entries.values() for w in v.split())
+            assert got == dict(want)
+            assert snap["host_colocations"] == 0 and snap["d2d_colocations"] > 0
+        finally:
+            c.shutdown()

@@ -172,8 +172,6 @@ def test_records_are_owned_by_their_slots_position(engine):
     with pytest.raises(PlacementStaleEpoch, match="STALEEPOCH"):
         engine.move_slot_records(slot, src, epoch=9)
     assert engine.store.get(name).position == dst
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        Engine(device="cpu").enable_placement(devices=[TM.Position(0, __import__("torch").device("meta"))])
 
 
 def test_cross_position_merges_match_one_position_and_gather_nothing_on_the_host():
